@@ -1,0 +1,44 @@
+"""Carry parameters from the JAX package's layout into the port.
+
+The port keeps the JAX layout exactly (``x @ W`` with ``W [in, out]``,
+expert banks ``[E, in, out]``, the same nested names), so conversion is a
+per-leaf copy with no transposes: a nested dict/list of numpy arrays (e.g.
+``jax.tree_util.tree_map(np.asarray, params)``) or a flat safetensors dict
+(``layers.3.feed_forward.experts.w_gate.weight``) becomes the port's nested
+dict of tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .utils.tree import lists_from_index_dicts, unflatten_dict
+
+
+def _to_tensor(leaf: Any, device) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device)
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: carry the raw bits
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def params_from_jax(tree: Any, device="cuda") -> Any:
+    """Nested dict/list tree of numpy arrays -> the same tree of tensors on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    return _to_tensor(tree, device)
+
+
+def params_from_flat(flat: Dict[str, Any], device="cuda") -> Any:
+    """Flat ``{"layers.0.attention.wq.weight": array}`` (a checkpoint file's
+    contents) -> nested params with ``layers`` as a list."""
+    return params_from_jax(lists_from_index_dicts(unflatten_dict(flat)), device)
