@@ -7,27 +7,48 @@ Phases (any failed check exits non-zero and prints no result on stdout):
 
 1. device  — needs CUDA (there is no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them.
-2. build   — compiles the grouped-GEMM kernel (csrc/grouped_matmul.cu) with
-   nvcc into build/kernels/.
+2. build   — compiles the grouped-GEMM kernel (csrc/grouped_matmul.cu) and the
+   flash-attention kernels (csrc/flash_attention.cu) with nvcc into
+   build/kernels/, one nvcc per source, both at once.
 3. kernels — holds ``gmm`` against its plain PyTorch version at the serving
    path's shapes (moe-8x40m: decode with 8 slots, a 256-token prefill chunk),
    fp32 and bf16, plus an empty-group/tail-tile case, and times the kernel,
    the plain version and ``torch._grouped_mm`` (where it takes the dtype)
-   as a yardstick.
-4. path    — serves moe-8x40m at full width (12 layers, seeded random fp32
+   as a yardstick. Then holds ``flash_fwd``, ``flash_bwd_dq`` and
+   ``flash_bwd_dkv`` against their plain versions: the training path's
+   shape (B 32, H 8, S 1024, D 64, bf16, causal), fp32, GQA 8/2, S 1000
+   (tail tiles), sliding_window, prefix_lm, full and D 128, timing each
+   beside ``F.scaled_dot_product_attention`` (forward; forward + backward
+   for the backward kernels) as a yardstick. Each output must pass
+   ``ops/flash_check.compare`` (per-element limits scaled to the output's
+   RMS, and a normwise limit); at the path shape the kernels are launched
+   once more with one live tile left out of their plans, and the same
+   check must reject every output.
+4. serve   — serves moe-8x40m at full width (12 layers, seeded random fp32
    weights) through the port's HTTP server and batch engine: 8 slots,
    max_len 1024, paged KV in 32-token blocks, prefix cache, 256-token prefill
    chunks. Checks the responses, the gmm launch count (3 per layer per
    prefill chunk and per decode step) and the first token's logits against
    the port's plain path on the CPU.
-5. report  — a ``{"kernels": [...]}`` line, the card line, and as the last
+5. train   — trains configs/model-config-40m-adamw.yaml at full width
+   (hidden 512, 12 layers, S 1024, batch 32, bf16 over fp32 masters, AdamW)
+   through ``Trainer(...).train()`` on a seeded synthetic byte corpus: 30
+   steps (``iters`` and ``warmup_steps`` cut to fit a smoke), a log line
+   every 5, one validation and the final checkpoint. Checks the loss falls,
+   the flash launch counts (12 per step and per validation batch for the
+   forward, 12 per step for each backward), step 1's loss and gradients
+   against the plain attention path on the card at batch 8, and serves the
+   final checkpoint through the port's server.
+6. report  — a ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
-fp32 matmuls run in full fp32: TF32 is switched off for matmuls and cuDNN.
-Imports nothing of JAX.
+Every path runs with all launch counts set to 0 just before it and read
+just after. fp32 matmuls run in full fp32: TF32 is switched off for matmuls
+and cuDNN. Imports nothing of JAX.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,6 +56,7 @@ import threading
 import time
 
 SEED = 0
+REPO = os.path.dirname(os.path.abspath(__file__))
 # configs/model-config-moe-8x40m.yaml, written out so no YAML is read here.
 MOE_8X40M = dict(vocab_size=259, hidden_size=512, intermediate_size=1536,
                  num_layers=12, num_heads=8, num_kv_heads=8, head_dim=64,
@@ -46,6 +68,13 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:137"
 SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/grouped_matmul.cu"
+FLASH_SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd": "mlx_cuda_distributed_pretraining_tpu/ops/flash_attention.py:404",
+    "flash_bwd_dq": "mlx_cuda_distributed_pretraining_tpu/ops/flash_attention.py:466",
+    "flash_bwd_dkv": "mlx_cuda_distributed_pretraining_tpu/ops/flash_attention.py:509",
+}
+FLASH_KERNELS = tuple(FLASH_REPLACES)
 
 
 def log(msg: str) -> None:
@@ -58,6 +87,17 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def reset_launches(gm, fa) -> None:
+    gm.gmm.launches = 0
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
+
+
+def read_launches(gm, fa) -> dict:
+    return {"gmm": gm.gmm.launches,
+            **{name: getattr(fa, name).launches for name in FLASH_KERNELS}}
 
 
 # -- phase 3: kernel vs plain -----------------------------------------------------
@@ -172,6 +212,165 @@ def kernel_phase(torch, gm):
     return cases
 
 
+# -- phase 3: the flash kernels vs plain -------------------------------------------
+# (name, dtype, B, Hq, Hkv, S, D, mask): the training path's shape first.
+FLASH_CASES = [
+    ("path", "bfloat16", 32, 8, 8, 1024, 64, "causal"),
+    ("fp32", "float32", 4, 8, 8, 1024, 64, "causal"),
+    ("gqa", "bfloat16", 8, 8, 2, 1024, 64, "causal"),
+    ("tail", "bfloat16", 8, 8, 8, 1000, 64, "causal"),
+    ("tail_fp32", "float32", 2, 8, 2, 1000, 64, "causal"),
+    ("sliding_window", "bfloat16", 8, 8, 8, 1024, 64, "sliding_window"),
+    ("prefix_lm", "bfloat16", 8, 8, 8, 1024, 64, "prefix_lm"),
+    ("full", "bfloat16", 8, 8, 8, 1024, 64, "full"),
+    ("d128", "bfloat16", 8, 8, 8, 1024, 128, "causal"),
+    ("d128_fp32", "float32", 2, 8, 8, 1024, 128, "causal"),
+]
+WINDOW, PREFIX = 256, 384
+
+
+def flash_work(fa, dtype, B, Hq, Hkv, S, D, mask):
+    """(bytes, operations) each kernel needs for these inputs: every input
+    read once and every output written once; the products over the pairs
+    (row, col) the mask lets through (2 per multiply-add): fwd q.k^T and
+    p.v, dQ q.k^T, dO.v^T and dS.k, dK/dV q.k^T, dO.v^T, p^T.dO and dS^T.q."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks
+
+    mod = fa._mask_mod(mask, WINDOW, PREFIX)
+    pairs = S * S if mod is None else int(
+        masks.materialize_mask(mod, S, S, device="cuda").sum().item())
+    es = 2 if dtype == "bfloat16" else 4
+    q_el, kv_el, stat = B * Hq * S * D, B * Hkv * S * D, B * Hq * S * 4
+    per_product = 2.0 * B * Hq * D * pairs
+    return {"flash_fwd": ((2 * q_el + 2 * kv_el) * es + stat, 2 * per_product),
+            "flash_bwd_dq": ((3 * q_el + 2 * kv_el) * es + 2 * stat, 3 * per_product),
+            "flash_bwd_dkv": ((4 * q_el + 2 * kv_el) * es + 2 * stat, 4 * per_product)}
+
+
+def sdpa_calls(torch, q, k, v, do, mask, scale):
+    """``F.scaled_dot_product_attention`` forward, and forward + backward,
+    on the same inputs: a yardstick only, the port never calls it."""
+    import torch.nn.functional as F
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks
+
+    G = q.shape[1] // k.shape[1]
+    if G > 1:
+        k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    kw = {"scale": scale}
+    if mask == "causal":
+        kw["is_causal"] = True
+    elif mask != "full":
+        mod = masks.sliding_window(WINDOW) if mask == "sliding_window" \
+            else masks.prefix_lm(PREFIX)
+        kw["attn_mask"] = masks.materialize_mask(mod, q.shape[2], k.shape[2],
+                                                 device="cuda")
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd(_):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, **kw)
+
+    def fwd_bwd(_):
+        F.scaled_dot_product_attention(qg, kg, vg, **kw).backward(do)
+
+    return fwd, fwd_bwd
+
+
+def fmt_checks(checks: dict) -> str:
+    return " ".join(f"{o}:err={c['max_abs_err']:.3g},limit_ratio="
+                    f"{c['limit_ratio']:.3g},norm_err={c['norm_err']:.3g}"
+                    for o, c in checks.items())
+
+
+def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_check
+
+    g = torch.Generator().manual_seed(SEED)
+    dt = getattr(torch, dtype)
+    # [B, H, S, D] views of [B, S, H, D] tensors: the model's layout.
+    q, k, v, do = (torch.randn(B, S, h, D, generator=g).to("cuda", dt)
+                   .transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
+    kw = dict(mask_type=mask, window=WINDOW, prefix_len=PREFIX, scale=D ** -0.5)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
+    torch.cuda.synchronize()
+    rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
+    rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
+    # flash_check.compare: per element atol 2**-5 x RMS / rtol 2e-2 and
+    # normwise 1e-2 for bf16; 1e-5 x RMS / 1e-4 and 1e-5 for fp32. lse is
+    # fp32 in both versions: 1e-5.
+    got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    checks = {out: flash_check.compare(got[out], refs[out]) for out in refs}
+    errs = {out: c["max_abs_err"] for out, c in checks.items()}
+    errs["lse"] = (lse - rlse).abs().max().item()
+    ok = all(c["ok"] for c in checks.values()) and bool(torch.isfinite(lse).all()) \
+        and torch.allclose(lse, rlse, atol=1e-5, rtol=1e-5)
+    fault = None
+    if name == "path":
+        # The same check on a planted fault: one live tile left out of each
+        # kernel's plan. Every output must fail it.
+        with flash_check.planted_fault():
+            bad = flash_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+        fault = {out: flash_check.compare(bad[out], refs[out]) for out in refs}
+        del bad
+        log(f"flash {name} planted fault (one live tile skipped): "
+            + fmt_checks(fault))
+        if any(c["ok"] for c in fault.values()):
+            ok = False
+            log("flash path: the check passed a planted fault")
+    del ro, rdq, rdk, rdv, o, dq, dk, dv, refs, got
+    torch.cuda.empty_cache()
+
+    work = flash_work(fa, dtype, B, Hq, Hkv, S, D, mask)
+    lib_fwd, lib_fwd_bwd = sdpa_calls(torch, q, k, v, do, mask, D ** -0.5)
+    try:
+        library = {"fwd": device_ms(torch, lib_fwd, 1, reps=10),
+                   "fwd_bwd": device_ms(torch, lib_fwd_bwd, 1, reps=10)}
+        library_note = "F.scaled_dot_product_attention"
+    except RuntimeError as e:  # a yardstick only; the port never calls it
+        library, library_note = {}, f"sdpa refused: {str(e)[:100]}"
+    torch.cuda.empty_cache()
+    calls = {
+        "flash_fwd": (lambda _: fa.flash_fwd(q, k, v, **kw),
+                      lambda _: fa.flash_fwd_plain(q, k, v, **kw), "fwd"),
+        "flash_bwd_dq": (lambda _: fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw),
+                         lambda _: fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw),
+                         "fwd_bwd"),
+        "flash_bwd_dkv": (lambda _: fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw),
+                          lambda _: fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw),
+                          "fwd_bwd"),
+    }
+    rows = {}
+    for kname, (kernel, plain, lib) in calls.items():
+        nbytes, flops = work[kname]
+        t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+        rows[kname] = {"ms": device_ms(torch, kernel, 1, reps=20),
+                       "plain_ms": device_ms(torch, plain, 1, reps=5),
+                       "library_ms": library.get(lib), "library": library_note,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        torch.cuda.empty_cache()
+    case = {"case": name, "dtype": dtype, "shape": [B, Hq, Hkv, S, D],
+            "mask": mask, "max_abs_err": errs, "checks": checks,
+            "planted_fault": fault, "ok": bool(ok), "kernels": rows}
+    log(f"flash {name} {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {mask}: "
+        f"ok={ok} lse:err={errs['lse']:.3g} " + fmt_checks(checks))
+    for kname, r in rows.items():
+        log(f"  {kname}: kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
+            f"library={r['library_ms']} ms ({library_note}) "
+            f"bound={r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return case
+
+
+def flash_kernel_phase(torch, fa):
+    return [flash_case(torch, fa, *c) for c in FLASH_CASES]
+
+
 # -- phase 4: the serving path ----------------------------------------------------
 def post(url: str, body: dict, timeout: float = 600.0):
     import urllib.error
@@ -212,7 +411,7 @@ def cpu_first_logits(torch, args, params_cpu, prompt_ids):
     return logits[0]
 
 
-def path_phase(torch, gm, card):
+def path_phase(torch, gm, fa, card):
     from mlx_cuda_distributed_pretraining_tpu_torch.infer.server import (
         InferenceService,
         serve,
@@ -255,7 +454,7 @@ def path_phase(torch, gm, card):
     ]
     try:
         torch.cuda.reset_peak_memory_stats()
-        gm.gmm.launches = 0  # count from here: the path's run only
+        reset_launches(gm, fa)  # count from here: the path's run only
         c0, d0 = engine.prefill_chunks, engine.decode_steps
         warm = post(url, {"prompt": "warm up", "max_tokens": 2})
         if warm[0] != 200:
@@ -278,7 +477,8 @@ def path_phase(torch, gm, card):
         t_conc = time.perf_counter() - t_conc
         results += [box.get(i, (0, {"error": "no response"}))
                     for i in range(1, len(bodies))]
-        launches = gm.gmm.launches
+        all_launches = read_launches(gm, fa)
+        launches = all_launches["gmm"]
         chunks = engine.prefill_chunks - c0
         steps = engine.decode_steps - d0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -313,6 +513,8 @@ def path_phase(torch, gm, card):
                         f"chunks + {steps} decode steps)")
     log(f"path: gmm launches={launches} = {per} x ({chunks} prefill chunks + "
         f"{steps} decode steps)")
+    if any(all_launches[n] for n in FLASH_KERNELS):
+        failures.append(f"serving launched flash kernels: {all_launches}")
 
     # The first greedy token's logprob from the server vs the plain path on
     # the CPU with the same weights. fp32 on both; 12 layers of different
@@ -349,6 +551,236 @@ def path_phase(torch, gm, card):
     return failures, perf
 
 
+# -- phase 5: the training path ---------------------------------------------------
+def config_40m(tmp: str, steps: int, warmup: int) -> dict:
+    """configs/model-config-40m-adamw.yaml written out as a dict, with the
+    smoke's cuts: ``iters``, ``warmup_steps``, the log, validation and
+    checkpoint intervals, and the corpus paths. Every width is the
+    config's. The file's ``system.device: "tpu"`` is left out: the port
+    keeps that key only for the round trip, and the Trainer's ``device``
+    argument decides."""
+    return {
+        "name": "Llama (40M)", "overwrite": True,
+        "data": {"input_file": os.path.join(tmp, "train.jsonl"),
+                 "validation_file": os.path.join(tmp, "val.jsonl"),
+                 "tokenizer_path": "tokenizer",
+                 "preprocessing": {"max_context_size": 1024, "chunk_overlap": 0},
+                 "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                     "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": 512, "intermediate_size": 1536,
+                                 "num_layers": 12},
+                  "attention": {"num_heads": 8, "num_kv_heads": 8, "head_dim": 64,
+                                "max_position_embeddings": 1024,
+                                "use_flash_attention": True},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000, "traditional": False, "scaling": None},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True}},
+        "training": {"hyperparameters": {"batch_size": 32, "learning_rate": 6.0e-4,
+                                         "weight_decay": 0.05, "gradient_clip": 1.0,
+                                         "iters": steps},
+                     "scheduler": {"type": "cosine_with_warmup",
+                                   "warmup_steps": warmup, "min_lr_ratio": 0.1},
+                     "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
+        "logging": {"log_dir": "logs", "checkpoint_dir": "checkpoints",
+                    "steps": {"logging_interval": 5, "checkpoint_interval": 1000,
+                              "validation_interval": 0},
+                    "metrics": {"log_loss": True, "log_perplexity": True,
+                                "log_tokens_per_second": True}},
+        "system": {"seed": 42, "mixed_precision": True,
+                   "precision": "bfloat16"},
+    }
+
+
+def write_corpus(tmp: str, train_bytes: int, val_bytes: int) -> None:
+    """A seeded synthetic byte corpus: documents of sentences drawn from a
+    small Zipf-weighted vocabulary, so a few steps can learn something."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    syll = ["ka", "lo", "mi", "ne", "su", "ta", "ri", "po", "an", "el", "or", "ve"]
+    words = ["".join(rng.choice(syll, size=int(rng.integers(1, 4))))
+             for _ in range(96)]
+    weights = 1.0 / np.arange(1, len(words) + 1)
+    weights /= weights.sum()
+
+    def docs(n_bytes):
+        out, total = [], 0
+        while total < n_bytes:
+            sentences = []
+            for _ in range(int(rng.integers(4, 40))):
+                ids = rng.choice(len(words), size=int(rng.integers(4, 16)), p=weights)
+                sentences.append(" ".join(words[i] for i in ids).capitalize() + ".")
+            text = " ".join(sentences)
+            out.append(json.dumps({"text": text}))
+            total += len(text)
+        return "\n".join(out) + "\n"
+
+    with open(os.path.join(tmp, "train.jsonl"), "w") as f:
+        f.write(docs(train_bytes))
+    with open(os.path.join(tmp, "val.jsonl"), "w") as f:
+        f.write(docs(val_bytes))
+
+
+def first_step_parity(torch, fa, trainer, rows: int):
+    """Step 1's loss and gradients on ``rows`` rows of the first batch: the
+    flash kernels against their plain versions (the same model code with
+    the plain functions swapped in for this comparison only)."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
+    from mlx_cuda_distributed_pretraining_tpu_torch.optim.base import global_norm
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import leaves_with_path
+
+    batch = {k: torch.from_numpy(v[:rows]).to(trainer.device)
+             for k, v in trainer.data.generate_batch(0).items()}
+    params = trainer.state["params"]
+
+    def loss_and_grads():
+        for _, p in leaves_with_path(params):
+            p.grad = None
+        loss, _ = llama.loss_fn(params, batch, trainer.model_args,
+                                compute_dtype=trainer.compute_dtype)
+        loss.backward()
+        grads = {"/".join(path): p.grad.float().clone()
+                 for path, p in leaves_with_path(params)}
+        for _, p in leaves_with_path(params):
+            p.grad = None
+        return loss.item(), grads
+
+    kernel_loss, kernel_grads = loss_and_grads()
+    swapped = {n: getattr(fa, n) for n in FLASH_KERNELS}
+    try:
+        for n in FLASH_KERNELS:
+            setattr(fa, n, getattr(fa, n + "_plain"))
+        plain_loss, plain_grads = loss_and_grads()
+    finally:
+        for n, fn in swapped.items():
+            setattr(fa, n, fn)
+    norm_k, norm_p = global_norm(kernel_grads).item(), global_norm(plain_grads).item()
+    leaf_rel = max(((kernel_grads[n] - plain_grads[n]).norm()
+                    / plain_grads[n].norm().clamp_min(1e-30)).item()
+                   for n in plain_grads)
+    return {"kernel_loss": kernel_loss, "plain_loss": plain_loss,
+            "kernel_grad_norm": norm_k, "plain_grad_norm": norm_p,
+            "max_leaf_rel_grad_diff": leaf_rel}
+
+
+def serve_run(torch, run_dir: str, device):
+    """One greedy request through the port's server on a finished run."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.infer.server import (
+        InferenceService,
+        serve,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.serve import EngineConfig
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import load_trained
+
+    params, args, tok, _ = load_trained(run_dir, device=device)
+    service = InferenceService(params, args, tok, run_name="40m-adamw-smoke")
+    service.attach_engine(EngineConfig(num_slots=2, max_len=1024, block_size=32,
+                                       prefill_chunk=256))
+    httpd = serve(service, port=0)
+    try:
+        return post(f"http://127.0.0.1:{httpd.server_address[1]}",
+                    {"prompt": "Kalo mine su", "max_tokens": 16})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+
+
+def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures = []
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, train_bytes=1_100_000, val_bytes=70_000)
+        trainer = Trainer(Config.from_dict(config_40m(tmp, steps, warmup)),
+                          runs_root=os.path.join(tmp, "runs"), quiet=True,
+                          device="cuda")
+        log(f"train: 40m-adamw {trainer.n_params / 1e6:.2f}M params, "
+            f"{len(trainer.data.train_rows)} train rows, "
+            f"{len(trainer.data.val_rows)} val rows of "
+            f"{trainer.data.seq_len + 1} tokens, "
+            f"{time.perf_counter() - t0:.1f}s to set up")
+
+        # bf16 on both sides with the same rounding points outside the
+        # attention; inside it the kernels sum in another order and round p
+        # against a running max: bf16-ulp noise (2**-8) that twelve layers
+        # carry to the loss at ~1e-4 and to each gradient at ~1e-2. At
+        # initialisation the loss is ~ln(259) whatever the attention
+        # computes, so the per-leaf gradient limit is the one that gates an
+        # attention fault here; the kernel checks above gate each kernel.
+        par = first_step_parity(torch, fa, trainer, rows=8)
+        log("train: step-1 parity at batch 8, kernels vs plain on the card: "
+            + " ".join(f"{k}={v:.6g}" for k, v in par.items()))
+        if not (abs(par["kernel_loss"] - par["plain_loss"])
+                <= 2e-3 * abs(par["plain_loss"])
+                and abs(par["kernel_grad_norm"] - par["plain_grad_norm"])
+                <= 2e-2 * par["plain_grad_norm"]
+                and par["max_leaf_rel_grad_diff"] <= 5e-2):
+            failures.append(f"step-1 loss/gradients disagree with the plain "
+                            f"path: {par}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(gm, fa)  # count from here: the training run only
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(gm, fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        windows = trainer.windows
+        losses = [w["loss"] for w in windows]
+        layers = trainer.model_args.num_layers
+        want = {"flash_fwd": layers * (steps + trainer.eval_batches),
+                "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+                "gmm": 0}
+        log(f"train: {steps} steps + {trainer.eval_batches} validation batches "
+            f"in {wall:.1f}s; losses every 5 steps {losses}; final val_loss="
+            f"{result['final_val_loss']}; launches {launches}")
+        if not all(math.isfinite(x) for x in losses) or len(losses) != steps // 5:
+            failures.append(f"train: bad loss log {losses}")
+        elif not losses[-1] < 0.9 * losses[0]:
+            failures.append(f"train: loss did not fall below 0.9x the first "
+                            f"logged ({losses[0]} -> {losses[-1]})")
+        if result["final_val_loss"] is None or trainer.eval_batches <= 0:
+            failures.append("train: no validation ran")
+        if launches != want:
+            failures.append(f"train: launches {launches} != {want}")
+        code, out = serve_run(torch, trainer.run_dir, trainer.device)
+        log(f"train: final checkpoint served: HTTP {code} "
+            f"tokens={out.get('tokens')} text={out.get('text', '')[:40]!r}")
+        if code != 200 or not out.get("tokens"):
+            failures.append(f"serving the final checkpoint: HTTP {code} {out}")
+
+    steady = windows[1:]  # the first window holds the first step's warm-up
+    secs = sum(w["seconds"] for w in steady)
+    toks = sum(w["toks"] for w in steady)
+    tok_s = toks / secs
+    perf = {"step_ms": 1e3 * secs / sum(w["steps"] for w in steady),
+            "tok_s": tok_s,
+            "mfu_vs_989tflops": tok_s * trainer.flops_per_token / PEAK_FLOPS["bfloat16"],
+            "flops_per_token": trainer.flops_per_token,
+            "peak_mem_gb": peak_gb, "first_window_s": windows[0]["seconds"],
+            "losses": losses, "launches": launches, "first_step_parity": par}
+    for k in ("step_ms", "tok_s", "mfu_vs_989tflops", "peak_mem_gb"):
+        log(f"train: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
+def kernel_entry(name, source, replaces, launches, row, max_abs_err):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -356,8 +788,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import grouped_matmul as gm
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -366,29 +800,44 @@ def main() -> int:
         f" | {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib = gm.build_library()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.1f}s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
+    libs = cuda_build.build_libraries([gm._SRC, fa._SRC])
+    log(f"build: both sources in {time.perf_counter() - t0:.1f}s")
+    for lib, src in zip(libs, (gm._SRC, fa._SRC)):
+        secs = cuda_build.BUILD_SECONDS.get(src.name)
+        log(f"build: {lib.name} in "
+            + (f"{secs:.1f}s" if secs is not None else "0s (already built)"))
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: {line.strip()}")
 
     failures = []
     cases = kernel_phase(torch, gm)
     failures += [f"gmm {c['case']} {c['dtype']}: kernel disagrees with plain "
                  f"(max_abs_err {c['max_abs_err']})" for c in cases if not c["ok"]]
-    path_failures, perf = path_phase(torch, gm, card)
+    flash_cases = flash_kernel_phase(torch, fa)
+    failures += [f"flash {c['case']} {c['dtype']}: kernels disagree with plain "
+                 f"(max_abs_err {c['max_abs_err']})" for c in flash_cases
+                 if not c["ok"]]
+    path_failures, perf = path_phase(torch, gm, fa, card)
     failures += path_failures
+    train_failures, train_perf = train_phase(torch, gm, fa, card)
+    failures += train_failures
 
     main_case = cases[0]  # fp32 decode gate/up: the shape the path runs most
-    report = json.dumps({"kernels": [{
-        "name": "gmm", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-        "launches": perf.get("gmm_launches", 0),
-        "max_abs_err": max(c["max_abs_err"] for c in cases
-                           if c["dtype"] == main_case["dtype"]),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "cases": cases, "path": perf, "card": card}]})
+    gmm_entry = kernel_entry(
+        "gmm", SOURCE, REPLACES, perf.get("gmm_launches", 0), main_case,
+        max(c["max_abs_err"] for c in cases if c["dtype"] == main_case["dtype"]))
+    gmm_entry.update(cases=cases, path=perf, card=card)
+    path_case = flash_cases[0]  # B 32, H 8, S 1024, D 64, bf16, causal
+    out_of = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
+              "flash_bwd_dkv": ("dk", "dv")}
+    flash_entries = [kernel_entry(
+        name, FLASH_SOURCE, FLASH_REPLACES[name],
+        train_perf.get("launches", {}).get(name, 0), path_case["kernels"][name],
+        max(path_case["max_abs_err"][o] for o in out_of[name]))
+        for name in FLASH_KERNELS]
+    flash_entries[0].update(cases=flash_cases, train=train_perf, card=card)
+    report = json.dumps({"kernels": [gmm_entry] + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)
         for f in failures:

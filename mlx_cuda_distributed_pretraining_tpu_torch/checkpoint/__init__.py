@@ -1,1 +1,1 @@
-"""Checkpoint file format (safetensors)."""
+"""Checkpoint file format (safetensors) and the run-directory manager."""

@@ -1,15 +1,21 @@
-"""The parts of the YAML config schema that serving reads.
+"""The YAML config schema: the sections serving and training read.
 
-Same section layout as the JAX package's ``config.py`` (``data`` / ``model``
-plus ``name``); the training, logging and system sections are kept as raw
-dicts because nothing in the port reads them yet. ``yaml`` is imported only
-when a YAML path is given, so code that builds configs in Python needs no
-PyYAML.
+Same section layout and defaults as the JAX package's ``config.py``
+(``data / model / training / logging / system / resume`` plus ``name`` and
+``overwrite``); keys a section does not know are kept beside it and written
+back out, so a config passes through the port unchanged.
+
+:meth:`Config.to_yaml` needs no PyYAML: it writes JSON, which is YAML, with
+every float spelled with a dot (``1.0e-05``) because PyYAML's YAML 1.1
+resolver reads ``1e-05`` as a string. :meth:`Config.from_yaml` tries JSON
+first and imports ``yaml`` only for other files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
@@ -23,13 +29,23 @@ def _get(d: Optional[Dict[str, Any]], key: str, default: Any = None) -> Any:
 
 @dataclass
 class DataConfig:
-    """Section ``data`` (only the tokenizer fields are read)."""
+    """Section ``data``."""
 
     input_file: Optional[str] = None
     preprocessing: Dict[str, Any] = field(default_factory=dict)
     tokenizer: Dict[str, Any] = field(default_factory=dict)
     tokenizer_path: Optional[str] = None
     validation_file: Optional[str] = None
+    source: str = "jsonl"
+    streaming: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def max_context_size(self) -> int:
+        return int(_get(self.preprocessing, "max_context_size", 1024))
+
+    @property
+    def chunk_overlap(self) -> int:
+        return int(_get(self.preprocessing, "chunk_overlap", 0))
 
 
 @dataclass
@@ -43,6 +59,7 @@ class ModelConfig:
     rope: Dict[str, Any] = field(default_factory=dict)
     misc: Dict[str, Any] = field(default_factory=dict)
     moe: Dict[str, Any] = field(default_factory=dict)
+    remat_policy: Optional[str] = None
     matmul_precision: Optional[str] = None
 
     @property
@@ -71,38 +88,253 @@ class ModelConfig:
         return int(_get(self.attention, "head_dim",
                         self.hidden_size // self.num_heads))
 
+    @property
+    def attention_type(self) -> str:
+        """"simple" | "flash" | "flex" | "ring", with the JAX package's
+        precedence (ring > flex > flash > attention_type key)."""
+        if _get(self.attention, "use_ring_attention", False):
+            return "ring"
+        if _get(self.attention, "use_flex_attention", False):
+            return "flex"
+        if _get(self.attention, "use_flash_attention", False):
+            return "flash"
+        return str(_get(self.attention, "attention_type", "simple"))
+
+
+@dataclass
+class TrainingConfig:
+    """Section ``training``."""
+
+    hyperparameters: Dict[str, Any] = field(default_factory=dict)
+    scheduler: Dict[str, Any] = field(default_factory=dict)
+    optimization: Dict[str, Any] = field(default_factory=dict)
+    epochs: Optional[int] = None
+
+    @property
+    def batch_size(self) -> int:
+        return int(_get(self.hyperparameters, "batch_size", 16))
+
+    @property
+    def learning_rate(self) -> float:
+        return float(_get(self.hyperparameters, "learning_rate", 3e-4))
+
+    @property
+    def weight_decay(self) -> float:
+        return float(_get(self.hyperparameters, "weight_decay", 0.0))
+
+    @property
+    def iters(self) -> Optional[int]:
+        v = _get(self.hyperparameters, "iters", None)
+        return None if v is None else int(v)
+
+    @property
+    def gradient_clip(self) -> Optional[float]:
+        v = _get(self.hyperparameters, "gradient_clip", None)
+        return None if v is None else float(v)
+
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return int(_get(self.hyperparameters, "gradient_accumulation_steps", 1))
+
+    @property
+    def optimizer_name(self) -> str:
+        return str(_get(self.optimization, "optimizer", "adamw")).lower()
+
+
+@dataclass
+class LoggingConfig:
+    """Section ``logging``: intervals and checkpoint retention."""
+
+    log_dir: str = "logs"
+    checkpoint_dir: str = "checkpoints"
+    steps: Dict[str, Any] = field(default_factory=dict)
+    metrics: Dict[str, Any] = field(default_factory=dict)
+    log_gradient_norm: bool = False
+    retention: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def logging_interval(self) -> int:
+        return int(_get(self.steps, "logging_interval", 1))
+
+    @property
+    def checkpoint_interval(self) -> int:
+        return int(_get(self.steps, "checkpoint_interval", 1000))
+
+    @property
+    def validation_interval(self) -> int:
+        return int(_get(self.steps, "validation_interval", 0))
+
+    @property
+    def keep_last(self) -> int:
+        return int(_get(self.retention, "keep_last", 0))
+
+
+@dataclass
+class SystemConfig:
+    """Section ``system``: seed, precision and the training-path switches.
+
+    Only the keys the trainer reads are fields. Others (the reference's
+    ``device``, ``precision``, ...) stay in ``_extras`` for the round trip:
+    the device is the Trainer's ``device`` argument, not this section."""
+
+    seed: int = 42
+    mixed_precision: bool = False
+    gradient_checkpointing: bool = False
+    remat: Optional[str] = None
+    fused_ce_chunk: int = -1
+    compute_dtype: Optional[str] = None
+    scan_layers: bool = False
+    overlap_gather: bool = False
+
+    def __post_init__(self):
+        if self.compute_dtype is None:
+            self.compute_dtype = "bfloat16" if self.mixed_precision else "float32"
+        else:
+            norm = str(self.compute_dtype).lower()
+            if norm in ("bfloat16", "bf16", "float16", "fp16", "half"):
+                self.compute_dtype = "bfloat16"
+            elif norm in ("float32", "fp32", "float"):
+                self.compute_dtype = "float32"
+            else:
+                raise ValueError(
+                    f"unknown system.compute_dtype: {self.compute_dtype!r} "
+                    "(expected bfloat16/float16/float32)")
+
+
+@dataclass
+class ResumeConfig:
+    """Section ``resume`` (read so a config that names it is refused
+    clearly: resume is not ported)."""
+
+    checkpoint: str = ""
+    reset_optimizer: bool = False
+    reset_training_state: bool = False
+    strict: bool = False
+
+
+_SECTION_TYPES = {
+    "data": DataConfig,
+    "model": ModelConfig,
+    "training": TrainingConfig,
+    "logging": LoggingConfig,
+    "system": SystemConfig,
+}
+
 
 def _build_section(cls, raw: Optional[Dict[str, Any]]):
-    """Known keys become fields; unknown ones are ignored (configs carry
-    training-side keys the port does not read)."""
+    """Known keys become fields; unknown ones are kept in ``_extras`` and
+    written back by :meth:`Config.to_dict`."""
+    raw = dict(raw or {})
     names = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: v for k, v in dict(raw or {}).items() if k in names})
+    obj = cls(**{k: v for k, v in raw.items() if k in names})
+    extras = {k: v for k, v in raw.items() if k not in names}
+    if extras:
+        object.__setattr__(obj, "_extras", extras)
+    return obj
+
+
+def _yaml_safe_json(obj: Any, indent: str = "") -> str:
+    """JSON text that PyYAML's safe_load reads back to the same values:
+    floats always carry a dot before any exponent."""
+    inner = indent + "  "
+    if isinstance(obj, dict):
+        if not obj:
+            return "{}"
+        items = [f"{inner}{json.dumps(str(k))}: {_yaml_safe_json(v, inner)}"
+                 for k, v in obj.items()]
+        return "{\n" + ",\n".join(items) + f"\n{indent}}}"
+    if isinstance(obj, (list, tuple)):
+        if not obj:
+            return "[]"
+        return ("[\n" + ",\n".join(inner + _yaml_safe_json(v, inner) for v in obj)
+                + f"\n{indent}]")
+    if isinstance(obj, float):
+        if not math.isfinite(obj):
+            raise ValueError(f"config value {obj!r} has no JSON spelling")
+        text = repr(obj)
+        mantissa, e, exp = text.partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + e + exp
+    return json.dumps(obj)
 
 
 @dataclass
 class Config:
-    """Top-level config: ``name``, ``data``, ``model``; other sections raw."""
+    """Top-level config."""
 
     name: str
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
-    sections: Dict[str, Any] = field(default_factory=dict)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    system: SystemConfig = field(default_factory=SystemConfig)
+    resume: Optional[ResumeConfig] = None
+    overwrite: bool = False
+    sections: Dict[str, Any] = field(default_factory=dict)  # others, raw
 
     @classmethod
     def from_dict(cls, config_dict: Dict[str, Any]) -> "Config":
         if "name" not in config_dict:
             raise ValueError("Config must specify a 'name' field at the top level")
+        resume = None
+        if config_dict.get("resume"):
+            resume = _build_section(ResumeConfig, config_dict["resume"])
         return cls(
             name=config_dict["name"],
-            data=_build_section(DataConfig, config_dict.get("data")),
-            model=_build_section(ModelConfig, config_dict.get("model")),
+            overwrite=bool(config_dict.get("overwrite", False)),
+            resume=resume,
             sections={k: v for k, v in config_dict.items()
-                      if k not in ("name", "data", "model")},
+                      if k not in _SECTION_TYPES
+                      and k not in ("name", "overwrite", "resume")},
+            **{key: _build_section(typ, config_dict.get(key))
+               for key, typ in _SECTION_TYPES.items()},
         )
 
     @classmethod
     def from_yaml(cls, yaml_path: str) -> "Config":
+        return cls.from_dict(read_config_dict(yaml_path))
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"name": self.name, "overwrite": self.overwrite}
+        for key in _SECTION_TYPES:
+            section = getattr(self, key)
+            d = dataclasses.asdict(section)
+            d.update(getattr(section, "_extras", {}))
+            out[key] = d
+        if self.resume is not None:
+            out["resume"] = dataclasses.asdict(self.resume)
+        out.update(self.sections)
+        return out
+
+    def to_yaml(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(_yaml_safe_json(self.to_dict()) + "\n")
+
+
+def read_config_dict(path: str) -> Dict[str, Any]:
+    """A config file as a dict: JSON when it parses as JSON (no PyYAML
+    needed), else YAML."""
+    with open(path, "r") as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except ValueError:
         import yaml
 
-        with open(yaml_path, "r") as f:
-            return cls.from_dict(yaml.safe_load(f))
+        return yaml.safe_load(text)
+
+
+def apply_overrides(config_dict: Dict[str, Any],
+                    overrides: Dict[str, Any]) -> Dict[str, Any]:
+    """Dotted-path overrides, e.g. ``{"training.hyperparameters.iters": 30}``."""
+    out = dict(config_dict)
+    for path, value in overrides.items():
+        parts = path.split(".")
+        node = out
+        for p in parts[:-1]:
+            nxt = node.get(p)
+            node[p] = dict(nxt) if isinstance(nxt, dict) else {}
+            node = node[p]
+        node[parts[-1]] = value
+    return out

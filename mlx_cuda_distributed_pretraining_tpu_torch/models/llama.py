@@ -1,4 +1,5 @@
-"""Llama decoder building blocks used by the serving steps.
+"""Llama decoder: the building blocks of the serving steps and the
+cache-free training forward and loss.
 
 Parameters are the JAX package's nested dict with torch tensors as leaves and
 the same layout: every linear weight is ``[in, out]`` (``y = x @ W``), expert
@@ -38,9 +39,16 @@ class LlamaArgs:
     mlp_bias: bool = False
     tie_word_embeddings: bool = True
     logit_scale: Optional[float] = None
+    attention_type: str = "simple"  # simple | flash | flex | ring
+    mask_type: str = "causal"  # causal | sliding_window | prefix_lm
+    window_size: int = 512
+    prefix_len: int = 0
+    score_mod_type: Optional[str] = None  # None | alibi | soft_cap
+    soft_cap: float = 50.0
     num_local_experts: int = 0
     num_experts_per_tok: int = 0
     moe_impl: str = "grouped"
+    matmul_precision: Optional[str] = None  # None/fp32 | bf16 | int8
 
     @property
     def is_moe(self) -> bool:
@@ -49,7 +57,7 @@ class LlamaArgs:
     @classmethod
     def from_config(cls, model_cfg: Any, vocab_size: int) -> "LlamaArgs":
         """Same field mapping as the JAX ``LlamaArgs.from_config``, for the
-        fields serving reads."""
+        fields the port reads."""
         att = dict(getattr(model_cfg, "attention", None) or {})
         rope = dict(getattr(model_cfg, "rope", None) or {})
         misc = dict(getattr(model_cfg, "misc", None) or {})
@@ -75,9 +83,16 @@ class LlamaArgs:
             mlp_bias=bool(misc.get("mlp_bias", False)),
             tie_word_embeddings=bool(misc.get("tie_word_embeddings", True)),
             logit_scale=misc.get("logit_scale"),
+            attention_type=model_cfg.attention_type,
+            mask_type=str(att.get("mask_type", "causal")),
+            window_size=int(att.get("window_size", 512)),
+            prefix_len=int(att.get("prefix_len", 0)),
+            score_mod_type=att.get("score_mod"),
+            soft_cap=float(att.get("soft_cap", 50.0)),
             num_local_experts=int(moe.get("num_local_experts", 0) or 0),
             num_experts_per_tok=int(moe.get("num_experts_per_tok", 0) or 0),
             moe_impl=str(moe.get("impl", "grouped") or "grouped"),
+            matmul_precision=getattr(model_cfg, "matmul_precision", None),
         )
         if args.is_moe and args.moe_impl != "grouped":
             raise NotImplementedError(
@@ -221,3 +236,168 @@ def init_paged_cache(args: LlamaArgs, num_blocks: int, block_size: int,
     return [{"k": torch.zeros(shape, device=device, dtype=dtype),
              "v": torch.zeros(shape, device=device, dtype=dtype)}
             for _ in range(args.num_layers)]
+
+
+# -- the cache-free training path -------------------------------------------------
+_NOT_PORTED = "ROADMAP queue 1: remat, scan_layers and the fused CE"
+
+
+def build_mask_mod(args: LlamaArgs):
+    from ..ops import masks
+
+    if args.mask_type == "sliding_window":
+        return masks.sliding_window(args.window_size)
+    if args.mask_type == "prefix_lm":
+        return masks.prefix_lm(args.prefix_len)
+    return masks.causal()
+
+
+def build_score_mod(args: LlamaArgs):
+    """Score mod of the ``simple`` attention path over
+    ``[B, Hkv, G, Sq, Skv]`` scores (alibi per head, or tanh soft-capping)."""
+    if args.score_mod_type == "alibi":
+        base = 2.0 ** (-8.0 / args.num_heads)
+        slopes = torch.tensor([base ** i for i in range(1, args.num_heads + 1)],
+                              dtype=torch.float32)
+
+        def mod(scores, q_idx, k_idx):
+            Hkv, G = scores.shape[1], scores.shape[2]
+            slope = slopes.to(scores.device).reshape(Hkv, G)[None, :, :, None, None]
+            return scores - slope * (q_idx - k_idx).abs()[None, None, None]
+
+        return mod
+    if args.score_mod_type == "soft_cap":
+        return lambda s, q, k: args.soft_cap * torch.tanh(s / args.soft_cap)
+    return None
+
+
+def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
+                    positions: torch.Tensor,
+                    attn_impl: Optional[str] = None) -> torch.Tensor:
+    """Cache-free self-attention with RoPE and GQA: ``flash`` runs the flash
+    kernels (``ops/flash_attention.py``), ``simple`` the reference
+    attention with the mask and score mods."""
+    from ..ops.attention import reference_attention
+
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = args.num_heads, args.num_kv_heads, args.head_dim
+    q = _linear(x, p["wq"]).reshape(B, S, Hq, Dh)
+    k = _linear(x, p["wk"]).reshape(B, S, Hkv, Dh)
+    v = _linear(x, p["wv"]).reshape(B, S, Hkv, Dh)
+    cos, sin = rope_cos_sin(positions, Dh, args.rope_theta,
+                            args.rope_scaling_factor)
+    q = apply_rope(q, cos, sin, args.rope_traditional)
+    k = apply_rope(k, cos, sin, args.rope_traditional)
+    impl = attn_impl or args.attention_type
+    if impl == "flash" and args.score_mod_type is None:
+        from ..ops.flash_attention import flash_attention
+
+        out = flash_attention(q, k, v, mask_type=args.mask_type,
+                              window_size=args.window_size,
+                              prefix_len=args.prefix_len,
+                              precision=args.matmul_precision)
+    elif impl in ("ring", "flex"):
+        raise NotImplementedError(
+            f"attention_type {impl!r} is not ported (ROADMAP queue 1: flex, "
+            "ring and band over the flash kernels)")
+    else:
+        out = reference_attention(q, k, v, mask_mod=build_mask_mod(args),
+                                  score_mod=build_score_mod(args))
+    # matmul_precision "bf16" hands back bf16 under fp32 compute: promote as
+    # JAX's bf16 @ fp32 does.
+    return _linear(out.reshape(B, S, Hq * Dh).to(x.dtype), p["wo"])
+
+
+def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
+                      positions: torch.Tensor,
+                      attn_impl: Optional[str] = None) -> torch.Tensor:
+    """Pre-norm residual block (dense feed-forward)."""
+    x = x + attention_block(
+        p["attention"], rms_norm(x, p["attention_norm"]["weight"], args.rms_norm_eps),
+        args, positions, attn_impl)
+    return x + mlp_block(p["feed_forward"],
+                         rms_norm(x, p["ffn_norm"]["weight"], args.rms_norm_eps))
+
+
+def _refuse_unported(remat: Optional[str], scan_layers: bool, overlap: bool,
+                     args: LlamaArgs) -> None:
+    if remat not in (None, "", "none"):
+        raise NotImplementedError(f"remat policy {remat!r} is not ported ({_NOT_PORTED})")
+    if scan_layers:
+        raise NotImplementedError(f"scan_layers is not ported ({_NOT_PORTED})")
+    if overlap:
+        raise NotImplementedError("overlap_gather needs an fsdp mesh; the port "
+                                  "trains on one device")
+    if args.is_moe:
+        raise NotImplementedError(
+            "MoE training needs the grouped-GEMM backward (_tgmm_pallas) and "
+            "the router losses (ROADMAP queue 1: MoE training)")
+
+
+def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
+            compute_dtype: torch.dtype = torch.float32,
+            remat: Optional[str] = None, scan_layers: bool = False,
+            overlap: bool = False):
+    """tokens ``[B, S]`` -> ``(logits [B, S, V] fp32, None)`` (``None`` where
+    the JAX forward returns its cache). The fp32 master weights are cast to
+    ``compute_dtype`` layer by layer; the output projection accumulates in
+    fp32: both bf16 operands are cast to fp32 (their products are exact
+    there) and multiplied with TF32 off, as JAX's
+    ``preferred_element_type=float32`` does."""
+    _refuse_unported(remat, scan_layers, overlap, args)
+    B, S = tokens.shape
+    x = params["tok_embeddings"]["weight"].to(compute_dtype)[tokens.long()]
+    positions = torch.arange(S, device=tokens.device)
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.to(compute_dtype)
+
+    for layer in params["layers"]:
+        x = transformer_block(cast(layer), x, args, positions)
+    x = rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
+    if args.tie_word_embeddings or "output" not in params:
+        w = params["tok_embeddings"]["weight"].to(compute_dtype).float().t()
+    else:
+        w = params["output"]["weight"].to(compute_dtype).float()
+    logits = x.float() @ w
+    if not args.tie_word_embeddings and "bias" in params.get("output", {}):
+        logits = logits + params["output"]["bias"].float()
+    if args.logit_scale:
+        logits = logits * args.logit_scale
+    return logits, None
+
+
+def auto_ce_chunk(batch: int, seq: int, vocab: int) -> int:
+    """The JAX package's ``fused_ce.auto_chunk``: fused CE (2048-row chunks)
+    once the fp32 ``[B, S, V]`` logits reach 256 MB, else 0."""
+    return 0 if batch * seq * vocab * 4 < 256 * 1024 * 1024 else 2048
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
+            compute_dtype: torch.dtype = torch.float32,
+            remat: Optional[str] = None, ce_chunk: int = -1, scan_layers: bool = False,
+            z_loss_weight: float = 0.0, overlap: bool = False):
+    """Masked mean cross-entropy in fp32, plus the z-loss
+    ``z_loss_weight * mean(logsumexp^2)`` when set. Returns
+    ``(loss, mask.sum())``. The fused chunked CE (``ce_chunk > 0``, or
+    auto above 256 MB of logits) is not ported and raises."""
+    targets = batch["targets"]
+    mask = batch["mask"].float()
+    count = mask.sum().clamp_min(1.0)
+    B, S = batch["inputs"].shape
+    if ce_chunk < 0:
+        ce_chunk = auto_ce_chunk(B, S, args.vocab_size)
+    if ce_chunk > 0:
+        raise NotImplementedError(
+            f"fused cross-entropy (ce_chunk={ce_chunk}) is not ported "
+            f"({_NOT_PORTED}); set system.fused_ce_chunk: 0")
+    logits, _ = forward(params, batch["inputs"], args, compute_dtype=compute_dtype,
+                        remat=remat, scan_layers=scan_layers, overlap=overlap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    loss = ((logz - gold) * mask).sum() / count
+    if z_loss_weight > 0.0:
+        loss = loss + z_loss_weight * (logz.square() * mask).sum() / count
+    return loss, mask.sum()

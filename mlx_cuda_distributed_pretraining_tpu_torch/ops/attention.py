@@ -1,4 +1,5 @@
-"""Reference attention — plain tensor code, the serving path's attention.
+"""Reference attention — plain tensor code: the serving path's attention, the
+training path's ``simple`` attention, and the oracle of the flash kernels.
 
 Layout: ``q [B, Sq, Hq, D]``, ``k/v [B, Skv, Hkv, D]`` with Hq a multiple of
 Hkv (GQA by reshaping query heads into groups; nothing is repeated). Scores
@@ -8,11 +9,14 @@ used so the numerics follow the JAX reference op for op.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
-from .masks import NEG_INF
+from .masks import NEG_INF, MaskMod, materialize_mask
+
+# score_mod(scores [B, Hkv, G, Sq, Skv], q_idx [Sq, 1], k_idx [1, Skv])
+ScoreMod = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def reference_attention(
@@ -21,9 +25,12 @@ def reference_attention(
     v: torch.Tensor,
     scale: Optional[float] = None,
     explicit_mask: Optional[torch.Tensor] = None,
+    mask_mod: Optional[MaskMod] = None,
+    score_mod: Optional[ScoreMod] = None,
 ) -> torch.Tensor:
     """Multi-head attention with GQA. ``explicit_mask`` is a bool tensor
-    broadcastable to ``[B, Hkv, G, Sq, Skv]`` (True = attend)."""
+    broadcastable to ``[B, Hkv, G, Sq, Skv]`` (True = attend); ``mask_mod``
+    is evaluated on the ``[Sq, Skv]`` index lattice and combined with it."""
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if Hq % Hkv != 0:
@@ -37,8 +44,16 @@ def reference_attention(
     vh = v.permute(0, 2, 1, 3)
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, kh) * scale
     scores = scores.float()
-    if explicit_mask is not None:
-        scores = scores.masked_fill(~explicit_mask, NEG_INF)
+    if score_mod is not None:
+        q_idx = torch.arange(Sq, device=q.device)[:, None]
+        k_idx = torch.arange(Skv, device=q.device)[None, :]
+        scores = score_mod(scores, q_idx, k_idx)
+    m = explicit_mask
+    if mask_mod is not None:
+        mm = materialize_mask(mask_mod, Sq, Skv, device=q.device)
+        m = mm if m is None else (m & mm)
+    if m is not None:
+        scores = scores.masked_fill(~m, NEG_INF)
 
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)

@@ -1,0 +1,93 @@
+"""How the flash kernels are held against their plain versions on the card,
+and a planted fault that the check must catch.
+
+``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both use
+:func:`compare`, so the two gates cannot drift apart.
+
+The limits scale with the typical value of the output (its RMS), not its
+largest: in a causal row the output shrinks as ``sqrt(e / n)`` over ``n``
+live keys, so a limit taken from the first rows (where ``o ~ v``) would be
+as large as the late rows' values, and a kernel that dropped part of a late
+row's softmax mass would pass. Two checks, both must hold:
+
+- per element, ``|got - ref| <= atol + rtol * |ref|``;
+- over the whole tensor, ``||got - ref|| / ||ref|| <= norm``.
+
+fp32: the kernel and the plain version sum the same fp32 products in
+different orders: atol 1e-5 x RMS, rtol 1e-4, norm 1e-5.
+
+bf16: both round p and dS to bf16 at the same points (the kernel's p
+against its running max, the plain one's against the row max: an error of
+at most 2**-9 of each term) and round the output once, so a correct kernel
+is at most about one bf16 ulp (2**-8 to 2**-7 relative) from the plain
+version: atol 2**-5 x RMS (four ulps of a typical value), rtol 2e-2, norm
+1e-2 (an ulp on every element would read 4e-3).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict
+
+import torch
+
+from . import flash_attention as fa
+
+_LIMITS = {  # dtype: (atol as a fraction of the RMS, rtol, normwise)
+    torch.float32: (1e-5, 1e-4, 1e-5),
+    torch.bfloat16: (2 ** -5, 2e-2, 1e-2),
+}
+
+
+def compare(got: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
+    """``got`` (a kernel's output) against ``ref`` (its plain version's):
+    the largest error, the largest error as a share of its per-element
+    limit (``limit_ratio``, at most 1 to pass), the normwise error and
+    ``ok``."""
+    atol_rms, rtol, norm_limit = _LIMITS[ref.dtype]
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        return {"max_abs_err": float("inf"), "limit_ratio": float("inf"),
+                "norm_err": float("inf"), "ok": False}
+    diff = (got - ref).abs()
+    ref_norm = ref.norm().item()
+    atol = max(atol_rms * ref_norm / ref.numel() ** 0.5, 1e-30)
+    ratio = (diff / (atol + rtol * ref.abs())).max().item()
+    norm_err = diff.norm().item() / max(ref_norm, 1e-30)
+    return {"max_abs_err": diff.max().item(), "limit_ratio": ratio,
+            "norm_err": norm_err, "ok": ratio <= 1.0 and norm_err <= norm_limit}
+
+
+def kernel_outputs(q, k, v, do, lse, delta, **kw) -> Dict[str, torch.Tensor]:
+    """The three kernels' outputs ``o``, ``dq``, ``dk``, ``dv`` on one set of
+    inputs. Both backward kernels take the given (plain) ``lse`` and
+    ``delta``, so each kernel is held against its own plain version
+    alone."""
+    o, _ = fa.flash_fwd(q, k, v, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return {"o": o, "dq": dq, "dk": dk, "dv": dv}
+
+
+@contextlib.contextmanager
+def planted_fault():
+    """Launch the kernels with one live tile left out of their plans: the
+    forward and dQ skip the last live KV tile of the last Q tile (the
+    diagonal tile under a causal mask), dK/dV skip the last live Q tile of
+    the first KV tile. The kernels themselves run unchanged; what they
+    return is what a kernel with that bug would return, and :func:`compare`
+    must reject it."""
+    plan = fa._plan
+
+    def faulty(*args, **kwargs):
+        kv_ranges, q_ranges, full = plan(*args, **kwargs)
+        kv_ranges, q_ranges = kv_ranges.clone(), q_ranges.clone()
+        kv_ranges[-1, 1] -= 1
+        q_ranges[0, 1] -= 1
+        return kv_ranges, q_ranges, full
+
+    fa._plan = faulty
+    try:
+        yield
+    finally:
+        fa._plan = plan

@@ -12,7 +12,7 @@ Two versions of one function:
 - the kernel, ``csrc/grouped_matmul.cu`` (CUDA C++ for ``sm_90a``), replacing
   the JAX package's Pallas TPU kernel ``ops/grouped_matmul.py::_gmm_pallas``.
   It is compiled with ``nvcc`` at first use into ``build/kernels/`` at the
-  repository root (keyed by a hash of the source) and bound through ``ctypes``;
+  repository root (``utils/cuda_build.py``) and bound through ``ctypes``;
 - :func:`gmm_plain`, the JAX package's "blocked" formulation in plain PyTorch:
   one weight gather per row tile and one batched matmul, fp32 accumulation.
 
@@ -23,13 +23,12 @@ kernel; anything else raises. No build or launch error falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
+
+from ..utils import cuda_build
 
 __all__ = [
     "DEFAULT_BLOCK_T",
@@ -46,7 +45,6 @@ __all__ = [
 DEFAULT_BLOCK_T = 128
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "grouped_matmul.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_ROWS = 32  # largest CTA row tile the kernel has (8, 16 or 32)
 
@@ -103,31 +101,9 @@ _lib_lock = threading.Lock()
 
 
 def build_library() -> Path:
-    """Compile ``csrc/grouped_matmul.cu`` for sm_90a into ``build/kernels/``
-    (once per source hash) and return the shared library's path. The
-    compiler's ``-Xptxas -v`` report is kept beside it as ``.log``."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libgrouped_matmul-{digest}.so"
-    if out.exists():
-        return out
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
-    if nvcc is None or not os.access(nvcc, os.X_OK):
-        raise RuntimeError(
-            "nvcc not found (set CUDA_HOME): the gmm kernel is built from "
-            f"{_SRC} at first use")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/grouped_matmul.cu`` for sm_90a (once per source hash;
+    ``utils/cuda_build.py``) and return the shared library's path."""
+    return cuda_build.build_library(_SRC)
 
 
 def _library():

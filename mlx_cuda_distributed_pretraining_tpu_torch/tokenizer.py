@@ -49,13 +49,26 @@ class ByteTokenizer:
 
 
 class TokenizerManager:
-    """The tokenizer a config or run directory names (byte-level only)."""
+    """The tokenizer a config or run directory names (byte-level only).
+    With ``run_dir`` it records itself there as the JAX trainer does
+    (``tokenizer/byte_tokenizer.json``)."""
 
-    def __init__(self, data_config: Any = None):
+    def __init__(self, data_config: Any = None, run_dir: Optional[str] = None):
         tok_cfg = dict(getattr(data_config, "tokenizer", None) or {})
         special = dict(tok_cfg.get("special_tokens") or _DEFAULT_SPECIAL)
+        self.max_context_size = int(
+            (getattr(data_config, "preprocessing", None) or {}).get(
+                "max_context_size", 1024))
+        tok_path = getattr(data_config, "tokenizer_path", None)
+        if tok_path and (os.path.isfile(tok_path) or os.path.isfile(
+                os.path.join(tok_path, "tokenizer.json"))):
+            raise NotImplementedError(
+                "external tokenizer.json files are not ported; the torch "
+                "port runs the byte tokenizer")
         self.tokenizer = ByteTokenizer(
             int(tok_cfg.get("normal_vocab_size", 256)), special)
+        if run_dir:
+            self.save_to_run_dir(run_dir)
 
     @property
     def vocab_size(self) -> int:
@@ -78,6 +91,20 @@ class TokenizerManager:
 
     def detokenize(self, ids: List[int]) -> str:
         return self.tokenizer.decode(list(ids))
+
+    def tokenize_doc(self, text: str, max_length: Optional[int] = None) -> List[int]:
+        """BOS + tokens + EOS, the tokens cut to ``max_length``."""
+        max_length = self.max_context_size if max_length is None else max_length
+        return [self.bos_id] + self.tokenize(text)[:max_length] + [self.eos_id]
+
+    def save_to_run_dir(self, run_dir: str) -> None:
+        tok_dir = os.path.join(run_dir, "tokenizer")
+        os.makedirs(tok_dir, exist_ok=True)
+        meta = {"type": "byte",
+                "normal_vocab_size": self.tokenizer.normal_vocab_size,
+                "special_tokens": self.tokenizer.special_token_names}
+        with open(os.path.join(tok_dir, "byte_tokenizer.json"), "w") as f:
+            json.dump(meta, f, indent=2)
 
     @classmethod
     def from_run_dir(cls, run_dir: str) -> "TokenizerManager":

@@ -1,1 +1,1 @@
-"""Training-side helpers (only run loading is ported so far)."""
+"""Training: the train step, the trainer, and loading a trained run."""

@@ -1,20 +1,233 @@
-"""Loading a trained run for serving (the trainer itself is not ported yet).
+"""The single-device trainer, and loading a trained run for serving.
 
-A run directory written by the JAX trainer holds ``config.yaml``, the
+    python -m mlx_cuda_distributed_pretraining_tpu_torch.train.trainer \\
+        --config configs/model-config-40m-adamw.yaml [--device cpu]
+
+:class:`Trainer` follows the JAX trainer on one device: seeded init, the
+data manager, the bf16 forward over fp32 master weights (flash attention
+on the CUDA kernels when the config asks for it), the fp32 cross-entropy,
+the backward, clip + fused AdamW, the log line protocol, validation, and
+interval and ``final`` checkpoints in the ``runs/`` layout both packages
+read. It runs on ``cuda`` unless the caller asks for the CPU.
+
+Not ported (they raise, naming the ROADMAP item): meshes and pipeline
+parallelism, MoE training, remat / scan_layers / fused CE, optimizers other
+than adam/adamw, streaming data, resume, async checkpoints and the
+telemetry endpoints.
+
+A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
 files; :func:`load_trained` reads them into the port's parameters.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import math
 import os
-from typing import Optional, Tuple
+import time
+from typing import Any, Dict, Optional, Tuple
 
-from ..config import Config
+import torch
+
+from ..checkpoint.manager import CheckpointManager
+from ..config import Config, apply_overrides, read_config_dict
+from ..data.memory import DataManager
+from ..models import llama
 from ..models.llama import LlamaArgs
+from ..obs.flops import mfu as compute_mfu
+from ..obs.flops import model_flops_per_token, peak_flops_per_chip
+from ..obs.logger import Logger
+from ..optim.factory import build_optimizer
+from ..optim.schedules import build_schedule, schedule_value
 from ..tokenizer import TokenizerManager
+from .train_step import init_train_state, make_eval_step, make_train_step
 
 
+class Trainer:
+    def __init__(self, config: Any, runs_root: str = "runs", quiet: bool = False,
+                 device="cuda"):
+        self.config: Config = config if isinstance(config, Config) else Config.from_yaml(config)
+        cfg = self.config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer runs on cuda by default and no CUDA "
+                               "device is visible; pass device='cpu' to train "
+                               "on the CPU")
+        if cfg.resume is not None and cfg.resume.checkpoint:
+            raise NotImplementedError("resume is not ported (ROADMAP queue 1: "
+                                      "resume, async save, GC)")
+        if cfg.data.source != "jsonl" or cfg.data.streaming:
+            raise NotImplementedError(
+                f"data source {cfg.data.source!r} is not ported (ROADMAP queue 1: "
+                "streaming, token shards, native/ and device prefetch)")
+
+        self.run_dir = CheckpointManager.setup_run_directory(
+            runs_root, cfg.name, cfg.overwrite)
+        self.checkpoints = CheckpointManager(self.run_dir)
+        self.logger = Logger(self.run_dir, quiet=quiet)
+        cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
+        self.tokenizer = TokenizerManager(cfg.data, run_dir=self.run_dir)
+
+        args = LlamaArgs.from_config(cfg.model, self.tokenizer.vocab_size)
+        if args.is_moe:
+            raise NotImplementedError(
+                "MoE training needs the grouped-GEMM backward (_tgmm_pallas) "
+                "(ROADMAP queue 1: MoE training)")
+        self.model_args = args
+        params = llama.init_params(args, torch.Generator().manual_seed(cfg.system.seed),
+                                   device=self.device)
+        self.n_params = llama.num_params(params)
+        self.logger.log_model_summary(self.n_params, args)
+
+        self.compute_dtype = (torch.bfloat16 if cfg.system.compute_dtype == "bfloat16"
+                              else torch.float32)
+        remat = cfg.model.remat_policy or cfg.system.remat
+        if remat is None and cfg.system.gradient_checkpointing:
+            remat = "full"
+        kw = dict(compute_dtype=self.compute_dtype,
+                  ce_chunk=int(cfg.system.fused_ce_chunk),
+                  scan_layers=bool(cfg.system.scan_layers))
+        z_loss = float(cfg.training.hyperparameters.get("z_loss") or 0.0)
+
+        def loss_fn(params, batch):
+            return llama.loss_fn(params, batch, args, remat=remat,
+                                 z_loss_weight=z_loss,
+                                 overlap=bool(cfg.system.overlap_gather), **kw)
+
+        def eval_loss_fn(params, batch):
+            return llama.loss_fn(params, batch, args, **kw)
+
+        self.data = DataManager(cfg.data, self.tokenizer, cfg.training.batch_size,
+                                seq_len=cfg.data.max_context_size,
+                                seed=cfg.system.seed)
+        if cfg.training.iters:
+            self.total_steps = cfg.training.iters
+        else:
+            self.total_steps = (cfg.training.epochs or 1) * self.data.batches_per_epoch
+        self.schedule = build_schedule(cfg.training, max(self.total_steps, 1))
+        self.optimizer = build_optimizer(cfg.training, max(self.total_steps, 1),
+                                         schedule=self.schedule)
+        self.accum_steps = cfg.training.gradient_accumulation_steps
+        self.train_step = make_train_step(
+            loss_fn, self.optimizer, accum_steps=self.accum_steps,
+            log_grad_norm=cfg.logging.log_gradient_norm)
+        self.eval_step = make_eval_step(eval_loss_fn)
+        self.state = init_train_state(params, self.optimizer)
+
+        self.total_tokens = 0
+        self.eval_batches = 0  # validation batches run (each one a forward)
+        self.windows: list = []  # one dict per log line
+        self.val_history: Dict[str, list] = {"steps": [], "losses": []}
+        self.flops_per_token = model_flops_per_token(
+            cfg.model, self.n_params, cfg.data.max_context_size)
+        self.peak_flops = (peak_flops_per_chip(torch.cuda.get_device_name(self.device))
+                           if self.device.type == "cuda" else None)
+
+    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- validation and checkpoints ---------------------------------------------
+    def validate(self, cap: int = 50) -> Optional[float]:
+        """Token-weighted validation loss over at most ``cap`` batches."""
+        if not self.data.has_validation_data:
+            return None
+        total_nll = total_toks = None
+        for batch in self.data.iter_validation(cap):
+            loss, toks = self.eval_step(self.state["params"], self._device_batch(batch))
+            self.eval_batches += 1
+            nll = loss * toks
+            total_nll = nll if total_nll is None else total_nll + nll
+            total_toks = toks if total_toks is None else total_toks + toks
+        if total_nll is None or float(total_toks) == 0:
+            return None
+        return float(total_nll) / float(total_toks)
+
+    def save_checkpoint(self, step) -> None:
+        training_state = {"step": int(self.state["step"]),
+                          "total_tokens": int(self.total_tokens),
+                          **self.data.state_dict(),
+                          "validation": self.val_history}
+        self.checkpoints.save(step, self.state["params"], self.state["opt_state"],
+                              training_state,
+                              metadata_extra={"total_tokens": int(self.total_tokens)})
+        self.checkpoints.update_ledger(validation=self.val_history,
+                                       total_tokens=int(self.total_tokens))
+        self.logger.log(f"Saved checkpoint at step {step}")
+
+    # -- the loop ------------------------------------------------------------
+    def train(self) -> Dict[str, Any]:
+        cfg = self.config
+        log_int = max(1, cfg.logging.logging_interval)
+        ckpt_int = cfg.logging.checkpoint_interval
+        val_int = cfg.logging.validation_interval
+
+        def record_validation(step: int, v: Optional[float]) -> None:
+            if v is not None:
+                self.logger.log_validation(step, v)
+                self.val_history["steps"].append(step)
+                self.val_history["losses"].append(v)
+
+        if val_int:
+            record_validation(0, self.validate())
+        window_tokens, window_steps = 0, 0
+        last_loss = float("nan")
+        self._sync()
+        window_start = time.perf_counter()
+        for step in range(1, self.total_steps + 1):
+            batch = self.data.generate_batch(step - 1)
+            step_tokens = int(batch["mask"].sum())
+            window_tokens += step_tokens
+            self.total_tokens += step_tokens
+            self.state, metrics = self.train_step(self.state, self._device_batch(batch))
+            window_steps += 1
+            if step % log_int == 0 or step == self.total_steps:
+                loss = float(metrics["loss"])
+                self._sync()
+                last_loss = loss
+                elapsed = max(time.perf_counter() - window_start, 1e-9)
+                tok_s = window_tokens / elapsed
+                mfu_val = compute_mfu(tok_s, self.flops_per_token, self.peak_flops, 1)
+                line = {"loss": loss, "ppl": float(math.exp(min(loss, 30.0))),
+                        "lr": schedule_value(self.schedule, step),
+                        "tok/s": tok_s, "toks": int(window_tokens),
+                        "mfu": mfu_val if mfu_val is not None else "unknown"}
+                if "grad_norm" in metrics:
+                    line["grad_norm"] = float(metrics["grad_norm"])
+                if int(metrics["nonfinite"]):
+                    self.logger.log(f"WARNING: non-finite loss at step {step}")
+                self.logger.log_metrics(step, line)
+                self.windows.append({"step": step, "steps": window_steps,
+                                     "seconds": elapsed, **line})
+                window_tokens, window_steps = 0, 0
+                window_start = time.perf_counter()
+            if val_int and step % val_int == 0:
+                record_validation(step, self.validate())
+            if ckpt_int and step % ckpt_int == 0:
+                self.save_checkpoint(step)
+            if window_steps == 0:  # validation and saves stay out of the windows
+                self._sync()
+                window_start = time.perf_counter()
+
+        step = int(self.state["step"])
+        if self.val_history["steps"] and self.val_history["steps"][-1] == step:
+            final_val = self.val_history["losses"][-1]
+        else:
+            final_val = self.validate()
+            record_validation(step, final_val)
+        self.save_checkpoint("final")
+        self.logger.log("Training complete")
+        self.logger.close()
+        return {"final_loss": last_loss, "final_val_loss": final_val, "steps": step}
+
+
+# -- loading a run ------------------------------------------------------------------
 def _step_sort_key(tag: str) -> Tuple[int, int]:
     """Newest first: "final" outranks any numeric step, numeric steps
     descend, unknown tags come last."""
@@ -57,3 +270,32 @@ def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda"):
         raise FileNotFoundError(f"no model checkpoints in {run_dir}")
     arrays, _ = load_safetensors(model_path)
     return params_from_flat(arrays, device), args, tok, cfg
+
+
+def main(argv=None) -> Dict[str, Any]:
+    parser = argparse.ArgumentParser(description="Train with the PyTorch port")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--runs-root", default="runs")
+    parser.add_argument("--iters", type=int, default=None)
+    parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                        help="dotted config override, e.g. training.hyperparameters.batch_size=8")
+    args = parser.parse_args(argv)
+    overrides = {}
+    for kv in args.set:
+        key, _, value = kv.partition("=")
+        try:
+            value = json.loads(value)
+        except json.JSONDecodeError:
+            pass
+        overrides[key] = value
+    if args.iters is not None:
+        overrides["training.hyperparameters.iters"] = args.iters
+    raw = read_config_dict(args.config)
+    trainer = Trainer(Config.from_dict(apply_overrides(raw, overrides)),
+                      runs_root=args.runs_root, device=args.device)
+    return trainer.train()
+
+
+if __name__ == "__main__":
+    main()

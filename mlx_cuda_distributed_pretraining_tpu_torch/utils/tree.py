@@ -1,4 +1,5 @@
-"""Nested-dict <-> flat-dict helpers used by checkpoint loading."""
+"""Nested dict/list trees: flat-dict conversion for checkpoints and
+traversal in the JAX pytree order."""
 
 from __future__ import annotations
 
@@ -45,3 +46,22 @@ def lists_from_index_dicts(tree: Any) -> Any:
     if node and sorted(node) == sorted(str(i) for i in range(len(node))):
         return [node[str(i)] for i in range(len(node))]
     return node
+
+
+def leaves_with_path(tree: Any, _path: tuple = ()) -> list:
+    """``[(path, leaf)]`` in the JAX pytree order (dict keys sorted, lists in
+    order); ``path`` is the tuple of keys, list indices as strings."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in leaves_with_path(tree[k], _path + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in leaves_with_path(v, _path + (str(i),))]
+    return [(_path, tree)]
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)

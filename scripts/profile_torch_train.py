@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Where a training step's time goes in the torch port, on one NVIDIA GPU.
+
+    python3 scripts/profile_torch_train.py [--steps 10] [--out profile.json]
+
+Builds configs/model-config-40m-adamw.yaml at full width (its numbers
+written out: hidden 512, 12 layers, 8 heads of 64, 1024 positions, batch
+32, bf16 compute over fp32 masters, flash attention, AdamW with clip 1.0)
+with seeded random weights and seeded random byte tokens, then:
+
+- step: wall time per train step (``make_train_step``; host clock around
+  steps that end in a synchronise);
+- phases: wall time of the forward + loss, the backward and the fused
+  AdamW, each ended by a synchronise;
+- a torch.profiler window over the same steps: device time per step by
+  kernel and by family (flash kernels, matrix products, the rest), kernels
+  launched per step, and the device's idle share of the wall time.
+
+Prints one JSON object (also written to ``--out`` when given) with the
+card's name and power limit beside the numbers. Needs CUDA; imports nothing
+of JAX.
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# configs/model-config-40m-adamw.yaml, the sections the step reads.
+CONFIG_40M = {
+    "name": "40m-adamw-profile",
+    "model": {"dimensions": {"hidden_size": 512, "intermediate_size": 1536,
+                             "num_layers": 12},
+              "attention": {"num_heads": 8, "num_kv_heads": 8, "head_dim": 64,
+                            "max_position_embeddings": 1024,
+                            "use_flash_attention": True},
+              "normalization": {"rms_norm_eps": 1.0e-5},
+              "rope": {"theta": 10000, "traditional": False},
+              "misc": {"tie_word_embeddings": True}},
+    "training": {"hyperparameters": {"batch_size": 32, "learning_rate": 6.0e-4,
+                                     "weight_decay": 0.05, "gradient_clip": 1.0,
+                                     "iters": 10000},
+                 "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 500,
+                               "min_lr_ratio": 0.1},
+                 "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
+    "system": {"seed": 42, "mixed_precision": True},
+}
+SEQ, VOCAB = 1024, 259
+
+
+def family(name: str) -> str:
+    flash = re.search(r"flash_\w+_kernel", name)
+    if flash:
+        return flash.group(0)
+    n = name.lower()
+    if any(k in n for k in ("gemm", "nvjet", "sm90", "cutlass", "xmma")):
+        return "matrix products (cuBLAS)"
+    return "other"
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
+    from mlx_cuda_distributed_pretraining_tpu_torch.optim.factory import build_optimizer
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.train_step import (
+        init_train_state,
+        make_train_step,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import (
+        leaves_with_path,
+        tree_map,
+    )
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--out", help="also write the JSON object here")
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+    cfg = Config.from_dict(CONFIG_40M)
+    args = llama.LlamaArgs.from_config(cfg.model, VOCAB)
+    params = llama.init_params(args, torch.Generator().manual_seed(42), device="cuda")
+    optimizer = build_optimizer(cfg.training, cfg.training.iters)
+    dtype = torch.bfloat16
+
+    def loss_fn(prm, batch):
+        return llama.loss_fn(prm, batch, args, compute_dtype=dtype)
+
+    step_fn = make_train_step(loss_fn, optimizer)
+    state = init_train_state(params, optimizer)
+    g = torch.Generator().manual_seed(0)
+    rows = torch.randint(0, 256, (cfg.training.batch_size, SEQ + 1), generator=g)
+    batch = {"inputs": rows[:, :-1].cuda(), "targets": rows[:, 1:].cuda(),
+             "mask": torch.ones(cfg.training.batch_size, SEQ, device="cuda")}
+    for _ in range(3):  # warm: cuBLAS handles, the kernels' library, plans
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(a.steps):
+        state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / a.steps
+
+    # The same step cut into phases, each ended by a synchronise.
+    phases = {"forward_and_loss": 0.0, "backward": 0.0, "optimizer": 0.0}
+    leaves = [q for _, q in leaves_with_path(state["params"])]
+    for _ in range(a.steps):
+        for q in leaves:
+            q.grad = None
+        t = time.perf_counter()
+        loss, _ = loss_fn(state["params"], batch)
+        torch.cuda.synchronize()
+        phases["forward_and_loss"] += time.perf_counter() - t
+        t = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        phases["backward"] += time.perf_counter() - t
+        t = time.perf_counter()
+        state["params"], state["opt_state"] = optimizer.fused_apply(
+            tree_map(lambda q: q.grad, state["params"]), state["opt_state"],
+            state["params"])
+        torch.cuda.synchronize()
+        phases["optimizer"] += time.perf_counter() - t
+    for q in leaves:
+        q.grad = None
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fa.flash_fwd.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(a.steps):
+            state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels, families = {}, {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += ev.device_time / 1e3  # us -> ms
+            k[1] += 1
+            f = families.setdefault(family(ev.name), [0.0, 0])
+            f[0] += ev.device_time / 1e3
+            f[1] += 1
+    device_ms = sum(v[0] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    tokens = cfg.training.batch_size * SEQ
+
+    out = {
+        "card": card,
+        "config": "40m-adamw, B 32, S 1024, bf16 over fp32, flash attention",
+        "params": llama.num_params(state["params"]),
+        "step_ms": step_ms,
+        "tok_s": tokens * 1e3 / step_ms,
+        "phase_ms": {k: v * 1e3 / a.steps for k, v in phases.items()},
+        "profiled_step_wall_ms": prof_wall_ms / a.steps,
+        "profiled_step_device_ms": device_ms / a.steps,
+        "device_idle_share": 1.0 - device_ms / prof_wall_ms,
+        "kernels_per_step": sum(v[1] for v in kernels.values()) / a.steps,
+        "flash_fwd_launches_per_step": fa.flash_fwd.launches / a.steps,
+        "families_ms_per_step": {
+            n: {"ms": v[0] / a.steps, "launches": v[1] / a.steps}
+            for n, v in sorted(families.items(), key=lambda kv: -kv[1][0])},
+        "top_kernels_ms_per_step": [
+            {"name": n[:90], "ms": v[0] / a.steps, "launches": v[1] / a.steps}
+            for n, v in top],
+        "last_loss": float(metrics["loss"]),
+    }
+    text = json.dumps(out, indent=1)
+    print(text)
+    if a.out:
+        os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+        with open(a.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

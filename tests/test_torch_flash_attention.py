@@ -1,0 +1,235 @@
+"""The torch port's flash attention against the JAX package's, on the CPU.
+
+On the CPU the port runs the kernels' plain versions under its custom
+backward; the JAX side runs its Pallas kernels in interpret mode, as
+``tests/test_flash_attention.py`` does (B 2, S 256, D 32, 64-row blocks).
+Inputs are numpy from a seed. fp32 throughout: the forward agrees to 2e-5
+and the gradients to atol 5e-4 / rtol 5e-3 (the JAX suite's own flash vs
+reference tolerances; both sides sum in different orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mlx_cuda_distributed_pretraining_tpu.ops import flash_attention as jf
+from mlx_cuda_distributed_pretraining_tpu.ops import masks as JM
+from mlx_cuda_distributed_pretraining_tpu.ops.attention import (
+    reference_attention as j_reference,
+)
+from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as tf
+from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_check
+from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks as TM
+from mlx_cuda_distributed_pretraining_tpu_torch.ops.attention import (
+    reference_attention as t_reference,
+)
+
+B, S, D = 2, 256, 32
+BLOCK = 64
+WINDOW, PREFIX = 96, 80
+FWD_TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=5e-4, rtol=5e-3)
+
+
+def _qkv(hq=4, hkv=4, s=S, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, s, h, D)).astype(np.float32)
+            for h in (hq, hkv, hkv)]
+
+
+def _jax_flash(q, k, v, mask_type):
+    return jf.flash_attention(q, k, v, mask_type=mask_type, window_size=WINDOW,
+                              prefix_len=PREFIX, block_q=BLOCK, block_kv=BLOCK)
+
+
+def _port_flash(q, k, v, mask_type):
+    return tf.flash_attention(q, k, v, mask_type=mask_type, window_size=WINDOW,
+                              prefix_len=PREFIX)
+
+
+CASES = [  # (mask, hq, hkv, s)
+    ("causal", 4, 4, S), ("sliding_window", 4, 4, S), ("prefix_lm", 4, 4, S),
+    ("full", 4, 4, S), ("causal", 4, 2, S), ("causal", 4, 1, S),
+    ("causal", 4, 2, 200),
+]
+
+
+@pytest.mark.parametrize("mask_type,hq,hkv,s", CASES)
+def test_flash_attention_forward_and_grads_match_jax(mask_type, hq, hkv, s):
+    q, k, v = _qkv(hq, hkv, s)
+    j_out = _jax_flash(*map(jnp.asarray, (q, k, v)), mask_type)
+
+    def j_loss(q, k, v):
+        o = _jax_flash(q, k, v, mask_type)
+        return jnp.sum(o * jnp.cos(o))  # a nontrivial cotangent
+
+    j_grads = jax.grad(j_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    t_out = _port_flash(tq, tk, tv, mask_type)
+    (t_out * torch.cos(t_out)).sum().backward()
+    np.testing.assert_allclose(t_out.detach().numpy(), np.asarray(j_out), **FWD_TOL)
+    for name, jg, t in zip("qkv", j_grads, (tq, tk, tv)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg), **GRAD_TOL,
+                                   err_msg=f"d{name} ({mask_type}, {hq}/{hkv}, S={s})")
+
+
+@pytest.mark.parametrize("mask_type", ["causal", "sliding_window", "prefix_lm", "full"])
+def test_raw_plain_functions_match_jax_kernels(mask_type):
+    """flash_fwd_plain (o, lse), flash_bwd_dq_plain and flash_bwd_dkv_plain
+    against the raw interpret-mode kernels on the same lse and delta, GQA
+    4/2, [B, H, S, D] layout."""
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in _qkv(4, 2))
+    do = np.random.default_rng(1).standard_normal(q.shape).astype(np.float32)
+    mask_fn = {"causal": JM.causal(), "sliding_window": JM.sliding_window(WINDOW),
+               "prefix_lm": JM.prefix_lm(PREFIX), "full": None}[mask_type]
+    kw = dict(mask_type=mask_type, window=WINDOW, prefix_len=PREFIX,
+              scale=D ** -0.5)
+    jkw = dict(kw, mask_fn=mask_fn, block_q=BLOCK, block_kv=BLOCK)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    j_o, j_lse = jf.flash_fwd(jq, jk, jv, **jkw)
+    t_o, t_lse = tf.flash_fwd_plain(*map(torch.from_numpy, (q, k, v)), **kw)
+    np.testing.assert_allclose(t_o.numpy(), np.asarray(j_o), **FWD_TOL)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse)[:, :, 0], **FWD_TOL)
+
+    lse = np.asarray(j_lse)
+    delta = np.sum(do * np.asarray(j_o), axis=-1)[:, :, None, :]
+    j_dq = jf.flash_bwd_dq(jq, jk, jv, jdo, jnp.asarray(lse), jnp.asarray(delta), **jkw)
+    j_dk, j_dv = jf.flash_bwd_dkv(jq, jk, jv, jdo, jnp.asarray(lse),
+                                  jnp.asarray(delta), **jkw)
+    targs = [torch.from_numpy(np.ascontiguousarray(x))
+             for x in (q, k, v, do, lse[:, :, 0], delta[:, :, 0])]
+    t_dq = tf.flash_bwd_dq_plain(*targs, **kw)
+    t_dk, t_dv = tf.flash_bwd_dkv_plain(*targs, **kw)
+    for t, j in ((t_dq, j_dq), (t_dk, j_dk), (t_dv, j_dv)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("mask_type", ["causal", "sliding_window", "prefix_lm",
+                                       "full", "band"])
+def test_tile_planners_match_jax(mask_type):
+    for bq, bkv in ((64, 64), (32, 64), (64, 32), (256, 512)):
+        for n in (1, 2, 5, 16):
+            for window, prefix in ((1, 0), (96, 80), (300, 1000), (-40, 0)):
+                args = (mask_type, window, prefix, bq, bkv)
+                jlo, jhi = jf._kv_range(*args, n)
+                tlo, thi = tf._kv_range(*args, n)
+                assert [(int(jlo(i)), int(jhi(i))) for i in range(n)] == \
+                    [(tlo(i), thi(i)) for i in range(n)], (args, n)
+                jlo, jhi = jf._q_range(*args, n)
+                tlo, thi = tf._q_range(*args, n)
+                assert [(int(jlo(i)), int(jhi(i))) for i in range(n)] == \
+                    [(tlo(i), thi(i)) for i in range(n)], (args, n)
+                jfull = jf._full_tile_fn(*args)
+                tfull = tf._full_tile_fn(*args)
+                assert (jfull is None) == (tfull is None)
+                if jfull is not None:
+                    assert [[bool(jfull(i, j)) for j in range(n)] for i in range(n)] \
+                        == [[bool(tfull(i, j)) for j in range(n)] for i in range(n)]
+    for block in (64, 128, 256, 512, 1024):
+        for dim in (64, 128, 192, 200, 1000, 1024, 4096):
+            assert tf.fit_block(block, dim) == jf.fit_block(block, dim)
+
+
+@pytest.mark.parametrize("mask_type", ["causal", "sliding_window", "prefix_lm", "full"])
+def test_reference_attention_with_mask_mod_matches_jax(mask_type):
+    q, k, v = _qkv(4, 2, 64)
+    jmod = {"causal": JM.causal(), "sliding_window": JM.sliding_window(24),
+            "prefix_lm": JM.prefix_lm(20), "full": JM.full()}[mask_type]
+    tmod = {"causal": TM.causal(), "sliding_window": TM.sliding_window(24),
+            "prefix_lm": TM.prefix_lm(20), "full": TM.full()}[mask_type]
+    assert tmod._plan == jmod._plan
+    j = j_reference(*map(jnp.asarray, (q, k, v)), mask_mod=jmod)
+    t = t_reference(*map(torch.from_numpy, (q, k, v)), mask_mod=tmod)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=1e-5)
+
+
+def test_unported_options_raise():
+    q, k, v = (torch.zeros(1, 8, 2, 64) for _ in range(3))
+    for kw in ({"mask_type": "band"}, {"precision": "int8"},
+               {"mask_fn": TM.causal()}, {"score_fn": lambda s, r, c, h: s}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf.flash_attention(q, k, v, **kw)
+    with pytest.raises(ValueError, match="mask_type"):
+        tf.flash_attention(q, k, v, mask_type="diagonal")
+
+
+def test_flash_check_passes_bf16_rounding_and_rejects_a_skipped_tile():
+    # The kernels' gate (flash_check.compare) at the training path's S, D
+    # and causal mask. The bf16 plain forward stands for the reference;
+    # the same inputs in fp32, with p left unrounded and the output rounded
+    # once to bf16, differ from it by rounding alone, as a correct kernel
+    # does, and must pass. The planted fault leaves the diagonal KV tile
+    # out of the last 64-row Q tile (those rows then see every earlier key,
+    # a full mask over them) and must fail.
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 8, 1024, 64))
+                                .astype(np.float32)).bfloat16() for _ in range(3))
+    kw = dict(mask_type="causal", scale=64 ** -0.5)
+    ref, _ = tf.flash_fwd_plain(q, k, v, **kw)
+    rounded = tf.flash_fwd_plain(q.float(), k.float(), v.float(), **kw)[0]
+    good = flash_check.compare(rounded.bfloat16(), ref)
+    assert good["ok"], good
+    bad = ref.clone()
+    bad[:, :, -64:] = tf.flash_fwd_plain(q[:, :, -64:], k[:, :, :-64],
+                                         v[:, :, :-64], mask_type="full",
+                                         scale=64 ** -0.5)[0]
+    fault = flash_check.compare(bad, ref)
+    assert not fault["ok"] and fault["limit_ratio"] > 10, fault
+
+
+def test_planted_fault_drops_one_tile_and_restores_the_plan():
+    plan = tf._plan("causal", 0, 0, 1024, 64, torch.device("cpu"))
+    with flash_check.planted_fault():
+        kv, q_ranges, full = tf._plan("causal", 0, 0, 1024, 64, torch.device("cpu"))
+    assert kv[:-1].tolist() == plan[0][:-1].tolist()
+    assert kv[-1].tolist() == [0, 15] and plan[0][-1].tolist() == [0, 16]
+    assert q_ranges[1:].tolist() == plan[1][1:].tolist()
+    assert q_ranges[0].tolist() == [0, 15] and plan[1][0].tolist() == [0, 16]
+    assert full is plan[2]
+    assert tf._plan("causal", 0, 0, 1024, 64, torch.device("cpu"))[0] is plan[0]
+
+
+def _meta_inputs(dtype=torch.bfloat16, d=64):
+    q, k, v, do = (torch.empty((2, 4, 128, d), dtype=dtype, device="meta")
+                   for _ in range(4))
+    lse, delta = (torch.empty((2, 4, 128), device="meta") for _ in range(2))
+    return q, k, v, do, lse, delta
+
+
+def test_flash_non_cpu_input_raises_instead_of_falling_back():
+    # A tensor that is not on the CPU never takes the plain version: on a
+    # device the kernels cannot take it raises before any build or launch.
+    q, k, v, do, lse, delta = _meta_inputs()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tf.flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tf.flash_bwd_dq(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tf.flash_bwd_dkv(q, k, v, do, lse, delta)
+
+
+def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
+    # Inputs that pass the kernels' checks (waived here for meta tensors
+    # standing in for CUDA ones) go to the build, which raises without
+    # nvcc; nothing catches it to run the plain version.
+    import torch.utils.cpp_extension as cpp
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils import cuda_build
+
+    monkeypatch.setattr(cpp, "CUDA_HOME", None)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tf, "_lib", None)
+    monkeypatch.setattr(tf, "_check", lambda *a: None)
+    monkeypatch.setattr(tf, "_plan", lambda *a: (None, None, torch.zeros(2, 2)))
+    q, k, v, do, lse, delta = _meta_inputs()
+    before = (tf.flash_fwd.launches, tf.flash_bwd_dq.launches,
+              tf.flash_bwd_dkv.launches)
+    for call in (lambda: tf.flash_fwd(q, k, v),
+                 lambda: tf.flash_bwd_dq(q, k, v, do, lse, delta),
+                 lambda: tf.flash_bwd_dkv(q, k, v, do, lse, delta)):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert (tf.flash_fwd.launches, tf.flash_bwd_dq.launches,
+            tf.flash_bwd_dkv.launches) == before

@@ -13,6 +13,7 @@ import torch
 
 from mlx_cuda_distributed_pretraining_tpu.ops import grouped_matmul as jgm
 from mlx_cuda_distributed_pretraining_tpu_torch.ops import grouped_matmul as tgm
+from mlx_cuda_distributed_pretraining_tpu_torch.utils import cuda_build
 
 # (block_t, group sizes, tail rows past the last group): an empty group and
 # tail tiles in every case.
@@ -104,7 +105,7 @@ def test_gmm_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as cpp
 
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
-    monkeypatch.setattr(tgm, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(tgm, "_lib", None)
     monkeypatch.setattr(tgm, "_check", lambda *a: None)
     x = torch.empty((16, 8), device="meta")

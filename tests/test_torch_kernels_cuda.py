@@ -1,4 +1,5 @@
-"""The torch port's CUDA kernels against their plain versions, on the card.
+"""The torch port's CUDA kernels against their plain versions, on the card:
+the grouped GEMM and the three flash-attention kernels.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (the kernels have no CPU mode). The file imports torch only, so on a machine
@@ -11,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as tfa
+from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_check
 from mlx_cuda_distributed_pretraining_tpu_torch.ops import grouped_matmul as tgm
 
 # (block_t, group sizes, tail rows): the serving path's decode and prefill
@@ -68,3 +71,92 @@ def test_gmm_kernel_rejects_bad_input(cuda):
         tgm.gmm(x, w, gs.long(), 8)
     with pytest.raises(ValueError, match="contiguous"):
         tgm.gmm(x.t().contiguous().t(), w, gs, 8)
+
+
+# (dtype, B, Hq, Hkv, S, D, mask): the training path's shape at a smaller
+# batch, fp32, GQA, tail tiles, the other masks and D 128.
+FLASH_CASES = [
+    ("bfloat16", 4, 8, 8, 1024, 64, "causal"),
+    ("float32", 2, 8, 8, 256, 64, "causal"),
+    ("bfloat16", 2, 8, 2, 256, 64, "causal"),
+    ("bfloat16", 2, 4, 4, 1000, 64, "causal"),
+    ("float32", 1, 4, 2, 200, 64, "causal"),
+    ("bfloat16", 2, 4, 4, 512, 64, "sliding_window"),
+    ("bfloat16", 2, 4, 4, 512, 64, "prefix_lm"),
+    ("bfloat16", 2, 4, 4, 300, 64, "full"),
+    ("bfloat16", 2, 4, 4, 512, 128, "causal"),
+    ("float32", 1, 4, 4, 256, 128, "causal"),
+]
+
+
+def _flash_inputs(dtype, B, Hq, Hkv, S, D, seed=0):
+    """q, k, v, dO as [B, H, S, D] views of [B, S, H, D] tensors (the
+    layout the model hands the kernels)."""
+    g = torch.Generator().manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    return [torch.randn(B, S, h, D, generator=g).to("cuda", tdt).transpose(1, 2)
+            for h in (Hq, Hkv, Hkv, Hq)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,S,D,mask", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, B, Hq, Hkv, S, D, mask):
+    q, k, v, do = _flash_inputs(dtype, B, Hq, Hkv, S, D)
+    kw = dict(mask_type=mask, window=96, prefix_len=80, scale=D ** -0.5)
+    before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    o, lse = tfa.flash_fwd(q, k, v, **kw)
+    ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    rdq = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
+    rdk, rdv = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+    for name, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        check = flash_check.compare(got, ref)
+        assert check["ok"], (name, check)
+
+
+@pytest.mark.cuda
+def test_flash_check_rejects_planted_fault(cuda):
+    # The training path's shape at a smaller batch; each kernel launched
+    # with one live tile left out of its plan must fail the same check.
+    q, k, v, do = _flash_inputs("bfloat16", 4, 8, 8, 1024, 64)
+    kw = dict(mask_type="causal", scale=64 ** -0.5)
+    ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    refs = {"o": ro,
+            "dq": tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)}
+    refs["dk"], refs["dv"] = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    good = flash_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+    with flash_check.planted_fault():
+        bad = flash_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+    for name, ref in refs.items():
+        assert flash_check.compare(good[name], ref)["ok"], name
+        assert not flash_check.compare(bad[name], ref)["ok"], name
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_bad_input(cuda):
+    q, k, v, do = _flash_inputs("bfloat16", 1, 4, 4, 128, 64)
+    lse = torch.zeros((1, 4, 128), device="cuda")
+    with pytest.raises(TypeError, match="want"):  # a CPU tensor among CUDA ones
+        tfa.flash_fwd(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tfa.flash_fwd(q.half(), k.half(), v.half())
+    q32, k32, v32, _ = _flash_inputs("bfloat16", 1, 4, 4, 128, 32)
+    with pytest.raises(ValueError, match="D in"):
+        tfa.flash_fwd(q32, k32, v32)
+    with pytest.raises(ValueError, match="masks"):
+        tfa.flash_fwd(q, k, v, mask_type="band")
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_bwd_dq(q, k, v, do, lse.transpose(1, 2).contiguous()
+                         .transpose(1, 2), lse)
+    with pytest.raises(TypeError, match="fp32 or bf16"):  # no quiet fallback
+        tfa.flash_attention(*(t.transpose(1, 2).half() for t in (q, k, v)))
