@@ -20,7 +20,7 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    (tail tiles), sliding_window, prefix_lm, full and D 128, timing each
    beside ``F.scaled_dot_product_attention`` (forward; forward + backward
    for the backward kernels) as a yardstick. Each output must pass
-   ``ops/flash_check.compare`` (per-element limits scaled to the output's
+   ``ops/kernel_check.compare`` (per-element limits scaled to the output's
    RMS, and a normwise limit); at the path shape the kernels are launched
    once more with one live tile left out of their plans, and the same
    check must reject every output.
@@ -39,7 +39,17 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    forward, 12 per step for each backward), step 1's loss and gradients
    against the plain attention path on the card at batch 8, and serves the
    final checkpoint through the port's server.
-6. report  — a ``{"kernels": [...]}`` line, the card line, and as the last
+6. moe     — trains configs/model-config-moe-8x40m.yaml at full width (hidden
+   512, intermediate 1536, 12 layers, 8 experts top-2, dropless grouped
+   dispatch, router aux and z losses, S 1024, batch 32, bf16 over fp32
+   masters, AdamW) the same way: 30 steps, a log line every 5 with routing
+   stats, one validation, the final checkpoint. Checks the loss falls, the
+   routing stats on every line (no drops), the exact launch counts (per
+   step 72 gmm, 36 tgmm and 12 of each flash kernel; per validation batch
+   36 gmm and 12 flash_fwd), step 1's loss and gradients with the gmm and
+   tgmm kernels against their plain versions (flash kernels in both) at
+   batch 8, and serves the final checkpoint.
+7. report  — a ``{"kernels": [...]}`` line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 Every path runs with all launch counts set to 0 just before it and read
@@ -67,6 +77,7 @@ MOE_8X40M = dict(vocab_size=259, hidden_size=512, intermediate_size=1536,
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:137"
+TGMM_REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:188"
 SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/grouped_matmul.cu"
 FLASH_SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {
@@ -91,12 +102,13 @@ def card_line() -> str:
 
 def reset_launches(gm, fa) -> None:
     gm.gmm.launches = 0
+    gm.tgmm.launches = 0
     for name in FLASH_KERNELS:
         getattr(fa, name).launches = 0
 
 
 def read_launches(gm, fa) -> dict:
-    return {"gmm": gm.gmm.launches,
+    return {"gmm": gm.gmm.launches, "tgmm": gm.tgmm.launches,
             **{name: getattr(fa, name).launches for name in FLASH_KERNELS}}
 
 
@@ -133,7 +145,7 @@ def device_ms(torch, fn, copies: int, reps: int = 40) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_case(torch, gm, name, dtype, T, K, N, sizes, block_t):
+def kernel_case(torch, gm, kernel_check, name, dtype, T, K, N, sizes, block_t):
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(SEED)
     E = sizes.shape[0]
@@ -150,13 +162,11 @@ def kernel_case(torch, gm, name, dtype, T, K, N, sizes, block_t):
     out = gm.gmm(x, ws[0], gs, block_t)
     ref = gm.gmm_plain(x, ws[0], gs, block_t)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    # fp32: both sum fp32 products, in different orders (rtol/atol 1e-4).
-    # bf16: exact bf16 products summed in fp32, rounded once to bf16; the
-    # order can move that rounding by one bf16 ulp (2e-2 relative).
-    tol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
-    ok = torch.allclose(out.float(), ref.float(), rtol=tol[0], atol=tol[1]) \
-        and not out[live:].any().item()
+    # kernel_check.compare: the order of the fp32 sums only (bf16: one
+    # rounding of it); tail rows exactly zero.
+    check = kernel_check.compare(out, ref)
+    err = check["max_abs_err"]
+    ok = check["ok"] and not out[live:].any().item()
 
     ms = device_ms(torch, lambda i: gm.gmm(x, ws[i], gs, block_t), copies)
     plain_ms = device_ms(torch, lambda i: gm.gmm_plain(x, ws[i], gs, block_t),
@@ -191,25 +201,190 @@ def kernel_case(torch, gm, name, dtype, T, K, N, sizes, block_t):
     return case
 
 
-def kernel_phase(torch, gm):
+def kernel_phase(torch, gm, kernel_check):
     rng = torch.Generator().manual_seed(SEED)
     E, D, I = 8, 512, 1536
     dec_sizes, dec_rows = routed_sizes(torch, rng, 16, E, 8)      # 8 slots x top-2
     pre_sizes, pre_rows = routed_sizes(torch, rng, 512, E, 32)    # 256 tokens x top-2
     cases = []
     for dtype in ("float32", "bfloat16"):
-        cases.append(kernel_case(torch, gm, "decode_gate_up", dtype, dec_rows,
-                                 D, I, dec_sizes, 8))
-        cases.append(kernel_case(torch, gm, "prefill_gate_up", dtype, pre_rows,
-                                 D, I, pre_sizes, 32))
-    cases.append(kernel_case(torch, gm, "decode_down", "float32", dec_rows, I,
-                             D, dec_sizes, 8))
-    cases.append(kernel_case(torch, gm, "prefill_down", "float32", pre_rows, I,
-                             D, pre_sizes, 32))
+        cases.append(kernel_case(torch, gm, kernel_check, "decode_gate_up", dtype,
+                                 dec_rows, D, I, dec_sizes, 8))
+        cases.append(kernel_case(torch, gm, kernel_check, "prefill_gate_up", dtype,
+                                 pre_rows, D, I, pre_sizes, 32))
+    cases.append(kernel_case(torch, gm, kernel_check, "decode_down", "float32",
+                             dec_rows, I, D, dec_sizes, 8))
+    cases.append(kernel_case(torch, gm, kernel_check, "prefill_down", "float32",
+                             pre_rows, I, D, pre_sizes, 32))
     edge = torch.tensor([16, 0, 8, 0, 0, 24, 8, 0], dtype=torch.int32)
-    cases.append(kernel_case(torch, gm, "empty_groups_tail", "float32", 72, D,
-                             I, edge, 8))
+    cases.append(kernel_case(torch, gm, kernel_check, "empty_groups_tail",
+                             "float32", 72, D, I, edge, 8))
     return cases
+
+
+# -- phase 3: the MoE training path's grouped GEMMs (gmm fwd / dX, tgmm) ---------
+TRAIN_SELECTIONS, TRAIN_BLOCK_T = 32 * 1024 * 2, 128  # B 32 x S 1024 x top-2
+
+
+def library_call(torch, fn):
+    """``fn()`` once to see whether this torch takes it; (fn, note) or
+    (None, why not). A yardstick only; the port never calls it."""
+    try:
+        fn()
+        return fn, "ok"
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, str(e)[:120]
+
+
+def gemm_row(torch, kernel, plain, library, nbytes, flops, dtype):
+    """ms of kernel, plain version and library call (device time, inputs
+    larger than L2 so no copies are cycled), and the bound."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    row = {"ms": device_ms(torch, lambda _: kernel(), 1, reps=20),
+           "plain_ms": device_ms(torch, lambda _: plain(), 1, reps=3),
+           "library_ms": (device_ms(torch, lambda _: library(), 1, reps=20)
+                          if library is not None else None),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans):
+    """One bf16 gmm product of the training path: the forward ``x [rows, K]
+    @ w[e] [K, N]``, or with ``w_trans`` the backward's dX ``dy [rows, K] @
+    w[e]^T`` with w stored ``[E, N, K]`` (the forward's weights, read in
+    place)."""
+    g = torch.Generator().manual_seed(SEED)
+    E = sizes.shape[0]
+    live = int(sizes.sum())
+    x = torch.randn(rows, K, generator=g)
+    x[live:] = 0.0
+    x = x.to("cuda", torch.bfloat16)
+    shape = (E, N, K) if w_trans else (E, K, N)
+    w = (torch.randn(*shape, generator=g) / K ** 0.5).to("cuda", torch.bfloat16)
+    w_kn = w.transpose(1, 2) if w_trans else w
+    gs = sizes.to("cuda")
+    out = gm._gmm_forward(x, w, gs, TRAIN_BLOCK_T, w_trans)
+    ref = gm.gmm_plain(x, w_kn, gs, TRAIN_BLOCK_T)
+    torch.cuda.synchronize()
+    check = kernel_check.compare(out, ref)
+    ok = check["ok"] and not out[live:].any().item()
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    library, note = (None, "torch._grouped_mm not in this torch") \
+        if grouped_mm is None else library_call(
+            torch, lambda: grouped_mm(x, w_kn, offs=offs))
+    used = int((sizes > 0).sum())
+    row = gemm_row(
+        torch, lambda: gm._gmm_forward(x, w, gs, TRAIN_BLOCK_T, w_trans),
+        lambda: gm.gmm_plain(x, w_kn, gs, TRAIN_BLOCK_T), library,
+        (live * K + used * K * N + rows * N) * 2 + 4 * E, 2.0 * live * K * N,
+        "bfloat16")
+    case = {"case": name, "dtype": "bfloat16", "shape": [rows, K, N, E],
+            "block_t": TRAIN_BLOCK_T, "w_trans": w_trans,
+            "max_abs_err": check["max_abs_err"], "check": check, "ok": bool(ok),
+            "library": "torch._grouped_mm" if library else note, **row}
+    log(f"gmm {name} bf16 x[{rows},{K}] w[{E},{K},{N}]{' (w^T)' if w_trans else ''}: "
+        f"ok={ok} err={check['max_abs_err']:.3g} limit_ratio="
+        f"{check['limit_ratio']:.3g} norm={check['norm_err']:.3g} kernel="
+        f"{row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms library="
+        f"{row['library_ms']} ms ({case['library']}) bound={row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']})")
+    return case
+
+
+def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
+              fault=False):
+    """``dW = tgmm(x, dy)`` against ``tgmm_plain``; with ``fault`` also the
+    kernel with the last expert's last tile left out of its walk, which the
+    same check must reject."""
+    g = torch.Generator().manual_seed(SEED)
+    dt = getattr(torch, dtype)
+    E = sizes.shape[0]
+    live = int(sizes.sum())
+    x = torch.randn(rows, K, generator=g)
+    x[live:] = 0.0
+    x = x.to("cuda", dt)
+    dy = torch.randn(rows, N, generator=g).to("cuda", dt)
+    gs = sizes.to("cuda")
+    dw = gm.tgmm(x, dy, gs, E, block_t)
+    ref = gm.tgmm_plain(x, dy, gs, E, block_t)
+    torch.cuda.synchronize()
+    check = kernel_check.compare_experts(dw, ref)
+    empty_ok = all(not dw[e].any().item() for e in range(E) if int(sizes[e]) == 0)
+    ok = check["ok"] and empty_ok
+    bad = None
+    if fault:
+        bad = kernel_check.compare_experts(
+            kernel_check.tgmm_skipping_a_tile(x, dy, gs, E, block_t), ref)
+        log(f"tgmm {name} planted fault (last expert's last tile skipped): "
+            f"limit_ratio={bad['limit_ratio']:.3g} norm={bad['norm_err']:.3g} "
+            f"rejected={not bad['ok']}")
+        if bad["ok"]:
+            ok = False
+            log("tgmm: the check passed a planted fault")
+    del ref
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    library, note = None, "torch._grouped_mm not in this torch"
+    if grouped_mm is not None:  # dW over the contraction: x^T [K, T] . dy [T, N]
+        library, note = library_call(torch, lambda: grouped_mm(x.t(), dy, offs=offs))
+        if library is None:
+            xt = x.t().contiguous().t()
+            library, note2 = library_call(
+                torch, lambda: grouped_mm(xt.t(), dy, offs=offs))
+            note = "x^T as a row-major copy" if library else f"{note}; {note2}"
+    es = x.element_size()
+    row = gemm_row(torch, lambda: gm.tgmm(x, dy, gs, E, block_t),
+                   lambda: gm.tgmm_plain(x, dy, gs, E, block_t), library,
+                   live * (K + N) * es + E * K * N * es + 4 * E,
+                   2.0 * live * K * N, dtype)
+    case = {"case": name, "dtype": dtype, "shape": [rows, K, N, E],
+            "block_t": block_t, "group_sizes": sizes.tolist(),
+            "max_abs_err": check["max_abs_err"], "check": check,
+            "planted_fault": bad, "ok": bool(ok),
+            "library": "torch._grouped_mm" + ("" if note == "ok" else f" ({note})")
+            if library else note, **row}
+    log(f"tgmm {name} {dtype} x[{rows},{K}] dy[{rows},{N}] E={E} block_t="
+        f"{block_t}: ok={ok} err={check['max_abs_err']:.3g} limit_ratio="
+        f"{check['limit_ratio']:.3g} norm={check['norm_err']:.3g} kernel="
+        f"{row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms library="
+        f"{row['library_ms']} ms ({case['library']}) bound={row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']})")
+    return case
+
+
+def train_kernel_phase(torch, gm, kernel_check):
+    """(gmm cases, tgmm cases) at the MoE training path's shapes."""
+    rng = torch.Generator().manual_seed(SEED + 1)
+    E, D, I = 8, 512, 1536
+    sizes, rows = routed_sizes(torch, rng, TRAIN_SELECTIONS, E, TRAIN_BLOCK_T)
+    gmm_cases = [
+        train_gmm_case(torch, gm, kernel_check, "train_gate_up", D, I, sizes, rows, False),
+        train_gmm_case(torch, gm, kernel_check, "train_down", I, D, sizes, rows, False),
+        train_gmm_case(torch, gm, kernel_check, "train_dx_gate_up", I, D, sizes, rows, True),
+        train_gmm_case(torch, gm, kernel_check, "train_dx_down", D, I, sizes, rows, True),
+    ]
+    # one expert takes half of the selections, the rest share the other half
+    hot = torch.full((E,), TRAIN_SELECTIONS // (2 * (E - 1)), dtype=torch.int64)
+    hot[0] = TRAIN_SELECTIONS - int(hot[1:].sum())
+    hot = ((hot + TRAIN_BLOCK_T - 1) // TRAIN_BLOCK_T * TRAIN_BLOCK_T).to(torch.int32)
+    edge = torch.tensor([256, 0, 128, 0, 384, 128, 128, 0], dtype=torch.int32)
+    small, small_rows = routed_sizes(torch, rng, 4096, E, 32)
+    tgmm_cases = [
+        tgmm_case(torch, gm, kernel_check, "path_gate_up", "bfloat16", D, I, sizes,
+                  rows, TRAIN_BLOCK_T, fault=True),
+        tgmm_case(torch, gm, kernel_check, "path_down", "bfloat16", I, D, sizes,
+                  rows, TRAIN_BLOCK_T),
+        tgmm_case(torch, gm, kernel_check, "imbalanced_gate_up", "bfloat16", D, I,
+                  hot, rows, TRAIN_BLOCK_T),
+        tgmm_case(torch, gm, kernel_check, "fp32_gate_up", "float32", D, I, small,
+                  small_rows, 32),
+        tgmm_case(torch, gm, kernel_check, "empty_groups_tail", "bfloat16", D, I,
+                  edge, 1280, TRAIN_BLOCK_T),
+    ]
+    return gmm_cases, tgmm_cases
 
 
 # -- phase 3: the flash kernels vs plain -------------------------------------------
@@ -284,7 +459,7 @@ def fmt_checks(checks: dict) -> str:
 
 
 def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
-    from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_check
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
 
     g = torch.Generator().manual_seed(SEED)
     dt = getattr(torch, dtype)
@@ -301,11 +476,11 @@ def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
-    # flash_check.compare: per element atol 2**-5 x RMS / rtol 2e-2 and
+    # kernel_check.compare: per element atol 2**-5 x RMS / rtol 2e-2 and
     # normwise 1e-2 for bf16; 1e-5 x RMS / 1e-4 and 1e-5 for fp32. lse is
     # fp32 in both versions: 1e-5.
     got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
-    checks = {out: flash_check.compare(got[out], refs[out]) for out in refs}
+    checks = {out: kernel_check.compare(got[out], refs[out]) for out in refs}
     errs = {out: c["max_abs_err"] for out, c in checks.items()}
     errs["lse"] = (lse - rlse).abs().max().item()
     ok = all(c["ok"] for c in checks.values()) and bool(torch.isfinite(lse).all()) \
@@ -314,9 +489,9 @@ def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     if name == "path":
         # The same check on a planted fault: one live tile left out of each
         # kernel's plan. Every output must fail it.
-        with flash_check.planted_fault():
-            bad = flash_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
-        fault = {out: flash_check.compare(bad[out], refs[out]) for out in refs}
+        with kernel_check.planted_fault():
+            bad = kernel_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+        fault = {out: kernel_check.compare(bad[out], refs[out]) for out in refs}
         del bad
         log(f"flash {name} planted fault (one live tile skipped): "
             + fmt_checks(fault))
@@ -623,10 +798,11 @@ def write_corpus(tmp: str, train_bytes: int, val_bytes: int) -> None:
         f.write(docs(val_bytes))
 
 
-def first_step_parity(torch, fa, trainer, rows: int):
+def first_step_parity(torch, trainer, rows: int, swaps):
     """Step 1's loss and gradients on ``rows`` rows of the first batch: the
-    flash kernels against their plain versions (the same model code with
-    the plain functions swapped in for this comparison only)."""
+    kernels against their plain versions, the same model code with
+    ``swaps`` (``(module, name, plain function)``) set for the second run
+    only. The loss is the training loss (an MoE model's router losses in)."""
     from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
     from mlx_cuda_distributed_pretraining_tpu_torch.optim.base import global_norm
     from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import leaves_with_path
@@ -648,24 +824,34 @@ def first_step_parity(torch, fa, trainer, rows: int):
         return loss.item(), grads
 
     kernel_loss, kernel_grads = loss_and_grads()
-    swapped = {n: getattr(fa, n) for n in FLASH_KERNELS}
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
-        for n in FLASH_KERNELS:
-            setattr(fa, n, getattr(fa, n + "_plain"))
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
         plain_loss, plain_grads = loss_and_grads()
     finally:
-        for n, fn in swapped.items():
-            setattr(fa, n, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     norm_k, norm_p = global_norm(kernel_grads).item(), global_norm(plain_grads).item()
-    leaf_rel = max(((kernel_grads[n] - plain_grads[n]).norm()
+    leaf_rel = {n: ((kernel_grads[n] - plain_grads[n]).norm()
                     / plain_grads[n].norm().clamp_min(1e-30)).item()
-                   for n in plain_grads)
+                for n in plain_grads}
+    worst = max(leaf_rel, key=leaf_rel.get)
     return {"kernel_loss": kernel_loss, "plain_loss": plain_loss,
             "kernel_grad_norm": norm_k, "plain_grad_norm": norm_p,
-            "max_leaf_rel_grad_diff": leaf_rel}
+            "max_leaf_rel_grad_diff": leaf_rel[worst], "worst_leaf": worst}
 
 
-def serve_run(torch, run_dir: str, device):
+def parity_ok(par) -> bool:
+    """The step-1 limits (bf16): loss 2e-3, gradient norm 2e-2 and every
+    leaf's gradient 5e-2, each relative to the plain run."""
+    return (abs(par["kernel_loss"] - par["plain_loss"]) <= 2e-3 * abs(par["plain_loss"])
+            and abs(par["kernel_grad_norm"] - par["plain_grad_norm"])
+            <= 2e-2 * par["plain_grad_norm"]
+            and par["max_leaf_rel_grad_diff"] <= 5e-2)
+
+
+def serve_run(torch, run_dir: str, device, run_name: str):
     """One greedy request through the port's server on a finished run."""
     from mlx_cuda_distributed_pretraining_tpu_torch.infer.server import (
         InferenceService,
@@ -675,7 +861,7 @@ def serve_run(torch, run_dir: str, device):
     from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import load_trained
 
     params, args, tok, _ = load_trained(run_dir, device=device)
-    service = InferenceService(params, args, tok, run_name="40m-adamw-smoke")
+    service = InferenceService(params, args, tok, run_name=run_name)
     service.attach_engine(EngineConfig(num_slots=2, max_len=1024, block_size=32,
                                        prefill_chunk=256))
     httpd = serve(service, port=0)
@@ -715,14 +901,11 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
         # initialisation the loss is ~ln(259) whatever the attention
         # computes, so the per-leaf gradient limit is the one that gates an
         # attention fault here; the kernel checks above gate each kernel.
-        par = first_step_parity(torch, fa, trainer, rows=8)
-        log("train: step-1 parity at batch 8, kernels vs plain on the card: "
-            + " ".join(f"{k}={v:.6g}" for k, v in par.items()))
-        if not (abs(par["kernel_loss"] - par["plain_loss"])
-                <= 2e-3 * abs(par["plain_loss"])
-                and abs(par["kernel_grad_norm"] - par["plain_grad_norm"])
-                <= 2e-2 * par["plain_grad_norm"]
-                and par["max_leaf_rel_grad_diff"] <= 5e-2):
+        par = first_step_parity(
+            torch, trainer, 8,
+            [(fa, n, getattr(fa, n + "_plain")) for n in FLASH_KERNELS])
+        log(f"train: step-1 parity at batch 8, kernels vs plain on the card: {par}")
+        if not parity_ok(par):
             failures.append(f"step-1 loss/gradients disagree with the plain "
                             f"path: {par}")
 
@@ -740,7 +923,7 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
         layers = trainer.model_args.num_layers
         want = {"flash_fwd": layers * (steps + trainer.eval_batches),
                 "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
-                "gmm": 0}
+                "gmm": 0, "tgmm": 0}
         log(f"train: {steps} steps + {trainer.eval_batches} validation batches "
             f"in {wall:.1f}s; losses every 5 steps {losses}; final val_loss="
             f"{result['final_val_loss']}; launches {launches}")
@@ -753,7 +936,8 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             failures.append("train: no validation ran")
         if launches != want:
             failures.append(f"train: launches {launches} != {want}")
-        code, out = serve_run(torch, trainer.run_dir, trainer.device)
+        code, out = serve_run(torch, trainer.run_dir, trainer.device,
+                              "40m-adamw-smoke")
         log(f"train: final checkpoint served: HTTP {code} "
             f"tokens={out.get('tokens')} text={out.get('text', '')[:40]!r}")
         if code != 200 or not out.get("tokens"):
@@ -774,6 +958,142 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
     return failures, perf
 
 
+# -- phase 6: MoE training ------------------------------------------------------------
+def config_moe(tmp: str, steps: int, warmup: int) -> dict:
+    """configs/model-config-moe-8x40m.yaml written out as a dict, with the
+    smoke's cuts: ``iters``, ``warmup_steps``, the log, validation and
+    checkpoint intervals, and the corpus paths. ``system.mesh`` ({dp: -1,
+    ep: 4}: expert parallelism over four devices) is dropped, since the
+    port trains on one GPU and refuses a mesh that needs more; so is
+    ``system.device``. Every width is the config's."""
+    cfg = config_40m(tmp, steps, warmup)
+    cfg["name"] = "Llama-MoE (8x40M)"
+    cfg["model"]["moe"] = {"num_local_experts": 8, "num_experts_per_tok": 2,
+                           "impl": "grouped", "capacity_factor": 1.25,
+                           "aux_loss_weight": 0.01, "router_z_weight": 0.001,
+                           "group_size": 256}
+    return cfg
+
+
+def moe_parity(torch, gm, moe, trainer):
+    """Step-1 parity with the gmm and tgmm kernels against their plain
+    versions (the flash kernels run in both), and how many of the routing
+    selections changed expert between the two runs."""
+    chosen = []
+    grouped_ffn = moe._grouped_ffn
+
+    def recording(experts, x_flat, gate_idx, *a, **kw):
+        chosen.append(gate_idx.sort(dim=-1).values)
+        return grouped_ffn(experts, x_flat, gate_idx, *a, **kw)
+
+    def gmm_forward_plain(x, w, gs, block_t, w_trans=False):
+        return gm.gmm_plain(x, w.transpose(1, 2) if w_trans else w, gs, block_t)
+
+    moe._grouped_ffn = recording
+    try:
+        par = first_step_parity(torch, trainer, 8, [
+            (gm, "_gmm_forward", gmm_forward_plain), (gm, "tgmm", gm.tgmm_plain)])
+    finally:
+        moe._grouped_ffn = grouped_ffn
+    half = len(chosen) // 2
+    par["selections_changed"] = int(sum(
+        (a != b).sum().item() for a, b in zip(chosen[:half], chosen[half:])))
+    par["selections"] = int(sum(a.numel() for a in chosen[:half]))
+    return par
+
+
+def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import moe
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, train_bytes=1_100_000, val_bytes=70_000)
+        trainer = Trainer(Config.from_dict(config_moe(tmp, steps, warmup)),
+                          runs_root=os.path.join(tmp, "runs"), quiet=True,
+                          device="cuda")
+        log(f"moe: moe-8x40m {trainer.n_params / 1e6:.2f}M params, "
+            f"{trainer.flops_per_token / 1e6:.1f} MFLOP per token (active), "
+            f"{len(trainer.data.train_rows)} train rows, "
+            f"{time.perf_counter() - t0:.1f}s to set up")
+
+        # bf16 on both sides; the gmm kernels and their plain versions sum
+        # each fp32 product in another order before one bf16 rounding (tgmm:
+        # each tile's partial and the running sum), the combine and the
+        # gather's backward scatter-add with atomics (an ulp per add, run to
+        # run), and a token whose top-2 router probabilities nearly tie can
+        # route differently in the two runs. The same limits as the dense
+        # phase; the selections that changed expert are reported.
+        par = moe_parity(torch, gm, moe, trainer)
+        log(f"moe: step-1 parity at batch 8, gmm/tgmm kernels vs plain: {par}")
+        if not parity_ok(par):
+            failures.append(f"moe: step-1 loss/gradients disagree with the plain "
+                            f"gmm/tgmm: {par}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(gm, fa)  # count from here: the MoE training run only
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(gm, fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        windows = trainer.windows
+        losses = [w["loss"] for w in windows]
+        layers, vb = trainer.model_args.num_layers, trainer.eval_batches
+        want = {"gmm": 6 * layers * steps + 3 * layers * vb,
+                "tgmm": 3 * layers * steps,
+                "flash_fwd": layers * (steps + vb),
+                "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+        log(f"moe: {steps} steps + {vb} validation batches in {wall:.1f}s; losses "
+            f"every 5 steps {losses}; final val_loss={result['final_val_loss']}; "
+            f"launches {launches}")
+        for w in windows:
+            log(f"moe: step {w['step']} moe_entropy={w.get('moe_entropy')} "
+                f"moe_drop={w.get('moe_drop')} moe_load_max={w.get('moe_load_max')}")
+        if not all(math.isfinite(x) for x in losses) or len(losses) != steps // 5:
+            failures.append(f"moe: bad loss log {losses}")
+        elif not losses[-1] < 0.9 * losses[0]:
+            failures.append(f"moe: loss did not fall below 0.9x the first "
+                            f"logged ({losses[0]} -> {losses[-1]})")
+        if not all(0.0 < w.get("moe_entropy", -1) <= 1.0 and w.get("moe_drop") == 0
+                   and 1 / 8 <= w.get("moe_load_max", -1) <= 1.0 for w in windows):
+            failures.append("moe: a log line lacks sane routing stats")
+        if result["final_val_loss"] is None or vb <= 0:
+            failures.append("moe: no validation ran")
+        if launches != want:
+            failures.append(f"moe: launches {launches} != {want}")
+        code, out = serve_run(torch, trainer.run_dir, trainer.device,
+                              "moe-8x40m-smoke")
+        log(f"moe: final checkpoint served: HTTP {code} "
+            f"tokens={out.get('tokens')} text={out.get('text', '')[:40]!r}")
+        if code != 200 or not out.get("tokens"):
+            failures.append(f"moe: serving the final checkpoint: HTTP {code} {out}")
+        flops_per_token = trainer.flops_per_token
+        del trainer
+    torch.cuda.empty_cache()
+
+    steady = windows[1:]  # the first window holds the first step's warm-up
+    secs = sum(w["seconds"] for w in steady)
+    tok_s = sum(w["toks"] for w in steady) / secs
+    perf = {"step_ms": 1e3 * secs / sum(w["steps"] for w in steady),
+            "tok_s": tok_s,
+            "mfu_active_vs_989tflops": tok_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+            "flops_per_token": flops_per_token,
+            "peak_mem_gb": peak_gb, "first_window_s": windows[0]["seconds"],
+            "losses": losses, "launches": launches, "first_step_parity": par,
+            "routing": [{k: w.get(k) for k in ("step", "moe_entropy", "moe_drop",
+                                                "moe_load_max")} for w in windows]}
+    for k in ("step_ms", "tok_s", "mfu_active_vs_989tflops", "peak_mem_gb"):
+        log(f"moe: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
 def kernel_entry(name, source, replaces, launches, row, max_abs_err):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
@@ -791,6 +1111,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import grouped_matmul as gm
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
     from mlx_cuda_distributed_pretraining_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -811,9 +1132,12 @@ def main() -> int:
                 log(f"build: {line.strip()}")
 
     failures = []
-    cases = kernel_phase(torch, gm)
-    failures += [f"gmm {c['case']} {c['dtype']}: kernel disagrees with plain "
-                 f"(max_abs_err {c['max_abs_err']})" for c in cases if not c["ok"]]
+    cases = kernel_phase(torch, gm, kernel_check)
+    train_cases, tgmm_cases = train_kernel_phase(torch, gm, kernel_check)
+    failures += [f"{k} {c['case']} {c['dtype']}: kernel disagrees with plain "
+                 f"(max_abs_err {c['max_abs_err']})"
+                 for k, group in (("gmm", cases + train_cases), ("tgmm", tgmm_cases))
+                 for c in group if not c["ok"]]
     flash_cases = flash_kernel_phase(torch, fa)
     failures += [f"flash {c['case']} {c['dtype']}: kernels disagree with plain "
                  f"(max_abs_err {c['max_abs_err']})" for c in flash_cases
@@ -822,22 +1146,34 @@ def main() -> int:
     failures += path_failures
     train_failures, train_perf = train_phase(torch, gm, fa, card)
     failures += train_failures
+    torch.cuda.empty_cache()
+    moe_failures, moe_perf = moe_train_phase(torch, gm, fa, card)
+    failures += moe_failures
 
-    main_case = cases[0]  # fp32 decode gate/up: the shape the path runs most
+    # Launches: the MoE training run, which drives all five kernels. Times:
+    # the training path's bf16 gate/up shapes (gmm forward, tgmm) and the
+    # flash path shape (B 32, H 8, S 1024, D 64, bf16, causal).
+    moe_launches = moe_perf.get("launches", {})
+    gmm_case = train_cases[0]
     gmm_entry = kernel_entry(
-        "gmm", SOURCE, REPLACES, perf.get("gmm_launches", 0), main_case,
-        max(c["max_abs_err"] for c in cases if c["dtype"] == main_case["dtype"]))
-    gmm_entry.update(cases=cases, path=perf, card=card)
+        "gmm", SOURCE, REPLACES, moe_launches.get("gmm", 0), gmm_case,
+        max(c["max_abs_err"] for c in train_cases))
+    gmm_entry.update(cases=cases + train_cases, serve_path=perf,
+                     serve_launches=perf.get("gmm_launches", 0), card=card)
+    tgmm_entry = kernel_entry(
+        "tgmm", SOURCE, TGMM_REPLACES, moe_launches.get("tgmm", 0), tgmm_cases[0],
+        max(c["max_abs_err"] for c in tgmm_cases if c["dtype"] == "bfloat16"))
+    tgmm_entry.update(cases=tgmm_cases, moe_train=moe_perf, card=card)
     path_case = flash_cases[0]  # B 32, H 8, S 1024, D 64, bf16, causal
     out_of = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
               "flash_bwd_dkv": ("dk", "dv")}
     flash_entries = [kernel_entry(
-        name, FLASH_SOURCE, FLASH_REPLACES[name],
-        train_perf.get("launches", {}).get(name, 0), path_case["kernels"][name],
+        name, FLASH_SOURCE, FLASH_REPLACES[name], moe_launches.get(name, 0),
+        path_case["kernels"][name],
         max(path_case["max_abs_err"][o] for o in out_of[name]))
         for name in FLASH_KERNELS]
-    flash_entries[0].update(cases=flash_cases, train=train_perf, card=card)
-    report = json.dumps({"kernels": [gmm_entry] + flash_entries})
+    flash_entries[0].update(cases=flash_cases, dense_train=train_perf, card=card)
+    report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)
         for f in failures:

@@ -171,13 +171,19 @@ class LoggingConfig:
 
 @dataclass
 class SystemConfig:
-    """Section ``system``: seed, precision and the training-path switches.
+    """Section ``system``: seed, precision, the device layout and the
+    training-path switches.
 
     Only the keys the trainer reads are fields. Others (the reference's
     ``device``, ``precision``, ...) stay in ``_extras`` for the round trip:
-    the device is the Trainer's ``device`` argument, not this section."""
+    the device is the Trainer's ``device`` argument, not this section. The
+    port trains on one device: the Trainer refuses a ``mesh`` (or legacy
+    ``model_parallel``) that needs more."""
 
     seed: int = 42
+    mesh: Dict[str, int] = field(default_factory=dict)
+    model_parallel: bool = False
+    model_parallel_size: int = 1
     mixed_precision: bool = False
     gradient_checkpointing: bool = False
     remat: Optional[str] = None

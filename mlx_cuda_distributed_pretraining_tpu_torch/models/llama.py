@@ -47,7 +47,12 @@ class LlamaArgs:
     soft_cap: float = 50.0
     num_local_experts: int = 0
     num_experts_per_tok: int = 0
-    moe_impl: str = "grouped"
+    moe_capacity_factor: float = 1.25  # einsum impl only
+    moe_aux_weight: float = 0.01
+    router_z_weight: float = 0.0
+    moe_group_size: int = 256  # einsum impl only
+    moe_impl: str = "grouped"  # grouped | einsum
+    moe_ep_capacity_factor: float = 0.0  # ep meshes (not ported)
     matmul_precision: Optional[str] = None  # None/fp32 | bf16 | int8
 
     @property
@@ -57,7 +62,8 @@ class LlamaArgs:
     @classmethod
     def from_config(cls, model_cfg: Any, vocab_size: int) -> "LlamaArgs":
         """Same field mapping as the JAX ``LlamaArgs.from_config``, for the
-        fields the port reads."""
+        fields the port reads (``aux_loss_weight: 0`` or null reads as 0.0,
+        an absent one as 0.01)."""
         att = dict(getattr(model_cfg, "attention", None) or {})
         rope = dict(getattr(model_cfg, "rope", None) or {})
         misc = dict(getattr(model_cfg, "misc", None) or {})
@@ -91,13 +97,14 @@ class LlamaArgs:
             soft_cap=float(att.get("soft_cap", 50.0)),
             num_local_experts=int(moe.get("num_local_experts", 0) or 0),
             num_experts_per_tok=int(moe.get("num_experts_per_tok", 0) or 0),
+            moe_capacity_factor=float(moe.get("capacity_factor", 1.25) or 1.25),
+            moe_aux_weight=float(moe.get("aux_loss_weight", 0.01) or 0.0),
+            router_z_weight=float(moe.get("router_z_weight", 0.0) or 0.0),
+            moe_group_size=int(moe.get("group_size", 256) or 256),
             moe_impl=str(moe.get("impl", "grouped") or "grouped"),
+            moe_ep_capacity_factor=float(moe.get("ep_capacity_factor", 0.0) or 0.0),
             matmul_precision=getattr(model_cfg, "matmul_precision", None),
         )
-        if args.is_moe and args.moe_impl != "grouped":
-            raise NotImplementedError(
-                f"moe impl {args.moe_impl!r}: the torch port serves the "
-                "grouped (dropless) dispatch only")
         return args
 
 
@@ -309,18 +316,27 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
 
 
 def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
-                      positions: torch.Tensor,
-                      attn_impl: Optional[str] = None) -> torch.Tensor:
-    """Pre-norm residual block (dense feed-forward)."""
+                      positions: torch.Tensor, attn_impl: Optional[str] = None,
+                      stats: Optional[list] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm residual block -> ``(x, aux)``: aux is the MoE layer's
+    pre-scaled router loss (0 for a dense layer). An MoE layer appends its
+    routing stats to ``stats`` when that is a list."""
     x = x + attention_block(
         p["attention"], rms_norm(x, p["attention_norm"]["weight"], args.rms_norm_eps),
         args, positions, attn_impl)
-    return x + mlp_block(p["feed_forward"],
-                         rms_norm(x, p["ffn_norm"]["weight"], args.rms_norm_eps))
+    normed = rms_norm(x, p["ffn_norm"]["weight"], args.rms_norm_eps)
+    if args.is_moe:
+        from .moe import moe_block
+
+        ff, aux = moe_block(p["feed_forward"], normed, args, stats)
+    else:
+        ff, aux = mlp_block(p["feed_forward"], normed), torch.zeros((), device=x.device)
+    return x + ff, aux
 
 
-def _refuse_unported(remat: Optional[str], scan_layers: bool, overlap: bool,
-                     args: LlamaArgs) -> None:
+def _refuse_unported(remat: Optional[str], scan_layers: bool,
+                     overlap: bool) -> None:
     if remat not in (None, "", "none"):
         raise NotImplementedError(f"remat policy {remat!r} is not ported ({_NOT_PORTED})")
     if scan_layers:
@@ -328,23 +344,22 @@ def _refuse_unported(remat: Optional[str], scan_layers: bool, overlap: bool,
     if overlap:
         raise NotImplementedError("overlap_gather needs an fsdp mesh; the port "
                                   "trains on one device")
-    if args.is_moe:
-        raise NotImplementedError(
-            "MoE training needs the grouped-GEMM backward (_tgmm_pallas) and "
-            "the router losses (ROADMAP queue 1: MoE training)")
 
 
 def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
             compute_dtype: torch.dtype = torch.float32,
             remat: Optional[str] = None, scan_layers: bool = False,
-            overlap: bool = False):
+            overlap: bool = False, return_aux: bool = False,
+            stats: Optional[list] = None):
     """tokens ``[B, S]`` -> ``(logits [B, S, V] fp32, None)`` (``None`` where
-    the JAX forward returns its cache). The fp32 master weights are cast to
-    ``compute_dtype`` layer by layer; the output projection accumulates in
-    fp32: both bf16 operands are cast to fp32 (their products are exact
-    there) and multiplied with TF32 off, as JAX's
-    ``preferred_element_type=float32`` does."""
-    _refuse_unported(remat, scan_layers, overlap, args)
+    the JAX forward returns its cache), or ``(logits, None, aux)`` with
+    ``return_aux``: the MoE layers' pre-scaled router losses summed (fp32).
+    MoE layers append their routing stats to ``stats`` when it is a list.
+    The fp32 master weights are cast to ``compute_dtype`` layer by layer;
+    the output projection accumulates in fp32: both bf16 operands are cast
+    to fp32 (their products are exact there) and multiplied with TF32 off,
+    as JAX's ``preferred_element_type=float32`` does."""
+    _refuse_unported(remat, scan_layers, overlap)
     B, S = tokens.shape
     x = params["tok_embeddings"]["weight"].to(compute_dtype)[tokens.long()]
     positions = torch.arange(S, device=tokens.device)
@@ -354,8 +369,10 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
             return {k: cast(v) for k, v in tree.items()}
         return tree.to(compute_dtype)
 
+    aux_total = torch.zeros((), device=tokens.device)
     for layer in params["layers"]:
-        x = transformer_block(cast(layer), x, args, positions)
+        x, aux = transformer_block(cast(layer), x, args, positions, stats=stats)
+        aux_total = aux_total + aux
     x = rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
     if args.tie_word_embeddings or "output" not in params:
         w = params["tok_embeddings"]["weight"].to(compute_dtype).float().t()
@@ -366,6 +383,8 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
         logits = logits + params["output"]["bias"].float()
     if args.logit_scale:
         logits = logits * args.logit_scale
+    if return_aux:
+        return logits, None, aux_total
     return logits, None
 
 
@@ -378,11 +397,17 @@ def auto_ce_chunk(batch: int, seq: int, vocab: int) -> int:
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
             compute_dtype: torch.dtype = torch.float32,
             remat: Optional[str] = None, ce_chunk: int = -1, scan_layers: bool = False,
-            z_loss_weight: float = 0.0, overlap: bool = False):
+            z_loss_weight: float = 0.0, overlap: bool = False,
+            include_aux: bool = True, with_moe_stats: bool = False):
     """Masked mean cross-entropy in fp32, plus the z-loss
-    ``z_loss_weight * mean(logsumexp^2)`` when set. Returns
-    ``(loss, mask.sum())``. The fused chunked CE (``ce_chunk > 0``, or
-    auto above 256 MB of logits) is not ported and raises."""
+    ``z_loss_weight * mean(logsumexp^2)`` when set, plus an MoE model's
+    pre-scaled router losses when ``include_aux`` (training; evaluation
+    passes False so the validation loss stays pure cross-entropy). Returns
+    ``(loss, mask.sum())``, or with ``with_moe_stats`` on an MoE model
+    ``(loss, (mask.sum(), stats))``, the routing stats summed over the
+    layers (device tensors, no sync). The fused chunked CE (``ce_chunk >
+    0``, or auto above 256 MB of logits) is not ported and raises."""
+    stats = [] if with_moe_stats and args.is_moe else None
     targets = batch["targets"]
     mask = batch["mask"].float()
     count = mask.sum().clamp_min(1.0)
@@ -393,11 +418,19 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
         raise NotImplementedError(
             f"fused cross-entropy (ce_chunk={ce_chunk}) is not ported "
             f"({_NOT_PORTED}); set system.fused_ce_chunk: 0")
-    logits, _ = forward(params, batch["inputs"], args, compute_dtype=compute_dtype,
-                        remat=remat, scan_layers=scan_layers, overlap=overlap)
+    logits, _, aux = forward(params, batch["inputs"], args, compute_dtype=compute_dtype,
+                             remat=remat, scan_layers=scan_layers, overlap=overlap,
+                             return_aux=True, stats=stats)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None].long())[..., 0]
     loss = ((logz - gold) * mask).sum() / count
     if z_loss_weight > 0.0:
         loss = loss + z_loss_weight * (logz.square() * mask).sum() / count
+    if args.is_moe and include_aux:
+        loss = loss + aux  # pre-scaled inside moe_block
+    if stats is not None:
+        from .moe import merge_stats
+
+        return loss, (mask.sum(), merge_stats(stats, args.num_local_experts,
+                                              targets.device))
     return loss, mask.sum()

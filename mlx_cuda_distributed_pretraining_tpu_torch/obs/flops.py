@@ -6,7 +6,9 @@ score and value products, and
 
     MFU = flops_per_token * tokens_per_second / (peak_flops_per_chip * n_chips)
 
-with the card's dense bf16 peak.
+with the card's dense bf16 peak. An MoE model is costed on the parameters a
+token multiplies against (the router, its top-k experts and every shared
+weight), not on all E experts.
 """
 
 from __future__ import annotations
@@ -24,10 +26,31 @@ def flops_per_token(n_params: int, num_layers: int, seq_len: int,
     return 6.0 * float(n_params) + 6.0 * float(num_layers) * float(seq_len) * float(d_attn)
 
 
+def moe_active_params(n_params: int, num_layers: int, hidden_size: int,
+                      intermediate_size: int, num_experts: int,
+                      experts_per_tok: int) -> int:
+    """``n_params`` less the (E - K) inactive experts' three SwiGLU matrices
+    in every layer."""
+    if num_experts <= 0 or experts_per_tok <= 0 or experts_per_tok >= num_experts:
+        return int(n_params)
+    per_expert = 3 * int(hidden_size) * int(intermediate_size)
+    inactive = int(num_layers) * (int(num_experts) - int(experts_per_tok)) * per_expert
+    return int(n_params) - inactive
+
+
 def model_flops_per_token(model_cfg: Any, n_params: int, seq_len: int) -> float:
-    """FLOPs/token of a dense model from its config and exact param count."""
+    """FLOPs/token from the model config and the exact param count (an MoE
+    config's ``moe`` section costs it on active params)."""
     d_attn = int(model_cfg.num_heads) * int(model_cfg.head_dim)
-    return flops_per_token(n_params, int(model_cfg.num_layers), int(seq_len), d_attn)
+    moe = dict(getattr(model_cfg, "moe", None) or {})
+    n_active = int(n_params)
+    if int(moe.get("num_local_experts", 0) or 0) > 0:
+        n_active = moe_active_params(
+            n_params, int(model_cfg.num_layers), int(model_cfg.hidden_size),
+            int(model_cfg.intermediate_size),
+            int(moe.get("num_local_experts", 0) or 0),
+            int(moe.get("num_experts_per_tok", 0) or 0))
+    return flops_per_token(n_active, int(model_cfg.num_layers), int(seq_len), d_attn)
 
 
 def peak_flops_per_chip(device_kind: str) -> Optional[float]:

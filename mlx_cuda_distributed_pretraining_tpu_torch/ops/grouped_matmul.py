@@ -1,4 +1,5 @@
-"""Grouped expert matmul (``gmm``) for dropless MoE dispatch.
+"""Grouped expert matmuls (``gmm``, and its backward's ``tgmm``) for dropless
+MoE dispatch.
 
 ``x [T, K]`` is a token-sorted, block-aligned activation buffer and
 ``w [E, K, N]`` the stacked expert weights: rows ``[offset_e, offset_{e+1})``
@@ -7,17 +8,23 @@ group size is a multiple of ``block_t`` (the dispatcher in ``models/moe.py``
 pads for this), so a ``block_t`` row tile never straddles two experts. Rows
 past ``sum(group_sizes)`` come out as zeros.
 
-Two versions of one function:
+:func:`gmm` is differentiable (``_GroupedMatmul``, the JAX package's
+``_gmm_pallas_diff``): dX = ``gmm(dy, w^T)`` on the forward kernel, which
+reads ``w`` transposed in place, and dW = :func:`tgmm`, the per-expert sum
+of ``x_tile^T @ dy_tile``. Two versions of each function:
 
-- the kernel, ``csrc/grouped_matmul.cu`` (CUDA C++ for ``sm_90a``), replacing
-  the JAX package's Pallas TPU kernel ``ops/grouped_matmul.py::_gmm_pallas``.
-  It is compiled with ``nvcc`` at first use into ``build/kernels/`` at the
+- the kernels, ``csrc/grouped_matmul.cu`` (CUDA C++ for ``sm_90a``),
+  replacing the JAX package's Pallas TPU kernels
+  ``ops/grouped_matmul.py::_gmm_pallas`` and ``::_tgmm_pallas``. The source
+  is compiled with ``nvcc`` at first use into ``build/kernels/`` at the
   repository root (``utils/cuda_build.py``) and bound through ``ctypes``;
-- :func:`gmm_plain`, the JAX package's "blocked" formulation in plain PyTorch:
-  one weight gather per row tile and one batched matmul, fp32 accumulation.
+- :func:`gmm_plain`, the JAX package's "blocked" formulation in plain
+  PyTorch (one weight gather per row tile and one batched matmul, fp32
+  accumulation), and :func:`tgmm_plain`, the Pallas kernel's rounding points
+  in plain PyTorch.
 
-:func:`gmm` sends CPU tensors to the plain version and CUDA tensors to the
-kernel; anything else raises. No build or launch error falls back.
+CPU tensors go to the plain versions and CUDA tensors to the kernels;
+anything else raises. No build or launch error falls back.
 """
 
 from __future__ import annotations
@@ -25,10 +32,12 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from ..utils import cuda_build
+from .flash_attention import check_matmul_precision
 
 __all__ = [
     "DEFAULT_BLOCK_T",
@@ -37,6 +46,8 @@ __all__ = [
     "gmm_plain",
     "pick_block_t",
     "round_up",
+    "tgmm",
+    "tgmm_plain",
     "tile_experts",
 ]
 
@@ -95,6 +106,34 @@ def gmm_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     return yt.reshape(T, w.shape[2]).to(x.dtype)
 
 
+def tgmm_plain(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
+               num_experts: int, block_t: int) -> torch.Tensor:
+    """``dW [E, K, N]``: for each expert, its ``block_t`` row tiles' fp32
+    partials ``x_tile^T @ dy_tile``, each rounded to x's dtype, summed in
+    that dtype in tile order (the Pallas kernel's output-block revisits).
+    Experts with no rows are exact zeros; tail tiles are never visited.
+    Reads the group sizes on the host."""
+    T, K = x.shape
+    N = dy.shape[1]
+    if T % block_t or dy.shape[0] != T:
+        raise ValueError(f"tgmm needs x [{T}, K] and dy [{dy.shape[0]}, N] with "
+                         f"T % block_t ({block_t}) == 0")
+    sizes = group_sizes.tolist()
+    if any(n % block_t for n in sizes) or sum(sizes) > T:
+        raise ValueError(f"tgmm group sizes {sizes} must be multiples of "
+                         f"block_t ({block_t}) within T ({T})")
+    n_t = sum(sizes) // block_t
+    parts = torch.bmm(x[:n_t * block_t].reshape(n_t, block_t, K).transpose(1, 2).float(),
+                      dy[:n_t * block_t].reshape(n_t, block_t, N).float()).to(x.dtype)
+    dw = x.new_zeros((num_experts, K, N))
+    t = 0
+    for e, n in enumerate(sizes):
+        for i in range(t, t + n // block_t):
+            dw[e] = parts[i] if i == t else dw[e] + parts[i]
+        t += n // block_t
+    return dw
+
+
 # -- the CUDA kernel -----------------------------------------------------------
 _lib = None
 _lib_lock = threading.Lock()
@@ -114,60 +153,151 @@ def _library():
             lib.gmm_forward.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
             lib.gmm_forward.restype = ctypes.c_int
+            lib.tgmm_backward.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.tgmm_backward.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
-           block_t: int) -> None:
+           block_t: int, w_trans: bool = False, name: str = "gmm") -> None:
+    """The kernels' input contract; ``w`` is ``[E, K, N]``, or ``[E, N, K]``
+    read transposed with ``w_trans`` (for tgmm: ``dy [T, N]``)."""
     if x.device.type != "cuda":
-        raise ValueError(f"gmm kernel takes CUDA tensors, got {x.device} "
+        raise ValueError(f"{name} kernel takes CUDA tensors, got {x.device} "
                          "(CPU tensors go to the plain version)")
     if w.device != x.device or group_sizes.device != x.device:
-        raise ValueError(f"gmm operands on different devices: x {x.device}, "
-                         f"w {w.device}, group_sizes {group_sizes.device}")
+        raise ValueError(f"{name} operands on different devices: {x.device}, "
+                         f"{w.device}, group_sizes {group_sizes.device}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"gmm kernel takes fp32 or bf16 x and w of one type, "
-                        f"got {x.dtype} and {w.dtype}")
+        raise TypeError(f"{name} kernel takes fp32 or bf16 operands of one "
+                        f"type, got {x.dtype} and {w.dtype}")
     if group_sizes.dtype != torch.int32:
         raise TypeError(f"group_sizes must be int32, got {group_sizes.dtype}")
-    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1] \
-            or group_sizes.shape != (w.shape[0],):
-        raise ValueError(f"gmm shapes: x {tuple(x.shape)} [T, K], w "
-                         f"{tuple(w.shape)} [E, K, N], group_sizes "
-                         f"{tuple(group_sizes.shape)} [E]")
+    if name == "tgmm":
+        shapes_ok = x.dim() == 2 and w.dim() == 2 and w.shape[0] == x.shape[0] \
+            and group_sizes.dim() == 1
+        want = "x [T, K], dy [T, N], group_sizes [E]"
+    else:
+        shapes_ok = x.dim() == 2 and w.dim() == 3 \
+            and w.shape[2 if w_trans else 1] == x.shape[1] \
+            and group_sizes.shape == (w.shape[0],)
+        want = ("x [T, K], w [E, N, K] (read transposed), group_sizes [E]"
+                if w_trans else "x [T, K], w [E, K, N], group_sizes [E]")
+    if not shapes_ok:
+        raise ValueError(f"{name} shapes {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(group_sizes.shape)}: want {want}")
     if not (x.is_contiguous() and w.is_contiguous()
             and group_sizes.is_contiguous()):
-        raise ValueError("gmm kernel needs contiguous x, w and group_sizes")
+        raise ValueError(f"{name} kernel needs contiguous operands")
     if block_t <= 0 or block_t % 8 or x.shape[0] % block_t:
-        raise ValueError(f"gmm kernel needs block_t ({block_t}) a multiple "
+        raise ValueError(f"{name} kernel needs block_t ({block_t}) a multiple "
                          f"of 8 dividing T ({x.shape[0]})")
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
-        block_t: int) -> torch.Tensor:
-    """``x [T, K]`` x ``w [E, K, N]`` -> ``[T, N]`` in x's dtype, row group
-    ``e`` (per ``group_sizes``, block_t-aligned) against ``w[e]``.
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
-    CPU tensors run :func:`gmm_plain`; CUDA tensors launch the kernel on the
-    current stream (``gmm.launches`` counts those launches)."""
+
+def _gmm_forward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                 block_t: int, w_trans: bool = False) -> torch.Tensor:
+    """``x @ w[e]`` per row group, or ``x @ w[e]^T`` with ``w_trans`` (``w``
+    then ``[E, N, K]``, read in place). CPU: :func:`gmm_plain`; CUDA: one
+    launch of the forward kernel, counted in ``gmm.launches``."""
     if x.device.type == "cpu":
-        return gmm_plain(x, w, group_sizes, block_t)
-    _check(x, w, group_sizes, block_t)
+        return gmm_plain(x, w.transpose(1, 2) if w_trans else w, group_sizes,
+                         block_t)
+    _check(x, w, group_sizes, block_t, w_trans)
     lib = _library()
     T, K = x.shape
-    E, _, N = w.shape
+    E, N = w.shape[0], w.shape[1 if w_trans else 2]
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     err = lib.gmm_forward(
         x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
         T, K, N, E, min(block_t, _KERNEL_ROWS), _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(w_trans), _stream(x))
     if err != 0:
         raise RuntimeError(f"gmm kernel launch failed with CUDA error {err}")
     gmm.launches += 1
     return out
 
 
+def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
+         num_experts: int, block_t: int) -> torch.Tensor:
+    """``dW [E, K, N]`` = per expert, the sum over its row tiles of
+    ``x_tile^T @ dy_tile`` with :func:`tgmm_plain`'s rounding points.
+
+    CPU tensors run :func:`tgmm_plain`; CUDA tensors launch the kernel on
+    the current stream (``tgmm.launches`` counts those launches)."""
+    if x.device.type == "cpu":
+        return tgmm_plain(x, dy, group_sizes, num_experts, block_t)
+    _check(x, dy, group_sizes, block_t, name="tgmm")
+    if group_sizes.shape[0] != num_experts:
+        raise ValueError(f"tgmm: {group_sizes.shape[0]} group sizes for "
+                         f"{num_experts} experts")
+    lib = _library()
+    T, K = x.shape
+    N = dy.shape[1]
+    dw = torch.empty((num_experts, K, N), dtype=x.dtype, device=x.device)
+    err = lib.tgmm_backward(
+        x.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(), dw.data_ptr(),
+        T, K, N, num_experts, block_t, _DTYPE_CODES[x.dtype], _stream(x))
+    if err != 0:
+        raise RuntimeError(f"tgmm kernel launch failed with CUDA error {err}")
+    tgmm.launches += 1
+    return dw
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """``gmm`` with the JAX package's custom VJP (``_gmm_fwd`` /
+    ``_gmm_bwd``): dX = ``gmm(dy, w^T)``, dW = :func:`tgmm`, each cast
+    back to its input's dtype; ``group_sizes`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, block_t):
+        ctx.save_for_backward(x, w, group_sizes)
+        ctx.block_t = block_t
+        return _gmm_forward(x, w, group_sizes, block_t)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm_forward(dy, w, group_sizes, ctx.block_t,
+                              w_trans=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = tgmm(x, dy, group_sizes, w.shape[0], ctx.block_t).to(w.dtype)
+        return dx, dw, None, None
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+        block_t: int, precision: Optional[str] = None) -> torch.Tensor:
+    """``x [T, K]`` x ``w [E, K, N]`` -> ``[T, N]``, row group ``e`` (per
+    ``group_sizes``, block_t-aligned) against ``w[e]``; differentiable in
+    ``x`` and ``w``.
+
+    ``precision`` (model.matmul_precision): "bf16" casts both operands (the
+    result is bf16); "int8" is not ported and raises. CPU tensors run the
+    plain versions; CUDA tensors launch the kernels on the current stream
+    (``gmm.launches`` counts forward and dX launches, ``tgmm.launches``
+    the dW ones)."""
+    precision = check_matmul_precision(precision)
+    if precision == "int8":
+        raise NotImplementedError(
+            "matmul_precision int8 in the grouped GEMM is not ported (ROADMAP "
+            "queue 1 item 8: speculation and quantization)")
+    if precision == "bf16":
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    return _GroupedMatmul.apply(x, w, group_sizes, block_t)
+
+
 gmm.launches = 0
+tgmm.launches = 0

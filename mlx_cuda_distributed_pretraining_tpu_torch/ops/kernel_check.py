@@ -1,14 +1,16 @@
-"""How the flash kernels are held against their plain versions on the card,
-and a planted fault that the check must catch.
+"""How the port's kernels are held against their plain versions on the card,
+and planted faults that the check must catch.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both use
-:func:`compare`, so the two gates cannot drift apart.
+:func:`compare` for every kernel (gmm and the three flash kernels; tgmm
+through :func:`compare_experts`, expert by expert), so the gates cannot
+drift apart.
 
 The limits scale with the typical value of the output (its RMS), not its
-largest: in a causal row the output shrinks as ``sqrt(e / n)`` over ``n``
-live keys, so a limit taken from the first rows (where ``o ~ v``) would be
-as large as the late rows' values, and a kernel that dropped part of a late
-row's softmax mass would pass. Two checks, both must hold:
+largest: in a causal row the flash output shrinks as ``sqrt(e / n)`` over
+``n`` live keys, so a limit taken from the first rows (where ``o ~ v``)
+would be as large as the late rows' values, and a kernel that dropped part
+of a late row's softmax mass would pass. Two checks, both must hold:
 
 - per element, ``|got - ref| <= atol + rtol * |ref|``;
 - over the whole tensor, ``||got - ref|| / ||ref|| <= norm``.
@@ -16,12 +18,17 @@ row's softmax mass would pass. Two checks, both must hold:
 fp32: the kernel and the plain version sum the same fp32 products in
 different orders: atol 1e-5 x RMS, rtol 1e-4, norm 1e-5.
 
-bf16: both round p and dS to bf16 at the same points (the kernel's p
-against its running max, the plain one's against the row max: an error of
-at most 2**-9 of each term) and round the output once, so a correct kernel
-is at most about one bf16 ulp (2**-8 to 2**-7 relative) from the plain
-version: atol 2**-5 x RMS (four ulps of a typical value), rtol 2e-2, norm
-1e-2 (an ulp on every element would read 4e-3).
+bf16: flash rounds p and dS to bf16 at the same points in both versions
+(the kernel's p against its running max, the plain one's against the row
+max: an error of at most 2**-9 of each term) and rounds the output once;
+gmm rounds one fp32 sum; tgmm rounds each tile's fp32 partial and the
+running sum at the same points in both versions, so only the partials' fp32
+summation order differs (a partial that lands on the other side of a bf16
+rounding boundary sets the two running sums on rounding paths that drift
+apart by about sqrt(tiles left) half-ulps of the sum). A correct kernel is at most about one bf16 ulp
+(2**-8 to 2**-7 relative) from the plain version: atol 2**-5 x RMS (four
+ulps of a typical value), rtol 2e-2, norm 1e-2 (an ulp on every element
+would read 4e-3).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Dict
 import torch
 
 from . import flash_attention as fa
+from . import grouped_matmul as gm
 
 _LIMITS = {  # dtype: (atol as a fraction of the RMS, rtol, normwise)
     torch.float32: (1e-5, 1e-4, 1e-5),
@@ -56,6 +64,21 @@ def compare(got: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
     norm_err = diff.norm().item() / max(ref_norm, 1e-30)
     return {"max_abs_err": diff.max().item(), "limit_ratio": ratio,
             "norm_err": norm_err, "ok": ratio <= 1.0 and norm_err <= norm_limit}
+
+
+def compare_experts(got: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
+    """:func:`compare` applied to each expert's block ``[e]`` of a tgmm
+    output on its own, and the worst of them (``ok`` only if every expert
+    passes). An expert's dW scales with its row count, so a hot expert's
+    bf16 running sum carries ulps larger than the other experts' typical
+    value; each expert is held to its own RMS."""
+    if got.shape != ref.shape:
+        return compare(got, ref)
+    checks = [compare(g, r) for g, r in zip(got, ref)]
+    return {"max_abs_err": max(c["max_abs_err"] for c in checks),
+            "limit_ratio": max(c["limit_ratio"] for c in checks),
+            "norm_err": max(c["norm_err"] for c in checks),
+            "ok": all(c["ok"] for c in checks)}
 
 
 def kernel_outputs(q, k, v, do, lse, delta, **kw) -> Dict[str, torch.Tensor]:
@@ -91,3 +114,15 @@ def planted_fault():
         yield
     finally:
         fa._plan = plan
+
+
+def tgmm_skipping_a_tile(x, dy, group_sizes, num_experts: int, block_t: int):
+    """:func:`grouped_matmul.tgmm` with the last non-empty expert's last row
+    tile left out of its walk: the kernel (or, on the CPU, the plain
+    version) runs unchanged on that expert's group shortened by one tile,
+    which is what a kernel that skipped the tile would return (no other
+    expert's rows move). :func:`compare_experts` must reject it."""
+    sizes = group_sizes.clone()
+    e = int(torch.nonzero(sizes).max())
+    sizes[e] -= block_t
+    return gm.tgmm(x, dy, sizes, num_experts, block_t)

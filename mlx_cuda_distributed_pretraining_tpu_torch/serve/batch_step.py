@@ -51,7 +51,7 @@ def _ffn(p, x: torch.Tensor, args: llama.LlamaArgs) -> torch.Tensor:
     if args.is_moe:
         from ..models.moe import moe_block
 
-        return moe_block(p["feed_forward"], x, args)
+        return moe_block(p["feed_forward"], x, args)[0]  # serving drops aux
     return llama.mlp_block(p["feed_forward"], x)
 
 

@@ -28,11 +28,23 @@ def init_train_state(params: Any, optimizer: FusedTransform) -> TrainState:
 
 
 def make_train_step(loss_fn: Callable, optimizer: FusedTransform,
-                    accum_steps: int = 1, log_grad_norm: bool = False
+                    accum_steps: int = 1, log_grad_norm: bool = False,
+                    moe_stats_experts: int = 0
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step_fn(state, batch) -> (state, metrics)``; ``loss_fn(params,
-    batch) -> (loss, token_count)``. The state is updated in place."""
+    batch) -> (loss, token_count)``. The state is updated in place.
+
+    ``moe_stats_experts > 0`` declares that ``loss_fn`` was built
+    ``with_moe_stats`` and returns ``(loss, (token_count, stats))``: the
+    expert-load vector and the dropped-selection count then ride the
+    metrics as ``moe_load [E]`` and ``moe_dropped``."""
+
+    def micro_step(params, batch):
+        loss, aux = loss_fn(params, batch)
+        toks, stats = aux if moe_stats_experts else (aux, None)
+        loss.backward()
+        return loss.detach(), toks, stats
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state["params"]
@@ -42,24 +54,26 @@ def make_train_step(loss_fn: Callable, optimizer: FusedTransform,
         if accum_steps > 1:
             micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:])
                      for k, v in batch.items()}
-            loss, toks = 0.0, 0.0
+            loss, toks, stats = 0.0, 0.0, None
             for i in range(accum_steps):
-                l_i, t_i = loss_fn(params, {k: v[i] for k, v in micro.items()})
-                l_i.backward()
-                loss, toks = loss + l_i.detach(), toks + t_i
+                l_i, t_i, s_i = micro_step(params, {k: v[i] for k, v in micro.items()})
+                loss, toks = loss + l_i, toks + t_i
+                if s_i is not None:
+                    stats = s_i if stats is None else {k: stats[k] + s_i[k] for k in stats}
             inv = 1.0 / accum_steps
             loss = loss * inv
             with torch.no_grad():
                 for p in leaves:
                     p.grad.mul_(inv)
         else:
-            loss, toks = loss_fn(params, batch)
-            loss.backward()
-            loss = loss.detach()
+            loss, toks, stats = micro_step(params, batch)
         grads = tree_map(lambda p: p.grad, params)
         params, opt_state = optimizer.fused_apply(grads, state["opt_state"], params)
         metrics = {"loss": loss, "toks": toks,
                    "nonfinite": (~torch.isfinite(loss)).to(torch.int32)}
+        if stats is not None:
+            metrics["moe_load"] = stats["moe_load"]
+            metrics["moe_dropped"] = stats["moe_dropped"]
         if log_grad_norm:
             metrics["grad_norm"] = global_norm(grads)
         for p in leaves:

@@ -5,15 +5,19 @@
 
 :class:`Trainer` follows the JAX trainer on one device: seeded init, the
 data manager, the bf16 forward over fp32 master weights (flash attention
-on the CUDA kernels when the config asks for it), the fp32 cross-entropy,
-the backward, clip + fused AdamW, the log line protocol, validation, and
-interval and ``final`` checkpoints in the ``runs/`` layout both packages
-read. It runs on ``cuda`` unless the caller asks for the CPU.
+on the CUDA kernels when the config asks for it; an MoE model's experts on
+the grouped-GEMM kernels, forward and backward), the fp32 cross-entropy
+plus an MoE model's router losses, the backward, clip + fused AdamW, the
+log line protocol (with routing stats for an MoE model), validation (pure
+cross-entropy), and interval and ``final`` checkpoints in the ``runs/``
+layout both packages read. It runs on ``cuda`` unless the caller asks for
+the CPU.
 
-Not ported (they raise, naming the ROADMAP item): meshes and pipeline
-parallelism, MoE training, remat / scan_layers / fused CE, optimizers other
-than adam/adamw, streaming data, resume, async checkpoints and the
-telemetry endpoints.
+Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
+``model_parallel`` that needs more than one device (expert, data, tensor,
+sequence and pipeline parallelism), int8 grouped GEMMs, remat /
+scan_layers / fused CE, optimizers other than adam/adamw, streaming data,
+resume, async checkpoints and the telemetry endpoints.
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
@@ -27,8 +31,9 @@ import json
 import math
 import os
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..checkpoint.manager import CheckpointManager
@@ -37,12 +42,47 @@ from ..data.memory import DataManager
 from ..models import llama
 from ..models.llama import LlamaArgs
 from ..obs.flops import mfu as compute_mfu
+from ..ops.flash_attention import check_matmul_precision
 from ..obs.flops import model_flops_per_token, peak_flops_per_chip
 from ..obs.logger import Logger
 from ..optim.factory import build_optimizer
 from ..optim.schedules import build_schedule, schedule_value
 from ..tokenizer import TokenizerManager
 from .train_step import init_train_state, make_eval_step, make_train_step
+
+MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")  # the JAX package's order
+
+
+def refuse_multi_device(system_cfg) -> None:
+    """Raise unless ``system.mesh`` (or the legacy ``model_parallel``) fits
+    one device: the fixed axes must multiply to 1, so that an axis of -1
+    (``dp: -1``) resolves to 1, as the JAX package's ``mesh_axis_sizes``
+    resolves it on one device."""
+    sizes = {k: int(v) for k, v in (system_cfg.mesh or {}).items()}
+    if not sizes and system_cfg.model_parallel:
+        sizes = {"dp": -1, "tp": max(1, int(system_cfg.model_parallel_size))}
+    unknown = set(sizes) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}; valid: {MESH_AXES}")
+    needed = int(np.prod([v for v in sizes.values() if v > 0]))
+    if needed > 1:
+        raise NotImplementedError(
+            f"system mesh {sizes} needs {needed} devices; the port trains on one "
+            "(ROADMAP queue 1 item 10: multi-GPU)")
+
+
+def routing_line(window: List[Tuple[torch.Tensor, torch.Tensor]]) -> Dict[str, Any]:
+    """A log window's routing stats from its steps' ``(moe_load [E],
+    moe_dropped)``: the normalised balance entropy (1.0 uniform, 0.0 one
+    expert takes all), dropped selections, and the busiest expert's share;
+    the JAX trainer's arithmetic. Reads the device once."""
+    load = np.asarray(sum(m[0] for m in window).cpu(), np.float64)
+    dropped = int(sum(m[1] for m in window))
+    frac = load / max(load.sum(), 1.0)
+    nz = frac[frac > 0]
+    entropy = float(-(nz * np.log(nz)).sum() / math.log(max(len(load), 2)))
+    return {"moe_entropy": entropy, "moe_drop": dropped,
+            "moe_load_max": float(frac.max())}
 
 
 class Trainer:
@@ -62,6 +102,7 @@ class Trainer:
             raise NotImplementedError(
                 f"data source {cfg.data.source!r} is not ported (ROADMAP queue 1: "
                 "streaming, token shards, native/ and device prefetch)")
+        refuse_multi_device(cfg.system)
 
         self.run_dir = CheckpointManager.setup_run_directory(
             runs_root, cfg.name, cfg.overwrite)
@@ -71,10 +112,11 @@ class Trainer:
         self.tokenizer = TokenizerManager(cfg.data, run_dir=self.run_dir)
 
         args = LlamaArgs.from_config(cfg.model, self.tokenizer.vocab_size)
-        if args.is_moe:
+        if args.is_moe and args.moe_impl == "grouped" \
+                and check_matmul_precision(args.matmul_precision) == "int8":
             raise NotImplementedError(
-                "MoE training needs the grouped-GEMM backward (_tgmm_pallas) "
-                "(ROADMAP queue 1: MoE training)")
+                "matmul_precision int8 in the grouped GEMM is not ported "
+                "(ROADMAP queue 1 item 8: speculation and quantization)")
         self.model_args = args
         params = llama.init_params(args, torch.Generator().manual_seed(cfg.system.seed),
                                    device=self.device)
@@ -90,14 +132,19 @@ class Trainer:
                   ce_chunk=int(cfg.system.fused_ce_chunk),
                   scan_layers=bool(cfg.system.scan_layers))
         z_loss = float(cfg.training.hyperparameters.get("z_loss") or 0.0)
+        # MoE steps carry the routing stats out beside the token count.
+        self.moe_stats_experts = args.num_local_experts if args.is_moe else 0
 
         def loss_fn(params, batch):
             return llama.loss_fn(params, batch, args, remat=remat,
                                  z_loss_weight=z_loss,
-                                 overlap=bool(cfg.system.overlap_gather), **kw)
+                                 overlap=bool(cfg.system.overlap_gather),
+                                 with_moe_stats=bool(self.moe_stats_experts), **kw)
 
+        # Validation leaves out the router losses: val_loss stays pure
+        # cross-entropy, comparable across dense and MoE runs.
         def eval_loss_fn(params, batch):
-            return llama.loss_fn(params, batch, args, **kw)
+            return llama.loss_fn(params, batch, args, include_aux=False, **kw)
 
         self.data = DataManager(cfg.data, self.tokenizer, cfg.training.batch_size,
                                 seq_len=cfg.data.max_context_size,
@@ -112,7 +159,8 @@ class Trainer:
         self.accum_steps = cfg.training.gradient_accumulation_steps
         self.train_step = make_train_step(
             loss_fn, self.optimizer, accum_steps=self.accum_steps,
-            log_grad_norm=cfg.logging.log_gradient_norm)
+            log_grad_norm=cfg.logging.log_gradient_norm,
+            moe_stats_experts=self.moe_stats_experts)
         self.eval_step = make_eval_step(eval_loss_fn)
         self.state = init_train_state(params, self.optimizer)
 
@@ -177,6 +225,7 @@ class Trainer:
         if val_int:
             record_validation(0, self.validate())
         window_tokens, window_steps = 0, 0
+        window_moe: list = []  # (moe_load, moe_dropped) device tensors per step
         last_loss = float("nan")
         self._sync()
         window_start = time.perf_counter()
@@ -187,6 +236,8 @@ class Trainer:
             self.total_tokens += step_tokens
             self.state, metrics = self.train_step(self.state, self._device_batch(batch))
             window_steps += 1
+            if "moe_load" in metrics:
+                window_moe.append((metrics["moe_load"], metrics["moe_dropped"]))
             if step % log_int == 0 or step == self.total_steps:
                 loss = float(metrics["loss"])
                 self._sync()
@@ -200,6 +251,9 @@ class Trainer:
                         "mfu": mfu_val if mfu_val is not None else "unknown"}
                 if "grad_norm" in metrics:
                     line["grad_norm"] = float(metrics["grad_norm"])
+                if window_moe:
+                    line.update(routing_line(window_moe))
+                    window_moe = []
                 if int(metrics["nonfinite"]):
                     self.logger.log(f"WARNING: non-finite loss at step {step}")
                 self.logger.log_metrics(step, line)

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_train.py [--steps 10] [--out profile.json]
+    python3 scripts/profile_torch_train.py [--config 40m-adamw|moe-8x40m]
+        [--steps 10] [--out profile.json]
 
-Builds configs/model-config-40m-adamw.yaml at full width (its numbers
-written out: hidden 512, 12 layers, 8 heads of 64, 1024 positions, batch
-32, bf16 compute over fp32 masters, flash attention, AdamW with clip 1.0)
-with seeded random weights and seeded random byte tokens, then:
+Builds configs/model-config-40m-adamw.yaml (the default) or
+configs/model-config-moe-8x40m.yaml at full width (their numbers written
+out: hidden 512, 12 layers, 8 heads of 64, 1024 positions, batch 32, bf16
+compute over fp32 masters, flash attention, AdamW with clip 1.0; the MoE
+config's 8 experts top-2 with its router losses, on one GPU, without its
+expert-parallel mesh) with seeded random weights and seeded random byte
+tokens, then:
 
 - step: wall time per train step (``make_train_step``; host clock around
   steps that end in a synchronise);
@@ -14,7 +18,9 @@ with seeded random weights and seeded random byte tokens, then:
   AdamW, each ended by a synchronise;
 - a torch.profiler window over the same steps: device time per step by
   kernel and by family (flash kernels, matrix products, the rest), kernels
-  launched per step, and the device's idle share of the wall time.
+  launched per step, and the device's idle share of the wall time. An MoE
+  step's kernels split into gmm, tgmm, the dispatch's gathers, scatters and
+  sort, and the rest.
 
 Prints one JSON object (also written to ``--out`` when given) with the
 card's name and power limit beside the numbers. Needs CUDA; imports nothing
@@ -33,7 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # configs/model-config-40m-adamw.yaml, the sections the step reads.
 CONFIG_40M = {
-    "name": "40m-adamw-profile",
+    "name": "40m-adamw",
     "model": {"dimensions": {"hidden_size": 512, "intermediate_size": 1536,
                              "num_layers": 12},
               "attention": {"num_heads": 8, "num_kv_heads": 8, "head_dim": 64,
@@ -50,16 +56,25 @@ CONFIG_40M = {
                  "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
     "system": {"seed": 42, "mixed_precision": True},
 }
+# configs/model-config-moe-8x40m.yaml: the same trunk with its moe section.
+CONFIG_MOE = {**CONFIG_40M, "name": "moe-8x40m", "model": {
+    **CONFIG_40M["model"],
+    "moe": {"num_local_experts": 8, "num_experts_per_tok": 2, "impl": "grouped",
+            "capacity_factor": 1.25, "aux_loss_weight": 0.01,
+            "router_z_weight": 0.001, "group_size": 256}}}
+CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE}
 SEQ, VOCAB = 1024, 259
 
 
 def family(name: str) -> str:
-    flash = re.search(r"flash_\w+_kernel", name)
-    if flash:
-        return flash.group(0)
+    kernel = re.search(r"(flash_\w+_kernel|tgmm_\w+_kernel|gmm_\w+_kernel)", name)
+    if kernel:
+        return kernel.group(0)
     n = name.lower()
     if any(k in n for k in ("gemm", "nvjet", "sm90", "cutlass", "xmma")):
         return "matrix products (cuBLAS)"
+    if any(k in n for k in ("index", "scatter", "gather", "sort", "radix")):
+        return "dispatch: gathers, scatters, sort"
     return "other"
 
 
@@ -69,6 +84,7 @@ def main(argv=None) -> int:
     from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
     from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import grouped_matmul as gm
     from mlx_cuda_distributed_pretraining_tpu_torch.optim.factory import build_optimizer
     from mlx_cuda_distributed_pretraining_tpu_torch.train.train_step import (
         init_train_state,
@@ -80,6 +96,7 @@ def main(argv=None) -> int:
     )
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", choices=sorted(CONFIGS), default="40m-adamw")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--out", help="also write the JSON object here")
     a = p.parse_args(argv)
@@ -91,16 +108,19 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
 
-    cfg = Config.from_dict(CONFIG_40M)
+    cfg = Config.from_dict(CONFIGS[a.config])
     args = llama.LlamaArgs.from_config(cfg.model, VOCAB)
     params = llama.init_params(args, torch.Generator().manual_seed(42), device="cuda")
     optimizer = build_optimizer(cfg.training, cfg.training.iters)
     dtype = torch.bfloat16
 
-    def loss_fn(prm, batch):
-        return llama.loss_fn(prm, batch, args, compute_dtype=dtype)
+    experts = args.num_local_experts if args.is_moe else 0
 
-    step_fn = make_train_step(loss_fn, optimizer)
+    def loss_fn(prm, batch):
+        return llama.loss_fn(prm, batch, args, compute_dtype=dtype,
+                             with_moe_stats=bool(experts))
+
+    step_fn = make_train_step(loss_fn, optimizer, moe_stats_experts=experts)
     state = init_train_state(params, optimizer)
     g = torch.Generator().manual_seed(0)
     rows = torch.randint(0, 256, (cfg.training.batch_size, SEQ + 1), generator=g)
@@ -123,7 +143,7 @@ def main(argv=None) -> int:
         for q in leaves:
             q.grad = None
         t = time.perf_counter()
-        loss, _ = loss_fn(state["params"], batch)
+        loss = loss_fn(state["params"], batch)[0]
         torch.cuda.synchronize()
         phases["forward_and_loss"] += time.perf_counter() - t
         t = time.perf_counter()
@@ -141,7 +161,7 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    fa.flash_fwd.launches = 0
+    fa.flash_fwd.launches = gm.gmm.launches = gm.tgmm.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for _ in range(a.steps):
@@ -163,7 +183,7 @@ def main(argv=None) -> int:
 
     out = {
         "card": card,
-        "config": "40m-adamw, B 32, S 1024, bf16 over fp32, flash attention",
+        "config": f"{a.config}, B 32, S 1024, bf16 over fp32, flash attention",
         "params": llama.num_params(state["params"]),
         "step_ms": step_ms,
         "tok_s": tokens * 1e3 / step_ms,
@@ -173,6 +193,8 @@ def main(argv=None) -> int:
         "device_idle_share": 1.0 - device_ms / prof_wall_ms,
         "kernels_per_step": sum(v[1] for v in kernels.values()) / a.steps,
         "flash_fwd_launches_per_step": fa.flash_fwd.launches / a.steps,
+        "gmm_launches_per_step": gm.gmm.launches / a.steps,
+        "tgmm_launches_per_step": gm.tgmm.launches / a.steps,
         "families_ms_per_step": {
             n: {"ms": v[0] / a.steps, "launches": v[1] / a.steps}
             for n, v in sorted(families.items(), key=lambda kv: -kv[1][0])},

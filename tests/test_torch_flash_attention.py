@@ -20,7 +20,7 @@ from mlx_cuda_distributed_pretraining_tpu.ops.attention import (
     reference_attention as j_reference,
 )
 from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as tf
-from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_check
+from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
 from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks as TM
 from mlx_cuda_distributed_pretraining_tpu_torch.ops.attention import (
     reference_attention as t_reference,
@@ -155,8 +155,8 @@ def test_unported_options_raise():
         tf.flash_attention(q, k, v, mask_type="diagonal")
 
 
-def test_flash_check_passes_bf16_rounding_and_rejects_a_skipped_tile():
-    # The kernels' gate (flash_check.compare) at the training path's S, D
+def test_kernel_check_passes_bf16_rounding_and_rejects_a_skipped_tile():
+    # The kernels' gate (kernel_check.compare) at the training path's S, D
     # and causal mask. The bf16 plain forward stands for the reference;
     # the same inputs in fp32, with p left unrounded and the output rounded
     # once to bf16, differ from it by rounding alone, as a correct kernel
@@ -169,19 +169,19 @@ def test_flash_check_passes_bf16_rounding_and_rejects_a_skipped_tile():
     kw = dict(mask_type="causal", scale=64 ** -0.5)
     ref, _ = tf.flash_fwd_plain(q, k, v, **kw)
     rounded = tf.flash_fwd_plain(q.float(), k.float(), v.float(), **kw)[0]
-    good = flash_check.compare(rounded.bfloat16(), ref)
+    good = kernel_check.compare(rounded.bfloat16(), ref)
     assert good["ok"], good
     bad = ref.clone()
     bad[:, :, -64:] = tf.flash_fwd_plain(q[:, :, -64:], k[:, :, :-64],
                                          v[:, :, :-64], mask_type="full",
                                          scale=64 ** -0.5)[0]
-    fault = flash_check.compare(bad, ref)
+    fault = kernel_check.compare(bad, ref)
     assert not fault["ok"] and fault["limit_ratio"] > 10, fault
 
 
 def test_planted_fault_drops_one_tile_and_restores_the_plan():
     plan = tf._plan("causal", 0, 0, 1024, 64, torch.device("cpu"))
-    with flash_check.planted_fault():
+    with kernel_check.planted_fault():
         kv, q_ranges, full = tf._plan("causal", 0, 0, 1024, 64, torch.device("cpu"))
     assert kv[:-1].tolist() == plan[0][:-1].tolist()
     assert kv[-1].tolist() == [0, 15] and plan[0][-1].tolist() == [0, 16]

@@ -1,13 +1,15 @@
 """The torch port's grouped expert GEMM against the JAX package's.
 
 On the CPU the port's ``gmm`` runs its plain version (the blocked
-formulation); it is held against the JAX Pallas kernel run in interpret mode
-(``backend="pallas"``), as tests/test_moe.py runs it. The CUDA kernel itself
-runs only on the card (tests/test_torch_kernels_cuda.py).
+formulation) and its backward's ``tgmm_plain``; they are held against the
+JAX Pallas kernels run in interpret mode (``backend="pallas"``,
+``_tgmm_pallas``), as tests/test_moe.py runs them. The CUDA kernels
+themselves run only on the card (tests/test_torch_kernels_cuda.py).
 """
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -115,3 +117,162 @@ def test_gmm_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tgm.gmm(x, w, gs, 8)
     assert tgm.gmm.launches == before
+
+
+# -- the backward: tgmm (dW) and gmm's autograd -------------------------------------
+# (block_t, group sizes, tail rows): the training path's tile (128), the
+# decode and prefill tiles, empty groups, tail tiles, an empty last expert.
+TGMM_CASES = [
+    (8, [8, 0, 16, 8], 16),
+    (32, [32, 64, 0, 32], 32),
+    (128, [128, 0, 256, 128], 128),
+    (8, [0, 24, 8, 0], 8),
+]
+
+
+def _tgmm_inputs(sizes, tail, seed=0, K=48, N=40):
+    x, _, gs = _inputs(sizes, tail, seed, K, N)
+    dy = np.random.default_rng(seed + 100).standard_normal(
+        (x.shape[0], N)).astype(np.float32)
+    return x, dy, gs
+
+
+@pytest.mark.parametrize("block_t,sizes,tail", TGMM_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tgmm_plain_matches_pallas_interpret(block_t, sizes, tail, dtype):
+    # The Pallas kernel in interpret mode rounds each tile's fp32 partial to
+    # the output type and sums in that type in tile order; tgmm_plain keeps
+    # those rounding points. Both compute each fp32 partial with XLA's and
+    # torch's CPU matmuls, which here sum in the same order: equal bits
+    # (were the partials' orders to differ, a partial could round one bf16
+    # ulp apart, and so could the running sum).
+    x, dy, gs = _tgmm_inputs(sizes, tail)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    E = len(sizes)
+    ref = jgm._tgmm_pallas(jnp.asarray(x, jdt), jnp.asarray(dy, jdt),
+                           jnp.asarray(gs), E, block_t, jgm.DEFAULT_BLOCK_N)
+    got = tgm.tgmm(torch.from_numpy(x).to(tdt), torch.from_numpy(dy).to(tdt),
+                   torch.from_numpy(gs), E, block_t)
+    assert got.dtype == tdt and tuple(got.shape) == ref.shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert not got[e].any(), f"empty expert {e} must be exact zeros"
+
+
+def test_tgmm_rounding_points_matter_in_bf16():
+    # Rounding once after an fp32 sum over the whole group is not the
+    # reference: with 8 tiles of 128 rows it moves dW by bf16 ulps.
+    x, dy, gs = _tgmm_inputs([1024, 0], 0, K=16, N=8)
+    xb, dyb = torch.from_numpy(x).bfloat16(), torch.from_numpy(dy).bfloat16()
+    tiled = tgm.tgmm_plain(xb, dyb, torch.from_numpy(gs), 2, 128)
+    once = (xb.float().t() @ dyb.float()).bfloat16()
+    assert (tiled[0] != once).any()
+    np.testing.assert_allclose(tiled[0].float().numpy(), once.float().numpy(),
+                               rtol=2 ** -5, atol=0.2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_gradients_match_jax_pallas(dtype):
+    # Forward, dX and dW through autograd (the custom backward: dX = gmm(dy,
+    # w^T), dW = tgmm) against jax.value_and_grad of the Pallas backend's
+    # custom VJP, both on the CPU.
+    block_t, sizes, tail = 32, [32, 64, 0, 32], 32
+    x, w, gs = _inputs(sizes, tail, seed=5)
+    g = np.random.default_rng(6).standard_normal((x.shape[0], w.shape[2])) \
+        .astype(np.float32)
+    # Tail rows are never read back (the dispatcher's contract), so their
+    # cotangent is zero; the Pallas backward would otherwise run them
+    # against the last expert where the port writes zeros.
+    g[sum(sizes):] = 0.0
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+
+    def j_loss(xj, wj):
+        out = jgm.gmm(xj, wj, jnp.asarray(gs), block_t=block_t, backend="pallas")
+        return jnp.sum(out.astype(jnp.float32) * g), out
+
+    (_, j_out), (j_dx, j_dw) = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    wt = torch.from_numpy(w).to(tdt).requires_grad_()
+    out = tgm.gmm(xt, wt, torch.from_numpy(gs), block_t)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    assert xt.grad.dtype == wt.grad.dtype == tdt
+    for got, ref in ((out, j_out), (xt.grad, j_dx), (wt.grad, j_dw)):
+        ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+        got = got.detach().float().numpy()
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
+        else:
+            # one rounding of an fp32 sum (dW: of each tile's partial and
+            # the running sum) that a different summation order can move
+            # by one bf16 ulp
+            np.testing.assert_allclose(got, ref, atol=6e-2, rtol=2 ** -7)
+
+
+def test_gmm_bf16_precision_matches_jax():
+    # model.matmul_precision "bf16" under fp32 operands: both operands cast,
+    # the result and its gradients as JAX's gm.gmm(precision="bf16") gives.
+    block_t, sizes, tail = 8, [8, 0, 16, 8], 16
+    x, w, gs = _inputs(sizes, tail, seed=7)
+
+    def j_fn(xj, wj):
+        out = jgm.gmm(xj, wj, jnp.asarray(gs), block_t=block_t,
+                      backend="pallas", precision="bf16")
+        return jnp.sum(out.astype(jnp.float32) ** 2), out
+
+    (_, j_out), (j_dx, j_dw) = jax.value_and_grad(j_fn, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = tgm.gmm(xt, wt, torch.from_numpy(gs), block_t, precision="bf16")
+    assert out.dtype == torch.bfloat16 and j_out.dtype == jnp.bfloat16
+    (out.float() ** 2).sum().backward()
+    assert xt.grad.dtype == wt.grad.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(j_out.astype(jnp.float32)),
+                               atol=2e-2, rtol=2 ** -7)
+    for got, ref in ((xt.grad, j_dx), (wt.grad, j_dw)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=0.3,
+                                   rtol=2 ** -6)
+
+
+def test_gmm_int8_precision_is_refused():
+    x, w, gs = _inputs([8, 8], 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+        tgm.gmm(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(gs),
+                8, precision="int8")
+
+
+def test_tgmm_non_cpu_input_raises_instead_of_falling_back():
+    x = torch.empty((16, 8), device="meta")
+    dy = torch.empty((16, 4), device="meta")
+    gs = torch.empty((2,), dtype=torch.int32, device="meta")
+    before = tgm.tgmm.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tgm.tgmm(x, dy, gs, 2, 8)
+    assert tgm.tgmm.launches == before
+
+
+def test_kernel_gate_rejects_a_skipped_tgmm_tile():
+    # The gate that holds the tgmm kernel against tgmm_plain on the card, at
+    # the training path's tiling on fewer rows: one bf16 ulp of rounding
+    # passes; the last expert's last tile left out of the walk does not.
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
+
+    rng = np.random.default_rng(8)
+    sizes = ((rng.multinomial(4096, [1 / 8] * 8) + 127) // 128 * 128).tolist()
+    x, dy, gs = _tgmm_inputs(sizes, 128, K=64, N=64)
+    xb, dyb, gst = (torch.from_numpy(x).bfloat16(), torch.from_numpy(dy).bfloat16(),
+                    torch.from_numpy(gs))
+    ref = tgm.tgmm_plain(xb, dyb, gst, 8, 128)
+    ulp = torch.where(torch.rand(ref.shape, generator=torch.Generator()
+                                 .manual_seed(0)) < 0.5, 1.0, -1.0) * 2.0 ** (
+        torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+    assert kernel_check.compare_experts((ref.float() + ulp).bfloat16(), ref)["ok"]
+    bad = kernel_check.tgmm_skipping_a_tile(xb, dyb, gst, 8, 128)
+    check = kernel_check.compare_experts(bad, ref)
+    assert not check["ok"] and check["limit_ratio"] > 2, check

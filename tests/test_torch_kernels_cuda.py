@@ -1,5 +1,6 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
-the grouped GEMM and the three flash-attention kernels.
+the grouped GEMM (forward, dX and tgmm's dW) and the three flash-attention
+kernels.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (the kernels have no CPU mode). The file imports torch only, so on a machine
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as tfa
-from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_check
+from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
 from mlx_cuda_distributed_pretraining_tpu_torch.ops import grouped_matmul as tgm
 
 # (block_t, group sizes, tail rows): the serving path's decode and prefill
@@ -58,6 +59,132 @@ def test_gmm_kernel_matches_plain(cuda, dtype, block_t, sizes, tail, K, N):
         else dict(atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
     assert not out[sum(sizes):].any()
+
+
+# (block_t, group sizes, tail rows) for tgmm: the training path's tile, the
+# decode and prefill tiles, empty groups, tail tiles and an empty last expert.
+TGMM_CASES = [
+    (128, [256, 128, 0, 384], 128),
+    (8, [8, 0, 16, 8], 16),
+    (32, [32, 64, 0, 32, 0], 32),
+    (16, [0, 48, 16, 0], 16),
+]
+
+
+def _tgmm_inputs(dtype, sizes, tail, K, N, seed=0):
+    rng = np.random.default_rng(seed)
+    T = sum(sizes) + tail
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    dy = rng.standard_normal((T, N)).astype(np.float32)
+    x[sum(sizes):] = 0.0
+    tdt = getattr(torch, dtype)
+    return (torch.from_numpy(x).to("cuda", tdt), torch.from_numpy(dy).to("cuda", tdt),
+            torch.tensor(sizes, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_t,sizes,tail", TGMM_CASES)
+# gate/up and down at moe-8x40m's widths, and widths no tile divides (bf16
+# with K, N not multiples of 8 takes the kernel's scalar loads)
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512), (200, 72), (100, 36)])
+def test_tgmm_kernel_matches_plain(cuda, dtype, block_t, sizes, tail, K, N):
+    x, dy, gs = _tgmm_inputs(dtype, sizes, tail, K, N)
+    before = tgm.tgmm.launches
+    dw = tgm.tgmm(x, dy, gs, len(sizes), block_t)
+    torch.cuda.synchronize()
+    assert tgm.tgmm.launches == before + 1
+    ref = tgm.tgmm_plain(x, dy, gs, len(sizes), block_t)
+    assert dw.shape == ref.shape and dw.dtype == ref.dtype
+    check = kernel_check.compare_experts(dw, ref)
+    assert check["ok"], check
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert not dw[e].any(), f"empty expert {e} must be exact zeros"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_t,sizes,tail", CASES)
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512), (200, 72)])
+def test_gmm_dx_kernel_matches_plain(cuda, dtype, block_t, sizes, tail, K, N):
+    # The backward's dX: dy [T, N] against w [E, K, N] read transposed in place.
+    rng = np.random.default_rng(1)
+    T = sum(sizes) + tail
+    dy = rng.standard_normal((T, N)).astype(np.float32)
+    w = rng.standard_normal((len(sizes), K, N)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    dy, w = (torch.from_numpy(a).to("cuda", tdt) for a in (dy, w))
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    before = tgm.gmm.launches
+    dx = tgm._gmm_forward(dy, w, gs, block_t, w_trans=True)
+    torch.cuda.synchronize()
+    assert tgm.gmm.launches == before + 1
+    ref = tgm.gmm_plain(dy, w.transpose(1, 2), gs, block_t)
+    assert kernel_check.compare(dx, ref)["ok"]
+    assert not dx[sum(sizes):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_autograd_runs_the_kernels(cuda, dtype):
+    # One forward and backward through gmm: 2 gmm launches (forward, dX) and
+    # 1 tgmm launch, with the gradients of the plain versions on the CPU.
+    rng = np.random.default_rng(2)
+    sizes, K, N = [32, 0, 64, 32], 64, 96
+    x = rng.standard_normal((sum(sizes) + 32, K)).astype(np.float32)
+    x[sum(sizes):] = 0.0
+    w = rng.standard_normal((4, K, N)).astype(np.float32)
+    g = rng.standard_normal((x.shape[0], N)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xt, wt = (torch.from_numpy(a).to(dev, tdt).requires_grad_() for a in (x, w))
+        before = (tgm.gmm.launches, tgm.tgmm.launches)
+        out = tgm.gmm(xt, wt, torch.tensor(sizes, dtype=torch.int32, device=dev), 32)
+        out.backward(torch.from_numpy(g).to(dev, tdt))
+        launched = (tgm.gmm.launches - before[0], tgm.tgmm.launches - before[1])
+        assert launched == ((2, 1) if dev == "cuda" else (0, 0))
+        grads[dev] = (out.detach(), xt.grad, wt.grad)
+    out, dx, dw = (t.cpu() for t in grads["cuda"])
+    assert kernel_check.compare(out, grads["cpu"][0])["ok"]
+    assert kernel_check.compare(dx, grads["cpu"][1])["ok"]
+    assert kernel_check.compare_experts(dw, grads["cpu"][2])["ok"]
+
+
+@pytest.mark.cuda
+def test_tgmm_check_rejects_planted_fault(cuda):
+    # The training path's tiling (block_t 128, 8 experts) on fewer rows: the
+    # last expert's last row tile left out of the kernel's walk must fail
+    # the same check that the correct kernel passes.
+    rng = np.random.default_rng(3)
+    sizes = (rng.multinomial(8192, [1 / 8] * 8) + 127) // 128 * 128
+    x, dy, gs = _tgmm_inputs("bfloat16", sizes.tolist(), 128, 512, 1536)
+    ref = tgm.tgmm_plain(x, dy, gs, 8, 128)
+    assert kernel_check.compare_experts(tgm.tgmm(x, dy, gs, 8, 128), ref)["ok"]
+    bad = kernel_check.tgmm_skipping_a_tile(x, dy, gs, 8, 128)
+    assert not kernel_check.compare_experts(bad, ref)["ok"]
+
+
+@pytest.mark.cuda
+def test_tgmm_kernel_rejects_bad_input(cuda):
+    x = torch.zeros((24, 64), device="cuda")
+    dy = torch.zeros((24, 32), device="cuda")
+    gs = torch.tensor([8, 16], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="block_t"):
+        tgm.tgmm(x, dy, gs, 2, 12)
+    with pytest.raises(TypeError, match="int32"):
+        tgm.tgmm(x, dy, gs.long(), 2, 8)
+    with pytest.raises(TypeError, match="one type"):
+        tgm.tgmm(x, dy.bfloat16(), gs, 2, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.tgmm(x.t().contiguous().t(), dy, gs, 2, 8)
+    with pytest.raises(ValueError, match="shapes"):
+        tgm.tgmm(x, dy[:16], gs, 2, 8)
+    with pytest.raises(ValueError, match="different devices"):
+        tgm.tgmm(x, dy, gs.cpu(), 2, 8)
+    with pytest.raises(ValueError, match="2 group sizes for 3 experts"):
+        tgm.tgmm(x, dy, gs, 3, 8)
 
 
 @pytest.mark.cuda
@@ -119,12 +246,12 @@ def test_flash_kernels_match_plain(cuda, dtype, B, Hq, Hkv, S, D, mask):
     for name, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
                            ("dv", dv, rdv)):
         assert got.shape == ref.shape and got.dtype == ref.dtype, name
-        check = flash_check.compare(got, ref)
+        check = kernel_check.compare(got, ref)
         assert check["ok"], (name, check)
 
 
 @pytest.mark.cuda
-def test_flash_check_rejects_planted_fault(cuda):
+def test_kernel_check_rejects_planted_fault(cuda):
     # The training path's shape at a smaller batch; each kernel launched
     # with one live tile left out of its plan must fail the same check.
     q, k, v, do = _flash_inputs("bfloat16", 4, 8, 8, 1024, 64)
@@ -134,12 +261,12 @@ def test_flash_check_rejects_planted_fault(cuda):
     refs = {"o": ro,
             "dq": tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)}
     refs["dk"], refs["dv"] = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
-    good = flash_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
-    with flash_check.planted_fault():
-        bad = flash_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+    good = kernel_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+    with kernel_check.planted_fault():
+        bad = kernel_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
     for name, ref in refs.items():
-        assert flash_check.compare(good[name], ref)["ok"], name
-        assert not flash_check.compare(bad[name], ref)["ok"], name
+        assert kernel_check.compare(good[name], ref)["ok"], name
+        assert not kernel_check.compare(bad[name], ref)["ok"], name
 
 
 @pytest.mark.cuda

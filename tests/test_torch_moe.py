@@ -59,11 +59,12 @@ def test_moe_block_matches_jax(backend, monkeypatch):
     monkeypatch.setenv("GMM_BACKEND", backend)
     jp, tp = _both(JARGS, seed=3)
     x = np.random.default_rng(4).standard_normal((2, 9, 32)).astype(np.float32)
-    ref, _aux = jmoe.moe_block(jp["layers"][0]["feed_forward"],
-                               jnp.asarray(x), JARGS)
-    out = tmoe.moe_block(tp["layers"][0]["feed_forward"],
-                         torch.from_numpy(x), TARGS)
+    ref, ref_aux = jmoe.moe_block(jp["layers"][0]["feed_forward"],
+                                  jnp.asarray(x), JARGS)
+    out, aux = tmoe.moe_block(tp["layers"][0]["feed_forward"],
+                              torch.from_numpy(x), TARGS)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(float(aux), float(ref_aux), **TOL)
 
 
 def test_init_params_tree_matches_jax():

@@ -280,8 +280,9 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
     for mod in ("serve.engine", "infer.server", "ops.grouped_matmul",
-                "ops.flash_attention", "ops.flash_check", "models.llama", "optim.fused",
-                "optim.schedules", "optim.factory", "data.memory",
+                "ops.flash_attention", "ops.kernel_check", "models.llama",
+                "models.moe", "optim.fused", "optim.schedules", "optim.factory",
+                "data.memory",
                 "checkpoint.manager", "obs.logger", "obs.flops",
                 "train.train_step", "train.trainer", "utils.cuda_build"):
         assert f"{PKG}.{mod}" in names, mod

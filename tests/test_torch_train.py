@@ -466,9 +466,12 @@ def test_trainer_runs_and_its_run_loads_in_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    # moe-8x40m's expert-parallel mesh needs four devices; the port trains
+    # on one (a mesh that resolves to one device trains: test_torch_moe_train).
     d = _config_dict(tmp_path)
     d["model"]["moe"] = {"num_local_experts": 4, "num_experts_per_tok": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    d["system"]["mesh"] = {"dp": -1, "ep": 4}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r1"),
                 quiet=True, device="cpu")
     d = _config_dict(tmp_path)
