@@ -14,7 +14,16 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    path's shapes (moe-8x40m: decode with 8 slots, a 256-token prefill chunk),
    fp32 and bf16, plus an empty-group/tail-tile case, and times the kernel,
    the plain version and ``torch._grouped_mm`` (where it takes the dtype)
-   as a yardstick. Then holds ``flash_fwd``, ``flash_bwd_dq`` and
+   as a yardstick. At the MoE training path's shapes (block_t 128) gmm's
+   forward and dX and tgmm must run their TMA/wgmma kernels (the
+   per-variant launch counts say so), are held against their plain
+   versions, and are compared element by element with, and timed in turns
+   with, the WMMA kernels that served those shapes before (called through
+   the library's C entries with the arguments the wrapper passed then;
+   WMMA, wgmma, wgmma, WMMA); at the path shape each
+   is launched once more with its last live row tile left out
+   (``kernel_check.gmm_skipping_a_tile``, ``tgmm_skipping_a_tile``), and
+   the same check must reject it. Then holds ``flash_fwd``, ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` against their plain versions: the training path's
    shape (B 32, H 8, S 1024, D 64, bf16, causal), fp32, GQA 8/2, S 1000
    (tail tiles), sliding_window, prefix_lm, full and D 128, timing each
@@ -46,7 +55,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    stats, one validation, the final checkpoint. Checks the loss falls, the
    routing stats on every line (no drops), the exact launch counts (per
    step 72 gmm, 36 tgmm and 12 of each flash kernel; per validation batch
-   36 gmm and 12 flash_fwd), step 1's loss and gradients with the gmm and
+   36 gmm and 12 flash_fwd; every gmm and tgmm launch a wgmma one), step
+   1's loss and gradients with the gmm and
    tgmm kernels against their plain versions (flash kernels in both) at
    batch 8, and serves the final checkpoint.
 7. report  — a ``{"kernels": [...]}`` line, the card line, and as the last
@@ -101,8 +111,7 @@ def card_line() -> str:
 
 
 def reset_launches(gm, fa) -> None:
-    gm.gmm.launches = 0
-    gm.tgmm.launches = 0
+    gm.reset_launches()
     for name in FLASH_KERNELS:
         getattr(fa, name).launches = 0
 
@@ -110,6 +119,18 @@ def reset_launches(gm, fa) -> None:
 def read_launches(gm, fa) -> dict:
     return {"gmm": gm.gmm.launches, "tgmm": gm.tgmm.launches,
             **{name: getattr(fa, name).launches for name in FLASH_KERNELS}}
+
+
+def read_variants(gm) -> dict:
+    """Launches of each gmm and tgmm kernel ("wgmma", "wmma", "f32", ...)."""
+    return {"gmm": dict(gm.gmm.launches_by_variant),
+            "tgmm": dict(gm.tgmm.launches_by_variant)}
+
+
+def launched_since(before: dict, counts: dict) -> dict:
+    """The variants launched since ``before`` (a copy of ``counts``), with
+    their launch counts."""
+    return {k: n - before[k] for k, n in counts.items() if n != before[k]}
 
 
 # -- phase 3: kernel vs plain -----------------------------------------------------
@@ -236,11 +257,61 @@ def library_call(torch, fn):
         return None, str(e)[:120]
 
 
-def gemm_row(torch, kernel, plain, library, nbytes, flops, dtype):
+def earlier_gmm(torch, gm, x, w, gs, block_t, w_trans):
+    """The bf16 gmm (forward, or dX with ``w_trans``) on the WMMA kernel that
+    served the training path's shapes before the wgmma one: the library's
+    ``gmm_forward`` with a CTA row tile of min(block_t, 32), as the wrapper
+    called it then. Measurement only; the port never launches it there."""
+    T, K = x.shape
+    E, N = w.shape[0], w.shape[1 if w_trans else 2]
+    out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    err = gm._library().gmm_forward(
+        x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(), T, K, N, E,
+        min(block_t, 32), 1, int(w_trans), gm._stream(x))
+    if err != 0:
+        raise RuntimeError(f"WMMA gmm launch failed with CUDA error {err}")
+    return out
+
+
+def earlier_tgmm(torch, gm, x, dy, gs, E, block_t):
+    """bf16 tgmm on its WMMA kernel (``tgmm_backward``'s kernel code 1), as
+    :func:`earlier_gmm`."""
+    T, K = x.shape
+    N = dy.shape[1]
+    dw = torch.empty((E, K, N), dtype=x.dtype, device=x.device)
+    err = gm._library().tgmm_backward(
+        x.data_ptr(), dy.data_ptr(), gs.data_ptr(), dw.data_ptr(), T, K, N, E,
+        block_t, 1, gm._stream(x))
+    if err != 0:
+        raise RuntimeError(f"WMMA tgmm launch failed with CUDA error {err}")
+    return dw
+
+
+def against_earlier(torch, new, old) -> dict:
+    """Whether the wgmma kernel's output equals the WMMA kernel's, element
+    by element, on the same inputs."""
+    return {"bitwise_equal": bool(torch.equal(new, old)),
+            "max_abs_diff": (new.float() - old.float()).abs().max().item()}
+
+
+def gemm_row(torch, kernel, plain, library, nbytes, flops, dtype, earlier=None):
     """ms of kernel, plain version and library call (device time, inputs
-    larger than L2 so no copies are cycled), and the bound."""
+    larger than L2 so no copies are cycled), and the bound. ``earlier``: the
+    WMMA kernel that served these shapes before the wgmma one, timed in
+    turns with it (earlier, kernel, kernel, earlier); ``ms`` and
+    ``earlier_ms`` are the means of each pair."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    row = {"ms": device_ms(torch, lambda _: kernel(), 1, reps=20),
+    turns = {}
+    if earlier is not None:
+        turns["earlier"] = [device_ms(torch, lambda _: earlier(), 1, reps=5)]
+        turns["kernel"] = [device_ms(torch, lambda _: kernel(), 1, reps=20)
+                           for _ in range(2)]
+        turns["earlier"].append(device_ms(torch, lambda _: earlier(), 1, reps=5))
+    else:
+        turns["kernel"] = [device_ms(torch, lambda _: kernel(), 1, reps=20)]
+    row = {"ms": sum(turns["kernel"]) / len(turns["kernel"]),
+           "earlier_ms": (sum(turns["earlier"]) / 2 if earlier is not None else None),
+           "turns_ms": turns,
            "plain_ms": device_ms(torch, lambda _: plain(), 1, reps=3),
            "library_ms": (device_ms(torch, lambda _: library(), 1, reps=20)
                           if library is not None else None),
@@ -250,11 +321,21 @@ def gemm_row(torch, kernel, plain, library, nbytes, flops, dtype):
     return row
 
 
-def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans):
+def fmt_earlier(row) -> str:
+    if row["earlier_ms"] is None:
+        return ""
+    return (f" (earlier WMMA kernel {row['earlier_ms']:.4f} ms, "
+            f"{row['earlier_ms'] / row['ms']:.1f}x; turns {row['turns_ms']})")
+
+
+def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans,
+                   fault=False):
     """One bf16 gmm product of the training path: the forward ``x [rows, K]
     @ w[e] [K, N]``, or with ``w_trans`` the backward's dX ``dy [rows, K] @
     w[e]^T`` with w stored ``[E, N, K]`` (the forward's weights, read in
-    place)."""
+    place). It must run the wgmma kernel; with ``fault`` the kernel is also
+    launched with the last live row tile left out, which the same check must
+    reject."""
     g = torch.Generator().manual_seed(SEED)
     E = sizes.shape[0]
     live = int(sizes.sum())
@@ -265,11 +346,31 @@ def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans):
     w = (torch.randn(*shape, generator=g) / K ** 0.5).to("cuda", torch.bfloat16)
     w_kn = w.transpose(1, 2) if w_trans else w
     gs = sizes.to("cuda")
+    before = dict(gm.gmm.launches_by_variant)
     out = gm._gmm_forward(x, w, gs, TRAIN_BLOCK_T, w_trans)
+    ran = launched_since(before, gm.gmm.launches_by_variant)
     ref = gm.gmm_plain(x, w_kn, gs, TRAIN_BLOCK_T)
     torch.cuda.synchronize()
     check = kernel_check.compare(out, ref)
     ok = check["ok"] and not out[live:].any().item()
+    if ran != {"wgmma": 1}:
+        ok = False
+        log(f"gmm {name}: ran {ran}, not the wgmma kernel")
+    vs_wmma = against_earlier(
+        torch, out, earlier_gmm(torch, gm, x, w, gs, TRAIN_BLOCK_T, w_trans))
+    log(f"gmm {name}: wgmma vs WMMA output {vs_wmma}")
+    del out
+    bad = None
+    if fault:
+        bad = kernel_check.compare(
+            kernel_check.gmm_skipping_a_tile(x, w, gs, TRAIN_BLOCK_T, w_trans), ref)
+        log(f"gmm {name} planted fault (last live row tile skipped): "
+            f"limit_ratio={bad['limit_ratio']:.3g} norm={bad['norm_err']:.3g} "
+            f"rejected={not bad['ok']}")
+        if bad["ok"]:
+            ok = False
+            log("gmm: the check passed a planted fault")
+    del ref
     offs = torch.cumsum(gs, 0).to(torch.int32)
     grouped_mm = getattr(torch, "_grouped_mm", None)
     library, note = (None, "torch._grouped_mm not in this torch") \
@@ -280,25 +381,29 @@ def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans):
         torch, lambda: gm._gmm_forward(x, w, gs, TRAIN_BLOCK_T, w_trans),
         lambda: gm.gmm_plain(x, w_kn, gs, TRAIN_BLOCK_T), library,
         (live * K + used * K * N + rows * N) * 2 + 4 * E, 2.0 * live * K * N,
-        "bfloat16")
+        "bfloat16",
+        earlier=lambda: earlier_gmm(torch, gm, x, w, gs, TRAIN_BLOCK_T, w_trans))
     case = {"case": name, "dtype": "bfloat16", "shape": [rows, K, N, E],
-            "block_t": TRAIN_BLOCK_T, "w_trans": w_trans,
-            "max_abs_err": check["max_abs_err"], "check": check, "ok": bool(ok),
+            "block_t": TRAIN_BLOCK_T, "w_trans": w_trans, "variants": ran,
+            "vs_wmma": vs_wmma, "max_abs_err": check["max_abs_err"], "check": check,
+            "planted_fault": bad, "ok": bool(ok),
             "library": "torch._grouped_mm" if library else note, **row}
     log(f"gmm {name} bf16 x[{rows},{K}] w[{E},{K},{N}]{' (w^T)' if w_trans else ''}: "
-        f"ok={ok} err={check['max_abs_err']:.3g} limit_ratio="
+        f"ok={ok} variant={ran} err={check['max_abs_err']:.3g} limit_ratio="
         f"{check['limit_ratio']:.3g} norm={check['norm_err']:.3g} kernel="
-        f"{row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms library="
-        f"{row['library_ms']} ms ({case['library']}) bound={row['bound_ms']:.4f} "
-        f"ms ({row['bound_by']})")
+        f"{row['ms']:.4f} ms{fmt_earlier(row)} plain={row['plain_ms']:.4f} ms "
+        f"library={row['library_ms']} ms ({case['library']}) bound="
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return case
 
 
 def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
-              fault=False):
-    """``dW = tgmm(x, dy)`` against ``tgmm_plain``; with ``fault`` also the
-    kernel with the last expert's last tile left out of its walk, which the
-    same check must reject."""
+              want, fault=False):
+    """``dW = tgmm(x, dy)`` against ``tgmm_plain``; it must run the ``want``
+    variant. With ``fault`` also the kernel with the last expert's last tile
+    left out of its walk, which the same check must reject. A "wgmma" case
+    is also held bitwise against the WMMA kernel that served it before, and
+    timed in turns with it."""
     g = torch.Generator().manual_seed(SEED)
     dt = getattr(torch, dtype)
     E = sizes.shape[0]
@@ -308,12 +413,22 @@ def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
     x = x.to("cuda", dt)
     dy = torch.randn(rows, N, generator=g).to("cuda", dt)
     gs = sizes.to("cuda")
+    before = dict(gm.tgmm.launches_by_variant)
     dw = gm.tgmm(x, dy, gs, E, block_t)
+    ran = launched_since(before, gm.tgmm.launches_by_variant)
     ref = gm.tgmm_plain(x, dy, gs, E, block_t)
     torch.cuda.synchronize()
     check = kernel_check.compare_experts(dw, ref)
     empty_ok = all(not dw[e].any().item() for e in range(E) if int(sizes[e]) == 0)
     ok = check["ok"] and empty_ok
+    wgmma = want == "wgmma"
+    if ran != {want: 1}:
+        ok = False
+        log(f"tgmm {name}: ran {ran}, not the {want} kernel")
+    vs_wmma = None
+    if wgmma:
+        vs_wmma = against_earlier(torch, dw, earlier_tgmm(torch, gm, x, dy, gs, E, block_t))
+        log(f"tgmm {name}: wgmma vs WMMA output {vs_wmma}")
     bad = None
     if fault:
         bad = kernel_check.compare_experts(
@@ -339,17 +454,19 @@ def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
     row = gemm_row(torch, lambda: gm.tgmm(x, dy, gs, E, block_t),
                    lambda: gm.tgmm_plain(x, dy, gs, E, block_t), library,
                    live * (K + N) * es + E * K * N * es + 4 * E,
-                   2.0 * live * K * N, dtype)
+                   2.0 * live * K * N, dtype,
+                   earlier=(lambda: earlier_tgmm(torch, gm, x, dy, gs, E, block_t))
+                   if wgmma else None)
     case = {"case": name, "dtype": dtype, "shape": [rows, K, N, E],
-            "block_t": block_t, "group_sizes": sizes.tolist(),
-            "max_abs_err": check["max_abs_err"], "check": check,
+            "block_t": block_t, "group_sizes": sizes.tolist(), "variants": ran,
+            "vs_wmma": vs_wmma, "max_abs_err": check["max_abs_err"], "check": check,
             "planted_fault": bad, "ok": bool(ok),
             "library": "torch._grouped_mm" + ("" if note == "ok" else f" ({note})")
             if library else note, **row}
     log(f"tgmm {name} {dtype} x[{rows},{K}] dy[{rows},{N}] E={E} block_t="
-        f"{block_t}: ok={ok} err={check['max_abs_err']:.3g} limit_ratio="
+        f"{block_t}: ok={ok} variant={ran} err={check['max_abs_err']:.3g} limit_ratio="
         f"{check['limit_ratio']:.3g} norm={check['norm_err']:.3g} kernel="
-        f"{row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms library="
+        f"{row['ms']:.4f} ms{fmt_earlier(row)} plain={row['plain_ms']:.4f} ms library="
         f"{row['library_ms']} ms ({case['library']}) bound={row['bound_ms']:.4f} "
         f"ms ({row['bound_by']})")
     return case
@@ -361,7 +478,8 @@ def train_kernel_phase(torch, gm, kernel_check):
     E, D, I = 8, 512, 1536
     sizes, rows = routed_sizes(torch, rng, TRAIN_SELECTIONS, E, TRAIN_BLOCK_T)
     gmm_cases = [
-        train_gmm_case(torch, gm, kernel_check, "train_gate_up", D, I, sizes, rows, False),
+        train_gmm_case(torch, gm, kernel_check, "train_gate_up", D, I, sizes, rows, False,
+                       fault=True),
         train_gmm_case(torch, gm, kernel_check, "train_down", I, D, sizes, rows, False),
         train_gmm_case(torch, gm, kernel_check, "train_dx_gate_up", I, D, sizes, rows, True),
         train_gmm_case(torch, gm, kernel_check, "train_dx_down", D, I, sizes, rows, True),
@@ -374,15 +492,15 @@ def train_kernel_phase(torch, gm, kernel_check):
     small, small_rows = routed_sizes(torch, rng, 4096, E, 32)
     tgmm_cases = [
         tgmm_case(torch, gm, kernel_check, "path_gate_up", "bfloat16", D, I, sizes,
-                  rows, TRAIN_BLOCK_T, fault=True),
+                  rows, TRAIN_BLOCK_T, "wgmma", fault=True),
         tgmm_case(torch, gm, kernel_check, "path_down", "bfloat16", I, D, sizes,
-                  rows, TRAIN_BLOCK_T),
+                  rows, TRAIN_BLOCK_T, "wgmma"),
         tgmm_case(torch, gm, kernel_check, "imbalanced_gate_up", "bfloat16", D, I,
-                  hot, rows, TRAIN_BLOCK_T),
+                  hot, rows, TRAIN_BLOCK_T, "wgmma"),
         tgmm_case(torch, gm, kernel_check, "fp32_gate_up", "float32", D, I, small,
-                  small_rows, 32),
+                  small_rows, 32, "f32"),
         tgmm_case(torch, gm, kernel_check, "empty_groups_tail", "bfloat16", D, I,
-                  edge, 1280, TRAIN_BLOCK_T),
+                  edge, 1280, TRAIN_BLOCK_T, "wgmma"),
     ]
     return gmm_cases, tgmm_cases
 
@@ -654,6 +772,7 @@ def path_phase(torch, gm, fa, card):
                     for i in range(1, len(bodies))]
         all_launches = read_launches(gm, fa)
         launches = all_launches["gmm"]
+        variants = read_variants(gm)["gmm"]
         chunks = engine.prefill_chunks - c0
         steps = engine.decode_steps - d0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -687,7 +806,7 @@ def path_phase(torch, gm, fa, card):
         failures.append(f"gmm launches {launches} != {per} x ({chunks} prefill "
                         f"chunks + {steps} decode steps)")
     log(f"path: gmm launches={launches} = {per} x ({chunks} prefill chunks + "
-        f"{steps} decode steps)")
+        f"{steps} decode steps); by variant {variants}")
     if any(all_launches[n] for n in FLASH_KERNELS):
         failures.append(f"serving launched flash kernels: {all_launches}")
 
@@ -1042,6 +1161,7 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches(gm, fa)
+        variants = read_variants(gm)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         windows = trainer.windows
         losses = [w["loss"] for w in windows]
@@ -1068,6 +1188,13 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             failures.append("moe: no validation ran")
         if launches != want:
             failures.append(f"moe: launches {launches} != {want}")
+        # bf16 at block_t 128: the TMA/wgmma kernels and no other
+        want_variants = {"gmm": {**dict.fromkeys(gm.GMM_VARIANTS, 0), "wgmma": want["gmm"]},
+                         "tgmm": {**dict.fromkeys(gm.TGMM_VARIANTS, 0),
+                                  "wgmma": want["tgmm"]}}
+        log(f"moe: launches by variant {variants}")
+        if variants != want_variants:
+            failures.append(f"moe: launches by variant {variants} != {want_variants}")
         code, out = serve_run(torch, trainer.run_dir, trainer.device,
                               "moe-8x40m-smoke")
         log(f"moe: final checkpoint served: HTTP {code} "
@@ -1086,7 +1213,8 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             "mfu_active_vs_989tflops": tok_s * flops_per_token / PEAK_FLOPS["bfloat16"],
             "flops_per_token": flops_per_token,
             "peak_mem_gb": peak_gb, "first_window_s": windows[0]["seconds"],
-            "losses": losses, "launches": launches, "first_step_parity": par,
+            "losses": losses, "launches": launches, "launches_by_variant": variants,
+            "first_step_parity": par,
             "routing": [{k: w.get(k) for k in ("step", "moe_entropy", "moe_drop",
                                                 "moe_load_max")} for w in windows]}
     for k in ("step_ms", "tok_s", "mfu_active_vs_989tflops", "peak_mem_gb"):

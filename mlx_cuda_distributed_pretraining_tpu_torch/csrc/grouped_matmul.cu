@@ -33,10 +33,18 @@
 //     throughput (1.2 GFLOP per gate/up call). Each CTA stages a 32 x 16 slice
 //     of x and a 16 x 64 slice of w in shared memory and every thread keeps a
 //     2 x 4 register tile, so each shared-memory load feeds two FMAs.
-//   - bf16 runs the same tiling on the tensor cores through WMMA 16x16x16
-//     fragments with fp32 accumulators; row tiles of 8 are zero-padded to 16.
-// Not done yet (later work): TMA/wgmma pipelines, one CTA reading an expert's
-// weights once for all of its row tiles, persistent scheduling.
+//   - bf16 with block_t < 64 (or shapes outside TMA's rules) runs the same
+//     tiling on the tensor cores through WMMA 16x16x16 fragments with fp32
+//     accumulators; row tiles of 8 are zero-padded to 16.
+//   - bf16 at the training path's shapes (block_t a multiple of 64) runs
+//     gmm_bf16_wgmma_kernel: a TMA ring feeding wgmma (its own note below).
+//
+// Variants, chosen by the wrapper before launch (ops/grouped_matmul.py::
+// gmm_variant; the bm argument of gmm_forward carries the choice):
+//   "f32_decode" fp32, bm 8         gmm_f32_decode_kernel
+//   "f32"        fp32, bm 16 / 32   gmm_f32_kernel
+//   "wmma"       bf16, bm 8-32      gmm_bf16_kernel
+//   "wgmma"      bf16, bm 64 / 128  gmm_bf16_wgmma_kernel
 //
 // A CTA's row tile (BM rows) divides block_t, so a CTA never straddles two
 // experts. Hopper has no scalar prefetch: each CTA finds its expert with a
@@ -44,14 +52,27 @@
 //
 // Interface: plain C, loaded with ctypes. gmm_forward and tgmm_backward
 // return cudaGetLastError() after the launch (0 on success); neither
-// synchronises.
+// synchronises. The TMA descriptors are encoded on the host inside them,
+// through cuTensorMapEncodeTiled fetched with cudaGetDriverEntryPoint (no
+// -lcuda).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+// Tile choices of the wgmma kernels, picked by measurement on an H100 at the
+// MoE training path's shapes (PERF.md): gmm 128 x 256 CTA tiles with a
+// 4-stage ring (one CTA per SM) beat 128 x 128 with 3 stages (two CTAs per
+// SM) at K 1536 and tie at K 512; tgmm 128 x 128 blocks with 6 stages tie
+// with 128 x 64 with 4 (two CTAs per SM) and win on a hot expert.
+constexpr int GMM_WG_BN = 256, GMM_WG_STAGES = 4;
+constexpr int TGMM_WG_BN = 128, TGMM_WG_STAGES = 6;
 
 constexpr int BN = 64;  // output columns per CTA
 
@@ -282,6 +303,400 @@ __global__ void gmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ========================================== bf16 on a TMA ring with wgmma
+// Machinery shared by gmm_bf16_wgmma_kernel and tgmm_bf16_wgmma_kernel:
+// 128-byte-swizzled TMA boxes of 64 x 64 bf16 (one swizzle row is 64
+// elements), full/empty mbarriers around a ring of stages in dynamic shared
+// memory, and warpgroup wgmma.mma_async reading both operands from shared
+// memory through descriptors, with fp32 accumulators in registers.
+namespace wg {
+
+constexpr int BK = 64;                      // reduction elements per stage
+constexpr int BOX = 64;                     // a box's rows or columns
+constexpr int BOX_BYTES = BOX * BK * 2;     // one 64 x 64 bf16 box: 8 KB
+constexpr int ATOM = 1024;                  // 8 rows of 128 bytes: the swizzle atom
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The ring's base, rounded up to the swizzle atom (the host asks for 1 KB
+// more than the ring).
+__device__ __forceinline__ uint8_t* ring_base(uint8_t* dyn) {
+  return dyn + ((ATOM - (smem_addr(dyn) & (ATOM - 1))) & (ATOM - 1));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+
+// Make the initialised barriers visible to the other threads and to TMA.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed. Every wait
+// here lasts microseconds; one that lasts 4e10 cycles (~20 s) means the
+// barrier accounting is broken, and the kernel traps (the launch fails)
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > 40000000000LL) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout B128.
+// K-major (rows of 64 reduction elements): SBO = one atom between 8-row
+// groups, LBO unused; a k16 step adds 32 bytes to the start. MN-major
+// (rows of 64 M or N elements, one row per reduction index): SBO = one atom
+// between groups of 8 reduction rows, LBO = the distance between 64-wide
+// boxes along M or N; a k16 step adds 16 rows (2 KB).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns the registers.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, fp32 accumulators: thread t
+// of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
+// 8 j + 2 (t % 4) (+ 1): d[4 j], d[4 j + 1] on the first row, d[4 j + 2],
+// d[4 j + 3] eight rows below. TA / TB: A / B is MN-major (transposed).
+// scale_d 0 overwrites D.
+template <int N, int TA, int TB>
+struct Wgmma;
+
+template <int TA, int TB>
+struct Wgmma<64, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<128, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<256, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// bf16(a + b) for two packed bf16 pairs, the sum taken in fp32 (as a bf16
+// tensor add rounds it).
+__device__ __forceinline__ uint32_t add_bf16(uint32_t a, uint32_t b) {
+  const float2 fa = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
+  const float2 fb = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
+  return pack_bf16(fa.x + fb.x, fa.y + fb.y);
+}
+
+// Writes one warpgroup's 64 x BN bf16 result (v: two bf16 per register, in
+// the accumulator layout) to out rows [row0, row0 + rows) x columns
+// [col0, col0 + cols), leading dimension ld, through shared memory at stage:
+// rows padded by 16 bytes so the fragment stores hit 32 distinct banks, then
+// 16 bytes per thread with consecutive threads along a row. cols is a
+// multiple of 8; t is the thread's index in its warpgroup.
+template <int BN>
+__device__ __forceinline__ void store_tile(const uint32_t (&v)[BN / 4], uint8_t* stage,
+                                           __nv_bfloat16* __restrict__ out, size_t ld,
+                                           size_t row0, int rows, int col0, int cols,
+                                           int t, int bar_id) {
+  constexpr int LDS = BN * 2 + 16;
+  constexpr int CH = BN / 8;  // 16-byte chunks per row
+  const int r = (t / 32) * 16 + (t % 32) / 4;
+  const int c = (t % 4) * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + r * LDS + (j * 8 + c) * 2) = v[2 * j];
+    *reinterpret_cast<uint32_t*>(stage + (r + 8) * LDS + (j * 8 + c) * 2) = v[2 * j + 1];
+  }
+  bar_sync(bar_id, 128);
+#pragma unroll 4
+  for (int i = t; i < 64 * CH; i += 128) {
+    const int rr = i / CH, cc = (i % CH) * 8;
+    if (rr < rows && cc < cols)
+      *reinterpret_cast<uint4*>(out + (row0 + rr) * ld + col0 + cc) =
+          *reinterpret_cast<const uint4*>(stage + rr * LDS + cc * 2);
+  }
+}
+
+}  // namespace wg
+
+// gmm_bf16_wgmma_kernel ("wgmma"): the training path's bf16 gmm, forward and
+// (with WT) dX. Taken when block_t % 64 == 0, K % 8 == 0, N % 8 == 0 and x,
+// w and out are 16-byte aligned (TMA's stride and address rules); other bf16
+// calls take gmm_bf16_kernel.
+//
+// What bounds it (moe-8x40m gate/up: x [66560, 512], w [8, 512, 1536],
+// 65,536 live rows): 2 x 65,536 x 512 x 1536 = 103 GFLOP against ~285 MB of
+// compulsory traffic, so operations: 0.104 ms at 989 TFLOP/s (bytes: 0.085
+// ms at 3.35 TB/s). The WMMA kernel ran at 3% of that: each 32-row CTA
+// re-staged its expert's K x 64 weight strip with 2-byte loads and nothing
+// overlapped loads with math.
+//
+// Design:
+//  - CTA tile BM x BN: BM = 64 NWG rows (128 when block_t allows, else 64),
+//    so a CTA never straddles two experts; BN = GMM_WG_BN. NWG consumer
+//    warpgroups each own 64 rows and issue wgmma.m64nBNk16 (fp32
+//    accumulators in registers); one producer warp (the last) keeps TMA
+//    loads in flight.
+//  - A ring of GMM_WG_STAGES stages of (x tile BM x 64, w tile 64 x BN) with
+//    full/empty mbarriers. A warpgroup releases a stage once the wgmma group
+//    that read it has retired: at most one group in flight.
+//  - x [T, K] is K-major, wgmma's native A layout (one box of BM rows x 64).
+//    The weights are read in place, no transposed copy: the forward's
+//    w [E, K, N] is N-major (wgmma's transpose-B bit, one 64 x 64 box per 64
+//    columns); dX's w [E, N, K] is K-major (one box of BN rows x 64). A 3D
+//    tensor map over the weights zero-fills a box at a ragged K or N edge and
+//    never reads the next expert's rows.
+//  - The grid is 1D with column tiles fastest: the CTAs in flight cover a
+//    few consecutive row tiles of one expert, so its 1.5 MB weight bank stays
+//    in the 50 MB L2 and each x tile comes from HBM once.
+//  - Tail tiles (rows >= sum(group_sizes)) load nothing and write zeros.
+//  - Epilogue: fp32 -> bf16 once, staged through the (then idle) ring,
+//    written with 16-byte coalesced stores.
+// Later work: persistent CTAs (one tile's epilogue under the next one's
+// loads), clusters with TMA multicast of the weight tile, setmaxnreg.
+template <int NWG, int BN, int STAGES>
+constexpr int gmm_wg_smem() {
+  return STAGES * (NWG * 64 + BN) * wg::BK * 2 + wg::ATOM;
+}
+
+template <int NWG, int BN, int STAGES, bool WT>
+__global__ void __launch_bounds__(NWG * 128 + 32,
+                                  gmm_wg_smem<NWG, BN, STAGES>() <= 110 * 1024 ? 2 : 1)
+gmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w,
+                      const int* __restrict__ gs, __nv_bfloat16* __restrict__ out,
+                      int K, int N, int E, int col_tiles) {
+  using namespace wg;
+  constexpr int BM = NWG * 64;
+  constexpr int A_BYTES = BM * BK * 2;
+  constexpr int B_BYTES = BN * BK * 2;
+  constexpr int STAGE = A_BYTES + B_BYTES;
+  static_assert(NWG * 64 * (BN * 2 + 16) <= STAGES * STAGE, "epilogue staging fits the ring");
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ int s_expert;
+  uint8_t* ring = ring_base(dyn_smem);
+
+  const int tid = threadIdx.x;
+  const size_t r0 = static_cast<size_t>(blockIdx.x / col_tiles) * BM;
+  const int n0 = (blockIdx.x % col_tiles) * BN;
+  if (tid == 0) {
+    s_expert = expert_of_row(gs, E, static_cast<int>(r0));
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int e = s_expert;
+  const int cols = min(BN, N - n0);
+  if (e < 0) {  // tail tile: zeros
+    for (int i = tid; i < BM * (cols / 8); i += blockDim.x) {
+      const int rr = i / (cols / 8), cc = (i % (cols / 8)) * 8;
+      *reinterpret_cast<uint4*>(out + (r0 + rr) * N + n0 + cc) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  const int nk = (K + BK - 1) / BK;
+
+  if (tid / 32 == NWG * 4) {  // producer warp
+    if (tid % 32 == 0) {
+      const int nb = (cols + BOX - 1) / BOX;  // forward: boxes with a live column
+      const uint32_t bytes = A_BYTES + (WT ? B_BYTES : nb * BOX_BYTES);
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        const uint32_t a = smem_addr(ring + s * STAGE), b = a + A_BYTES;
+        const uint32_t bar = smem_addr(&full[s]);
+        mbar_expect_tx(bar, bytes);
+        tma_2d(a, &map_x, bar, kb * BK, static_cast<int>(r0));
+        if (WT) {
+          tma_3d(b, &map_w, bar, kb * BK, n0, e);
+        } else {
+          for (int j = 0; j < nb; ++j)
+            tma_3d(b + j * BOX_BYTES, &map_w, bar, n0 + j * BOX, kb * BK, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup g: rows [r0 + 64 g, r0 + 64 g + 64)
+  const int g = tid / 128, t = tid % 128;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % STAGES;
+    mbar_wait(&full[s], (kb / STAGES) & 1);
+    const uint32_t a = smem_addr(ring + s * STAGE) + g * (64 * BK * 2);
+    const uint32_t b = smem_addr(ring + s * STAGE) + A_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const uint64_t da = desc(a + ks * 32, 16, ATOM);
+      const uint64_t db = WT ? desc(b + ks * 32, 16, ATOM)
+                             : desc(b + ks * 16 * 128, BOX_BYTES, ATOM);
+      Wgmma<BN, 0, WT ? 0 : 1>::run(acc, da, db, 1);
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();  // the previous stage's group has retired
+    fence_acc(acc);
+    if (kb > 0 && t == 0) mbar_arrive(&empty[(kb - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  uint32_t v[BN / 4];
+#pragma unroll
+  for (int j = 0; j < BN / 4; ++j) v[j] = pack_bf16(acc[2 * j], acc[2 * j + 1]);
+  bar_sync(1, NWG * 128);  // every warpgroup is past its last wgmma: the ring is idle
+  store_tile<BN>(v, ring + g * 64 * (BN * 2 + 16), out, N, r0 + g * 64, 64, n0, cols, t,
+                 2 + g);
+}
+
 template <int BM, int TM, bool WT>
 void launch_f32(const void* x, const void* w, const int* gs, void* out, int T,
                 int K, int N, int E, cudaStream_t stream) {
@@ -366,10 +781,9 @@ int launch_gmm(const void* x, const void* w, const int* gs, void* out, int T,
 // 989 TFLOP/s) against ~285 MB of compulsory traffic (0.085 ms at 3.35 TB/s):
 // operations. Each CTA re-reads its expert's x and dy column slices, so the
 // grid reads 24-8 times the compulsory bytes, mostly from L2 (a CTA's
-// neighbours in launch order share its expert). Not done yet (later work):
-// wgmma/TMA pipelines, larger output blocks, and splitting a hot expert's
-// rows across CTAs, which would need a second pass to keep the tile order
-// of the bf16 sum: a hot expert now serialises its column of CTAs.
+// neighbours in launch order share its expert). bf16 at block_t % 64 == 0
+// runs tgmm_bf16_wgmma_kernel (noted below); this WMMA kernel ("wmma") keeps
+// the other bf16 shapes, "f32" the fp32 ones.
 constexpr int TB = 64;    // output block: K rows x N columns per CTA
 constexpr int TBR = 32;   // bf16: rows staged per pass (two WMMA k-steps)
 constexpr int TLD = TB + 8;
@@ -556,38 +970,308 @@ tgmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     }
 }
 
+
+// tgmm_bf16_wgmma_kernel ("wgmma"): tgmm in bf16 when block_t % 64 == 0,
+// K % 8 == 0, N % 8 == 0 and x, dy and dw are 16-byte aligned; other bf16
+// shapes take tgmm_bf16_kernel. The same function and rounding points as
+// the kernels above, bit for bit in structure: one CTA owns one
+// 128 x TGMM_WG_BN block of one expert's dW [K, N] and walks that expert's
+// block_t tiles in order; each tile's fp32 partial rounds to bf16 and the
+// running sum (bf16, two per register, in registers) rounds after every
+// add; no atomics, so the result is bitwise reproducible. Experts with no
+// rows write exact zeros; rows past sum(group_sizes) are never read.
+//
+// What bounds it: 103 GFLOP per gate/up call, as gmm: operations, 0.104 ms
+// at 989 TFLOP/s. The WMMA kernel ran at 5.6% of peak: two synchronous
+// staging copies per 32 rows and no overlap of loads with math.
+//
+// Design: the reduction runs over token rows. Two consumer warpgroups each
+// own 64 K-rows of the block; the producer warp streams the expert's rows in
+// stages of 64 (from the prefix sum over group_sizes the CTA computes
+// itself): per stage two 64 x 64 boxes of x (rows x K-columns) and
+// TGMM_WG_BN / 64 boxes of dy, into a ring of TGMM_WG_STAGES stages. A = x^T
+// is M-major in shared memory (wgmma's transpose-A bit), B = dy is N-major
+// (transpose-B). A block_t tile is block_t / 16 k-steps into fp32
+// accumulators (the first with scale_d 0); at its end wgmma.wait_group 0,
+// the round and the add. A box wholly past K or N is not loaded (its
+// rows or columns are never stored). The grid is 1D in expert order, an
+// expert's CTAs consecutive, so those in flight share its rows in L2.
+// Later work: a hot expert serialises its column of CTAs (splitting its
+// rows would reorder the rounding chain: it needs a second pass that adds
+// the rounded tile partials in order); double-buffered accumulators so the
+// tensor cores run through each tile's round-and-add; persistent CTAs.
+template <int BN, int STAGES>
+constexpr int tgmm_wg_smem() {
+  return STAGES * (2 + BN / wg::BOX) * wg::BOX_BYTES + wg::ATOM;
+}
+
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(288, 1)
+tgmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_dy,
+                       const int* __restrict__ gs, __nv_bfloat16* __restrict__ dw,
+                       int K, int N, int block_t, int k_tiles, int n_tiles) {
+  using namespace wg;
+  constexpr int A_BYTES = 2 * BOX_BYTES;  // 64 rows x 128 K-columns
+  constexpr int STAGE = A_BYTES + (BN / BOX) * BOX_BYTES;
+  static_assert(2 * 64 * (BN * 2 + 16) <= STAGES * STAGE, "epilogue staging fits the ring");
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ int s_start, s_rows;
+  uint8_t* ring = ring_base(dyn_smem);
+
+  const int tid = threadIdx.x;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int k0 = (blockIdx.x / n_tiles % k_tiles) * 128;
+  const int e = blockIdx.x / (n_tiles * k_tiles);
+  if (tid == 0) {
+    expert_range(gs, e, &s_start, &s_rows);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int start = s_start, steps = s_rows / BK;
+
+  if (tid / 32 == 8) {  // producer warp
+    if (tid % 32 == 0) {
+      const int na = min(2, (K - k0 + BOX - 1) / BOX);
+      const int nb = min(BN / BOX, (N - n0 + BOX - 1) / BOX);
+      const uint32_t bytes = (na + nb) * BOX_BYTES;
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const uint32_t a = smem_addr(ring + s * STAGE), b = a + A_BYTES;
+        const uint32_t bar = smem_addr(&full[s]);
+        const int row = start + it * BK;
+        mbar_expect_tx(bar, bytes);
+        for (int i = 0; i < na; ++i) tma_2d(a + i * BOX_BYTES, &map_x, bar, k0 + i * BOX, row);
+        for (int j = 0; j < nb; ++j) tma_2d(b + j * BOX_BYTES, &map_dy, bar, n0 + j * BOX, row);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup g: dW rows [k0 + 64 g, k0 + 64 g + 64)
+  const int g = tid / 128, t = tid % 128;
+  const int per = block_t / BK;  // stages per block_t tile
+  float acc[BN / 2];
+  uint32_t run[BN / 4];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 4; ++j) run[j] = 0u;
+  int pending = -1;  // a stage read by a wgmma group not yet waited for
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const uint32_t a = smem_addr(ring + s * STAGE) + g * BOX_BYTES;
+    const uint32_t b = smem_addr(ring + s * STAGE) + A_BYTES;
+    const bool tile_start = it % per == 0;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      Wgmma<BN, 1, 1>::run(acc, desc(a + ks * 16 * 128, BOX_BYTES, ATOM),
+                           desc(b + ks * 16 * 128, BOX_BYTES, ATOM),
+                           tile_start && ks == 0 ? 0 : 1);
+    wgmma_commit();
+    fence_acc(acc);
+    if (it % per == per - 1) {  // the tile's last stage: round and add
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (t == 0) {
+        if (pending >= 0) mbar_arrive(&empty[pending]);
+        mbar_arrive(&empty[s]);
+      }
+      pending = -1;
+      const bool first_tile = it < per;
+#pragma unroll
+      for (int j = 0; j < BN / 4; ++j) {
+        const uint32_t part = pack_bf16(acc[2 * j], acc[2 * j + 1]);
+        run[j] = first_tile ? part : add_bf16(run[j], part);
+      }
+    } else {
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (t == 0 && pending >= 0) mbar_arrive(&empty[pending]);
+      pending = s;
+    }
+  }
+  bar_sync(1, 256);  // both warpgroups are past their last wgmma: the ring is idle
+  store_tile<BN>(run, ring + g * 64 * (BN * 2 + 16), dw + static_cast<size_t>(e) * K * N, N,
+                 k0 + g * 64, K - (k0 + g * 64), n0, N - n0, t, 2 + g);
+}
+
+// ------------------------------------------------ host side of the wgmma path
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over a row-major bf16 array of rank 2 or 3: dims[i] elements
+// along dimension i (innermost first), boxes of box[i], 128-byte swizzle,
+// zeros out of bounds. Returns a cudaError_t.
+int bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+             const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t strides[2];
+  cuuint64_t bytes = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wgmma kernels' preconditions: TMA needs 16-byte aligned bases and
+// row strides (K, N multiples of 8 bf16), the epilogue's 16-byte stores too.
+bool wgmma_shapes_ok(int K, int N, const void* a, const void* b, const void* c) {
+  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return K % 8 == 0 && N % 8 == 0 && al(a) && al(b) && al(c);
+}
+
+// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
+// device: each launcher keeps its own flags.
+template <typename F>
+int allow_smem(std::atomic<unsigned long long>& ready, F kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = 1ull << (dev % 64);
+  if (ready.load() & bit) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ready.fetch_or(bit);
+  return 0;
+}
+
+template <int NWG, bool WT>
+int launch_gmm_wgmma(const void* x, const void* w, const int* gs, void* out, int T,
+                     int K, int N, int E, cudaStream_t stream) {
+  constexpr int BN = GMM_WG_BN, STAGES = GMM_WG_STAGES, BM = NWG * 64;
+  CUtensorMap mx, mw;
+  const cuuint64_t xd[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(T)};
+  const cuuint32_t xb[2] = {wg::BK, BM};
+  int err = bf16_map(&mx, x, 2, xd, xb);
+  if (err != 0) return err;
+  if (WT) {  // w [E, N, K]: boxes of BN rows x 64
+    const cuuint64_t wd[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(E)};
+    const cuuint32_t wb[3] = {wg::BK, BN, 1};
+    err = bf16_map(&mw, w, 3, wd, wb);
+  } else {   // w [E, K, N]: boxes of 64 K-rows x 64 columns
+    const cuuint64_t wd[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(E)};
+    const cuuint32_t wb[3] = {wg::BOX, wg::BK, 1};
+    err = bf16_map(&mw, w, 3, wd, wb);
+  }
+  if (err != 0) return err;
+  const auto kernel = gmm_bf16_wgmma_kernel<NWG, BN, STAGES, WT>;
+  constexpr int smem = gmm_wg_smem<NWG, BN, STAGES>();
+  static std::atomic<unsigned long long> ready{0};
+  err = allow_smem(ready, kernel, smem);
+  if (err != 0) return err;
+  const int col_tiles = (N + BN - 1) / BN;
+  kernel<<<col_tiles * (T / BM), NWG * 128 + 32, smem, stream>>>(
+      mx, mw, gs, static_cast<__nv_bfloat16*>(out), K, N, E, col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tgmm_wgmma(const void* x, const void* dy, const int* gs, void* dw, int T,
+                      int K, int N, int E, int block_t, cudaStream_t stream) {
+  constexpr int BN = TGMM_WG_BN, STAGES = TGMM_WG_STAGES;
+  CUtensorMap mx, md;
+  const cuuint32_t box[2] = {wg::BOX, wg::BK};
+  const cuuint64_t xd[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(T)};
+  const cuuint64_t dd[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(T)};
+  int err = bf16_map(&mx, x, 2, xd, box);
+  if (err == 0) err = bf16_map(&md, dy, 2, dd, box);
+  if (err != 0) return err;
+  const auto kernel = tgmm_bf16_wgmma_kernel<BN, STAGES>;
+  constexpr int smem = tgmm_wg_smem<BN, STAGES>();
+  static std::atomic<unsigned long long> ready{0};
+  err = allow_smem(ready, kernel, smem);
+  if (err != 0) return err;
+  const int k_tiles = (K + 127) / 128, n_tiles = (N + BN - 1) / BN;
+  kernel<<<E * k_tiles * n_tiles, 288, smem, stream>>>(
+      mx, md, gs, static_cast<__nv_bfloat16*>(dw), K, N, block_t, k_tiles, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. bm: CTA row tile, one of 8, 16, 32 (the wrapper
-// picks min(block_t, 32), which divides block_t). w_trans: w is [E, N, K]
-// and is read transposed (the backward's dX). Returns a cudaError_t.
+// dtype: 0 = fp32, 1 = bf16. bm: CTA row tile, dividing block_t: 8, 16 or
+// 32 (fp32 and bf16 WMMA: the wrapper picks min(block_t, 32)), or 64 or 128
+// (bf16 only: the TMA/wgmma kernel, whose preconditions are checked here).
+// w_trans: w is [E, N, K] and is read transposed (the backward's dX).
+// Returns a cudaError_t.
 extern "C" int gmm_forward(const void* x, const void* w, const int* group_sizes,
                            void* out, int T, int K, int N, int E, int bm,
                            int dtype, int w_trans, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= 0 || K <= 0 || N <= 0 || E <= 0 || T % bm != 0)
+  if (T <= 0 || K <= 0 || N <= 0 || E <= 0 || bm <= 0 || T % bm != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bm == 64 || bm == 128) {
+    if (dtype != 1 || !wgmma_shapes_ok(K, N, x, w, out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (bm == 128)
+      return w_trans ? launch_gmm_wgmma<2, true>(x, w, group_sizes, out, T, K, N, E, s)
+                     : launch_gmm_wgmma<2, false>(x, w, group_sizes, out, T, K, N, E, s);
+    return w_trans ? launch_gmm_wgmma<1, true>(x, w, group_sizes, out, T, K, N, E, s)
+                   : launch_gmm_wgmma<1, false>(x, w, group_sizes, out, T, K, N, E, s);
+  }
   return w_trans ? launch_gmm<true>(x, w, group_sizes, out, T, K, N, E, bm, dtype, s)
                  : launch_gmm<false>(x, w, group_sizes, out, T, K, N, E, bm, dtype, s);
 }
 
-// dw [E, K, N] from x [T, K] and dy [T, N] (one type: 0 = fp32, 1 = bf16).
-// block_t: a multiple of 8 dividing T and every group size. Returns a
-// cudaError_t.
+// dw [E, K, N] from x [T, K] and dy [T, N] (one type). kernel: 0 = fp32,
+// 1 = bf16 on WMMA, 2 = bf16 on the TMA/wgmma kernel (block_t % 64 == 0,
+// K, N multiples of 8, 16-byte aligned pointers: checked here). block_t: a
+// multiple of 8 dividing T and every group size. Returns a cudaError_t.
 extern "C" int tgmm_backward(const void* x, const void* dy,
                              const int* group_sizes, void* dw, int T, int K,
-                             int N, int E, int block_t, int dtype,
+                             int N, int E, int block_t, int kernel,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T <= 0 || K <= 0 || N <= 0 || E <= 0 || block_t <= 0 || block_t % 8 != 0
       || T % block_t != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kernel == 2) {
+    if (block_t % 64 != 0 || !wgmma_shapes_ok(K, N, x, dy, dw))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tgmm_wgmma(x, dy, group_sizes, dw, T, K, N, E, block_t, s);
+  }
   dim3 grid((N + TB - 1) / TB, (K + TB - 1) / TB, E);
-  if (dtype == 0) {
+  if (kernel == 0) {
     tgmm_f32_kernel<<<grid, 256, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy),
         group_sizes, static_cast<float*>(dw), K, N, block_t);
-  } else if (dtype == 1) {
+  } else if (kernel == 1) {
     const bool vec = K % 8 == 0 && N % 8 == 0 &&
                      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(dy) % 16 == 0;

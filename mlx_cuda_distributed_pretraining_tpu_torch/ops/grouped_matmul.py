@@ -17,7 +17,12 @@ of ``x_tile^T @ dy_tile``. Two versions of each function:
   replacing the JAX package's Pallas TPU kernels
   ``ops/grouped_matmul.py::_gmm_pallas`` and ``::_tgmm_pallas``. The source
   is compiled with ``nvcc`` at first use into ``build/kernels/`` at the
-  repository root (``utils/cuda_build.py``) and bound through ``ctypes``;
+  repository root (``utils/cuda_build.py``) and bound through ``ctypes``.
+  Each function has several kernels ("variants"); :func:`gmm_variant` and
+  :func:`tgmm_variant` pick one from the operands before launch (bf16 at
+  block_t % 64 == 0 takes the TMA/wgmma kernel, other bf16 shapes the WMMA
+  one, fp32 its SIMT ones), and ``gmm.launches_by_variant`` /
+  ``tgmm.launches_by_variant`` count the launches of each;
 - :func:`gmm_plain`, the JAX package's "blocked" formulation in plain
   PyTorch (one weight gather per row tile and one batched matmul, fp32
   accumulation), and :func:`tgmm_plain`, the Pallas kernel's rounding points
@@ -41,13 +46,17 @@ from .flash_attention import check_matmul_precision
 
 __all__ = [
     "DEFAULT_BLOCK_T",
+    "GMM_VARIANTS",
+    "TGMM_VARIANTS",
     "build_library",
     "gmm",
     "gmm_plain",
+    "gmm_variant",
     "pick_block_t",
     "round_up",
     "tgmm",
     "tgmm_plain",
+    "tgmm_variant",
     "tile_experts",
 ]
 
@@ -57,7 +66,10 @@ DEFAULT_BLOCK_T = 128
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "grouped_matmul.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_ROWS = 32  # largest CTA row tile the kernel has (8, 16 or 32)
+_KERNEL_ROWS = 32  # largest CTA row tile of the fp32 and WMMA kernels (8, 16 or 32)
+GMM_VARIANTS = ("wgmma", "wmma", "f32", "f32_decode")
+TGMM_VARIANTS = ("wgmma", "wmma", "f32")
+_TGMM_CODES = {"f32": 0, "wmma": 1, "wgmma": 2}  # tgmm_backward's kernel argument
 
 
 def round_up(value: int, multiple: int) -> int:
@@ -134,7 +146,49 @@ def tgmm_plain(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     return dw
 
 
-# -- the CUDA kernel -----------------------------------------------------------
+# -- the CUDA kernels ----------------------------------------------------------
+def _takes_wgmma(dtype: torch.dtype, block_t: int, K: int, N: int,
+                 aligned: bool) -> bool:
+    """The TMA/wgmma kernels' preconditions: bf16, 64-row multiples of
+    block_t (a CTA's 64- or 128-row tile stays inside one expert's group),
+    K and N multiples of 8 (TMA's 16-byte row strides) and 16-byte aligned
+    operands (TMA's base addresses)."""
+    return (dtype == torch.bfloat16 and block_t % 64 == 0 and K % 8 == 0
+            and N % 8 == 0 and aligned)
+
+
+def _dtype_checked(dtype: torch.dtype) -> torch.dtype:
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the grouped GEMM kernels take fp32 or bf16, got {dtype}")
+    return dtype
+
+
+def gmm_variant(dtype: torch.dtype, block_t: int, K: int, N: int,
+                aligned: bool = True) -> str:
+    """The kernel a CUDA :func:`gmm` call (forward or dX) launches, from its
+    operands alone: "wgmma" where :func:`_takes_wgmma` holds, "wmma" for
+    other bf16 calls, "f32_decode" for fp32 at block_t 8 and "f32" for other
+    fp32 calls. ``K`` is the contraction width, ``N`` the output's;
+    ``aligned``: every operand's ``data_ptr()`` is a multiple of 16."""
+    if _dtype_checked(dtype) == torch.float32:
+        return "f32_decode" if block_t == 8 else "f32"
+    return "wgmma" if _takes_wgmma(dtype, block_t, K, N, aligned) else "wmma"
+
+
+def tgmm_variant(dtype: torch.dtype, block_t: int, K: int, N: int,
+                 aligned: bool = True) -> str:
+    """The kernel a CUDA :func:`tgmm` call launches: "wgmma" where
+    :func:`_takes_wgmma` holds, "wmma" for other bf16 calls, "f32" for
+    fp32 (``x [T, K]``, ``dy [T, N]``)."""
+    if _dtype_checked(dtype) == torch.float32:
+        return "f32"
+    return "wgmma" if _takes_wgmma(dtype, block_t, K, N, aligned) else "wmma"
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -209,22 +263,26 @@ def _gmm_forward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                  block_t: int, w_trans: bool = False) -> torch.Tensor:
     """``x @ w[e]`` per row group, or ``x @ w[e]^T`` with ``w_trans`` (``w``
     then ``[E, N, K]``, read in place). CPU: :func:`gmm_plain`; CUDA: one
-    launch of the forward kernel, counted in ``gmm.launches``."""
+    launch of the :func:`gmm_variant` kernel, counted in ``gmm.launches``
+    and ``gmm.launches_by_variant``."""
     if x.device.type == "cpu":
         return gmm_plain(x, w.transpose(1, 2) if w_trans else w, group_sizes,
                          block_t)
     _check(x, w, group_sizes, block_t, w_trans)
-    lib = _library()
     T, K = x.shape
     E, N = w.shape[0], w.shape[1 if w_trans else 2]
+    kind = gmm_variant(x.dtype, block_t, K, N, _aligned(x, w))
+    bm = (128 if block_t % 128 == 0 else 64) if kind == "wgmma" \
+        else min(block_t, _KERNEL_ROWS)
+    lib = _library()
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
     err = lib.gmm_forward(
         x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        T, K, N, E, min(block_t, _KERNEL_ROWS), _DTYPE_CODES[x.dtype],
-        int(w_trans), _stream(x))
+        T, K, N, E, bm, _DTYPE_CODES[x.dtype], int(w_trans), _stream(x))
     if err != 0:
-        raise RuntimeError(f"gmm kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"gmm kernel ({kind}) launch failed with CUDA error {err}")
     gmm.launches += 1
+    gmm.launches_by_variant[kind] += 1
     return out
 
 
@@ -233,24 +291,27 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     """``dW [E, K, N]`` = per expert, the sum over its row tiles of
     ``x_tile^T @ dy_tile`` with :func:`tgmm_plain`'s rounding points.
 
-    CPU tensors run :func:`tgmm_plain`; CUDA tensors launch the kernel on
-    the current stream (``tgmm.launches`` counts those launches)."""
+    CPU tensors run :func:`tgmm_plain`; CUDA tensors launch the
+    :func:`tgmm_variant` kernel on the current stream (``tgmm.launches``
+    and ``tgmm.launches_by_variant`` count the launches)."""
     if x.device.type == "cpu":
         return tgmm_plain(x, dy, group_sizes, num_experts, block_t)
     _check(x, dy, group_sizes, block_t, name="tgmm")
     if group_sizes.shape[0] != num_experts:
         raise ValueError(f"tgmm: {group_sizes.shape[0]} group sizes for "
                          f"{num_experts} experts")
-    lib = _library()
     T, K = x.shape
     N = dy.shape[1]
+    kind = tgmm_variant(x.dtype, block_t, K, N, _aligned(x, dy))
+    lib = _library()
     dw = torch.empty((num_experts, K, N), dtype=x.dtype, device=x.device)
     err = lib.tgmm_backward(
         x.data_ptr(), dy.data_ptr(), group_sizes.data_ptr(), dw.data_ptr(),
-        T, K, N, num_experts, block_t, _DTYPE_CODES[x.dtype], _stream(x))
+        T, K, N, num_experts, block_t, _TGMM_CODES[kind], _stream(x))
     if err != 0:
-        raise RuntimeError(f"tgmm kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"tgmm kernel ({kind}) launch failed with CUDA error {err}")
     tgmm.launches += 1
+    tgmm.launches_by_variant[kind] += 1
     return dw
 
 
@@ -299,5 +360,11 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     return _GroupedMatmul.apply(x, w, group_sizes, block_t)
 
 
-gmm.launches = 0
-tgmm.launches = 0
+def reset_launches() -> None:
+    """Set the gmm and tgmm launch counts, totals and per variant, to 0."""
+    gmm.launches = tgmm.launches = 0
+    gmm.launches_by_variant = dict.fromkeys(GMM_VARIANTS, 0)
+    tgmm.launches_by_variant = dict.fromkeys(TGMM_VARIANTS, 0)
+
+
+reset_launches()

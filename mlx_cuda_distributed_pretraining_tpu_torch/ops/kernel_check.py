@@ -4,7 +4,8 @@ and planted faults that the check must catch.
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both use
 :func:`compare` for every kernel (gmm and the three flash kernels; tgmm
 through :func:`compare_experts`, expert by expert), so the gates cannot
-drift apart.
+drift apart; each must reject its planted fault (:func:`planted_fault`,
+:func:`gmm_skipping_a_tile`, :func:`tgmm_skipping_a_tile`).
 
 The limits scale with the typical value of the output (its RMS), not its
 largest: in a causal row the flash output shrinks as ``sqrt(e / n)`` over
@@ -114,6 +115,19 @@ def planted_fault():
         yield
     finally:
         fa._plan = plan
+
+
+def gmm_skipping_a_tile(x, w, group_sizes, block_t: int, w_trans: bool = False):
+    """:func:`grouped_matmul.gmm`'s forward (or dX, with ``w_trans``) with
+    the last live row tile left out: the kernel (or, on the CPU, the plain
+    version) runs unchanged on the last non-empty group shortened by one
+    block_t, which turns that tile into a tail tile and zeroes its rows, as
+    a kernel that skipped the tile would leave them (no other row moves).
+    :func:`compare` must reject it."""
+    sizes = group_sizes.clone()
+    e = int(torch.nonzero(sizes).max())
+    sizes[e] -= block_t
+    return gm._gmm_forward(x, w, sizes, block_t, w_trans)
 
 
 def tgmm_skipping_a_tile(x, dy, group_sizes, num_experts: int, block_t: int):

@@ -161,7 +161,8 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    fa.flash_fwd.launches = gm.gmm.launches = gm.tgmm.launches = 0
+    fa.flash_fwd.launches = 0
+    gm.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         for _ in range(a.steps):
@@ -195,6 +196,8 @@ def main(argv=None) -> int:
         "flash_fwd_launches_per_step": fa.flash_fwd.launches / a.steps,
         "gmm_launches_per_step": gm.gmm.launches / a.steps,
         "tgmm_launches_per_step": gm.tgmm.launches / a.steps,
+        "gmm_launches_by_variant": gm.gmm.launches_by_variant,
+        "tgmm_launches_by_variant": gm.tgmm.launches_by_variant,
         "families_ms_per_step": {
             n: {"ms": v[0] / a.steps, "launches": v[1] / a.steps}
             for n, v in sorted(families.items(), key=lambda kv: -kv[1][0])},

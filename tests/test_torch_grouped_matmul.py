@@ -7,6 +7,8 @@ JAX Pallas kernels run in interpret mode (``backend="pallas"``,
 themselves run only on the card (tests/test_torch_kernels_cuda.py).
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -275,4 +277,78 @@ def test_kernel_gate_rejects_a_skipped_tgmm_tile():
     assert kernel_check.compare_experts((ref.float() + ulp).bfloat16(), ref)["ok"]
     bad = kernel_check.tgmm_skipping_a_tile(xb, dyb, gst, 8, 128)
     check = kernel_check.compare_experts(bad, ref)
+    assert not check["ok"] and check["limit_ratio"] > 2, check
+
+
+# -- which kernel a CUDA call launches ------------------------------------------------
+# (dtype, block_t, K, N, aligned, gmm's kernel, tgmm's kernel): the MoE training
+# path's shapes (moe-8x40m gate/up and down, block_t 128) and block_t 64 take the
+# TMA/wgmma kernels; fp32, block_t < 64, K or N not a multiple of 8 and a
+# misaligned operand do not.
+VARIANT_CASES = [
+    ("bfloat16", 128, 512, 1536, True, "wgmma", "wgmma"),
+    ("bfloat16", 128, 1536, 512, True, "wgmma", "wgmma"),
+    ("bfloat16", 64, 200, 72, True, "wgmma", "wgmma"),
+    ("bfloat16", 256, 512, 1536, True, "wgmma", "wgmma"),
+    ("bfloat16", 32, 512, 1536, True, "wmma", "wmma"),
+    ("bfloat16", 8, 512, 1536, True, "wmma", "wmma"),
+    ("bfloat16", 96, 512, 1536, True, "wmma", "wmma"),
+    ("bfloat16", 128, 100, 1536, True, "wmma", "wmma"),
+    ("bfloat16", 128, 512, 36, True, "wmma", "wmma"),
+    ("bfloat16", 128, 512, 1536, False, "wmma", "wmma"),
+    ("float32", 128, 512, 1536, True, "f32", "f32"),
+    ("float32", 32, 512, 1536, True, "f32", "f32"),
+    ("float32", 8, 512, 1536, True, "f32_decode", "f32"),
+]
+
+
+@pytest.mark.parametrize("dtype,block_t,K,N,aligned,want_gmm,want_tgmm", VARIANT_CASES)
+def test_kernel_variant_choice(dtype, block_t, K, N, aligned, want_gmm, want_tgmm):
+    dt = getattr(torch, dtype)
+    assert tgm.gmm_variant(dt, block_t, K, N, aligned) == want_gmm
+    assert tgm.tgmm_variant(dt, block_t, K, N, aligned) == want_tgmm
+    assert want_gmm in tgm.GMM_VARIANTS and want_tgmm in tgm.TGMM_VARIANTS
+
+
+def test_kernel_variant_alignment_and_forcing():
+    # A contiguous view that starts 2 bytes into its buffer breaks TMA's
+    # 16-byte address rule; fresh tensors meet it.
+    buf = torch.zeros(66 * 64 + 8, dtype=torch.bfloat16)
+    view = buf[1:1 + 66 * 64].view(66, 64)
+    assert view.is_contiguous() and not tgm._aligned(view)
+    assert tgm._aligned(torch.zeros(64, 64, dtype=torch.bfloat16))
+    assert tgm.gmm_variant(torch.bfloat16, 64, 64, 64, tgm._aligned(view)) == "wmma"
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tgm.gmm_variant(torch.float16, 128, 512, 512)
+    # Nothing forces a kernel: the CUDA wrappers take no variant option, so
+    # the operands alone pick the kernel that serves a call.
+    for fn in (tgm._gmm_forward, tgm.tgmm):
+        assert "variant" not in inspect.signature(fn).parameters
+
+
+@pytest.mark.parametrize("w_trans", [False, True])
+def test_kernel_gate_rejects_a_skipped_gmm_tile(w_trans):
+    # The gate that holds gmm's kernels against gmm_plain on the card, at the
+    # training path's tiling (block_t 128, 8 experts) on fewer rows and
+    # narrower widths: one bf16 ulp of rounding passes; the last live row
+    # tile left out (its rows zero) does not.
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
+
+    rng = np.random.default_rng(9)
+    sizes = ((rng.multinomial(4096, [1 / 8] * 8) + 127) // 128 * 128).tolist()
+    x, w, gs = _inputs(sizes, 128, seed=9, K=64, N=48)
+    xb, wb = torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16()
+    if w_trans:
+        wb = wb.transpose(1, 2).contiguous()  # [E, N, K], read transposed
+    gst = torch.from_numpy(gs)
+    ref = tgm.gmm_plain(xb, wb.transpose(1, 2) if w_trans else wb, gst, 128)
+    assert torch.equal(tgm._gmm_forward(xb, wb, gst, 128, w_trans), ref)
+    ulp = torch.where(torch.rand(ref.shape, generator=torch.Generator()
+                                 .manual_seed(0)) < 0.5, 1.0, -1.0) * 2.0 ** (
+        torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+    assert kernel_check.compare((ref.float() + ulp).bfloat16(), ref)["ok"]
+    bad = kernel_check.gmm_skipping_a_tile(xb, wb, gst, 128, w_trans)
+    live = int(gst.sum())
+    assert not bad[live - 128:live].any() and torch.equal(bad[:live - 128], ref[:live - 128])
+    check = kernel_check.compare(bad, ref)
     assert not check["ok"] and check["limit_ratio"] > 2, check

@@ -1,6 +1,7 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
-the grouped GEMM (forward, dX and tgmm's dW) and the three flash-attention
-kernels.
+the grouped GEMM (forward, dX and tgmm's dW; each in its variants, the
+per-variant launch counts showing which kernel ran) and the three
+flash-attention kernels.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (the kernels have no CPU mode). The file imports torch only, so on a machine
@@ -198,6 +199,104 @@ def test_gmm_kernel_rejects_bad_input(cuda):
         tgm.gmm(x, w, gs.long(), 8)
     with pytest.raises(ValueError, match="contiguous"):
         tgm.gmm(x.t().contiguous().t(), w, gs, 8)
+
+
+# bf16 at block_t 64 and 128 takes the TMA/wgmma kernels. (block_t, group
+# sizes, tail rows): 64-row CTA tiles with an empty group and tail tiles; an
+# empty last expert and tail tiles; one hot expert.
+WGMMA_CASES = [
+    (64, [64, 0, 128, 64], 64),
+    (128, [256, 128, 0, 384, 0], 128),
+    (128, [1024, 128, 0, 128], 0),
+]
+
+
+def _grouped_inputs(op, sizes, tail, K, N, seed=4):
+    """bf16 operands of one grouped product: x [T, K] (tail rows zero) and,
+    for "forward", w [E, K, N]; for "dx", w [E, N, K] (read transposed);
+    for "tgmm", dy [T, N]."""
+    rng = np.random.default_rng(seed)
+    T = sum(sizes) + tail
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    x[sum(sizes):] = 0.0
+    shape = {"forward": (len(sizes), K, N), "dx": (len(sizes), N, K), "tgmm": (T, N)}[op]
+    other = rng.standard_normal(shape).astype(np.float32)
+    return (torch.from_numpy(x).to("cuda", torch.bfloat16),
+            torch.from_numpy(other).to("cuda", torch.bfloat16),
+            torch.tensor(sizes, dtype=torch.int32, device="cuda"))
+
+
+def _run_grouped(op, x, other, gs, block_t):
+    """(kernel output, plain output, launches by variant of that call)."""
+    counter = (tgm.tgmm if op == "tgmm" else tgm.gmm).launches_by_variant
+    before = dict(counter)
+    if op == "tgmm":
+        got = tgm.tgmm(x, other, gs, len(gs), block_t)
+        ref = tgm.tgmm_plain(x, other, gs, len(gs), block_t)
+    else:
+        wt = op == "dx"
+        got = tgm._gmm_forward(x, other, gs, block_t, wt)
+        ref = tgm.gmm_plain(x, other.transpose(1, 2) if wt else other, gs, block_t)
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in counter.items() if n != before[k]}
+    return got, ref, ran
+
+
+def _assert_matches(op, got, ref, sizes):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    check = (kernel_check.compare_experts if op == "tgmm" else kernel_check.compare)(got, ref)
+    assert check["ok"], check
+    if op == "tgmm":
+        for e, n in enumerate(sizes):
+            if n == 0:
+                assert not got[e].any(), f"empty expert {e} must be exact zeros"
+    else:
+        assert not got[sum(sizes):].any(), "tail rows must come out zero"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["forward", "dx", "tgmm"])
+@pytest.mark.parametrize("block_t,sizes,tail", WGMMA_CASES)
+# moe-8x40m's gate/up and down widths, and widths no tile divides that meet
+# TMA's rules (K 200: not a multiple of 64)
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512), (200, 72)])
+def test_wgmma_kernels_match_plain(cuda, op, block_t, sizes, tail, K, N):
+    x, other, gs = _grouped_inputs(op, sizes, tail, K, N)
+    got, ref, ran = _run_grouped(op, x, other, gs, block_t)
+    assert ran == {"wgmma": 1}
+    _assert_matches(op, got, ref, sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["forward", "dx", "tgmm"])
+@pytest.mark.parametrize("why", ["K not a multiple of 8", "unaligned view"])
+def test_wgmma_preconditions_fall_to_wmma(cuda, op, why):
+    # A call outside TMA's rules takes the WMMA kernel, chosen before launch.
+    sizes, tail, block_t = [128, 0, 256], 128, 128
+    K = 100 if why == "K not a multiple of 8" else 64
+    x, other, gs = _grouped_inputs(op, sizes, tail, K, 48)
+    if why == "unaligned view":  # contiguous, 2 bytes past a 16-byte boundary
+        buf = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+        x = buf[1:1 + x.numel()].view(x.shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    got, ref, ran = _run_grouped(op, x, other, gs, block_t)
+    assert ran == {"wmma": 1}
+    _assert_matches(op, got, ref, sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_trans", [False, True])
+def test_gmm_check_rejects_planted_fault(cuda, w_trans):
+    # The training path's tiling (block_t 128, 8 experts) on fewer rows: the
+    # last live row tile left out of the wgmma kernel's grid must fail the
+    # same check that the correct kernel passes.
+    rng = np.random.default_rng(5)
+    sizes = ((rng.multinomial(8192, [1 / 8] * 8) + 127) // 128 * 128).tolist()
+    x, w, gs = _grouped_inputs("dx" if w_trans else "forward", sizes, 128, 512, 1536)
+    got, ref, ran = _run_grouped("dx" if w_trans else "forward", x, w, gs, 128)
+    assert ran == {"wgmma": 1} and kernel_check.compare(got, ref)["ok"]
+    bad = kernel_check.gmm_skipping_a_tile(x, w, gs, 128, w_trans)
+    assert not kernel_check.compare(bad, ref)["ok"]
 
 
 # (dtype, B, Hq, Hkv, S, D, mask): the training path's shape at a smaller
