@@ -9,7 +9,9 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    power limit as nvidia-smi reports them.
 2. build   — compiles the grouped-GEMM kernel (csrc/grouped_matmul.cu) and the
    flash-attention kernels (csrc/flash_attention.cu) with nvcc into
-   build/kernels/, one nvcc per source, both at once.
+   build/kernels/, one nvcc per source, both at once; prints each kernel's
+   registers and spills, and fails if a wgmma kernel spills or ptxas
+   reports that it serialized a kernel's wgmmas (advisories C7513, C7520).
 3. kernels — holds ``gmm`` against its plain PyTorch version at the serving
    path's shapes (moe-8x40m: decode with 8 slots, a 256-token prefill chunk),
    fp32 and bf16, plus an empty-group/tail-tile case, and times the kernel,
@@ -28,11 +30,17 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    shape (B 32, H 8, S 1024, D 64, bf16, causal), fp32, GQA 8/2, S 1000
    (tail tiles), sliding_window, prefix_lm, full and D 128, timing each
    beside ``F.scaled_dot_product_attention`` (forward; forward + backward
-   for the backward kernels) as a yardstick. Each output must pass
+   for the backward kernels) as a yardstick, with its TFLOP/s. Each call
+   must run the variant ``flash_variant`` names (bf16: the wgmma forward
+   and dK/dV, the WMMA dQ). Each output must pass
    ``ops/kernel_check.compare`` (per-element limits scaled to the output's
-   RMS, and a normwise limit); at the path shape the kernels are launched
-   once more with one live tile left out of their plans, and the same
-   check must reject every output.
+   RMS, and a normwise limit); so must, in every bf16 case, the WMMA
+   forward and dK/dV that served the path before (called through the
+   library's C entries with the "wmma" code on their 64-row plans), and
+   at the path shape both generations are timed in turns (WMMA, wgmma,
+   wgmma, WMMA). At the path shape the kernels are launched once more with
+   one live tile left out of their plans, and the same check must reject
+   every output.
 4. serve   — serves moe-8x40m at full width (12 layers, seeded random fp32
    weights) through the port's HTTP server and batch engine: 8 slots,
    max_len 1024, paged KV in 32-token blocks, prefix cache, 256-token prefill
@@ -45,7 +53,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    steps (``iters`` and ``warmup_steps`` cut to fit a smoke), a log line
    every 5, one validation and the final checkpoint. Checks the loss falls,
    the flash launch counts (12 per step and per validation batch for the
-   forward, 12 per step for each backward), step 1's loss and gradients
+   forward, 12 per step for each backward; every forward and dK/dV launch
+   on the wgmma kernels, every dQ on the WMMA one), step 1's loss and gradients
    against the plain attention path on the card at batch 8, and serves the
    final checkpoint through the port's server.
 6. moe     — trains configs/model-config-moe-8x40m.yaml at full width (hidden
@@ -55,12 +64,14 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    stats, one validation, the final checkpoint. Checks the loss falls, the
    routing stats on every line (no drops), the exact launch counts (per
    step 72 gmm, 36 tgmm and 12 of each flash kernel; per validation batch
-   36 gmm and 12 flash_fwd; every gmm and tgmm launch a wgmma one), step
+   36 gmm and 12 flash_fwd; every gmm, tgmm, flash forward and dK/dV
+   launch a wgmma one, every dQ a WMMA one), step
    1's loss and gradients with the gmm and
    tgmm kernels against their plain versions (flash kernels in both) at
    batch 8, and serves the final checkpoint.
-7. report  — a ``{"kernels": [...]}`` line, the card line, and as the last
-   line ``{"ok": true, "device": {...}}``.
+7. report  — a ``{"kernels": [...]}`` line (each flash kernel with its
+   launches by variant), the card line, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every path runs with all launch counts set to 0 just before it and read
 just after. fp32 matmuls run in full fp32: TF32 is switched off for matmuls
@@ -112,8 +123,7 @@ def card_line() -> str:
 
 def reset_launches(gm, fa) -> None:
     gm.reset_launches()
-    for name in FLASH_KERNELS:
-        getattr(fa, name).launches = 0
+    fa.reset_launches()
 
 
 def read_launches(gm, fa) -> dict:
@@ -121,10 +131,22 @@ def read_launches(gm, fa) -> dict:
             **{name: getattr(fa, name).launches for name in FLASH_KERNELS}}
 
 
-def read_variants(gm) -> dict:
-    """Launches of each gmm and tgmm kernel ("wgmma", "wmma", "f32", ...)."""
-    return {"gmm": dict(gm.gmm.launches_by_variant),
-            "tgmm": dict(gm.tgmm.launches_by_variant)}
+def read_variants(gm, fa=None) -> dict:
+    """Launches of each gmm and tgmm kernel ("wgmma", "wmma", "f32", ...),
+    and with ``fa`` of each flash kernel's variants."""
+    out = {"gmm": dict(gm.gmm.launches_by_variant),
+           "tgmm": dict(gm.tgmm.launches_by_variant)}
+    if fa is not None:
+        out.update({n: dict(getattr(fa, n).launches_by_variant) for n in FLASH_KERNELS})
+    return out
+
+
+def flash_variants_want(fa, fwd: int, bwd: int) -> dict:
+    """The bf16 training path's flash launches by variant: every forward and
+    dK/dV on the wgmma kernels, every dQ on the WMMA one."""
+    zero = dict.fromkeys(fa.FLASH_VARIANTS, 0)
+    return {"flash_fwd": {**zero, "wgmma": fwd}, "flash_bwd_dq": {**zero, "wmma": bwd},
+            "flash_bwd_dkv": {**zero, "wgmma": bwd}}
 
 
 def launched_since(before: dict, counts: dict) -> dict:
@@ -570,13 +592,37 @@ def sdpa_calls(torch, q, k, v, do, mask, scale):
     return fwd, fwd_bwd
 
 
+def earlier_flash(torch, fa, fn, q, k, v, do=None, lse=None, delta=None, *,
+                  mask_type, window, prefix_len, scale):
+    """The bf16 forward (``fn`` "flash_fwd": ``(o, lse)``) or dK/dV
+    ("flash_bwd_dkv": ``(dk, dv)``) on the WMMA kernel that served the
+    training path before the wgmma one: the library's C entry with the
+    "wmma" code on a plan at its 64-row tiles, as the wrapper called it
+    then. Measurement only; the port never launches it there."""
+    bq, bkv = fa.kernel_tiles(fn, "wmma")
+    kv_ranges, q_ranges, full = fa._plan(mask_type, window, prefix_len, q.shape[2], bq,
+                                         q.device, bkv)
+    kw = dict(full=full, mask_type=mask_type, window=window, prefix_len=prefix_len,
+              scale=scale)
+    if fn == "flash_fwd":
+        o = fa._bshd_like(q)
+        lse_out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        fa._launch("flash_fwd_launch", "wmma", q, k, v, ranges=kv_ranges, out0=o,
+                   lse_out=lse_out, **kw)
+        return o, lse_out
+    dk, dv = fa._bshd_like(q), fa._bshd_like(q)
+    fa._launch("flash_bwd_dkv_launch", "wmma", q, k, v, ranges=q_ranges, dout=do,
+               lse_in=lse, delta=delta, out0=dk, out1=dv, **kw)
+    return dk, dv
+
+
 def fmt_checks(checks: dict) -> str:
     return " ".join(f"{o}:err={c['max_abs_err']:.3g},limit_ratio="
                     f"{c['limit_ratio']:.3g},norm_err={c['norm_err']:.3g}"
                     for o, c in checks.items())
 
 
-def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
+def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
 
     g = torch.Generator().manual_seed(SEED)
@@ -585,12 +631,19 @@ def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     q, k, v, do = (torch.randn(B, S, h, D, generator=g).to("cuda", dt)
                    .transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
     kw = dict(mask_type=mask, window=WINDOW, prefix_len=PREFIX, scale=D ** -0.5)
+    before = read_variants(gm, fa)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * ro.float()).sum(-1).contiguous()
     dq = fa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
     torch.cuda.synchronize()
+    after = read_variants(gm, fa)
+    ran = {n: launched_since(before[n], after[n]) for n in FLASH_KERNELS}
+    bf16 = dtype == "bfloat16"
+    want_ran = {"flash_fwd": {"wgmma" if bf16 else "f32": 1},
+                "flash_bwd_dq": {"wmma" if bf16 else "f32": 1},
+                "flash_bwd_dkv": {"wgmma" if bf16 else "f32": 1}}
     rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
@@ -603,6 +656,26 @@ def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     errs["lse"] = (lse - rlse).abs().max().item()
     ok = all(c["ok"] for c in checks.values()) and bool(torch.isfinite(lse).all()) \
         and torch.allclose(lse, rlse, atol=1e-5, rtol=1e-5)
+    if ran != want_ran:
+        ok = False
+        log(f"flash {name}: ran {ran}, not {want_ran}")
+    earlier = None
+    if bf16:
+        # the WMMA forward and dK/dV that served these shapes before, held
+        # against the plain versions by the same check
+        eo, else_ = earlier_flash(torch, fa, "flash_fwd", q, k, v, **kw)
+        edk, edv = earlier_flash(torch, fa, "flash_bwd_dkv", q, k, v, do, rlse, delta, **kw)
+        torch.cuda.synchronize()
+        earlier = {"o": kernel_check.compare(eo, ro), "dk": kernel_check.compare(edk, rdk),
+                   "dv": kernel_check.compare(edv, rdv)}
+        earlier_lse = (else_ - rlse).abs().max().item()
+        log(f"flash {name} earlier WMMA kernels: lse:err={earlier_lse:.3g} "
+            + fmt_checks(earlier))
+        if not all(c["ok"] for c in earlier.values()) \
+                or not torch.allclose(else_, rlse, atol=1e-5, rtol=1e-5):
+            ok = False
+            log(f"flash {name}: an earlier WMMA kernel disagrees with plain")
+        del eo, else_, edk, edv
     fault = None
     if name == "path":
         # The same check on a planted fault: one live tile left out of each
@@ -638,30 +711,50 @@ def flash_case(torch, fa, name, dtype, B, Hq, Hkv, S, D, mask):
                           lambda _: fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw),
                           "fwd_bwd"),
     }
+    earlier_calls = {
+        "flash_fwd": lambda _: earlier_flash(torch, fa, "flash_fwd", q, k, v, **kw),
+        "flash_bwd_dkv": lambda _: earlier_flash(torch, fa, "flash_bwd_dkv", q, k, v, do,
+                                                 rlse, delta, **kw)}
     rows = {}
     for kname, (kernel, plain, lib) in calls.items():
         nbytes, flops = work[kname]
         t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-        rows[kname] = {"ms": device_ms(torch, kernel, 1, reps=20),
-                       "plain_ms": device_ms(torch, plain, 1, reps=5),
-                       "library_ms": library.get(lib), "library": library_note,
-                       "bound_ms": max(t_bytes, t_ops),
-                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row = {}
+        if name == "path" and kname in earlier_calls:
+            # the WMMA kernel and the wgmma one in turns: WMMA, wgmma, wgmma, WMMA
+            old = earlier_calls[kname]
+            turns = {"earlier": [device_ms(torch, old, 1, reps=10)],
+                     "kernel": [device_ms(torch, kernel, 1, reps=20) for _ in range(2)]}
+            turns["earlier"].append(device_ms(torch, old, 1, reps=10))
+            row.update(ms=sum(turns["kernel"]) / 2, earlier_ms=sum(turns["earlier"]) / 2,
+                       turns_ms=turns)
+        else:
+            row["ms"] = device_ms(torch, kernel, 1, reps=20)
+        row.update(plain_ms=device_ms(torch, plain, 1, reps=5),
+                   library_ms=library.get(lib), library=library_note,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   tflops=flops / row["ms"] * 1e-9)
+        rows[kname] = row
         torch.cuda.empty_cache()
     case = {"case": name, "dtype": dtype, "shape": [B, Hq, Hkv, S, D],
-            "mask": mask, "max_abs_err": errs, "checks": checks,
-            "planted_fault": fault, "ok": bool(ok), "kernels": rows}
+            "mask": mask, "max_abs_err": errs, "checks": checks, "variants": ran,
+            "earlier_checks": earlier, "planted_fault": fault, "ok": bool(ok),
+            "kernels": rows}
     log(f"flash {name} {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {mask}: "
-        f"ok={ok} lse:err={errs['lse']:.3g} " + fmt_checks(checks))
+        f"ok={ok} variants={ran} lse:err={errs['lse']:.3g} " + fmt_checks(checks))
     for kname, r in rows.items():
-        log(f"  {kname}: kernel={r['ms']:.4f} ms plain={r['plain_ms']:.4f} ms "
-            f"library={r['library_ms']} ms ({library_note}) "
-            f"bound={r['bound_ms']:.4f} ms ({r['bound_by']})")
+        old = (f" (earlier WMMA kernel {r['earlier_ms']:.4f} ms, "
+               f"{r['earlier_ms'] / r['ms']:.2f}x; turns {r['turns_ms']})"
+               if "earlier_ms" in r else "")
+        log(f"  {kname}: kernel={r['ms']:.4f} ms{old} {r['tflops']:.1f} TFLOP/s "
+            f"plain={r['plain_ms']:.4f} ms library={r['library_ms']} ms "
+            f"({library_note}) bound={r['bound_ms']:.4f} ms ({r['bound_by']})")
     return case
 
 
-def flash_kernel_phase(torch, fa):
-    return [flash_case(torch, fa, *c) for c in FLASH_CASES]
+def flash_kernel_phase(torch, gm, fa):
+    return [flash_case(torch, gm, fa, *c) for c in FLASH_CASES]
 
 
 # -- phase 4: the serving path ----------------------------------------------------
@@ -1036,6 +1129,7 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches(gm, fa)
+        variants = read_variants(gm, fa)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         windows = trainer.windows
         losses = [w["loss"] for w in windows]
@@ -1043,6 +1137,12 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
         want = {"flash_fwd": layers * (steps + trainer.eval_batches),
                 "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
                 "gmm": 0, "tgmm": 0}
+        want_variants = flash_variants_want(fa, want["flash_fwd"], want["flash_bwd_dq"])
+        flash_variants = {n: variants[n] for n in FLASH_KERNELS}
+        log(f"train: flash launches by variant {flash_variants}")
+        if flash_variants != want_variants:
+            failures.append(f"train: flash launches by variant {flash_variants} != "
+                            f"{want_variants}")
         log(f"train: {steps} steps + {trainer.eval_batches} validation batches "
             f"in {wall:.1f}s; losses every 5 steps {losses}; final val_loss="
             f"{result['final_val_loss']}; launches {launches}")
@@ -1071,7 +1171,8 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             "mfu_vs_989tflops": tok_s * trainer.flops_per_token / PEAK_FLOPS["bfloat16"],
             "flops_per_token": trainer.flops_per_token,
             "peak_mem_gb": peak_gb, "first_window_s": windows[0]["seconds"],
-            "losses": losses, "launches": launches, "first_step_parity": par}
+            "losses": losses, "launches": launches,
+            "launches_by_variant": flash_variants, "first_step_parity": par}
     for k in ("step_ms", "tok_s", "mfu_vs_989tflops", "peak_mem_gb"):
         log(f"train: {k}={perf[k]} [{card}]")
     return failures, perf
@@ -1161,7 +1262,7 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches(gm, fa)
-        variants = read_variants(gm)
+        variants = read_variants(gm, fa)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         windows = trainer.windows
         losses = [w["loss"] for w in windows]
@@ -1188,10 +1289,12 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             failures.append("moe: no validation ran")
         if launches != want:
             failures.append(f"moe: launches {launches} != {want}")
-        # bf16 at block_t 128: the TMA/wgmma kernels and no other
+        # bf16 at block_t 128: the TMA/wgmma kernels and no other; flash
+        # forward and dK/dV on wgmma, dQ on WMMA
         want_variants = {"gmm": {**dict.fromkeys(gm.GMM_VARIANTS, 0), "wgmma": want["gmm"]},
                          "tgmm": {**dict.fromkeys(gm.TGMM_VARIANTS, 0),
-                                  "wgmma": want["tgmm"]}}
+                                  "wgmma": want["tgmm"]},
+                         **flash_variants_want(fa, want["flash_fwd"], want["flash_bwd_dq"])}
         log(f"moe: launches by variant {variants}")
         if variants != want_variants:
             failures.append(f"moe: launches by variant {variants} != {want_variants}")
@@ -1251,22 +1354,31 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = cuda_build.build_libraries([gm._SRC, fa._SRC])
     log(f"build: both sources in {time.perf_counter() - t0:.1f}s")
+    failures = []
     for lib, src in zip(libs, (gm._SRC, fa._SRC)):
         secs = cuda_build.BUILD_SECONDS.get(src.name)
         log(f"build: {lib.name} in "
             + (f"{secs:.1f}s" if secs is not None else "0s (already built)"))
+        kernel = None
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log(f"build: {(kernel or '')[-60:]}: {line.strip()}")
+                if "wgmma" in (kernel or "") and " 0 bytes spill stores" not in line \
+                        and "spill stores" in line:
+                    failures.append(f"build: {kernel[-60:]} spills: {line.strip()}")
+            if "C7513" in line or "C7520" in line:  # ptxas serialized every wgmma
                 log(f"build: {line.strip()}")
+                failures.append(f"build: {line.strip()[:200]}")
 
-    failures = []
     cases = kernel_phase(torch, gm, kernel_check)
     train_cases, tgmm_cases = train_kernel_phase(torch, gm, kernel_check)
     failures += [f"{k} {c['case']} {c['dtype']}: kernel disagrees with plain "
                  f"(max_abs_err {c['max_abs_err']})"
                  for k, group in (("gmm", cases + train_cases), ("tgmm", tgmm_cases))
                  for c in group if not c["ok"]]
-    flash_cases = flash_kernel_phase(torch, fa)
+    flash_cases = flash_kernel_phase(torch, gm, fa)
     failures += [f"flash {c['case']} {c['dtype']}: kernels disagree with plain "
                  f"(max_abs_err {c['max_abs_err']})" for c in flash_cases
                  if not c["ok"]]
@@ -1300,6 +1412,11 @@ def main() -> int:
         path_case["kernels"][name],
         max(path_case["max_abs_err"][o] for o in out_of[name]))
         for name in FLASH_KERNELS]
+    moe_variants = moe_perf.get("launches_by_variant", {})
+    for entry in flash_entries:
+        row = path_case["kernels"][entry["name"]]
+        entry.update(launches_by_variant=moe_variants.get(entry["name"]),
+                     tflops=row["tflops"], earlier_ms=row.get("earlier_ms"))
     flash_entries[0].update(cases=flash_cases, dense_train=train_perf, card=card)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr

@@ -54,7 +54,8 @@
 // return cudaGetLastError() after the launch (0 on success); neither
 // synchronises. The TMA descriptors are encoded on the host inside them,
 // through cuTensorMapEncodeTiled fetched with cudaGetDriverEntryPoint (no
-// -lcuda).
+// -lcuda). The TMA, mbarrier and wgmma machinery (namespace wg) lives in
+// hopper.cuh, shared with csrc/flash_attention.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -63,6 +64,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "hopper.cuh"  // namespace wg: TMA, mbarriers, wgmma; tensor maps
 
 namespace {
 
@@ -302,260 +305,6 @@ __global__ void gmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       out[(size_t)(r0 + i) * N + c0 + j] = __float2bfloat16(Cs[i][j]);
   }
 }
-
-// ========================================== bf16 on a TMA ring with wgmma
-// Machinery shared by gmm_bf16_wgmma_kernel and tgmm_bf16_wgmma_kernel:
-// 128-byte-swizzled TMA boxes of 64 x 64 bf16 (one swizzle row is 64
-// elements), full/empty mbarriers around a ring of stages in dynamic shared
-// memory, and warpgroup wgmma.mma_async reading both operands from shared
-// memory through descriptors, with fp32 accumulators in registers.
-namespace wg {
-
-constexpr int BK = 64;                      // reduction elements per stage
-constexpr int BOX = 64;                     // a box's rows or columns
-constexpr int BOX_BYTES = BOX * BK * 2;     // one 64 x 64 bf16 box: 8 KB
-constexpr int ATOM = 1024;                  // 8 rows of 128 bytes: the swizzle atom
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The ring's base, rounded up to the swizzle atom (the host asks for 1 KB
-// more than the ring).
-__device__ __forceinline__ uint8_t* ring_base(uint8_t* dyn) {
-  return dyn + ((ATOM - (smem_addr(dyn) & (ATOM - 1))) & (ATOM - 1));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-
-// Make the initialised barriers visible to the other threads and to TMA.
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_addr(bar))
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed. Every wait
-// here lasts microseconds; one that lasts 4e10 cycles (~20 s) means the
-// barrier accounting is broken, and the kernel traps (the launch fails)
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > 40000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout B128.
-// K-major (rows of 64 reduction elements): SBO = one atom between 8-row
-// groups, LBO unused; a k16 step adds 32 bytes to the start. MN-major
-// (rows of 64 M or N elements, one row per reduction index): SBO = one atom
-// between groups of 8 reduction rows, LBO = the distance between 64-wide
-// boxes along M or N; a k16 step adds 16 rows (2 KB).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns the registers.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, fp32 accumulators: thread t
-// of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
-// 8 j + 2 (t % 4) (+ 1): d[4 j], d[4 j + 1] on the first row, d[4 j + 2],
-// d[4 j + 3] eight rows below. TA / TB: A / B is MN-major (transposed).
-// scale_d 0 overwrites D.
-template <int N, int TA, int TB>
-struct Wgmma;
-
-template <int TA, int TB>
-struct Wgmma<64, TA, TB> {
-  __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-};
-
-template <int TA, int TB>
-struct Wgmma<128, TA, TB> {
-  __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-};
-
-template <int TA, int TB>
-struct Wgmma<256, TA, TB> {
-  __device__ __forceinline__ static void run(float (&d)[128], uint64_t da,
-                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-  }
-};
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// bf16(a + b) for two packed bf16 pairs, the sum taken in fp32 (as a bf16
-// tensor add rounds it).
-__device__ __forceinline__ uint32_t add_bf16(uint32_t a, uint32_t b) {
-  const float2 fa = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
-  const float2 fb = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
-  return pack_bf16(fa.x + fb.x, fa.y + fb.y);
-}
-
-// Writes one warpgroup's 64 x BN bf16 result (v: two bf16 per register, in
-// the accumulator layout) to out rows [row0, row0 + rows) x columns
-// [col0, col0 + cols), leading dimension ld, through shared memory at stage:
-// rows padded by 16 bytes so the fragment stores hit 32 distinct banks, then
-// 16 bytes per thread with consecutive threads along a row. cols is a
-// multiple of 8; t is the thread's index in its warpgroup.
-template <int BN>
-__device__ __forceinline__ void store_tile(const uint32_t (&v)[BN / 4], uint8_t* stage,
-                                           __nv_bfloat16* __restrict__ out, size_t ld,
-                                           size_t row0, int rows, int col0, int cols,
-                                           int t, int bar_id) {
-  constexpr int LDS = BN * 2 + 16;
-  constexpr int CH = BN / 8;  // 16-byte chunks per row
-  const int r = (t / 32) * 16 + (t % 32) / 4;
-  const int c = (t % 4) * 2;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(stage + r * LDS + (j * 8 + c) * 2) = v[2 * j];
-    *reinterpret_cast<uint32_t*>(stage + (r + 8) * LDS + (j * 8 + c) * 2) = v[2 * j + 1];
-  }
-  bar_sync(bar_id, 128);
-#pragma unroll 4
-  for (int i = t; i < 64 * CH; i += 128) {
-    const int rr = i / CH, cc = (i % CH) * 8;
-    if (rr < rows && cc < cols)
-      *reinterpret_cast<uint4*>(out + (row0 + rr) * ld + col0 + cc) =
-          *reinterpret_cast<const uint4*>(stage + rr * LDS + cc * 2);
-  }
-}
-
-}  // namespace wg
 
 // gmm_bf16_wgmma_kernel ("wgmma"): the training path's bf16 gmm, forward and
 // (with WT) dX. Taken when block_t % 64 == 0, K % 8 == 0, N % 8 == 0 and x,
@@ -1107,46 +856,8 @@ tgmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ------------------------------------------------ host side of the wgmma path
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A tensor map over a row-major bf16 array of rank 2 or 3: dims[i] elements
-// along dimension i (innermost first), boxes of box[i], 128-byte swizzle,
-// zeros out of bounds. Returns a cudaError_t.
-int bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-             const cuuint32_t* box) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  cuuint64_t strides[2];
-  cuuint64_t bytes = 2;
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
+using wg::allow_smem;
+using wg::bf16_map;
 
 // The wgmma kernels' preconditions: TMA needs 16-byte aligned bases and
 // row strides (K, N multiples of 8 bf16), the epilogue's 16-byte stores too.
@@ -1155,20 +866,6 @@ bool wgmma_shapes_ok(int K, int N, const void* a, const void* b, const void* c) 
   return K % 8 == 0 && N % 8 == 0 && al(a) && al(b) && al(c);
 }
 
-// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
-// device: each launcher keeps its own flags.
-template <typename F>
-int allow_smem(std::atomic<unsigned long long>& ready, F kernel, int bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long bit = 1ull << (dev % 64);
-  if (ready.load() & bit) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ready.fetch_or(bit);
-  return 0;
-}
 
 template <int NWG, bool WT>
 int launch_gmm_wgmma(const void* x, const void* w, const int* gs, void* out, int T,

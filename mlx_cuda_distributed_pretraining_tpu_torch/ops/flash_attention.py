@@ -19,13 +19,17 @@ kind of view. ``lse`` and ``delta`` are ``[B, Hq, S]`` fp32.
 
 CPU tensors go to the plain versions; CUDA tensors launch the kernels, and
 a dtype, head dim, layout or mask the kernels do not take raises. No build
-or launch error falls back. Each wrapper counts its launches in
-``<fn>.launches``.
+or launch error falls back. Each function has several kernels
+("variants"); :func:`flash_variant` picks one before launch: "wgmma" (TMA
+ring feeding wgmma, scores and P in registers) for the bf16 forward and
+dK/dV, "wmma" for the bf16 dQ, "f32" (SIMT) for fp32. Each wrapper counts
+its launches in ``<fn>.launches`` and per variant in
+``<fn>.launches_by_variant`` (:func:`reset_launches` zeroes both).
 
 Block sparsity follows the JAX planners (:func:`_kv_range`, :func:`_q_range`,
-:func:`_full_tile_fn`, ported over Python ints) at the kernels' own tile
-size: 64 rows for bf16, 32 for fp32. The host turns them into per-tile live
-ranges and a "needs no mask" flag per tile, cached per shape on the device.
+:func:`_full_tile_fn`, ported over Python ints) at each kernel's own tile
+sizes (:func:`kernel_tiles`). The host turns them into per-tile live ranges
+and a "needs no mask" flag per tile, cached per shape on the device.
 """
 
 from __future__ import annotations
@@ -52,14 +56,19 @@ __all__ = [
     "flash_bwd_dq_plain",
     "flash_fwd",
     "flash_fwd_plain",
+    "flash_variant",
+    "kernel_tiles",
+    "reset_launches",
 ]
 
 MATMUL_PRECISIONS = (None, "fp32", "bf16", "int8")
 KERNEL_MASKS = ("full", "causal", "sliding_window", "prefix_lm")
 _MASK_CODES = {name: i for i, name in enumerate(KERNEL_MASKS)}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_ROWS = {torch.float32: 32, torch.bfloat16: 64}  # the kernels' tiles
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_VARIANTS = ("wgmma", "wmma", "f32")
+_VARIANT_CODES = {"f32": 0, "wmma": 1, "wgmma": 2}  # csrc/flash_attention.cu's Variant
 _HEAD_DIMS = (64, 128)
+_DKV_BQ = {64: 128, 128: 64}  # DKV_BQ_D64 / _D128 in csrc/flash_attention.cu
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
 
 
@@ -71,6 +80,37 @@ def check_matmul_precision(precision: Optional[str]) -> Optional[str]:
         raise ValueError(f"unknown matmul_precision {precision!r} "
                          f"(expected one of {MATMUL_PRECISIONS})")
     return p
+
+
+def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of ``fn`` ("flash_fwd", "flash_bwd_dq" or
+    "flash_bwd_dkv") launches: "wgmma" for a bf16 forward or dK/dV at a head
+    dim the kernels take, "wmma" for other bf16 calls (dQ), "f32" for fp32.
+    TMA's 16-byte alignment needs no check here: :func:`_check` refuses
+    operands that are not aligned before any launch."""
+    if fn not in FLASH_KERNELS:
+        raise ValueError(f"unknown flash kernel {fn!r} (expected one of "
+                         f"{FLASH_KERNELS})")
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{fn} kernel takes fp32 or bf16, got {dtype}")
+    if fn != "flash_bwd_dq" and head_dim in _HEAD_DIMS:
+        return "wgmma"
+    return "wmma"
+
+
+def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
+    """``(block_q, block_kv)``: the tile sizes a variant's kernel plans at
+    (the tile constants in ``csrc/flash_attention.cu``, which the wgmma
+    launchers check against the plan). The wgmma forward takes 128 query
+    rows per CTA against 128-row KV tiles; the wgmma dK/dV 128 KV rows per
+    CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 64, 64 at D
+    128, where dK and dV alone hold 128 registers a thread); WMMA 64 and
+    SIMT 32 square."""
+    if variant == "wgmma":
+        return (128, 128) if fn == "flash_fwd" else (_DKV_BQ[head_dim], 128)
+    return (64, 64) if variant == "wmma" else (32, 32)
 
 
 # -- tile planners (the JAX package's, over Python ints) -----------------------
@@ -152,27 +192,28 @@ _plans_lock = threading.Lock()
 
 
 def _plan(mask_type: str, window: int, prefix_len: int, S: int, block: int,
-          device: torch.device):
+          device: torch.device, block_kv: Optional[int] = None):
     """Device tensors ``(kv_ranges [nq, 2], q_ranges [nk, 2], full [nq, nk])``
-    for one shape: live [lo, hi) tile ranges and the per-tile no-mask flag
-    (a tile qualifies when the mask holds everywhere on it and it lies
-    inside S)."""
-    key = (mask_type, window, prefix_len, S, block, str(device))
+    for one shape at ``block`` query rows per Q tile and ``block_kv`` (by
+    default ``block``) rows per KV tile: live [lo, hi) tile ranges and the
+    per-tile no-mask flag (a tile qualifies when the mask holds everywhere
+    on it and it lies inside S)."""
+    bq, bkv = block, block if block_kv is None else block_kv
+    key = (mask_type, window, prefix_len, S, bq, bkv, str(device))
     with _plans_lock:
         got = _plans.get(key)
         if got is not None:
             return got
-        n = _cdiv(S, block)
-        kv_lo, kv_hi = _kv_range(mask_type, window, prefix_len, block, block, n)
-        q_lo, q_hi = _q_range(mask_type, window, prefix_len, block, block, n)
-        tile = _full_tile_fn(mask_type, window, prefix_len, block, block)
-        inside = S % block == 0
+        nq, nk = _cdiv(S, bq), _cdiv(S, bkv)
+        kv_lo, kv_hi = _kv_range(mask_type, window, prefix_len, bq, bkv, nk)
+        q_lo, q_hi = _q_range(mask_type, window, prefix_len, bq, bkv, nq)
+        tile = _full_tile_fn(mask_type, window, prefix_len, bq, bkv)
         full = [[int((tile is None or bool(tile(i, j)))
-                     and (inside or (i < n - 1 and j < n - 1)))
-                 for j in range(n)] for i in range(n)]
-        got = (torch.tensor([[kv_lo(i), kv_hi(i)] for i in range(n)],
+                     and (i + 1) * bq <= S and (j + 1) * bkv <= S)
+                 for j in range(nk)] for i in range(nq)]
+        got = (torch.tensor([[kv_lo(i), kv_hi(i)] for i in range(nq)],
                             dtype=torch.int32, device=device),
-               torch.tensor([[q_lo(i), q_hi(i)] for i in range(n)],
+               torch.tensor([[q_lo(j), q_hi(j)] for j in range(nk)],
                             dtype=torch.int32, device=device),
                torch.tensor(full, dtype=torch.uint8, device=device))
         _plans[key] = got
@@ -300,7 +341,7 @@ def _check(name: str, tensors: Dict[str, torch.Tensor], mask_type: str) -> None:
     if mask_type not in _MASK_CODES:
         raise ValueError(f"{name} kernel takes masks {KERNEL_MASKS}, got "
                          f"{mask_type!r}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} kernel takes fp32 or bf16, got {q.dtype}")
     if q.dim() != 4 or q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"{name} kernel takes [B, H, S, D] with D in "
@@ -335,9 +376,12 @@ def _bhs(t: Optional[torch.Tensor]):
     return (ctypes.c_int64 * 3)(*(t.stride()[:3] if t is not None else (0, 0, 0)))
 
 
-def _launch(fn_name: str, q, k, v, *, ranges, full, mask_type, window,
-            prefix_len, scale, o=None, dout=None, lse_in=None, delta=None,
-            out0=None, out1=None, lse_out=None) -> None:
+def _launch(fn_name: str, variant: str, q, k, v, *, ranges, full, mask_type,
+            window, prefix_len, scale, o=None, dout=None, lse_in=None,
+            delta=None, out0=None, out1=None, lse_out=None) -> None:
+    """One launch of ``variant``'s kernel through the library's C entry
+    ``fn_name`` (``flash_fwd_launch``, ...) on the plan ``ranges`` /
+    ``full``, which must be at that kernel's tile sizes."""
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
@@ -352,10 +396,10 @@ def _launch(fn_name: str, q, k, v, *, ranges, full, mask_type, window,
         mask_type=_MASK_CODES[mask_type], window=window, prefix=prefix_len,
         scale=float(scale))
     err = getattr(_library(), fn_name)(
-        ctypes.byref(a), _DTYPE_CODES[q.dtype], D,
+        ctypes.byref(a), _VARIANT_CODES[variant], D,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
+        raise RuntimeError(f"{fn_name} ({variant}) failed with CUDA error {err}")
 
 
 def _bshd_like(q: torch.Tensor) -> torch.Tensor:
@@ -371,15 +415,17 @@ def flash_fwd(q, k, v, mask_type: str = "causal", window: int = 512,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, mask_type, window, prefix_len, scale)
     _check("flash_fwd", {"q": q, "k": k, "v": v}, mask_type)
-    B, Hq, S, _ = q.shape
-    kv_ranges, _, full = _plan(mask_type, window, prefix_len, S,
-                               _BLOCK_ROWS[q.dtype], q.device)
+    B, Hq, S, D = q.shape
+    kind = flash_variant("flash_fwd", q.dtype, D)
+    bq, bkv = kernel_tiles("flash_fwd", kind)
+    kv_ranges, _, full = _plan(mask_type, window, prefix_len, S, bq, q.device, bkv)
     o = _bshd_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_launch", q, k, v, ranges=kv_ranges, full=full,
+    _launch("flash_fwd_launch", kind, q, k, v, ranges=kv_ranges, full=full,
             mask_type=mask_type, window=window, prefix_len=prefix_len,
             scale=scale, out0=o, lse_out=lse)
     flash_fwd.launches += 1
+    flash_fwd.launches_by_variant[kind] += 1
     return o, lse
 
 
@@ -391,13 +437,16 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask_type: str = "causal",
                                   prefix_len, scale)
     _check("flash_bwd_dq", {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                             "delta": delta}, mask_type)
-    kv_ranges, _, full = _plan(mask_type, window, prefix_len, q.shape[2],
-                               _BLOCK_ROWS[q.dtype], q.device)
+    kind = flash_variant("flash_bwd_dq", q.dtype, q.shape[3])
+    bq, bkv = kernel_tiles("flash_bwd_dq", kind)
+    kv_ranges, _, full = _plan(mask_type, window, prefix_len, q.shape[2], bq,
+                               q.device, bkv)
     dq = _bshd_like(q)
-    _launch("flash_bwd_dq_launch", q, k, v, ranges=kv_ranges, full=full,
+    _launch("flash_bwd_dq_launch", kind, q, k, v, ranges=kv_ranges, full=full,
             mask_type=mask_type, window=window, prefix_len=prefix_len,
             scale=scale, dout=do, lse_in=lse, delta=delta, out0=dq)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_by_variant[kind] += 1
     return dq
 
 
@@ -410,19 +459,28 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, mask_type: str = "causal",
                                    prefix_len, scale)
     _check("flash_bwd_dkv", {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                              "delta": delta}, mask_type)
-    _, q_ranges, full = _plan(mask_type, window, prefix_len, q.shape[2],
-                              _BLOCK_ROWS[q.dtype], q.device)
     dk, dv = _bshd_like(q), _bshd_like(q)
-    _launch("flash_bwd_dkv_launch", q, k, v, ranges=q_ranges, full=full,
+    kind = flash_variant("flash_bwd_dkv", q.dtype, q.shape[3])
+    bq, bkv = kernel_tiles("flash_bwd_dkv", kind, q.shape[3])
+    _, q_ranges, full = _plan(mask_type, window, prefix_len, q.shape[2], bq,
+                              q.device, bkv)
+    _launch("flash_bwd_dkv_launch", kind, q, k, v, ranges=q_ranges, full=full,
             mask_type=mask_type, window=window, prefix_len=prefix_len,
             scale=scale, dout=do, lse_in=lse, delta=delta, out0=dk, out1=dv)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_by_variant[kind] += 1
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+def reset_launches() -> None:
+    """Set the three flash kernels' launch counts, totals and per variant,
+    to 0."""
+    for fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+        fn.launches = 0
+        fn.launches_by_variant = dict.fromkeys(FLASH_VARIANTS, 0)
+
+
+reset_launches()
 
 
 # -- autograd and the model-facing wrapper ------------------------------------------

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` has a plain-C interface and no PyTorch headers, so one
 ``nvcc`` call per source builds it in seconds. The library lands in
 ``build/kernels/`` at the repository root (git-ignored) under a name that
-carries a hash of the source: an edited kernel rebuilds, an unchanged one is
-reused. The compiler's ``-Xptxas -v`` report is kept beside it as ``.log``.
+carries a hash of the source and of every header in ``csrc/`` (``*.cuh``):
+an edited kernel or header rebuilds, an unchanged one is reused. The
+compiler's ``-Xptxas -v`` report is kept beside it as ``.log``.
 :func:`build_libraries` starts one ``nvcc`` per source at once.
 """
 
@@ -22,8 +23,13 @@ BUILD_SECONDS: Dict[str, float] = {}
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """Where ``src`` builds to: the name hashes the source together with
+    every ``*.cuh`` beside it, since any source may include any header."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

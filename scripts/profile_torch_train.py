@@ -161,7 +161,7 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    fa.flash_fwd.launches = 0
+    fa.reset_launches()
     gm.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
@@ -194,6 +194,8 @@ def main(argv=None) -> int:
         "device_idle_share": 1.0 - device_ms / prof_wall_ms,
         "kernels_per_step": sum(v[1] for v in kernels.values()) / a.steps,
         "flash_fwd_launches_per_step": fa.flash_fwd.launches / a.steps,
+        "flash_launches_by_variant": {
+            n: getattr(fa, n).launches_by_variant for n in fa.FLASH_KERNELS},
         "gmm_launches_per_step": gm.gmm.launches / a.steps,
         "tgmm_launches_per_step": gm.tgmm.launches / a.steps,
         "gmm_launches_by_variant": gm.gmm.launches_by_variant,

@@ -233,3 +233,113 @@ def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
             call()
     assert (tf.flash_fwd.launches, tf.flash_bwd_dq.launches,
             tf.flash_bwd_dkv.launches) == before
+
+
+@pytest.mark.parametrize("fn", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
+    # bf16 forward and dK/dV take the TMA/wgmma kernels, bf16 dQ the WMMA
+    # one, fp32 the SIMT ones; each variant plans at its own tiles.
+    got = tf.flash_variant(fn, getattr(torch, dtype), head_dim)
+    want = ("f32" if dtype == "float32"
+            else "wmma" if fn == "flash_bwd_dq" else "wgmma")
+    assert got == want
+    assert tf.kernel_tiles(fn, got, head_dim) == {
+        ("flash_fwd", "wgmma"): (128, 128),
+        ("flash_bwd_dkv", "wgmma"): (tf._DKV_BQ[head_dim], 128),
+    }.get((fn, got), (64, 64) if got == "wmma" else (32, 32))
+
+
+def test_flash_variant_rejects_what_no_kernel_takes():
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tf.flash_variant("flash_fwd", torch.float16, 64)
+    with pytest.raises(ValueError, match="unknown flash kernel"):
+        tf.flash_variant("flash_bwd", torch.bfloat16, 64)
+
+
+def test_kernel_tiles_match_the_cuda_source():
+    # The wgmma launchers refuse a plan at other sizes; the CPU side reads
+    # the same constants the kernels are compiled with.
+    import re
+
+    src = tf._SRC.read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert tf.kernel_tiles("flash_fwd", "wgmma") == (const["FWD_BQ"], const["FWD_BKV"])
+    for d in (64, 128):
+        assert tf.kernel_tiles("flash_bwd_dkv", "wgmma", d) == (
+            const[f"DKV_BQ_D{d}"], const["DKV_BKV"])
+
+
+@pytest.mark.parametrize("mask_type", ["causal", "sliding_window", "prefix_lm", "full"])
+@pytest.mark.parametrize("S", [130, 1000, 1024])
+@pytest.mark.parametrize("bq,bkv", [(128, 128), (128, 64), (64, 128)])
+def test_plan_at_the_wgmma_tiles_matches_jax_planners(mask_type, S, bq, bkv):
+    # _plan with separate Q and KV tile sizes: live ranges from the JAX
+    # _kv_range / _q_range, the no-mask flag from _full_tile_fn and the
+    # tile lying inside S (windows and prefixes not multiples of a tile).
+    for window, prefix in ((100, 200), (300, 200)):
+        kv, qr, full = tf._plan(mask_type, window, prefix, S, bq,
+                                torch.device("cpu"), bkv)
+        nq, nk = -(-S // bq), -(-S // bkv)
+        assert kv.shape == (nq, 2) and qr.shape == (nk, 2) and full.shape == (nq, nk)
+        jlo, jhi = jf._kv_range(mask_type, window, prefix, bq, bkv, nk)
+        assert kv.tolist() == [[int(jlo(i)), int(jhi(i))] for i in range(nq)]
+        jlo, jhi = jf._q_range(mask_type, window, prefix, bq, bkv, nq)
+        assert qr.tolist() == [[int(jlo(j)), int(jhi(j))] for j in range(nk)]
+        jfull = jf._full_tile_fn(mask_type, window, prefix, bq, bkv)
+        want = [[int((jfull is None or bool(jfull(i, j)))
+                     and (i + 1) * bq <= S and (j + 1) * bkv <= S)
+                 for j in range(nk)] for i in range(nq)]
+        assert full.tolist() == want
+        # every pair the mask lets through lies in a live tile, and a tile
+        # flagged full has no refused pair and nothing outside S
+        mod = tf._mask_mod(mask_type, window, prefix)
+        valid = (torch.ones(S, S, dtype=torch.bool) if mod is None
+                 else TM.materialize_mask(mod, S, S, device="cpu"))
+        rows, cols = torch.nonzero(valid, as_tuple=True)
+        qi, kj = rows // bq, cols // bkv
+        assert bool(((kv[qi, 0] <= kj) & (kj < kv[qi, 1])).all())
+        assert bool(((qr[kj, 0] <= qi) & (qi < qr[kj, 1])).all())
+        for i, j in torch.nonzero(full).tolist():
+            assert bool(valid[i * bq:(i + 1) * bq, j * bkv:(j + 1) * bkv].all())
+
+
+def test_planted_fault_drops_one_tile_of_the_wgmma_plans():
+    # The forward's plan (128 x 128) loses the last live KV tile of its last
+    # Q tile; dK/dV's (64 x 128) the last live Q tile of KV tile 0.
+    cpu = torch.device("cpu")
+    for bq, bkv in ((128, 128), (64, 128)):
+        kv0, q0, full0 = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)
+        with kernel_check.planted_fault():
+            kv, qr, full = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)
+        live = lambda r: int((r[:, 1] - r[:, 0]).sum())  # noqa: E731
+        assert live(kv) == live(kv0) - 1 and live(qr) == live(q0) - 1
+        assert kv[:-1].tolist() == kv0[:-1].tolist()
+        assert kv[-1].tolist() == [0, kv0[-1, 1].item() - 1]
+        assert qr[1:].tolist() == q0[1:].tolist()
+        assert qr[0].tolist() == [0, 1024 // bq - 1]
+        assert full is full0
+        assert tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[0] is kv0
+
+
+def test_header_edit_changes_the_library_path(monkeypatch, tmp_path):
+    # Every source hashes with every csrc/*.cuh: an edited header rebuilds
+    # both libraries; an edit elsewhere in the directory does not.
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils import cuda_build
+
+    csrc = tf._SRC.parent
+    for f in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    srcs = [tmp_path / "flash_attention.cu", tmp_path / "grouped_matmul.cu"]
+    assert (tmp_path / "hopper.cuh").exists()
+    assert all('#include "hopper.cuh"' in s.read_text() for s in srcs)
+    before = [cuda_build.library_path(s) for s in srcs]
+    assert before == [cuda_build.library_path(csrc / s.name) for s in srcs]
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert [cuda_build.library_path(s) for s in srcs] == before
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [cuda_build.library_path(s) for s in srcs]
+    assert all(a != b and a.name.startswith(b.name.split("-")[0])
+               for a, b in zip(after, before))

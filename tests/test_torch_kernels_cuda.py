@@ -386,3 +386,118 @@ def test_flash_kernels_reject_bad_input(cuda):
                          .transpose(1, 2), lse)
     with pytest.raises(TypeError, match="fp32 or bf16"):  # no quiet fallback
         tfa.flash_attention(*(t.transpose(1, 2).half() for t in (q, k, v)))
+
+
+# (B, Hq, Hkv, S, D, mask, window, prefix, layout): the wgmma forward's 128-row
+# Q and KV tiles and dK/dV's 128-row KV / 64-row Q tiles at their edges
+# (S of one row, one 64-row tile, either side of 128, ragged 1000, 16 KV
+# tiles), windows and a prefix that are not multiples of 128, GQA and D
+# 128; "bshd": [B, H, S, D] views of [B, S, H, D] tensors (the model's),
+# "bhsd": contiguous [B, H, S, D].
+WGMMA_FLASH_CASES = [
+    (2, 4, 4, 1, 64, "causal", 0, 0, "bshd"),
+    (2, 4, 4, 64, 64, "causal", 0, 0, "bshd"),
+    (2, 4, 4, 127, 64, "causal", 0, 0, "bshd"),
+    (2, 4, 4, 129, 64, "causal", 0, 0, "bhsd"),
+    (2, 4, 4, 1000, 64, "causal", 0, 0, "bshd"),
+    (1, 4, 4, 2048, 64, "causal", 0, 0, "bshd"),
+    (2, 4, 4, 1000, 64, "sliding_window", 100, 0, "bshd"),
+    (2, 4, 4, 1000, 64, "sliding_window", 300, 0, "bhsd"),
+    (2, 4, 4, 1000, 64, "prefix_lm", 0, 200, "bshd"),
+    (2, 4, 4, 300, 64, "full", 0, 0, "bshd"),
+    (2, 8, 1, 1000, 64, "causal", 0, 0, "bshd"),
+    (2, 8, 2, 512, 64, "causal", 0, 0, "bshd"),
+    (2, 4, 4, 1000, 128, "causal", 0, 0, "bshd"),
+    (2, 4, 4, 129, 128, "sliding_window", 100, 0, "bshd"),
+    (2, 4, 2, 1000, 128, "prefix_lm", 0, 200, "bhsd"),
+]
+
+
+def _flash_counts():
+    return {n: dict(getattr(tfa, n).launches_by_variant) for n in tfa.FLASH_KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,mask,window,prefix,layout", WGMMA_FLASH_CASES)
+def test_wgmma_flash_kernels_match_plain(cuda, B, Hq, Hkv, S, D, mask, window, prefix,
+                                         layout):
+    q, k, v, do = _flash_inputs("bfloat16", B, Hq, Hkv, S, D, seed=S)
+    if layout == "bhsd":
+        q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    kw = dict(mask_type=mask, window=window, prefix_len=prefix, scale=D ** -0.5)
+    before = _flash_counts()
+    o, lse = tfa.flash_fwd(q, k, v, **kw)
+    ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
+    torch.cuda.synchronize()
+    after = _flash_counts()
+    ran = {n: {v_: c - before[n][v_] for v_, c in after[n].items() if c != before[n][v_]}
+           for n in tfa.FLASH_KERNELS}
+    assert ran == {"flash_fwd": {"wgmma": 1}, "flash_bwd_dq": {},
+                   "flash_bwd_dkv": {"wgmma": 1}}
+    rdk, rdv = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+    outs = [("o", o, ro), ("dk", dk, rdk), ("dv", dv, rdv)]
+    if S == 1:
+        # A lone key's softmax has no gradient: dS = p (dP - delta) is the
+        # fp32 rounding of dO.v - dO.o with o = v, in both versions alike,
+        # so dK is rounding noise; hold both to zero instead of each other.
+        assert dk.abs().max() <= 1e-5 and rdk.abs().max() <= 1e-5
+        outs.pop(1)
+    for name, got, ref in outs:
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        check = kernel_check.compare(got, ref)
+        assert check["ok"], (name, check)
+
+
+@pytest.mark.cuda
+def test_wgmma_flash_planted_fault_is_rejected(cuda):
+    # One live tile left out of each wgmma plan (the forward's 128 x 128,
+    # dK/dV's 64 x 128) at the training path's shape on fewer heads: the
+    # same check that passes the kernels must fail them.
+    q, k, v, do = _flash_inputs("bfloat16", 2, 8, 8, 1024, 64)
+    kw = dict(mask_type="causal", scale=64 ** -0.5)
+    ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    refs = {"o": ro}
+    refs["dk"], refs["dv"] = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    before = _flash_counts()
+    with kernel_check.planted_fault():
+        bad = {"o": tfa.flash_fwd(q, k, v, **kw)[0]}
+        bad["dk"], bad["dv"] = tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
+    after = _flash_counts()
+    assert after["flash_fwd"]["wgmma"] == before["flash_fwd"]["wgmma"] + 1
+    assert after["flash_bwd_dkv"]["wgmma"] == before["flash_bwd_dkv"]["wgmma"] + 1
+    for name, ref in refs.items():
+        assert not kernel_check.compare(bad[name], ref)["ok"], name
+
+
+@pytest.mark.cuda
+def test_wgmma_flash_bad_input_raises_without_a_launch(cuda):
+    q, k, v, do = _flash_inputs("bfloat16", 1, 4, 4, 256, 64)
+    o = torch.empty_like(q)
+    lse = torch.empty((1, 4, 256), device="cuda")
+    before = _flash_counts()
+    buf = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    shifted = buf[1:1 + q.numel()].view(q.shape)  # 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_fwd(shifted, k, v)
+    # the library refuses a plan at other tile sizes than the wgmma kernel's
+    ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 64, q.device)
+    plan_kw = dict(mask_type="causal", window=0, prefix_len=0, scale=0.125)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        tfa._launch("flash_fwd_launch", "wgmma", q, k, v, ranges=ranges, full=full,
+                    out0=o, lse_out=lse, **plan_kw)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        tfa._launch("flash_bwd_dkv_launch", "wgmma", q, k, v, ranges=q_ranges, full=full,
+                    dout=do, lse_in=lse, delta=lse, out0=o, out1=torch.empty_like(q),
+                    **plan_kw)
+    # dQ has no wgmma kernel
+    ranges, _, full = tfa._plan("causal", 0, 0, 256, 128, q.device)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        tfa._launch("flash_bwd_dq_launch", "wgmma", q, k, v, ranges=ranges, full=full,
+                    dout=do, lse_in=lse, delta=lse, out0=o, **plan_kw)
+    torch.cuda.synchronize()
+    assert _flash_counts() == before
