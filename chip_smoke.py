@@ -11,7 +11,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    flash-attention kernels (csrc/flash_attention.cu) with nvcc into
    build/kernels/, one nvcc per source, both at once; prints each kernel's
    registers and spills, and fails if a wgmma kernel spills or ptxas
-   reports that it serialized a kernel's wgmmas (advisories C7513, C7520).
+   reports that it serialized a kernel's wgmmas (advisories C7513, C7518,
+   C7520).
 3. kernels — holds ``gmm`` against its plain PyTorch version at the serving
    path's shapes (moe-8x40m: decode with 8 slots, a 256-token prefill chunk),
    fp32 and bf16, plus an empty-group/tail-tile case, and times the kernel,
@@ -31,16 +32,15 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    (tail tiles), sliding_window, prefix_lm, full and D 128, timing each
    beside ``F.scaled_dot_product_attention`` (forward; forward + backward
    for the backward kernels) as a yardstick, with its TFLOP/s. Each call
-   must run the variant ``flash_variant`` names (bf16: the wgmma forward
-   and dK/dV, the WMMA dQ). Each output must pass
-   ``ops/kernel_check.compare`` (per-element limits scaled to the output's
-   RMS, and a normwise limit); so must, in every bf16 case, the WMMA
-   forward and dK/dV that served the path before (called through the
-   library's C entries with the "wmma" code on their 64-row plans), and
-   at the path shape both generations are timed in turns (WMMA, wgmma,
-   wgmma, WMMA). At the path shape the kernels are launched once more with
-   one live tile left out of their plans, and the same check must reject
-   every output.
+   must run the variant ``flash_variant`` names (bf16: the wgmma kernels).
+   Each output must pass ``ops/kernel_check.compare`` (per-element limits
+   scaled to the output's RMS, and a normwise limit); so must, in every
+   bf16 case, the WMMA dQ that served the path before (called through the
+   library's C entry with the "wmma" code on its 64-row plan), and at the
+   path shape both dQ generations are timed in turns (WMMA, wgmma, wgmma,
+   WMMA). At the path shape the kernels are launched once more with one
+   live tile left out of their plans, and the same check must reject every
+   output.
 4. serve   — serves moe-8x40m at full width (12 layers, seeded random fp32
    weights) through the port's HTTP server and batch engine: 8 slots,
    max_len 1024, paged KV in 32-token blocks, prefix cache, 256-token prefill
@@ -53,8 +53,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    steps (``iters`` and ``warmup_steps`` cut to fit a smoke), a log line
    every 5, one validation and the final checkpoint. Checks the loss falls,
    the flash launch counts (12 per step and per validation batch for the
-   forward, 12 per step for each backward; every forward and dK/dV launch
-   on the wgmma kernels, every dQ on the WMMA one), step 1's loss and gradients
+   forward, 12 per step for each backward; every flash launch on the wgmma
+   kernels), step 1's loss and gradients
    against the plain attention path on the card at batch 8, and serves the
    final checkpoint through the port's server.
 6. moe     — trains configs/model-config-moe-8x40m.yaml at full width (hidden
@@ -64,12 +64,13 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    stats, one validation, the final checkpoint. Checks the loss falls, the
    routing stats on every line (no drops), the exact launch counts (per
    step 72 gmm, 36 tgmm and 12 of each flash kernel; per validation batch
-   36 gmm and 12 flash_fwd; every gmm, tgmm, flash forward and dK/dV
-   launch a wgmma one, every dQ a WMMA one), step
+   36 gmm and 12 flash_fwd; every gmm, tgmm and flash launch a wgmma
+   one), step
    1's loss and gradients with the gmm and
    tgmm kernels against their plain versions (flash kernels in both) at
    batch 8, and serves the final checkpoint.
-7. report  — a ``{"kernels": [...]}`` line (each flash kernel with its
+7. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
+   kernel's ms where this run timed one, each flash kernel with its
    launches by variant), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -142,10 +143,10 @@ def read_variants(gm, fa=None) -> dict:
 
 
 def flash_variants_want(fa, fwd: int, bwd: int) -> dict:
-    """The bf16 training path's flash launches by variant: every forward and
-    dK/dV on the wgmma kernels, every dQ on the WMMA one."""
+    """The bf16 training path's flash launches by variant: every one on
+    the wgmma kernels."""
     zero = dict.fromkeys(fa.FLASH_VARIANTS, 0)
-    return {"flash_fwd": {**zero, "wgmma": fwd}, "flash_bwd_dq": {**zero, "wmma": bwd},
+    return {"flash_fwd": {**zero, "wgmma": fwd}, "flash_bwd_dq": {**zero, "wgmma": bwd},
             "flash_bwd_dkv": {**zero, "wgmma": bwd}}
 
 
@@ -451,6 +452,9 @@ def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
     if wgmma:
         vs_wmma = against_earlier(torch, dw, earlier_tgmm(torch, gm, x, dy, gs, E, block_t))
         log(f"tgmm {name}: wgmma vs WMMA output {vs_wmma}")
+        if not vs_wmma["bitwise_equal"]:  # the same rounding points: the same bits
+            ok = False
+            log(f"tgmm {name}: the wgmma output differs from the WMMA kernel's")
     bad = None
     if fault:
         bad = kernel_check.compare_experts(
@@ -592,28 +596,19 @@ def sdpa_calls(torch, q, k, v, do, mask, scale):
     return fwd, fwd_bwd
 
 
-def earlier_flash(torch, fa, fn, q, k, v, do=None, lse=None, delta=None, *,
-                  mask_type, window, prefix_len, scale):
-    """The bf16 forward (``fn`` "flash_fwd": ``(o, lse)``) or dK/dV
-    ("flash_bwd_dkv": ``(dk, dv)``) on the WMMA kernel that served the
-    training path before the wgmma one: the library's C entry with the
-    "wmma" code on a plan at its 64-row tiles, as the wrapper called it
-    then. Measurement only; the port never launches it there."""
-    bq, bkv = fa.kernel_tiles(fn, "wmma")
-    kv_ranges, q_ranges, full = fa._plan(mask_type, window, prefix_len, q.shape[2], bq,
-                                         q.device, bkv)
-    kw = dict(full=full, mask_type=mask_type, window=window, prefix_len=prefix_len,
-              scale=scale)
-    if fn == "flash_fwd":
-        o = fa._bshd_like(q)
-        lse_out = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-        fa._launch("flash_fwd_launch", "wmma", q, k, v, ranges=kv_ranges, out0=o,
-                   lse_out=lse_out, **kw)
-        return o, lse_out
-    dk, dv = fa._bshd_like(q), fa._bshd_like(q)
-    fa._launch("flash_bwd_dkv_launch", "wmma", q, k, v, ranges=q_ranges, dout=do,
-               lse_in=lse, delta=delta, out0=dk, out1=dv, **kw)
-    return dk, dv
+def earlier_dq(fa, q, k, v, do, lse, delta, *, mask_type, window, prefix_len, scale):
+    """The bf16 dQ on the WMMA kernel that served the training path before
+    the wgmma one: the library's C entry with the "wmma" code on a plan at
+    its 64-row tiles, as the wrapper called it then. Measurement only; the
+    port never launches it."""
+    bq, bkv = fa.kernel_tiles("flash_bwd_dq", "wmma")
+    kv_ranges, _, full = fa._plan(mask_type, window, prefix_len, q.shape[2], bq,
+                                  q.device, bkv)
+    dq = fa._bshd_like(q)
+    fa._launch("flash_bwd_dq_launch", "wmma", q, k, v, ranges=kv_ranges, full=full,
+               mask_type=mask_type, window=window, prefix_len=prefix_len, scale=scale,
+               dout=do, lse_in=lse, delta=delta, out0=dq)
+    return dq
 
 
 def fmt_checks(checks: dict) -> str:
@@ -641,9 +636,7 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     after = read_variants(gm, fa)
     ran = {n: launched_since(before[n], after[n]) for n in FLASH_KERNELS}
     bf16 = dtype == "bfloat16"
-    want_ran = {"flash_fwd": {"wgmma" if bf16 else "f32": 1},
-                "flash_bwd_dq": {"wmma" if bf16 else "f32": 1},
-                "flash_bwd_dkv": {"wgmma" if bf16 else "f32": 1}}
+    want_ran = {n: {"wgmma" if bf16 else "f32": 1} for n in FLASH_KERNELS}
     rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
@@ -661,21 +654,16 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
         log(f"flash {name}: ran {ran}, not {want_ran}")
     earlier = None
     if bf16:
-        # the WMMA forward and dK/dV that served these shapes before, held
-        # against the plain versions by the same check
-        eo, else_ = earlier_flash(torch, fa, "flash_fwd", q, k, v, **kw)
-        edk, edv = earlier_flash(torch, fa, "flash_bwd_dkv", q, k, v, do, rlse, delta, **kw)
+        # the WMMA dQ that served these shapes before, held against the
+        # plain version by the same check
+        edq = earlier_dq(fa, q, k, v, do, rlse, delta, **kw)
         torch.cuda.synchronize()
-        earlier = {"o": kernel_check.compare(eo, ro), "dk": kernel_check.compare(edk, rdk),
-                   "dv": kernel_check.compare(edv, rdv)}
-        earlier_lse = (else_ - rlse).abs().max().item()
-        log(f"flash {name} earlier WMMA kernels: lse:err={earlier_lse:.3g} "
-            + fmt_checks(earlier))
-        if not all(c["ok"] for c in earlier.values()) \
-                or not torch.allclose(else_, rlse, atol=1e-5, rtol=1e-5):
+        earlier = {"dq": kernel_check.compare(edq, rdq)}
+        log(f"flash {name} earlier WMMA dQ: " + fmt_checks(earlier))
+        if not earlier["dq"]["ok"]:
             ok = False
-            log(f"flash {name}: an earlier WMMA kernel disagrees with plain")
-        del eo, else_, edk, edv
+            log(f"flash {name}: the earlier WMMA dQ disagrees with plain")
+        del edq
     fault = None
     if name == "path":
         # The same check on a planted fault: one live tile left out of each
@@ -712,9 +700,7 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
                           "fwd_bwd"),
     }
     earlier_calls = {
-        "flash_fwd": lambda _: earlier_flash(torch, fa, "flash_fwd", q, k, v, **kw),
-        "flash_bwd_dkv": lambda _: earlier_flash(torch, fa, "flash_bwd_dkv", q, k, v, do,
-                                                 rlse, delta, **kw)}
+        "flash_bwd_dq": lambda _: earlier_dq(fa, q, k, v, do, rlse, delta, **kw)}
     rows = {}
     for kname, (kernel, plain, lib) in calls.items():
         nbytes, flops = work[kname]
@@ -730,6 +716,7 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
                        turns_ms=turns)
         else:
             row["ms"] = device_ms(torch, kernel, 1, reps=20)
+        row.setdefault("earlier_ms", None)
         row.update(plain_ms=device_ms(torch, plain, 1, reps=5),
                    library_ms=library.get(lib), library=library_note,
                    bound_ms=max(t_bytes, t_ops),
@@ -746,10 +733,14 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     for kname, r in rows.items():
         old = (f" (earlier WMMA kernel {r['earlier_ms']:.4f} ms, "
                f"{r['earlier_ms'] / r['ms']:.2f}x; turns {r['turns_ms']})"
-               if "earlier_ms" in r else "")
+               if r["earlier_ms"] is not None else "")
         log(f"  {kname}: kernel={r['ms']:.4f} ms{old} {r['tflops']:.1f} TFLOP/s "
             f"plain={r['plain_ms']:.4f} ms library={r['library_ms']} ms "
             f"({library_note}) bound={r['bound_ms']:.4f} ms ({r['bound_by']})")
+    if library.get("fwd_bwd") is not None:
+        both = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+        log(f"  dQ + dK/dV {both:.4f} ms vs {library_note} forward + backward "
+            f"{library['fwd_bwd']:.4f} ms ({both / library['fwd_bwd']:.2f}x)")
     return case
 
 
@@ -1289,8 +1280,8 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             failures.append("moe: no validation ran")
         if launches != want:
             failures.append(f"moe: launches {launches} != {want}")
-        # bf16 at block_t 128: the TMA/wgmma kernels and no other; flash
-        # forward and dK/dV on wgmma, dQ on WMMA
+        # bf16 at block_t 128: the TMA/wgmma kernels and no other; the
+        # flash kernels on wgmma
         want_variants = {"gmm": {**dict.fromkeys(gm.GMM_VARIANTS, 0), "wgmma": want["gmm"]},
                          "tgmm": {**dict.fromkeys(gm.TGMM_VARIANTS, 0),
                                   "wgmma": want["tgmm"]},
@@ -1326,10 +1317,13 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
 
 
 def kernel_entry(name, source, replaces, launches, row, max_abs_err):
+    """One kernel of the report line; ``earlier_ms`` is the kernel that
+    served the path before it, where this run timed one in turns with it."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "earlier_ms": row.get("earlier_ms")}
 
 
 def main() -> int:
@@ -1368,7 +1362,7 @@ def main() -> int:
                 if "wgmma" in (kernel or "") and " 0 bytes spill stores" not in line \
                         and "spill stores" in line:
                     failures.append(f"build: {kernel[-60:]} spills: {line.strip()}")
-            if "C7513" in line or "C7520" in line:  # ptxas serialized every wgmma
+            if any(c in line for c in ("C7513", "C7518", "C7520")):  # ptxas serialized every wgmma
                 log(f"build: {line.strip()}")
                 failures.append(f"build: {line.strip()[:200]}")
 
@@ -1416,7 +1410,7 @@ def main() -> int:
     for entry in flash_entries:
         row = path_case["kernels"][entry["name"]]
         entry.update(launches_by_variant=moe_variants.get(entry["name"]),
-                     tflops=row["tflops"], earlier_ms=row.get("earlier_ms"))
+                     tflops=row["tflops"])
     flash_entries[0].update(cases=flash_cases, dense_train=train_perf, card=card)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr

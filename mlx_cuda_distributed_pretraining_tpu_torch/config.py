@@ -164,10 +164,6 @@ class LoggingConfig:
     def validation_interval(self) -> int:
         return int(_get(self.steps, "validation_interval", 0))
 
-    @property
-    def keep_last(self) -> int:
-        return int(_get(self.retention, "keep_last", 0))
-
 
 @dataclass
 class SystemConfig:

@@ -3,16 +3,17 @@
 // Replaces, in mlx_cuda_distributed_pretraining_tpu/ops/flash_attention.py:
 //   flash_fwd_bf16_wgmma_kernel, flash_fwd_kernel  <- flash_fwd (Pallas body
 //                                                      _fwd_kernel)
-//   flash_bwd_dq_kernel                             <- flash_bwd_dq (_bwd_dq_kernel)
+//   flash_bwd_dq_bf16_wgmma_kernel, flash_bwd_dq_kernel
+//                                                   <- flash_bwd_dq (_bwd_dq_kernel)
 //   flash_bwd_dkv_bf16_wgmma_kernel, flash_bwd_dkv_kernel
 //                                                   <- flash_bwd_dkv (_bwd_dkv_kernel)
 //
 // Variants (the wrapper's flash_variant picks one before launch; the C
 // entries take its code):
-//   "wgmma"  bf16 forward and dK/dV: a TMA ring feeding wgmma, the scores,
-//            P and dS kept in registers (their own note below);
-//   "wmma"   bf16 dQ, and the bf16 forward and dK/dV that served before
-//            the wgmma kernels (reachable through the C entries only);
+//   "wgmma"  bf16: a TMA ring feeding wgmma, the scores, P and dS kept in
+//            registers (their own note below);
+//   "wmma"   the bf16 dQ that served before the wgmma one (reachable
+//            through the C entry only);
 //   "f32"    fp32: SIMT FMA tiles.
 //
 // Each computes what its Pallas body computes (not block by block):
@@ -38,9 +39,9 @@
 // inside S). Dead tiles are never loaded; full tiles skip the mask; the rest
 // evaluate the mask predicate and the bounds of a ragged S.
 //
-// Types: the WMMA kernels run the tile products on the tensor cores with
-// WMMA 16x16x16 fragments into fp32 (64-row tiles); fp32 runs SIMT FMA tiles
-// (32-row tiles). Head dims 64 and 128 are template instances.
+// Types: the 64-row WMMA dQ runs the tile products on the tensor cores with
+// WMMA 16x16x16 fragments into fp32; fp32 runs SIMT FMA tiles (32-row
+// tiles). Head dims 64 and 128 are template instances.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the
 // training path's shape B 32, H 8, S 1024, D 64, bf16, causal:
@@ -52,8 +53,8 @@
 // 128 x 128 tile take as long as its two 64-deep products at peak). The
 // WMMA kernels were the first design, simple and right before fast: tiles
 // staged through shared memory with plain vector loads, WMMA, the score tile
-// round-tripping through shared memory, one 4-warp CTA per tile. The wgmma
-// kernels keep the scores in registers and let one warpgroup's softmax run
+// round-tripping through shared memory, one 4-warp CTA per tile (the WMMA dQ
+// ran at 41 TFLOP/s on an H100, PERF.md). The wgmma kernels keep the scores in registers and let one warpgroup's softmax run
 // under the other's products (note below).
 //
 // Interface: plain C, loaded with ctypes. Each *_launch returns
@@ -519,20 +520,21 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
 }
 
 // ============================================ bf16 on a TMA ring with wgmma
-// flash_fwd_bf16_wgmma_kernel and flash_bwd_dkv_bf16_wgmma_kernel ("wgmma"):
-// the bf16 forward and dK/dV. Both run 256 threads, two consumer
+// flash_fwd_bf16_wgmma_kernel, flash_bwd_dq_bf16_wgmma_kernel and
+// flash_bwd_dkv_bf16_wgmma_kernel ("wgmma"): the bf16 forward, dQ and
+// dK/dV. All run 256 threads, two consumer
 // warpgroups of 64 rows each, and one elected thread or warp of them issues
 // the loads (no producer warp: a 9th warp puts 3 warps on one SM
 // sub-partition and caps every thread at 168 registers). Every operand
 // comes in through a 4-D tensor map over its strided [B, H, S, D] view
 // (dims D, S, H, B; 64-column boxes with 128-byte swizzle), so the model's
 // [B, S, H, D] activations are read in place and rows past S arrive as
-// zeros; K/V (forward) or Q/dO (dK/dV) tiles flow through a ring of
+// zeros; K/V (forward, dQ) or Q/dO (dK/dV) tiles flow through a ring of
 // full/empty mbarriers (namespace wg, hopper.cuh). The score tile, P and
 // dS never leave registers: an SS wgmma writes the fp32 scores into the
 // accumulator layout, the softmax (or the backward's elementwise pass) runs
 // there, and the same registers, rounded to bf16 pair by pair, are the A
-// operand of an RS wgmma (wg::WgmmaRS), whose B (V, dO or Q, stored
+// operand of an RS wgmma (wg::WgmmaRS), whose B (V, K, dO or Q, stored
 // row-major [rows x D]) is read MN-major (the transpose-B flag). The two
 // warpgroups take turns at the tensor cores (named barriers BAR_TURN + g),
 // so one's exps and elementwise work run under the other's products.
@@ -550,6 +552,7 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
 constexpr int FWD_BQ = 128;      // forward: query rows per CTA
 constexpr int FWD_BKV = 128;     // forward: KV rows per ring stage
 constexpr int DKV_BKV = 128;     // dK/dV: KV rows per CTA
+constexpr int DQ_BQ = 128;       // dQ: query rows per CTA
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -562,6 +565,12 @@ constexpr int DKV_BQ_D64 = 128;
 constexpr int DKV_BQ_D128 = 64;
 constexpr int DKV_STAGES_D64 = 2;
 constexpr int DKV_STAGES_D128 = 2;
+// dQ's KV rows per stage and ring depths: at D 128 dQ alone holds 64
+// registers a thread, so its KV tile is 64 rows there.
+constexpr int DQ_BKV_D64 = 128;
+constexpr int DQ_BKV_D128 = 64;
+constexpr int DQ_STAGES_D64 = 3;
+constexpr int DQ_STAGES_D128 = 3;
 constexpr int GROUP_HEADS = 16;  // (batch, head) pairs per group of the CTA order
 
 template <int D>
@@ -570,6 +579,10 @@ template <int D>
 constexpr int dkv_bq() { return D == 64 ? DKV_BQ_D64 : DKV_BQ_D128; }
 template <int D>
 constexpr int dkv_stages() { return D == 64 ? DKV_STAGES_D64 : DKV_STAGES_D128; }
+template <int D>
+constexpr int dq_bkv() { return D == 64 ? DQ_BKV_D64 : DQ_BKV_D128; }
+template <int D>
+constexpr int dq_stages() { return D == 64 ? DQ_STAGES_D64 : DQ_STAGES_D128; }
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -1096,6 +1109,187 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   store_tile<D>(kv_out, stage, dvg, a.s1[2], tile0, rows, 0, D, t, 2 + g);
 }
 
+// --------------------------------------------------------------------- dQ
+// A CTA owns DQ_BQ = 128 query rows of one (batch, query head), as the
+// forward does: Q and dO come in once by TMA, and each thread reads its two
+// rows' lse and delta from global memory into registers once (no per-tile
+// box at an unaligned row start). K and V tiles of BKV rows (dq_bkv) flow
+// through the ring. Warpgroup g owns rows 64 g .. 64 g + 63. Per KV tile j,
+// in the accumulator layout and never leaving registers:
+//   S = Q K_j^T and dP = dO V_j^T (SS, both K-major) in one batch;
+//   P = 2^(S scale log2 e - lse log2 e), the mask a branch-free predicate
+//   on tiles not flagged full (rows or columns past S give P = 0);
+//   dS = P (dP - delta) scale, rounded to bf16 pair by pair: the A operand
+//   of dQ += dS K_j (RS, K read MN-major, as the forward reads V).
+// dQ accumulates in fp32 registers over the live KV tiles and is written
+// once: no atomics, bitwise reproducible. The warpgroups take turns at the
+// tensor cores and warpgroup 1 refills the ring, as in dK/dV; the CTA order
+// is the forward's (cta_tile: heaviest Q tile first). At D 128, dQ alone
+// holds 64 registers a thread, so the KV tile is 64 rows there.
+template <int D, int BKV, int STAGES>
+constexpr int dq_wg_smem() {
+  return (2 * DQ_BQ + STAGES * 2 * BKV) * D * 2 + wg::ATOM;
+}
+
+template <int D, int BKV, int STAGES>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const FlashArgs a) {
+  using namespace wg;
+  constexpr int NB = D / 64;
+  constexpr int Q_BOX = DQ_BQ * 128;
+  constexpr int Q_BYTES = NB * Q_BOX;
+  constexpr int KV_BOX = BKV * 128;
+  constexpr int KV_BYTES = NB * KV_BOX;
+  constexpr int STAGE = 2 * KV_BYTES;  // K, then V
+  static_assert(2 * 64 * (D * 2 + 16) <= STAGES * STAGE, "epilogue staging fits the ring");
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t q_full;
+  uint8_t* qs = ring_base(dyn_smem);
+  uint8_t* dos = qs + Q_BYTES;
+  uint8_t* ring = dos + Q_BYTES;
+
+  int bh, rank;
+  cta_tile(blockIdx.x, a.B * a.Hq, static_cast<int>(a.nq), bh, rank);
+  const int qt = static_cast<int>(a.nq) - 1 - rank;
+  const int h = bh % static_cast<int>(a.Hq), b = bh / static_cast<int>(a.Hq);
+  const int hk = h / static_cast<int>(a.Hq / a.Hkv);
+  const int lo = a.ranges[2 * qt], n = a.ranges[2 * qt + 1] - lo;
+  const int tid = threadIdx.x;
+  const auto load = [&](int it) {  // K and V of the iteration-it tile into its stage
+    const int s = it % STAGES;
+    const uint32_t kb = smem_addr(ring + s * STAGE), vb = kb + KV_BYTES;
+    const uint32_t bar = smem_addr(&full[s]);
+    const int row = (lo + it) * BKV;
+    mbar_expect_tx(bar, STAGE);
+    for (int c = 0; c < NB; ++c) tma_4d(kb + c * KV_BOX, &map_k, bar, 64 * c, row, hk, b);
+    for (int c = 0; c < NB; ++c) tma_4d(vb + c * KV_BOX, &map_v, bar, 64 * c, row, hk, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_init(&q_full, 1);
+    mbar_init_fence();
+    const uint32_t qbar = smem_addr(&q_full);
+    mbar_expect_tx(qbar, 2 * Q_BYTES);
+    for (int c = 0; c < NB; ++c)
+      tma_4d(smem_addr(qs + c * Q_BOX), &map_q, qbar, 64 * c, qt * DQ_BQ, h, b);
+    for (int c = 0; c < NB; ++c)
+      tma_4d(smem_addr(dos + c * Q_BOX), &map_do, qbar, 64 * c, qt * DQ_BQ, h, b);
+    for (int it = 0; it < n && it < STAGES; ++it) load(it);
+  }
+  __syncthreads();
+
+  // g through a shuffle: warp-uniform to the compiler, so the descriptors
+  // derived from it stay in uniform registers (see the wgmma note)
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0), t = tid % 128;
+  const int S = static_cast<int>(a.S);
+  const int row0 = qt * DQ_BQ + 64 * g + 16 * (t / 32) + (t % 32) / 4;
+  const int c0 = 2 * (t % 4);
+  const float scale = static_cast<float>(a.scale);
+  const float sl2 = scale * LOG2E;
+  const Mask32 mask = mask32(a);
+  float lse2[2], dlt[2];  // the thread's two rows: lse log2 e and delta (0 past S)
+  const int64_t stat0 = (static_cast<int64_t>(b) * a.Hq + h) * a.S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse2[r] = row < S ? a.lse_in[stat0 + row] * LOG2E : 0.f;
+    dlt[r] = row < S ? a.delta[stat0 + row] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  if (g == 1 && n > 0) bar_arrive(BAR_TURN, 256);  // warpgroup 0 takes the first turn
+  mbar_wait(&q_full, 0);
+  const uint32_t qa = smem_addr(qs) + g * 64 * 128, doa = smem_addr(dos) + g * 64 * 128;
+  for (int it = 0; it < n; ++it) {
+    const int s = it % STAGES, j = lo + it;
+    const bool full_tile = a.full[static_cast<int64_t>(qt) * a.nk + j] != 0;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    // the stage through a shuffle: the descriptors stay in uniform registers
+    const int su = __shfl_sync(0xffffffffu, s, 0);
+    const uint32_t kb = smem_addr(ring + su * STAGE), vb = kb + KV_BYTES;
+    float st[BKV / 2], dpt[BKV / 2];
+    bar_sync(BAR_TURN + g, 256);  // turns at the tensor cores: the two warpgroups
+    wgmma_fence();                // alternate, one's elementwise under the other's products
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      Wgmma<BKV, 0, 0>::run(st, desc(qa + (ks / 4) * Q_BOX + (ks % 4) * 32, 16, ATOM),
+                            desc(kb + (ks / 4) * KV_BOX + (ks % 4) * 32, 16, ATOM),
+                            ks > 0 ? 1 : 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      Wgmma<BKV, 0, 0>::run(dpt, desc(doa + (ks / 4) * Q_BOX + (ks % 4) * 32, 16, ATOM),
+                            desc(vb + (ks / 4) * KV_BOX + (ks % 4) * 32, 16, ATOM),
+                            ks > 0 ? 1 : 0);
+    wgmma_commit();
+    bar_arrive(BAR_TURN + 1 - g, 256);
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+
+    const int k0 = j * BKV + c0;
+    uint32_t da[BKV / 4];  // bf16(dS): the A operand of dS K
+    // dS of element idx; masked: the mask and S's bounds apply
+    const auto ds = [&](int idx, bool masked) {
+      const int r = (idx >> 1) & 1;
+      float x = st[idx] * sl2;
+      bool live = true;
+      if (masked) {
+        const int row = row0 + acc_row(idx), col = k0 + acc_col(idx);
+        x = mask.allowed(row, col) ? x : NEG_INF;
+        live = (row < S) & (col < S);  // outside the sequence: p = 0
+      }
+      float p = exp2_approx(x - lse2[r]);
+      p = live ? p : 0.f;
+      return p * (dpt[idx] - dlt[r]) * scale;
+    };
+    if (full_tile) {  // one test per tile, not per element
+#pragma unroll
+      for (int i = 0; i < BKV / 4; ++i) da[i] = pack_bf16(ds(2 * i, false), ds(2 * i + 1, false));
+    } else {
+#pragma unroll
+      for (int i = 0; i < BKV / 4; ++i) da[i] = pack_bf16(ds(2 * i, true), ds(2 * i + 1, true));
+    }
+
+    fence_acc(dq);
+    fence_regs(da);  // dS is in its registers before the batch opens
+    bar_sync(BAR_TURN + g, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      WgmmaRS<D, 1>::run(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                         desc(kb + kk * 16 * 128, KV_BOX, ATOM), 1);
+    wgmma_commit();
+    if (g == 0 || it + 1 < n) bar_arrive(BAR_TURN + 1 - g, 256);
+    wgmma_wait<0>();
+    fence_acc(dq);
+    fence_regs(da);  // the product read da until here
+    if (t == 0) mbar_arrive(&empty[s]);
+    if (tid == 128 && it + STAGES < n) {  // warpgroup 1 runs second: refill
+      mbar_wait(&empty[s], (it / STAGES) & 1);
+      load(it + STAGES);
+    }
+  }
+
+  uint32_t out[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) out[i] = pack_bf16(dq[2 * i], dq[2 * i + 1]);
+  bar_sync(1, 256);  // both warpgroups are past their last wgmma: the ring is idle
+  const int tile0 = qt * DQ_BQ + 64 * g;
+  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(a.out0) + b * a.s0[0] + h * a.s0[1];
+  store_tile<D>(out, ring + g * 64 * (D * 2 + 16), dqg, a.s0[2], tile0,
+                S - tile0 < 64 ? S - tile0 : 64, 0, D, t, 2 + g);
+}
+
 // ------------------------------------------------------------------ launchers
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
@@ -1126,7 +1320,7 @@ bool tma_ok(const FlashArgs* a, Which which) {
   };
   if (!ok(a->q, a->sq) || !ok(a->k, a->sk) || !ok(a->v, a->sv) || !ok(a->out0, a->s0))
     return false;
-  return which == FWD || (ok(a->dout, a->sdo) && ok(a->out1, a->s1));
+  return which == FWD || (ok(a->dout, a->sdo) && (which == DQ || ok(a->out1, a->s1)));
 }
 
 template <int D>
@@ -1169,59 +1363,80 @@ int launch_dkv_wgmma(const FlashArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int BM>
-int launch(const FlashArgs* a, Which which, cudaStream_t stream) {
-  const unsigned n_tiles = (unsigned)(which == DKV ? a->nk : a->nq);
-  const dim3 grid(n_tiles, (unsigned)a->Hq, (unsigned)a->B);
-  cudaError_t err;
-  switch (which) {
-    case FWD: {
-      constexpr size_t bytes = fwd_smem<T, D, BM>();
-      err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, BM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      flash_fwd_kernel<T, D, BM><<<grid, NTHREADS, bytes, stream>>>(*a);
-      break;
-    }
-    case DQ: {
-      constexpr size_t bytes = dq_smem<T, D, BM>();
-      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, BM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      flash_bwd_dq_kernel<T, D, BM><<<grid, NTHREADS, bytes, stream>>>(*a);
-      break;
-    }
-    default: {
-      constexpr size_t bytes = dkv_smem<T, D, BM>();
-      err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, BM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      flash_bwd_dkv_kernel<T, D, BM><<<grid, NTHREADS, bytes, stream>>>(*a);
-      break;
-    }
+template <int D>
+int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
+  constexpr int BKV = dq_bkv<D>(), STAGES = dq_stages<D>();
+  if (a->nq != cdiv(a->S, DQ_BQ) || a->nk != cdiv(a->S, BKV) || a->S >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);  // a plan at other tile sizes
+  CUtensorMap mq, mk, mv, mdo;
+  int err = bhsd_map(&mq, a->q, a->sq, a->B, a->Hq, a->S, D, DQ_BQ);
+  if (err == 0) err = bhsd_map(&mdo, a->dout, a->sdo, a->B, a->Hq, a->S, D, DQ_BQ);
+  if (err == 0) err = bhsd_map(&mk, a->k, a->sk, a->B, a->Hkv, a->S, D, BKV);
+  if (err == 0) err = bhsd_map(&mv, a->v, a->sv, a->B, a->Hkv, a->S, D, BKV);
+  if (err != 0) return err;
+  const auto kernel = flash_bwd_dq_bf16_wgmma_kernel<D, BKV, STAGES>;
+  constexpr int smem = dq_wg_smem<D, BKV, STAGES>();
+  static std::atomic<unsigned long long> ready{0};
+  err = wg::allow_smem(ready, kernel, smem);
+  if (err != 0) return err;
+  kernel<<<static_cast<unsigned>(a->nq * a->B * a->Hq), 256, smem, stream>>>(
+      mq, mk, mv, mdo, *a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 64-row (WMMA) and 32-row (SIMT) kernels: one CTA per tile, grid
+// (tiles, Hq, B).
+template <typename T, int D, int BM, Which W>
+int launch(const FlashArgs* a, cudaStream_t stream) {
+  const dim3 grid((unsigned)(W == DKV ? a->nk : a->nq), (unsigned)a->Hq, (unsigned)a->B);
+  void (*kernel)(const FlashArgs);
+  size_t bytes;
+  if constexpr (W == FWD) {
+    kernel = flash_fwd_kernel<T, D, BM>;
+    bytes = fwd_smem<T, D, BM>();
+  } else if constexpr (W == DQ) {
+    kernel = flash_bwd_dq_kernel<T, D, BM>;
+    bytes = dq_smem<T, D, BM>();
+  } else {
+    kernel = flash_bwd_dkv_kernel<T, D, BM>;
+    bytes = dkv_smem<T, D, BM>();
   }
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, NTHREADS, bytes, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_f32(const FlashArgs* a, Which which, cudaStream_t s) {
+  if (which == FWD) return launch<float, D, 32, FWD>(a, s);
+  if (which == DQ) return launch<float, D, 32, DQ>(a, s);
+  return launch<float, D, 32, DKV>(a, s);
+}
+
 // Kernel variants (the wrapper's flash_variant codes): 0 = "f32" (fp32,
-// 32-row SIMT tiles), 1 = "wmma" (bf16, 64-row WMMA tiles), 2 = "wgmma"
-// (bf16 forward and dK/dV on the TMA ring with wgmma; its plan must be at
+// 32-row SIMT tiles), 1 = "wmma" (bf16 dQ on 64-row WMMA tiles, which served
+// the training path before the wgmma dQ; reachable through the C entry
+// only), 2 = "wgmma" (bf16 on the TMA ring with wgmma; its plan must be at
 // its own tile sizes, and its operands must meet TMA's rules).
 enum Variant { F32 = 0, WMMA = 1, WGMMA = 2 };
 
 int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->B <= 0 || a->Hq <= 0 || a->Hkv <= 0 || a->S <= 0 || a->Hq % a->Hkv)
+  if (a->B <= 0 || a->Hq <= 0 || a->Hkv <= 0 || a->S <= 0 || a->Hq % a->Hkv ||
+      (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
-  if (variant == F32 && head_dim == 64) return launch<float, 64, 32>(a, which, s);
-  if (variant == F32 && head_dim == 128) return launch<float, 128, 32>(a, which, s);
-  if (variant == WMMA && head_dim == 64) return launch<__nv_bfloat16, 64, 64>(a, which, s);
-  if (variant == WMMA && head_dim == 128) return launch<__nv_bfloat16, 128, 64>(a, which, s);
-  if (variant == WGMMA && which != DQ && (head_dim == 64 || head_dim == 128)) {
+  const bool d64 = head_dim == 64;
+  if (variant == F32) return d64 ? launch_f32<64>(a, which, s) : launch_f32<128>(a, which, s);
+  if (variant == WMMA && which == DQ)
+    return d64 ? launch<__nv_bfloat16, 64, 64, DQ>(a, s)
+               : launch<__nv_bfloat16, 128, 64, DQ>(a, s);
+  if (variant == WGMMA) {
     if (!tma_ok(a, which)) return (int)cudaErrorInvalidValue;
-    if (which == FWD)
-      return head_dim == 64 ? launch_fwd_wgmma<64>(a, s) : launch_fwd_wgmma<128>(a, s);
-    return head_dim == 64 ? launch_dkv_wgmma<64>(a, s) : launch_dkv_wgmma<128>(a, s);
+    if (which == FWD) return d64 ? launch_fwd_wgmma<64>(a, s) : launch_fwd_wgmma<128>(a, s);
+    if (which == DQ) return d64 ? launch_dq_wgmma<64>(a, s) : launch_dq_wgmma<128>(a, s);
+    return d64 ? launch_dkv_wgmma<64>(a, s) : launch_dkv_wgmma<128>(a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -72,10 +72,13 @@ namespace {
 // Tile choices of the wgmma kernels, picked by measurement on an H100 at the
 // MoE training path's shapes (PERF.md): gmm 128 x 256 CTA tiles with a
 // 4-stage ring (one CTA per SM) beat 128 x 128 with 3 stages (two CTAs per
-// SM) at K 1536 and tie at K 512; tgmm 128 x 128 blocks with 6 stages tie
-// with 128 x 64 with 4 (two CTAs per SM) and win on a hot expert.
+// SM) at K 1536 and tie at K 512; tgmm 128 x 128 blocks beat 128 x 64 with
+// two CTAs per SM. A tgmm ring stage costs about the same whatever its
+// bytes, so it holds 128 token rows (3 stages) where block_t allows, else
+// 64 (6 stages).
 constexpr int GMM_WG_BN = 256, GMM_WG_STAGES = 4;
-constexpr int TGMM_WG_BN = 128, TGMM_WG_STAGES = 6;
+constexpr int TGMM_WG_BN = 128;
+constexpr int TGMM_STAGES_R128 = 3, TGMM_STAGES_R64 = 6;
 
 constexpr int BN = 64;  // output columns per CTA
 
@@ -731,38 +734,49 @@ tgmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 // rows write exact zeros; rows past sum(group_sizes) are never read.
 //
 // What bounds it: 103 GFLOP per gate/up call, as gmm: operations, 0.104 ms
-// at 989 TFLOP/s. The WMMA kernel ran at 5.6% of peak: two synchronous
-// staging copies per 32 rows and no overlap of loads with math.
+// at 989 TFLOP/s. Measured on an H100 (PERF.md), the first wgmma design ran
+// at a third of that, and neither L2 nor its bytes were the reason: loading
+// half the bytes per stage changed nothing, and sharing x and dy across a
+// 2 x 2 cluster by TMA multicast made it slower. Two things were: ptxas
+// serialized every wgmma (advisory C7518: the tile's last wait_group sat
+// in one branch, the other stages' in another), and every ring stage costs
+// about the same fixed time whatever its bytes, so 64-row stages paid it
+// twice per 128-row tile.
 //
 // Design: the reduction runs over token rows. Two consumer warpgroups each
 // own 64 K-rows of the block; the producer warp streams the expert's rows in
-// stages of 64 (from the prefix sum over group_sizes the CTA computes
-// itself): per stage two 64 x 64 boxes of x (rows x K-columns) and
-// TGMM_WG_BN / 64 boxes of dy, into a ring of TGMM_WG_STAGES stages. A = x^T
-// is M-major in shared memory (wgmma's transpose-A bit), B = dy is N-major
-// (transpose-B). A block_t tile is block_t / 16 k-steps into fp32
-// accumulators (the first with scale_d 0); at its end wgmma.wait_group 0,
-// the round and the add. A box wholly past K or N is not loaded (its
-// rows or columns are never stored). The grid is 1D in expert order, an
-// expert's CTAs consecutive, so those in flight share its rows in L2.
+// stages of SR = 128 rows where block_t allows, else 64 (from the prefix
+// sum over group_sizes the CTA computes itself): per stage two SR x 64
+// boxes of x (rows x K-columns) and TGMM_WG_BN / 64 boxes of dy, into a ring
+// of 3 (or 6) stages. A = x^T is M-major in shared memory (wgmma's
+// transpose-A bit), B = dy is N-major (transpose-B). A block_t tile is
+// block_t / 16 k-steps into fp32 accumulators (the first with scale_d 0): a
+// loop over the tiles around a loop over their stages, as gmm's main loop,
+// each stage's batch issued while the previous one runs (wgmma.wait_group
+// 1, releasing its stage); after the inner loop, outside any branch, the
+// tile's last batch retires (wait_group 0) before the round and the add. A
+// box wholly past K or N is not loaded (its rows or columns are never
+// stored). The grid is 1D in expert order, an expert's CTAs consecutive, so
+// those in flight share its rows in L2.
 // Later work: a hot expert serialises its column of CTAs (splitting its
 // rows would reorder the rounding chain: it needs a second pass that adds
 // the rounded tile partials in order); double-buffered accumulators so the
 // tensor cores run through each tile's round-and-add; persistent CTAs.
-template <int BN, int STAGES>
+template <int BN, int SR, int STAGES>
 constexpr int tgmm_wg_smem() {
-  return STAGES * (2 + BN / wg::BOX) * wg::BOX_BYTES + wg::ATOM;
+  return STAGES * (2 + BN / wg::BOX) * SR * 128 + wg::ATOM;
 }
 
-template <int BN, int STAGES>
+template <int BN, int SR, int STAGES>
 __global__ void __launch_bounds__(288, 1)
 tgmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_dy,
                        const int* __restrict__ gs, __nv_bfloat16* __restrict__ dw,
                        int K, int N, int block_t, int k_tiles, int n_tiles) {
   using namespace wg;
-  constexpr int A_BYTES = 2 * BOX_BYTES;  // 64 rows x 128 K-columns
-  constexpr int STAGE = A_BYTES + (BN / BOX) * BOX_BYTES;
+  constexpr int SBOX = SR * 128;     // one box: SR rows x 64 columns
+  constexpr int A_BYTES = 2 * SBOX;  // SR rows x 128 K-columns
+  constexpr int STAGE = A_BYTES + (BN / BOX) * SBOX;
   static_assert(2 * 64 * (BN * 2 + 16) <= STAGES * STAGE, "epilogue staging fits the ring");
   extern __shared__ uint8_t dyn_smem[];
   __shared__ __align__(8) uint64_t full[STAGES];
@@ -783,22 +797,22 @@ tgmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     mbar_init_fence();
   }
   __syncthreads();
-  const int start = s_start, steps = s_rows / BK;
+  const int start = s_start, steps = s_rows / SR;
 
   if (tid / 32 == 8) {  // producer warp
     if (tid % 32 == 0) {
       const int na = min(2, (K - k0 + BOX - 1) / BOX);
       const int nb = min(BN / BOX, (N - n0 + BOX - 1) / BOX);
-      const uint32_t bytes = (na + nb) * BOX_BYTES;
+      const uint32_t bytes = (na + nb) * SBOX;
       for (int it = 0; it < steps; ++it) {
         const int s = it % STAGES;
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         const uint32_t a = smem_addr(ring + s * STAGE), b = a + A_BYTES;
         const uint32_t bar = smem_addr(&full[s]);
-        const int row = start + it * BK;
+        const int row = start + it * SR;
         mbar_expect_tx(bar, bytes);
-        for (int i = 0; i < na; ++i) tma_2d(a + i * BOX_BYTES, &map_x, bar, k0 + i * BOX, row);
-        for (int j = 0; j < nb; ++j) tma_2d(b + j * BOX_BYTES, &map_dy, bar, n0 + j * BOX, row);
+        for (int i = 0; i < na; ++i) tma_2d(a + i * SBOX, &map_x, bar, k0 + i * BOX, row);
+        for (int j = 0; j < nb; ++j) tma_2d(b + j * SBOX, &map_dy, bar, n0 + j * BOX, row);
       }
     }
     return;
@@ -806,48 +820,42 @@ tgmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 
   // consumer warpgroup g: dW rows [k0 + 64 g, k0 + 64 g + 64)
   const int g = tid / 128, t = tid % 128;
-  const int per = block_t / BK;  // stages per block_t tile
+  const int per = block_t / SR;  // stages per block_t tile
+  const int tiles = steps / per;
   float acc[BN / 2];
   uint32_t run[BN / 4];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int j = 0; j < BN / 4; ++j) run[j] = 0u;
-  int pending = -1;  // a stage read by a wgmma group not yet waited for
-  for (int it = 0; it < steps; ++it) {
-    const int s = it % STAGES;
-    mbar_wait(&full[s], (it / STAGES) & 1);
-    const uint32_t a = smem_addr(ring + s * STAGE) + g * BOX_BYTES;
-    const uint32_t b = smem_addr(ring + s * STAGE) + A_BYTES;
-    const bool tile_start = it % per == 0;
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks)
-      Wgmma<BN, 1, 1>::run(acc, desc(a + ks * 16 * 128, BOX_BYTES, ATOM),
-                           desc(b + ks * 16 * 128, BOX_BYTES, ATOM),
-                           tile_start && ks == 0 ? 0 : 1);
-    wgmma_commit();
-    fence_acc(acc);
-    if (it % per == per - 1) {  // the tile's last stage: round and add
-      wgmma_wait<0>();
+  int it = 0;  // the stage counter over the expert's rows
+  for (int tile = 0; tile < tiles; ++tile) {
+    for (int p = 0; p < per; ++p, ++it) {
+      const int s = it % STAGES;
+      const uint32_t a = smem_addr(ring + s * STAGE) + g * SBOX;
+      const uint32_t b = smem_addr(ring + s * STAGE) + A_BYTES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
       fence_acc(acc);
-      if (t == 0) {
-        if (pending >= 0) mbar_arrive(&empty[pending]);
-        mbar_arrive(&empty[s]);
-      }
-      pending = -1;
-      const bool first_tile = it < per;
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < BN / 4; ++j) {
-        const uint32_t part = pack_bf16(acc[2 * j], acc[2 * j + 1]);
-        run[j] = first_tile ? part : add_bf16(run[j], part);
-      }
-    } else {
-      wgmma_wait<1>();
+      for (int ks = 0; ks < SR / 16; ++ks)
+        Wgmma<BN, 1, 1>::run(acc, desc(a + ks * 16 * 128, SBOX, ATOM),
+                             desc(b + ks * 16 * 128, SBOX, ATOM),
+                             p == 0 && ks == 0 ? 0 : 1);
+      wgmma_commit();
       fence_acc(acc);
-      if (t == 0 && pending >= 0) mbar_arrive(&empty[pending]);
-      pending = s;
+      wgmma_wait<1>();  // the previous stage's batch has retired
+      fence_acc(acc);
+      if (p > 0 && t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();  // the tile's last batch, outside any branch
+    fence_acc(acc);
+    if (t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    const bool first_tile = tile == 0;
+#pragma unroll
+    for (int j = 0; j < BN / 4; ++j) {
+      const uint32_t part = pack_bf16(acc[2 * j], acc[2 * j + 1]);
+      run[j] = first_tile ? part : add_bf16(run[j], part);
     }
   }
   bar_sync(1, 256);  // both warpgroups are past their last wgmma: the ring is idle
@@ -899,18 +907,19 @@ int launch_gmm_wgmma(const void* x, const void* w, const int* gs, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int SR>
 int launch_tgmm_wgmma(const void* x, const void* dy, const int* gs, void* dw, int T,
                       int K, int N, int E, int block_t, cudaStream_t stream) {
-  constexpr int BN = TGMM_WG_BN, STAGES = TGMM_WG_STAGES;
+  constexpr int BN = TGMM_WG_BN, STAGES = SR == 128 ? TGMM_STAGES_R128 : TGMM_STAGES_R64;
   CUtensorMap mx, md;
-  const cuuint32_t box[2] = {wg::BOX, wg::BK};
+  const cuuint32_t box[2] = {wg::BOX, SR};
   const cuuint64_t xd[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(T)};
   const cuuint64_t dd[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(T)};
   int err = bf16_map(&mx, x, 2, xd, box);
   if (err == 0) err = bf16_map(&md, dy, 2, dd, box);
   if (err != 0) return err;
-  const auto kernel = tgmm_bf16_wgmma_kernel<BN, STAGES>;
-  constexpr int smem = tgmm_wg_smem<BN, STAGES>();
+  const auto kernel = tgmm_bf16_wgmma_kernel<BN, SR, STAGES>;
+  constexpr int smem = tgmm_wg_smem<BN, SR, STAGES>();
   static std::atomic<unsigned long long> ready{0};
   err = allow_smem(ready, kernel, smem);
   if (err != 0) return err;
@@ -961,7 +970,9 @@ extern "C" int tgmm_backward(const void* x, const void* dy,
   if (kernel == 2) {
     if (block_t % 64 != 0 || !wgmma_shapes_ok(K, N, x, dy, dw))
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_tgmm_wgmma(x, dy, group_sizes, dw, T, K, N, E, block_t, s);
+    return block_t % 128 == 0
+               ? launch_tgmm_wgmma<128>(x, dy, group_sizes, dw, T, K, N, E, block_t, s)
+               : launch_tgmm_wgmma<64>(x, dy, group_sizes, dw, T, K, N, E, block_t, s);
   }
   dim3 grid((N + TB - 1) / TB, (K + TB - 1) / TB, E);
   if (kernel == 0) {

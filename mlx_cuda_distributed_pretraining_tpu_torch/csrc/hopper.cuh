@@ -1,9 +1,9 @@
 // Hopper (sm_90a) machinery shared by csrc/grouped_matmul.cu (gmm, tgmm)
-// and csrc/flash_attention.cu (the flash forward and dK/dV): TMA boxes with
-// 128-byte swizzle, full/empty mbarriers, shared-memory wgmma descriptors,
-// wgmma with both operands in shared memory (SS) or A in registers (RS),
-// and, on the host, tensor maps encoded through the driver entry point
-// (no -lcuda). Header only; each source includes it and builds on its own.
+// and csrc/flash_attention.cu (the flash kernels): TMA boxes with 128-byte
+// swizzle, full/empty mbarriers, shared-memory wgmma descriptors, wgmma with
+// both operands in shared memory (SS) or A in registers (RS), and, on the
+// host, tensor maps encoded through the driver entry point (no -lcuda).
+// Header only; each source includes it and builds on its own.
 #pragma once
 
 #include <cuda.h>

@@ -21,8 +21,9 @@ CPU tensors go to the plain versions; CUDA tensors launch the kernels, and
 a dtype, head dim, layout or mask the kernels do not take raises. No build
 or launch error falls back. Each function has several kernels
 ("variants"); :func:`flash_variant` picks one before launch: "wgmma" (TMA
-ring feeding wgmma, scores and P in registers) for the bf16 forward and
-dK/dV, "wmma" for the bf16 dQ, "f32" (SIMT) for fp32. Each wrapper counts
+ring feeding wgmma, scores, P and dS in registers) for bf16, "f32" (SIMT)
+for fp32; "wmma", the 64-row bf16 dQ that served before the wgmma one, is
+reachable through the library's C entry only. Each wrapper counts
 its launches in ``<fn>.launches`` and per variant in
 ``<fn>.launches_by_variant`` (:func:`reset_launches` zeroes both).
 
@@ -69,6 +70,7 @@ FLASH_VARIANTS = ("wgmma", "wmma", "f32")
 _VARIANT_CODES = {"f32": 0, "wmma": 1, "wgmma": 2}  # csrc/flash_attention.cu's Variant
 _HEAD_DIMS = (64, 128)
 _DKV_BQ = {64: 128, 128: 64}  # DKV_BQ_D64 / _D128 in csrc/flash_attention.cu
+_DQ_BKV = {64: 128, 128: 64}  # DQ_BKV_D64 / _D128 in csrc/flash_attention.cu
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
 
 
@@ -84,10 +86,9 @@ def check_matmul_precision(precision: Optional[str]) -> Optional[str]:
 
 def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call of ``fn`` ("flash_fwd", "flash_bwd_dq" or
-    "flash_bwd_dkv") launches: "wgmma" for a bf16 forward or dK/dV at a head
-    dim the kernels take, "wmma" for other bf16 calls (dQ), "f32" for fp32.
-    TMA's 16-byte alignment needs no check here: :func:`_check` refuses
-    operands that are not aligned before any launch."""
+    "flash_bwd_dkv") launches: "wgmma" for bf16, "f32" for fp32. The head
+    dim and TMA's 16-byte alignment need no check here: :func:`_check`
+    refuses operands the kernels do not take before any launch."""
     if fn not in FLASH_KERNELS:
         raise ValueError(f"unknown flash kernel {fn!r} (expected one of "
                          f"{FLASH_KERNELS})")
@@ -95,21 +96,25 @@ def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
         return "f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"{fn} kernel takes fp32 or bf16, got {dtype}")
-    if fn != "flash_bwd_dq" and head_dim in _HEAD_DIMS:
-        return "wgmma"
-    return "wmma"
+    return "wgmma"
 
 
 def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
     """``(block_q, block_kv)``: the tile sizes a variant's kernel plans at
     (the tile constants in ``csrc/flash_attention.cu``, which the wgmma
     launchers check against the plan). The wgmma forward takes 128 query
-    rows per CTA against 128-row KV tiles; the wgmma dK/dV 128 KV rows per
-    CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 64, 64 at D
-    128, where dK and dV alone hold 128 registers a thread); WMMA 64 and
-    SIMT 32 square."""
+    rows per CTA against 128-row KV tiles; the wgmma dQ 128 query rows per
+    CTA against ``_DQ_BKV[head_dim]``-row KV tiles (128 at D 64, 64 at D
+    128, where dQ alone holds 64 registers a thread); the wgmma dK/dV 128 KV
+    rows per CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 64, 64
+    at D 128, where dK and dV alone hold 128 registers a thread); WMMA 64
+    and SIMT 32 square."""
     if variant == "wgmma":
-        return (128, 128) if fn == "flash_fwd" else (_DKV_BQ[head_dim], 128)
+        if fn == "flash_fwd":
+            return (128, 128)
+        if fn == "flash_bwd_dq":
+            return (128, _DQ_BKV[head_dim])
+        return (_DKV_BQ[head_dim], 128)
     return (64, 64) if variant == "wmma" else (32, 32)
 
 
@@ -438,7 +443,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask_type: str = "causal",
     _check("flash_bwd_dq", {"q": q, "k": k, "v": v, "do": do, "lse": lse,
                             "delta": delta}, mask_type)
     kind = flash_variant("flash_bwd_dq", q.dtype, q.shape[3])
-    bq, bkv = kernel_tiles("flash_bwd_dq", kind)
+    bq, bkv = kernel_tiles("flash_bwd_dq", kind, q.shape[3])
     kv_ranges, _, full = _plan(mask_type, window, prefix_len, q.shape[2], bq,
                                q.device, bkv)
     dq = _bshd_like(q)

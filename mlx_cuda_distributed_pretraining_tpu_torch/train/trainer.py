@@ -13,11 +13,20 @@ cross-entropy), and interval and ``final`` checkpoints in the ``runs/``
 layout both packages read. It runs on ``cuda`` unless the caller asks for
 the CPU.
 
+``model.architecture`` resolves through ``models/registry.py`` as in the
+JAX trainer: an unknown name raises, and ``llama_standard`` /
+``llama_flash`` force simple / flash attention.
+
 Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
 ``model_parallel`` that needs more than one device (expert, data, tensor,
 sequence and pipeline parallelism), int8 grouped GEMMs, remat /
 scan_layers / fused CE, optimizers other than adam/adamw, streaming data,
-resume, async checkpoints and the telemetry endpoints.
+resume, and the switches that change what the JAX trainer does
+(``training.early_stopping``, ``training.lr_finder``, checkpoint
+``logging.retention``, ``logging.log_samples``). The telemetry keys
+(``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
+``events``) are read by nothing here: they change no number the trainer
+computes, writes or logs, so a run with them set trains as one without.
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
@@ -27,6 +36,7 @@ files; :func:`load_trained` reads them into the port's parameters.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -41,6 +51,7 @@ from ..config import Config, apply_overrides, read_config_dict
 from ..data.memory import DataManager
 from ..models import llama
 from ..models.llama import LlamaArgs
+from ..models.registry import resolve_architecture
 from ..obs.flops import mfu as compute_mfu
 from ..ops.flash_attention import check_matmul_precision
 from ..obs.flops import model_flops_per_token, peak_flops_per_chip
@@ -69,6 +80,32 @@ def refuse_multi_device(system_cfg) -> None:
         raise NotImplementedError(
             f"system mesh {sizes} needs {needed} devices; the port trains on one "
             "(ROADMAP queue 1 item 10: multi-GPU)")
+
+
+def refuse_unported_switches(cfg: Config) -> None:
+    """Raise on a switch that changes what the JAX trainer does (it stops
+    early, adopts another LR, deletes checkpoints or generates samples) and
+    that the port has no code for: running as if it were off would give
+    another run than the one configured."""
+    training = getattr(cfg.training, "_extras", {})
+    logging = getattr(cfg.logging, "_extras", {})
+    if dict(training.get("early_stopping") or {}).get("enabled"):
+        raise NotImplementedError(
+            "training.early_stopping is not ported (ROADMAP queue 1 item 2: resume "
+            "and the loop features whose state rides a checkpoint)")
+    if dict(training.get("lr_finder") or {}).get("enabled"):
+        raise NotImplementedError(
+            "training.lr_finder is not ported (ROADMAP queue 1 item 4: the other "
+            "optimizers and the LR finder)")
+    retention = dict(cfg.logging.retention or {})
+    if retention.get("keep_last") or retention.get("keep_every"):
+        raise NotImplementedError(
+            "logging.retention (checkpoint GC) is not ported (ROADMAP queue 1 item 2: "
+            "resume, async save, retention GC)")
+    if logging.get("log_samples"):
+        raise NotImplementedError(
+            "logging.log_samples is not ported (ROADMAP queue 1 item 7: the locked "
+            "generation path and its samplers)")
 
 
 def routing_line(window: List[Tuple[torch.Tensor, torch.Tensor]]) -> Dict[str, Any]:
@@ -103,6 +140,7 @@ class Trainer:
                 f"data source {cfg.data.source!r} is not ported (ROADMAP queue 1: "
                 "streaming, token shards, native/ and device prefetch)")
         refuse_multi_device(cfg.system)
+        refuse_unported_switches(cfg)
 
         self.run_dir = CheckpointManager.setup_run_directory(
             runs_root, cfg.name, cfg.overwrite)
@@ -111,15 +149,20 @@ class Trainer:
         cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
         self.tokenizer = TokenizerManager(cfg.data, run_dir=self.run_dir)
 
+        # model.architecture as the JAX trainer resolves it: an unknown name
+        # raises, llama_standard / llama_flash force the attention
+        self.arch = resolve_architecture(cfg.model.architecture)
         args = LlamaArgs.from_config(cfg.model, self.tokenizer.vocab_size)
+        if self.arch.force_attention:
+            args = dataclasses.replace(args, attention_type=self.arch.force_attention)
         if args.is_moe and args.moe_impl == "grouped" \
                 and check_matmul_precision(args.matmul_precision) == "int8":
             raise NotImplementedError(
                 "matmul_precision int8 in the grouped GEMM is not ported "
                 "(ROADMAP queue 1 item 8: speculation and quantization)")
         self.model_args = args
-        params = llama.init_params(args, torch.Generator().manual_seed(cfg.system.seed),
-                                   device=self.device)
+        params = self.arch.init_params(
+            args, torch.Generator().manual_seed(cfg.system.seed), device=self.device)
         self.n_params = llama.num_params(params)
         self.logger.log_model_summary(self.n_params, args)
 
@@ -319,6 +362,7 @@ def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda"):
     cfg = Config.from_yaml(os.path.join(run_dir, "config.yaml"))
     tok = TokenizerManager.from_run_dir(run_dir)
     args = LlamaArgs.from_config(cfg.model, tok.vocab_size)
+    resolve_architecture(cfg.model.architecture)  # unknown names raise, as in JAX
     model_path = latest_model_path(run_dir)
     if model_path is None:
         raise FileNotFoundError(f"no model checkpoints in {run_dir}")

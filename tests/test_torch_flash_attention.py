@@ -239,16 +239,18 @@ def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
-    # bf16 forward and dK/dV take the TMA/wgmma kernels, bf16 dQ the WMMA
-    # one, fp32 the SIMT ones; each variant plans at its own tiles.
+    # bf16 takes the TMA/wgmma kernels (dQ too), fp32 the SIMT ones; each
+    # variant plans at its own tiles.
     got = tf.flash_variant(fn, getattr(torch, dtype), head_dim)
-    want = ("f32" if dtype == "float32"
-            else "wmma" if fn == "flash_bwd_dq" else "wgmma")
+    want = "f32" if dtype == "float32" else "wgmma"
     assert got == want
     assert tf.kernel_tiles(fn, got, head_dim) == {
         ("flash_fwd", "wgmma"): (128, 128),
+        ("flash_bwd_dq", "wgmma"): (128, tf._DQ_BKV[head_dim]),
         ("flash_bwd_dkv", "wgmma"): (tf._DKV_BQ[head_dim], 128),
-    }.get((fn, got), (64, 64) if got == "wmma" else (32, 32))
+    }.get((fn, got), (32, 32))
+    # the WMMA dQ (the C entry's "wmma" code) keeps its 64-row plan
+    assert tf.kernel_tiles("flash_bwd_dq", "wmma", head_dim) == (64, 64)
 
 
 def test_flash_variant_rejects_what_no_kernel_takes():
@@ -267,13 +269,25 @@ def test_kernel_tiles_match_the_cuda_source():
     const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert tf.kernel_tiles("flash_fwd", "wgmma") == (const["FWD_BQ"], const["FWD_BKV"])
     for d in (64, 128):
+        assert tf.kernel_tiles("flash_bwd_dq", "wgmma", d) == (
+            const["DQ_BQ"], const[f"DQ_BKV_D{d}"])
         assert tf.kernel_tiles("flash_bwd_dkv", "wgmma", d) == (
             const[f"DKV_BQ_D{d}"], const["DKV_BKV"])
 
 
+WGMMA_PLAN_TILES = [(128, 128), (128, 64), (64, 128)]
+
+
+def test_the_planner_test_covers_every_wgmma_plan():
+    # forward 128 x 128; dQ 128 x 128 (D 64) and 128 x 64 (D 128); dK/dV
+    # 128 x 128 (D 64) and 64 x 128 (D 128)
+    tiles = {tf.kernel_tiles(fn, "wgmma", d) for fn in tf.FLASH_KERNELS for d in (64, 128)}
+    assert tiles == set(WGMMA_PLAN_TILES)
+
+
 @pytest.mark.parametrize("mask_type", ["causal", "sliding_window", "prefix_lm", "full"])
 @pytest.mark.parametrize("S", [130, 1000, 1024])
-@pytest.mark.parametrize("bq,bkv", [(128, 128), (128, 64), (64, 128)])
+@pytest.mark.parametrize("bq,bkv", WGMMA_PLAN_TILES)
 def test_plan_at_the_wgmma_tiles_matches_jax_planners(mask_type, S, bq, bkv):
     # _plan with separate Q and KV tile sizes: live ranges from the JAX
     # _kv_range / _q_range, the no-mask flag from _full_tile_fn and the
@@ -306,10 +320,11 @@ def test_plan_at_the_wgmma_tiles_matches_jax_planners(mask_type, S, bq, bkv):
 
 
 def test_planted_fault_drops_one_tile_of_the_wgmma_plans():
-    # The forward's plan (128 x 128) loses the last live KV tile of its last
-    # Q tile; dK/dV's (64 x 128) the last live Q tile of KV tile 0.
+    # The forward's and dQ's plans (128 x 128; dQ at D 128 128 x 64) lose
+    # the last live KV tile of their last Q tile; dK/dV's (64 x 128 at D
+    # 128) the last live Q tile of KV tile 0.
     cpu = torch.device("cpu")
-    for bq, bkv in ((128, 128), (64, 128)):
+    for bq, bkv in WGMMA_PLAN_TILES:
         kv0, q0, full0 = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)
         with kernel_check.planted_fault():
             kv, qr, full = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)

@@ -254,6 +254,20 @@ def _assert_matches(op, got, ref, sizes):
         assert not got[sum(sizes):].any(), "tail rows must come out zero"
 
 
+def _wmma_tgmm(x, dy, gs, block_t):
+    """bf16 tgmm on the WMMA kernel (``tgmm_backward``'s kernel code 1),
+    through the library's C entry: what the wgmma kernel must equal element
+    by element (the same rounding points, the same fp32 products)."""
+    E, (T, K), N = len(gs), x.shape, dy.shape[1]
+    dw = torch.empty((E, K, N), dtype=x.dtype, device=x.device)
+    err = tgm._library().tgmm_backward(
+        x.data_ptr(), dy.data_ptr(), gs.data_ptr(), dw.data_ptr(), T, K, N, E,
+        block_t, 1, tgm._stream(x))
+    assert err == 0, f"WMMA tgmm launch failed with CUDA error {err}"
+    torch.cuda.synchronize()
+    return dw
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["forward", "dx", "tgmm"])
 @pytest.mark.parametrize("block_t,sizes,tail", WGMMA_CASES)
@@ -265,6 +279,24 @@ def test_wgmma_kernels_match_plain(cuda, op, block_t, sizes, tail, K, N):
     got, ref, ran = _run_grouped(op, x, other, gs, block_t)
     assert ran == {"wgmma": 1}
     _assert_matches(op, got, ref, sizes)
+    if op == "tgmm":
+        assert torch.equal(got, _wmma_tgmm(x, other, gs, block_t))
+
+
+@pytest.mark.cuda
+# tgmm's 128 x 128 dW blocks at ragged edges: an odd number of K blocks
+# (K 384), of N blocks (N 640) or both; a block holding one live box of K
+# and of N (K 320, N 200); block_t 128 (two stages a tile, the path's) and
+# 64 (one)
+@pytest.mark.parametrize("block_t", [128, 64])
+@pytest.mark.parametrize("K,N", [(384, 512), (512, 640), (384, 640), (320, 200)])
+def test_wgmma_tgmm_ragged_edges_equal_wmma(cuda, K, N, block_t):
+    sizes, tail = [256, 0, 128, 384], 128
+    x, dy, gs = _grouped_inputs("tgmm", sizes, tail, K, N)
+    got, ref, ran = _run_grouped("tgmm", x, dy, gs, block_t)
+    assert ran == {"wgmma": 1}
+    _assert_matches("tgmm", got, ref, sizes)
+    assert torch.equal(got, _wmma_tgmm(x, dy, gs, block_t))
 
 
 @pytest.mark.cuda
@@ -389,7 +421,8 @@ def test_flash_kernels_reject_bad_input(cuda):
 
 
 # (B, Hq, Hkv, S, D, mask, window, prefix, layout): the wgmma forward's 128-row
-# Q and KV tiles and dK/dV's 128-row KV / 64-row Q tiles at their edges
+# Q and KV tiles, dQ's 128-row Q / 128-row (D 64) or 64-row (D 128) KV tiles
+# and dK/dV's 128-row KV / 128-row (D 64) or 64-row (D 128) Q tiles at their edges
 # (S of one row, one 64-row tile, either side of 128, ragged 1000, 16 KV
 # tiles), windows and a prefix that are not multiples of 128, GQA and D
 # 128; "bshd": [B, H, S, D] views of [B, S, H, D] tensors (the model's),
@@ -429,23 +462,27 @@ def test_wgmma_flash_kernels_match_plain(cuda, B, Hq, Hkv, S, D, mask, window, p
     o, lse = tfa.flash_fwd(q, k, v, **kw)
     ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * ro.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
     torch.cuda.synchronize()
     after = _flash_counts()
     ran = {n: {v_: c - before[n][v_] for v_, c in after[n].items() if c != before[n][v_]}
            for n in tfa.FLASH_KERNELS}
-    assert ran == {"flash_fwd": {"wgmma": 1}, "flash_bwd_dq": {},
+    assert ran == {"flash_fwd": {"wgmma": 1}, "flash_bwd_dq": {"wgmma": 1},
                    "flash_bwd_dkv": {"wgmma": 1}}
+    rdq = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     assert torch.isfinite(lse).all()
     torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
-    outs = [("o", o, ro), ("dk", dk, rdk), ("dv", dv, rdv)]
+    outs = [("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)]
     if S == 1:
         # A lone key's softmax has no gradient: dS = p (dP - delta) is the
         # fp32 rounding of dO.v - dO.o with o = v, in both versions alike,
-        # so dK is rounding noise; hold both to zero instead of each other.
-        assert dk.abs().max() <= 1e-5 and rdk.abs().max() <= 1e-5
-        outs.pop(1)
+        # so dQ and dK are rounding noise; hold both to zero instead of each
+        # other.
+        for got, ref in ((dq, rdq), (dk, rdk)):
+            assert got.abs().max() <= 1e-5 and ref.abs().max() <= 1e-5
+        outs = [outs[0], outs[3]]
     for name, got, ref in outs:
         assert got.shape == ref.shape and got.dtype == ref.dtype, name
         check = kernel_check.compare(got, ref)
@@ -454,22 +491,23 @@ def test_wgmma_flash_kernels_match_plain(cuda, B, Hq, Hkv, S, D, mask, window, p
 
 @pytest.mark.cuda
 def test_wgmma_flash_planted_fault_is_rejected(cuda):
-    # One live tile left out of each wgmma plan (the forward's 128 x 128,
-    # dK/dV's 64 x 128) at the training path's shape on fewer heads: the
-    # same check that passes the kernels must fail them.
+    # One live tile left out of each wgmma plan (the forward's and dQ's
+    # 128 x 128, dK/dV's 128 x 128) at the training path's shape on fewer
+    # heads: the same check that passes the kernels must fail them.
     q, k, v, do = _flash_inputs("bfloat16", 2, 8, 8, 1024, 64)
     kw = dict(mask_type="causal", scale=64 ** -0.5)
     ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * ro.float()).sum(-1).contiguous()
-    refs = {"o": ro}
+    refs = {"o": ro, "dq": tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)}
     refs["dk"], refs["dv"] = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     before = _flash_counts()
     with kernel_check.planted_fault():
-        bad = {"o": tfa.flash_fwd(q, k, v, **kw)[0]}
+        bad = {"o": tfa.flash_fwd(q, k, v, **kw)[0],
+               "dq": tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)}
         bad["dk"], bad["dv"] = tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
     after = _flash_counts()
-    assert after["flash_fwd"]["wgmma"] == before["flash_fwd"]["wgmma"] + 1
-    assert after["flash_bwd_dkv"]["wgmma"] == before["flash_bwd_dkv"]["wgmma"] + 1
+    for n in tfa.FLASH_KERNELS:
+        assert after[n]["wgmma"] == before[n]["wgmma"] + 1, n
     for name, ref in refs.items():
         assert not kernel_check.compare(bad[name], ref)["ok"], name
 
@@ -494,10 +532,18 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda):
         tfa._launch("flash_bwd_dkv_launch", "wgmma", q, k, v, ranges=q_ranges, full=full,
                     dout=do, lse_in=lse, delta=lse, out0=o, out1=torch.empty_like(q),
                     **plan_kw)
-    # dQ has no wgmma kernel
-    ranges, _, full = tfa._plan("causal", 0, 0, 256, 128, q.device)
+    # dQ's wgmma kernel too (it plans at 128 x 128 at D 64)
     with pytest.raises(RuntimeError, match="wgmma"):
         tfa._launch("flash_bwd_dq_launch", "wgmma", q, k, v, ranges=ranges, full=full,
                     dout=do, lse_in=lse, delta=lse, out0=o, **plan_kw)
+    # the library no longer builds a bf16 WMMA forward or dK/dV
+    ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 64, q.device)
+    with pytest.raises(RuntimeError, match="wmma"):
+        tfa._launch("flash_fwd_launch", "wmma", q, k, v, ranges=ranges, full=full,
+                    out0=o, lse_out=lse, **plan_kw)
+    with pytest.raises(RuntimeError, match="wmma"):
+        tfa._launch("flash_bwd_dkv_launch", "wmma", q, k, v, ranges=q_ranges, full=full,
+                    dout=do, lse_in=lse, delta=lse, out0=o, out1=torch.empty_like(q),
+                    **plan_kw)
     torch.cuda.synchronize()
     assert _flash_counts() == before

@@ -485,3 +485,73 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
                  quiet=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.train()
+
+
+# (config path, value, ROADMAP queue 1 item named): switches with which the
+# JAX trainer stops early, adopts another LR, deletes checkpoints or
+# generates samples; the port has none of them yet and must refuse them.
+UNPORTED_SWITCHES = [
+    ("training.early_stopping", {"enabled": True, "patience": 1, "min_delta": 100}, 2),
+    ("training.lr_finder", {"enabled": True, "num_steps": 5}, 4),
+    ("logging.retention", {"keep_last": 1}, 2),
+    ("logging.retention", {"keep_every": 10}, 2),
+    ("logging.log_samples", True, 7),
+]
+
+
+@pytest.mark.parametrize("path,value,item", UNPORTED_SWITCHES)
+def test_trainer_refuses_switches_that_change_the_run(tmp_path, path, value, item):
+    d = _config_dict(tmp_path)
+    section, key = path.split(".")
+    d[section][key] = value
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}\\b"):
+        Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "runs"), quiet=True,
+                device="cpu")
+    # switched off, each trains as before
+    d[section][key] = False if value is True else {k: 0 if k.startswith("keep") else False
+                                                     for k in value}
+    Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "runs"), quiet=True,
+            device="cpu")
+
+
+def test_unknown_architecture_raises_as_in_jax(tmp_path):
+    from mlx_cuda_distributed_pretraining_tpu.models.registry import (
+        resolve_architecture as j_resolve,
+    )
+
+    d = _config_dict(tmp_path)
+    d["model"]["architecture"] = "lama_typo"
+    with pytest.raises(ValueError) as jerr:
+        j_resolve("lama_typo")
+    with pytest.raises(ValueError) as terr:
+        Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "runs"), quiet=True,
+                device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    assert "unknown architecture 'lama_typo'" in str(terr.value)
+    # a finished run whose config names an unknown architecture does not load
+    tr = Trainer(TConfig.from_dict(_config_dict(tmp_path, iters=1)),
+                 runs_root=str(tmp_path / "runs"), quiet=True, device="cpu")
+    tr.train()
+    cfg_path = os.path.join(tr.run_dir, "config.yaml")
+    raw = json.load(open(cfg_path))
+    raw["model"]["architecture"] = "lama_typo"
+    json.dump(raw, open(cfg_path, "w"))
+    with pytest.raises(ValueError, match="unknown architecture"):
+        t_load_trained(tr.run_dir, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["llama", "llama_standard", "llama_flash", "LLaMA_Flash"])
+@pytest.mark.parametrize("flash", [False, True])
+def test_architecture_sets_attention_as_the_jax_trainer(tmp_path, arch, flash):
+    from mlx_cuda_distributed_pretraining_tpu.train.trainer import Trainer as JTrainer
+
+    d = _config_dict(tmp_path, flash=flash)
+    d["model"]["architecture"] = arch
+    jtr = JTrainer(JConfig.from_dict(d), for_training=False,
+                   runs_root=str(tmp_path / "jruns"), quiet=True)
+    ttr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "truns"), quiet=True,
+                  device="cpu")
+    assert ttr.model_args.attention_type == jtr.model_args.attention_type
+    forced = {"llama_standard": "simple", "llama_flash": "flash"}.get(arch.lower())
+    assert ttr.model_args.attention_type == (forced or ("flash" if flash else "simple"))
+    assert ttr.arch.name == jtr.arch.name
