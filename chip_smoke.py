@@ -14,11 +14,16 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    reports that it serialized a kernel's wgmmas (advisories C7513, C7518,
    C7520).
 3. kernels — holds ``gmm`` against its plain PyTorch version at the serving
-   path's shapes (moe-8x40m: decode with 8 slots, a 256-token prefill chunk),
-   fp32 and bf16, plus an empty-group/tail-tile case, and times the kernel,
-   the plain version and ``torch._grouped_mm`` (where it takes the dtype)
-   as a yardstick. At the MoE training path's shapes (block_t 128) gmm's
-   forward and dX and tgmm must run their TMA/wgmma kernels (the
+   path's shapes (moe-8x40m: decode with 8 slots, a 256-token prefill chunk
+   and a 160-token one at block_t 16), fp32 and bf16, plus an
+   empty-group/tail-tile case; each must run the ``gmm_variant`` kernel
+   (fp32: "f32_decode" at block_t 8, "f32" above), and at the fp32 prefill
+   shape the kernel is launched once more with its last live row tile left
+   out, which the same check must reject. Times the kernel, the plain
+   version and ``torch._grouped_mm`` (where it takes the dtype) as a
+   yardstick, each launch reading weights from HBM. At the MoE training
+   path's shapes (block_t 128) gmm's forward and dX and tgmm must run
+   their TMA/wgmma kernels (the
    per-variant launch counts say so), are held against their plain
    versions, and are compared element by element with, and timed in turns
    with, the WMMA kernels that served those shapes before (called through
@@ -34,19 +39,16 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    for the backward kernels) as a yardstick, with its TFLOP/s. Each call
    must run the variant ``flash_variant`` names (bf16: the wgmma kernels).
    Each output must pass ``ops/kernel_check.compare`` (per-element limits
-   scaled to the output's RMS, and a normwise limit); so must, in every
-   bf16 case, the WMMA dQ that served the path before (called through the
-   library's C entry with the "wmma" code on its 64-row plan), and at the
-   path shape both dQ generations are timed in turns (WMMA, wgmma, wgmma,
-   WMMA). At the path shape the kernels are launched once more with one
-   live tile left out of their plans, and the same check must reject every
-   output.
+   scaled to the output's RMS, and a normwise limit). At the path shape
+   the kernels are launched once more with one live tile left out of their
+   plans, and the same check must reject every output.
 4. serve   — serves moe-8x40m at full width (12 layers, seeded random fp32
    weights) through the port's HTTP server and batch engine: 8 slots,
    max_len 1024, paged KV in 32-token blocks, prefix cache, 256-token prefill
    chunks. Checks the responses, the gmm launch count (3 per layer per
-   prefill chunk and per decode step) and the first token's logits against
-   the port's plain path on the CPU.
+   prefill chunk and per decode step: every prefill launch on "f32", every
+   decode launch on "f32_decode") and the first token's logits against the
+   port's plain path on the CPU.
 5. train   — trains configs/model-config-40m-adamw.yaml at full width
    (hidden 512, 12 layers, S 1024, batch 32, bf16 over fp32 masters, AdamW)
    through ``Trainer(...).train()`` on a seeded synthetic byte corpus: 30
@@ -71,8 +73,11 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    batch 8, and serves the final checkpoint.
 7. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
    kernel's ms where this run timed one, each flash kernel with its
-   launches by variant), the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   launches by variant; the serving path's fp32 gmm kernels, "gmm_f32" and
+   "gmm_f32_decode", as entries of their own with their serving launches
+   and every fp32 row), the card line, and as the last line
+   ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
+   495 / 3 TFLOP/s (3xTF32), the card's fastest fp32-accurate rate.
 
 Every path runs with all launch counts set to 0 just before it and read
 just after. fp32 matmuls run in full fp32: TF32 is switched off for matmuls
@@ -96,8 +101,12 @@ MOE_8X40M = dict(vocab_size=259, hidden_size=512, intermediate_size=1536,
                  rope_theta=10000.0, tie_word_embeddings=True,
                  num_local_experts=8, num_experts_per_tok=2, moe_impl="grouped")
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and FLOP/s by operand type.
+# fp32: the card's fastest route to fp32-accurate products is three TF32
+# tensor-core passes (3xTF32, as the "f32" gmm kernel runs them): 495 / 3
+# TFLOP/s, above the FMA units' 67.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+FP32_3XTF32_FLOPS = 495e12 / 3
+PEAK_FLOPS = {"float32": FP32_3XTF32_FLOPS, "bfloat16": 989e12}
 REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:137"
 TGMM_REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:188"
 SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/grouped_matmul.cu"
@@ -189,7 +198,11 @@ def device_ms(torch, fn, copies: int, reps: int = 40) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_case(torch, gm, kernel_check, name, dtype, T, K, N, sizes, block_t):
+def kernel_case(torch, gm, kernel_check, name, dtype, T, K, N, sizes, block_t,
+                fault=False):
+    """gmm at one serving shape against its plain version; it must run the
+    ``gmm_variant`` kernel. With ``fault`` the kernel is also launched with
+    the last live row tile left out, which the same check must reject."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(SEED)
     E = sizes.shape[0]
@@ -203,7 +216,9 @@ def kernel_case(torch, gm, kernel_check, name, dtype, T, K, N, sizes, block_t):
           for _ in range(copies)]
     gs = sizes.to("cuda")
 
+    before = dict(gm.gmm.launches_by_variant)
     out = gm.gmm(x, ws[0], gs, block_t)
+    ran = launched_since(before, gm.gmm.launches_by_variant)
     ref = gm.gmm_plain(x, ws[0], gs, block_t)
     torch.cuda.synchronize()
     # kernel_check.compare: the order of the fp32 sums only (bf16: one
@@ -211,6 +226,20 @@ def kernel_case(torch, gm, kernel_check, name, dtype, T, K, N, sizes, block_t):
     check = kernel_check.compare(out, ref)
     err = check["max_abs_err"]
     ok = check["ok"] and not out[live:].any().item()
+    want = gm.gmm_variant(dt, block_t, K, N)
+    if ran != {want: 1}:
+        ok = False
+        log(f"gmm {name}: ran {ran}, not the {want} kernel")
+    bad = None
+    if fault:
+        bad = kernel_check.compare(
+            kernel_check.gmm_skipping_a_tile(x, ws[0], gs, block_t), ref)
+        log(f"gmm {name} planted fault (last live row tile skipped): "
+            f"limit_ratio={bad['limit_ratio']:.3g} norm={bad['norm_err']:.3g} "
+            f"rejected={not bad['ok']}")
+        if bad["ok"]:
+            ok = False
+            log(f"gmm {name}: the check passed a planted fault")
 
     ms = device_ms(torch, lambda i: gm.gmm(x, ws[i], gs, block_t), copies)
     plain_ms = device_ms(torch, lambda i: gm.gmm_plain(x, ws[i], gs, block_t),
@@ -231,13 +260,15 @@ def kernel_case(torch, gm, kernel_check, name, dtype, T, K, N, sizes, block_t):
     flops = 2.0 * live * K * N
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     case = {"case": name, "dtype": dtype, "shape": [T, K, N, E],
-            "block_t": block_t, "group_sizes": sizes.tolist(),
-            "max_abs_err": err, "ok": bool(ok), "ms": ms, "plain_ms": plain_ms,
+            "block_t": block_t, "group_sizes": sizes.tolist(), "variants": ran,
+            "max_abs_err": err, "check": check, "planted_fault": bad,
+            "ok": bool(ok), "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": library_note,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     log(f"gmm {name} {dtype} x[{T},{K}] w[{E},{K},{N}] block_t={block_t}: "
-        f"max_abs_err={err:.3g} ok={ok} kernel={ms:.4f} ms plain="
+        f"variant={ran} max_abs_err={err:.3g} limit_ratio={check['limit_ratio']:.3g} "
+        f"norm={check['norm_err']:.3g} ok={ok} kernel={ms:.4f} ms plain="
         f"{plain_ms:.4f} ms library={library_ms} ms ({library_note}) "
         f"bound={case['bound_ms']:.4f} ms ({case['bound_by']})")
     del ws
@@ -259,7 +290,11 @@ def kernel_phase(torch, gm, kernel_check):
     cases.append(kernel_case(torch, gm, kernel_check, "decode_down", "float32",
                              dec_rows, I, D, dec_sizes, 8))
     cases.append(kernel_case(torch, gm, kernel_check, "prefill_down", "float32",
-                             pre_rows, I, D, pre_sizes, 32))
+                             pre_rows, I, D, pre_sizes, 32, fault=True))
+    # a short last prefill chunk: 160 tokens x top-2 pick block_t 16
+    short_sizes, short_rows = routed_sizes(torch, rng, 320, E, 16)
+    cases.append(kernel_case(torch, gm, kernel_check, "prefill_short_down", "float32",
+                             short_rows, I, D, short_sizes, 16))
     edge = torch.tensor([16, 0, 8, 0, 0, 24, 8, 0], dtype=torch.int32)
     cases.append(kernel_case(torch, gm, kernel_check, "empty_groups_tail",
                              "float32", 72, D, I, edge, 8))
@@ -596,21 +631,6 @@ def sdpa_calls(torch, q, k, v, do, mask, scale):
     return fwd, fwd_bwd
 
 
-def earlier_dq(fa, q, k, v, do, lse, delta, *, mask_type, window, prefix_len, scale):
-    """The bf16 dQ on the WMMA kernel that served the training path before
-    the wgmma one: the library's C entry with the "wmma" code on a plan at
-    its 64-row tiles, as the wrapper called it then. Measurement only; the
-    port never launches it."""
-    bq, bkv = fa.kernel_tiles("flash_bwd_dq", "wmma")
-    kv_ranges, _, full = fa._plan(mask_type, window, prefix_len, q.shape[2], bq,
-                                  q.device, bkv)
-    dq = fa._bshd_like(q)
-    fa._launch("flash_bwd_dq_launch", "wmma", q, k, v, ranges=kv_ranges, full=full,
-               mask_type=mask_type, window=window, prefix_len=prefix_len, scale=scale,
-               dout=do, lse_in=lse, delta=delta, out0=dq)
-    return dq
-
-
 def fmt_checks(checks: dict) -> str:
     return " ".join(f"{o}:err={c['max_abs_err']:.3g},limit_ratio="
                     f"{c['limit_ratio']:.3g},norm_err={c['norm_err']:.3g}"
@@ -652,18 +672,6 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     if ran != want_ran:
         ok = False
         log(f"flash {name}: ran {ran}, not {want_ran}")
-    earlier = None
-    if bf16:
-        # the WMMA dQ that served these shapes before, held against the
-        # plain version by the same check
-        edq = earlier_dq(fa, q, k, v, do, rlse, delta, **kw)
-        torch.cuda.synchronize()
-        earlier = {"dq": kernel_check.compare(edq, rdq)}
-        log(f"flash {name} earlier WMMA dQ: " + fmt_checks(earlier))
-        if not earlier["dq"]["ok"]:
-            ok = False
-            log(f"flash {name}: the earlier WMMA dQ disagrees with plain")
-        del edq
     fault = None
     if name == "path":
         # The same check on a planted fault: one live tile left out of each
@@ -699,24 +707,11 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
                           lambda _: fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw),
                           "fwd_bwd"),
     }
-    earlier_calls = {
-        "flash_bwd_dq": lambda _: earlier_dq(fa, q, k, v, do, rlse, delta, **kw)}
     rows = {}
     for kname, (kernel, plain, lib) in calls.items():
         nbytes, flops = work[kname]
         t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-        row = {}
-        if name == "path" and kname in earlier_calls:
-            # the WMMA kernel and the wgmma one in turns: WMMA, wgmma, wgmma, WMMA
-            old = earlier_calls[kname]
-            turns = {"earlier": [device_ms(torch, old, 1, reps=10)],
-                     "kernel": [device_ms(torch, kernel, 1, reps=20) for _ in range(2)]}
-            turns["earlier"].append(device_ms(torch, old, 1, reps=10))
-            row.update(ms=sum(turns["kernel"]) / 2, earlier_ms=sum(turns["earlier"]) / 2,
-                       turns_ms=turns)
-        else:
-            row["ms"] = device_ms(torch, kernel, 1, reps=20)
-        row.setdefault("earlier_ms", None)
+        row = {"ms": device_ms(torch, kernel, 1, reps=20)}
         row.update(plain_ms=device_ms(torch, plain, 1, reps=5),
                    library_ms=library.get(lib), library=library_note,
                    bound_ms=max(t_bytes, t_ops),
@@ -726,15 +721,12 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
         torch.cuda.empty_cache()
     case = {"case": name, "dtype": dtype, "shape": [B, Hq, Hkv, S, D],
             "mask": mask, "max_abs_err": errs, "checks": checks, "variants": ran,
-            "earlier_checks": earlier, "planted_fault": fault, "ok": bool(ok),
+            "planted_fault": fault, "ok": bool(ok),
             "kernels": rows}
     log(f"flash {name} {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {mask}: "
         f"ok={ok} variants={ran} lse:err={errs['lse']:.3g} " + fmt_checks(checks))
     for kname, r in rows.items():
-        old = (f" (earlier WMMA kernel {r['earlier_ms']:.4f} ms, "
-               f"{r['earlier_ms'] / r['ms']:.2f}x; turns {r['turns_ms']})"
-               if r["earlier_ms"] is not None else "")
-        log(f"  {kname}: kernel={r['ms']:.4f} ms{old} {r['tflops']:.1f} TFLOP/s "
+        log(f"  {kname}: kernel={r['ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
             f"plain={r['plain_ms']:.4f} ms library={r['library_ms']} ms "
             f"({library_note}) bound={r['bound_ms']:.4f} ms ({r['bound_by']})")
     if library.get("fwd_bwd") is not None:
@@ -891,6 +883,12 @@ def path_phase(torch, gm, fa, card):
                         f"chunks + {steps} decode steps)")
     log(f"path: gmm launches={launches} = {per} x ({chunks} prefill chunks + "
         f"{steps} decode steps); by variant {variants}")
+    # fp32: every prefill chunk (256 tokens, block_t 32) on "f32", every
+    # decode step (8 slots, block_t 8) on "f32_decode"
+    want_variants = {**dict.fromkeys(gm.GMM_VARIANTS, 0), "f32": per * chunks,
+                     "f32_decode": per * steps}
+    if variants != want_variants:
+        failures.append(f"gmm launches by variant {variants} != {want_variants}")
     if any(all_launches[n] for n in FLASH_KERNELS):
         failures.append(f"serving launched flash kernels: {all_launches}")
 
@@ -921,7 +919,7 @@ def path_phase(torch, gm, fa, card):
         "tok_s_concurrent_4": conc_tokens / t_conc,
         "peak_mem_gb": peak_gb,
         "prefill_chunks": chunks, "decode_steps": steps,
-        "gmm_launches": launches,
+        "gmm_launches": launches, "gmm_launches_by_variant": variants,
         "prefix_cache_hit_rate": metrics.get("prefix_cache_hit_rate"),
     }
     for k, v in perf.items():
@@ -1398,6 +1396,18 @@ def main() -> int:
         "tgmm", SOURCE, TGMM_REPLACES, moe_launches.get("tgmm", 0), tgmm_cases[0],
         max(c["max_abs_err"] for c in tgmm_cases if c["dtype"] == "bfloat16"))
     tgmm_entry.update(cases=tgmm_cases, moe_train=moe_perf, card=card)
+    # The serving path's two fp32 kernels, each at its K 1536 shape (down),
+    # with its launches in the serving run and every fp32 row it served.
+    serve_variants = perf.get("gmm_launches_by_variant", {})
+    by_case = {c["case"]: c for c in cases if c["dtype"] == "float32"}
+    fp32_entries = []
+    for kname, variant, row in (("gmm_f32", "f32", "prefill_down"),
+                                ("gmm_f32_decode", "f32_decode", "decode_down")):
+        rows = [c for c in by_case.values() if c["variants"] == {variant: 1}]
+        entry = kernel_entry(kname, SOURCE, REPLACES, serve_variants.get(variant, 0),
+                             by_case[row], max(c["max_abs_err"] for c in rows))
+        entry.update(variant=variant, cases=rows, card=card)
+        fp32_entries.append(entry)
     path_case = flash_cases[0]  # B 32, H 8, S 1024, D 64, bf16, causal
     out_of = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
               "flash_bwd_dkv": ("dk", "dv")}
@@ -1412,7 +1422,7 @@ def main() -> int:
         entry.update(launches_by_variant=moe_variants.get(entry["name"]),
                      tflops=row["tflops"])
     flash_entries[0].update(cases=flash_cases, dense_train=train_perf, card=card)
-    report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + flash_entries})
+    report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + fp32_entries + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)
         for f in failures:

@@ -12,8 +12,6 @@
 // entries take its code):
 //   "wgmma"  bf16: a TMA ring feeding wgmma, the scores, P and dS kept in
 //            registers (their own note below);
-//   "wmma"   the bf16 dQ that served before the wgmma one (reachable
-//            through the C entry only);
 //   "f32"    fp32: SIMT FMA tiles.
 //
 // Each computes what its Pallas body computes (not block by block):
@@ -39,8 +37,7 @@
 // inside S). Dead tiles are never loaded; full tiles skip the mask; the rest
 // evaluate the mask predicate and the bounds of a ragged S.
 //
-// Types: the 64-row WMMA dQ runs the tile products on the tensor cores with
-// WMMA 16x16x16 fragments into fp32; fp32 runs SIMT FMA tiles (32-row
+// Types: bf16 runs the wgmma kernels; fp32 runs SIMT FMA tiles (32-row
 // tiles). Head dims 64 and 128 are template instances.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the
@@ -51,11 +48,10 @@
 // All three are operation-bound in principle, and beside the tensor cores
 // each pays an exp per score on the SFU (16 a clock per SM: the exps of a
 // 128 x 128 tile take as long as its two 64-deep products at peak). The
-// WMMA kernels were the first design, simple and right before fast: tiles
-// staged through shared memory with plain vector loads, WMMA, the score tile
-// round-tripping through shared memory, one 4-warp CTA per tile (the WMMA dQ
-// ran at 41 TFLOP/s on an H100, PERF.md). The wgmma kernels keep the scores in registers and let one warpgroup's softmax run
-// under the other's products (note below).
+// fp32 kernels stage tiles through shared memory and round-trip the scores
+// through it, one 4-warp CTA per tile. The wgmma kernels keep the scores in
+// registers and let one warpgroup's softmax run under the other's products
+// (note below).
 //
 // Interface: plain C, loaded with ctypes. Each *_launch returns
 // cudaGetLastError() after the launch (0 on success); nothing synchronises.
@@ -64,7 +60,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -108,23 +103,11 @@ struct FlashArgs {
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
+// The SIMT kernels' output conversion (they run fp32 only).
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 __device__ __forceinline__ bool allowed(int mask, int64_t row, int64_t col,
                                         int64_t window, int64_t prefix) {
@@ -148,8 +131,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Shared-memory leading dims: T rows padded by 16 bytes (keeps WMMA's
-// 16-byte ldm rule and spreads banks); fp32 rows by 4 floats.
+// Shared-memory leading dims: T rows padded by 16 bytes (spreads banks);
+// fp32 rows by 4 floats.
 template <typename T, int N>
 struct Ld {
   static constexpr int value = N + 16 / (int)sizeof(T);
@@ -176,50 +159,23 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride,
   }
 }
 
-// C[M, N] (fp32, row-major, ldc) (+)= A[M, K] . B[K, N], operands in shared
-// memory. A_COL: A is stored transposed (element (m, k) at A[k * lda + m]);
-// B_COL: element (k, n) at B[n * ldb + k]. bf16 -> WMMA, fp32 -> SIMT FMA.
+// C[M, N] (fp32, row-major, ldc) (+)= A[M, K] . B[K, N], fp32 operands in
+// shared memory, SIMT FMA. A_COL: A is stored transposed (element (m, k) at
+// A[k * lda + m]); B_COL: element (k, n) at B[n * ldb + k].
 template <typename T, int M, int N, int K, bool A_COL, bool B_COL, bool ACCUM>
 __device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda,
                                    const T* B, int ldb) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    using namespace nvcuda;
-    using ALay = typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using BLay = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x / 32;
-    constexpr int FN = N / 16;
-    for (int f = warp; f < (M / 16) * FN; f += NWARPS) {
-      const int fm = f / FN, fn = f % FN;
-      float* cp = C + fm * 16 * ldc + fn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (ACCUM)
-        wmma::load_matrix_sync(acc, cp, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALay> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLay> fb;
-        const T* ap = A_COL ? A + kk * lda + fm * 16 : A + fm * 16 * lda + kk;
-        const T* bp = B_COL ? B + fn * 16 * ldb + kk : B + kk * ldb + fn * 16;
-        wmma::load_matrix_sync(fa, ap, lda);
-        wmma::load_matrix_sync(fb, bp, ldb);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int i = threadIdx.x; i < M * N; i += NTHREADS) {
-      const int m = i / N, n = i % N;
-      float s = ACCUM ? C[m * ldc + n] : 0.f;
+  static_assert(std::is_same<T, float>::value, "bf16 runs the wgmma kernels");
+  for (int i = threadIdx.x; i < M * N; i += NTHREADS) {
+    const int m = i / N, n = i % N;
+    float s = ACCUM ? C[m * ldc + n] : 0.f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
-        const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
-        s = fmaf(a, b, s);
-      }
-      C[m * ldc + n] = s;
+    for (int k = 0; k < K; ++k) {
+      const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
+      const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
+      s = fmaf(a, b, s);
     }
+    C[m * ldc + n] = s;
   }
 }
 
@@ -1384,8 +1340,7 @@ int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 64-row (WMMA) and 32-row (SIMT) kernels: one CTA per tile, grid
-// (tiles, Hq, B).
+// The 32-row SIMT (fp32) kernels: one CTA per tile, grid (tiles, Hq, B).
 template <typename T, int D, int BM, Which W>
 int launch(const FlashArgs* a, cudaStream_t stream) {
   const dim3 grid((unsigned)(W == DKV ? a->nk : a->nq), (unsigned)a->Hq, (unsigned)a->B);
@@ -1416,11 +1371,10 @@ int launch_f32(const FlashArgs* a, Which which, cudaStream_t s) {
 }
 
 // Kernel variants (the wrapper's flash_variant codes): 0 = "f32" (fp32,
-// 32-row SIMT tiles), 1 = "wmma" (bf16 dQ on 64-row WMMA tiles, which served
-// the training path before the wgmma dQ; reachable through the C entry
-// only), 2 = "wgmma" (bf16 on the TMA ring with wgmma; its plan must be at
-// its own tile sizes, and its operands must meet TMA's rules).
-enum Variant { F32 = 0, WMMA = 1, WGMMA = 2 };
+// 32-row SIMT tiles), 2 = "wgmma" (bf16 on the TMA ring with wgmma; its plan
+// must be at its own tile sizes, and its operands must meet TMA's rules).
+// Any other code is refused.
+enum Variant { F32 = 0, WGMMA = 2 };
 
 int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1429,9 +1383,6 @@ int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* s
     return (int)cudaErrorInvalidValue;
   const bool d64 = head_dim == 64;
   if (variant == F32) return d64 ? launch_f32<64>(a, which, s) : launch_f32<128>(a, which, s);
-  if (variant == WMMA && which == DQ)
-    return d64 ? launch<__nv_bfloat16, 64, 64, DQ>(a, s)
-               : launch<__nv_bfloat16, 128, 64, DQ>(a, s);
   if (variant == WGMMA) {
     if (!tma_ok(a, which)) return (int)cudaErrorInvalidValue;
     if (which == FWD) return d64 ? launch_fwd_wgmma<64>(a, s) : launch_fwd_wgmma<128>(a, s);

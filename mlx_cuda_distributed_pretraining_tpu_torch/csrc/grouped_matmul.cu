@@ -20,29 +20,27 @@
 // there; writing zeros gives the same result and reads no weights for them.
 // Accumulation is always fp32; the output has x's type (fp32 or bf16).
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 FMA, 989 TFLOP/s
-// bf16 tensor cores), at the serving path's shapes (moe-8x40m: K, N in
-// {512, 1536}, 8 experts):
-//   - Decode (8 slots, top-2: 16 selections, block_t 8, T = 72) is bound by
-//     weight bytes: up to 8 x 512 x 1536 x 4 B = 25 MB per gate/up call for
-//     ~25 MFLOP. Each row tile reads its expert's weights once (at decode
-//     an expert mostly has one tile), tail tiles read none, and fp32 8-row tiles take a
-//     variant built to keep many weight loads in flight: 32-column strips
-//     with K split over 16 warps (gmm_f32_decode_kernel).
-//   - A 256-token fp32 prefill chunk (block_t 32, T = 768) is bound by FMA
-//     throughput (1.2 GFLOP per gate/up call). Each CTA stages a 32 x 16 slice
-//     of x and a 16 x 64 slice of w in shared memory and every thread keeps a
-//     2 x 4 register tile, so each shared-memory load feeds two FMAs.
-//   - bf16 with block_t < 64 (or shapes outside TMA's rules) runs the same
-//     tiling on the tensor cores through WMMA 16x16x16 fragments with fp32
-//     accumulators; row tiles of 8 are zero-padded to 16.
+// What bounds it on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 and 495 TF32
+// on the tensor cores), by variant; each kernel's own note says more:
+//   - Decode (fp32, 8 slots, top-2: 16 selections, block_t 8, T = 72) is
+//     bound by weight bytes: up to 8 x 512 x 1536 x 4 B = 25 MB per call for
+//     ~25 MFLOP. gmm_f32_decode_kernel streams each live tile's weights
+//     once, split over ~4 x 132 CTAs, with 16-byte loads.
+//   - A 256-token fp32 prefill chunk (block_t 32, T = 768) moves ~31 MB for
+//     0.8 GFLOP: bytes again once the products run on the tensor cores.
+//     gmm_f32_tf32x3_kernel runs them in 3xTF32 (fp32 accuracy) on
+//     mma.sync with a cp.async ring.
+//   - bf16 with block_t < 64 (or shapes outside TMA's rules) runs WMMA
+//     16x16x16 fragments with fp32 accumulators; row tiles of 8 are
+//     zero-padded to 16 (no path runs it at a size that matters).
 //   - bf16 at the training path's shapes (block_t a multiple of 64) runs
 //     gmm_bf16_wgmma_kernel: a TMA ring feeding wgmma (its own note below).
 //
 // Variants, chosen by the wrapper before launch (ops/grouped_matmul.py::
-// gmm_variant; the bm argument of gmm_forward carries the choice):
-//   "f32_decode" fp32, bm 8         gmm_f32_decode_kernel
-//   "f32"        fp32, bm 16 / 32   gmm_f32_kernel
+// gmm_variant; gmm_forward's bm argument carries the choice, the decode
+// kernel has its own entry):
+//   "f32_decode" fp32, bm 8         gmm_f32_decode_kernel (gmm_f32_decode)
+//   "f32"        fp32, bm 16 / 32   gmm_f32_tf32x3_kernel
 //   "wmma"       bf16, bm 8-32      gmm_bf16_kernel
 //   "wgmma"      bf16, bm 64 / 128  gmm_bf16_wgmma_kernel
 //
@@ -50,9 +48,9 @@
 // experts. Hopper has no scalar prefetch: each CTA finds its expert with a
 // linear search over the E cumulative group sizes it reads itself.
 //
-// Interface: plain C, loaded with ctypes. gmm_forward and tgmm_backward
-// return cudaGetLastError() after the launch (0 on success); neither
-// synchronises. The TMA descriptors are encoded on the host inside them,
+// Interface: plain C, loaded with ctypes. gmm_forward, gmm_f32_decode and
+// tgmm_backward return cudaGetLastError() after the launch (0 on success);
+// none synchronises. The TMA descriptors are encoded on the host inside them,
 // through cuTensorMapEncodeTiled fetched with cudaGetDriverEntryPoint (no
 // -lcuda). The TMA, mbarrier and wgmma machinery (namespace wg) lives in
 // hopper.cuh, shared with csrc/flash_attention.cu.
@@ -101,138 +99,480 @@ __device__ __forceinline__ size_t w_at(int k, int n, int K, int N) {
   return WT ? (size_t)n * K + k : (size_t)k * N + n;
 }
 
-// ---------------------------------------------------------------- fp32 (FMA)
-// Threads: (BM / TM) x 16, each owning TM rows x 4 columns (columns strided by
-// 16 so neighbouring threads hit neighbouring shared-memory banks and global
-// addresses).
-template <int BM, int TM, bool WT>
-__global__ void gmm_f32_kernel(const float* __restrict__ x,
-                               const float* __restrict__ w,
-                               const int* __restrict__ gs,
-                               float* __restrict__ out, int K, int N, int E) {
-  constexpr int BK = 16;
-  constexpr int TN = 4;
-  constexpr int NT = (BM / TM) * (BN / TN);
-  __shared__ float As[BK][BM + 1];  // +1: the transposing store is conflict-free
-  __shared__ float Bs[BK][BN];
-  __shared__ int s_expert;
-
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * BM;
-  const int c0 = blockIdx.x * BN;
-  if (tid == 0) s_expert = expert_of_row(gs, E, r0);
-  __syncthreads();
-  const int e = s_expert;
-
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-  if (e < 0) {
-    for (int i = 0; i < TM; ++i)
-      for (int j = 0; j < TN; ++j) {
-        const int c = c0 + tx + j * (BN / TN);
-        if (c < N) out[(size_t)(r0 + ty * TM + i) * N + c] = 0.f;
-      }
-    return;
+// Expert owning row r0, or -1 (tail tile), as expert_of_row, found by one
+// warp with its loads of group_sizes all in flight at once (one memory round
+// trip per 32 experts instead of one per expert). Every lane returns it.
+__device__ __forceinline__ int expert_of_row_warp(const int* __restrict__ gs, int E,
+                                                  int r0, int lane) {
+  int base = 0;
+  for (int e0 = 0; e0 < E; e0 += 32) {
+    int v = e0 + lane < E ? gs[e0 + lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {  // inclusive prefix sum over the lanes
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, e0 + lane < E && r0 < base + v);
+    if (hit) return e0 + __ffs(hit) - 1;
+    base += __shfl_sync(0xffffffffu, v, 31);
   }
-  const float* we = w + (size_t)e * K * N;
-
-  float acc[TM][TN];
-  for (int i = 0; i < TM; ++i)
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += NT) {
-      const int i = idx / BK, kk = idx % BK;
-      const int k = k0 + kk;
-      As[kk][i] = k < K ? x[(size_t)(r0 + i) * K + k] : 0.f;
-    }
-    for (int idx = tid; idx < BK * BN; idx += NT) {
-      const int kk = WT ? idx % BK : idx / BN, j = WT ? idx / BK : idx % BN;
-      const int k = k0 + kk, c = c0 + j;
-      Bs[kk][j] = (k < K && c < N) ? we[w_at<WT>(k, c, K, N)] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * (BN / TN)];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < TM; ++i)
-    for (int j = 0; j < TN; ++j) {
-      const int c = c0 + tx + j * (BN / TN);
-      if (c < N) out[(size_t)(r0 + ty * TM + i) * N + c] = acc[i][j];
-    }
+  return -1;
 }
 
-// ------------------------------------------------- fp32, 8-row decode tiles
-// At decode each expert's group is one 8-row tile against K x N weights, so
-// the kernel streams weights: a CTA owns 8 rows x 32 columns (one column per
-// lane, so a warp reads 128 contiguous bytes of a weight row), its 16 warps
-// split K (warp q takes k = q, q + 16, ...) with 8 loads in flight per lane,
-// and the warps' partial sums are added in warp order through shared memory
-// (deterministic). x is staged in shared memory DK columns at a time.
-constexpr int DM = 8;       // rows per CTA
-constexpr int DWARPS = 16;  // warps per CTA, splitting K
-constexpr int DK = 256;     // K columns of x staged per pass
+// 16- or 4-byte asynchronous global -> shared copy; `in` false zero-fills the
+// destination and reads nothing (src must still be a valid address).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) {
+  const uint32_t d = wg::smem_addr(dst);
+  const int n = in ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
 
-template <bool WT>
-__global__ void __launch_bounds__(DWARPS * 32)
-gmm_f32_decode_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const int* __restrict__ gs, float* __restrict__ out,
-                      int K, int N, int E) {
-  __shared__ float xs[DM][DK];
-  __shared__ float red[DWARPS][DM][32];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------- fp32 prefill: 3xTF32 mma.sync
+// gmm_f32_tf32x3_kernel ("f32"), replacing mlx_cuda_distributed_pretraining_tpu/
+// ops/grouped_matmul.py::_gmm_pallas for every fp32 call at block_t >= 16
+// (the serving path's prefill chunks, block_t 32, and a short last chunk
+// at 16), forward and, with WT, dX.
+//
+// What bounds it (moe-8x40m prefill chunk, 256 tokens x top-2 in a 768-row
+// buffer, block_t 32): 2 x 512 x 512 x 1536 = 0.8 GFLOP against ~31 MB of
+// compulsory traffic (the touched experts' 25 MB of weights dominate). At the
+// FMA units' 67 TFLOP/s that is 12 us of arithmetic; on the tensor cores, at
+// three TF32 passes per product (below), 5 us at 495 TFLOP/s, so the bytes
+// bound it: ~9 us at 3.35 TB/s. Each 32-row tile re-reads its expert's
+// weights (from L2 after the first), and each column strip re-reads x, so
+// L2 carries 3-5x the compulsory bytes.
+//
+// Accuracy: fp32 in, fp32 out, as the plain version computes it. TF32 keeps
+// 10 mantissa bits, so each operand element is split once as it leaves
+// shared memory, hi = rna(v), lo = rna(v - hi) (cvt.rna.tf32's rounding,
+// computed with integer operations: rna_tf32), and each product is
+// lo.hi + hi.lo + hi.hi (3xTF32; the dropped lo.lo is ~2^-22 of it). The
+// tensor cores add into their fp32 accumulator with truncation, which
+// biases a long sum; so the mma accumulator (part) only ever holds
+// F32_FLUSH stages' worth of products and is then added into an fp32 total
+// with ordinary rounded adds. Measured against a float64 product on an
+// H100 (tests/test_torch_kernels_cuda.py): normwise 2.5e-7 at K 512 and
+// 1536, where the plain fp32 version (cuBLAS, no TF32) reads 2.1e-7-7.0e-7.
+//
+// Design:
+//  - CTA tile BM x F32_BN (BM = 32 or 16, dividing block_t: a CTA never
+//    straddles two experts), F32_NWARPS x F32_KWARPS warps. Warp (n, k)
+//    owns the BM x 32 column block n of the tile and takes F32_KSTEPS of
+//    each F32_BK-deep stage's k8 steps (split K inside the CTA); the K
+//    warps' blocks are added in warp order through shared memory at the
+//    end. Narrow tiles and the split keep hundreds of CTAs in flight at the
+//    serving shapes (384 at prefill-down, 1152 at gate/up) instead of 192
+//    walking 96 serial k-steps.
+//  - mma.sync.m16n8k8 (tf32, fp32 accumulators), not wgmma: wgmma needs
+//    64-row tiles (which would straddle experts at block_t 16 and 32) and
+//    takes tf32 B only K-major, while the forward's w [E, K, N] is N-major.
+//    mma.sync's fragments are read from shared memory by the threads, so
+//    one kernel reads either layout (WT).
+//  - x and w tiles arrive through an F32_STAGES-deep ring of 16-byte
+//    cp.async copies (4-byte ones where K or N is not a multiple of 4 or an
+//    operand is not 16-byte aligned), so the loads of later stages are in
+//    flight while a stage's mmas run. Padded shared-memory rows make every
+//    fragment read conflict-free. Copies past K or N zero-fill.
+//  - Row tiles are the grid's fastest dimension, so the CTAs in flight read
+//    the same expert's weight strip (L2 hits after the first).
+//  - Tail tiles (rows >= sum(group_sizes)) read nothing and write zeros;
+//    each CTA finds its expert itself; no atomics: bitwise reproducible.
+// The constants below were picked by timing edited copies on an H100 at
+// the serving shapes (PERF.md): 64-column tiles (F32_NWARPS 2) are
+// faster at gate/up and slower at down, deeper rings and 8 K warps no
+// better; the split's integer rounding beat cvt.rna by ~10%. No one cost
+// sets the time at these shapes: dropping two of the three mma passes
+// saves 8-12%, leaving out the weight or the x copies 18-20%, weights hot
+// in L2 instead of HBM ~1% (timing-only copies); ROADMAP queue 2 keeps the
+// levers.
+constexpr int F32_NWARPS = 1;   // warps along N, each a 32-column block
+constexpr int F32_KWARPS = 4;   // warps along K
+constexpr int F32_KSTEPS = 2;   // k8 steps of each warp per stage
+constexpr int F32_STAGES = 3;   // cp.async ring depth
+constexpr int F32_FLUSH = 2;    // stages summed in the mma accumulator per flush
+constexpr int F32_BN = 32 * F32_NWARPS;             // output columns per CTA
+constexpr int F32_BK = 8 * F32_KWARPS * F32_KSTEPS;  // K per ring stage
+
+// v rounded to tf32, to nearest with ties away from zero: what
+// cvt.rna.tf32.f32 returns, with the 13 low bits cleared, from two integer
+// operations (adding half a tf32 ulp to the magnitude carries into the kept
+// bits exactly when rna rounds up); the conversion unit's cvt costs more.
+__device__ __forceinline__ uint32_t rna_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo (+ ~2^-24 |v|), both tf32: hi = rna(v), lo = rna(v - hi)
+// (v - hi is exact).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(v);
+  lo = rna_tf32(v - __uint_as_float(hi));
+}
+
+// d[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in, fp32 accumulators. Lane
+// (g = lane / 4, t = lane % 4) holds a: (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b: (k t, n g), (k t + 4, n g); d: (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int BM, bool WT>
+struct F32Tile {
+  static constexpr int LDA = F32_BK + 4;                    // x stage [BM][LDA]
+  static constexpr int LDB = WT ? F32_BK + 4 : F32_BN + 8;  // w [BN][LDB] or [BK][LDB]
+  static constexpr int A_EL = BM * LDA;
+  static constexpr int B_EL = WT ? F32_BN * LDB : F32_BK * LDB;
+  static constexpr int STAGE = A_EL + B_EL;
+  static constexpr int LDR = F32_BN + 8;                    // the K warps' partial tiles
+  static constexpr int RING = F32_STAGES * STAGE;
+  static constexpr int BYTES = RING * 4;                    // dynamic shared memory
+  static_assert(F32_KWARPS * BM * LDR <= RING, "partials reuse the ring");
+};
+
+// VEC: 16-byte copies (K and N multiples of 4, x and w 16-byte aligned).
+template <int BM, bool WT, bool VEC>
+__global__ void __launch_bounds__(F32_NWARPS * F32_KWARPS * 32)
+gmm_f32_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const int* __restrict__ gs, float* __restrict__ out, int K,
+                      int N, int E) {
+  using L = F32Tile<BM, WT>;
+  constexpr int BK = F32_BK, BN = F32_BN, NTH = F32_NWARPS * F32_KWARPS * 32;
+  constexpr int MT = BM / 16, NT = 4;  // a warp's m16 and n8 tiles
+  constexpr int V = VEC ? 4 : 1;       // floats per copy
+  extern __shared__ __align__(16) float ring[];
   __shared__ int s_expert;
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int r0 = blockIdx.y * DM;
-  const int c = blockIdx.x * 32 + lane;
-  if (tid == 0) s_expert = expert_of_row(gs, E, r0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wn = warp % F32_NWARPS, wk = warp / F32_NWARPS;
+  const int r0 = blockIdx.x * BM;
+  const int c0 = blockIdx.y * BN;
+  if (warp == 0) {
+    const int e = expert_of_row_warp(gs, E, r0, lane);
+    if (lane == 0) s_expert = e;
+  }
   __syncthreads();
   const int e = s_expert;
   if (e < 0) {
-    if (warp < DM && c < N) out[(size_t)(r0 + warp) * N + c] = 0.f;
+    for (int i = tid; i < BM * BN; i += NTH) {
+      const int c = c0 + i % BN;
+      if (c < N) out[(size_t)(r0 + i / BN) * N + c] = 0.f;
+    }
     return;
   }
   const float* we = w + (size_t)e * K * N;
+  const int KT = (K + BK - 1) / BK;
 
-  float acc[DM];
-#pragma unroll
-  for (int i = 0; i < DM; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += DK) {
-    for (int idx = tid; idx < DM * DK; idx += DWARPS * 32) {
-      const int i = idx / DK, kk = idx % DK;
-      xs[i][kk] = k0 + kk < K ? x[(size_t)(r0 + i) * K + k0 + kk] : 0.f;
+  auto load_stage = [&](int slot, int kt) {
+    float* As = ring + slot * L::STAGE;
+    float* Bs = As + L::A_EL;
+    const int k0 = kt * BK;
+    for (int i = tid; i < BM * BK / V; i += NTH) {
+      const int r = i / (BK / V), kk = i % (BK / V) * V;
+      const bool in = k0 + kk < K;
+      cp_async<4 * V>(As + r * L::LDA + kk, in ? x + (size_t)(r0 + r) * K + k0 + kk : x, in);
     }
-    __syncthreads();
-    if (c < N) {
-#pragma unroll 8
-      for (int kk = warp; kk < DK; kk += DWARPS) {
-        const int k = k0 + kk;
-        const float wv = k < K ? __ldg(we + w_at<WT>(k, c, K, N)) : 0.f;
-#pragma unroll
-        for (int i = 0; i < DM; ++i) acc[i] = fmaf(xs[i][kk], wv, acc[i]);
+    for (int i = tid; i < BK * BN / V; i += NTH) {
+      if constexpr (WT) {  // [BN][BK]: element (k, n) at we[n * K + k]
+        const int n = i / (BK / V), kk = i % (BK / V) * V;
+        const bool in = c0 + n < N && k0 + kk < K;
+        cp_async<4 * V>(Bs + n * L::LDB + kk, in ? we + (size_t)(c0 + n) * K + k0 + kk : w, in);
+      } else {  // [BK][BN]: element (k, n) at we[k * N + n]
+        const int kk = i / (BN / V), n = i % (BN / V) * V;
+        const bool in = k0 + kk < K && c0 + n < N;
+        cp_async<4 * V>(Bs + kk * L::LDB + n, in ? we + (size_t)(k0 + kk) * N + c0 + n : w, in);
       }
     }
-    __syncthreads();
-  }
+  };
+
+  float total[MT][NT][4], part[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < DM; ++i) red[warp][i][lane] = acc[i];
-  __syncthreads();
-  if (warp < DM && c < N) {  // thread (warp, lane) sums row warp, column c
-    float s = 0.f;
-    for (int q = 0; q < DWARPS; ++q) s += red[q][warp][lane];
-    out[(size_t)(r0 + warp) * N + c] = s;
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) total[m][n][j] = part[m][n][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < F32_STAGES - 1; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<F32_STAGES - 2>();  // stage kt has landed (this thread's copies)
+    __syncthreads();                  // ... everyone's; stage kt - 1 is free
+    if (kt + F32_STAGES - 1 < KT)
+      load_stage((kt + F32_STAGES - 1) % F32_STAGES, kt + F32_STAGES - 1);
+    cp_async_commit();
+
+    const float* As = ring + (kt % F32_STAGES) * L::STAGE;
+    const float* Bs = As + L::A_EL;
+#pragma unroll
+    for (int ks = 0; ks < F32_KSTEPS; ++ks) {
+      const int kk = (ks * F32_KWARPS + wk) * 8;
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_tf32(As[(m * 16 + g + (j & 1) * 8) * L::LDA + kk + t + (j >> 1) * 4],
+                     ah[m][j], al[m][j]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = kk + t + j * 4, c = wn * 32 + n * 8 + g;
+          split_tf32(WT ? Bs[c * L::LDB + k] : Bs[k * L::LDB + c], bh[n][j], bl[n][j]);
+        }
+      // the small terms first, the large one last; independent tiles
+      // between two mmas on one accumulator
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32(part[m][n], al[m], bh[n]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32(part[m][n], ah[m], bl[n]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_tf32(part[m][n], ah[m], bh[n]);
+    }
+    if ((kt + 1) % F32_FLUSH == 0 || kt + 1 == KT) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            total[m][n][j] += part[m][n][j];
+            part[m][n][j] = 0.f;
+          }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is past its last stage: the ring is idle
+
+  float* red = ring;  // [F32_KWARPS][BM][LDR]
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(red + (wk * BM + m * 16 + g + h * 8) * L::LDR + wn * 32 +
+                                   n * 8 + 2 * t) =
+            make_float2(total[m][n][2 * h], total[m][n][2 * h + 1]);
+  __syncthreads();
+  for (int i = tid; i < BM * BN; i += NTH) {
+    const int r = i / BN, c = i % BN;
+    float s = red[r * L::LDR + c];
+#pragma unroll
+    for (int q = 1; q < F32_KWARPS; ++q) s += red[(q * BM + r) * L::LDR + c];
+    if (c0 + c < N) out[(size_t)(r0 + r) * N + c0 + c] = s;
+  }
+}
+
+// -------------------------------------------- fp32 decode: a weight stream
+// gmm_f32_decode_kernel ("f32_decode"), replacing _gmm_pallas for fp32 at
+// block_t 8: the serving path's decode steps (8 slots x top-2 = 16
+// selections in a 72-row buffer: nine 8-row tiles, one or two per touched
+// expert, the rest tail tiles).
+//
+// What bounds it: bytes. Each live tile multiplies 8 rows by its expert's
+// K x N block (3.1 MB at moe-8x40m), so a call streams up to 8 x 3.1 = 25 MB
+// of weights for ~25 MFLOP: ~7 us at 3.35 TB/s. Keeping HBM busy takes
+// ~3.3 MB in flight across the card (Little's law at ~1 us), ~25 KB per SM,
+// and an equal share of the stream on every SM.
+//
+// Design:
+//  - Work item (grid x, y, z) = (row tile, K chunk, strip of DEC_COLS
+//    columns): `kc` rows of K (ops/grouped_matmul.py::decode_plan picks kc
+//    so that a call makes ~4 x 132 items; 432 at both serving shapes, 64 KB
+//    of weights each).
+//  - A CTA issues its whole kc x DEC_COLS weight block and x's 8 x kc slice
+//    as 16-byte cp.async copies into shared memory at once, so its 64 KB
+//    are in flight together without holding registers (three CTAs per SM:
+//    ~190 KB in flight per SM), then waits once. Its warp for the expert
+//    lookup reads all group sizes in one round trip. The DEC_WARPS warps
+//    then split the chunk's rows (warp q: rows q, q + 8, ...), each lane
+//    4 columns, x read as two broadcast float4s per weight row.
+//  - The warps' partial tiles are added in warp order through shared
+//    memory. With more than one chunk, each CTA writes its 8 x DEC_COLS
+//    partial to an fp32 scratch [chunks, T, N], and the last CTA of a
+//    (tile, strip) to arrive, found by a counter, adds the chunks' partials
+//    in chunk order and writes the output, then sets the counter back to 0
+//    (the wrapper zeroes the counters once). The counter orders nothing
+//    that is summed: the result is bitwise the same from run to run.
+//  - Tail tiles read no weights: chunk 0 writes their zeros.
+//  - WT (dX) and shapes without 16-byte copies copy 4 bytes at a time; no
+//    path runs them at a size where it matters.
+// On an H100 a serving call (25.2 MB of weights, cold) takes about what
+// torch.sum takes to read the same bytes cold (PERF.md): a one-shot
+// read of this size does not reach the card's sustained rate. Chunks of
+// 64 or 256 rows and column strips as the grid's fastest dimension
+// measured no faster; the last CTA's chunk sum costs ~3 us of it.
+constexpr int DEC_ROWS = 8;      // rows per CTA: one block_t 8 tile
+constexpr int DEC_WARPS = 8;     // warps per CTA, splitting the chunk's rows
+constexpr int DEC_COLS = 128;    // columns per CTA: 4 per lane
+constexpr int DEC_KC_MAX = 256;  // largest K chunk (its weights in shared memory)
+
+// Dynamic shared memory of a CTA at chunk kc: the weight block and x's slice,
+// and at least the warps' partial tiles that reuse them.
+constexpr int dec_smem(int kc) {
+  return (kc * (DEC_COLS + DEC_ROWS) > DEC_WARPS * DEC_ROWS * DEC_COLS
+              ? kc * (DEC_COLS + DEC_ROWS)
+              : DEC_WARPS * DEC_ROWS * DEC_COLS) * 4;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* p, float4 v, int c, int N) {
+  if constexpr (VEC) {
+    if (c < N) *reinterpret_cast<float4*>(p) = v;
+  } else {
+    if (c < N) p[0] = v.x;
+    if (c + 1 < N) p[1] = v.y;
+    if (c + 2 < N) p[2] = v.z;
+    if (c + 3 < N) p[3] = v.w;
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// VEC: 16-byte weight copies and stores (!WT, N a multiple of 4, w, out
+// and the scratch 16-byte aligned).
+template <bool WT, bool VEC>
+__global__ void __launch_bounds__(DEC_WARPS * 32)
+gmm_f32_decode_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const int* __restrict__ gs, float* __restrict__ out,
+                      float* __restrict__ partial, int* __restrict__ counters, int T,
+                      int K, int N, int E, int kc) {
+  constexpr int NTH = DEC_WARPS * 32;
+  extern __shared__ __align__(16) float smem[];
+  float* wsm = smem;                  // [kc][DEC_COLS]; then the K warps' partials
+  float* xs = smem + kc * DEC_COLS;   // [kc][DEC_ROWS]
+  __shared__ int s_expert, s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x, chunk = blockIdx.y, chunks = gridDim.y;
+  const int r0 = tile * DEC_ROWS;
+  const int c0 = blockIdx.z * DEC_COLS;
+  const int c = c0 + lane * 4;  // this lane's 4 columns
+  if (warp == 0) {
+    const int e = expert_of_row_warp(gs, E, r0, lane);
+    if (lane == 0) s_expert = e;
+  }
+  __syncthreads();
+  const int e = s_expert;
+  if (e < 0) {
+    if (chunk == 0)
+      for (int i = tid; i < DEC_ROWS * DEC_COLS; i += NTH) {
+        const int col = c0 + i % DEC_COLS;
+        if (col < N) out[(size_t)(r0 + i / DEC_COLS) * N + col] = 0.f;
+      }
+    return;
+  }
+  const int k0 = chunk * kc;
+  const int klen = min(kc, K - k0);
+  const float* we = w + (size_t)e * K * N;
+  if constexpr (VEC) {
+    for (int i = tid; i < klen * (DEC_COLS / 4); i += NTH) {
+      const int k = i / (DEC_COLS / 4), j = i % (DEC_COLS / 4) * 4;
+      const bool in = c0 + j < N;
+      cp_async<16>(wsm + k * DEC_COLS + j, in ? we + (size_t)(k0 + k) * N + c0 + j : w, in);
+    }
+  } else {
+    for (int i = tid; i < klen * DEC_COLS; i += NTH) {
+      const int k = i / DEC_COLS, j = i % DEC_COLS;
+      const bool in = c0 + j < N;
+      cp_async<4>(wsm + k * DEC_COLS + j, in ? we + w_at<WT>(k0 + k, c0 + j, K, N) : w, in);
+    }
+  }
+  for (int i = tid; i < DEC_ROWS * klen; i += NTH) {
+    const int r = i / klen, k = i % klen;
+    cp_async<4>(xs + k * DEC_ROWS + r, x + (size_t)(r0 + r) * K + k0 + k, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float4 acc[DEC_ROWS];
+#pragma unroll
+  for (int i = 0; i < DEC_ROWS; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int kk = warp; kk < klen; kk += DEC_WARPS) {
+    const float4 wv = *reinterpret_cast<const float4*>(wsm + kk * DEC_COLS + lane * 4);
+    const float4 xa = *reinterpret_cast<const float4*>(xs + kk * DEC_ROWS);
+    const float4 xb = *reinterpret_cast<const float4*>(xs + kk * DEC_ROWS + 4);
+    const float xr[DEC_ROWS] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+    for (int i = 0; i < DEC_ROWS; ++i) {
+      acc[i].x = fmaf(xr[i], wv.x, acc[i].x);
+      acc[i].y = fmaf(xr[i], wv.y, acc[i].y);
+      acc[i].z = fmaf(xr[i], wv.z, acc[i].z);
+      acc[i].w = fmaf(xr[i], wv.w, acc[i].w);
+    }
+  }
+  __syncthreads();  // done with the weight block: its space takes the partials
+  float* red = wsm;  // [DEC_WARPS][DEC_ROWS][DEC_COLS]
+#pragma unroll
+  for (int i = 0; i < DEC_ROWS; ++i)
+    *reinterpret_cast<float4*>(red + (warp * DEC_ROWS + i) * DEC_COLS + lane * 4) = acc[i];
+  __syncthreads();
+  // thread (warp r, lane): row r, columns c .. c + 3, summed in warp order
+  float4 s = *reinterpret_cast<const float4*>(red + warp * DEC_COLS + lane * 4);
+#pragma unroll
+  for (int q = 1; q < DEC_WARPS; ++q)
+    s = add4(s, *reinterpret_cast<const float4*>(red + (q * DEC_ROWS + warp) * DEC_COLS +
+                                                 lane * 4));
+  const size_t o = (size_t)(r0 + warp) * N + c;
+  if (chunks == 1) {
+    store4<VEC>(out + o, s, c, N);
+    return;
+  }
+  store4<VEC>(partial + (size_t)chunk * T * N + o, s, c, N);
+  __threadfence();  // this CTA's partial is visible before its arrival counts
+  __syncthreads();
+  const int slot = tile * gridDim.z + blockIdx.z;
+  if (tid == 0) s_last = atomicAdd(counters + slot, 1) == chunks - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int q = 0; q < chunks; ++q) {  // chunk order, whichever CTA came last
+    const float* p = partial + (size_t)q * T * N + o;
+    float4 v;
+    if constexpr (VEC) {
+      v = c < N ? __ldcg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      v.x = c < N ? __ldcg(p) : 0.f;
+      v.y = c + 1 < N ? __ldcg(p + 1) : 0.f;
+      v.z = c + 2 < N ? __ldcg(p + 2) : 0.f;
+      v.w = c + 3 < N ? __ldcg(p + 3) : 0.f;
+    }
+    s = q == 0 ? v : add4(s, v);
+  }
+  store4<VEC>(out + o, s, c, N);
+  if (tid == 0) counters[slot] = 0;  // ready for the next call
 }
 
 // ------------------------------------------------------------ bf16 (WMMA)
@@ -449,23 +789,29 @@ gmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                  2 + g);
 }
 
-template <int BM, int TM, bool WT>
-void launch_f32(const void* x, const void* w, const int* gs, void* out, int T,
-                int K, int N, int E, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, T / BM);
-  dim3 block((BM / TM) * (BN / 4));
-  gmm_f32_kernel<BM, TM, WT><<<grid, block, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), gs,
-      static_cast<float*>(out), K, N, E);
+template <int BM, bool WT, bool VEC>
+int launch_f32_tile(const float* x, const float* w, const int* gs, float* out, int T, int K,
+                    int N, int E, cudaStream_t stream) {
+  const auto kernel = gmm_f32_tf32x3_kernel<BM, WT, VEC>;
+  constexpr int smem = F32Tile<BM, WT>::BYTES;
+  static std::atomic<unsigned long long> ready{0};
+  const int err = wg::allow_smem(ready, kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid(T / BM, (N + F32_BN - 1) / F32_BN);
+  kernel<<<grid, F32_NWARPS * F32_KWARPS * 32, smem, stream>>>(x, w, gs, out, K, N, E);
+  return 0;
 }
 
-template <bool WT>
-void launch_f32_decode(const void* x, const void* w, const int* gs, void* out,
-                       int T, int K, int N, int E, cudaStream_t stream) {
-  dim3 grid((N + 31) / 32, T / DM);
-  gmm_f32_decode_kernel<WT><<<grid, DWARPS * 32, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), gs,
-      static_cast<float*>(out), K, N, E);
+template <int BM, bool WT>
+int launch_f32(const void* x, const void* w, const int* gs, void* out, int T,
+               int K, int N, int E, cudaStream_t stream) {
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  auto* of = static_cast<float*>(out);
+  const bool vec = K % 4 == 0 && N % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  return vec ? launch_f32_tile<BM, WT, true>(xf, wf, gs, of, T, K, N, E, stream)
+             : launch_f32_tile<BM, WT, false>(xf, wf, gs, of, T, K, N, E, stream);
 }
 
 template <int BM, bool WT>
@@ -483,12 +829,13 @@ template <bool WT>
 int launch_gmm(const void* x, const void* w, const int* gs, void* out, int T,
                int K, int N, int E, int bm, int dtype, cudaStream_t s) {
   if (dtype == 0) {
-    switch (bm) {
-      case 8: launch_f32_decode<WT>(x, w, gs, out, T, K, N, E, s); break;
-      case 16: launch_f32<16, 1, WT>(x, w, gs, out, T, K, N, E, s); break;
-      case 32: launch_f32<32, 2, WT>(x, w, gs, out, T, K, N, E, s); break;
+    int err;
+    switch (bm) {  // bm 8 is the decode kernel's, through gmm_f32_decode
+      case 16: err = launch_f32<16, WT>(x, w, gs, out, T, K, N, E, s); break;
+      case 32: err = launch_f32<32, WT>(x, w, gs, out, T, K, N, E, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    if (err != 0) return err;
   } else if (dtype == 1) {
     switch (bm) {
       case 8: launch_bf16<8, WT>(x, w, gs, out, T, K, N, E, s); break;
@@ -931,8 +1278,9 @@ int launch_tgmm_wgmma(const void* x, const void* dy, const int* gs, void* dw, in
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. bm: CTA row tile, dividing block_t: 8, 16 or
-// 32 (fp32 and bf16 WMMA: the wrapper picks min(block_t, 32)), or 64 or 128
+// dtype: 0 = fp32, 1 = bf16. bm: CTA row tile, dividing block_t: 16 or 32
+// (fp32: the wrapper picks min(block_t, 32); fp32 at block_t 8 goes to
+// gmm_f32_decode), 8, 16 or 32 (bf16 WMMA), or 64 or 128
 // (bf16 only: the TMA/wgmma kernel, whose preconditions are checked here).
 // w_trans: w is [E, N, K] and is read transposed (the backward's dX).
 // Returns a cudaError_t.
@@ -953,6 +1301,36 @@ extern "C" int gmm_forward(const void* x, const void* w, const int* group_sizes,
   }
   return w_trans ? launch_gmm<true>(x, w, group_sizes, out, T, K, N, E, bm, dtype, s)
                  : launch_gmm<false>(x, w, group_sizes, out, T, K, N, E, bm, dtype, s);
+}
+
+// fp32 at block_t 8: gmm_f32_decode_kernel ("f32_decode"). kc: rows of K
+// per work item (ops/grouped_matmul.py::decode_plan), at most DEC_KC_MAX;
+// partial: fp32 scratch of ceil(K / kc) x T x N (unread with one chunk);
+// counters: (T / 8) x ceil(N / DEC_COLS) ints, zero on entry and left zero.
+// w_trans as for gmm_forward. Returns a cudaError_t.
+extern "C" int gmm_f32_decode(const void* x, const void* w, const int* group_sizes,
+                              void* out, void* partial, int* counters, int T, int K,
+                              int N, int E, int kc, int w_trans, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = kc > 0 ? (K + kc - 1) / kc : 0;
+  const int strips = (N + DEC_COLS - 1) / DEC_COLS;
+  if (T <= 0 || K <= 0 || N <= 0 || E <= 0 || T % DEC_ROWS != 0 || kc <= 0 ||
+      kc > DEC_KC_MAX || chunks > 65535 || strips > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(T / DEC_ROWS, chunks, strips);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = !w_trans && N % 4 == 0 && aligned(w) && aligned(out) && aligned(partial);
+  const auto kernel = w_trans ? gmm_f32_decode_kernel<true, false>
+                      : vec   ? gmm_f32_decode_kernel<false, true>
+                              : gmm_f32_decode_kernel<false, false>;
+  static std::atomic<unsigned long long> ready[3];
+  const int err = wg::allow_smem(ready[w_trans ? 0 : vec ? 1 : 2], kernel,
+                                 dec_smem(DEC_KC_MAX));
+  if (err != 0) return err;
+  kernel<<<grid, DEC_WARPS * 32, dec_smem(kc), s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), group_sizes,
+      static_cast<float*>(out), static_cast<float*>(partial), counters, T, K, N, E, kc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dw [E, K, N] from x [T, K] and dy [T, N] (one type). kernel: 0 = fp32,

@@ -22,8 +22,7 @@ a dtype, head dim, layout or mask the kernels do not take raises. No build
 or launch error falls back. Each function has several kernels
 ("variants"); :func:`flash_variant` picks one before launch: "wgmma" (TMA
 ring feeding wgmma, scores, P and dS in registers) for bf16, "f32" (SIMT)
-for fp32; "wmma", the 64-row bf16 dQ that served before the wgmma one, is
-reachable through the library's C entry only. Each wrapper counts
+for fp32. Each wrapper counts
 its launches in ``<fn>.launches`` and per variant in
 ``<fn>.launches_by_variant`` (:func:`reset_launches` zeroes both).
 
@@ -66,8 +65,8 @@ MATMUL_PRECISIONS = (None, "fp32", "bf16", "int8")
 KERNEL_MASKS = ("full", "causal", "sliding_window", "prefix_lm")
 _MASK_CODES = {name: i for i, name in enumerate(KERNEL_MASKS)}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-FLASH_VARIANTS = ("wgmma", "wmma", "f32")
-_VARIANT_CODES = {"f32": 0, "wmma": 1, "wgmma": 2}  # csrc/flash_attention.cu's Variant
+FLASH_VARIANTS = ("wgmma", "f32")
+_VARIANT_CODES = {"f32": 0, "wgmma": 2}  # csrc/flash_attention.cu's Variant
 _HEAD_DIMS = (64, 128)
 _DKV_BQ = {64: 128, 128: 64}  # DKV_BQ_D64 / _D128 in csrc/flash_attention.cu
 _DQ_BKV = {64: 128, 128: 64}  # DQ_BKV_D64 / _D128 in csrc/flash_attention.cu
@@ -107,15 +106,15 @@ def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
     CTA against ``_DQ_BKV[head_dim]``-row KV tiles (128 at D 64, 64 at D
     128, where dQ alone holds 64 registers a thread); the wgmma dK/dV 128 KV
     rows per CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 64, 64
-    at D 128, where dK and dV alone hold 128 registers a thread); WMMA 64
-    and SIMT 32 square."""
+    at D 128, where dK and dV alone hold 128 registers a thread); SIMT 32
+    square."""
     if variant == "wgmma":
         if fn == "flash_fwd":
             return (128, 128)
         if fn == "flash_bwd_dq":
             return (128, _DQ_BKV[head_dim])
         return (_DKV_BQ[head_dim], 128)
-    return (64, 64) if variant == "wmma" else (32, 32)
+    return (32, 32)
 
 
 # -- tile planners (the JAX package's, over Python ints) -----------------------

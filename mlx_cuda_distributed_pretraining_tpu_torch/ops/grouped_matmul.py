@@ -21,7 +21,8 @@ of ``x_tile^T @ dy_tile``. Two versions of each function:
   Each function has several kernels ("variants"); :func:`gmm_variant` and
   :func:`tgmm_variant` pick one from the operands before launch (bf16 at
   block_t % 64 == 0 takes the TMA/wgmma kernel, other bf16 shapes the WMMA
-  one, fp32 its SIMT ones), and ``gmm.launches_by_variant`` /
+  one, fp32 "f32" (3xTF32 on the tensor cores) or, at block_t 8,
+  "f32_decode" (a weight stream)), and ``gmm.launches_by_variant`` /
   ``tgmm.launches_by_variant`` count the launches of each;
 - :func:`gmm_plain`, the JAX package's "blocked" formulation in plain
   PyTorch (one weight gather per row tile and one batched matmul, fp32
@@ -37,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,6 +50,7 @@ __all__ = [
     "GMM_VARIANTS",
     "TGMM_VARIANTS",
     "build_library",
+    "decode_plan",
     "gmm",
     "gmm_plain",
     "gmm_variant",
@@ -67,6 +69,10 @@ DEFAULT_BLOCK_T = 128
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "grouped_matmul.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_ROWS = 32  # largest CTA row tile of the fp32 and WMMA kernels (8, 16 or 32)
+# gmm_f32_decode_kernel's work items (csrc/grouped_matmul.cu): DEC_ROWS rows x
+# DEC_COLS columns x a K chunk of at most DEC_KC_MAX rows (staged in shared memory).
+_DEC_ROWS, _DEC_COLS, _DEC_KC_MAX = 8, 128, 256
+_DEC_CTAS = 4 * 132  # work items a decode call aims for: ~4 per SM of an H100
 GMM_VARIANTS = ("wgmma", "wmma", "f32", "f32_decode")
 TGMM_VARIANTS = ("wgmma", "wmma", "f32")
 _TGMM_CODES = {"f32": 0, "wmma": 1, "wgmma": 2}  # tgmm_backward's kernel argument
@@ -185,6 +191,37 @@ def tgmm_variant(dtype: torch.dtype, block_t: int, K: int, N: int,
     return "wgmma" if _takes_wgmma(dtype, block_t, K, N, aligned) else "wmma"
 
 
+def decode_plan(T: int, K: int, N: int) -> Tuple[int, int]:
+    """``(kc, chunks)`` for the "f32_decode" kernel on ``x [T, K]``, output
+    width ``N``: each work item multiplies one 8-row tile by ``kc`` rows of
+    K of one 128-column strip of its expert's weights. ``kc`` is the
+    smallest multiple of 64 for which the row tiles' items, K divided
+    evenly, number at most ``4 x 132`` (~4 per SM of an H100, so every SM
+    streams a like share even when a few tiles are tails), capped at 256
+    (the chunk's weights sit in shared memory) and at what K needs; ``chunks`` =
+    ``ceil(K / kc)``. moe-8x40m's decode (T 72): (128, 4) at gate/up and
+    (128, 12) at down, 432 items each."""
+    tiles, strips = T // _DEC_ROWS, -(-N // _DEC_COLS)
+    kc = round_up(max(1, -(-K * strips * tiles // _DEC_CTAS)), 64)
+    kc = min(kc, _DEC_KC_MAX, round_up(K, 64))
+    return kc, -(-K // kc)
+
+
+_counters = {}
+
+
+def _decode_counters(x: torch.Tensor, slots: int) -> torch.Tensor:
+    """Zeroed int32 arrival counters for the decode kernel's last-CTA sums,
+    one buffer per device and stream (kernels on one stream run in order;
+    each leaves its counters at zero). Grown, never shrunk."""
+    key = (x.device, _stream(x))
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < slots:
+        buf = _counters[key] = torch.zeros(max(slots, 1024), dtype=torch.int32,
+                                           device=x.device)
+    return buf
+
+
 def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -210,6 +247,12 @@ def _library():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
             lib.gmm_forward.restype = ctypes.c_int
+            lib.gmm_f32_decode.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
+            lib.gmm_f32_decode.restype = ctypes.c_int
             lib.tgmm_backward.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -272,13 +315,23 @@ def _gmm_forward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     T, K = x.shape
     E, N = w.shape[0], w.shape[1 if w_trans else 2]
     kind = gmm_variant(x.dtype, block_t, K, N, _aligned(x, w))
-    bm = (128 if block_t % 128 == 0 else 64) if kind == "wgmma" \
-        else min(block_t, _KERNEL_ROWS)
     lib = _library()
     out = torch.empty((T, N), dtype=x.dtype, device=x.device)
-    err = lib.gmm_forward(
-        x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        T, K, N, E, bm, _DTYPE_CODES[x.dtype], int(w_trans), _stream(x))
+    if kind == "f32_decode":
+        kc, chunks = decode_plan(T, K, N)
+        partial = torch.empty((chunks, T, N), dtype=torch.float32, device=x.device) \
+            if chunks > 1 else out
+        counters = _decode_counters(x, (T // _DEC_ROWS) * -(-N // _DEC_COLS))
+        err = lib.gmm_f32_decode(
+            x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), counters.data_ptr(), T, K, N, E, kc, int(w_trans),
+            _stream(x))
+    else:
+        bm = (128 if block_t % 128 == 0 else 64) if kind == "wgmma" \
+            else min(block_t, _KERNEL_ROWS)
+        err = lib.gmm_forward(
+            x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+            T, K, N, E, bm, _DTYPE_CODES[x.dtype], int(w_trans), _stream(x))
     if err != 0:
         raise RuntimeError(f"gmm kernel ({kind}) launch failed with CUDA error {err}")
     gmm.launches += 1

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a serving step's time goes in the torch port, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_serve.py [--steps 20] [--out profile.json]
+    python3 scripts/profile_torch_serve.py [--steps 20] [--root DIR] [--out profile.json]
 
 Builds moe-8x40m at full width (seeded random fp32 weights, the numbers of
 configs/model-config-moe-8x40m.yaml written out), fills all 8 rows of a
@@ -12,11 +12,16 @@ this thread:
   end in a synchronise), and a torch.profiler window over the same steps:
   device time per step by kernel, and the device's idle share of the wall
   time;
-- prefill: wall time of one 256-token prefill chunk (paged_prefill_step);
+- prefill: wall time of one 256-token prefill chunk (paged_prefill_step),
+  and a torch.profiler window over the same chunks: device time per chunk
+  by kernel and the device's idle share;
 - the engine's own thread, as the HTTP server drives it: ms per decode step
   of one request served alone, and of one request decoding beside 7 others
   (from the requests' ``decode_ms``).
 
+Both windows also report the grouped GEMM's share (kernels named
+``gmm*``). ``--root`` imports the port from another checkout (its kernels
+built there), so one call can profile a change and its parent in turns.
 Prints one JSON object (also written to ``--out`` when given) with the
 card's name and power limit beside the numbers. Needs CUDA; imports nothing
 of JAX.
@@ -25,11 +30,12 @@ of JAX.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MOE_8X40M = dict(vocab_size=259, hidden_size=512, intermediate_size=1536,
                  num_layers=12, num_heads=8, num_kv_heads=8, head_dim=64,
@@ -38,7 +44,24 @@ MOE_8X40M = dict(vocab_size=259, hidden_size=512, intermediate_size=1536,
                  num_local_experts=8, num_experts_per_tok=2, moe_impl="grouped")
 
 
+def device_kernels(torch, prof) -> dict:
+    """{kernel name: [device ms, launches]} over a profiler window."""
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += ev.device_time / 1e3  # us -> ms
+            k[1] += 1
+    return kernels
+
+
 def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--root", default=HERE, help="checkout whose port to profile")
+    p.add_argument("--out", help="also write the JSON object here")
+    a = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(a.root))
     import torch
 
     from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
@@ -50,10 +73,7 @@ def main(argv=None) -> int:
     )
     from mlx_cuda_distributed_pretraining_tpu_torch.tokenizer import TokenizerManager
 
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--steps", type=int, default=20)
-    p.add_argument("--out", help="also write the JSON object here")
-    a = p.parse_args(argv)
+    assert llama.__file__.startswith(os.path.abspath(a.root)), llama.__file__
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -93,12 +113,7 @@ def main(argv=None) -> int:
             engine._iteration()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(ev.name, [0.0, 0])
-            k[0] += ev.device_time / 1e3  # us -> ms
-            k[1] += 1
+    kernels = device_kernels(torch, prof)
     device_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
 
@@ -116,6 +131,18 @@ def main(argv=None) -> int:
                                       255, args, 256, 32, with_logits=True)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t2) * 1e3 / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        for _ in range(5):
+            batch_step.paged_prefill_step(params, engine.pool.cache, toks, table, 0,
+                                          255, args, 256, 32, with_logits=True)
+        torch.cuda.synchronize()
+        prefill_prof_wall_ms = (time.perf_counter() - t3) * 1e3
+    pre_kernels = device_kernels(torch, prof)
+    pre_device_ms = sum(v[0] for v in pre_kernels.values())
+
+    def gmm_ms(ks, n):  # demangled names read "(anonymous namespace)::gmm_..."
+        return sum(v[0] for name, v in ks.items() if re.search(r"\bgmm_", name)) / n
 
     def thread_step_ms(n_rows: int) -> float:
         """ms per decode step of the last request; the others get more
@@ -149,7 +176,12 @@ def main(argv=None) -> int:
         "top_kernels_ms_per_step": [
             {"name": n[:90], "ms": v[0] / a.steps, "launches": v[1] / a.steps}
             for n, v in top],
+        "decode_step_gmm_device_ms": gmm_ms(kernels, a.steps),
         "prefill_chunk_256_ms": prefill_ms,
+        "profiled_prefill_chunk_wall_ms": prefill_prof_wall_ms / 5,
+        "profiled_prefill_chunk_device_ms": pre_device_ms / 5,
+        "prefill_device_idle_share": 1.0 - pre_device_ms / prefill_prof_wall_ms,
+        "prefill_chunk_gmm_device_ms": gmm_ms(pre_kernels, 5),
         "engine_thread_decode_step_ms_1_row": thread_ms[1],
         "engine_thread_decode_step_ms_8_rows": thread_ms[8],
     }

@@ -249,8 +249,9 @@ def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
         ("flash_bwd_dq", "wgmma"): (128, tf._DQ_BKV[head_dim]),
         ("flash_bwd_dkv", "wgmma"): (tf._DKV_BQ[head_dim], 128),
     }.get((fn, got), (32, 32))
-    # the WMMA dQ (the C entry's "wmma" code) keeps its 64-row plan
-    assert tf.kernel_tiles("flash_bwd_dq", "wmma", head_dim) == (64, 64)
+    # the bf16 WMMA kernels are gone: no variant and no C entry code names them
+    assert tf.FLASH_VARIANTS == ("wgmma", "f32")
+    assert tf._VARIANT_CODES == {"f32": 0, "wgmma": 2}
 
 
 def test_flash_variant_rejects_what_no_kernel_takes():

@@ -298,7 +298,10 @@ VARIANT_CASES = [
     ("bfloat16", 128, 512, 1536, False, "wmma", "wmma"),
     ("float32", 128, 512, 1536, True, "f32", "f32"),
     ("float32", 32, 512, 1536, True, "f32", "f32"),
+    ("float32", 16, 1536, 512, True, "f32", "f32"),
+    ("float32", 64, 200, 72, False, "f32", "f32"),
     ("float32", 8, 512, 1536, True, "f32_decode", "f32"),
+    ("float32", 8, 100, 36, False, "f32_decode", "f32"),
 ]
 
 
@@ -352,3 +355,43 @@ def test_kernel_gate_rejects_a_skipped_gmm_tile(w_trans):
     assert not bad[live - 128:live].any() and torch.equal(bad[:live - 128], ref[:live - 128])
     check = kernel_check.compare(bad, ref)
     assert not check["ok"] and check["limit_ratio"] > 2, check
+
+
+# -- the fp32 decode kernel's plan ------------------------------------------------------
+@pytest.mark.parametrize("K,N,want", [(512, 1536, (128, 4)), (1536, 512, (128, 12))])
+def test_decode_plan_at_the_serving_shapes(K, N, want):
+    # moe-8x40m decode: 8 slots x top-2 in a 72-row buffer (nine 8-row tiles);
+    # 432 work items of 128 x 128 weights (64 KB) at gate/up and at down,
+    # about 4 per SM of an H100 even with two tail tiles.
+    kc, chunks = tgm.decode_plan(72, K, N)
+    assert (kc, chunks) == want
+    assert 9 * chunks * -(-N // 128) == 432
+
+
+@pytest.mark.parametrize("T", [8, 72, 200, 4096, 80000])
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512), (200, 72), (8, 8), (8192, 36)])
+def test_decode_plan_chunks_cover_k_once(T, K, N):
+    # kc: a multiple of 64 within the kernel's shared-memory slice of x, the
+    # smallest whose evenly divided K makes at most 4 x 132 items; the
+    # chunks tile [0, K) without overlap or gap.
+    kc, chunks = tgm.decode_plan(T, K, N)
+    assert kc % 64 == 0 and 64 <= kc <= tgm._DEC_KC_MAX
+    assert chunks == -(-K // kc) and (chunks - 1) * kc < K <= chunks * kc
+    covered = np.zeros(K, np.int64)
+    for c in range(chunks):
+        covered[c * kc:min(K, (c + 1) * kc)] += 1
+    assert (covered == 1).all()
+    work = (T // 8) * -(-N // 128) * K  # weight rows x strips over all tiles
+    cap = min(tgm._DEC_KC_MAX, tgm.round_up(K, 64))
+    assert kc == cap or work <= kc * tgm._DEC_CTAS
+    assert kc == 64 or work > (kc - 64) * tgm._DEC_CTAS
+
+
+def test_decode_plan_constants_match_the_cuda_source():
+    import re
+
+    src = (tgm._SRC).read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (tgm._DEC_ROWS, tgm._DEC_COLS, tgm._DEC_KC_MAX) == (
+        const["DEC_ROWS"], const["DEC_COLS"], const["DEC_KC_MAX"])
+    assert const["DEC_COLS"] == 4 * 32  # four columns per lane of one warp

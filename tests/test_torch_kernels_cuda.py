@@ -62,6 +62,87 @@ def test_gmm_kernel_matches_plain(cuda, dtype, block_t, sizes, tail, K, N):
     assert not out[sum(sizes):].any()
 
 
+# The fp32 kernels ("f32_decode" at block_t 8, "f32" at 16 and 32): (block_t,
+# group sizes, tail rows) at the serving path's tilings; one expert holding
+# every selection (decode: 16 selections; prefill: 512); empty groups and tail
+# tiles.
+F32_CASES = [
+    (8, [8, 0, 8, 8, 0, 8, 0, 8], 32),
+    (8, [0, 0, 0, 16, 0, 0, 0, 0], 56),
+    (8, [0, 8, 0, 0, 0, 0, 16, 0], 48),
+    (16, [0, 48, 16, 0, 32, 0, 0, 16], 128),
+    (32, [64, 96, 32, 0, 64, 96, 64, 96], 256),
+    (32, [0, 0, 512, 0, 0, 0, 0, 0], 256),
+    (32, [32, 0, 0, 64, 0, 0, 0, 0], 96),
+]
+
+
+def _f32_inputs(sizes, tail, K, N, w_trans, seed=6):
+    rng = np.random.default_rng(seed)
+    T = sum(sizes) + tail
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    x[sum(sizes):] = 0.0
+    w = (rng.standard_normal((len(sizes), N, K) if w_trans else (len(sizes), K, N))
+         / K ** 0.5).astype(np.float32)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda(),
+            torch.tensor(sizes, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_trans", [False, True])
+@pytest.mark.parametrize("block_t,sizes,tail", F32_CASES)
+# moe-8x40m's gate/up and down widths, and widths no tile divides (K 200:
+# a partial last stage and K chunk; N 72: a partial column strip)
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512), (200, 72)])
+def test_f32_gmm_kernels_match_plain_and_repeat_bitwise(cuda, block_t, sizes, tail, K, N,
+                                                       w_trans):
+    x, w, gs = _f32_inputs(sizes, tail, K, N, w_trans)
+    got, ref, ran = _run_grouped("dx" if w_trans else "forward", x, w, gs, block_t)
+    assert ran == {"f32_decode" if block_t == 8 else "f32": 1}
+    _assert_matches("forward", got, ref, sizes)  # kernel_check's fp32 limits
+    again = tgm._gmm_forward(x, w, gs, block_t, w_trans)
+    assert torch.equal(got, again), "two launches must give the same bits"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_t", [8, 16, 32])
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512)])
+def test_f32_gmm_error_against_float64(cuda, block_t, K, N):
+    # The kernels against the float64 product, beside the plain version (fp32
+    # cuBLAS, TF32 off): 3xTF32 (f32) and the FMA stream (f32_decode) must
+    # stay within 4x the plain version's normwise error (3xTF32 drops the
+    # lo.lo term, ~2^-22 of each product, far below fp32 summation noise).
+    rng = np.random.default_rng(7)
+    sizes = (rng.multinomial(16 if block_t == 8 else 512, [1 / 8] * 8)
+             + block_t - 1) // block_t * block_t
+    x, w, gs = _f32_inputs(sizes.tolist(), block_t * 4, K, N, False, seed=7)
+    n_live = int(sizes.sum()) // block_t
+    te = tgm.tile_experts(gs, n_live, block_t)
+    live = torch.bmm(x[:n_live * block_t].double().reshape(n_live, block_t, K),
+                     w.double()[te]).reshape(-1, N)
+
+    def err(out):
+        return ((out[:live.shape[0]].double() - live).norm() / live.norm()).item()
+
+    kernel, plain = err(tgm.gmm(x, w, gs, block_t)), err(tgm.gmm_plain(x, w, gs, block_t))
+    print(f"normwise error vs float64, block_t {block_t}, K {K}, N {N}: "
+          f"kernel {kernel:.3g}, plain {plain:.3g}")
+    assert kernel <= 4 * plain, (kernel, plain)
+
+
+@pytest.mark.cuda
+def test_f32_gmm_check_rejects_planted_fault(cuda):
+    # The serving path's prefill tiling (block_t 32, 8 experts): the last
+    # live row tile left out must fail the check that the kernel passes.
+    rng = np.random.default_rng(8)
+    sizes = ((rng.multinomial(512, [1 / 8] * 8) + 31) // 32 * 32).tolist()
+    x, w, gs = _f32_inputs(sizes, 768 - sum(sizes), 1536, 512, False)
+    got, ref, ran = _run_grouped("forward", x, w, gs, 32)
+    assert ran == {"f32": 1} and kernel_check.compare(got, ref)["ok"]
+    bad = kernel_check.gmm_skipping_a_tile(x, w, gs, 32)
+    assert not kernel_check.compare(bad, ref)["ok"]
+
+
 # (block_t, group sizes, tail rows) for tgmm: the training path's tile, the
 # decode and prefill tiles, empty groups, tail tiles and an empty last expert.
 TGMM_CASES = [
@@ -513,7 +594,7 @@ def test_wgmma_flash_planted_fault_is_rejected(cuda):
 
 
 @pytest.mark.cuda
-def test_wgmma_flash_bad_input_raises_without_a_launch(cuda):
+def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
     q, k, v, do = _flash_inputs("bfloat16", 1, 4, 4, 256, 64)
     o = torch.empty_like(q)
     lse = torch.empty((1, 4, 256), device="cuda")
@@ -536,11 +617,16 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda):
     with pytest.raises(RuntimeError, match="wgmma"):
         tfa._launch("flash_bwd_dq_launch", "wgmma", q, k, v, ranges=ranges, full=full,
                     dout=do, lse_in=lse, delta=lse, out0=o, **plan_kw)
-    # the library no longer builds a bf16 WMMA forward or dK/dV
+    # the library no longer builds any bf16 WMMA kernel: its old code (1) is
+    # refused by all three C entries
+    monkeypatch.setitem(tfa._VARIANT_CODES, "wmma", 1)
     ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 64, q.device)
     with pytest.raises(RuntimeError, match="wmma"):
         tfa._launch("flash_fwd_launch", "wmma", q, k, v, ranges=ranges, full=full,
                     out0=o, lse_out=lse, **plan_kw)
+    with pytest.raises(RuntimeError, match="wmma"):
+        tfa._launch("flash_bwd_dq_launch", "wmma", q, k, v, ranges=ranges, full=full,
+                    dout=do, lse_in=lse, delta=lse, out0=o, **plan_kw)
     with pytest.raises(RuntimeError, match="wmma"):
         tfa._launch("flash_bwd_dkv_launch", "wmma", q, k, v, ranges=q_ranges, full=full,
                     dout=do, lse_in=lse, delta=lse, out0=o, out1=torch.empty_like(q),
