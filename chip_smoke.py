@@ -36,12 +36,14 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    shape (B 32, H 8, S 1024, D 64, bf16, causal), fp32, GQA 8/2, S 1000
    (tail tiles), sliding_window, prefix_lm, full and D 128, timing each
    beside ``F.scaled_dot_product_attention`` (forward; forward + backward
-   for the backward kernels) as a yardstick, with its TFLOP/s. Each call
-   must run the variant ``flash_variant`` names (bf16: the wgmma kernels).
-   Each output must pass ``ops/kernel_check.compare`` (per-element limits
-   scaled to the output's RMS, and a normwise limit). At the path shape
-   the kernels are launched once more with one live tile left out of their
-   plans, and the same check must reject every output.
+   for the backward kernels) as a yardstick, with its TFLOP/s; first of
+   them the 1B trainer's shape (B 8, H 16, S 2048, D 128, bf16, causal).
+   Each call must run the variant ``flash_variant`` names (bf16: the wgmma
+   kernels). Each output must pass ``ops/kernel_check.compare``
+   (per-element limits scaled to the output's RMS, and a normwise limit).
+   At both path shapes the kernels are launched once more with one live
+   tile left out of their plans, and the same check must reject every
+   output.
 4. serve   — serves moe-8x40m at full width (12 layers, seeded random fp32
    weights) through the port's HTTP server and batch engine: 8 slots,
    max_len 1024, paged KV in 32-token blocks, prefix cache, 256-token prefill
@@ -71,9 +73,28 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    1's loss and gradients with the gmm and
    tgmm kernels against their plain versions (flash kernels in both) at
    batch 8, and serves the final checkpoint.
-7. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
+7. 1b      — trains configs/model-config-1b-singlechip.yaml at full width
+   (hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, S 2048,
+   batch 8, bf16 over fp32 masters, flash attention, remat "full" on the
+   first 8 layers (the default ratio 0.5), scan_layers, Adafactor, async
+   checkpoints) from a JSON config. Cut: 16 steps (of 20,000), warmup 2 (of
+   2,000), a log line every step, a checkpoint every 8 steps. At step 1 the
+   fused CE (2048-row chunks) is held against the plain CE: loss 1e-5 and
+   gradient norm 1e-4 relative. Run A trains 16 steps through
+   ``Trainer.train()`` (launch counts: 24 flash forwards a step, 16 of each
+   backward kernel, all wgmma; every checkpoint verifies); a 2-step side
+   run with remat "none" gives the peak memory remat saves. Run B is the
+   trainer CLI in a subprocess, sent SIGTERM once its log shows step 4: it
+   must save a preemption checkpoint that verifies and exit 0. Run C
+   resumes B with ``resume.checkpoint: latest`` to step 16: it must start
+   at B's saved step, log "Resumed from checkpoint", and give run A's loss
+   at every step within 1e-5 relative (whether bitwise is printed). The
+   final checkpoint is served. Prints step ms, tok/s, MFU (the recompute
+   not counted) and both peak memories beside the card.
+8. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
    kernel's ms where this run timed one, each flash kernel with its
-   launches by variant; the serving path's fp32 gmm kernels, "gmm_f32" and
+   launches by variant in the 1B run and its launches on each training
+   path; the serving path's fp32 gmm kernels, "gmm_f32" and
    "gmm_f32_decode", as entries of their own with their serving launches
    and every fp32 row), the card line, and as the last line
    ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
@@ -567,8 +588,10 @@ def train_kernel_phase(torch, gm, kernel_check):
 
 
 # -- phase 3: the flash kernels vs plain -------------------------------------------
-# (name, dtype, B, Hq, Hkv, S, D, mask): the training path's shape first.
+# (name, dtype, B, Hq, Hkv, S, D, mask): the 1B trainer's shape first, then
+# the 40m / MoE training path's.
 FLASH_CASES = [
+    ("path_1b", "bfloat16", 8, 16, 16, 2048, 128, "causal"),
     ("path", "bfloat16", 32, 8, 8, 1024, 64, "causal"),
     ("fp32", "float32", 4, 8, 8, 1024, 64, "causal"),
     ("gqa", "bfloat16", 8, 8, 2, 1024, 64, "causal"),
@@ -673,7 +696,7 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
         ok = False
         log(f"flash {name}: ran {ran}, not {want_ran}")
     fault = None
-    if name == "path":
+    if name.startswith("path"):
         # The same check on a planted fault: one live tile left out of each
         # kernel's plan. Every output must fail it.
         with kernel_check.planted_fault():
@@ -684,7 +707,7 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
             + fmt_checks(fault))
         if any(c["ok"] for c in fault.values()):
             ok = False
-            log("flash path: the check passed a planted fault")
+            log(f"flash {name}: the check passed a planted fault")
     del ro, rdq, rdk, rdv, o, dq, dk, dv, refs, got
     torch.cuda.empty_cache()
 
@@ -1314,6 +1337,275 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
     return failures, perf
 
 
+# -- phase 7: the 1B single-chip trainer, preempted and resumed -------------------
+STEPS_1B = 16
+
+
+def config_1b(tmp: str, steps: int = STEPS_1B) -> dict:
+    """configs/model-config-1b-singlechip.yaml written out as a dict, with
+    the smoke's cuts: ``iters`` 16 (of 20,000), ``warmup_steps`` 2 (of
+    2,000: the same tenth), a log line every step (of 20), a checkpoint
+    every 8 steps (of 1,000), and the corpus paths. Every width and switch
+    is the config's: flash attention, remat "full", scan_layers, Adafactor,
+    async checkpoints; validation (every 500) runs once, at the end."""
+    return {
+        "name": "Llama-1B-singlechip", "overwrite": True,
+        "data": {"input_file": os.path.join(tmp, "train.jsonl"),
+                 "validation_file": os.path.join(tmp, "val.jsonl"),
+                 "tokenizer_path": "tokenizer",
+                 "preprocessing": {"max_context_size": 2048, "chunk_overlap": 128},
+                 "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                     "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": 2048, "intermediate_size": 5632,
+                                 "num_layers": 16},
+                  "attention": {"num_heads": 16, "num_kv_heads": 16, "head_dim": 128,
+                                "max_position_embeddings": 2048,
+                                "attention_type": "flash"},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True}},
+        "training": {"hyperparameters": {"batch_size": 8, "learning_rate": 1.0e-2,
+                                         "weight_decay": 0.0, "gradient_clip": 1.0,
+                                         "iters": steps},
+                     "scheduler": {"type": "cosine_with_warmup", "min_lr_ratio": 0.1,
+                                   "warmup_steps": 2},
+                     "optimization": {"optimizer": "adafactor",
+                                      "clipping_threshold": 1.0}},
+        "logging": {"steps": {"logging_interval": 1, "checkpoint_interval": 8,
+                              "validation_interval": 500}},
+        "system": {"seed": 42, "compute_dtype": "bfloat16", "remat": "full",
+                   "scan_layers": True, "async_checkpointing": True},
+    }
+
+
+def fused_ce_parity(torch, trainer) -> dict:
+    """Step 1's loss and gradient norm on the first batch with the fused CE
+    (2048-row chunks) and with the plain CE, the rest of the step as the
+    trainer runs it."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.optim.base import global_norm
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.train_step import make_loss_fn
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import leaves_with_path
+
+    batch = trainer._device_batch(trainer.data.generate_batch(0))
+    params = trainer.state["params"]
+    out = {}
+    for chunk in (2048, 0):
+        loss_fn = make_loss_fn(trainer.model_args, trainer.compute_dtype,
+                               remat=trainer.remat, remat_ratio=trainer.remat_ratio,
+                               ce_chunk=chunk)
+        loss, _ = loss_fn(params, batch)
+        loss.backward()
+        grads = [p.grad for _, p in leaves_with_path(params)]
+        out[chunk] = (loss.item(), global_norm(grads).item())
+        for _, p in leaves_with_path(params):
+            p.grad = None
+    (lf, gf), (lp, gp) = out[2048], out[0]
+    return {"loss_fused": lf, "loss_plain": lp, "loss_rel": abs(lf - lp) / abs(lp),
+            "grad_norm_fused": gf, "grad_norm_plain": gp,
+            "grad_norm_rel": abs(gf - gp) / gp}
+
+
+def wait_for_step(proc, log_path: str, step: int, timeout: float):
+    """The newest step in a trainer's log.txt once it reaches ``step``;
+    None if the process ends first or the time runs out."""
+    import re
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and proc.poll() is None:
+        if os.path.isfile(log_path):
+            with open(log_path) as f:
+                steps = [int(m.group(1)) for m in re.finditer(r"^Step (\d+): ", f.read(),
+                                                             re.MULTILINE)]
+            if steps and max(steps) >= step:
+                return max(steps)
+        time.sleep(0.05)
+    return None
+
+
+def train_1b_phase(torch, gm, fa, card):
+    """Run A: 16 steps in this process. A side run: 2 steps with remat
+    "none", for its peak memory. Run B: the trainer CLI in a subprocess,
+    SIGTERM once its log shows step 4. Run C: resumes B from "latest" to
+    step 16 in this process; its losses must be A's."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures, steps = [], STEPS_1B
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, train_bytes=600_000, val_bytes=70_000)
+        cfg = config_1b(tmp)
+        a = Trainer(Config.from_dict(cfg), runs_root=os.path.join(tmp, "runs_a"),
+                    quiet=True, device="cuda")
+        layers = a.model_args.num_layers
+        n_remat = int(round(layers * a.remat_ratio))
+        log(f"1b: {a.n_params / 1e6:.2f}M params, {a.flops_per_token / 1e9:.3f} GFLOP "
+            f"per token, remat {a.remat} on {n_remat} of {layers} layers, "
+            f"{len(a.data.train_rows)} train rows of {a.data.seq_len + 1} tokens, "
+            f"{time.perf_counter() - t0:.1f}s to set up; "
+            f"{shutil.disk_usage(tmp).free / 1e9:.0f} GB free on disk")
+
+        ce = fused_ce_parity(torch, a)
+        log(f"1b: step 1, fused CE (2048-row chunks) vs plain: {ce}")
+        if not (ce["loss_rel"] <= 1e-5 and ce["grad_norm_rel"] <= 1e-4):
+            failures.append(f"1b: fused CE disagrees with the plain CE: {ce}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(gm, fa)  # count from here: run A only
+        t0 = time.perf_counter()
+        result = a.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, variants = read_launches(gm, fa), read_variants(gm, fa)
+        peak_full = torch.cuda.max_memory_allocated() / 1e9
+        windows = list(a.windows)
+        losses_a = {w["step"]: w["loss"] for w in windows}
+        vb = a.eval_batches
+        # forward: every layer each step and validation batch, and the remat'd
+        # layers once more in each backward
+        want = {"flash_fwd": (layers + n_remat) * steps + layers * vb,
+                "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+                "gmm": 0, "tgmm": 0}
+        log(f"1b: run A, {steps} steps + {vb} validation batches in {wall:.1f}s; "
+            f"losses {[round(x, 5) for x in losses_a.values()]}; final val_loss="
+            f"{result['final_val_loss']}; launches {launches}")
+        if sorted(losses_a) != list(range(1, steps + 1)) \
+                or not all(math.isfinite(x) for x in losses_a.values()):
+            failures.append(f"1b: bad loss log {losses_a}")
+        if launches != want:
+            failures.append(f"1b: launches {launches} != {want}")
+        flash_variants = {n: variants[n] for n in FLASH_KERNELS}
+        if flash_variants != flash_variants_want(fa, want["flash_fwd"],
+                                                 want["flash_bwd_dq"]):
+            failures.append(f"1b: flash launches by variant {flash_variants}")
+        saved_a = a.checkpoints.manifested_steps()
+        bad = {t: a.checkpoints.verify(t) for t in saved_a}
+        log(f"1b: run A checkpoints {bad}")
+        if set(saved_a) != {"8", "16", "final"} or not all(ok for ok, _ in bad.values()):
+            failures.append(f"1b: run A checkpoints {bad}")
+        flops_per_token = a.flops_per_token
+        shutil.rmtree(a.run_dir)
+        del a
+        torch.cuda.empty_cache()
+
+        # The side run: remat "none", two steps, for the peak memory remat saves.
+        side = dict(cfg, system=dict(cfg["system"], remat="none"))
+        n = Trainer(Config.from_dict(side), runs_root=os.path.join(tmp, "runs_none"),
+                    quiet=True, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        none_ms = []
+        for i in range(2):
+            t = time.perf_counter()
+            n.state, _ = n.train_step(n.state, n._device_batch(n.data.generate_batch(i)))
+            torch.cuda.synchronize()
+            none_ms.append(1e3 * (time.perf_counter() - t))
+        peak_none = torch.cuda.max_memory_allocated() / 1e9
+        del n
+        torch.cuda.empty_cache()
+        log(f"1b: peak memory, remat full (run A) {peak_full:.3f} GB, remat none "
+            f"(2 steps) {peak_none:.3f} GB; remat none step ms {none_ms} [{card}]")
+
+        # Run B: the trainer CLI, preempted with SIGTERM at step 4 or later.
+        runs_bc = os.path.join(tmp, "runs_bc")
+        cfg_path = os.path.join(tmp, "1b.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        b_log = os.path.join(runs_bc, cfg["name"], "log.txt")
+        with open(os.path.join(tmp, "run_b.out"), "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "mlx_cuda_distributed_pretraining_tpu_torch.train.trainer",
+                 "--config", cfg_path, "--runs-root", runs_bc],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=out,
+                stderr=subprocess.STDOUT)
+            try:
+                seen = wait_for_step(proc, b_log, 4, timeout=600)
+                if seen is not None:
+                    proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        b_text = open(b_log).read() if os.path.isfile(b_log) else ""
+        m = re.search(r"Preemption signal received: saving checkpoint at step (\d+)", b_text)
+        b_step = int(m.group(1)) if m else None
+        mgr = CheckpointManager(os.path.join(runs_bc, cfg["name"]))
+        b_ckpts = {t: mgr.verify(t) for t in mgr.manifested_steps()}
+        log(f"1b: run B signalled at step {seen}, exit {rc}, saved step {b_step}; "
+            f"checkpoints {b_ckpts}")
+        if rc != 0 or b_step is None or seen is None:
+            tail = open(os.path.join(tmp, "run_b.out")).read()[-3000:]
+            failures.append(f"1b: run B was not preempted cleanly (signalled at "
+                            f"{seen}, exit {rc}, saved {b_step}): {tail}")
+        elif not (b_ckpts.get(str(b_step), (False,))[0] and all(
+                ok for ok, _ in b_ckpts.values())):
+            failures.append(f"1b: run B's checkpoints do not verify: {b_ckpts}")
+
+        # Run C: resume B from "latest" to step 16.
+        resume = dict(cfg, overwrite=False, resume={"checkpoint": "latest"})
+        c = Trainer(Config.from_dict(resume), runs_root=runs_bc, quiet=True, device="cuda")
+        start = c.start_step
+        c.train()
+        torch.cuda.synchronize()
+        losses_c = {w["step"]: w["loss"] for w in c.windows}
+        c_text = open(os.path.join(c.run_dir, "log.txt")).read()
+        run_dir = c.run_dir
+        del c
+        torch.cuda.empty_cache()
+        rel = {s: abs(x - losses_a[s]) / abs(losses_a[s]) for s, x in losses_c.items()
+               if s in losses_a}
+        max_rel = max(rel.values()) if rel else float("nan")
+        bitwise = bool(rel) and all(losses_c[s] == losses_a[s] for s in rel)
+        log(f"1b: run C started at step {start}, ran steps {sorted(losses_c)}; losses "
+            f"vs run A: max relative difference {max_rel:.3g}, bitwise {bitwise}")
+        if b_step is None or start != b_step or \
+                sorted(losses_c) != list(range(b_step + 1, steps + 1)):
+            failures.append(f"1b: run C did not resume at B's step {b_step} "
+                            f"(start {start}, steps {sorted(losses_c)})")
+        if "Resumed from checkpoint" not in c_text:
+            failures.append("1b: run C's log.txt lacks 'Resumed from checkpoint'")
+        if not max_rel <= 1e-5:
+            failures.append(f"1b: resumed losses differ from run A's: {rel}")
+
+        code, out = serve_run(torch, run_dir, torch.device("cuda"), "1b-smoke")
+        log(f"1b: final checkpoint served: HTTP {code} tokens={out.get('tokens')} "
+            f"text={out.get('text', '')[:40]!r}")
+        if code != 200 or not out.get("tokens"):
+            failures.append(f"1b: serving the final checkpoint: HTTP {code} {out}")
+    torch.cuda.empty_cache()
+
+    steady = windows[1:]  # the first window holds the first step's warm-up
+    secs = sum(w["seconds"] for w in steady)
+    tok_s = sum(w["toks"] for w in steady) / secs
+    perf = {"step_ms": 1e3 * secs / sum(w["steps"] for w in steady), "tok_s": tok_s,
+            # the recompute of the remat'd layers is not counted
+            "mfu_vs_989tflops": tok_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+            "flops_per_token": flops_per_token, "peak_mem_gb_remat_full": peak_full,
+            "peak_mem_gb_remat_none": peak_none, "remat_none_step_ms": none_ms,
+            "first_window_s": windows[0]["seconds"], "losses": losses_a,
+            "launches": launches, "launches_by_variant": flash_variants,
+            "fused_ce_parity": ce, "resume": {
+                "preempted_at_step": b_step, "resumed_at_step": start,
+                "max_rel_loss_diff": max_rel, "bitwise": bitwise}}
+    for k in ("step_ms", "tok_s", "mfu_vs_989tflops", "peak_mem_gb_remat_full",
+              "peak_mem_gb_remat_none"):
+        log(f"1b: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
 def kernel_entry(name, source, replaces, launches, row, max_abs_err):
     """One kernel of the report line; ``earlier_ms`` is the kernel that
     served the path before it, where this run timed one in turns with it."""
@@ -1381,10 +1673,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_failures, moe_perf = moe_train_phase(torch, gm, fa, card)
     failures += moe_failures
+    torch.cuda.empty_cache()
+    b1_failures, b1_perf = train_1b_phase(torch, gm, fa, card)
+    failures += b1_failures
 
-    # Launches: the MoE training run, which drives all five kernels. Times:
-    # the training path's bf16 gate/up shapes (gmm forward, tgmm) and the
-    # flash path shape (B 32, H 8, S 1024, D 64, bf16, causal).
+    # gmm and tgmm: launches in the MoE training run, times at its bf16
+    # gate/up shapes (gmm forward, tgmm).
     moe_launches = moe_perf.get("launches", {})
     gmm_case = train_cases[0]
     gmm_entry = kernel_entry(
@@ -1408,20 +1702,29 @@ def main() -> int:
                              by_case[row], max(c["max_abs_err"] for c in rows))
         entry.update(variant=variant, cases=rows, card=card)
         fp32_entries.append(entry)
-    path_case = flash_cases[0]  # B 32, H 8, S 1024, D 64, bf16, causal
+    # The flash kernels: the 1B trainer's shape (B 8, H 16, S 2048, D 128,
+    # bf16, causal) and its launches in run A; the 40m and MoE runs'
+    # launches beside them.
+    path_case = flash_cases[0]
     out_of = {"flash_fwd": ("o", "lse"), "flash_bwd_dq": ("dq",),
               "flash_bwd_dkv": ("dk", "dv")}
+    b1_launches = b1_perf.get("launches", {})
     flash_entries = [kernel_entry(
-        name, FLASH_SOURCE, FLASH_REPLACES[name], moe_launches.get(name, 0),
+        name, FLASH_SOURCE, FLASH_REPLACES[name], b1_launches.get(name, 0),
         path_case["kernels"][name],
         max(path_case["max_abs_err"][o] for o in out_of[name]))
         for name in FLASH_KERNELS]
-    moe_variants = moe_perf.get("launches_by_variant", {})
+    b1_variants = b1_perf.get("launches_by_variant", {})
     for entry in flash_entries:
-        row = path_case["kernels"][entry["name"]]
-        entry.update(launches_by_variant=moe_variants.get(entry["name"]),
-                     tflops=row["tflops"])
-    flash_entries[0].update(cases=flash_cases, dense_train=train_perf, card=card)
+        name = entry["name"]
+        entry.update(launches_by_variant=b1_variants.get(name),
+                     tflops=path_case["kernels"][name]["tflops"],
+                     launches_by_path={
+                         "1b_singlechip": b1_launches.get(name, 0),
+                         "moe_8x40m": moe_launches.get(name, 0),
+                         "dense_40m": train_perf.get("launches", {}).get(name, 0)})
+    flash_entries[0].update(cases=flash_cases, dense_train=train_perf,
+                            train_1b=b1_perf, card=card)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + fp32_entries + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)

@@ -10,12 +10,14 @@ through torch's own dtypes (raw bits viewed as same-width integers), so no
 from __future__ import annotations
 
 import json
-import os
 import struct
+import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .faults import commit_write
 
 # safetensors dtype -> (torch dtype, numpy dtype of the same width the raw
 # bytes are read as; torch views them as the real dtype)
@@ -39,34 +41,40 @@ _RAW_VIEW = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
 
 
 def save_safetensors(path: str, tensors: Dict[str, torch.Tensor],
-                     metadata: Optional[Dict[str, str]] = None) -> int:
-    """Write ``tensors`` (flat dict) to ``path`` via temp file + rename;
-    returns the file size in bytes."""
+                     metadata: Optional[Dict[str, str]] = None) -> Tuple[int, int]:
+    """Write ``tensors`` (flat dict) to ``path`` via temp file + rename
+    (:func:`faults.commit_write`). Each tensor's bytes stream out from its
+    host copy, and the returned ``(nbytes, crc32)`` is of the bytes as
+    they went out: the step manifest records what the writer meant to put
+    on disk, so a torn or dropped write fails verification."""
     header: Dict[str, object] = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
-    blobs = []
+    arrays = []
     offset = 0
     for name in sorted(tensors):
         t = tensors[name].detach().cpu().contiguous()
         st = _TORCH_TO_ST.get(t.dtype)
         if st is None:
             raise ValueError(f"unsupported dtype {t.dtype} for tensor {name!r}")
-        data = t.view(_RAW_VIEW.get(t.dtype, t.dtype)).numpy().tobytes()
+        arr = t.view(_RAW_VIEW.get(t.dtype, t.dtype)).numpy()
         header[name] = {"dtype": st, "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        arrays.append(arr)
+        offset += arr.nbytes
     header_bytes = json.dumps(header, separators=(",", ":")).encode("utf-8")
     header_bytes += b" " * ((8 - len(header_bytes) % 8) % 8)
+    head = struct.pack("<Q", len(header_bytes)) + header_bytes
+    crc = zlib.crc32(head)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(struct.pack("<Q", len(header_bytes)))
-        f.write(header_bytes)
-        for blob in blobs:
-            f.write(blob)
-    os.replace(tmp, path)
-    return 8 + len(header_bytes) + offset
+        f.write(head)
+        for arr in arrays:
+            data = memoryview(arr.reshape(-1)).cast("B")
+            f.write(data)
+            crc = zlib.crc32(data, crc)
+    commit_write(tmp, path)
+    return len(head) + offset, crc
 
 
 def load_safetensors(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:

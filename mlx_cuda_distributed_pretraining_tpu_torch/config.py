@@ -109,6 +109,7 @@ class TrainingConfig:
     scheduler: Dict[str, Any] = field(default_factory=dict)
     optimization: Dict[str, Any] = field(default_factory=dict)
     epochs: Optional[int] = None
+    early_stopping: Dict[str, Any] = field(default_factory=dict)
 
     @property
     def batch_size(self) -> int:
@@ -164,6 +165,16 @@ class LoggingConfig:
     def validation_interval(self) -> int:
         return int(_get(self.steps, "validation_interval", 0))
 
+    @property
+    def keep_last(self) -> int:
+        """Retention GC: keep the newest N manifested steps (0: keep all)."""
+        return int(_get(self.retention, "keep_last", 0))
+
+    @property
+    def keep_every(self) -> int:
+        """Retention GC: always keep steps divisible by M (0: off)."""
+        return int(_get(self.retention, "keep_every", 0))
+
 
 @dataclass
 class SystemConfig:
@@ -182,11 +193,13 @@ class SystemConfig:
     model_parallel_size: int = 1
     mixed_precision: bool = False
     gradient_checkpointing: bool = False
+    gradient_checkpointing_ratio: float = 0.5  # share of layers remat wraps
     remat: Optional[str] = None
     fused_ce_chunk: int = -1
     compute_dtype: Optional[str] = None
     scan_layers: bool = False
     overlap_gather: bool = False
+    async_checkpointing: bool = True  # interval saves write in the background
 
     def __post_init__(self):
         if self.compute_dtype is None:
@@ -205,8 +218,9 @@ class SystemConfig:
 
 @dataclass
 class ResumeConfig:
-    """Section ``resume`` (read so a config that names it is refused
-    clearly: resume is not ported)."""
+    """Section ``resume``: ``checkpoint`` is a step tag, or "latest" for the
+    newest verified one; ``strict`` raises where a checkpoint is missing or
+    fails verification instead of falling back."""
 
     checkpoint: str = ""
     reset_optimizer: bool = False

@@ -5,7 +5,9 @@ expert banks ``[E, in, out]``, the same nested names), so conversion is a
 per-leaf copy with no transposes: a nested dict/list of numpy arrays (e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``) or a flat safetensors dict
 (``layers.3.feed_forward.experts.w_gate.weight``) becomes the port's nested
-dict of tensors.
+dict of tensors. :func:`opt_state_from_jax` does the same for an optimizer
+state (the Adafactor chain's, or any other of the JAX states the port
+mirrors), keeping the step counters on the CPU as the port keeps them.
 """
 
 from __future__ import annotations
@@ -42,3 +44,18 @@ def params_from_flat(flat: Dict[str, Any], device="cuda") -> Any:
     """Flat ``{"layers.0.attention.wq.weight": array}`` (a checkpoint file's
     contents) -> nested params with ``layers`` as a list."""
     return params_from_jax(lists_from_index_dicts(unflatten_dict(flat)), device)
+
+
+def opt_state_from_jax(state: Any, device="cuda") -> Any:
+    """A JAX optimizer state as numpy (``jax.tree_util.tree_map(np.asarray,
+    state)``) -> the port's: arrays become tensors on ``device``, except the
+    0-dim integer step counters, which stay on the CPU; the empty states of
+    stateless links stay ``{}``."""
+    if isinstance(state, dict):
+        return {k: opt_state_from_jax(v, device) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [opt_state_from_jax(v, device) for v in state]
+    arr = np.asarray(state)
+    if arr.ndim == 0 and np.issubdtype(arr.dtype, np.integer):
+        return torch.tensor(int(arr), dtype=torch.int32)
+    return _to_tensor(arr, device)

@@ -104,4 +104,9 @@ class DataManager:
             yield self.generate_validation_batch(i)
 
     def state_dict(self) -> Dict[str, int]:
+        """The loader position a checkpoint carries: the validation
+        pointer (train batches are a function of the step)."""
         return {"val_ptr": self.val_ptr}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self.val_ptr = int(state.get("val_ptr", 0))

@@ -11,14 +11,75 @@ no transposes. RMSNorm and RoPE compute in fp32 whatever the input dtype.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from ..ops import fused_ce
 from ..utils.tree import flatten_dict
 
 Params = Dict[str, Any]
+
+# -- named remat policies ----------------------------------------------------
+# The JAX package's policies (its models/llama.py:37-110), on
+# torch.utils.checkpoint (non-reentrant) per wrapped layer:
+#   "full"      keeps nothing: the layer's forward runs again in the backward;
+#   "dots"      keeps the matmul outputs without batch dims (the projections,
+#               ``aten.mm``; attention's batched products are other ops and
+#               are recomputed), as checkpoint_dots_with_no_batch_dims;
+#   "save_attn" keeps the activations tagged "qkv" (the q/k/v projections,
+#               pre-RoPE) and "attn_out" (the attention output, pre-wo), as
+#               save_only_these_names("qkv", "attn_out").
+# The tags are ``aten.alias`` views (no copy), which only those two sites
+# make, so the save_attn policy saves exactly the tagged tensors. JAX also
+# tags "ffn_up" and "ffn_down"; no policy reads them, and they are left out.
+SAVE_ATTN_NAMES = ("qkv", "attn_out")
+REMAT_POLICIES = ("none", "dots", "full", "save_attn")
+_SAVED_OPS = {
+    "dots": [torch.ops.aten.mm.default],
+    "save_attn": [torch.ops.aten.alias.default],
+}
+
+
+def normalize_remat(remat: Optional[str]) -> Optional[str]:
+    """"none"/"" -> None; unknown names raise (a typo'd policy must not
+    train without remat)."""
+    if remat is None or remat == "":
+        return None
+    name = str(remat).lower()
+    if name == "none":
+        return None
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r} (expected one of "
+                         f"{REMAT_POLICIES})")
+    return name
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Tag an activation for the ``save_attn`` policy (``name`` is one of
+    :data:`SAVE_ATTN_NAMES`): a view of ``x`` through ``aten.alias``."""
+    return torch.ops.aten.alias(x)
+
+
+def remat_wrap(remat: Optional[str]):
+    """``wrap(fn, *args)`` that runs ``fn(*args)`` under the named policy's
+    checkpoint, or None for no remat. The layer draws no random numbers,
+    so the RNG state is not saved for the recompute."""
+    remat = normalize_remat(remat)
+    if remat is None:
+        return None
+    kw = {}
+    if remat in _SAVED_OPS:
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _SAVED_OPS[remat])
+
+    def wrap(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return wrap
 
 
 @dataclass(frozen=True)
@@ -246,9 +307,6 @@ def init_paged_cache(args: LlamaArgs, num_blocks: int, block_size: int,
 
 
 # -- the cache-free training path -------------------------------------------------
-_NOT_PORTED = "ROADMAP queue 1: remat, scan_layers and the fused CE"
-
-
 def build_mask_mod(args: LlamaArgs):
     from ..ops import masks
 
@@ -288,9 +346,9 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
 
     B, S, _ = x.shape
     Hq, Hkv, Dh = args.num_heads, args.num_kv_heads, args.head_dim
-    q = _linear(x, p["wq"]).reshape(B, S, Hq, Dh)
-    k = _linear(x, p["wk"]).reshape(B, S, Hkv, Dh)
-    v = _linear(x, p["wv"]).reshape(B, S, Hkv, Dh)
+    q = checkpoint_name(_linear(x, p["wq"]), "qkv").reshape(B, S, Hq, Dh)
+    k = checkpoint_name(_linear(x, p["wk"]), "qkv").reshape(B, S, Hkv, Dh)
+    v = checkpoint_name(_linear(x, p["wv"]), "qkv").reshape(B, S, Hkv, Dh)
     cos, sin = rope_cos_sin(positions, Dh, args.rope_theta,
                             args.rope_scaling_factor)
     q = apply_rope(q, cos, sin, args.rope_traditional)
@@ -312,7 +370,8 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
                                   score_mod=build_score_mod(args))
     # matmul_precision "bf16" hands back bf16 under fp32 compute: promote as
     # JAX's bf16 @ fp32 does.
-    return _linear(out.reshape(B, S, Hq * Dh).to(x.dtype), p["wo"])
+    out = checkpoint_name(out.reshape(B, S, Hq * Dh).to(x.dtype), "attn_out")
+    return _linear(out, p["wo"])
 
 
 def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
@@ -335,45 +394,65 @@ def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
     return x + ff, aux
 
 
-def _refuse_unported(remat: Optional[str], scan_layers: bool,
-                     overlap: bool) -> None:
-    if remat not in (None, "", "none"):
-        raise NotImplementedError(f"remat policy {remat!r} is not ported ({_NOT_PORTED})")
-    if scan_layers:
-        raise NotImplementedError(f"scan_layers is not ported ({_NOT_PORTED})")
-    if overlap:
-        raise NotImplementedError("overlap_gather needs an fsdp mesh; the port "
-                                  "trains on one device")
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _layer(layer: Params, x: torch.Tensor, args: LlamaArgs, positions: torch.Tensor,
+           compute_dtype: torch.dtype, stats: Optional[list]):
+    """One layer from its fp32 master weights: the cast to the compute dtype
+    is inside, so a remat'd layer keeps no cast copy for the backward."""
+    return transformer_block(_cast(layer, compute_dtype), x, args, positions,
+                             stats=stats)
 
 
 def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
             compute_dtype: torch.dtype = torch.float32,
-            remat: Optional[str] = None, scan_layers: bool = False,
-            overlap: bool = False, return_aux: bool = False,
+            remat: Optional[str] = None, remat_ratio: float = 1.0,
+            scan_layers: bool = False, overlap: bool = False,
+            return_aux: bool = False, return_hidden: bool = False,
             stats: Optional[list] = None):
     """tokens ``[B, S]`` -> ``(logits [B, S, V] fp32, None)`` (``None`` where
     the JAX forward returns its cache), or ``(logits, None, aux)`` with
     ``return_aux``: the MoE layers' pre-scaled router losses summed (fp32).
-    MoE layers append their routing stats to ``stats`` when it is a list.
-    The fp32 master weights are cast to ``compute_dtype`` layer by layer;
-    the output projection accumulates in fp32: both bf16 operands are cast
-    to fp32 (their products are exact there) and multiplied with TF32 off,
-    as JAX's ``preferred_element_type=float32`` does."""
-    _refuse_unported(remat, scan_layers, overlap)
+    ``return_hidden`` returns the final normed hidden states ``[B, S, D]``
+    in the compute dtype instead of logits (the fused CE folds the
+    projection into the loss). MoE layers append their routing stats to
+    ``stats`` when it is a list. The fp32 master weights are cast to
+    ``compute_dtype`` layer by layer; the output projection accumulates in
+    fp32: both bf16 operands are cast to fp32 (their products are exact
+    there) and multiplied with TF32 off, as JAX's
+    ``preferred_element_type=float32`` does.
+
+    ``remat`` (a name of :data:`REMAT_POLICIES`) checkpoints the first
+    ``round(num_layers * remat_ratio)`` layers; the rest run plain, as in
+    JAX. ``scan_layers`` is accepted and runs the same per-layer loop in
+    the same two remat segments: the JAX scan stacks the layers' params
+    inside jit so XLA compiles one layer instead of ``num_layers``; it
+    changes no number and no file layout, and eager PyTorch compiles
+    nothing, so there is nothing for it to do here."""
+    if overlap:
+        raise NotImplementedError("overlap_gather needs an fsdp mesh (ROADMAP queue 1 "
+                                  "item 10: multi-GPU); the port trains on one device")
+    del scan_layers  # the same loop either way (see the docstring)
+    wrap = remat_wrap(remat)
+    n_remat = int(round(args.num_layers * remat_ratio)) if wrap is not None else 0
     B, S = tokens.shape
     x = params["tok_embeddings"]["weight"].to(compute_dtype)[tokens.long()]
     positions = torch.arange(S, device=tokens.device)
 
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        return tree.to(compute_dtype)
-
     aux_total = torch.zeros((), device=tokens.device)
-    for layer in params["layers"]:
-        x, aux = transformer_block(cast(layer), x, args, positions, stats=stats)
+    for i, layer in enumerate(params["layers"]):
+        if i < n_remat:
+            x, aux = wrap(_layer, layer, x, args, positions, compute_dtype, stats)
+        else:
+            x, aux = _layer(layer, x, args, positions, compute_dtype, stats)
         aux_total = aux_total + aux
     x = rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
+    if return_hidden:
+        return (x, None, aux_total) if return_aux else (x, None)
     if args.tie_word_embeddings or "output" not in params:
         w = params["tok_embeddings"]["weight"].to(compute_dtype).float().t()
     else:
@@ -388,15 +467,10 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
     return logits, None
 
 
-def auto_ce_chunk(batch: int, seq: int, vocab: int) -> int:
-    """The JAX package's ``fused_ce.auto_chunk``: fused CE (2048-row chunks)
-    once the fp32 ``[B, S, V]`` logits reach 256 MB, else 0."""
-    return 0 if batch * seq * vocab * 4 < 256 * 1024 * 1024 else 2048
-
-
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
             compute_dtype: torch.dtype = torch.float32,
-            remat: Optional[str] = None, ce_chunk: int = -1, scan_layers: bool = False,
+            remat: Optional[str] = None, remat_ratio: float = 1.0,
+            ce_chunk: int = -1, scan_layers: bool = False,
             z_loss_weight: float = 0.0, overlap: bool = False,
             include_aux: bool = True, with_moe_stats: bool = False):
     """Masked mean cross-entropy in fp32, plus the z-loss
@@ -405,27 +479,41 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
     passes False so the validation loss stays pure cross-entropy). Returns
     ``(loss, mask.sum())``, or with ``with_moe_stats`` on an MoE model
     ``(loss, (mask.sum(), stats))``, the routing stats summed over the
-    layers (device tensors, no sync). The fused chunked CE (``ce_chunk >
-    0``, or auto above 256 MB of logits) is not ported and raises."""
+    layers (device tensors, no sync).
+
+    ``ce_chunk``: rows per fused-CE chunk (``ops/fused_ce.py``: the output
+    projection folded into a chunked loss, no ``[B, S, V]`` logits); 0 is
+    the plain path, -1 chooses as JAX does (``fused_ce.auto_chunk``). Both
+    accumulate the projection in fp32 and reduce in fp32."""
     stats = [] if with_moe_stats and args.is_moe else None
     targets = batch["targets"]
     mask = batch["mask"].float()
     count = mask.sum().clamp_min(1.0)
     B, S = batch["inputs"].shape
     if ce_chunk < 0:
-        ce_chunk = auto_ce_chunk(B, S, args.vocab_size)
+        ce_chunk = fused_ce.auto_chunk(B, S, args.vocab_size)
+    kw = dict(compute_dtype=compute_dtype, remat=remat, remat_ratio=remat_ratio,
+              scan_layers=scan_layers, overlap=overlap, return_aux=True, stats=stats)
     if ce_chunk > 0:
-        raise NotImplementedError(
-            f"fused cross-entropy (ce_chunk={ce_chunk}) is not ported "
-            f"({_NOT_PORTED}); set system.fused_ce_chunk: 0")
-    logits, _, aux = forward(params, batch["inputs"], args, compute_dtype=compute_dtype,
-                             remat=remat, scan_layers=scan_layers, overlap=overlap,
-                             return_aux=True, stats=stats)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
-    loss = ((logz - gold) * mask).sum() / count
-    if z_loss_weight > 0.0:
-        loss = loss + z_loss_weight * (logz.square() * mask).sum() / count
+        hidden, _, aux = forward(params, batch["inputs"], args, return_hidden=True, **kw)
+        if not args.tie_word_embeddings and "output" in params:
+            w_vd = params["output"]["weight"].to(compute_dtype).t()
+            bias = params["output"].get("bias")
+        else:
+            w_vd, bias = params["tok_embeddings"]["weight"].to(compute_dtype), None
+        nll_sum, z_sum = fused_ce.fused_cross_entropy(
+            hidden, w_vd, targets, mask, bias_v=bias, logit_scale=args.logit_scale,
+            chunk=ce_chunk, with_z=True)
+        loss = nll_sum / count
+        if z_loss_weight > 0.0:
+            loss = loss + z_loss_weight * z_sum / count
+    else:
+        logits, _, aux = forward(params, batch["inputs"], args, **kw)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[..., None].long())[..., 0]
+        loss = ((logz - gold) * mask).sum() / count
+        if z_loss_weight > 0.0:
+            loss = loss + z_loss_weight * (logz.square() * mask).sum() / count
     if args.is_moe and include_aux:
         loss = loss + aux  # pre-scaled inside moe_block
     if stats is not None:

@@ -1,8 +1,15 @@
-"""Optimizers: the fused AdamW and the LR schedules."""
+"""Optimizers: the fused AdamW, Adafactor and the LR schedules."""
 
-from .base import default_wd_mask, global_norm, is_vector_like_path
+from .adafactor import adafactor
+from .base import (
+    FusedTransform,
+    Transform,
+    default_wd_mask,
+    global_norm,
+    is_vector_like_path,
+)
 from .factory import build_optimizer
-from .fused import FusedTransform, fused_adamw
+from .fused import fused_adamw
 from .schedules import (
     build_schedule,
     cosine_decay,
@@ -13,7 +20,8 @@ from .schedules import (
 )
 
 __all__ = [
-    "FusedTransform", "build_optimizer", "build_schedule", "cosine_decay",
+    "FusedTransform", "Transform", "adafactor", "build_optimizer", "build_schedule",
+    "cosine_decay",
     "default_wd_mask", "fused_adamw", "global_norm", "is_vector_like_path",
     "join_schedules", "linear_schedule", "schedule_value", "warmup_cosine",
 ]

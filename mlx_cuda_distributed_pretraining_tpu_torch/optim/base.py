@@ -1,13 +1,48 @@
-"""Optimizer helpers shared by the update rules: the global gradient norm
-and the weight-decay routing by parameter name."""
+"""Optimizer helpers shared by the update rules: the global gradient norm,
+the weight-decay routing by parameter name, and the gradient transforms
+that chained update rules (Adafactor) are built from.
+
+A :class:`Transform` is the JAX package's ``(init, update)`` pair on tensor
+trees: ``update(grads, state, params) -> (updates, new_state)``, with
+``new_params = params + updates`` (updates carry the negative LR). The
+states are the JAX states leaf for leaf (counts as int32 0-dim CPU
+tensors), so an optimizer file maps name for name. The arithmetic is fp32
+in the JAX order; every division is by a tensor, as in ``optim/fused.py``.
+:func:`in_place` turns a chain into the :class:`FusedTransform` the train
+step runs, which updates parameters and state tensors in place.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from ..utils.tree import leaves_with_path
+from ..utils.tree import leaves_with_path, tree_map
+from .schedules import Schedule
+
+
+class FusedTransform(NamedTuple):
+    """``init(params) -> state``; ``fused_apply(grads, state, params) ->
+    (params, state)`` updates params and state in place."""
+
+    init: Callable[[Any], Any]
+    fused_apply: Callable[[Any, Any, Any], tuple]
+
+
+class Transform(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (updates, state)
+
+
+def count_tensor(n: int) -> torch.Tensor:
+    """An optimizer step counter: int32, 0-dim, on the CPU."""
+    return torch.tensor(n, dtype=torch.int32)
+
+
+def f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as an fp32 0-dim tensor on ``like``'s device."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -40,3 +75,92 @@ def default_wd_mask(params: Any, _path: tuple = ()) -> Any:
     if isinstance(params, (list, tuple)):
         return [default_wd_mask(v, _path + (str(i),)) for i, v in enumerate(params)]
     return params.dim() >= 2 and not is_vector_like_path(_path)
+
+
+def chain(*transforms: Transform) -> Transform:
+    def init(params):
+        return [t.init(params) for t in transforms]
+
+    def update(grads, state, params):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_state.append(s)
+        return grads, new_state
+
+    return Transform(init, update)
+
+
+def identity() -> Transform:
+    return Transform(lambda p: {}, lambda g, s, p: (g, s))
+
+
+def clip_by_global_norm(max_norm: float) -> Transform:
+    """Scale every gradient by ``min(1, max_norm / max(norm, 1e-9))``."""
+
+    def update(grads, state, params):
+        norm = global_norm(grads)
+        factor = torch.clamp(torch.div(f32(max_norm, norm), torch.clamp(norm, min=1e-9)),
+                             max=1.0)
+        return tree_map(lambda g: g * factor, grads), state
+
+    return Transform(lambda p: {}, update)
+
+
+def maybe_clip(max_norm: Optional[float]) -> Transform:
+    return clip_by_global_norm(max_norm) if max_norm else identity()
+
+
+def add_decayed_weights(weight_decay: float,
+                        mask: Optional[Callable[[Any], Any]] = default_wd_mask
+                        ) -> Transform:
+    """``g + weight_decay * p`` where ``mask(params)`` is True."""
+
+    def update(grads, state, params):
+        if weight_decay == 0.0 or params is None:
+            return grads, state
+        m = mask(params) if mask is not None else tree_map(lambda p: True, params)
+        return tree_map(lambda g, p, use: g + weight_decay * p.to(g.dtype) if use else g,
+                        grads, params, m), state
+
+    return Transform(lambda p: {}, update)
+
+
+def scale(factor: float) -> Transform:
+    return Transform(lambda p: {}, lambda g, s, p: (tree_map(lambda x: x * factor, g), s))
+
+
+def scale_by_schedule(schedule: Schedule, flip_sign: bool = True) -> Transform:
+    """Multiply by ``-lr(step)`` (``lr(step)`` with ``flip_sign=False``);
+    owns the step counter."""
+
+    def init(params):
+        return {"count": count_tensor(0)}
+
+    def update(grads, state, params):
+        count = state["count"] + 1
+        lr = schedule(int(count))  # fp32; as a Python float it is the same value
+        factor = float(-lr if flip_sign else lr)
+        return tree_map(lambda g: g * factor, grads), {"count": count}
+
+    return Transform(init, update)
+
+
+def in_place(transform: Transform) -> FusedTransform:
+    """The train step's form of a chain: ``params += updates`` (in fp32,
+    rounded to the param dtype, as the JAX ``apply_updates``) and every
+    state tensor overwritten with its new value, all in place."""
+
+    def assign(old, new):
+        if isinstance(old, torch.Tensor) and old.shape == new.shape:
+            return old.copy_(new)
+        return new
+
+    @torch.no_grad()
+    def fused_apply(grads, state, params):
+        updates, new_state = transform.update(grads, state, params)
+        for (_, p), (_, u) in zip(leaves_with_path(params), leaves_with_path(updates)):
+            p.copy_((p.float() + u.float()).to(p.dtype))
+        return params, tree_map(assign, state, new_state)
+
+    return FusedTransform(transform.init, fused_apply)

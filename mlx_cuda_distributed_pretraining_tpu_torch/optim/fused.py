@@ -18,25 +18,13 @@ scalar into a multiplication by its reciprocal on the GPU).
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Optional
 
 import torch
 
 from ..utils.tree import leaves_with_path, tree_map
-from .base import global_norm, is_vector_like_path
+from .base import FusedTransform, count_tensor, global_norm, is_vector_like_path
 from .schedules import Schedule
-
-
-class FusedTransform(NamedTuple):
-    """``init(params) -> state``; ``fused_apply(grads, state, params) ->
-    (params, state)`` updates params and moments in place."""
-
-    init: Callable[[Any], Any]
-    fused_apply: Callable[[Any, Any, Any], tuple]
-
-
-def _count(n: int) -> torch.Tensor:
-    return torch.tensor(n, dtype=torch.int32)
 
 
 def fused_adamw(
@@ -51,11 +39,11 @@ def fused_adamw(
 
     def init(params):
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
-        adam = {"count": _count(0), "mu": tree_map(zeros, params),
+        adam = {"count": count_tensor(0), "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
         if amsgrad:
             adam["nu_max"] = tree_map(zeros, params)
-        return [{}, adam, {}, {"count": _count(0)}]
+        return [{}, adam, {}, {"count": count_tensor(0)}]
 
     @torch.no_grad()
     def fused_apply(grads, state, params):

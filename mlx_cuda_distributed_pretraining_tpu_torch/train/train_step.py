@@ -1,7 +1,10 @@
-"""The train step: gradients, accumulation, the fused optimizer update.
+"""The train step: the model loss, gradients, accumulation, the fused
+optimizer update.
 
 The JAX package compiles this into one donated-buffer XLA program; here it
-runs eagerly on one device. Params stay fp32 masters (the forward casts
+runs eagerly on one device. :func:`make_loss_fn` binds the model's loss
+options (compute dtype, remat policy and ratio, fused-CE chunk, z-loss)
+as the JAX trainer's closure does. Params stay fp32 masters (the forward casts
 them to the compute dtype); ``accum_steps`` micro-batches sum their
 gradients into ``.grad`` and are scaled by ``1/A`` before the update, as
 the JAX scan does; the metrics carry a ``nonfinite`` flag. Metric values
@@ -10,15 +13,33 @@ stay device tensors, so the loop does not wait on the device until it logs.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..models import llama
+from ..optim.base import FusedTransform, global_norm
 from ..utils.tree import leaves_with_path, tree_map
-from ..optim.base import global_norm
-from ..optim.fused import FusedTransform
 
 TrainState = Dict[str, Any]  # {"params", "opt_state", "step"}
+
+
+def make_loss_fn(args: "llama.LlamaArgs", compute_dtype: torch.dtype,
+                 remat: Optional[str] = None, remat_ratio: float = 1.0,
+                 ce_chunk: int = -1, scan_layers: bool = False,
+                 z_loss_weight: float = 0.0, overlap: bool = False,
+                 include_aux: bool = True, with_moe_stats: bool = False) -> Callable:
+    """``loss_fn(params, batch) -> (loss, token_count)`` over
+    ``models/llama.py::loss_fn`` with these options bound."""
+
+    def loss_fn(params, batch):
+        return llama.loss_fn(params, batch, args, compute_dtype=compute_dtype,
+                             remat=remat, remat_ratio=remat_ratio, ce_chunk=ce_chunk,
+                             scan_layers=scan_layers, z_loss_weight=z_loss_weight,
+                             overlap=overlap, include_aux=include_aux,
+                             with_moe_stats=with_moe_stats)
+
+    return loss_fn
 
 
 def init_train_state(params: Any, optimizer: FusedTransform) -> TrainState:

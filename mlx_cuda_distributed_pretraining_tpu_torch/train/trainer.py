@@ -6,12 +6,29 @@
 :class:`Trainer` follows the JAX trainer on one device: seeded init, the
 data manager, the bf16 forward over fp32 master weights (flash attention
 on the CUDA kernels when the config asks for it; an MoE model's experts on
-the grouped-GEMM kernels, forward and backward), the fp32 cross-entropy
-plus an MoE model's router losses, the backward, clip + fused AdamW, the
-log line protocol (with routing stats for an MoE model), validation (pure
-cross-entropy), and interval and ``final`` checkpoints in the ``runs/``
-layout both packages read. It runs on ``cuda`` unless the caller asks for
-the CPU.
+the grouped-GEMM kernels, forward and backward; the named remat policies
+over the first ``system.gradient_checkpointing_ratio`` of the layers; the
+fused chunked CE), the fp32 cross-entropy plus an MoE model's router
+losses, the backward, the optimizer (fused AdamW, or Adafactor), the log
+line protocol (with routing stats for an MoE model), validation (pure
+cross-entropy) and early stopping on it, and interval and ``final``
+checkpoints in the ``runs/`` layout both packages read. It runs on
+``cuda`` unless the caller asks for the CPU.
+
+Checkpoints: interval saves write in the background
+(``system.async_checkpointing``, default on) after the state is copied to
+host memory; the final and preemption saves block. Each carries the data
+position and the early-stopping state in ``step_<N>_state.json``.
+Retention GC (``logging.retention``: ``keep_last``, ``keep_every``) runs
+after each save. ``resume.checkpoint`` (a step tag, or ``latest`` for the
+newest one that verifies) resumes a run in place, with
+``resume.reset_optimizer``, ``resume.reset_training_state`` and
+``resume.strict`` as in JAX; only the same-world data position is ported
+(the JAX ``remap_data_states`` across world sizes: ROADMAP queue 1 items 5
+and 10). SIGTERM or SIGINT saves a checkpoint at the next step boundary,
+after the writes in flight, and ends the run; a checkpoint write that
+failed raises out of :meth:`Trainer.train` once the save in hand is
+written.
 
 ``model.architecture`` resolves through ``models/registry.py`` as in the
 JAX trainer: an unknown name raises, and ``llama_standard`` /
@@ -19,18 +36,17 @@ JAX trainer: an unknown name raises, and ``llama_standard`` /
 
 Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
 ``model_parallel`` that needs more than one device (expert, data, tensor,
-sequence and pipeline parallelism), int8 grouped GEMMs, remat /
-scan_layers / fused CE, optimizers other than adam/adamw, streaming data,
-resume, and the switches that change what the JAX trainer does
-(``training.early_stopping``, ``training.lr_finder``, checkpoint
-``logging.retention``, ``logging.log_samples``). The telemetry keys
+sequence and pipeline parallelism), int8 grouped GEMMs, optimizers other
+than adam/adamw/adafactor, streaming data, and the switches
+``training.lr_finder`` and ``logging.log_samples``. The telemetry keys
 (``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
 ``events``) are read by nothing here: they change no number the trainer
 computes, writes or logs, so a run with them set trains as one without.
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
-files; :func:`load_trained` reads them into the port's parameters.
+files; :func:`load_trained` reads the newest verified one into the port's
+parameters.
 """
 
 from __future__ import annotations
@@ -40,13 +56,19 @@ import dataclasses
 import json
 import math
 import os
+import signal
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..checkpoint.manager import CheckpointManager
+from ..checkpoint.manager import (
+    CheckpointIntegrityError,
+    CheckpointManager,
+    StaleBackgroundWriteError,
+)
+from ..checkpoint.safetensors_io import load_safetensors
 from ..config import Config, apply_overrides, read_config_dict
 from ..data.memory import DataManager
 from ..models import llama
@@ -59,7 +81,9 @@ from ..obs.logger import Logger
 from ..optim.factory import build_optimizer
 from ..optim.schedules import build_schedule, schedule_value
 from ..tokenizer import TokenizerManager
-from .train_step import init_train_state, make_eval_step, make_train_step
+from ..utils.tree import tree_map
+from .early_stopping import EarlyStoppingMonitor
+from .train_step import init_train_state, make_eval_step, make_loss_fn, make_train_step
 
 MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")  # the JAX package's order
 
@@ -83,29 +107,28 @@ def refuse_multi_device(system_cfg) -> None:
 
 
 def refuse_unported_switches(cfg: Config) -> None:
-    """Raise on a switch that changes what the JAX trainer does (it stops
-    early, adopts another LR, deletes checkpoints or generates samples) and
-    that the port has no code for: running as if it were off would give
-    another run than the one configured."""
+    """Raise on a switch that changes what the JAX trainer does (it adopts
+    another LR or generates samples) and that the port has no code for:
+    running as if it were off would give another run than the one
+    configured."""
     training = getattr(cfg.training, "_extras", {})
     logging = getattr(cfg.logging, "_extras", {})
-    if dict(training.get("early_stopping") or {}).get("enabled"):
-        raise NotImplementedError(
-            "training.early_stopping is not ported (ROADMAP queue 1 item 2: resume "
-            "and the loop features whose state rides a checkpoint)")
     if dict(training.get("lr_finder") or {}).get("enabled"):
         raise NotImplementedError(
             "training.lr_finder is not ported (ROADMAP queue 1 item 4: the other "
             "optimizers and the LR finder)")
-    retention = dict(cfg.logging.retention or {})
-    if retention.get("keep_last") or retention.get("keep_every"):
-        raise NotImplementedError(
-            "logging.retention (checkpoint GC) is not ported (ROADMAP queue 1 item 2: "
-            "resume, async save, retention GC)")
     if logging.get("log_samples"):
         raise NotImplementedError(
             "logging.log_samples is not ported (ROADMAP queue 1 item 7: the locked "
             "generation path and its samplers)")
+
+
+def load_into(live: Any, loaded: Any) -> Any:
+    """Copy a loaded tree into the live one in place: tensors keep their
+    device, dtype and ``requires_grad``; other leaves are replaced."""
+    with torch.no_grad():
+        return tree_map(lambda a, b: a.copy_(b) if isinstance(a, torch.Tensor) else b,
+                        live, loaded)
 
 
 def routing_line(window: List[Tuple[torch.Tensor, torch.Tensor]]) -> Dict[str, Any]:
@@ -132,9 +155,6 @@ class Trainer:
             raise RuntimeError("Trainer runs on cuda by default and no CUDA "
                                "device is visible; pass device='cpu' to train "
                                "on the CPU")
-        if cfg.resume is not None and cfg.resume.checkpoint:
-            raise NotImplementedError("resume is not ported (ROADMAP queue 1: "
-                                      "resume, async save, GC)")
         if cfg.data.source != "jsonl" or cfg.data.streaming:
             raise NotImplementedError(
                 f"data source {cfg.data.source!r} is not ported (ROADMAP queue 1: "
@@ -142,10 +162,18 @@ class Trainer:
         refuse_multi_device(cfg.system)
         refuse_unported_switches(cfg)
 
-        self.run_dir = CheckpointManager.setup_run_directory(
-            runs_root, cfg.name, cfg.overwrite)
-        self.checkpoints = CheckpointManager(self.run_dir)
+        resume = cfg.resume is not None and bool(cfg.resume.checkpoint)
+        if resume:  # continue in the run's own directory
+            self.run_dir = os.path.join(runs_root, cfg.name)
+            os.makedirs(os.path.join(self.run_dir, "checkpoints"), exist_ok=True)
+        else:
+            self.run_dir = CheckpointManager.setup_run_directory(
+                runs_root, cfg.name, cfg.overwrite)
         self.logger = Logger(self.run_dir, quiet=quiet)
+        # Integrity events (quarantine, GC, ledger rebuild) go to log.txt.
+        self.checkpoints = CheckpointManager(
+            self.run_dir, keep_last=cfg.logging.keep_last,
+            keep_every=cfg.logging.keep_every, notify=self.logger.log)
         cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
         self.tokenizer = TokenizerManager(cfg.data, run_dir=self.run_dir)
 
@@ -168,26 +196,26 @@ class Trainer:
 
         self.compute_dtype = (torch.bfloat16 if cfg.system.compute_dtype == "bfloat16"
                               else torch.float32)
+        # model.remat_policy first, then system.remat, then the legacy
+        # gradient_checkpointing bool, as in the JAX trainer
         remat = cfg.model.remat_policy or cfg.system.remat
         if remat is None and cfg.system.gradient_checkpointing:
             remat = "full"
+        self.remat = llama.normalize_remat(remat)
+        self.remat_ratio = float(cfg.system.gradient_checkpointing_ratio)
         kw = dict(compute_dtype=self.compute_dtype,
                   ce_chunk=int(cfg.system.fused_ce_chunk),
                   scan_layers=bool(cfg.system.scan_layers))
-        z_loss = float(cfg.training.hyperparameters.get("z_loss") or 0.0)
         # MoE steps carry the routing stats out beside the token count.
         self.moe_stats_experts = args.num_local_experts if args.is_moe else 0
-
-        def loss_fn(params, batch):
-            return llama.loss_fn(params, batch, args, remat=remat,
-                                 z_loss_weight=z_loss,
-                                 overlap=bool(cfg.system.overlap_gather),
-                                 with_moe_stats=bool(self.moe_stats_experts), **kw)
-
+        loss_fn = make_loss_fn(
+            args, remat=self.remat, remat_ratio=self.remat_ratio,
+            z_loss_weight=float(cfg.training.hyperparameters.get("z_loss") or 0.0),
+            overlap=bool(cfg.system.overlap_gather),
+            with_moe_stats=bool(self.moe_stats_experts), **kw)
         # Validation leaves out the router losses: val_loss stays pure
         # cross-entropy, comparable across dense and MoE runs.
-        def eval_loss_fn(params, batch):
-            return llama.loss_fn(params, batch, args, include_aux=False, **kw)
+        eval_loss_fn = make_loss_fn(args, include_aux=False, **kw)
 
         self.data = DataManager(cfg.data, self.tokenizer, cfg.training.batch_size,
                                 seq_len=cfg.data.max_context_size,
@@ -207,6 +235,8 @@ class Trainer:
         self.eval_step = make_eval_step(eval_loss_fn)
         self.state = init_train_state(params, self.optimizer)
 
+        self.early_stopping = EarlyStoppingMonitor.from_config(cfg.training)
+        self.start_step = 0
         self.total_tokens = 0
         self.eval_batches = 0  # validation batches run (each one a forward)
         self.windows: list = []  # one dict per log line
@@ -215,6 +245,8 @@ class Trainer:
             cfg.model, self.n_params, cfg.data.max_context_size)
         self.peak_flops = (peak_flops_per_chip(torch.cuda.get_device_name(self.device))
                            if self.device.type == "cuda" else None)
+        if resume:
+            self._resume()
 
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
@@ -240,17 +272,101 @@ class Trainer:
             return None
         return float(total_nll) / float(total_toks)
 
-    def save_checkpoint(self, step) -> None:
+    def save_checkpoint(self, step, blocking: bool = True) -> None:
+        """Save the state as ``step`` (a number or "final"); the training
+        state carries the data position and the early-stopping state. With
+        ``blocking=False`` the disk write runs in the background once the
+        host copies exist."""
         training_state = {"step": int(self.state["step"]),
                           "total_tokens": int(self.total_tokens),
                           **self.data.state_dict(),
-                          "validation": self.val_history}
+                          "validation": self.val_history,
+                          "early_stopping": self.early_stopping.state_dict()}
         self.checkpoints.save(step, self.state["params"], self.state["opt_state"],
                               training_state,
-                              metadata_extra={"total_tokens": int(self.total_tokens)})
+                              metadata_extra={"total_tokens": int(self.total_tokens)},
+                              blocking=blocking)
         self.checkpoints.update_ledger(validation=self.val_history,
                                        total_tokens=int(self.total_tokens))
-        self.logger.log(f"Saved checkpoint at step {step}")
+        self.logger.log(f"Saved checkpoint at step {step}"
+                        + ("" if blocking else " (async write)"))
+
+    # -- resume ----------------------------------------------------------------
+    def _resolve_resume_tag(self) -> Optional[str]:
+        """``resume.checkpoint`` as a VERIFIED step tag (the JAX trainer's
+        rules). "latest" (or "") takes the newest step that verifies,
+        quarantining the ones that fail. An explicit tag is verified too: a
+        tag with files but no manifest loads unverified (a checkpoint from
+        before manifests); one that fails its manifest raises under
+        ``strict``, else is quarantined and the newest verified step is
+        taken. None when nothing can be resumed."""
+        rc = self.config.resume
+        strict = bool(rc.strict)
+        tag = str(rc.checkpoint)
+        if tag in ("latest", ""):
+            resolved = self.checkpoints.latest_complete_step()
+            if resolved is None and strict:
+                raise CheckpointIntegrityError(
+                    f"resume.checkpoint={tag!r} with resume.strict: no "
+                    f"verified checkpoint exists in {self.checkpoints.checkpoint_dir}")
+            return resolved
+        ok, reason = self.checkpoints.verify(tag)
+        if ok:
+            return tag
+        if reason == "no manifest":
+            if os.path.isfile(self.checkpoints.paths_for_step(tag)[0]):
+                self.logger.log(f"resume: checkpoint {tag} has no integrity manifest "
+                                f"(pre-manifest checkpoint); loading unverified")
+                return tag
+            if strict:
+                raise CheckpointIntegrityError(
+                    f"resume.checkpoint={tag} does not exist in "
+                    f"{self.checkpoints.checkpoint_dir} and resume.strict is set")
+            self.logger.log(f"WARNING: resume.checkpoint={tag} does not exist; falling "
+                            f"back to the newest verified checkpoint")
+            return self.checkpoints.latest_complete_step()
+        if strict:
+            raise CheckpointIntegrityError(
+                f"resume.checkpoint={tag} failed verification ({reason}) "
+                f"and resume.strict is set")
+        self.logger.log(f"WARNING: resume.checkpoint={tag} failed verification "
+                        f"({reason}); quarantining it and falling back to the newest "
+                        f"verified checkpoint")
+        self.checkpoints.quarantine_step(tag, reason)
+        return self.checkpoints.latest_complete_step()
+
+    def _resume(self) -> None:
+        """Load ``resume.checkpoint`` into the live state in place (params,
+        optimizer state unless ``reset_optimizer``, and unless
+        ``reset_training_state`` the step, token count, validation history,
+        data position and early-stopping state)."""
+        rc = self.config.resume
+        tag = self._resolve_resume_tag()
+        if tag is None:
+            self.logger.log("WARNING: no resumable checkpoint found; starting from scratch")
+            return
+        # The resume source survives retention GC for the whole run: until a
+        # new checkpoint lands it is the only good state.
+        self.checkpoints.protect_steps.add(str(tag))
+        params, opt_state, tstate = self.checkpoints.load(
+            tag, like_params=self.state["params"],
+            like_opt_state=None if rc.reset_optimizer else self.state["opt_state"],
+            strict=bool(rc.strict))
+        load_into(self.state["params"], params)
+        if opt_state is not None:
+            self.state["opt_state"] = load_into(self.state["opt_state"], opt_state)
+        elif not rc.reset_optimizer:
+            self.logger.log(f"WARNING: resuming step {tag} WITHOUT optimizer state "
+                            f"(missing/unreadable) — moment statistics restart from "
+                            f"zero; set resume.strict: true to fail instead")
+        if not rc.reset_training_state:
+            self.start_step = int(tstate.get("step", 0))
+            self.state["step"] = self.start_step
+            self.total_tokens = int(tstate.get("total_tokens", 0))
+            self.val_history = tstate.get("validation", self.val_history)
+            self.data.load_state_dict(tstate)
+            self.early_stopping.load_state_dict(tstate.get("early_stopping", {}))
+        self.logger.log(f"Resumed from checkpoint {tag} at step {self.start_step}")
 
     # -- the loop ------------------------------------------------------------
     def train(self) -> Dict[str, Any]:
@@ -265,52 +381,101 @@ class Trainer:
                 self.val_history["steps"].append(step)
                 self.val_history["losses"].append(v)
 
-        if val_int:
+        if val_int and self.start_step == 0:
             record_validation(0, self.validate())
         window_tokens, window_steps = 0, 0
         window_moe: list = []  # (moe_load, moe_dropped) device tensors per step
         last_loss = float("nan")
+
+        # SIGTERM / SIGINT set a flag; the loop saves and ends at the next
+        # step boundary. A second signal gets the previous handler.
+        self.preempted = False
+        prev_handlers: Dict[int, Any] = {}
+
+        def on_signal(signum, frame):
+            self.preempted = True
+            signal.signal(signum, prev_handlers.get(signum, signal.SIG_DFL))
+
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev = signal.signal(sig, on_signal)
+                prev_handlers[sig] = prev if prev is not None else signal.SIG_DFL
+        except ValueError:  # not the main thread: no signal hooks
+            prev_handlers = {}
+
         self._sync()
         window_start = time.perf_counter()
-        for step in range(1, self.total_steps + 1):
-            batch = self.data.generate_batch(step - 1)
-            step_tokens = int(batch["mask"].sum())
-            window_tokens += step_tokens
-            self.total_tokens += step_tokens
-            self.state, metrics = self.train_step(self.state, self._device_batch(batch))
-            window_steps += 1
-            if "moe_load" in metrics:
-                window_moe.append((metrics["moe_load"], metrics["moe_dropped"]))
-            if step % log_int == 0 or step == self.total_steps:
-                loss = float(metrics["loss"])
-                self._sync()
-                last_loss = loss
-                elapsed = max(time.perf_counter() - window_start, 1e-9)
-                tok_s = window_tokens / elapsed
-                mfu_val = compute_mfu(tok_s, self.flops_per_token, self.peak_flops, 1)
-                line = {"loss": loss, "ppl": float(math.exp(min(loss, 30.0))),
-                        "lr": schedule_value(self.schedule, step),
-                        "tok/s": tok_s, "toks": int(window_tokens),
-                        "mfu": mfu_val if mfu_val is not None else "unknown"}
-                if "grad_norm" in metrics:
-                    line["grad_norm"] = float(metrics["grad_norm"])
-                if window_moe:
-                    line.update(routing_line(window_moe))
-                    window_moe = []
-                if int(metrics["nonfinite"]):
-                    self.logger.log(f"WARNING: non-finite loss at step {step}")
-                self.logger.log_metrics(step, line)
-                self.windows.append({"step": step, "steps": window_steps,
-                                     "seconds": elapsed, **line})
-                window_tokens, window_steps = 0, 0
-                window_start = time.perf_counter()
-            if val_int and step % val_int == 0:
-                record_validation(step, self.validate())
-            if ckpt_int and step % ckpt_int == 0:
-                self.save_checkpoint(step)
-            if window_steps == 0:  # validation and saves stay out of the windows
-                self._sync()
-                window_start = time.perf_counter()
+        completed = False
+        try:
+            for step in range(self.start_step + 1, self.total_steps + 1):
+                batch = self.data.generate_batch(step - 1)
+                step_tokens = int(batch["mask"].sum())
+                window_tokens += step_tokens
+                self.total_tokens += step_tokens
+                self.state, metrics = self.train_step(self.state, self._device_batch(batch))
+                window_steps += 1
+                if "moe_load" in metrics:
+                    window_moe.append((metrics["moe_load"], metrics["moe_dropped"]))
+                if step % log_int == 0 or step == self.total_steps:
+                    loss = float(metrics["loss"])
+                    self._sync()
+                    last_loss = loss
+                    elapsed = max(time.perf_counter() - window_start, 1e-9)
+                    tok_s = window_tokens / elapsed
+                    mfu_val = compute_mfu(tok_s, self.flops_per_token, self.peak_flops, 1)
+                    line = {"loss": loss, "ppl": float(math.exp(min(loss, 30.0))),
+                            "lr": schedule_value(self.schedule, step),
+                            "tok/s": tok_s, "toks": int(window_tokens),
+                            "mfu": mfu_val if mfu_val is not None else "unknown"}
+                    if "grad_norm" in metrics:
+                        line["grad_norm"] = float(metrics["grad_norm"])
+                    if window_moe:
+                        line.update(routing_line(window_moe))
+                        window_moe = []
+                    if int(metrics["nonfinite"]):
+                        self.logger.log(f"WARNING: non-finite loss at step {step}")
+                    self.logger.log_metrics(step, line)
+                    self.windows.append({"step": step, "steps": window_steps,
+                                         "seconds": elapsed, **line})
+                    window_tokens, window_steps = 0, 0
+                    window_start = time.perf_counter()
+                stop_early = False
+                if val_int and step % val_int == 0:
+                    v = self.validate()
+                    record_validation(step, v)
+                    if v is not None and self.early_stopping.update(v):
+                        self.logger.log(f"Early stopping triggered at step {step}")
+                        stop_early = True
+                saved = bool(ckpt_int and step % ckpt_int == 0)
+                if saved:  # interval saves overlap the disk write with training
+                    self.save_checkpoint(step, blocking=not cfg.system.async_checkpointing)
+                if self.preempted:
+                    self.logger.log(f"Preemption signal received: saving checkpoint at "
+                                    f"step {step} and exiting")
+                    if not saved:
+                        try:
+                            self.save_checkpoint(step)  # drains the writes in flight
+                        except StaleBackgroundWriteError as e:
+                            self.logger.log(f"Preemption checkpoint: {e}")
+                            raise
+                    break
+                if stop_early:
+                    break
+                if window_steps == 0:  # validation and saves stay out of the windows
+                    self._sync()
+                    window_start = time.perf_counter()
+            completed = True
+        finally:
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+            if not completed:
+                # An error is on its way out: let the writes in flight land,
+                # and log (not raise over it) any that failed.
+                try:
+                    self.checkpoints.wait()
+                except RuntimeError as e:
+                    self.logger.log(str(e))
+        self.checkpoints.wait()  # a failed background write raises here
 
         step = int(self.state["step"])
         if self.val_history["steps"] and self.val_history["steps"][-1] == step:
@@ -325,36 +490,12 @@ class Trainer:
 
 
 # -- loading a run ------------------------------------------------------------------
-def _step_sort_key(tag: str) -> Tuple[int, int]:
-    """Newest first: "final" outranks any numeric step, numeric steps
-    descend, unknown tags come last."""
-    if tag == "final":
-        return (0, 0)
-    if tag.isdigit():
-        return (1, -int(tag))
-    return (2, 0)
-
-
-def latest_model_path(run_dir: str) -> Optional[str]:
-    """Path of the newest ``step_<tag>_model.safetensors`` under
-    ``run_dir/checkpoints`` (None when there is none). Integrity manifests
-    are not verified here."""
-    ckpt_dir = os.path.join(run_dir, "checkpoints")
-    if not os.path.isdir(ckpt_dir):
-        return None
-    prefix, suffix = "step_", "_model.safetensors"
-    tags = [f[len(prefix):-len(suffix)] for f in os.listdir(ckpt_dir)
-            if f.startswith(prefix) and f.endswith(suffix)]
-    if not tags:
-        return None
-    tag = min(tags, key=_step_sort_key)
-    return os.path.join(ckpt_dir, f"{prefix}{tag}{suffix}")
-
-
 def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda"):
     """Load a finished run for inference: ``(params, args, tokenizer,
-    config)`` with params on ``device``."""
-    from ..checkpoint.safetensors_io import load_safetensors
+    config)`` with params on ``device``. The step is the newest one whose
+    manifest verifies (a read-only scan: a torn checkpoint is skipped, not
+    quarantined, so a trainer on the same run is left alone); a run from
+    before manifests serves its newest model file, as in JAX."""
     from ..convert import params_from_flat
 
     run_dir = (run_name_or_dir if os.path.isdir(run_name_or_dir)
@@ -363,10 +504,11 @@ def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda"):
     tok = TokenizerManager.from_run_dir(run_dir)
     args = LlamaArgs.from_config(cfg.model, tok.vocab_size)
     resolve_architecture(cfg.model.architecture)  # unknown names raise, as in JAX
-    model_path = latest_model_path(run_dir)
-    if model_path is None:
-        raise FileNotFoundError(f"no model checkpoints in {run_dir}")
-    arrays, _ = load_safetensors(model_path)
+    ckpts = CheckpointManager(run_dir)
+    tag = ckpts.latest_complete_step(quarantine=False)
+    if tag is None:
+        raise FileNotFoundError(f"no verified checkpoints in {run_dir}")
+    arrays, _ = load_safetensors(ckpts.paths_for_step(tag)[0])
     return params_from_flat(arrays, device), args, tok, cfg
 
 

@@ -58,10 +58,11 @@ def leaves_with_path(tree: Any, _path: tuple = ()) -> list:
     return [(_path, tree)]
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict/list tree."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict/list tree, or to the
+    matching leaves of several trees of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)

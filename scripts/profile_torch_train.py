@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_train.py [--config 40m-adamw|moe-8x40m]
-        [--steps 10] [--out profile.json]
+    python3 scripts/profile_torch_train.py
+        [--config 40m-adamw|moe-8x40m|1b-singlechip] [--steps 10] [--out profile.json]
 
-Builds configs/model-config-40m-adamw.yaml (the default) or
-configs/model-config-moe-8x40m.yaml at full width (their numbers written
-out: hidden 512, 12 layers, 8 heads of 64, 1024 positions, batch 32, bf16
-compute over fp32 masters, flash attention, AdamW with clip 1.0; the MoE
-config's 8 experts top-2 with its router losses, on one GPU, without its
-expert-parallel mesh) with seeded random weights and seeded random byte
-tokens, then:
+Builds configs/model-config-40m-adamw.yaml (the default),
+configs/model-config-moe-8x40m.yaml or configs/model-config-1b-singlechip.yaml
+at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
+heads of 64, 1024 positions, batch 32, bf16 compute over fp32 masters,
+flash attention, AdamW with clip 1.0; the MoE config's 8 experts top-2
+with its router losses, on one GPU, without its expert-parallel mesh. 1B:
+hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, 2048
+positions, batch 8, flash attention, remat "full" on the first half of the
+layers (the default ``gradient_checkpointing_ratio`` 0.5), Adafactor with
+update clipping 1.0 and gradient clip 1.0) with seeded random weights and
+seeded random byte tokens, then:
 
 - step: wall time per train step (``make_train_step``; host clock around
   steps that end in a synchronise);
@@ -54,6 +58,7 @@ CONFIG_40M = {
                  "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 500,
                                "min_lr_ratio": 0.1},
                  "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
+    "data": {"preprocessing": {"max_context_size": 1024}},
     "system": {"seed": 42, "mixed_precision": True},
 }
 # configs/model-config-moe-8x40m.yaml: the same trunk with its moe section.
@@ -62,8 +67,29 @@ CONFIG_MOE = {**CONFIG_40M, "name": "moe-8x40m", "model": {
     "moe": {"num_local_experts": 8, "num_experts_per_tok": 2, "impl": "grouped",
             "capacity_factor": 1.25, "aux_loss_weight": 0.01,
             "router_z_weight": 0.001, "group_size": 256}}}
-CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE}
-SEQ, VOCAB = 1024, 259
+# configs/model-config-1b-singlechip.yaml, the sections the step reads.
+CONFIG_1B = {
+    "name": "1b-singlechip",
+    "data": {"preprocessing": {"max_context_size": 2048}},
+    "model": {"dimensions": {"hidden_size": 2048, "intermediate_size": 5632,
+                             "num_layers": 16},
+              "attention": {"num_heads": 16, "num_kv_heads": 16, "head_dim": 128,
+                            "max_position_embeddings": 2048,
+                            "attention_type": "flash"},
+              "normalization": {"rms_norm_eps": 1.0e-5},
+              "rope": {"theta": 10000},
+              "misc": {"tie_word_embeddings": True}},
+    "training": {"hyperparameters": {"batch_size": 8, "learning_rate": 1.0e-2,
+                                     "weight_decay": 0.0, "gradient_clip": 1.0,
+                                     "iters": 20000},
+                 "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 2000,
+                               "min_lr_ratio": 0.1},
+                 "optimization": {"optimizer": "adafactor", "clipping_threshold": 1.0}},
+    "system": {"seed": 42, "compute_dtype": "bfloat16", "remat": "full",
+               "scan_layers": True},
+}
+CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B}
+VOCAB = 259
 
 
 def family(name: str) -> str:
@@ -88,6 +114,7 @@ def main(argv=None) -> int:
     from mlx_cuda_distributed_pretraining_tpu_torch.optim.factory import build_optimizer
     from mlx_cuda_distributed_pretraining_tpu_torch.train.train_step import (
         init_train_state,
+        make_loss_fn,
         make_train_step,
     )
     from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import (
@@ -115,17 +142,18 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16
 
     experts = args.num_local_experts if args.is_moe else 0
-
-    def loss_fn(prm, batch):
-        return llama.loss_fn(prm, batch, args, compute_dtype=dtype,
-                             with_moe_stats=bool(experts))
+    seq = cfg.data.max_context_size
+    loss_fn = make_loss_fn(args, dtype, remat=cfg.system.remat,
+                           remat_ratio=cfg.system.gradient_checkpointing_ratio,
+                           ce_chunk=cfg.system.fused_ce_chunk,
+                           with_moe_stats=bool(experts))
 
     step_fn = make_train_step(loss_fn, optimizer, moe_stats_experts=experts)
     state = init_train_state(params, optimizer)
     g = torch.Generator().manual_seed(0)
-    rows = torch.randint(0, 256, (cfg.training.batch_size, SEQ + 1), generator=g)
+    rows = torch.randint(0, 256, (cfg.training.batch_size, seq + 1), generator=g)
     batch = {"inputs": rows[:, :-1].cuda(), "targets": rows[:, 1:].cuda(),
-             "mask": torch.ones(cfg.training.batch_size, SEQ, device="cuda")}
+             "mask": torch.ones(cfg.training.batch_size, seq, device="cuda")}
     for _ in range(3):  # warm: cuBLAS handles, the kernels' library, plans
         state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
@@ -180,11 +208,14 @@ def main(argv=None) -> int:
             f[1] += 1
     device_ms = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    tokens = cfg.training.batch_size * SEQ
+    tokens = cfg.training.batch_size * seq
 
     out = {
         "card": card,
-        "config": f"{a.config}, B 32, S 1024, bf16 over fp32, flash attention",
+        "config": f"{a.config}, B {cfg.training.batch_size}, S {seq}, bf16 over fp32, "
+                  f"flash attention, remat {cfg.system.remat}, "
+                  f"{cfg.training.optimizer_name}",
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "params": llama.num_params(state["params"]),
         "step_ms": step_ms,
         "tok_s": tokens * 1e3 / step_ms,

@@ -479,22 +479,23 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r2"),
                 quiet=True, device="cpu")
+    # overlap_gather schedules an fsdp mesh's all-gathers (remat,
+    # scan_layers and the fused CE, refused here before, now train:
+    # tests/test_torch_remat.py)
     d = _config_dict(tmp_path)
-    d["system"]["scan_layers"] = True
+    d["system"]["overlap_gather"] = True
     tr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r3"),
                  quiet=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         tr.train()
 
 
 # (config path, value, ROADMAP queue 1 item named): switches with which the
-# JAX trainer stops early, adopts another LR, deletes checkpoints or
-# generates samples; the port has none of them yet and must refuse them.
+# JAX trainer adopts another LR or generates samples; the port has neither
+# yet and must refuse them. (Early stopping and checkpoint retention, once
+# refused here, act now: tests/test_torch_resume.py.)
 UNPORTED_SWITCHES = [
-    ("training.early_stopping", {"enabled": True, "patience": 1, "min_delta": 100}, 2),
     ("training.lr_finder", {"enabled": True, "num_steps": 5}, 4),
-    ("logging.retention", {"keep_last": 1}, 2),
-    ("logging.retention", {"keep_every": 10}, 2),
     ("logging.log_samples", True, 7),
 ]
 
