@@ -91,12 +91,39 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    at every step within 1e-5 relative (whether bitwise is printed). The
    final checkpoint is served. Prints step ms, tok/s, MFU (the recompute
    not counted) and both peak memories beside the card.
-8. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
+8. flex    — this slice's paths. (a) configs/model-config-100m-muon.yaml at
+   full width (hidden 768, 12 layers, 12 heads of 64, S 1024, batch 32,
+   bf16 over fp32 masters, flash attention, Muon with Nesterov, 5 NS steps,
+   AdamW at 0.015 x the LR for the vectors): step-1 loss and gradient norm,
+   kernels against plain at batch 8; run A, 30 steps (warmup 300 -> 10, a
+   log line every step, a checkpoint at 15) through ``Trainer.train()``,
+   the loss must fall below 0.9x the first and every flash launch be wgmma
+   with no score mod; run B resumes from the step-15 checkpoint and its
+   steps 16-20 must give A's losses within 1e-5 relative (bitwise printed);
+   step ms, tok/s, MFU vs 989 TFLOP/s and peak memory. (b)
+   configs/model-config-1m-flex.yaml at full width (flex attention,
+   sliding window 128, ALiBi, 6 heads of 16, S 512, batch 16, Muon): step-1
+   parity, 30 steps, the loss falls, every attention launch on the bf16
+   SIMT kernels with the alibi code. (c) the 1M configs' optimizers
+   (adamw_enhanced, lion, shampoo, hybrid; sgd and adamw with ``fused:
+   false`` as overrides of the adamw one): 10 steps each, finite losses,
+   step-1 parity; then model-config-1m-muon.yaml with
+   ``training.lr_finder: {enabled: true, num_steps: 20}``: the sweep runs,
+   its suggestion is logged and adopted, and 5 steps follow with finite
+   losses. Phase 3 adds the slice's kernel cases: soft_cap 50 and sliding
+   128 + alibi at the 100m shape, soft_cap at the 1B shape, the bf16 SIMT
+   kernels at the 1m-flex shape (D 16, alibi) and the 1M configs' (D 32,
+   GQA), band 256 at D 64, the main path's shape with no mod; each takes a
+   planted fault, and is timed against SDPA with a float ``attn_mask``
+   carrying the ALiBi bias and the window (soft_cap: no PyTorch call).
+9. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
    kernel's ms where this run timed one, each flash kernel with its
    launches by variant in the 1B run and its launches on each training
    path; the serving path's fp32 gmm kernels, "gmm_f32" and
    "gmm_f32_decode", as entries of their own with their serving launches
-   and every fp32 row), the card line, and as the last line
+   and every fp32 row; each of the flex slice's (kernel, variant, score
+   mod) cases as an entry named ``kernel:variant:mod:case``, with its
+   launches on the path that runs it), the card line, and as the last line
    ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
    495 / 3 TFLOP/s (3xTF32), the card's fastest fp32-accurate rate.
 
@@ -604,16 +631,35 @@ FLASH_CASES = [
     ("d128_fp32", "float32", 2, 8, 8, 1024, 128, "causal"),
 ]
 WINDOW, PREFIX = 256, 384
+# The flex slice's cases, (name, dtype, B, Hq, Hkv, S, D, mask, extras): score
+# mods at the 100m-muon shape (B 32, H 12, S 1024, D 64) and the 1B's, the bf16
+# SIMT kernels at the 1m-flex shape (sliding 128 + alibi, D 16) and at the
+# 1M configs' (GQA 4/2, D 32), the band mask, and the main path's shape with
+# no mod. Every one takes a planted fault.
+FLEX_CASES = [
+    ("path_100m", "bfloat16", 32, 12, 12, 1024, 64, "causal", {}),
+    ("flex_softcap_100m", "bfloat16", 32, 12, 12, 1024, 64, "causal",
+     {"mod": "soft_cap", "arg": 50.0}),
+    ("flex_alibi_100m", "bfloat16", 32, 12, 12, 1024, 64, "sliding_window",
+     {"window": 128, "mod": "alibi", "arg": 12.0}),
+    ("flex_softcap_1b", "bfloat16", 8, 16, 16, 2048, 128, "causal",
+     {"mod": "soft_cap", "arg": 50.0}),
+    ("path_1m_flex", "bfloat16", 16, 6, 6, 512, 16, "sliding_window",
+     {"window": 128, "mod": "alibi", "arg": 6.0}),
+    ("path_1m", "bfloat16", 16, 4, 2, 512, 32, "causal", {}),
+    ("band", "bfloat16", 8, 8, 8, 1024, 64, "band", {"window": 256}),
+]
 
 
-def flash_work(fa, dtype, B, Hq, Hkv, S, D, mask):
+def flash_work(fa, dtype, B, Hq, Hkv, S, D, mask, window=WINDOW, prefix=PREFIX):
     """(bytes, operations) each kernel needs for these inputs: every input
     read once and every output written once; the products over the pairs
     (row, col) the mask lets through (2 per multiply-add): fwd q.k^T and
-    p.v, dQ q.k^T, dO.v^T and dS.k, dK/dV q.k^T, dO.v^T, p^T.dO and dS^T.q."""
+    p.v, dQ q.k^T, dO.v^T and dS.k, dK/dV q.k^T, dO.v^T, p^T.dO and dS^T.q.
+    A score mod adds elementwise work only, which is not counted."""
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks
 
-    mod = fa._mask_mod(mask, WINDOW, PREFIX)
+    mod = fa._mask_mod(mask, window, prefix)
     pairs = S * S if mod is None else int(
         masks.materialize_mask(mod, S, S, device="cuda").sum().item())
     es = 2 if dtype == "bfloat16" else 4
@@ -624,23 +670,38 @@ def flash_work(fa, dtype, B, Hq, Hkv, S, D, mask):
             "flash_bwd_dkv": ((4 * q_el + 2 * kv_el) * es + 2 * stat, 4 * per_product)}
 
 
-def sdpa_calls(torch, q, k, v, do, mask, scale):
+def sdpa_calls(torch, q, k, v, do, mask, scale, window=WINDOW, prefix=PREFIX,
+               mod="none", arg=0.0):
     """``F.scaled_dot_product_attention`` forward, and forward + backward,
-    on the same inputs: a yardstick only, the port never calls it."""
+    on the same inputs: a yardstick only, the port never calls it. ALiBi
+    rides a float ``attn_mask`` (the bias where the mask allows, -inf
+    elsewhere); no PyTorch call computes soft_cap (None)."""
     import torch.nn.functional as F
 
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks
 
+    if mod == "soft_cap":
+        return None
     G = q.shape[1] // k.shape[1]
     if G > 1:
         k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
     kw = {"scale": scale}
-    if mask == "causal":
+    S = q.shape[2]
+    if mod == "alibi":
+        pos = torch.arange(S, device="cuda")
+        heads = torch.arange(q.shape[1], device="cuda", dtype=torch.float32)
+        slope = torch.exp2(-8.0 * (heads + 1.0) / arg)[:, None, None]
+        bias = -slope * (pos[:, None] - pos[None, :]).abs().float()
+        allowed = masks.materialize_mask(fa._mask_mod(mask, window, prefix), S, S,
+                                         device="cuda")
+        if allowed is not None:
+            bias = bias.masked_fill(~allowed, float("-inf"))
+        kw["attn_mask"] = bias[None].to(q.dtype)
+    elif mask == "causal":
         kw["is_causal"] = True
     elif mask != "full":
-        mod = masks.sliding_window(WINDOW) if mask == "sliding_window" \
-            else masks.prefix_lm(PREFIX)
-        kw["attn_mask"] = masks.materialize_mask(mod, q.shape[2], k.shape[2],
+        kw["attn_mask"] = masks.materialize_mask(fa._mask_mod(mask, window, prefix), S, S,
                                                  device="cuda")
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
@@ -660,16 +721,21 @@ def fmt_checks(checks: dict) -> str:
                     for o, c in checks.items())
 
 
-def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
+def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import kernel_check
 
+    extras = dict(extras or {})
+    window, prefix = extras.get("window", WINDOW), extras.get("prefix", PREFIX)
+    mod, arg = extras.get("mod", "none"), extras.get("arg", 0.0)
     g = torch.Generator().manual_seed(SEED)
     dt = getattr(torch, dtype)
     # [B, H, S, D] views of [B, S, H, D] tensors: the model's layout.
     q, k, v, do = (torch.randn(B, S, h, D, generator=g).to("cuda", dt)
                    .transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
-    kw = dict(mask_type=mask, window=WINDOW, prefix_len=PREFIX, scale=D ** -0.5)
+    kw = dict(mask_type=mask, window=window, prefix_len=prefix, scale=D ** -0.5,
+              score_mod=mod, score_arg=arg)
     before = read_variants(gm, fa)
+    before_mod = {n: dict(getattr(fa, n).launches_by_mod) for n in FLASH_KERNELS}
     o, lse = fa.flash_fwd(q, k, v, **kw)
     ro, rlse = fa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * ro.float()).sum(-1).contiguous()
@@ -678,25 +744,30 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     torch.cuda.synchronize()
     after = read_variants(gm, fa)
     ran = {n: launched_since(before[n], after[n]) for n in FLASH_KERNELS}
-    bf16 = dtype == "bfloat16"
-    want_ran = {n: {"wgmma" if bf16 else "f32": 1} for n in FLASH_KERNELS}
+    ran_mod = {n: launched_since(before_mod[n], getattr(fa, n).launches_by_mod)
+               for n in FLASH_KERNELS}
+    variant = fa.flash_variant("flash_fwd", dt, D)
+    want_ran = {n: {variant: 1} for n in FLASH_KERNELS}
     rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
     # kernel_check.compare: per element atol 2**-5 x RMS / rtol 2e-2 and
     # normwise 1e-2 for bf16; 1e-5 x RMS / 1e-4 and 1e-5 for fp32. lse is
-    # fp32 in both versions: 1e-5.
+    # fp32 in both versions: 1e-5; the wgmma soft_cap's tanh (from
+    # ex2.approx, within ~5e-7 absolute) moves a score by up to 5e-7 x cap,
+    # so there 1e-5 + 2^-20 x cap.
     got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
     checks = {out: kernel_check.compare(got[out], refs[out]) for out in refs}
     errs = {out: c["max_abs_err"] for out, c in checks.items()}
     errs["lse"] = (lse - rlse).abs().max().item()
+    lse_atol = 1e-5 + (2.0 ** -20 * arg if mod == "soft_cap" and variant == "wgmma" else 0.0)
     ok = all(c["ok"] for c in checks.values()) and bool(torch.isfinite(lse).all()) \
-        and torch.allclose(lse, rlse, atol=1e-5, rtol=1e-5)
-    if ran != want_ran:
+        and torch.allclose(lse, rlse, atol=lse_atol, rtol=1e-5)
+    if ran != want_ran or ran_mod != {n: {mod: 1} for n in FLASH_KERNELS}:
         ok = False
-        log(f"flash {name}: ran {ran}, not {want_ran}")
+        log(f"flash {name}: ran {ran} {ran_mod}, not {want_ran} with {mod}")
     fault = None
-    if name.startswith("path"):
+    if name.startswith(("path", "flex", "band")):
         # The same check on a planted fault: one live tile left out of each
         # kernel's plan. Every output must fail it.
         with kernel_check.planted_fault():
@@ -711,14 +782,18 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
     del ro, rdq, rdk, rdv, o, dq, dk, dv, refs, got
     torch.cuda.empty_cache()
 
-    work = flash_work(fa, dtype, B, Hq, Hkv, S, D, mask)
-    lib_fwd, lib_fwd_bwd = sdpa_calls(torch, q, k, v, do, mask, D ** -0.5)
-    try:
-        library = {"fwd": device_ms(torch, lib_fwd, 1, reps=10),
-                   "fwd_bwd": device_ms(torch, lib_fwd_bwd, 1, reps=10)}
-        library_note = "F.scaled_dot_product_attention"
-    except RuntimeError as e:  # a yardstick only; the port never calls it
-        library, library_note = {}, f"sdpa refused: {str(e)[:100]}"
+    work = flash_work(fa, dtype, B, Hq, Hkv, S, D, mask, window, prefix)
+    lib = sdpa_calls(torch, q, k, v, do, mask, D ** -0.5, window, prefix, mod, arg)
+    if lib is None:
+        library, library_note = {}, "none: no PyTorch call computes soft_cap"
+    else:
+        try:
+            library = {"fwd": device_ms(torch, lib[0], 1, reps=10),
+                       "fwd_bwd": device_ms(torch, lib[1], 1, reps=10)}
+            library_note = "F.scaled_dot_product_attention" + (
+                " (ALiBi and the mask as a float attn_mask)" if mod == "alibi" else "")
+        except RuntimeError as e:  # a yardstick only; the port never calls it
+            library, library_note = {}, f"sdpa refused: {str(e)[:100]}"
     torch.cuda.empty_cache()
     calls = {
         "flash_fwd": (lambda _: fa.flash_fwd(q, k, v, **kw),
@@ -743,10 +818,13 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
         rows[kname] = row
         torch.cuda.empty_cache()
     case = {"case": name, "dtype": dtype, "shape": [B, Hq, Hkv, S, D],
-            "mask": mask, "max_abs_err": errs, "checks": checks, "variants": ran,
+            "mask": mask, "window": window, "prefix": prefix, "score_mod": mod,
+            "score_arg": arg, "variant": variant,
+            "max_abs_err": errs, "checks": checks, "variants": ran,
             "planted_fault": fault, "ok": bool(ok),
             "kernels": rows}
-    log(f"flash {name} {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {mask}: "
+    log(f"flash {name} {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {mask} "
+        f"(window {window}, prefix {prefix}) mod={mod}({arg}): "
         f"ok={ok} variants={ran} lse:err={errs['lse']:.3g} " + fmt_checks(checks))
     for kname, r in rows.items():
         log(f"  {kname}: kernel={r['ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
@@ -760,7 +838,7 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask):
 
 
 def flash_kernel_phase(torch, gm, fa):
-    return [flash_case(torch, gm, fa, *c) for c in FLASH_CASES]
+    return [flash_case(torch, gm, fa, *c) for c in FLASH_CASES + FLEX_CASES]
 
 
 # -- phase 4: the serving path ----------------------------------------------------
@@ -1606,6 +1684,389 @@ def train_1b_phase(torch, gm, fa, card):
     return failures, perf
 
 
+# -- phase 8: 100m-muon, the flex path, the other optimizers and the LR finder ----
+def config_100m_muon(tmp: str, steps: int, warmup: int, ckpt: int) -> dict:
+    """configs/model-config-100m-muon.yaml written out as a dict, with the
+    smoke's cuts: ``iters``, ``warmup_steps`` (300 -> 10), a log line every
+    step (of 10), a checkpoint every ``ckpt`` steps (of 1000), no interval
+    validation, and the corpus paths. Every width is the config's."""
+    return {
+        "name": "Llama (100M) Muon", "overwrite": True,
+        "data": {"input_file": os.path.join(tmp, "train.jsonl"),
+                 "validation_file": os.path.join(tmp, "val.jsonl"),
+                 "tokenizer_path": "tokenizer",
+                 "preprocessing": {"max_context_size": 1024, "chunk_overlap": 0},
+                 "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                     "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": 768, "intermediate_size": 2048,
+                                 "num_layers": 12},
+                  "attention": {"num_heads": 12, "num_kv_heads": 12, "head_dim": 64,
+                                "max_position_embeddings": 1024,
+                                "use_flash_attention": True},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000, "traditional": False, "scaling": None},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True}},
+        "training": {"hyperparameters": {"batch_size": 32, "learning_rate": 2.0e-2,
+                                         "weight_decay": 0.01, "gradient_clip": 1.0,
+                                         "iters": steps},
+                     "scheduler": {"type": "cosine_with_warmup", "warmup_steps": warmup,
+                                   "min_lr_ratio": 0.05},
+                     "optimization": {"optimizer": "muon", "momentum": 0.95,
+                                      "nesterov": True, "ns_steps": 5,
+                                      "adamw_lr_ratio": 0.015}},
+        "logging": {"log_dir": "logs", "checkpoint_dir": "checkpoints",
+                    "steps": {"logging_interval": 1, "checkpoint_interval": ckpt,
+                              "validation_interval": 0}},
+        "system": {"seed": 42, "mixed_precision": True, "precision": "bfloat16"},
+    }
+
+
+def config_1m_flex(tmp: str, steps: int) -> dict:
+    """configs/model-config-1m-flex.yaml as a dict: flex attention with a
+    128-token sliding window and ALiBi, 6 heads of 16, S 512, batch 16,
+    Muon. Cut: ``iters`` (of 5000), a log line every 5 steps (of 10)."""
+    return {
+        "name": "Llama (1M) Flex", "overwrite": True,
+        "data": {"input_file": os.path.join(tmp, "train.jsonl"),
+                 "validation_file": os.path.join(tmp, "val.jsonl"),
+                 "preprocessing": {"max_context_size": 512, "chunk_overlap": 0},
+                 "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                     "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": 96, "intermediate_size": 256,
+                                 "num_layers": 4},
+                  "attention": {"num_heads": 6, "num_kv_heads": 6, "head_dim": 16,
+                                "max_position_embeddings": 512,
+                                "use_flex_attention": True,
+                                "mask_type": "sliding_window", "window_size": 128,
+                                "score_mod": "alibi"},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000, "traditional": False, "scaling": None},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True}},
+        "training": {"hyperparameters": {"batch_size": 16, "learning_rate": 1.0e-2,
+                                         "weight_decay": 0.01, "gradient_clip": 1.0,
+                                         "iters": steps},
+                     "scheduler": {"type": "cosine", "min_lr_ratio": 0.05},
+                     "optimization": {"optimizer": "muon", "adamw_lr_ratio": 0.03}},
+        "logging": {"log_dir": "logs", "checkpoint_dir": "checkpoints",
+                    "steps": {"logging_interval": 5, "checkpoint_interval": 1000,
+                              "validation_interval": 0}},
+        "system": {"seed": 42, "mixed_precision": True},
+    }
+
+
+# configs/models/model-config-1m-*.yaml: one model section (hidden 128, 6
+# layers, 4 heads of 32 over 2 KV heads, S 512, flash attention, bf16), each
+# its own LR and optimization section; sgd and the unfused adamw are
+# overrides of model-config-1m-adamw.yaml.
+OPTIMIZER_CONFIGS = [
+    ("adamw_enhanced", "model-config-1m-adamw-enhanced.yaml", 0.003,
+     {"optimizer": "adamw_enhanced", "betas": [0.9, 0.95], "ema_decay": 0.999}),
+    ("lion", "model-config-1m-lion.yaml", 0.0003,
+     {"optimizer": "lion", "betas": [0.9, 0.99]}),
+    ("shampoo", "model-config-1m-shampoo.yaml", 0.001,
+     {"optimizer": "shampoo", "update_period": 10, "block_size": 128}),
+    ("hybrid", "model-config-1m-hybrid.yaml", 0.015,
+     {"optimizer": "hybrid", "matrix_optimizer": "muon", "non_matrix_optimizer": "adamw",
+      "adamw_lr_ratio": 0.04}),
+    ("sgd", "model-config-1m-adamw.yaml + optimizer sgd", 0.003,
+     {"optimizer": "sgd", "betas": [0.9, 0.95]}),
+    ("adamw_unfused", "model-config-1m-adamw.yaml + fused false", 0.003,
+     {"optimizer": "adamw", "betas": [0.9, 0.95], "fused": False}),
+]
+
+
+def config_1m(tmp: str, name: str, lr: float, optimization: dict, steps: int) -> dict:
+    """A configs/models/model-config-1m-*.yaml as a dict. Cut: ``iters``
+    (of 2000), warmup (100 -> 2), a log line every step (of 4), no interval
+    validation or checkpoint."""
+    return {
+        "name": f"Llama (1M) {name}", "overwrite": True,
+        "data": {"input_file": os.path.join(tmp, "train.jsonl"),
+                 "validation_file": os.path.join(tmp, "val.jsonl"),
+                 "preprocessing": {"max_context_size": 512, "chunk_overlap": 0},
+                 "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                     "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": 128, "intermediate_size": 512,
+                                 "num_layers": 6},
+                  "attention": {"num_heads": 4, "num_kv_heads": 2, "head_dim": 32,
+                                "max_position_embeddings": 512,
+                                "attention_type": "flash"},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000, "traditional": False, "scaling": None},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True}},
+        "training": {"hyperparameters": {"batch_size": 16, "learning_rate": lr,
+                                         "weight_decay": 0.01, "gradient_clip": 1.0,
+                                         "iters": steps},
+                     "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 2,
+                                   "min_lr_ratio": 0.05},
+                     "optimization": dict(optimization)},
+        "logging": {"log_dir": "logs", "checkpoint_dir": "checkpoints",
+                    "steps": {"logging_interval": 1, "checkpoint_interval": 1000,
+                              "validation_interval": 0}},
+        "system": {"seed": 42, "mixed_precision": True, "precision": "bfloat16"},
+    }
+
+
+def read_mods(fa) -> dict:
+    return {n: dict(getattr(fa, n).launches_by_mod) for n in FLASH_KERNELS}
+
+
+def flash_want(fa, variant: str, mod: str, fwd: int, bwd: int):
+    """Every flash launch of a run on one variant with one score mod."""
+    zv, zm = dict.fromkeys(fa.FLASH_VARIANTS, 0), dict.fromkeys(fa.SCORE_MODS, 0)
+    return ({"flash_fwd": {**zv, variant: fwd}, "flash_bwd_dq": {**zv, variant: bwd},
+             "flash_bwd_dkv": {**zv, variant: bwd}},
+            {"flash_fwd": {**zm, mod: fwd}, "flash_bwd_dq": {**zm, mod: bwd},
+             "flash_bwd_dkv": {**zm, mod: bwd}})
+
+
+def flash_swaps(fa):
+    return [(fa, n, getattr(fa, n + "_plain")) for n in FLASH_KERNELS]
+
+
+def muon_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10, ckpt: int = 15,
+               compare_to: int = 20):
+    """100m-muon at full width: step-1 parity at batch 8, run A (``steps``
+    steps, a checkpoint at ``ckpt``), then run B resumed from that
+    checkpoint; B's steps ``ckpt + 1 .. compare_to`` must give A's losses."""
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures = []
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, train_bytes=1_100_000, val_bytes=70_000)
+        cfg = config_100m_muon(tmp, steps, warmup, ckpt)
+        runs = os.path.join(tmp, "runs")
+        a = Trainer(Config.from_dict(cfg), runs_root=runs, quiet=True, device="cuda")
+        log(f"muon: 100m-muon {a.n_params / 1e6:.2f}M params, "
+            f"{a.flops_per_token / 1e6:.1f} MFLOP per token, "
+            f"{len(a.data.train_rows)} train rows, {time.perf_counter() - t0:.1f}s to set up")
+        par = first_step_parity(torch, a, 8, flash_swaps(fa))
+        log(f"muon: step-1 parity at batch 8, kernels vs plain on the card: {par}")
+        if not parity_ok(par):
+            failures.append(f"muon: step-1 loss/gradients disagree with the plain path: {par}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(gm, fa)  # count from here: run A only
+        t0 = time.perf_counter()
+        result = a.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, variants, mods = read_launches(gm, fa), read_variants(gm, fa), read_mods(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        windows = a.windows
+        losses = {w["step"]: w["loss"] for w in windows}
+        layers, vb = a.model_args.num_layers, a.eval_batches
+        want = {"gmm": 0, "tgmm": 0, "flash_fwd": layers * (steps + vb),
+                "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+        want_v, want_m = flash_want(fa, "wgmma", "none", want["flash_fwd"],
+                                    want["flash_bwd_dq"])
+        flash_v = {n: variants[n] for n in FLASH_KERNELS}
+        log(f"muon: run A {steps} steps + {vb} validation batches in {wall:.1f}s; "
+            f"losses {[round(losses[s], 5) for s in sorted(losses)]}; launches {launches}; "
+            f"flash by variant {flash_v} by mod {mods}")
+        first, last = losses.get(1), losses.get(steps)
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses.values()):
+            failures.append(f"muon: bad loss log {losses}")
+        elif not last < 0.9 * first:
+            failures.append(f"muon: loss did not fall below 0.9x the first ({first} -> {last})")
+        if launches != want or flash_v != want_v or mods != want_m:
+            failures.append(f"muon: launches {launches} {flash_v} {mods} != {want} "
+                            f"{want_v} {want_m}")
+        if result["final_val_loss"] is None:
+            failures.append("muon: no validation ran")
+
+        # run B: resume from the step-`ckpt` checkpoint, continue to `steps`
+        cfg_b = dict(cfg, overwrite=False, resume={"checkpoint": str(ckpt)})
+        b = Trainer(Config.from_dict(cfg_b), runs_root=runs, quiet=True, device="cuda")
+        start = b.start_step
+        b.train()
+        b_losses = {w["step"]: w["loss"] for w in b.windows}
+        compared = list(range(ckpt + 1, compare_to + 1))
+        rel = {s: abs(b_losses.get(s, float("nan")) - losses[s]) / abs(losses[s])
+               for s in compared}
+        max_rel = max(rel.values())
+        bitwise = all(b_losses.get(s) == losses[s] for s in compared)
+        rest = {s: b_losses.get(s) == losses[s] for s in range(compare_to + 1, steps + 1)}
+        log(f"muon: run B resumed from checkpoint {ckpt} at step {start}; steps "
+            f"{compared[0]}-{compared[-1]} max relative loss difference {max_rel:.3g} "
+            f"(bitwise {bitwise}); steps {compare_to + 1}-{steps} bitwise "
+            f"{all(rest.values())}")
+        if start != ckpt or not max_rel <= 1e-5:
+            failures.append(f"muon: resume from {ckpt} started at {start}, steps "
+                            f"{compared} relative differences {rel}")
+        flops_per_token = a.flops_per_token
+        del a, b
+    torch.cuda.empty_cache()
+
+    steady = windows[1:]  # the first window holds the first step's warm-up
+    step_ms = sorted(1e3 * w["seconds"] / w["steps"] for w in steady)
+    secs = sum(w["seconds"] for w in steady)
+    tok_s = sum(w["toks"] for w in steady) / secs
+    perf = {"step_ms": 1e3 * secs / sum(w["steps"] for w in steady),
+            "step_ms_median": step_ms[len(step_ms) // 2],
+            "tok_s": tok_s,
+            "mfu_vs_989tflops": tok_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+            "flops_per_token": flops_per_token, "peak_mem_gb": peak_gb,
+            "first_window_s": windows[0]["seconds"], "losses": losses,
+            "launches": launches, "launches_by_variant": flash_v, "launches_by_mod": mods,
+            "first_step_parity": par,
+            "resume": {"from": ckpt, "started_at": start, "compared_steps": compared,
+                       "max_rel_loss_diff": max_rel, "bitwise": bitwise}}
+    for k in ("step_ms", "step_ms_median", "tok_s", "mfu_vs_989tflops", "peak_mem_gb"):
+        log(f"muon: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
+def flex_phase(torch, gm, fa, card, steps: int = 30):
+    """1m-flex at full width through ``Trainer.train()``: every attention
+    launch on the bf16 SIMT kernels with the alibi code."""
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        write_corpus(tmp, train_bytes=400_000, val_bytes=40_000)
+        tr = Trainer(Config.from_dict(config_1m_flex(tmp, steps)),
+                     runs_root=os.path.join(tmp, "runs"), quiet=True, device="cuda")
+        par = first_step_parity(torch, tr, 8, flash_swaps(fa))
+        log(f"flex: 1m-flex {tr.n_params / 1e6:.3f}M params; step-1 parity at batch 8, "
+            f"kernels vs plain: {par}")
+        if not parity_ok(par):
+            failures.append(f"flex: step-1 loss/gradients disagree with the plain path: {par}")
+        torch.cuda.synchronize()
+        reset_launches(gm, fa)
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, variants, mods = read_launches(gm, fa), read_variants(gm, fa), read_mods(fa)
+        losses = [w["loss"] for w in tr.windows]
+        layers, vb = tr.model_args.num_layers, tr.eval_batches
+        want_v, want_m = flash_want(fa, "simt", "alibi", layers * (steps + vb), layers * steps)
+        flash_v = {n: variants[n] for n in FLASH_KERNELS}
+        log(f"flex: {steps} steps + {vb} validation batches in {wall:.1f}s; losses every "
+            f"5 steps {losses}; flash by variant {flash_v} by mod {mods}")
+        if len(losses) != steps // 5 or not all(math.isfinite(x) for x in losses):
+            failures.append(f"flex: bad loss log {losses}")
+        elif not losses[-1] < 0.9 * losses[0]:
+            failures.append(f"flex: loss did not fall below 0.9x the first "
+                            f"({losses[0]} -> {losses[-1]})")
+        if flash_v != want_v or mods != want_m or launches["gmm"] or launches["tgmm"]:
+            failures.append(f"flex: launches {flash_v} {mods} != {want_v} {want_m}")
+        steady = tr.windows[1:]
+        perf = {"step_ms": 1e3 * sum(w["seconds"] for w in steady)
+                / sum(w["steps"] for w in steady),
+                "losses": losses, "launches": launches, "launches_by_variant": flash_v,
+                "launches_by_mod": mods, "first_step_parity": par}
+        del tr
+    log(f"flex: step_ms={perf['step_ms']} [{card}]")
+    return failures, perf
+
+
+def optimizers_phase(torch, gm, fa, card, steps: int = 10, finder_steps: int = 20,
+                     after_finder: int = 5):
+    """The 1M configs' optimizers at full width (flash at D 32: the bf16
+    SIMT kernels): ``steps`` steps each with finite losses and step-1
+    parity; then model-config-1m-muon.yaml with the LR finder on."""
+    import re
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures, runs = [], {}
+    totals = {"variants": None, "mods": None}
+
+    def tally():
+        v, m = read_variants(gm, fa), read_mods(fa)
+        for key, new in (("variants", {n: v[n] for n in FLASH_KERNELS}), ("mods", m)):
+            if totals[key] is None:
+                totals[key] = new
+            else:
+                totals[key] = {n: {k: totals[key][n][k] + c for k, c in new[n].items()}
+                               for n in FLASH_KERNELS}
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        write_corpus(tmp, train_bytes=400_000, val_bytes=40_000)
+        for label, source, lr, optimization in OPTIMIZER_CONFIGS:
+            tr = Trainer(Config.from_dict(config_1m(tmp, label, lr, optimization, steps)),
+                         runs_root=os.path.join(tmp, "runs"), quiet=True, device="cuda")
+            par = first_step_parity(torch, tr, 8, flash_swaps(fa))
+            reset_launches(gm, fa)
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tally()
+            losses = [w["loss"] for w in tr.windows]
+            layers, vb = tr.model_args.num_layers, tr.eval_batches
+            want_v, want_m = flash_want(fa, "simt", "none", layers * (steps + vb),
+                                        layers * steps)
+            got_v = {n: read_variants(gm, fa)[n] for n in FLASH_KERNELS}
+            ok = (len(losses) == steps and all(math.isfinite(x) for x in losses)
+                  and parity_ok(par) and got_v == want_v and read_mods(fa) == want_m)
+            runs[label] = {"config": source, "losses": losses, "first_step_parity": par,
+                           "seconds": wall, "ok": ok}
+            log(f"optimizers: {label} ({source}): {steps} steps in {wall:.1f}s, losses "
+                f"{[round(x, 4) for x in losses]}; step-1 parity {par}; ok={ok}")
+            if not ok:
+                failures.append(f"optimizers: {label}: losses {losses}, parity {par}, "
+                                f"flash {got_v} {read_mods(fa)}")
+            del tr
+
+        # model-config-1m-muon.yaml with the LR finder on: the sweep, its
+        # suggestion adopted, then steps at it
+        cfg = config_1m(tmp, "muon lr_finder", 0.015,
+                        {"optimizer": "muon", "adamw_lr_ratio": 0.04}, after_finder)
+        cfg["training"]["lr_finder"] = {"enabled": True, "num_steps": finder_steps}
+        tr = Trainer(Config.from_dict(cfg), runs_root=os.path.join(tmp, "runs"),
+                     quiet=True, device="cuda")
+        reset_launches(gm, fa)
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tally()
+        text = open(os.path.join(tr.run_dir, "log.txt")).read()
+        found = re.search(r"LR finder suggestion: ([0-9.eE+-]+)", text)
+        suggested = float(found.group(1)) if found else None
+        losses = [w["loss"] for w in tr.windows]
+        adopted = tr.config.training.learning_rate
+        sweep = open(os.path.join(tr.run_dir, "lr_finder.csv")).read().splitlines()[1:] \
+            if os.path.exists(os.path.join(tr.run_dir, "lr_finder.csv")) else []
+        ok = (suggested is not None and abs(adopted - suggested) <= 1e-3 * suggested
+              and len(losses) == after_finder and all(math.isfinite(x) for x in losses)
+              and 4 <= len(sweep) <= finder_steps)
+        runs["lr_finder"] = {"config": "model-config-1m-muon.yaml + lr_finder",
+                             "sweep_points": len(sweep), "suggested": suggested,
+                             "adopted_lr": adopted, "losses": losses, "seconds": wall,
+                             "ok": ok}
+        log(f"optimizers: lr_finder on 1m-muon: {len(sweep)} sweep points, suggestion "
+            f"{suggested}, adopted LR {adopted}; {after_finder} steps at it: losses "
+            f"{[round(x, 4) for x in losses]} in {wall:.1f}s; ok={ok}")
+        if not ok:
+            failures.append(f"optimizers: lr_finder {runs['lr_finder']}")
+        del tr
+    perf = {"runs": runs, "launches_by_variant": totals["variants"],
+            "launches_by_mod": totals["mods"]}
+    log(f"optimizers: flash launches by variant {totals['variants']} [{card}]")
+    return failures, perf
+
+
 def kernel_entry(name, source, replaces, launches, row, max_abs_err):
     """One kernel of the report line; ``earlier_ms`` is the kernel that
     served the path before it, where this run timed one in turns with it."""
@@ -1676,6 +2137,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     b1_failures, b1_perf = train_1b_phase(torch, gm, fa, card)
     failures += b1_failures
+    torch.cuda.empty_cache()
+    muon_failures, muon_perf = muon_phase(torch, gm, fa, card)
+    failures += muon_failures
+    flex_failures, flex_perf = flex_phase(torch, gm, fa, card)
+    failures += flex_failures
+    opt_failures, opt_perf = optimizers_phase(torch, gm, fa, card)
+    failures += opt_failures
 
     # gmm and tgmm: launches in the MoE training run, times at its bf16
     # gate/up shapes (gmm forward, tgmm).
@@ -1725,6 +2193,31 @@ def main() -> int:
                          "dense_40m": train_perf.get("launches", {}).get(name, 0)})
     flash_entries[0].update(cases=flash_cases, dense_train=train_perf,
                             train_1b=b1_perf, card=card)
+    # The flex slice's (kernel, variant, score mod) cases, each with its
+    # launches on the path that runs it (100m-muon: wgmma, no mod; 1m-flex:
+    # SIMT, alibi; the 1M optimizer runs: SIMT, no mod; no path runs the
+    # others).
+    flash_by_case = {c["case"]: c for c in flash_cases}
+    paths = {"path_100m": ("100m_muon", muon_perf), "path_1m_flex": ("1m_flex", flex_perf),
+             "path_1m": ("1m_optimizers", opt_perf)}
+    for case_name, *_ in FLEX_CASES:
+        c = flash_by_case[case_name]
+        path, run = paths.get(case_name, (None, {}))
+        for name in FLASH_KERNELS:
+            by_v = (run.get("launches_by_variant") or {}).get(name, {})
+            by_m = (run.get("launches_by_mod") or {}).get(name, {})
+            launches = min(by_v.get(c["variant"], 0), by_m.get(c["score_mod"], 0))
+            entry = kernel_entry(
+                f"{name}:{c['variant']}:{c['score_mod']}:{case_name}", FLASH_SOURCE,
+                FLASH_REPLACES[name], launches, c["kernels"][name],
+                max(c["max_abs_err"][o] for o in out_of[name]))
+            entry.update(variant=c["variant"], score_mod=c["score_mod"],
+                         score_arg=c["score_arg"], mask=c["mask"], window=c["window"],
+                         shape=c["shape"], path=path,
+                         tflops=c["kernels"][name]["tflops"],
+                         library=c["kernels"][name]["library"], card=card)
+            flash_entries.append(entry)
+    flash_entries[-1].update(muon_100m=muon_perf, flex_1m=flex_perf, optimizers_1m=opt_perf)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + fp32_entries + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)

@@ -6,8 +6,11 @@ per-leaf copy with no transposes: a nested dict/list of numpy arrays (e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``) or a flat safetensors dict
 (``layers.3.feed_forward.experts.w_gate.weight``) becomes the port's nested
 dict of tensors. :func:`opt_state_from_jax` does the same for an optimizer
-state (the Adafactor chain's, or any other of the JAX states the port
-mirrors), keeping the step counters on the CPU as the port keeps them.
+state (any of the JAX states the port mirrors: the chains' lists, the
+``{label: state}`` of a partition with ``None`` where another label owns a
+parameter, Muon's ``mu``, Lion's ``mu``, Shampoo's statistics and roots,
+the EMA shadow), keeping the step counters on the CPU as the port keeps
+them; :func:`opt_state_to_jax` is its inverse.
 """
 
 from __future__ import annotations
@@ -55,7 +58,28 @@ def opt_state_from_jax(state: Any, device="cuda") -> Any:
         return {k: opt_state_from_jax(v, device) for k, v in state.items()}
     if isinstance(state, (list, tuple)):
         return [opt_state_from_jax(v, device) for v in state]
+    if state is None:  # a parameter another label of a partition owns
+        return None
     arr = np.asarray(state)
     if arr.ndim == 0 and np.issubdtype(arr.dtype, np.integer):
         return torch.tensor(int(arr), dtype=torch.int32)
     return _to_tensor(arr, device)
+
+
+def opt_state_to_jax(state: Any) -> Any:
+    """The port's optimizer state -> the JAX package's as numpy (a
+    ``jax.tree_util.tree_map(jnp.asarray, ...)`` away from a live JAX
+    state): tensors become arrays (bf16 through their bits), the int32
+    counters 0-dim int32 arrays, ``None`` and empty states stay."""
+    if isinstance(state, dict):
+        return {k: opt_state_to_jax(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [opt_state_to_jax(v) for v in state]
+    if not isinstance(state, torch.Tensor):
+        return state
+    t = state.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # a JAX install has it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()

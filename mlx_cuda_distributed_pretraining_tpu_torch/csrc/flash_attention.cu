@@ -10,17 +10,21 @@
 //
 // Variants (the wrapper's flash_variant picks one before launch; the C
 // entries take its code):
-//   "wgmma"  bf16: a TMA ring feeding wgmma, the scores, P and dS kept in
-//            registers (their own note below);
-//   "f32"    fp32: SIMT FMA tiles.
+//   "wgmma"  bf16 at head dims 64 and 128: a TMA ring feeding wgmma, the
+//            scores, P and dS kept in registers (their own note below);
+//   "simt"   bf16 at head dims 16 and 32: SIMT FMA tiles on bf16 operands
+//            with fp32 sums (the fp32 kernels' code, T = bf16);
+//   "f32"    fp32 at head dims 16, 32, 64 and 128: SIMT FMA tiles.
 //
 // Each computes what its Pallas body computes (not block by block):
-//   fwd:  s = (q . k^T) * scale in fp32, masked to NEG_INF = -1e30; online
+//   fwd:  s = (q . k^T) * scale in fp32, through the score mod (below),
+//         masked to NEG_INF = -1e30; online
 //         softmax with running max m, denominator l and an fp32 accumulator,
 //         p cast to v's type before p . v; o = acc / max(l, 1e-30) in q's
 //         type and lse = m + log(max(l, 1e-30)) in fp32.
-//   dQ:   p = exp(s - lse), ds = p * (dO . v^T - delta) * scale,
-//         dq += ds.to(k type) . k in fp32; output in q's type.
+//   dQ:   p = exp(s - lse), ds = p * (dO . v^T - delta) [* the mod's
+//         Jacobian] * scale, dq += ds.to(k type) . k in fp32; output in
+//         q's type.
 //   dK/dV (per query head): dv += p.to(dO type)^T . dO and
 //         dk += ds.to(q type)^T . q. A CTA owns one KV tile and walks the
 //         live Q tiles, so neither output needs atomics: bitwise
@@ -37,8 +41,26 @@
 // inside S). Dead tiles are never loaded; full tiles skip the mask; the rest
 // evaluate the mask predicate and the bounds of a ragged S.
 //
-// Types: bf16 runs the wgmma kernels; fp32 runs SIMT FMA tiles (32-row
-// tiles). Head dims 64 and 128 are template instances.
+// Masks: full, causal, sliding_window (causal and row - col < window),
+// prefix_lm, band (row - col < window with no causal bound: ring
+// attention's off-diagonal chunk).
+//
+// Score mods (the flex path; JAX ops/flex_attention.py): a code and one
+// number, on s_raw = scale q . k^T in natural units, before the mask:
+//   alibi    s_raw - 2^(-8 (h + 1) / H) |row - col|, h the query head and H
+//            the number (the model's head count);
+//   soft_cap cap tanh(s_raw / cap), cap the number; its Jacobian
+//            1 - tanh^2(s_raw / cap) multiplies dS before the scale.
+// A masked score is NEG_INF whatever the mod gave; a tile flagged full
+// still takes the mod. The wgmma kernels take the mod as a template
+// parameter (a runtime branch around a wgmma makes ptxas serialize them
+// all) and compute tanh branch-free from ex2.approx (tanh_exp2 below:
+// tanh.approx.f32, 2^-11 relative, failed the bf16 gate at cap 50); the
+// SIMT kernels switch on it at run time and use tanhf.
+//
+// Types: bf16 runs the wgmma kernels at head dims 64 and 128 and the SIMT
+// kernels at 16 and 32; fp32 runs the SIMT kernels (32-row tiles) at all
+// four. Head dims are template instances.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the
 // training path's shape B 32, H 8, S 1024, D 64, bf16, causal:
@@ -78,6 +100,12 @@ constexpr int MASK_FULL = 0;
 constexpr int MASK_CAUSAL = 1;
 constexpr int MASK_SLIDING = 2;
 constexpr int MASK_PREFIX = 3;
+constexpr int MASK_BAND = 4;
+
+// Score-mod codes (the wrapper's _MOD_CODES).
+constexpr int MOD_NONE = 0;
+constexpr int MOD_ALIBI = 1;
+constexpr int MOD_SOFTCAP = 2;
 
 }  // namespace
 
@@ -99,15 +127,42 @@ struct FlashArgs {
   int64_t sq[3], sk[3], sv[3], so[3], sdo[3], s0[3], s1[3];  // (b, h, s)
   int64_t mask_type, window, prefix;
   double scale;
+  int64_t score_mod;  // MOD_*
+  double score_arg;   // alibi: the head count H; soft_cap: the cap
 };
 
 namespace {
 
-// The SIMT kernels' output conversion (they run fp32 only).
+// The SIMT kernels' conversions (T = fp32 or bf16; sums stay fp32).
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// ALiBi's slope of query head h, 2^(-8 (h + 1) / H), in fp32 as JAX's
+// alibi_score_fn computes it.
+__device__ __forceinline__ float alibi_slope(int h, double heads) {
+  return exp2f(-8.f * (static_cast<float>(h) + 1.f) / static_cast<float>(heads));
+}
+
+// The SIMT kernels' score mod of s = scale q . k (natural units): the
+// modded score, and the mod's Jacobian in *dmod (1 unless soft_cap).
+__device__ __forceinline__ float simt_mod(int mod, float s, int64_t row, int64_t col,
+                                          float slope, float cap, float* dmod) {
+  if (mod == MOD_ALIBI) return s - slope * static_cast<float>(row > col ? row - col : col - row);
+  if (mod == MOD_SOFTCAP) {
+    const float t = tanhf(s / cap);
+    *dmod = 1.f - t * t;
+    return cap * t;
+  }
+  return s;
+}
 
 __device__ __forceinline__ bool allowed(int mask, int64_t row, int64_t col,
                                         int64_t window, int64_t prefix) {
@@ -115,6 +170,7 @@ __device__ __forceinline__ bool allowed(int mask, int64_t row, int64_t col,
     case MASK_CAUSAL: return row >= col;
     case MASK_SLIDING: return row >= col && row - col < window;
     case MASK_PREFIX: return row >= col || col < prefix;
+    case MASK_BAND: return row - col < window;
     default: return true;
   }
 }
@@ -159,20 +215,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride,
   }
 }
 
-// C[M, N] (fp32, row-major, ldc) (+)= A[M, K] . B[K, N], fp32 operands in
-// shared memory, SIMT FMA. A_COL: A is stored transposed (element (m, k) at
-// A[k * lda + m]); B_COL: element (k, n) at B[n * ldb + k].
+// C[M, N] (fp32, row-major, ldc) (+)= A[M, K] . B[K, N], T operands (fp32
+// or bf16) in shared memory, fp32 SIMT FMA. A_COL: A is stored transposed
+// (element (m, k) at A[k * lda + m]); B_COL: element (k, n) at B[n * ldb + k].
 template <typename T, int M, int N, int K, bool A_COL, bool B_COL, bool ACCUM>
 __device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda,
                                    const T* B, int ldb) {
-  static_assert(std::is_same<T, float>::value, "bf16 runs the wgmma kernels");
   for (int i = threadIdx.x; i < M * N; i += NTHREADS) {
     const int m = i / N, n = i % N;
     float s = ACCUM ? C[m * ldc + n] : 0.f;
 #pragma unroll 8
     for (int k = 0; k < K; ++k) {
-      const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
-      const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
+      const float a = to_f(A_COL ? A[k * lda + m] : A[m * lda + k]);
+      const float b = to_f(B_COL ? B[n * ldb + k] : B[k * ldb + n]);
       s = fmaf(a, b, s);
     }
     C[m * ldc + n] = s;
@@ -225,6 +280,9 @@ flash_fwd_kernel(const FlashArgs a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float scale = (float)a.scale;
   const int mask = (int)a.mask_type;
+  const int mod = (int)a.score_mod;
+  const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
+  const float cap = (float)a.score_arg;
 
   const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const T* kg = static_cast<const T*>(a.k) + b * a.sk[0] + hk * a.sk[1];
@@ -254,11 +312,12 @@ flash_fwd_kernel(const FlashArgs a) {
         const int c = lane + 32 * t;
         const int64_t col = k0 + c;
         float s = Ss[r * LDS + c] * scale;
-        if (!full) {
-          if (row >= S || col >= S)
-            s = -INFINITY;  // outside the sequence: never contributes
-          else if (!allowed(mask, row, col, a.window, a.prefix))
-            s = NEG_INF;
+        if (!full && (row >= S || col >= S)) {
+          s = -INFINITY;  // outside the sequence: never contributes
+        } else {
+          float dmod;
+          s = simt_mod(mod, s, row, col, slope, cap, &dmod);
+          if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
         }
         sv[t] = s;
         mx = fmaxf(mx, s);
@@ -331,6 +390,9 @@ flash_bwd_dq_kernel(const FlashArgs a) {
   const int64_t S = a.S, q0 = (int64_t)qt * BM;
   const float scale = (float)a.scale;
   const int mask = (int)a.mask_type;
+  const int mod = (int)a.score_mod;
+  const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
+  const float cap = (float)a.score_arg;
 
   const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const T* dog = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
@@ -360,15 +422,17 @@ flash_bwd_dq_kernel(const FlashArgs a) {
       const int r = i / BN, c = i % BN;
       const int64_t row = q0 + r, col = k0 + c;
       float s = Ss[r * LDS + c] * scale;
-      float p;
+      float p, dmod = 1.f;
       if (!full && (row >= S || col >= S)) {
         p = 0.f;
       } else {
+        s = simt_mod(mod, s, row, col, slope, cap, &dmod);
         if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
         p = expf(s - lse_s[r]);
       }
-      const float ds = p * (dPs[r * LDS + c] - delta_s[r]) * scale;
-      dSs[r * LDP + c] = from_f<T>(ds);
+      float ds = p * (dPs[r * LDS + c] - delta_s[r]);
+      if (mod == MOD_SOFTCAP) ds *= dmod;
+      dSs[r * LDP + c] = from_f<T>(ds * scale);
     }
     __syncthreads();
     mm<T, BM, D, BN, false, false, true>(Acc, LDA, dSs, LDP, Ks, LDT);  // += ds k
@@ -417,6 +481,9 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
   const int64_t S = a.S, k0 = (int64_t)kt * BN;
   const float scale = (float)a.scale;
   const int mask = (int)a.mask_type;
+  const int mod = (int)a.score_mod;
+  const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
+  const float cap = (float)a.score_arg;
 
   const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
   const T* dog = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
@@ -449,15 +516,18 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
       const int r = i / BN, c = i % BN;
       const int64_t row = q0 + r, col = k0 + c;
       float s = Ss[r * LDS + c] * scale;
-      float p;
+      float p, dmod = 1.f;
       if (!full && (row >= S || col >= S)) {
         p = 0.f;
       } else {
+        s = simt_mod(mod, s, row, col, slope, cap, &dmod);
         if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
         p = expf(s - lse_s[r]);
       }
+      float ds = p * (dPs[r * LDS + c] - delta_s[r]);
+      if (mod == MOD_SOFTCAP) ds *= dmod;
       Ps[r * LDP + c] = from_f<T>(p);
-      dSs[r * LDP + c] = from_f<T>(p * (dPs[r * LDS + c] - delta_s[r]) * scale);
+      dSs[r * LDP + c] = from_f<T>(ds * scale);
     }
     __syncthreads();
     mm<T, BN, D, BM, true, false, true>(dV, LDA, Ps, LDP, dOs, LDT);  // += p^T dO
@@ -561,14 +631,16 @@ __device__ __forceinline__ float quad_sum(float x) {
 // at the tensor cores.
 constexpr int BAR_TURN = 4;
 
-// The four masks as one branch-free predicate over 32-bit positions (the
-// launchers check S < 2^31): allowed(row, col) = (col <= row && row - col <
-// win) || col < pre, with (win, pre) = (INT_MAX, 0) causal, (window, 0)
-// sliding_window, (INT_MAX, prefix) prefix_lm, (INT_MAX, INT_MAX) full.
+// The five masks as one branch-free predicate over 32-bit positions (the
+// launchers check S < 2^31): allowed(row, col) = (lo <= row - col < win) ||
+// col < pre, with (lo, win, pre) = (0, INT_MAX, 0) causal, (0, window, 0)
+// sliding_window, (0, INT_MAX, prefix) prefix_lm, (INT_MIN, window, 0)
+// band, (INT_MIN, INT_MAX, INT_MAX) full.
 struct Mask32 {
-  int win, pre;
+  int lo, win, pre;
   __device__ __forceinline__ bool allowed(int row, int col) const {
-    return ((col <= row) & (row - col < win)) | (col < pre);
+    const int d = row - col;
+    return ((d >= lo) & (d < win)) | (col < pre);
   }
 };
 
@@ -577,11 +649,59 @@ __device__ __forceinline__ Mask32 mask32(const FlashArgs& a) {
     return static_cast<int>(x > INT32_MAX ? INT32_MAX : x < INT32_MIN ? INT32_MIN : x);
   };
   switch (a.mask_type) {
-    case MASK_CAUSAL: return {INT32_MAX, 0};
-    case MASK_SLIDING: return {sat(a.window), 0};
-    case MASK_PREFIX: return {INT32_MAX, sat(a.prefix)};
-    default: return {INT32_MAX, INT32_MAX};
+    case MASK_CAUSAL: return {0, INT32_MAX, 0};
+    case MASK_SLIDING: return {0, sat(a.window), 0};
+    case MASK_PREFIX: return {0, INT32_MAX, sat(a.prefix)};
+    case MASK_BAND: return {INT32_MIN, sat(a.window), 0};
+    default: return {INT32_MIN, INT32_MAX, INT32_MAX};
   }
+}
+
+// tanh(x) = sign(x) (1 - e) / (1 + e) with e = 2^(-2 log2(e) |x|) from
+// ex2.approx (2^-22 relative) and a fast division: within ~5e-7 of tanh in
+// absolute terms, branch-free (no branch may sit between a wgmma's issue
+// and its wait).
+__device__ __forceinline__ float tanh_exp2(float x) {
+  const float e = exp2_approx(-2.f * LOG2E * fabsf(x));
+  return copysignf(__fdividef(1.f - e, 1.f + e), x);
+}
+
+// The wgmma kernels' score mod, a template parameter: the base-2 logit
+// x = s log2 e of the modded s, from the product acc = q . k of one score.
+//   none:     acc * (scale log2 e), the arithmetic of the kernels before mods;
+//   alibi:    fma(acc, scale log2 e, -(slope log2 e) |row - col|);
+//   soft_cap: (cap log2 e) t with t = tanh_exp2(acc (scale / cap)), and
+//             the Jacobian 1 - t^2 into dmod.
+// The lse stays natural: the kernels keep m in base 2 and write m ln 2 + log l.
+template <int MOD>
+struct ModW {
+  float sl2;   // scale log2 e
+  float c0;    // alibi: slope log2 e; soft_cap: scale / cap
+  float c1;    // soft_cap: cap log2 e
+  __device__ __forceinline__ float logit(float acc, int row, int col, float& dmod) const {
+    if constexpr (MOD == MOD_ALIBI) {
+      const int d = row - col;
+      return fmaf(acc, sl2, -c0 * static_cast<float>(d < 0 ? -d : d));
+    } else if constexpr (MOD == MOD_SOFTCAP) {
+      const float t = tanh_exp2(acc * c0);
+      dmod = 1.f - t * t;
+      return c1 * t;
+    } else {
+      return acc * sl2;
+    }
+  }
+};
+
+template <int MOD>
+__device__ __forceinline__ ModW<MOD> mod_w(const FlashArgs& a, int h) {
+  const float scale = static_cast<float>(a.scale);
+  ModW<MOD> m{scale * LOG2E, 0.f, 0.f};
+  if constexpr (MOD == MOD_ALIBI) m.c0 = alibi_slope(h, a.score_arg) * LOG2E;
+  if constexpr (MOD == MOD_SOFTCAP) {
+    m.c0 = scale / static_cast<float>(a.score_arg);
+    m.c1 = static_cast<float>(a.score_arg) * LOG2E;
+  }
+  return m;
 }
 
 // The CTA order of the wgmma kernels' 1-D grid: groups of
@@ -628,7 +748,7 @@ constexpr int fwd_wg_smem() {
   return (FWD_BQ + STAGES * 2 * FWD_BKV) * D * 2 + wg::ATOM;
 }
 
-template <int D, int STAGES>
+template <int D, int STAGES, int MOD>
 __global__ void __launch_bounds__(256, 1)
 flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
@@ -686,7 +806,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int S = static_cast<int>(a.S);
   const int row0 = qt * FWD_BQ + 64 * g + 16 * (t / 32) + (t % 32) / 4;
   const int c0 = 2 * (t % 4);
-  const float sl2 = static_cast<float>(a.scale) * LOG2E;
+  const ModW<MOD> mw = mod_w<MOD>(a, h);
   const Mask32 mask = mask32(a);
   float o[D / 2];
 #pragma unroll
@@ -726,14 +846,16 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const auto softmax = [&](float (&sc)[FWD_BKV / 2], int j, bool full_tile, uint32_t (&pn)[NP],
                            float (&alpha)[2]) {
     const int k0 = j * FWD_BKV + c0;
+    float dm;  // the mod's Jacobian: the backward's, unused here
     if (full_tile) {
 #pragma unroll
-      for (int i = 0; i < FWD_BKV / 2; ++i) sc[i] *= sl2;
+      for (int i = 0; i < FWD_BKV / 2; ++i)
+        sc[i] = mw.logit(sc[i], row0 + acc_row(i), k0 + acc_col(i), dm);
     } else {
 #pragma unroll
       for (int i = 0; i < FWD_BKV / 2; ++i) {
         const int row = row0 + acc_row(i), col = k0 + acc_col(i);
-        const float x = mask.allowed(row, col) ? sc[i] * sl2 : NEG_INF;
+        const float x = mask.allowed(row, col) ? mw.logit(sc[i], row, col, dm) : NEG_INF;
         sc[i] = (row < S) & (col < S) ? x : -INFINITY;  // past S: never contributes
       }
     }
@@ -872,7 +994,7 @@ constexpr int dkv_wg_smem() {
   return (2 * DKV_BKV + STAGES * 2 * BQ) * D * 2 + STAGES * 2 * BQ * 4 + wg::ATOM;
 }
 
-template <int D, int BQ, int STAGES>
+template <int D, int BQ, int STAGES, int MOD>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                 const __grid_constant__ CUtensorMap map_k,
@@ -950,7 +1072,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int kv0 = kt * DKV_BKV + 64 * g + 16 * (t / 32) + (t % 32) / 4;
   const int c0 = 2 * (t % 4);
   const float scale = static_cast<float>(a.scale);
-  const float sl2 = scale * LOG2E;
+  const ModW<MOD> mw = mod_w<MOD>(a, h);
   const Mask32 mask = mask32(a);
   const int S32 = static_cast<int>(S);
   float dk[D / 2], dv[D / 2];
@@ -987,19 +1109,37 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const float* delta = stat + (2 * s + 1) * BQ;
     const int q0 = j * BQ + c0;
     uint32_t pa[BQ / 4], da[BQ / 4];  // bf16(P^T), bf16(dS^T): A operands
+    if constexpr (MOD == MOD_SOFTCAP) {
+      // In place, so no register holds a tanh or a Jacobian beside them:
+      // S^T becomes the logit, dP^T becomes (dP^T - delta) (1 - t^2). (At
+      // D 64 the Jacobians kept beside S^T and dP^T spilled.)
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        float dm;
+        st[i] = mw.logit(st[i], 0, 0, dm);
+        dpt[i] = (dpt[i] - delta[c0 + acc_col(i)]) * dm;
+      }
+    }
     // P^T and dS^T of element idx; masked: the mask and S's bounds apply
     const auto pds = [&](int idx, bool masked, float& p, float& ds) {
       const int col = c0 + acc_col(idx);
-      float x = st[idx] * sl2;
+      const int q = q0 + acc_col(idx), kv = kv0 + acc_row(idx);
+      float x = st[idx];  // soft_cap: the logit already
+      if constexpr (MOD != MOD_SOFTCAP) {
+        float dm;
+        x = mw.logit(x, q, kv, dm);
+      }
       bool live = true;
       if (masked) {
-        const int q = q0 + acc_col(idx), kv = kv0 + acc_row(idx);
         x = mask.allowed(q, kv) ? x : NEG_INF;
         live = (q < S32) & (kv < S32);  // outside the sequence: p = 0
       }
       p = exp2_approx(x - lse[col] * LOG2E);  // finite: lse is 0 past S
       p = live ? p : 0.f;
-      ds = p * (dpt[idx] - delta[col]) * scale;
+      if constexpr (MOD == MOD_SOFTCAP)
+        ds = p * dpt[idx] * scale;  // dP^T already holds (dP^T - delta) (1 - t^2)
+      else
+        ds = p * (dpt[idx] - delta[col]) * scale;
     };
     if (full_tile) {  // one test per tile, not per element
 #pragma unroll
@@ -1087,7 +1227,7 @@ constexpr int dq_wg_smem() {
   return (2 * DQ_BQ + STAGES * 2 * BKV) * D * 2 + wg::ATOM;
 }
 
-template <int D, int BKV, int STAGES>
+template <int D, int BKV, int STAGES, int MOD>
 __global__ void __launch_bounds__(256, 1)
 flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_k,
@@ -1150,7 +1290,7 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int row0 = qt * DQ_BQ + 64 * g + 16 * (t / 32) + (t % 32) / 4;
   const int c0 = 2 * (t % 4);
   const float scale = static_cast<float>(a.scale);
-  const float sl2 = scale * LOG2E;
+  const ModW<MOD> mw = mod_w<MOD>(a, h);
   const Mask32 mask = mask32(a);
   float lse2[2], dlt[2];  // the thread's two rows: lse log2 e and delta (0 past S)
   const int64_t stat0 = (static_cast<int64_t>(b) * a.Hq + h) * a.S;
@@ -1197,16 +1337,19 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // dS of element idx; masked: the mask and S's bounds apply
     const auto ds = [&](int idx, bool masked) {
       const int r = (idx >> 1) & 1;
-      float x = st[idx] * sl2;
+      const int row = row0 + acc_row(idx), col = k0 + acc_col(idx);
+      float dm = 1.f;
+      float x = mw.logit(st[idx], row, col, dm);
       bool live = true;
       if (masked) {
-        const int row = row0 + acc_row(idx), col = k0 + acc_col(idx);
         x = mask.allowed(row, col) ? x : NEG_INF;
         live = (row < S) & (col < S);  // outside the sequence: p = 0
       }
       float p = exp2_approx(x - lse2[r]);
       p = live ? p : 0.f;
-      return p * (dpt[idx] - dlt[r]) * scale;
+      float d = p * (dpt[idx] - dlt[r]);
+      if constexpr (MOD == MOD_SOFTCAP) d *= dm;
+      return d * scale;
     };
     if (full_tile) {  // one test per tile, not per element
 #pragma unroll
@@ -1279,7 +1422,7 @@ bool tma_ok(const FlashArgs* a, Which which) {
   return which == FWD || (ok(a->dout, a->sdo) && (which == DQ || ok(a->out1, a->s1)));
 }
 
-template <int D>
+template <int D, int MOD>
 int launch_fwd_wgmma(const FlashArgs* a, cudaStream_t stream) {
   constexpr int STAGES = fwd_stages<D>();
   if (a->nq != cdiv(a->S, FWD_BQ) || a->nk != cdiv(a->S, FWD_BKV) || a->S >= (1ll << 31))
@@ -1289,7 +1432,7 @@ int launch_fwd_wgmma(const FlashArgs* a, cudaStream_t stream) {
   if (err == 0) err = bhsd_map(&mk, a->k, a->sk, a->B, a->Hkv, a->S, D, FWD_BKV);
   if (err == 0) err = bhsd_map(&mv, a->v, a->sv, a->B, a->Hkv, a->S, D, FWD_BKV);
   if (err != 0) return err;
-  const auto kernel = flash_fwd_bf16_wgmma_kernel<D, STAGES>;
+  const auto kernel = flash_fwd_bf16_wgmma_kernel<D, STAGES, MOD>;
   constexpr int smem = fwd_wg_smem<D, STAGES>();
   static std::atomic<unsigned long long> ready{0};
   err = wg::allow_smem(ready, kernel, smem);
@@ -1298,7 +1441,7 @@ int launch_fwd_wgmma(const FlashArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int MOD>
 int launch_dkv_wgmma(const FlashArgs* a, cudaStream_t stream) {
   constexpr int BQ = dkv_bq<D>(), STAGES = dkv_stages<D>();
   if (a->nq != cdiv(a->S, BQ) || a->nk != cdiv(a->S, DKV_BKV) || a->S >= (1ll << 31))
@@ -1309,7 +1452,7 @@ int launch_dkv_wgmma(const FlashArgs* a, cudaStream_t stream) {
   if (err == 0) err = bhsd_map(&mk, a->k, a->sk, a->B, a->Hkv, a->S, D, DKV_BKV);
   if (err == 0) err = bhsd_map(&mv, a->v, a->sv, a->B, a->Hkv, a->S, D, DKV_BKV);
   if (err != 0) return err;
-  const auto kernel = flash_bwd_dkv_bf16_wgmma_kernel<D, BQ, STAGES>;
+  const auto kernel = flash_bwd_dkv_bf16_wgmma_kernel<D, BQ, STAGES, MOD>;
   constexpr int smem = dkv_wg_smem<D, BQ, STAGES>();
   static std::atomic<unsigned long long> ready{0};
   err = wg::allow_smem(ready, kernel, smem);
@@ -1319,7 +1462,7 @@ int launch_dkv_wgmma(const FlashArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int MOD>
 int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
   constexpr int BKV = dq_bkv<D>(), STAGES = dq_stages<D>();
   if (a->nq != cdiv(a->S, DQ_BQ) || a->nk != cdiv(a->S, BKV) || a->S >= (1ll << 31))
@@ -1330,7 +1473,7 @@ int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
   if (err == 0) err = bhsd_map(&mk, a->k, a->sk, a->B, a->Hkv, a->S, D, BKV);
   if (err == 0) err = bhsd_map(&mv, a->v, a->sv, a->B, a->Hkv, a->S, D, BKV);
   if (err != 0) return err;
-  const auto kernel = flash_bwd_dq_bf16_wgmma_kernel<D, BKV, STAGES>;
+  const auto kernel = flash_bwd_dq_bf16_wgmma_kernel<D, BKV, STAGES, MOD>;
   constexpr int smem = dq_wg_smem<D, BKV, STAGES>();
   static std::atomic<unsigned long long> ready{0};
   err = wg::allow_smem(ready, kernel, smem);
@@ -1340,7 +1483,8 @@ int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 32-row SIMT (fp32) kernels: one CTA per tile, grid (tiles, Hq, B).
+// The 32-row SIMT kernels (fp32, or bf16 operands): one CTA per tile, grid
+// (tiles, Hq, B).
 template <typename T, int D, int BM, Which W>
 int launch(const FlashArgs* a, cudaStream_t stream) {
   const dim3 grid((unsigned)(W == DKV ? a->nk : a->nq), (unsigned)a->Hq, (unsigned)a->B);
@@ -1363,31 +1507,58 @@ int launch(const FlashArgs* a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_f32(const FlashArgs* a, Which which, cudaStream_t s) {
-  if (which == FWD) return launch<float, D, 32, FWD>(a, s);
-  if (which == DQ) return launch<float, D, 32, DQ>(a, s);
-  return launch<float, D, 32, DKV>(a, s);
+template <typename T, int D>
+int launch_simt(const FlashArgs* a, Which which, cudaStream_t s) {
+  if (a->nq != cdiv(a->S, 32) || a->nk != cdiv(a->S, 32))
+    return static_cast<int>(cudaErrorInvalidValue);  // a plan at other tile sizes
+  if (which == FWD) return launch<T, D, 32, FWD>(a, s);
+  if (which == DQ) return launch<T, D, 32, DQ>(a, s);
+  return launch<T, D, 32, DKV>(a, s);
+}
+
+template <int MOD>
+int launch_wgmma(const FlashArgs* a, Which which, bool d64, cudaStream_t s) {
+  if (which == FWD) return d64 ? launch_fwd_wgmma<64, MOD>(a, s) : launch_fwd_wgmma<128, MOD>(a, s);
+  if (which == DQ) return d64 ? launch_dq_wgmma<64, MOD>(a, s) : launch_dq_wgmma<128, MOD>(a, s);
+  return d64 ? launch_dkv_wgmma<64, MOD>(a, s) : launch_dkv_wgmma<128, MOD>(a, s);
 }
 
 // Kernel variants (the wrapper's flash_variant codes): 0 = "f32" (fp32,
-// 32-row SIMT tiles), 2 = "wgmma" (bf16 on the TMA ring with wgmma; its plan
-// must be at its own tile sizes, and its operands must meet TMA's rules).
-// Any other code is refused.
-enum Variant { F32 = 0, WGMMA = 2 };
+// 32-row SIMT tiles, head dims 16/32/64/128), 2 = "wgmma" (bf16 on the TMA
+// ring with wgmma, head dims 64/128; its plan must be at its own tile
+// sizes, and its operands must meet TMA's rules), 3 = "simt" (bf16
+// operands on the 32-row SIMT tiles, head dims 16/32). Any other code
+// (1 was the bf16 WMMA kernels, removed) is refused.
+enum Variant { F32 = 0, WGMMA = 2, SIMT = 3 };
 
 int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->B <= 0 || a->Hq <= 0 || a->Hkv <= 0 || a->S <= 0 || a->Hq % a->Hkv ||
-      (head_dim != 64 && head_dim != 128))
+      a->mask_type < MASK_FULL || a->mask_type > MASK_BAND ||
+      a->score_mod < MOD_NONE || a->score_mod > MOD_SOFTCAP ||
+      (a->score_mod != MOD_NONE && !(a->score_arg > 0.0)))
     return (int)cudaErrorInvalidValue;
-  const bool d64 = head_dim == 64;
-  if (variant == F32) return d64 ? launch_f32<64>(a, which, s) : launch_f32<128>(a, which, s);
+  if (variant == F32) {
+    switch (head_dim) {
+      case 16: return launch_simt<float, 16>(a, which, s);
+      case 32: return launch_simt<float, 32>(a, which, s);
+      case 64: return launch_simt<float, 64>(a, which, s);
+      case 128: return launch_simt<float, 128>(a, which, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (variant == SIMT) {
+    if (head_dim == 16) return launch_simt<__nv_bfloat16, 16>(a, which, s);
+    if (head_dim == 32) return launch_simt<__nv_bfloat16, 32>(a, which, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (variant == WGMMA) {
-    if (!tma_ok(a, which)) return (int)cudaErrorInvalidValue;
-    if (which == FWD) return d64 ? launch_fwd_wgmma<64>(a, s) : launch_fwd_wgmma<128>(a, s);
-    if (which == DQ) return d64 ? launch_dq_wgmma<64>(a, s) : launch_dq_wgmma<128>(a, s);
-    return d64 ? launch_dkv_wgmma<64>(a, s) : launch_dkv_wgmma<128>(a, s);
+    if ((head_dim != 64 && head_dim != 128) || !tma_ok(a, which))
+      return (int)cudaErrorInvalidValue;
+    const bool d64 = head_dim == 64;
+    if (a->score_mod == MOD_ALIBI) return launch_wgmma<MOD_ALIBI>(a, which, d64, s);
+    if (a->score_mod == MOD_SOFTCAP) return launch_wgmma<MOD_SOFTCAP>(a, which, d64, s);
+    return launch_wgmma<MOD_NONE>(a, which, d64, s);
   }
   return (int)cudaErrorInvalidValue;
 }

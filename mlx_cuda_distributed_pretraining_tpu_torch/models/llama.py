@@ -340,8 +340,10 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
                     positions: torch.Tensor,
                     attn_impl: Optional[str] = None) -> torch.Tensor:
     """Cache-free self-attention with RoPE and GQA: ``flash`` runs the flash
-    kernels (``ops/flash_attention.py``), ``simple`` the reference
-    attention with the mask and score mods."""
+    kernels (``ops/flash_attention.py``; with a score mod, the reference
+    attention, as in JAX), ``flex`` the flash kernels under the config's
+    mask plan and score-mod code (``ops/flex_attention.py``), ``simple``
+    the reference attention with the mask and score mods."""
     from ..ops.attention import reference_attention
 
     B, S, _ = x.shape
@@ -361,10 +363,16 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
                               window_size=args.window_size,
                               prefix_len=args.prefix_len,
                               precision=args.matmul_precision)
-    elif impl in ("ring", "flex"):
+    elif impl == "flex":
+        from ..ops.flex_attention import flex_attention, kernel_score_mod
+
+        out = flex_attention(q, k, v, mask_mod=build_mask_mod(args),
+                             score_mod=kernel_score_mod(args.score_mod_type,
+                                                        args.num_heads, args.soft_cap))
+    elif impl == "ring":
         raise NotImplementedError(
-            f"attention_type {impl!r} is not ported (ROADMAP queue 1: flex, "
-            "ring and band over the flash kernels)")
+            "attention_type 'ring' is not ported (ROADMAP queue 1 item 10: "
+            "multi-GPU, ring attention over NCCL)")
     else:
         out = reference_attention(q, k, v, mask_mod=build_mask_mod(args),
                                   score_mod=build_score_mod(args))

@@ -21,10 +21,20 @@ CPU tensors go to the plain versions; CUDA tensors launch the kernels, and
 a dtype, head dim, layout or mask the kernels do not take raises. No build
 or launch error falls back. Each function has several kernels
 ("variants"); :func:`flash_variant` picks one before launch: "wgmma" (TMA
-ring feeding wgmma, scores, P and dS in registers) for bf16, "f32" (SIMT)
-for fp32. Each wrapper counts
-its launches in ``<fn>.launches`` and per variant in
-``<fn>.launches_by_variant`` (:func:`reset_launches` zeroes both).
+ring feeding wgmma, scores, P and dS in registers) for bf16 at head dims 64
+and 128, "simt" (SIMT tiles, bf16 operands, fp32 sums) for bf16 at head
+dims 16 and 32, "f32" (SIMT) for fp32 at any of the four. Each wrapper
+counts its launches in ``<fn>.launches``, per variant in
+``<fn>.launches_by_variant`` and per score mod in ``<fn>.launches_by_mod``
+(:func:`reset_launches` zeroes all three).
+
+Score mods (the flex path, JAX ``ops/flex_attention.py``): a CUDA kernel
+cannot trace a Python function, so a mod travels as a code and one number
+(:data:`SCORE_MODS`): "alibi" with the head count H subtracts
+``2^(-8 (h + 1) / H) |row - col|`` from ``s = scale q . k`` (h the query
+head), "soft_cap" with the cap replaces it by ``cap tanh(s / cap)`` and
+multiplies dS by ``1 - tanh^2(s / cap)`` in the backward. The mask applies
+after the mod: a masked score is NEG_INF whatever the mod gave.
 
 Block sparsity follows the JAX planners (:func:`_kv_range`, :func:`_q_range`,
 :func:`_full_tile_fn`, ported over Python ints) at each kernel's own tile
@@ -47,6 +57,7 @@ from .masks import NEG_INF
 
 __all__ = [
     "MATMUL_PRECISIONS",
+    "SCORE_MODS",
     "check_matmul_precision",
     "fit_block",
     "flash_attention",
@@ -62,12 +73,15 @@ __all__ = [
 ]
 
 MATMUL_PRECISIONS = (None, "fp32", "bf16", "int8")
-KERNEL_MASKS = ("full", "causal", "sliding_window", "prefix_lm")
+KERNEL_MASKS = ("full", "causal", "sliding_window", "prefix_lm", "band")
 _MASK_CODES = {name: i for i, name in enumerate(KERNEL_MASKS)}
+SCORE_MODS = ("none", "alibi", "soft_cap")  # csrc/flash_attention.cu's Mod
+_MOD_CODES = {name: i for i, name in enumerate(SCORE_MODS)}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-FLASH_VARIANTS = ("wgmma", "f32")
-_VARIANT_CODES = {"f32": 0, "wgmma": 2}  # csrc/flash_attention.cu's Variant
-_HEAD_DIMS = (64, 128)
+FLASH_VARIANTS = ("wgmma", "simt", "f32")
+_VARIANT_CODES = {"f32": 0, "wgmma": 2, "simt": 3}  # csrc/flash_attention.cu's Variant
+_HEAD_DIMS = (16, 32, 64, 128)
+_WGMMA_HEAD_DIMS = (64, 128)
 _DKV_BQ = {64: 128, 128: 64}  # DKV_BQ_D64 / _D128 in csrc/flash_attention.cu
 _DQ_BKV = {64: 128, 128: 64}  # DQ_BKV_D64 / _D128 in csrc/flash_attention.cu
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
@@ -85,9 +99,10 @@ def check_matmul_precision(precision: Optional[str]) -> Optional[str]:
 
 def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call of ``fn`` ("flash_fwd", "flash_bwd_dq" or
-    "flash_bwd_dkv") launches: "wgmma" for bf16, "f32" for fp32. The head
-    dim and TMA's 16-byte alignment need no check here: :func:`_check`
-    refuses operands the kernels do not take before any launch."""
+    "flash_bwd_dkv") launches: "wgmma" for bf16 at head dims 64 and 128,
+    "simt" for bf16 at other head dims, "f32" for fp32. TMA's 16-byte
+    alignment and the head dim need no check here: :func:`_check` refuses
+    operands the kernels do not take before any launch."""
     if fn not in FLASH_KERNELS:
         raise ValueError(f"unknown flash kernel {fn!r} (expected one of "
                          f"{FLASH_KERNELS})")
@@ -95,7 +110,7 @@ def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
         return "f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"{fn} kernel takes fp32 or bf16, got {dtype}")
-    return "wgmma"
+    return "wgmma" if head_dim in _WGMMA_HEAD_DIMS else "simt"
 
 
 def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
@@ -106,8 +121,8 @@ def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
     CTA against ``_DQ_BKV[head_dim]``-row KV tiles (128 at D 64, 64 at D
     128, where dQ alone holds 64 registers a thread); the wgmma dK/dV 128 KV
     rows per CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 64, 64
-    at D 128, where dK and dV alone hold 128 registers a thread); SIMT 32
-    square."""
+    at D 128, where dK and dV alone hold 128 registers a thread); SIMT
+    (bf16 and fp32) 32 square."""
     if variant == "wgmma":
         if fn == "flash_fwd":
             return (128, 128)
@@ -232,37 +247,59 @@ def _mask_mod(mask_type: str, window: int, prefix_len: int):
         return M.sliding_window(window)
     if mask_type == "prefix_lm":
         return M.prefix_lm(prefix_len)
+    if mask_type == "band":
+        return M.band(window)
     if mask_type == "full":
         return None
-    if mask_type == "band":
-        raise NotImplementedError(
-            "mask 'band' is ring attention's off-diagonal chunk: not ported "
-            "(ROADMAP queue 1: flex, ring and band over the flash kernels)")
     raise ValueError(f"unknown mask_type {mask_type!r} (expected one of "
                      f"{KERNEL_MASKS})")
 
 
-def _probs(q, k, mask_type, window, prefix_len, scale, lse=None):
-    """fp32 scores ``(q . k^T) * scale`` masked to NEG_INF (GQA: query head
-    h reads KV head h // G), and either ``exp(s - lse)`` or the running max
-    path's pieces."""
+def check_score_mod(score_mod: str, score_arg: float) -> None:
+    if score_mod not in _MOD_CODES:
+        raise ValueError(f"unknown score mod {score_mod!r} (expected one of {SCORE_MODS})")
+    if score_mod != "none" and not score_arg > 0:
+        raise ValueError(f"score mod {score_mod!r} needs a positive argument (the "
+                         f"head count of alibi, the cap of soft_cap), got {score_arg}")
+
+
+def _probs(q, k, mask_type, window, prefix_len, scale, lse=None,
+           score_mod: str = "none", score_arg: float = 0.0):
+    """fp32 scores ``(q . k^T) * scale`` through the score mod, masked to
+    NEG_INF (GQA: query head h reads KV head h // G); returns the scores
+    (or ``exp(s - lse)`` given ``lse``), the expanded K and the mod's
+    Jacobian (None unless soft_cap), as the JAX kernels compute them."""
     G = q.shape[1] // k.shape[1]
     kf = k.repeat_interleave(G, dim=1)
     s = torch.matmul(q.float(), kf.float().transpose(-1, -2)) * scale
+    d_mod = None
+    if score_mod != "none":
+        Sq, Sk = q.shape[2], k.shape[2]
+        row = torch.arange(Sq, device=q.device)[:, None]
+        col = torch.arange(Sk, device=q.device)[None, :]
+        if score_mod == "alibi":
+            head = torch.arange(q.shape[1], device=q.device, dtype=torch.float32)
+            slope = torch.exp2(-8.0 * (head + 1.0) / score_arg)[:, None, None]
+            s = s - slope * (row - col).abs().float()
+        else:
+            t = torch.tanh(s / score_arg)
+            s = score_arg * t
+            d_mod = 1.0 - t * t
     mod = _mask_mod(mask_type, window, prefix_len)
     if mod is not None:
         valid = M.materialize_mask(mod, q.shape[2], k.shape[2], device=q.device)
         s = s.masked_fill(~valid, NEG_INF)
     if lse is None:
-        return s, kf
-    return torch.exp(s - lse[..., None]), kf
+        return s, kf, d_mod
+    return torch.exp(s - lse[..., None]), kf, d_mod
 
 
 def flash_fwd_plain(q, k, v, mask_type: str = "causal", window: int = 512,
-                    prefix_len: int = 0, scale: float = 1.0):
-    """``(o, lse)``: softmax of the masked fp32 scores, p cast to v's type
-    before ``p . v``, normalized after, as the kernel does."""
-    s, _ = _probs(q, k, mask_type, window, prefix_len, scale)
+                    prefix_len: int = 0, scale: float = 1.0, score_mod: str = "none",
+                    score_arg: float = 0.0):
+    """``(o, lse)``: softmax of the modded, masked fp32 scores, p cast to
+    v's type before ``p . v``, normalized after, as the kernel does."""
+    s, _, _ = _probs(q, k, mask_type, window, prefix_len, scale, None, score_mod, score_arg)
     G = q.shape[1] // k.shape[1]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -272,27 +309,40 @@ def flash_fwd_plain(q, k, v, mask_type: str = "causal", window: int = 512,
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
+def _ds(p, dp, delta, d_mod, scale):
+    """``dS = P (dP - delta)``, times the mod's Jacobian, times ``scale``
+    (the JAX order)."""
+    ds = p * (dp - delta[..., None])
+    if d_mod is not None:
+        ds = ds * d_mod
+    return ds * scale
+
+
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, mask_type: str = "causal",
                        window: int = 512, prefix_len: int = 0,
-                       scale: float = 1.0):
-    p, kf = _probs(q, k, mask_type, window, prefix_len, scale, lse)
+                       scale: float = 1.0, score_mod: str = "none",
+                       score_arg: float = 0.0):
+    p, kf, d_mod = _probs(q, k, mask_type, window, prefix_len, scale, lse, score_mod,
+                          score_arg)
     G = q.shape[1] // k.shape[1]
     dp = torch.matmul(do.float(), v.repeat_interleave(G, dim=1).float()
                       .transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
+    ds = _ds(p, dp, delta, d_mod, scale)
     return torch.matmul(ds.to(k.dtype).float(), kf.float()).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, mask_type: str = "causal",
                         window: int = 512, prefix_len: int = 0,
-                        scale: float = 1.0):
+                        scale: float = 1.0, score_mod: str = "none",
+                        score_arg: float = 0.0):
     """Per-query-head ``(dk_h, dv_h)``, each ``[B, Hq, S, D]``."""
-    p, _ = _probs(q, k, mask_type, window, prefix_len, scale, lse)
+    p, _, d_mod = _probs(q, k, mask_type, window, prefix_len, scale, lse, score_mod,
+                         score_arg)
     G = q.shape[1] // k.shape[1]
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
     dp = torch.matmul(do.float(), v.repeat_interleave(G, dim=1).float()
                       .transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
+    ds = _ds(p, dp, delta, d_mod, scale)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
@@ -310,7 +360,8 @@ class _FlashArgs(ctypes.Structure):
         + [(n, ctypes.c_int64 * 3) for n in (
             "sq", "sk", "sv", "so", "sdo", "s0", "s1")]
         + [(n, ctypes.c_int64) for n in ("mask_type", "window", "prefix")]
-        + [("scale", ctypes.c_double)])
+        + [("scale", ctypes.c_double), ("score_mod", ctypes.c_int64),
+           ("score_arg", ctypes.c_double)])
 
 
 _lib = None
@@ -337,14 +388,27 @@ def _library():
         return _lib
 
 
-def _check(name: str, tensors: Dict[str, torch.Tensor], mask_type: str) -> None:
+def _check(name: str, tensors: Dict[str, torch.Tensor], mask_type: str,
+           score_mod: str = "none", score_arg: float = 0.0) -> None:
+    """Refuse, before any launch, what the kernels do not take: a tensor
+    off the card, then :func:`check_operands`."""
     q = tensors["q"]
     if q.device.type != "cuda":
         raise ValueError(f"{name} kernel takes CUDA tensors, got {q.device} "
                          "(CPU tensors go to the plain version)")
+    check_operands(name, tensors, mask_type, score_mod, score_arg)
+
+
+def check_operands(name: str, tensors: Dict[str, torch.Tensor], mask_type: str,
+                   score_mod: str = "none", score_arg: float = 0.0) -> None:
+    """The kernels' rules on masks, score mods, dtypes, head dims, shapes
+    and strides: a plain function of the operands' metadata (it reads no
+    device), so CPU tests hold it."""
+    q = tensors["q"]
     if mask_type not in _MASK_CODES:
         raise ValueError(f"{name} kernel takes masks {KERNEL_MASKS}, got "
                          f"{mask_type!r}")
+    check_score_mod(score_mod, score_arg)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} kernel takes fp32 or bf16, got {q.dtype}")
     if q.dim() != 4 or q.shape[-1] not in _HEAD_DIMS:
@@ -381,8 +445,9 @@ def _bhs(t: Optional[torch.Tensor]):
 
 
 def _launch(fn_name: str, variant: str, q, k, v, *, ranges, full, mask_type,
-            window, prefix_len, scale, o=None, dout=None, lse_in=None,
-            delta=None, out0=None, out1=None, lse_out=None) -> None:
+            window, prefix_len, scale, score_mod="none", score_arg=0.0, o=None,
+            dout=None, lse_in=None, delta=None, out0=None, out1=None,
+            lse_out=None) -> None:
     """One launch of ``variant``'s kernel through the library's C entry
     ``fn_name`` (``flash_fwd_launch``, ...) on the plan ``ranges`` /
     ``full``, which must be at that kernel's tile sizes."""
@@ -398,7 +463,7 @@ def _launch(fn_name: str, variant: str, q, k, v, *, ranges, full, mask_type,
         sq=_bhs(q), sk=_bhs(k), sv=_bhs(v), so=_bhs(o if o is not None else out0),
         sdo=_bhs(dout), s0=_bhs(out0), s1=_bhs(out1),
         mask_type=_MASK_CODES[mask_type], window=window, prefix=prefix_len,
-        scale=float(scale))
+        scale=float(scale), score_mod=_MOD_CODES[score_mod], score_arg=float(score_arg))
     err = getattr(_library(), fn_name)(
         ctypes.byref(a), _VARIANT_CODES[variant], D,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -412,13 +477,21 @@ def _bshd_like(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((B, S, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
 
 
+def _count(fn, kind: str, score_mod: str) -> None:
+    fn.launches += 1
+    fn.launches_by_variant[kind] += 1
+    fn.launches_by_mod[score_mod] += 1
+
+
 def flash_fwd(q, k, v, mask_type: str = "causal", window: int = 512,
-              prefix_len: int = 0, scale: float = 1.0):
+              prefix_len: int = 0, scale: float = 1.0, score_mod: str = "none",
+              score_arg: float = 0.0):
     """``(o [B, Hq, S, D], lse [B, Hq, S] fp32)`` for q ``[B, Hq, S, D]``,
     k/v ``[B, Hkv, S, D]``."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, mask_type, window, prefix_len, scale)
-    _check("flash_fwd", {"q": q, "k": k, "v": v}, mask_type)
+        return flash_fwd_plain(q, k, v, mask_type, window, prefix_len, scale, score_mod,
+                               score_arg)
+    _check("flash_fwd", {"q": q, "k": k, "v": v}, mask_type, score_mod, score_arg)
     B, Hq, S, D = q.shape
     kind = flash_variant("flash_fwd", q.dtype, D)
     bq, bkv = kernel_tiles("flash_fwd", kind)
@@ -427,20 +500,20 @@ def flash_fwd(q, k, v, mask_type: str = "causal", window: int = 512,
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     _launch("flash_fwd_launch", kind, q, k, v, ranges=kv_ranges, full=full,
             mask_type=mask_type, window=window, prefix_len=prefix_len,
-            scale=scale, out0=o, lse_out=lse)
-    flash_fwd.launches += 1
-    flash_fwd.launches_by_variant[kind] += 1
+            scale=scale, score_mod=score_mod, score_arg=score_arg, out0=o, lse_out=lse)
+    _count(flash_fwd, kind, score_mod)
     return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, mask_type: str = "causal",
-                 window: int = 512, prefix_len: int = 0, scale: float = 1.0):
+                 window: int = 512, prefix_len: int = 0, scale: float = 1.0,
+                 score_mod: str = "none", score_arg: float = 0.0):
     """dQ ``[B, Hq, S, D]`` by recomputation from ``lse`` and ``delta``."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, mask_type, window,
-                                  prefix_len, scale)
+                                  prefix_len, scale, score_mod, score_arg)
     _check("flash_bwd_dq", {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                            "delta": delta}, mask_type)
+                            "delta": delta}, mask_type, score_mod, score_arg)
     kind = flash_variant("flash_bwd_dq", q.dtype, q.shape[3])
     bq, bkv = kernel_tiles("flash_bwd_dq", kind, q.shape[3])
     kv_ranges, _, full = _plan(mask_type, window, prefix_len, q.shape[2], bq,
@@ -448,21 +521,22 @@ def flash_bwd_dq(q, k, v, do, lse, delta, mask_type: str = "causal",
     dq = _bshd_like(q)
     _launch("flash_bwd_dq_launch", kind, q, k, v, ranges=kv_ranges, full=full,
             mask_type=mask_type, window=window, prefix_len=prefix_len,
-            scale=scale, dout=do, lse_in=lse, delta=delta, out0=dq)
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.launches_by_variant[kind] += 1
+            scale=scale, score_mod=score_mod, score_arg=score_arg, dout=do, lse_in=lse,
+            delta=delta, out0=dq)
+    _count(flash_bwd_dq, kind, score_mod)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, mask_type: str = "causal",
-                  window: int = 512, prefix_len: int = 0, scale: float = 1.0):
+                  window: int = 512, prefix_len: int = 0, scale: float = 1.0,
+                  score_mod: str = "none", score_arg: float = 0.0):
     """Per-query-head ``(dk_h, dv_h)``, each ``[B, Hq, S, D]`` (the caller
     sums GQA groups)."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, mask_type, window,
-                                   prefix_len, scale)
+                                   prefix_len, scale, score_mod, score_arg)
     _check("flash_bwd_dkv", {"q": q, "k": k, "v": v, "do": do, "lse": lse,
-                             "delta": delta}, mask_type)
+                             "delta": delta}, mask_type, score_mod, score_arg)
     dk, dv = _bshd_like(q), _bshd_like(q)
     kind = flash_variant("flash_bwd_dkv", q.dtype, q.shape[3])
     bq, bkv = kernel_tiles("flash_bwd_dkv", kind, q.shape[3])
@@ -470,18 +544,19 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, mask_type: str = "causal",
                               q.device, bkv)
     _launch("flash_bwd_dkv_launch", kind, q, k, v, ranges=q_ranges, full=full,
             mask_type=mask_type, window=window, prefix_len=prefix_len,
-            scale=scale, dout=do, lse_in=lse, delta=delta, out0=dk, out1=dv)
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.launches_by_variant[kind] += 1
+            scale=scale, score_mod=score_mod, score_arg=score_arg, dout=do, lse_in=lse,
+            delta=delta, out0=dk, out1=dv)
+    _count(flash_bwd_dkv, kind, score_mod)
     return dk, dv
 
 
 def reset_launches() -> None:
-    """Set the three flash kernels' launch counts, totals and per variant,
-    to 0."""
+    """Set the three flash kernels' launch counts (totals, per variant and
+    per score mod) to 0."""
     for fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
         fn.launches = 0
         fn.launches_by_variant = dict.fromkeys(FLASH_VARIANTS, 0)
+        fn.launches_by_mod = dict.fromkeys(SCORE_MODS, 0)
 
 
 reset_launches()
@@ -494,10 +569,11 @@ class _FlashCore(torch.autograd.Function):
     torch, then dQ and per-query-head dK/dV, and sums the GQA groups."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask_type, window, prefix_len, scale):
-        o, lse = flash_fwd(q, k, v, mask_type, window, prefix_len, scale)
+    def forward(ctx, q, k, v, mask_type, window, prefix_len, scale, score_mod, score_arg):
+        plan = (mask_type, window, prefix_len, scale, score_mod, score_arg)
+        o, lse = flash_fwd(q, k, v, *plan)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.plan = (mask_type, window, prefix_len, scale)
+        ctx.plan = plan
         return o
 
     @staticmethod
@@ -512,7 +588,45 @@ class _FlashCore(torch.autograd.Function):
         if G > 1:
             dk = dk.unflatten(1, (k.shape[1], G)).sum(dim=2).to(k.dtype)
             dv = dv.unflatten(1, (k.shape[1], G)).sum(dim=2).to(v.dtype)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def score_mod_code(score_fn) -> Tuple[str, float]:
+    """``(score_mod, score_arg)`` of a kernel score mod: ``None`` is
+    ("none", 0); a mod from ``ops/flex_attention.py`` carries its code. Any
+    other function raises: a CUDA kernel cannot trace a Python one."""
+    if score_fn is None:
+        return "none", 0.0
+    code = getattr(score_fn, "_code", None)
+    if code is None:
+        raise NotImplementedError(
+            "a score_fn without a kernel code (only flex_attention's alibi and "
+            "soft_cap mods have one) is not ported (ROADMAP queue 1 item 6: flex, "
+            "ring and band over the flash kernels)")
+    return code
+
+
+def mask_plan(mask_fn, mask_type: str, window: int, prefix_len: int) -> Tuple[str, int, int]:
+    """The ``(mask_type, window, prefix_len)`` the kernels run for a
+    ``mask_fn``: a named mod of ``ops/masks.py`` carries its plan, which
+    must be the one named; a mask mod without a plan raises (the kernels
+    evaluate only the named predicates)."""
+    named = (mask_type, window if mask_type in ("sliding_window", "band") else 0,
+             prefix_len if mask_type == "prefix_lm" else 0)
+    if mask_fn is None:
+        return named
+    plan = getattr(mask_fn, "_plan", None)
+    if plan is None:
+        raise NotImplementedError(
+            "a mask_fn without a _plan (an arbitrary mask mod) is not ported: the "
+            "kernels evaluate the named masks only (ROADMAP queue 1 item 6: flex, "
+            "ring and band over the flash kernels)")
+    if tuple(plan) != named:
+        raise NotImplementedError(
+            f"mask_fn plans {tuple(plan)} but the call names {named}: the kernels "
+            "run one plan (ROADMAP queue 1 item 6: flex, ring and band over the "
+            "flash kernels)")
+    return named
 
 
 def flash_attention(
@@ -529,20 +643,21 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention on the ``[B, S, H, D]`` layout, differentiable.
 
-    ``mask_type``: causal / sliding_window / prefix_lm / full. ``precision``
-    (model.matmul_precision): "bf16" casts q/k/v. Custom ``mask_fn`` /
-    ``score_fn`` (the flex path), the ``band`` mask and int8 precision are
-    not ported and raise."""
+    ``mask_type``: causal / sliding_window / prefix_lm / full / band.
+    ``mask_fn`` (the flex path) must be a named mod of ``ops/masks.py`` whose ``_plan`` is
+    that mask; ``score_fn`` one of ``ops/flex_attention.py``'s kernel score
+    mods (alibi, soft_cap). ``precision`` (model.matmul_precision): "bf16"
+    casts q/k/v; int8, an arbitrary ``mask_fn`` and an arbitrary
+    ``score_fn`` are not ported and raise."""
     precision = check_matmul_precision(precision)
     if precision == "int8":
         raise NotImplementedError(
             "matmul_precision int8 over the flash kernels is not ported "
-            "(ROADMAP queue 1: flex, ring and band over the flash kernels)")
-    if mask_fn is not None or score_fn is not None:
-        raise NotImplementedError(
-            "custom mask_fn / score_fn (the flex path) are not ported "
-            "(ROADMAP queue 1: flex, ring and band over the flash kernels)")
-    _mask_mod(mask_type, window_size, prefix_len)  # raises on band / unknown
+            "(ROADMAP queue 1 item 6: flex, ring and band over the flash kernels)")
+    _mask_mod(mask_type, window_size, prefix_len)  # raises on an unknown mask
+    mask_type, window_size, prefix_len = mask_plan(mask_fn, mask_type, window_size,
+                                                   prefix_len)
+    score_mod, score_arg = score_mod_code(score_fn)
     if precision == "bf16":
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     if q.shape[2] % k.shape[2]:
@@ -551,5 +666,5 @@ def flash_attention(
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     o = _FlashCore.apply(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), mask_type, int(window_size),
-                         int(prefix_len), float(scale))
+                         int(prefix_len), float(scale), score_mod, float(score_arg))
     return o.transpose(1, 2)

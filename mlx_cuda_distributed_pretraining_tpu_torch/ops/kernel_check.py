@@ -97,17 +97,27 @@ def kernel_outputs(q, k, v, do, lse, delta, **kw) -> Dict[str, torch.Tensor]:
 def planted_fault():
     """Launch the kernels with one live tile left out of their plans: the
     forward and dQ skip the last live KV tile of the last Q tile (the
-    diagonal tile under a causal mask), dK/dV skip the last live Q tile of
-    the first KV tile. The kernels themselves run unchanged; what they
-    return is what a kernel with that bug would return, and :func:`compare`
-    must reject it."""
+    diagonal tile under a causal or sliding-window mask), dK/dV skip the
+    last Q tile of the first KV tile that holds a pair the mask allows (the
+    Q-tile planner may keep a tile past a sliding window, which holds none;
+    the fault ends the range before the last tile that does). The kernels
+    themselves run unchanged; what they return is what a kernel with that
+    bug would return, and :func:`compare` must reject it."""
     plan = fa._plan
 
-    def faulty(*args, **kwargs):
-        kv_ranges, q_ranges, full = plan(*args, **kwargs)
+    def faulty(mask_type, window, prefix_len, S, block, device, block_kv=None):
+        kv_ranges, q_ranges, full = plan(mask_type, window, prefix_len, S, block, device,
+                                         block_kv)
         kv_ranges, q_ranges = kv_ranges.clone(), q_ranges.clone()
         kv_ranges[-1, 1] -= 1
-        q_ranges[0, 1] -= 1
+        bq, bkv = block, block if block_kv is None else block_kv
+        mod = fa._mask_mod(mask_type, window, prefix_len)
+        allowed = (fa.M.materialize_mask(mod, S, min(bkv, S)) if mod is not None
+                   else torch.ones(S, min(bkv, S), dtype=torch.bool))
+        lo, hi = (int(x) for x in q_ranges[0])
+        while hi - 1 > lo and not bool(allowed[(hi - 1) * bq:hi * bq].any()):
+            hi -= 1
+        q_ranges[0, 1] = hi - 1
         return kv_ranges, q_ranges, full
 
     fa._plan = faulty

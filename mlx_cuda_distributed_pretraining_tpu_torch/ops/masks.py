@@ -1,4 +1,5 @@
-"""Mask predicates over index tensors (the JAX package's ``ops/masks.py``).
+"""Mask predicates and score mods over index tensors (the JAX package's
+``ops/masks.py``).
 
 A mask mod maps broadcastable integer tensors ``(q_idx, kv_idx)`` to a bool
 tensor (True = attend). Each named builder tags its mod with
@@ -11,6 +12,7 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30  # large-but-finite: keeps softmax well-defined on fully-masked rows
@@ -65,3 +67,21 @@ def materialize_mask(mod: Optional[MaskMod], q_len: int, kv_len: int,
     q = torch.arange(q_len, device=device)[:, None]
     k = torch.arange(kv_len, device=device)[None, :]
     return mod(q, k)
+
+
+# -- score mods of the reference path: (scores, q_idx, kv_idx) -> scores ------
+def alibi(slope: float):
+    """ALiBi's linear positional bias for one head."""
+    return lambda s, q, k: s - slope * (q - k).abs()
+
+
+def alibi_slopes(num_heads: int) -> np.ndarray:
+    """The standard geometric ALiBi slopes, ``2^(-8 i / H)`` for heads
+    ``i = 1 .. H`` (float64, as JAX's numpy builds them)."""
+    base = 2.0 ** (-8.0 / num_heads)
+    return base ** np.arange(1, num_heads + 1)
+
+
+def soft_cap(cap: float):
+    """tanh soft-capping of the scores at ``cap``."""
+    return lambda s, q, k: cap * torch.tanh(s / cap)

@@ -1,4 +1,6 @@
-"""Optimizers: the fused AdamW, Adafactor and the LR schedules."""
+"""Optimizers: every update rule of the JAX package's factory (the fused
+AdamW, the chained AdamW / Adam / SGD / Lion with their EMA variants,
+Muon, Shampoo, Adafactor, hybrid partitions) and the LR schedules."""
 
 from .adafactor import adafactor
 from .base import (
@@ -7,8 +9,9 @@ from .base import (
     default_wd_mask,
     global_norm,
     is_vector_like_path,
+    partition,
 )
-from .factory import build_optimizer
+from .factory import build_optimizer, build_transform
 from .fused import fused_adamw
 from .schedules import (
     build_schedule,
@@ -21,7 +24,7 @@ from .schedules import (
 
 __all__ = [
     "FusedTransform", "Transform", "adafactor", "build_optimizer", "build_schedule",
-    "cosine_decay",
-    "default_wd_mask", "fused_adamw", "global_norm", "is_vector_like_path",
-    "join_schedules", "linear_schedule", "schedule_value", "warmup_cosine",
+    "build_transform", "cosine_decay", "default_wd_mask", "fused_adamw", "global_norm",
+    "is_vector_like_path", "join_schedules", "linear_schedule", "partition",
+    "schedule_value", "warmup_cosine",
 ]

@@ -9,7 +9,11 @@ on the CUDA kernels when the config asks for it; an MoE model's experts on
 the grouped-GEMM kernels, forward and backward; the named remat policies
 over the first ``system.gradient_checkpointing_ratio`` of the layers; the
 fused chunked CE), the fp32 cross-entropy plus an MoE model's router
-losses, the backward, the optimizer (fused AdamW, or Adafactor), the log
+losses, the backward, the optimizer (every update rule of the JAX
+factory: the fused AdamW, the chained AdamW / Adam / SGD / Lion and their
+EMA variants, Muon, Shampoo, Adafactor, hybrid), the LR finder
+(``training.lr_finder``: a momentum-SGD sweep whose suggestion the run
+adopts, skipped on resume, as in JAX), the log
 line protocol (with routing stats for an MoE model), validation (pure
 cross-entropy) and early stopping on it, and interval and ``final``
 checkpoints in the ``runs/`` layout both packages read. It runs on
@@ -36,9 +40,8 @@ JAX trainer: an unknown name raises, and ``llama_standard`` /
 
 Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
 ``model_parallel`` that needs more than one device (expert, data, tensor,
-sequence and pipeline parallelism), int8 grouped GEMMs, optimizers other
-than adam/adamw/adafactor, streaming data, and the switches
-``training.lr_finder`` and ``logging.log_samples``. The telemetry keys
+sequence and pipeline parallelism), int8 grouped GEMMs, streaming data,
+and ``logging.log_samples``. The telemetry keys
 (``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
 ``events``) are read by nothing here: they change no number the trainer
 computes, writes or logs, so a run with them set trains as one without.
@@ -83,6 +86,7 @@ from ..optim.schedules import build_schedule, schedule_value
 from ..tokenizer import TokenizerManager
 from ..utils.tree import tree_map
 from .early_stopping import EarlyStoppingMonitor
+from .lr_finder import run_lr_finder
 from .train_step import init_train_state, make_eval_step, make_loss_fn, make_train_step
 
 MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")  # the JAX package's order
@@ -107,16 +111,10 @@ def refuse_multi_device(system_cfg) -> None:
 
 
 def refuse_unported_switches(cfg: Config) -> None:
-    """Raise on a switch that changes what the JAX trainer does (it adopts
-    another LR or generates samples) and that the port has no code for:
-    running as if it were off would give another run than the one
-    configured."""
-    training = getattr(cfg.training, "_extras", {})
+    """Raise on a switch that changes what the JAX trainer does (it
+    generates samples) and that the port has no code for: running as if it
+    were off would give another run than the one configured."""
     logging = getattr(cfg.logging, "_extras", {})
-    if dict(training.get("lr_finder") or {}).get("enabled"):
-        raise NotImplementedError(
-            "training.lr_finder is not ported (ROADMAP queue 1 item 4: the other "
-            "optimizers and the LR finder)")
     if logging.get("log_samples"):
         raise NotImplementedError(
             "logging.log_samples is not ported (ROADMAP queue 1 item 7: the locked "
@@ -208,7 +206,7 @@ class Trainer:
                   scan_layers=bool(cfg.system.scan_layers))
         # MoE steps carry the routing stats out beside the token count.
         self.moe_stats_experts = args.num_local_experts if args.is_moe else 0
-        loss_fn = make_loss_fn(
+        self.loss_fn = loss_fn = make_loss_fn(
             args, remat=self.remat, remat_ratio=self.remat_ratio,
             z_loss_weight=float(cfg.training.hyperparameters.get("z_loss") or 0.0),
             overlap=bool(cfg.system.overlap_gather),
@@ -368,9 +366,39 @@ class Trainer:
             self.early_stopping.load_state_dict(tstate.get("early_stopping", {}))
         self.logger.log(f"Resumed from checkpoint {tag} at step {self.start_step}")
 
+    # -- LR finder -------------------------------------------------------------
+    def maybe_run_lr_finder(self) -> Optional[float]:
+        """With ``training.lr_finder.enabled`` on a fresh run: sweep momentum
+        SGD over the first ``num_steps`` batches (``train/lr_finder.py``) on
+        a copy of the parameters, then adopt the suggested LR: the schedule,
+        the optimizer and the train step are rebuilt with it and the
+        optimizer state starts afresh. Skipped on resume, as in JAX."""
+        lf = dict(getattr(self.config.training, "_extras", {}).get("lr_finder") or {})
+        if not lf.get("enabled") or self.start_step > 0:
+            return None
+        self.logger.log("Running LR finder sweep")
+        suggested, _, _ = run_lr_finder(
+            self.state["params"], self.loss_fn,
+            lambda i: self._device_batch(self.data.generate_batch(i)),
+            min_lr=float(lf.get("min_lr", 1e-7)), max_lr=float(lf.get("max_lr", 1.0)),
+            num_steps=int(lf.get("num_steps", 100)), out_dir=self.run_dir)
+        self.logger.log(f"LR finder suggestion: {suggested:.3e}; rebuilding optimizer with it")
+        cfg = self.config
+        cfg.training.hyperparameters["learning_rate"] = float(suggested)
+        self.schedule = build_schedule(cfg.training, max(self.total_steps, 1))
+        self.optimizer = build_optimizer(cfg.training, max(self.total_steps, 1),
+                                         schedule=self.schedule)
+        self.train_step = make_train_step(
+            self.loss_fn, self.optimizer, accum_steps=self.accum_steps,
+            log_grad_norm=cfg.logging.log_gradient_norm,
+            moe_stats_experts=self.moe_stats_experts)
+        self.state = init_train_state(self.state["params"], self.optimizer)
+        return suggested
+
     # -- the loop ------------------------------------------------------------
     def train(self) -> Dict[str, Any]:
         cfg = self.config
+        self.maybe_run_lr_finder()
         log_int = max(1, cfg.logging.logging_interval)
         ckpt_int = cfg.logging.checkpoint_interval
         val_int = cfg.logging.validation_interval

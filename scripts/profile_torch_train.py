@@ -2,19 +2,24 @@
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train.py
-        [--config 40m-adamw|moe-8x40m|1b-singlechip] [--steps 10] [--out profile.json]
+        [--config 40m-adamw|moe-8x40m|1b-singlechip|100m-muon] [--steps 10]
+        [--per-leaf-ns] [--out profile.json]
 
 Builds configs/model-config-40m-adamw.yaml (the default),
-configs/model-config-moe-8x40m.yaml or configs/model-config-1b-singlechip.yaml
-at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
+configs/model-config-moe-8x40m.yaml, configs/model-config-1b-singlechip.yaml
+or configs/model-config-100m-muon.yaml at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
 heads of 64, 1024 positions, batch 32, bf16 compute over fp32 masters,
 flash attention, AdamW with clip 1.0; the MoE config's 8 experts top-2
 with its router losses, on one GPU, without its expert-parallel mesh. 1B:
 hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, 2048
 positions, batch 8, flash attention, remat "full" on the first half of the
 layers (the default ``gradient_checkpointing_ratio`` 0.5), Adafactor with
-update clipping 1.0 and gradient clip 1.0) with seeded random weights and
-seeded random byte tokens, then:
+update clipping 1.0 and gradient clip 1.0. 100m-muon: hidden 768,
+intermediate 2048, 12 layers, 12 heads of 64, 1024 positions, batch 32,
+flash attention, Muon with Nesterov, 5 Newton-Schulz steps and AdamW at
+0.015 x the LR for the vectors; ``--per-leaf-ns`` orthogonalizes each
+matrix alone, as the JAX update does, instead of in same-shape batches)
+with seeded random weights and seeded random byte tokens, then:
 
 - step: wall time per train step (``make_train_step``; host clock around
   steps that end in a synchronise);
@@ -88,7 +93,29 @@ CONFIG_1B = {
     "system": {"seed": 42, "compute_dtype": "bfloat16", "remat": "full",
                "scan_layers": True},
 }
-CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B}
+# configs/model-config-100m-muon.yaml, the sections the step reads.
+CONFIG_100M_MUON = {
+    "name": "100m-muon",
+    "data": {"preprocessing": {"max_context_size": 1024}},
+    "model": {"dimensions": {"hidden_size": 768, "intermediate_size": 2048,
+                             "num_layers": 12},
+              "attention": {"num_heads": 12, "num_kv_heads": 12, "head_dim": 64,
+                            "max_position_embeddings": 1024,
+                            "use_flash_attention": True},
+              "normalization": {"rms_norm_eps": 1.0e-5},
+              "rope": {"theta": 10000, "traditional": False},
+              "misc": {"tie_word_embeddings": True}},
+    "training": {"hyperparameters": {"batch_size": 32, "learning_rate": 2.0e-2,
+                                     "weight_decay": 0.01, "gradient_clip": 1.0,
+                                     "iters": 10000},
+                 "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 300,
+                               "min_lr_ratio": 0.05},
+                 "optimization": {"optimizer": "muon", "momentum": 0.95, "nesterov": True,
+                                  "ns_steps": 5, "adamw_lr_ratio": 0.015}},
+    "system": {"seed": 42, "mixed_precision": True},
+}
+CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B,
+           "100m-muon": CONFIG_100M_MUON}
 VOCAB = 259
 
 
@@ -125,6 +152,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", choices=sorted(CONFIGS), default="40m-adamw")
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--per-leaf-ns", action="store_true",
+                   help="Muon: orthogonalize each matrix alone (the JAX order)")
     p.add_argument("--out", help="also write the JSON object here")
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -135,6 +164,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
 
+    if a.per_leaf_ns:
+        import importlib
+
+        muon = importlib.import_module("mlx_cuda_distributed_pretraining_tpu_torch.optim.muon")
+        batched = muon.orthogonalize
+        muon.orthogonalize = lambda tree, steps=5: tree_map(
+            lambda m: None if m is None else batched({"m": m}, steps)["m"], tree)
     cfg = Config.from_dict(CONFIGS[a.config])
     args = llama.LlamaArgs.from_config(cfg.model, VOCAB)
     params = llama.init_params(args, torch.Generator().manual_seed(42), device="cuda")
@@ -214,7 +250,8 @@ def main(argv=None) -> int:
         "card": card,
         "config": f"{a.config}, B {cfg.training.batch_size}, S {seq}, bf16 over fp32, "
                   f"flash attention, remat {cfg.system.remat}, "
-                  f"{cfg.training.optimizer_name}",
+                  f"{cfg.training.optimizer_name}"
+                  + (" (NS per leaf)" if a.per_leaf_ns else ""),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "params": llama.num_params(state["params"]),
         "step_ms": step_ms,

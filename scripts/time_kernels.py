@@ -4,7 +4,7 @@ backward kernels at their paths' shapes, from one checkout: to compare two
 trees on one card.
 
     python3 scripts/time_kernels.py [--root DIR] [--reps 20]
-                                    [--shapes all|serve|train] [--out f.json]
+                                    [--shapes all|serve|train|flash] [--out f.json]
 
 Imports the port from ``--root`` (default: the checkout holding this
 script), so its kernels are built from that tree's ``csrc/`` into that
@@ -24,7 +24,10 @@ tree's ``build/kernels/``. The shapes:
   block_t 128; the routing draw of ``chip_smoke.py``): tgmm gate/up
   (x [T, 512], dy [T, 1536]), down (x [T, 1536], dy [T, 512]) and gate/up
   with one expert holding half the selections;
-- flash dQ and dK/dV at B 32, H 8, S 1024, D 64, bf16, causal.
+- flash dQ and dK/dV at B 32, H 8, S 1024, D 64, bf16, causal;
+- ``--shapes flash`` alone: the flash forward, dQ and dK/dV (wgmma, no
+  score mod) at B 32, H 8, S 1024, D 64 and at the 1B's B 8, H 16, S 2048,
+  D 128, bf16, causal.
 
 Each time is the mean over ``--reps`` back-to-back launches between CUDA
 events, after warm-up. To compare a change with its parent, unpack the
@@ -75,7 +78,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--shapes", choices=("all", "serve", "train"), default="all",
+    ap.add_argument("--shapes", choices=("all", "serve", "train", "flash"), default="all",
                     help="the serving path's fp32 gmm, the training path's kernels, or both")
     ap.add_argument("--out", default=None)
     opts = ap.parse_args()
@@ -112,7 +115,7 @@ def main() -> int:
         ("f32_decode_gate_up", dec, 8, 512, 1536), ("f32_decode_down", dec, 8, 1536, 512),
         ("f32_prefill_gate_up", pre, 32, 512, 1536), ("f32_prefill_down", pre, 32, 1536, 512),
         ("f32_prefill_short_down", short, 16, 1536, 512)]
-    for name, (gs, n_rows), bt, K, N in serve_shapes if opts.shapes != "train" else []:
+    for name, (gs, n_rows), bt, K, N in serve_shapes if opts.shapes in ("all", "serve") else []:
         x = torch.randn(n_rows, K, generator=g)
         x[int(gs.sum()):] = 0
         x = x.cuda()
@@ -123,7 +126,7 @@ def main() -> int:
         out["ms"][name] = device_ms(torch, lambda i: gm.gmm(x, ws[i], gsd, bt),
                                     2 * opts.reps, copies)
         del x, ws
-    if opts.shapes != "train":
+    if opts.shapes in ("all", "serve"):
         bufs = [torch.randn(EXPERTS * 512 * 1536, generator=g).cuda() for _ in range(6)]
         out["ms"]["yardstick_sum_25mb_cold"] = device_ms(
             torch, lambda i: bufs[i].sum(), 2 * opts.reps, len(bufs))
@@ -134,6 +137,21 @@ def main() -> int:
         out["ms"]["yardstick_sum_1gb"] = device_ms(torch, lambda _: big.sum(), 5)
         del big
     if opts.shapes == "serve":
+        return report(out, gm, fa, opts)
+    if opts.shapes == "flash":
+        for tag, (B, H, S, D) in (("d64", (32, 8, 1024, 64)), ("d128", (8, 16, 2048, 128))):
+            q, k, v, do = (torch.randn(B, S, H, D, generator=g).to("cuda", torch.bfloat16)
+                           .transpose(1, 2) for _ in range(4))
+            kw = dict(mask_type="causal", scale=D ** -0.5)
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1).contiguous()
+            out["ms"][f"flash_fwd_{tag}"] = device_ms(
+                torch, lambda _: fa.flash_fwd(q, k, v, **kw), opts.reps)
+            out["ms"][f"flash_bwd_dq_{tag}"] = device_ms(
+                torch, lambda _: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), opts.reps)
+            out["ms"][f"flash_bwd_dkv_{tag}"] = device_ms(
+                torch, lambda _: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw), opts.reps)
+            del q, k, v, do, o, lse, delta
         return report(out, gm, fa, opts)
     for name, K, N, gs in (("tgmm_gate_up", 512, 1536, sizes), ("tgmm_down", 1536, 512, sizes),
                            ("tgmm_imbalanced_gate_up", 512, 1536, hot)):

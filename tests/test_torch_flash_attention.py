@@ -146,10 +146,14 @@ def test_reference_attention_with_mask_mod_matches_jax(mask_type):
 
 
 def test_unported_options_raise():
+    # band, the named mask mods and the flex score mods are ported
+    # (tests/test_torch_flex.py); int8, a mask mod without a plan, a plan
+    # other than the named mask and a score mod without a kernel code raise
     q, k, v = (torch.zeros(1, 8, 2, 64) for _ in range(3))
-    for kw in ({"mask_type": "band"}, {"precision": "int8"},
-               {"mask_fn": TM.causal()}, {"score_fn": lambda s, r, c, h: s}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"precision": "int8"}, {"mask_fn": lambda r, c: r >= c},
+               {"mask_fn": TM.sliding_window(4)},
+               {"score_fn": lambda s, r, c, h: s}):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
             tf.flash_attention(q, k, v, **kw)
     with pytest.raises(ValueError, match="mask_type"):
         tf.flash_attention(q, k, v, mask_type="diagonal")
@@ -237,21 +241,22 @@ def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("fn", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
-    # bf16 takes the TMA/wgmma kernels (dQ too), fp32 the SIMT ones; each
-    # variant plans at its own tiles.
+    # bf16 takes the TMA/wgmma kernels (dQ too) at D 64 and 128 and the
+    # bf16 SIMT ones at D 16 and 32, fp32 the fp32 SIMT ones; each variant
+    # plans at its own tiles.
     got = tf.flash_variant(fn, getattr(torch, dtype), head_dim)
-    want = "f32" if dtype == "float32" else "wgmma"
+    want = "f32" if dtype == "float32" else "wgmma" if head_dim >= 64 else "simt"
     assert got == want
     assert tf.kernel_tiles(fn, got, head_dim) == {
         ("flash_fwd", "wgmma"): (128, 128),
-        ("flash_bwd_dq", "wgmma"): (128, tf._DQ_BKV[head_dim]),
-        ("flash_bwd_dkv", "wgmma"): (tf._DKV_BQ[head_dim], 128),
+        ("flash_bwd_dq", "wgmma"): (128, tf._DQ_BKV.get(head_dim)),
+        ("flash_bwd_dkv", "wgmma"): (tf._DKV_BQ.get(head_dim), 128),
     }.get((fn, got), (32, 32))
     # the bf16 WMMA kernels are gone: no variant and no C entry code names them
-    assert tf.FLASH_VARIANTS == ("wgmma", "f32")
-    assert tf._VARIANT_CODES == {"f32": 0, "wgmma": 2}
+    assert tf.FLASH_VARIANTS == ("wgmma", "simt", "f32")
+    assert tf._VARIANT_CODES == {"f32": 0, "wgmma": 2, "simt": 3}
 
 
 def test_flash_variant_rejects_what_no_kernel_takes():

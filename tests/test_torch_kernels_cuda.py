@@ -1,7 +1,8 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
 the grouped GEMM (forward, dX and tgmm's dW; each in its variants, the
 per-variant launch counts showing which kernel ran) and the three
-flash-attention kernels.
+flash-attention kernels (with the score mods, the band mask and head dims
+16 to 128: ``-k flex`` runs those cases alone).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA device
 (the kernels have no CPU mode). The file imports torch only, so on a machine
@@ -489,11 +490,15 @@ def test_flash_kernels_reject_bad_input(cuda):
         tfa.flash_fwd(q, k.cpu(), v)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         tfa.flash_fwd(q.half(), k.half(), v.half())
-    q32, k32, v32, _ = _flash_inputs("bfloat16", 1, 4, 4, 128, 32)
+    # head dims 16 and 32 and the band mask are taken now (the mod cases
+    # below); D 48 and an unknown mask are not
+    q48, k48, v48, _ = _flash_inputs("bfloat16", 1, 4, 4, 128, 48)
     with pytest.raises(ValueError, match="D in"):
-        tfa.flash_fwd(q32, k32, v32)
+        tfa.flash_fwd(q48, k48, v48)
     with pytest.raises(ValueError, match="masks"):
-        tfa.flash_fwd(q, k, v, mask_type="band")
+        tfa.flash_fwd(q, k, v, mask_type="diagonal")
+    with pytest.raises(ValueError, match="score mod"):
+        tfa.flash_fwd(q, k, v, score_mod="alibi", score_arg=0.0)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_bwd_dq(q, k, v, do, lse.transpose(1, 2).contiguous()
                          .transpose(1, 2), lse)
@@ -633,3 +638,104 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
                     **plan_kw)
     torch.cuda.synchronize()
     assert _flash_counts() == before
+
+
+# (dtype, B, Hq, Hkv, S, D, mask, window, prefix, mod, arg, variant): the score
+# mods (alibi over Hq heads, soft_cap at 50 or at 2, where tanh saturates) in
+# every variant, the band mask, head dims 16 and 32 on the bf16 SIMT kernels
+# and fp32, tails (S 127, 129, 1000), GQA.
+FLEX_CASES = [
+    ("bfloat16", 2, 4, 4, 1024, 64, "causal", 0, 0, "soft_cap", 50.0, "wgmma"),
+    ("bfloat16", 2, 4, 4, 1024, 64, "sliding_window", 128, 0, "alibi", 4.0, "wgmma"),
+    ("bfloat16", 2, 4, 4, 127, 64, "causal", 0, 0, "soft_cap", 2.0, "wgmma"),
+    ("bfloat16", 2, 4, 2, 129, 64, "prefix_lm", 0, 100, "alibi", 4.0, "wgmma"),
+    ("bfloat16", 2, 4, 4, 1000, 64, "band", 256, 0, "none", 0.0, "wgmma"),
+    ("bfloat16", 2, 4, 4, 1000, 64, "band", 256, 0, "alibi", 4.0, "wgmma"),
+    ("bfloat16", 1, 4, 4, 1000, 128, "causal", 0, 0, "soft_cap", 50.0, "wgmma"),
+    ("bfloat16", 1, 4, 2, 129, 128, "sliding_window", 100, 0, "alibi", 4.0, "wgmma"),
+    ("bfloat16", 2, 6, 6, 512, 16, "sliding_window", 128, 0, "alibi", 6.0, "simt"),
+    ("bfloat16", 2, 4, 2, 512, 32, "causal", 0, 0, "none", 0.0, "simt"),
+    ("bfloat16", 2, 4, 2, 127, 32, "band", 40, 0, "soft_cap", 2.0, "simt"),
+    ("bfloat16", 1, 4, 4, 1000, 16, "prefix_lm", 0, 200, "soft_cap", 50.0, "simt"),
+    ("bfloat16", 1, 4, 4, 129, 16, "full", 0, 0, "alibi", 4.0, "simt"),
+    ("float32", 1, 4, 2, 200, 16, "sliding_window", 64, 0, "alibi", 4.0, "f32"),
+    ("float32", 1, 4, 4, 129, 32, "band", 50, 0, "soft_cap", 2.0, "f32"),
+    ("float32", 1, 4, 4, 256, 64, "causal", 0, 0, "soft_cap", 50.0, "f32"),
+]
+
+
+def _mod_counts():
+    return {n: dict(getattr(tfa, n).launches_by_mod) for n in tfa.FLASH_KERNELS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,Hq,Hkv,S,D,mask,window,prefix,mod,arg,variant", FLEX_CASES)
+def test_flex_flash_kernels_match_plain(cuda, dtype, B, Hq, Hkv, S, D, mask, window, prefix,
+                                        mod, arg, variant):
+    q, k, v, do = _flash_inputs(dtype, B, Hq, Hkv, S, D, seed=S + D)
+    kw = dict(mask_type=mask, window=window, prefix_len=prefix, scale=D ** -0.5,
+              score_mod=mod, score_arg=arg)
+    before, before_mod = _flash_counts(), _mod_counts()
+    o, lse = tfa.flash_fwd(q, k, v, **kw)
+    ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    dq = tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
+    torch.cuda.synchronize()
+    for n in tfa.FLASH_KERNELS:
+        assert _flash_counts()[n][variant] == before[n][variant] + 1, n
+        assert _mod_counts()[n][mod] == before_mod[n][mod] + 1, n
+    rdq = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
+    rdk, rdv = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    # lse: fp32 sums in another order; the wgmma kernels' soft_cap takes
+    # its tanh from ex2.approx (within ~5e-7 absolute), which moves a score
+    # by up to 5e-7 x cap: there 1e-5 + 2^-20 x cap
+    atol = 1e-5 + (2.0 ** -20 * arg if mod == "soft_cap" and variant == "wgmma" else 0.0)
+    torch.testing.assert_close(lse, rlse, atol=atol, rtol=1e-5)
+    for name, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        check = kernel_check.compare(got, ref)
+        assert check["ok"], (name, check)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,mask,window,mod,arg", [
+    (64, "causal", 0, "soft_cap", 50.0), (64, "sliding_window", 128, "alibi", 8.0),
+    (64, "band", 256, "alibi", 8.0), (16, "sliding_window", 128, "alibi", 8.0),
+    (32, "causal", 0, "soft_cap", 50.0)])
+def test_flex_planted_fault_is_rejected(cuda, D, mask, window, mod, arg):
+    """With a score mod on, each kernel launched with one live tile left out
+    of its plan fails the check its faithful launch passes."""
+    q, k, v, do = _flash_inputs("bfloat16", 2, 8, 8, 1024, D)
+    kw = dict(mask_type=mask, window=window, scale=D ** -0.5, score_mod=mod, score_arg=arg)
+    ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    refs = {"o": ro, "dq": tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)}
+    refs["dk"], refs["dv"] = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    good = kernel_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+    with kernel_check.planted_fault():
+        bad = kernel_check.kernel_outputs(q, k, v, do, rlse, delta, **kw)
+    for name, ref in refs.items():
+        assert kernel_check.compare(good[name], ref)["ok"], name
+        assert not kernel_check.compare(bad[name], ref)["ok"], name
+
+
+@pytest.mark.cuda
+def test_flex_attention_runs_the_kernels_with_the_mod_code(cuda):
+    """``flex_attention`` (alibi, sliding window, D 16, bf16) launches the
+    SIMT kernels with the alibi code, forward and backward."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import flex_attention as tflex
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks as tm
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 512, 6, 16, generator=g).to("cuda", torch.bfloat16)
+               .requires_grad_(True) for _ in range(3))
+    before, before_mod = _flash_counts(), _mod_counts()
+    o = tflex.flex_attention(q, k, v, mask_mod=tm.sliding_window(128),
+                             score_mod=tflex.alibi_score_fn(6))
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    for n in tfa.FLASH_KERNELS:
+        assert _flash_counts()[n]["simt"] == before[n]["simt"] + 1, n
+        assert _mod_counts()[n]["alibi"] == before_mod[n]["alibi"] + 1, n
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))

@@ -1,8 +1,11 @@
-"""Resume across the two packages, on the CPU, with Adafactor.
+"""Resume across the two packages, on the CPU, with Adafactor, Muon and a
+hybrid partition.
 
 JAX trains uninterrupted and saves at step 4; the port resumes its run
 from step 4 and its steps 5-6 give JAX's losses (1e-5 relative). Then the
-other way round. The early-stopping state and the data position ride the
+other way round. (Muon's and hybrid's states are partitions with ``None``
+where the other label owns a parameter; those ride the optimizer file's
+metadata as JSON nulls.) The early-stopping state and the data position ride the
 checkpoint; a SIGTERM saves and ends the run, and a resume from it gives
 the uninterrupted run's losses; a failed background write raises out of
 ``train()``; retention GC keeps what it is told to.
@@ -132,6 +135,35 @@ def test_jax_resumes_a_port_adafactor_run(tmp_path):
     j_losses = _capture_losses(jtr)
     jtr.train()
     _assert_same_losses(j_losses, t_losses, [5, 6])
+
+
+OPTIMIZERS = {
+    "muon": {"optimizer": "muon", "adamw_lr_ratio": 0.04},
+    "hybrid": {"optimizer": "hybrid", "matrix_optimizer": "muon",
+               "non_matrix_optimizer": "lion", "hybrid_embeddings": "rest",
+               "adamw_lr_ratio": 0.04},
+}
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+@pytest.mark.parametrize("opt", list(OPTIMIZERS))
+def test_muon_and_hybrid_resume_across_packages(tmp_path, opt, first):
+    """One package trains uninterrupted (checkpoint at 4); the other resumes
+    from step 4, and its steps 5-6 give the first one's losses."""
+    runs = str(tmp_path / "runs")
+    d = _config(tmp_path, f"{opt}-{first}", **{"training.optimization": OPTIMIZERS[opt]})
+    make = {"jax": lambda c: JTrainer(JConfig.from_dict(c), runs_root=runs, quiet=True),
+            "port": lambda c: Trainer(TConfig.from_dict(c), runs_root=runs, quiet=True,
+                                      device="cpu")}
+    second = "port" if first == "jax" else "jax"
+    tr1 = make[first](d)
+    want = _capture_losses(tr1)
+    tr1.train()
+    tr2 = make[second](_resume_cfg(d, "4"))
+    assert tr2.start_step == 4
+    got = _capture_losses(tr2)
+    tr2.train()
+    _assert_same_losses(got, want, [5, 6])
 
 
 def test_early_stopping_and_data_position_ride_the_checkpoint(tmp_path):

@@ -284,5 +284,7 @@ def test_port_imports_without_jax():
                 "models.moe", "optim.fused", "optim.schedules", "optim.factory",
                 "data.memory",
                 "checkpoint.manager", "obs.logger", "obs.flops",
-                "train.train_step", "train.trainer", "utils.cuda_build"):
+                "train.train_step", "train.trainer", "utils.cuda_build",
+                "optim.enhanced", "optim.muon", "optim.shampoo", "train.lr_finder",
+                "ops.flex_attention"):
         assert f"{PKG}.{mod}" in names, mod

@@ -474,8 +474,10 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r1"),
                 quiet=True, device="cpu")
+    # (every optimizer of the JAX factory trains now:
+    # tests/test_torch_optimizers.py; streaming data does not)
     d = _config_dict(tmp_path)
-    d["training"]["optimization"]["optimizer"] = "muon"
+    d["data"]["streaming"] = {"enabled": True}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r2"),
                 quiet=True, device="cpu")
@@ -491,11 +493,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
 
 
 # (config path, value, ROADMAP queue 1 item named): switches with which the
-# JAX trainer adopts another LR or generates samples; the port has neither
-# yet and must refuse them. (Early stopping and checkpoint retention, once
-# refused here, act now: tests/test_torch_resume.py.)
+# JAX trainer generates samples; the port has no sampler yet and must
+# refuse them. (Early stopping and checkpoint retention, once refused here,
+# act now: tests/test_torch_resume.py; so does the LR finder:
+# tests/test_torch_lr_finder.py.)
 UNPORTED_SWITCHES = [
-    ("training.lr_finder", {"enabled": True, "num_steps": 5}, 4),
     ("logging.log_samples", True, 7),
 ]
 
