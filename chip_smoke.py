@@ -38,8 +38,9 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    beside ``F.scaled_dot_product_attention`` (forward; forward + backward
    for the backward kernels) as a yardstick, with its TFLOP/s; first of
    them the 1B trainer's shape (B 8, H 16, S 2048, D 128, bf16, causal).
-   Each call must run the variant ``flash_variant`` names (bf16: the wgmma
-   kernels). Each output must pass ``ops/kernel_check.compare``
+   Each call must run the variant ``flash_variant`` names for its kernel
+   (bf16: the wgmma kernels; at head dims 16 and 32 the wgmma forward and
+   dK/dV beside the SIMT dQ). Each output must pass ``ops/kernel_check.compare``
    (per-element limits scaled to the output's RMS, and a normwise limit).
    At both path shapes the kernels are launched once more with one live
    tile left out of their plans, and the same check must reject every
@@ -103,17 +104,19 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    step ms, tok/s, MFU vs 989 TFLOP/s and peak memory. (b)
    configs/model-config-1m-flex.yaml at full width (flex attention,
    sliding window 128, ALiBi, 6 heads of 16, S 512, batch 16, Muon): step-1
-   parity, 30 steps, the loss falls, every attention launch on the bf16
-   SIMT kernels with the alibi code. (c) the 1M configs' optimizers
-   (adamw_enhanced, lion, shampoo, hybrid; sgd and adamw with ``fused:
-   false`` as overrides of the adamw one): 10 steps each, finite losses,
-   step-1 parity; then model-config-1m-muon.yaml with
+   parity, 30 steps, the loss falls, every forward and dK/dV launch on the
+   wgmma kernels and every dQ launch on the bf16 SIMT one, all with the
+   alibi code. (c) the 1M configs' optimizers (adamw_enhanced, lion,
+   shampoo, hybrid; sgd and adamw with ``fused: false`` as overrides of the
+   adamw one; D 32: the forward and dK/dV on wgmma, dQ on SIMT): 10 steps
+   each, finite losses, step-1 parity; then model-config-1m-muon.yaml with
    ``training.lr_finder: {enabled: true, num_steps: 20}``: the sweep runs,
    its suggestion is logged and adopted, and 5 steps follow with finite
    losses. Phase 3 adds the slice's kernel cases: soft_cap 50 and sliding
-   128 + alibi at the 100m shape, soft_cap at the 1B shape, the bf16 SIMT
-   kernels at the 1m-flex shape (D 16, alibi) and the 1M configs' (D 32,
-   GQA), band 256 at D 64, the main path's shape with no mod; each takes a
+   128 + alibi at the 100m shape, soft_cap at the 1B shape, the 1m-flex
+   shape (D 16, alibi) and the 1M configs' (D 32, GQA): the wgmma forward
+   and dK/dV with the SIMT dQ, band 256 at D 64, the main path's shape
+   with no mod; each takes a
    planted fault, and is timed against SDPA with a float ``attn_mask``
    carrying the ALiBi bias and the window (soft_cap: no PyTorch call).
 9. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
@@ -632,10 +635,11 @@ FLASH_CASES = [
 ]
 WINDOW, PREFIX = 256, 384
 # The flex slice's cases, (name, dtype, B, Hq, Hkv, S, D, mask, extras): score
-# mods at the 100m-muon shape (B 32, H 12, S 1024, D 64) and the 1B's, the bf16
-# SIMT kernels at the 1m-flex shape (sliding 128 + alibi, D 16) and at the
-# 1M configs' (GQA 4/2, D 32), the band mask, and the main path's shape with
-# no mod. Every one takes a planted fault.
+# mods at the 100m-muon shape (B 32, H 12, S 1024, D 64) and the 1B's, the
+# 1m-flex shape (sliding 128 + alibi, D 16) and the 1M configs' (GQA 4/2, D
+# 32), where the forward and dK/dV run the wgmma kernels and dQ the bf16
+# SIMT one, the band mask, and the main path's shape with no mod. Every one
+# takes a planted fault.
 FLEX_CASES = [
     ("path_100m", "bfloat16", 32, 12, 12, 1024, 64, "causal", {}),
     ("flex_softcap_100m", "bfloat16", 32, 12, 12, 1024, 64, "causal",
@@ -746,8 +750,8 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
     ran = {n: launched_since(before[n], after[n]) for n in FLASH_KERNELS}
     ran_mod = {n: launched_since(before_mod[n], getattr(fa, n).launches_by_mod)
                for n in FLASH_KERNELS}
-    variant = fa.flash_variant("flash_fwd", dt, D)
-    want_ran = {n: {variant: 1} for n in FLASH_KERNELS}
+    variant = {n: fa.flash_variant(n, dt, D) for n in FLASH_KERNELS}
+    want_ran = {n: {variant[n]: 1} for n in FLASH_KERNELS}
     rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
@@ -760,7 +764,8 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
     checks = {out: kernel_check.compare(got[out], refs[out]) for out in refs}
     errs = {out: c["max_abs_err"] for out, c in checks.items()}
     errs["lse"] = (lse - rlse).abs().max().item()
-    lse_atol = 1e-5 + (2.0 ** -20 * arg if mod == "soft_cap" and variant == "wgmma" else 0.0)
+    lse_atol = 1e-5 + (2.0 ** -20 * arg if mod == "soft_cap" and variant["flash_fwd"] == "wgmma"
+                       else 0.0)
     ok = all(c["ok"] for c in checks.values()) and bool(torch.isfinite(lse).all()) \
         and torch.allclose(lse, rlse, atol=lse_atol, rtol=1e-5)
     if ran != want_ran or ran_mod != {n: {mod: 1} for n in FLASH_KERNELS}:
@@ -1813,15 +1818,21 @@ def config_1m(tmp: str, name: str, lr: float, optimization: dict, steps: int) ->
     }
 
 
+# bf16 at head dims 16 and 32 (1m-flex, the 1M configs): each kernel's variant
+SMALL_D_VARIANTS = {"flash_fwd": "wgmma", "flash_bwd_dq": "simt", "flash_bwd_dkv": "wgmma"}
+
+
 def read_mods(fa) -> dict:
     return {n: dict(getattr(fa, n).launches_by_mod) for n in FLASH_KERNELS}
 
 
-def flash_want(fa, variant: str, mod: str, fwd: int, bwd: int):
-    """Every flash launch of a run on one variant with one score mod."""
+def flash_want(fa, variants: dict, mod: str, fwd: int, bwd: int):
+    """Every launch of each flash kernel of a run on its variant
+    (``variants[kernel]``) with one score mod."""
     zv, zm = dict.fromkeys(fa.FLASH_VARIANTS, 0), dict.fromkeys(fa.SCORE_MODS, 0)
-    return ({"flash_fwd": {**zv, variant: fwd}, "flash_bwd_dq": {**zv, variant: bwd},
-             "flash_bwd_dkv": {**zv, variant: bwd}},
+    return ({"flash_fwd": {**zv, variants["flash_fwd"]: fwd},
+             "flash_bwd_dq": {**zv, variants["flash_bwd_dq"]: bwd},
+             "flash_bwd_dkv": {**zv, variants["flash_bwd_dkv"]: bwd}},
             {"flash_fwd": {**zm, mod: fwd}, "flash_bwd_dq": {**zm, mod: bwd},
              "flash_bwd_dkv": {**zm, mod: bwd}})
 
@@ -1870,8 +1881,8 @@ def muon_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10, ckpt: int
         layers, vb = a.model_args.num_layers, a.eval_batches
         want = {"gmm": 0, "tgmm": 0, "flash_fwd": layers * (steps + vb),
                 "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
-        want_v, want_m = flash_want(fa, "wgmma", "none", want["flash_fwd"],
-                                    want["flash_bwd_dq"])
+        want_v, want_m = flash_want(fa, dict.fromkeys(FLASH_KERNELS, "wgmma"), "none",
+                                    want["flash_fwd"], want["flash_bwd_dq"])
         flash_v = {n: variants[n] for n in FLASH_KERNELS}
         log(f"muon: run A {steps} steps + {vb} validation batches in {wall:.1f}s; "
             f"losses {[round(losses[s], 5) for s in sorted(losses)]}; launches {launches}; "
@@ -1931,7 +1942,8 @@ def muon_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10, ckpt: int
 
 def flex_phase(torch, gm, fa, card, steps: int = 30):
     """1m-flex at full width through ``Trainer.train()``: every attention
-    launch on the bf16 SIMT kernels with the alibi code."""
+    launch with the alibi code, the forward and dK/dV on the wgmma kernels
+    (D 16), dQ on the bf16 SIMT one."""
     import tempfile
 
     from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
@@ -1956,7 +1968,8 @@ def flex_phase(torch, gm, fa, card, steps: int = 30):
         launches, variants, mods = read_launches(gm, fa), read_variants(gm, fa), read_mods(fa)
         losses = [w["loss"] for w in tr.windows]
         layers, vb = tr.model_args.num_layers, tr.eval_batches
-        want_v, want_m = flash_want(fa, "simt", "alibi", layers * (steps + vb), layers * steps)
+        want_v, want_m = flash_want(fa, SMALL_D_VARIANTS, "alibi", layers * (steps + vb),
+                                    layers * steps)
         flash_v = {n: variants[n] for n in FLASH_KERNELS}
         log(f"flex: {steps} steps + {vb} validation batches in {wall:.1f}s; losses every "
             f"5 steps {losses}; flash by variant {flash_v} by mod {mods}")
@@ -1979,9 +1992,10 @@ def flex_phase(torch, gm, fa, card, steps: int = 30):
 
 def optimizers_phase(torch, gm, fa, card, steps: int = 10, finder_steps: int = 20,
                      after_finder: int = 5):
-    """The 1M configs' optimizers at full width (flash at D 32: the bf16
-    SIMT kernels): ``steps`` steps each with finite losses and step-1
-    parity; then model-config-1m-muon.yaml with the LR finder on."""
+    """The 1M configs' optimizers at full width (flash at D 32: the wgmma
+    forward and dK/dV, the bf16 SIMT dQ): ``steps`` steps each with finite
+    losses and step-1 parity; then model-config-1m-muon.yaml with the LR
+    finder on."""
     import re
     import tempfile
 
@@ -2014,7 +2028,7 @@ def optimizers_phase(torch, gm, fa, card, steps: int = 10, finder_steps: int = 2
             tally()
             losses = [w["loss"] for w in tr.windows]
             layers, vb = tr.model_args.num_layers, tr.eval_batches
-            want_v, want_m = flash_want(fa, "simt", "none", layers * (steps + vb),
+            want_v, want_m = flash_want(fa, SMALL_D_VARIANTS, "none", layers * (steps + vb),
                                         layers * steps)
             got_v = {n: read_variants(gm, fa)[n] for n in FLASH_KERNELS}
             ok = (len(losses) == steps and all(math.isfinite(x) for x in losses)
@@ -2195,8 +2209,8 @@ def main() -> int:
                             train_1b=b1_perf, card=card)
     # The flex slice's (kernel, variant, score mod) cases, each with its
     # launches on the path that runs it (100m-muon: wgmma, no mod; 1m-flex:
-    # SIMT, alibi; the 1M optimizer runs: SIMT, no mod; no path runs the
-    # others).
+    # the wgmma forward and dK/dV and the SIMT dQ, alibi; the 1M optimizer
+    # runs: the same variants, no mod; no path runs the others).
     flash_by_case = {c["case"]: c for c in flash_cases}
     paths = {"path_100m": ("100m_muon", muon_perf), "path_1m_flex": ("1m_flex", flex_perf),
              "path_1m": ("1m_optimizers", opt_perf)}
@@ -2206,12 +2220,13 @@ def main() -> int:
         for name in FLASH_KERNELS:
             by_v = (run.get("launches_by_variant") or {}).get(name, {})
             by_m = (run.get("launches_by_mod") or {}).get(name, {})
-            launches = min(by_v.get(c["variant"], 0), by_m.get(c["score_mod"], 0))
+            variant = c["variant"][name]
+            launches = min(by_v.get(variant, 0), by_m.get(c["score_mod"], 0))
             entry = kernel_entry(
-                f"{name}:{c['variant']}:{c['score_mod']}:{case_name}", FLASH_SOURCE,
+                f"{name}:{variant}:{c['score_mod']}:{case_name}", FLASH_SOURCE,
                 FLASH_REPLACES[name], launches, c["kernels"][name],
                 max(c["max_abs_err"][o] for o in out_of[name]))
-            entry.update(variant=c["variant"], score_mod=c["score_mod"],
+            entry.update(variant=variant, score_mod=c["score_mod"],
                          score_arg=c["score_arg"], mask=c["mask"], window=c["window"],
                          shape=c["shape"], path=path,
                          tflops=c["kernels"][name]["tflops"],

@@ -10,10 +10,11 @@
 //
 // Variants (the wrapper's flash_variant picks one before launch; the C
 // entries take its code):
-//   "wgmma"  bf16 at head dims 64 and 128: a TMA ring feeding wgmma, the
-//            scores, P and dS kept in registers (their own note below);
-//   "simt"   bf16 at head dims 16 and 32: SIMT FMA tiles on bf16 operands
-//            with fp32 sums (the fp32 kernels' code, T = bf16);
+//   "wgmma"  bf16: the forward and dK/dV at head dims 16, 32, 64 and 128,
+//            dQ at 64 and 128: a TMA ring feeding wgmma, the scores, P and
+//            dS kept in registers (their own note below);
+//   "simt"   bf16 dQ at head dims 16 and 32: SIMT FMA tiles on bf16
+//            operands with fp32 sums (the fp32 kernels' code, T = bf16);
 //   "f32"    fp32 at head dims 16, 32, 64 and 128: SIMT FMA tiles.
 //
 // Each computes what its Pallas body computes (not block by block):
@@ -58,9 +59,9 @@
 // tanh.approx.f32, 2^-11 relative, failed the bf16 gate at cap 50); the
 // SIMT kernels switch on it at run time and use tanhf.
 //
-// Types: bf16 runs the wgmma kernels at head dims 64 and 128 and the SIMT
-// kernels at 16 and 32; fp32 runs the SIMT kernels (32-row tiles) at all
-// four. Head dims are template instances.
+// Types: bf16 runs the wgmma forward and dK/dV at all four head dims, the
+// wgmma dQ at 64 and 128 and the SIMT dQ at 16 and 32; fp32 runs the SIMT
+// kernels (32-row tiles) at all four. Head dims are template instances.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the
 // training path's shape B 32, H 8, S 1024, D 64, bf16, causal:
@@ -553,7 +554,8 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
 // the loads (no producer warp: a 9th warp puts 3 warps on one SM
 // sub-partition and caps every thread at 168 registers). Every operand
 // comes in through a 4-D tensor map over its strided [B, H, S, D] view
-// (dims D, S, H, B; 64-column boxes with 128-byte swizzle), so the model's
+// (dims D, S, H, B; boxes min(D, 64) columns wide, one swizzle span a row:
+// 128 bytes at D 64 and 128, 64 at D 32, 32 at D 16; Geo below), so the model's
 // [B, S, H, D] activations are read in place and rows past S arrive as
 // zeros; K/V (forward, dQ) or Q/dO (dK/dV) tiles flow through a ring of
 // full/empty mbarriers (namespace wg, hopper.cuh). The score tile, P and
@@ -575,6 +577,17 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
 // fence_regs) that pin them before the batch opens; score accumulators
 // fresh per tile; and every shared-memory descriptor in uniform registers,
 // so the warpgroup index and the stage index reach them through shuffles.
+// Head dims 16 and 32 (forward and dK/dV): the same kernels on boxes one
+// row of D wide, a row one swizzle span (64 or 32 bytes), so a K-major
+// operand takes D / 16 k16 steps of 32 bytes within its row and an MN-major
+// one 16 rows a step; the score products stay m64n128k16 on 128 x 128
+// tiles, and O, dK and dV are m64n32k16 / m64n16k16 (wg::WgmmaRS<D, 1>).
+// There each CTA's loop is short (at most 4 KV tiles at S 512) and its
+// accumulators 8-16 floats a thread, so the prologue and epilogue weigh:
+// the ring holds 4 stages, which at S 512 takes every tile in the prologue,
+// and the forward is built for two CTAs an SM (fwd_ctas): one CTA's
+// prologue and epilogue run under the other's loop, and each tile's
+// products run in turn (its note) to fit 128 registers a thread.
 constexpr int FWD_BQ = 128;      // forward: query rows per CTA
 constexpr int FWD_BKV = 128;     // forward: KV rows per ring stage
 constexpr int DKV_BKV = 128;     // dK/dV: KV rows per CTA
@@ -583,12 +596,19 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Ring depths and dK/dV's query rows per stage, by head dim, as swept on
-// an H100 (PERF.md): at D 128 dK and dV alone hold 128 registers a thread,
-// so dK/dV takes 64 query rows per stage there.
+// an H100 at D 64 and 128 (PERF.md): at D 128 dK and dV alone hold 128
+// registers a thread, so dK/dV takes 64 query rows per stage there. At D
+// 16 and 32 the 4 stages hold every tile of S 512.
+constexpr int FWD_STAGES_D16 = 4;
+constexpr int FWD_STAGES_D32 = 4;
 constexpr int FWD_STAGES_D64 = 3;
 constexpr int FWD_STAGES_D128 = 3;
+constexpr int DKV_BQ_D16 = 128;
+constexpr int DKV_BQ_D32 = 128;
 constexpr int DKV_BQ_D64 = 128;
 constexpr int DKV_BQ_D128 = 64;
+constexpr int DKV_STAGES_D16 = 4;
+constexpr int DKV_STAGES_D32 = 4;
 constexpr int DKV_STAGES_D64 = 2;
 constexpr int DKV_STAGES_D128 = 2;
 // dQ's KV rows per stage and ring depths: at D 128 dQ alone holds 64
@@ -600,15 +620,46 @@ constexpr int DQ_STAGES_D128 = 3;
 constexpr int GROUP_HEADS = 16;  // (batch, head) pairs per group of the CTA order
 
 template <int D>
-constexpr int fwd_stages() { return D == 64 ? FWD_STAGES_D64 : FWD_STAGES_D128; }
+constexpr int by_d(int d16, int d32, int d64, int d128) {
+  return D == 16 ? d16 : D == 32 ? d32 : D == 64 ? d64 : d128;
+}
 template <int D>
-constexpr int dkv_bq() { return D == 64 ? DKV_BQ_D64 : DKV_BQ_D128; }
+constexpr int fwd_stages() {
+  return by_d<D>(FWD_STAGES_D16, FWD_STAGES_D32, FWD_STAGES_D64, FWD_STAGES_D128);
+}
+// CTAs an SM the forward is built for (__launch_bounds__): two at D 16
+// and 32, whose in-turn loop fits the 128 registers a thread that two
+// allow; one elsewhere, and for soft_cap, whose tanh spilled at two
+// (PERF.md: the two-CTA trial). dK/dV holds S^T and dP^T (128 floats) at
+// once and is built for one CTA at every head dim (it spilled at two).
+template <int D, int MOD>
+constexpr int fwd_ctas() { return D < 64 && MOD != MOD_SOFTCAP ? 2 : 1; }
 template <int D>
-constexpr int dkv_stages() { return D == 64 ? DKV_STAGES_D64 : DKV_STAGES_D128; }
+constexpr int dkv_bq() { return by_d<D>(DKV_BQ_D16, DKV_BQ_D32, DKV_BQ_D64, DKV_BQ_D128); }
+template <int D>
+constexpr int dkv_stages() {
+  return by_d<D>(DKV_STAGES_D16, DKV_STAGES_D32, DKV_STAGES_D64, DKV_STAGES_D128);
+}
 template <int D>
 constexpr int dq_bkv() { return D == 64 ? DQ_BKV_D64 : DQ_BKV_D128; }
 template <int D>
 constexpr int dq_stages() { return D == 64 ? DQ_STAGES_D64 : DQ_STAGES_D128; }
+
+// How a [rows x D] bf16 operand lies in shared memory: boxes of COLS =
+// min(D, 64) columns, each box row one swizzle span of RB bytes (128, 64
+// or 32), boxes NB = D / COLS; K-major k16 steps per box row KPR; the
+// swizzle atom (8 rows) SBO; the descriptors' layout. At D 64 and 128 these
+// are the 128-byte constants the kernels were written with.
+template <int D>
+struct Geo {
+  static constexpr int COLS = D < 64 ? D : 64;
+  static constexpr int RB = COLS * 2;
+  static constexpr int NB = D / COLS;
+  static constexpr int KPR = RB / 32;
+  static constexpr uint32_t SBO = 8 * RB;
+  static constexpr uint32_t LAYOUT =
+      RB == 128 ? wg::LAYOUT_B128 : RB == 64 ? wg::LAYOUT_B64 : wg::LAYOUT_B32;
+};
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -748,16 +799,17 @@ constexpr int fwd_wg_smem() {
   return (FWD_BQ + STAGES * 2 * FWD_BKV) * D * 2 + wg::ATOM;
 }
 
-template <int D, int STAGES, int MOD>
-__global__ void __launch_bounds__(256, 1)
+template <int D, int STAGES, int CTAS, int MOD>
+__global__ void __launch_bounds__(256, CTAS)
 flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v,
                             const FlashArgs a) {
   using namespace wg;
-  constexpr int NB = D / 64;             // 64-column boxes per row
-  constexpr int Q_BOX = FWD_BQ * 128;    // one box of the Q tile
-  constexpr int KV_BOX = FWD_BKV * 128;  // one box of a K or V tile
+  using GD = Geo<D>;
+  constexpr int NB = GD::NB;               // boxes per row
+  constexpr int Q_BOX = FWD_BQ * GD::RB;   // one box of the Q tile
+  constexpr int KV_BOX = FWD_BKV * GD::RB; // one box of a K or V tile
   constexpr int KV_BYTES = NB * KV_BOX;
   constexpr int STAGE = 2 * KV_BYTES;    // K, then V
   constexpr int NP = FWD_BKV / 4;        // packed bf16 pairs of a P tile
@@ -782,8 +834,10 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t bar = smem_addr(&full[s]);
     const int row = (lo + it) * FWD_BKV;
     mbar_expect_tx(bar, STAGE);
-    for (int c = 0; c < NB; ++c) tma_4d(kb + c * KV_BOX, &map_k, bar, 64 * c, row, hk, b);
-    for (int c = 0; c < NB; ++c) tma_4d(vb + c * KV_BOX, &map_v, bar, 64 * c, row, hk, b);
+    for (int c = 0; c < NB; ++c)
+      tma_4d(kb + c * KV_BOX, &map_k, bar, GD::COLS * c, row, hk, b);
+    for (int c = 0; c < NB; ++c)
+      tma_4d(vb + c * KV_BOX, &map_v, bar, GD::COLS * c, row, hk, b);
   };
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -795,7 +849,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t qbar = smem_addr(&q_full);
     mbar_expect_tx(qbar, NB * Q_BOX);
     for (int c = 0; c < NB; ++c)
-      tma_4d(smem_addr(qs + c * Q_BOX), &map_q, qbar, 64 * c, qt * FWD_BQ, h, b);
+      tma_4d(smem_addr(qs + c * Q_BOX), &map_q, qbar, GD::COLS * c, qt * FWD_BQ, h, b);
     for (int it = 0; it < n && it < STAGES; ++it) load(it);
   }
   __syncthreads();
@@ -818,7 +872,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int i = 0; i < NP; ++i) pa[i] = 0u;
   if (g == 1 && n > 0) bar_arrive(BAR_TURN, 256);  // warpgroup 0 takes the first turn
   mbar_wait(&q_full, 0);
-  const uint32_t qa = smem_addr(qs) + g * 64 * 128;
+  const uint32_t qa = smem_addr(qs) + g * 64 * GD::RB;
   // S_j = Q K_j^T for the tile in stage s into sc (one commit group). sc is
   // a fresh array per tile: scores kept across tiles would be live inputs
   // of the next product, moved into place inside the wgmma batch, and ptxas
@@ -827,9 +881,10 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t kb = smem_addr(ring + s * STAGE);
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
-      Wgmma<FWD_BKV, 0, 0>::run(sc, desc(qa + (ks / 4) * Q_BOX + (ks % 4) * 32, 16, ATOM),
-                                desc(kb + (ks / 4) * KV_BOX + (ks % 4) * 32, 16, ATOM),
-                                ks > 0 ? 1 : 0);
+      Wgmma<FWD_BKV, 0, 0>::run(
+          sc, desc(qa + (ks / GD::KPR) * Q_BOX + (ks % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          desc(kb + (ks / GD::KPR) * KV_BOX + (ks % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          ks > 0 ? 1 : 0);
     wgmma_commit();
   };
   // O += bf16(P) V for the tile in stage s (one commit group)
@@ -838,7 +893,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int kk = 0; kk < FWD_BKV / 16; ++kk)
       WgmmaRS<D, 1>::run(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                         desc(vb + kk * 16 * 128, KV_BOX, ATOM), 1);
+                         desc(vb + kk * 16 * GD::RB, KV_BOX, GD::SBO, GD::LAYOUT), 1);
     wgmma_commit();
   };
   // The online softmax of S_j (in sc): mask, new running max, P into pn,
@@ -882,68 +937,106 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     return a.full[static_cast<int64_t>(qt) * a.nk + j] != 0;
   };
 
-  if (n > 0) {  // the first tile: S alone (O is still zero)
-    const bool full_tile = full_flag(lo);
-    mbar_wait(&full[0], 0);
-    bar_sync(BAR_TURN + g, 256);  // this warpgroup's turn at the tensor cores
-    float sc[FWD_BKV / 2];
-    wgmma_fence();
-    issue_s(sc, 0);
-    if (g == 0 || n > 1) bar_arrive(BAR_TURN + 1 - g, 256);  // the other's turn
-    wgmma_wait<0>();
-    fence_acc(sc);
-    float alpha[2];
-    softmax(sc, lo, full_tile, pa, alpha);
-  }
-  int s = 0, ph = 0;  // the previous tile's stage and phase
-  for (int it = 1; it < n; ++it) {
-    // S of this tile and P V of the previous one go out together; the
-    // softmax of this tile runs while P V is in flight.
-    const int prev = s, prev_ph = ph;
-    if (++s == STAGES) {
-      s = 0;
-      ph ^= 1;
-    }
-    const bool full_tile = full_flag(lo + it);
-    mbar_wait(&full[s], ph);
-    bar_sync(BAR_TURN + g, 256);
-    fence_acc(o);
-    fence_regs(pa);  // P is in its registers before the wgmma batch opens
-    float sc[FWD_BKV / 2];
-    // the stages through shuffles: warp-uniform, so the descriptors are
-    // built in uniform registers before the batch opens (a descriptor moved
-    // into place between wgmmas makes ptxas serialize them all)
-    const int su = __shfl_sync(0xffffffffu, s, 0), pu = __shfl_sync(0xffffffffu, prev, 0);
-    wgmma_fence();
-    issue_s(sc, su);
-    issue_pv(pu);
-    if (g == 0 || it + 1 < n) bar_arrive(BAR_TURN + 1 - g, 256);
-    wgmma_wait<1>();  // S has retired; P V may still run
-    fence_acc(sc);
-    uint32_t pn[NP];
-    float alpha[2];
-    softmax(sc, lo + it, full_tile, pn, alpha);
-    wgmma_wait<0>();
-    fence_acc(o);
-    fence_regs(pa);  // P V read pa until here
-    if (t == 0) mbar_arrive(&empty[prev]);
-    if (tid == 128 && it - 1 + STAGES < n) {  // warpgroup 1 runs second: refill
-      mbar_wait(&empty[prev], prev_ph);
-      load(it - 1 + STAGES);
-    }
+  if constexpr (CTAS > 1) {
+    // Two CTAs an SM cap a thread at 128 registers, which hold one score
+    // tile but not the overlap's two (S_j beside P_{j-1}): each tile's S,
+    // softmax and P V run in turn, and the SM's other CTA fills the gaps.
+    // The turns at the tensor cores are dK/dV's: two a tile.
+    for (int it = 0; it < n; ++it) {
+      const int s = it % STAGES;
+      const bool full_tile = full_flag(lo + it);
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const int su = __shfl_sync(0xffffffffu, s, 0);
+      bar_sync(BAR_TURN + g, 256);
+      float sc[FWD_BKV / 2];
+      wgmma_fence();
+      issue_s(sc, su);
+      bar_arrive(BAR_TURN + 1 - g, 256);
+      wgmma_wait<0>();
+      fence_acc(sc);
+      float alpha[2];
+      softmax(sc, lo + it, full_tile, pa, alpha);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      fence_acc(o);
+      fence_regs(pa);  // P is in its registers before the wgmma batch opens
+      bar_sync(BAR_TURN + g, 256);
+      wgmma_fence();
+      issue_pv(su);
+      if (g == 0 || it + 1 < n) bar_arrive(BAR_TURN + 1 - g, 256);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_regs(pa);  // P V read pa until here
+      if (t == 0) mbar_arrive(&empty[s]);
+      if (tid == 128 && it + STAGES < n) {  // warpgroup 1 runs second: refill
+        mbar_wait(&empty[s], (it / STAGES) & 1);
+        load(it + STAGES);
+      }
+    }
+  } else {
+    if (n > 0) {  // the first tile: S alone (O is still zero)
+      const bool full_tile = full_flag(lo);
+      mbar_wait(&full[0], 0);
+      bar_sync(BAR_TURN + g, 256);  // this warpgroup's turn at the tensor cores
+      float sc[FWD_BKV / 2];
+      wgmma_fence();
+      issue_s(sc, 0);
+      if (g == 0 || n > 1) bar_arrive(BAR_TURN + 1 - g, 256);  // the other's turn
+      wgmma_wait<0>();
+      fence_acc(sc);
+      float alpha[2];
+      softmax(sc, lo, full_tile, pa, alpha);
+    }
+    int s = 0, ph = 0;  // the previous tile's stage and phase
+    for (int it = 1; it < n; ++it) {
+      // S of this tile and P V of the previous one go out together; the
+      // softmax of this tile runs while P V is in flight.
+      const int prev = s, prev_ph = ph;
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+      const bool full_tile = full_flag(lo + it);
+      mbar_wait(&full[s], ph);
+      bar_sync(BAR_TURN + g, 256);
+      fence_acc(o);
+      fence_regs(pa);  // P is in its registers before the wgmma batch opens
+      float sc[FWD_BKV / 2];
+      // the stages through shuffles: warp-uniform, so the descriptors are
+      // built in uniform registers before the batch opens (a descriptor moved
+      // into place between wgmmas makes ptxas serialize them all)
+      const int su = __shfl_sync(0xffffffffu, s, 0), pu = __shfl_sync(0xffffffffu, prev, 0);
+      wgmma_fence();
+      issue_s(sc, su);
+      issue_pv(pu);
+      if (g == 0 || it + 1 < n) bar_arrive(BAR_TURN + 1 - g, 256);
+      wgmma_wait<1>();  // S has retired; P V may still run
+      fence_acc(sc);
+      uint32_t pn[NP];
+      float alpha[2];
+      softmax(sc, lo + it, full_tile, pn, alpha);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_regs(pa);  // P V read pa until here
+      if (t == 0) mbar_arrive(&empty[prev]);
+      if (tid == 128 && it - 1 + STAGES < n) {  // warpgroup 1 runs second: refill
+        mbar_wait(&empty[prev], prev_ph);
+        load(it - 1 + STAGES);
+      }
 #pragma unroll
-    for (int i = 0; i < NP; ++i) pa[i] = pn[i];
-  }
-  if (n > 0) {  // P V of the last tile (stage s)
-    fence_acc(o);
-    fence_regs(pa);
-    wgmma_fence();
-    issue_pv(s);
-    wgmma_wait<0>();
-    fence_acc(o);
-    fence_regs(pa);
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) pa[i] = pn[i];
+    }
+    if (n > 0) {  // P V of the last tile (stage s)
+      fence_acc(o);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_pv(s);
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_regs(pa);
+    }
   }
 
   float den[2], inv[2];  // max(l, 1e-30) of the thread's two rows, and 1 / it
@@ -1002,10 +1095,11 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                 const __grid_constant__ CUtensorMap map_do,
                                 const FlashArgs a) {
   using namespace wg;
-  constexpr int NB = D / 64;
-  constexpr int KV_BOX = DKV_BKV * 128;
+  using GD = Geo<D>;
+  constexpr int NB = GD::NB;
+  constexpr int KV_BOX = DKV_BKV * GD::RB;
   constexpr int KV_BYTES = NB * KV_BOX;
-  constexpr int Q_BOX = BQ * 128;
+  constexpr int Q_BOX = BQ * GD::RB;
   constexpr int Q_BYTES = NB * Q_BOX;
   constexpr int STAGE = 2 * Q_BYTES;  // Q, then dO
   static_assert(2 * 64 * (D * 2 + 16) <= STAGES * STAGE, "epilogue staging fits the ring");
@@ -1042,8 +1136,10 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t qb = smem_addr(ring + s * STAGE), dob = qb + Q_BYTES;
       const uint32_t bar = smem_addr(&full[s]);
       mbar_expect_tx(bar, STAGE);
-      for (int c = 0; c < NB; ++c) tma_4d(qb + c * Q_BOX, &map_q, bar, 64 * c, q0, h, b);
-      for (int c = 0; c < NB; ++c) tma_4d(dob + c * Q_BOX, &map_do, bar, 64 * c, q0, h, b);
+      for (int c = 0; c < NB; ++c)
+        tma_4d(qb + c * Q_BOX, &map_q, bar, GD::COLS * c, q0, h, b);
+      for (int c = 0; c < NB; ++c)
+        tma_4d(dob + c * Q_BOX, &map_do, bar, GD::COLS * c, q0, h, b);
     }
   };
   if (tid < 32) {
@@ -1057,9 +1153,9 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t bar = smem_addr(&kv_full);
       mbar_expect_tx(bar, 2 * KV_BYTES);
       for (int c = 0; c < NB; ++c)
-        tma_4d(smem_addr(ks + c * KV_BOX), &map_k, bar, 64 * c, kt * DKV_BKV, hk, b);
+        tma_4d(smem_addr(ks + c * KV_BOX), &map_k, bar, GD::COLS * c, kt * DKV_BKV, hk, b);
       for (int c = 0; c < NB; ++c)
-        tma_4d(smem_addr(vs + c * KV_BOX), &map_v, bar, 64 * c, kt * DKV_BKV, hk, b);
+        tma_4d(smem_addr(vs + c * KV_BOX), &map_v, bar, GD::COLS * c, kt * DKV_BKV, hk, b);
     }
     __syncwarp();
     for (int it = 0; it < n && it < STAGES; ++it) load(it);
@@ -1080,7 +1176,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   if (g == 1 && n > 0) bar_arrive(BAR_TURN, 256);  // warpgroup 0 takes the first turn
   mbar_wait(&kv_full, 0);
-  const uint32_t ka = smem_addr(ks) + g * 64 * 128, va = smem_addr(vs) + g * 64 * 128;
+  const uint32_t ka = smem_addr(ks) + g * 64 * GD::RB, va = smem_addr(vs) + g * 64 * GD::RB;
   for (int it = 0; it < n; ++it) {
     const int s = it % STAGES, j = lo + it;
     const bool full_tile = a.full[static_cast<int64_t>(j) * a.nk + kt] != 0;
@@ -1091,14 +1187,16 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();                // alternate, one's elementwise under the other's products
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BQ, 0, 0>::run(st, desc(ka + (kk / 4) * KV_BOX + (kk % 4) * 32, 16, ATOM),
-                           desc(qb + (kk / 4) * Q_BOX + (kk % 4) * 32, 16, ATOM),
-                           kk > 0 ? 1 : 0);
+      Wgmma<BQ, 0, 0>::run(
+          st, desc(ka + (kk / GD::KPR) * KV_BOX + (kk % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          desc(qb + (kk / GD::KPR) * Q_BOX + (kk % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          kk > 0 ? 1 : 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<BQ, 0, 0>::run(dpt, desc(va + (kk / 4) * KV_BOX + (kk % 4) * 32, 16, ATOM),
-                           desc(dob + (kk / 4) * Q_BOX + (kk % 4) * 32, 16, ATOM),
-                           kk > 0 ? 1 : 0);
+      Wgmma<BQ, 0, 0>::run(
+          dpt, desc(va + (kk / GD::KPR) * KV_BOX + (kk % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          desc(dob + (kk / GD::KPR) * Q_BOX + (kk % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          kk > 0 ? 1 : 0);
     wgmma_commit();
     bar_arrive(BAR_TURN + 1 - g, 256);
     wgmma_wait<0>();
@@ -1170,11 +1268,11 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
       WgmmaRS<D, 1>::run(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                         desc(dob + kk * 16 * 128, Q_BOX, ATOM), 1);
+                         desc(dob + kk * 16 * GD::RB, Q_BOX, GD::SBO, GD::LAYOUT), 1);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
       WgmmaRS<D, 1>::run(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                         desc(qb + kk * 16 * 128, Q_BOX, ATOM), 1);
+                         desc(qb + kk * 16 * GD::RB, Q_BOX, GD::SBO, GD::LAYOUT), 1);
     wgmma_commit();
     if (g == 0 || it + 1 < n) bar_arrive(BAR_TURN + 1 - g, 256);
     wgmma_wait<0>();
@@ -1235,10 +1333,11 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_do,
                                const FlashArgs a) {
   using namespace wg;
-  constexpr int NB = D / 64;
-  constexpr int Q_BOX = DQ_BQ * 128;
+  using GD = Geo<D>;
+  constexpr int NB = GD::NB;
+  constexpr int Q_BOX = DQ_BQ * GD::RB;
   constexpr int Q_BYTES = NB * Q_BOX;
-  constexpr int KV_BOX = BKV * 128;
+  constexpr int KV_BOX = BKV * GD::RB;
   constexpr int KV_BYTES = NB * KV_BOX;
   constexpr int STAGE = 2 * KV_BYTES;  // K, then V
   static_assert(2 * 64 * (D * 2 + 16) <= STAGES * STAGE, "epilogue staging fits the ring");
@@ -1263,8 +1362,10 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t bar = smem_addr(&full[s]);
     const int row = (lo + it) * BKV;
     mbar_expect_tx(bar, STAGE);
-    for (int c = 0; c < NB; ++c) tma_4d(kb + c * KV_BOX, &map_k, bar, 64 * c, row, hk, b);
-    for (int c = 0; c < NB; ++c) tma_4d(vb + c * KV_BOX, &map_v, bar, 64 * c, row, hk, b);
+    for (int c = 0; c < NB; ++c)
+      tma_4d(kb + c * KV_BOX, &map_k, bar, GD::COLS * c, row, hk, b);
+    for (int c = 0; c < NB; ++c)
+      tma_4d(vb + c * KV_BOX, &map_v, bar, GD::COLS * c, row, hk, b);
   };
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -1276,9 +1377,9 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t qbar = smem_addr(&q_full);
     mbar_expect_tx(qbar, 2 * Q_BYTES);
     for (int c = 0; c < NB; ++c)
-      tma_4d(smem_addr(qs + c * Q_BOX), &map_q, qbar, 64 * c, qt * DQ_BQ, h, b);
+      tma_4d(smem_addr(qs + c * Q_BOX), &map_q, qbar, GD::COLS * c, qt * DQ_BQ, h, b);
     for (int c = 0; c < NB; ++c)
-      tma_4d(smem_addr(dos + c * Q_BOX), &map_do, qbar, 64 * c, qt * DQ_BQ, h, b);
+      tma_4d(smem_addr(dos + c * Q_BOX), &map_do, qbar, GD::COLS * c, qt * DQ_BQ, h, b);
     for (int it = 0; it < n && it < STAGES; ++it) load(it);
   }
   __syncthreads();
@@ -1305,7 +1406,7 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
   if (g == 1 && n > 0) bar_arrive(BAR_TURN, 256);  // warpgroup 0 takes the first turn
   mbar_wait(&q_full, 0);
-  const uint32_t qa = smem_addr(qs) + g * 64 * 128, doa = smem_addr(dos) + g * 64 * 128;
+  const uint32_t qa = smem_addr(qs) + g * 64 * GD::RB, doa = smem_addr(dos) + g * 64 * GD::RB;
   for (int it = 0; it < n; ++it) {
     const int s = it % STAGES, j = lo + it;
     const bool full_tile = a.full[static_cast<int64_t>(qt) * a.nk + j] != 0;
@@ -1318,14 +1419,16 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();                // alternate, one's elementwise under the other's products
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
-      Wgmma<BKV, 0, 0>::run(st, desc(qa + (ks / 4) * Q_BOX + (ks % 4) * 32, 16, ATOM),
-                            desc(kb + (ks / 4) * KV_BOX + (ks % 4) * 32, 16, ATOM),
-                            ks > 0 ? 1 : 0);
+      Wgmma<BKV, 0, 0>::run(
+          st, desc(qa + (ks / GD::KPR) * Q_BOX + (ks % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          desc(kb + (ks / GD::KPR) * KV_BOX + (ks % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          ks > 0 ? 1 : 0);
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
-      Wgmma<BKV, 0, 0>::run(dpt, desc(doa + (ks / 4) * Q_BOX + (ks % 4) * 32, 16, ATOM),
-                            desc(vb + (ks / 4) * KV_BOX + (ks % 4) * 32, 16, ATOM),
-                            ks > 0 ? 1 : 0);
+      Wgmma<BKV, 0, 0>::run(
+          dpt, desc(doa + (ks / GD::KPR) * Q_BOX + (ks % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          desc(vb + (ks / GD::KPR) * KV_BOX + (ks % GD::KPR) * 32, 16, GD::SBO, GD::LAYOUT),
+          ks > 0 ? 1 : 0);
     wgmma_commit();
     bar_arrive(BAR_TURN + 1 - g, 256);
     wgmma_wait<0>();
@@ -1366,7 +1469,7 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
       WgmmaRS<D, 1>::run(dq, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                         desc(kb + kk * 16 * 128, KV_BOX, ATOM), 1);
+                         desc(kb + kk * 16 * GD::RB, KV_BOX, GD::SBO, GD::LAYOUT), 1);
     wgmma_commit();
     if (g == 0 || it + 1 < n) bar_arrive(BAR_TURN + 1 - g, 256);
     wgmma_wait<0>();
@@ -1397,7 +1500,8 @@ int64_t cdiv(int64_t x, int64_t y) { return (x + y - 1) / y; }
 
 // A 4-D tensor map over one [B, H, S, D] bf16 operand read through its
 // element strides st = (b, h, s) with a contiguous D: dims (D, S, H, B),
-// boxes of 64 columns x `rows` rows.
+// boxes of min(D, 64) columns x `rows` rows, a box row one swizzle span
+// (Geo: 128 bytes at D 64 and 128, 64 at D 32, 32 at D 16).
 int bhsd_map(CUtensorMap* map, const void* base, const int64_t* st, int64_t B, int64_t H,
              int64_t S, int D, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
@@ -1405,8 +1509,13 @@ int bhsd_map(CUtensorMap* map, const void* base, const int64_t* st, int64_t B, i
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
                                  static_cast<cuuint64_t>(st[1]) * 2,
                                  static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  return wg::bf16_map_strided(map, base, 4, dims, strides, box);
+  const int cols = D < 64 ? D : 64;
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1,
+                             1};
+  return wg::bf16_map_strided(map, base, 4, dims, strides, box, swizzle);
 }
 
 // TMA's and the epilogue's rules (the wrapper checks them too): 16-byte
@@ -1432,7 +1541,7 @@ int launch_fwd_wgmma(const FlashArgs* a, cudaStream_t stream) {
   if (err == 0) err = bhsd_map(&mk, a->k, a->sk, a->B, a->Hkv, a->S, D, FWD_BKV);
   if (err == 0) err = bhsd_map(&mv, a->v, a->sv, a->B, a->Hkv, a->S, D, FWD_BKV);
   if (err != 0) return err;
-  const auto kernel = flash_fwd_bf16_wgmma_kernel<D, STAGES, MOD>;
+  const auto kernel = flash_fwd_bf16_wgmma_kernel<D, STAGES, fwd_ctas<D, MOD>(), MOD>;
   constexpr int smem = fwd_wg_smem<D, STAGES>();
   static std::atomic<unsigned long long> ready{0};
   err = wg::allow_smem(ready, kernel, smem);
@@ -1507,28 +1616,47 @@ int launch(const FlashArgs* a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// fp32: all three functions; bf16 ("simt"): dQ alone (bf16 runs the wgmma
+// forward and dK/dV at every head dim).
 template <typename T, int D>
 int launch_simt(const FlashArgs* a, Which which, cudaStream_t s) {
   if (a->nq != cdiv(a->S, 32) || a->nk != cdiv(a->S, 32))
     return static_cast<int>(cudaErrorInvalidValue);  // a plan at other tile sizes
-  if (which == FWD) return launch<T, D, 32, FWD>(a, s);
-  if (which == DQ) return launch<T, D, 32, DQ>(a, s);
-  return launch<T, D, 32, DKV>(a, s);
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == FWD) return launch<T, D, 32, FWD>(a, s);
+    if (which == DKV) return launch<T, D, 32, DKV>(a, s);
+  } else if (which != DQ) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch<T, D, 32, DQ>(a, s);
 }
 
 template <int MOD>
-int launch_wgmma(const FlashArgs* a, Which which, bool d64, cudaStream_t s) {
-  if (which == FWD) return d64 ? launch_fwd_wgmma<64, MOD>(a, s) : launch_fwd_wgmma<128, MOD>(a, s);
-  if (which == DQ) return d64 ? launch_dq_wgmma<64, MOD>(a, s) : launch_dq_wgmma<128, MOD>(a, s);
-  return d64 ? launch_dkv_wgmma<64, MOD>(a, s) : launch_dkv_wgmma<128, MOD>(a, s);
+int launch_wgmma(const FlashArgs* a, Which which, int d, cudaStream_t s) {
+  if (which == DQ) return d == 64 ? launch_dq_wgmma<64, MOD>(a, s) : launch_dq_wgmma<128, MOD>(a, s);
+  if (which == FWD) {
+    switch (d) {
+      case 16: return launch_fwd_wgmma<16, MOD>(a, s);
+      case 32: return launch_fwd_wgmma<32, MOD>(a, s);
+      case 64: return launch_fwd_wgmma<64, MOD>(a, s);
+      default: return launch_fwd_wgmma<128, MOD>(a, s);
+    }
+  }
+  switch (d) {
+    case 16: return launch_dkv_wgmma<16, MOD>(a, s);
+    case 32: return launch_dkv_wgmma<32, MOD>(a, s);
+    case 64: return launch_dkv_wgmma<64, MOD>(a, s);
+    default: return launch_dkv_wgmma<128, MOD>(a, s);
+  }
 }
 
 // Kernel variants (the wrapper's flash_variant codes): 0 = "f32" (fp32,
 // 32-row SIMT tiles, head dims 16/32/64/128), 2 = "wgmma" (bf16 on the TMA
-// ring with wgmma, head dims 64/128; its plan must be at its own tile
-// sizes, and its operands must meet TMA's rules), 3 = "simt" (bf16
-// operands on the 32-row SIMT tiles, head dims 16/32). Any other code
-// (1 was the bf16 WMMA kernels, removed) is refused.
+// ring with wgmma: the forward and dK/dV at head dims 16/32/64/128, dQ at
+// 64/128; its plan must be at its own tile sizes, and its operands must
+// meet TMA's rules), 3 = "simt" (bf16 dQ on the 32-row SIMT tiles, head
+// dims 16/32). Any other code (1 was the bf16 WMMA kernels, removed) is
+// refused.
 enum Variant { F32 = 0, WGMMA = 2, SIMT = 3 };
 
 int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* stream) {
@@ -1553,12 +1681,12 @@ int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* s
     return (int)cudaErrorInvalidValue;
   }
   if (variant == WGMMA) {
-    if ((head_dim != 64 && head_dim != 128) || !tma_ok(a, which))
-      return (int)cudaErrorInvalidValue;
-    const bool d64 = head_dim == 64;
-    if (a->score_mod == MOD_ALIBI) return launch_wgmma<MOD_ALIBI>(a, which, d64, s);
-    if (a->score_mod == MOD_SOFTCAP) return launch_wgmma<MOD_SOFTCAP>(a, which, d64, s);
-    return launch_wgmma<MOD_NONE>(a, which, d64, s);
+    const bool wide = head_dim == 64 || head_dim == 128;
+    const bool narrow = (head_dim == 16 || head_dim == 32) && which != DQ;
+    if (!(wide || narrow) || !tma_ok(a, which)) return (int)cudaErrorInvalidValue;
+    if (a->score_mod == MOD_ALIBI) return launch_wgmma<MOD_ALIBI>(a, which, head_dim, s);
+    if (a->score_mod == MOD_SOFTCAP) return launch_wgmma<MOD_SOFTCAP>(a, which, head_dim, s);
+    return launch_wgmma<MOD_NONE>(a, which, head_dim, s);
   }
   return (int)cudaErrorInvalidValue;
 }

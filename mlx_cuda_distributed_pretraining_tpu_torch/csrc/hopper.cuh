@@ -1,8 +1,9 @@
 // Hopper (sm_90a) machinery shared by csrc/grouped_matmul.cu (gmm, tgmm)
-// and csrc/flash_attention.cu (the flash kernels): TMA boxes with 128-byte
-// swizzle, full/empty mbarriers, shared-memory wgmma descriptors, wgmma with
-// both operands in shared memory (SS) or A in registers (RS), and, on the
-// host, tensor maps encoded through the driver entry point (no -lcuda).
+// and csrc/flash_attention.cu (the flash kernels): swizzled TMA boxes (128
+// bytes by default; 64 and 32 for rows that narrow), full/empty mbarriers,
+// shared-memory wgmma descriptors, wgmma with both operands in shared memory
+// (SS) or A in registers (RS), and, on the host, tensor maps encoded through
+// the driver entry point (no -lcuda).
 // Header only; each source includes it and builds on its own.
 #pragma once
 
@@ -17,9 +18,12 @@
 // Machinery shared by gmm_bf16_wgmma_kernel, tgmm_bf16_wgmma_kernel and the
 // flash kernels:
 // 128-byte-swizzled TMA boxes of 64 x 64 bf16 (one swizzle row is 64
-// elements), full/empty mbarriers around a ring of stages in dynamic shared
-// memory, and warpgroup wgmma.mma_async reading both operands from shared
-// memory through descriptors, with fp32 accumulators in registers.
+// elements; the flash kernels at head dims 16 and 32 take boxes one row of
+// D wide on 32- and 64-byte swizzles), full/empty mbarriers around a ring
+// of stages in dynamic shared memory (every stage on a 1 KB boundary, which
+// serves all three swizzles), and warpgroup wgmma.mma_async reading both
+// operands from shared memory through descriptors, with fp32 accumulators
+// in registers.
 namespace wg {
 
 constexpr int BK = 64;                      // reduction elements per stage
@@ -101,17 +105,25 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
 }
 
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (in 16-byte units), layout B128.
-// K-major (rows of 64 reduction elements): SBO = one atom between 8-row
-// groups, LBO unused; a k16 step adds 32 bytes to the start. MN-major
-// (rows of 64 M or N elements, one row per reduction index): SBO = one atom
-// between groups of 8 reduction rows, LBO = the distance between 64-wide
-// boxes along M or N; a k16 step adds 16 rows (2 KB).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma descriptor layouts (bits 62-63) of a swizzled operand, by the bytes
+// of one swizzled row: the same span as the TMA box's swizzle mode.
+constexpr uint32_t LAYOUT_B128 = 1, LAYOUT_B64 = 2, LAYOUT_B32 = 3;
+
+// A wgmma shared-memory descriptor for a swizzled operand: start address,
+// leading and stride byte offsets (in 16-byte units), the layout (128-byte
+// swizzle unless given). With rows of R swizzled bytes (128, 64 or 32) the
+// swizzle atom is 8 rows, 8 R bytes. K-major (rows of R / 2 reduction
+// elements): SBO = one atom between 8-row groups, LBO unused; a k16 step
+// adds 32 bytes to the start within the row. MN-major (rows of R / 2 M or N
+// elements, one row per reduction index): SBO = one atom between groups of
+// 8 reduction rows, LBO = the distance between boxes along M or N (unused
+// when M or N is one row wide); a k16 step adds 16 rows (16 R bytes).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint32_t layout = LAYOUT_B128) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -322,6 +334,39 @@ template <int N, int TB>
 struct WgmmaRS;
 
 template <int TB>
+struct WgmmaRS<16, TB> {
+  __device__ __forceinline__ static void run(float (&d)[8], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<32, TB> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <int TB>
 struct WgmmaRS<64, TB> {
   __device__ __forceinline__ static void run(float (&d)[32], uint32_t a0, uint32_t a1,
                                              uint32_t a2, uint32_t a3, uint64_t db,
@@ -398,17 +443,19 @@ inline EncodeTiled encode_tiled() {
 // A tensor map over a bf16 array of rank 1 to 5 with a contiguous innermost
 // dimension: dims[i] elements along dimension i (innermost first),
 // strides[i] bytes between neighbours along dimension i + 1 (multiples of
-// 16, any order), boxes of box[i], 128-byte swizzle, zeros out of bounds.
-// Returns a cudaError_t.
+// 16, any order), boxes of box[i], the swizzle given (128 bytes unless
+// given; a box row may not be wider than the swizzle span), zeros out of
+// bounds. Returns a cudaError_t.
 inline int bf16_map_strided(CUtensorMap* map, const void* base, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+                            const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,9 +21,11 @@ CPU tensors go to the plain versions; CUDA tensors launch the kernels, and
 a dtype, head dim, layout or mask the kernels do not take raises. No build
 or launch error falls back. Each function has several kernels
 ("variants"); :func:`flash_variant` picks one before launch: "wgmma" (TMA
-ring feeding wgmma, scores, P and dS in registers) for bf16 at head dims 64
-and 128, "simt" (SIMT tiles, bf16 operands, fp32 sums) for bf16 at head
-dims 16 and 32, "f32" (SIMT) for fp32 at any of the four. Each wrapper
+ring feeding wgmma, scores, P and dS in registers) for bf16 at the head
+dims of :data:`WGMMA_HEAD_DIMS` (the forward and dK/dV at 16, 32, 64 and
+128, dQ at 64 and 128), "simt" (SIMT tiles, bf16 operands, fp32 sums) for
+bf16 dQ at head dims 16 and 32, "f32" (SIMT) for fp32 at any of the four.
+Each wrapper
 counts its launches in ``<fn>.launches``, per variant in
 ``<fn>.launches_by_variant`` and per score mod in ``<fn>.launches_by_mod``
 (:func:`reset_launches` zeroes all three).
@@ -81,8 +83,11 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_VARIANTS = ("wgmma", "simt", "f32")
 _VARIANT_CODES = {"f32": 0, "wgmma": 2, "simt": 3}  # csrc/flash_attention.cu's Variant
 _HEAD_DIMS = (16, 32, 64, 128)
-_WGMMA_HEAD_DIMS = (64, 128)
-_DKV_BQ = {64: 128, 128: 64}  # DKV_BQ_D64 / _D128 in csrc/flash_attention.cu
+# The head dims each function's bf16 wgmma kernel takes (csrc/flash_attention.cu's
+# dispatch); bf16 at the others runs "simt".
+WGMMA_HEAD_DIMS = {"flash_fwd": (16, 32, 64, 128), "flash_bwd_dq": (64, 128),
+                   "flash_bwd_dkv": (16, 32, 64, 128)}
+_DKV_BQ = {16: 128, 32: 128, 64: 128, 128: 64}  # DKV_BQ_D* in csrc/flash_attention.cu
 _DQ_BKV = {64: 128, 128: 64}  # DQ_BKV_D64 / _D128 in csrc/flash_attention.cu
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
 
@@ -99,8 +104,9 @@ def check_matmul_precision(precision: Optional[str]) -> Optional[str]:
 
 def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call of ``fn`` ("flash_fwd", "flash_bwd_dq" or
-    "flash_bwd_dkv") launches: "wgmma" for bf16 at head dims 64 and 128,
-    "simt" for bf16 at other head dims, "f32" for fp32. TMA's 16-byte
+    "flash_bwd_dkv") launches: "wgmma" for bf16 at the head dims
+    ``WGMMA_HEAD_DIMS[fn]``, "simt" for bf16 at the others (dQ at 16 and
+    32), "f32" for fp32. TMA's 16-byte
     alignment and the head dim need no check here: :func:`_check` refuses
     operands the kernels do not take before any launch."""
     if fn not in FLASH_KERNELS:
@@ -110,19 +116,19 @@ def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
         return "f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"{fn} kernel takes fp32 or bf16, got {dtype}")
-    return "wgmma" if head_dim in _WGMMA_HEAD_DIMS else "simt"
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS[fn] else "simt"
 
 
 def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
     """``(block_q, block_kv)``: the tile sizes a variant's kernel plans at
     (the tile constants in ``csrc/flash_attention.cu``, which the wgmma
     launchers check against the plan). The wgmma forward takes 128 query
-    rows per CTA against 128-row KV tiles; the wgmma dQ 128 query rows per
-    CTA against ``_DQ_BKV[head_dim]``-row KV tiles (128 at D 64, 64 at D
-    128, where dQ alone holds 64 registers a thread); the wgmma dK/dV 128 KV
-    rows per CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 64, 64
-    at D 128, where dK and dV alone hold 128 registers a thread); SIMT
-    (bf16 and fp32) 32 square."""
+    rows per CTA against 128-row KV tiles at every head dim; the wgmma dQ
+    128 query rows per CTA against ``_DQ_BKV[head_dim]``-row KV tiles (128
+    at D 64, 64 at D 128, where dQ alone holds 64 registers a thread); the
+    wgmma dK/dV 128 KV rows per CTA against ``_DKV_BQ[head_dim]``-row Q
+    tiles (128 at D 16, 32 and 64, 64 at D 128, where dK and dV alone hold
+    128 registers a thread); SIMT (bf16 and fp32) 32 square."""
     if variant == "wgmma":
         if fn == "flash_fwd":
             return (128, 128)

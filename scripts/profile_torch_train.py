@@ -2,12 +2,13 @@
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train.py
-        [--config 40m-adamw|moe-8x40m|1b-singlechip|100m-muon] [--steps 10]
-        [--per-leaf-ns] [--out profile.json]
+        [--config 40m-adamw|moe-8x40m|1b-singlechip|100m-muon|1m-adamw|1m-flex]
+        [--steps 10] [--per-leaf-ns] [--root DIR] [--out profile.json]
 
 Builds configs/model-config-40m-adamw.yaml (the default),
-configs/model-config-moe-8x40m.yaml, configs/model-config-1b-singlechip.yaml
-or configs/model-config-100m-muon.yaml at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
+configs/model-config-moe-8x40m.yaml, configs/model-config-1b-singlechip.yaml,
+configs/model-config-100m-muon.yaml, configs/models/model-config-1m-adamw.yaml
+or configs/model-config-1m-flex.yaml at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
 heads of 64, 1024 positions, batch 32, bf16 compute over fp32 masters,
 flash attention, AdamW with clip 1.0; the MoE config's 8 experts top-2
 with its router losses, on one GPU, without its expert-parallel mesh. 1B:
@@ -18,8 +19,13 @@ update clipping 1.0 and gradient clip 1.0. 100m-muon: hidden 768,
 intermediate 2048, 12 layers, 12 heads of 64, 1024 positions, batch 32,
 flash attention, Muon with Nesterov, 5 Newton-Schulz steps and AdamW at
 0.015 x the LR for the vectors; ``--per-leaf-ns`` orthogonalizes each
-matrix alone, as the JAX update does, instead of in same-shape batches)
-with seeded random weights and seeded random byte tokens, then:
+matrix alone, as the JAX update does, instead of in same-shape batches.
+1m-adamw: hidden 128, intermediate 512, 6 layers, 4 heads of 32 over 2 KV
+heads, 512 positions, batch 16, flash attention, AdamW. 1m-flex: hidden 96,
+intermediate 256, 4 layers, 6 heads of 16, 512 positions, batch 16, flex
+attention with a 128-token sliding window and ALiBi, Muon at 0.03 x the LR
+for the vectors) with seeded random weights and seeded random byte tokens,
+then:
 
 - step: wall time per train step (``make_train_step``; host clock around
   steps that end in a synchronise);
@@ -31,8 +37,10 @@ with seeded random weights and seeded random byte tokens, then:
   step's kernels split into gmm, tgmm, the dispatch's gathers, scatters and
   sort, and the rest.
 
-Prints one JSON object (also written to ``--out`` when given) with the
-card's name and power limit beside the numbers. Needs CUDA; imports nothing
+``--root`` imports the port from another checkout (its kernels built
+there), to compare two trees in turns on one card. Prints one JSON object
+(also written to ``--out`` when given) with the card's name and power
+limit beside the numbers. Needs CUDA; imports nothing
 of JAX.
 """
 
@@ -44,7 +52,7 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # configs/model-config-40m-adamw.yaml, the sections the step reads.
 CONFIG_40M = {
@@ -114,8 +122,46 @@ CONFIG_100M_MUON = {
                                   "ns_steps": 5, "adamw_lr_ratio": 0.015}},
     "system": {"seed": 42, "mixed_precision": True},
 }
+# configs/models/model-config-1m-adamw.yaml, the sections the step reads.
+CONFIG_1M_ADAMW = {
+    "name": "1m-adamw",
+    "data": {"preprocessing": {"max_context_size": 512}},
+    "model": {"dimensions": {"hidden_size": 128, "intermediate_size": 512, "num_layers": 6},
+              "attention": {"num_heads": 4, "num_kv_heads": 2, "head_dim": 32,
+                            "max_position_embeddings": 512, "attention_type": "flash"},
+              "normalization": {"rms_norm_eps": 1.0e-5},
+              "rope": {"theta": 10000, "traditional": False},
+              "misc": {"tie_word_embeddings": True}},
+    "training": {"hyperparameters": {"batch_size": 16, "learning_rate": 3.0e-3,
+                                     "weight_decay": 0.01, "gradient_clip": 1.0,
+                                     "iters": 2000},
+                 "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 100,
+                               "min_lr_ratio": 0.05},
+                 "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
+    "system": {"seed": 42, "mixed_precision": True},
+}
+# configs/model-config-1m-flex.yaml, the sections the step reads.
+CONFIG_1M_FLEX = {
+    "name": "1m-flex",
+    "data": {"preprocessing": {"max_context_size": 512}},
+    "model": {"dimensions": {"hidden_size": 96, "intermediate_size": 256, "num_layers": 4},
+              "attention": {"num_heads": 6, "num_kv_heads": 6, "head_dim": 16,
+                            "max_position_embeddings": 512, "use_flex_attention": True,
+                            "mask_type": "sliding_window", "window_size": 128,
+                            "score_mod": "alibi"},
+              "normalization": {"rms_norm_eps": 1.0e-5},
+              "rope": {"theta": 10000, "traditional": False},
+              "misc": {"tie_word_embeddings": True}},
+    "training": {"hyperparameters": {"batch_size": 16, "learning_rate": 1.0e-2,
+                                     "weight_decay": 0.01, "gradient_clip": 1.0,
+                                     "iters": 5000},
+                 "scheduler": {"type": "cosine", "min_lr_ratio": 0.05},
+                 "optimization": {"optimizer": "muon", "adamw_lr_ratio": 0.03}},
+    "system": {"seed": 42, "mixed_precision": True},
+}
 CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B,
-           "100m-muon": CONFIG_100M_MUON}
+           "100m-muon": CONFIG_100M_MUON, "1m-adamw": CONFIG_1M_ADAMW,
+           "1m-flex": CONFIG_1M_FLEX}
 VOCAB = 259
 
 
@@ -132,6 +178,16 @@ def family(name: str) -> str:
 
 
 def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", choices=sorted(CONFIGS), default="40m-adamw")
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--per-leaf-ns", action="store_true",
+                   help="Muon: orthogonalize each matrix alone (the JAX order)")
+    p.add_argument("--root", default=HERE,
+                   help="the checkout whose port (and kernels) to profile")
+    p.add_argument("--out", help="also write the JSON object here")
+    a = p.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(a.root))
     import torch
 
     from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
@@ -149,13 +205,6 @@ def main(argv=None) -> int:
         tree_map,
     )
 
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", choices=sorted(CONFIGS), default="40m-adamw")
-    p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--per-leaf-ns", action="store_true",
-                   help="Muon: orthogonalize each matrix alone (the JAX order)")
-    p.add_argument("--out", help="also write the JSON object here")
-    a = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -248,8 +297,9 @@ def main(argv=None) -> int:
 
     out = {
         "card": card,
+        "root": os.path.dirname(os.path.dirname(os.path.dirname(llama.__file__))),
         "config": f"{a.config}, B {cfg.training.batch_size}, S {seq}, bf16 over fp32, "
-                  f"flash attention, remat {cfg.system.remat}, "
+                  f"{args.attention_type} attention, remat {cfg.system.remat}, "
                   f"{cfg.training.optimizer_name}"
                   + (" (NS per leaf)" if a.per_leaf_ns else ""),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,

@@ -25,9 +25,12 @@ tree's ``build/kernels/``. The shapes:
   (x [T, 512], dy [T, 1536]), down (x [T, 1536], dy [T, 512]) and gate/up
   with one expert holding half the selections;
 - flash dQ and dK/dV at B 32, H 8, S 1024, D 64, bf16, causal;
-- ``--shapes flash`` alone: the flash forward, dQ and dK/dV (wgmma, no
-  score mod) at B 32, H 8, S 1024, D 64 and at the 1B's B 8, H 16, S 2048,
-  D 128, bf16, causal.
+- ``--shapes flash`` alone: the flash forward, dQ and dK/dV, bf16, at B
+  32, H 8, S 1024, D 64 and at the 1B's B 8, H 16, S 2048, D 128, causal,
+  no score mod; at the 1M configs' B 16, H 4 over 2 KV heads, S 512, D 32,
+  causal; and at 1m-flex's B 16, H 6, S 512, D 16, sliding window 128
+  with ALiBi over 6 heads. Each kernel runs the variant its tree's
+  ``flash_variant`` picks (the JSON's ``variants`` counts them).
 
 Each time is the mean over ``--reps`` back-to-back launches between CUDA
 events, after warm-up. To compare a change with its parent, unpack the
@@ -139,10 +142,13 @@ def main() -> int:
     if opts.shapes == "serve":
         return report(out, gm, fa, opts)
     if opts.shapes == "flash":
-        for tag, (B, H, S, D) in (("d64", (32, 8, 1024, 64)), ("d128", (8, 16, 2048, 128))):
-            q, k, v, do = (torch.randn(B, S, H, D, generator=g).to("cuda", torch.bfloat16)
-                           .transpose(1, 2) for _ in range(4))
-            kw = dict(mask_type="causal", scale=D ** -0.5)
+        flex = dict(mask_type="sliding_window", window=128, score_mod="alibi", score_arg=6.0)
+        for tag, (B, Hq, Hkv, S, D), mods in (
+                ("d64", (32, 8, 8, 1024, 64), {}), ("d128", (8, 16, 16, 2048, 128), {}),
+                ("1m", (16, 4, 2, 512, 32), {}), ("1m_flex", (16, 6, 6, 512, 16), flex)):
+            q, k, v, do = (torch.randn(B, S, h, D, generator=g).to("cuda", torch.bfloat16)
+                           .transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
+            kw = {"mask_type": "causal", "scale": D ** -0.5, **mods}
             o, lse = fa.flash_fwd(q, k, v, **kw)
             delta = (do.float() * o.float()).sum(-1).contiguous()
             out["ms"][f"flash_fwd_{tag}"] = device_ms(
@@ -179,7 +185,7 @@ def report(out, gm, fa, opts) -> int:
     out["variants"] = {"gmm": dict(gm.gmm.launches_by_variant),
                        "tgmm": dict(gm.tgmm.launches_by_variant),
                        **{n: dict(getattr(fa, n).launches_by_variant)
-                          for n in ("flash_bwd_dq", "flash_bwd_dkv")}}
+                          for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
     line = json.dumps(out)
     print(line, flush=True)
     if opts.out:

@@ -243,12 +243,15 @@ def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
-    # bf16 takes the TMA/wgmma kernels (dQ too) at D 64 and 128 and the
-    # bf16 SIMT ones at D 16 and 32, fp32 the fp32 SIMT ones; each variant
-    # plans at its own tiles.
+    # bf16 takes the TMA/wgmma kernels: the forward and dK/dV at every head
+    # dim, dQ at D 64 and 128 (the bf16 SIMT dQ at D 16 and 32); fp32 the
+    # fp32 SIMT ones; each variant plans at its own tiles.
     got = tf.flash_variant(fn, getattr(torch, dtype), head_dim)
-    want = "f32" if dtype == "float32" else "wgmma" if head_dim >= 64 else "simt"
+    want = ("f32" if dtype == "float32"
+            else "simt" if fn == "flash_bwd_dq" and head_dim < 64 else "wgmma")
     assert got == want
+    assert tf.WGMMA_HEAD_DIMS == {"flash_fwd": (16, 32, 64, 128), "flash_bwd_dq": (64, 128),
+                                  "flash_bwd_dkv": (16, 32, 64, 128)}
     assert tf.kernel_tiles(fn, got, head_dim) == {
         ("flash_fwd", "wgmma"): (128, 128),
         ("flash_bwd_dq", "wgmma"): (128, tf._DQ_BKV.get(head_dim)),
@@ -274,9 +277,10 @@ def test_kernel_tiles_match_the_cuda_source():
     src = tf._SRC.read_text()
     const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert tf.kernel_tiles("flash_fwd", "wgmma") == (const["FWD_BQ"], const["FWD_BKV"])
-    for d in (64, 128):
+    for d in tf.WGMMA_HEAD_DIMS["flash_bwd_dq"]:
         assert tf.kernel_tiles("flash_bwd_dq", "wgmma", d) == (
             const["DQ_BQ"], const[f"DQ_BKV_D{d}"])
+    for d in tf.WGMMA_HEAD_DIMS["flash_bwd_dkv"]:
         assert tf.kernel_tiles("flash_bwd_dkv", "wgmma", d) == (
             const[f"DKV_BQ_D{d}"], const["DKV_BKV"])
 
@@ -285,9 +289,10 @@ WGMMA_PLAN_TILES = [(128, 128), (128, 64), (64, 128)]
 
 
 def test_the_planner_test_covers_every_wgmma_plan():
-    # forward 128 x 128; dQ 128 x 128 (D 64) and 128 x 64 (D 128); dK/dV
-    # 128 x 128 (D 64) and 64 x 128 (D 128)
-    tiles = {tf.kernel_tiles(fn, "wgmma", d) for fn in tf.FLASH_KERNELS for d in (64, 128)}
+    # forward 128 x 128 (every head dim); dQ 128 x 128 (D 64) and 128 x 64
+    # (D 128); dK/dV 128 x 128 (D 16, 32, 64) and 64 x 128 (D 128)
+    tiles = {tf.kernel_tiles(fn, "wgmma", d) for fn in tf.FLASH_KERNELS
+             for d in tf.WGMMA_HEAD_DIMS[fn]}
     assert tiles == set(WGMMA_PLAN_TILES)
 
 
@@ -323,6 +328,33 @@ def test_plan_at_the_wgmma_tiles_matches_jax_planners(mask_type, S, bq, bkv):
         assert bool(((qr[kj, 0] <= qi) & (qi < qr[kj, 1])).all())
         for i, j in torch.nonzero(full).tolist():
             assert bool(valid[i * bq:(i + 1) * bq, j * bkv:(j + 1) * bkv].all())
+
+
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("mask_type,window", [
+    ("causal", 0), ("sliding_window", 128), ("prefix_lm", 0), ("full", 0), ("band", 128)])
+@pytest.mark.parametrize("S", [127, 512, 1000])
+def test_small_head_dims_plan_at_the_wgmma_tiles(head_dim, mask_type, window, S):
+    # At D 16 and 32 the bf16 forward and dK/dV run the wgmma kernels at
+    # 128 x 128 tiles (dQ stays on the 32-square SIMT tiles), and their
+    # plans are the JAX planners' at those tiles.
+    prefix = 200
+    for fn in ("flash_fwd", "flash_bwd_dkv"):
+        variant = tf.flash_variant(fn, torch.bfloat16, head_dim)
+        bq, bkv = tf.kernel_tiles(fn, variant, head_dim)
+        assert (variant, bq, bkv) == ("wgmma", 128, 128)
+        kv, qr, full = tf._plan(mask_type, window, prefix, S, bq, torch.device("cpu"), bkv)
+        nq, nk = -(-S // bq), -(-S // bkv)
+        jlo, jhi = jf._kv_range(mask_type, window, prefix, bq, bkv, nk)
+        assert kv.tolist() == [[int(jlo(i)), int(jhi(i))] for i in range(nq)]
+        jlo, jhi = jf._q_range(mask_type, window, prefix, bq, bkv, nq)
+        assert qr.tolist() == [[int(jlo(j)), int(jhi(j))] for j in range(nk)]
+        jfull = jf._full_tile_fn(mask_type, window, prefix, bq, bkv)
+        assert full.tolist() == [[int((jfull is None or bool(jfull(i, j)))
+                                      and (i + 1) * bq <= S and (j + 1) * bkv <= S)
+                                  for j in range(nk)] for i in range(nq)]
+    assert tf.flash_variant("flash_bwd_dq", torch.bfloat16, head_dim) == "simt"
+    assert tf.kernel_tiles("flash_bwd_dq", "simt", head_dim) == (32, 32)
 
 
 def test_planted_fault_drops_one_tile_of_the_wgmma_plans():

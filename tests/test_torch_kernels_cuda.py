@@ -622,6 +622,22 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="wgmma"):
         tfa._launch("flash_bwd_dq_launch", "wgmma", q, k, v, ranges=ranges, full=full,
                     dout=do, lse_in=lse, delta=lse, out0=o, **plan_kw)
+    # at D 16 the library takes no wgmma dQ and no bf16 SIMT forward or
+    # dK/dV (the wgmma forward and dK/dV replaced them)
+    q16, k16, v16, do16 = _flash_inputs("bfloat16", 1, 4, 4, 256, 16)
+    o16 = torch.empty_like(q16)
+    ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 128, q.device)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        tfa._launch("flash_bwd_dq_launch", "wgmma", q16, k16, v16, ranges=ranges, full=full,
+                    dout=do16, lse_in=lse, delta=lse, out0=o16, **plan_kw)
+    ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 32, q.device)
+    with pytest.raises(RuntimeError, match="simt"):
+        tfa._launch("flash_fwd_launch", "simt", q16, k16, v16, ranges=ranges, full=full,
+                    out0=o16, lse_out=lse, **plan_kw)
+    with pytest.raises(RuntimeError, match="simt"):
+        tfa._launch("flash_bwd_dkv_launch", "simt", q16, k16, v16, ranges=q_ranges,
+                    full=full, dout=do16, lse_in=lse, delta=lse, out0=o16,
+                    out1=torch.empty_like(q16), **plan_kw)
     # the library no longer builds any bf16 WMMA kernel: its old code (1) is
     # refused by all three C entries
     monkeypatch.setitem(tfa._VARIANT_CODES, "wmma", 1)
@@ -642,8 +658,10 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
 
 # (dtype, B, Hq, Hkv, S, D, mask, window, prefix, mod, arg, variant): the score
 # mods (alibi over Hq heads, soft_cap at 50 or at 2, where tanh saturates) in
-# every variant, the band mask, head dims 16 and 32 on the bf16 SIMT kernels
-# and fp32, tails (S 127, 129, 1000), GQA.
+# every variant, the band mask, head dims 16 and 32 (bf16: the wgmma forward
+# and dK/dV on 32- and 64-byte swizzles, every mask, with the bf16 SIMT dQ)
+# and fp32, tails (S 127, 129, 1000), GQA. variant: the forward's and
+# dK/dV's; dQ's is flash_variant's ("simt" for bf16 at D 16 and 32).
 FLEX_CASES = [
     ("bfloat16", 2, 4, 4, 1024, 64, "causal", 0, 0, "soft_cap", 50.0, "wgmma"),
     ("bfloat16", 2, 4, 4, 1024, 64, "sliding_window", 128, 0, "alibi", 4.0, "wgmma"),
@@ -653,11 +671,17 @@ FLEX_CASES = [
     ("bfloat16", 2, 4, 4, 1000, 64, "band", 256, 0, "alibi", 4.0, "wgmma"),
     ("bfloat16", 1, 4, 4, 1000, 128, "causal", 0, 0, "soft_cap", 50.0, "wgmma"),
     ("bfloat16", 1, 4, 2, 129, 128, "sliding_window", 100, 0, "alibi", 4.0, "wgmma"),
-    ("bfloat16", 2, 6, 6, 512, 16, "sliding_window", 128, 0, "alibi", 6.0, "simt"),
-    ("bfloat16", 2, 4, 2, 512, 32, "causal", 0, 0, "none", 0.0, "simt"),
-    ("bfloat16", 2, 4, 2, 127, 32, "band", 40, 0, "soft_cap", 2.0, "simt"),
-    ("bfloat16", 1, 4, 4, 1000, 16, "prefix_lm", 0, 200, "soft_cap", 50.0, "simt"),
-    ("bfloat16", 1, 4, 4, 129, 16, "full", 0, 0, "alibi", 4.0, "simt"),
+    ("bfloat16", 2, 6, 6, 512, 16, "sliding_window", 128, 0, "alibi", 6.0, "wgmma"),
+    ("bfloat16", 2, 4, 2, 512, 32, "causal", 0, 0, "none", 0.0, "wgmma"),
+    ("bfloat16", 2, 4, 2, 127, 32, "band", 40, 0, "soft_cap", 2.0, "wgmma"),
+    ("bfloat16", 1, 4, 4, 1000, 16, "prefix_lm", 0, 200, "soft_cap", 50.0, "wgmma"),
+    ("bfloat16", 1, 4, 4, 129, 16, "full", 0, 0, "alibi", 4.0, "wgmma"),
+    ("bfloat16", 2, 4, 2, 512, 16, "causal", 0, 0, "none", 0.0, "wgmma"),
+    ("bfloat16", 1, 4, 4, 127, 16, "causal", 0, 0, "soft_cap", 2.0, "wgmma"),
+    ("bfloat16", 2, 4, 2, 1000, 16, "band", 256, 0, "none", 0.0, "wgmma"),
+    ("bfloat16", 2, 4, 2, 1000, 32, "sliding_window", 100, 0, "alibi", 4.0, "wgmma"),
+    ("bfloat16", 2, 4, 2, 129, 32, "prefix_lm", 0, 100, "soft_cap", 50.0, "wgmma"),
+    ("bfloat16", 1, 4, 4, 1000, 32, "full", 0, 0, "alibi", 4.0, "wgmma"),
     ("float32", 1, 4, 2, 200, 16, "sliding_window", 64, 0, "alibi", 4.0, "f32"),
     ("float32", 1, 4, 4, 129, 32, "band", 50, 0, "soft_cap", 2.0, "f32"),
     ("float32", 1, 4, 4, 256, 64, "causal", 0, 0, "soft_cap", 50.0, "f32"),
@@ -682,8 +706,12 @@ def test_flex_flash_kernels_match_plain(cuda, dtype, B, Hq, Hkv, S, D, mask, win
     dq = tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)
     torch.cuda.synchronize()
+    want = {"flash_fwd": variant, "flash_bwd_dkv": variant,
+            "flash_bwd_dq": tfa.flash_variant("flash_bwd_dq", getattr(torch, dtype), D)}
+    if dtype == "bfloat16" and D < 64:
+        assert want["flash_bwd_dq"] == "simt"  # dQ at D 16/32 stays on the SIMT tiles
     for n in tfa.FLASH_KERNELS:
-        assert _flash_counts()[n][variant] == before[n][variant] + 1, n
+        assert _flash_counts()[n][want[n]] == before[n][want[n]] + 1, n
         assert _mod_counts()[n][mod] == before_mod[n][mod] + 1, n
     rdq = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
@@ -723,7 +751,7 @@ def test_flex_planted_fault_is_rejected(cuda, D, mask, window, mod, arg):
 @pytest.mark.cuda
 def test_flex_attention_runs_the_kernels_with_the_mod_code(cuda):
     """``flex_attention`` (alibi, sliding window, D 16, bf16) launches the
-    SIMT kernels with the alibi code, forward and backward."""
+    wgmma forward and dK/dV and the SIMT dQ with the alibi code."""
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import flex_attention as tflex
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks as tm
 
@@ -735,7 +763,8 @@ def test_flex_attention_runs_the_kernels_with_the_mod_code(cuda):
                              score_mod=tflex.alibi_score_fn(6))
     o.float().square().sum().backward()
     torch.cuda.synchronize()
+    want = {"flash_fwd": "wgmma", "flash_bwd_dq": "simt", "flash_bwd_dkv": "wgmma"}
     for n in tfa.FLASH_KERNELS:
-        assert _flash_counts()[n]["simt"] == before[n]["simt"] + 1, n
+        assert _flash_counts()[n][want[n]] == before[n][want[n]] + 1, n
         assert _mod_counts()[n]["alibi"] == before_mod[n]["alibi"] + 1, n
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
