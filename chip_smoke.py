@@ -39,12 +39,12 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    for the backward kernels) as a yardstick, with its TFLOP/s; first of
    them the 1B trainer's shape (B 8, H 16, S 2048, D 128, bf16, causal).
    Each call must run the variant ``flash_variant`` names for its kernel
-   (bf16: the wgmma kernels; at head dims 16 and 32 the wgmma forward and
-   dK/dV beside the SIMT dQ). Each output must pass ``ops/kernel_check.compare``
-   (per-element limits scaled to the output's RMS, and a normwise limit).
-   At both path shapes the kernels are launched once more with one live
-   tile left out of their plans, and the same check must reject every
-   output.
+   (bf16: the wgmma kernels at every head dim; fp32: the 3xTF32 forward
+   beside the SIMT dQ and dK/dV). Each output must pass
+   ``ops/kernel_check.compare`` (per-element limits scaled to the output's
+   RMS, and a normwise limit). At both path shapes and the three fp32
+   cases the kernels are launched once more with one live tile left out of
+   their plans, and the same check must reject every output.
 4. serve   — serves moe-8x40m at full width (12 layers, seeded random fp32
    weights) through the port's HTTP server and batch engine: 8 slots,
    max_len 1024, paged KV in 32-token blocks, prefix cache, 256-token prefill
@@ -104,21 +104,23 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    step ms, tok/s, MFU vs 989 TFLOP/s and peak memory. (b)
    configs/model-config-1m-flex.yaml at full width (flex attention,
    sliding window 128, ALiBi, 6 heads of 16, S 512, batch 16, Muon): step-1
-   parity, 30 steps, the loss falls, every forward and dK/dV launch on the
-   wgmma kernels and every dQ launch on the bf16 SIMT one, all with the
-   alibi code. (c) the 1M configs' optimizers (adamw_enhanced, lion,
-   shampoo, hybrid; sgd and adamw with ``fused: false`` as overrides of the
-   adamw one; D 32: the forward and dK/dV on wgmma, dQ on SIMT): 10 steps
+   parity, 30 steps, the loss falls, every flash launch on the wgmma
+   kernels with the alibi code. (c) the 1M configs' optimizers
+   (adamw_enhanced, lion, shampoo, hybrid; sgd and adamw with ``fused:
+   false`` as overrides of the adamw one; D 32, every flash launch on the
+   wgmma kernels): 10 steps
    each, finite losses, step-1 parity; then model-config-1m-muon.yaml with
    ``training.lr_finder: {enabled: true, num_steps: 20}``: the sweep runs,
    its suggestion is logged and adopted, and 5 steps follow with finite
    losses. Phase 3 adds the slice's kernel cases: soft_cap 50 and sliding
    128 + alibi at the 100m shape, soft_cap at the 1B shape, the 1m-flex
-   shape (D 16, alibi) and the 1M configs' (D 32, GQA): the wgmma forward
-   and dK/dV with the SIMT dQ, band 256 at D 64, the main path's shape
-   with no mod; each takes a
-   planted fault, and is timed against SDPA with a float ``attn_mask``
-   carrying the ALiBi bias and the window (soft_cap: no PyTorch call).
+   shape (D 16, alibi) and the 1M configs' (D 32, GQA) on the wgmma
+   kernels, band 256 at D 64, the main path's shape with no mod; each
+   takes a planted fault, and is timed against SDPA with a float
+   ``attn_mask`` carrying the ALiBi bias and the window (soft_cap:
+   ``flex_attention`` under ``torch.compile`` with the soft-cap
+   ``score_mod``, compiled beside the build in phase 2, its compile time
+   printed on a line of its own).
 9. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
    kernel's ms where this run timed one, each flash kernel with its
    launches by variant in the 1B run and its launches on each training
@@ -634,12 +636,20 @@ FLASH_CASES = [
     ("d128_fp32", "float32", 2, 8, 8, 1024, 128, "causal"),
 ]
 WINDOW, PREFIX = 256, 384
+FP32_CASES = ("fp32", "tail_fp32", "d128_fp32")
+# The kernels the redesigned rows replaced. They left the library, so
+# scripts/time_kernels.py times them in turns with their successors from an
+# unpacked parent tree (--root); PERF.md keeps those times.
+EARLIER = {
+    "flash_bwd_dq": "bf16 SIMT dQ (32-row tiles), timed by scripts/time_kernels.py --root",
+    "flash_fwd": "fp32 SIMT forward (32-row tiles), timed by scripts/time_kernels.py --root",
+}
 # The flex slice's cases, (name, dtype, B, Hq, Hkv, S, D, mask, extras): score
 # mods at the 100m-muon shape (B 32, H 12, S 1024, D 64) and the 1B's, the
 # 1m-flex shape (sliding 128 + alibi, D 16) and the 1M configs' (GQA 4/2, D
-# 32), where the forward and dK/dV run the wgmma kernels and dQ the bf16
-# SIMT one, the band mask, and the main path's shape with no mod. Every one
-# takes a planted fault.
+# 32), where the three kernels run wgmma on 32- and 64-byte swizzles, the
+# band mask, and the main path's shape with no mod. Every one takes a
+# planted fault.
 FLEX_CASES = [
     ("path_100m", "bfloat16", 32, 12, 12, 1024, 64, "causal", {}),
     ("flex_softcap_100m", "bfloat16", 32, 12, 12, 1024, 64, "causal",
@@ -679,14 +689,14 @@ def sdpa_calls(torch, q, k, v, do, mask, scale, window=WINDOW, prefix=PREFIX,
     """``F.scaled_dot_product_attention`` forward, and forward + backward,
     on the same inputs: a yardstick only, the port never calls it. ALiBi
     rides a float ``attn_mask`` (the bias where the mask allows, -inf
-    elsewhere); no PyTorch call computes soft_cap (None)."""
+    elsewhere); soft_cap goes to :func:`flex_calls`."""
     import torch.nn.functional as F
 
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks
 
     if mod == "soft_cap":
-        return None
+        return flex_calls(torch, q, k, v, do, mask, scale, window, prefix, arg)
     G = q.shape[1] // k.shape[1]
     if G > 1:
         k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
@@ -717,6 +727,80 @@ def sdpa_calls(torch, q, k, v, do, mask, scale, window=WINDOW, prefix=PREFIX,
         F.scaled_dot_product_attention(qg, kg, vg, **kw).backward(do)
 
     return fwd, fwd_bwd
+
+
+# The soft_cap yardstick's compiled callable, block masks and score mods,
+# made once: dynamo reuses a compiled graph only for the same callable and
+# the same score_mod and block-mask objects, so the cases find what
+# warm_flex compiled beside the build.
+_FLEX = {}
+
+
+def _flex_pieces(torch, mask, window, prefix, S, cap):
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
+
+    if "compiled" not in _FLEX:
+        _FLEX["compiled"] = torch.compile(flex_attention, dynamic=False)
+    if (mask, window, prefix, S) not in _FLEX:
+        mod = fa._mask_mod(mask, window, prefix)
+        _FLEX[(mask, window, prefix, S)] = None if mod is None else create_block_mask(
+            lambda b, h, qi, ki: mod(qi, ki), None, None, S, S, device="cuda")
+    if cap not in _FLEX:
+        def soft_cap(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap)
+        _FLEX[cap] = soft_cap
+    return _FLEX["compiled"], _FLEX[(mask, window, prefix, S)], _FLEX[cap]
+
+
+def flex_calls(torch, q, k, v, do, mask, scale, window, prefix, cap, when="at its case"):
+    """``torch.nn.attention.flex_attention.flex_attention`` under
+    ``torch.compile`` with the soft-cap ``score_mod`` (cap tanh(s / cap) of
+    the scaled score) and the mask as a block mask: forward, and forward +
+    backward, on the same inputs. A yardstick only; the port never calls
+    it. The first call of each compiles it; its seconds are printed on a
+    line of their own."""
+    compiled, block_mask, soft_cap = _flex_pieces(torch, mask, window, prefix, q.shape[2], cap)
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) if G > 1 else t for t in (k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd(_):
+        with torch.no_grad():
+            return compiled(q, k, v, score_mod=soft_cap, block_mask=block_mask, scale=scale)
+
+    def fwd_bwd(_):
+        compiled(qg, kg, vg, score_mod=soft_cap, block_mask=block_mask,
+                 scale=scale).backward(do)
+
+    secs = {}
+    for name, fn in (("forward", fwd), ("forward + backward", fwd_bwd)):
+        t0 = time.perf_counter()
+        fn(0)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    log(f"library compile ({when}): flex_attention soft_cap {cap} {mask} {tuple(q.shape)}: "
+        + ", ".join(f"{n} {t:.1f}s" for n, t in secs.items()))
+    return fwd, fwd_bwd
+
+
+def warm_flex(torch) -> None:
+    """Compile the soft_cap yardstick for every soft_cap case on inputs of
+    its shapes and layout, while nvcc builds the kernels and the card is
+    idle; a failure only leaves the compile to the case."""
+    try:
+        for name, dtype, B, Hq, Hkv, S, D, mask, extras in FLEX_CASES:
+            if extras.get("mod") != "soft_cap":
+                continue
+            q, k, v, do = (torch.randn(B, S, h, D, device="cuda", dtype=getattr(torch, dtype))
+                           .transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
+            flex_calls(torch, q, k, v, do, mask, D ** -0.5, extras.get("window", WINDOW),
+                       extras.get("prefix", PREFIX), extras["arg"], when="beside the build")
+            del q, k, v, do
+    except Exception as e:  # noqa: BLE001 (a yardstick only)
+        log(f"library compile beside the build failed: {type(e).__name__}: {str(e)[:200]}")
 
 
 def fmt_checks(checks: dict) -> str:
@@ -772,7 +856,7 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
         ok = False
         log(f"flash {name}: ran {ran} {ran_mod}, not {want_ran} with {mod}")
     fault = None
-    if name.startswith(("path", "flex", "band")):
+    if name.startswith(("path", "flex", "band")) or dtype == "float32":
         # The same check on a planted fault: one live tile left out of each
         # kernel's plan. Every output must fail it.
         with kernel_check.planted_fault():
@@ -788,17 +872,17 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
     torch.cuda.empty_cache()
 
     work = flash_work(fa, dtype, B, Hq, Hkv, S, D, mask, window, prefix)
-    lib = sdpa_calls(torch, q, k, v, do, mask, D ** -0.5, window, prefix, mod, arg)
-    if lib is None:
-        library, library_note = {}, "none: no PyTorch call computes soft_cap"
-    else:
-        try:
-            library = {"fwd": device_ms(torch, lib[0], 1, reps=10),
-                       "fwd_bwd": device_ms(torch, lib[1], 1, reps=10)}
-            library_note = "F.scaled_dot_product_attention" + (
-                " (ALiBi and the mask as a float attn_mask)" if mod == "alibi" else "")
-        except RuntimeError as e:  # a yardstick only; the port never calls it
-            library, library_note = {}, f"sdpa refused: {str(e)[:100]}"
+    try:  # a yardstick only; the port never calls it
+        lib = sdpa_calls(torch, q, k, v, do, mask, D ** -0.5, window, prefix, mod, arg)
+        library = {"fwd": device_ms(torch, lib[0], 1, reps=10),
+                   "fwd_bwd": device_ms(torch, lib[1], 1, reps=10)}
+        library_note = (
+            "flex_attention under torch.compile (soft-cap score_mod, block mask)"
+            if mod == "soft_cap" else "F.scaled_dot_product_attention" + (
+                " (ALiBi and the mask as a float attn_mask)" if mod == "alibi" else ""))
+    except Exception as e:  # noqa: BLE001 (a compile or launch refusal is reported)
+        library, library_note = {}, f"library call refused: {type(e).__name__}: {str(e)[:200]}"
+        log(f"flash {name}: {library_note}")
     torch.cuda.empty_cache()
     calls = {
         "flash_fwd": (lambda _: fa.flash_fwd(q, k, v, **kw),
@@ -1819,7 +1903,7 @@ def config_1m(tmp: str, name: str, lr: float, optimization: dict, steps: int) ->
 
 
 # bf16 at head dims 16 and 32 (1m-flex, the 1M configs): each kernel's variant
-SMALL_D_VARIANTS = {"flash_fwd": "wgmma", "flash_bwd_dq": "simt", "flash_bwd_dkv": "wgmma"}
+SMALL_D_VARIANTS = dict.fromkeys(FLASH_KERNELS, "wgmma")
 
 
 def read_mods(fa) -> dict:
@@ -1942,8 +2026,7 @@ def muon_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10, ckpt: int
 
 def flex_phase(torch, gm, fa, card, steps: int = 30):
     """1m-flex at full width through ``Trainer.train()``: every attention
-    launch with the alibi code, the forward and dK/dV on the wgmma kernels
-    (D 16), dQ on the bf16 SIMT one."""
+    launch with the alibi code, on the wgmma kernels (D 16)."""
     import tempfile
 
     from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
@@ -1992,8 +2075,8 @@ def flex_phase(torch, gm, fa, card, steps: int = 30):
 
 def optimizers_phase(torch, gm, fa, card, steps: int = 10, finder_steps: int = 20,
                      after_finder: int = 5):
-    """The 1M configs' optimizers at full width (flash at D 32: the wgmma
-    forward and dK/dV, the bf16 SIMT dQ): ``steps`` steps each with finite
+    """The 1M configs' optimizers at full width (flash at D 32 on the wgmma
+    kernels): ``steps`` steps each with finite
     losses and step-1 parity; then model-config-1m-muon.yaml with the LR
     finder on."""
     import re
@@ -2092,6 +2175,9 @@ def kernel_entry(name, source, replaces, launches, row, max_abs_err):
 
 
 def main() -> int:
+    # torch.compile's caches (the flex_attention yardstick) stay in the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(REPO, "build", "compile_cache", sub))
     import torch
 
     if not torch.cuda.is_available():
@@ -2111,8 +2197,12 @@ def main() -> int:
         f" | {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    warm = threading.Thread(target=warm_flex, args=(torch,), daemon=True)
+    warm.start()  # the soft_cap yardstick compiles while nvcc runs
     libs = cuda_build.build_libraries([gm._SRC, fa._SRC])
     log(f"build: both sources in {time.perf_counter() - t0:.1f}s")
+    warm.join(timeout=600)  # nothing else runs on the card while the phases time it
+    log(f"build: with the soft_cap yardstick's compile beside it, {time.perf_counter() - t0:.1f}s")
     failures = []
     for lib, src in zip(libs, (gm._SRC, fa._SRC)):
         secs = cuda_build.BUILD_SECONDS.get(src.name)
@@ -2209,8 +2299,8 @@ def main() -> int:
                             train_1b=b1_perf, card=card)
     # The flex slice's (kernel, variant, score mod) cases, each with its
     # launches on the path that runs it (100m-muon: wgmma, no mod; 1m-flex:
-    # the wgmma forward and dK/dV and the SIMT dQ, alibi; the 1M optimizer
-    # runs: the same variants, no mod; no path runs the others).
+    # wgmma, alibi; the 1M optimizer runs: wgmma, no mod; no path runs the
+    # others).
     flash_by_case = {c["case"]: c for c in flash_cases}
     paths = {"path_100m": ("100m_muon", muon_perf), "path_1m_flex": ("1m_flex", flex_perf),
              "path_1m": ("1m_optimizers", opt_perf)}
@@ -2231,6 +2321,22 @@ def main() -> int:
                          shape=c["shape"], path=path,
                          tflops=c["kernels"][name]["tflops"],
                          library=c["kernels"][name]["library"], card=card)
+            if name == "flash_bwd_dq" and c["shape"][4] < 64:
+                entry["earlier"] = EARLIER["flash_bwd_dq"]
+            flash_entries.append(entry)
+    # The fp32 cases: the 3xTF32 forward, the SIMT dQ and dK/dV (no path
+    # runs fp32: 0 launches).
+    for case_name in FP32_CASES:
+        c = flash_by_case[case_name]
+        for name in FLASH_KERNELS:
+            entry = kernel_entry(
+                f"{name}:f32:none:{case_name}", FLASH_SOURCE, FLASH_REPLACES[name], 0,
+                c["kernels"][name], max(c["max_abs_err"][o] for o in out_of[name]))
+            entry.update(variant="f32", score_mod="none", mask=c["mask"], shape=c["shape"],
+                         path=None, tflops=c["kernels"][name]["tflops"],
+                         library=c["kernels"][name]["library"], card=card)
+            if name == "flash_fwd":
+                entry["earlier"] = EARLIER["flash_fwd"]
             flash_entries.append(entry)
     flash_entries[-1].update(muon_100m=muon_perf, flex_1m=flex_perf, optimizers_1m=opt_perf)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + fp32_entries + flash_entries})

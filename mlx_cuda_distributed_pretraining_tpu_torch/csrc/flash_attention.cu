@@ -1,7 +1,8 @@
 // Flash attention forward, dQ and dK/dV for NVIDIA Hopper (sm_90a).
 //
 // Replaces, in mlx_cuda_distributed_pretraining_tpu/ops/flash_attention.py:
-//   flash_fwd_bf16_wgmma_kernel, flash_fwd_kernel  <- flash_fwd (Pallas body
+//   flash_fwd_bf16_wgmma_kernel, flash_fwd_f32_kernel
+//                                                   <- flash_fwd (Pallas body
 //                                                      _fwd_kernel)
 //   flash_bwd_dq_bf16_wgmma_kernel, flash_bwd_dq_kernel
 //                                                   <- flash_bwd_dq (_bwd_dq_kernel)
@@ -10,12 +11,12 @@
 //
 // Variants (the wrapper's flash_variant picks one before launch; the C
 // entries take its code):
-//   "wgmma"  bf16: the forward and dK/dV at head dims 16, 32, 64 and 128,
-//            dQ at 64 and 128: a TMA ring feeding wgmma, the scores, P and
-//            dS kept in registers (their own note below);
-//   "simt"   bf16 dQ at head dims 16 and 32: SIMT FMA tiles on bf16
-//            operands with fp32 sums (the fp32 kernels' code, T = bf16);
-//   "f32"    fp32 at head dims 16, 32, 64 and 128: SIMT FMA tiles.
+//   "wgmma"  bf16 at head dims 16, 32, 64 and 128, all three functions: a
+//            TMA ring feeding wgmma, the scores, P and dS kept in registers
+//            (their own note below);
+//   "f32"    fp32 at head dims 16, 32, 64 and 128: the forward on 3xTF32
+//            mma.sync with a cp.async ring (its own note below); dQ and
+//            dK/dV on SIMT FMA tiles.
 //
 // Each computes what its Pallas body computes (not block by block):
 //   fwd:  s = (q . k^T) * scale in fp32, through the score mod (below),
@@ -57,11 +58,11 @@
 // parameter (a runtime branch around a wgmma makes ptxas serialize them
 // all) and compute tanh branch-free from ex2.approx (tanh_exp2 below:
 // tanh.approx.f32, 2^-11 relative, failed the bf16 gate at cap 50); the
-// SIMT kernels switch on it at run time and use tanhf.
+// fp32 kernels switch on it at run time and use tanhf.
 //
-// Types: bf16 runs the wgmma forward and dK/dV at all four head dims, the
-// wgmma dQ at 64 and 128 and the SIMT dQ at 16 and 32; fp32 runs the SIMT
-// kernels (32-row tiles) at all four. Head dims are template instances.
+// Types: bf16 runs the wgmma kernels at all four head dims; fp32 runs the
+// 3xTF32 forward and the SIMT dQ and dK/dV (32-row tiles) at all four. Head
+// dims are template instances.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the
 // training path's shape B 32, H 8, S 1024, D 64, bf16, causal:
@@ -71,10 +72,10 @@
 // All three are operation-bound in principle, and beside the tensor cores
 // each pays an exp per score on the SFU (16 a clock per SM: the exps of a
 // 128 x 128 tile take as long as its two 64-deep products at peak). The
-// fp32 kernels stage tiles through shared memory and round-trip the scores
-// through it, one 4-warp CTA per tile. The wgmma kernels keep the scores in
-// registers and let one warpgroup's softmax run under the other's products
-// (note below).
+// fp32 dQ and dK/dV stage tiles through shared memory and round-trip the
+// scores through it, one 4-warp CTA per tile. The wgmma kernels and the
+// fp32 forward keep the scores in registers (notes below); the wgmma ones
+// let one warpgroup's softmax run under the other's products.
 //
 // Interface: plain C, loaded with ctypes. Each *_launch returns
 // cudaGetLastError() after the launch (0 on success); nothing synchronises.
@@ -86,15 +87,13 @@
 #include <stdint.h>
 
 #include <atomic>
-#include <type_traits>
 
 #include "hopper.cuh"  // namespace wg: TMA, mbarriers, wgmma; tensor maps
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;  // large-but-finite, as ops/masks.py
-constexpr int NTHREADS = 128;      // 4 warps per CTA
-constexpr int NWARPS = NTHREADS / 32;
+constexpr int NTHREADS = 128;      // 4 warps per CTA (the SIMT kernels)
 
 // Mask codes (the wrapper's _MASK_CODES).
 constexpr int MASK_FULL = 0;
@@ -134,28 +133,16 @@ struct FlashArgs {
 
 namespace {
 
-// The SIMT kernels' conversions (T = fp32 or bf16; sums stay fp32).
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // ALiBi's slope of query head h, 2^(-8 (h + 1) / H), in fp32 as JAX's
 // alibi_score_fn computes it.
 __device__ __forceinline__ float alibi_slope(int h, double heads) {
   return exp2f(-8.f * (static_cast<float>(h) + 1.f) / static_cast<float>(heads));
 }
 
-// The SIMT kernels' score mod of s = scale q . k (natural units): the
+// The fp32 kernels' score mod of s = scale q . k (natural units): the
 // modded score, and the mod's Jacobian in *dmod (1 unless soft_cap).
-__device__ __forceinline__ float simt_mod(int mod, float s, int64_t row, int64_t col,
-                                          float slope, float cap, float* dmod) {
+__device__ __forceinline__ float f32_mod(int mod, float s, int64_t row, int64_t col,
+                                         float slope, float cap, float* dmod) {
   if (mod == MOD_ALIBI) return s - slope * static_cast<float>(row > col ? row - col : col - row);
   if (mod == MOD_SOFTCAP) {
     const float t = tanhf(s / cap);
@@ -176,59 +163,41 @@ __device__ __forceinline__ bool allowed(int mask, int64_t row, int64_t col,
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Shared-memory leading dims: T rows padded by 16 bytes (spreads banks);
-// fp32 rows by 4 floats.
-template <typename T, int N>
-struct Ld {
-  static constexpr int value = N + 16 / (int)sizeof(T);
-};
+// Shared-memory leading dim of the SIMT tiles: fp32 rows padded by 4
+// floats (spreads banks).
 template <int N>
 struct LdF {
   static constexpr int value = N + 4;
 };
 
-// Copy rows [row0, row0 + ROWS) of a [S, D] slab (row stride `stride`
+// Copy rows [row0, row0 + ROWS) of a [S, D] fp32 slab (row stride `stride`
 // elements, contiguous D) into shared memory; rows past S are zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t stride,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t stride,
                                           int64_t row0, int64_t S) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CPR = D / VEC;
-  constexpr int LD = Ld<T, D>::value;
+  constexpr int CPR = D / 4;
+  constexpr int LD = LdF<D>::value;
   for (int i = threadIdx.x; i < ROWS * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < S) val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
   }
 }
 
-// C[M, N] (fp32, row-major, ldc) (+)= A[M, K] . B[K, N], T operands (fp32
-// or bf16) in shared memory, fp32 SIMT FMA. A_COL: A is stored transposed
-// (element (m, k) at A[k * lda + m]); B_COL: element (k, n) at B[n * ldb + k].
-template <typename T, int M, int N, int K, bool A_COL, bool B_COL, bool ACCUM>
-__device__ __forceinline__ void mm(float* C, int ldc, const T* A, int lda,
-                                   const T* B, int ldb) {
+// C[M, N] (row-major, ldc) (+)= A[M, K] . B[K, N], fp32 operands in shared
+// memory, SIMT FMA. A_COL: A is stored transposed (element (m, k) at
+// A[k * lda + m]); B_COL: element (k, n) at B[n * ldb + k].
+template <int M, int N, int K, bool A_COL, bool B_COL, bool ACCUM>
+__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
+                                   const float* B, int ldb) {
   for (int i = threadIdx.x; i < M * N; i += NTHREADS) {
     const int m = i / N, n = i % N;
     float s = ACCUM ? C[m * ldc + n] : 0.f;
 #pragma unroll 8
     for (int k = 0; k < K; ++k) {
-      const float a = to_f(A_COL ? A[k * lda + m] : A[m * lda + k]);
-      const float b = to_f(B_COL ? B[n * ldb + k] : B[k * ldb + n]);
+      const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
+      const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
       s = fmaf(a, b, s);
     }
     C[m * ldc + n] = s;
@@ -248,141 +217,29 @@ struct Carve {
 
 __host__ __device__ constexpr size_t rup(size_t b) { return (b + 127) / 128 * 128; }
 
-// ------------------------------------------------------------------- forward
-template <typename T, int D, int BM>
-constexpr size_t fwd_smem() {
-  constexpr int BN = BM;
-  return 3 * rup(sizeof(T) * BM * Ld<T, D>::value) +
-         rup(sizeof(float) * BM * LdF<BN>::value) +
-         rup(sizeof(T) * BM * Ld<T, BN>::value) +
-         rup(sizeof(float) * BM * LdF<D>::value) + 2 * rup(sizeof(float) * BM);
-}
-
-template <typename T, int D, int BM>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const FlashArgs a) {
-  constexpr int BN = BM;
-  constexpr int LDT = Ld<T, D>::value, LDS = LdF<BN>::value;
-  constexpr int LDP = Ld<T, BN>::value, LDA = LdF<D>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  T* Qs = cv.take<T>(BM * LDT);
-  T* Ks = cv.take<T>(BN * LDT);
-  T* Vs = cv.take<T>(BN * LDT);
-  float* Ss = cv.take<float>(BM * LDS);
-  T* Ps = cv.take<T>(BM * LDP);
-  float* Acc = cv.take<float>(BM * LDA);
-  float* m_s = cv.take<float>(BM);
-  float* l_s = cv.take<float>(BM);
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (int)(a.Hq / a.Hkv);
-  const int64_t S = a.S, q0 = (int64_t)qt * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale = (float)a.scale;
-  const int mask = (int)a.mask_type;
-  const int mod = (int)a.score_mod;
-  const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
-  const float cap = (float)a.score_arg;
-
-  const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk[0] + hk * a.sk[1];
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv[0] + hk * a.sv[1];
-  load_tile<T, D, BM>(Qs, qg, a.sq[2], q0, S);
-  for (int i = threadIdx.x; i < BM * LDA; i += NTHREADS) Acc[i] = 0.f;
-  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-    m_s[i] = NEG_INF;
-    l_s[i] = 0.f;
-  }
-  const int lo = a.ranges[2 * qt], hi = a.ranges[2 * qt + 1];
-  for (int j = lo; j < hi; ++j) {
-    const int64_t k0 = (int64_t)j * BN;
-    __syncthreads();  // the previous tile's readers of Ks/Vs/Ps are done
-    load_tile<T, D, BN>(Ks, kg, a.sk[2], k0, S);
-    load_tile<T, D, BN>(Vs, vg, a.sv[2], k0, S);
-    __syncthreads();
-    mm<T, BM, BN, D, false, true, false>(Ss, LDS, Qs, LDT, Ks, LDT);  // q k^T
-    __syncthreads();
-    const bool full = a.full[(int64_t)qt * a.nk + j] != 0;
-    for (int r = warp; r < BM; r += NWARPS) {  // one warp per row
-      const int64_t row = q0 + r;
-      float sv[BN / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
-        const int c = lane + 32 * t;
-        const int64_t col = k0 + c;
-        float s = Ss[r * LDS + c] * scale;
-        if (!full && (row >= S || col >= S)) {
-          s = -INFINITY;  // outside the sequence: never contributes
-        } else {
-          float dmod;
-          s = simt_mod(mod, s, row, col, slope, cap, &dmod);
-          if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
-        }
-        sv[t] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < BN / 32; ++t) {
-        const float p = expf(sv[t] - m_new);
-        sum += p;
-        Ps[r * LDP + lane + 32 * t] = from_f<T>(p);
-      }
-      sum = warp_sum(sum);
-      const float alpha = expf(m_old - m_new);
-      for (int d = lane; d < D; d += 32) Acc[r * LDA + d] *= alpha;
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = alpha * l_s[r] + sum;
-      }
-    }
-    __syncthreads();
-    mm<T, BM, D, BN, false, false, true>(Acc, LDA, Ps, LDP, Vs, LDT);  // += p v
-  }
-  __syncthreads();
-  T* og = static_cast<T*>(a.out0) + b * a.so[0] + h * a.so[1];
-  for (int i = threadIdx.x; i < BM * D; i += NTHREADS) {
-    const int r = i / D, d = i % D;
-    if (q0 + r < S)
-      og[(q0 + r) * a.so[2] + d] = from_f<T>(Acc[r * LDA + d] / fmaxf(l_s[r], 1e-30f));
-  }
-  for (int r = threadIdx.x; r < BM; r += NTHREADS)
-    if (q0 + r < S)
-      a.lse_out[((int64_t)b * a.Hq + h) * S + q0 + r] =
-          m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
-}
-
-// ------------------------------------------------------------------------ dQ
-template <typename T, int D, int BM>
+// ------------------------------------------------------------------- fp32 dQ
+template <int D, int BM>
 constexpr size_t dq_smem() {
   constexpr int BN = BM;
-  return 4 * rup(sizeof(T) * BM * Ld<T, D>::value) +
-         2 * rup(sizeof(float) * BM * LdF<BN>::value) +
-         rup(sizeof(T) * BM * Ld<T, BN>::value) +
-         rup(sizeof(float) * BM * LdF<D>::value) + 2 * rup(sizeof(float) * BM);
+  return 5 * rup(sizeof(float) * BM * LdF<D>::value) +
+         3 * rup(sizeof(float) * BM * LdF<BN>::value) + 2 * rup(sizeof(float) * BM);
 }
 
-template <typename T, int D, int BM>
+template <int D, int BM>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const FlashArgs a) {
   constexpr int BN = BM;
-  constexpr int LDT = Ld<T, D>::value, LDS = LdF<BN>::value;
-  constexpr int LDP = Ld<T, BN>::value, LDA = LdF<D>::value;
+  constexpr int LDT = LdF<D>::value, LDS = LdF<BN>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* Qs = cv.take<T>(BM * LDT);
-  T* dOs = cv.take<T>(BM * LDT);
-  T* Ks = cv.take<T>(BN * LDT);
-  T* Vs = cv.take<T>(BN * LDT);
+  float* Qs = cv.take<float>(BM * LDT);
+  float* dOs = cv.take<float>(BM * LDT);
+  float* Ks = cv.take<float>(BN * LDT);
+  float* Vs = cv.take<float>(BN * LDT);
   float* Ss = cv.take<float>(BM * LDS);
   float* dPs = cv.take<float>(BM * LDS);
-  T* dSs = cv.take<T>(BM * LDP);
-  float* Acc = cv.take<float>(BM * LDA);
+  float* dSs = cv.take<float>(BM * LDS);
+  float* Acc = cv.take<float>(BM * LDT);
   float* lse_s = cv.take<float>(BM);
   float* delta_s = cv.take<float>(BM);
 
@@ -395,28 +252,28 @@ flash_bwd_dq_kernel(const FlashArgs a) {
   const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
   const float cap = (float)a.score_arg;
 
-  const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const T* dog = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk[0] + hk * a.sk[1];
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv[0] + hk * a.sv[1];
-  load_tile<T, D, BM>(Qs, qg, a.sq[2], q0, S);
-  load_tile<T, D, BM>(dOs, dog, a.sdo[2], q0, S);
+  const float* qg = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const float* dog = static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  const float* kg = static_cast<const float*>(a.k) + b * a.sk[0] + hk * a.sk[1];
+  const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + hk * a.sv[1];
+  load_tile<D, BM>(Qs, qg, a.sq[2], q0, S);
+  load_tile<D, BM>(dOs, dog, a.sdo[2], q0, S);
   const int64_t stat0 = ((int64_t)b * a.Hq + h) * S;
   for (int r = threadIdx.x; r < BM; r += NTHREADS) {
     const bool in = q0 + r < S;
     lse_s[r] = in ? a.lse_in[stat0 + q0 + r] : 0.f;
     delta_s[r] = in ? a.delta[stat0 + q0 + r] : 0.f;
   }
-  for (int i = threadIdx.x; i < BM * LDA; i += NTHREADS) Acc[i] = 0.f;
+  for (int i = threadIdx.x; i < BM * LDT; i += NTHREADS) Acc[i] = 0.f;
   const int lo = a.ranges[2 * qt], hi = a.ranges[2 * qt + 1];
   for (int j = lo; j < hi; ++j) {
     const int64_t k0 = (int64_t)j * BN;
     __syncthreads();
-    load_tile<T, D, BN>(Ks, kg, a.sk[2], k0, S);
-    load_tile<T, D, BN>(Vs, vg, a.sv[2], k0, S);
+    load_tile<D, BN>(Ks, kg, a.sk[2], k0, S);
+    load_tile<D, BN>(Vs, vg, a.sv[2], k0, S);
     __syncthreads();
-    mm<T, BM, BN, D, false, true, false>(Ss, LDS, Qs, LDT, Ks, LDT);    // q k^T
-    mm<T, BM, BN, D, false, true, false>(dPs, LDS, dOs, LDT, Vs, LDT);  // dO v^T
+    mm<BM, BN, D, false, true, false>(Ss, LDS, Qs, LDT, Ks, LDT);    // q k^T
+    mm<BM, BN, D, false, true, false>(dPs, LDS, dOs, LDT, Vs, LDT);  // dO v^T
     __syncthreads();
     const bool full = a.full[(int64_t)qt * a.nk + j] != 0;
     for (int i = threadIdx.x; i < BM * BN; i += NTHREADS) {
@@ -427,53 +284,50 @@ flash_bwd_dq_kernel(const FlashArgs a) {
       if (!full && (row >= S || col >= S)) {
         p = 0.f;
       } else {
-        s = simt_mod(mod, s, row, col, slope, cap, &dmod);
+        s = f32_mod(mod, s, row, col, slope, cap, &dmod);
         if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
         p = expf(s - lse_s[r]);
       }
       float ds = p * (dPs[r * LDS + c] - delta_s[r]);
       if (mod == MOD_SOFTCAP) ds *= dmod;
-      dSs[r * LDP + c] = from_f<T>(ds * scale);
+      dSs[r * LDS + c] = ds * scale;
     }
     __syncthreads();
-    mm<T, BM, D, BN, false, false, true>(Acc, LDA, dSs, LDP, Ks, LDT);  // += ds k
+    mm<BM, D, BN, false, false, true>(Acc, LDT, dSs, LDS, Ks, LDT);  // += ds k
   }
   __syncthreads();
-  T* dqg = static_cast<T*>(a.out0) + b * a.s0[0] + h * a.s0[1];
+  float* dqg = static_cast<float*>(a.out0) + b * a.s0[0] + h * a.s0[1];
   for (int i = threadIdx.x; i < BM * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
-    if (q0 + r < S) dqg[(q0 + r) * a.s0[2] + d] = from_f<T>(Acc[r * LDA + d]);
+    if (q0 + r < S) dqg[(q0 + r) * a.s0[2] + d] = Acc[r * LDT + d];
   }
 }
 
-// --------------------------------------------------------------------- dK/dV
-template <typename T, int D, int BM>
+// ---------------------------------------------------------------- fp32 dK/dV
+template <int D, int BM>
 constexpr size_t dkv_smem() {
   constexpr int BN = BM;
-  return 4 * rup(sizeof(T) * BM * Ld<T, D>::value) +
-         2 * rup(sizeof(float) * BM * LdF<BN>::value) +
-         2 * rup(sizeof(T) * BM * Ld<T, BN>::value) +
-         2 * rup(sizeof(float) * BN * LdF<D>::value) + 2 * rup(sizeof(float) * BM);
+  return 6 * rup(sizeof(float) * BM * LdF<D>::value) +
+         4 * rup(sizeof(float) * BM * LdF<BN>::value) + 2 * rup(sizeof(float) * BM);
 }
 
-template <typename T, int D, int BM>
+template <int D, int BM>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const FlashArgs a) {
   constexpr int BN = BM;
-  constexpr int LDT = Ld<T, D>::value, LDS = LdF<BN>::value;
-  constexpr int LDP = Ld<T, BN>::value, LDA = LdF<D>::value;
+  constexpr int LDT = LdF<D>::value, LDS = LdF<BN>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* Ks = cv.take<T>(BN * LDT);
-  T* Vs = cv.take<T>(BN * LDT);
-  T* Qs = cv.take<T>(BM * LDT);
-  T* dOs = cv.take<T>(BM * LDT);
+  float* Ks = cv.take<float>(BN * LDT);
+  float* Vs = cv.take<float>(BN * LDT);
+  float* Qs = cv.take<float>(BM * LDT);
+  float* dOs = cv.take<float>(BM * LDT);
   float* Ss = cv.take<float>(BM * LDS);
   float* dPs = cv.take<float>(BM * LDS);
-  T* Ps = cv.take<T>(BM * LDP);
-  T* dSs = cv.take<T>(BM * LDP);
-  float* dK = cv.take<float>(BN * LDA);
-  float* dV = cv.take<float>(BN * LDA);
+  float* Ps = cv.take<float>(BM * LDS);
+  float* dSs = cv.take<float>(BM * LDS);
+  float* dK = cv.take<float>(BN * LDT);
+  float* dV = cv.take<float>(BN * LDT);
   float* lse_s = cv.take<float>(BM);
   float* delta_s = cv.take<float>(BM);
 
@@ -486,13 +340,13 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
   const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
   const float cap = (float)a.score_arg;
 
-  const T* qg = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const T* dog = static_cast<const T*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
-  const T* kg = static_cast<const T*>(a.k) + b * a.sk[0] + hk * a.sk[1];
-  const T* vg = static_cast<const T*>(a.v) + b * a.sv[0] + hk * a.sv[1];
-  load_tile<T, D, BN>(Ks, kg, a.sk[2], k0, S);
-  load_tile<T, D, BN>(Vs, vg, a.sv[2], k0, S);
-  for (int i = threadIdx.x; i < BN * LDA; i += NTHREADS) {
+  const float* qg = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const float* dog = static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
+  const float* kg = static_cast<const float*>(a.k) + b * a.sk[0] + hk * a.sk[1];
+  const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + hk * a.sv[1];
+  load_tile<D, BN>(Ks, kg, a.sk[2], k0, S);
+  load_tile<D, BN>(Vs, vg, a.sv[2], k0, S);
+  for (int i = threadIdx.x; i < BN * LDT; i += NTHREADS) {
     dK[i] = 0.f;
     dV[i] = 0.f;
   }
@@ -501,16 +355,16 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
   for (int j = lo; j < hi; ++j) {
     const int64_t q0 = (int64_t)j * BM;
     __syncthreads();
-    load_tile<T, D, BM>(Qs, qg, a.sq[2], q0, S);
-    load_tile<T, D, BM>(dOs, dog, a.sdo[2], q0, S);
+    load_tile<D, BM>(Qs, qg, a.sq[2], q0, S);
+    load_tile<D, BM>(dOs, dog, a.sdo[2], q0, S);
     for (int r = threadIdx.x; r < BM; r += NTHREADS) {
       const bool in = q0 + r < S;
       lse_s[r] = in ? a.lse_in[stat0 + q0 + r] : 0.f;
       delta_s[r] = in ? a.delta[stat0 + q0 + r] : 0.f;
     }
     __syncthreads();
-    mm<T, BM, BN, D, false, true, false>(Ss, LDS, Qs, LDT, Ks, LDT);    // q k^T
-    mm<T, BM, BN, D, false, true, false>(dPs, LDS, dOs, LDT, Vs, LDT);  // dO v^T
+    mm<BM, BN, D, false, true, false>(Ss, LDS, Qs, LDT, Ks, LDT);    // q k^T
+    mm<BM, BN, D, false, true, false>(dPs, LDS, dOs, LDT, Vs, LDT);  // dO v^T
     __syncthreads();
     const bool full = a.full[(int64_t)j * a.nk + kt] != 0;
     for (int i = threadIdx.x; i < BM * BN; i += NTHREADS) {
@@ -521,27 +375,27 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
       if (!full && (row >= S || col >= S)) {
         p = 0.f;
       } else {
-        s = simt_mod(mod, s, row, col, slope, cap, &dmod);
+        s = f32_mod(mod, s, row, col, slope, cap, &dmod);
         if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
         p = expf(s - lse_s[r]);
       }
       float ds = p * (dPs[r * LDS + c] - delta_s[r]);
       if (mod == MOD_SOFTCAP) ds *= dmod;
-      Ps[r * LDP + c] = from_f<T>(p);
-      dSs[r * LDP + c] = from_f<T>(ds * scale);
+      Ps[r * LDS + c] = p;
+      dSs[r * LDS + c] = ds * scale;
     }
     __syncthreads();
-    mm<T, BN, D, BM, true, false, true>(dV, LDA, Ps, LDP, dOs, LDT);  // += p^T dO
-    mm<T, BN, D, BM, true, false, true>(dK, LDA, dSs, LDP, Qs, LDT);  // += ds^T q
+    mm<BN, D, BM, true, false, true>(dV, LDT, Ps, LDS, dOs, LDT);  // += p^T dO
+    mm<BN, D, BM, true, false, true>(dK, LDT, dSs, LDS, Qs, LDT);  // += ds^T q
   }
   __syncthreads();
-  T* dkg = static_cast<T*>(a.out0) + b * a.s0[0] + h * a.s0[1];
-  T* dvg = static_cast<T*>(a.out1) + b * a.s1[0] + h * a.s1[1];
+  float* dkg = static_cast<float*>(a.out0) + b * a.s0[0] + h * a.s0[1];
+  float* dvg = static_cast<float*>(a.out1) + b * a.s1[0] + h * a.s1[1];
   for (int i = threadIdx.x; i < BN * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
     if (k0 + r < S) {
-      dkg[(k0 + r) * a.s0[2] + d] = from_f<T>(dK[r * LDA + d]);
-      dvg[(k0 + r) * a.s1[2] + d] = from_f<T>(dV[r * LDA + d]);
+      dkg[(k0 + r) * a.s0[2] + d] = dK[r * LDT + d];
+      dvg[(k0 + r) * a.s1[2] + d] = dV[r * LDT + d];
     }
   }
 }
@@ -577,11 +431,11 @@ flash_bwd_dkv_kernel(const FlashArgs a) {
 // fence_regs) that pin them before the batch opens; score accumulators
 // fresh per tile; and every shared-memory descriptor in uniform registers,
 // so the warpgroup index and the stage index reach them through shuffles.
-// Head dims 16 and 32 (forward and dK/dV): the same kernels on boxes one
-// row of D wide, a row one swizzle span (64 or 32 bytes), so a K-major
-// operand takes D / 16 k16 steps of 32 bytes within its row and an MN-major
-// one 16 rows a step; the score products stay m64n128k16 on 128 x 128
-// tiles, and O, dK and dV are m64n32k16 / m64n16k16 (wg::WgmmaRS<D, 1>).
+// Head dims 16 and 32: the same kernels on boxes one row of D wide, a row
+// one swizzle span (64 or 32 bytes), so a K-major operand takes D / 16 k16
+// steps of 32 bytes within its row and an MN-major one 16 rows a step; the
+// score products stay m64n128k16 on 128-row tiles, and O, dQ, dK and dV
+// are m64n32k16 / m64n16k16 (wg::WgmmaRS<D, 1>).
 // There each CTA's loop is short (at most 4 KV tiles at S 512) and its
 // accumulators 8-16 floats a thread, so the prologue and epilogue weigh:
 // the ring holds 4 stages, which at S 512 takes every tile in the prologue,
@@ -611,10 +465,17 @@ constexpr int DKV_STAGES_D16 = 4;
 constexpr int DKV_STAGES_D32 = 4;
 constexpr int DKV_STAGES_D64 = 2;
 constexpr int DKV_STAGES_D128 = 2;
-// dQ's KV rows per stage and ring depths: at D 128 dQ alone holds 64
-// registers a thread, so its KV tile is 64 rows there.
+// dQ's KV rows per stage, ring depths and CTAs an SM: at D 128 dQ alone
+// holds 64 registers a thread, so its KV tile is 64 rows there; at D 16
+// and 32, 64-row KV tiles at two CTAs an SM (S and dP of a tile in 128
+// registers) ran 2-5% under 128-row ones at one (PERF.md: the two-CTA
+// trial).
+constexpr int DQ_BKV_D16 = 64;
+constexpr int DQ_BKV_D32 = 64;
 constexpr int DQ_BKV_D64 = 128;
 constexpr int DQ_BKV_D128 = 64;
+constexpr int DQ_STAGES_D16 = 4;
+constexpr int DQ_STAGES_D32 = 4;
 constexpr int DQ_STAGES_D64 = 3;
 constexpr int DQ_STAGES_D128 = 3;
 constexpr int GROUP_HEADS = 16;  // (batch, head) pairs per group of the CTA order
@@ -641,9 +502,16 @@ constexpr int dkv_stages() {
   return by_d<D>(DKV_STAGES_D16, DKV_STAGES_D32, DKV_STAGES_D64, DKV_STAGES_D128);
 }
 template <int D>
-constexpr int dq_bkv() { return D == 64 ? DQ_BKV_D64 : DQ_BKV_D128; }
+constexpr int dq_bkv() { return by_d<D>(DQ_BKV_D16, DQ_BKV_D32, DQ_BKV_D64, DQ_BKV_D128); }
 template <int D>
-constexpr int dq_stages() { return D == 64 ? DQ_STAGES_D64 : DQ_STAGES_D128; }
+constexpr int dq_stages() {
+  return by_d<D>(DQ_STAGES_D16, DQ_STAGES_D32, DQ_STAGES_D64, DQ_STAGES_D128);
+}
+// CTAs an SM dQ is built for: two at D 16 and 32 (S and dP of a 64-row KV
+// tile fit the 128 registers two allow: 100-114, no spill), one at D 64
+// and 128, and for soft_cap, whose Jacobian spilled the two-CTA forward.
+template <int D, int MOD>
+constexpr int dq_ctas() { return D < 64 && MOD != MOD_SOFTCAP ? 2 : 1; }
 
 // How a [rows x D] bf16 operand lies in shared memory: boxes of COLS =
 // min(D, 64) columns, each box row one swizzle span of RB bytes (128, 64
@@ -1319,14 +1187,16 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 // once: no atomics, bitwise reproducible. The warpgroups take turns at the
 // tensor cores and warpgroup 1 refills the ring, as in dK/dV; the CTA order
 // is the forward's (cta_tile: heaviest Q tile first). At D 128, dQ alone
-// holds 64 registers a thread, so the KV tile is 64 rows there.
+// holds 64 registers a thread, so the KV tile is 64 rows there. At D 16 and
+// 32 (boxes one row of D wide, Geo) the accumulator is 8 or 16 floats and
+// dQ += dS K an m64n16k16 / m64n32k16 RS product, as the forward's P V.
 template <int D, int BKV, int STAGES>
 constexpr int dq_wg_smem() {
   return (2 * DQ_BQ + STAGES * 2 * BKV) * D * 2 + wg::ATOM;
 }
 
-template <int D, int BKV, int STAGES, int MOD>
-__global__ void __launch_bounds__(256, 1)
+template <int D, int BKV, int STAGES, int CTAS, int MOD>
+__global__ void __launch_bounds__(256, CTAS)
 flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_k,
                                const __grid_constant__ CUtensorMap map_v,
@@ -1492,6 +1362,281 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 S - tile0 < 64 ? S - tile0 : 64, 0, D, t, 2 + g);
 }
 
+// ========================================= fp32 forward: 3xTF32 mma.sync
+// flash_fwd_f32_kernel ("f32"): the fp32 forward. A CTA of F32_BQ / 16
+// warps owns F32_BQ query rows of one (batch, query head), 16 a warp; Q
+// comes in once and K and V tiles of BKV rows (F32_BKV_D*) flow through a
+// double-buffered ring of 16-byte cp.async copies (zeros past S), so the
+// next tile's loads are in flight while a tile's products run. Everything
+// else stays in registers: per KV tile, in mma.sync's accumulator layout
+// (lane g = lane / 4, t = lane % 4 holds rows g and g + 8 of its warp,
+// columns 2t and 2t + 1 of every n8 tile):
+//   S = Q K^T;
+//   the score mod, the mask on tiles not flagged full, the row max over
+//   the quad that holds a row, P = exp(S - m) and alpha = exp(m_old - m)
+//   (expf and logf, not ex2.approx: fp32's limit is 1e-5 x RMS);
+//   O = alpha O + P V.
+// The row sums are kept per thread and reduced over the quad once, at the
+// end: o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+// Products: mma.sync.m16n8k8 in 3xTF32 (wg::split_tf32 / mma_tf32, as
+// gmm_f32_tf32x3_kernel): each operand element is split into hi + lo tf32
+// as it leaves shared memory, and each product is lo.hi + hi.lo + hi.hi
+// with fp32 accumulators (the dropped lo.lo is ~2^-22 of it). The tensor
+// cores truncate as they accumulate, so each k-step's three products are
+// summed from zero and added into S or O with a rounded fp32 add (mma3):
+// with S summed in the mma accumulator over D / 8 k-steps (48 mma adds at
+// D 128) the output missed fp32's 1e-5 x RMS limit by 11%. wgmma is not
+// the tool here: tf32 wgmma takes B only K-major, and V in P V is
+// MN-major.
+// P needs no data movement to become the A operand of P V: the k order
+// inside an m16n8k8 step is free as long as A and B agree, so step kk
+// pairs logical k t and t + 4 with keys kk 8 + 2t and kk 8 + 2t + 1, which
+// is where the accumulator already holds them, and the V fragment reads
+// those two rows. S = Q K^T takes the same pairing over D, so each lane
+// reads its Q and K fragments as float2 (rows padded by 8 floats: every
+// 8-byte read conflict-free); V is read as scalars at rows 2t and 2t + 1
+// (rows padded by 4 floats: conflict-free).
+// The score mod is a template parameter and a tile flagged full takes one
+// test, not one per score, on 32-bit positions (Mask32): with a runtime
+// switch and 64-bit per-score tests, a timing-only copy without the
+// softmax ran 46% faster at D 64, and this form cut the kernel's time
+// there by 45%.
+// What bounds it on an H100 (fp32 accuracy at 495 / 3 TFLOP/s from the
+// tensor cores; 3.35 TB/s): at B 2, H 8, S 1024, D 128, causal, 4.3 GFLOP
+// (0.026 ms) against 34 MB (0.010 ms): operations. It runs at 8-9x that
+// (PERF.md), latency-bound at 8 warps an SM: timing-only copies without
+// two of the three TF32 passes ran 25-36% faster, without P V 10-22%; at D
+// 128, O (64 floats a thread) and the hoisted fragments fill 255
+// registers and spill. The grid runs the heaviest Q tile of a causal mask
+// first.
+constexpr int F32_BQ = 64;  // query rows per CTA (16 per warp: 4 warps)
+// KV rows per ring stage, by head dim, as timed on an H100 (PERF.md): at D
+// 128 a 64-row stage pair holds 132 KB and keeps one CTA on an SM (2x
+// slower than 32 rows); 32 rows at D 64, with three or four CTAs an SM
+// forced by __launch_bounds__, spilled and ran 5-30% slower than 64.
+constexpr int F32_BKV_D16 = 64;
+constexpr int F32_BKV_D32 = 64;
+constexpr int F32_BKV_D64 = 64;
+constexpr int F32_BKV_D128 = 32;
+
+template <int D>
+struct F32Fwd {
+  static constexpr int BKV = by_d<D>(F32_BKV_D16, F32_BKV_D32, F32_BKV_D64, F32_BKV_D128);
+  static constexpr int NTH = 2 * F32_BQ;  // a warp per 16 rows
+  static constexpr int LDQ = D + 8;       // Q and K rows: float2 reads
+  static constexpr int LDV = D + 4;       // V rows: scalar reads at rows 2t, 2t + 1
+  static constexpr int Q_EL = F32_BQ * LDQ;
+  static constexpr int K_EL = BKV * LDQ;
+  static constexpr int STAGE = K_EL + BKV * LDV;
+  static constexpr int BYTES = (Q_EL + 2 * STAGE) * 4;
+};
+
+// The fp32 forward's score mod, a template parameter (the softmax loop
+// then holds no branch on it): s = scale q . k through the mod, in natural
+// units, with f32_mod's arithmetic (tanhf for soft_cap).
+template <int MOD>
+struct ModF {
+  float scale, slope, cap;
+  __device__ __forceinline__ float operator()(float acc, int row, int col) const {
+    const float s = acc * scale;
+    if constexpr (MOD == MOD_ALIBI) {
+      const int d = row - col;
+      return s - slope * static_cast<float>(d < 0 ? -d : d);
+    } else if constexpr (MOD == MOD_SOFTCAP) {
+      return cap * tanhf(s / cap);
+    } else {
+      return s;
+    }
+  }
+};
+
+// acc += a . b for one m16n8k8 step in 3xTF32: the three products summed
+// from zero in the mma accumulator, then added into acc rounded.
+__device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  wg::mma_tf32(d, al, bh);  // the small terms first
+  wg::mma_tf32(d, ah, bl);
+  wg::mma_tf32(d, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+// Built for one CTA an SM (__launch_bounds__ minimum 1): ptxas then keeps
+// the fragments it hoists in up to 255 registers. Without the minimum it
+// aimed at more CTAs an SM (105-184 registers) and ran 1.3x slower.
+template <int D, int MOD>
+__global__ void __launch_bounds__(F32Fwd<D>::NTH, 1)
+flash_fwd_f32_kernel(const FlashArgs a) {
+  using L = F32Fwd<D>;
+  using wg::split_tf32;
+  constexpr int BKV = L::BKV;
+  constexpr int NT = BKV / 8;  // n8 tiles of a warp's scores
+  constexpr int ON = D / 8;    // n8 tiles of O
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;
+  float* ring = qs + L::Q_EL;
+
+  const int qt = static_cast<int>(a.nq) - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / static_cast<int>(a.Hq / a.Hkv);
+  const int S = static_cast<int>(a.S), q0 = qt * F32_BQ;
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const ModF<MOD> mod{static_cast<float>(a.scale),
+                      MOD == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f,
+                      static_cast<float>(a.score_arg)};
+  const Mask32 mask = mask32(a);
+
+  const float* qg = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  const float* kg = static_cast<const float*>(a.k) + b * a.sk[0] + hk * a.sk[1];
+  const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + hk * a.sv[1];
+  // rows [row0, row0 + rows) of an [S, D] slab into shared memory, 16 bytes
+  // a copy; rows past S are zero
+  const auto load_rows = [&](float* dst, int ld, const float* src, int64_t stride,
+                             int64_t row0, int rows) {
+    for (int i = tid; i < rows * (D / 4); i += L::NTH) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool in = row0 + r < S;
+      wg::cp_async<16>(dst + r * ld + c, in ? src + (row0 + r) * stride + c : src, in);
+    }
+  };
+  const int lo = a.ranges[2 * qt], n = a.ranges[2 * qt + 1] - lo;
+  const auto load_kv = [&](int it) {  // K and V of the iteration-it tile into its stage
+    float* ks = ring + (it & 1) * L::STAGE;
+    const int64_t k0 = static_cast<int64_t>(lo + it) * BKV;
+    load_rows(ks, L::LDQ, kg, a.sk[2], k0, BKV);
+    load_rows(ks + L::K_EL, L::LDV, vg, a.sv[2], k0, BKV);
+  };
+  load_rows(qs, L::LDQ, qg, a.sq[2], q0, F32_BQ);
+  if (n > 0) load_kv(0);
+  wg::cp_async_commit();
+
+  const float* qw = qs + (16 * warp + g) * L::LDQ + 2 * t;  // rows g, g + 8 of the warp
+  const int row_a = q0 + 16 * warp + g;                      // and their positions
+  float o[ON][4];
+#pragma unroll
+  for (int i = 0; i < ON; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};          // this thread's share of the running sums
+  for (int it = 0; it < n; ++it) {
+    if (it + 1 < n) load_kv(it + 1);
+    wg::cp_async_commit();
+    wg::cp_async_wait<1>();  // this tile's copies (this thread's) have landed
+    __syncthreads();         // ... everyone's
+    const float* ks = ring + (it & 1) * L::STAGE;
+    const float* vs = ks + L::K_EL;
+    const int j = lo + it;
+
+    // S = Q K^T: step kk pairs logical k t, t + 4 with columns 8 kk + 2t,
+    // 8 kk + 2t + 1 of Q and K alike (two steps unrolled at a time: fully
+    // unrolled, the hoisted fragments spilled more and ran 2-4% slower)
+    float s[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float2 x0 = *reinterpret_cast<const float2*>(qw + kk * 8);
+      const float2 x1 = *reinterpret_cast<const float2*>(qw + 8 * L::LDQ + kk * 8);
+      uint32_t ah[4], al[4];
+      split_tf32(x0.x, ah[0], al[0]);
+      split_tf32(x1.x, ah[1], al[1]);
+      split_tf32(x0.y, ah[2], al[2]);
+      split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 y = *reinterpret_cast<const float2*>(ks + (nt * 8 + g) * L::LDQ + kk * 8 +
+                                                          2 * t);
+        uint32_t bh[2], bl[2];
+        split_tf32(y.x, bh[0], bl[0]);
+        split_tf32(y.y, bh[1], bl[1]);
+        mma3(s[nt], ah, al, bh, bl);
+      }
+    }
+
+    // the online softmax of S, in place: P. A tile flagged full takes no
+    // mask and lies inside S (one test a tile, not an element).
+    const int k0 = j * BKV + 2 * t;
+    float mx[2] = {m[0], m[1]};
+    if (a.full[static_cast<int64_t>(qt) * a.nk + j] != 0) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = mod(s[nt][e], row_a + 8 * (e >> 1), k0 + nt * 8 + (e & 1));
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row_a + 8 * (e >> 1), col = k0 + nt * 8 + (e & 1);
+          const float x = mask.allowed(row, col) ? mod(s[nt][e], row, col) : NEG_INF;
+          s[nt][e] = (row < S) & (col < S) ? x : -INFINITY;  // past S: never contributes
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[nt][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[nt][e] = p;
+      }
+
+    // O = alpha O + P V: step kk of P V pairs logical k t, t + 4 with keys
+    // 8 kk + 2t, 8 kk + 2t + 1, where S's accumulator holds them
+#pragma unroll
+    for (int on = 0; on < ON; ++on)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[on][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[kk][0], ah[0], al[0]);
+      split_tf32(s[kk][2], ah[1], al[1]);
+      split_tf32(s[kk][1], ah[2], al[2]);
+      split_tf32(s[kk][3], ah[3], al[3]);
+      const float* vk = vs + (kk * 8 + 2 * t) * L::LDV + g;
+#pragma unroll
+      for (int on = 0; on < ON; ++on) {
+        uint32_t bh[2], bl[2];
+        split_tf32(vk[on * 8], bh[0], bl[0]);
+        split_tf32(vk[on * 8 + L::LDV], bh[1], bl[1]);
+        mma3(o[on], ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage: the next load may refill it
+  }
+  wg::cp_async_wait<0>();
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) den[r] = fmaxf(quad_sum(l[r]), 1e-30f);
+  float* og_ = static_cast<float*>(a.out0) + b * a.so[0] + h * a.so[1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= S) continue;
+    float* dst = og_ + row * a.so[2] + 2 * t;
+#pragma unroll
+    for (int on = 0; on < ON; ++on)
+      *reinterpret_cast<float2*>(dst + on * 8) =
+          make_float2(o[on][2 * r] / den[r], o[on][2 * r + 1] / den[r]);
+    if (t == 0) a.lse_out[(static_cast<int64_t>(b) * a.Hq + h) * S + row] = m[r] + logf(den[r]);
+  }
+}
+
 // ------------------------------------------------------------------ launchers
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
@@ -1582,7 +1727,7 @@ int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
   if (err == 0) err = bhsd_map(&mk, a->k, a->sk, a->B, a->Hkv, a->S, D, BKV);
   if (err == 0) err = bhsd_map(&mv, a->v, a->sv, a->B, a->Hkv, a->S, D, BKV);
   if (err != 0) return err;
-  const auto kernel = flash_bwd_dq_bf16_wgmma_kernel<D, BKV, STAGES, MOD>;
+  const auto kernel = flash_bwd_dq_bf16_wgmma_kernel<D, BKV, STAGES, dq_ctas<D, MOD>(), MOD>;
   constexpr int smem = dq_wg_smem<D, BKV, STAGES>();
   static std::atomic<unsigned long long> ready{0};
   err = wg::allow_smem(ready, kernel, smem);
@@ -1592,22 +1737,33 @@ int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 32-row SIMT kernels (fp32, or bf16 operands): one CTA per tile, grid
-// (tiles, Hq, B).
-template <typename T, int D, int BM, Which W>
-int launch(const FlashArgs* a, cudaStream_t stream) {
+template <int D, int MOD>
+int launch_fwd_f32(const FlashArgs* a, cudaStream_t stream) {
+  using L = F32Fwd<D>;
+  if (a->nq != cdiv(a->S, F32_BQ) || a->nk != cdiv(a->S, L::BKV) || a->S >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);  // a plan at other tile sizes
+  const auto kernel = flash_fwd_f32_kernel<D, MOD>;
+  static std::atomic<unsigned long long> ready{0};
+  const int err = wg::allow_smem(ready, kernel, L::BYTES);
+  if (err != 0) return err;
+  kernel<<<dim3(static_cast<unsigned>(a->nq), static_cast<unsigned>(a->Hq),
+                static_cast<unsigned>(a->B)),
+           L::NTH, L::BYTES, stream>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 dQ and dK/dV: one 32-row SIMT CTA per tile, grid (tiles, Hq, B).
+template <int D, Which W>
+int launch_simt(const FlashArgs* a, cudaStream_t stream) {
   const dim3 grid((unsigned)(W == DKV ? a->nk : a->nq), (unsigned)a->Hq, (unsigned)a->B);
   void (*kernel)(const FlashArgs);
   size_t bytes;
-  if constexpr (W == FWD) {
-    kernel = flash_fwd_kernel<T, D, BM>;
-    bytes = fwd_smem<T, D, BM>();
-  } else if constexpr (W == DQ) {
-    kernel = flash_bwd_dq_kernel<T, D, BM>;
-    bytes = dq_smem<T, D, BM>();
+  if constexpr (W == DQ) {
+    kernel = flash_bwd_dq_kernel<D, 32>;
+    bytes = dq_smem<D, 32>();
   } else {
-    kernel = flash_bwd_dkv_kernel<T, D, BM>;
-    bytes = dkv_smem<T, D, BM>();
+    kernel = flash_bwd_dkv_kernel<D, 32>;
+    bytes = dkv_smem<D, 32>();
   }
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1616,24 +1772,29 @@ int launch(const FlashArgs* a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// fp32: all three functions; bf16 ("simt"): dQ alone (bf16 runs the wgmma
-// forward and dK/dV at every head dim).
-template <typename T, int D>
-int launch_simt(const FlashArgs* a, Which which, cudaStream_t s) {
+// fp32: the 3xTF32 forward; dQ and dK/dV on the 32-row SIMT tiles.
+template <int D>
+int launch_f32(const FlashArgs* a, Which which, cudaStream_t s) {
+  if (which == FWD) {
+    if (a->score_mod == MOD_ALIBI) return launch_fwd_f32<D, MOD_ALIBI>(a, s);
+    if (a->score_mod == MOD_SOFTCAP) return launch_fwd_f32<D, MOD_SOFTCAP>(a, s);
+    return launch_fwd_f32<D, MOD_NONE>(a, s);
+  }
   if (a->nq != cdiv(a->S, 32) || a->nk != cdiv(a->S, 32))
     return static_cast<int>(cudaErrorInvalidValue);  // a plan at other tile sizes
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == FWD) return launch<T, D, 32, FWD>(a, s);
-    if (which == DKV) return launch<T, D, 32, DKV>(a, s);
-  } else if (which != DQ) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch<T, D, 32, DQ>(a, s);
+  return which == DQ ? launch_simt<D, DQ>(a, s) : launch_simt<D, DKV>(a, s);
 }
 
 template <int MOD>
 int launch_wgmma(const FlashArgs* a, Which which, int d, cudaStream_t s) {
-  if (which == DQ) return d == 64 ? launch_dq_wgmma<64, MOD>(a, s) : launch_dq_wgmma<128, MOD>(a, s);
+  if (which == DQ) {
+    switch (d) {
+      case 16: return launch_dq_wgmma<16, MOD>(a, s);
+      case 32: return launch_dq_wgmma<32, MOD>(a, s);
+      case 64: return launch_dq_wgmma<64, MOD>(a, s);
+      default: return launch_dq_wgmma<128, MOD>(a, s);
+    }
+  }
   if (which == FWD) {
     switch (d) {
       case 16: return launch_fwd_wgmma<16, MOD>(a, s);
@@ -1650,40 +1811,32 @@ int launch_wgmma(const FlashArgs* a, Which which, int d, cudaStream_t s) {
   }
 }
 
-// Kernel variants (the wrapper's flash_variant codes): 0 = "f32" (fp32,
-// 32-row SIMT tiles, head dims 16/32/64/128), 2 = "wgmma" (bf16 on the TMA
-// ring with wgmma: the forward and dK/dV at head dims 16/32/64/128, dQ at
-// 64/128; its plan must be at its own tile sizes, and its operands must
-// meet TMA's rules), 3 = "simt" (bf16 dQ on the 32-row SIMT tiles, head
-// dims 16/32). Any other code (1 was the bf16 WMMA kernels, removed) is
-// refused.
-enum Variant { F32 = 0, WGMMA = 2, SIMT = 3 };
+// Kernel variants (the wrapper's flash_variant codes): 0 = "f32" (fp32 at
+// head dims 16/32/64/128: the 3xTF32 forward, the 32-row SIMT dQ and
+// dK/dV), 2 = "wgmma" (bf16 on the TMA ring with wgmma, all three
+// functions at head dims 16/32/64/128; its operands must meet TMA's
+// rules). Each plan must be at its kernel's tile sizes. Any other code is
+// refused: 1 was the bf16 WMMA kernels, 3 the bf16 SIMT ones (removed).
+enum Variant { F32 = 0, WGMMA = 2 };
 
 int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->B <= 0 || a->Hq <= 0 || a->Hkv <= 0 || a->S <= 0 || a->Hq % a->Hkv ||
       a->mask_type < MASK_FULL || a->mask_type > MASK_BAND ||
       a->score_mod < MOD_NONE || a->score_mod > MOD_SOFTCAP ||
-      (a->score_mod != MOD_NONE && !(a->score_arg > 0.0)))
+      (a->score_mod != MOD_NONE && !(a->score_arg > 0.0)) ||
+      !(head_dim == 16 || head_dim == 32 || head_dim == 64 || head_dim == 128))
     return (int)cudaErrorInvalidValue;
   if (variant == F32) {
     switch (head_dim) {
-      case 16: return launch_simt<float, 16>(a, which, s);
-      case 32: return launch_simt<float, 32>(a, which, s);
-      case 64: return launch_simt<float, 64>(a, which, s);
-      case 128: return launch_simt<float, 128>(a, which, s);
-      default: return (int)cudaErrorInvalidValue;
+      case 16: return launch_f32<16>(a, which, s);
+      case 32: return launch_f32<32>(a, which, s);
+      case 64: return launch_f32<64>(a, which, s);
+      default: return launch_f32<128>(a, which, s);
     }
   }
-  if (variant == SIMT) {
-    if (head_dim == 16) return launch_simt<__nv_bfloat16, 16>(a, which, s);
-    if (head_dim == 32) return launch_simt<__nv_bfloat16, 32>(a, which, s);
-    return (int)cudaErrorInvalidValue;
-  }
   if (variant == WGMMA) {
-    const bool wide = head_dim == 64 || head_dim == 128;
-    const bool narrow = (head_dim == 16 || head_dim == 32) && which != DQ;
-    if (!(wide || narrow) || !tma_ok(a, which)) return (int)cudaErrorInvalidValue;
+    if (!tma_ok(a, which)) return (int)cudaErrorInvalidValue;
     if (a->score_mod == MOD_ALIBI) return launch_wgmma<MOD_ALIBI>(a, which, head_dim, s);
     if (a->score_mod == MOD_SOFTCAP) return launch_wgmma<MOD_SOFTCAP>(a, which, head_dim, s);
     return launch_wgmma<MOD_NONE>(a, which, head_dim, s);

@@ -119,26 +119,13 @@ __device__ __forceinline__ int expert_of_row_warp(const int* __restrict__ gs, in
   return -1;
 }
 
-// 16- or 4-byte asynchronous global -> shared copy; `in` false zero-fills the
-// destination and reads nothing (src must still be a valid address).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) {
-  const uint32_t d = wg::smem_addr(dst);
-  const int n = in ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// cp.async and the 3xTF32 pieces (hopper.cuh), shared with the fp32 flash
+// forward.
+using wg::cp_async;
+using wg::cp_async_commit;
+using wg::cp_async_wait;
+using wg::mma_tf32;
+using wg::split_tf32;
 
 // ------------------------------------------- fp32 prefill: 3xTF32 mma.sync
 // gmm_f32_tf32x3_kernel ("f32"), replacing mlx_cuda_distributed_pretraining_tpu/
@@ -205,33 +192,6 @@ constexpr int F32_STAGES = 3;   // cp.async ring depth
 constexpr int F32_FLUSH = 2;    // stages summed in the mma accumulator per flush
 constexpr int F32_BN = 32 * F32_NWARPS;             // output columns per CTA
 constexpr int F32_BK = 8 * F32_KWARPS * F32_KSTEPS;  // K per ring stage
-
-// v rounded to tf32, to nearest with ties away from zero: what
-// cvt.rna.tf32.f32 returns, with the 13 low bits cleared, from two integer
-// operations (adding half a tf32 ulp to the magnitude carries into the kept
-// bits exactly when rna rounds up); the conversion unit's cvt costs more.
-__device__ __forceinline__ uint32_t rna_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo (+ ~2^-24 |v|), both tf32: hi = rna(v), lo = rna(v - hi)
-// (v - hi is exact).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(v);
-  lo = rna_tf32(v - __uint_as_float(hi));
-}
-
-// d[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in, fp32 accumulators. Lane
-// (g = lane / 4, t = lane % 4) holds a: (g, t), (g + 8, t), (g, t + 4),
-// (g + 8, t + 4); b: (k t, n g), (k t + 4, n g); d: (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int BM, bool WT>
 struct F32Tile {

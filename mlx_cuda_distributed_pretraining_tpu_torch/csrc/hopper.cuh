@@ -2,8 +2,9 @@
 // and csrc/flash_attention.cu (the flash kernels): swizzled TMA boxes (128
 // bytes by default; 64 and 32 for rows that narrow), full/empty mbarriers,
 // shared-memory wgmma descriptors, wgmma with both operands in shared memory
-// (SS) or A in registers (RS), and, on the host, tensor maps encoded through
-// the driver entry point (no -lcuda).
+// (SS) or A in registers (RS); cp.async copies and the 3xTF32 pieces of the
+// fp32 kernels (hi/lo split, mma.sync.m16n8k8); and, on the host, tensor
+// maps encoded by cuTensorMapEncodeTiled, looked up at run time (no -lcuda).
 // Header only; each source includes it and builds on its own.
 #pragma once
 
@@ -411,6 +412,62 @@ struct WgmmaRS<128, TB> {
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
+
+}  // namespace wg
+
+// ====================================== fp32 on mma.sync: 3xTF32, cp.async
+// Shared by gmm_f32_tf32x3_kernel (csrc/grouped_matmul.cu) and the fp32
+// flash forward (csrc/flash_attention.cu): fp32-accurate products on the
+// tensor cores from three TF32 passes, fed by a cp.async ring.
+namespace wg {
+
+// 16- or 4-byte asynchronous global -> shared copy; `in` false zero-fills the
+// destination and reads nothing (src must still be a valid address).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) {
+  const uint32_t d = smem_addr(dst);
+  const int n = in ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// v rounded to tf32, to nearest with ties away from zero: what
+// cvt.rna.tf32.f32 returns, with the 13 low bits cleared, from two integer
+// operations (adding half a tf32 ulp to the magnitude carries into the kept
+// bits exactly when rna rounds up); the conversion unit's cvt costs more.
+__device__ __forceinline__ uint32_t rna_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo (+ ~2^-24 |v|), both tf32: hi = rna(v), lo = rna(v - hi)
+// (v - hi is exact).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(v);
+  lo = rna_tf32(v - __uint_as_float(hi));
+}
+
+// d[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in, fp32 accumulators. Lane
+// (g = lane / 4, t = lane % 4) holds a: (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4); b: (k t, n g), (k t + 4, n g); d: (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 }  // namespace wg
 

@@ -19,12 +19,11 @@ kind of view. ``lse`` and ``delta`` are ``[B, Hq, S]`` fp32.
 
 CPU tensors go to the plain versions; CUDA tensors launch the kernels, and
 a dtype, head dim, layout or mask the kernels do not take raises. No build
-or launch error falls back. Each function has several kernels
-("variants"); :func:`flash_variant` picks one before launch: "wgmma" (TMA
-ring feeding wgmma, scores, P and dS in registers) for bf16 at the head
-dims of :data:`WGMMA_HEAD_DIMS` (the forward and dK/dV at 16, 32, 64 and
-128, dQ at 64 and 128), "simt" (SIMT tiles, bf16 operands, fp32 sums) for
-bf16 dQ at head dims 16 and 32, "f32" (SIMT) for fp32 at any of the four.
+or launch error falls back. Each function has two kernels ("variants");
+:func:`flash_variant` picks one before launch: "wgmma" (TMA ring feeding
+wgmma, scores, P and dS in registers) for bf16 at the head dims of
+:data:`WGMMA_HEAD_DIMS` (16, 32, 64 and 128), "f32" for fp32 at any of
+the four (the forward on 3xTF32 ``mma.sync``, dQ and dK/dV on SIMT tiles).
 Each wrapper
 counts its launches in ``<fn>.launches``, per variant in
 ``<fn>.launches_by_variant`` and per score mod in ``<fn>.launches_by_mod``
@@ -80,15 +79,18 @@ _MASK_CODES = {name: i for i, name in enumerate(KERNEL_MASKS)}
 SCORE_MODS = ("none", "alibi", "soft_cap")  # csrc/flash_attention.cu's Mod
 _MOD_CODES = {name: i for i, name in enumerate(SCORE_MODS)}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-FLASH_VARIANTS = ("wgmma", "simt", "f32")
-_VARIANT_CODES = {"f32": 0, "wgmma": 2, "simt": 3}  # csrc/flash_attention.cu's Variant
+FLASH_VARIANTS = ("wgmma", "f32")
+_VARIANT_CODES = {"f32": 0, "wgmma": 2}  # csrc/flash_attention.cu's Variant
 _HEAD_DIMS = (16, 32, 64, 128)
 # The head dims each function's bf16 wgmma kernel takes (csrc/flash_attention.cu's
-# dispatch); bf16 at the others runs "simt".
-WGMMA_HEAD_DIMS = {"flash_fwd": (16, 32, 64, 128), "flash_bwd_dq": (64, 128),
+# dispatch).
+WGMMA_HEAD_DIMS = {"flash_fwd": (16, 32, 64, 128), "flash_bwd_dq": (16, 32, 64, 128),
                    "flash_bwd_dkv": (16, 32, 64, 128)}
 _DKV_BQ = {16: 128, 32: 128, 64: 128, 128: 64}  # DKV_BQ_D* in csrc/flash_attention.cu
-_DQ_BKV = {64: 128, 128: 64}  # DQ_BKV_D64 / _D128 in csrc/flash_attention.cu
+_DQ_BKV = {16: 64, 32: 64, 64: 128, 128: 64}  # DQ_BKV_D* in csrc/flash_attention.cu
+# The fp32 forward's KV rows per stage (F32_BKV_D*; F32_BQ query rows a CTA)
+_F32_BQ = 64
+_F32_BKV = {16: 64, 32: 64, 64: 64, 128: 32}
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
 
 
@@ -104,11 +106,10 @@ def check_matmul_precision(precision: Optional[str]) -> Optional[str]:
 
 def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call of ``fn`` ("flash_fwd", "flash_bwd_dq" or
-    "flash_bwd_dkv") launches: "wgmma" for bf16 at the head dims
-    ``WGMMA_HEAD_DIMS[fn]``, "simt" for bf16 at the others (dQ at 16 and
-    32), "f32" for fp32. TMA's 16-byte
-    alignment and the head dim need no check here: :func:`_check` refuses
-    operands the kernels do not take before any launch."""
+    "flash_bwd_dkv") launches: "wgmma" for bf16 (at the head dims
+    ``WGMMA_HEAD_DIMS[fn]``; another raises), "f32" for fp32. TMA's 16-byte
+    alignment needs no check here: :func:`_check` refuses operands the
+    kernels do not take before any launch."""
     if fn not in FLASH_KERNELS:
         raise ValueError(f"unknown flash kernel {fn!r} (expected one of "
                          f"{FLASH_KERNELS})")
@@ -116,7 +117,10 @@ def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
         return "f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"{fn} kernel takes fp32 or bf16, got {dtype}")
-    return "wgmma" if head_dim in WGMMA_HEAD_DIMS[fn] else "simt"
+    if head_dim not in WGMMA_HEAD_DIMS[fn]:
+        raise ValueError(f"{fn} has no bf16 kernel at head dim {head_dim} "
+                         f"(takes {WGMMA_HEAD_DIMS[fn]})")
+    return "wgmma"
 
 
 def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
@@ -124,17 +128,21 @@ def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
     (the tile constants in ``csrc/flash_attention.cu``, which the wgmma
     launchers check against the plan). The wgmma forward takes 128 query
     rows per CTA against 128-row KV tiles at every head dim; the wgmma dQ
-    128 query rows per CTA against ``_DQ_BKV[head_dim]``-row KV tiles (128
-    at D 64, 64 at D 128, where dQ alone holds 64 registers a thread); the
-    wgmma dK/dV 128 KV rows per CTA against ``_DKV_BQ[head_dim]``-row Q
-    tiles (128 at D 16, 32 and 64, 64 at D 128, where dK and dV alone hold
-    128 registers a thread); SIMT (bf16 and fp32) 32 square."""
+    128 query rows per CTA against ``_DQ_BKV[head_dim]``-row KV tiles (64
+    at D 16 and 32, at two CTAs an SM; 128 at D 64; 64 at D 128, where dQ
+    alone holds 64 registers a thread); the wgmma dK/dV 128 KV rows per
+    CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 16, 32 and 64,
+    64 at D 128, where dK and dV alone hold 128 registers a thread); the
+    fp32 forward 64 query rows per CTA against ``_F32_BKV[head_dim]``-row
+    KV tiles; the fp32 dQ and dK/dV (SIMT) 32 square."""
     if variant == "wgmma":
         if fn == "flash_fwd":
             return (128, 128)
         if fn == "flash_bwd_dq":
             return (128, _DQ_BKV[head_dim])
         return (_DKV_BQ[head_dim], 128)
+    if fn == "flash_fwd":
+        return (_F32_BQ, _F32_BKV[head_dim])
     return (32, 32)
 
 
@@ -500,7 +508,7 @@ def flash_fwd(q, k, v, mask_type: str = "causal", window: int = 512,
     _check("flash_fwd", {"q": q, "k": k, "v": v}, mask_type, score_mod, score_arg)
     B, Hq, S, D = q.shape
     kind = flash_variant("flash_fwd", q.dtype, D)
-    bq, bkv = kernel_tiles("flash_fwd", kind)
+    bq, bkv = kernel_tiles("flash_fwd", kind, D)
     kv_ranges, _, full = _plan(mask_type, window, prefix_len, S, bq, q.device, bkv)
     o = _bshd_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)

@@ -29,8 +29,10 @@ tree's ``build/kernels/``. The shapes:
   32, H 8, S 1024, D 64 and at the 1B's B 8, H 16, S 2048, D 128, causal,
   no score mod; at the 1M configs' B 16, H 4 over 2 KV heads, S 512, D 32,
   causal; and at 1m-flex's B 16, H 6, S 512, D 16, sliding window 128
-  with ALiBi over 6 heads. Each kernel runs the variant its tree's
-  ``flash_variant`` picks (the JSON's ``variants`` counts them).
+  with ALiBi over 6 heads; and fp32 at ``chip_smoke.py``'s three fp32
+  cases (B 4, H 8, S 1024, D 64; B 2, H 8 over 2 KV heads, S 1000, D 64;
+  B 2, H 8, S 1024, D 128; causal). Each kernel runs the variant its
+  tree's ``flash_variant`` picks (the JSON's ``variants`` counts them).
 
 Each time is the mean over ``--reps`` back-to-back launches between CUDA
 events, after warm-up. To compare a change with its parent, unpack the
@@ -143,10 +145,15 @@ def main() -> int:
         return report(out, gm, fa, opts)
     if opts.shapes == "flash":
         flex = dict(mask_type="sliding_window", window=128, score_mod="alibi", score_arg=6.0)
-        for tag, (B, Hq, Hkv, S, D), mods in (
-                ("d64", (32, 8, 8, 1024, 64), {}), ("d128", (8, 16, 16, 2048, 128), {}),
-                ("1m", (16, 4, 2, 512, 32), {}), ("1m_flex", (16, 6, 6, 512, 16), flex)):
-            q, k, v, do = (torch.randn(B, S, h, D, generator=g).to("cuda", torch.bfloat16)
+        bf16, fp32 = torch.bfloat16, torch.float32
+        for tag, (B, Hq, Hkv, S, D), mods, dt in (
+                ("d64", (32, 8, 8, 1024, 64), {}, bf16),
+                ("d128", (8, 16, 16, 2048, 128), {}, bf16),
+                ("1m", (16, 4, 2, 512, 32), {}, bf16), ("1m_flex", (16, 6, 6, 512, 16), flex, bf16),
+                ("f32_d64", (4, 8, 8, 1024, 64), {}, fp32),
+                ("f32_gqa", (2, 8, 2, 1000, 64), {}, fp32),
+                ("f32_d128", (2, 8, 8, 1024, 128), {}, fp32)):
+            q, k, v, do = (torch.randn(B, S, h, D, generator=g).to("cuda", dt)
                            .transpose(1, 2) for h in (Hq, Hkv, Hkv, Hq))
             kw = {"mask_type": "causal", "scale": D ** -0.5, **mods}
             o, lse = fa.flash_fwd(q, k, v, **kw)

@@ -243,23 +243,23 @@ def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
-    # bf16 takes the TMA/wgmma kernels: the forward and dK/dV at every head
-    # dim, dQ at D 64 and 128 (the bf16 SIMT dQ at D 16 and 32); fp32 the
-    # fp32 SIMT ones; each variant plans at its own tiles.
+    # bf16 takes the TMA/wgmma kernels, all three at every head dim; fp32
+    # the "f32" ones (the 3xTF32 forward, the SIMT dQ and dK/dV); each
+    # variant plans at its own tiles.
     got = tf.flash_variant(fn, getattr(torch, dtype), head_dim)
-    want = ("f32" if dtype == "float32"
-            else "simt" if fn == "flash_bwd_dq" and head_dim < 64 else "wgmma")
+    want = "f32" if dtype == "float32" else "wgmma"
     assert got == want
-    assert tf.WGMMA_HEAD_DIMS == {"flash_fwd": (16, 32, 64, 128), "flash_bwd_dq": (64, 128),
-                                  "flash_bwd_dkv": (16, 32, 64, 128)}
+    assert tf.WGMMA_HEAD_DIMS == dict.fromkeys(tf.FLASH_KERNELS, (16, 32, 64, 128))
     assert tf.kernel_tiles(fn, got, head_dim) == {
         ("flash_fwd", "wgmma"): (128, 128),
         ("flash_bwd_dq", "wgmma"): (128, tf._DQ_BKV.get(head_dim)),
         ("flash_bwd_dkv", "wgmma"): (tf._DKV_BQ.get(head_dim), 128),
+        ("flash_fwd", "f32"): (tf._F32_BQ, tf._F32_BKV.get(head_dim)),
     }.get((fn, got), (32, 32))
-    # the bf16 WMMA kernels are gone: no variant and no C entry code names them
-    assert tf.FLASH_VARIANTS == ("wgmma", "simt", "f32")
-    assert tf._VARIANT_CODES == {"f32": 0, "wgmma": 2, "simt": 3}
+    # the bf16 WMMA and SIMT kernels are gone: no variant and no C entry
+    # code names them
+    assert tf.FLASH_VARIANTS == ("wgmma", "f32")
+    assert tf._VARIANT_CODES == {"f32": 0, "wgmma": 2}
 
 
 def test_flash_variant_rejects_what_no_kernel_takes():
@@ -267,6 +267,8 @@ def test_flash_variant_rejects_what_no_kernel_takes():
         tf.flash_variant("flash_fwd", torch.float16, 64)
     with pytest.raises(ValueError, match="unknown flash kernel"):
         tf.flash_variant("flash_bwd", torch.bfloat16, 64)
+    with pytest.raises(ValueError, match="no bf16 kernel at head dim 48"):
+        tf.flash_variant("flash_bwd_dq", torch.bfloat16, 48)
 
 
 def test_kernel_tiles_match_the_cuda_source():
@@ -285,12 +287,54 @@ def test_kernel_tiles_match_the_cuda_source():
             const[f"DKV_BQ_D{d}"], const["DKV_BKV"])
 
 
+def test_dq_and_fp32_forward_tiles_match_the_cuda_source():
+    # _DQ_BKV (every head dim) and the fp32 forward's tiles are the
+    # constexprs the kernels are compiled with and check the plan against.
+    import re
+
+    src = tf._SRC.read_text()
+    const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert tf._DQ_BKV == {d: const[f"DQ_BKV_D{d}"] for d in (16, 32, 64, 128)}
+    for d in (16, 32, 64, 128):
+        assert tf.kernel_tiles("flash_fwd", "f32", d) == (const["F32_BQ"],
+                                                          const[f"F32_BKV_D{d}"])
+        assert tf.kernel_tiles("flash_bwd_dq", "f32", d) == (32, 32)
+        assert tf.kernel_tiles("flash_bwd_dkv", "f32", d) == (32, 32)
+
+
+# The tiles this slice plans at: the wgmma dQ at D 16 and 32, the fp32
+# forward at every head dim.
+NEW_PLAN_TILES = sorted({tf.kernel_tiles("flash_bwd_dq", "wgmma", d) for d in (16, 32)}
+                        | {tf.kernel_tiles("flash_fwd", "f32", d) for d in (16, 32, 64, 128)})
+
+
+@pytest.mark.parametrize("mask_type", ["causal", "sliding_window", "prefix_lm", "full", "band"])
+@pytest.mark.parametrize("S", [1, 64, 127, 1000, 1024])
+def test_plan_at_the_new_tiles_matches_jax_planners(mask_type, S):
+    # _plan at the wgmma dQ's D 16/32 tiles and the fp32 forward's: live
+    # ranges from JAX's _kv_range / _q_range, the no-mask flag from its
+    # _full_tile_fn and the tile lying inside S, windows and a prefix that
+    # are not multiples of a tile.
+    for bq, bkv in NEW_PLAN_TILES:
+        for window, prefix in ((100, 200), (300, 200)):
+            kv, qr, full = tf._plan(mask_type, window, prefix, S, bq, torch.device("cpu"), bkv)
+            nq, nk = -(-S // bq), -(-S // bkv)
+            jlo, jhi = jf._kv_range(mask_type, window, prefix, bq, bkv, nk)
+            assert kv.tolist() == [[int(jlo(i)), int(jhi(i))] for i in range(nq)]
+            jlo, jhi = jf._q_range(mask_type, window, prefix, bq, bkv, nq)
+            assert qr.tolist() == [[int(jlo(j)), int(jhi(j))] for j in range(nk)]
+            jfull = jf._full_tile_fn(mask_type, window, prefix, bq, bkv)
+            assert full.tolist() == [[int((jfull is None or bool(jfull(i, j)))
+                                          and (i + 1) * bq <= S and (j + 1) * bkv <= S)
+                                      for j in range(nk)] for i in range(nq)]
+
+
 WGMMA_PLAN_TILES = [(128, 128), (128, 64), (64, 128)]
 
 
 def test_the_planner_test_covers_every_wgmma_plan():
     # forward 128 x 128 (every head dim); dQ 128 x 128 (D 64) and 128 x 64
-    # (D 128); dK/dV 128 x 128 (D 16, 32, 64) and 64 x 128 (D 128)
+    # (D 16, 32, 128); dK/dV 128 x 128 (D 16, 32, 64) and 64 x 128 (D 128)
     tiles = {tf.kernel_tiles(fn, "wgmma", d) for fn in tf.FLASH_KERNELS
              for d in tf.WGMMA_HEAD_DIMS[fn]}
     assert tiles == set(WGMMA_PLAN_TILES)
@@ -335,14 +379,16 @@ def test_plan_at_the_wgmma_tiles_matches_jax_planners(mask_type, S, bq, bkv):
     ("causal", 0), ("sliding_window", 128), ("prefix_lm", 0), ("full", 0), ("band", 128)])
 @pytest.mark.parametrize("S", [127, 512, 1000])
 def test_small_head_dims_plan_at_the_wgmma_tiles(head_dim, mask_type, window, S):
-    # At D 16 and 32 the bf16 forward and dK/dV run the wgmma kernels at
-    # 128 x 128 tiles (dQ stays on the 32-square SIMT tiles), and their
-    # plans are the JAX planners' at those tiles.
+    # At D 16 and 32 the bf16 forward, dQ and dK/dV run the wgmma kernels
+    # (the forward and dK/dV at 128 x 128 tiles, dQ at 128 query rows
+    # against _DQ_BKV KV rows), and their plans are the JAX planners' at
+    # those tiles.
     prefix = 200
-    for fn in ("flash_fwd", "flash_bwd_dkv"):
+    for fn in tf.FLASH_KERNELS:
         variant = tf.flash_variant(fn, torch.bfloat16, head_dim)
         bq, bkv = tf.kernel_tiles(fn, variant, head_dim)
-        assert (variant, bq, bkv) == ("wgmma", 128, 128)
+        want = (128, tf._DQ_BKV[head_dim]) if fn == "flash_bwd_dq" else (128, 128)
+        assert (variant, (bq, bkv)) == ("wgmma", want)
         kv, qr, full = tf._plan(mask_type, window, prefix, S, bq, torch.device("cpu"), bkv)
         nq, nk = -(-S // bq), -(-S // bkv)
         jlo, jhi = jf._kv_range(mask_type, window, prefix, bq, bkv, nk)
@@ -353,8 +399,6 @@ def test_small_head_dims_plan_at_the_wgmma_tiles(head_dim, mask_type, window, S)
         assert full.tolist() == [[int((jfull is None or bool(jfull(i, j)))
                                       and (i + 1) * bq <= S and (j + 1) * bkv <= S)
                                   for j in range(nk)] for i in range(nq)]
-    assert tf.flash_variant("flash_bwd_dq", torch.bfloat16, head_dim) == "simt"
-    assert tf.kernel_tiles("flash_bwd_dq", "simt", head_dim) == (32, 32)
 
 
 def test_planted_fault_drops_one_tile_of_the_wgmma_plans():
@@ -374,6 +418,19 @@ def test_planted_fault_drops_one_tile_of_the_wgmma_plans():
         assert qr[0].tolist() == [0, 1024 // bq - 1]
         assert full is full0
         assert tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[0] is kv0
+
+
+def test_planted_fault_drops_one_tile_of_the_fp32_forward_plans():
+    # The fp32 forward's plans (64 query rows against 64- or 32-row KV
+    # tiles) lose the last live KV tile of their last Q tile, as the wgmma
+    # plans do.
+    cpu = torch.device("cpu")
+    for bq, bkv in sorted({tf.kernel_tiles("flash_fwd", "f32", d) for d in (16, 32, 64, 128)}):
+        kv0 = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[0]
+        with kernel_check.planted_fault():
+            kv = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[0]
+        assert kv[:-1].tolist() == kv0[:-1].tolist()
+        assert kv[-1].tolist() == [0, kv0[-1, 1].item() - 1] == [0, 1024 // bkv - 1]
 
 
 def test_header_edit_changes_the_library_path(monkeypatch, tmp_path):

@@ -118,7 +118,9 @@ def test_band_plans_at_the_kernels_tiles_match_jax(window):
     """``_plan`` builds the kernels' live ranges and no-mask flags from the
     band planners; at every kernel's tiles they are JAX's planners'."""
     for fn, variant, d in (("flash_fwd", "wgmma", 64), ("flash_bwd_dq", "wgmma", 128),
-                           ("flash_bwd_dkv", "wgmma", 128), ("flash_bwd_dq", "simt", 16)):
+                           ("flash_bwd_dkv", "wgmma", 128), ("flash_bwd_dq", "wgmma", 16),
+                           ("flash_bwd_dq", "wgmma", 32), ("flash_fwd", "f32", 64),
+                           ("flash_fwd", "f32", 128), ("flash_bwd_dq", "f32", 16)):
         bq, bkv = tf.kernel_tiles(fn, variant, d)
         for s in (128, 1000, 1024):
             kv_ranges, q_ranges, full = tf._plan("band", window, 0, s, bq, "cpu", bkv)
@@ -136,8 +138,7 @@ def test_band_plans_at_the_kernels_tiles_match_jax(window):
 def test_kernels_accept_the_head_dims_jax_takes():
     """The kernels' checks (plain functions of the operands' metadata)
     accept head dims 16 and 32 as JAX's Pallas kernels do, bf16 and fp32,
-    and pick the wgmma forward and dK/dV and the bf16 SIMT dQ there; D 48
-    stays refused."""
+    and pick the wgmma forward, dQ and dK/dV there; D 48 stays refused."""
     for d in (16, 32, 64, 128):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.zeros((2, 4, 100, d), dtype=dtype)
@@ -147,8 +148,7 @@ def test_kernels_accept_the_head_dims_jax_takes():
                                                 "lse": stats, "delta": stats},
                               "band", "soft_cap", 50.0)
             for fn in tf.FLASH_KERNELS:
-                want = ("f32" if dtype == torch.float32
-                        else "simt" if fn == "flash_bwd_dq" and d < 64 else "wgmma")
+                want = "f32" if dtype == torch.float32 else "wgmma"
                 assert tf.flash_variant(fn, dtype, d) == want
     q = torch.zeros((1, 4, 64, 48), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D in"):

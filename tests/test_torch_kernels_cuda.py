@@ -622,18 +622,27 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="wgmma"):
         tfa._launch("flash_bwd_dq_launch", "wgmma", q, k, v, ranges=ranges, full=full,
                     dout=do, lse_in=lse, delta=lse, out0=o, **plan_kw)
-    # at D 16 the library takes no wgmma dQ and no bf16 SIMT forward or
-    # dK/dV (the wgmma forward and dK/dV replaced them)
+    # at D 16 the wgmma dQ refuses a plan at other tile sizes than its own,
+    # and so does the fp32 forward (64-row Q tiles) a 32-square one
     q16, k16, v16, do16 = _flash_inputs("bfloat16", 1, 4, 4, 256, 16)
     o16 = torch.empty_like(q16)
-    ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 128, q.device)
+    ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 32, q.device)
     with pytest.raises(RuntimeError, match="wgmma"):
         tfa._launch("flash_bwd_dq_launch", "wgmma", q16, k16, v16, ranges=ranges, full=full,
                     dout=do16, lse_in=lse, delta=lse, out0=o16, **plan_kw)
-    ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 32, q.device)
+    qf, kf, vf, _ = _flash_inputs("float32", 1, 4, 4, 256, 16)
+    with pytest.raises(RuntimeError, match="f32"):
+        tfa._launch("flash_fwd_launch", "f32", qf, kf, vf, ranges=ranges, full=full,
+                    out0=torch.empty_like(qf), lse_out=lse, **plan_kw)
+    # the bf16 SIMT kernels are gone: their old code (3) is refused by all
+    # three C entries
+    monkeypatch.setitem(tfa._VARIANT_CODES, "simt", 3)
     with pytest.raises(RuntimeError, match="simt"):
         tfa._launch("flash_fwd_launch", "simt", q16, k16, v16, ranges=ranges, full=full,
                     out0=o16, lse_out=lse, **plan_kw)
+    with pytest.raises(RuntimeError, match="simt"):
+        tfa._launch("flash_bwd_dq_launch", "simt", q16, k16, v16, ranges=ranges, full=full,
+                    dout=do16, lse_in=lse, delta=lse, out0=o16, **plan_kw)
     with pytest.raises(RuntimeError, match="simt"):
         tfa._launch("flash_bwd_dkv_launch", "simt", q16, k16, v16, ranges=q_ranges,
                     full=full, dout=do16, lse_in=lse, delta=lse, out0=o16,
@@ -658,10 +667,10 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
 
 # (dtype, B, Hq, Hkv, S, D, mask, window, prefix, mod, arg, variant): the score
 # mods (alibi over Hq heads, soft_cap at 50 or at 2, where tanh saturates) in
-# every variant, the band mask, head dims 16 and 32 (bf16: the wgmma forward
-# and dK/dV on 32- and 64-byte swizzles, every mask, with the bf16 SIMT dQ)
-# and fp32, tails (S 127, 129, 1000), GQA. variant: the forward's and
-# dK/dV's; dQ's is flash_variant's ("simt" for bf16 at D 16 and 32).
+# every variant, the band mask, head dims 16 and 32 (bf16: the wgmma
+# kernels on 32- and 64-byte swizzles, every mask) and fp32, tails (S 127,
+# 129, 1000), GQA. variant: the forward's and dK/dV's; dQ's is
+# flash_variant's (the same).
 FLEX_CASES = [
     ("bfloat16", 2, 4, 4, 1024, 64, "causal", 0, 0, "soft_cap", 50.0, "wgmma"),
     ("bfloat16", 2, 4, 4, 1024, 64, "sliding_window", 128, 0, "alibi", 4.0, "wgmma"),
@@ -708,8 +717,7 @@ def test_flex_flash_kernels_match_plain(cuda, dtype, B, Hq, Hkv, S, D, mask, win
     torch.cuda.synchronize()
     want = {"flash_fwd": variant, "flash_bwd_dkv": variant,
             "flash_bwd_dq": tfa.flash_variant("flash_bwd_dq", getattr(torch, dtype), D)}
-    if dtype == "bfloat16" and D < 64:
-        assert want["flash_bwd_dq"] == "simt"  # dQ at D 16/32 stays on the SIMT tiles
+    assert want["flash_bwd_dq"] == variant  # dQ at D 16/32 runs wgmma too
     for n in tfa.FLASH_KERNELS:
         assert _flash_counts()[n][want[n]] == before[n][want[n]] + 1, n
         assert _mod_counts()[n][mod] == before_mod[n][mod] + 1, n
@@ -751,7 +759,7 @@ def test_flex_planted_fault_is_rejected(cuda, D, mask, window, mod, arg):
 @pytest.mark.cuda
 def test_flex_attention_runs_the_kernels_with_the_mod_code(cuda):
     """``flex_attention`` (alibi, sliding window, D 16, bf16) launches the
-    wgmma forward and dK/dV and the SIMT dQ with the alibi code."""
+    wgmma forward, dQ and dK/dV with the alibi code."""
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import flex_attention as tflex
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import masks as tm
 
@@ -763,8 +771,80 @@ def test_flex_attention_runs_the_kernels_with_the_mod_code(cuda):
                              score_mod=tflex.alibi_score_fn(6))
     o.float().square().sum().backward()
     torch.cuda.synchronize()
-    want = {"flash_fwd": "wgmma", "flash_bwd_dq": "simt", "flash_bwd_dkv": "wgmma"}
+    want = dict.fromkeys(tfa.FLASH_KERNELS, "wgmma")
     for n in tfa.FLASH_KERNELS:
         assert _flash_counts()[n][want[n]] == before[n][want[n]] + 1, n
         assert _mod_counts()[n]["alibi"] == before_mod[n]["alibi"] + 1, n
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# The two kernels redesigned last, each against its plain version: the
+# wgmma dQ at D 16 and 32 (bf16) and the 3xTF32 fp32 forward at every head
+# dim. (B, Hq, Hkv, S, mask, window, prefix, mod, arg, layout): tails of one
+# row, one 64-row tile, either side of 128, the 1M configs' S 512 and a
+# ragged 1000; windows 100 and 300, a prefix of 200 and a band of 256 (not
+# multiples of a tile); GQA 4/2; alibi and soft_cap 50; both layouts.
+REDESIGNED_CASES = [
+    (2, 4, 4, 1, "causal", 0, 0, "none", 0.0, "bshd"),
+    (2, 4, 4, 64, "causal", 0, 0, "none", 0.0, "bshd"),
+    (2, 4, 4, 127, "causal", 0, 0, "none", 0.0, "bshd"),
+    (2, 4, 4, 129, "causal", 0, 0, "none", 0.0, "bhsd"),
+    (2, 4, 4, 512, "causal", 0, 0, "none", 0.0, "bshd"),
+    (2, 4, 4, 1000, "causal", 0, 0, "none", 0.0, "bshd"),
+    (2, 4, 4, 1000, "sliding_window", 100, 0, "none", 0.0, "bshd"),
+    (2, 4, 4, 1000, "sliding_window", 300, 0, "none", 0.0, "bhsd"),
+    (2, 4, 4, 1000, "prefix_lm", 0, 200, "none", 0.0, "bshd"),
+    (2, 4, 4, 1000, "band", 256, 0, "none", 0.0, "bshd"),
+    (2, 4, 4, 300, "full", 0, 0, "none", 0.0, "bshd"),
+    (2, 4, 2, 512, "causal", 0, 0, "none", 0.0, "bshd"),
+    (2, 4, 2, 512, "sliding_window", 128, 0, "alibi", 4.0, "bshd"),
+    (2, 4, 4, 1000, "causal", 0, 0, "soft_cap", 50.0, "bshd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype,D", [
+    ("flash_bwd_dq", "bfloat16", 16), ("flash_bwd_dq", "bfloat16", 32),
+    ("flash_fwd", "float32", 16), ("flash_fwd", "float32", 32),
+    ("flash_fwd", "float32", 64), ("flash_fwd", "float32", 128)])
+@pytest.mark.parametrize("B,Hq,Hkv,S,mask,window,prefix,mod,arg,layout", REDESIGNED_CASES)
+def test_redesigned_flash_kernels_match_plain_repeat_bitwise_and_reject_a_planted_fault(
+        cuda, kernel, dtype, D, B, Hq, Hkv, S, mask, window, prefix, mod, arg, layout):
+    q, k, v, do = _flash_inputs(dtype, B, Hq, Hkv, S, D, seed=S + D)
+    if layout == "bhsd":
+        q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    kw = dict(mask_type=mask, window=window, prefix_len=prefix, scale=D ** -0.5,
+              score_mod=mod, score_arg=arg)
+    ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * ro.float()).sum(-1).contiguous()
+    if kernel == "flash_fwd":
+        ref = ro
+
+        def run():
+            return tfa.flash_fwd(q, k, v, **kw)
+    else:
+        ref = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
+
+        def run():
+            return tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw), None
+    counts = getattr(tfa, kernel).launches_by_variant
+    want = "f32" if dtype == "float32" else "wgmma"
+    before = counts[want]
+    got, lse = run()
+    again, lse_again = run()
+    torch.cuda.synchronize()
+    assert counts[want] == before + 2
+    assert torch.equal(got, again), "two launches must give the same bits"
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    if lse is not None:
+        assert torch.equal(lse, lse_again)
+        torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
+    if kernel == "flash_bwd_dq" and S == 1:
+        # a lone key's softmax has no gradient: both are rounding noise
+        assert got.abs().max() <= 1e-5 and ref.abs().max() <= 1e-5
+        return
+    check = kernel_check.compare(got, ref)
+    assert check["ok"], check
+    with kernel_check.planted_fault():
+        bad, _ = run()
+    assert not kernel_check.compare(bad, ref)["ok"]
