@@ -8,8 +8,9 @@ Phases (any failed check exits non-zero and prints no result on stdout):
 1. device  — needs CUDA (there is no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them.
 2. build   — compiles the grouped-GEMM kernel (csrc/grouped_matmul.cu) and the
-   flash-attention kernels (csrc/flash_attention.cu) with nvcc into
-   build/kernels/, one nvcc per source, both at once; prints each kernel's
+   flash-attention kernels (csrc/flash_attention.cu, bf16;
+   csrc/flash_attention_f32.cu, fp32) with nvcc into build/kernels/, one
+   nvcc per source, all three at once; prints each kernel's
    registers and spills, and fails if a wgmma kernel spills or ptxas
    reports that it serialized a kernel's wgmmas (advisories C7513, C7518,
    C7520).
@@ -33,16 +34,19 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    (``kernel_check.gmm_skipping_a_tile``, ``tgmm_skipping_a_tile``), and
    the same check must reject it. Then holds ``flash_fwd``, ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` against their plain versions: the training path's
-   shape (B 32, H 8, S 1024, D 64, bf16, causal), fp32, GQA 8/2, S 1000
-   (tail tiles), sliding_window, prefix_lm, full and D 128, timing each
-   beside ``F.scaled_dot_product_attention`` (forward; forward + backward
-   for the backward kernels) as a yardstick, with its TFLOP/s; first of
+   shape (B 32, H 8, S 1024, D 64, bf16, causal), the fp32 40m path's
+   (the same, fp32), fp32 at B 4, GQA 8/2, S 1000 (tail tiles),
+   sliding_window, prefix_lm, full and D 128, timing each beside
+   ``F.scaled_dot_product_attention`` (forward; forward + backward for the
+   backward kernels) as a yardstick, with its TFLOP/s; first of
    them the 1B trainer's shape (B 8, H 16, S 2048, D 128, bf16, causal).
    Each call must run the variant ``flash_variant`` names for its kernel
-   (bf16: the wgmma kernels at every head dim; fp32: the 3xTF32 forward
-   beside the SIMT dQ and dK/dV). Each output must pass
-   ``ops/kernel_check.compare`` (per-element limits scaled to the output's
-   RMS, and a normwise limit). At both path shapes and the three fp32
+   (bf16: the wgmma kernels at every head dim; fp32: the three 3xTF32
+   kernels). Each output must pass ``ops/kernel_check.compare``
+   (per-element limits scaled to the output's RMS, and a normwise limit)
+   against the plain version (fp32: evaluated in float64,
+   ``kernel_check.reference``; the fp32 plain version's own ratio is
+   printed beside it). At the path shapes and the fp32
    cases the kernels are launched once more with one live tile left out of
    their plans, and the same check must reject every output.
 4. serve   — serves moe-8x40m at full width (12 layers, seeded random fp32
@@ -61,7 +65,16 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    forward, 12 per step for each backward; every flash launch on the wgmma
    kernels), step 1's loss and gradients
    against the plain attention path on the card at batch 8, and serves the
-   final checkpoint through the port's server.
+   final checkpoint through the port's server. Then the fp32 path: the same
+   config with ``system.mixed_precision: false`` (compute_dtype float32,
+   the port's default), 10 steps through ``Trainer.train()``, a log line
+   every 2: every flash launch on the "f32" kernels (12 forwards a step
+   and a validation batch, 12 of each backward kernel a step), step 1's
+   loss, gradient norm and per-leaf gradients against the plain attention
+   path at batch 8 (1e-5 / 1e-6 / 1e-5 relative: fp32 on both sides),
+   and the same check against a 1xTF32 attention (the plain version's
+   products with TF32 on), which must fail it; finite losses that fall;
+   prints step ms and tok/s.
 6. moe     — trains configs/model-config-moe-8x40m.yaml at full width (hidden
    512, intermediate 1536, 12 layers, 8 experts top-2, dropless grouped
    dispatch, router aux and z losses, S 1024, batch 32, bf16 over fp32
@@ -124,7 +137,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
 9. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
    kernel's ms where this run timed one, each flash kernel with its
    launches by variant in the 1B run and its launches on each training
-   path; the serving path's fp32 gmm kernels, "gmm_f32" and
+   path; the fp32 cases' entries with their launches on the fp32 40m path
+   (its own shape's case, "path_fp32") or 0; the serving path's fp32 gmm kernels, "gmm_f32" and
    "gmm_f32_decode", as entries of their own with their serving launches
    and every fp32 row; each of the flex slice's (kernel, variant, score
    mod) cases as an entry named ``kernel:variant:mod:case``, with its
@@ -164,6 +178,7 @@ REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:137"
 TGMM_REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:188"
 SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/grouped_matmul.cu"
 FLASH_SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/flash_attention.cu"
+FLASH_F32_SOURCE = "mlx_cuda_distributed_pretraining_tpu_torch/csrc/flash_attention_f32.cu"
 FLASH_REPLACES = {
     "flash_fwd": "mlx_cuda_distributed_pretraining_tpu/ops/flash_attention.py:404",
     "flash_bwd_dq": "mlx_cuda_distributed_pretraining_tpu/ops/flash_attention.py:466",
@@ -625,6 +640,7 @@ def train_kernel_phase(torch, gm, kernel_check):
 FLASH_CASES = [
     ("path_1b", "bfloat16", 8, 16, 16, 2048, 128, "causal"),
     ("path", "bfloat16", 32, 8, 8, 1024, 64, "causal"),
+    ("path_fp32", "float32", 32, 8, 8, 1024, 64, "causal"),
     ("fp32", "float32", 4, 8, 8, 1024, 64, "causal"),
     ("gqa", "bfloat16", 8, 8, 2, 1024, 64, "causal"),
     ("tail", "bfloat16", 8, 8, 8, 1000, 64, "causal"),
@@ -636,13 +652,16 @@ FLASH_CASES = [
     ("d128_fp32", "float32", 2, 8, 8, 1024, 128, "causal"),
 ]
 WINDOW, PREFIX = 256, 384
-FP32_CASES = ("fp32", "tail_fp32", "d128_fp32")
+FP32_CASES = ("path_fp32", "fp32", "tail_fp32", "d128_fp32")
 # The kernels the redesigned rows replaced. They left the library, so
 # scripts/time_kernels.py times them in turns with their successors from an
 # unpacked parent tree (--root); PERF.md keeps those times.
 EARLIER = {
     "flash_bwd_dq": "bf16 SIMT dQ (32-row tiles), timed by scripts/time_kernels.py --root",
     "flash_fwd": "fp32 SIMT forward (32-row tiles), timed by scripts/time_kernels.py --root",
+    "flash_bwd_dq_f32": "fp32 SIMT dQ (32-row tiles), timed by scripts/time_kernels.py --root",
+    "flash_bwd_dkv_f32": "fp32 SIMT dK/dV (32-row tiles), timed by scripts/time_kernels.py "
+                         "--root",
 }
 # The flex slice's cases, (name, dtype, B, Hq, Hkv, S, D, mask, extras): score
 # mods at the 100m-muon shape (B 32, H 12, S 1024, D 64) and the 1B's, the
@@ -839,6 +858,21 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
     rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
     rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
     refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
+    ref_lse, plain_ratio = rlse, None
+    if dtype == "float32":
+        # The fp32 kernels are held to the plain versions evaluated in
+        # float64 (kernel_check.reference); the fp32 plain version's own
+        # limit ratio against them is printed beside the kernel's.
+        xo, ref_lse = kernel_check.reference(fa.flash_fwd_plain, q, k, v, **kw)
+        xdk, xdv = kernel_check.reference(fa.flash_bwd_dkv_plain, q, k, v, do, rlse, delta,
+                                          **kw)
+        exact = {"o": xo, "dq": kernel_check.reference(fa.flash_bwd_dq_plain, q, k, v, do,
+                                                       rlse, delta, **kw),
+                 "dk": xdk, "dv": xdv}
+        plain_ratio = {out: kernel_check.compare(refs[out], exact[out])["limit_ratio"]
+                       for out in refs}
+        refs = exact
+        del exact, xo, xdk, xdv
     # kernel_check.compare: per element atol 2**-5 x RMS / rtol 2e-2 and
     # normwise 1e-2 for bf16; 1e-5 x RMS / 1e-4 and 1e-5 for fp32. lse is
     # fp32 in both versions: 1e-5; the wgmma soft_cap's tanh (from
@@ -847,11 +881,11 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
     got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
     checks = {out: kernel_check.compare(got[out], refs[out]) for out in refs}
     errs = {out: c["max_abs_err"] for out, c in checks.items()}
-    errs["lse"] = (lse - rlse).abs().max().item()
+    errs["lse"] = (lse - ref_lse).abs().max().item()
     lse_atol = 1e-5 + (2.0 ** -20 * arg if mod == "soft_cap" and variant["flash_fwd"] == "wgmma"
                        else 0.0)
     ok = all(c["ok"] for c in checks.values()) and bool(torch.isfinite(lse).all()) \
-        and torch.allclose(lse, rlse, atol=lse_atol, rtol=1e-5)
+        and torch.allclose(lse, ref_lse, atol=lse_atol, rtol=1e-5)
     if ran != want_ran or ran_mod != {n: {mod: 1} for n in FLASH_KERNELS}:
         ok = False
         log(f"flash {name}: ran {ran} {ran_mod}, not {want_ran} with {mod}")
@@ -910,11 +944,14 @@ def flash_case(torch, gm, fa, name, dtype, B, Hq, Hkv, S, D, mask, extras=None):
             "mask": mask, "window": window, "prefix": prefix, "score_mod": mod,
             "score_arg": arg, "variant": variant,
             "max_abs_err": errs, "checks": checks, "variants": ran,
+            "plain_fp32_limit_ratio": plain_ratio,
             "planted_fault": fault, "ok": bool(ok),
             "kernels": rows}
     log(f"flash {name} {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {mask} "
         f"(window {window}, prefix {prefix}) mod={mod}({arg}): "
-        f"ok={ok} variants={ran} lse:err={errs['lse']:.3g} " + fmt_checks(checks))
+        f"ok={ok} variants={ran} lse:err={errs['lse']:.3g} " + fmt_checks(checks)
+        + ("" if plain_ratio is None else " | the fp32 plain version's own limit_ratio: "
+           + " ".join(f"{o}:{r:.3g}" for o, r in plain_ratio.items())))
     for kname, r in rows.items():
         log(f"  {kname}: kernel={r['ms']:.4f} ms {r['tflops']:.1f} TFLOP/s "
             f"plain={r['plain_ms']:.4f} ms library={r['library_ms']} ms "
@@ -1233,13 +1270,13 @@ def first_step_parity(torch, trainer, rows: int, swaps):
             "max_leaf_rel_grad_diff": leaf_rel[worst], "worst_leaf": worst}
 
 
-def parity_ok(par) -> bool:
-    """The step-1 limits (bf16): loss 2e-3, gradient norm 2e-2 and every
-    leaf's gradient 5e-2, each relative to the plain run."""
-    return (abs(par["kernel_loss"] - par["plain_loss"]) <= 2e-3 * abs(par["plain_loss"])
+def parity_ok(par, loss: float = 2e-3, norm: float = 2e-2, leaf: float = 5e-2) -> bool:
+    """The step-1 limits, each relative to the plain run: loss, gradient
+    norm and every leaf's gradient (by default bf16's 2e-3, 2e-2, 5e-2)."""
+    return (abs(par["kernel_loss"] - par["plain_loss"]) <= loss * abs(par["plain_loss"])
             and abs(par["kernel_grad_norm"] - par["plain_grad_norm"])
-            <= 2e-2 * par["plain_grad_norm"]
-            and par["max_leaf_rel_grad_diff"] <= 5e-2)
+            <= norm * par["plain_grad_norm"]
+            and par["max_leaf_rel_grad_diff"] <= leaf)
 
 
 def serve_run(torch, run_dir: str, device, run_name: str):
@@ -1354,6 +1391,111 @@ def train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             "launches_by_variant": flash_variants, "first_step_parity": par}
     for k in ("step_ms", "tok_s", "mfu_vs_989tflops", "peak_mem_gb"):
         log(f"train: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
+# -- phase 5 (fp32): 40m-adamw without mixed precision ------------------------------
+def with_tf32(torch, fn):
+    """``fn`` with TF32 on for matmuls while it runs: a plain attention
+    function at 1xTF32 precision, the step-1 check's lower-precision
+    control."""
+    def run(*args, **kw):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return run
+
+
+def fp32_train_phase(torch, gm, fa, card, steps: int = 10, warmup: int = 2):
+    """configs/model-config-40m-adamw.yaml with ``system.mixed_precision``
+    false (the port's default: compute_dtype float32) at full width, 10
+    steps through ``Trainer.train()``: every flash launch on the "f32"
+    kernels (12 forwards a step and a validation batch, 12 of each backward
+    kernel a step), step 1 against the plain attention path in fp32 (and a
+    1xTF32 attention, which the same limits must reject), the loss falls."""
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures = []
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        write_corpus(tmp, train_bytes=1_100_000, val_bytes=70_000)
+        cfg = config_40m(tmp, steps, warmup)
+        cfg["name"] = "Llama (40M) fp32"
+        cfg["system"] = {"seed": 42, "mixed_precision": False}
+        cfg["logging"]["steps"]["logging_interval"] = 2
+        trainer = Trainer(Config.from_dict(cfg), runs_root=os.path.join(tmp, "runs"),
+                          quiet=True, device="cuda")
+        log(f"train fp32: 40m-adamw, compute_dtype {trainer.compute_dtype}, "
+            f"{time.perf_counter() - t0:.1f}s to set up")
+        if trainer.compute_dtype != torch.float32:
+            failures.append(f"train fp32: compute_dtype {trainer.compute_dtype}")
+
+        # fp32 on both sides: the kernels (3xTF32 products summed in fp32)
+        # and cuBLAS's fp32 products differ by rounding only. The limits
+        # (loss 1e-5, gradient norm 1e-6, every leaf 1e-5) lie between that
+        # and a 1xTF32 attention (the plain versions' products with TF32
+        # on), which must fail them.
+        limits = {"loss": 1e-5, "norm": 1e-6, "leaf": 1e-5}
+        plain = {n: getattr(fa, n + "_plain") for n in FLASH_KERNELS}
+        par = first_step_parity(torch, trainer, 8, [(fa, n, f) for n, f in plain.items()])
+        log(f"train fp32: step-1 parity at batch 8, kernels vs plain on the card: {par}")
+        if not parity_ok(par, **limits):
+            failures.append(f"train fp32: step-1 loss/gradients disagree with the plain "
+                            f"path: {par}")
+        control = first_step_parity(
+            torch, trainer, 8, [(fa, n, with_tf32(torch, f)) for n, f in plain.items()])
+        log(f"train fp32: step-1 control, kernels vs a 1xTF32 attention: {control}")
+        if parity_ok(control, **limits):
+            failures.append(f"train fp32: the step-1 check passed a 1xTF32 attention: "
+                            f"{control}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(gm, fa)  # count from here: the training run only
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches(gm, fa)
+        flash_variants = {n: v for n, v in read_variants(gm, fa).items() if n in FLASH_KERNELS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        windows = trainer.windows
+        losses = [w["loss"] for w in windows]
+        layers = trainer.model_args.num_layers
+        fwd, bwd = layers * (steps + trainer.eval_batches), layers * steps
+        zero = dict.fromkeys(fa.FLASH_VARIANTS, 0)
+        want_variants = {"flash_fwd": {**zero, "f32": fwd}, "flash_bwd_dq": {**zero, "f32": bwd},
+                         "flash_bwd_dkv": {**zero, "f32": bwd}}
+        log(f"train fp32: {steps} steps + {trainer.eval_batches} validation batches in "
+            f"{wall:.1f}s; losses every 2 steps {losses}; final val_loss="
+            f"{result['final_val_loss']}; flash launches by variant {flash_variants}")
+        if flash_variants != want_variants:
+            failures.append(f"train fp32: flash launches by variant {flash_variants} != "
+                            f"{want_variants}")
+        if launches != {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
+                        "gmm": 0, "tgmm": 0}:
+            failures.append(f"train fp32: launches {launches}")
+        if not all(math.isfinite(x) for x in losses) or len(losses) != steps // 2:
+            failures.append(f"train fp32: bad loss log {losses}")
+        elif not losses[-1] < losses[0]:
+            failures.append(f"train fp32: loss did not fall ({losses[0]} -> {losses[-1]})")
+
+    steady = windows[1:]  # the first window holds the first step's warm-up
+    secs = sum(w["seconds"] for w in steady)
+    tok_s = sum(w["toks"] for w in steady) / secs
+    perf = {"step_ms": 1e3 * secs / sum(w["steps"] for w in steady), "tok_s": tok_s,
+            "peak_mem_gb": peak_gb, "first_window_s": windows[0]["seconds"],
+            "losses": losses, "launches": launches, "launches_by_variant": flash_variants,
+            "first_step_parity": par, "first_step_tf32_control": control, "wall_s": wall}
+    for k in ("step_ms", "tok_s", "peak_mem_gb"):
+        log(f"train fp32: {k}={perf[k]} [{card}]")
     return failures, perf
 
 
@@ -2199,12 +2341,13 @@ def main() -> int:
     t0 = time.perf_counter()
     warm = threading.Thread(target=warm_flex, args=(torch,), daemon=True)
     warm.start()  # the soft_cap yardstick compiles while nvcc runs
-    libs = cuda_build.build_libraries([gm._SRC, fa._SRC])
-    log(f"build: both sources in {time.perf_counter() - t0:.1f}s")
+    srcs = (gm._SRC, fa._SRC, fa._SRC_F32)
+    libs = cuda_build.build_libraries(srcs)
+    log(f"build: the three sources in {time.perf_counter() - t0:.1f}s")
     warm.join(timeout=600)  # nothing else runs on the card while the phases time it
     log(f"build: with the soft_cap yardstick's compile beside it, {time.perf_counter() - t0:.1f}s")
     failures = []
-    for lib, src in zip(libs, (gm._SRC, fa._SRC)):
+    for lib, src in zip(libs, srcs):
         secs = cuda_build.BUILD_SECONDS.get(src.name)
         log(f"build: {lib.name} in "
             + (f"{secs:.1f}s" if secs is not None else "0s (already built)"))
@@ -2235,6 +2378,11 @@ def main() -> int:
     failures += path_failures
     train_failures, train_perf = train_phase(torch, gm, fa, card)
     failures += train_failures
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f32_failures, f32_perf = fp32_train_phase(torch, gm, fa, card)
+    failures += f32_failures
+    log(f"train fp32: the phase took {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     moe_failures, moe_perf = moe_train_phase(torch, gm, fa, card)
     failures += moe_failures
@@ -2324,21 +2472,26 @@ def main() -> int:
             if name == "flash_bwd_dq" and c["shape"][4] < 64:
                 entry["earlier"] = EARLIER["flash_bwd_dq"]
             flash_entries.append(entry)
-    # The fp32 cases: the 3xTF32 forward, the SIMT dQ and dK/dV (no path
-    # runs fp32: 0 launches).
+    # The fp32 cases: the three 3xTF32 kernels; the fp32 40m training
+    # path's shape ("path_fp32": B 32, H 8, S 1024, D 64) with its launches
+    # there, the others on none.
+    f32_launches = f32_perf.get("launches_by_variant", {})
     for case_name in FP32_CASES:
         c = flash_by_case[case_name]
+        path = "dense_40m_fp32" if case_name == "path_fp32" else None
         for name in FLASH_KERNELS:
+            launches = f32_launches.get(name, {}).get("f32", 0) if path else 0
             entry = kernel_entry(
-                f"{name}:f32:none:{case_name}", FLASH_SOURCE, FLASH_REPLACES[name], 0,
+                f"{name}:f32:none:{case_name}", FLASH_F32_SOURCE, FLASH_REPLACES[name], launches,
                 c["kernels"][name], max(c["max_abs_err"][o] for o in out_of[name]))
             entry.update(variant="f32", score_mod="none", mask=c["mask"], shape=c["shape"],
-                         path=None, tflops=c["kernels"][name]["tflops"],
-                         library=c["kernels"][name]["library"], card=card)
-            if name == "flash_fwd":
-                entry["earlier"] = EARLIER["flash_fwd"]
+                         path=path, tflops=c["kernels"][name]["tflops"],
+                         library=c["kernels"][name]["library"],
+                         plain_fp32_limit_ratio=c["plain_fp32_limit_ratio"], card=card)
+            entry["earlier"] = EARLIER["flash_fwd" if name == "flash_fwd" else f"{name}_f32"]
             flash_entries.append(entry)
-    flash_entries[-1].update(muon_100m=muon_perf, flex_1m=flex_perf, optimizers_1m=opt_perf)
+    flash_entries[-1].update(muon_100m=muon_perf, flex_1m=flex_perf, optimizers_1m=opt_perf,
+                             dense_40m_fp32=f32_perf)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + fp32_entries + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)

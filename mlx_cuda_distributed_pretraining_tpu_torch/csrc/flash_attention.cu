@@ -4,19 +4,19 @@
 //   flash_fwd_bf16_wgmma_kernel, flash_fwd_f32_kernel
 //                                                   <- flash_fwd (Pallas body
 //                                                      _fwd_kernel)
-//   flash_bwd_dq_bf16_wgmma_kernel, flash_bwd_dq_kernel
+//   flash_bwd_dq_bf16_wgmma_kernel, flash_bwd_dq_f32_kernel
 //                                                   <- flash_bwd_dq (_bwd_dq_kernel)
-//   flash_bwd_dkv_bf16_wgmma_kernel, flash_bwd_dkv_kernel
+//   flash_bwd_dkv_bf16_wgmma_kernel, flash_bwd_dkv_f32_kernel
 //                                                   <- flash_bwd_dkv (_bwd_dkv_kernel)
 //
 // Variants (the wrapper's flash_variant picks one before launch; the C
-// entries take its code):
-//   "wgmma"  bf16 at head dims 16, 32, 64 and 128, all three functions: a
-//            TMA ring feeding wgmma, the scores, P and dS kept in registers
-//            (their own note below);
-//   "f32"    fp32 at head dims 16, 32, 64 and 128: the forward on 3xTF32
-//            mma.sync with a cp.async ring (its own note below); dQ and
-//            dK/dV on SIMT FMA tiles.
+// entries take its code), one library each, built in parallel:
+//   "wgmma"  this file: bf16 at head dims 16, 32, 64 and 128, all three
+//            functions: a TMA ring feeding wgmma, the scores, P and dS kept
+//            in registers (their own note below);
+//   "f32"    flash_attention_f32.cu: fp32 at head dims 16, 32, 64 and 128,
+//            all three functions: 3xTF32 mma.sync fed by a cp.async ring.
+// flash_common.cuh holds what both use (FlashArgs, the codes, Mask32).
 //
 // Each computes what its Pallas body computes (not block by block):
 //   fwd:  s = (q . k^T) * scale in fp32, through the score mod (below),
@@ -58,11 +58,10 @@
 // parameter (a runtime branch around a wgmma makes ptxas serialize them
 // all) and compute tanh branch-free from ex2.approx (tanh_exp2 below:
 // tanh.approx.f32, 2^-11 relative, failed the bf16 gate at cap 50); the
-// fp32 kernels switch on it at run time and use tanhf.
+// fp32 kernels take it as a template parameter too (ModF) and use tanhf.
 //
 // Types: bf16 runs the wgmma kernels at all four head dims; fp32 runs the
-// 3xTF32 forward and the SIMT dQ and dK/dV (32-row tiles) at all four. Head
-// dims are template instances.
+// 3xTF32 kernels at all four. Head dims are template instances.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the
 // training path's shape B 32, H 8, S 1024, D 64, bf16, causal:
@@ -71,11 +70,9 @@
 //   dK/dV 68.7 GFLOP, ~203 MB  -> 0.070 ms (operations)
 // All three are operation-bound in principle, and beside the tensor cores
 // each pays an exp per score on the SFU (16 a clock per SM: the exps of a
-// 128 x 128 tile take as long as its two 64-deep products at peak). The
-// fp32 dQ and dK/dV stage tiles through shared memory and round-trip the
-// scores through it, one 4-warp CTA per tile. The wgmma kernels and the
-// fp32 forward keep the scores in registers (notes below); the wgmma ones
-// let one warpgroup's softmax run under the other's products.
+// 128 x 128 tile take as long as its two 64-deep products at peak). Every
+// kernel keeps the scores, P and dS in registers (notes below); the wgmma
+// ones let one warpgroup's softmax run under the other's products.
 //
 // Interface: plain C, loaded with ctypes. Each *_launch returns
 // cudaGetLastError() after the launch (0 on success); nothing synchronises.
@@ -88,317 +85,10 @@
 
 #include <atomic>
 
-#include "hopper.cuh"  // namespace wg: TMA, mbarriers, wgmma; tensor maps
+#include "flash_common.cuh"  // FlashArgs, codes, Mask32, dispatch checks
+#include "hopper.cuh"        // namespace wg: TMA, mbarriers, wgmma; tensor maps
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;  // large-but-finite, as ops/masks.py
-constexpr int NTHREADS = 128;      // 4 warps per CTA (the SIMT kernels)
-
-// Mask codes (the wrapper's _MASK_CODES).
-constexpr int MASK_FULL = 0;
-constexpr int MASK_CAUSAL = 1;
-constexpr int MASK_SLIDING = 2;
-constexpr int MASK_PREFIX = 3;
-constexpr int MASK_BAND = 4;
-
-// Score-mod codes (the wrapper's _MOD_CODES).
-constexpr int MOD_NONE = 0;
-constexpr int MOD_ALIBI = 1;
-constexpr int MOD_SOFTCAP = 2;
-
-}  // namespace
-
-// Every field is 8 bytes wide, so the ctypes mirror has no padding to match.
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  const float* lse_in;
-  const float* delta;
-  void* out0;  // fwd: o; dQ: dq; dK/dV: dk
-  void* out1;  // dK/dV: dv
-  float* lse_out;
-  const int32_t* ranges;  // [n_tiles, 2] live [lo, hi) of the other axis
-  const uint8_t* full;    // [nq, nk]: 1 = tile needs no mask
-  int64_t B, Hq, Hkv, S, nq, nk;
-  int64_t sq[3], sk[3], sv[3], so[3], sdo[3], s0[3], s1[3];  // (b, h, s)
-  int64_t mask_type, window, prefix;
-  double scale;
-  int64_t score_mod;  // MOD_*
-  double score_arg;   // alibi: the head count H; soft_cap: the cap
-};
-
-namespace {
-
-// ALiBi's slope of query head h, 2^(-8 (h + 1) / H), in fp32 as JAX's
-// alibi_score_fn computes it.
-__device__ __forceinline__ float alibi_slope(int h, double heads) {
-  return exp2f(-8.f * (static_cast<float>(h) + 1.f) / static_cast<float>(heads));
-}
-
-// The fp32 kernels' score mod of s = scale q . k (natural units): the
-// modded score, and the mod's Jacobian in *dmod (1 unless soft_cap).
-__device__ __forceinline__ float f32_mod(int mod, float s, int64_t row, int64_t col,
-                                         float slope, float cap, float* dmod) {
-  if (mod == MOD_ALIBI) return s - slope * static_cast<float>(row > col ? row - col : col - row);
-  if (mod == MOD_SOFTCAP) {
-    const float t = tanhf(s / cap);
-    *dmod = 1.f - t * t;
-    return cap * t;
-  }
-  return s;
-}
-
-__device__ __forceinline__ bool allowed(int mask, int64_t row, int64_t col,
-                                        int64_t window, int64_t prefix) {
-  switch (mask) {
-    case MASK_CAUSAL: return row >= col;
-    case MASK_SLIDING: return row >= col && row - col < window;
-    case MASK_PREFIX: return row >= col || col < prefix;
-    case MASK_BAND: return row - col < window;
-    default: return true;
-  }
-}
-
-// Shared-memory leading dim of the SIMT tiles: fp32 rows padded by 4
-// floats (spreads banks).
-template <int N>
-struct LdF {
-  static constexpr int value = N + 4;
-};
-
-// Copy rows [row0, row0 + ROWS) of a [S, D] fp32 slab (row stride `stride`
-// elements, contiguous D) into shared memory; rows past S are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int64_t stride,
-                                          int64_t row0, int64_t S) {
-  constexpr int CPR = D / 4;
-  constexpr int LD = LdF<D>::value;
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) val = *reinterpret_cast<const float4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
-}
-
-// C[M, N] (row-major, ldc) (+)= A[M, K] . B[K, N], fp32 operands in shared
-// memory, SIMT FMA. A_COL: A is stored transposed (element (m, k) at
-// A[k * lda + m]); B_COL: element (k, n) at B[n * ldb + k].
-template <int M, int N, int K, bool A_COL, bool B_COL, bool ACCUM>
-__device__ __forceinline__ void mm(float* C, int ldc, const float* A, int lda,
-                                   const float* B, int ldb) {
-  for (int i = threadIdx.x; i < M * N; i += NTHREADS) {
-    const int m = i / N, n = i % N;
-    float s = ACCUM ? C[m * ldc + n] : 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
-      const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
-      s = fmaf(a, b, s);
-    }
-    C[m * ldc + n] = s;
-  }
-}
-
-// Bump allocator over dynamic shared memory (128-byte aligned pieces).
-struct Carve {
-  unsigned char* p;
-  template <typename U>
-  __device__ __forceinline__ U* take(int count) {
-    U* out = reinterpret_cast<U*>(p);
-    p += ((size_t)count * sizeof(U) + 127) / 128 * 128;
-    return out;
-  }
-};
-
-__host__ __device__ constexpr size_t rup(size_t b) { return (b + 127) / 128 * 128; }
-
-// ------------------------------------------------------------------- fp32 dQ
-template <int D, int BM>
-constexpr size_t dq_smem() {
-  constexpr int BN = BM;
-  return 5 * rup(sizeof(float) * BM * LdF<D>::value) +
-         3 * rup(sizeof(float) * BM * LdF<BN>::value) + 2 * rup(sizeof(float) * BM);
-}
-
-template <int D, int BM>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const FlashArgs a) {
-  constexpr int BN = BM;
-  constexpr int LDT = LdF<D>::value, LDS = LdF<BN>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  float* Qs = cv.take<float>(BM * LDT);
-  float* dOs = cv.take<float>(BM * LDT);
-  float* Ks = cv.take<float>(BN * LDT);
-  float* Vs = cv.take<float>(BN * LDT);
-  float* Ss = cv.take<float>(BM * LDS);
-  float* dPs = cv.take<float>(BM * LDS);
-  float* dSs = cv.take<float>(BM * LDS);
-  float* Acc = cv.take<float>(BM * LDT);
-  float* lse_s = cv.take<float>(BM);
-  float* delta_s = cv.take<float>(BM);
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (int)(a.Hq / a.Hkv);
-  const int64_t S = a.S, q0 = (int64_t)qt * BM;
-  const float scale = (float)a.scale;
-  const int mask = (int)a.mask_type;
-  const int mod = (int)a.score_mod;
-  const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
-  const float cap = (float)a.score_arg;
-
-  const float* qg = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const float* dog = static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
-  const float* kg = static_cast<const float*>(a.k) + b * a.sk[0] + hk * a.sk[1];
-  const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + hk * a.sv[1];
-  load_tile<D, BM>(Qs, qg, a.sq[2], q0, S);
-  load_tile<D, BM>(dOs, dog, a.sdo[2], q0, S);
-  const int64_t stat0 = ((int64_t)b * a.Hq + h) * S;
-  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-    const bool in = q0 + r < S;
-    lse_s[r] = in ? a.lse_in[stat0 + q0 + r] : 0.f;
-    delta_s[r] = in ? a.delta[stat0 + q0 + r] : 0.f;
-  }
-  for (int i = threadIdx.x; i < BM * LDT; i += NTHREADS) Acc[i] = 0.f;
-  const int lo = a.ranges[2 * qt], hi = a.ranges[2 * qt + 1];
-  for (int j = lo; j < hi; ++j) {
-    const int64_t k0 = (int64_t)j * BN;
-    __syncthreads();
-    load_tile<D, BN>(Ks, kg, a.sk[2], k0, S);
-    load_tile<D, BN>(Vs, vg, a.sv[2], k0, S);
-    __syncthreads();
-    mm<BM, BN, D, false, true, false>(Ss, LDS, Qs, LDT, Ks, LDT);    // q k^T
-    mm<BM, BN, D, false, true, false>(dPs, LDS, dOs, LDT, Vs, LDT);  // dO v^T
-    __syncthreads();
-    const bool full = a.full[(int64_t)qt * a.nk + j] != 0;
-    for (int i = threadIdx.x; i < BM * BN; i += NTHREADS) {
-      const int r = i / BN, c = i % BN;
-      const int64_t row = q0 + r, col = k0 + c;
-      float s = Ss[r * LDS + c] * scale;
-      float p, dmod = 1.f;
-      if (!full && (row >= S || col >= S)) {
-        p = 0.f;
-      } else {
-        s = f32_mod(mod, s, row, col, slope, cap, &dmod);
-        if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
-        p = expf(s - lse_s[r]);
-      }
-      float ds = p * (dPs[r * LDS + c] - delta_s[r]);
-      if (mod == MOD_SOFTCAP) ds *= dmod;
-      dSs[r * LDS + c] = ds * scale;
-    }
-    __syncthreads();
-    mm<BM, D, BN, false, false, true>(Acc, LDT, dSs, LDS, Ks, LDT);  // += ds k
-  }
-  __syncthreads();
-  float* dqg = static_cast<float*>(a.out0) + b * a.s0[0] + h * a.s0[1];
-  for (int i = threadIdx.x; i < BM * D; i += NTHREADS) {
-    const int r = i / D, d = i % D;
-    if (q0 + r < S) dqg[(q0 + r) * a.s0[2] + d] = Acc[r * LDT + d];
-  }
-}
-
-// ---------------------------------------------------------------- fp32 dK/dV
-template <int D, int BM>
-constexpr size_t dkv_smem() {
-  constexpr int BN = BM;
-  return 6 * rup(sizeof(float) * BM * LdF<D>::value) +
-         4 * rup(sizeof(float) * BM * LdF<BN>::value) + 2 * rup(sizeof(float) * BM);
-}
-
-template <int D, int BM>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const FlashArgs a) {
-  constexpr int BN = BM;
-  constexpr int LDT = LdF<D>::value, LDS = LdF<BN>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  float* Ks = cv.take<float>(BN * LDT);
-  float* Vs = cv.take<float>(BN * LDT);
-  float* Qs = cv.take<float>(BM * LDT);
-  float* dOs = cv.take<float>(BM * LDT);
-  float* Ss = cv.take<float>(BM * LDS);
-  float* dPs = cv.take<float>(BM * LDS);
-  float* Ps = cv.take<float>(BM * LDS);
-  float* dSs = cv.take<float>(BM * LDS);
-  float* dK = cv.take<float>(BN * LDT);
-  float* dV = cv.take<float>(BN * LDT);
-  float* lse_s = cv.take<float>(BM);
-  float* delta_s = cv.take<float>(BM);
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (int)(a.Hq / a.Hkv);
-  const int64_t S = a.S, k0 = (int64_t)kt * BN;
-  const float scale = (float)a.scale;
-  const int mask = (int)a.mask_type;
-  const int mod = (int)a.score_mod;
-  const float slope = mod == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f;
-  const float cap = (float)a.score_arg;
-
-  const float* qg = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const float* dog = static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[1];
-  const float* kg = static_cast<const float*>(a.k) + b * a.sk[0] + hk * a.sk[1];
-  const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + hk * a.sv[1];
-  load_tile<D, BN>(Ks, kg, a.sk[2], k0, S);
-  load_tile<D, BN>(Vs, vg, a.sv[2], k0, S);
-  for (int i = threadIdx.x; i < BN * LDT; i += NTHREADS) {
-    dK[i] = 0.f;
-    dV[i] = 0.f;
-  }
-  const int64_t stat0 = ((int64_t)b * a.Hq + h) * S;
-  const int lo = a.ranges[2 * kt], hi = a.ranges[2 * kt + 1];
-  for (int j = lo; j < hi; ++j) {
-    const int64_t q0 = (int64_t)j * BM;
-    __syncthreads();
-    load_tile<D, BM>(Qs, qg, a.sq[2], q0, S);
-    load_tile<D, BM>(dOs, dog, a.sdo[2], q0, S);
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-      const bool in = q0 + r < S;
-      lse_s[r] = in ? a.lse_in[stat0 + q0 + r] : 0.f;
-      delta_s[r] = in ? a.delta[stat0 + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    mm<BM, BN, D, false, true, false>(Ss, LDS, Qs, LDT, Ks, LDT);    // q k^T
-    mm<BM, BN, D, false, true, false>(dPs, LDS, dOs, LDT, Vs, LDT);  // dO v^T
-    __syncthreads();
-    const bool full = a.full[(int64_t)j * a.nk + kt] != 0;
-    for (int i = threadIdx.x; i < BM * BN; i += NTHREADS) {
-      const int r = i / BN, c = i % BN;
-      const int64_t row = q0 + r, col = k0 + c;
-      float s = Ss[r * LDS + c] * scale;
-      float p, dmod = 1.f;
-      if (!full && (row >= S || col >= S)) {
-        p = 0.f;
-      } else {
-        s = f32_mod(mod, s, row, col, slope, cap, &dmod);
-        if (!full && !allowed(mask, row, col, a.window, a.prefix)) s = NEG_INF;
-        p = expf(s - lse_s[r]);
-      }
-      float ds = p * (dPs[r * LDS + c] - delta_s[r]);
-      if (mod == MOD_SOFTCAP) ds *= dmod;
-      Ps[r * LDS + c] = p;
-      dSs[r * LDS + c] = ds * scale;
-    }
-    __syncthreads();
-    mm<BN, D, BM, true, false, true>(dV, LDT, Ps, LDS, dOs, LDT);  // += p^T dO
-    mm<BN, D, BM, true, false, true>(dK, LDT, dSs, LDS, Qs, LDT);  // += ds^T q
-  }
-  __syncthreads();
-  float* dkg = static_cast<float*>(a.out0) + b * a.s0[0] + h * a.s0[1];
-  float* dvg = static_cast<float*>(a.out1) + b * a.s1[0] + h * a.s1[1];
-  for (int i = threadIdx.x; i < BN * D; i += NTHREADS) {
-    const int r = i / D, d = i % D;
-    if (k0 + r < S) {
-      dkg[(k0 + r) * a.s0[2] + d] = dK[r * LDT + d];
-      dvg[(k0 + r) * a.s1[2] + d] = dV[r * LDT + d];
-    }
-  }
-}
 
 // ============================================ bf16 on a TMA ring with wgmma
 // flash_fwd_bf16_wgmma_kernel, flash_bwd_dq_bf16_wgmma_kernel and
@@ -481,10 +171,6 @@ constexpr int DQ_STAGES_D128 = 3;
 constexpr int GROUP_HEADS = 16;  // (batch, head) pairs per group of the CTA order
 
 template <int D>
-constexpr int by_d(int d16, int d32, int d64, int d128) {
-  return D == 16 ? d16 : D == 32 ? d32 : D == 64 ? d64 : d128;
-}
-template <int D>
 constexpr int fwd_stages() {
   return by_d<D>(FWD_STAGES_D16, FWD_STAGES_D32, FWD_STAGES_D64, FWD_STAGES_D128);
 }
@@ -535,46 +221,10 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Max and sum over the 4 threads of a quad: one row of an m64 accumulator.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Named barriers of the wgmma kernels: 1 both consumer warpgroups,
 // 2 + g warpgroup g's epilogue staging, BAR_TURN + g warpgroup g's turn
 // at the tensor cores.
 constexpr int BAR_TURN = 4;
-
-// The five masks as one branch-free predicate over 32-bit positions (the
-// launchers check S < 2^31): allowed(row, col) = (lo <= row - col < win) ||
-// col < pre, with (lo, win, pre) = (0, INT_MAX, 0) causal, (0, window, 0)
-// sliding_window, (0, INT_MAX, prefix) prefix_lm, (INT_MIN, window, 0)
-// band, (INT_MIN, INT_MAX, INT_MAX) full.
-struct Mask32 {
-  int lo, win, pre;
-  __device__ __forceinline__ bool allowed(int row, int col) const {
-    const int d = row - col;
-    return ((d >= lo) & (d < win)) | (col < pre);
-  }
-};
-
-__device__ __forceinline__ Mask32 mask32(const FlashArgs& a) {
-  const auto sat = [](int64_t x) {
-    return static_cast<int>(x > INT32_MAX ? INT32_MAX : x < INT32_MIN ? INT32_MIN : x);
-  };
-  switch (a.mask_type) {
-    case MASK_CAUSAL: return {0, INT32_MAX, 0};
-    case MASK_SLIDING: return {0, sat(a.window), 0};
-    case MASK_PREFIX: return {0, INT32_MAX, sat(a.prefix)};
-    case MASK_BAND: return {INT32_MIN, sat(a.window), 0};
-    default: return {INT32_MIN, INT32_MAX, INT32_MAX};
-  }
-}
 
 // tanh(x) = sign(x) (1 - e) / (1 + e) with e = 2^(-2 log2(e) |x|) from
 // ex2.approx (2^-22 relative) and a fast division: within ~5e-7 of tanh in
@@ -1362,286 +1012,11 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 S - tile0 < 64 ? S - tile0 : 64, 0, D, t, 2 + g);
 }
 
-// ========================================= fp32 forward: 3xTF32 mma.sync
-// flash_fwd_f32_kernel ("f32"): the fp32 forward. A CTA of F32_BQ / 16
-// warps owns F32_BQ query rows of one (batch, query head), 16 a warp; Q
-// comes in once and K and V tiles of BKV rows (F32_BKV_D*) flow through a
-// double-buffered ring of 16-byte cp.async copies (zeros past S), so the
-// next tile's loads are in flight while a tile's products run. Everything
-// else stays in registers: per KV tile, in mma.sync's accumulator layout
-// (lane g = lane / 4, t = lane % 4 holds rows g and g + 8 of its warp,
-// columns 2t and 2t + 1 of every n8 tile):
-//   S = Q K^T;
-//   the score mod, the mask on tiles not flagged full, the row max over
-//   the quad that holds a row, P = exp(S - m) and alpha = exp(m_old - m)
-//   (expf and logf, not ex2.approx: fp32's limit is 1e-5 x RMS);
-//   O = alpha O + P V.
-// The row sums are kept per thread and reduced over the quad once, at the
-// end: o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
-// Products: mma.sync.m16n8k8 in 3xTF32 (wg::split_tf32 / mma_tf32, as
-// gmm_f32_tf32x3_kernel): each operand element is split into hi + lo tf32
-// as it leaves shared memory, and each product is lo.hi + hi.lo + hi.hi
-// with fp32 accumulators (the dropped lo.lo is ~2^-22 of it). The tensor
-// cores truncate as they accumulate, so each k-step's three products are
-// summed from zero and added into S or O with a rounded fp32 add (mma3):
-// with S summed in the mma accumulator over D / 8 k-steps (48 mma adds at
-// D 128) the output missed fp32's 1e-5 x RMS limit by 11%. wgmma is not
-// the tool here: tf32 wgmma takes B only K-major, and V in P V is
-// MN-major.
-// P needs no data movement to become the A operand of P V: the k order
-// inside an m16n8k8 step is free as long as A and B agree, so step kk
-// pairs logical k t and t + 4 with keys kk 8 + 2t and kk 8 + 2t + 1, which
-// is where the accumulator already holds them, and the V fragment reads
-// those two rows. S = Q K^T takes the same pairing over D, so each lane
-// reads its Q and K fragments as float2 (rows padded by 8 floats: every
-// 8-byte read conflict-free); V is read as scalars at rows 2t and 2t + 1
-// (rows padded by 4 floats: conflict-free).
-// The score mod is a template parameter and a tile flagged full takes one
-// test, not one per score, on 32-bit positions (Mask32): with a runtime
-// switch and 64-bit per-score tests, a timing-only copy without the
-// softmax ran 46% faster at D 64, and this form cut the kernel's time
-// there by 45%.
-// What bounds it on an H100 (fp32 accuracy at 495 / 3 TFLOP/s from the
-// tensor cores; 3.35 TB/s): at B 2, H 8, S 1024, D 128, causal, 4.3 GFLOP
-// (0.026 ms) against 34 MB (0.010 ms): operations. It runs at 8-9x that
-// (PERF.md), latency-bound at 8 warps an SM: timing-only copies without
-// two of the three TF32 passes ran 25-36% faster, without P V 10-22%; at D
-// 128, O (64 floats a thread) and the hoisted fragments fill 255
-// registers and spill. The grid runs the heaviest Q tile of a causal mask
-// first.
-constexpr int F32_BQ = 64;  // query rows per CTA (16 per warp: 4 warps)
-// KV rows per ring stage, by head dim, as timed on an H100 (PERF.md): at D
-// 128 a 64-row stage pair holds 132 KB and keeps one CTA on an SM (2x
-// slower than 32 rows); 32 rows at D 64, with three or four CTAs an SM
-// forced by __launch_bounds__, spilled and ran 5-30% slower than 64.
-constexpr int F32_BKV_D16 = 64;
-constexpr int F32_BKV_D32 = 64;
-constexpr int F32_BKV_D64 = 64;
-constexpr int F32_BKV_D128 = 32;
-
-template <int D>
-struct F32Fwd {
-  static constexpr int BKV = by_d<D>(F32_BKV_D16, F32_BKV_D32, F32_BKV_D64, F32_BKV_D128);
-  static constexpr int NTH = 2 * F32_BQ;  // a warp per 16 rows
-  static constexpr int LDQ = D + 8;       // Q and K rows: float2 reads
-  static constexpr int LDV = D + 4;       // V rows: scalar reads at rows 2t, 2t + 1
-  static constexpr int Q_EL = F32_BQ * LDQ;
-  static constexpr int K_EL = BKV * LDQ;
-  static constexpr int STAGE = K_EL + BKV * LDV;
-  static constexpr int BYTES = (Q_EL + 2 * STAGE) * 4;
-};
-
-// The fp32 forward's score mod, a template parameter (the softmax loop
-// then holds no branch on it): s = scale q . k through the mod, in natural
-// units, with f32_mod's arithmetic (tanhf for soft_cap).
-template <int MOD>
-struct ModF {
-  float scale, slope, cap;
-  __device__ __forceinline__ float operator()(float acc, int row, int col) const {
-    const float s = acc * scale;
-    if constexpr (MOD == MOD_ALIBI) {
-      const int d = row - col;
-      return s - slope * static_cast<float>(d < 0 ? -d : d);
-    } else if constexpr (MOD == MOD_SOFTCAP) {
-      return cap * tanhf(s / cap);
-    } else {
-      return s;
-    }
-  }
-};
-
-// acc += a . b for one m16n8k8 step in 3xTF32: the three products summed
-// from zero in the mma accumulator, then added into acc rounded.
-__device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  wg::mma_tf32(d, al, bh);  // the small terms first
-  wg::mma_tf32(d, ah, bl);
-  wg::mma_tf32(d, ah, bh);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += d[e];
-}
-
-// Built for one CTA an SM (__launch_bounds__ minimum 1): ptxas then keeps
-// the fragments it hoists in up to 255 registers. Without the minimum it
-// aimed at more CTAs an SM (105-184 registers) and ran 1.3x slower.
-template <int D, int MOD>
-__global__ void __launch_bounds__(F32Fwd<D>::NTH, 1)
-flash_fwd_f32_kernel(const FlashArgs a) {
-  using L = F32Fwd<D>;
-  using wg::split_tf32;
-  constexpr int BKV = L::BKV;
-  constexpr int NT = BKV / 8;  // n8 tiles of a warp's scores
-  constexpr int ON = D / 8;    // n8 tiles of O
-  extern __shared__ __align__(16) float fsm[];
-  float* qs = fsm;
-  float* ring = qs + L::Q_EL;
-
-  const int qt = static_cast<int>(a.nq) - 1 - static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / static_cast<int>(a.Hq / a.Hkv);
-  const int S = static_cast<int>(a.S), q0 = qt * F32_BQ;
-  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
-  const ModF<MOD> mod{static_cast<float>(a.scale),
-                      MOD == MOD_ALIBI ? alibi_slope(h, a.score_arg) : 0.f,
-                      static_cast<float>(a.score_arg)};
-  const Mask32 mask = mask32(a);
-
-  const float* qg = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  const float* kg = static_cast<const float*>(a.k) + b * a.sk[0] + hk * a.sk[1];
-  const float* vg = static_cast<const float*>(a.v) + b * a.sv[0] + hk * a.sv[1];
-  // rows [row0, row0 + rows) of an [S, D] slab into shared memory, 16 bytes
-  // a copy; rows past S are zero
-  const auto load_rows = [&](float* dst, int ld, const float* src, int64_t stride,
-                             int64_t row0, int rows) {
-    for (int i = tid; i < rows * (D / 4); i += L::NTH) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      const bool in = row0 + r < S;
-      wg::cp_async<16>(dst + r * ld + c, in ? src + (row0 + r) * stride + c : src, in);
-    }
-  };
-  const int lo = a.ranges[2 * qt], n = a.ranges[2 * qt + 1] - lo;
-  const auto load_kv = [&](int it) {  // K and V of the iteration-it tile into its stage
-    float* ks = ring + (it & 1) * L::STAGE;
-    const int64_t k0 = static_cast<int64_t>(lo + it) * BKV;
-    load_rows(ks, L::LDQ, kg, a.sk[2], k0, BKV);
-    load_rows(ks + L::K_EL, L::LDV, vg, a.sv[2], k0, BKV);
-  };
-  load_rows(qs, L::LDQ, qg, a.sq[2], q0, F32_BQ);
-  if (n > 0) load_kv(0);
-  wg::cp_async_commit();
-
-  const float* qw = qs + (16 * warp + g) * L::LDQ + 2 * t;  // rows g, g + 8 of the warp
-  const int row_a = q0 + 16 * warp + g;                      // and their positions
-  float o[ON][4];
-#pragma unroll
-  for (int i = 0; i < ON; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};  // running max of rows g, g + 8
-  float l[2] = {0.f, 0.f};          // this thread's share of the running sums
-  for (int it = 0; it < n; ++it) {
-    if (it + 1 < n) load_kv(it + 1);
-    wg::cp_async_commit();
-    wg::cp_async_wait<1>();  // this tile's copies (this thread's) have landed
-    __syncthreads();         // ... everyone's
-    const float* ks = ring + (it & 1) * L::STAGE;
-    const float* vs = ks + L::K_EL;
-    const int j = lo + it;
-
-    // S = Q K^T: step kk pairs logical k t, t + 4 with columns 8 kk + 2t,
-    // 8 kk + 2t + 1 of Q and K alike (two steps unrolled at a time: fully
-    // unrolled, the hoisted fragments spilled more and ran 2-4% slower)
-    float s[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const float2 x0 = *reinterpret_cast<const float2*>(qw + kk * 8);
-      const float2 x1 = *reinterpret_cast<const float2*>(qw + 8 * L::LDQ + kk * 8);
-      uint32_t ah[4], al[4];
-      split_tf32(x0.x, ah[0], al[0]);
-      split_tf32(x1.x, ah[1], al[1]);
-      split_tf32(x0.y, ah[2], al[2]);
-      split_tf32(x1.y, ah[3], al[3]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float2 y = *reinterpret_cast<const float2*>(ks + (nt * 8 + g) * L::LDQ + kk * 8 +
-                                                          2 * t);
-        uint32_t bh[2], bl[2];
-        split_tf32(y.x, bh[0], bl[0]);
-        split_tf32(y.y, bh[1], bl[1]);
-        mma3(s[nt], ah, al, bh, bl);
-      }
-    }
-
-    // the online softmax of S, in place: P. A tile flagged full takes no
-    // mask and lies inside S (one test a tile, not an element).
-    const int k0 = j * BKV + 2 * t;
-    float mx[2] = {m[0], m[1]};
-    if (a.full[static_cast<int64_t>(qt) * a.nk + j] != 0) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = mod(s[nt][e], row_a + 8 * (e >> 1), k0 + nt * 8 + (e & 1));
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row_a + 8 * (e >> 1), col = k0 + nt * 8 + (e & 1);
-          const float x = mask.allowed(row, col) ? mod(s[nt][e], row, col) : NEG_INF;
-          s[nt][e] = (row < S) & (col < S) ? x : -INFINITY;  // past S: never contributes
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      alpha[r] = expf(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += p;
-        s[nt][e] = p;
-      }
-
-    // O = alpha O + P V: step kk of P V pairs logical k t, t + 4 with keys
-    // 8 kk + 2t, 8 kk + 2t + 1, where S's accumulator holds them
-#pragma unroll
-    for (int on = 0; on < ON; ++on)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[on][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      uint32_t ah[4], al[4];
-      split_tf32(s[kk][0], ah[0], al[0]);
-      split_tf32(s[kk][2], ah[1], al[1]);
-      split_tf32(s[kk][1], ah[2], al[2]);
-      split_tf32(s[kk][3], ah[3], al[3]);
-      const float* vk = vs + (kk * 8 + 2 * t) * L::LDV + g;
-#pragma unroll
-      for (int on = 0; on < ON; ++on) {
-        uint32_t bh[2], bl[2];
-        split_tf32(vk[on * 8], bh[0], bl[0]);
-        split_tf32(vk[on * 8 + L::LDV], bh[1], bl[1]);
-        mma3(o[on], ah, al, bh, bl);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage: the next load may refill it
-  }
-  wg::cp_async_wait<0>();
-
-  float den[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) den[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-  float* og_ = static_cast<float*>(a.out0) + b * a.so[0] + h * a.so[1];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row >= S) continue;
-    float* dst = og_ + row * a.so[2] + 2 * t;
-#pragma unroll
-    for (int on = 0; on < ON; ++on)
-      *reinterpret_cast<float2*>(dst + on * 8) =
-          make_float2(o[on][2 * r] / den[r], o[on][2 * r + 1] / den[r]);
-    if (t == 0) a.lse_out[(static_cast<int64_t>(b) * a.Hq + h) * S + row] = m[r] + logf(den[r]);
-  }
-}
-
 // ------------------------------------------------------------------ launchers
-enum Which { FWD = 0, DQ = 1, DKV = 2 };
+
 
 // ------------------------------------------------ host side of the wgmma path
-int64_t cdiv(int64_t x, int64_t y) { return (x + y - 1) / y; }
+
 
 // A 4-D tensor map over one [B, H, S, D] bf16 operand read through its
 // element strides st = (b, h, s) with a contiguous D: dims (D, S, H, B),
@@ -1737,54 +1112,6 @@ int launch_dq_wgmma(const FlashArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int MOD>
-int launch_fwd_f32(const FlashArgs* a, cudaStream_t stream) {
-  using L = F32Fwd<D>;
-  if (a->nq != cdiv(a->S, F32_BQ) || a->nk != cdiv(a->S, L::BKV) || a->S >= (1ll << 31))
-    return static_cast<int>(cudaErrorInvalidValue);  // a plan at other tile sizes
-  const auto kernel = flash_fwd_f32_kernel<D, MOD>;
-  static std::atomic<unsigned long long> ready{0};
-  const int err = wg::allow_smem(ready, kernel, L::BYTES);
-  if (err != 0) return err;
-  kernel<<<dim3(static_cast<unsigned>(a->nq), static_cast<unsigned>(a->Hq),
-                static_cast<unsigned>(a->B)),
-           L::NTH, L::BYTES, stream>>>(*a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The fp32 dQ and dK/dV: one 32-row SIMT CTA per tile, grid (tiles, Hq, B).
-template <int D, Which W>
-int launch_simt(const FlashArgs* a, cudaStream_t stream) {
-  const dim3 grid((unsigned)(W == DKV ? a->nk : a->nq), (unsigned)a->Hq, (unsigned)a->B);
-  void (*kernel)(const FlashArgs);
-  size_t bytes;
-  if constexpr (W == DQ) {
-    kernel = flash_bwd_dq_kernel<D, 32>;
-    bytes = dq_smem<D, 32>();
-  } else {
-    kernel = flash_bwd_dkv_kernel<D, 32>;
-    bytes = dkv_smem<D, 32>();
-  }
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NTHREADS, bytes, stream>>>(*a);
-  return (int)cudaGetLastError();
-}
-
-// fp32: the 3xTF32 forward; dQ and dK/dV on the 32-row SIMT tiles.
-template <int D>
-int launch_f32(const FlashArgs* a, Which which, cudaStream_t s) {
-  if (which == FWD) {
-    if (a->score_mod == MOD_ALIBI) return launch_fwd_f32<D, MOD_ALIBI>(a, s);
-    if (a->score_mod == MOD_SOFTCAP) return launch_fwd_f32<D, MOD_SOFTCAP>(a, s);
-    return launch_fwd_f32<D, MOD_NONE>(a, s);
-  }
-  if (a->nq != cdiv(a->S, 32) || a->nk != cdiv(a->S, 32))
-    return static_cast<int>(cudaErrorInvalidValue);  // a plan at other tile sizes
-  return which == DQ ? launch_simt<D, DQ>(a, s) : launch_simt<D, DKV>(a, s);
-}
-
 template <int MOD>
 int launch_wgmma(const FlashArgs* a, Which which, int d, cudaStream_t s) {
   if (which == DQ) {
@@ -1811,37 +1138,14 @@ int launch_wgmma(const FlashArgs* a, Which which, int d, cudaStream_t s) {
   }
 }
 
-// Kernel variants (the wrapper's flash_variant codes): 0 = "f32" (fp32 at
-// head dims 16/32/64/128: the 3xTF32 forward, the 32-row SIMT dQ and
-// dK/dV), 2 = "wgmma" (bf16 on the TMA ring with wgmma, all three
-// functions at head dims 16/32/64/128; its operands must meet TMA's
-// rules). Each plan must be at its kernel's tile sizes. Any other code is
-// refused: 1 was the bf16 WMMA kernels, 3 the bf16 SIMT ones (removed).
-enum Variant { F32 = 0, WGMMA = 2 };
-
+// The bf16 kernels ("wgmma"); the fp32 ones are flash_attention_f32.cu's.
 int dispatch(const FlashArgs* a, Which which, int variant, int head_dim, void* stream) {
+  if (variant != WGMMA || !args_ok(a, head_dim) || !tma_ok(a, which))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->B <= 0 || a->Hq <= 0 || a->Hkv <= 0 || a->S <= 0 || a->Hq % a->Hkv ||
-      a->mask_type < MASK_FULL || a->mask_type > MASK_BAND ||
-      a->score_mod < MOD_NONE || a->score_mod > MOD_SOFTCAP ||
-      (a->score_mod != MOD_NONE && !(a->score_arg > 0.0)) ||
-      !(head_dim == 16 || head_dim == 32 || head_dim == 64 || head_dim == 128))
-    return (int)cudaErrorInvalidValue;
-  if (variant == F32) {
-    switch (head_dim) {
-      case 16: return launch_f32<16>(a, which, s);
-      case 32: return launch_f32<32>(a, which, s);
-      case 64: return launch_f32<64>(a, which, s);
-      default: return launch_f32<128>(a, which, s);
-    }
-  }
-  if (variant == WGMMA) {
-    if (!tma_ok(a, which)) return (int)cudaErrorInvalidValue;
-    if (a->score_mod == MOD_ALIBI) return launch_wgmma<MOD_ALIBI>(a, which, head_dim, s);
-    if (a->score_mod == MOD_SOFTCAP) return launch_wgmma<MOD_SOFTCAP>(a, which, head_dim, s);
-    return launch_wgmma<MOD_NONE>(a, which, head_dim, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (a->score_mod == MOD_ALIBI) return launch_wgmma<MOD_ALIBI>(a, which, head_dim, s);
+  if (a->score_mod == MOD_SOFTCAP) return launch_wgmma<MOD_SOFTCAP>(a, which, head_dim, s);
+  return launch_wgmma<MOD_NONE>(a, which, head_dim, s);
 }
 
 }  // namespace

@@ -2,11 +2,12 @@
 
 Two versions of each of the three functions:
 
-- the kernels, ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``),
-  replacing the JAX package's Pallas TPU kernels ``flash_fwd``,
-  ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``ops/flash_attention.py``). The
-  library is compiled with ``nvcc`` at first use into ``build/kernels/`` at
-  the repository root (``utils/cuda_build.py``) and bound through ``ctypes``;
+- the kernels, CUDA C++ for ``sm_90a`` replacing the JAX package's Pallas
+  TPU kernels ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+  (``ops/flash_attention.py``): the bf16 ones in ``csrc/flash_attention.cu``,
+  the fp32 ones in ``csrc/flash_attention_f32.cu``. Each source is compiled
+  with ``nvcc`` at first use into a library of its own in ``build/kernels/``
+  at the repository root (``utils/cuda_build.py``), bound through ``ctypes``;
 - ``*_plain``, the same arithmetic in plain PyTorch with the score matrix
   materialized: the CPU path, and what the kernels are held against.
 
@@ -23,8 +24,7 @@ or launch error falls back. Each function has two kernels ("variants");
 :func:`flash_variant` picks one before launch: "wgmma" (TMA ring feeding
 wgmma, scores, P and dS in registers) for bf16 at the head dims of
 :data:`WGMMA_HEAD_DIMS` (16, 32, 64 and 128), "f32" for fp32 at any of
-the four (the forward on 3xTF32 ``mma.sync``, dQ and dK/dV on SIMT tiles).
-Each wrapper
+the four (all three on 3xTF32 ``mma.sync``). Each wrapper
 counts its launches in ``<fn>.launches``, per variant in
 ``<fn>.launches_by_variant`` and per score mod in ``<fn>.launches_by_mod``
 (:func:`reset_launches` zeroes all three).
@@ -91,7 +91,14 @@ _DQ_BKV = {16: 64, 32: 64, 64: 128, 128: 64}  # DQ_BKV_D* in csrc/flash_attentio
 # The fp32 forward's KV rows per stage (F32_BKV_D*; F32_BQ query rows a CTA)
 _F32_BQ = 64
 _F32_BKV = {16: 64, 32: 64, 64: 64, 128: 32}
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+# The fp32 dQ's KV rows per stage (F32_DQ_BKV_D*; F32_DQ_BQ query rows a CTA)
+# and dK/dV's query rows per stage (F32_DKV_BQ_D*; F32_DKV_BKV KV rows a CTA)
+_F32_DQ_BQ = 64
+_F32_DQ_BKV = {16: 64, 32: 64, 64: 32, 128: 32}
+_F32_DKV_BKV = 64
+_F32_DKV_BQ = {16: 64, 32: 64, 64: 32, 128: 32}
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"  # "wgmma"
+_SRC_F32 = _SRC.with_name("flash_attention_f32.cu")  # "f32"
 
 
 def check_matmul_precision(precision: Optional[str]) -> Optional[str]:
@@ -134,7 +141,10 @@ def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
     CTA against ``_DKV_BQ[head_dim]``-row Q tiles (128 at D 16, 32 and 64,
     64 at D 128, where dK and dV alone hold 128 registers a thread); the
     fp32 forward 64 query rows per CTA against ``_F32_BKV[head_dim]``-row
-    KV tiles; the fp32 dQ and dK/dV (SIMT) 32 square."""
+    KV tiles; the fp32 dQ 64 query rows per CTA against
+    ``_F32_DQ_BKV[head_dim]``-row KV tiles and the fp32 dK/dV 64 KV rows per
+    CTA against ``_F32_DKV_BQ[head_dim]``-row Q tiles (32 rows at D 64 and
+    128, 64 at D 16 and 32)."""
     if variant == "wgmma":
         if fn == "flash_fwd":
             return (128, 128)
@@ -143,7 +153,9 @@ def kernel_tiles(fn: str, variant: str, head_dim: int = 64) -> Tuple[int, int]:
         return (_DKV_BQ[head_dim], 128)
     if fn == "flash_fwd":
         return (_F32_BQ, _F32_BKV[head_dim])
-    return (32, 32)
+    if fn == "flash_bwd_dq":
+        return (_F32_DQ_BQ, _F32_DQ_BKV[head_dim])
+    return (_F32_DKV_BQ[head_dim], _F32_DKV_BKV)
 
 
 # -- tile planners (the JAX package's, over Python ints) -----------------------
@@ -254,6 +266,13 @@ def _plan(mask_type: str, window: int, prefix_len: int, S: int, block: int,
 
 
 # -- plain versions ----------------------------------------------------------------
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions' accumulation type: fp32, or float64 for float64
+    operands (the exact reference :func:`kernel_check.reference` evaluates
+    them in)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _mask_mod(mask_type: str, window: int, prefix_len: int):
     if mask_type == "causal":
         return M.causal()
@@ -282,10 +301,11 @@ def _probs(q, k, mask_type, window, prefix_len, scale, lse=None,
     """fp32 scores ``(q . k^T) * scale`` through the score mod, masked to
     NEG_INF (GQA: query head h reads KV head h // G); returns the scores
     (or ``exp(s - lse)`` given ``lse``), the expanded K and the mod's
-    Jacobian (None unless soft_cap), as the JAX kernels compute them."""
+    Jacobian (None unless soft_cap), as the JAX kernels compute them (in
+    float64 for float64 operands)."""
     G = q.shape[1] // k.shape[1]
     kf = k.repeat_interleave(G, dim=1)
-    s = torch.matmul(q.float(), kf.float().transpose(-1, -2)) * scale
+    s = torch.matmul(_acc(q), _acc(kf).transpose(-1, -2)) * scale
     d_mod = None
     if score_mod != "none":
         Sq, Sk = q.shape[2], k.shape[2]
@@ -319,7 +339,7 @@ def flash_fwd_plain(q, k, v, mask_type: str = "causal", window: int = 512,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     vf = v.repeat_interleave(G, dim=1)
-    o = torch.matmul(p.to(v.dtype).float(), vf.float()) / l
+    o = torch.matmul(_acc(p.to(v.dtype)), _acc(vf)) / l
     return o.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -339,10 +359,9 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, mask_type: str = "causal",
     p, kf, d_mod = _probs(q, k, mask_type, window, prefix_len, scale, lse, score_mod,
                           score_arg)
     G = q.shape[1] // k.shape[1]
-    dp = torch.matmul(do.float(), v.repeat_interleave(G, dim=1).float()
-                      .transpose(-1, -2))
+    dp = torch.matmul(_acc(do), _acc(v.repeat_interleave(G, dim=1)).transpose(-1, -2))
     ds = _ds(p, dp, delta, d_mod, scale)
-    return torch.matmul(ds.to(k.dtype).float(), kf.float()).to(q.dtype)
+    return torch.matmul(_acc(ds.to(k.dtype)), _acc(kf)).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, mask_type: str = "causal",
@@ -353,11 +372,10 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, mask_type: str = "causal",
     p, _, d_mod = _probs(q, k, mask_type, window, prefix_len, scale, lse, score_mod,
                          score_arg)
     G = q.shape[1] // k.shape[1]
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
-    dp = torch.matmul(do.float(), v.repeat_interleave(G, dim=1).float()
-                      .transpose(-1, -2))
+    dv = torch.matmul(_acc(p.to(do.dtype)).transpose(-1, -2), _acc(do))
+    dp = torch.matmul(_acc(do), _acc(v.repeat_interleave(G, dim=1)).transpose(-1, -2))
     ds = _ds(p, dp, delta, d_mod, scale)
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    dk = torch.matmul(_acc(ds.to(q.dtype)).transpose(-1, -2), _acc(q))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -378,28 +396,27 @@ class _FlashArgs(ctypes.Structure):
            ("score_arg", ctypes.c_double)])
 
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
-def build_library() -> Path:
-    """Compile ``csrc/flash_attention.cu`` for sm_90a (once per source hash)
-    and return the shared library's path."""
-    return cuda_build.build_library(_SRC)
-
-
-def _library():
-    global _lib
+def _library(variant: str):
+    """The library holding ``variant``'s kernels, compiled for sm_90a at
+    first use (once per source hash): ``_SRC_F32``'s for "f32", ``_SRC``'s
+    for any other code (which refuses the codes it has no kernel for). Both
+    export the same three C entries."""
+    src = _SRC_F32 if variant == "f32" else _SRC
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
+        lib = _libs.get(src.name)
+        if lib is None:
+            lib = ctypes.CDLL(str(cuda_build.build_library(src)))
             for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch,
                        lib.flash_bwd_dkv_launch):
                 fn.argtypes = [ctypes.POINTER(_FlashArgs), ctypes.c_int,
                                ctypes.c_int, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[src.name] = lib
+        return lib
 
 
 def _check(name: str, tensors: Dict[str, torch.Tensor], mask_type: str,
@@ -478,7 +495,7 @@ def _launch(fn_name: str, variant: str, q, k, v, *, ranges, full, mask_type,
         sdo=_bhs(dout), s0=_bhs(out0), s1=_bhs(out1),
         mask_type=_MASK_CODES[mask_type], window=window, prefix=prefix_len,
         scale=float(scale), score_mod=_MOD_CODES[score_mod], score_arg=float(score_arg))
-    err = getattr(_library(), fn_name)(
+    err = getattr(_library(variant), fn_name)(
         ctypes.byref(a), _VARIANT_CODES[variant], D,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

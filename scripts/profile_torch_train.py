@@ -2,7 +2,7 @@
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train.py
-        [--config 40m-adamw|moe-8x40m|1b-singlechip|100m-muon|1m-adamw|1m-flex]
+        [--config 40m-adamw|40m-adamw-fp32|moe-8x40m|1b-singlechip|100m-muon|1m-adamw|1m-flex]
         [--steps 10] [--per-leaf-ns] [--root DIR] [--out profile.json]
 
 Builds configs/model-config-40m-adamw.yaml (the default),
@@ -10,7 +10,8 @@ configs/model-config-moe-8x40m.yaml, configs/model-config-1b-singlechip.yaml,
 configs/model-config-100m-muon.yaml, configs/models/model-config-1m-adamw.yaml
 or configs/model-config-1m-flex.yaml at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
 heads of 64, 1024 positions, batch 32, bf16 compute over fp32 masters,
-flash attention, AdamW with clip 1.0; the MoE config's 8 experts top-2
+flash attention, AdamW with clip 1.0; 40m-adamw-fp32 the same with
+``system.mixed_precision`` false (fp32 compute, the fp32 flash kernels); the MoE config's 8 experts top-2
 with its router losses, on one GPU, without its expert-parallel mesh. 1B:
 hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, 2048
 positions, batch 8, flash attention, remat "full" on the first half of the
@@ -160,6 +161,8 @@ CONFIG_1M_FLEX = {
     "system": {"seed": 42, "mixed_precision": True},
 }
 CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B,
+           "40m-adamw-fp32": {**CONFIG_40M, "name": "40m-adamw-fp32",
+                              "system": {"seed": 42, "mixed_precision": False}},
            "100m-muon": CONFIG_100M_MUON, "1m-adamw": CONFIG_1M_ADAMW,
            "1m-flex": CONFIG_1M_FLEX}
 VOCAB = 259
@@ -224,7 +227,7 @@ def main(argv=None) -> int:
     args = llama.LlamaArgs.from_config(cfg.model, VOCAB)
     params = llama.init_params(args, torch.Generator().manual_seed(42), device="cuda")
     optimizer = build_optimizer(cfg.training, cfg.training.iters)
-    dtype = torch.bfloat16
+    dtype = torch.bfloat16 if cfg.system.compute_dtype == "bfloat16" else torch.float32
 
     experts = args.num_local_experts if args.is_moe else 0
     seq = cfg.data.max_context_size
@@ -298,7 +301,8 @@ def main(argv=None) -> int:
     out = {
         "card": card,
         "root": os.path.dirname(os.path.dirname(os.path.dirname(llama.__file__))),
-        "config": f"{a.config}, B {cfg.training.batch_size}, S {seq}, bf16 over fp32, "
+        "config": f"{a.config}, B {cfg.training.batch_size}, S {seq}, "
+                  f"{'bf16 over fp32' if dtype == torch.bfloat16 else 'fp32'}, "
                   f"{args.attention_type} attention, remat {cfg.system.remat}, "
                   f"{cfg.training.optimizer_name}"
                   + (" (NS per leaf)" if a.per_leaf_ns else ""),

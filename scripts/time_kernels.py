@@ -29,10 +29,11 @@ tree's ``build/kernels/``. The shapes:
   32, H 8, S 1024, D 64 and at the 1B's B 8, H 16, S 2048, D 128, causal,
   no score mod; at the 1M configs' B 16, H 4 over 2 KV heads, S 512, D 32,
   causal; and at 1m-flex's B 16, H 6, S 512, D 16, sliding window 128
-  with ALiBi over 6 heads; and fp32 at ``chip_smoke.py``'s three fp32
+  with ALiBi over 6 heads; and fp32 at three of ``chip_smoke.py``'s fp32
   cases (B 4, H 8, S 1024, D 64; B 2, H 8 over 2 KV heads, S 1000, D 64;
-  B 2, H 8, S 1024, D 128; causal). Each kernel runs the variant its
-  tree's ``flash_variant`` picks (the JSON's ``variants`` counts them).
+  B 2, H 8, S 1024, D 128; causal): the three fp32 kernels (in an older
+  tree, the SIMT kernels they replaced). Each kernel runs the variant its tree's
+  ``flash_variant`` picks (the JSON's ``variants`` counts them).
 
 Each time is the mean over ``--reps`` back-to-back launches between CUDA
 events, after warm-up. To compare a change with its parent, unpack the

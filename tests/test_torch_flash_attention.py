@@ -224,7 +224,7 @@ def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
 
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(tf, "_lib", None)
+    monkeypatch.setattr(tf, "_libs", {})
     monkeypatch.setattr(tf, "_check", lambda *a: None)
     monkeypatch.setattr(tf, "_plan", lambda *a: (None, None, torch.zeros(2, 2)))
     q, k, v, do, lse, delta = _meta_inputs()
@@ -244,8 +244,8 @@ def test_flash_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
     # bf16 takes the TMA/wgmma kernels, all three at every head dim; fp32
-    # the "f32" ones (the 3xTF32 forward, the SIMT dQ and dK/dV); each
-    # variant plans at its own tiles.
+    # the "f32" ones (all three on 3xTF32 mma.sync); each variant plans at
+    # its own tiles.
     got = tf.flash_variant(fn, getattr(torch, dtype), head_dim)
     want = "f32" if dtype == "float32" else "wgmma"
     assert got == want
@@ -255,7 +255,9 @@ def test_flash_variant_for_every_kernel_dtype_and_head_dim(fn, dtype, head_dim):
         ("flash_bwd_dq", "wgmma"): (128, tf._DQ_BKV.get(head_dim)),
         ("flash_bwd_dkv", "wgmma"): (tf._DKV_BQ.get(head_dim), 128),
         ("flash_fwd", "f32"): (tf._F32_BQ, tf._F32_BKV.get(head_dim)),
-    }.get((fn, got), (32, 32))
+        ("flash_bwd_dq", "f32"): (tf._F32_DQ_BQ, tf._F32_DQ_BKV.get(head_dim)),
+        ("flash_bwd_dkv", "f32"): (tf._F32_DKV_BQ.get(head_dim), tf._F32_DKV_BKV),
+    }[(fn, got)]
     # the bf16 WMMA and SIMT kernels are gone: no variant and no C entry
     # code names them
     assert tf.FLASH_VARIANTS == ("wgmma", "f32")
@@ -288,30 +290,35 @@ def test_kernel_tiles_match_the_cuda_source():
 
 
 def test_dq_and_fp32_forward_tiles_match_the_cuda_source():
-    # _DQ_BKV (every head dim) and the fp32 forward's tiles are the
-    # constexprs the kernels are compiled with and check the plan against.
+    # _DQ_BKV (every head dim) and the fp32 kernels' tiles (forward, dQ and
+    # dK/dV) are the constexprs the kernels are compiled with and check the
+    # plan against.
     import re
 
-    src = tf._SRC.read_text()
+    src = tf._SRC.read_text() + tf._SRC_F32.read_text()
     const = {n: int(v) for n, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert tf._DQ_BKV == {d: const[f"DQ_BKV_D{d}"] for d in (16, 32, 64, 128)}
     for d in (16, 32, 64, 128):
         assert tf.kernel_tiles("flash_fwd", "f32", d) == (const["F32_BQ"],
                                                           const[f"F32_BKV_D{d}"])
-        assert tf.kernel_tiles("flash_bwd_dq", "f32", d) == (32, 32)
-        assert tf.kernel_tiles("flash_bwd_dkv", "f32", d) == (32, 32)
+        assert tf.kernel_tiles("flash_bwd_dq", "f32", d) == (const["F32_DQ_BQ"],
+                                                             const[f"F32_DQ_BKV_D{d}"])
+        assert tf.kernel_tiles("flash_bwd_dkv", "f32", d) == (const[f"F32_DKV_BQ_D{d}"],
+                                                              const["F32_DKV_BKV"])
 
 
-# The tiles this slice plans at: the wgmma dQ at D 16 and 32, the fp32
-# forward at every head dim.
+# The tiles the redesigned kernels plan at: the wgmma dQ at D 16 and 32, the
+# three fp32 kernels at every head dim.
+F32_PLAN_TILES = sorted({tf.kernel_tiles(fn, "f32", d) for fn in tf.FLASH_KERNELS
+                         for d in (16, 32, 64, 128)})
 NEW_PLAN_TILES = sorted({tf.kernel_tiles("flash_bwd_dq", "wgmma", d) for d in (16, 32)}
-                        | {tf.kernel_tiles("flash_fwd", "f32", d) for d in (16, 32, 64, 128)})
+                        | set(F32_PLAN_TILES))
 
 
 @pytest.mark.parametrize("mask_type", ["causal", "sliding_window", "prefix_lm", "full", "band"])
 @pytest.mark.parametrize("S", [1, 64, 127, 1000, 1024])
 def test_plan_at_the_new_tiles_matches_jax_planners(mask_type, S):
-    # _plan at the wgmma dQ's D 16/32 tiles and the fp32 forward's: live
+    # _plan at the wgmma dQ's D 16/32 tiles and the fp32 kernels': live
     # ranges from JAX's _kv_range / _q_range, the no-mask flag from its
     # _full_tile_fn and the tile lying inside S, windows and a prefix that
     # are not multiples of a tile.
@@ -421,27 +428,34 @@ def test_planted_fault_drops_one_tile_of_the_wgmma_plans():
 
 
 def test_planted_fault_drops_one_tile_of_the_fp32_forward_plans():
-    # The fp32 forward's plans (64 query rows against 64- or 32-row KV
-    # tiles) lose the last live KV tile of their last Q tile, as the wgmma
-    # plans do.
+    # The fp32 kernels' plans (the forward and dQ: 64 query rows against
+    # 64- or 32-row KV tiles; dK/dV: 64- or 32-row Q tiles against 64 KV
+    # rows) lose the last live KV tile of their last Q tile (forward, dQ)
+    # and the last live Q tile of KV tile 0 (dK/dV), as the wgmma plans do.
     cpu = torch.device("cpu")
-    for bq, bkv in sorted({tf.kernel_tiles("flash_fwd", "f32", d) for d in (16, 32, 64, 128)}):
-        kv0 = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[0]
+    assert {tf.kernel_tiles(fn, "f32", d)[0] for fn in ("flash_fwd", "flash_bwd_dq")
+            for d in (16, 32, 64, 128)} == {64}
+    assert {tf.kernel_tiles("flash_bwd_dkv", "f32", d)[1] for d in (16, 32, 64, 128)} == {64}
+    for bq, bkv in F32_PLAN_TILES:
+        kv0, q0 = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[:2]
         with kernel_check.planted_fault():
-            kv = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[0]
+            kv, qr = tf._plan("causal", 0, 0, 1024, bq, cpu, bkv)[:2]
         assert kv[:-1].tolist() == kv0[:-1].tolist()
         assert kv[-1].tolist() == [0, kv0[-1, 1].item() - 1] == [0, 1024 // bkv - 1]
+        assert qr[1:].tolist() == q0[1:].tolist()
+        assert qr[0].tolist() == [0, q0[0, 1].item() - 1] == [0, 1024 // bq - 1]
 
 
 def test_header_edit_changes_the_library_path(monkeypatch, tmp_path):
     # Every source hashes with every csrc/*.cuh: an edited header rebuilds
-    # both libraries; an edit elsewhere in the directory does not.
+    # every library; an edit elsewhere in the directory does not.
     from mlx_cuda_distributed_pretraining_tpu_torch.utils import cuda_build
 
     csrc = tf._SRC.parent
     for f in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
         (tmp_path / f.name).write_bytes(f.read_bytes())
-    srcs = [tmp_path / "flash_attention.cu", tmp_path / "grouped_matmul.cu"]
+    srcs = [tmp_path / "flash_attention.cu", tmp_path / "flash_attention_f32.cu",
+            tmp_path / "grouped_matmul.cu"]
     assert (tmp_path / "hopper.cuh").exists()
     assert all('#include "hopper.cuh"' in s.read_text() for s in srcs)
     before = [cuda_build.library_path(s) for s in srcs]
@@ -453,3 +467,32 @@ def test_header_edit_changes_the_library_path(monkeypatch, tmp_path):
     after = [cuda_build.library_path(s) for s in srcs]
     assert all(a != b and a.name.startswith(b.name.split("-")[0])
                for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("fn", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_reference_runs_fp32_operands_in_float64_and_bf16_as_given(fn, dtype):
+    # The fp32 kernels' reference is the plain version on float64 copies of
+    # every fp32 tensor (lse and delta too), cast back to fp32; with bf16
+    # operands it is the plain call itself, its fp32 lse and delta untouched.
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(1, 4, 70, 16, generator=g).to(getattr(torch, dtype))
+                   for _ in range(4))
+    k, v = k[:, :2], v[:, :2]
+    kw = dict(score_mod="alibi", score_arg=4.0)
+    o, lse = tf.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v) if fn == "flash_fwd" else (q, k, v, do, lse, delta)
+    plain = getattr(tf, fn + "_plain")
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    got = as_tuple(kernel_check.reference(plain, *args, **kw))
+    if dtype == "bfloat16":
+        want = as_tuple(plain(*args, **kw))
+    else:
+        want = tuple(t.float() for t in as_tuple(plain(*(a.double() for a in args), **kw)))
+        assert not torch.equal(got[0], as_tuple(plain(*args, **kw))[0])
+    assert got[0].dtype == getattr(torch, dtype)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))

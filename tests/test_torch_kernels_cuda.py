@@ -11,6 +11,8 @@ without JAX it runs with the repository's conftest switched off:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -453,10 +455,12 @@ def test_flash_kernels_match_plain(cuda, dtype, B, Hq, Hkv, S, D, mask):
     torch.cuda.synchronize()
     assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
             tfa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
-    rdq = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
-    rdk, rdv = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
-    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
-    for name, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+    # fp32: held to the plain versions evaluated in float64 (kernel_check.reference)
+    xo, xlse = kernel_check.reference(tfa.flash_fwd_plain, q, k, v, **kw)
+    rdq = kernel_check.reference(tfa.flash_bwd_dq_plain, q, k, v, do, rlse, delta, **kw)
+    rdk, rdv = kernel_check.reference(tfa.flash_bwd_dkv_plain, q, k, v, do, rlse, delta, **kw)
+    torch.testing.assert_close(lse, xlse, atol=1e-5, rtol=1e-5)
+    for name, got, ref in (("o", o, xo), ("dq", dq, rdq), ("dk", dk, rdk),
                            ("dv", dv, rdv)):
         assert got.shape == ref.shape and got.dtype == ref.dtype, name
         check = kernel_check.compare(got, ref)
@@ -623,16 +627,36 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
         tfa._launch("flash_bwd_dq_launch", "wgmma", q, k, v, ranges=ranges, full=full,
                     dout=do, lse_in=lse, delta=lse, out0=o, **plan_kw)
     # at D 16 the wgmma dQ refuses a plan at other tile sizes than its own,
-    # and so does the fp32 forward (64-row Q tiles) a 32-square one
+    # and so do the fp32 forward, dQ and dK/dV (64-row tiles) a 32-square
+    # one
     q16, k16, v16, do16 = _flash_inputs("bfloat16", 1, 4, 4, 256, 16)
     o16 = torch.empty_like(q16)
     ranges, q_ranges, full = tfa._plan("causal", 0, 0, 256, 32, q.device)
     with pytest.raises(RuntimeError, match="wgmma"):
         tfa._launch("flash_bwd_dq_launch", "wgmma", q16, k16, v16, ranges=ranges, full=full,
                     dout=do16, lse_in=lse, delta=lse, out0=o16, **plan_kw)
-    qf, kf, vf, _ = _flash_inputs("float32", 1, 4, 4, 256, 16)
+    qf, kf, vf, dof = _flash_inputs("float32", 1, 4, 4, 256, 16)
     with pytest.raises(RuntimeError, match="f32"):
         tfa._launch("flash_fwd_launch", "f32", qf, kf, vf, ranges=ranges, full=full,
+                    out0=torch.empty_like(qf), lse_out=lse, **plan_kw)
+    with pytest.raises(RuntimeError, match="f32"):
+        tfa._launch("flash_bwd_dq_launch", "f32", qf, kf, vf, ranges=ranges, full=full,
+                    dout=dof, lse_in=lse, delta=lse, out0=torch.empty_like(qf), **plan_kw)
+    with pytest.raises(RuntimeError, match="f32"):
+        tfa._launch("flash_bwd_dkv_launch", "f32", qf, kf, vf, ranges=q_ranges, full=full,
+                    dout=dof, lse_in=lse, delta=lse, out0=torch.empty_like(qf),
+                    out1=torch.empty_like(qf), **plan_kw)
+    # each library refuses the other's code on a plan at its own tiles: the
+    # bf16 one 0 ("f32"), the fp32 one 2 ("wgmma")
+    wg_ranges, _, wg_full = tfa._plan("causal", 0, 0, 256, 128, q.device, 128)
+    monkeypatch.setitem(tfa._VARIANT_CODES, "wgmma", 0)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        tfa._launch("flash_fwd_launch", "wgmma", q, k, v, ranges=wg_ranges, full=wg_full,
+                    out0=o, lse_out=lse, **plan_kw)
+    f32_ranges, _, f32_full = tfa._plan("causal", 0, 0, 256, 64, q.device, 64)
+    monkeypatch.setitem(tfa._VARIANT_CODES, "f32", 2)
+    with pytest.raises(RuntimeError, match="f32"):
+        tfa._launch("flash_fwd_launch", "f32", qf, kf, vf, ranges=f32_ranges, full=f32_full,
                     out0=torch.empty_like(qf), lse_out=lse, **plan_kw)
     # the bf16 SIMT kernels are gone: their old code (3) is refused by all
     # three C entries
@@ -668,8 +692,9 @@ def test_wgmma_flash_bad_input_raises_without_a_launch(cuda, monkeypatch):
 # (dtype, B, Hq, Hkv, S, D, mask, window, prefix, mod, arg, variant): the score
 # mods (alibi over Hq heads, soft_cap at 50 or at 2, where tanh saturates) in
 # every variant, the band mask, head dims 16 and 32 (bf16: the wgmma
-# kernels on 32- and 64-byte swizzles, every mask) and fp32, tails (S 127,
-# 129, 1000), GQA. variant: the forward's and dK/dV's; dQ's is
+# kernels on 32- and 64-byte swizzles, every mask) and fp32 (the 3xTF32
+# kernels at every head dim, every mask and mod), tails (S 127, 129, 1000),
+# GQA 4/2 and 8/2. variant: the forward's and dK/dV's; dQ's is
 # flash_variant's (the same).
 FLEX_CASES = [
     ("bfloat16", 2, 4, 4, 1024, 64, "causal", 0, 0, "soft_cap", 50.0, "wgmma"),
@@ -694,6 +719,11 @@ FLEX_CASES = [
     ("float32", 1, 4, 2, 200, 16, "sliding_window", 64, 0, "alibi", 4.0, "f32"),
     ("float32", 1, 4, 4, 129, 32, "band", 50, 0, "soft_cap", 2.0, "f32"),
     ("float32", 1, 4, 4, 256, 64, "causal", 0, 0, "soft_cap", 50.0, "f32"),
+    ("float32", 2, 8, 2, 1000, 64, "band", 256, 0, "alibi", 8.0, "f32"),
+    ("float32", 1, 4, 4, 1000, 128, "prefix_lm", 0, 200, "soft_cap", 50.0, "f32"),
+    ("float32", 2, 4, 4, 127, 128, "sliding_window", 100, 0, "none", 0.0, "f32"),
+    ("float32", 1, 8, 2, 512, 16, "full", 0, 0, "soft_cap", 2.0, "f32"),
+    ("float32", 1, 4, 4, 1000, 32, "causal", 0, 0, "alibi", 4.0, "f32"),
 ]
 
 
@@ -721,14 +751,16 @@ def test_flex_flash_kernels_match_plain(cuda, dtype, B, Hq, Hkv, S, D, mask, win
     for n in tfa.FLASH_KERNELS:
         assert _flash_counts()[n][want[n]] == before[n][want[n]] + 1, n
         assert _mod_counts()[n][mod] == before_mod[n][mod] + 1, n
-    rdq = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
-    rdk, rdv = tfa.flash_bwd_dkv_plain(q, k, v, do, rlse, delta, **kw)
+    # fp32: held to the plain versions evaluated in float64 (kernel_check.reference)
+    xo, xlse = kernel_check.reference(tfa.flash_fwd_plain, q, k, v, **kw)
+    rdq = kernel_check.reference(tfa.flash_bwd_dq_plain, q, k, v, do, rlse, delta, **kw)
+    rdk, rdv = kernel_check.reference(tfa.flash_bwd_dkv_plain, q, k, v, do, rlse, delta, **kw)
     # lse: fp32 sums in another order; the wgmma kernels' soft_cap takes
     # its tanh from ex2.approx (within ~5e-7 absolute), which moves a score
     # by up to 5e-7 x cap: there 1e-5 + 2^-20 x cap
     atol = 1e-5 + (2.0 ** -20 * arg if mod == "soft_cap" and variant == "wgmma" else 0.0)
-    torch.testing.assert_close(lse, rlse, atol=atol, rtol=1e-5)
-    for name, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+    torch.testing.assert_close(lse, xlse, atol=atol, rtol=1e-5)
+    for name, got, ref in (("o", o, xo), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
         assert got.shape == ref.shape and got.dtype == ref.dtype, name
         check = kernel_check.compare(got, ref)
         assert check["ok"], (name, check)
@@ -778,12 +810,13 @@ def test_flex_attention_runs_the_kernels_with_the_mod_code(cuda):
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
-# The two kernels redesigned last, each against its plain version: the
-# wgmma dQ at D 16 and 32 (bf16) and the 3xTF32 fp32 forward at every head
+# The kernels redesigned last, each against its plain version: the wgmma dQ
+# at D 16 and 32 (bf16) and the three 3xTF32 fp32 kernels at every head
 # dim. (B, Hq, Hkv, S, mask, window, prefix, mod, arg, layout): tails of one
 # row, one 64-row tile, either side of 128, the 1M configs' S 512 and a
 # ragged 1000; windows 100 and 300, a prefix of 200 and a band of 256 (not
-# multiples of a tile); GQA 4/2; alibi and soft_cap 50; both layouts.
+# multiples of a tile); GQA 4/2 and 8/2; alibi and soft_cap 50; both
+# layouts.
 REDESIGNED_CASES = [
     (2, 4, 4, 1, "causal", 0, 0, "none", 0.0, "bshd"),
     (2, 4, 4, 64, "causal", 0, 0, "none", 0.0, "bshd"),
@@ -799,14 +832,15 @@ REDESIGNED_CASES = [
     (2, 4, 2, 512, "causal", 0, 0, "none", 0.0, "bshd"),
     (2, 4, 2, 512, "sliding_window", 128, 0, "alibi", 4.0, "bshd"),
     (2, 4, 4, 1000, "causal", 0, 0, "soft_cap", 50.0, "bshd"),
+    (1, 8, 2, 1000, "causal", 0, 0, "none", 0.0, "bshd"),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,dtype,D", [
-    ("flash_bwd_dq", "bfloat16", 16), ("flash_bwd_dq", "bfloat16", 32),
-    ("flash_fwd", "float32", 16), ("flash_fwd", "float32", 32),
-    ("flash_fwd", "float32", 64), ("flash_fwd", "float32", 128)])
+    ("flash_bwd_dq", "bfloat16", 16), ("flash_bwd_dq", "bfloat16", 32)]
+    + [(kernel, "float32", D) for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+       for D in (16, 32, 64, 128)])
 @pytest.mark.parametrize("B,Hq,Hkv,S,mask,window,prefix,mod,arg,layout", REDESIGNED_CASES)
 def test_redesigned_flash_kernels_match_plain_repeat_bitwise_and_reject_a_planted_fault(
         cuda, kernel, dtype, D, B, Hq, Hkv, S, mask, window, prefix, mod, arg, layout):
@@ -817,34 +851,47 @@ def test_redesigned_flash_kernels_match_plain_repeat_bitwise_and_reject_a_plante
               score_mod=mod, score_arg=arg)
     ro, rlse = tfa.flash_fwd_plain(q, k, v, **kw)
     delta = (do.float() * ro.float()).sum(-1).contiguous()
+    ref = functools.partial(kernel_check.reference, **kw)  # fp32: the plain version in float64
     if kernel == "flash_fwd":
-        ref = ro
+        refs = {"o": ref(tfa.flash_fwd_plain, q, k, v)[0]}
 
         def run():
-            return tfa.flash_fwd(q, k, v, **kw)
+            o, lse = tfa.flash_fwd(q, k, v, **kw)
+            return {"o": o, "lse": lse}
+    elif kernel == "flash_bwd_dq":
+        refs = {"dq": ref(tfa.flash_bwd_dq_plain, q, k, v, do, rlse, delta)}
+
+        def run():
+            return {"dq": tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw)}
     else:
-        ref = tfa.flash_bwd_dq_plain(q, k, v, do, rlse, delta, **kw)
+        refs = dict(zip(("dk", "dv"), ref(tfa.flash_bwd_dkv_plain, q, k, v, do, rlse, delta)))
 
         def run():
-            return tfa.flash_bwd_dq(q, k, v, do, rlse, delta, **kw), None
+            return dict(zip(("dk", "dv"), tfa.flash_bwd_dkv(q, k, v, do, rlse, delta, **kw)))
     counts = getattr(tfa, kernel).launches_by_variant
     want = "f32" if dtype == "float32" else "wgmma"
     before = counts[want]
-    got, lse = run()
-    again, lse_again = run()
+    got, again = run(), run()
     torch.cuda.synchronize()
     assert counts[want] == before + 2
-    assert torch.equal(got, again), "two launches must give the same bits"
-    assert got.shape == ref.shape and got.dtype == ref.dtype
-    if lse is not None:
-        assert torch.equal(lse, lse_again)
-        torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-5)
-    if kernel == "flash_bwd_dq" and S == 1:
-        # a lone key's softmax has no gradient: both are rounding noise
-        assert got.abs().max() <= 1e-5 and ref.abs().max() <= 1e-5
+    for name, out in got.items():
+        assert torch.equal(out, again[name]), f"{name}: two launches must give the same bits"
+    if "lse" in got:
+        torch.testing.assert_close(got["lse"], ref(tfa.flash_fwd_plain, q, k, v)[1],
+                                   atol=1e-5, rtol=1e-5)
+    checked = []
+    for name, ref in refs.items():
+        assert got[name].shape == ref.shape and got[name].dtype == ref.dtype, name
+        if S == 1 and name in ("dq", "dk"):
+            # a lone key's softmax has no gradient: both are rounding noise
+            assert got[name].abs().max() <= 1e-5 and ref.abs().max() <= 1e-5, name
+            continue
+        check = kernel_check.compare(got[name], ref)
+        assert check["ok"], (name, check)
+        checked.append(name)
+    if not checked:
         return
-    check = kernel_check.compare(got, ref)
-    assert check["ok"], check
     with kernel_check.planted_fault():
-        bad, _ = run()
-    assert not kernel_check.compare(bad, ref)["ok"]
+        bad = run()
+    for name in checked:
+        assert not kernel_check.compare(bad[name], refs[name])["ok"], name
