@@ -20,7 +20,11 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    empty-group/tail-tile case; each must run the ``gmm_variant`` kernel
    (fp32: "f32_decode" at block_t 8, "f32" above), and at the fp32 prefill
    shape the kernel is launched once more with its last live row tile left
-   out, which the same check must reject. Times the kernel, the plain
+   out, which the same check must reject. The locked generation path's
+   shapes follow, each with that planted fault: one decode token (2
+   routed rows, 6 of 8 experts empty, a 64-row buffer) at gate/up and
+   down and four beams (8 rows) on "f32_decode", a 512-token padded
+   prefill (1024 rows in a 1536-row buffer, block_t 64) on "f32". Times the kernel, the plain
    version and ``torch._grouped_mm`` (where it takes the dtype) as a
    yardstick, each launch reading weights from HBM. At the MoE training
    path's shapes (block_t 128) gmm's forward and dX and tgmm must run
@@ -56,6 +60,21 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    prefill chunk and per decode step: every prefill launch on "f32", every
    decode launch on "f32_decode") and the first token's logits against the
    port's plain path on the CPU.
+4b. generate — the locked generation path on the same weights, batch 1:
+   greedy ``generate_step`` on the serving phase's three greedy prompts
+   must give the batch engine's tokens, and the first one's logprob the
+   CPU plain path's within 1e-3; 64 tokens with the fp32 cache and with
+   the int8 cache (within the first 8 tokens at most one diverging
+   token, the last; with the fp32 tokens fed, its logits the CPU plain
+   int8 path's within 1e-3 of the largest, and the first divergence where
+   the fp32 top-2 gap is within twice the int8 error); speculative
+   greedy (draft 8) the plain greedy tokens; beam search (4 beams, 16
+   tokens) a best score whose x length equals the full forward's sum of
+   logprobs within 1e-3; top_p, min_p and repetition_penalty through the
+   locked server and through the batch engine's fallback, SSE and
+   /v1/completions answer 200. Every gmm launch of the phase on
+   "f32_decode" or "f32", no flash or tgmm launch. Prints TTFT and decode
+   tok/s (fp32 and int8 cache), speculation's and beam search's tok/s.
 5. train   — trains configs/model-config-40m-adamw.yaml at full width
    (hidden 512, 12 layers, S 1024, batch 32, bf16 over fp32 masters, AdamW)
    through ``Trainer(...).train()`` on a seeded synthetic byte corpus: 30
@@ -74,7 +93,10 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    path at batch 8 (1e-5 / 1e-6 / 1e-5 relative: fp32 on both sides),
    and the same check against a 1xTF32 attention (the plain version's
    products with TF32 on), which must fail it; finite losses that fall;
-   prints step ms and tok/s.
+   prints step ms and tok/s. This run has ``logging.log_samples`` on (a
+   validation at step 10): its log must hold one ``Step 10 sample:``
+   line, and a second run without it must log the same losses (1e-5
+   relative; bitwise printed).
 6. moe     — trains configs/model-config-moe-8x40m.yaml at full width (hidden
    512, intermediate 1536, 12 layers, 8 experts top-2, dropless grouped
    dispatch, router aux and z losses, S 1024, batch 32, bf16 over fp32
@@ -142,7 +164,9 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    "gmm_f32_decode", as entries of their own with their serving launches
    and every fp32 row; each of the flex slice's (kernel, variant, score
    mod) cases as an entry named ``kernel:variant:mod:case``, with its
-   launches on the path that runs it), the card line, and as the last line
+   launches on the path that runs it; the locked generation path's four
+   gmm cases as entries ``gmm_<variant>:<case>`` with the generate phase's
+   launches at their shapes), the card line, and as the last line
    ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
    495 / 3 TFLOP/s (3xTF32), the card's fastest fp32-accurate rate.
 
@@ -968,12 +992,12 @@ def flash_kernel_phase(torch, gm, fa):
 
 
 # -- phase 4: the serving path ----------------------------------------------------
-def post(url: str, body: dict, timeout: float = 600.0):
+def post(url: str, body: dict, timeout: float = 600.0, path: str = "/generate"):
     import urllib.error
     import urllib.request
 
     req = urllib.request.Request(
-        url + "/generate", data=json.dumps(body).encode(),
+        url + path, data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
@@ -1098,7 +1122,7 @@ def path_phase(torch, gm, fa, card):
             f" ttft_ms={out.get('ttft_ms')} prefix_cached="
             f"{out['prefix_cached_tokens']} text={out['text'][:40]!r}")
     if failures:
-        return failures, {}
+        return failures, {}, None
     r1, r2, r3 = results[0][1], results[1][1], results[2][1]
     if r3["token_ids"] != r1["token_ids"]:
         failures.append("the same greedy prompt gave different tokens")
@@ -1151,6 +1175,322 @@ def path_phase(torch, gm, fa, card):
     }
     for k, v in perf.items():
         log(f"path: {k}={v} [{card}]")
+    # what the generate phase holds the locked path to: the weights, the
+    # batch engine's greedy tokens and the CPU plain path's first logprobs
+    served = {"params": params, "params_cpu": params_cpu, "args": args, "tok": tok,
+              "ref_lp": ref_lp,
+              "greedy": [(bodies[i]["prompt"], results[i][1]["token_ids"])
+                         for i in (0, 1, 4)]}
+    return failures, perf, served
+
+
+# -- phase 4b: the locked generation path ------------------------------------------
+def topk_sizes(torch, rng, tokens: int, experts: int, k: int, block_t: int):
+    """Group sizes of ``tokens`` routed to ``k`` distinct experts each (as
+    top-k routes), rounded up to block_t, and the dispatcher's buffer rows."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.ops.grouped_matmul import round_up
+
+    ids = torch.cat([torch.randperm(experts, generator=rng)[:k] for _ in range(tokens)])
+    counts = torch.bincount(ids, minlength=experts)
+    sizes = (counts + block_t - 1) // block_t * block_t
+    rows = round_up(tokens * k + experts * (block_t - 1), block_t)
+    return sizes.to(torch.int32), rows
+
+
+def generate_kernel_cases(torch, gm, kernel_check):
+    """gmm at the locked generation path's shapes on moe-8x40m, each with
+    its planted fault: one decode token (2 routed rows, 6 of 8 experts
+    empty, a 64-row buffer) at gate/up and down, four beams (8 rows), both
+    "f32_decode" at block_t 8; a 512-token padded prefill (1024 rows in a
+    1536-row buffer, block_t 64) on "f32"."""
+    rng = torch.Generator().manual_seed(SEED + 13)
+    E, D, I = 8, 512, 1536
+    one, one_rows = topk_sizes(torch, rng, 1, E, 2, 8)
+    beams, beam_rows = topk_sizes(torch, rng, 4, E, 2, 8)
+    pre, pre_rows = topk_sizes(torch, rng, 512, E, 2, 64)
+    return [
+        kernel_case(torch, gm, kernel_check, "generate_decode_gate_up", "float32",
+                    one_rows, D, I, one, 8, fault=True),
+        kernel_case(torch, gm, kernel_check, "generate_decode_down", "float32",
+                    one_rows, I, D, one, 8, fault=True),
+        kernel_case(torch, gm, kernel_check, "beam_decode_gate_up", "float32",
+                    beam_rows, D, I, beams, 8, fault=True),
+        kernel_case(torch, gm, kernel_check, "generate_prefill_gate_up", "float32",
+                    pre_rows, D, I, pre, 64, fault=True),
+    ]
+
+
+def timed_generation(torch, gen):
+    """Run a ``generate_step`` iterator to its end: ``(tokens, logprobs,
+    ttft_s, decode tok/s)``, the decode rate over the tokens after the
+    first, each read on the host as it is yielded."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, lps, t_first = [], [], None
+    for tok, lp in gen:
+        if t_first is None:
+            t_first = time.perf_counter()
+        toks.append(tok)
+        lps.append(lp)
+    t_end = time.perf_counter()
+    rate = (len(toks) - 1) / (t_end - t_first) if len(toks) > 1 else None
+    return toks, lps, t_first - t0, rate
+
+
+def generate_phase(torch, gm, fa, card, served, cases):
+    """moe-8x40m at full width (the serving phase's seeded fp32 weights) on
+    the locked path, batch 1: greedy ``generate_step`` on the serving
+    phase's greedy prompts must give the batch engine's tokens, and its
+    first logprob the CPU plain path's within 1e-3; the int8 cache at most
+    one diverging token, at the tail; speculative greedy the plain greedy
+    tokens; beam search (4 beams) a best score equal to its full-forward
+    logprobs within 1e-3; the HTTP server (locked, and the batch engine's
+    fallback) answers top_p, min_p, repetition_penalty, SSE and
+    /v1/completions with 200. Every gmm launch of the phase must be
+    "f32_decode" or "f32"; no flash and no tgmm launch. Each of ``cases``
+    (``generate_kernel_cases``) gets the launches counted at its shape
+    (variant, T, K, N, block_t) in the steps that run it, and must have
+    some."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.infer import generate as gen
+    from mlx_cuda_distributed_pretraining_tpu_torch.infer.server import (
+        InferenceService,
+        request_stream,
+        serve,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
+    from mlx_cuda_distributed_pretraining_tpu_torch.serve import EngineConfig
+
+    if served is None:
+        return ["generate: the serving phase failed before its weights were served"], {}
+    failures = []
+    params, args, tok = served["params"], served["args"], served["tok"]
+    t_phase = time.perf_counter()
+    reset_launches(gm, fa)  # count from here: the generate phase only
+    by_step, shapes_by_step = {}, {}
+
+    def counted(name, fn):
+        before = dict(gm.gmm.launches_by_variant)
+        before_shape = dict(gm.gmm.launches_by_shape)
+        out = fn()
+        torch.cuda.synchronize()
+        by_step[name] = launched_since(before, gm.gmm.launches_by_variant)
+        shapes_by_step[name] = {k: n - before_shape.get(k, 0)
+                                for k, n in gm.gmm.launches_by_shape.items()
+                                if n != before_shape.get(k, 0)}
+        return out
+
+    ids = [[tok.bos_id] + tok.tokenize(p) for p, _ in served["greedy"]]
+    eos = tok.eos_id
+
+    def greedy(prompt_ids, n=32, kv_quant=False):
+        toks, lps, ttft, rate = timed_generation(
+            torch, gen.generate_step(params, args, prompt_ids, max_tokens=n,
+                                     kv_quant=kv_quant))
+        if eos in toks:  # the engine never appends a stop token
+            cut = toks.index(eos)
+            toks, lps = toks[:cut], lps[:cut]
+        return toks, lps, ttft, rate
+
+    # greedy against the batch engine's tokens
+    locked = counted("greedy", lambda: [greedy(p) for p in ids])
+    for i, ((prompt, want), (toks, lps, _, _)) in enumerate(zip(served["greedy"], locked)):
+        log(f"generate: greedy prompt {i}: {len(toks)} tokens, equal to the batch "
+            f"engine's: {toks == want}")
+        if toks != want:
+            failures.append(f"generate: locked greedy tokens differ from the batch "
+                            f"engine's on prompt {i}: {toks} vs {want}")
+    first = locked[0][0][0] if locked[0][0] else None
+    if first is not None:
+        d_lp = abs(served["ref_lp"][first].item() - locked[0][1][0])
+        log(f"generate: first token {first} |d logprob| vs the CPU plain path {d_lp:.3g}")
+        if d_lp > 1e-3:
+            failures.append(f"generate: first logprob disagrees with the CPU plain "
+                            f"path by {d_lp}")
+
+    # batch-1 speed, warm (the first greedy run above paid any first-use cost)
+    fp32 = counted("timed_fp32", lambda: greedy(ids[0], n=64))
+    int8 = counted("timed_int8", lambda: greedy(ids[0], n=64, kv_quant=True))
+    # The int8 cache: over JAX's horizon (tests/test_generate.py, 8 tokens)
+    # at most one diverging token, the last. Past it a greedy path may flip
+    # wherever the fp32 cache's top-2 logit gap is within the int8 cache's
+    # logit error (the JAX package's locked path flips where the port's does
+    # on these weights, cut in depth: scripts/int8_cache_witness.py). With
+    # the fp32 tokens fed to both caches: the card's int8
+    # logits must be the port's plain int8 logits on the CPU within 1e-3
+    # of the largest (the same quantization; fp32 noise can move a value
+    # by one int8 step), and the first divergence must sit where the gap
+    # is within twice the int8 cache's error against the fp32 cache there.
+    first_div = next((i for i, (a, b) in enumerate(zip(fp32[0], int8[0])) if a != b),
+                     None if len(int8[0]) == len(fp32[0])
+                     else min(len(int8[0]), len(fp32[0])))
+    if first_div is not None and first_div < 7:
+        failures.append(f"generate: the int8 cache diverged at token {first_div}, inside "
+                        f"the first 8: {int8[0][:8]} vs {fp32[0][:8]}")
+    seq = ids[0] + fp32[0]
+    chose = slice(len(ids[0]) - 1, len(seq) - 1)  # the logits behind each token
+
+    def fed_logits(p, quantize):
+        dev = p["norm"]["weight"].device
+        with torch.no_grad():
+            cache = llama.init_cache(args, 1, max_len=len(seq), quantize=quantize, device=dev)
+            return llama.forward(p, torch.tensor([seq], device=dev), args,
+                                 cache=cache)[0][0, chose]
+
+    lf, lq = fed_logits(params, False), fed_logits(params, True)
+    lq_cpu = fed_logits(served["params_cpu"], True)
+    cpu_rel = ((lq.cpu() - lq_cpu).abs().max() / lq_cpu.abs().max()).item()
+    err = (lq - lf).abs().amax(dim=-1)
+    top2 = lf.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    rel_err = err.max().item() / lf.abs().max().item()
+    at_div = first_div is not None and first_div < len(gap)
+    explained = not at_div or gap[first_div].item() <= 2 * err[first_div].item()
+    log(f"generate: int8 cache vs fp32 over {len(fp32[0])} tokens: first divergence at "
+        f"{first_div}; fp32-fed logits: card int8 vs CPU plain int8 {cpu_rel:.3g} of the "
+        f"largest; int8 vs fp32 error max {err.max().item():.3g} ({rel_err:.3g} of the "
+        f"largest logit); top-2 gap at the divergence "
+        + (f"{gap[first_div].item():.3g} vs error {err[first_div].item():.3g}"
+           if at_div else "n/a"))
+    if cpu_rel > 1e-3 or not explained:
+        failures.append(f"generate: int8 logits {cpu_rel:.3g} off the CPU plain path's, or "
+                        f"a divergence at {first_div} beyond the int8 error")
+
+    # prompt-lookup speculation, greedy: the plain greedy tokens
+    def speculate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate_speculative(params, args, ids[0], max_tokens=64, draft_len=8,
+                                       stop_tokens=[eos])
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (spec, spec_stats), spec_s = counted("speculative", speculate)
+    log(f"generate: speculative greedy, {len(spec)} tokens in {spec_stats['verify_calls']:.0f}"
+        f" verify calls, tokens_per_call={spec_stats['tokens_per_call']}; equal to plain "
+        f"greedy: {spec == fp32[0]}")
+    if spec != fp32[0]:
+        failures.append(f"generate: speculative greedy differs from plain greedy: "
+                        f"{spec} vs {fp32[0]}")
+
+    # beam search: the best beam's score against a full forward's logprobs
+    def beams():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.beam_search(params, args, ids[1], num_beams=4, max_tokens=16)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (beam_seq, beam_score), beam_s = counted("beam_search", beams)
+    with torch.no_grad():
+        logits, _ = llama.forward(
+            params, torch.tensor([ids[1] + beam_seq], device=params["norm"]["weight"].device),
+            args)
+        lsm = torch.log_softmax(logits[0], dim=-1)
+    P = len(ids[1])
+    total = sum(lsm[P - 1 + i, t].item() for i, t in enumerate(beam_seq))
+    d_beam = abs(beam_score * len(beam_seq) - total)
+    log(f"generate: beam search (4 beams) {len(beam_seq)} tokens, score {beam_score:.6f}, "
+        f"|score x len - full-forward sum of logprobs| {d_beam:.3g}")
+    if len(beam_seq) != 16 or d_beam > 1e-3:
+        failures.append(f"generate: beam score {beam_score} x {len(beam_seq)} vs the full "
+                        f"forward's {total}")
+
+    # HTTP: the locked server, then the batch engine's fallback, SSE and
+    # /v1/completions
+    knobs = [{"top_p": 0.9, "temperature": 0.8}, {"min_p": 0.1, "temperature": 0.8},
+             {"repetition_penalty": 1.3}]
+    http = {}
+
+    def serve_requests(service, tag):
+        httpd = serve(service, port=0)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            for k in knobs:
+                code, out = post(url, {"prompt": served["greedy"][0][0], "max_tokens": 16,
+                                       **k})
+                http[f"{tag} {sorted(k)}"] = code
+                if code == 200 and "engine" in out:
+                    failures.append(f"generate: {tag} {k} was not served by the locked path")
+            code, out = post(url, {"prompt": served["greedy"][2][0], "max_tokens": 16},
+                             path="/v1/completions")
+            http[f"{tag} /v1/completions"] = code
+            if code == 200 and out.get("object") != "text_completion":
+                failures.append(f"generate: {tag} /v1/completions answered {out}")
+            if tag == "batch":
+                events = list(request_stream(url, served["greedy"][2][0], max_tokens=16,
+                                             timeout=300))
+                n_tok = sum("token" in e for e in events)
+                done = events[-1] if events else {}
+                http["batch SSE"] = 200 if done.get("done") and n_tok == done.get(
+                    "tokens") and n_tok > 0 else 0
+                log(f"generate: SSE {n_tok} token events, then done={done.get('done')}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            service.close()
+
+    counted("http_locked", lambda: serve_requests(
+        InferenceService(params, args, tok, run_name="moe-8x40m-random"), "locked"))
+    batch_service = InferenceService(params, args, tok, run_name="moe-8x40m-random")
+    batch_service.attach_engine(EngineConfig(num_slots=8, max_len=1024, block_size=32,
+                                             prefill_chunk=256))
+    counted("http_batch", lambda: serve_requests(batch_service, "batch"))
+    log(f"generate: HTTP {http}")
+    bad = {k: v for k, v in http.items() if v != 200}
+    if bad:
+        failures.append(f"generate: HTTP not 200: {bad}")
+
+    launches = read_launches(gm, fa)
+    variants = read_variants(gm)["gmm"]
+    log(f"generate: gmm launches by variant {variants}; by step {by_step}")
+    if set(k for k, n in variants.items() if n) - {"f32_decode", "f32"} \
+            or not variants.get("f32_decode") or not variants.get("f32"):
+        failures.append(f"generate: gmm launches by variant {variants}")
+    if launches["tgmm"] or any(launches[n] for n in FLASH_KERNELS):
+        failures.append(f"generate: tgmm or flash launched: {launches}")
+    # Launches at each kernel case's shape (variant, T, K, N, block_t), as
+    # _gmm_forward counts them, in the steps that run that case: the
+    # one-token decodes and 512-token prefills of the locked batch-1 steps
+    # (speculation's prefill too; its verifies are 18 rows, another
+    # shape), and the beams' decodes. A 64-row buffer holds 2 routed rows
+    # in a batch-1 decode step and 8 in a beam step, so the steps tell
+    # those two cases apart.
+    batch1 = ("greedy", "timed_fp32", "timed_int8", "http_locked")
+    steps_of = {"generate_decode_gate_up": batch1, "generate_decode_down": batch1,
+                "beam_decode_gate_up": ("beam_search",),
+                "generate_prefill_gate_up": batch1 + ("speculative",)}
+    launches_by_case = {}
+    for c in cases:
+        T, K, N, _ = c["shape"]
+        key = (gm.gmm_variant(torch.float32, c["block_t"], K, N), T, K, N, c["block_t"])
+        launches_by_case[c["case"]] = sum(shapes_by_step[k].get(key, 0)
+                                          for k in steps_of[c["case"]])
+    log(f"generate: gmm launches at each kernel case's shape {launches_by_case}")
+    if not all(launches_by_case.values()):
+        failures.append(f"generate: a kernel case's shape never ran on the path: "
+                        f"{launches_by_case}")
+    shapes = {k: {"_".join(map(str, key)): n for key, n in v.items()}
+              for k, v in shapes_by_step.items()}
+    perf = {
+        "ttft_ms_fp32": 1e3 * fp32[2], "decode_tok_s_fp32": fp32[3],
+        "ttft_ms_int8": 1e3 * int8[2], "decode_tok_s_int8": int8[3],
+        "int8_first_divergence": first_div, "int8_logit_rel_err": rel_err,
+        "int8_vs_cpu_plain_rel": cpu_rel,
+        "prompt_tokens": len(ids[0]),
+        "speculative_tok_s": len(spec) / spec_s,
+        "speculative_tokens_per_call": spec_stats["tokens_per_call"],
+        "speculative_verify_calls": spec_stats["verify_calls"],
+        "beam_tok_s": 4 * len(beam_seq) / beam_s, "beam_best_tok_s": len(beam_seq) / beam_s,
+        "gmm_launches": launches["gmm"], "gmm_launches_by_variant": variants,
+        "gmm_launches_by_step": by_step, "gmm_launches_by_shape_by_step": shapes,
+        "gmm_launches_by_case": launches_by_case,
+        "http": http,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    for k in ("ttft_ms_fp32", "decode_tok_s_fp32", "ttft_ms_int8", "decode_tok_s_int8",
+              "speculative_tok_s", "speculative_tokens_per_call", "beam_tok_s",
+              "beam_best_tok_s", "phase_s"):
+        log(f"generate: {k}={perf[k]} [{card}]")
     return failures, perf
 
 
@@ -1430,6 +1770,9 @@ def fp32_train_phase(torch, gm, fa, card, steps: int = 10, warmup: int = 2):
         cfg["name"] = "Llama (40M) fp32"
         cfg["system"] = {"seed": 42, "mixed_precision": False}
         cfg["logging"]["steps"]["logging_interval"] = 2
+        # a greedy sample at the validation step (the last)
+        cfg["logging"]["steps"]["validation_interval"] = steps
+        cfg["logging"]["log_samples"] = True
         trainer = Trainer(Config.from_dict(cfg), runs_root=os.path.join(tmp, "runs"),
                           quiet=True, device="cuda")
         log(f"train fp32: 40m-adamw, compute_dtype {trainer.compute_dtype}, "
@@ -1486,6 +1829,31 @@ def fp32_train_phase(torch, gm, fa, card, steps: int = 10, warmup: int = 2):
             failures.append(f"train fp32: bad loss log {losses}")
         elif not losses[-1] < losses[0]:
             failures.append(f"train fp32: loss did not fall ({losses[0]} -> {losses[-1]})")
+
+        # logging.log_samples: the sample line, and the losses of the same
+        # run without it (the embedding gradient's atomic adds may move the
+        # last bits, hence 1e-5 relative; bitwise printed)
+        with open(os.path.join(trainer.run_dir, "log.txt")) as f:
+            samples = [line.strip() for line in f if " sample: " in line]
+        log(f"train fp32: log_samples lines {samples}")
+        if len(samples) != 1 or not samples[0].startswith(f"Step {steps} sample: "):
+            failures.append(f"train fp32: log_samples wrote {samples}")
+        cfg["logging"]["log_samples"] = False
+        cfg["name"] = "Llama (40M) fp32, no samples"
+        t0 = time.perf_counter()
+        baseline = Trainer(Config.from_dict(cfg), runs_root=os.path.join(tmp, "runs"),
+                           quiet=True, device="cuda")
+        baseline.train()
+        base_losses = [w["loss"] for w in baseline.windows]
+        same = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(losses, base_losses)) \
+            and len(losses) == len(base_losses)
+        log(f"train fp32: without log_samples, losses {base_losses} "
+            f"({time.perf_counter() - t0:.1f}s); within 1e-5: {same}, bitwise: "
+            f"{losses == base_losses}")
+        if not same:
+            failures.append(f"train fp32: log_samples changed the losses: {losses} vs "
+                            f"{base_losses}")
+        del baseline
 
     steady = windows[1:]  # the first window holds the first step's warm-up
     secs = sum(w["seconds"] for w in steady)
@@ -2365,17 +2733,23 @@ def main() -> int:
                 failures.append(f"build: {line.strip()[:200]}")
 
     cases = kernel_phase(torch, gm, kernel_check)
+    gen_cases = generate_kernel_cases(torch, gm, kernel_check)
     train_cases, tgmm_cases = train_kernel_phase(torch, gm, kernel_check)
     failures += [f"{k} {c['case']} {c['dtype']}: kernel disagrees with plain "
                  f"(max_abs_err {c['max_abs_err']})"
-                 for k, group in (("gmm", cases + train_cases), ("tgmm", tgmm_cases))
+                 for k, group in (("gmm", cases + gen_cases + train_cases),
+                                  ("tgmm", tgmm_cases))
                  for c in group if not c["ok"]]
     flash_cases = flash_kernel_phase(torch, gm, fa)
     failures += [f"flash {c['case']} {c['dtype']}: kernels disagree with plain "
                  f"(max_abs_err {c['max_abs_err']})" for c in flash_cases
                  if not c["ok"]]
-    path_failures, perf = path_phase(torch, gm, fa, card)
+    path_failures, perf, served = path_phase(torch, gm, fa, card)
     failures += path_failures
+    gen_failures, gen_perf = generate_phase(torch, gm, fa, card, served, gen_cases)
+    failures += gen_failures
+    del served
+    torch.cuda.empty_cache()
     train_failures, train_perf = train_phase(torch, gm, fa, card)
     failures += train_failures
     torch.cuda.empty_cache()
@@ -2422,6 +2796,18 @@ def main() -> int:
                              by_case[row], max(c["max_abs_err"] for c in rows))
         entry.update(variant=variant, cases=rows, card=card)
         fp32_entries.append(entry)
+    # The locked generation path's gmm cases, each with the generate phase's
+    # launches at its shape.
+    gen_launches = gen_perf.get("gmm_launches_by_case", {})
+    for c in gen_cases:
+        variant = "f32_decode" if c["block_t"] == 8 else "f32"
+        entry = kernel_entry(f"gmm_{variant}:{c['case']}", SOURCE, REPLACES,
+                             gen_launches.get(c["case"], 0), c, c["max_abs_err"])
+        entry.update(variant=variant, shape=c["shape"], block_t=c["block_t"],
+                     group_sizes=c["group_sizes"], planted_fault=c["planted_fault"],
+                     library=c["library"], path="generate_moe_8x40m", card=card)
+        fp32_entries.append(entry)
+    fp32_entries[-1].update(generate_path=gen_perf)
     # The flash kernels: the 1B trainer's shape (B 8, H 16, S 2048, D 128,
     # bf16, causal) and its launches in run A; the 40m and MoE runs'
     # launches beside them.

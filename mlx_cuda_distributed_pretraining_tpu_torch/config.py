@@ -144,7 +144,7 @@ class TrainingConfig:
 
 @dataclass
 class LoggingConfig:
-    """Section ``logging``: intervals and checkpoint retention."""
+    """Section ``logging``: intervals, checkpoint retention and samples."""
 
     log_dir: str = "logs"
     checkpoint_dir: str = "checkpoints"
@@ -152,6 +152,8 @@ class LoggingConfig:
     metrics: Dict[str, Any] = field(default_factory=dict)
     log_gradient_norm: bool = False
     retention: Dict[str, Any] = field(default_factory=dict)
+    log_samples: bool = False  # greedy samples at each validation step
+    log_samples_count: int = 3
 
     @property
     def logging_interval(self) -> int:

@@ -1,21 +1,37 @@
-"""HTTP inference server over the continuous-batching engine.
+"""HTTP inference server over a trained run (or seeded random weights).
 
     python -m mlx_cuda_distributed_pretraining_tpu_torch.infer.server \\
         --run myrun --runs-root runs --port 8400
     python -m mlx_cuda_distributed_pretraining_tpu_torch.infer.server \\
-        --config configs/model-config-moe-8x40m.yaml --seed 0
+        --config configs/model-config-moe-8x40m.yaml --seed 0 --engine batch
 
     POST /generate {"prompt": "...", "max_tokens": 64, "temperature": 0.8}
-      -> {"text": ..., "tokens": N, "token_ids": [...], "logprobs": [...], ...}
-    GET /healthz -> {"status": "ok", "params_m": ..., "serve": {metrics}}
+      -> {"text": ..., "tokens": N, "generation_tps": ..., ...}
+    POST /v1/completions   the OpenAI completions shape of the same
+    GET /healthz           {"status": "ok", "params_m": ..., ...}
+    GET /v1/models
 
-Every request goes through the batch engine (serve/engine.py) on the
-device the weights live on (``--device``, default ``cuda``). A full
-admission queue returns 429, a missed deadline 504. ``top_p``, ``min_p``
-and ``repetition_penalty`` reshape logits, which only the JAX package's
-locked generation path does; here they are refused with 400 until that path
-is ported. Streaming, the OpenAI-style endpoint and the fleet/admin
-endpoints are not ported either.
+The weights live on ``--device`` (default ``cuda``). Two engines
+(``--engine``):
+
+- ``locked`` (default): one request at a time behind a lock, through
+  ``infer/generate.py``'s ``generate_text`` (samplers, repetition penalty,
+  ``--kv-quant``, ``--spec``);
+- ``batch``: the continuous-batching engine (``serve/engine.py``). A full
+  admission queue returns 429, a missed deadline 504. Requests whose
+  effective knobs reshape the logits (top_p, min_p, repetition_penalty)
+  fall back to the locked path: the batched step samples by temperature
+  only.
+
+Streaming: a ``"stream": true`` body answers with SSE (text/event-stream):
+one ``data: {"token": id, "text": delta}`` event per token, then ``data:
+{"done": true, ...result}``. Batch-engine requests stream token by token;
+locked and fallback requests send the final event only.
+
+Not ported, and answered with 501 naming the ROADMAP queue 1 item: the
+fleet endpoints ``/prefill``, ``/adopt_kv`` and ``/admin/*`` (weight swaps,
+drain) and the ``X-Deadline-Ms`` header (item 10), and ``/trace`` and
+``/metrics`` (item 9; ``/healthz`` carries the batch engine's counters).
 """
 
 from __future__ import annotations
@@ -23,34 +39,65 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import queue as queue_mod
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from ..models import llama
 from ..serve import BatchEngine, EngineConfig, QueueFullError
+from .generate import generate_text
 
-_RESHAPING_KNOBS = ("top_p", "min_p", "repetition_penalty")
-_NO_OP = {"top_p": (0.0, 1.0), "min_p": (0.0,), "repetition_penalty": (1.0,)}
+# Paths and headers of the JAX server that this server refuses, with the
+# ROADMAP queue 1 item that ports them.
+_UNPORTED_PATHS = {
+    "/prefill": "item 10: the serving plane, disaggregated prefill",
+    "/adopt_kv": "item 10: the serving plane, KV transfer",
+    "/admin": "item 10: the serving plane, drain and weight swaps",
+    "/trace": "item 9: tracing",
+    "/metrics": "item 9: metrics",
+}
+_DEADLINE_HEADER = "X-Deadline-Ms"
+
+
+def _unported(path: str) -> Optional[str]:
+    for prefix, item in _UNPORTED_PATHS.items():
+        if path == prefix or path.startswith(prefix + "/"):
+            return (f"{path} is not ported to the torch server "
+                    f"(ROADMAP queue 1 {item})")
+    return None
 
 
 class InferenceService:
-    """Owns the model and the batch engine that serves it."""
+    """Owns the model, serializes locked generation, and routes requests to
+    the batch engine when one is attached."""
 
-    def __init__(self, params, args, tokenizer, run_name: str = "?",
-                 max_tokens_limit: int = 4096):
+    def __init__(self, params, args, tokenizer, kv_quant: bool = False,
+                 run_name: str = "?", max_tokens_limit: int = 4096,
+                 speculative: bool = False, draft_len: int = 8):
         self.params = params
         self.args = args
         self.tokenizer = tokenizer
+        self.kv_quant = kv_quant
         self.run_name = run_name
         self.max_tokens_limit = max_tokens_limit
+        self.speculative = speculative
+        self.draft_len = draft_len
+        self.lock = threading.Lock()
         self.n_params = llama.num_params(params)
+        self.started_at = int(time.time())
         self.engine: Optional[BatchEngine] = None
 
     def attach_engine(self, cfg: Optional[EngineConfig] = None) -> BatchEngine:
-        """Start the batch engine; ``max_len`` is clamped to the model's
-        ``max_position_embeddings`` (EngineConfig's default of 2048 would
-        otherwise exceed a 1024-position model)."""
+        """Start the batch engine and route compatible requests through it;
+        the locked path stays for the logit-reshaping knobs. ``max_len`` is
+        clamped to the model's ``max_position_embeddings``."""
+        if self.kv_quant:
+            raise NotImplementedError(
+                "an int8 KV cache in the batch engine is not ported (ROADMAP "
+                "queue 1 item 8: the int8 paged pool); --kv-quant serves "
+                "through --engine locked")
         cfg = cfg or EngineConfig()
         if cfg.max_len > self.args.max_position_embeddings:
             cfg = dataclasses.replace(
@@ -66,17 +113,16 @@ class InferenceService:
 
     @classmethod
     def from_run(cls, run: str, runs_root: str = "runs", device="cuda",
-                 max_tokens_limit: int = 4096) -> "InferenceService":
+                 **kw) -> "InferenceService":
         from ..train.trainer import load_trained
 
         params, args, tok, _cfg = load_trained(run, runs_root=runs_root,
                                                device=device)
-        return cls(params, args, tok, run_name=run,
-                   max_tokens_limit=max_tokens_limit)
+        return cls(params, args, tok, run_name=run, **kw)
 
     @classmethod
     def from_config(cls, path: str, seed: int = 0, device="cuda",
-                    max_tokens_limit: int = 4096) -> "InferenceService":
+                    **kw) -> "InferenceService":
         """Random weights at a model config's shapes, drawn from ``seed``."""
         import torch
 
@@ -88,21 +134,80 @@ class InferenceService:
         args = llama.LlamaArgs.from_config(cfg.model, tok.vocab_size)
         params = llama.init_params(args, torch.Generator().manual_seed(seed),
                                    device=device)
-        return cls(params, args, tok, run_name=cfg.name,
-                   max_tokens_limit=max_tokens_limit)
+        return cls(params, args, tok, run_name=cfg.name, **kw)
+
+    @staticmethod
+    def _quantize(x: float, step: float = 0.05) -> float:
+        """Client floats snapped to a 0.05 grid, as the JAX server does to
+        bound its compiled decode variants; kept so both servers run a
+        request with the same knobs."""
+        return round(round(x / step) * step, 2)
+
+    def _knobs(self, temperature, top_p, min_p, repetition_penalty):
+        """The effective knobs, and whether they reshape the logits (which
+        turns off speculation and the batch engine)."""
+        q_rep = (self._quantize(repetition_penalty)
+                 if repetition_penalty else None)
+        knobs = {"temperature": self._quantize(temperature),
+                 "top_p": self._quantize(top_p), "min_p": self._quantize(min_p),
+                 "repetition_penalty": q_rep}
+        reshapes = bool(knobs["top_p"] or knobs["min_p"] or (q_rep or 1.0) != 1.0)
+        return knobs, reshapes
+
+    def _clamp(self, max_tokens: int) -> int:
+        # an unbounded client value would allocate a huge cache under the lock
+        return max(1, min(int(max_tokens), self.max_tokens_limit))
 
     def generate(self, prompt: str, max_tokens: int = 64,
-                 temperature: float = 0.0, seed: int = 0,
+                 temperature: float = 0.0, top_p: float = 0.0,
+                 min_p: float = 0.0,
+                 repetition_penalty: Optional[float] = None,
+                 seed: int = 0,
                  deadline_s: Optional[float] = None) -> dict:
+        max_tokens = self._clamp(max_tokens)
+        knobs, reshapes = self._knobs(temperature, top_p, min_p, repetition_penalty)
+        effective = {**knobs, "max_tokens": max_tokens}
+        if self.engine is not None and not reshapes:
+            out = self.engine.generate(prompt, max_tokens=max_tokens,
+                                       temperature=knobs["temperature"], seed=seed,
+                                       deadline_s=deadline_s)
+            out["effective_params"] = effective
+            return out
+        spec = self.speculative and not reshapes
+        with self.lock:
+            text, stats = generate_text(
+                self.params, self.args, self.tokenizer, prompt,
+                max_new_tokens=max_tokens, temperature=knobs["temperature"],
+                top_p=knobs["top_p"], min_p=knobs["min_p"],
+                repetition_penalty=knobs["repetition_penalty"],
+                seed=seed, kv_quant=self.kv_quant, return_stats=True,
+                speculative=spec, draft_len=self.draft_len)
+        return {
+            "text": text,
+            "tokens": int(stats["generation_tokens"]),
+            "speculative": spec,
+            # the knobs the decode ran with: snapped to the grid, clamped
+            "effective_params": effective,
+            **{k: round(float(v), 4) for k, v in stats.items()},
+        }
+
+    def submit_stream(self, prompt: str, max_tokens: int = 64,
+                      temperature: float = 0.0, top_p: float = 0.0,
+                      min_p: float = 0.0,
+                      repetition_penalty: Optional[float] = None,
+                      seed: int = 0,
+                      deadline_s: Optional[float] = None):
+        """Submit through the batch engine for token-by-token streaming;
+        None when the request takes the locked path instead (no engine, or
+        logit-reshaping knobs)."""
         if self.engine is None:
-            raise RuntimeError("no engine attached (call attach_engine)")
-        max_tokens = max(1, min(int(max_tokens), self.max_tokens_limit))
-        out = self.engine.generate(prompt, max_tokens=max_tokens,
-                                   temperature=temperature, seed=seed,
-                                   deadline_s=deadline_s)
-        out["effective_params"] = {"temperature": temperature,
-                                   "max_tokens": max_tokens}
-        return out
+            return None
+        knobs, reshapes = self._knobs(temperature, top_p, min_p, repetition_penalty)
+        if reshapes:
+            return None
+        return self.engine.submit(prompt, max_tokens=self._clamp(max_tokens),
+                                  temperature=knobs["temperature"], seed=seed,
+                                  deadline_s=deadline_s, stream=True)
 
     def health(self) -> dict:
         d = {
@@ -111,19 +216,77 @@ class InferenceService:
             "architecture": "llama",
             "params_m": round(self.n_params / 1e6, 2),
             "vocab_size": self.args.vocab_size,
+            "kv_quant": self.kv_quant,
             "max_tokens_limit": self.max_tokens_limit,
-            "engine": "batch",
+            "speculative": self.speculative,
+            "draft_len": self.draft_len,
         }
         if self.engine is not None:
+            d["engine"] = "batch"
             d["serve"] = self.engine.metrics()
         return d
 
 
-def _refused_knobs(req: dict) -> list:
-    """Logit-reshaping knobs the request sets to something other than a
-    no-op value."""
-    return [k for k in _RESHAPING_KNOBS
-            if req.get(k) is not None and float(req[k]) not in _NO_OP[k]]
+def _to_openai_completion(out: dict, req: dict, run_name: str,
+                          tokenizer=None, effective_max: int = 0) -> dict:
+    """The native /generate result in the OpenAI completions shape. ``stop``
+    strings truncate the text (generation stops on EOS only); usage counts
+    the text returned."""
+    import uuid
+
+    text = out["text"]
+    completion_tokens = out["tokens"]
+    # "stop" when the decode met a stop token, "length" when it ran out
+    # the server-clamped budget
+    if out.get("stopped_on_token"):
+        finish = "stop"
+    else:
+        finish = "length" if completion_tokens >= effective_max else "stop"
+    stops = req.get("stop")
+    if isinstance(stops, str):
+        stops = [stops]
+    for s in stops or []:
+        idx = text.find(s)
+        if idx >= 0:
+            text = text[:idx]
+            finish = "stop"
+    if text != out["text"] and tokenizer is not None:
+        completion_tokens = len(tokenizer.tokenize(text))
+    prompt_tokens = int(out.get("prompt_tokens", 0))
+    return {
+        "id": f"cmpl-{uuid.uuid4().hex[:24]}",
+        "object": "text_completion",
+        "model": str(req.get("model") or run_name),
+        "choices": [{"text": text, "index": 0, "logprobs": None,
+                     "finish_reason": finish}],
+        "usage": {"prompt_tokens": prompt_tokens,
+                  "completion_tokens": completion_tokens,
+                  "total_tokens": prompt_tokens + completion_tokens},
+    }
+
+
+def _parse(body: dict):
+    """``(prompt, knobs)`` of a /generate or /v1/completions body; a list
+    prompt holds exactly one string (OpenAI allows str | [str])."""
+    if not isinstance(body, dict) or "prompt" not in body:
+        raise ValueError("body must be a JSON object with 'prompt'")
+    prompt = body["prompt"]
+    if isinstance(prompt, list):
+        if len(prompt) != 1 or not isinstance(prompt[0], str):
+            raise ValueError("list prompts must hold exactly one string "
+                             "(batched completions are not supported)")
+        prompt = prompt[0]
+    elif not isinstance(prompt, str):
+        raise ValueError("'prompt' must be a string")
+    rp = body.get("repetition_penalty")
+    dl = body.get("deadline_s")
+    return prompt, dict(
+        temperature=float(body.get("temperature", 0.0)),
+        top_p=float(body.get("top_p", 0.0)),
+        min_p=float(body.get("min_p", 0.0)),
+        repetition_penalty=float(rp) if rp is not None else None,
+        seed=int(body.get("seed", 0)),
+        deadline_s=float(dl) if dl is not None else None)
 
 
 def make_handler(service: InferenceService):
@@ -139,39 +302,98 @@ def make_handler(service: InferenceService):
             self.end_headers()
             self.wfile.write(body)
 
+        def _sse_begin(self):
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.end_headers()
+
+        def _sse(self, obj: dict):
+            self.wfile.write(b"data: " + json.dumps(obj).encode() + b"\n\n")
+            self.wfile.flush()
+
+        def _stream_generate(self, prompt: str, kw: dict) -> None:
+            """SSE: token events as the engine emits them, then the result.
+            Submission errors (429/400) raise before any header is sent."""
+            sreq = service.submit_stream(prompt, **kw)
+            if sreq is None:
+                # locked path: compute fully (errors still map to a JSON
+                # status), then send the final event
+                out = service.generate(prompt=prompt, **kw)
+                self._sse_begin()
+                self._sse({"done": True, **out})
+                return
+            self._sse_begin()
+            # the gap between tokens is bounded by the request's own budget
+            dl = kw.get("deadline_s")
+            gap_s = dl + 30.0 if dl is not None else 600.0
+            toks: list = []
+            prev = ""
+            while True:
+                try:
+                    tok = sreq.stream_q.get(timeout=gap_s)
+                except queue_mod.Empty:
+                    self._sse({"done": True, "error": "stream timeout"})
+                    return
+                if tok is None:
+                    break
+                toks.append(int(tok))
+                full = service.tokenizer.detokenize(toks)
+                self._sse({"token": int(tok), "text": full[len(prev):]})
+                prev = full
+            sreq.wait(timeout=30.0)
+            if sreq.error is not None:
+                self._sse({"done": True, "error": sreq.error})
+            else:
+                self._sse({"done": True, **(sreq.result or {})})
+
         def do_GET(self):
-            if self.path.rstrip("/") in ("", "/healthz"):
+            path = self.path.split("?", 1)[0].rstrip("/")
+            refused = _unported(path)
+            if path in ("", "/healthz"):
                 self._reply(200, service.health())
+            elif path == "/v1/models":
+                self._reply(200, {
+                    "object": "list",
+                    "data": [{"id": service.run_name, "object": "model",
+                              "created": service.started_at,
+                              "owned_by": "local"}],
+                })
+            elif refused:
+                self._reply(501, {"error": refused})
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):
-            if self.path.rstrip("/") != "/generate":
+            path = self.path.rstrip("/")
+            refused = _unported(path)
+            if refused:
+                self._reply(501, {"error": refused})
+                return
+            if path not in ("/generate", "/v1/completions"):
                 self._reply(404, {"error": f"unknown path {self.path}"})
+                return
+            if self.headers.get(_DEADLINE_HEADER) is not None:
+                self._reply(501, {"error": (
+                    f"the {_DEADLINE_HEADER} header is not ported to the torch "
+                    "server (ROADMAP queue 1 item 10: the serving plane's "
+                    "deadline policy); send deadline_s in the body")})
                 return
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 req = json.loads(self.rfile.read(length) or b"{}")
-                if not isinstance(req, dict) or "prompt" not in req:
-                    raise ValueError("body must be a JSON object with 'prompt'")
-                if not isinstance(req["prompt"], str):
-                    raise ValueError("'prompt' must be a string")
-                refused = _refused_knobs(req)
-                if refused:
-                    raise ValueError(
-                        f"{', '.join(refused)} not supported by the torch "
-                        "server yet (the batch engine samples by temperature "
-                        "only)")
+                prompt, kw = _parse(req)
+                effective_max = service._clamp(req.get("max_tokens", 64))
+                kw["max_tokens"] = effective_max
                 if req.get("stream"):
-                    raise ValueError("streaming is not supported by the "
-                                     "torch server yet")
-                dl = req.get("deadline_s")
-                out = service.generate(
-                    prompt=req["prompt"],
-                    max_tokens=int(req.get("max_tokens", 64)),
-                    temperature=float(req.get("temperature", 0.0)),
-                    seed=int(req.get("seed", 0)),
-                    deadline_s=float(dl) if dl is not None else None)
+                    self._stream_generate(prompt, kw)
+                    return
+                out = service.generate(prompt=prompt, **kw)
+                if path == "/v1/completions":
+                    out = _to_openai_completion(
+                        out, req, service.run_name,
+                        tokenizer=service.tokenizer,
+                        effective_max=effective_max)
                 self._reply(200, out)
             except QueueFullError as e:
                 self._reply(429, {"error": str(e)})
@@ -209,6 +431,31 @@ def request_generate(url: str, prompt: str, timeout: float = 300.0,
         return json.loads(resp.read())
 
 
+def request_stream(url: str, prompt: str, timeout: float = 300.0, **kwargs):
+    """Streaming client: yields each SSE event of a ``"stream": true``
+    /generate request (token events, then ``{"done": true, ...}``)."""
+    import urllib.request
+
+    body = json.dumps({"prompt": prompt, "stream": True, **kwargs}).encode()
+    req = urllib.request.Request(
+        url.rstrip("/") + "/generate", data=body,
+        headers={"Content-Type": "application/json"})
+    resp = urllib.request.urlopen(req, timeout=timeout)
+    try:
+        buf = b""
+        while True:
+            chunk = resp.read1(8192)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                raw, buf = buf.split(b"\n\n", 1)
+                if raw.startswith(b"data: "):
+                    yield json.loads(raw[len(b"data: "):])
+    finally:
+        resp.close()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     src = p.add_mutually_exclusive_group(required=True)
@@ -220,46 +467,60 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8400)
+    p.add_argument("--kv-quant", action="store_true",
+                   help="int8 KV cache on the locked path")
     p.add_argument("--max-tokens-limit", type=int, default=4096)
+    p.add_argument("--spec", action="store_true",
+                   help="prompt-lookup speculative decoding for greedy/"
+                        "temperature requests on the locked path")
+    p.add_argument("--draft-len", type=int, default=8)
+    p.add_argument("--engine", choices=("locked", "batch"), default="locked",
+                   help="locked = one request at a time behind a lock "
+                        "(default); batch = the continuous-batching engine "
+                        "over the paged KV pool")
     p.add_argument("--slots", type=int, default=8,
-                   help="concurrent decode slots")
+                   help="batch engine: concurrent decode slots")
     p.add_argument("--kv-len", type=int, default=2048,
-                   help="per-request KV length bound (clamped to the model's "
-                        "max_position_embeddings)")
+                   help="batch engine: per-request KV length bound (clamped "
+                        "to the model's max_position_embeddings)")
     p.add_argument("--max-queue", type=int, default=32,
-                   help="admission queue depth before 429")
+                   help="batch engine: admission queue depth before 429")
     p.add_argument("--prefill-chunk", type=int, default=256,
-                   help="prompt tokens prefilled per iteration")
+                   help="batch engine: prompt tokens prefilled per iteration")
     p.add_argument("--block-size", type=int, default=32,
-                   help="tokens per KV block (power of two; kv-len must be "
-                        "a multiple)")
+                   help="batch engine: tokens per KV block (power of two; "
+                        "kv-len must be a multiple)")
     p.add_argument("--num-blocks", type=int, default=0,
-                   help="KV arena size in blocks (0 = slots * kv_len / block)")
+                   help="batch engine: KV arena size in blocks "
+                        "(0 = slots * kv_len / block)")
     p.add_argument("--no-prefix-cache", action="store_true",
-                   help="disable automatic prefix caching")
+                   help="batch engine: disable automatic prefix caching")
     p.add_argument("--prefix-min-hit-blocks", type=int, default=1,
-                   help="shortest cached block-chain worth adopting")
+                   help="batch engine: shortest cached block-chain worth "
+                        "adopting")
     p.add_argument("--deadline-s", type=float, default=None,
-                   help="default per-request deadline")
+                   help="batch engine: default per-request deadline")
     a = p.parse_args(argv)
+    if a.kv_quant and a.engine == "batch":
+        p.error("--kv-quant with --engine batch needs the int8 paged pool "
+                "(ROADMAP queue 1 item 8)")
 
-    if a.run:
-        service = InferenceService.from_run(
-            a.run, a.runs_root, device=a.device,
-            max_tokens_limit=a.max_tokens_limit)
-    else:
-        service = InferenceService.from_config(
-            a.config, seed=a.seed, device=a.device,
-            max_tokens_limit=a.max_tokens_limit)
-    service.attach_engine(EngineConfig(
-        num_slots=a.slots, max_len=a.kv_len, max_queue=a.max_queue,
-        prefill_chunk=a.prefill_chunk, block_size=a.block_size,
-        num_blocks=a.num_blocks, prefix_cache=not a.no_prefix_cache,
-        prefix_min_hit_blocks=a.prefix_min_hit_blocks,
-        default_deadline_s=a.deadline_s))
+    kw = dict(device=a.device, kv_quant=a.kv_quant,
+              max_tokens_limit=a.max_tokens_limit, speculative=a.spec,
+              draft_len=a.draft_len)
+    service = (InferenceService.from_run(a.run, a.runs_root, **kw) if a.run
+               else InferenceService.from_config(a.config, seed=a.seed, **kw))
+    if a.engine == "batch":
+        service.attach_engine(EngineConfig(
+            num_slots=a.slots, max_len=a.kv_len, max_queue=a.max_queue,
+            prefill_chunk=a.prefill_chunk, block_size=a.block_size,
+            num_blocks=a.num_blocks, prefix_cache=not a.no_prefix_cache,
+            prefix_min_hit_blocks=a.prefix_min_hit_blocks,
+            default_deadline_s=a.deadline_s))
     httpd = ThreadingHTTPServer((a.host, a.port), make_handler(service))
     print(f"serving {service.run_name} ({service.n_params / 1e6:.1f}M params, "
-          f"device={a.device}) on http://{a.host}:{httpd.server_address[1]}")
+          f"engine={a.engine}, device={a.device}) on "
+          f"http://{a.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

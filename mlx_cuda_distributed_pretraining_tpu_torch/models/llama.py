@@ -1,5 +1,6 @@
-"""Llama decoder: the building blocks of the serving steps and the
-cache-free training forward and loss.
+"""Llama decoder: the building blocks of the serving steps, the cache-free
+training forward and loss, and the static KV cache of the locked
+generation path (``infer/generate.py``).
 
 Parameters are the JAX package's nested dict with torch tensors as leaves and
 the same layout: every linear weight is ``[in, out]`` (``y = x @ W``), expert
@@ -306,6 +307,94 @@ def init_paged_cache(args: LlamaArgs, num_blocks: int, block_size: int,
             for _ in range(args.num_layers)]
 
 
+def init_cache(args: LlamaArgs, batch_size: int, max_len: Optional[int] = None,
+               dtype=torch.float32, quantize: bool = False,
+               device="cuda") -> List[Dict[str, Any]]:
+    """Static KV cache of the locked generation path: per layer ``{"k",
+    "v"}`` of ``[B, T, Hkv, Dh]`` in ``dtype``, or with ``quantize`` the
+    int8 quartet ``{"k_q", "k_s", "v_q", "v_s"}`` (int8 values, fp32 scales
+    ``[B, T, Hkv, 1]`` per position and head), plus ``"pos"``: the next
+    position to write, a host int. T defaults to
+    ``max_position_embeddings``. :func:`forward` writes it in place."""
+    T = max_len or args.max_position_embeddings
+    shape = (batch_size, T, args.num_kv_heads, args.head_dim)
+    scale = (batch_size, T, args.num_kv_heads, 1)
+    if quantize:
+        return [{"k_q": torch.zeros(shape, device=device, dtype=torch.int8),
+                 "k_s": torch.zeros(scale, device=device),
+                 "v_q": torch.zeros(shape, device=device, dtype=torch.int8),
+                 "v_s": torch.zeros(scale, device=device),
+                 "pos": 0}
+                for _ in range(args.num_layers)]
+    return [{"k": torch.zeros(shape, device=device, dtype=dtype),
+             "v": torch.zeros(shape, device=device, dtype=dtype),
+             "pos": 0}
+            for _ in range(args.num_layers)]
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-(batch, position, head) quantization of ``[B, S,
+    H, D]`` -> (int8 values, fp32 scales ``[B, S, H, 1]``). ``torch.round``
+    rounds half to even, as ``jnp.round`` does, so both packages store the
+    same values."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+def _cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      positions: torch.Tensor, pos: int, S: int) -> torch.Tensor:
+    """Attention over a prefix of the static cache under the positional
+    validity mask: keys at or before each query, and already written. The
+    config's mask type and score mod are not applied here, as in JAX."""
+    from ..ops.attention import reference_attention
+
+    k_idx = torch.arange(k.shape[1], device=q.device)
+    explicit = (k_idx[None, :] <= positions[:, None]) & (k_idx[None, :] < pos + S)
+    return reference_attention(q, k, v, explicit_mask=explicit)
+
+
+def _cache_write(cache: Dict[str, Any], name: str, value: torch.Tensor,
+                 pos: int) -> torch.Tensor:
+    """Write ``value [B, S, ...]`` into ``cache[name]`` at ``pos`` in place
+    and return the buffer. A write past the end raises (JAX's
+    ``dynamic_update_slice`` would move it back to fit)."""
+    buf = cache[name]
+    S = value.shape[1]
+    if pos + S > buf.shape[1]:
+        raise ValueError(f"cache write at {pos} of {S} positions overruns "
+                         f"the cache's {buf.shape[1]}")
+    buf[:, pos:pos + S] = value.to(buf.dtype)
+    return buf
+
+
+def _attend_cache(cache: Dict[str, Any], q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, positions: torch.Tensor,
+                  attend_len: Optional[int]) -> torch.Tensor:
+    """Write this call's K/V at ``cache["pos"]``, advance it, and attend
+    over the first ``attend_len`` slots (all of them when None); an int8
+    cache stores ``_quantize_kv``'s values and attends over their fp32
+    dequantization."""
+    pos, S = cache["pos"], q.shape[1]
+    if "k_q" in cache:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        ck_q = _cache_write(cache, "k_q", kq, pos)
+        ck_s = _cache_write(cache, "k_s", ks, pos)
+        cv_q = _cache_write(cache, "v_q", vq, pos)
+        cv_s = _cache_write(cache, "v_s", vs, pos)
+        L = attend_len or ck_q.shape[1]
+        keys = ck_q[:, :L].float() * ck_s[:, :L]
+        values = cv_q[:, :L].float() * cv_s[:, :L]
+    else:
+        ck = _cache_write(cache, "k", k, pos)
+        cv = _cache_write(cache, "v", v, pos)
+        L = attend_len or ck.shape[1]
+        keys, values = ck[:, :L], cv[:, :L]
+    cache["pos"] = pos + S
+    return _cached_attention(q, keys, values, positions, pos, S)
+
+
 # -- the cache-free training path -------------------------------------------------
 def build_mask_mod(args: LlamaArgs):
     from ..ops import masks
@@ -337,13 +426,16 @@ def build_score_mod(args: LlamaArgs):
 
 
 def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
-                    positions: torch.Tensor,
-                    attn_impl: Optional[str] = None) -> torch.Tensor:
-    """Cache-free self-attention with RoPE and GQA: ``flash`` runs the flash
-    kernels (``ops/flash_attention.py``; with a score mod, the reference
-    attention, as in JAX), ``flex`` the flash kernels under the config's
-    mask plan and score-mod code (``ops/flex_attention.py``), ``simple``
-    the reference attention with the mask and score mods."""
+                    positions: torch.Tensor, attn_impl: Optional[str] = None,
+                    cache: Optional[Dict[str, Any]] = None,
+                    attend_len: Optional[int] = None) -> torch.Tensor:
+    """Self-attention with RoPE and GQA. With a static ``cache``
+    (:func:`init_cache`) it writes this call's K/V there in place and
+    attends over the cache (:func:`_attend_cache`). Cache-free: ``flash``
+    runs the flash kernels (``ops/flash_attention.py``; with a score mod,
+    the reference attention, as in JAX), ``flex`` the flash kernels under
+    the config's mask plan and score-mod code (``ops/flex_attention.py``),
+    ``simple`` the reference attention with the mask and score mods."""
     from ..ops.attention import reference_attention
 
     B, S, _ = x.shape
@@ -356,7 +448,9 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
     q = apply_rope(q, cos, sin, args.rope_traditional)
     k = apply_rope(k, cos, sin, args.rope_traditional)
     impl = attn_impl or args.attention_type
-    if impl == "flash" and args.score_mod_type is None:
+    if cache is not None:
+        out = _attend_cache(cache, q, k, v, positions, attend_len)
+    elif impl == "flash" and args.score_mod_type is None:
         from ..ops.flash_attention import flash_attention
 
         out = flash_attention(q, k, v, mask_type=args.mask_type,
@@ -384,14 +478,17 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
 
 def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
                       positions: torch.Tensor, attn_impl: Optional[str] = None,
-                      stats: Optional[list] = None
+                      stats: Optional[list] = None,
+                      cache: Optional[Dict[str, Any]] = None,
+                      attend_len: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm residual block -> ``(x, aux)``: aux is the MoE layer's
     pre-scaled router loss (0 for a dense layer). An MoE layer appends its
-    routing stats to ``stats`` when that is a list."""
+    routing stats to ``stats`` when that is a list. ``cache`` is this
+    layer's static KV cache, written in place."""
     x = x + attention_block(
         p["attention"], rms_norm(x, p["attention_norm"]["weight"], args.rms_norm_eps),
-        args, positions, attn_impl)
+        args, positions, attn_impl, cache, attend_len)
     normed = rms_norm(x, p["ffn_norm"]["weight"], args.rms_norm_eps)
     if args.is_moe:
         from .moe import moe_block
@@ -409,11 +506,12 @@ def _cast(tree, dtype):
 
 
 def _layer(layer: Params, x: torch.Tensor, args: LlamaArgs, positions: torch.Tensor,
-           compute_dtype: torch.dtype, stats: Optional[list]):
+           compute_dtype: torch.dtype, stats: Optional[list],
+           cache: Optional[Dict[str, Any]] = None, attend_len: Optional[int] = None):
     """One layer from its fp32 master weights: the cast to the compute dtype
     is inside, so a remat'd layer keeps no cast copy for the backward."""
     return transformer_block(_cast(layer, compute_dtype), x, args, positions,
-                             stats=stats)
+                             stats=stats, cache=cache, attend_len=attend_len)
 
 
 def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
@@ -421,10 +519,15 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
             remat: Optional[str] = None, remat_ratio: float = 1.0,
             scan_layers: bool = False, overlap: bool = False,
             return_aux: bool = False, return_hidden: bool = False,
-            stats: Optional[list] = None):
-    """tokens ``[B, S]`` -> ``(logits [B, S, V] fp32, None)`` (``None`` where
-    the JAX forward returns its cache), or ``(logits, None, aux)`` with
-    ``return_aux``: the MoE layers' pre-scaled router losses summed (fp32).
+            stats: Optional[list] = None, cache: Optional[list] = None,
+            start_pos: int = 0, attend_len: Optional[int] = None):
+    """tokens ``[B, S]`` -> ``(logits [B, S, V] fp32, cache)``, or
+    ``(logits, cache, aux)`` with ``return_aux``: the MoE layers'
+    pre-scaled router losses summed (fp32). ``cache`` (:func:`init_cache`,
+    None in training) is written in place at positions ``start_pos +
+    arange(S)`` and returned, where JAX returns a new one; cached attention
+    reads the first ``attend_len`` slots (all when None) and ignores
+    ``remat``.
     ``return_hidden`` returns the final normed hidden states ``[B, S, D]``
     in the compute dtype instead of logits (the fused CE folds the
     projection into the loss). MoE layers append their routing stats to
@@ -445,22 +548,23 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
         raise NotImplementedError("overlap_gather needs an fsdp mesh (ROADMAP queue 1 "
                                   "item 10: multi-GPU); the port trains on one device")
     del scan_layers  # the same loop either way (see the docstring)
-    wrap = remat_wrap(remat)
+    wrap = remat_wrap(remat) if cache is None else None
     n_remat = int(round(args.num_layers * remat_ratio)) if wrap is not None else 0
     B, S = tokens.shape
     x = params["tok_embeddings"]["weight"].to(compute_dtype)[tokens.long()]
-    positions = torch.arange(S, device=tokens.device)
+    positions = torch.arange(S, device=tokens.device) + start_pos
 
     aux_total = torch.zeros((), device=tokens.device)
     for i, layer in enumerate(params["layers"]):
         if i < n_remat:
             x, aux = wrap(_layer, layer, x, args, positions, compute_dtype, stats)
         else:
-            x, aux = _layer(layer, x, args, positions, compute_dtype, stats)
+            x, aux = _layer(layer, x, args, positions, compute_dtype, stats,
+                            None if cache is None else cache[i], attend_len)
         aux_total = aux_total + aux
     x = rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
     if return_hidden:
-        return (x, None, aux_total) if return_aux else (x, None)
+        return (x, cache, aux_total) if return_aux else (x, cache)
     if args.tie_word_embeddings or "output" not in params:
         w = params["tok_embeddings"]["weight"].to(compute_dtype).float().t()
     else:
@@ -471,8 +575,8 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
     if args.logit_scale:
         logits = logits * args.logit_scale
     if return_aux:
-        return logits, None, aux_total
-    return logits, None
+        return logits, cache, aux_total
+    return logits, cache
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,

@@ -4,6 +4,7 @@ The protocol is an API (plotting and monitoring tools parse it)::
 
     Step <N>: loss=<f> | ppl=<f> | lr=<e> | tok/s=<f> | toks=<int> | ...
     Step <N> validation: val_loss=<f>
+    Step <N> sample: '<prompt>' -> '<text>'
 
 TensorBoard and W&B are not ported.
 """
@@ -59,6 +60,9 @@ class Logger:
     def log_model_summary(self, n_params: int, args: Any) -> None:
         self.log(f"Model: {n_params:,} parameters ({n_params/1e6:.2f}M)")
         self.log(f"Model args: {args}")
+
+    def log_sample(self, step: int, prompt: str, text: str) -> None:
+        self._raw(f"Step {step} sample: {prompt!r} -> {text!r}")
 
     def close(self) -> None:
         self._file.close()

@@ -23,7 +23,8 @@ of ``x_tile^T @ dy_tile``. Two versions of each function:
   block_t % 64 == 0 takes the TMA/wgmma kernel, other bf16 shapes the WMMA
   one, fp32 "f32" (3xTF32 on the tensor cores) or, at block_t 8,
   "f32_decode" (a weight stream)), and ``gmm.launches_by_variant`` /
-  ``tgmm.launches_by_variant`` count the launches of each;
+  ``tgmm.launches_by_variant`` count the launches of each
+  (``gmm.launches_by_shape`` by ``(variant, T, K, N, block_t)``);
 - :func:`gmm_plain`, the JAX package's "blocked" formulation in plain
   PyTorch (one weight gather per row tile and one batched matmul, fp32
   accumulation), and :func:`tgmm_plain`, the Pallas kernel's rounding points
@@ -306,8 +307,8 @@ def _gmm_forward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                  block_t: int, w_trans: bool = False) -> torch.Tensor:
     """``x @ w[e]`` per row group, or ``x @ w[e]^T`` with ``w_trans`` (``w``
     then ``[E, N, K]``, read in place). CPU: :func:`gmm_plain`; CUDA: one
-    launch of the :func:`gmm_variant` kernel, counted in ``gmm.launches``
-    and ``gmm.launches_by_variant``."""
+    launch of the :func:`gmm_variant` kernel, counted in ``gmm.launches``,
+    ``gmm.launches_by_variant`` and ``gmm.launches_by_shape``."""
     if x.device.type == "cpu":
         return gmm_plain(x, w.transpose(1, 2) if w_trans else w, group_sizes,
                          block_t)
@@ -336,6 +337,8 @@ def _gmm_forward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         raise RuntimeError(f"gmm kernel ({kind}) launch failed with CUDA error {err}")
     gmm.launches += 1
     gmm.launches_by_variant[kind] += 1
+    shape = (kind, T, K, N, block_t)
+    gmm.launches_by_shape[shape] = gmm.launches_by_shape.get(shape, 0) + 1
     return out
 
 
@@ -414,9 +417,11 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
 
 
 def reset_launches() -> None:
-    """Set the gmm and tgmm launch counts, totals and per variant, to 0."""
+    """Set the gmm and tgmm launch counts (totals, per variant, and the
+    gmm's per shape) to 0."""
     gmm.launches = tgmm.launches = 0
     gmm.launches_by_variant = dict.fromkeys(GMM_VARIANTS, 0)
+    gmm.launches_by_shape = {}
     tgmm.launches_by_variant = dict.fromkeys(TGMM_VARIANTS, 0)
 
 

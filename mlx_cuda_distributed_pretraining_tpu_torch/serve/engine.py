@@ -10,7 +10,8 @@ Requests join and leave the batch at iteration granularity (Orca-style
 continuous batching). The engine thread is the only thread that launches
 device work: HTTP handler threads only tokenize and enqueue, then wait on the
 request. Kept from the JAX engine: the prefix cache, chunked prefill,
-deadlines and recompute-on-resume preemption. Not ported yet: speculative
+deadlines, recompute-on-resume preemption and token streaming (``submit(...,
+stream=True)``). Not ported yet: speculative
 decoding, weight quantization, serving meshes, tracing, Prometheus and stats
 publishing, KV transfer and weight swaps. ``metrics()`` returns a plain dict.
 """
@@ -18,6 +19,7 @@ publishing, KV transfer and weight swaps. ``metrics()`` returns a plain dict.
 from __future__ import annotations
 
 import dataclasses
+import queue
 import threading
 import time
 import traceback
@@ -109,15 +111,20 @@ class BatchEngine:
     # -- submission ------------------------------------------------------------
     def submit(self, prompt: str, max_tokens: int = 64,
                temperature: float = 0.0, seed: int = 0,
-               deadline_s: Optional[float] = None) -> Request:
+               deadline_s: Optional[float] = None,
+               stream: bool = False) -> Request:
         """Tokenize and enqueue; raises QueueFullError (-> 429) past the
-        queue bound, ValueError when the request can never fit a row."""
+        queue bound, ValueError when the request can never fit a row. With
+        ``stream=True`` the request carries a ``stream_q`` that the engine
+        puts each emitted token id into, then None at the end."""
         ids = [self.tokenizer.bos_id] + self.tokenizer.tokenize(prompt)
-        return self._submit_ids(ids, max_tokens, temperature, seed, deadline_s)
+        return self._submit_ids(ids, max_tokens, temperature, seed, deadline_s,
+                                stream=stream)
 
     def _submit_ids(self, ids: List[int], max_tokens: int,
                     temperature: float, seed: int,
-                    deadline_s: Optional[float] = None) -> Request:
+                    deadline_s: Optional[float] = None,
+                    stream: bool = False) -> Request:
         P = len(ids)
         padded = batch_step.round_up(max(P, 1), self.chunk)
         if padded > self.pool.max_len or P > self.pool.capacity:
@@ -129,6 +136,8 @@ class BatchEngine:
                       deadline_s=(deadline_s if deadline_s is not None
                                   else self.cfg.default_deadline_s),
                       stop_ids=[self.tokenizer.eos_id])
+        if stream:
+            req.stream_q = queue.Queue()
         self.scheduler.submit(req)
         self._wake.set()
         return req
@@ -333,6 +342,8 @@ class BatchEngine:
         req.tokens.append(tok)
         req.logprobs.append(lp)
         req.last_token = tok
+        if req.stream_q is not None:
+            req.stream_q.put(tok)
         self._win_tokens += 1
         if len(req.tokens) >= req.max_tokens:
             self._finish(req, "length")

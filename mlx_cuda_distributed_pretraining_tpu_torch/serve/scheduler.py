@@ -27,7 +27,7 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional
 
 # Request lifecycle states
 QUEUED = "queued"      # accepted, waiting for a slot
@@ -77,6 +77,7 @@ class Request:
         self.finish_reason: Optional[str] = None
         self.error: Optional[str] = None
         self.result: Optional[dict] = None
+        self.stream_q: Optional[Any] = None  # queue.Queue when streaming (SSE)
         self._done = threading.Event()
 
     # -- waiter --------------------------------------------------------------
@@ -88,6 +89,8 @@ class Request:
         self.state = DONE
         self.result = result
         self.error = error
+        if self.stream_q is not None:
+            self.stream_q.put(None)  # end of stream
         self._done.set()
 
     def prefill_source(self) -> List[int]:

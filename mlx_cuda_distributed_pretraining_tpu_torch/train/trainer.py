@@ -15,7 +15,9 @@ EMA variants, Muon, Shampoo, Adafactor, hybrid), the LR finder
 (``training.lr_finder``: a momentum-SGD sweep whose suggestion the run
 adopts, skipped on resume, as in JAX), the log
 line protocol (with routing stats for an MoE model), validation (pure
-cross-entropy) and early stopping on it, and interval and ``final``
+cross-entropy) and early stopping on it, greedy samples at each validation
+step (``logging.log_samples``, through ``infer/generate.py``), and interval
+and ``final``
 checkpoints in the ``runs/`` layout both packages read. It runs on
 ``cuda`` unless the caller asks for the CPU.
 
@@ -40,8 +42,8 @@ JAX trainer: an unknown name raises, and ``llama_standard`` /
 
 Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
 ``model_parallel`` that needs more than one device (expert, data, tensor,
-sequence and pipeline parallelism), int8 grouped GEMMs, streaming data,
-and ``logging.log_samples``. The telemetry keys
+sequence and pipeline parallelism), int8 grouped GEMMs and streaming
+data. The telemetry keys
 (``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
 ``events``) are read by nothing here: they change no number the trainer
 computes, writes or logs, so a run with them set trains as one without.
@@ -110,17 +112,6 @@ def refuse_multi_device(system_cfg) -> None:
             "(ROADMAP queue 1 item 10: multi-GPU)")
 
 
-def refuse_unported_switches(cfg: Config) -> None:
-    """Raise on a switch that changes what the JAX trainer does (it
-    generates samples) and that the port has no code for: running as if it
-    were off would give another run than the one configured."""
-    logging = getattr(cfg.logging, "_extras", {})
-    if logging.get("log_samples"):
-        raise NotImplementedError(
-            "logging.log_samples is not ported (ROADMAP queue 1 item 7: the locked "
-            "generation path and its samplers)")
-
-
 def load_into(live: Any, loaded: Any) -> Any:
     """Copy a loaded tree into the live one in place: tensors keep their
     device, dtype and ``requires_grad``; other leaves are replaced."""
@@ -158,7 +149,6 @@ class Trainer:
                 f"data source {cfg.data.source!r} is not ported (ROADMAP queue 1: "
                 "streaming, token shards, native/ and device prefetch)")
         refuse_multi_device(cfg.system)
-        refuse_unported_switches(cfg)
 
         resume = cfg.resume is not None and bool(cfg.resume.checkpoint)
         if resume:  # continue in the run's own directory
@@ -366,6 +356,26 @@ class Trainer:
             self.early_stopping.load_state_dict(tstate.get("early_stopping", {}))
         self.logger.log(f"Resumed from checkpoint {tag} at step {self.start_step}")
 
+    # -- sample generation -----------------------------------------------------
+    def generate_samples(self, step: int, prompts=None, max_new_tokens: int = 48) -> None:
+        """Log greedy continuations of the first ``logging.log_samples_count``
+        prompts, generated from fp32 copies of the parameters. A failure is
+        logged and never stops training."""
+        from ..infer.generate import generate_text
+
+        prompts = prompts or ["Once upon a time"]
+        count = int(self.config.logging.log_samples_count or 1)
+        with torch.no_grad():
+            params = tree_map(lambda t: t.detach().float().clone(), self.state["params"])
+        for prompt in prompts[:count]:
+            try:
+                text = generate_text(params, self.model_args, self.tokenizer, prompt,
+                                     max_new_tokens=max_new_tokens, temperature=0.0)
+                self.logger.log_sample(step, prompt, text)
+            except Exception as e:  # noqa: BLE001 - sampling must never kill training
+                self.logger.log(f"sample generation failed: {e}")
+                return
+
     # -- LR finder -------------------------------------------------------------
     def maybe_run_lr_finder(self) -> Optional[float]:
         """With ``training.lr_finder.enabled`` on a fresh run: sweep momentum
@@ -474,6 +484,8 @@ class Trainer:
                     if v is not None and self.early_stopping.update(v):
                         self.logger.log(f"Early stopping triggered at step {step}")
                         stop_early = True
+                if cfg.logging.log_samples and val_int and step % val_int == 0:
+                    self.generate_samples(step)
                 saved = bool(ckpt_int and step % ckpt_int == 0)
                 if saved:  # interval saves overlap the disk write with training
                     self.save_checkpoint(step, blocking=not cfg.system.async_checkpointing)

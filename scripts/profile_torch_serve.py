@@ -17,7 +17,12 @@ this thread:
   by kernel and the device's idle share;
 - the engine's own thread, as the HTTP server drives it: ms per decode step
   of one request served alone, and of one request decoding beside 7 others
-  (from the requests' ``decode_ms``).
+  (from the requests' ``decode_ms``);
+- the locked generation path at batch 1 (``infer/generate.py``): wall
+  time per one-token decode step after a ~300-token prefill, and a
+  torch.profiler window over the same steps: device time per step, the
+  idle share, kernels per step and the host's reads of device values
+  (``aten::_local_scalar_dense``) per step.
 
 Both windows also report the grouped GEMM's share (kernels named
 ``gmm*``). ``--root`` imports the port from another checkout (its kernels
@@ -55,6 +60,12 @@ def device_kernels(torch, prof) -> dict:
     return kernels
 
 
+def gmm_ms(ks, n) -> float:
+    """Device ms per step of the grouped GEMM's kernels (demangled names
+    read "(anonymous namespace)::gmm_...")."""
+    return sum(v[0] for name, v in ks.items() if re.search(r"\bgmm_", name)) / n
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=20)
@@ -62,6 +73,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", help="also write the JSON object here")
     a = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(a.root))
+    import numpy as np
     import torch
 
     from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
@@ -141,9 +153,6 @@ def main(argv=None) -> int:
     pre_kernels = device_kernels(torch, prof)
     pre_device_ms = sum(v[0] for v in pre_kernels.values())
 
-    def gmm_ms(ks, n):  # demangled names read "(anonymous namespace)::gmm_..."
-        return sum(v[0] for name, v in ks.items() if re.search(r"\bgmm_", name)) / n
-
     def thread_step_ms(n_rows: int) -> float:
         """ms per decode step of the last request; the others get more
         tokens, so all ``n_rows`` rows decode for the whole of its window."""
@@ -185,6 +194,10 @@ def main(argv=None) -> int:
         "engine_thread_decode_step_ms_1_row": thread_ms[1],
         "engine_thread_decode_step_ms_8_rows": thread_ms[8],
     }
+    # the locked path, batch 1: decode steps after a padded prefill
+    from mlx_cuda_distributed_pretraining_tpu_torch.infer import generate as gen
+
+    out.update(locked_profile(torch, np, gen, params, args, tok, base, a.steps))
     text = json.dumps(out, indent=1)
     print(text)
     if a.out:
@@ -192,6 +205,57 @@ def main(argv=None) -> int:
         with open(a.out, "w") as f:
             f.write(text + "\n")
     return 0
+
+
+def locked_profile(torch, np, gen, params, args, tok, base, steps) -> dict:
+    """Wall and device time of the locked path's one-token decode steps at
+    batch 1 after a ~300-token prefill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ids = [tok.bos_id] + tok.tokenize((base.format(i=0) * 5)[:300])
+    P, n_dec = len(ids), 3 * steps + 10
+    cache_len = gen._round_up(P + n_dec, 128)
+    sampler, g = gen.greedy(), torch.Generator(device="cuda")
+
+    def locked_steps(cache, token, hist, start, n):
+        for i in range(n):
+            pos = start + i
+            token, _, hist = gen._decode_step(params, args, cache, token, pos, g, hist,
+                                              sampler, (), gen._attend_bucket(pos + 1, cache_len))
+        return token, hist
+
+    with torch.no_grad():
+        cache, last = gen.prefill(params, args, np.asarray([ids]), cache_len)
+        token, hist = last.argmax(-1), torch.full((1, 64), -1, device="cuda")
+        token, hist = locked_steps(cache, token, hist, P, 10)  # warm
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        token, hist = locked_steps(cache, token, hist, P + 10, steps)
+        torch.cuda.synchronize()
+        locked_ms = (time.perf_counter() - t4) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t5 = time.perf_counter()
+            locked_steps(cache, token, hist, P + 10 + steps, steps)
+            torch.cuda.synchronize()
+            locked_prof_wall_ms = (time.perf_counter() - t5) * 1e3
+    locked_kernels = device_kernels(torch, prof)
+    locked_device_ms = sum(v[0] for v in locked_kernels.values())
+    host_reads = sum(1 for ev in prof.events() if ev.name == "aten::_local_scalar_dense")
+    locked_top = sorted(locked_kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {
+        "locked_prompt_tokens": P,
+        "locked_decode_step_ms": locked_ms,
+        "locked_decode_tok_s": 1e3 / locked_ms,
+        "locked_profiled_step_wall_ms": locked_prof_wall_ms / steps,
+        "locked_profiled_step_device_ms": locked_device_ms / steps,
+        "locked_device_idle_share": 1.0 - locked_device_ms / locked_prof_wall_ms,
+        "locked_kernels_per_step": sum(v[1] for v in locked_kernels.values()) / steps,
+        "locked_host_reads_per_step": host_reads / steps,
+        "locked_step_gmm_device_ms": gmm_ms(locked_kernels, steps),
+        "locked_top_kernels_ms_per_step": [
+            {"name": n[:90], "ms": v[0] / steps, "launches": v[1] / steps}
+            for n, v in locked_top],
+    }
 
 
 if __name__ == "__main__":

@@ -146,6 +146,31 @@ def test_f32_gmm_check_rejects_planted_fault(cuda):
     assert not kernel_check.compare(bad, ref)["ok"]
 
 
+# The locked generation path's fp32 shapes on moe-8x40m (block_t, group
+# sizes, tail rows): one decode token (2 routed rows, 6 of 8 experts empty,
+# a 64-row buffer) and four beams (8 rows over 6 experts) on "f32_decode";
+# a 512-token padded prefill (1024 rows in a 1536-row buffer, block_t 64)
+# on "f32".
+GENERATE_CASES = [
+    (8, [0, 8, 0, 0, 0, 8, 0, 0], 48),
+    (8, [8, 8, 0, 8, 8, 0, 8, 8], 16),
+    (64, [192, 128, 192, 128, 128, 192, 192, 128], 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_t,sizes,tail", GENERATE_CASES)
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512)])
+def test_f32_gmm_generate_shapes_match_plain_and_reject_a_planted_fault(
+        cuda, block_t, sizes, tail, K, N):
+    x, w, gs = _f32_inputs(sizes, tail, K, N, False)
+    got, ref, ran = _run_grouped("forward", x, w, gs, block_t)
+    assert ran == {"f32_decode" if block_t == 8 else "f32": 1}
+    _assert_matches("forward", got, ref, sizes)
+    bad = kernel_check.gmm_skipping_a_tile(x, w, gs, block_t)
+    assert not kernel_check.compare(bad, ref)["ok"]
+
+
 # (block_t, group sizes, tail rows) for tgmm: the training path's tile, the
 # decode and prefill tiles, empty groups, tail tiles and an empty last expert.
 TGMM_CASES = [

@@ -492,10 +492,12 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
         tr.train()
 
 
-# (config path, value, ROADMAP queue 1 item named): switches with which the
-# JAX trainer generates samples; the port has no sampler yet and must
-# refuse them. (Early stopping and checkpoint retention, once refused here,
-# act now: tests/test_torch_resume.py; so does the LR finder:
+# (config path, value, ROADMAP queue 1 item that ported it): switches with
+# which the JAX trainer generates samples. The port refused them until that
+# item landed; each now trains, logs its samples at the validation steps,
+# and leaves the losses as they are with the switch off. (Early stopping and
+# checkpoint retention, once refused here, act now:
+# tests/test_torch_resume.py; so does the LR finder:
 # tests/test_torch_lr_finder.py.)
 UNPORTED_SWITCHES = [
     ("logging.log_samples", True, 7),
@@ -504,17 +506,55 @@ UNPORTED_SWITCHES = [
 
 @pytest.mark.parametrize("path,value,item", UNPORTED_SWITCHES)
 def test_trainer_refuses_switches_that_change_the_run(tmp_path, path, value, item):
-    d = _config_dict(tmp_path)
+    d = _config_dict(tmp_path, iters=10)
     section, key = path.split(".")
     d[section][key] = value
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}\\b"):
-        Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "runs"), quiet=True,
-                device="cpu")
-    # switched off, each trains as before
-    d[section][key] = False if value is True else {k: 0 if k.startswith("keep") else False
-                                                     for k in value}
-    Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "runs"), quiet=True,
-            device="cpu")
+    on = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "on"), quiet=True,
+                 device="cpu")
+    on.train()
+    with open(os.path.join(on.run_dir, "log.txt")) as f:
+        samples = [line for line in f if " sample: " in line]
+    assert len(samples) == 1 and samples[0].startswith(
+        "Step 10 sample: 'Once upon a time' -> '")
+    # switched off, the same run logs no sample and the same losses
+    d[section][key] = False
+    off = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "off"), quiet=True,
+                  device="cpu")
+    off.train()
+    assert [w["loss"] for w in on.windows] == [w["loss"] for w in off.windows]
+
+
+def test_log_samples_line_matches_jax(tmp_path):
+    # the trainer's sample line on the same weights as the JAX package's
+    # greedy generate_text written by the JAX logger
+    from mlx_cuda_distributed_pretraining_tpu.infer.generate import (
+        generate_text as j_generate_text,
+    )
+    from mlx_cuda_distributed_pretraining_tpu.obs.logger import Logger as JLogger
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import load_into
+
+    d = _config_dict(tmp_path)
+    d["logging"]["log_samples"] = True
+    jargs, _ = _args(d)
+    np_params = _random_params(jargs, seed=11)
+    tr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "runs"), quiet=True,
+                 device="cpu")
+    load_into(tr.state["params"], params_from_jax(np_params, "cpu"))
+    tr.generate_samples(10)
+    jlogger = JLogger(str(tmp_path / "jax"), quiet=True)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jlogger.log_sample(10, "Once upon a time", j_generate_text(
+        jparams, jargs, JTok(JConfig.from_dict(d).data), "Once upon a time",
+        max_new_tokens=48, temperature=0.0))
+    jlogger.close()
+
+    def sample_lines(path):
+        with open(path) as f:
+            return [line for line in f if " sample: " in line]
+
+    got = sample_lines(os.path.join(tr.run_dir, "log.txt"))
+    assert got == sample_lines(str(tmp_path / "jax" / "log.txt")) and len(got) == 1
+    assert len(got[0]) > len("Step 10 sample: 'Once upon a time' -> ''\n") + 10
 
 
 def test_unknown_architecture_raises_as_in_jax(tmp_path):
