@@ -156,7 +156,35 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    ``flex_attention`` under ``torch.compile`` with the soft-cap
    ``score_mod``, compiled beside the build in phase 2, its compile time
    printed on a line of its own).
-9. report  — a ``{"kernels": [...]}`` line (each kernel with the earlier
+9. stream  — trains configs/model-config-80m-fineweb.yaml at full width
+   (hidden 1024, intermediate 2816, 12 layers, 16 query heads over 8 KV
+   heads of 64, S 2048, batch 32, bf16 over fp32 masters, flash
+   attention, Muon with adamw_lr_ratio 0.02) on seeded synthetic text in
+   four local JSONL shards and one WebDataset tar shard, read through
+   ``data.streaming.shards`` by the port's StreamingDataManager behind the
+   device prefetcher. Changed from the config, each printed as
+   ``reduced``: the data source, ``iters``, ``warmup_steps`` and the
+   checkpoint interval. The native dataplane must build and give the
+   Python packer's rows (both timed); the producer alone gives its
+   documents per second; step 1 at batch 8 is held against the plain
+   attention path. Run A: 30 steps with prefetch 2 and a checkpoint at 15,
+   its logged loss falling below 0.9x the first. Run E: the same with
+   prefetch 0 (its losses A's within 1e-5, its step-15 data position A's).
+   Run B resumes A from step 15: steps 16-30 give A's losses within 1e-5.
+   Run C: prefetch 0 for 5 steps, A's first five losses within 1e-5. Run
+   D: 5 steps on token shards that ``write_token_shards`` wrote from the
+   same documents (the vocabulary from their index, a validation batch
+   from their split). Every batch a run consumed is held, on the device
+   before and after its step, against the host batch by checksum. Every
+   flash launch of the runs is wgmma with no score mod, 12 forwards a step
+   and a validation batch and 12 of each backward a step. Prints step ms
+   (per window, and the median between step starts from CUDA events),
+   tok/s, MFU, data_wait and h2d ms a step for prefetch 2 and 0, peak
+   memory and the producer's documents per second, beside the card.
+   Phase 3's ``path_80m`` case holds the three flash kernels at this
+   path's shape (B 32, Hq 16, Hkv 8, S 2048, D 64, bf16, causal) with a
+   planted fault.
+10. report — a ``{"kernels": [...]}`` line (each kernel with the earlier
    kernel's ms where this run timed one, each flash kernel with its
    launches by variant in the 1B run and its launches on each training
    path; the fp32 cases' entries with their launches on the fp32 40m path
@@ -166,7 +194,9 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    mod) cases as an entry named ``kernel:variant:mod:case``, with its
    launches on the path that runs it; the locked generation path's four
    gmm cases as entries ``gmm_<variant>:<case>`` with the generate phase's
-   launches at their shapes), the card line, and as the last line
+   launches at their shapes; the three flash kernels at 80m-fineweb's shape
+   as ``<kernel>:wgmma:none:path_80m`` with the streaming phase's
+   launches), the card line, and as the last line
    ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
    495 / 3 TFLOP/s (3xTF32), the card's fastest fp32-accurate rate.
 
@@ -674,6 +704,7 @@ FLASH_CASES = [
     ("full", "bfloat16", 8, 8, 8, 1024, 64, "full"),
     ("d128", "bfloat16", 8, 8, 8, 1024, 128, "causal"),
     ("d128_fp32", "float32", 2, 8, 8, 1024, 128, "causal"),
+    ("path_80m", "bfloat16", 32, 16, 8, 2048, 64, "causal"),
 ]
 WINDOW, PREFIX = 256, 384
 FP32_CASES = ("path_fp32", "fp32", "tail_fp32", "d128_fp32")
@@ -1566,8 +1597,10 @@ def write_corpus(tmp: str, train_bytes: int, val_bytes: int) -> None:
         f.write(docs(val_bytes))
 
 
-def first_step_parity(torch, trainer, rows: int, swaps):
-    """Step 1's loss and gradients on ``rows`` rows of the first batch: the
+def first_step_parity(torch, trainer, rows: int, swaps, host_batch=None):
+    """Step 1's loss and gradients on ``rows`` rows of the first batch (or
+    of ``host_batch``: a streaming loader's batches are not a function of
+    the step, so one drawn here would be missing from the run): the
     kernels against their plain versions, the same model code with
     ``swaps`` (``(module, name, plain function)``) set for the second run
     only. The loss is the training loss (an MoE model's router losses in)."""
@@ -1575,8 +1608,10 @@ def first_step_parity(torch, trainer, rows: int, swaps):
     from mlx_cuda_distributed_pretraining_tpu_torch.optim.base import global_norm
     from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import leaves_with_path
 
+    if host_batch is None:
+        host_batch = trainer.data.generate_batch(0)
     batch = {k: torch.from_numpy(v[:rows]).to(trainer.device)
-             for k, v in trainer.data.generate_batch(0).items()}
+             for k, v in host_batch.items()}
     params = trainer.state["params"]
 
     def loss_and_grads():
@@ -2674,6 +2709,436 @@ def optimizers_phase(torch, gm, fa, card, steps: int = 10, finder_steps: int = 2
     return failures, perf
 
 
+# -- phase 9: 80m-fineweb on streaming data -------------------------------------------
+STREAM_STEPS, STREAM_WARMUP, STREAM_CKPT, STREAM_SHORT = 30, 10, 15, 5
+
+
+def config_80m_fineweb(shards, steps: int, ckpt: int, prefetch_depth: int = 2,
+                       data=None) -> dict:
+    """configs/model-config-80m-fineweb.yaml written out as a dict. Changed
+    (each printed as ``reduced``): the data source (local JSONL and
+    WebDataset tar shards through ``data.streaming.shards`` in place of the
+    hub's FineWeb-Edu stream; ``data`` replaces the section for the
+    token-shard run), ``iters`` (20000), ``warmup_steps`` (500) and the
+    checkpoint interval (2000); ``data.prefetch_depth`` is the default 2
+    unless a run sets 0. Every width, the batch, Muon and every other key
+    are the config's (``system.device: "tpu"`` left out, as in the other
+    phases)."""
+    return {
+        "name": "Llama (80M) FineWeb", "overwrite": True,
+        "data": data or {
+            "source": "jsonl",
+            "streaming": {"shards": shards, "split": "train", "shuffle_buffer": 10000},
+            "input_file": None, "validation_file": "val.jsonl",
+            "tokenizer_path": "tokenizer",
+            "preprocessing": {"max_context_size": 2048, "chunk_overlap": 0},
+            "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}},
+            "prefetch_depth": prefetch_depth},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": 1024, "intermediate_size": 2816,
+                                 "num_layers": 12},
+                  "attention": {"num_heads": 16, "num_kv_heads": 8, "head_dim": 64,
+                                "max_position_embeddings": 2048,
+                                "use_flash_attention": True},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000, "traditional": False, "scaling": None},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True}},
+        "training": {"hyperparameters": {"batch_size": 32, "learning_rate": 1.5e-2,
+                                         "weight_decay": 0.01, "gradient_clip": 1.0,
+                                         "iters": steps},
+                     "scheduler": {"type": "cosine_with_warmup",
+                                   "warmup_steps": STREAM_WARMUP, "min_lr_ratio": 0.05},
+                     "optimization": {"optimizer": "muon", "adamw_lr_ratio": 0.02}},
+        "logging": {"log_dir": "logs", "checkpoint_dir": "checkpoints",
+                    "steps": {"logging_interval": 10, "checkpoint_interval": ckpt,
+                              "validation_interval": 1000},
+                    "metrics": {"log_loss": True, "log_perplexity": True,
+                                "log_tokens_per_second": True}},
+        "system": {"seed": 42, "mixed_precision": True, "precision": "bfloat16"},
+    }
+
+
+REDUCED_80M = [
+    "data.source hf_stream (HuggingFaceFW/fineweb-edu, sample-10BT) -> jsonl over "
+    "data.streaming.shards: 4 local JSONL shards and 1 WebDataset tar shard of seeded "
+    "synthetic text (shuffle_buffer 10000 and split kept); run D: token_shards written "
+    "from the same documents by write_token_shards",
+    f"training.hyperparameters.iters 20000 -> {STREAM_STEPS} (runs A, E; B resumes "
+    f"to {STREAM_STEPS}; runs C, D {STREAM_SHORT})",
+    f"training.scheduler.warmup_steps 500 -> {STREAM_WARMUP}",
+    f"logging.steps.checkpoint_interval 2000 -> {STREAM_CKPT}",
+    "data.prefetch_depth: the default 2 (runs A, B, D), 0 (runs C, E)",
+]
+
+
+def stream_corpus(tmp: str, n_jsonl: int = 4, shard_bytes: int = 700_000):
+    """Seeded synthetic text in ``n_jsonl`` JSONL shards and one WebDataset
+    tar shard (a ``.txt`` member a document), ``shard_bytes`` of text each:
+    documents of sentences over a Zipf-weighted vocabulary, as
+    ``write_corpus`` makes them. Returns (shard paths, documents)."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 80)
+    syll = ["ka", "lo", "mi", "ne", "su", "ta", "ri", "po", "an", "el", "or", "ve"]
+    words = ["".join(rng.choice(syll, size=int(rng.integers(1, 4)))) for _ in range(96)]
+    weights = 1.0 / np.arange(1, len(words) + 1)
+    weights /= weights.sum()
+
+    def doc():
+        sentences = []
+        for _ in range(int(rng.integers(4, 40))):
+            ids = rng.choice(len(words), size=int(rng.integers(4, 16)), p=weights)
+            sentences.append(" ".join(words[i] for i in ids).capitalize() + ".")
+        return " ".join(sentences)
+
+    shards, docs = [], []
+    for i in range(n_jsonl + 1):
+        texts, total = [], 0
+        while total < shard_bytes:
+            texts.append(doc())
+            total += len(texts[-1])
+        docs += texts
+        if i < n_jsonl:
+            path = os.path.join(tmp, f"shard_{i:02d}.jsonl")
+            with open(path, "w") as f:
+                f.write("".join(json.dumps({"text": t}) + "\n" for t in texts))
+        else:
+            path = os.path.join(tmp, f"shard_{i:02d}.tar")
+            with tarfile.open(path, "w") as tf:
+                for j, t in enumerate(texts):
+                    data = t.encode()
+                    info = tarfile.TarInfo(f"{j:06d}.txt")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+        shards.append(path)
+    return shards, docs
+
+
+_WEIGHTS = {}
+
+
+def batch_checksums(torch, batch) -> dict:
+    """Position-weighted int64 sums of each array of a batch: numpy on the
+    host, torch on the device (exact on both: integer sums far below
+    2**63)."""
+    import numpy as np
+
+    out = {}
+    for k, v in batch.items():
+        shape = tuple(v.shape)
+        if isinstance(v, np.ndarray):
+            w = (np.arange(v.size, dtype=np.int64) % 65521 + 1).reshape(shape)
+            out[k] = int((v.astype(np.int64) * w).sum())
+        else:
+            w = _WEIGHTS.get((shape, v.device))
+            if w is None:
+                w = _WEIGHTS[(shape, v.device)] = (torch.arange(
+                    v.numel(), device=v.device, dtype=torch.int64) % 65521 + 1).view(shape)
+            out[k] = (v.long() * w).sum()
+    return out
+
+
+class StepRecorder:
+    """Wraps a trainer's ``train_step`` and its loader's ``generate_batch``:
+    each step's loss tensor, its batch's checksums on the device before and
+    after the step (a batch overwritten while the step reads it changes the
+    second), a CUDA event at each step's start, and the host checksums of
+    every batch the loader handed out, in order. Reads the device only in
+    :meth:`finish`."""
+
+    def __init__(self, torch, trainer):
+        self.torch, self.losses, self.device_sums, self.host_sums, self.events = \
+            torch, [], [], [], []
+        step_fn, fetch = trainer.train_step, trainer.data.generate_batch
+
+        def train_step(state, batch):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            before = batch_checksums(torch, batch)
+            state, metrics = step_fn(state, batch)
+            self.device_sums.append((before, batch_checksums(torch, batch)))
+            self.losses.append(metrics["loss"].detach())
+            self.events.append(ev)
+            return state, metrics
+
+        def generate_batch(step):
+            b = fetch(step)
+            self.host_sums.append(batch_checksums(torch, b))
+            return b
+
+        trainer.train_step = train_step
+        trainer.data.generate_batch = generate_batch
+
+    def finish(self, first_step: int) -> dict:
+        """Losses by step, the device's ms between consecutive step starts,
+        and the checksum comparison."""
+        self.torch.cuda.synchronize()
+        losses = {first_step + i: float(x) for i, x in enumerate(self.losses)}
+        gaps = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+        bad = [i for i, (before, after) in enumerate(self.device_sums)
+               if i >= len(self.host_sums)
+               or any(int(before[k]) != self.host_sums[i][k]
+                      or int(after[k]) != self.host_sums[i][k] for k in before)]
+        return {"losses": losses, "step_gap_ms": gaps, "checked": len(self.device_sums),
+                "fetched": len(self.host_sums), "checksum_mismatches": bad}
+
+
+def stream_run(torch, cfg: dict, runs: str, label: str) -> dict:
+    """One Trainer.train() on the card with a StepRecorder; the run's
+    numbers, its windows and its step-15 data position (when saved)."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(Config.from_dict(cfg), runs_root=runs, quiet=True, device="cuda")
+    start = tr.start_step
+    rec = StepRecorder(torch, tr)
+    t0 = time.perf_counter()
+    result = tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = rec.finish(start + 1)
+    steady = tr.windows[1:] or tr.windows  # the first window holds step 1's set-up
+    secs = sum(w["seconds"] for w in steady)
+    steps = max(sum(w["steps"] for w in steady), 1)
+    first = tr.windows[0] if tr.windows else {"data_wait_s": 0.0, "h2d_wait_s": 0.0}
+    gaps = sorted(out["step_gap_ms"][1:] or out["step_gap_ms"])
+    state_path = os.path.join(tr.run_dir, "checkpoints", f"step_{STREAM_CKPT}_state.json")
+    state = None
+    if os.path.isfile(state_path) and start < STREAM_CKPT:
+        with open(state_path) as f:
+            state = {k: v for k, v in json.load(f).items()
+                     if k in ("step", "total_tokens", "docs_consumed", "buf", "source")}
+    out.update(
+        label=label, start_step=start, wall_s=wall, result=result,
+        prefetch_depth=tr.prefetcher.depth, eval_batches=tr.eval_batches,
+        window_losses={w["step"]: w["loss"] for w in tr.windows},
+        step_ms=1e3 * secs / steps,
+        step_ms_median_events=gaps[len(gaps) // 2] if gaps else None,
+        tok_s=sum(w["toks"] for w in steady) / secs if secs else None,
+        data_wait_ms_per_step=1e3 * sum(w["data_wait_s"] for w in steady) / steps,
+        h2d_ms_per_step=1e3 * sum(w["h2d_wait_s"] for w in steady) / steps,
+        first_window_data_wait_ms=1e3 * first["data_wait_s"],
+        first_window_h2d_ms=1e3 * first["h2d_wait_s"],
+        h2d_blocks_step_loop=tr.prefetcher.h2d_blocks_consumer,
+        docs_consumed=getattr(tr.data, "docs_consumed", None),
+        flops_per_token=tr.flops_per_token, n_params=tr.n_params,
+        vocab_size=tr.model_args.vocab_size, state_at_ckpt=state)
+    if out["tok_s"]:
+        out["mfu_vs_989tflops"] = out["tok_s"] * tr.flops_per_token / PEAK_FLOPS["bfloat16"]
+    log(f"stream: run {label}: steps {start + 1}-{start + len(out['losses'])} in {wall:.1f}s "
+        f"(prefetch_depth {out['prefetch_depth']}); losses "
+        f"{[round(x, 5) for x in out['losses'].values()]}; {out['checked']} batches "
+        f"checked against {out['fetched']} fetched, mismatches {out['checksum_mismatches']}")
+    del tr, rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def streaming_phase(torch, gm, fa, card, steps: int = STREAM_STEPS, ckpt: int = STREAM_CKPT,
+                    short: int = STREAM_SHORT):
+    """80m-fineweb at full width on local streaming shards: the native
+    dataplane against the Python packer; the producer's documents per
+    second; step-1 parity at batch 8; run A (prefetch 2, ``steps`` steps, a
+    checkpoint at ``ckpt``), run E (prefetch 0, the same), run B (resumes
+    A from ``ckpt``), run C (prefetch 0, ``short`` steps), run D
+    (token shards of the same documents, ``short`` steps). Every consumed
+    batch is held against the host batch by checksum."""
+    import tempfile
+
+    import numpy as np
+
+    from mlx_cuda_distributed_pretraining_tpu_torch import native
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.data.packing import (
+        chunk_tokens,
+        pack_documents,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.data.streaming import build_data_manager
+    from mlx_cuda_distributed_pretraining_tpu_torch.data.token_shards import (
+        write_token_shards,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.tokenizer import TokenizerManager
+
+    failures, perf = [], {"card": card, "reduced": REDUCED_80M}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        shards, docs = stream_corpus(tmp)
+        cfg_a = config_80m_fineweb(shards, steps, ckpt)
+        tok = TokenizerManager(Config.from_dict(cfg_a).data)
+        B = cfg_a["training"]["hyperparameters"]["batch_size"]
+        S = cfg_a["data"]["preprocessing"]["max_context_size"]
+        log(f"stream: 80m-fineweb corpus: {len(docs)} documents, "
+            f"{sum(map(len, docs)) / 1e6:.2f} MB in {len(shards)} shards "
+            f"({time.perf_counter() - t0:.1f}s)")
+        for line in REDUCED_80M:
+            log(f"stream: reduced: {line}")
+
+        # the native dataplane against the Python packer, at the path's rows
+        if not native.available():
+            failures.append(f"stream: the native dataplane did not build: "
+                            f"{native.build_error()}")
+        else:
+            byte = tok.tokenizer
+            t0 = time.perf_counter()
+            rows = native.byte_pack_docs(docs, byte.normal_vocab_size, byte.bos_id,
+                                         byte.eos_id, byte.pad_id, row_len=S + 1)
+            native_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            chunks = []
+            for text in docs:
+                chunks.extend(chunk_tokens(tok.tokenize_doc(text, max_length=10**9), S + 1, 0))
+            py_rows = pack_documents(chunks, S, tok.pad_id)
+            python_s = time.perf_counter() - t0
+            same = rows is not None and rows.shape == py_rows.shape \
+                and bool(np.array_equal(rows, py_rows))
+            perf["native"] = {"rows": int(py_rows.shape[0]), "equal": same,
+                              "native_s": native_s, "python_s": python_s,
+                              "library": native.library_path().name}
+            log(f"stream: native dataplane {native.library_path().name}: "
+                f"{py_rows.shape[0]} rows of {S + 1}, equal to the Python path {same}; "
+                f"native {native_s * 1e3:.1f} ms, Python {python_s * 1e3:.1f} ms "
+                f"({python_s / native_s:.1f}x)")
+            if not same:
+                failures.append("stream: the native dataplane's rows differ from Python's")
+
+        # the producer alone: 40 batches from a loader on the same shards
+        probe = build_data_manager(Config.from_dict(cfg_a), tok, B, seq_len=S, seed=42)
+        t0 = time.perf_counter()
+        first = probe.generate_batch(0)
+        for i in range(1, 40):
+            probe.generate_batch(i)
+        secs = time.perf_counter() - t0
+        consumed = probe.state_dict()["docs_consumed"]
+        probe.stop()
+        perf["producer"] = {"batches": 40, "seconds": secs, "docs": consumed,
+                            "docs_per_s": consumed / secs,
+                            "tokens_per_s": 40 * B * S / secs}
+        log(f"stream: producer alone: 40 batches, {consumed} documents in {secs:.2f}s: "
+            f"{consumed / secs:.0f} docs/s, {40 * B * S / secs:.0f} tok/s [{card}]")
+
+        from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+        a0 = Trainer(Config.from_dict(dict(cfg_a, name="parity")),
+                     runs_root=os.path.join(tmp, "parity"), quiet=True, device="cuda")
+        log(f"stream: 80m-fineweb {a0.n_params / 1e6:.2f}M params, "
+            f"{a0.flops_per_token / 1e6:.1f} MFLOP per token, vocabulary "
+            f"{a0.model_args.vocab_size}")
+        par = first_step_parity(torch, a0, 8, flash_swaps(fa), host_batch=first)
+        a0.data.stop()
+        del a0
+        torch.cuda.empty_cache()
+        log(f"stream: step-1 parity at batch 8, kernels vs plain on the card: {par}")
+        if not parity_ok(par):
+            failures.append(f"stream: step-1 loss/gradients disagree with the plain path: {par}")
+        perf["first_step_parity"] = par
+
+        runs = os.path.join(tmp, "runs")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(gm, fa)  # count from here: runs A-E only
+        a = stream_run(torch, cfg_a, runs, "A")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        e = stream_run(torch, config_80m_fineweb(shards, steps, ckpt, prefetch_depth=0),
+                       os.path.join(tmp, "runs_e"), "E")
+        b = stream_run(torch, dict(cfg_a, overwrite=False,
+                                   resume={"checkpoint": str(ckpt)}), runs, "B")
+        c = stream_run(torch, config_80m_fineweb(shards, short, 0, prefetch_depth=0),
+                       os.path.join(tmp, "runs_c"), "C")
+        shard_dir = os.path.join(tmp, "token_shards")
+        index = write_token_shards(iter(docs), tok, shard_dir, shard_tokens=1 << 20)
+        data_d = dict(config_80m_fineweb(shards, short, 0)["data"], source="token_shards",
+                      input_file=shard_dir, streaming={})
+        d = stream_run(torch, config_80m_fineweb(shards, short, 0, data=data_d),
+                       os.path.join(tmp, "runs_d"), "D")
+        launches, variants, mods = read_launches(gm, fa), read_variants(gm, fa), read_mods(fa)
+    torch.cuda.empty_cache()
+
+    runs_ = {"A": a, "E": e, "B": b, "C": c, "D": d}
+    layers = cfg_a["model"]["dimensions"]["num_layers"]
+    n_steps = sum(len(r["losses"]) for r in runs_.values())
+    want = {"gmm": 0, "tgmm": 0, "flash_fwd": layers * (n_steps + d["eval_batches"]),
+            "flash_bwd_dq": layers * n_steps, "flash_bwd_dkv": layers * n_steps}
+    want_v, want_m = flash_want(fa, dict.fromkeys(FLASH_KERNELS, "wgmma"), "none",
+                                want["flash_fwd"], want["flash_bwd_dq"])
+    flash_v = {n: variants[n] for n in FLASH_KERNELS}
+    log(f"stream: launches {launches}; flash by variant {flash_v} by mod {mods}")
+    if launches != want or flash_v != want_v or mods != want_m:
+        failures.append(f"stream: launches {launches} {flash_v} {mods} != {want} "
+                        f"{want_v} {want_m}")
+    for label, r in runs_.items():
+        n = {"A": steps, "E": steps, "B": steps - ckpt, "C": short, "D": short}[label]
+        if len(r["losses"]) != n or not all(math.isfinite(x) for x in r["losses"].values()):
+            failures.append(f"stream: run {label} losses {r['losses']} (want {n} finite)")
+        if r["checksum_mismatches"] or r["checked"] != n or r["fetched"] < n:
+            failures.append(f"stream: run {label}: batches checked {r['checked']}, fetched "
+                            f"{r['fetched']}, checksum mismatches at {r['checksum_mismatches']}")
+
+    def compare(label, other, steps_):
+        rel = {s: abs(other["losses"].get(s, float("nan")) - a["losses"][s])
+               / abs(a["losses"][s]) for s in steps_}
+        worst = max(rel.values())
+        bitwise = all(other["losses"].get(s) == a["losses"][s] for s in steps_)
+        log(f"stream: run {label} vs A, steps {steps_[0]}-{steps_[-1]}: max relative loss "
+            f"difference {worst:.3g} (bitwise {bitwise})")
+        if not worst <= 1e-5:
+            failures.append(f"stream: run {label} losses differ from run A's: {rel}")
+        return {"steps": [steps_[0], steps_[-1]], "max_rel_loss_diff": worst,
+                "bitwise": bitwise}
+
+    perf["resume"] = dict(compare("B", b, list(range(ckpt + 1, steps + 1))),
+                          started_at=b["start_step"])
+    if b["start_step"] != ckpt:
+        failures.append(f"stream: run B resumed at step {b['start_step']}, not {ckpt}")
+    perf["prefetch_off_short"] = compare("C", c, list(range(1, short + 1)))
+    perf["prefetch_off_full"] = compare("E", e, list(range(1, steps + 1)))
+    same_state = a["state_at_ckpt"] is not None and a["state_at_ckpt"] == e["state_at_ckpt"]
+    log(f"stream: step-{ckpt} data position, prefetch 2 (A) == prefetch 0 (E): {same_state}; "
+        f"A's: docs_consumed {(a['state_at_ckpt'] or {}).get('docs_consumed')}, source "
+        f"{(a['state_at_ckpt'] or {}).get('source')}")
+    if not same_state:
+        failures.append("stream: the step-15 data position depends on the prefetch depth")
+    logged = [a["window_losses"][s] for s in sorted(a["window_losses"])]
+    if not logged[-1] < 0.9 * logged[0]:
+        failures.append(f"stream: loss did not fall below 0.9x the first logged "
+                        f"({logged[0]} -> {logged[-1]})")
+    log(f"stream: run D on token shards ({index['total_tokens']} tokens in "
+        f"{len(index['files'])} shards, vocabulary {d['vocab_size']} from the index): "
+        f"losses {[round(x, 4) for x in d['losses'].values()]}, "
+        f"{d['eval_batches']} validation batches, final val_loss "
+        f"{d['result']['final_val_loss']}")
+    if d["vocab_size"] != index["vocab_size"] or d["result"]["final_val_loss"] is None:
+        failures.append(f"stream: run D vocabulary {d['vocab_size']} / validation "
+                        f"{d['result']['final_val_loss']}")
+    for label, r in (("prefetch 2 (run A)", a), ("prefetch 0 (run E)", e)):
+        log(f"stream: {label}: step_ms={r['step_ms']:.2f} (median between step starts "
+            f"{r['step_ms_median_events']:.2f}) tok_s={r['tok_s']:.0f} "
+            f"mfu_vs_989tflops={r['mfu_vs_989tflops']:.4f} "
+            f"data_wait_ms_per_step={r['data_wait_ms_per_step']:.3f} "
+            f"h2d_ms_per_step={r['h2d_ms_per_step']:.3f} "
+            f"(on the step loop's path: {r['h2d_blocks_step_loop']}; the first window's "
+            f"data_wait {r['first_window_data_wait_ms']:.1f} ms, h2d "
+            f"{r['first_window_h2d_ms']:.1f} ms) [{card}]")
+    log(f"stream: peak_mem_gb={peak_gb:.2f} (run A) [{card}]")
+    log(f"stream: producer docs_per_s={perf['producer']['docs_per_s']:.0f} alone; in run A "
+        f"{a['docs_consumed']} documents in {a['wall_s']:.1f}s [{card}]")
+    keep = ("losses", "step_gap_ms", "checked", "fetched", "checksum_mismatches",
+            "start_step", "wall_s", "prefetch_depth", "eval_batches", "step_ms",
+            "step_ms_median_events", "tok_s", "mfu_vs_989tflops", "data_wait_ms_per_step",
+            "h2d_ms_per_step", "first_window_data_wait_ms", "first_window_h2d_ms",
+            "h2d_blocks_step_loop", "docs_consumed", "vocab_size")
+    perf.update(runs={k: {f: r.get(f) for f in keep} for k, r in runs_.items()},
+                peak_mem_gb=peak_gb, launches=launches, launches_by_variant=flash_v,
+                launches_by_mod=mods, flops_per_token=a["flops_per_token"],
+                n_params=a["n_params"], token_shards=index)
+    return failures, perf
+
+
 def kernel_entry(name, source, replaces, launches, row, max_abs_err):
     """One kernel of the report line; ``earlier_ms`` is the kernel that
     served the path before it, where this run timed one in turns with it."""
@@ -2770,6 +3235,11 @@ def main() -> int:
     failures += flex_failures
     opt_failures, opt_perf = optimizers_phase(torch, gm, fa, card)
     failures += opt_failures
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stream_failures, stream_perf = streaming_phase(torch, gm, fa, card)
+    failures += stream_failures
+    log(f"stream: the phase took {time.perf_counter() - t0:.1f}s")
 
     # gmm and tgmm: launches in the MoE training run, times at its bf16
     # gate/up shapes (gmm forward, tgmm).
@@ -2876,8 +3346,22 @@ def main() -> int:
                          plain_fp32_limit_ratio=c["plain_fp32_limit_ratio"], card=card)
             entry["earlier"] = EARLIER["flash_fwd" if name == "flash_fwd" else f"{name}_f32"]
             flash_entries.append(entry)
+    # 80m-fineweb's shape (B 32, Hq 16, Hkv 8, S 2048, D 64, bf16, causal)
+    # with its launches in the streaming phase's runs.
+    c = flash_by_case["path_80m"]
+    stream_launches = stream_perf.get("launches", {})
+    for name in FLASH_KERNELS:
+        entry = kernel_entry(
+            f"{name}:wgmma:none:path_80m", FLASH_SOURCE, FLASH_REPLACES[name],
+            stream_launches.get(name, 0), c["kernels"][name],
+            max(c["max_abs_err"][o] for o in out_of[name]))
+        entry.update(variant=c["variant"][name], score_mod="none", mask=c["mask"],
+                     shape=c["shape"], path="fineweb_80m_streaming",
+                     tflops=c["kernels"][name]["tflops"],
+                     library=c["kernels"][name]["library"], card=card)
+        flash_entries.append(entry)
     flash_entries[-1].update(muon_100m=muon_perf, flex_1m=flex_perf, optimizers_1m=opt_perf,
-                             dense_40m_fp32=f32_perf)
+                             dense_40m_fp32=f32_perf, fineweb_80m=stream_perf)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + fp32_entries + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)

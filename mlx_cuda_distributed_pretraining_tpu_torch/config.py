@@ -36,8 +36,11 @@ class DataConfig:
     tokenizer: Dict[str, Any] = field(default_factory=dict)
     tokenizer_path: Optional[str] = None
     validation_file: Optional[str] = None
-    source: str = "jsonl"
+    source: str = "jsonl"  # "jsonl" | "hf_stream" | "synthetic" | "webdataset" | "token_shards"
     streaming: Dict[str, Any] = field(default_factory=dict)
+    # Batches kept on the device ahead of the step loop by
+    # data/device_prefetch.py; 0 copies each batch inside the loop.
+    prefetch_depth: int = 2
 
     @property
     def max_context_size(self) -> int:

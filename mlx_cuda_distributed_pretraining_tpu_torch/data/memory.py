@@ -7,8 +7,9 @@ batches (a new permutation per epoch from ``np.random.default_rng(seed +
 epoch)``) and sequential validation batches with a persistent ``val_ptr``.
 Batches are numpy arrays; the trainer moves them to the device.
 
-The Python tokenize -> chunk -> pack path only: the JAX package's C++ packer
-(``native/``) gives the same rows and is not ported.
+With the byte tokenizer the rows come from the C++ packer (``native/``),
+which gives the Python tokenize -> chunk -> pack path's rows; where the
+library cannot be built the Python path runs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def load_jsonl_texts(path: str) -> List[str]:
 
 class DataManager:
     def __init__(self, data_config: Any, tokenizer: Any, batch_size: int,
-                 seq_len: Optional[int] = None, seed: int = 42):
+                 seq_len: Optional[int] = None, seed: int = 42, base_dir: str = "."):
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.seq_len = seq_len or tokenizer.max_context_size
@@ -52,19 +53,39 @@ class DataManager:
         self.pad_id = tokenizer.pad_id
         self.chunk_overlap = getattr(data_config, "chunk_overlap", 0)
         self.val_ptr = 0
-        self.train_rows = self._load_split(data_config.input_file)
-        self.val_rows = self._load_split(getattr(data_config, "validation_file", None))
+        val_file = getattr(data_config, "validation_file", None)
+        self.train_rows = self._load_split(
+            os.path.join(base_dir, data_config.input_file) if data_config.input_file else None)
+        self.val_rows = self._load_split(os.path.join(base_dir, val_file) if val_file else None)
         if len(self.train_rows) == 0:
             raise ValueError("no training data: input_file missing or empty")
 
     def _load_split(self, path: Optional[str]) -> np.ndarray:
         if not path or not os.path.exists(path):
             return np.zeros((0, self.seq_len + 1), np.int32)
+        texts = load_jsonl_texts(path)
+        rows = self._native_pack(texts)
+        if rows is not None:
+            return rows
         docs: List[List[int]] = []
-        for text in load_jsonl_texts(path):
+        for text in texts:
             ids = self.tokenizer.tokenize_doc(text, max_length=10**9)
             docs.extend(chunk_tokens(ids, self.seq_len + 1, self.chunk_overlap))
         return pack_documents(docs, self.seq_len, self.pad_id)
+
+    def _native_pack(self, texts: List[str]) -> Optional[np.ndarray]:
+        """The C++ packer's rows for a byte tokenizer (None for another
+        tokenizer, or without the library)."""
+        from .. import native
+        from ..tokenizer import ByteTokenizer
+
+        byte_tok = getattr(self.tokenizer, "tokenizer", None)
+        if not isinstance(byte_tok, ByteTokenizer):
+            return None
+        return native.byte_pack_docs(
+            texts, normal_vocab=byte_tok.normal_vocab_size, bos=byte_tok.bos_id,
+            eos=byte_tok.eos_id, pad=byte_tok.pad_id, row_len=self.seq_len + 1,
+            overlap=self.chunk_overlap)
 
     # -- batches ------------------------------------------------------------
     @property

@@ -1,15 +1,21 @@
-"""Byte-level tokenizer and the run-directory tokenizer loader.
+"""The byte-level tokenizer, the HuggingFace ``tokenizer.json`` wrapper,
+and the run-directory tokenizer loader.
 
-Ids ``0..normal_vocab_size-1`` are raw bytes and the special tokens follow
-(pad, bos, eos by default: vocabulary 259). A run directory written by the
-JAX trainer stores ``tokenizer/byte_tokenizer.json``; runs with an external
-``tokenizer.json`` are not served by the port yet.
+Byte-level: ids ``0..normal_vocab_size-1`` are raw bytes and the special
+tokens follow (pad, bos, eos by default: vocabulary 259). With
+``data.tokenizer_path`` naming a ``tokenizer.json`` (or a directory holding
+one) the run uses it through the ``tokenizers`` package, imported only when
+such a file is loaded. A run directory stores the tokenizer as the JAX
+trainer does: ``tokenizer/tokenizer.json`` (a copy of the external file) or
+``tokenizer/byte_tokenizer.json``, so a run written by either package loads
+in the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Any, Dict, List, Optional
 
 _DEFAULT_SPECIAL = {"pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}
@@ -48,10 +54,52 @@ class ByteTokenizer:
         return raw.decode("utf-8", errors="replace")
 
 
+class HFTokenizer:
+    """A HuggingFace ``tokenizers`` ``tokenizer.json``; the special tokens
+    are looked up by their text, and those the vocabulary lacks keep the
+    defaults pad 0, bos 1, eos 2."""
+
+    def __init__(self, tokenizer_file: str,
+                 special_tokens: Optional[Dict[str, str]] = None):
+        from tokenizers import Tokenizer
+
+        self._tok = Tokenizer.from_file(tokenizer_file)
+        self.tokenizer_file = tokenizer_file
+        self.vocab_size = self._tok.get_vocab_size()
+        special_tokens = special_tokens or dict(_DEFAULT_SPECIAL)
+        self.special_token_names = dict(special_tokens)
+        self.special_token_ids: Dict[str, int] = {}
+        for key, text in special_tokens.items():
+            tid = self._tok.token_to_id(text)
+            if tid is not None:
+                self.special_token_ids[key] = tid
+
+    @property
+    def pad_id(self) -> int:
+        return self.special_token_ids.get("pad", 0)
+
+    @property
+    def bos_id(self) -> int:
+        return self.special_token_ids.get("bos", 1)
+
+    @property
+    def eos_id(self) -> int:
+        return self.special_token_ids.get("eos", 2)
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False).ids
+
+    def decode(self, ids: List[int]) -> str:
+        special = set(self.special_token_ids.values())
+        return self._tok.decode([i for i in ids if i not in special],
+                                skip_special_tokens=True)
+
+
 class TokenizerManager:
-    """The tokenizer a config or run directory names (byte-level only).
-    With ``run_dir`` it records itself there as the JAX trainer does
-    (``tokenizer/byte_tokenizer.json``)."""
+    """The tokenizer a config or run directory names: the external
+    ``tokenizer.json`` under ``data.tokenizer_path`` when there is one,
+    else the byte tokenizer. With ``run_dir`` it records itself there as
+    the JAX trainer does."""
 
     def __init__(self, data_config: Any = None, run_dir: Optional[str] = None):
         tok_cfg = dict(getattr(data_config, "tokenizer", None) or {})
@@ -59,14 +107,19 @@ class TokenizerManager:
         self.max_context_size = int(
             (getattr(data_config, "preprocessing", None) or {}).get(
                 "max_context_size", 1024))
+        self.external_path: Optional[str] = None
         tok_path = getattr(data_config, "tokenizer_path", None)
-        if tok_path and (os.path.isfile(tok_path) or os.path.isfile(
-                os.path.join(tok_path, "tokenizer.json"))):
-            raise NotImplementedError(
-                "external tokenizer.json files are not ported; the torch "
-                "port runs the byte tokenizer")
-        self.tokenizer = ByteTokenizer(
-            int(tok_cfg.get("normal_vocab_size", 256)), special)
+        if tok_path:
+            candidate = os.path.join(tok_path, "tokenizer.json")
+            if os.path.isfile(candidate):
+                self.external_path = candidate
+            elif os.path.isfile(tok_path):
+                self.external_path = tok_path
+        if self.external_path:
+            self.tokenizer: Any = HFTokenizer(self.external_path, special)
+        else:
+            self.tokenizer = ByteTokenizer(
+                int(tok_cfg.get("normal_vocab_size", 256)), special)
         if run_dir:
             self.save_to_run_dir(run_dir)
 
@@ -100,6 +153,9 @@ class TokenizerManager:
     def save_to_run_dir(self, run_dir: str) -> None:
         tok_dir = os.path.join(run_dir, "tokenizer")
         os.makedirs(tok_dir, exist_ok=True)
+        if self.external_path:
+            shutil.copy(self.external_path, os.path.join(tok_dir, "tokenizer.json"))
+            return
         meta = {"type": "byte",
                 "normal_vocab_size": self.tokenizer.normal_vocab_size,
                 "special_tokens": self.tokenizer.special_token_names}
@@ -108,14 +164,12 @@ class TokenizerManager:
 
     @classmethod
     def from_run_dir(cls, run_dir: str) -> "TokenizerManager":
-        """Rehydrate the byte tokenizer a run directory recorded."""
+        """Rehydrate the tokenizer a run directory recorded."""
         from .config import DataConfig
 
         tok_dir = os.path.join(run_dir, "tokenizer")
         if os.path.isfile(os.path.join(tok_dir, "tokenizer.json")):
-            raise NotImplementedError(
-                f"{run_dir} uses an external tokenizer.json; the torch port "
-                "serves byte-tokenizer runs only")
+            return cls(DataConfig(tokenizer_path=tok_dir))
         byte_file = os.path.join(tok_dir, "byte_tokenizer.json")
         if not os.path.isfile(byte_file):
             return cls(DataConfig())

@@ -4,22 +4,28 @@
         --config configs/model-config-40m-adamw.yaml [--device cpu]
 
 :class:`Trainer` follows the JAX trainer on one device: seeded init, the
-data manager, the bf16 forward over fp32 master weights (flash attention
-on the CUDA kernels when the config asks for it; an MoE model's experts on
-the grouped-GEMM kernels, forward and backward; the named remat policies
-over the first ``system.gradient_checkpointing_ratio`` of the layers; the
-fused chunked CE), the fp32 cross-entropy plus an MoE model's router
-losses, the backward, the optimizer (every update rule of the JAX
-factory: the fused AdamW, the chained AdamW / Adam / SGD / Lion and their
-EMA variants, Muon, Shampoo, Adafactor, hybrid), the LR finder
-(``training.lr_finder``: a momentum-SGD sweep whose suggestion the run
-adopts, skipped on resume, as in JAX), the log
-line protocol (with routing stats for an MoE model), validation (pure
-cross-entropy) and early stopping on it, greedy samples at each validation
-step (``logging.log_samples``, through ``infer/generate.py``), and interval
-and ``final``
-checkpoints in the ``runs/`` layout both packages read. It runs on
-``cuda`` unless the caller asks for the CPU.
+data loader (``data.streaming.build_data_manager``: the in-memory JSONL
+loader, streaming JSONL / WebDataset tar shards, synthetic documents, the
+HuggingFace hub stream, or pre-tokenized token shards, whose index gives
+the vocabulary) behind the device prefetcher (``data.prefetch_depth``
+batches copied ahead of the step loop through pinned buffers on a side
+stream; a finite stream that runs dry ends the run), the bf16 forward
+over fp32 master weights (flash attention on the CUDA kernels when the
+config asks for it; an MoE model's experts on the grouped-GEMM kernels,
+forward and backward; the named remat policies over the first
+``system.gradient_checkpointing_ratio`` of the layers; the fused chunked
+CE), the fp32 cross-entropy plus an MoE model's router losses, the
+backward, the optimizer (every update rule of the JAX factory: the fused
+AdamW, the chained AdamW / Adam / SGD / Lion and their EMA variants, Muon,
+Shampoo, Adafactor, hybrid), the LR finder (``training.lr_finder``: a
+momentum-SGD sweep whose suggestion the run adopts, skipped on resume, as
+in JAX), the log line protocol (with routing stats for an MoE model, and
+each window's summed ``data_wait_s`` and ``h2d_wait_s`` kept in
+``Trainer.windows``), validation (pure cross-entropy) and early stopping
+on it, greedy samples at each validation step (``logging.log_samples``,
+through ``infer/generate.py``), and interval and ``final`` checkpoints in
+the ``runs/`` layout both packages read. It runs on ``cuda`` unless the
+caller asks for the CPU.
 
 Checkpoints: interval saves write in the background
 (``system.async_checkpointing``, default on) after the state is copied to
@@ -29,12 +35,15 @@ Retention GC (``logging.retention``: ``keep_last``, ``keep_every``) runs
 after each save. ``resume.checkpoint`` (a step tag, or ``latest`` for the
 newest one that verifies) resumes a run in place, with
 ``resume.reset_optimizer``, ``resume.reset_training_state`` and
-``resume.strict`` as in JAX; only the same-world data position is ported
-(the JAX ``remap_data_states`` across world sizes: ROADMAP queue 1 items 5
-and 10). SIGTERM or SIGINT saves a checkpoint at the next step boundary,
-after the writes in flight, and ends the run; a checkpoint write that
-failed raises out of :meth:`Trainer.train` once the save in hand is
-written.
+``resume.strict`` as in JAX. The saved data position is the one the step
+loop consumed (the prefetcher's), in the JAX package's keys, so a
+streaming run resumes exactly in either package (a checkpoint of several
+processes, with per-host data sidecars, raises: ROADMAP queue 1 item 10;
+a streaming loader refuses a position of another world size). SIGTERM or
+SIGINT saves a checkpoint
+at the next step boundary, after the writes in flight, and ends the run;
+a checkpoint write that failed raises out of :meth:`Trainer.train` once
+the save in hand is written.
 
 ``model.architecture`` resolves through ``models/registry.py`` as in the
 JAX trainer: an unknown name raises, and ``llama_standard`` /
@@ -42,11 +51,11 @@ JAX trainer: an unknown name raises, and ``llama_standard`` /
 
 Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
 ``model_parallel`` that needs more than one device (expert, data, tensor,
-sequence and pipeline parallelism), int8 grouped GEMMs and streaming
-data. The telemetry keys
-(``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
-``events``) are read by nothing here: they change no number the trainer
-computes, writes or logs, so a run with them set trains as one without.
+sequence and pipeline parallelism), and int8 grouped GEMMs. The telemetry
+keys (``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
+``events``) and the log line's goodput fields (item 9) are read by
+nothing here: they change no number the trainer computes, writes or
+logs, so a run with them set trains as one without.
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
@@ -75,7 +84,8 @@ from ..checkpoint.manager import (
 )
 from ..checkpoint.safetensors_io import load_safetensors
 from ..config import Config, apply_overrides, read_config_dict
-from ..data.memory import DataManager
+from ..data.device_prefetch import DevicePrefetcher
+from ..data.streaming import build_data_manager
 from ..models import llama
 from ..models.llama import LlamaArgs
 from ..models.registry import resolve_architecture
@@ -144,10 +154,6 @@ class Trainer:
             raise RuntimeError("Trainer runs on cuda by default and no CUDA "
                                "device is visible; pass device='cpu' to train "
                                "on the CPU")
-        if cfg.data.source != "jsonl" or cfg.data.streaming:
-            raise NotImplementedError(
-                f"data source {cfg.data.source!r} is not ported (ROADMAP queue 1: "
-                "streaming, token shards, native/ and device prefetch)")
         refuse_multi_device(cfg.system)
 
         resume = cfg.resume is not None and bool(cfg.resume.checkpoint)
@@ -168,7 +174,7 @@ class Trainer:
         # model.architecture as the JAX trainer resolves it: an unknown name
         # raises, llama_standard / llama_flash force the attention
         self.arch = resolve_architecture(cfg.model.architecture)
-        args = LlamaArgs.from_config(cfg.model, self.tokenizer.vocab_size)
+        args = LlamaArgs.from_config(cfg.model, self._vocab_size())
         if self.arch.force_attention:
             args = dataclasses.replace(args, attention_type=self.arch.force_attention)
         if args.is_moe and args.moe_impl == "grouped" \
@@ -205,13 +211,17 @@ class Trainer:
         # cross-entropy, comparable across dense and MoE runs.
         eval_loss_fn = make_loss_fn(args, include_aux=False, **kw)
 
-        self.data = DataManager(cfg.data, self.tokenizer, cfg.training.batch_size,
-                                seq_len=cfg.data.max_context_size,
-                                seed=cfg.system.seed)
+        self.data = build_data_manager(cfg, self.tokenizer, cfg.training.batch_size,
+                                       seq_len=cfg.data.max_context_size,
+                                       seed=cfg.system.seed)
+        # the position the step loop consumed, once train() runs
+        self.prefetcher: Optional[DevicePrefetcher] = None
         if cfg.training.iters:
             self.total_steps = cfg.training.iters
-        else:
+        elif hasattr(self.data, "batches_per_epoch"):
             self.total_steps = (cfg.training.epochs or 1) * self.data.batches_per_epoch
+        else:
+            raise ValueError("streaming data sources require training.iters")
         self.schedule = build_schedule(cfg.training, max(self.total_steps, 1))
         self.optimizer = build_optimizer(cfg.training, max(self.total_steps, 1),
                                          schedule=self.schedule)
@@ -235,6 +245,18 @@ class Trainer:
                            if self.device.type == "cuda" else None)
         if resume:
             self._resume()
+
+    def _vocab_size(self) -> int:
+        """The tokenizer's vocabulary; for ``token_shards`` the shard
+        index's, as in the JAX trainer (the tokenizer then only samples)."""
+        data = self.config.data
+        if data.source == "token_shards":
+            shard_dir = data.input_file or (data.streaming or {}).get("shard_dir")
+            index = os.path.join(shard_dir or "", "index.json")
+            if shard_dir and os.path.isfile(index):
+                with open(index) as f:
+                    return int(json.load(f).get("vocab_size", self.tokenizer.vocab_size))
+        return self.tokenizer.vocab_size
 
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
@@ -267,7 +289,7 @@ class Trainer:
         host copies exist."""
         training_state = {"step": int(self.state["step"]),
                           "total_tokens": int(self.total_tokens),
-                          **self.data.state_dict(),
+                          **self._data_state(),
                           "validation": self.val_history,
                           "early_stopping": self.early_stopping.state_dict()}
         self.checkpoints.save(step, self.state["params"], self.state["opt_state"],
@@ -278,6 +300,14 @@ class Trainer:
                                        total_tokens=int(self.total_tokens))
         self.logger.log(f"Saved checkpoint at step {step}"
                         + ("" if blocking else " (async write)"))
+
+    def _data_state(self) -> Dict[str, Any]:
+        """The loader position as the step loop consumed it: the
+        prefetcher's once it runs (batches in its queue were not trained
+        on)."""
+        if self.prefetcher is not None:
+            return self.prefetcher.state_dict()
+        return self.data.state_dict()
 
     # -- resume ----------------------------------------------------------------
     def _resolve_resume_tag(self) -> Optional[str]:
@@ -352,6 +382,10 @@ class Trainer:
             self.state["step"] = self.start_step
             self.total_tokens = int(tstate.get("total_tokens", 0))
             self.val_history = tstate.get("validation", self.val_history)
+            if self.checkpoints.data_sidecar_states(tag):
+                raise NotImplementedError(
+                    f"checkpoint {tag} holds per-host data positions; reading them "
+                    "is not ported (ROADMAP queue 1 item 10: multi-GPU)")
             self.data.load_state_dict(tstate)
             self.early_stopping.load_state_dict(tstate.get("early_stopping", {}))
         self.logger.log(f"Resumed from checkpoint {tag} at step {self.start_step}")
@@ -422,8 +456,15 @@ class Trainer:
         if val_int and self.start_step == 0:
             record_validation(0, self.validate())
         window_tokens, window_steps = 0, 0
+        window_waits = {"data_wait_s": 0.0, "h2d_wait_s": 0.0}
         window_moe: list = []  # (moe_load, moe_dropped) device tensors per step
         last_loss = float("nan")
+        # The step loop's batches, copied to the device ahead of it
+        # (data/device_prefetch.py); _data_state() reads the consumed
+        # position through it.
+        self.prefetcher = DevicePrefetcher(
+            self.data, device=self.device, depth=int(cfg.data.prefetch_depth),
+            start_step=self.start_step, total_steps=self.total_steps)
 
         # SIGTERM / SIGINT set a flag; the loop saves and ends at the next
         # step boundary. A second signal gets the previous handler.
@@ -446,11 +487,16 @@ class Trainer:
         completed = False
         try:
             for step in range(self.start_step + 1, self.total_steps + 1):
-                batch = self.data.generate_batch(step - 1)
-                step_tokens = int(batch["mask"].sum())
+                try:
+                    batch, step_tokens, waits = self.prefetcher.get()
+                except StopIteration:  # a finite stream ran dry
+                    self.logger.log(f"Data stream exhausted before step {step}; stopping")
+                    break
                 window_tokens += step_tokens
                 self.total_tokens += step_tokens
-                self.state, metrics = self.train_step(self.state, self._device_batch(batch))
+                for k in window_waits:
+                    window_waits[k] += waits[k]
+                self.state, metrics = self.train_step(self.state, batch)
                 window_steps += 1
                 if "moe_load" in metrics:
                     window_moe.append((metrics["moe_load"], metrics["moe_dropped"]))
@@ -474,8 +520,9 @@ class Trainer:
                         self.logger.log(f"WARNING: non-finite loss at step {step}")
                     self.logger.log_metrics(step, line)
                     self.windows.append({"step": step, "steps": window_steps,
-                                         "seconds": elapsed, **line})
+                                         "seconds": elapsed, **window_waits, **line})
                     window_tokens, window_steps = 0, 0
+                    window_waits = dict.fromkeys(window_waits, 0.0)
                     window_start = time.perf_counter()
                 stop_early = False
                 if val_int and step % val_int == 0:
@@ -506,6 +553,9 @@ class Trainer:
                     window_start = time.perf_counter()
             completed = True
         finally:
+            # The worker stops first; the consumed position the final
+            # checkpoint needs stays on the prefetcher.
+            self.prefetcher.stop()
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
             if not completed:
@@ -524,6 +574,8 @@ class Trainer:
             final_val = self.validate()
             record_validation(step, final_val)
         self.save_checkpoint("final")
+        if hasattr(self.data, "stop"):
+            self.data.stop()  # a streaming loader's producer thread
         self.logger.log("Training complete")
         self.logger.close()
         return {"final_loss": last_loss, "final_val_loss": final_val, "steps": step}

@@ -2,13 +2,14 @@
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train.py
-        [--config 40m-adamw|40m-adamw-fp32|moe-8x40m|1b-singlechip|100m-muon|1m-adamw|1m-flex]
+        [--config 40m-adamw|40m-adamw-fp32|moe-8x40m|1b-singlechip|100m-muon|1m-adamw|1m-flex|
+                  80m-fineweb]
         [--steps 10] [--per-leaf-ns] [--root DIR] [--out profile.json]
 
 Builds configs/model-config-40m-adamw.yaml (the default),
 configs/model-config-moe-8x40m.yaml, configs/model-config-1b-singlechip.yaml,
-configs/model-config-100m-muon.yaml, configs/models/model-config-1m-adamw.yaml
-or configs/model-config-1m-flex.yaml at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
+configs/model-config-100m-muon.yaml, configs/models/model-config-1m-adamw.yaml,
+configs/model-config-1m-flex.yaml or configs/model-config-80m-fineweb.yaml at full width (their numbers written out. 40m: hidden 512, 12 layers, 8
 heads of 64, 1024 positions, batch 32, bf16 compute over fp32 masters,
 flash attention, AdamW with clip 1.0; 40m-adamw-fp32 the same with
 ``system.mixed_precision`` false (fp32 compute, the fp32 flash kernels); the MoE config's 8 experts top-2
@@ -25,7 +26,11 @@ matrix alone, as the JAX update does, instead of in same-shape batches.
 heads, 512 positions, batch 16, flash attention, AdamW. 1m-flex: hidden 96,
 intermediate 256, 4 layers, 6 heads of 16, 512 positions, batch 16, flex
 attention with a 128-token sliding window and ALiBi, Muon at 0.03 x the LR
-for the vectors) with seeded random weights and seeded random byte tokens,
+for the vectors. 80m-fineweb: hidden 1024, intermediate 2816, 12 layers,
+16 query heads over 8 KV heads of 64, 2048 positions, batch 32, flash
+attention, Muon at 0.02 x the LR for the vectors; the batch is a fixed
+device tensor, so its streaming loader and prefetcher are not in the
+step) with seeded random weights and seeded random byte tokens,
 then:
 
 - step: wall time per train step (``make_train_step``; host clock around
@@ -160,11 +165,31 @@ CONFIG_1M_FLEX = {
                  "optimization": {"optimizer": "muon", "adamw_lr_ratio": 0.03}},
     "system": {"seed": 42, "mixed_precision": True},
 }
+# configs/model-config-80m-fineweb.yaml, the sections the step reads.
+CONFIG_80M_FINEWEB = {
+    "name": "80m-fineweb",
+    "data": {"preprocessing": {"max_context_size": 2048}},
+    "model": {"dimensions": {"hidden_size": 1024, "intermediate_size": 2816,
+                             "num_layers": 12},
+              "attention": {"num_heads": 16, "num_kv_heads": 8, "head_dim": 64,
+                            "max_position_embeddings": 2048,
+                            "use_flash_attention": True},
+              "normalization": {"rms_norm_eps": 1.0e-5},
+              "rope": {"theta": 10000, "traditional": False},
+              "misc": {"tie_word_embeddings": True}},
+    "training": {"hyperparameters": {"batch_size": 32, "learning_rate": 1.5e-2,
+                                     "weight_decay": 0.01, "gradient_clip": 1.0,
+                                     "iters": 20000},
+                 "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 500,
+                               "min_lr_ratio": 0.05},
+                 "optimization": {"optimizer": "muon", "adamw_lr_ratio": 0.02}},
+    "system": {"seed": 42, "mixed_precision": True},
+}
 CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B,
            "40m-adamw-fp32": {**CONFIG_40M, "name": "40m-adamw-fp32",
                               "system": {"seed": 42, "mixed_precision": False}},
            "100m-muon": CONFIG_100M_MUON, "1m-adamw": CONFIG_1M_ADAMW,
-           "1m-flex": CONFIG_1M_FLEX}
+           "1m-flex": CONFIG_1M_FLEX, "80m-fineweb": CONFIG_80M_FINEWEB}
 VOCAB = 259
 
 

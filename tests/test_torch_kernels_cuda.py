@@ -920,3 +920,84 @@ def test_redesigned_flash_kernels_match_plain_repeat_bitwise_and_reject_a_plante
         bad = run()
     for name in checked:
         assert not kernel_check.compare(bad[name], refs[name])["ok"], name
+
+
+# -- the device prefetcher's pinned side-stream copy ---------------------------------
+class _SeededLoader:
+    """Seeded random batches at 80m-fineweb's shape (B 32, S 2048)."""
+
+    def __init__(self, b=32, s=2048):
+        self.b, self.s, self.host = b, s, []
+
+    def generate_batch(self, step):
+        rng = np.random.default_rng(step)
+        rows = rng.integers(0, 259, (self.b, self.s + 1), dtype=np.int32)
+        batch = {"inputs": rows[:, :-1], "targets": rows[:, 1:],
+                 "mask": (rows[:, 1:] != 256).astype(np.float32)}
+        self.host.append(batch)
+        return batch
+
+    def state_dict(self):
+        return {"val_ptr": 0}
+
+    def load_state_dict(self, state):
+        pass
+
+
+def _checksums(batch):
+    """Position-weighted sums of each tensor, on its device."""
+    out = {}
+    for k, t in batch.items():
+        w = (torch.arange(t.numel(), device=t.device) % 65521 + 1).view(t.shape)
+        out[k] = (t.double() * w.double()).sum()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 0])
+def test_prefetcher_pinned_side_stream_copy_gives_the_host_batches(cuda, depth):
+    from mlx_cuda_distributed_pretraining_tpu_torch.data import DevicePrefetcher
+
+    loader = _SeededLoader()
+    pf = DevicePrefetcher(loader, device="cuda", depth=depth, total_steps=12)
+    work = torch.randn(4096, 4096, device="cuda")
+    seen = []
+    try:
+        for step in range(12):
+            batch, tokens, waits = pf.get()
+            assert all(t.is_cuda for t in batch.values())
+            before = _checksums(batch)
+            for _ in range(8):  # a long step on the compute stream
+                work = torch.tanh(work @ work * 1e-3)
+            seen.append((before, _checksums(batch), tokens))
+            del batch  # freed while the compute stream may still run
+    finally:
+        pf.stop()
+    torch.cuda.synchronize()
+    assert all(b.is_pinned() for b in pf._pinned.values())
+    assert pf._copy_stream != torch.cuda.current_stream()
+    for step, (before, after, tokens) in enumerate(seen):
+        host = loader.host[step]
+        want = _checksums({k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in host.items()})
+        for k in want:
+            assert before[k].item() == want[k].item() == after[k].item(), (step, k)
+        assert tokens == int(host["mask"].sum())
+
+
+@pytest.mark.cuda
+def test_prefetcher_raises_when_pinning_fails(cuda, monkeypatch):
+    from mlx_cuda_distributed_pretraining_tpu_torch.data import DevicePrefetcher
+
+    real = torch.empty
+
+    def empty(*args, **kw):
+        if kw.get("pin_memory"):
+            raise RuntimeError("cannot pin")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    pf = DevicePrefetcher(_SeededLoader(b=2, s=16), device="cuda", depth=2, total_steps=3)
+    with pytest.raises(RuntimeError, match="cannot pin"):
+        pf.get()
+    pf.stop()

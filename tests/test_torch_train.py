@@ -475,12 +475,15 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r1"),
                 quiet=True, device="cpu")
     # (every optimizer of the JAX factory trains now:
-    # tests/test_torch_optimizers.py; streaming data does not)
+    # tests/test_torch_optimizers.py; so does streaming data, refused here
+    # before: tests/test_torch_streaming.py. A streaming section without
+    # shards or a streaming source keeps the in-memory loader, as the JAX
+    # package's build_data_manager does.)
     d = _config_dict(tmp_path)
     d["data"]["streaming"] = {"enabled": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r2"),
-                quiet=True, device="cpu")
+    tr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r2"),
+                 quiet=True, device="cpu")
+    assert type(tr.data) is TData
     # overlap_gather schedules an fsdp mesh's all-gathers (remat,
     # scan_layers and the fused CE, refused here before, now train:
     # tests/test_torch_remat.py)
