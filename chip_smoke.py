@@ -75,6 +75,27 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    /v1/completions answer 200. Every gmm launch of the phase on
    "f32_decode" or "f32", no flash or tgmm launch. Prints TTFT and decode
    tok/s (fp32 and int8 cache), speculation's and beam search's tok/s.
+4c. quant — the batch engine on the same weights, fp32 serving compute
+   (``quant_serve_phase``): (a) fp paged; (b) speculation, draft 4 and
+   n-gram 3 on partly repetitive prompts (greedy tokens (a)'s, some drafts
+   accepted, a sampled run at 0.7 finishes); (c) the int8 KV pool, paged
+   against slotted (equal greedy tokens), its first-token logits within
+   1e-4 x max|logit| of the CPU plain path's, pool bytes fp32 and int8;
+   (d) int8, int8 over the int8 pool, and int4 weights: first-token logits
+   within 1e-4 x max|logit| of the CPU plain path's on the same quantized
+   weights (quantized on the CPU, copied to the card; the card's own
+   quantization must equal the CPU's bit for bit; the CPU path takes the
+   card's expert choices and int8 K/V roundings, and how many of the
+   prompt's it would have made otherwise is printed), weight bytes, greedy agreement with (a) (reported, not gated:
+   random weights have near-ties), gmm launches by variant (every one on
+   "f32" or "f32_decode": the dequantized banks go through the fp32
+   kernels); (e) ``load_params(weight_dtype="int8")`` from a safetensors
+   file equal to ``quantize_weights`` bit for bit, and ``swap_params`` of
+   the fp weights into a live int8 engine (version 1, still int8, the same
+   greedy tokens); (f) ``export_kv`` -> GKV1 bytes -> ``adopt_kv`` in a
+   second engine (the adopting request's greedy tokens a fresh prefill's,
+   its prompt from the cache), a corrupted payload refused and its keys
+   quarantined. Prints tok/s of each arm beside the card.
 5. train   — trains configs/model-config-40m-adamw.yaml at full width
    (hidden 512, 12 layers, S 1024, batch 32, bf16 over fp32 masters, AdamW)
    through ``Trainer(...).train()`` on a seeded synthetic byte corpus: 30
@@ -109,6 +130,20 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    1's loss and gradients with the gmm and
    tgmm kernels against their plain versions (flash kernels in both) at
    batch 8, and serves the final checkpoint.
+6b. int8  — moe-8x40m as phase 6 with ``model.matmul_precision: int8``
+   (``int8_train_phase``): 10 steps (``iters`` and ``warmup_steps`` cut,
+   the mesh dropped, each printed as ``reduced``), a log line every 2, the
+   last logged loss below the first; step 1 at batch 8 with the gmm_int8,
+   gmm and tgmm kernels against their plain versions under phase 6's
+   limits; launches: gmm_int8 3 per layer per step and validation batch,
+   the dX gmm (wgmma) and the dW tgmm ("f32", on fp32 copies) 3 per layer
+   per step, the flash kernels (wgmma, on int8-gridded q/k/v) as phase 6.
+   Prints step ms, tok/s and peak memory beside phase 6's. Phase 3 holds
+   ``gmm_int8`` at this path's gate/up and down shapes: its int32 sums
+   bitwise against the plain version (float64 products, exact below
+   2^53), its output through the same gate, a planted fault (the last
+   live row tile skipped) rejected; timed beside the plain version,
+   ``torch._int_mm`` summed over each expert's rows and the bf16 gmm.
 7. 1b      — trains configs/model-config-1b-singlechip.yaml at full width
    (hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, S 2048,
    batch 8, bf16 over fp32 masters, flash attention, remat "full" on the
@@ -196,7 +231,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    gmm cases as entries ``gmm_<variant>:<case>`` with the generate phase's
    launches at their shapes; the three flash kernels at 80m-fineweb's shape
    as ``<kernel>:wgmma:none:path_80m`` with the streaming phase's
-   launches), the card line, and as the last line
+   launches; ``gmm_int8`` with its launches in phase 6b, its bound at
+   the H100's 1,979 int8 TOP/s), the card line, and as the last line
    ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
    495 / 3 TFLOP/s (3xTF32), the card's fastest fp32-accurate rate.
 
@@ -686,6 +722,92 @@ def train_kernel_phase(torch, gm, kernel_check):
                   edge, 1280, TRAIN_BLOCK_T, "wgmma"),
     ]
     return gmm_cases, tgmm_cases
+
+
+INT8_REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:234"
+INT8_PEAK_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
+
+
+def int8_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, bf16_case,
+                  fault=False):
+    """``gmm_int8`` at one MoE training shape (bf16 in and out, block_t 128)
+    against its plain version: the int32 sums bitwise, the output through
+    ``kernel_check.compare_int8``; with ``fault`` the kernel is also
+    launched with the last live row tile left out, which the check must
+    reject. Timed beside the plain version, ``torch._int_mm`` summed over
+    the experts' rows (E calls; PyTorch has no grouped int8 product) and
+    the bf16 gmm kernel at the same shape (``bf16_case``)."""
+    g = torch.Generator().manual_seed(SEED + 2)
+    E = sizes.shape[0]
+    live = int(sizes.sum())
+    x = torch.randn(rows, K, generator=g)
+    x[live:] = 0.0
+    x = x.to("cuda", torch.bfloat16)
+    w = (torch.randn(E, K, N, generator=g) / K ** 0.5).to("cuda", torch.bfloat16)
+    gs = sizes.to("cuda")
+    xq, sx, wq, sw = kernel_check.int8_operands(x, w)
+    before = gm.gmm_int8.launches
+    out, acc = gm.gmm_int8_kernel(xq, sx, wq, sw, gs, TRAIN_BLOCK_T, torch.bfloat16,
+                                  with_products=True)
+    launched = gm.gmm_int8.launches - before
+    ref_acc, ref_out = kernel_check.gmm_int8_plain_outputs(xq, sx, wq, sw, gs,
+                                                           TRAIN_BLOCK_T, torch.bfloat16)
+    torch.cuda.synchronize()
+    check = kernel_check.compare_int8(acc, out, ref_acc, ref_out)
+    ok = check["ok"] and launched == 1 and not out[live:].any().item()
+    del out, acc
+    bad = None
+    if fault:
+        bad = kernel_check.compare_int8(*kernel_check.gmm_int8_skipping_a_tile(
+            xq, sx, wq, sw, gs, TRAIN_BLOCK_T, torch.bfloat16), ref_acc, ref_out)
+        log(f"gmm_int8 {name} planted fault (last live row tile skipped): int32_equal="
+            f"{bad['int32_equal']} limit_ratio={bad['limit_ratio']:.3g} rejected={not bad['ok']}")
+        if bad["ok"]:
+            ok = False
+            log("gmm_int8: the check passed a planted fault")
+    del ref_acc, ref_out
+    starts = [0] + torch.cumsum(sizes, 0).tolist()
+    spans = [(e, starts[e], starts[e + 1]) for e in range(E) if sizes[e] > 0]
+
+    def int_mm():
+        for e, a, b in spans:
+            torch._int_mm(xq[a:b], wq[e])
+
+    library, note = library_call(torch, int_mm)
+    # int8 operands and scales read once, the bf16 output written once
+    nbytes = live * K + len(spans) * K * N + rows * N * 2 + 4 * rows + 4 * E * N + 4 * E
+    row = gemm_row(
+        torch, lambda: gm.gmm_int8_kernel(xq, sx, wq, sw, gs, TRAIN_BLOCK_T, torch.bfloat16),
+        lambda: kernel_check.gmm_int8_plain_outputs(xq, sx, wq, sw, gs, TRAIN_BLOCK_T,
+                                                    torch.bfloat16),
+        library, nbytes, 2.0 * live * K * N, "bfloat16")
+    # the operation bound at the int8 rate, not bf16's
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2.0 * live * K * N / INT8_PEAK_OPS * 1e3
+    row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    case = {"case": name, "dtype": "int8->bfloat16", "shape": [rows, K, N, E],
+            "block_t": TRAIN_BLOCK_T, "group_sizes": sizes.tolist(),
+            "max_abs_err": check["max_abs_err"], "check": check, "planted_fault": bad,
+            "ok": bool(ok), "bf16_gmm_ms": bf16_case["ms"],
+            "library": ("torch._int_mm summed over the experts' rows (E calls)"
+                        if library else note), **row}
+    log(f"gmm_int8 {name} x[{rows},{K}] w[{E},{K},{N}]: ok={ok} int32_equal="
+        f"{check['int32_equal']} err={check['max_abs_err']:.3g} kernel={row['ms']:.4f} ms "
+        f"plain={row['plain_ms']:.4f} ms library={row['library_ms']} ms ({case['library']}) "
+        f"bf16 gmm={bf16_case['ms']:.4f} ms bound={row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return case
+
+
+def int8_kernel_phase(torch, gm, kernel_check, train_cases):
+    """``gmm_int8`` at the MoE training path's gate/up and down shapes (the
+    same routing draw as the bf16 training cases)."""
+    rng = torch.Generator().manual_seed(SEED + 1)
+    sizes, rows = routed_sizes(torch, rng, TRAIN_SELECTIONS, 8, TRAIN_BLOCK_T)
+    by = {c["case"]: c for c in train_cases}
+    return [int8_gmm_case(torch, gm, kernel_check, "int8_train_gate_up", 512, 1536, sizes,
+                          rows, by["train_gate_up"], fault=True),
+            int8_gmm_case(torch, gm, kernel_check, "int8_train_down", 1536, 512, sizes,
+                          rows, by["train_down"])]
 
 
 # -- phase 3: the flash kernels vs plain -------------------------------------------
@@ -1525,6 +1647,327 @@ def generate_phase(torch, gm, fa, card, served, cases):
     return failures, perf
 
 
+# -- phase 4c: the quantized and speculative batch engine ---------------------------
+def first_logits(torch, args, params, prompt_ids, device, quantize=False, taken=None,
+                 C=256, bs=32):
+    """The last prompt token's logits through the engine's own paged prefill
+    step (chunks of ``C``, blocks of ``bs``) on ``device``; ``quantize`` runs
+    it over the int8 KV quartet, ``params`` may be a quantized tree.
+
+    Two discrete decisions sit inside a step, and a rounding difference
+    can tip either: each token's top-2 experts (the seeded router is near
+    uniform, so its top-2 margins are tiny) and each int8 K/V value at a
+    rounding boundary. Without ``taken`` the call records both and returns
+    ``(logits, taken)``; with ``taken`` (another device's record) it takes
+    those decisions instead of its own and returns ``(logits, changed)``,
+    the counts of the prompt's expert selections and int8 values its own
+    arithmetic would have decided otherwise (the chunk's pad positions are
+    left out: no prompt token attends them). Every product, sum and
+    dequantization is still the caller's own."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import llama, moe
+    from mlx_cuda_distributed_pretraining_tpu_torch.serve import batch_step
+
+    grouped_ffn, quantize_kv = moe._grouped_ffn, llama._quantize_kv
+    record = {"route": [], "kv": []} if taken is None else None
+    it = None if taken is None else {k: iter(v) for k, v in taken.items()}
+    changed = {"expert_selections": 0, "int8_values": 0}
+    live = [0]  # prompt tokens in the current chunk
+
+    def routed(experts, x_flat, gate_idx, gate_w, *a, **kw):
+        if record is not None:
+            record["route"].append((gate_idx.cpu(), gate_w.cpu()))
+        else:
+            idx, w = next(it["route"])
+            mine = gate_idx.cpu()[:live[0]].sort(-1).values
+            changed["expert_selections"] += int(
+                (idx[:live[0]].sort(-1).values != mine).any(-1).sum())
+            gate_idx, gate_w = idx.to(x_flat.device), w.to(x_flat.device, gate_w.dtype)
+        return grouped_ffn(experts, x_flat, gate_idx, gate_w, *a, **kw)
+
+    def quantized(x):
+        q, sc = quantize_kv(x)
+        if record is not None:
+            record["kv"].append((q.cpu(), sc.cpu()))
+            return q, sc
+        tq, ts = next(it["kv"])
+        changed["int8_values"] += int((tq[:, :live[0]] != q.cpu()[:, :live[0]]).sum())
+        return tq.to(x.device), ts.to(x.device)
+
+    moe._grouped_ffn, llama._quantize_kv = routed, quantized
+    try:
+        P = len(prompt_ids)
+        nblk = -(-P // bs)
+        cache = llama.init_paged_cache(args, nblk + 1, bs, device=device, quantize=quantize)
+        table = torch.zeros(1024 // bs, dtype=torch.long, device=device)
+        table[:nblk] = torch.arange(1, nblk + 1)
+        logits = None
+        for start in range(0, P, C):
+            n = live[0] = min(C, P - start)
+            toks = torch.zeros(C, dtype=torch.long)
+            toks[:n] = torch.tensor(prompt_ids[start:start + n])
+            attend = min(batch_step.round_up(batch_step.attend_bucket(start + C, 1024), bs),
+                         1024)
+            logits = batch_step.paged_prefill_step(
+                params, cache, toks.to(device), table, start, n - 1, args, attend, bs,
+                with_logits=start + n >= P)
+    finally:
+        moe._grouped_ffn, llama._quantize_kv = grouped_ffn, quantize_kv
+    return logits[0].float().cpu(), (record if taken is None else changed)
+
+
+QUANT_PROMPTS = [
+    # repetitive prompts: prompt-lookup drafts have something to copy
+    "a b c d a b c d a b c d a b c d a b c d a b c d a b c d",
+    "the cat sat on the mat. the cat sat on the mat. the cat sat on the mat. the cat",
+    "one two three four five one two three four five one two three four five one two",
+    "Grouped GEMMs route each token to two experts; the dispatcher pads every group.",
+    "def f(x):\n    return x + 1\n\ndef f(x):\n    return x + 1\n\ndef f(x):\n   ",
+    "In the port of a serving system, every request shares this system prompt.",
+]
+
+
+def engine_run(torch, gm, engine, prompts, max_tokens=32, temperature=0.0):
+    """Every prompt through a started engine at once: (token lists, results,
+    wall seconds, gmm launches by variant, metrics)."""
+    gm.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_tokens=max_tokens, temperature=temperature, seed=i)
+            for i, p in enumerate(prompts)]
+    ok = all(r.wait(600) for r in reqs)
+    wall = time.perf_counter() - t0
+    errors = [r.error for r in reqs if r.error is not None] + ([] if ok else ["timeout"])
+    return {"tokens": [list(r.tokens) for r in reqs],
+            "results": [dict(r.result or {}) for r in reqs], "wall_s": wall,
+            "tok_s": sum(len(r.tokens) for r in reqs) / wall,
+            "variants": dict(gm.gmm.launches_by_variant), "metrics": engine.metrics(),
+            "errors": errors}
+
+
+def pool_bytes(pool) -> int:
+    return sum(t.numel() * t.element_size() for layer in pool.cache for t in layer.values())
+
+
+def quant_serve_phase(torch, gm, fa, card, served):
+    """moe-8x40m at full width (the serving phase's seeded fp32 weights)
+    through the batch engine, fp32 serving compute: (a) fp paged, (b)
+    speculation (draft 4, n-gram 3; greedy tokens (a)'s, some drafts
+    accepted, a sampled run at 0.7 finishes), (c) the int8 KV pool, paged
+    against slotted (equal greedy tokens; first-token logits within 1e-4 x
+    max|logit| of the CPU plain path's over the int8 cache), (d) int8, int8
+    with the int8 pool, and int4 weights (first-token logits within 1e-4 x
+    max|logit| of the CPU plain path's on the same quantized weights;
+    weight bytes, greedy agreement with (a) reported, not gated), (e)
+    quantize-on-load equal to host quantization, and a hot swap of the fp
+    weights into a live int8 engine (version 1, still int8, the same greedy
+    tokens), (f) a GKV1 export from one engine adopted by another (the
+    adopting request's greedy tokens a fresh prefill's, its prompt served
+    from the cache) and a corrupt payload refused and quarantined. No
+    flash or tgmm launch; gmm on "f32" / "f32_decode"."""
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.checkpoint.safetensors_io import (
+        save_safetensors,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import quantize as q
+    from mlx_cuda_distributed_pretraining_tpu_torch.serve import BatchEngine, EngineConfig
+    from mlx_cuda_distributed_pretraining_tpu_torch.serve.kv_transfer import (
+        KVTransferPayload,
+        _corrupt,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import flatten_dict, tree_map
+
+    if served is None:
+        return ["quant: the serving phase failed before its weights were served"], {}
+    failures = []
+    params, params_cpu, args, tok = (served["params"], served["params_cpu"],
+                                     served["args"], served["tok"])
+    t_phase = time.perf_counter()
+    perf = {}
+    fa.reset_launches()
+    base_cfg = dict(num_slots=8, max_len=1024, block_size=32, prefill_chunk=256)
+
+    def engine(**kw):
+        return BatchEngine(params, args, tok, EngineConfig(**{**base_cfg, **kw})).start()
+
+    def run(label, prompts=QUANT_PROMPTS, temperature=0.0, **kw):
+        eng = engine(**kw)
+        try:
+            out = engine_run(torch, gm, eng, prompts, temperature=temperature)
+        finally:
+            eng.stop()
+        if out["errors"]:
+            failures.append(f"quant {label}: {out['errors']}")
+        m = out["metrics"]
+        log(f"quant {label}: {out['tok_s']:.1f} tok/s ({len(prompts)} requests, "
+            f"{out['wall_s']:.2f}s) gmm by variant {out['variants']} weight_bytes="
+            f"{m['weight_bytes']} spec={m.get('spec_accepted')}/{m.get('spec_proposed')} "
+            f"[{card}]")
+        return out
+
+    def agreement(a, b):
+        pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
+        return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+    # (a) fp, paged, no speculation
+    base = run("a fp paged")
+    perf["a_fp_tok_s"] = base["tok_s"]
+    fp_bytes = base["metrics"]["weight_bytes"]
+    # (b) speculation: greedy tokens equal (a)'s, drafts accepted
+    spec = run("b spec draft 4", spec_draft_len=4, spec_max_ngram=3)
+    m = spec["metrics"]
+    perf.update(b_spec_tok_s=spec["tok_s"], b_spec_acceptance_rate=m["spec_acceptance_rate"],
+                b_spec_accepted=m["spec_accepted"], b_spec_proposed=m["spec_proposed"],
+                b_decode_steps=m["decode_steps"], a_decode_steps=base["metrics"]["decode_steps"])
+    if spec["tokens"] != base["tokens"]:
+        failures.append("quant b: speculative greedy tokens differ from plain decode")
+    if not m["spec_accepted"] > 0:
+        failures.append(f"quant b: no draft accepted ({m['spec_proposed']} proposed)")
+    sampled = run("b spec sampled 0.7", temperature=0.7, spec_draft_len=4, spec_max_ngram=3)
+    if not all(r.get("tokens", 0) > 0 and r.get("finish_reason") in ("length", "stop")
+               for r in sampled["results"]):
+        failures.append("quant b: a sampled speculative request did not finish")
+    perf["b_sampled_acceptance_rate"] = sampled["metrics"]["spec_acceptance_rate"]
+
+    # (c) the int8 KV pool, paged and slotted; first-token logits vs the CPU
+    paged8 = run("c kv8 paged", kv_quant=True)
+    slotted8 = run("c kv8 slotted", kv_quant=True, kv_backend="slotted")
+    if paged8["tokens"] != slotted8["tokens"]:
+        failures.append("quant c: int8 paged and int8 slotted greedy tokens differ")
+    perf["c_kv8_agreement_with_fp"] = agreement(paged8["tokens"], base["tokens"])
+    eng = engine()
+    fp_pool = pool_bytes(eng.pool)
+    eng.stop()
+    eng = engine(kv_quant=True)
+    q_pool = pool_bytes(eng.pool)
+    eng.stop()
+    perf.update(pool_bytes_fp32=fp_pool, pool_bytes_int8=q_pool)
+    log(f"quant c: pool bytes fp32 {fp_pool} int8 {q_pool} ({q_pool / fp_pool:.3f}x) [{card}]")
+    prompt_ids = [tok.bos_id] + tok.tokenize(QUANT_PROMPTS[3])
+
+    device = params["tok_embeddings"]["weight"].device
+
+    def logits_check(label, tree_gpu, tree_cpu, quantize):
+        # the CPU plain path takes the card's expert choices and int8 K/V
+        # roundings (first_logits); how many it would have made otherwise
+        # is printed
+        got, taken = first_logits(torch, args, tree_gpu, prompt_ids, device, quantize)
+        ref, changed = first_logits(torch, args, tree_cpu, prompt_ids, "cpu", quantize,
+                                    taken=taken)
+        err = (got - ref).abs().max().item()
+        lim = 1e-4 * ref.abs().max().item()
+        log(f"quant {label}: first-token logits max|d|={err:.3g} limit={lim:.3g} "
+            f"argmax {int(got.argmax())}/{int(ref.argmax())}; decided otherwise on the "
+            f"CPU: {changed}")
+        if not err <= lim:
+            failures.append(f"quant {label}: first-token logits differ from the CPU "
+                            f"plain path ({err} > {lim})")
+        return err
+
+    perf["c_kv8_logits_max_err"] = logits_check("c kv8", params, params_cpu, True)
+
+    # (d) quantized weights
+    for label, wd, kvq in (("d w8", "int8", False), ("d w8 kv8", "int8", True),
+                           ("d w4", "int4", False)):
+        out = run(label, weight_dtype=wd, kv_quant=kvq)
+        key = label.split(" ", 1)[1].replace(" ", "_")
+        perf[f"{key}_tok_s"] = out["tok_s"]
+        perf[f"{key}_weight_bytes"] = out["metrics"]["weight_bytes"]
+        perf[f"{key}_agreement_with_fp"] = agreement(out["tokens"], base["tokens"])
+        perf[f"{key}_gmm_variants"] = out["variants"]
+        if out["metrics"]["weight_dtype"] != wd or not out["metrics"]["weight_bytes"] < fp_bytes:
+            failures.append(f"quant {label}: weight dtype/bytes {out['metrics']}")
+        if out["variants"].get("f32", 0) + out["variants"].get("f32_decode", 0) \
+                != sum(out["variants"].values()) or not out["variants"].get("f32_decode"):
+            failures.append(f"quant {label}: gmm launches {out['variants']}")
+        # the card's quantization (the engine's) must equal the CPU's bit
+        # for bit, values and scales; the logits then run on the same
+        # quantized weights, quantized on the CPU and copied to the card
+        qcpu = q.quantize_weights(params_cpu, wd)
+        qdev = flatten_dict(q.quantize_weights(params, wd))
+        differ = sum(int((t.cpu() != qdev[k].cpu()).sum())
+                     for k, t in flatten_dict(qcpu).items())
+        perf[f"{key}_card_vs_cpu_quantized_leaves_differ"] = differ
+        if differ:
+            failures.append(f"quant {label}: the card's quantization differs from the "
+                            f"CPU's in {differ} values")
+        del qdev
+        perf[f"{key}_logits_max_err"] = logits_check(
+            label, tree_map(lambda t: t.to(device), qcpu), qcpu, kvq)
+    perf["fp_weight_bytes"] = fp_bytes
+
+    # (e) quantize-on-load and the hot swap
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        path = os.path.join(tmp, "model.safetensors")
+        save_safetensors(path, flatten_dict(params_cpu))
+        loaded = flatten_dict(CheckpointManager.load_params(path, like=params_cpu,
+                                                            weight_dtype="int8"))
+        want = flatten_dict(q.quantize_weights(params_cpu, "int8"))
+        same = set(loaded) == set(want) and all(torch.equal(loaded[k], want[k]) for k in want)
+        log(f"quant e: load_params(weight_dtype=int8) == quantize_weights: {same}")
+        if not same:
+            failures.append("quant e: quantize-on-load differs from host quantization")
+    eng = engine(weight_dtype="int8")
+    try:
+        before = engine_run(torch, gm, eng, QUANT_PROMPTS[:3])
+        version = eng.swap_params(params)
+        after = engine_run(torch, gm, eng, QUANT_PROMPTS[:3])
+        m = eng.metrics()
+    finally:
+        eng.stop()
+    log(f"quant e: hot swap -> version {version}, weight_dtype {m['weight_dtype']}, "
+        f"tokens equal {after['tokens'] == before['tokens']}")
+    if version != 1 or m["params_version"] != 1 or m["weight_dtype"] != "int8" \
+            or q.weight_dtype_of(eng.params) != "int8" or after["tokens"] != before["tokens"]:
+        failures.append(f"quant e: hot swap into the int8 engine: version {version}, {m}")
+
+    # (f) KV export -> GKV1 bytes -> adopt in another engine
+    prompt = QUANT_PROMPTS[5] * 4
+    ids = [tok.bos_id] + tok.tokenize(prompt)
+    src, dst = engine(), engine()
+    try:
+        fresh = engine_run(torch, gm, src, [prompt])
+        t0 = time.perf_counter()
+        data = src.export_kv(ids).to_bytes()
+        t_export = time.perf_counter() - t0
+        payload = KVTransferPayload.from_bytes(data)
+        t0 = time.perf_counter()
+        stats = dst.adopt_kv(payload)
+        t_adopt = time.perf_counter() - t0
+        adopted = engine_run(torch, gm, dst, [prompt])
+        cached = adopted["results"][0].get("prefix_cached_tokens", 0)
+        try:
+            KVTransferPayload.from_bytes(_corrupt(data))
+            refused = False
+        except ValueError:
+            refused = True
+        dropped = dst.quarantine_kv(payload.keys)
+        left = [dst.pool.prefix.lookup(k) for k in payload.keys]
+    finally:
+        src.stop()
+        dst.stop()
+    perf.update(f_payload_bytes=len(data), f_blocks=payload.num_blocks,
+                f_export_s=t_export, f_adopt_s=t_adopt, f_cached_tokens=cached)
+    log(f"quant f: GKV1 {len(data)} bytes, {payload.num_blocks} blocks, export "
+        f"{t_export:.3f}s adopt {t_adopt:.3f}s {stats}; adopting request cached "
+        f"{cached} tokens, tokens equal {adopted['tokens'] == fresh['tokens']}; corrupt "
+        f"refused {refused}, quarantined {dropped}")
+    if adopted["tokens"] != fresh["tokens"] or not cached > 0:
+        failures.append(f"quant f: adopted KV gave {adopted['tokens']} (cached {cached}) "
+                        f"against a fresh prefill's {fresh['tokens']}")
+    if not refused or dropped != payload.num_blocks or any(b is not None for b in left):
+        failures.append(f"quant f: corrupt payload refused={refused}, quarantined {dropped}")
+    flash = {n: getattr(fa, n).launches for n in FLASH_KERNELS}
+    if any(flash.values()) or gm.tgmm.launches:
+        failures.append(f"quant: serving launched flash or tgmm kernels: {flash}")
+    perf["seconds"] = time.perf_counter() - t_phase
+    for k, v in perf.items():
+        log(f"quant: {k}={v} [{card}]")
+    return failures, perf
+
+
 # -- phase 5: the training path ---------------------------------------------------
 def config_40m(tmp: str, steps: int, warmup: int) -> dict:
     """configs/model-config-40m-adamw.yaml written out as a dict, with the
@@ -2046,6 +2489,98 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
                                                 "moe_load_max")} for w in windows]}
     for k in ("step_ms", "tok_s", "mfu_active_vs_989tflops", "peak_mem_gb"):
         log(f"moe: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
+# -- phase 6b: MoE training at matmul_precision int8 ---------------------------------
+def int8_plain_kernel(kernel_check):
+    """The plain stand-in for ``gm.gmm_int8_kernel`` in a parity run."""
+    def plain(xq, sx, wq, sw, gs, block_t, dtype, with_products=False):
+        acc, out = kernel_check.gmm_int8_plain_outputs(xq, sx, wq, sw, gs, block_t, dtype)
+        return (out, acc) if with_products else out
+    return plain
+
+
+def int8_train_phase(torch, gm, fa, kernel_check, card, moe_perf, steps: int = 10,
+                     warmup: int = 2):
+    """moe-8x40m at full width with ``model.matmul_precision: int8`` (bf16
+    over fp32 masters, batch 32, S 1024): step 1 at batch 8 with the
+    gmm_int8, gmm and tgmm kernels against their plain versions (the flash
+    kernels in both) under the MoE phase's limits; ``steps`` steps through
+    ``Trainer.train()`` with a log line every 2, the last logged loss below
+    the first; launches: gmm_int8 3 per layer per step and validation
+    batch, the dX gmm on wgmma and the dW tgmm on "f32" 3 per layer per
+    step, the flash kernels (on int8-gridded q/k/v) as the bf16 path's."""
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        write_corpus(tmp, train_bytes=1_100_000, val_bytes=70_000)
+        cfg = config_moe(tmp, steps, warmup)
+        cfg["name"] = "Llama-MoE (8x40M) int8"
+        cfg["model"]["matmul_precision"] = "int8"
+        cfg["logging"]["steps"]["logging_interval"] = 2
+        log(f"int8: reduced: training.hyperparameters.iters {steps} (config 10000), "
+            f"scheduler.warmup_steps {warmup} (config 500), system.mesh dropped "
+            "({dp: -1, ep: 4} needs four devices)")
+        trainer = Trainer(Config.from_dict(cfg), runs_root=os.path.join(tmp, "runs"),
+                          quiet=True, device="cuda")
+        par = first_step_parity(torch, trainer, 8, [
+            (gm, "gmm_int8_kernel", int8_plain_kernel(kernel_check)),
+            (gm, "_gmm_forward", lambda x, w, gs, bt, w_trans=False: gm.gmm_plain(
+                x, w.transpose(1, 2) if w_trans else w, gs, bt)),
+            (gm, "tgmm", gm.tgmm_plain)])
+        log(f"int8: step-1 parity at batch 8, gmm_int8/gmm/tgmm kernels vs plain: {par}")
+        if not parity_ok(par):
+            failures.append(f"int8: step-1 loss/gradients disagree with plain: {par}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(gm, fa)
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**read_launches(gm, fa), "gmm_int8": gm.gmm_int8.launches}
+        variants = read_variants(gm, fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        windows = trainer.windows
+        losses = [w["loss"] for w in windows]
+        layers, vb = trainer.model_args.num_layers, trainer.eval_batches
+        want = {"gmm_int8": 3 * layers * (steps + vb), "gmm": 3 * layers * steps,
+                "tgmm": 3 * layers * steps, "flash_fwd": layers * (steps + vb),
+                "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+        log(f"int8: {steps} steps + {vb} validation batches in {wall:.1f}s; losses "
+            f"every 2 steps {losses}; final val_loss={result['final_val_loss']}; "
+            f"launches {launches}; by variant {variants}")
+        if not all(math.isfinite(x) for x in losses) or not losses \
+                or not losses[-1] < losses[0]:
+            failures.append(f"int8: the logged loss did not fall: {losses}")
+        if launches != want:
+            failures.append(f"int8: launches {launches} != {want}")
+        want_variants = {"gmm": {**dict.fromkeys(gm.GMM_VARIANTS, 0), "wgmma": want["gmm"]},
+                         "tgmm": {**dict.fromkeys(gm.TGMM_VARIANTS, 0), "f32": want["tgmm"]},
+                         **flash_variants_want(fa, want["flash_fwd"], want["flash_bwd_dq"])}
+        if variants != want_variants:
+            failures.append(f"int8: launches by variant {variants} != {want_variants}")
+        flops_per_token = trainer.flops_per_token
+        del trainer
+    torch.cuda.empty_cache()
+    steady = windows[1:]
+    secs = sum(w["seconds"] for w in steady)
+    tok_s = sum(w["toks"] for w in steady) / secs
+    perf = {"step_ms": 1e3 * secs / sum(w["steps"] for w in steady), "tok_s": tok_s,
+            "mfu_active_vs_989tflops": tok_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+            "peak_mem_gb": peak_gb, "losses": losses, "launches": launches,
+            "launches_by_variant": variants, "first_step_parity": par,
+            "bf16_moe_step_ms": moe_perf.get("step_ms"),
+            "bf16_moe_tok_s": moe_perf.get("tok_s"),
+            "bf16_moe_peak_mem_gb": moe_perf.get("peak_mem_gb")}
+    for k in ("step_ms", "tok_s", "peak_mem_gb", "bf16_moe_step_ms", "bf16_moe_tok_s",
+              "bf16_moe_peak_mem_gb"):
+        log(f"int8: {k}={perf[k]} [{card}]")
     return failures, perf
 
 
@@ -3200,10 +3735,11 @@ def main() -> int:
     cases = kernel_phase(torch, gm, kernel_check)
     gen_cases = generate_kernel_cases(torch, gm, kernel_check)
     train_cases, tgmm_cases = train_kernel_phase(torch, gm, kernel_check)
+    int8_cases = int8_kernel_phase(torch, gm, kernel_check, train_cases)
     failures += [f"{k} {c['case']} {c['dtype']}: kernel disagrees with plain "
                  f"(max_abs_err {c['max_abs_err']})"
                  for k, group in (("gmm", cases + gen_cases + train_cases),
-                                  ("tgmm", tgmm_cases))
+                                  ("tgmm", tgmm_cases), ("gmm_int8", int8_cases))
                  for c in group if not c["ok"]]
     flash_cases = flash_kernel_phase(torch, gm, fa)
     failures += [f"flash {c['case']} {c['dtype']}: kernels disagree with plain "
@@ -3213,6 +3749,10 @@ def main() -> int:
     failures += path_failures
     gen_failures, gen_perf = generate_phase(torch, gm, fa, card, served, gen_cases)
     failures += gen_failures
+    t0 = time.perf_counter()
+    quant_failures, quant_perf = quant_serve_phase(torch, gm, fa, card, served)
+    failures += quant_failures
+    log(f"quant: the phase took {time.perf_counter() - t0:.1f}s")
     del served
     torch.cuda.empty_cache()
     train_failures, train_perf = train_phase(torch, gm, fa, card)
@@ -3225,6 +3765,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_failures, moe_perf = moe_train_phase(torch, gm, fa, card)
     failures += moe_failures
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    int8_failures, int8_perf = int8_train_phase(torch, gm, fa, kernel_check, card, moe_perf)
+    failures += int8_failures
+    log(f"int8: the phase took {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     b1_failures, b1_perf = train_1b_phase(torch, gm, fa, card)
     failures += b1_failures
@@ -3277,7 +3822,15 @@ def main() -> int:
                      group_sizes=c["group_sizes"], planted_fault=c["planted_fault"],
                      library=c["library"], path="generate_moe_8x40m", card=card)
         fp32_entries.append(entry)
-    fp32_entries[-1].update(generate_path=gen_perf)
+    fp32_entries[-1].update(generate_path=gen_perf, quant_serve_path=quant_perf)
+    # gmm_int8 (matmul_precision int8): its launches in the int8 MoE run,
+    # times at the gate/up shape, both training shapes as cases
+    int8_entry = kernel_entry(
+        "gmm_int8", SOURCE, INT8_REPLACES, int8_perf.get("launches", {}).get("gmm_int8", 0),
+        int8_cases[0], max(c["max_abs_err"] for c in int8_cases))
+    int8_entry.update(cases=int8_cases, int8_train=int8_perf,
+                      replaces_note="XLA in JAX (_gmm_int8_impl), no Pallas counterpart",
+                      card=card)
     # The flash kernels: the 1B trainer's shape (B 8, H 16, S 2048, D 128,
     # bf16, causal) and its launches in run A; the 40m and MoE runs'
     # launches beside them.
@@ -3362,7 +3915,8 @@ def main() -> int:
         flash_entries.append(entry)
     flash_entries[-1].update(muon_100m=muon_perf, flex_1m=flex_perf, optimizers_1m=opt_perf,
                              dense_40m_fp32=f32_perf, fineweb_80m=stream_perf)
-    report = json.dumps({"kernels": [gmm_entry, tgmm_entry] + fp32_entries + flash_entries})
+    report = json.dumps({"kernels": [gmm_entry, tgmm_entry, int8_entry] + fp32_entries
+                                    + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)
         for f in failures:

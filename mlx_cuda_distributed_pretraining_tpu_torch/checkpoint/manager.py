@@ -34,9 +34,12 @@ and waits for the copies before it returns: the writer never sees a later
 step's values. At most two snapshots are alive: one being written, one
 queued; a third ``save`` blocks until the writer takes one.
 
+``load_params(..., weight_dtype="int8"|"int4")`` quantizes the linear
+weights as they load (``models/quantize.py``; the fp file stays canonical).
+
 Not ported: the mesh loaders ``shard_arrays``, ``load_params_stacked``
-and ``load_opt_state_resharded`` (ROADMAP queue 1 item 10: multi-GPU),
-quantize-on-load (item 8) and the metrics counters (item 9).
+and ``load_opt_state_resharded`` (ROADMAP queue 1 item 10: multi-GPU)
+and the metrics counters (item 9).
 """
 
 from __future__ import annotations
@@ -406,11 +409,29 @@ class CheckpointManager:
         return params, opt_state, training_state
 
     @staticmethod
-    def load_params(model_path: str, like: Optional[Any] = None) -> Any:
+    def load_params(model_path: str, like: Optional[Any] = None,
+                    weight_dtype: str = "fp") -> Any:
         """A model file as nested CPU tensors. With ``like``: shaped and typed
         like it, keys the file lacks keep ``like``'s value, extra keys are
-        dropped."""
+        dropped.
+
+        ``weight_dtype`` "int8"/"int4" quantizes the linear weights at the
+        load (:func:`_quantize_flat`). An fp ``like`` is then quantized too,
+        so the merge sees the quantized leaf names; with no ``weight_dtype``
+        a quantized ``like`` (a hot swap into an int8/int4 engine) names the
+        dtype."""
+        from ..models.quantize import (check_weight_dtype, quantize_weights,
+                                       weight_dtype_of)
+
+        wd = check_weight_dtype(weight_dtype)
+        if wd == "fp" and like is not None:
+            wd = weight_dtype_of(like)
+        elif wd != "fp" and isinstance(like, dict) and "layers" in like \
+                and weight_dtype_of(like) == "fp":
+            like = quantize_weights(like, wd)
         arrays, _ = load_safetensors(model_path)
+        if wd != "fp":
+            arrays = _quantize_flat(arrays, wd)
         if like is None:
             return unflatten_dict(arrays)
         out = {}
@@ -593,6 +614,25 @@ class CheckpointManager:
             if len(kept) != len(entries):
                 ledger["checkpoints"] = kept
                 _atomic_json(os.path.join(self.run_dir, "metadata.json"), ledger)
+
+
+def _quantize_flat(arrays: Dict[str, torch.Tensor],
+                   weight_dtype: str) -> Dict[str, torch.Tensor]:
+    """Quantize a flat checkpoint dict on the host (JAX's
+    ``_quantize_flat_np``): each quantizable key becomes its
+    ``weight_q``/``weight_q4`` and ``weight_s`` keys, the rest pass."""
+    from ..models.quantize import quantize_leaf, quantized_key_shapes
+
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in arrays.items():
+        qk = quantized_key_shapes(k, tuple(v.shape), weight_dtype)
+        if not qk:
+            out[k] = v
+            continue
+        base = k[: -len(".weight")]
+        for name, leaf in quantize_leaf(v, weight_dtype).items():
+            out[f"{base}.{name}"] = leaf
+    return out
 
 
 def _restructure_like(like: Any, nested: Any) -> Any:

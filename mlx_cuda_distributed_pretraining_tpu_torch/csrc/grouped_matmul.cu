@@ -1236,6 +1236,192 @@ int launch_tgmm_wgmma(const void* x, const void* dy, const int* gs, void* dw, in
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// gmm_int8: the grouped GEMM of matmul_precision "int8" (model training).
+//
+// Replaces no Pallas kernel: the JAX package computes it in XLA
+// (mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py::
+// _gmm_int8_impl), a real int8 x int8 -> int32 contraction, and PyTorch has
+// no grouped int8 product on CUDA (torch._grouped_mm takes no int8,
+// torch._int_mm is one 2-D product). For xq int8 [T, K] with row scales
+// sx fp32 [T], and the expert banks quantized per output column, given here
+// transposed, wqt int8 [E, N, K], with column scales sw fp32 [E, N]:
+//
+//     acc[r, n] = sum_k xq[r, k] * wqt[e(r), n, k]          (exact, int32)
+//     out[r, n] = float(acc[r, n]) * sx[r] * sw[e(r), n]    in out's type
+//     out[r, :] = 0                                         for tail rows
+//
+// the epilogue in JAX's order, ((float(acc) * sx) * sw), then one rounding
+// to out's type (bf16 or fp32). With acc32 not null the int32 sums are also
+// written there, so a check can hold them bitwise.
+//
+// What bounds it on an H100 SXM: at the MoE training path's gate/up
+// (T ~ 66K, K 512, N 1536) the bytes (int8 operands read once, a bf16
+// output written once: ~0.24 GB, 0.072 ms at 3.35 TB/s) against 0.10 TOP
+// at 1,979 int8 TOP/s (0.052 ms): bytes, barely. The design is the simple
+// one: mma.sync.m16n8k32 s8 with an s32 accumulator, both operands K-major
+// (the B operand's "col" layout is wqt's rows), 16-byte cp.async copies
+// into a 3-stage ring of 64-byte K slices whose shared rows are padded to
+// 80 bytes (the fragment loads, 4 bytes a thread, then hit 32 banks). A CTA
+// is 4 warps over BM (16, 32 or 64) rows x 128 columns; warp w owns columns
+// 32w..32w+31 over all BM rows. An s8 wgmma fed by TMA is later work.
+constexpr int I8_BN = 128, I8_BK = 64, I8_LD = 80, I8_STAGES = 3, I8_WARPS = 4;
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void i8_store2(float* out, size_t at, float v0, float v1, bool pair) {
+  if (pair) {
+    *reinterpret_cast<float2*>(out + at) = make_float2(v0, v1);
+  } else {
+    out[at] = v0;
+  }
+}
+
+__device__ __forceinline__ void i8_store2(__nv_bfloat16* out, size_t at, float v0, float v1,
+                                          bool pair) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    out[at] = __float2bfloat16(v0);
+  }
+}
+
+template <int BM, typename OutT>
+__global__ void __launch_bounds__(I8_WARPS * 32)
+gmm_int8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wqt,
+                const int* __restrict__ gs, const float* __restrict__ sx,
+                const float* __restrict__ sw, OutT* __restrict__ out,
+                int* __restrict__ acc32, int T, int K, int N, int E) {
+  constexpr int MT = BM / 16;  // m16 tiles a warp runs
+  __shared__ __align__(16) int8_t As[I8_STAGES][BM * I8_LD];
+  __shared__ __align__(16) int8_t Bs[I8_STAGES][I8_BN * I8_LD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * BM, c0 = blockIdx.y * I8_BN;
+  const int e = expert_of_row_warp(gs, E, r0, lane);
+  const int g = lane >> 2, t = lane & 3;
+  if (e < 0) {  // tail tile: zeros
+    for (int i = tid; i < BM * I8_BN; i += I8_WARPS * 32) {
+      const int r = r0 + i / I8_BN, c = c0 + i % I8_BN;
+      if (c < N) {
+        out[(size_t)r * N + c] = OutT(0.0f);
+        if (acc32 != nullptr) acc32[(size_t)r * N + c] = 0;
+      }
+    }
+    return;
+  }
+  const int8_t* we = wqt + (size_t)e * N * K;
+  const int k_tiles = K / I8_BK;
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * I8_BK;
+    for (int i = tid; i < BM * (I8_BK / 16); i += I8_WARPS * 32) {
+      const int r = i / (I8_BK / 16), kk = (i % (I8_BK / 16)) * 16;
+      wg::cp_async<16>(reinterpret_cast<float*>(&As[stage][r * I8_LD + kk]),
+                       reinterpret_cast<const float*>(xq + (size_t)(r0 + r) * K + k0 + kk),
+                       true);
+    }
+    for (int i = tid; i < I8_BN * (I8_BK / 16); i += I8_WARPS * 32) {
+      const int n = i / (I8_BK / 16), kk = (i % (I8_BK / 16)) * 16;
+      const bool in = c0 + n < N;
+      wg::cp_async<16>(reinterpret_cast<float*>(&Bs[stage][n * I8_LD + kk]),
+                       reinterpret_cast<const float*>(in ? we + (size_t)(c0 + n) * K + k0 + kk
+                                                         : wqt),
+                       in);
+    }
+  };
+  int acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+
+#pragma unroll
+  for (int st = 0; st < I8_STAGES - 1; ++st) {
+    if (st < k_tiles) load(st, st);
+    wg::cp_async_commit();
+  }
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    wg::cp_async_wait<I8_STAGES - 2>();  // this thread's copies of stage kt landed
+    __syncthreads();                     // everyone's; and stage kt - 1 is free
+    if (kt + I8_STAGES - 1 < k_tiles) load((kt + I8_STAGES - 1) % I8_STAGES, kt + I8_STAGES - 1);
+    wg::cp_async_commit();
+    const int8_t* a_s = As[kt % I8_STAGES];
+    const int8_t* b_s = Bs[kt % I8_STAGES];
+#pragma unroll
+    for (int ks = 0; ks < I8_BK; ks += 32) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int8_t* p = a_s + (i * 16 + g) * I8_LD + ks + 4 * t;
+        a[i][0] = *reinterpret_cast<const uint32_t*>(p);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * I8_LD);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * I8_LD + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t* p = b_s + (warp * 32 + j * 8 + g) * I8_LD + ks + 4 * t;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 16);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_s8(acc[i][j], a[i], b0, b1);
+      }
+    }
+  }
+  wg::cp_async_wait<0>();
+
+  const float* swe = sw + (size_t)e * N;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m16 tile
+      const int r = r0 + i * 16 + g + 8 * h;
+      const float sr = sx[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + warp * 32 + j * 8 + 2 * t;
+        if (c >= N) continue;
+        const bool pair = c + 1 < N && (N % 2 == 0);
+        const int v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        const float y0 = (static_cast<float>(v0) * sr) * swe[c];
+        const float y1 = c + 1 < N ? (static_cast<float>(v1) * sr) * swe[c + 1] : 0.0f;
+        const size_t at = (size_t)r * N + c;
+        i8_store2(out, at, y0, y1, pair);
+        if (!pair && c + 1 < N) i8_store2(out, at + 1, y1, 0.0f, false);
+        if (acc32 != nullptr) {
+          acc32[at] = v0;
+          if (c + 1 < N) acc32[at + 1] = v1;
+        }
+      }
+    }
+  }
+}
+
+template <int BM>
+int launch_gmm_int8(const void* xq, const void* wqt, const int* gs, const float* sx,
+                    const float* sw, void* out, int* acc32, int T, int K, int N, int E,
+                    int dtype, cudaStream_t s) {
+  const dim3 grid(T / BM, (N + I8_BN - 1) / I8_BN);
+  const auto* x8 = static_cast<const int8_t*>(xq);
+  const auto* w8 = static_cast<const int8_t*>(wqt);
+  if (dtype == 1)
+    gmm_int8_kernel<BM, __nv_bfloat16><<<grid, I8_WARPS * 32, 0, s>>>(
+        x8, w8, gs, sx, sw, static_cast<__nv_bfloat16*>(out), acc32, T, K, N, E);
+  else
+    gmm_int8_kernel<BM, float><<<grid, I8_WARPS * 32, 0, s>>>(
+        x8, w8, gs, sx, sw, static_cast<float*>(out), acc32, T, K, N, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16. bm: CTA row tile, dividing block_t: 16 or 32
@@ -1332,4 +1518,23 @@ extern "C" int tgmm_backward(const void* x, const void* dy,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// matmul_precision "int8": xq int8 [T, K], wqt int8 [E, N, K] (each expert's
+// quantized bank transposed, K-major), sx fp32 [T], sw fp32 [E, N]; out
+// [T, N] in dtype (0 = fp32, 1 = bf16); acc32 int32 [T, N] or null. bm: the
+// CTA row tile, 16, 32 or 64, dividing block_t; K a multiple of 64 (the
+// wrapper pads with zeros); 16-byte aligned xq and wqt. Returns a cudaError_t.
+extern "C" int gmm_int8(const void* xq, const void* wqt, const int* group_sizes,
+                        const float* sx, const float* sw, void* out, int* acc32, int T,
+                        int K, int N, int E, int bm, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (T <= 0 || K <= 0 || N <= 0 || E <= 0 || K % I8_BK != 0 || (dtype != 0 && dtype != 1) ||
+      !(bm == 16 || bm == 32 || bm == 64) || T % bm != 0 || !aligned(xq) || !aligned(wqt) ||
+      (N + I8_BN - 1) / I8_BN > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bm == 64) return launch_gmm_int8<64>(xq, wqt, group_sizes, sx, sw, out, acc32, T, K, N, E, dtype, s);
+  if (bm == 32) return launch_gmm_int8<32>(xq, wqt, group_sizes, sx, sw, out, acc32, T, K, N, E, dtype, s);
+  return launch_gmm_int8<16>(xq, wqt, group_sizes, sx, sw, out, acc32, T, K, N, E, dtype, s);
 }

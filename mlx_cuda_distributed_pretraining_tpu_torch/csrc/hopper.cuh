@@ -509,6 +509,14 @@ inline int bf16_map_strided(CUtensorMap* map, const void* base, int rank,
                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  // The driver checks base against the context current on this thread. A
+  // thread whose first CUDA work is this call (PyTorch's autograd worker
+  // running a backward that starts with one of these kernels) has none
+  // yet: make the primary context of base's device current first.
+  cudaPointerAttributes attr;
+  cudaError_t ce = cudaPointerGetAttributes(&attr, base);
+  if (ce == cudaSuccess && attr.device >= 0) ce = cudaSetDevice(attr.device);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -1,7 +1,7 @@
 """Generation CLI: load a trained run's newest verified checkpoint and sample
 (temperature, top-p, min-p, repetition penalty), or run beam search or
 prompt-lookup speculation. The weights load on ``--device`` (default
-``cuda``).
+``cuda``); ``--weight-quant`` serves them weight-only int8.
 
     python -m mlx_cuda_distributed_pretraining_tpu_torch.infer.cli \\
         --run myrun --prompt "Once upon a time" --temperature 0
@@ -35,7 +35,9 @@ def main(argv=None) -> str:
     parser.add_argument("--draft-len", type=int, default=8,
                         help="speculative: drafted tokens per verify step")
     parser.add_argument("--weight-quant", action="store_true",
-                        help="int8 weight-only quantization (not ported)")
+                        help="int8 weight-only quantization (weights cross "
+                             "device memory at 1 byte/elem; composes with "
+                             "--kv-quant)")
     args = parser.parse_args(argv)
 
     if args.beams > 0 and args.kv_quant:
@@ -48,16 +50,15 @@ def main(argv=None) -> str:
         parser.error("--speculative supports greedy or pure-temperature "
                      "sampling only; drop --top-p/--min-p/"
                      "--repetition-penalty")
-    if args.weight_quant:
-        raise NotImplementedError(
-            "--weight-quant is not ported (ROADMAP queue 1 item 8: "
-            "models/quantize.py, weight-only int8/int4)")
-
     from ..train.trainer import load_trained
     from .generate import beam_search, generate_speculative, generate_text
 
     params, margs, tok, _ = load_trained(args.run, runs_root=args.runs_root,
                                          device=args.device)
+    if args.weight_quant:
+        from ..models.llama import quantize_params_int8
+
+        params = quantize_params_int8(params)
     if args.speculative:
         ids = [tok.bos_id] + tok.tokenize(args.prompt)
         out, stats = generate_speculative(

@@ -17,11 +17,14 @@ The weights live on ``--device`` (default ``cuda``). Two engines
 - ``locked`` (default): one request at a time behind a lock, through
   ``infer/generate.py``'s ``generate_text`` (samplers, repetition penalty,
   ``--kv-quant``, ``--spec``);
-- ``batch``: the continuous-batching engine (``serve/engine.py``). A full
-  admission queue returns 429, a missed deadline 504. Requests whose
-  effective knobs reshape the logits (top_p, min_p, repetition_penalty)
-  fall back to the locked path: the batched step samples by temperature
-  only.
+- ``batch``: the continuous-batching engine (``serve/engine.py``) over a
+  paged (``--kv-backend paged``, default) or slotted KV pool, fp32 or int8
+  (``--kv-quant``), with in-batch speculation (``--spec-draft-len``,
+  ``--spec-max-ngram``) and weight-only int8/int4 (``--weight-dtype``,
+  quantized as the checkpoint loads). A full admission queue returns 429,
+  a missed deadline 504. Requests whose effective knobs reshape the logits
+  (top_p, min_p, repetition_penalty) fall back to the locked path: the
+  batched step samples by temperature only.
 
 Streaming: a ``"stream": true`` body answers with SSE (text/event-stream):
 one ``data: {"token": id, "text": delta}`` event per token, then ``data:
@@ -93,12 +96,7 @@ class InferenceService:
         """Start the batch engine and route compatible requests through it;
         the locked path stays for the logit-reshaping knobs. ``max_len`` is
         clamped to the model's ``max_position_embeddings``."""
-        if self.kv_quant:
-            raise NotImplementedError(
-                "an int8 KV cache in the batch engine is not ported (ROADMAP "
-                "queue 1 item 8: the int8 paged pool); --kv-quant serves "
-                "through --engine locked")
-        cfg = cfg or EngineConfig()
+        cfg = cfg or EngineConfig(kv_quant=self.kv_quant)
         if cfg.max_len > self.args.max_position_embeddings:
             cfg = dataclasses.replace(
                 cfg, max_len=self.args.max_position_embeddings)
@@ -113,11 +111,14 @@ class InferenceService:
 
     @classmethod
     def from_run(cls, run: str, runs_root: str = "runs", device="cuda",
-                 **kw) -> "InferenceService":
+                 weight_dtype: str = "fp", **kw) -> "InferenceService":
+        """A trained run's newest verified checkpoint; ``weight_dtype``
+        "int8"/"int4" quantizes its linear weights as they load."""
         from ..train.trainer import load_trained
 
         params, args, tok, _cfg = load_trained(run, runs_root=runs_root,
-                                               device=device)
+                                               device=device,
+                                               weight_dtype=weight_dtype)
         return cls(params, args, tok, run_name=run, **kw)
 
     @classmethod
@@ -468,7 +469,8 @@ def main(argv=None) -> int:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8400)
     p.add_argument("--kv-quant", action="store_true",
-                   help="int8 KV cache on the locked path")
+                   help="int8 KV cache (the locked path's cache, or the batch "
+                        "engine's pool)")
     p.add_argument("--max-tokens-limit", type=int, default=4096)
     p.add_argument("--spec", action="store_true",
                    help="prompt-lookup speculative decoding for greedy/"
@@ -487,12 +489,30 @@ def main(argv=None) -> int:
                    help="batch engine: admission queue depth before 429")
     p.add_argument("--prefill-chunk", type=int, default=256,
                    help="batch engine: prompt tokens prefilled per iteration")
+    p.add_argument("--kv-backend", choices=("paged", "slotted"),
+                   default="paged",
+                   help="batch engine: paged = block-table KV arena "
+                        "(admission by free blocks); slotted = one fixed "
+                        "max-len row per request")
     p.add_argument("--block-size", type=int, default=32,
-                   help="batch engine: tokens per KV block (power of two; "
+                   help="paged backend: tokens per KV block (power of two; "
                         "kv-len must be a multiple)")
     p.add_argument("--num-blocks", type=int, default=0,
-                   help="batch engine: KV arena size in blocks "
+                   help="paged backend: KV arena size in blocks "
                         "(0 = slots * kv_len / block)")
+    p.add_argument("--spec-draft-len", type=int, default=0,
+                   help="paged backend: in-batch speculative decoding, "
+                        "prompt-lookup drafts verified per decode step "
+                        "(0 = off)")
+    p.add_argument("--spec-max-ngram", type=int, default=3,
+                   help="paged backend: longest suffix n-gram for prompt-"
+                        "lookup drafting")
+    p.add_argument("--weight-dtype", choices=("fp", "int8", "int4"),
+                   default="fp",
+                   help="batch engine: weight-only quantization of the "
+                        "serving weights (models/quantize.py), per-output-"
+                        "channel scales, quantized as the checkpoint loads; "
+                        "embeddings and norms stay fp")
     p.add_argument("--no-prefix-cache", action="store_true",
                    help="batch engine: disable automatic prefix caching")
     p.add_argument("--prefix-min-hit-blocks", type=int, default=1,
@@ -501,20 +521,23 @@ def main(argv=None) -> int:
     p.add_argument("--deadline-s", type=float, default=None,
                    help="batch engine: default per-request deadline")
     a = p.parse_args(argv)
-    if a.kv_quant and a.engine == "batch":
-        p.error("--kv-quant with --engine batch needs the int8 paged pool "
-                "(ROADMAP queue 1 item 8)")
+    if a.weight_dtype != "fp" and a.engine != "batch":
+        p.error("--weight-dtype requires --engine batch")
 
     kw = dict(device=a.device, kv_quant=a.kv_quant,
               max_tokens_limit=a.max_tokens_limit, speculative=a.spec,
               draft_len=a.draft_len)
-    service = (InferenceService.from_run(a.run, a.runs_root, **kw) if a.run
+    service = (InferenceService.from_run(a.run, a.runs_root,
+                                         weight_dtype=a.weight_dtype, **kw) if a.run
                else InferenceService.from_config(a.config, seed=a.seed, **kw))
     if a.engine == "batch":
         service.attach_engine(EngineConfig(
             num_slots=a.slots, max_len=a.kv_len, max_queue=a.max_queue,
-            prefill_chunk=a.prefill_chunk, block_size=a.block_size,
-            num_blocks=a.num_blocks, prefix_cache=not a.no_prefix_cache,
+            prefill_chunk=a.prefill_chunk, kv_quant=a.kv_quant,
+            kv_backend=a.kv_backend, block_size=a.block_size,
+            num_blocks=a.num_blocks, spec_draft_len=a.spec_draft_len,
+            spec_max_ngram=a.spec_max_ngram, weight_dtype=a.weight_dtype,
+            prefix_cache=not a.no_prefix_cache,
             prefix_min_hit_blocks=a.prefix_min_hit_blocks,
             default_deadline_s=a.deadline_s))
     httpd = ThreadingHTTPServer((a.host, a.port), make_handler(service))

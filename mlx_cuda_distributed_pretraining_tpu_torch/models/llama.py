@@ -247,11 +247,32 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _linear(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """``x @ W (+ b)`` with W ``[in, out]`` (fp weights only)."""
-    y = x @ p["weight"]
+    """``x @ W (+ b)`` with W ``[in, out]``. A quantized leaf
+    (``models/quantize.py``: ``weight_q`` int8, or ``weight_q4`` two int4
+    values a byte along ``in``) is cast to x's dtype whole and its
+    per-output-channel scale ``weight_s`` multiplies the result, as in JAX,
+    where XLA fuses the cast into the matmul; eager PyTorch materializes it."""
+    if "weight_q4" in p:
+        from .quantize import unpack_int4
+
+        y = (x @ unpack_int4(p["weight_q4"]).to(x.dtype)) * p["weight_s"].to(x.dtype)
+    elif "weight_q" in p:
+        y = (x @ p["weight_q"].to(x.dtype)) * p["weight_s"].to(x.dtype)
+    else:
+        y = x @ p["weight"]
     if "bias" in p:
         y = y + p["bias"]
     return y
+
+
+def quantize_params_int8(params: Params) -> Params:
+    """Weight-only int8 for inference: per-output-channel symmetric scales
+    on every layer linear (wq/wk/wv/wo, the dense MLP and the MoE expert
+    banks); embeddings, the output head, norms, biases and routers stay
+    full precision. ``models/quantize.py`` also has int4."""
+    from .quantize import quantize_weights
+
+    return quantize_weights(params, "int8")
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
@@ -297,11 +318,21 @@ def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_paged_cache(args: LlamaArgs, num_blocks: int, block_size: int,
-                     device="cuda", dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
+                     device="cuda", dtype=torch.float32,
+                     quantize: bool = False) -> List[Dict[str, torch.Tensor]]:
     """Paged KV arena: per layer ``{"k", "v"}`` of ``[num_blocks,
-    block_size, Hkv, Dh]``, addressed through per-sequence block tables.
+    block_size, Hkv, Dh]``, or with ``quantize`` the int8 quartet ``{"k_q",
+    "k_s", "v_q", "v_s"}`` (int8 values, fp32 scales ``[num_blocks,
+    block_size, Hkv, 1]``), addressed through per-sequence block tables.
     The serving steps write it in place."""
     shape = (num_blocks, block_size, args.num_kv_heads, args.head_dim)
+    if quantize:
+        scale = shape[:3] + (1,)
+        return [{"k_q": torch.zeros(shape, device=device, dtype=torch.int8),
+                 "k_s": torch.zeros(scale, device=device),
+                 "v_q": torch.zeros(shape, device=device, dtype=torch.int8),
+                 "v_s": torch.zeros(scale, device=device)}
+                for _ in range(args.num_layers)]
     return [{"k": torch.zeros(shape, device=device, dtype=dtype),
              "v": torch.zeros(shape, device=device, dtype=dtype)}
             for _ in range(args.num_layers)]
@@ -338,7 +369,10 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     rounds half to even, as ``jnp.round`` does, so both packages store the
     same values."""
     xf = x.float()
-    scale = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which can land one ulp off the CPU's (and JAX's) quotient
+    scale = (xf.abs().amax(dim=-1, keepdim=True)
+             / torch.full((), 127.0, device=x.device)).clamp_min(1e-8)
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
@@ -464,9 +498,9 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
                              score_mod=kernel_score_mod(args.score_mod_type,
                                                         args.num_heads, args.soft_cap))
     elif impl == "ring":
-        raise NotImplementedError(
-            "attention_type 'ring' is not ported (ROADMAP queue 1 item 10: "
-            "multi-GPU, ring attention over NCCL)")
+        # No sp mesh axis on one device: JAX falls back to the reference
+        # attention under the config's mask (ring over NCCL: item 10).
+        out = reference_attention(q, k, v, mask_mod=build_mask_mod(args))
     else:
         out = reference_attention(q, k, v, mask_mod=build_mask_mod(args),
                                   score_mod=build_score_mod(args))
@@ -500,9 +534,10 @@ def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
 
 
 def _cast(tree, dtype):
+    """The compute-dtype cast; int8 (quantized) leaves stay int8, as in JAX."""
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+    return tree if tree.dtype == torch.int8 else tree.to(dtype)
 
 
 def _layer(layer: Params, x: torch.Tensor, args: LlamaArgs, positions: torch.Tensor,

@@ -15,6 +15,11 @@ Two dispatch implementations (``moe.impl`` in the model config,
   path). It is the JAX package's parity oracle for the grouped path and
   reaches no kernel, so it stays plain PyTorch.
 
+Quantized expert banks (``models/quantize.py``: ``weight_q`` / ``weight_q4``
+with per-(expert, out-channel) ``weight_s``) are cast to the activation
+dtype whole and run the same grouped GEMMs; the scales multiply each
+GEMM's result (:func:`_expert_bank`). The router stays full precision.
+
 The router's load-balancing and z losses come back pre-scaled beside the
 output. Routing stats (``moe_load`` per expert, ``moe_dropped``) go to a list
 the caller passes in, where the JAX package uses a trace-time tap; they stay
@@ -92,6 +97,24 @@ def router_z_loss(router_logits: torch.Tensor) -> torch.Tensor:
     return (z * z).mean()
 
 
+# -- quantized expert banks ------------------------------------------------------
+def _expert_bank(experts: Params, name: str, dtype: torch.dtype):
+    """One expert bank as ``(weights in dtype, scales [E, out] or None)``.
+    A quantized bank (``models/quantize.py``: ``weight_q`` int8 ``[E, in,
+    out]`` or ``weight_q4`` ``[E, in//2, out]``) is cast whole here, and the
+    caller multiplies the matmul's result by its per-(expert, out-channel)
+    scales, as in JAX. The cast banks go through the same gmm kernels as fp
+    ones."""
+    leaf = experts[name]
+    if "weight_q4" in leaf:
+        from .quantize import unpack_int4
+
+        return unpack_int4(leaf["weight_q4"]).to(dtype), leaf["weight_s"]
+    if "weight_q" in leaf:
+        return leaf["weight_q"].to(dtype), leaf["weight_s"]
+    return leaf["weight"], None
+
+
 # -- einsum (GShard/Switch) implementation ---------------------------------------
 def _dispatch_combine(probs: torch.Tensor, k: int, capacity: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,10 +159,16 @@ def _einsum_moe(p: Params, x: torch.Tensor, probs: torch.Tensor, args
     kept = dispatch.sum((2, 3)).reshape(B, S_pad)[:, :S]
     dropped = (K * B * S - kept.sum()).detach()
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), xg)
-    experts = p["experts"]
-    h = F.silu(torch.einsum("ebcd,edi->ebci", expert_in, experts["w_gate"]["weight"])) \
-        * torch.einsum("ebcd,edi->ebci", expert_in, experts["w_up"]["weight"])
-    expert_out = torch.einsum("ebci,eid->ebcd", h, experts["w_down"]["weight"])
+    wg, sg = _expert_bank(p["experts"], "w_gate", expert_in.dtype)
+    wu, su = _expert_bank(p["experts"], "w_up", expert_in.dtype)
+    wd, sd = _expert_bank(p["experts"], "w_down", expert_in.dtype)
+
+    def scaled(y, s):  # per-(expert, out-channel) dequant epilogue
+        return y if s is None else y * s[:, None, None, :].to(y.dtype)
+
+    h = F.silu(scaled(torch.einsum("ebcd,edi->ebci", expert_in, wg), sg)) \
+        * scaled(torch.einsum("ebcd,edi->ebci", expert_in, wu), su)
+    expert_out = scaled(torch.einsum("ebci,eid->ebcd", h, wd), sd)
     out = torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), expert_out)
     return out.reshape(B, S_pad, D)[:, :S], dropped
 
@@ -184,9 +213,25 @@ def _grouped_ffn(experts: Params, x_flat: torch.Tensor, gate_idx: torch.Tensor,
     x_buf[dest] = x_flat[tok[order]]  # dest rows are unique
 
     gs = padded.to(torch.int32)
-    h = F.silu(gm.gmm(x_buf, experts["w_gate"]["weight"], gs, block_t, precision)) \
-        * gm.gmm(x_buf, experts["w_up"]["weight"], gs, block_t, precision)
-    y_buf = gm.gmm(h, experts["w_down"]["weight"], gs, block_t, precision)
+    wg, sg = _expert_bank(experts, "w_gate", x_buf.dtype)
+    wu, su = _expert_bank(experts, "w_up", x_buf.dtype)
+    wd, sd = _expert_bank(experts, "w_down", x_buf.dtype)
+    if sg is not None or su is not None or sd is not None:
+        # expert of each buffer row (pad rows clamp to the last group; they
+        # are zero, any scale will do)
+        row_e = torch.searchsorted(torch.cumsum(gs, 0),
+                                   torch.arange(T_buf, device=dev, dtype=gs.dtype),
+                                   right=True).clamp_max(num_experts - 1)
+
+        def scaled(y, s):  # per-row dequant epilogue
+            return y if s is None else y * s[row_e].to(y.dtype)
+    else:
+        def scaled(y, s):
+            return y
+
+    h = F.silu(scaled(gm.gmm(x_buf, wg, gs, block_t, precision), sg)) \
+        * scaled(gm.gmm(x_buf, wu, gs, block_t, precision), su)
+    y_buf = scaled(gm.gmm(h, wd, gs, block_t, precision), sd)
 
     w_s = gate_w.reshape(TK)[order].to(y_buf.dtype)
     out = x_flat.new_zeros((T, D))

@@ -70,6 +70,7 @@ __all__ = [
     "flash_fwd_plain",
     "flash_variant",
     "kernel_tiles",
+    "quantize_operand_int8",
     "reset_launches",
 ]
 
@@ -109,6 +110,25 @@ def check_matmul_precision(precision: Optional[str]) -> Optional[str]:
         raise ValueError(f"unknown matmul_precision {precision!r} "
                          f"(expected one of {MATMUL_PRECISIONS})")
     return p
+
+
+def quantize_operand_int8(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """amax/scale-tracked int8 matmul operand with a straight-through
+    backward, JAX's ``quantize_operand_int8`` op for op: the per-row amax
+    over ``axis`` in fp32, ``s = max(amax / 127, 1e-8)``, ``round(x / s)``
+    (half to even, in both packages) clipped to +-127, ``xq = (q * s)`` in
+    x's dtype, and the forward value ``x + (xq - x)`` evaluated in x's
+    dtype, with the gradient passed straight to ``x``. Under bf16 that sum
+    is not always ``xq``, so the sum is kept as JAX has it. The kernels
+    then run on these grid values in x's dtype."""
+    xf = x.float()
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which can land one ulp off the CPU's (and JAX's) quotient
+    s = (xf.abs().amax(dim=axis, keepdim=True)
+         / torch.full((), 127.0, device=x.device)).clamp_min(1e-8)
+    q = torch.clamp(torch.round(xf / s), -127, 127)
+    xq = (q * s).to(x.dtype)
+    return x + (xq - x).detach()
 
 
 def flash_variant(fn: str, dtype: torch.dtype, head_dim: int) -> str:
@@ -678,13 +698,14 @@ def flash_attention(
     ``mask_fn`` (the flex path) must be a named mod of ``ops/masks.py`` whose ``_plan`` is
     that mask; ``score_fn`` one of ``ops/flex_attention.py``'s kernel score
     mods (alibi, soft_cap). ``precision`` (model.matmul_precision): "bf16"
-    casts q/k/v; int8, an arbitrary ``mask_fn`` and an arbitrary
+    casts q/k/v; "int8" puts them on the symmetric int8 grid with per-row
+    amax scales over the head dim (:func:`quantize_operand_int8`), and the
+    kernels run on those values in q's dtype with a full-precision,
+    straight-through backward. An arbitrary ``mask_fn`` and an arbitrary
     ``score_fn`` are not ported and raise."""
     precision = check_matmul_precision(precision)
     if precision == "int8":
-        raise NotImplementedError(
-            "matmul_precision int8 over the flash kernels is not ported "
-            "(ROADMAP queue 1 item 6: flex, ring and band over the flash kernels)")
+        q, k, v = (quantize_operand_int8(t) for t in (q, k, v))
     _mask_mod(mask_type, window_size, prefix_len)  # raises on an unknown mask
     mask_type, window_size, prefix_len = mask_plan(mask_fn, mask_type, window_size,
                                                    prefix_len)

@@ -30,6 +30,14 @@ of ``x_tile^T @ dy_tile``. Two versions of each function:
   accumulation), and :func:`tgmm_plain`, the Pallas kernel's rounding points
   in plain PyTorch.
 
+``precision="int8"`` (``model.matmul_precision``) runs :func:`gmm_int8`, the
+JAX package's ``_gmm_int8``: rows of x and columns of each expert's w are
+quantized to int8 with amax scales, the ``gmm_int8`` kernel of the same
+source (``mma.sync`` s8, int32 sums; :func:`gmm_int8_plain` on the CPU)
+contracts them, and the scales multiply the result. Its backward is
+straight-through and full precision: dX on the gmm kernels, dW on the fp32
+tgmm (see :class:`_GroupedMatmulInt8`).
+
 CPU tensors go to the plain versions and CUDA tensors to the kernels;
 anything else raises. No build or launch error falls back.
 """
@@ -42,6 +50,7 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..utils import cuda_build
 from .flash_attention import check_matmul_precision
@@ -53,6 +62,8 @@ __all__ = [
     "build_library",
     "decode_plan",
     "gmm",
+    "gmm_int8",
+    "gmm_int8_plain",
     "gmm_plain",
     "gmm_variant",
     "pick_block_t",
@@ -259,6 +270,12 @@ def _library():
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.tgmm_backward.restype = ctypes.c_int
+            lib.gmm_int8.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.gmm_int8.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -371,6 +388,160 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     return dw
 
 
+# -- matmul_precision "int8" ---------------------------------------------------
+def _quantize_rows_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 over the contraction dim: ``[T, K]`` -> (int8
+    ``[T, K]``, fp32 scales ``[T, 1]``); JAX's ``_quantize_rows_int8`` op for
+    op (``round`` half to even, dividing by the scale)."""
+    xf = x.float()
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal, which can land one ulp off the CPU's (and JAX's) quotient
+    s = (xf.abs().amax(dim=-1, keepdim=True)
+         / torch.full((), 127.0, device=x.device)).clamp_min(1e-8)
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _quantize_cols_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(expert, output column) symmetric int8 over the contraction dim:
+    ``[E, K, N]`` -> (int8 ``[E, K, N]``, fp32 scales ``[E, 1, N]``)."""
+    wf = w.float()
+    s = (wf.abs().amax(dim=1, keepdim=True)
+         / torch.full((), 127.0, device=w.device)).clamp_min(1e-8)  # as above
+    return torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8), s
+
+
+def gmm_int8_products(xq: torch.Tensor, wq: torch.Tensor, group_sizes: torch.Tensor,
+                      block_t: int) -> torch.Tensor:
+    """The exact int32 sums ``xq[r] @ wq[e(r)]`` ``[T, N]`` of the blocked
+    formulation (tail tiles zero): in int64 on the CPU, in float64 on CUDA
+    (cuBLAS has no integer batched product; every partial sum is an integer
+    below 127^2 K < 2^53, so float64 is exact)."""
+    T, K = xq.shape
+    n_t = T // block_t
+    te = tile_experts(group_sizes, n_t, block_t)
+    live = (torch.arange(n_t, device=xq.device) * block_t
+            < group_sizes.sum().to(xq.device))
+    wide = torch.int64 if xq.device.type == "cpu" else torch.float64
+    yt = torch.bmm(xq.reshape(n_t, block_t, K).to(wide), wq[te].to(wide))
+    yt = torch.where(live[:, None, None], yt, torch.zeros((), dtype=wide, device=xq.device))
+    return yt.reshape(T, wq.shape[2]).to(torch.int32)
+
+
+def _int8_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                   group_sizes: torch.Tensor, block_t: int, dtype: torch.dtype):
+    """``(float(acc) * sx) * sw[e(r)]`` in fp32, then one cast to ``dtype``."""
+    T = acc.shape[0]
+    te = tile_experts(group_sizes, T // block_t, block_t)
+    sw_rows = sw[:, 0, :][te].repeat_interleave(block_t, dim=0)  # [T, N]
+    return ((acc.float() * sx) * sw_rows).to(dtype)
+
+
+def gmm_int8_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                   block_t: int) -> torch.Tensor:
+    """JAX's ``_gmm_int8_impl`` in plain PyTorch: quantize, contract exactly,
+    scale back, cast to x's dtype; tail tiles zero."""
+    T = x.shape[0]
+    if T % block_t:
+        raise ValueError(f"gmm int8 path needs T ({T}) % block_t ({block_t}) "
+                         "== 0; the moe dispatcher pads for this")
+    xq, sx = _quantize_rows_int8(x)
+    wq, sw = _quantize_cols_int8(w)
+    acc = gmm_int8_products(xq, wq, group_sizes, block_t)
+    return _int8_epilogue(acc, sx, sw, group_sizes, block_t, x.dtype)
+
+
+def gmm_int8_bm(block_t: int) -> int:
+    """The ``gmm_int8`` kernel's CTA row tile: ``min(block_t, 64)``; block_t
+    must be a multiple of 16 (a CTA's m16 tiles stay inside one expert)."""
+    if block_t % 16:
+        raise ValueError(f"the gmm_int8 kernel needs block_t % 16 == 0, got {block_t}")
+    return min(block_t, 64)
+
+
+def gmm_int8_kernel(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+                    sw: torch.Tensor, group_sizes: torch.Tensor, block_t: int,
+                    dtype: torch.dtype, with_products: bool = False):
+    """One launch of the ``gmm_int8`` kernel on quantized operands (``xq``
+    int8 ``[T, K]``, ``sx`` fp32 ``[T, 1]``, ``wq`` int8 ``[E, K, N]``, ``sw``
+    fp32 ``[E, 1, N]``): the output ``[T, N]`` in ``dtype`` (fp32 or bf16),
+    and with ``with_products`` also the kernel's int32 sums. Counts the
+    launch in ``gmm_int8.launches``."""
+    if xq.device.type != "cuda":
+        raise ValueError(f"the gmm_int8 kernel takes CUDA tensors, got {xq.device}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or group_sizes.dtype != torch.int32:
+        raise TypeError("gmm_int8 takes int8 xq and wq and int32 group_sizes")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"gmm_int8 writes fp32 or bf16, not {dtype}")
+    T, K = xq.shape
+    E, _, N = wq.shape
+    if T % block_t or group_sizes.shape != (E,):
+        raise ValueError(f"gmm_int8 shapes {tuple(xq.shape)}, {tuple(wq.shape)}, "
+                         f"{tuple(group_sizes.shape)}: T must be a multiple of block_t "
+                         f"({block_t}; the moe dispatcher pads for this)")
+    bm = gmm_int8_bm(block_t)
+    pad = -K % 64  # the kernel takes K in 64-byte slices; zeros add nothing
+    wqt = wq.transpose(1, 2)
+    if pad:
+        xq, wqt = F.pad(xq, (0, pad)), F.pad(wqt, (0, pad))
+    xq, wqt = xq.contiguous(), wqt.contiguous()
+    sx = sx.reshape(T).float().contiguous()
+    sw = sw.reshape(E, N).float().contiguous()
+    out = torch.empty((T, N), dtype=dtype, device=xq.device)
+    acc = torch.empty((T, N), dtype=torch.int32, device=xq.device) if with_products else None
+    err = _library().gmm_int8(
+        xq.data_ptr(), wqt.data_ptr(), group_sizes.data_ptr(), sx.data_ptr(),
+        sw.data_ptr(), out.data_ptr(), None if acc is None else acc.data_ptr(),
+        T, K + pad, N, E, bm, _DTYPE_CODES[dtype], _stream(xq))
+    if err != 0:
+        raise RuntimeError(f"gmm_int8 kernel launch failed with CUDA error {err}")
+    gmm_int8.launches += 1
+    return (out, acc) if with_products else out
+
+
+class _GroupedMatmulInt8(torch.autograd.Function):
+    """JAX's ``_gmm_int8`` custom VJP. Forward: ``_gmm_int8_impl`` (the
+    ``gmm_int8`` kernel on CUDA, :func:`gmm_int8_plain` on the CPU).
+    Backward, straight through in full precision: dX = ``gmm(dy, w^T)`` on
+    the gmm kernels in dy's dtype; dW = each row tile's ``x^T dy`` summed in
+    fp32 over the expert's tiles, zero for an empty expert, then cast to
+    w's dtype, as JAX's ``_gmm_int8_bwd`` does with its "blocked" backend.
+    The bf16 tgmm rounds every tile's partial to bf16 (as the Pallas
+    kernel does), so dW runs the fp32 tgmm ("f32") on fp32 copies of x and
+    dy: a bf16 value is exact in fp32, so are the products of two, and the
+    sums are fp32 sums in tile order."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, block_t):
+        ctx.save_for_backward(x, w, group_sizes)
+        ctx.block_t = block_t
+        if x.device.type == "cpu":
+            return gmm_int8_plain(x, w, group_sizes, block_t)
+        xq, sx = _quantize_rows_int8(x)
+        wq, sw = _quantize_cols_int8(w)
+        return gmm_int8_kernel(xq, sx, wq, sw, group_sizes, block_t, x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm_forward(dy, w.contiguous(), group_sizes, ctx.block_t,
+                              w_trans=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = tgmm(x.float().contiguous(), dy.float(), group_sizes, w.shape[0],
+                      ctx.block_t).to(w.dtype)
+        return dx, dw, None, None
+
+
+def gmm_int8(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+             block_t: int) -> torch.Tensor:
+    """``gmm`` under ``matmul_precision: int8``, differentiable
+    (:class:`_GroupedMatmulInt8`). ``gmm_int8.launches`` counts the kernel's
+    launches."""
+    return _GroupedMatmulInt8.apply(x, w, group_sizes, block_t)
+
+
 class _GroupedMatmul(torch.autograd.Function):
     """``gmm`` with the JAX package's custom VJP (``_gmm_fwd`` /
     ``_gmm_bwd``): dX = ``gmm(dy, w^T)``, dW = :func:`tgmm`, each cast
@@ -402,24 +573,22 @@ def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     ``x`` and ``w``.
 
     ``precision`` (model.matmul_precision): "bf16" casts both operands (the
-    result is bf16); "int8" is not ported and raises. CPU tensors run the
+    result is bf16); "int8" runs :func:`gmm_int8`. CPU tensors run the
     plain versions; CUDA tensors launch the kernels on the current stream
     (``gmm.launches`` counts forward and dX launches, ``tgmm.launches``
-    the dW ones)."""
+    the dW ones, ``gmm_int8.launches`` the int8 forwards)."""
     precision = check_matmul_precision(precision)
     if precision == "int8":
-        raise NotImplementedError(
-            "matmul_precision int8 in the grouped GEMM is not ported (ROADMAP "
-            "queue 1 item 8: speculation and quantization)")
+        return gmm_int8(x, w, group_sizes, block_t)
     if precision == "bf16":
         x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
     return _GroupedMatmul.apply(x, w, group_sizes, block_t)
 
 
 def reset_launches() -> None:
-    """Set the gmm and tgmm launch counts (totals, per variant, and the
-    gmm's per shape) to 0."""
-    gmm.launches = tgmm.launches = 0
+    """Set the gmm, tgmm and gmm_int8 launch counts (totals, per variant, and
+    the gmm's per shape) to 0."""
+    gmm.launches = tgmm.launches = gmm_int8.launches = 0
     gmm.launches_by_variant = dict.fromkeys(GMM_VARIANTS, 0)
     gmm.launches_by_shape = {}
     tgmm.launches_by_variant = dict.fromkeys(TGMM_VARIANTS, 0)

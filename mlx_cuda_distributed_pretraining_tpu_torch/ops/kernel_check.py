@@ -3,9 +3,11 @@ and planted faults that the check must catch.
 
 ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py`` both use
 :func:`compare` for every kernel (gmm and the three flash kernels; tgmm
-through :func:`compare_experts`, expert by expert), so the gates cannot
-drift apart; each must reject its planted fault (:func:`planted_fault`,
-:func:`gmm_skipping_a_tile`, :func:`tgmm_skipping_a_tile`).
+through :func:`compare_experts`, expert by expert; ``gmm_int8`` through
+:func:`compare_int8`, its int32 sums bitwise), so the gates cannot drift
+apart; each must reject its planted fault (:func:`planted_fault`,
+:func:`gmm_skipping_a_tile`, :func:`tgmm_skipping_a_tile`,
+:func:`gmm_int8_skipping_a_tile`).
 
 The limits scale with the typical value of the output (its RMS), not its
 largest: in a causal row the flash output shrinks as ``sqrt(e / n)`` over
@@ -171,3 +173,42 @@ def tgmm_skipping_a_tile(x, dy, group_sizes, num_experts: int, block_t: int):
     e = int(torch.nonzero(sizes).max())
     sizes[e] -= block_t
     return gm.tgmm(x, dy, sizes, num_experts, block_t)
+
+
+def int8_operands(x, w):
+    """``gmm_int8``'s quantized operands of ``x [T, K]`` and ``w [E, K, N]``:
+    ``(xq, sx, wq, sw)``."""
+    xq, sx = gm._quantize_rows_int8(x)
+    wq, sw = gm._quantize_cols_int8(w)
+    return xq, sx, wq, sw
+
+
+def gmm_int8_plain_outputs(xq, sx, wq, sw, group_sizes, block_t: int, dtype):
+    """The plain version's int32 sums and output for quantized operands."""
+    acc = gm.gmm_int8_products(xq, wq, group_sizes, block_t)
+    return acc, gm._int8_epilogue(acc, sx, sw, group_sizes, block_t, dtype)
+
+
+def compare_int8(acc, out, ref_acc, ref_out) -> Dict[str, float]:
+    """``gmm_int8``'s gate: its int32 sums equal the plain version's bit for
+    bit (integer sums are exact), and its output passes :func:`compare`
+    against the plain epilogue (the same fp32 products and one rounding, so
+    a correct kernel matches it exactly)."""
+    check = compare(out, ref_out)
+    exact = bool(torch.equal(acc, ref_acc))
+    check.update(int32_equal=exact, ok=check["ok"] and exact)
+    return check
+
+
+def gmm_int8_skipping_a_tile(xq, sx, wq, sw, group_sizes, block_t: int, dtype):
+    """The ``gmm_int8`` kernel with the last live row tile left out (its
+    rows zeroed, as a kernel that skipped the tile would leave them): the
+    kernel runs unchanged on the last non-empty group shortened by one
+    block_t. Returns ``(int32 sums, output)``; :func:`compare_int8` must
+    reject them."""
+    sizes = group_sizes.clone()
+    e = int(torch.nonzero(sizes).max())
+    sizes[e] -= block_t
+    out, acc = gm.gmm_int8_kernel(xq, sx, wq, sw, sizes, block_t, dtype,
+                                  with_products=True)
+    return acc, out

@@ -1,14 +1,18 @@
-"""Continuous-batching inference engine over a paged KV pool.
+"""Continuous-batching inference engine over a paged or slotted KV pool.
 
-- ``kv_pool``      — the paged arena, block tables and refcounts;
+- ``kv_pool``      — the slotted pool, and the paged arena with its block
+  tables, refcounts and KV export/adopt;
 - ``prefix_cache`` — content-hash keys for full KV blocks + the LRU list;
-- ``batch_step``   — the paged prefill and decode steps and sampling;
+- ``batch_step``   — the prefill and decode steps of both pools, sampling
+  and speculative verification;
+- ``kv_transfer``  — the GKV1 payload that moves KV blocks between engines;
+- ``faults``       — the serving fault points;
 - ``scheduler``    — admission queue, deadlines, preemption;
 - ``engine``       — the engine thread tying them together.
 """
 
 from .engine import BatchEngine, EngineConfig, QueueFullError
-from .kv_pool import PagedKVPool
+from .kv_pool import KVExport, PagedKVPool, SlotKVPool
 from .prefix_cache import PrefixCache
 from .scheduler import AdmissionRefusedError, Request, Scheduler
 
@@ -16,9 +20,11 @@ __all__ = [
     "AdmissionRefusedError",
     "BatchEngine",
     "EngineConfig",
+    "KVExport",
     "PagedKVPool",
     "PrefixCache",
     "QueueFullError",
     "Request",
     "Scheduler",
+    "SlotKVPool",
 ]

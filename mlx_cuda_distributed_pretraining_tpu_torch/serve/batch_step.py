@@ -1,19 +1,35 @@
-"""Paged prefill and decode steps for the continuous-batching engine.
+"""Prefill and decode steps for the continuous-batching engine, over either
+pool (``serve/kv_pool.py``).
 
-Every KV read and write goes through block tables into the paged arena
+Slotted: :func:`decode_step` advances every slot one token, each row at its
+own position (masked rows write the reserved last position of their slot),
+and :func:`prefill_step` writes one chunk of one prompt into its slot.
+
+Paged: every KV read and write goes through block tables into the arena
 (``models/llama.init_paged_cache``): position ``p`` of a sequence lives at
 ``(table[p // block_size], p % block_size)``. Masked rows and positions past
 a table's extent write into the shared junk block 0.
+:func:`paged_decode_step` also verifies speculative drafts: each row carries
+``[last token, d1..dk]`` (S = k + 1 positions), one forward scores them all,
+and :func:`verify_rows` gives the greedy and the sampled acceptance outputs;
+the engine commits only the accepted prefix by advancing the row's length.
+The drafts' K/V lands in the row's own blocks past its length, or the junk
+block past the table's extent, and is overwritten before it is attendable.
+
+An int8 cache stores ``llama._quantize_kv``'s values and scales; a step
+writes them, then dequantizes only the window it gathers.
 
 Differences from the JAX package's ``serve/batch_step.py``, which compiles
 each step once per shape bucket and donates the cache:
 
-- the steps run eagerly, and the arena is updated IN PLACE (``index_put_``
+- the steps run eagerly, and the cache is updated IN PLACE (``index_put_``
   without accumulation; colliding junk writes are harmless by construction).
-  ``attend_len`` buckets still bound how much of each table is gathered;
-- decode verifies no speculative drafts (``draft_len == 0`` only);
+  ``attend_len`` buckets still bound how much of each row is read;
 - sampling draws from per-request ``torch.Generator``s, so sampled tokens
-  differ from JAX's; greedy tokens are comparable.
+  (and sampled speculation's acceptances) differ from JAX's; greedy tokens
+  are comparable;
+- the steps return logits and the host-side helpers (:func:`sample_rows`,
+  :func:`verify_rows`) sample from them, where JAX samples inside the step.
 
 Numerics follow the JAX steps op for op: fp32 serving compute, RMSNorm and
 RoPE in fp32, the same positional validity masks, fp32 logits.
@@ -76,17 +92,37 @@ def _paged_write(layer_cache: LayerCache, k: torch.Tensor, v: torch.Tensor,
     block 0, where the last of the colliding writes wins (never read)."""
     B, S, H, D = k.shape
     bi, oi = blocks.reshape(-1), offs.reshape(-1)
-    dt = layer_cache["k"].dtype
-    layer_cache["k"][bi, oi] = k.reshape(B * S, H, D).to(dt)
-    layer_cache["v"][bi, oi] = v.reshape(B * S, H, D).to(dt)
+    for name, value in _stored(layer_cache, k, v).items():
+        buf = layer_cache[name]
+        buf[bi, oi] = value.reshape((B * S,) + buf.shape[2:]).to(buf.dtype)
+
+
+def _stored(layer_cache: LayerCache, k: torch.Tensor,
+            v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """What a cache layer stores for K/V ``[B, S, H, D]``: the tensors
+    themselves, or for the int8 quartet ``_quantize_kv``'s values and
+    scales."""
+    if "k_q" in layer_cache:
+        kq, ks = llama._quantize_kv(k)
+        vq, vs = llama._quantize_kv(v)
+        return {"k_q": kq, "k_s": ks, "v_q": vq, "v_s": vs}
+    return {"k": k, "v": v}
+
+
+def _read(layer_cache: LayerCache, index) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V at ``index`` of a cache layer; an int8 layer dequantizes (fp32)
+    only what it reads."""
+    if "k_q" in layer_cache:
+        return (layer_cache["k_q"][index].float() * layer_cache["k_s"][index],
+                layer_cache["v_q"][index].float() * layer_cache["v_s"][index])
+    return layer_cache["k"][index], layer_cache["v"][index]
 
 
 def _paged_gather(layer_cache: LayerCache, tables: torch.Tensor,
                   nb: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each sequence's first ``nb`` blocks as contiguous K/V
     ``[B, nb * block_size, H, D]``."""
-    idx = tables[:, :nb]
-    keys, values = layer_cache["k"][idx], layer_cache["v"][idx]
+    keys, values = _read(layer_cache, tables[:, :nb])
     B, _, T, H, D = keys.shape
     return keys.reshape(B, nb * T, H, D), values.reshape(B, nb * T, H, D)
 
@@ -102,16 +138,14 @@ def _block_coords(positions: torch.Tensor, tables: torch.Tensor,
     return torch.where(safe, blocks, 0), pc % block_size
 
 
-def _layers(params, cache: List[LayerCache], x: torch.Tensor,
-            positions: torch.Tensor, tables: torch.Tensor, mask: torch.Tensor,
-            args: llama.LlamaArgs, attend_len: int, block_size: int) -> torch.Tensor:
+def _stack(params, cache: List[LayerCache], x: torch.Tensor,
+           positions: torch.Tensor, mask: torch.Tensor, args: llama.LlamaArgs,
+           write, read) -> torch.Tensor:
     """Run every decoder layer over ``x [B, S, D]`` at ``positions [B, S]``:
-    write this step's K/V through ``tables [B, W]``, attend over the first
-    ``attend_len`` positions under ``mask``."""
+    ``write(layer_cache, k, v)`` stores this step's K/V, ``read(layer_cache)``
+    gives the K/V to attend over under ``mask``."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = args.num_heads, args.num_kv_heads, args.head_dim
-    blocks, offs = _block_coords(positions, tables, block_size)
-    nb = attend_len // block_size
     for p, layer_cache in zip(params["layers"], cache):
         h = llama.rms_norm(x, p["attention_norm"]["weight"], args.rms_norm_eps)
         pa = p["attention"]
@@ -120,13 +154,26 @@ def _layers(params, cache: List[LayerCache], x: torch.Tensor,
         v = llama._linear(h, pa["wv"]).reshape(B, S, Hkv, Dh)
         q = _rope_rows(q, positions, args)
         k = _rope_rows(k, positions, args)
-        _paged_write(layer_cache, k, v, blocks, offs)
-        ck, cv = _paged_gather(layer_cache, tables, nb)
+        write(layer_cache, k, v)
+        ck, cv = read(layer_cache)
         out = reference_attention(q, ck, cv, explicit_mask=mask)
         x = x + llama._linear(out.reshape(B, S, Hq * Dh), pa["wo"])
         x = x + _ffn(p, llama.rms_norm(x, p["ffn_norm"]["weight"],
                                        args.rms_norm_eps), args)
     return llama.rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
+
+
+def _layers(params, cache: List[LayerCache], x: torch.Tensor,
+            positions: torch.Tensor, tables: torch.Tensor, mask: torch.Tensor,
+            args: llama.LlamaArgs, attend_len: int, block_size: int) -> torch.Tensor:
+    """:func:`_stack` through ``tables [B, W]`` (the paged pool): writes at
+    ``positions``, reads the first ``attend_len`` positions of each row's
+    table."""
+    blocks, offs = _block_coords(positions, tables, block_size)
+    nb = attend_len // block_size
+    return _stack(params, cache, x, positions, mask, args,
+                  lambda c, k, v: _paged_write(c, k, v, blocks, offs),
+                  lambda c: _paged_gather(c, tables, nb))
 
 
 def _check_attend(attend_len: int, block_size: int) -> None:
@@ -135,25 +182,98 @@ def _check_attend(attend_len: int, block_size: int) -> None:
                          f"block_size {block_size}")
 
 
+# -- the slotted pool -------------------------------------------------------------
+def _write_kv_rows(layer_cache: LayerCache, k: torch.Tensor, v: torch.Tensor,
+                   pos: torch.Tensor) -> None:
+    """Write decode K/V ``[B, 1, H, D]`` at each row's own position, in
+    place (JAX's ``_write_kv_rows``)."""
+    rows = torch.arange(k.shape[0], device=k.device)
+    for name, value in _stored(layer_cache, k, v).items():
+        buf = layer_cache[name]
+        buf[rows, pos] = value[:, 0].to(buf.dtype)
+
+
+def _write_kv_slot(layer_cache: LayerCache, k: torch.Tensor, v: torch.Tensor,
+                   slot: int, pos: int) -> None:
+    """Write a prefill chunk's K/V ``[1, C, H, D]`` into ``slot`` at ``pos``,
+    in place (JAX's ``_write_kv_slot``)."""
+    C = k.shape[1]
+    for name, value in _stored(layer_cache, k, v).items():
+        buf = layer_cache[name]
+        if pos + C > buf.shape[1]:
+            raise ValueError(f"prefill write at {pos} of {C} positions overruns "
+                             f"the slot's {buf.shape[1]}")
+        buf[slot, pos:pos + C] = value[0].to(buf.dtype)
+
+
+@torch.no_grad()
+def decode_step(params, cache: List[LayerCache], tokens: torch.Tensor,
+                pos: torch.Tensor, args: llama.LlamaArgs,
+                attend_len: int) -> torch.Tensor:
+    """Advance every slot one token: ``tokens [B]`` (0 on masked rows),
+    ``pos [B]`` each row's write position (``max_len - 1``, the reserved junk
+    position, on masked rows). Attends the first ``attend_len`` positions of
+    each slot; returns fp32 logits ``[B, V]``."""
+    positions = pos[:, None]  # [B, 1]
+    x = params["tok_embeddings"]["weight"][tokens][:, None, :]  # [B, 1, D]
+    k_idx = torch.arange(attend_len, device=x.device)
+    mask = k_idx[None, None, :] <= positions[:, :, None]  # [B, 1, L]
+    x = _stack(params, cache, x, positions, mask[:, None, None], args,
+               lambda c, k, v: _write_kv_rows(c, k, v, pos),
+               lambda c: _read(c, (slice(None), slice(0, attend_len))))
+    return _project_logits(params, x, args)[:, 0, :]
+
+
+@torch.no_grad()
+def prefill_step(params, cache: List[LayerCache], tokens: torch.Tensor, slot: int,
+                 pos: int, last_idx: int, args: llama.LlamaArgs, attend_len: int,
+                 with_logits: bool) -> Optional[torch.Tensor]:
+    """Write one chunk ``tokens [C]`` of one prompt into ``slot`` at ``pos``;
+    returns the logits ``[1, V]`` at ``last_idx`` (the true last prompt
+    token) of the final chunk, else None. Pad junk past the prompt is
+    overwritten by decode before it is attendable."""
+    chunk = tokens.shape[0]
+    x = params["tok_embeddings"]["weight"][tokens][None]  # [1, C, D]
+    positions = (torch.arange(chunk, device=x.device) + pos)[None]  # [1, C]
+    k_idx = torch.arange(attend_len, device=x.device)
+    mask = (k_idx[None, :] <= positions[0][:, None]) \
+        & (k_idx[None, :] < pos + chunk)  # [C, L]
+    x = _stack(params, cache, x, positions, mask, args,
+               lambda c, k, v: _write_kv_slot(c, k, v, slot, pos),
+               lambda c: _read(c, (slice(slot, slot + 1), slice(0, attend_len))))
+    if not with_logits:
+        return None
+    return _project_logits(params, x[:, last_idx:last_idx + 1], args)[:, 0, :]
+
+
+# -- the paged pool -----------------------------------------------------------------
 @torch.no_grad()
 def paged_decode_step(params, cache: List[LayerCache], tokens: torch.Tensor,
                       pos: torch.Tensor, tables: torch.Tensor,
                       args: llama.LlamaArgs, attend_len: int,
                       block_size: int) -> torch.Tensor:
-    """Advance every pool row one token: ``tokens [B]`` (the last emitted,
-    not yet written token; 0 on masked rows), ``pos [B]`` (its write
-    position; 0 on masked rows, whose table rows map to the junk block),
-    ``tables [B, W]``. Writes the arena in place and returns fp32 logits
-    ``[B, V]``."""
+    """Advance every pool row: ``tokens [B, S]`` per row the last emitted
+    (not yet written) token followed by its ``S - 1`` speculative drafts
+    (zeros on masked rows), or ``[B]`` for plain decode; ``pos [B]`` each
+    row's first write position (its written length; 0 on masked rows, whose
+    table rows map to the junk block); ``tables [B, W]``. Position ``s`` of
+    a row attends everything at or before ``pos + s``: its own K/V is
+    written first, so a draft sees the drafts before it. Writes the arena
+    in place and returns fp32 logits ``[B, S, V]`` (``[B, V]`` for
+    ``tokens [B]``)."""
     _check_attend(attend_len, block_size)
-    positions = pos[:, None]  # [B, 1]
-    x = params["tok_embeddings"]["weight"][tokens][:, None, :]  # [B, 1, D]
+    plain = tokens.dim() == 1
+    if plain:
+        tokens = tokens[:, None]
+    S = tokens.shape[1]
+    positions = pos[:, None] + torch.arange(S, device=pos.device)[None, :]  # [B, S]
+    x = params["tok_embeddings"]["weight"][tokens]  # [B, S, D]
     k_idx = torch.arange(attend_len, device=x.device)
-    # keys at or before each row's own position (its KV is written first)
-    mask = k_idx[None, None, :] <= positions[:, :, None]  # [B, 1, L]
+    mask = k_idx[None, None, :] <= positions[:, :, None]  # [B, S, L]
     x = _layers(params, cache, x, positions, tables, mask[:, None, None],
                 args, attend_len, block_size)
-    return _project_logits(params, x, args)[:, 0, :]
+    logits = _project_logits(params, x, args)
+    return logits[:, 0, :] if plain else logits
 
 
 @torch.no_grad()
@@ -197,6 +317,45 @@ def sample_rows(logits: torch.Tensor, temps: Sequence[float],
             tok[b] = draw[0]
             lp[b] = torch.log(probs[draw[0]] + 1e-30)
     return tok.tolist(), lp.tolist()
+
+
+@torch.no_grad()
+def verify_rows(logits: torch.Tensor, tokens: torch.Tensor, temps: Sequence[float],
+                generators: Sequence[Optional[torch.Generator]], rows: Sequence[int]):
+    """The verify outputs of a speculative decode step (JAX's
+    ``paged_decode_step`` returns them from inside the step), for ``logits
+    [B, S, V]`` over ``tokens [B, S]`` (last token + ``k = S - 1`` drafts):
+
+    - greedy: ``preds [B, S]`` = argmax at every position and ``lp_preds``
+      their raw-logits logprobs (``infer/generate._verify_step``'s contract);
+    - sampled, for each of ``rows`` whose ``temps[b] > 0``, the point-mass
+      acceptance of ``infer/generate._verify_step_sampled`` at the row's own
+      temperature with its own generator: ``{b: (accept [k], lp of the
+      drafts [k], alts [k], lp of the alts [k], bonus, lp of the bonus)}``.
+
+    Everything comes back as host lists in one transfer each."""
+    from ..infer.generate import _spec_accept_one
+    from ..infer.samplers import categorical
+
+    def gather(rows, idx):
+        return rows.gather(-1, idx[..., None])[..., 0]
+
+    preds = torch.argmax(logits, dim=-1)
+    lp_preds = gather(torch.log_softmax(logits, dim=-1), preds)
+    k = tokens.shape[1] - 1
+    sampled = {}
+    for b in rows:
+        t = temps[b]
+        if t <= 0.0:
+            continue
+        probs = torch.softmax(logits[b] / max(t, 1e-6), dim=-1)  # [S, V]
+        lp = torch.log(probs + 1e-30)
+        drafts = tokens[b, 1:]
+        accept, alts = _spec_accept_one(generators[b], probs[:k], drafts)
+        bonus = categorical(generators[b], lp[k:k + 1])[0]
+        sampled[b] = (accept.tolist(), gather(lp[:k], drafts).tolist(), alts.tolist(),
+                      gather(lp[:k], alts).tolist(), int(bonus), float(lp[k, bonus]))
+    return preds.tolist(), lp_preds.tolist(), sampled
 
 
 @torch.no_grad()

@@ -143,6 +143,15 @@ class PrefixCache:
         self._key_of[block] = key
         return True
 
+    def key_of(self, block: int) -> Optional[bytes]:
+        return self._key_of.get(block)
+
+    def lookup(self, key: bytes) -> Optional[int]:
+        """Physical block published under ``key`` (None if unpublished): no
+        LRU touch and no counters, so resolving a chain for a KV export
+        leaves the eviction order alone."""
+        return self._by_key.get(key)
+
     # -- refcount-edge notifications (called by the pool) --------------------
     def retire(self, block: int) -> bool:
         """Refcount hit 0: park a registered block on the LRU list (True)
@@ -167,6 +176,13 @@ class PrefixCache:
         del self._by_key[key]
         self.evictions += 1
         return block
+
+    def drop(self, block: int) -> None:
+        """Unpublish a block without counting an eviction (quarantine)."""
+        key = self._key_of.pop(block, None)
+        if key is not None:
+            self._by_key.pop(key, None)
+        self._lru.pop(block, None)
 
     def clear(self) -> None:
         self._by_key.clear()

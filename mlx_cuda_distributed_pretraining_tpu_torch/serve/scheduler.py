@@ -93,6 +93,14 @@ class Request:
             self.stream_q.put(None)  # end of stream
         self._done.set()
 
+    @property
+    def position(self) -> int:
+        """Next cache write position: the tokens durably written for this
+        request (prompt progress, then prompt + generated-and-fed)."""
+        if self.state == PREFILL:
+            return self.prefilled
+        return len(self.prompt_ids) + max(len(self.tokens) - 1, 0)
+
     def prefill_source(self) -> List[int]:
         """Tokens to (re)write during prefill: the prompt, plus — after a
         paged-pool preemption released this request's blocks mid-decode —
@@ -206,6 +214,10 @@ class Scheduler:
                     "queue_depth": len(self.queue)}
 
     # -- leave ---------------------------------------------------------------
+    def queue_depth(self) -> int:
+        with self.lock:
+            return len(self.queue)
+
     def expire(self, pool, now: Optional[float] = None) -> List[Request]:
         """Evict queued and running requests whose deadline has passed.
         Running requests leave the batch mid-flight (slot freed this

@@ -51,7 +51,9 @@ JAX trainer: an unknown name raises, and ``llama_standard`` /
 
 Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
 ``model_parallel`` that needs more than one device (expert, data, tensor,
-sequence and pipeline parallelism), and int8 grouped GEMMs. The telemetry
+sequence and pipeline parallelism). ``model.matmul_precision: int8``
+trains: the MoE experts on the ``gmm_int8`` kernel, attention on int8-gridded
+q/k/v over the flash kernels, both with a straight-through backward. The telemetry
 keys (``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
 ``events``) and the log line's goodput fields (item 9) are read by
 nothing here: they change no number the trainer computes, writes or
@@ -90,7 +92,6 @@ from ..models import llama
 from ..models.llama import LlamaArgs
 from ..models.registry import resolve_architecture
 from ..obs.flops import mfu as compute_mfu
-from ..ops.flash_attention import check_matmul_precision
 from ..obs.flops import model_flops_per_token, peak_flops_per_chip
 from ..obs.logger import Logger
 from ..optim.factory import build_optimizer
@@ -177,11 +178,6 @@ class Trainer:
         args = LlamaArgs.from_config(cfg.model, self._vocab_size())
         if self.arch.force_attention:
             args = dataclasses.replace(args, attention_type=self.arch.force_attention)
-        if args.is_moe and args.moe_impl == "grouped" \
-                and check_matmul_precision(args.matmul_precision) == "int8":
-            raise NotImplementedError(
-                "matmul_precision int8 in the grouped GEMM is not ported "
-                "(ROADMAP queue 1 item 8: speculation and quantization)")
         self.model_args = args
         params = self.arch.init_params(
             args, torch.Generator().manual_seed(cfg.system.seed), device=self.device)
@@ -582,13 +578,19 @@ class Trainer:
 
 
 # -- loading a run ------------------------------------------------------------------
-def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda"):
+def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda",
+                 weight_dtype: str = "fp"):
     """Load a finished run for inference: ``(params, args, tokenizer,
     config)`` with params on ``device``. The step is the newest one whose
     manifest verifies (a read-only scan: a torn checkpoint is skipped, not
     quarantined, so a trainer on the same run is left alone); a run from
-    before manifests serves its newest model file, as in JAX."""
+    before manifests serves its newest model file, as in JAX.
+    ``weight_dtype`` "int8"/"int4" quantizes the linear weights on the host
+    as they load (``models/quantize.py``; the fp file stays canonical), so
+    no fp copy of them reaches the device."""
+    from ..checkpoint.manager import _quantize_flat
     from ..convert import params_from_flat
+    from ..models.quantize import check_weight_dtype
 
     run_dir = (run_name_or_dir if os.path.isdir(run_name_or_dir)
                else os.path.join(runs_root, run_name_or_dir))
@@ -601,6 +603,9 @@ def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda"):
     if tag is None:
         raise FileNotFoundError(f"no verified checkpoints in {run_dir}")
     arrays, _ = load_safetensors(ckpts.paths_for_step(tag)[0])
+    wd = check_weight_dtype(weight_dtype)
+    if wd != "fp":
+        arrays = _quantize_flat(arrays, wd)
     return params_from_flat(arrays, device), args, tok, cfg
 
 

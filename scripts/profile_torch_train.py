@@ -2,8 +2,8 @@
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train.py
-        [--config 40m-adamw|40m-adamw-fp32|moe-8x40m|1b-singlechip|100m-muon|1m-adamw|1m-flex|
-                  80m-fineweb]
+        [--config 40m-adamw|40m-adamw-fp32|moe-8x40m|moe-8x40m-int8|1b-singlechip|100m-muon|
+                  1m-adamw|1m-flex|80m-fineweb]
         [--steps 10] [--per-leaf-ns] [--root DIR] [--out profile.json]
 
 Builds configs/model-config-40m-adamw.yaml (the default),
@@ -13,7 +13,8 @@ configs/model-config-1m-flex.yaml or configs/model-config-80m-fineweb.yaml at fu
 heads of 64, 1024 positions, batch 32, bf16 compute over fp32 masters,
 flash attention, AdamW with clip 1.0; 40m-adamw-fp32 the same with
 ``system.mixed_precision`` false (fp32 compute, the fp32 flash kernels); the MoE config's 8 experts top-2
-with its router losses, on one GPU, without its expert-parallel mesh. 1B:
+with its router losses, on one GPU, without its expert-parallel mesh
+(moe-8x40m-int8: the same with ``model.matmul_precision: int8``). 1B:
 hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, 2048
 positions, batch 8, flash attention, remat "full" on the first half of the
 layers (the default ``gradient_checkpointing_ratio`` 0.5), Adafactor with
@@ -186,6 +187,8 @@ CONFIG_80M_FINEWEB = {
     "system": {"seed": 42, "mixed_precision": True},
 }
 CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B,
+           "moe-8x40m-int8": {**CONFIG_MOE, "name": "moe-8x40m-int8", "model": {
+               **CONFIG_MOE["model"], "matmul_precision": "int8"}},
            "40m-adamw-fp32": {**CONFIG_40M, "name": "40m-adamw-fp32",
                               "system": {"seed": 42, "mixed_precision": False}},
            "100m-muon": CONFIG_100M_MUON, "1m-adamw": CONFIG_1M_ADAMW,
@@ -345,6 +348,7 @@ def main(argv=None) -> int:
             n: getattr(fa, n).launches_by_variant for n in fa.FLASH_KERNELS},
         "gmm_launches_per_step": gm.gmm.launches / a.steps,
         "tgmm_launches_per_step": gm.tgmm.launches / a.steps,
+        "gmm_int8_launches_per_step": gm.gmm_int8.launches / a.steps,
         "gmm_launches_by_variant": gm.gmm.launches_by_variant,
         "tgmm_launches_by_variant": gm.tgmm.launches_by_variant,
         "families_ms_per_step": {

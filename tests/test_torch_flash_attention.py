@@ -146,11 +146,13 @@ def test_reference_attention_with_mask_mod_matches_jax(mask_type):
 
 
 def test_unported_options_raise():
-    # band, the named mask mods and the flex score mods are ported
-    # (tests/test_torch_flex.py); int8, a mask mod without a plan, a plan
-    # other than the named mask and a score mod without a kernel code raise
+    # band, the named mask mods, the flex score mods and int8 are ported
+    # (tests/test_torch_flex.py, tests/test_torch_int8_train.py); a mask mod
+    # without a plan, a plan other than the named mask and a score mod
+    # without a kernel code raise
     q, k, v = (torch.zeros(1, 8, 2, 64) for _ in range(3))
-    for kw in ({"precision": "int8"}, {"mask_fn": lambda r, c: r >= c},
+    assert torch.isfinite(tf.flash_attention(q, k, v, precision="int8")).all()
+    for kw in ({"mask_fn": lambda r, c: r >= c},
                {"mask_fn": TM.sliding_window(4)},
                {"score_fn": lambda s, r, c, h: s}):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):

@@ -400,14 +400,17 @@ def test_speculative_stop_tokens_and_stats(models):
     assert stats["verify_calls"] == jstats["verify_calls"]
 
 
-def test_weight_quant_refuses_naming_its_roadmap_item():
-    # models/quantize.py (the JAX int8 weight-quant cases) is ROADMAP queue
-    # 1 item 8; the CLI refuses before it loads anything
+def test_weight_quant_refuses_naming_its_roadmap_item(models):
+    # --weight-quant is ported (models/quantize.py; tests/test_torch_quantize.py
+    # serves a run with it): the CLI now gets as far as loading the run, and
+    # quantize_params_int8 is JAX's int8 quantize_weights
     from mlx_cuda_distributed_pretraining_tpu_torch.infer import cli
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import quantize as tq
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(FileNotFoundError):
         cli.main(["--run", "no-such-run", "--weight-quant", "--device", "cpu"])
-    assert not hasattr(tl, "quantize_params_int8")
+    tparams = next(iter(models.values()))[3]
+    assert tq.weight_dtype_of(tl.quantize_params_int8(tparams)) == "int8"
 
 
 def test_spec_accept_preserves_distribution():

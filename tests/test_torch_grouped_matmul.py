@@ -243,9 +243,16 @@ def test_gmm_bf16_precision_matches_jax():
 
 
 def test_gmm_int8_precision_is_refused():
+    # matmul_precision int8 is ported (tests/test_torch_int8_train.py holds
+    # it to JAX): it runs the int8 path, which refuses only a buffer that
+    # is not a whole number of row tiles, as JAX's does
     x, w, gs = _inputs([8, 8], 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        tgm.gmm(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(gs),
+    out = tgm.gmm(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(gs),
+                  8, precision="int8")
+    np.testing.assert_array_equal(out.numpy(), tgm.gmm_int8_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(gs), 8).numpy())
+    with pytest.raises(ValueError, match="block_t"):
+        tgm.gmm(torch.from_numpy(x)[:12], torch.from_numpy(w), torch.from_numpy(gs),
                 8, precision="int8")
 
 

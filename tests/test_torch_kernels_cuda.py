@@ -1,6 +1,7 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
 the grouped GEMM (forward, dX and tgmm's dW; each in its variants, the
-per-variant launch counts showing which kernel ran) and the three
+per-variant launch counts showing which kernel ran; the int8 ``gmm_int8``,
+``-k int8``) and the three
 flash-attention kernels (with the score mods, the band mask and head dims
 16 to 128: ``-k flex`` runs those cases alone).
 
@@ -1001,3 +1002,93 @@ def test_prefetcher_raises_when_pinning_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="cannot pin"):
         pf.get()
     pf.stop()
+
+
+# gmm_int8 (matmul_precision "int8"): (block_t, group sizes, tail rows) at
+# the MoE training tiling (block_t 128), a ragged split with an empty expert
+# and a hot one, and the smaller row tiles the kernel takes.
+INT8_CASES = [
+    (128, [256, 128, 0, 384, 128, 0, 128, 256], 128),
+    (128, [0, 0, 1024, 0, 128, 0, 0, 0], 0),
+    (64, [64, 0, 192, 64], 64),
+    (32, [32, 96, 0, 32], 32),
+    (16, [16, 0, 48, 16], 16),
+]
+
+
+def _int8_inputs(dtype, sizes, tail, K, N, seed=11):
+    rng = np.random.default_rng(seed)
+    T = sum(sizes) + tail
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    x[sum(sizes):] = 0.0
+    w = (rng.standard_normal((len(sizes), K, N)) * 0.05).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    return (torch.from_numpy(x).to("cuda", tdt), torch.from_numpy(w).to("cuda", tdt),
+            torch.tensor(sizes, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("block_t,sizes,tail", INT8_CASES)
+# gate/up and down at moe-8x40m's widths; a K no 64-byte slice divides and an
+# N no 128-column tile divides
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512), (200, 72)])
+def test_gmm_int8_kernel_matches_plain_bitwise(cuda, dtype, block_t, sizes, tail, K, N):
+    x, w, gs = _int8_inputs(dtype, sizes, tail, K, N)
+    ops = kernel_check.int8_operands(x, w)
+    before = tgm.gmm_int8.launches
+    out, acc = tgm.gmm_int8_kernel(*ops, gs, block_t, x.dtype, with_products=True)
+    torch.cuda.synchronize()
+    assert tgm.gmm_int8.launches == before + 1
+    ref_acc, ref_out = kernel_check.gmm_int8_plain_outputs(*ops, gs, block_t, x.dtype)
+    check = kernel_check.compare_int8(acc, out, ref_acc, ref_out)
+    assert check["int32_equal"] and check["ok"], check
+    assert torch.equal(out, ref_out)  # the same fp32 epilogue, one rounding
+    assert not out[sum(sizes):].any() and not acc[sum(sizes):].any()
+    # the wrapper's output is the kernel's
+    assert torch.equal(tgm.gmm(x, w, gs, block_t, precision="int8"), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512)])
+def test_gmm_int8_check_rejects_planted_fault(cuda, K, N):
+    block_t, sizes, tail = INT8_CASES[0]
+    x, w, gs = _int8_inputs("bfloat16", sizes, tail, K, N)
+    ops = kernel_check.int8_operands(x, w)
+    ref = kernel_check.gmm_int8_plain_outputs(*ops, gs, block_t, x.dtype)
+    acc, out = kernel_check.gmm_int8_skipping_a_tile(*ops, gs, block_t, x.dtype)
+    torch.cuda.synchronize()
+    check = kernel_check.compare_int8(acc, out, *ref)
+    assert not check["ok"] and not check["int32_equal"]
+
+
+@pytest.mark.cuda
+def test_gmm_int8_autograd_runs_the_kernels(cuda):
+    # forward on gmm_int8; dX on the bf16 gmm (wgmma at block_t 128); dW on
+    # the fp32 tgmm over fp32 copies, held to the plain backward
+    block_t, sizes, tail = INT8_CASES[0]
+    x, w, gs = _int8_inputs("bfloat16", sizes, tail, 512, 1536)
+    g = torch.randn(x.shape[0], 1536, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(0)).bfloat16()
+    tgm.reset_launches()
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    tgm.gmm(xk, wk, gs, block_t, precision="int8").backward(g)
+    torch.cuda.synchronize()
+    assert tgm.gmm_int8.launches == 1 and tgm.gmm.launches_by_variant["wgmma"] == 1
+    assert tgm.tgmm.launches_by_variant["f32"] == 1
+    xp, wp = (t.cpu().requires_grad_() for t in (x, w))
+    tgm.gmm(xp, wp, gs.cpu(), block_t, precision="int8").backward(g.cpu())
+    assert kernel_check.compare(xk.grad.cpu(), xp.grad)["ok"]
+    assert kernel_check.compare_experts(wk.grad.cpu(), wp.grad)["ok"]
+
+
+@pytest.mark.cuda
+def test_gmm_int8_kernel_rejects_bad_input(cuda):
+    x, w, gs = _int8_inputs("bfloat16", [16, 16], 0, 64, 32)
+    xq, sx, wq, sw = kernel_check.int8_operands(x, w)
+    with pytest.raises(ValueError, match="block_t"):
+        tgm.gmm_int8_kernel(xq, sx, wq, sw, gs, 8, x.dtype)
+    with pytest.raises(TypeError):
+        tgm.gmm_int8_kernel(xq.float(), sx, wq, sw, gs, 16, x.dtype)
+    with pytest.raises(TypeError):
+        tgm.gmm_int8_kernel(xq, sx, wq, sw, gs, 16, torch.float16)

@@ -204,8 +204,9 @@ def test_speculative_and_kv_quant_services(np_params):
         out = tserver.request_generate(s.url, PROMPT, max_tokens=10)
         assert s.service.health()["kv_quant"] is True
         assert out["text"] == want  # agrees with the fp32 cache at this size
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            s.service.attach_engine(EngineConfig(num_slots=2))
+        # the batch engine takes the service's int8 cache as its int8 pool
+        engine = s.service.attach_engine(EngineConfig(num_slots=2, kv_quant=True))
+        assert engine.pool.quantize and "k_q" in engine.pool.cache[0]
 
 
 def test_server_entry_point_defaults_to_the_locked_engine(tmp_path):
@@ -231,9 +232,11 @@ def test_server_entry_point_defaults_to_the_locked_engine(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+    # --kv-quant with --engine batch is ported; --weight-dtype needs the
+    # batch engine, as in JAX
     bad = subprocess.run(
         [sys.executable, "-m", "mlx_cuda_distributed_pretraining_tpu_torch.infer.server",
-         "--config", str(cfg), "--device", "cpu", "--engine", "batch", "--kv-quant"],
+         "--config", str(cfg), "--device", "cpu", "--weight-dtype", "int8"],
         cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
         text=True, timeout=120)
-    assert bad.returncode == 2 and "ROADMAP queue 1 item 8" in bad.stderr
+    assert bad.returncode == 2 and "--weight-dtype requires --engine batch" in bad.stderr
