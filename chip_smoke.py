@@ -135,15 +135,23 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    the mesh dropped, each printed as ``reduced``), a log line every 2, the
    last logged loss below the first; step 1 at batch 8 with the gmm_int8,
    gmm and tgmm kernels against their plain versions under phase 6's
-   limits; launches: gmm_int8 3 per layer per step and validation batch,
-   the dX gmm (wgmma) and the dW tgmm ("f32", on fp32 copies) 3 per layer
-   per step, the flash kernels (wgmma, on int8-gridded q/k/v) as phase 6.
-   Prints step ms, tok/s and peak memory beside phase 6's. Phase 3 holds
-   ``gmm_int8`` at this path's gate/up and down shapes: its int32 sums
+   limits; launches: gmm_int8 3 per layer per step and validation batch
+   (every one on its s8 wgmma kernel), the dX gmm (wgmma) and the dW tgmm
+   ("f32", 3xTF32 on fp32 copies) 3 per layer per step, the flash kernels
+   (wgmma, on int8-gridded q/k/v) as phase 6. Prints step ms, tok/s and
+   peak memory beside phase 6's. Phase 3 holds ``gmm_int8`` at this
+   path's gate/up and down shapes on its "wgmma" variant: its int32 sums
    bitwise against the plain version (float64 products, exact below
-   2^53), its output through the same gate, a planted fault (the last
-   live row tile skipped) rejected; timed beside the plain version,
-   ``torch._int_mm`` summed over each expert's rows and the bf16 gmm.
+   2^53), its output through the same gate and bitwise against the
+   ``mma.sync`` kernel that served these shapes before (timed in turns with
+   it), a planted fault (the last live row tile skipped) rejected; timed
+   beside the plain version, ``torch._int_mm`` summed over each expert's
+   rows and the bf16 gmm. It holds the fp32 tgmm at this path's dW shapes
+   (gate/up x [66,560, 512], dy [.., 1,536]; down K 1,536, N 512; block_t
+   128; fp32 copies of bf16 values) and at block_t 32 against the plain
+   version evaluated in float64, each with a planted fault, timed beside
+   one fp32 ``torch.mm`` per expert (TF32 off) and ``torch._grouped_mm``
+   in fp32 where this torch takes it.
 7. 1b      — trains configs/model-config-1b-singlechip.yaml at full width
    (hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, S 2048,
    batch 8, bf16 over fp32 masters, flash attention, remat "full" on the
@@ -232,7 +240,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    launches at their shapes; the three flash kernels at 80m-fineweb's shape
    as ``<kernel>:wgmma:none:path_80m`` with the streaming phase's
    launches; ``gmm_int8`` with its launches in phase 6b, its bound at
-   the H100's 1,979 int8 TOP/s), the card line, and as the last line
+   the H100's 1,979 int8 TOP/s; ``tgmm_f32`` at the int8 path's gate/up
+   shape with its launches in phase 6b), the card line, and as the last line
    ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
    495 / 3 TFLOP/s (3xTF32), the card's fastest fp32-accurate rate.
 
@@ -513,9 +522,9 @@ def against_earlier(torch, new, old) -> dict:
 def gemm_row(torch, kernel, plain, library, nbytes, flops, dtype, earlier=None):
     """ms of kernel, plain version and library call (device time, inputs
     larger than L2 so no copies are cycled), and the bound. ``earlier``: the
-    WMMA kernel that served these shapes before the wgmma one, timed in
-    turns with it (earlier, kernel, kernel, earlier); ``ms`` and
-    ``earlier_ms`` are the means of each pair."""
+    kernel that served these shapes before the wgmma one (WMMA; gmm_int8's
+    mma.sync kernel), timed in turns with it (earlier, kernel, kernel,
+    earlier); ``ms`` and ``earlier_ms`` are the means of each pair."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     turns = {}
     if earlier is not None:
@@ -614,27 +623,39 @@ def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans,
 
 
 def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
-              want, fault=False):
-    """``dW = tgmm(x, dy)`` against ``tgmm_plain``; it must run the ``want``
-    variant. With ``fault`` also the kernel with the last expert's last tile
-    left out of its walk, which the same check must reject. A "wgmma" case
-    is also held bitwise against the WMMA kernel that served it before, and
-    timed in turns with it."""
+              want, fault=False, bf16_values=False):
+    """``dW = tgmm(x, dy)`` against ``tgmm_plain`` (fp32: evaluated in
+    float64, ``kernel_check.reference``, the fp32 plain version's own error
+    printed beside it); it must run the ``want`` variant. With ``fault``
+    also the kernel with the last expert's last tile left out of its walk,
+    which the same check must reject. A "wgmma" case is also held bitwise
+    against the WMMA kernel that served it before, and timed in turns with
+    it. ``bf16_values``: fp32 operands holding bf16 values, as the int8
+    path's dW gets them. The library yardstick: ``torch._grouped_mm``; for
+    fp32 one ``torch.mm`` per expert (TF32 off), with ``torch._grouped_mm``
+    in fp32 beside it where this torch takes it."""
     g = torch.Generator().manual_seed(SEED)
     dt = getattr(torch, dtype)
     E = sizes.shape[0]
     live = int(sizes.sum())
     x = torch.randn(rows, K, generator=g)
     x[live:] = 0.0
-    x = x.to("cuda", dt)
-    dy = torch.randn(rows, N, generator=g).to("cuda", dt)
+    dy = torch.randn(rows, N, generator=g)
+    if bf16_values:
+        x, dy = x.bfloat16(), dy.bfloat16()
+    x, dy = x.to("cuda", dt), dy.to("cuda", dt)
     gs = sizes.to("cuda")
     before = dict(gm.tgmm.launches_by_variant)
     dw = gm.tgmm(x, dy, gs, E, block_t)
     ran = launched_since(before, gm.tgmm.launches_by_variant)
-    ref = gm.tgmm_plain(x, dy, gs, E, block_t)
+    ref = kernel_check.reference(gm.tgmm_plain, x, dy, gs, E, block_t)
     torch.cuda.synchronize()
     check = kernel_check.compare_experts(dw, ref)
+    plain_check = None
+    if dt == torch.float32:  # the fp32 plain version against the same float64 result
+        plain_check = kernel_check.compare_experts(gm.tgmm_plain(x, dy, gs, E, block_t), ref)
+        log(f"tgmm {name}: fp32 plain version vs float64: limit_ratio="
+            f"{plain_check['limit_ratio']:.3g} norm={plain_check['norm_err']:.3g}")
     empty_ok = all(not dw[e].any().item() for e in range(E) if int(sizes[e]) == 0)
     ok = check["ok"] and empty_ok
     wgmma = want == "wgmma"
@@ -669,6 +690,19 @@ def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
             library, note2 = library_call(
                 torch, lambda: grouped_mm(xt.t(), dy, offs=offs))
             note = "x^T as a row-major copy" if library else f"{note}; {note2}"
+    library_name = "torch._grouped_mm" + ("" if note == "ok" else f" ({note})")
+    grouped_mm_ms = None
+    if dt == torch.float32:  # one cuBLAS fp32 product per expert (TF32 is off)
+        if library is not None:
+            grouped_mm_ms = device_ms(torch, lambda _: library(), 1, reps=20)
+        starts = [0] + torch.cumsum(sizes, 0).tolist()
+        spans = [(starts[e], starts[e + 1]) for e in range(E) if sizes[e] > 0]
+
+        def per_expert_mm():
+            for a, b in spans:
+                torch.mm(x[a:b].t(), dy[a:b])
+
+        library, library_name = per_expert_mm, f"torch.mm per expert ({len(spans)} calls)"
     es = x.element_size()
     row = gemm_row(torch, lambda: gm.tgmm(x, dy, gs, E, block_t),
                    lambda: gm.tgmm_plain(x, dy, gs, E, block_t), library,
@@ -678,16 +712,19 @@ def tgmm_case(torch, gm, kernel_check, name, dtype, K, N, sizes, rows, block_t,
                    if wgmma else None)
     case = {"case": name, "dtype": dtype, "shape": [rows, K, N, E],
             "block_t": block_t, "group_sizes": sizes.tolist(), "variants": ran,
-            "vs_wmma": vs_wmma, "max_abs_err": check["max_abs_err"], "check": check,
-            "planted_fault": bad, "ok": bool(ok),
-            "library": "torch._grouped_mm" + ("" if note == "ok" else f" ({note})")
-            if library else note, **row}
+            "bf16_values": bf16_values, "vs_wmma": vs_wmma,
+            "max_abs_err": check["max_abs_err"], "check": check,
+            "plain_fp32_check": plain_check, "planted_fault": bad, "ok": bool(ok),
+            "library": library_name if library else note,
+            "grouped_mm_fp32_ms": grouped_mm_ms,
+            "grouped_mm_fp32_note": note if dt == torch.float32 else None, **row}
     log(f"tgmm {name} {dtype} x[{rows},{K}] dy[{rows},{N}] E={E} block_t="
         f"{block_t}: ok={ok} variant={ran} err={check['max_abs_err']:.3g} limit_ratio="
         f"{check['limit_ratio']:.3g} norm={check['norm_err']:.3g} kernel="
         f"{row['ms']:.4f} ms{fmt_earlier(row)} plain={row['plain_ms']:.4f} ms library="
         f"{row['library_ms']} ms ({case['library']}) bound={row['bound_ms']:.4f} "
-        f"ms ({row['bound_by']})")
+        f"ms ({row['bound_by']})" + (f" grouped_mm fp32={grouped_mm_ms} ms"
+                                     if dt == torch.float32 else ""))
     return case
 
 
@@ -717,26 +754,57 @@ def train_kernel_phase(torch, gm, kernel_check):
         tgmm_case(torch, gm, kernel_check, "imbalanced_gate_up", "bfloat16", D, I,
                   hot, rows, TRAIN_BLOCK_T, "wgmma"),
         tgmm_case(torch, gm, kernel_check, "fp32_gate_up", "float32", D, I, small,
-                  small_rows, 32, "f32"),
+                  small_rows, 32, "f32", fault=True),
+        # the int8 path's dW: fp32 copies of bf16 x and dy at its shapes
+        tgmm_case(torch, gm, kernel_check, "int8_path_gate_up", "float32", D, I, sizes,
+                  rows, TRAIN_BLOCK_T, "f32", fault=True, bf16_values=True),
+        tgmm_case(torch, gm, kernel_check, "int8_path_down", "float32", I, D, sizes,
+                  rows, TRAIN_BLOCK_T, "f32", fault=True, bf16_values=True),
         tgmm_case(torch, gm, kernel_check, "empty_groups_tail", "bfloat16", D, I,
                   edge, 1280, TRAIN_BLOCK_T, "wgmma"),
     ]
     return gmm_cases, tgmm_cases
 
 
-INT8_REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:234"
+INT8_REPLACES = "mlx_cuda_distributed_pretraining_tpu/ops/grouped_matmul.py:235"
 INT8_PEAK_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
+
+
+def earlier_int8(torch, gm, xq, sx, wq, sw, gs, block_t, dtype):
+    """gmm_int8 on its ``mma.sync`` kernel (the C entry's variant 0, 64-row
+    tiles), which served the training path's shapes before the s8 wgmma
+    kernel, with the wrapper's operand preparation. Measurement only; the
+    port launches it where block_t has no 64-row tile."""
+    T, K = xq.shape
+    E, _, N = wq.shape
+    pad = -K % 64
+    wqt = wq.transpose(1, 2)
+    if pad:
+        xq, wqt = (torch.nn.functional.pad(xq, (0, pad)),
+                   torch.nn.functional.pad(wqt, (0, pad)))
+    xq, wqt = xq.contiguous(), wqt.contiguous()
+    sx, sw = sx.reshape(T).float().contiguous(), sw.reshape(E, N).float().contiguous()
+    out = torch.empty((T, N), dtype=dtype, device=xq.device)
+    err = gm._library().gmm_int8(
+        xq.data_ptr(), wqt.data_ptr(), gs.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), None, T, K + pad, N, E, min(block_t, 64), 0,
+        1 if dtype == torch.bfloat16 else 0, gm._stream(xq))
+    if err != 0:
+        raise RuntimeError(f"mma.sync gmm_int8 launch failed with CUDA error {err}")
+    return out
 
 
 def int8_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, bf16_case,
                   fault=False):
     """``gmm_int8`` at one MoE training shape (bf16 in and out, block_t 128)
     against its plain version: the int32 sums bitwise, the output through
-    ``kernel_check.compare_int8``; with ``fault`` the kernel is also
-    launched with the last live row tile left out, which the check must
-    reject. Timed beside the plain version, ``torch._int_mm`` summed over
-    the experts' rows (E calls; PyTorch has no grouped int8 product) and
-    the bf16 gmm kernel at the same shape (``bf16_case``)."""
+    ``kernel_check.compare_int8``; it must run the "wgmma" variant; with
+    ``fault`` the kernel is also launched with the last live row tile left
+    out, which the check must reject. Its output must equal the ``mma.sync``
+    kernel's (:func:`earlier_int8`) bit for bit, timed in turns with it.
+    Timed beside the plain version, ``torch._int_mm`` summed over the
+    experts' rows (E calls; PyTorch has no grouped int8 product) and the
+    bf16 gmm kernel at the same shape (``bf16_case``)."""
     g = torch.Generator().manual_seed(SEED + 2)
     E = sizes.shape[0]
     live = int(sizes.sum())
@@ -746,15 +814,23 @@ def int8_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, bf16_case,
     w = (torch.randn(E, K, N, generator=g) / K ** 0.5).to("cuda", torch.bfloat16)
     gs = sizes.to("cuda")
     xq, sx, wq, sw = kernel_check.int8_operands(x, w)
-    before = gm.gmm_int8.launches
+    before = dict(gm.gmm_int8.launches_by_variant)
     out, acc = gm.gmm_int8_kernel(xq, sx, wq, sw, gs, TRAIN_BLOCK_T, torch.bfloat16,
                                   with_products=True)
-    launched = gm.gmm_int8.launches - before
+    ran = launched_since(before, gm.gmm_int8.launches_by_variant)
     ref_acc, ref_out = kernel_check.gmm_int8_plain_outputs(xq, sx, wq, sw, gs,
                                                            TRAIN_BLOCK_T, torch.bfloat16)
     torch.cuda.synchronize()
     check = kernel_check.compare_int8(acc, out, ref_acc, ref_out)
-    ok = check["ok"] and launched == 1 and not out[live:].any().item()
+    ok = check["ok"] and not out[live:].any().item()
+    if ran != {"wgmma": 1}:
+        ok = False
+        log(f"gmm_int8 {name}: ran {ran}, not the wgmma kernel")
+    vs_mma = against_earlier(torch, out, earlier_int8(torch, gm, xq, sx, wq, sw, gs,
+                                                      TRAIN_BLOCK_T, torch.bfloat16))
+    log(f"gmm_int8 {name}: wgmma vs mma.sync output {vs_mma}")
+    if not vs_mma["bitwise_equal"]:  # exact int32 sums, the same epilogue: the same bits
+        ok = False
     del out, acc
     bad = None
     if fault:
@@ -780,19 +856,23 @@ def int8_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, bf16_case,
         torch, lambda: gm.gmm_int8_kernel(xq, sx, wq, sw, gs, TRAIN_BLOCK_T, torch.bfloat16),
         lambda: kernel_check.gmm_int8_plain_outputs(xq, sx, wq, sw, gs, TRAIN_BLOCK_T,
                                                     torch.bfloat16),
-        library, nbytes, 2.0 * live * K * N, "bfloat16")
+        library, nbytes, 2.0 * live * K * N, "bfloat16",
+        earlier=lambda: earlier_int8(torch, gm, xq, sx, wq, sw, gs, TRAIN_BLOCK_T,
+                                     torch.bfloat16))
     # the operation bound at the int8 rate, not bf16's
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = 2.0 * live * K * N / INT8_PEAK_OPS * 1e3
     row.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
     case = {"case": name, "dtype": "int8->bfloat16", "shape": [rows, K, N, E],
-            "block_t": TRAIN_BLOCK_T, "group_sizes": sizes.tolist(),
+            "block_t": TRAIN_BLOCK_T, "group_sizes": sizes.tolist(), "variants": ran,
+            "vs_mma_sync": vs_mma,
             "max_abs_err": check["max_abs_err"], "check": check, "planted_fault": bad,
             "ok": bool(ok), "bf16_gmm_ms": bf16_case["ms"],
             "library": ("torch._int_mm summed over the experts' rows (E calls)"
                         if library else note), **row}
-    log(f"gmm_int8 {name} x[{rows},{K}] w[{E},{K},{N}]: ok={ok} int32_equal="
-        f"{check['int32_equal']} err={check['max_abs_err']:.3g} kernel={row['ms']:.4f} ms "
+    log(f"gmm_int8 {name} x[{rows},{K}] w[{E},{K},{N}]: ok={ok} variant={ran} int32_equal="
+        f"{check['int32_equal']} err={check['max_abs_err']:.3g} kernel={row['ms']:.4f} ms"
+        f"{fmt_earlier(row).replace('WMMA', 'mma.sync')} "
         f"plain={row['plain_ms']:.4f} ms library={row['library_ms']} ms ({case['library']}) "
         f"bf16 gmm={bf16_case['ms']:.4f} ms bound={row['bound_ms']:.4f} ms ({row['bound_by']})")
     return case
@@ -2545,6 +2625,7 @@ def int8_train_phase(torch, gm, fa, kernel_check, card, moe_perf, steps: int = 1
         wall = time.perf_counter() - t0
         launches = {**read_launches(gm, fa), "gmm_int8": gm.gmm_int8.launches}
         variants = read_variants(gm, fa)
+        int8_variants = dict(gm.gmm_int8.launches_by_variant)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         windows = trainer.windows
         losses = [w["loss"] for w in windows]
@@ -2565,6 +2646,10 @@ def int8_train_phase(torch, gm, fa, kernel_check, card, moe_perf, steps: int = 1
                          **flash_variants_want(fa, want["flash_fwd"], want["flash_bwd_dq"])}
         if variants != want_variants:
             failures.append(f"int8: launches by variant {variants} != {want_variants}")
+        want_int8 = {**dict.fromkeys(gm.GMM_INT8_VARIANTS, 0), "wgmma": want["gmm_int8"]}
+        log(f"int8: gmm_int8 launches by variant {int8_variants}")
+        if int8_variants != want_int8:
+            failures.append(f"int8: gmm_int8 launches by variant {int8_variants} != {want_int8}")
         flops_per_token = trainer.flops_per_token
         del trainer
     torch.cuda.empty_cache()
@@ -2574,7 +2659,8 @@ def int8_train_phase(torch, gm, fa, kernel_check, card, moe_perf, steps: int = 1
     perf = {"step_ms": 1e3 * secs / sum(w["steps"] for w in steady), "tok_s": tok_s,
             "mfu_active_vs_989tflops": tok_s * flops_per_token / PEAK_FLOPS["bfloat16"],
             "peak_mem_gb": peak_gb, "losses": losses, "launches": launches,
-            "launches_by_variant": variants, "first_step_parity": par,
+            "launches_by_variant": variants, "gmm_int8_launches_by_variant": int8_variants,
+            "first_step_parity": par,
             "bf16_moe_step_ms": moe_perf.get("step_ms"),
             "bf16_moe_tok_s": moe_perf.get("tok_s"),
             "bf16_moe_peak_mem_gb": moe_perf.get("peak_mem_gb")}
@@ -3828,9 +3914,19 @@ def main() -> int:
     int8_entry = kernel_entry(
         "gmm_int8", SOURCE, INT8_REPLACES, int8_perf.get("launches", {}).get("gmm_int8", 0),
         int8_cases[0], max(c["max_abs_err"] for c in int8_cases))
-    int8_entry.update(cases=int8_cases, int8_train=int8_perf,
+    int8_entry.update(cases=int8_cases, int8_train=int8_perf, variant="wgmma",
+                      launches_by_variant=int8_perf.get("gmm_int8_launches_by_variant"),
                       replaces_note="XLA in JAX (_gmm_int8_impl), no Pallas counterpart",
                       card=card)
+    # the fp32 tgmm (3xTF32): its launches in the int8 MoE run (the dW of
+    # every int8 grouped GEMM), times at that path's gate/up shape
+    f32_tgmm = [c for c in tgmm_cases if c["dtype"] == "float32"]
+    tgmm_f32_entry = kernel_entry(
+        "tgmm_f32", SOURCE, TGMM_REPLACES,
+        int8_perf.get("launches_by_variant", {}).get("tgmm", {}).get("f32", 0),
+        next(c for c in f32_tgmm if c["case"] == "int8_path_gate_up"),
+        max(c["max_abs_err"] for c in f32_tgmm))
+    tgmm_f32_entry.update(variant="f32", cases=f32_tgmm, path="moe_8x40m_int8", card=card)
     # The flash kernels: the 1B trainer's shape (B 8, H 16, S 2048, D 128,
     # bf16, causal) and its launches in run A; the 40m and MoE runs'
     # launches beside them.
@@ -3915,8 +4011,8 @@ def main() -> int:
         flash_entries.append(entry)
     flash_entries[-1].update(muon_100m=muon_perf, flex_1m=flex_perf, optimizers_1m=opt_perf,
                              dense_40m_fp32=f32_perf, fineweb_80m=stream_perf)
-    report = json.dumps({"kernels": [gmm_entry, tgmm_entry, int8_entry] + fp32_entries
-                                    + flash_entries})
+    report = json.dumps({"kernels": [gmm_entry, tgmm_entry, tgmm_f32_entry, int8_entry]
+                                    + fp32_entries + flash_entries})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)
         for f in failures:

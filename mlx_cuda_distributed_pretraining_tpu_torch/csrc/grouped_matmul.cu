@@ -831,8 +831,8 @@ int launch_gmm(const void* x, const void* w, const int* gs, void* out, int T,
 // group_sizes (no host sync, no scalar prefetch) and walks that expert's
 // tiles in order, so there are no atomics and the result is bitwise
 // reproducible. bf16 runs WMMA 16x16x16 with fp32 fragments, x read as the
-// column-major A operand straight from its row-major staging; fp32 runs SIMT
-// FMA tiles (TF32 would change the sums).
+// column-major A operand straight from its row-major staging; fp32 runs
+// tgmm_f32_wgmma_kernel (3xTF32 on wgmma, its own note below).
 //
 // What bounds it on an H100 SXM at the MoE training path's shapes
 // (moe-8x40m, 65,536 selections in a 66,560-row buffer, K x N 512 x 1536 or
@@ -842,11 +842,11 @@ int launch_gmm(const void* x, const void* w, const int* gs, void* out, int T,
 // grid reads 24-8 times the compulsory bytes, mostly from L2 (a CTA's
 // neighbours in launch order share its expert). bf16 at block_t % 64 == 0
 // runs tgmm_bf16_wgmma_kernel (noted below); this WMMA kernel ("wmma") keeps
-// the other bf16 shapes, "f32" the fp32 ones.
+// the other bf16 shapes.
 constexpr int TB = 64;    // output block: K rows x N columns per CTA
-constexpr int TBR = 32;   // bf16: rows staged per pass (two WMMA k-steps)
+constexpr int TBR = 32;   // rows staged per pass (two WMMA k-steps)
 constexpr int TLD = TB + 8;
-constexpr int TNT = 128;  // bf16: 4 warps, each a 32 x 32 quarter
+constexpr int TNT = 128;  // 4 warps, each a 32 x 32 quarter
 
 // First row and row count of expert e's group.
 __device__ __forceinline__ void expert_range(const int* __restrict__ gs, int e,
@@ -962,73 +962,233 @@ tgmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// fp32: 256 threads, each a 4 x 4 register tile (rows strided by 16 over K,
-// columns by 16 over N), 8 rows staged per pass (block_t is a multiple of 8).
-constexpr int FR = 8;
+// ------------------------------------------------ fp32 tgmm: 3xTF32 wgmma
+// tgmm_f32_wgmma_kernel ("f32"): tgmm in fp32, the dW of
+// matmul_precision "int8" (ops/grouped_matmul.py::_GroupedMatmulInt8 runs
+// it on fp32 copies of x and dy) and any fp32 tgmm call. The function is
+// the one above: per expert, each block_t row tile's fp32 partial
+// x_tile^T @ dy_tile, the partials added in fp32 in tile order (the first
+// initialises), empty experts exact zeros, rows past sum(group_sizes)
+// never read; block_t % 8 == 0 is the only row precondition.
+//
+// What bounds it (moe-8x40m int8 training: 65,536 selections in a 66,560-row
+// buffer, block_t 128, K x N 512 x 1536 or 1536 x 512): 2 x 65,536 x 512 x
+// 1536 = 103 GFLOP of fp32 products against ~0.56 GB of compulsory traffic
+// (x and dy read once, dW written once: 0.17 ms at 3.35 TB/s); at three
+// TF32 passes a product (below) on the tensor cores, 495 / 3 = 165 TFLOP/s,
+// the operations: 0.63 ms. The SIMT kernel it replaces (64 x 64 blocks of
+// FMA tiles) took 5.75 ms a call.
+//
+// Accuracy: fp32 in, fp32 out. Each operand element is split once, hi =
+// rna(v), lo = rna(v - hi), and each product is lo.hi + hi.lo + hi.hi
+// (3xTF32, as gmm_f32_tf32x3_kernel; a bf16 value has lo = 0, so on the
+// int8 path every product is exact). The wgmma accumulator holds one
+// block_t tile's partial at most; at the tile's end it is added into the
+// fp32 total (registers) with ordinary rounded adds, in tile order: the
+// Pallas kernel's revisit order, and no truncation bias in the long sum
+// over an expert's tiles.
+//
+// Design:
+//  - tf32 wgmma takes only K-major operands, and the contraction runs over
+//    token rows, which neither x [T, K] nor dy [T, N] keeps contiguous. So
+//    each thread loads its share of a 32-row stage straight from global
+//    memory a stage ahead (into registers: the loads fly under the running
+//    wgmmas), splits each value into hi and lo, and stores both transposed,
+//    token-contiguous, in the 128-byte-swizzled K-major layout that the
+//    wgmma descriptors read (x's as A [TG_BM dW rows][32 tokens], dy's as
+//    B [TG_BN dW columns][32 tokens]; a warp's 32 stores hit 32 banks), in
+//    one of three shared buffers. Timed in turns on an H100 at the int8
+//    path's shapes (PERF.md): this kernel 1.36-1.39 ms a call; 3xTF32 on
+//    mma.sync, whose fragments can be read transposed from a padded
+//    staging tile, 1.98-2.01; the stores done by a third, producer
+//    warpgroup 1.44-1.46; four tokens a 16-byte store 1.51-1.55; A from
+//    registers (wgmma's RS form, half the stores; 184 bytes of spills)
+//    1.43-1.44. A timing-only copy without the stores takes 0.69 ms (one
+//    wgmma pass instead of three, with them: 1.04-1.07; without the proxy
+//    fence: 1% less): the split operands' 64 KB of stores a stage, not the
+//    products, hold it above its bound.
+//  - Two consumer warpgroups own 64 dW rows each of a TG_BM x TG_BN CTA
+//    tile and issue, per k8 step, lo.hi, hi.lo and hi.hi as m64n128k8
+//    wgmmas (the small terms first; the first of a tile with scale_d 0).
+//    A buffer is rewritten two stages after the wgmmas that read it, which
+//    both warpgroups have retired by then (wait_group 1 every stage, one
+//    barrier a stage). WHOLE (block_t % 32 == 0, the training path): a
+//    tile's stages form the inner loop and its last batch retires outside
+//    any branch (a wait_group in a branch makes ptxas serialize every
+//    wgmma); else every k8 step retires before the next (a tile may end
+//    inside a stage; no path runs it at a size that matters). Rows past
+//    the expert's group and columns past K or N load as zeros.
+//  - The grid is 1D: the experts in order of their row counts, largest
+//    first (ties by index), each CTA ranking the group sizes itself (no
+//    host sync), an expert's CTAs consecutive with column tiles fastest,
+//    so a hot expert's CTAs start in the first wave and the CTAs in flight
+//    share its x and dy rows in L2. No atomics: bitwise reproducible.
+constexpr int TG_BM = 128, TG_BN = 128, TG_SR = 32;
+constexpr int TG_PART = TG_BM * TG_SR * 4;       // one hi or lo operand: 16 KB
+constexpr int TG_BUF = 4 * TG_PART;              // A hi, A lo, B hi, B lo
+constexpr int TG_SMEM = 3 * TG_BUF + wg::ATOM;   // three buffers, 1 KB aligned
+static_assert(TG_BM == TG_BN, "one layout for both operands");
 
-__global__ void __launch_bounds__(256)
-tgmm_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                const int* __restrict__ gs, float* __restrict__ dw, int K,
-                int N, int block_t) {
-  __shared__ float Xs[FR][TB];
-  __shared__ float Ds[FR][TB];
-  __shared__ int s_start, s_rows;
+template <bool WHOLE>
+__global__ void __launch_bounds__(256, 1)
+tgmm_f32_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                      const int* __restrict__ gs, float* __restrict__ dw, int K, int N,
+                      int E, int block_t, int k_tiles, int n_tiles) {
+  using namespace wg;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ int s_expert, s_start, s_rows;
+  uint8_t* sm = ring_base(dyn_smem);
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n0 = blockIdx.x * TB, k0 = blockIdx.y * TB, e = blockIdx.z;
-  if (tid == 0) expert_range(gs, e, &s_start, &s_rows);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per_expert = k_tiles * n_tiles;
+  const int rank = blockIdx.x / per_expert;
+  const int n0 = (blockIdx.x % n_tiles) * TG_BN;
+  const int k0 = (blockIdx.x % per_expert / n_tiles) * TG_BM;
+  if (warp == 0) {  // the expert of this rank: most rows first, ties by index
+    int mine = -1;
+    for (int e = lane; e < E; e += 32) {
+      const int n = gs[e];
+      int r = 0;
+      for (int j = 0; j < E; ++j) {
+        const int m = gs[j];
+        r += m > n || (m == n && j < e);
+      }
+      if (r == rank) mine = e;
+    }
+    const int e = __shfl_sync(0xffffffffu, mine,
+                              __ffs(__ballot_sync(0xffffffffu, mine >= 0)) - 1);
+    int before = 0;
+    for (int i = lane; i < e; i += 32) before += gs[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(0xffffffffu, before, o);
+    if (lane == 0) {
+      s_expert = e;
+      s_start = before;
+      s_rows = gs[e];
+    }
+  }
   __syncthreads();
   const int start = s_start, rows = s_rows;
+  float* out = dw + static_cast<size_t>(s_expert) * K * N;
+  const int stages = (rows + TG_SR - 1) / TG_SR;
 
-  float run[4][4], part[4][4];
+  // this thread's 16 elements of each operand in a stage: token 4 warp + kk,
+  // columns 8 q + c8 (q < 16), stored at q x 1 KB + c8 x 128 B + the
+  // swizzled 16-byte chunk (warp ^ c8) + kk x 4 B: 32 banks a warp
+  const int c8 = lane & 7, kk = lane >> 3, tok = 4 * warp + kk;
+  const uint32_t st_off = c8 * 128 + ((warp ^ c8) << 4) + kk * 4;
+  float xr[16], dr[16];
+  auto fetch = [&](int it) {
+    const int r = it * TG_SR + tok;
+    const bool live = r < rows;
+    const float* xs = x + static_cast<size_t>(start + (live ? r : 0)) * K;
+    const float* ds = dy + static_cast<size_t>(start + (live ? r : 0)) * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) run[i][j] = 0.f;
-
-  for (int t0 = 0; t0 < rows; t0 += block_t) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-    for (int r0 = t0; r0 < t0 + block_t; r0 += FR) {
-      for (int idx = tid; idx < FR * TB; idx += 256) {
-        const int r = idx / TB, c = idx % TB;
-        const size_t row = (size_t)start + r0 + r;
-        Xs[r][c] = k0 + c < K ? x[row * K + k0 + c] : 0.f;
-        Ds[r][c] = n0 + c < N ? dy[row * N + n0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < FR; ++r) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Xs[r][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Ds[r][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-      }
-      __syncthreads();
+    for (int q = 0; q < 16; ++q) {
+      const int m = k0 + 8 * q + c8, n = n0 + 8 * q + c8;
+      xr[q] = live && m < K ? xs[m] : 0.f;
+      dr[q] = live && n < N ? ds[n] : 0.f;
     }
+  };
+  auto stash = [&](int buf) {
+    uint8_t* base = sm + buf * TG_BUF + st_off;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < 16; ++q) {
+      uint32_t hi, lo;
+      split_tf32(xr[q], hi, lo);
+      *reinterpret_cast<uint32_t*>(base + q * 1024) = hi;
+      *reinterpret_cast<uint32_t*>(base + TG_PART + q * 1024) = lo;
+      split_tf32(dr[q], hi, lo);
+      *reinterpret_cast<uint32_t*>(base + 2 * TG_PART + q * 1024) = hi;
+      *reinterpret_cast<uint32_t*>(base + 3 * TG_PART + q * 1024) = lo;
+    }
+    fence_proxy_async();
+  };
+
+  const int g = tid / 128, t = tid % 128;
+  float acc[64], total[64];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        run[i][j] = t0 == 0 ? part[i][j] : run[i][j] + part[i][j];
+  for (int i = 0; i < 64; ++i) acc[i] = total[i] = 0.f;
+  // stage it's operands into its buffer, the next stage's loads in flight
+  auto stage = [&](int it) {
+    stash(it % 3);
+    if (it + 1 < stages) fetch(it + 1);
+    __syncthreads();  // the stage's operands are in place
+  };
+  // k8 step ks of stage it: lo.hi, hi.lo, hi.hi (scale_d 0 starts a tile)
+  auto products = [&](int it, int ks, int scale_d) {
+    const uint32_t a = smem_addr(sm + (it % 3) * TG_BUF) + g * (64 * 128) + ks * 32;
+    const uint32_t b = smem_addr(sm + (it % 3) * TG_BUF) + 2 * TG_PART + ks * 32;
+    WgmmaTF32::run(acc, desc(a + TG_PART, 16, ATOM), desc(b, 16, ATOM), scale_d);
+    WgmmaTF32::run(acc, desc(a, 16, ATOM), desc(b + TG_PART, 16, ATOM), 1);
+    WgmmaTF32::run(acc, desc(a, 16, ATOM), desc(b, 16, ATOM), 1);
+  };
+  if (stages > 0) fetch(0);
+  int it = 0;
+  if constexpr (WHOLE) {
+    const int per = block_t / TG_SR;
+    const int tiles = rows / block_t;
+    for (int tile = 0; tile < tiles; ++tile) {
+      for (int p = 0; p < per; ++p, ++it) {
+        stage(it);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < TG_SR / 8; ++ks) products(it, ks, p == 0 && ks == 0 ? 0 : 1);
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();  // the previous stage's batch has retired
+        fence_acc(acc);
+      }
+      wgmma_wait<0>();  // the tile's last batch, outside any branch
+      fence_acc(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) total[i] += acc[i];
+    }
+  } else {
+    const int tile_steps = block_t / 8;
+    int left = tile_steps, fresh = 1;
+    for (; it < stages; ++it) {
+      stage(it);
+#pragma unroll
+      for (int ks = 0; ks < TG_SR / 8; ++ks) {
+        fence_acc(acc);
+        wgmma_fence();
+        products(it, ks, fresh ? 0 : 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        fresh = --left == 0;
+        if (fresh) {  // a block_t tile ends: its partial joins the total
+          left = tile_steps;
+#pragma unroll
+          for (int i = 0; i < 64; ++i) total[i] += acc[i];
+        }
+      }
+    }
   }
-  float* out = dw + (size_t)e * K * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (k < K && n < N) out[(size_t)k * N + n] = run[i][j];
-    }
-}
 
+  // thread t: dW rows kr, kr + 8 and columns 8 j + 2 (t % 4) (+ 1) of its 64 x 128 block
+  const int kr = k0 + g * 64 + 16 * (t / 32) + (t % 32) / 4;
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = kr + 8 * h;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < TG_BN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * (t % 4);
+      float* o = out + static_cast<size_t>(k) * N + c;
+      const float v0 = total[4 * j + 2 * h], v1 = total[4 * j + 2 * h + 1];
+      if (pairs && c + 1 < N) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        if (c < N) o[0] = v0;
+        if (c + 1 < N) o[1] = v1;
+      }
+    }
+  }
+}
 
 // tgmm_bf16_wgmma_kernel ("wgmma"): tgmm in bf16 when block_t % 64 == 0,
 // K % 8 == 0, N % 8 == 0 and x, dy and dw are 16-byte aligned; other bf16
@@ -1172,7 +1332,7 @@ tgmm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 
 // ------------------------------------------------ host side of the wgmma path
 using wg::allow_smem;
-using wg::bf16_map;
+using wg::dense_map;
 
 // The wgmma kernels' preconditions: TMA needs 16-byte aligned bases and
 // row strides (K, N multiples of 8 bf16), the epilogue's 16-byte stores too.
@@ -1189,18 +1349,18 @@ int launch_gmm_wgmma(const void* x, const void* w, const int* gs, void* out, int
   CUtensorMap mx, mw;
   const cuuint64_t xd[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(T)};
   const cuuint32_t xb[2] = {wg::BK, BM};
-  int err = bf16_map(&mx, x, 2, xd, xb);
+  int err = dense_map(&mx, x, 2, xd, xb);
   if (err != 0) return err;
   if (WT) {  // w [E, N, K]: boxes of BN rows x 64
     const cuuint64_t wd[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(E)};
     const cuuint32_t wb[3] = {wg::BK, BN, 1};
-    err = bf16_map(&mw, w, 3, wd, wb);
+    err = dense_map(&mw, w, 3, wd, wb);
   } else {   // w [E, K, N]: boxes of 64 K-rows x 64 columns
     const cuuint64_t wd[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(E)};
     const cuuint32_t wb[3] = {wg::BOX, wg::BK, 1};
-    err = bf16_map(&mw, w, 3, wd, wb);
+    err = dense_map(&mw, w, 3, wd, wb);
   }
   if (err != 0) return err;
   const auto kernel = gmm_bf16_wgmma_kernel<NWG, BN, STAGES, WT>;
@@ -1214,6 +1374,20 @@ int launch_gmm_wgmma(const void* x, const void* w, const int* gs, void* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_tgmm_f32(const void* x, const void* dy, const int* gs, void* dw, int K, int N,
+                    int E, int block_t, cudaStream_t stream) {
+  const bool whole = block_t % TG_SR == 0;
+  const auto kernel = whole ? tgmm_f32_wgmma_kernel<true> : tgmm_f32_wgmma_kernel<false>;
+  static std::atomic<unsigned long long> ready[2];
+  const int err = allow_smem(ready[whole ? 1 : 0], kernel, TG_SMEM);
+  if (err != 0) return err;
+  const int k_tiles = (K + TG_BM - 1) / TG_BM, n_tiles = (N + TG_BN - 1) / TG_BN;
+  kernel<<<E * k_tiles * n_tiles, 256, TG_SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), gs,
+      static_cast<float*>(dw), K, N, E, block_t, k_tiles, n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int SR>
 int launch_tgmm_wgmma(const void* x, const void* dy, const int* gs, void* dw, int T,
                       int K, int N, int E, int block_t, cudaStream_t stream) {
@@ -1222,8 +1396,8 @@ int launch_tgmm_wgmma(const void* x, const void* dy, const int* gs, void* dw, in
   const cuuint32_t box[2] = {wg::BOX, SR};
   const cuuint64_t xd[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(T)};
   const cuuint64_t dd[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(T)};
-  int err = bf16_map(&mx, x, 2, xd, box);
-  if (err == 0) err = bf16_map(&md, dy, 2, dd, box);
+  int err = dense_map(&mx, x, 2, xd, box);
+  if (err == 0) err = dense_map(&md, dy, 2, dd, box);
   if (err != 0) return err;
   const auto kernel = tgmm_bf16_wgmma_kernel<BN, SR, STAGES>;
   constexpr int smem = tgmm_wg_smem<BN, SR, STAGES>();
@@ -1259,13 +1433,22 @@ int launch_tgmm_wgmma(const void* x, const void* dy, const int* gs, void* dw, in
 // What bounds it on an H100 SXM: at the MoE training path's gate/up
 // (T ~ 66K, K 512, N 1536) the bytes (int8 operands read once, a bf16
 // output written once: ~0.24 GB, 0.072 ms at 3.35 TB/s) against 0.10 TOP
-// at 1,979 int8 TOP/s (0.052 ms): bytes, barely. The design is the simple
-// one: mma.sync.m16n8k32 s8 with an s32 accumulator, both operands K-major
-// (the B operand's "col" layout is wqt's rows), 16-byte cp.async copies
-// into a 3-stage ring of 64-byte K slices whose shared rows are padded to
-// 80 bytes (the fragment loads, 4 bytes a thread, then hit 32 banks). A CTA
-// is 4 warps over BM (16, 32 or 64) rows x 128 columns; warp w owns columns
-// 32w..32w+31 over all BM rows. An s8 wgmma fed by TMA is later work.
+// at 1,979 int8 TOP/s (0.052 ms): bytes, barely.
+//
+// Two variants, chosen by the wrapper before launch from the shapes
+// (ops/grouped_matmul.py::gmm_int8_variant):
+//  - "wgmma" (block_t % 64 == 0, N % 8 == 0, 16-byte aligned operands; the
+//    training path's block_t 128): gmm_int8_wgmma_kernel, an s8 wgmma fed by
+//    a TMA ring (its note below).
+//  - "mma_sync" (block_t 16 or 32, or shapes outside the wgmma kernel's
+//    rules): gmm_int8_kernel, mma.sync.m16n8k32 s8 with an s32 accumulator,
+//    both operands K-major (the B operand's "col" layout is wqt's rows),
+//    16-byte cp.async copies into a 3-stage ring of 64-byte K slices whose
+//    shared rows are padded to 80 bytes (the fragment loads, 4 bytes a
+//    thread, then hit 32 banks). A CTA is 4 warps over BM (16, 32 or 64)
+//    rows x 128 columns; warp w owns columns 32w..32w+31 over all BM rows.
+//    wgmma has no row tile below 64, which would straddle two experts at
+//    block_t 16 or 32.
 constexpr int I8_BN = 128, I8_BK = 64, I8_LD = 80, I8_STAGES = 3, I8_WARPS = 4;
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
@@ -1422,6 +1605,210 @@ int launch_gmm_int8(const void* xq, const void* wqt, const int* gs, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
+// gmm_int8_wgmma_kernel ("wgmma"): gmm_int8 at block_t % 64 == 0. The same
+// function as gmm_int8_kernel, the int32 sums bit for bit (integer sums are
+// exact in any order).
+//
+// Design: gmm_bf16_wgmma_kernel's, in bytes. CTA tile BM x I8W_BN with
+// BM = 64 NWG rows (128 where block_t allows, else 64: a CTA never
+// straddles two experts); NWG consumer warpgroups each own 64 rows and
+// issue wgmma.m64nI8W_BNk32 .s32.s8.s8 (s32 accumulators in registers);
+// one producer warp (the last) keeps TMA loads in flight. An 8-bit wgmma
+// takes only K-major operands, and both are: xq [T, K] (one box of BM rows
+// x 128 bytes of K) and wqt [E, N, K] (one box of I8W_BN rows x 128 bytes,
+// a 3D tensor map, so a ragged N edge zero-fills and never reads the next
+// expert's rows). A ring of I8W_STAGES stages, 128-byte swizzle, full/empty
+// mbarriers; a warpgroup releases a stage once the wgmma group that read it
+// has retired (at most one group in flight), and no wgmma sits under a
+// branch. The grid is 1D with column tiles fastest (a row tile's CTAs run
+// together and read its x rows from HBM once). Tail tiles load nothing and
+// write zeros. Epilogue: (float(acc) * sx[r]) * sw[e, c] in fp32, then bf16
+// output staged through the idle ring and written with 16-byte stores
+// (fp32 output and the int32 sums, off the training path, straight from
+// registers).
+constexpr int I8W_BN = 256, I8W_STAGES = 4;
+constexpr int I8W_BK = 128;  // K bytes per stage: four k32 steps
+
+template <int NWG>
+constexpr int i8_wg_smem() {
+  return I8W_STAGES * (NWG * 64 + I8W_BN) * I8W_BK + wg::ATOM;
+}
+
+template <int NWG, typename OutT>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+gmm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w,
+                      const int* __restrict__ gs, const float* __restrict__ sx,
+                      const float* __restrict__ sw, OutT* __restrict__ out,
+                      int* __restrict__ acc32, int K, int N, int E, int col_tiles) {
+  using namespace wg;
+  constexpr int BN = I8W_BN, STAGES = I8W_STAGES, BM = NWG * 64;
+  constexpr int A_BYTES = BM * I8W_BK;
+  constexpr int B_BYTES = BN * I8W_BK;
+  constexpr int STAGE = A_BYTES + B_BYTES;
+  static_assert(NWG * 64 * (BN * 2 + 16) <= STAGES * STAGE, "epilogue staging fits the ring");
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ int s_expert;
+  __shared__ float s_sw[BN];  // the tile's column scales, for the epilogue
+  uint8_t* ring = ring_base(dyn_smem);
+
+  const int tid = threadIdx.x;
+  const size_t r0 = static_cast<size_t>(blockIdx.x / col_tiles) * BM;
+  const int n0 = (blockIdx.x % col_tiles) * BN;
+  if (tid == 0) {
+    s_expert = expert_of_row(gs, E, static_cast<int>(r0));
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int e = s_expert;
+  const int cols = min(BN, N - n0);
+  if (e < 0) {  // tail tile: zeros
+    for (int i = tid; i < BM * cols; i += blockDim.x) {
+      const size_t at = (r0 + i / cols) * N + n0 + i % cols;
+      out[at] = OutT(0.0f);
+      if (acc32 != nullptr) acc32[at] = 0;
+    }
+    return;
+  }
+  for (int i = tid; i < BN; i += blockDim.x)
+    s_sw[i] = i < cols ? sw[static_cast<size_t>(e) * N + n0 + i] : 0.f;
+  __syncthreads();
+  const int nk = (K + I8W_BK - 1) / I8W_BK;
+
+  if (tid / 32 == NWG * 4) {  // producer warp
+    if (tid % 32 == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        const uint32_t a = smem_addr(ring + s * STAGE), b = a + A_BYTES;
+        const uint32_t bar = smem_addr(&full[s]);
+        mbar_expect_tx(bar, STAGE);
+        tma_2d(a, &map_x, bar, kb * I8W_BK, static_cast<int>(r0));
+        tma_3d(b, &map_w, bar, kb * I8W_BK, n0, e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup g: rows [r0 + 64 g, r0 + 64 g + 64)
+  const int g = tid / 128, t = tid % 128;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % STAGES;
+    mbar_wait(&full[s], (kb / STAGES) & 1);
+    const uint32_t a = smem_addr(ring + s * STAGE) + g * (64 * I8W_BK);
+    const uint32_t b = smem_addr(ring + s * STAGE) + A_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < I8W_BK / 32; ++ks)
+      WgmmaS8<BN>::run(acc, desc(a + ks * 32, 16, ATOM), desc(b + ks * 32, 16, ATOM), 1);
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();  // the previous stage's group has retired
+    fence_acc(acc);
+    if (kb > 0 && t == 0) mbar_arrive(&empty[(kb - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // thread t: rows rr, rr + 8 and columns 8 j + 2 (t % 4) (+ 1) of its 64 x BN block
+  const size_t rr = r0 + g * 64 + 16 * (t / 32) + (t % 32) / 4;
+  const int cc = n0 + 2 * (t % 4);
+  if (acc32 != nullptr) {  // the sums, for a check (N is even: pairs)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = cc + 8 * j;
+      if (c < N) {
+        *reinterpret_cast<int2*>(acc32 + rr * N + c) = make_int2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<int2*>(acc32 + (rr + 8) * N + c) =
+            make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+  const float s_lo = sx[rr], s_hi = sx[rr + 8];
+  // (float(acc) * sx) * sw, JAX's order; columns past N give zeros, never
+  // stored. In groups of 8 columns' worth, each fenced from the next, so
+  // the compiler does not hoist every scale load at once (registers).
+  const auto scaled = [&](int j, float (&y)[4]) {
+    if (j % 4 == 0) asm volatile("" ::: "memory");
+    const int c = 8 * j + 2 * (t % 4);
+    const float w0 = s_sw[c], w1 = s_sw[c + 1];
+    y[0] = (static_cast<float>(acc[4 * j]) * s_lo) * w0;
+    y[1] = (static_cast<float>(acc[4 * j + 1]) * s_lo) * w1;
+    y[2] = (static_cast<float>(acc[4 * j + 2]) * s_hi) * w0;
+    y[3] = (static_cast<float>(acc[4 * j + 3]) * s_hi) * w1;
+  };
+  if constexpr (sizeof(OutT) == 4) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      float y[4];
+      scaled(j, y);
+      const int c = cc + 8 * j;
+      if (c < N) {
+        *reinterpret_cast<float2*>(out + rr * N + c) = make_float2(y[0], y[1]);
+        *reinterpret_cast<float2*>(out + (rr + 8) * N + c) = make_float2(y[2], y[3]);
+      }
+    }
+  } else {
+    uint32_t v[BN / 4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      float y[4];
+      scaled(j, y);
+      v[2 * j] = pack_bf16(y[0], y[1]);
+      v[2 * j + 1] = pack_bf16(y[2], y[3]);
+    }
+    bar_sync(1, NWG * 128);  // every warpgroup is past its last wgmma: the ring is idle
+    store_tile<BN>(v, ring + g * 64 * (BN * 2 + 16), reinterpret_cast<__nv_bfloat16*>(out),
+                   N, r0 + g * 64, 64, n0, cols, t, 2 + g);
+  }
+}
+
+template <int NWG>
+int launch_gmm_int8_wgmma(const void* xq, const void* wqt, const int* gs, const float* sx,
+                          const float* sw, void* out, int* acc32, int T, int K, int N, int E,
+                          int dtype, cudaStream_t stream) {
+  constexpr int BM = NWG * 64;
+  CUtensorMap mx, mw;
+  const cuuint64_t xd[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(T)};
+  const cuuint32_t xb[2] = {I8W_BK, BM};
+  int err = dense_map(&mx, xq, 2, xd, xb, 1);
+  if (err != 0) return err;
+  const cuuint64_t wd[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N),
+                            static_cast<cuuint64_t>(E)};
+  const cuuint32_t wb[3] = {I8W_BK, I8W_BN, 1};
+  err = dense_map(&mw, wqt, 3, wd, wb, 1);
+  if (err != 0) return err;
+  constexpr int smem = i8_wg_smem<NWG>();
+  const int col_tiles = (N + I8W_BN - 1) / I8W_BN;
+  const int blocks = col_tiles * (T / BM);
+  if (dtype == 1) {
+    const auto kernel = gmm_int8_wgmma_kernel<NWG, __nv_bfloat16>;
+    static std::atomic<unsigned long long> ready{0};
+    err = allow_smem(ready, kernel, smem);
+    if (err != 0) return err;
+    kernel<<<blocks, NWG * 128 + 32, smem, stream>>>(
+        mx, mw, gs, sx, sw, static_cast<__nv_bfloat16*>(out), acc32, K, N, E, col_tiles);
+  } else {
+    const auto kernel = gmm_int8_wgmma_kernel<NWG, float>;
+    static std::atomic<unsigned long long> ready{0};
+    err = allow_smem(ready, kernel, smem);
+    if (err != 0) return err;
+    kernel<<<blocks, NWG * 128 + 32, smem, stream>>>(
+        mx, mw, gs, sx, sw, static_cast<float*>(out), acc32, K, N, E, col_tiles);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16. bm: CTA row tile, dividing block_t: 16 or 32
@@ -1479,8 +1866,8 @@ extern "C" int gmm_f32_decode(const void* x, const void* w, const int* group_siz
   return static_cast<int>(cudaGetLastError());
 }
 
-// dw [E, K, N] from x [T, K] and dy [T, N] (one type). kernel: 0 = fp32,
-// 1 = bf16 on WMMA, 2 = bf16 on the TMA/wgmma kernel (block_t % 64 == 0,
+// dw [E, K, N] from x [T, K] and dy [T, N] (one type). kernel: 0 = fp32
+// (3xTF32 on wgmma), 1 = bf16 on WMMA, 2 = bf16 on the TMA/wgmma kernel (block_t % 64 == 0,
 // K, N multiples of 8, 16-byte aligned pointers: checked here). block_t: a
 // multiple of 8 dividing T and every group size. Returns a cudaError_t.
 extern "C" int tgmm_backward(const void* x, const void* dy,
@@ -1498,12 +1885,9 @@ extern "C" int tgmm_backward(const void* x, const void* dy,
                ? launch_tgmm_wgmma<128>(x, dy, group_sizes, dw, T, K, N, E, block_t, s)
                : launch_tgmm_wgmma<64>(x, dy, group_sizes, dw, T, K, N, E, block_t, s);
   }
+  if (kernel == 0) return launch_tgmm_f32(x, dy, group_sizes, dw, K, N, E, block_t, s);
   dim3 grid((N + TB - 1) / TB, (K + TB - 1) / TB, E);
-  if (kernel == 0) {
-    tgmm_f32_kernel<<<grid, 256, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy),
-        group_sizes, static_cast<float*>(dw), K, N, block_t);
-  } else if (kernel == 1) {
+  if (kernel == 1) {
     const bool vec = K % 8 == 0 && N % 8 == 0 &&
                      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(dy) % 16 == 0;
@@ -1522,17 +1906,30 @@ extern "C" int tgmm_backward(const void* x, const void* dy,
 
 // matmul_precision "int8": xq int8 [T, K], wqt int8 [E, N, K] (each expert's
 // quantized bank transposed, K-major), sx fp32 [T], sw fp32 [E, N]; out
-// [T, N] in dtype (0 = fp32, 1 = bf16); acc32 int32 [T, N] or null. bm: the
-// CTA row tile, 16, 32 or 64, dividing block_t; K a multiple of 64 (the
-// wrapper pads with zeros); 16-byte aligned xq and wqt. Returns a cudaError_t.
+// [T, N] in dtype (0 = fp32, 1 = bf16); acc32 int32 [T, N] or null. K a
+// multiple of 64 (the wrapper pads with zeros); 16-byte aligned xq and wqt.
+// variant 1 ("wgmma"): bm 64 or 128, dividing block_t; N a multiple of 8;
+// out and acc32 16-byte aligned (checked here). variant 0 ("mma_sync"): bm
+// 16, 32 or 64, dividing block_t. Returns a cudaError_t.
 extern "C" int gmm_int8(const void* xq, const void* wqt, const int* group_sizes,
                         const float* sx, const float* sw, void* out, int* acc32, int T,
-                        int K, int N, int E, int bm, int dtype, void* stream) {
+                        int K, int N, int E, int bm, int variant, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if (T <= 0 || K <= 0 || N <= 0 || E <= 0 || K % I8_BK != 0 || (dtype != 0 && dtype != 1) ||
-      !(bm == 16 || bm == 32 || bm == 64) || T % bm != 0 || !aligned(xq) || !aligned(wqt) ||
-      (N + I8_BN - 1) / I8_BN > 65535)
+      bm <= 0 || T % bm != 0 || !aligned(xq) || !aligned(wqt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 1) {
+    if (!(bm == 64 || bm == 128) || N % 8 != 0 || !aligned(out) ||
+        (acc32 != nullptr && !aligned(acc32)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return bm == 128
+               ? launch_gmm_int8_wgmma<2>(xq, wqt, group_sizes, sx, sw, out, acc32, T, K, N, E,
+                                          dtype, s)
+               : launch_gmm_int8_wgmma<1>(xq, wqt, group_sizes, sx, sw, out, acc32, T, K, N, E,
+                                          dtype, s);
+  }
+  if (variant != 0 || !(bm == 16 || bm == 32 || bm == 64) || (N + I8_BN - 1) / I8_BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 64) return launch_gmm_int8<64>(xq, wqt, group_sizes, sx, sw, out, acc32, T, K, N, E, dtype, s);
   if (bm == 32) return launch_gmm_int8<32>(xq, wqt, group_sizes, sx, sw, out, acc32, T, K, N, E, dtype, s);

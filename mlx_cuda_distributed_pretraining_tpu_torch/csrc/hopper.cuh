@@ -1,8 +1,9 @@
-// Hopper (sm_90a) machinery shared by csrc/grouped_matmul.cu (gmm, tgmm)
-// and csrc/flash_attention.cu (the flash kernels): swizzled TMA boxes (128
-// bytes by default; 64 and 32 for rows that narrow), full/empty mbarriers,
-// shared-memory wgmma descriptors, wgmma with both operands in shared memory
-// (SS) or A in registers (RS); cp.async copies and the 3xTF32 pieces of the
+// Hopper (sm_90a) machinery shared by csrc/grouped_matmul.cu (gmm, tgmm,
+// gmm_int8) and csrc/flash_attention.cu (the flash kernels): swizzled TMA
+// boxes (128 bytes by default; 64 and 32 for rows that narrow), full/empty
+// mbarriers, shared-memory wgmma descriptors, wgmma with both operands in
+// shared memory (SS: bf16, or s8 with s32 sums) or A in registers (RS);
+// cp.async copies and the 3xTF32 pieces of the
 // fp32 kernels (hi/lo split, mma.sync.m16n8k8); and, on the host, tensor
 // maps encoded by cuTensorMapEncodeTiled, looked up at run time (no -lcuda).
 // Header only; each source includes it and builds on its own.
@@ -145,6 +146,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, fp32 accumulators: thread t
 // of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns
@@ -232,6 +238,87 @@ struct Wgmma<256, TA, TB> {
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+
+// D[64 x 128] (+)= A[64 x 8] B[8 x 128], tf32 in (the low 13 bits of each
+// fp32 operand ignored), fp32 accumulators, in the accumulator layout
+// above. tf32 wgmma takes both operands K-major only (rows of 128 bytes:
+// 32 reduction elements, so a k8 step adds 32 bytes to the descriptor's
+// start). scale_d 0 overwrites D.
+struct WgmmaTF32 {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// Make this thread's shared-memory stores visible to the async proxy (a
+// wgmma that reads them next, after a barrier).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// D[64 x N] (+)= A[64 x 32] B[32 x N], s8 in, s32 accumulators (exact
+// integer sums), in the accumulator layout above. An 8-bit wgmma takes both
+// operands K-major only (rows of 128 bytes: 128 reduction elements, so a
+// k32 step adds 32 bytes to the descriptor's start, as a bf16 k16 step
+// does). scale_d 0 overwrites D.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<256> {
+  __device__ __forceinline__ static void run(int (&d)[128], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
@@ -497,16 +584,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over a bf16 array of rank 1 to 5 with a contiguous innermost
-// dimension: dims[i] elements along dimension i (innermost first),
-// strides[i] bytes between neighbours along dimension i + 1 (multiples of
-// 16, any order), boxes of box[i], the swizzle given (128 bytes unless
-// given; a box row may not be wider than the swizzle span), zeros out of
-// bounds. Returns a cudaError_t.
-inline int bf16_map_strided(CUtensorMap* map, const void* base, int rank,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box,
-                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+// A tensor map over an array of `type` elements (bf16, or bytes for the
+// int8 kernel) of rank 1 to 5 with a contiguous innermost dimension:
+// dims[i] elements along dimension i (innermost first), strides[i] bytes
+// between neighbours along dimension i + 1 (multiples of 16, any order),
+// boxes of box[i], the swizzle given (128 bytes unless given; a box row may
+// not be wider than the swizzle span), zeros out of bounds. Returns a
+// cudaError_t.
+inline int tensor_map_strided(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   // The driver checks base against the context current on this thread. A
@@ -518,20 +606,31 @@ inline int bf16_map_strided(CUtensorMap* map, const void* base, int rank,
   if (ce == cudaSuccess && attr.device >= 0) ce = cudaSetDevice(attr.device);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult r = enc(map, type, rank, const_cast<void*>(base),
                          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same over a row-major (fully contiguous) bf16 array of rank 2 or 3.
-inline int bf16_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint32_t* box) {
+inline int bf16_map_strided(CUtensorMap* map, const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return tensor_map_strided(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides,
+                            box, swizzle);
+}
+
+// The same over a row-major (fully contiguous) array of rank 2 or 3 with
+// `bytes` bytes an element: bf16 (2) or int8 (1).
+inline int dense_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                     const cuuint32_t* box, int bytes = 2) {
   cuuint64_t strides[2];
-  cuuint64_t bytes = 2;
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = bytes *= dims[i];
-  return bf16_map_strided(map, base, rank, dims, strides, box);
+  cuuint64_t span = bytes;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = span *= dims[i];
+  return tensor_map_strided(map, bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            base, rank, dims, strides, box);
 }
 
 // cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and

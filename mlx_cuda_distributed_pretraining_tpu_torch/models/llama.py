@@ -578,11 +578,14 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
     the same two remat segments: the JAX scan stacks the layers' params
     inside jit so XLA compiles one layer instead of ``num_layers``; it
     changes no number and no file layout, and eager PyTorch compiles
-    nothing, so there is nothing for it to do here."""
-    if overlap:
-        raise NotImplementedError("overlap_gather needs an fsdp mesh (ROADMAP queue 1 "
-                                  "item 10: multi-GPU); the port trains on one device")
-    del scan_layers  # the same loop either way (see the docstring)
+    nothing, so there is nothing for it to do here.
+
+    ``overlap`` (``system.overlap_gather``) only requests JAX's gathered-
+    weight schedule, which JAX runs only on an ``fsdp`` mesh axis > 1
+    (``parallel/overlap.py::can_overlap``) and otherwise runs this plain
+    loop. The port trains on one device (the trainer refuses a larger mesh:
+    ROADMAP queue 1 item 10), so the plain loop always runs."""
+    del scan_layers, overlap  # the same loop either way (see the docstring)
     wrap = remat_wrap(remat) if cache is None else None
     n_remat = int(round(args.num_layers * remat_ratio)) if wrap is not None else 0
     B, S = tokens.shape

@@ -32,11 +32,13 @@ of ``x_tile^T @ dy_tile``. Two versions of each function:
 
 ``precision="int8"`` (``model.matmul_precision``) runs :func:`gmm_int8`, the
 JAX package's ``_gmm_int8``: rows of x and columns of each expert's w are
-quantized to int8 with amax scales, the ``gmm_int8`` kernel of the same
-source (``mma.sync`` s8, int32 sums; :func:`gmm_int8_plain` on the CPU)
-contracts them, and the scales multiply the result. Its backward is
-straight-through and full precision: dX on the gmm kernels, dW on the fp32
-tgmm (see :class:`_GroupedMatmulInt8`).
+quantized to int8 with amax scales, the ``gmm_int8`` kernels of the same
+source (int32 sums: an s8 ``wgmma`` fed by TMA, or ``mma.sync`` s8 where
+block_t has no 64-row tile, :func:`gmm_int8_variant`;
+:func:`gmm_int8_plain` on the CPU) contract them, and the scales multiply
+the result. Its backward is straight-through and full precision: dX on the
+gmm kernels, dW on the fp32 tgmm (3xTF32 on ``wgmma``; see
+:class:`_GroupedMatmulInt8`).
 
 CPU tensors go to the plain versions and CUDA tensors to the kernels;
 anything else raises. No build or launch error falls back.
@@ -62,8 +64,10 @@ __all__ = [
     "build_library",
     "decode_plan",
     "gmm",
+    "GMM_INT8_VARIANTS",
     "gmm_int8",
     "gmm_int8_plain",
+    "gmm_int8_variant",
     "gmm_plain",
     "gmm_variant",
     "pick_block_t",
@@ -87,6 +91,8 @@ _DEC_ROWS, _DEC_COLS, _DEC_KC_MAX = 8, 128, 256
 _DEC_CTAS = 4 * 132  # work items a decode call aims for: ~4 per SM of an H100
 GMM_VARIANTS = ("wgmma", "wmma", "f32", "f32_decode")
 TGMM_VARIANTS = ("wgmma", "wmma", "f32")
+GMM_INT8_VARIANTS = ("wgmma", "mma_sync")
+_GMM_INT8_CODES = {"mma_sync": 0, "wgmma": 1}  # gmm_int8's variant argument
 _TGMM_CODES = {"f32": 0, "wmma": 1, "wgmma": 2}  # tgmm_backward's kernel argument
 
 
@@ -196,8 +202,9 @@ def gmm_variant(dtype: torch.dtype, block_t: int, K: int, N: int,
 def tgmm_variant(dtype: torch.dtype, block_t: int, K: int, N: int,
                  aligned: bool = True) -> str:
     """The kernel a CUDA :func:`tgmm` call launches: "wgmma" where
-    :func:`_takes_wgmma` holds, "wmma" for other bf16 calls, "f32" for
-    fp32 (``x [T, K]``, ``dy [T, N]``)."""
+    :func:`_takes_wgmma` holds, "wmma" for other bf16 calls, "f32" (3xTF32
+    on ``wgmma``, any block_t % 8 == 0) for fp32 (``x [T, K]``,
+    ``dy [T, N]``)."""
     if _dtype_checked(dtype) == torch.float32:
         return "f32"
     return "wgmma" if _takes_wgmma(dtype, block_t, K, N, aligned) else "wmma"
@@ -274,7 +281,8 @@ def _library():
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
             lib.gmm_int8.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -450,9 +458,26 @@ def gmm_int8_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     return _int8_epilogue(acc, sx, sw, group_sizes, block_t, x.dtype)
 
 
-def gmm_int8_bm(block_t: int) -> int:
-    """The ``gmm_int8`` kernel's CTA row tile: ``min(block_t, 64)``; block_t
-    must be a multiple of 16 (a CTA's m16 tiles stay inside one expert)."""
+def gmm_int8_variant(block_t: int, N: int, aligned: bool = True) -> str:
+    """The ``gmm_int8`` kernel a CUDA call launches, from its shapes alone:
+    "wgmma" (an s8 wgmma fed by TMA, 64- or 128-row CTA tiles) where
+    block_t % 64 == 0, the output width ``N`` is a multiple of 8 (its
+    16-byte stores) and every operand's ``data_ptr()`` is a multiple of 16;
+    else "mma_sync" (``mma.sync`` s8, 16- to 64-row tiles), which needs
+    block_t % 16 == 0 (a CTA's m16 tiles stay inside one expert)."""
+    if block_t % 64 == 0 and N % 8 == 0 and aligned:
+        return "wgmma"
+    if block_t % 16:
+        raise ValueError(f"the gmm_int8 kernel needs block_t % 16 == 0, got {block_t}")
+    return "mma_sync"
+
+
+def gmm_int8_bm(block_t: int, variant: str = "mma_sync") -> int:
+    """The ``gmm_int8`` kernel's CTA row tile, dividing block_t: "wgmma" 128
+    where block_t allows, else 64; "mma_sync" ``min(block_t, 64)``, block_t
+    a multiple of 16."""
+    if variant == "wgmma":
+        return 128 if block_t % 128 == 0 else 64
     if block_t % 16:
         raise ValueError(f"the gmm_int8 kernel needs block_t % 16 == 0, got {block_t}")
     return min(block_t, 64)
@@ -461,11 +486,12 @@ def gmm_int8_bm(block_t: int) -> int:
 def gmm_int8_kernel(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
                     sw: torch.Tensor, group_sizes: torch.Tensor, block_t: int,
                     dtype: torch.dtype, with_products: bool = False):
-    """One launch of the ``gmm_int8`` kernel on quantized operands (``xq``
-    int8 ``[T, K]``, ``sx`` fp32 ``[T, 1]``, ``wq`` int8 ``[E, K, N]``, ``sw``
-    fp32 ``[E, 1, N]``): the output ``[T, N]`` in ``dtype`` (fp32 or bf16),
-    and with ``with_products`` also the kernel's int32 sums. Counts the
-    launch in ``gmm_int8.launches``."""
+    """One launch of the :func:`gmm_int8_variant` kernel on quantized
+    operands (``xq`` int8 ``[T, K]``, ``sx`` fp32 ``[T, 1]``, ``wq`` int8
+    ``[E, K, N]``, ``sw`` fp32 ``[E, 1, N]``): the output ``[T, N]`` in
+    ``dtype`` (fp32 or bf16), and with ``with_products`` also the kernel's
+    int32 sums. Counts the launch in ``gmm_int8.launches`` and
+    ``gmm_int8.launches_by_variant``."""
     if xq.device.type != "cuda":
         raise ValueError(f"the gmm_int8 kernel takes CUDA tensors, got {xq.device}")
     if xq.dtype != torch.int8 or wq.dtype != torch.int8 or group_sizes.dtype != torch.int32:
@@ -478,8 +504,7 @@ def gmm_int8_kernel(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"gmm_int8 shapes {tuple(xq.shape)}, {tuple(wq.shape)}, "
                          f"{tuple(group_sizes.shape)}: T must be a multiple of block_t "
                          f"({block_t}; the moe dispatcher pads for this)")
-    bm = gmm_int8_bm(block_t)
-    pad = -K % 64  # the kernel takes K in 64-byte slices; zeros add nothing
+    pad = -K % 64  # the kernels take K in 64-byte slices; zeros add nothing
     wqt = wq.transpose(1, 2)
     if pad:
         xq, wqt = F.pad(xq, (0, pad)), F.pad(wqt, (0, pad))
@@ -488,13 +513,17 @@ def gmm_int8_kernel(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     sw = sw.reshape(E, N).float().contiguous()
     out = torch.empty((T, N), dtype=dtype, device=xq.device)
     acc = torch.empty((T, N), dtype=torch.int32, device=xq.device) if with_products else None
+    kind = gmm_int8_variant(block_t, N, _aligned(*(t for t in (xq, wqt, out, acc)
+                                                   if t is not None)))
     err = _library().gmm_int8(
         xq.data_ptr(), wqt.data_ptr(), group_sizes.data_ptr(), sx.data_ptr(),
         sw.data_ptr(), out.data_ptr(), None if acc is None else acc.data_ptr(),
-        T, K + pad, N, E, bm, _DTYPE_CODES[dtype], _stream(xq))
+        T, K + pad, N, E, gmm_int8_bm(block_t, kind), _GMM_INT8_CODES[kind],
+        _DTYPE_CODES[dtype], _stream(xq))
     if err != 0:
-        raise RuntimeError(f"gmm_int8 kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"gmm_int8 kernel ({kind}) launch failed with CUDA error {err}")
     gmm_int8.launches += 1
+    gmm_int8.launches_by_variant[kind] += 1
     return (out, acc) if with_products else out
 
 
@@ -538,7 +567,7 @@ def gmm_int8(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
              block_t: int) -> torch.Tensor:
     """``gmm`` under ``matmul_precision: int8``, differentiable
     (:class:`_GroupedMatmulInt8`). ``gmm_int8.launches`` counts the kernel's
-    launches."""
+    launches, ``gmm_int8.launches_by_variant`` each variant's."""
     return _GroupedMatmulInt8.apply(x, w, group_sizes, block_t)
 
 
@@ -592,6 +621,7 @@ def reset_launches() -> None:
     gmm.launches_by_variant = dict.fromkeys(GMM_VARIANTS, 0)
     gmm.launches_by_shape = {}
     tgmm.launches_by_variant = dict.fromkeys(TGMM_VARIANTS, 0)
+    gmm_int8.launches_by_variant = dict.fromkeys(GMM_INT8_VARIANTS, 0)
 
 
 reset_launches()

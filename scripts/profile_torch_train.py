@@ -42,7 +42,9 @@ then:
   kernel and by family (flash kernels, matrix products, the rest), kernels
   launched per step, and the device's idle share of the wall time. An MoE
   step's kernels split into gmm, tgmm, the dispatch's gathers, scatters and
-  sort, and the rest.
+  sort, and the rest; at ``matmul_precision: int8`` also gmm_int8 and the
+  copies that write int8 (the quantizers' casts, gmm_int8's transposed
+  weights).
 
 ``--root`` imports the port from another checkout (its kernels built
 there), to compare two trees in turns on one card. Prints one JSON object
@@ -201,6 +203,8 @@ def family(name: str) -> str:
     if kernel:
         return kernel.group(0)
     n = name.lower()
+    if "copy" in n and "signed char" in n:  # the int8 path's casts to int8 and weight transposes
+        return "int8 casts and copies (quantizers, gmm_int8's transposed weights)"
     if any(k in n for k in ("gemm", "nvjet", "sm90", "cutlass", "xmma")):
         return "matrix products (cuBLAS)"
     if any(k in n for k in ("index", "scatter", "gather", "sort", "radix")):
@@ -351,6 +355,7 @@ def main(argv=None) -> int:
         "gmm_int8_launches_per_step": gm.gmm_int8.launches / a.steps,
         "gmm_launches_by_variant": gm.gmm.launches_by_variant,
         "tgmm_launches_by_variant": gm.tgmm.launches_by_variant,
+        "gmm_int8_launches_by_variant": getattr(gm.gmm_int8, "launches_by_variant", None),
         "families_ms_per_step": {
             n: {"ms": v[0] / a.steps, "launches": v[1] / a.steps}
             for n, v in sorted(families.items(), key=lambda kv: -kv[1][0])},

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Device times of the port's fp32 serving gmm kernels, tgmm and the flash
-backward kernels at their paths' shapes, from one checkout: to compare two
-trees on one card.
+"""Device times of the port's fp32 serving gmm kernels, tgmm, the int8
+training path's kernels and the flash backward kernels at their paths'
+shapes, from one checkout: to compare two trees on one card.
 
     python3 scripts/time_kernels.py [--root DIR] [--reps 20]
-                                    [--shapes all|serve|train|flash] [--out f.json]
+                                    [--shapes all|serve|train|flash|int8] [--out f.json]
 
 Imports the port from ``--root`` (default: the checkout holding this
 script), so its kernels are built from that tree's ``csrc/`` into that
@@ -33,7 +33,15 @@ tree's ``build/kernels/``. The shapes:
   cases (B 4, H 8, S 1024, D 64; B 2, H 8 over 2 KV heads, S 1000, D 64;
   B 2, H 8, S 1024, D 128; causal): the three fp32 kernels (in an older
   tree, the SIMT kernels they replaced). Each kernel runs the variant its tree's
-  ``flash_variant`` picks (the JSON's ``variants`` counts them).
+  ``flash_variant`` picks (the JSON's ``variants`` counts them);
+- ``--shapes int8`` alone: the kernels of ``matmul_precision: int8``
+  training at its shapes (the MoE training routing draw, block_t 128): the
+  fp32 tgmm of its dW on fp32 copies of bf16 values, gate/up (x [T, 512],
+  dy [T, 1536]) and down (x [T, 1536], dy [T, 512]), and ``gmm_int8``
+  (bf16 out) at gate/up (xq [T, 512], wq [8, 512, 1536]) and down, each
+  as the tree's wrapper launches it (in an older tree, the SIMT fp32 tgmm
+  and the ``mma.sync`` gmm_int8); beside them the wrapper's transposed
+  copy of the int8 weights (``wq.transpose(1, 2).contiguous()``).
 
 Each time is the mean over ``--reps`` back-to-back launches between CUDA
 events, after warm-up. To compare a change with its parent, unpack the
@@ -84,8 +92,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--shapes", choices=("all", "serve", "train", "flash"), default="all",
-                    help="the serving path's fp32 gmm, the training path's kernels, or both")
+    ap.add_argument("--shapes", choices=("all", "serve", "train", "flash", "int8"),
+                    default="all",
+                    help="the serving path's fp32 gmm, the training path's kernels, or both; "
+                         "the flash kernels; the int8 training path's kernels")
     ap.add_argument("--out", default=None)
     opts = ap.parse_args()
     import torch
@@ -144,6 +154,26 @@ def main() -> int:
         del big
     if opts.shapes == "serve":
         return report(out, gm, fa, opts)
+    if opts.shapes == "int8":
+        gsd = sizes.to("cuda")
+        for tag, K, N in (("gate_up", 512, 1536), ("down", 1536, 512)):
+            x = torch.randn(rows, K, generator=g).to("cuda", torch.bfloat16)
+            x[int(sizes.sum()):] = 0
+            dy = torch.randn(rows, N, generator=g).to("cuda", torch.bfloat16)
+            x32, dy32 = x.float(), dy.float()
+            out["ms"][f"tgmm_f32_{tag}"] = device_ms(
+                torch, lambda _: gm.tgmm(x32, dy32, gsd, EXPERTS, BLOCK_T), opts.reps)
+            del x32, dy32, dy
+            w = (torch.randn(EXPERTS, K, N, generator=g) / K ** 0.5).to("cuda", torch.bfloat16)
+            xq, sx = gm._quantize_rows_int8(x)
+            wq, sw = gm._quantize_cols_int8(w)
+            out["ms"][f"gmm_int8_{tag}"] = device_ms(
+                torch, lambda _: gm.gmm_int8_kernel(xq, sx, wq, sw, gsd, BLOCK_T,
+                                                    torch.bfloat16), opts.reps)
+            out["ms"][f"gmm_int8_weight_transpose_{tag}"] = device_ms(
+                torch, lambda _: wq.transpose(1, 2).contiguous(), opts.reps)
+            del x, w, xq, wq
+        return report(out, gm, fa, opts)
     if opts.shapes == "flash":
         flex = dict(mask_type="sliding_window", window=128, score_mod="alibi", score_arg=6.0)
         bf16, fp32 = torch.bfloat16, torch.float32
@@ -192,6 +222,7 @@ def main() -> int:
 def report(out, gm, fa, opts) -> int:
     out["variants"] = {"gmm": dict(gm.gmm.launches_by_variant),
                        "tgmm": dict(gm.tgmm.launches_by_variant),
+                       "gmm_int8": dict(getattr(gm.gmm_int8, "launches_by_variant", {})),
                        **{n: dict(getattr(fa, n).launches_by_variant)
                           for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
     line = json.dumps(out)

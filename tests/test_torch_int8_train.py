@@ -141,12 +141,36 @@ def test_gmm_int8_quantizers_match_jax():
 
 def test_gmm_int8_kernel_row_tile():
     assert [tgm.gmm_int8_bm(b) for b in (16, 32, 64, 128)] == [16, 32, 64, 64]
+    assert [tgm.gmm_int8_bm(b, "wgmma") for b in (64, 128, 256)] == [64, 128, 128]
     with pytest.raises(ValueError, match="block_t"):
         tgm.gmm_int8_bm(8)
     with pytest.raises(ValueError, match="CUDA"):
         tgm.gmm_int8_kernel(torch.zeros(16, 64, dtype=torch.int8), torch.ones(16, 1),
                             torch.zeros(1, 64, 8, dtype=torch.int8), torch.ones(1, 1, 8),
                             torch.tensor([16], dtype=torch.int32), 16, torch.float32)
+
+
+@pytest.mark.parametrize("block_t,N,aligned,want", [
+    (128, 1536, True, "wgmma"),      # the MoE training path: 128-row wgmma tiles
+    (64, 512, True, "wgmma"),
+    (256, 72, True, "wgmma"),
+    (32, 1536, True, "mma_sync"),    # no 64-row wgmma tile inside a 32-row group
+    (16, 512, True, "mma_sync"),
+    (128, 36, True, "mma_sync"),     # the 16-byte epilogue stores need N % 8 == 0
+    (128, 1536, False, "mma_sync"),  # TMA needs 16-byte aligned operands
+])
+def test_gmm_int8_variant_choice(block_t, N, aligned, want):
+    assert tgm.gmm_int8_variant(block_t, N, aligned) == want
+    assert want in tgm.GMM_INT8_VARIANTS
+
+
+def test_gmm_int8_variant_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="block_t"):
+        tgm.gmm_int8_variant(8, 512)
+    with pytest.raises(ValueError, match="block_t"):
+        tgm.gmm_int8_variant(96 + 8, 512)
+    tgm.reset_launches()
+    assert tgm.gmm_int8.launches_by_variant == {"wgmma": 0, "mma_sync": 0}
 
 
 # -- int8 over flash attention ------------------------------------------------

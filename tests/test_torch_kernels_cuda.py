@@ -1092,3 +1092,136 @@ def test_gmm_int8_kernel_rejects_bad_input(cuda):
         tgm.gmm_int8_kernel(xq.float(), sx, wq, sw, gs, 16, x.dtype)
     with pytest.raises(TypeError):
         tgm.gmm_int8_kernel(xq, sx, wq, sw, gs, 16, torch.float16)
+
+
+# -- the int8 training path's two kernels at its shapes --------------------------
+# moe-8x40m int8 training: B 32 x S 1024 x top-2 = 65,536 selections routed
+# over 8 experts, block_t 128, in a 66,560-row buffer (chip_smoke.py's
+# routing draw); gate/up K 512, N 1536 and down K 1536, N 512.
+PATH_SELECTIONS, PATH_BLOCK_T, PATH_EXPERTS = 65536, 128, 8
+
+
+def _path_sizes(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    counts = torch.bincount(torch.randint(0, PATH_EXPERTS, (PATH_SELECTIONS,), generator=g),
+                            minlength=PATH_EXPERTS)
+    sizes = (counts + PATH_BLOCK_T - 1) // PATH_BLOCK_T * PATH_BLOCK_T
+    rows = tgm.round_up(PATH_SELECTIONS + PATH_EXPERTS * (PATH_BLOCK_T - 1), PATH_BLOCK_T)
+    return sizes.tolist(), rows - int(sizes.sum())
+
+
+def _f32_tgmm_inputs(sizes, tail, K, N, bf16_exact, seed=21):
+    """x [T, K] and dy [T, N] in fp32 on the card: fp32 copies of bf16
+    values (the int8 path's dW operands) or general fp32 values."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T = sum(sizes) + tail
+    x = torch.randn(T, K, device="cuda", generator=g)
+    dy = torch.randn(T, N, device="cuda", generator=g)
+    x[sum(sizes):] = 0.0
+    if bf16_exact:
+        x, dy = x.bfloat16().float(), dy.bfloat16().float()
+    return x, dy, torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def _tgmm_float64(x, dy, gs, E, block_t):
+    return kernel_check.reference(tgm.tgmm_plain, x, dy, gs, E, block_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_exact", [True, False])
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512)])
+def test_f32_tgmm_at_the_int8_path_shapes_against_float64(cuda, K, N, bf16_exact):
+    # The 3xTF32 tgmm ("f32") at the int8 path's dW shapes, held to the
+    # plain version evaluated in float64 (kernel_check.reference) through
+    # the fp32 gate, with the fp32 plain version's own error beside it;
+    # two launches give the same bits; the planted fault is rejected.
+    sizes, tail = _path_sizes()
+    x, dy, gs = _f32_tgmm_inputs(sizes, tail, K, N, bf16_exact)
+    E = len(sizes)
+    tgm.reset_launches()
+    dw = tgm.tgmm(x, dy, gs, E, PATH_BLOCK_T)
+    torch.cuda.synchronize()
+    assert tgm.tgmm.launches_by_variant["f32"] == 1
+    ref = _tgmm_float64(x, dy, gs, E, PATH_BLOCK_T)
+    check = kernel_check.compare_experts(dw, ref)
+    plain = kernel_check.compare_experts(tgm.tgmm_plain(x, dy, gs, E, PATH_BLOCK_T), ref)
+    print(f"f32 tgmm K {K} N {N} bf16-exact {bf16_exact}: normwise {check['norm_err']:.3g} "
+          f"limit_ratio {check['limit_ratio']:.3g}; fp32 plain normwise "
+          f"{plain['norm_err']:.3g} limit_ratio {plain['limit_ratio']:.3g}")
+    assert check["ok"], check
+    assert torch.equal(dw, tgm.tgmm(x, dy, gs, E, PATH_BLOCK_T)), "bitwise repeat"
+    bad = kernel_check.tgmm_skipping_a_tile(x, dy, gs, E, PATH_BLOCK_T)
+    assert not kernel_check.compare_experts(bad, ref)["ok"]
+
+
+# (block_t, group sizes, tail rows): empty experts and a tail tile; one
+# expert holding half the rows; the smoke's block_t 32 case; block_t 8 and
+# 24 (a tile that ends inside a 32-row ring stage).
+F32_TGMM_EDGES = [
+    (128, [1024, 0, 256, 0, 0, 384, 128, 0], 256),
+    (128, [4096, 640, 512, 640, 512, 640, 512, 640], 128),
+    (32, [96, 160, 0, 32, 224, 64, 0, 128], 64),
+    (8, [8, 0, 40, 8, 0, 16], 24),
+    (24, [48, 0, 72, 24], 48),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_t,sizes,tail", F32_TGMM_EDGES)
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512), (200, 72), (100, 36)])
+def test_f32_tgmm_edges_against_float64(cuda, block_t, sizes, tail, K, N):
+    x, dy, gs = _f32_tgmm_inputs(sizes, tail, K, N, bf16_exact=False, seed=block_t)
+    E = len(sizes)
+    if K == 100:  # x 4 bytes past a 16-byte boundary: the kernel's 4-byte copies
+        x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    dw = tgm.tgmm(x, dy, gs, E, block_t)
+    ref = _tgmm_float64(x, dy, gs, E, block_t)
+    check = kernel_check.compare_experts(dw, ref)
+    assert check["ok"], check
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert not dw[e].any(), f"empty expert {e} must be exact zeros"
+    assert torch.equal(dw, tgm.tgmm(x, dy, gs, E, block_t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512)])
+def test_gmm_int8_wgmma_at_the_path_shapes_matches_plain_bitwise(cuda, K, N):
+    # gmm_int8 at the int8 path's shapes runs the s8 wgmma kernel; its int32
+    # sums equal the plain version's bit for bit and its bf16 output the
+    # plain epilogue's; the planted fault is rejected.
+    sizes, tail = _path_sizes()
+    x, w, gs = _int8_inputs("bfloat16", sizes, tail, K, N)
+    ops = kernel_check.int8_operands(x, w)
+    tgm.reset_launches()
+    out, acc = tgm.gmm_int8_kernel(*ops, gs, PATH_BLOCK_T, x.dtype, with_products=True)
+    torch.cuda.synchronize()
+    assert tgm.gmm_int8.launches_by_variant == {"wgmma": 1, "mma_sync": 0}
+    ref_acc, ref_out = kernel_check.gmm_int8_plain_outputs(*ops, gs, PATH_BLOCK_T, x.dtype)
+    check = kernel_check.compare_int8(acc, out, ref_acc, ref_out)
+    assert check["int32_equal"] and check["ok"], check
+    assert torch.equal(out, ref_out)
+    bad = kernel_check.compare_int8(*kernel_check.gmm_int8_skipping_a_tile(
+        *ops, gs, PATH_BLOCK_T, x.dtype), ref_acc, ref_out)
+    assert not bad["ok"] and not bad["int32_equal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_t,sizes,tail", INT8_CASES)
+def test_gmm_int8_variant_follows_the_shapes(cuda, block_t, sizes, tail):
+    # wgmma at block_t 64 and 128, mma.sync at 16 and 32 (no wgmma row tile
+    # below 64), and mma.sync where N is not a multiple of 8; each launch
+    # counted under its variant, every one bitwise the plain version's.
+    for K, N in ((512, 1536), (96, 36)):
+        x, w, gs = _int8_inputs("bfloat16", sizes, tail, K, N)
+        ops = kernel_check.int8_operands(x, w)
+        want = tgm.gmm_int8_variant(block_t, N)
+        assert want == ("wgmma" if block_t % 64 == 0 and N % 8 == 0 else "mma_sync")
+        tgm.reset_launches()
+        out, acc = tgm.gmm_int8_kernel(*ops, gs, block_t, x.dtype, with_products=True)
+        torch.cuda.synchronize()
+        assert tgm.gmm_int8.launches_by_variant == {**dict.fromkeys(
+            tgm.GMM_INT8_VARIANTS, 0), want: 1}
+        ref_acc, ref_out = kernel_check.gmm_int8_plain_outputs(*ops, gs, block_t, x.dtype)
+        assert torch.equal(acc, ref_acc) and torch.equal(out, ref_out)

@@ -484,15 +484,79 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     tr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r2"),
                  quiet=True, device="cpu")
     assert type(tr.data) is TData
-    # overlap_gather schedules an fsdp mesh's all-gathers (remat,
-    # scan_layers and the fused CE, refused here before, now train:
+    # overlap_gather schedules an fsdp mesh's all-gathers, which JAX runs
+    # only on an fsdp axis > 1: a mesh of more devices is refused above,
+    # and on one device the switch trains the plain layer loop, as in JAX
+    # (test_overlap_gather_on_one_device_trains_as_jax; remat, scan_layers
+    # and the fused CE, refused here before, train too:
     # tests/test_torch_remat.py)
-    d = _config_dict(tmp_path)
+    d = _config_dict(tmp_path, iters=2)
     d["system"]["overlap_gather"] = True
     tr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r3"),
                  quiet=True, device="cpu")
+    assert tr.train()["steps"] == 2
+    d["system"]["mesh"] = {"fsdp": 2}
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        tr.train()
+        Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r4"),
+                quiet=True, device="cpu")
+
+
+def test_overlap_gather_on_one_device_trains_as_jax(tmp_path, monkeypatch):
+    """``configs/model-config-1b-fsdp.yaml``'s switches (``mesh: {fsdp: -1}``,
+    ``overlap_gather``) on one device, at the sample config cut to 2 layers
+    of hidden 32: JAX's ``can_overlap`` finds no fsdp axis > 1 and runs the
+    plain loop; the port trains the same 5 steps from JAX's initial weights
+    (carried across with ``convert.params_from_jax``), losses within 1e-5."""
+    import mlx_cuda_distributed_pretraining_tpu.train.trainer as jtrainer
+    from mlx_cuda_distributed_pretraining_tpu.parallel import mesh as jmesh
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "configs", "model-config-sample.yaml")) as f:
+        d = yaml.safe_load(f)
+    tiny = _config_dict(tmp_path, name="overlap1", iters=5)
+    d["name"], d["data"] = tiny["name"], tiny["data"]
+    d["model"]["dimensions"] = {"hidden_size": 32, "intermediate_size": 64,
+                                "num_layers": 2}
+    d["model"]["attention"].update(num_heads=4, max_position_embeddings=SEQ)
+    d["training"]["hyperparameters"].update(batch_size=4, iters=5)
+    d["training"]["epochs"] = None
+    d["logging"] = {"steps": {"logging_interval": 1, "checkpoint_interval": 100,
+                              "validation_interval": 0}}
+    d["system"] = {"seed": 0, "device": "cpu", "mesh": {"fsdp": -1},
+                   "overlap_gather": True, "scan_layers": True}
+    # one device, as on one card (the harness's CPU platform has eight)
+    monkeypatch.setattr(jtrainer, "build_mesh", lambda system_cfg: jmesh.build_mesh(
+        system_cfg, devices=jax.devices()[:1]))
+
+    def capture(trainer):
+        out = {}
+        real = trainer.logger.log_metrics
+
+        def log_metrics(step, line):
+            out[step] = float(line["loss"])
+            real(step, line)
+
+        trainer.logger.log_metrics = log_metrics
+        return out
+
+    jtr = jtrainer.Trainer(JConfig.from_dict(d), runs_root=str(tmp_path / "jr"),
+                           quiet=True)
+    assert jtr.mesh.shape == {"fsdp": 1} and jtr.overlap_gather
+    start = jax.tree_util.tree_map(np.asarray, jtr.state["params"])
+    ttr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "tr"), quiet=True,
+                  device="cpu")
+    with torch.no_grad():
+        src = _torch_flat(params_from_jax(start, "cpu"))
+        live = _torch_flat(ttr.state["params"])
+        assert sorted(src) == sorted(live)
+        for key, leaf in live.items():
+            leaf.copy_(src[key])
+    want, got = capture(jtr), capture(ttr)
+    jtr.train()
+    assert ttr.train()["steps"] == 5
+    assert sorted(got) == sorted(want) == [1, 2, 3, 4, 5]
+    np.testing.assert_allclose([got[s] for s in range(1, 6)],
+                               [want[s] for s in range(1, 6)], rtol=1e-5)
 
 
 # (config path, value, ROADMAP queue 1 item that ported it): switches with
