@@ -59,7 +59,11 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    chunks. Checks the responses, the gmm launch count (3 per layer per
    prefill chunk and per decode step: every prefill launch on "f32", every
    decode launch on "f32_decode") and the first token's logits against the
-   port's plain path on the CPU.
+   port's plain path on the CPU. The engine's tracer is on and its registry
+   is served on a metrics port: every request sends an ``X-Trace-Id``, and
+   ``GET /trace`` must hold one ``request`` span per request carrying it;
+   ``GET /metrics`` and the Prometheus exposition must count every request
+   in ``serve_ttft_ms``. The decode tok/s printed is with the tracer on.
 4b. generate — the locked generation path on the same weights, batch 1:
    greedy ``generate_step`` on the serving phase's three greedy prompts
    must give the batch engine's tokens, and the first one's logprob the
@@ -227,6 +231,27 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    Phase 3's ``path_80m`` case holds the three flash kernels at this
    path's shape (B 32, Hq 16, Hkv 8, S 2048, D 64, bf16, causal) with a
    planted fault.
+9b. telemetry — moe-8x40m as phase 6 (its config, seed and corpus, written
+   as JSON; checkpoints every 10 steps, blocking; spans, events, a metrics
+   port and a ``torch.profiler`` window over steps 12-14 on; the
+   supervisor's hang timeout 30 s) trained 30 steps through the trainer CLI
+   with ``--auto-resume``, so the port's supervisor runs it in a child
+   process. Once step 10's manifest lands the child is SIGKILLed; once step
+   20's lands its exposition is scraped and it is SIGSTOPped, a hang only
+   the watchdog's SIGKILL ends. The supervisor must exit 0 with 2 restarts
+   and 1 hang. Every logged loss must be phase 6's at its step within 1e-5
+   relative (whether they agree at the events' 6 decimals is printed);
+   ``events.jsonl`` must hold two ``restart`` events with ``lost_s`` > 0,
+   one ``hang`` fault, resumes at 10 and 20 and ``run_end`` at 30; the
+   scrape ``train_step`` > 0, the token counter, the goodput seconds, the
+   MoE gauges and the prefetcher's metrics; the profile a trace under
+   ``profile/`` and a ``prof_summary.json`` whose fractions sum to 1
+   within 1e-6, whose op table holds the five bf16 kernels at 3x phase
+   6's launches per step (so the child ran the Hopper kernels); the spans
+   of each window in ``trace.json`` their goodput fields within 1e-6 s.
+   Prints the phase's seconds, each restart's ``lost_s``, and the steady
+   step ms and tok/s (windows with no compile, save, eval or profiled step)
+   beside phase 6's.
 10. report — a ``{"kernels": [...]}`` line (each kernel with the earlier
    kernel's ms where this run timed one, each flash kernel with its
    launches by variant in the 1B run and its launches on each training
@@ -1225,18 +1250,39 @@ def flash_kernel_phase(torch, gm, fa):
 
 
 # -- phase 4: the serving path ----------------------------------------------------
-def post(url: str, body: dict, timeout: float = 600.0, path: str = "/generate"):
+def post(url: str, body: dict, timeout: float = 600.0, path: str = "/generate",
+         headers: dict = None):
     import urllib.error
     import urllib.request
 
     req = urllib.request.Request(
         url + path, data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
             return resp.status, json.loads(resp.read())
     except urllib.error.HTTPError as e:
         return e.code, {"error": e.read().decode(errors="replace")}
+
+
+def get_url(url: str, timeout: float = 60.0):
+    """``(status, body bytes)`` of a GET."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def trace_ids(n: int):
+    return ["%032x" % (0x5EED0000 + i) for i in range(n)]
 
 
 def cpu_first_logits(torch, args, params_cpu, prompt_ids):
@@ -1284,9 +1330,10 @@ def path_phase(torch, gm, fa, card):
     log(f"path: moe-8x40m {n_params / 1e6:.1f}M params fp32 on cuda "
         f"({time.perf_counter() - t0:.1f}s to draw)")
     service = InferenceService(params, args, tok, run_name="moe-8x40m-random")
+    metrics_port = free_port()
     engine = service.attach_engine(EngineConfig(
         num_slots=8, max_len=1024, block_size=32, prefix_cache=True,
-        prefill_chunk=256))
+        prefill_chunk=256, trace=True, metrics_port=metrics_port))
     httpd = serve(service, port=0)
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     prefix = ("In the port of a serving system, every request shares this "
@@ -1305,20 +1352,23 @@ def path_phase(torch, gm, fa, card):
         {"prompt": "An unrelated greedy prompt about grouped GEMMs.",
          "max_tokens": 32},
     ]
+    # every request (the warm-up too) sends its own trace id
+    ids = trace_ids(len(bodies) + 1)
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_launches(gm, fa)  # count from here: the path's run only
         c0, d0 = engine.prefill_chunks, engine.decode_steps
-        warm = post(url, {"prompt": "warm up", "max_tokens": 2})
+        warm = post(url, {"prompt": "warm up", "max_tokens": 2},
+                    headers={"X-Trace-Id": ids[-1]})
         if warm[0] != 200:
             failures.append(f"warm-up request: HTTP {warm[0]} {warm[1]}")
         t_single = time.perf_counter()
-        results = [post(url, bodies[0])]
+        results = [post(url, bodies[0], headers={"X-Trace-Id": ids[0]})]
         t_single = time.perf_counter() - t_single
         box = {}
 
         def run(i):
-            box[i] = post(url, bodies[i])
+            box[i] = post(url, bodies[i], headers={"X-Trace-Id": ids[i]})
 
         threads = [threading.Thread(target=run, args=(i,))
                    for i in range(1, len(bodies))]
@@ -1336,6 +1386,7 @@ def path_phase(torch, gm, fa, card):
         chunks = engine.prefill_chunks - c0
         steps = engine.decode_steps - d0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        failures += served_telemetry(url, metrics_port, ids)
         metrics = engine.metrics()
     finally:
         httpd.shutdown()
@@ -1405,6 +1456,7 @@ def path_phase(torch, gm, fa, card):
         "prefill_chunks": chunks, "decode_steps": steps,
         "gmm_launches": launches, "gmm_launches_by_variant": variants,
         "prefix_cache_hit_rate": metrics.get("prefix_cache_hit_rate"),
+        "trace": True,
     }
     for k, v in perf.items():
         log(f"path: {k}={v} [{card}]")
@@ -1415,6 +1467,40 @@ def path_phase(torch, gm, fa, card):
               "greedy": [(bodies[i]["prompt"], results[i][1]["token_ids"])
                          for i in (0, 1, 4)]}
     return failures, perf, served
+
+
+def served_telemetry(url: str, metrics_port: int, ids) -> list:
+    """The serving phase's telemetry gates: ``GET /trace`` holds one
+    ``request`` span per request, carrying the trace id it was sent with;
+    ``GET /metrics`` and the Prometheus exposition count every request in
+    ``serve_ttft_ms``."""
+    failures = []
+    _, body = get_url(url + "/trace")
+    spans = [e for e in json.loads(body)["traceEvents"] if e.get("name") == "request"]
+    got = sorted(e["args"].get("trace_id") for e in spans)
+    log(f"serve telemetry: /trace holds {len(spans)} request spans over "
+        f"{len(json.loads(body)['traceEvents'])} events")
+    if got != sorted(ids):
+        failures.append(f"serve: /trace request spans carry {got}, not the ids sent {ids}")
+    m, text = {}, ""
+    for _ in range(60):  # the engine mirrors its TTFT histogram every second
+        _, body = get_url(url + "/metrics")
+        m = json.loads(body)
+        if m.get("ttft_ms_count") == len(ids):
+            break
+        time.sleep(0.1)
+    _, raw = get_url(f"http://127.0.0.1:{metrics_port}/metrics")
+    text = raw.decode()
+    count_line = f"serve_ttft_ms_count {len(ids)}"
+    log(f"serve telemetry: /metrics ttft_ms_count={m.get('ttft_ms_count')} "
+        f"ttft_ms_sum={m.get('ttft_ms_sum')} ttft_ms_p50={m.get('ttft_ms_p50')}; "
+        f"Prometheus has '{count_line}': {count_line in text.splitlines()}")
+    if m.get("ttft_ms_count") != len(ids) or not m.get("ttft_ms_sum"):
+        failures.append(f"serve: /metrics ttft_ms_count {m.get('ttft_ms_count')} != "
+                        f"{len(ids)} requests served")
+    if count_line not in text.splitlines():
+        failures.append(f"serve: the Prometheus exposition lacks '{count_line}'")
+    return failures
 
 
 # -- phase 4b: the locked generation path ------------------------------------------
@@ -2523,7 +2609,8 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             f"launches {launches}")
         for w in windows:
             log(f"moe: step {w['step']} moe_entropy={w.get('moe_entropy')} "
-                f"moe_drop={w.get('moe_drop')} moe_load_max={w.get('moe_load_max')}")
+                f"moe_drop={w.get('moe_drop')} moe_load_max={w.get('moe_load_max')} "
+                f"seconds={w['seconds']:.4f} dispatch_s={w['dispatch_s']:.4f}")
         if not all(math.isfinite(x) for x in losses) or len(losses) != steps // 5:
             failures.append(f"moe: bad loss log {losses}")
         elif not losses[-1] < 0.9 * losses[0]:
@@ -2564,11 +2651,290 @@ def moe_train_phase(torch, gm, fa, card, steps: int = 30, warmup: int = 10):
             "flops_per_token": flops_per_token,
             "peak_mem_gb": peak_gb, "first_window_s": windows[0]["seconds"],
             "losses": losses, "launches": launches, "launches_by_variant": variants,
+            "losses_by_step": {w["step"]: w["loss"] for w in windows},
+            "steps": steps, "layers": layers, "validation_batches": vb,
             "first_step_parity": par,
             "routing": [{k: w.get(k) for k in ("step", "moe_entropy", "moe_drop",
                                                 "moe_load_max")} for w in windows]}
     for k in ("step_ms", "tok_s", "mfu_active_vs_989tflops", "peak_mem_gb"):
         log(f"moe: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
+# -- phase 9b: telemetry and the supervisor on the MoE training path ----------------
+# The bf16 kernels of phase 6's step, as torch.profiler names them.
+PROFILED_KERNELS = {"flash_fwd": "flash_fwd_bf16_wgmma_kernel",
+                    "flash_bwd_dq": "flash_bwd_dq_bf16_wgmma_kernel",
+                    "flash_bwd_dkv": "flash_bwd_dkv_bf16_wgmma_kernel",
+                    "gmm": "gmm_bf16_wgmma_kernel", "tgmm": "tgmm_bf16_wgmma_kernel"}
+TELEMETRY_PROFILE = (12, 15)  # the torch.profiler window: steps 12-14
+TELEMETRY_HANG_S = 30.0
+
+
+def wait_for(pred, timeout: float, what: str, proc=None, poll: float = 0.05):
+    """Poll ``pred`` until it returns something truthy; raise on timeout or
+    when ``proc`` ended first."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        got = pred()
+        if got:
+            return got
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"the supervisor exited ({proc.returncode}) "
+                               f"while waiting for {what}")
+        time.sleep(poll)
+    raise TimeoutError(f"{what} did not come within {timeout:.0f}s")
+
+
+def child_pid(run_dir: str, not_pid=None):
+    """The training child's pid from its heartbeat (the supervisor's watchdog
+    reads the same file)."""
+    try:
+        with open(os.path.join(run_dir, "heartbeat.json")) as f:
+            pid = int(json.load(f)["pid"])
+    except (OSError, ValueError, KeyError):
+        return None
+    return pid if pid != not_pid else None
+
+
+def span_windows(trace_path: str) -> dict:
+    """step -> the span seconds of that window by goodput component, walking
+    trace.json in record order (a ``step_window`` marker closes a window,
+    ``goodput_flush`` drops what came before the first)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out, acc = {}, {}
+    for e in events:
+        if e.get("ph") == "X":
+            comp = e["name"] + "_s"
+            acc[comp] = acc.get(comp, 0.0) + e["args"]["seconds"]
+        elif e.get("ph") == "i" and e["name"] in ("step_window", "goodput_flush"):
+            if e["name"] == "step_window":
+                out[e["args"]["step"]] = acc
+            acc = {}
+    return out
+
+
+def telemetry_phase(torch, card, moe_perf, steps: int = 30, warmup: int = 10,
+                    device: str = "cuda"):
+    """moe-8x40m as phase 6 (its config, seed and corpus, written as JSON),
+    trained through the port's trainer CLI with ``--auto-resume``: the
+    supervisor runs it in a child process. Spans, events, a metrics port
+    and a profile window (steps 12-14) are on; checkpoints every 10 steps.
+    The child is SIGKILLed once step 10's manifest lands, and SIGSTOPped
+    (a hang: only the watchdog's SIGKILL ends it) once step 20's does."""
+    import signal
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.obs.events import (
+        events_path,
+        iter_events,
+        tally,
+    )
+
+    failures = []
+    t_phase = time.perf_counter()
+    tmp_obj = tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build"))
+    tmp = tmp_obj.name
+    write_corpus(tmp, train_bytes=1_100_000, val_bytes=70_000)  # phase 6's corpus
+    cfg = config_moe(tmp, steps, warmup)
+    port = free_port()
+    cfg["logging"]["steps"]["checkpoint_interval"] = 10
+    cfg["logging"].update(
+        trace={"enabled": True}, events={"max_bytes": 1 << 24}, metrics_port=port,
+        profile_start=TELEMETRY_PROFILE[0], profile_stop=TELEMETRY_PROFILE[1],
+        profile_report={"enabled": True, "top_k": 64}, retention={"keep_last": 2})
+    # Blocking interval saves: the manifest lands at its step, so the faults
+    # land where they are meant to. (The interval changes no loss.)
+    cfg["system"]["async_checkpointing"] = False
+    cfg["supervisor"] = {"hang_timeout_s": TELEMETRY_HANG_S, "hang_kill_grace_s": 5.0}
+    cfg_path = os.path.join(tmp, "moe_telemetry.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    runs = os.path.join(tmp, "runs")
+    run_dir = os.path.join(runs, "moe-telemetry")
+    ckdir = os.path.join(run_dir, "checkpoints")
+    out_path, err_path = os.path.join(tmp, "sup.out"), os.path.join(tmp, "sup.err")
+    cmd = [sys.executable, "-m", "mlx_cuda_distributed_pretraining_tpu_torch.train.trainer",
+           "--config", cfg_path, "--runs-root", runs, "--run-name", "moe-telemetry",
+           "--device", device, "--auto-resume", "--backoff-base", "1", "--backoff-max", "2"]
+    env = {**os.environ, "PYTHONPATH": REPO}
+    with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+        sup = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out_f, stderr=err_f,
+                               start_new_session=True)
+    scrape, faults = "", {}
+    try:
+        wait_for(lambda: os.path.isfile(os.path.join(ckdir, "step_10.manifest.json")),
+                 300, "step 10's manifest", sup)
+        pid1 = wait_for(lambda: child_pid(run_dir), 30, "the child's heartbeat", sup)
+        os.kill(pid1, signal.SIGKILL)
+        faults["sigkill"] = {"pid": pid1, "t": time.time()}
+        log(f"telemetry: step 10's manifest landed; SIGKILLed child {pid1}")
+        wait_for(lambda: os.path.isfile(os.path.join(ckdir, "step_20.manifest.json")),
+                 300, "step 20's manifest", sup)
+        pid2 = wait_for(lambda: child_pid(run_dir, not_pid=pid1), 30,
+                        "the restarted child's heartbeat", sup)
+        # a live scrape of the restarted child's exposition
+        _, raw = get_url(f"http://127.0.0.1:{port}/metrics", timeout=30)
+        scrape = raw.decode()
+        os.kill(pid2, signal.SIGSTOP)
+        faults["sigstop"] = {"pid": pid2, "t": time.time()}
+        log(f"telemetry: step 20's manifest landed; scraped :{port}/metrics "
+            f"({len(scrape)} bytes); SIGSTOPped child {pid2}")
+        rc = sup.wait(timeout=400)
+    except Exception as e:  # noqa: BLE001 - reported as a failure
+        failures.append(f"telemetry: {type(e).__name__}: {e}")
+        rc = None
+    finally:
+        try:  # the supervisor's group holds every child, a stopped one too
+            os.killpg(sup.pid, signal.SIGKILL)
+        except OSError:
+            pass
+        sup.wait(timeout=30)
+    phase_s = time.perf_counter() - t_phase
+    err = open(err_path).read()
+    done = [ln for ln in err.splitlines() if "supervisor: done:" in ln]
+    log(f"telemetry: supervisor exit {rc} after {phase_s:.1f}s; {done[-1:] or err[-2000:]}")
+    if rc != 0 or not done or "restarts 2, hangs 1" not in done[-1]:
+        failures.append(f"telemetry: the supervised run did not end with exit 0, "
+                        f"2 restarts and 1 hang (exit {rc}; {done[-1:]}): {err[-3000:]}")
+        tmp_obj.cleanup()
+        return failures, {"seconds": phase_s}
+
+    evs = list(iter_events(events_path(run_dir)))
+    counts = tally(events_path(run_dir))
+    restarts = [e for e in evs if e["type"] == "restart"]
+    hangs = [e for e in evs if e["type"] == "fault" and e.get("kind") == "hang"]
+    resumes = [e["step"] for e in evs if e["type"] == "resume"]
+    run_end = [e for e in evs if e["type"] == "run_end"]
+    lost = [e.get("lost_s") for e in restarts]
+    log(f"telemetry: events {int(counts['events'])}, restarts {counts['restarts']:g}, "
+        f"faults {counts['faults']:g}; restart lost_s {lost}; resumes at {resumes}; "
+        f"run_end at {[e['step'] for e in run_end]}")
+    if len(restarts) != 2 or not all((x or 0) > 0 for x in lost) or len(hangs) != 1 \
+            or resumes != [10, 20] or [e["step"] for e in run_end] != [steps]:
+        failures.append(f"telemetry: events: restarts {restarts}, hang faults {hangs}, "
+                        f"resumes {resumes}, run_end {run_end}")
+
+    # losses: every logged one is phase 6's at that step
+    want = {int(k): v for k, v in moe_perf.get("losses_by_step", {}).items()}
+    logged = []  # (step, loss) of every step_window, the restarts' repeats too
+    for e in evs:
+        if e["type"] == "step_window":
+            logged.append((e["step"], e["loss"]))
+    rel = [abs(x - want[s]) / abs(want[s]) for s, x in logged if s in want]
+    six = all(x == round(want[s], 6) for s, x in logged if s in want)
+    max_rel = max(rel) if rel else float("nan")
+    log(f"telemetry: {len(logged)} logged losses vs phase 6's: max relative difference "
+        f"{max_rel:.3g}; equal to phase 6's at the 6 decimals the events keep: {six}")
+    if not rel or {s for s, _ in logged} != set(want) or not max_rel <= 1e-5:
+        failures.append(f"telemetry: losses {logged} differ from phase 6's {want}")
+
+    # the live scrape
+    lines = scrape.splitlines()
+    step_val = next((float(ln.split()[1]) for ln in lines if ln.startswith("train_step ")), 0)
+    need = ["train_tokens_total ", 'goodput_seconds_total{component="dispatch_s"}',
+            'goodput_seconds_total{component="data_wait_s"}', "moe_balance_entropy ",
+            'moe_expert_load_frac{expert="0"}', "moe_dropped_tokens_total ",
+            "input_batches_total ", "input_data_wait_seconds_count ",
+            "input_h2d_seconds_count ", 'checkpoint_writes_total{mode="blocking"}']
+    missing = [n for n in need if not any(ln.startswith(n) for ln in lines)]
+    log(f"telemetry: scrape train_step={step_val:g}; missing {missing}")
+    if not step_val > 0 or missing:
+        failures.append(f"telemetry: the scrape lacks {missing} (train_step {step_val})")
+
+    # the profile window: a torch.profiler trace, the attribution, the kernels
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(run_dir, "profile"))
+              for f in fs if f.endswith(".trace.json")]
+    prof = {}
+    try:
+        with open(os.path.join(run_dir, "prof_summary.json")) as f:
+            prof = json.load(f)
+    except (OSError, ValueError) as e:
+        failures.append(f"telemetry: no prof_summary.json ({e})")
+    agg = prof.get("aggregate", {})
+    fsum = sum(agg.get(k, 0.0) for k in ("compute_frac", "comm_frac", "host_frac",
+                                          "idle_frac"))
+    n_prof = TELEMETRY_PROFILE[1] - TELEMETRY_PROFILE[0]
+    layers, vb, n = moe_perf.get("layers"), moe_perf.get("validation_batches"), \
+        moe_perf.get("steps")
+    l6 = moe_perf.get("launches", {})
+    per_step = {}
+    if layers and n:  # phase 6's counters less its validation batches' launches
+        per_step = {"gmm": (l6.get("gmm", 0) - 3 * layers * vb) / n,
+                    "tgmm": l6.get("tgmm", 0) / n,
+                    "flash_fwd": (l6.get("flash_fwd", 0) - layers * vb) / n,
+                    "flash_bwd_dq": l6.get("flash_bwd_dq", 0) / n,
+                    "flash_bwd_dkv": l6.get("flash_bwd_dkv", 0) / n}
+    ops = {o["op"]: o for o in prof.get("ops", [])}
+    seen = {k: ops.get(name, {}).get("count") for k, name in PROFILED_KERNELS.items()}
+    want_counts = {k: n_prof * v for k, v in per_step.items()}
+    log(f"telemetry: profile {traces}; steps {[s['step'] for s in prof.get('steps', [])]}; "
+        f"compute {agg.get('compute_frac')} host {agg.get('host_frac')} idle "
+        f"{agg.get('idle_frac')} (sum {fsum!r}); kernels in the op table {seen} vs "
+        f"{n_prof} x phase 6's per step {want_counts}")
+    for o in prof.get("ops", [])[:12]:
+        log(f"telemetry: op {o['op'][:60]} family={o['family']} count={o['count']} "
+            f"total_ms={o['total_s'] * 1e3:.3f}")
+    if not traces or abs(fsum - 1.0) > 1e-6 or \
+            [s["step"] for s in prof.get("steps", [])] != list(range(*TELEMETRY_PROFILE)):
+        failures.append(f"telemetry: profile window: traces {traces}, steps "
+                        f"{[s['step'] for s in prof.get('steps', [])]}, fractions sum {fsum}")
+    if not per_step or seen != want_counts:
+        failures.append(f"telemetry: profiled kernel launches {seen} != {want_counts}")
+    windows = {}
+    for e in evs:  # the last record of each window
+        if e["type"] == "step_window":
+            windows[e["step"]] = e
+    prof_windows = [s for s, e in windows.items() if "prof_compute_frac" in e]
+    if not prof_windows or min(prof_windows) != TELEMETRY_PROFILE[1]:
+        failures.append(f"telemetry: prof_* fields in windows {prof_windows}")
+
+    # the spans of each window in trace.json (the last child's) against its goodput
+    worst, checked = 0.0, 0
+    try:
+        spans = span_windows(os.path.join(run_dir, "trace.json"))
+    except (OSError, ValueError, KeyError) as e:
+        spans = {}
+        failures.append(f"telemetry: trace.json unreadable ({e})")
+    for s, acc in spans.items():
+        gp = windows[s]["goodput"]
+        for comp, secs in gp.items():
+            if comp == "other_s":
+                continue
+            worst = max(worst, abs(acc.get(comp, 0.0) - secs))
+            checked += 1
+    log(f"telemetry: trace.json windows {sorted(spans)}: span sums vs goodput, worst "
+        f"|difference| {worst:.3g}s over {checked} fields")
+    if not spans or worst > 1e-6:
+        failures.append(f"telemetry: span sums differ from the goodput fields by {worst}s")
+
+    # steady state: windows with no compile, save, eval or profiled step
+    steady = [e for s, e in sorted(windows.items())
+              if not any(e["goodput"].get(k, 0) > 0 for k in ("compile_s", "ckpt_save_s",
+                                                              "eval_s"))
+              and not (s > TELEMETRY_PROFILE[0] and s - e["steps"] < TELEMETRY_PROFILE[1])]
+    for s, e in sorted(windows.items()):
+        log(f"telemetry: window {s}: {e['steps']} steps, "
+            + ", ".join(f"{k}={v:.4f}" for k, v in e["goodput"].items() if v))
+    secs = sum(sum(e["goodput"].values()) for e in steady)
+    nsteps = sum(e["steps"] for e in steady)
+    perf = {"seconds": phase_s, "restart_lost_s": lost, "faults": faults,
+            "steady_windows": [e["step"] for e in steady],
+            "step_ms": 1e3 * secs / nsteps if nsteps else None,
+            "tok_s": sum(e["toks"] for e in steady) / secs if secs else None,
+            "phase6_step_ms": moe_perf.get("step_ms"), "phase6_tok_s": moe_perf.get("tok_s"),
+            "max_rel_loss_diff": max_rel, "losses_equal_at_6_decimals": six,
+            "profiled_kernel_launches": seen, "prof_fields": {
+                k: windows[TELEMETRY_PROFILE[1]].get(k) for k in (
+                    "prof_compute_frac", "prof_comm_frac", "prof_overlap_frac",
+                    "prof_idle_frac")} if TELEMETRY_PROFILE[1] in windows else None,
+            "span_goodput_worst_s": worst}
+    log(f"telemetry: the phase took {phase_s:.1f}s; restart lost_s {lost} [{card}]")
+    log(f"telemetry: steady step_ms={perf['step_ms']} tok_s={perf['tok_s']} over windows "
+        f"{perf['steady_windows']}; phase 6 step_ms={perf['phase6_step_ms']} "
+        f"tok_s={perf['phase6_tok_s']} [{card}]")
+    tmp_obj.cleanup()
     return failures, perf
 
 
@@ -3871,6 +4237,9 @@ def main() -> int:
     stream_failures, stream_perf = streaming_phase(torch, gm, fa, card)
     failures += stream_failures
     log(f"stream: the phase took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    tele_failures, tele_perf = telemetry_phase(torch, card, moe_perf)
+    failures += tele_failures
 
     # gmm and tgmm: launches in the MoE training run, times at its bf16
     # gate/up shapes (gmm forward, tgmm).
@@ -3884,7 +4253,8 @@ def main() -> int:
     tgmm_entry = kernel_entry(
         "tgmm", SOURCE, TGMM_REPLACES, moe_launches.get("tgmm", 0), tgmm_cases[0],
         max(c["max_abs_err"] for c in tgmm_cases if c["dtype"] == "bfloat16"))
-    tgmm_entry.update(cases=tgmm_cases, moe_train=moe_perf, card=card)
+    tgmm_entry.update(cases=tgmm_cases, moe_train=moe_perf, telemetry=tele_perf,
+                      card=card)
     # The serving path's two fp32 kernels, each at its K 1536 shape (down),
     # with its launches in the serving run and every fp32 row it served.
     serve_variants = perf.get("gmm_launches_by_variant", {})

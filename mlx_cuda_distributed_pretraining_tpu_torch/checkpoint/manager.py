@@ -37,9 +37,12 @@ queued; a third ``save`` blocks until the writer takes one.
 ``load_params(..., weight_dtype="int8"|"int4")`` quantizes the linear
 weights as they load (``models/quantize.py``; the fp file stays canonical).
 
+With a ``metrics`` registry (``obs/metrics.py``) the manager counts its
+write requests by mode, its manifest verifications by outcome and its
+quarantined steps, as the JAX manager does.
+
 Not ported: the mesh loaders ``shard_arrays``, ``load_params_stacked``
-and ``load_opt_state_resharded`` (ROADMAP queue 1 item 10: multi-GPU)
-and the metrics counters (item 9).
+and ``load_opt_state_resharded`` (ROADMAP queue 1 item 10: multi-GPU).
 """
 
 from __future__ import annotations
@@ -135,7 +138,8 @@ def _tag_value(step):
 
 class CheckpointManager:
     def __init__(self, run_dir: str, keep_last: int = 0, keep_every: int = 0,
-                 notify: Optional[Callable[[str], None]] = None):
+                 notify: Optional[Callable[[str], None]] = None,
+                 metrics: Any = None):
         self.run_dir = run_dir
         self.checkpoint_dir = os.path.join(run_dir, "checkpoints")
         # Retention: keep_last=0 disables GC; keep_every=M always keeps
@@ -147,6 +151,15 @@ class CheckpointManager:
         # Integrity events (quarantine, ledger rebuild, GC) go to the run
         # log when the trainer sets this, else to stderr.
         self.notify = notify
+        # Optional obs.MetricsRegistry: integrity outcomes as counters.
+        self._m_writes = self._m_verify = self._m_quarantined = None
+        if metrics is not None:
+            self._m_writes = metrics.counter(
+                "checkpoint_writes_total", "checkpoint write requests by mode")
+            self._m_verify = metrics.counter(
+                "checkpoint_verify_total", "manifest verifications by outcome")
+            self._m_quarantined = metrics.counter(
+                "checkpoint_quarantined_total", "steps moved to quarantine/")
         self._writer: Optional[threading.Thread] = None
         self._queue: Optional[queue.Queue] = None
         self._write_error: Optional[Exception] = None
@@ -206,6 +219,8 @@ class CheckpointManager:
         training_state.setdefault("step", _tag_value(step))
         payload = (step, model_path, opt_path, state_path, flat_params,
                    arrays, scalars, training_state, metadata_extra)
+        if self._m_writes is not None:
+            self._m_writes.inc(mode="blocking" if blocking else "async")
         if blocking:
             # Drain the queue first (FIFO), but write this step even when an
             # earlier background write failed: a blocking save is usually
@@ -490,6 +505,12 @@ class CheckpointManager:
     def verify(self, step) -> Tuple[bool, str]:
         """Re-read every artifact the step's manifest lists and check its
         existence, size and CRC32. Returns ``(ok, reason)``."""
+        ok, reason = self._verify_inner(step)
+        if self._m_verify is not None:
+            self._m_verify.inc(ok=str(ok).lower())
+        return ok, reason
+
+    def _verify_inner(self, step) -> Tuple[bool, str]:
         mpath = self.manifest_path(step)
         if not os.path.isfile(mpath):
             return False, "no manifest"
@@ -534,6 +555,8 @@ class CheckpointManager:
         with open(os.path.join(qdir, f"step_{step}.reason.txt"), "a") as f:
             f.write(f"{time.time():.0f} {reason}; moved: {', '.join(moved) or 'nothing'}\n")
         self._notify(f"WARNING: quarantined checkpoint step {step} ({reason}) -> {qdir}")
+        if self._m_quarantined is not None:
+            self._m_quarantined.inc()
         return moved
 
     def latest_complete_step(self, quarantine: bool = True) -> Optional[str]:

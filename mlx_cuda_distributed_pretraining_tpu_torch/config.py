@@ -1,7 +1,7 @@
 """The YAML config schema: the sections serving and training read.
 
 Same section layout and defaults as the JAX package's ``config.py``
-(``data / model / training / logging / system / resume`` plus ``name`` and
+(``data / model / training / logging / system / supervisor / resume`` plus ``name`` and
 ``overwrite``); keys a section does not know are kept beside it and written
 back out, so a config passes through the port unchanged.
 
@@ -147,16 +147,55 @@ class TrainingConfig:
 
 @dataclass
 class LoggingConfig:
-    """Section ``logging``: intervals, checkpoint retention and samples."""
+    """Section ``logging``: intervals, checkpoint retention, samples and the
+    telemetry keys, as the JAX package reads them.
+
+    ``tensorboard`` / ``wandb`` (with ``wandb_project``, ``wandb_entity``):
+    the logger's optional sinks, each gated on its import.
+    ``profile_start`` / ``profile_stop``: a ``torch.profiler`` capture of
+    steps [start, stop) into ``<run_dir>/profile/``. ``metrics_port``: the
+    Prometheus exposition of the trainer's registry; 0 off. ``trace``:
+    ``{enabled, sample, capacity, capture_steps}`` for the span tracer
+    (``capture_steps`` sizes the SIGUSR2 window). ``profile_report``:
+    ``{enabled, top_k}`` for the attribution at each capture's stop.
+    ``events``: ``{max_bytes}``, the ``events.jsonl`` rotation bound (0:
+    unbounded). ``metrics.stats_url``: a stats hub to publish to."""
 
     log_dir: str = "logs"
     checkpoint_dir: str = "checkpoints"
     steps: Dict[str, Any] = field(default_factory=dict)
     metrics: Dict[str, Any] = field(default_factory=dict)
+    tensorboard: bool = False
+    wandb: bool = False
+    wandb_project: Optional[str] = None
+    wandb_entity: Optional[str] = None
     log_gradient_norm: bool = False
     retention: Dict[str, Any] = field(default_factory=dict)
     log_samples: bool = False  # greedy samples at each validation step
     log_samples_count: int = 3
+    profile_start: int = 0
+    profile_stop: int = 0
+    metrics_port: int = 0
+    trace: Dict[str, Any] = field(default_factory=dict)
+    profile_report: Dict[str, Any] = field(default_factory=dict)
+    events: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def events_max_bytes(self) -> int:
+        return int(_get(self.events, "max_bytes", 0))
+
+    @property
+    def stats_url(self) -> Optional[str]:
+        url = _get(self.metrics, "stats_url", None)
+        return str(url) if url else None
+
+    @property
+    def profile_report_enabled(self) -> bool:
+        return bool(_get(self.profile_report, "enabled", True))
+
+    @property
+    def profile_report_top_k(self) -> int:
+        return int(_get(self.profile_report, "top_k", 12))
 
     @property
     def logging_interval(self) -> int:
@@ -222,6 +261,21 @@ class SystemConfig:
 
 
 @dataclass
+class SupervisorConfig:
+    """Section ``supervisor``: the auto-resume supervisor's hang watchdog
+    (``train/supervisor.py``). When the trainer's heartbeat makes no
+    progress for ``hang_timeout_s`` seconds the child is SIGTERMed, then
+    SIGKILLed after ``hang_kill_grace_s``, and restarted from the newest
+    verified checkpoint; 0 disables the watchdog. ``barrier_timeout_s``
+    bounds the multi-host generation barrier, which the port does not run
+    (ROADMAP queue 1 item 10); it is kept for the round trip."""
+
+    hang_timeout_s: float = 0.0
+    hang_kill_grace_s: float = 20.0
+    barrier_timeout_s: float = 300.0
+
+
+@dataclass
 class ResumeConfig:
     """Section ``resume``: ``checkpoint`` is a step tag, or "latest" for the
     newest verified one; ``strict`` raises where a checkpoint is missing or
@@ -239,6 +293,7 @@ _SECTION_TYPES = {
     "training": TrainingConfig,
     "logging": LoggingConfig,
     "system": SystemConfig,
+    "supervisor": SupervisorConfig,
 }
 
 
@@ -290,6 +345,7 @@ class Config:
     training: TrainingConfig = field(default_factory=TrainingConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
     system: SystemConfig = field(default_factory=SystemConfig)
+    supervisor: SupervisorConfig = field(default_factory=SupervisorConfig)
     resume: Optional[ResumeConfig] = None
     overwrite: bool = False
     sections: Dict[str, Any] = field(default_factory=dict)  # others, raw

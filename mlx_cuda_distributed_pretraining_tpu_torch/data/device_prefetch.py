@@ -27,8 +27,13 @@ is a function of the step delegate live.
 ``depth <= 0`` is the synchronous mode: no worker thread, each ``get()``
 fetches and copies inline through the same code.
 
-Not ported: a device mesh (ROADMAP queue 1 item 10), the group mode of
-``system.steps_per_dispatch``, and the metrics registry (item 9).
+With a ``metrics`` registry (``obs/metrics.py``) each ``get()`` counts the
+batch and observes its waits (``input_batches_total``,
+``input_queue_depth``, ``input_data_wait_seconds``, ``input_h2d_seconds``),
+as the JAX prefetcher does.
+
+Not ported: a device mesh (ROADMAP queue 1 item 10) and the group mode of
+``system.steps_per_dispatch``.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ class DevicePrefetcher:
     the trainer's ``generate_batch(step - 1)`` convention."""
 
     def __init__(self, loader: Any, device="cpu", depth: int = 2, start_step: int = 0,
-                 total_steps: Optional[int] = None, mesh: Any = None):
+                 total_steps: Optional[int] = None, mesh: Any = None,
+                 metrics: Any = None):
         if mesh is not None:
             raise NotImplementedError(
                 "DevicePrefetcher over a device mesh is not ported "
@@ -59,6 +65,18 @@ class DevicePrefetcher:
             raise ValueError(f"DevicePrefetcher runs on cuda or cpu, not {self.device}")
         self.depth = int(depth)
         self.total_steps = total_steps  # None: run until StopIteration
+        # Optional obs.MetricsRegistry: the input pipeline's health in the
+        # registry the trainer exports.
+        self._m_batches = self._m_queue = self._m_data_wait = self._m_h2d = None
+        if metrics is not None:
+            self._m_batches = metrics.counter(
+                "input_batches_total", "batches served to the step loop")
+            self._m_queue = metrics.gauge(
+                "input_queue_depth", "device-resident batches ready to consume")
+            self._m_data_wait = metrics.histogram(
+                "input_data_wait_seconds", "step-loop stall waiting for input")
+            self._m_h2d = metrics.histogram(
+                "input_h2d_seconds", "host-to-device transfer time per item")
 
         self._stateful = bool(getattr(loader, "stream_stateful", False))
         # Taken before the worker fetches anything: a checkpoint before the
@@ -183,6 +201,12 @@ class DevicePrefetcher:
             raise StopIteration("stream exhausted")
         if item["snapshot"] is not None:
             self._consumed_state = item["snapshot"]
+        if self._m_batches is not None:
+            self._m_batches.inc()
+            self._m_data_wait.observe(data_wait)
+            self._m_h2d.observe(item["h2d_s"])
+            if self._queue is not None:
+                self._m_queue.set(self._queue.qsize())
         batch = item["batch"]
         if self._cuda:
             stream = torch.cuda.current_stream(self.device)

@@ -10,6 +10,9 @@
     POST /v1/completions   the OpenAI completions shape of the same
     GET /healthz           {"status": "ok", "params_m": ..., ...}
     GET /v1/models
+    GET /metrics           the batch engine's metrics as JSON
+    GET /trace             the engine's span ring as a Chrome trace (?clear=1
+                           drains it)
 
 The weights live on ``--device`` (default ``cuda``). Two engines
 (``--engine``):
@@ -31,10 +34,15 @@ one ``data: {"token": id, "text": delta}`` event per token, then ``data:
 {"done": true, ...result}``. Batch-engine requests stream token by token;
 locked and fallback requests send the final event only.
 
+Tracing: an ``X-Trace-Id`` header (``obs.trace.TRACE_HEADER``) keys the
+request's spans in the batch engine (``--trace``); without one the engine
+mints an id, and the result carries it. ``--metrics-port`` serves the
+engine's registry as Prometheus text; ``--stats-url`` publishes to a stats
+hub.
+
 Not ported, and answered with 501 naming the ROADMAP queue 1 item: the
 fleet endpoints ``/prefill``, ``/adopt_kv`` and ``/admin/*`` (weight swaps,
-drain) and the ``X-Deadline-Ms`` header (item 10), and ``/trace`` and
-``/metrics`` (item 9; ``/healthz`` carries the batch engine's counters).
+drain) and the ``X-Deadline-Ms`` header (item 10).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from ..models import llama
+from ..obs.trace import TRACE_HEADER
 from ..serve import BatchEngine, EngineConfig, QueueFullError
 from .generate import generate_text
 
@@ -58,8 +67,6 @@ _UNPORTED_PATHS = {
     "/prefill": "item 10: the serving plane, disaggregated prefill",
     "/adopt_kv": "item 10: the serving plane, KV transfer",
     "/admin": "item 10: the serving plane, drain and weight swaps",
-    "/trace": "item 9: tracing",
-    "/metrics": "item 9: metrics",
 }
 _DEADLINE_HEADER = "X-Deadline-Ms"
 
@@ -164,14 +171,15 @@ class InferenceService:
                  min_p: float = 0.0,
                  repetition_penalty: Optional[float] = None,
                  seed: int = 0,
-                 deadline_s: Optional[float] = None) -> dict:
+                 deadline_s: Optional[float] = None,
+                 trace_id: Optional[str] = None) -> dict:
         max_tokens = self._clamp(max_tokens)
         knobs, reshapes = self._knobs(temperature, top_p, min_p, repetition_penalty)
         effective = {**knobs, "max_tokens": max_tokens}
         if self.engine is not None and not reshapes:
             out = self.engine.generate(prompt, max_tokens=max_tokens,
                                        temperature=knobs["temperature"], seed=seed,
-                                       deadline_s=deadline_s)
+                                       deadline_s=deadline_s, trace_id=trace_id)
             out["effective_params"] = effective
             return out
         spec = self.speculative and not reshapes
@@ -197,7 +205,8 @@ class InferenceService:
                       min_p: float = 0.0,
                       repetition_penalty: Optional[float] = None,
                       seed: int = 0,
-                      deadline_s: Optional[float] = None):
+                      deadline_s: Optional[float] = None,
+                      trace_id: Optional[str] = None):
         """Submit through the batch engine for token-by-token streaming;
         None when the request takes the locked path instead (no engine, or
         logit-reshaping knobs)."""
@@ -208,7 +217,8 @@ class InferenceService:
             return None
         return self.engine.submit(prompt, max_tokens=self._clamp(max_tokens),
                                   temperature=knobs["temperature"], seed=seed,
-                                  deadline_s=deadline_s, stream=True)
+                                  deadline_s=deadline_s, stream=True,
+                                  trace_id=trace_id)
 
     def health(self) -> dict:
         d = {
@@ -226,6 +236,21 @@ class InferenceService:
             d["engine"] = "batch"
             d["serve"] = self.engine.metrics()
         return d
+
+    def metrics(self) -> dict:
+        """GET /metrics: the batch engine's metrics (the JAX server's keys;
+        ``draining`` stays False, since draining is not ported)."""
+        base = (self.engine.metrics() if self.engine is not None
+                else {"engine": "locked", "role": "any"})
+        base["draining"] = False
+        return base
+
+    def trace(self, clear: bool = False) -> dict:
+        """GET /trace: the Chrome trace of the engine's span ring."""
+        if self.engine is not None:
+            return self.engine.tracer.chrome_trace(clear=clear)
+        return {"traceEvents": [], "displayTimeUnit": "ms",
+                "metadata": {"service": "locked"}}
 
 
 def _to_openai_completion(out: dict, req: dict, run_name: str,
@@ -349,10 +374,19 @@ def make_handler(service: InferenceService):
                 self._sse({"done": True, **(sreq.result or {})})
 
         def do_GET(self):
-            path = self.path.split("?", 1)[0].rstrip("/")
+            import urllib.parse
+
+            parts = urllib.parse.urlsplit(self.path)
+            path = parts.path.rstrip("/")
             refused = _unported(path)
             if path in ("", "/healthz"):
                 self._reply(200, service.health())
+            elif path == "/metrics":
+                self._reply(200, service.metrics())
+            elif path == "/trace":
+                # ?clear=1 drains the ring
+                clear = "clear" in urllib.parse.parse_qs(parts.query)
+                self._reply(200, service.trace(clear=clear))
             elif path == "/v1/models":
                 self._reply(200, {
                     "object": "list",
@@ -386,6 +420,8 @@ def make_handler(service: InferenceService):
                 prompt, kw = _parse(req)
                 effective_max = service._clamp(req.get("max_tokens", 64))
                 kw["max_tokens"] = effective_max
+                # a client's (or router's) trace id keys this request's spans
+                kw["trace_id"] = self.headers.get(TRACE_HEADER)
                 if req.get("stream"):
                     self._stream_generate(prompt, kw)
                     return
@@ -520,6 +556,17 @@ def main(argv=None) -> int:
                         "adopting")
     p.add_argument("--deadline-s", type=float, default=None,
                    help="batch engine: default per-request deadline")
+    p.add_argument("--trace", action="store_true",
+                   help="batch engine: record per-request spans "
+                        "(queue_wait/prefill/decode; dump via GET /trace)")
+    p.add_argument("--trace-sample", type=float, default=1.0,
+                   help="fraction of requests traced (deterministic by trace id)")
+    p.add_argument("--stats-url", default=None,
+                   help="batch engine: ws:// URL of the obs stats server for "
+                        "per-iteration serving metrics")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="batch engine: serve its registry as Prometheus text on "
+                        "this port (0 off)")
     a = p.parse_args(argv)
     if a.weight_dtype != "fp" and a.engine != "batch":
         p.error("--weight-dtype requires --engine batch")
@@ -539,7 +586,9 @@ def main(argv=None) -> int:
             spec_max_ngram=a.spec_max_ngram, weight_dtype=a.weight_dtype,
             prefix_cache=not a.no_prefix_cache,
             prefix_min_hit_blocks=a.prefix_min_hit_blocks,
-            default_deadline_s=a.deadline_s))
+            default_deadline_s=a.deadline_s, trace=a.trace,
+            trace_sample=a.trace_sample, stats_url=a.stats_url,
+            metrics_port=a.metrics_port))
     httpd = ThreadingHTTPServer((a.host, a.port), make_handler(service))
     print(f"serving {service.run_name} ({service.n_params / 1e6:.1f}M params, "
           f"engine={a.engine}, device={a.device}) on "

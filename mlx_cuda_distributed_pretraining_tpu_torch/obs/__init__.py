@@ -1,1 +1,4 @@
-"""Run logging and FLOPs accounting."""
+"""Run logging, FLOPs and goodput accounting, metrics, events, spans,
+profiling, the Prometheus exposition and the stats hub (the JAX package's
+``obs/``; ``tsdb``, ``alerts``, ``scope``, ``monitor`` and ``dashboard`` are
+not ported: ROADMAP queue 1 item 9)."""

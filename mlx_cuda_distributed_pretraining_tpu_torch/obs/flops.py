@@ -9,11 +9,14 @@ score and value products, and
 with the card's dense bf16 peak. An MoE model is costed on the parameters a
 token multiplies against (the router, its top-k experts and every shared
 weight), not on all E experts.
+
+:class:`GoodputLedger` splits each log window's wall clock into where it
+went (the JAX package's, booked the same way by the trainer).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 # bf16 dense peak FLOP/s per card, keyed by device-name substring (NVIDIA's
 # H100 SXM data sheet).
@@ -69,3 +72,49 @@ def mfu(tok_s: float, flops_per_tok: float, peak_per_chip: Optional[float],
     if peak_per_chip is None or peak_per_chip <= 0 or n_chips <= 0:
         return None
     return float(flops_per_tok) * float(tok_s) / (peak_per_chip * n_chips)
+
+
+# Goodput components in reporting order. ``other_s`` is the residual and
+# is appended by close_window, never booked directly.
+GOODPUT_COMPONENTS = (
+    "compile_s", "data_wait_s", "h2d_wait_s", "dispatch_s",
+    "ckpt_save_s", "eval_s", "restart_lost_s",
+)
+
+
+class GoodputLedger:
+    """Window and cumulative attribution of wall-clock seconds.
+
+    ``add(component, seconds)`` books time into the current window;
+    ``close_window(elapsed_s)`` returns the window's breakdown with the
+    residual ``other_s = max(0, elapsed - sum(booked))`` appended, folds it
+    into the cumulative totals and resets the window. The components
+    therefore sum to the window's wall time (up to clamping when booked
+    time exceeds it: overlapping attributions).
+    """
+
+    def __init__(self):
+        self._window: Dict[str, float] = {c: 0.0 for c in GOODPUT_COMPONENTS}
+        self._total: Dict[str, float] = {c: 0.0 for c in GOODPUT_COMPONENTS}
+        self._total["other_s"] = 0.0
+
+    def add(self, component: str, seconds: float) -> None:
+        if component not in self._window:
+            raise KeyError(f"unknown goodput component: {component!r} "
+                           f"(one of {GOODPUT_COMPONENTS})")
+        self._window[component] += max(0.0, float(seconds))
+
+    def window_view(self) -> Dict[str, float]:
+        return dict(self._window)
+
+    def close_window(self, elapsed_s: float) -> Dict[str, float]:
+        booked = sum(self._window.values())
+        out = dict(self._window)
+        out["other_s"] = max(0.0, float(elapsed_s) - booked)
+        for c, v in out.items():
+            self._total[c] += v
+        self._window = {c: 0.0 for c in GOODPUT_COMPONENTS}
+        return out
+
+    def totals(self) -> Dict[str, float]:
+        return dict(self._total)

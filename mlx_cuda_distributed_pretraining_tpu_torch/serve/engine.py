@@ -18,12 +18,22 @@ streaming (``submit(..., stream=True)``), in-batch prompt-lookup
 speculation on the paged pool with its degradation rung, weight-only
 int8/int4 (``weight_dtype``), hot weight swaps, KV export/adopt/quarantine
 and the serving fault points (``serve/faults.py``: ``engine.swap_fail``,
-``arena.exhaust``). ``metrics()`` returns a plain dict.
+``arena.exhaust``). ``metrics()`` returns a plain dict with the JAX
+engine's keys.
+
+Telemetry, as in the JAX engine: a metrics registry (``obs/metrics.py``:
+occupancy, queue depth, tok/s, requests by outcome, the TTFT histogram and
+its components, the paged pool's, speculation's and the prefix cache's
+counters), mirrored from the engine thread every ``stats_interval_s`` and
+served as Prometheus text on ``metrics_port``; the stats hub at
+``stats_url``; and with ``trace`` on, per-request spans (``obs/trace.py``:
+``queue_wait``, ``prefill_chunk``, ``decode``, ``request``, and the
+``kv_alloc`` / ``prefix_adopt`` / ``stream_emit`` markers), each keyed by
+the request's trace id (the server's ``X-Trace-Id``, or one minted here).
 
 Not ported yet, and refused when a config sets them (``EngineConfig``):
-the span tracer, stats publishing and the Prometheus exposition (ROADMAP
-queue 1 item 9); fleet roles, serving meshes and prefill-only handoff
-requests (item 10).
+fleet roles, serving meshes and prefill-only handoff requests (ROADMAP
+queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -47,9 +57,6 @@ __all__ = ["BatchEngine", "EngineConfig", "QueueFullError"]
 # EngineConfig knobs that ask for something not ported, with their default
 # and the ROADMAP queue 1 item that ports them.
 _UNPORTED = {
-    "trace": (False, "item 9: tracing"),
-    "stats_url": (None, "item 9: stats publishing"),
-    "metrics_port": (0, "item 9: the Prometheus exposition"),
     "role": ("any", "item 10: the serving fleet"),
 }
 
@@ -83,15 +90,16 @@ class EngineConfig:
     prefix_cache: bool = True   # paged: content-hash block reuse (off = oracle)
     prefix_min_hit_blocks: int = 1  # shortest cached chain worth adopting
     default_deadline_s: Optional[float] = None  # per-request unless overridden
-    worker_id: str = "serve-engine"  # label of the engine's fault points
+    trace: bool = False         # span tracer (obs/trace.py); /trace dumps it
+    trace_sample: float = 1.0   # fraction of requests traced (by trace id)
+    trace_capacity: int = 16384  # span ring-buffer bound (oldest dropped)
+    stats_url: Optional[str] = None  # ws://host:port of an obs stats hub
+    stats_interval_s: float = 1.0  # registry mirror / stats publish period
+    worker_id: str = "serve-engine"  # tracer service name, fault-point label
+    metrics_port: int = 0       # Prometheus exposition (obs/prometheus.py); 0 off
     # Read so that no knob of the JAX config is dropped silently: set to
-    # anything but the default, these raise (see _UNPORTED). Their JAX
-    # companions (trace_sample, trace_capacity, stats_interval_s) change
-    # nothing while these are off, and are not read.
-    trace: bool = False
-    stats_url: Optional[str] = None
+    # anything but the default, these raise (see _UNPORTED).
     role: str = "any"
-    metrics_port: int = 0
     mesh: Optional[Dict[str, int]] = None  # only a single-device (all-ones) mesh
 
     def __post_init__(self):
@@ -124,6 +132,10 @@ class EngineConfig:
         tr = serve.get("trace")
         if isinstance(tr, dict):
             serve["trace"] = bool(tr.get("enabled", True))
+            if "sample" in tr:
+                serve["trace_sample"] = float(tr["sample"])
+            if "capacity" in tr:
+                serve["trace_capacity"] = int(tr["capacity"])
         serving = doc.get("serving")
         if isinstance(serving, dict):
             for key in ("mesh", "weight_dtype"):
@@ -136,8 +148,6 @@ class EngineConfig:
 class BatchEngine:
     """Serves ``params`` (a nested dict of tensors, all on one device; the
     engine runs there) through the KV pool ``cfg.kv_backend`` names."""
-
-    RATE_WINDOW_S = 1.0  # decode tok/s window behind metrics()["tok/s"]
 
     def __init__(self, params, args, tokenizer,
                  cfg: Optional[EngineConfig] = None):
@@ -204,15 +214,96 @@ class BatchEngine:
         self._spec_off_steps = 0  # decode steps run unspeculated under pressure
         self._kv_transfer = dict.fromkeys(("exported", "adopted", "reused"), 0)
         self._kv_failures: Dict[str, int] = {}
+        # the decode-throughput window and the last published snapshot
         self._win_t0 = time.monotonic()
         self._win_tokens = 0
-        self._tok_s = 0.0
-        self._ttft_ms_sum = 0.0
-        self._ttft_count = 0
+        self._last_publish = 0.0
+        self._metrics: Dict[str, Any] = {}
+        self._stats = None
+        self._metrics_server = None
+        self._init_telemetry()
+
+    def _init_telemetry(self) -> None:
+        """The per-request span tracer and the metrics registry, with the
+        JAX engine's metric names (a disabled tracer is free: ``span()``
+        returns a shared null span and every call site checks
+        ``enabled``)."""
+        from ..obs.metrics import LATENCY_MS_BUCKETS, MetricsRegistry
+        from ..obs.trace import Tracer
+
+        cfg = self.cfg
+        self.tracer = Tracer(cfg.worker_id, capacity=cfg.trace_capacity,
+                             sample=cfg.trace_sample, enabled=cfg.trace)
+        self.metrics_registry = reg = MetricsRegistry()
+        self._mg_occupancy = reg.gauge("serve_batch_occupancy", "occupied decode slots")
+        self._mg_queue = reg.gauge("serve_queue_depth", "admission queue depth")
+        self._mg_tok_s = reg.gauge("serve_tok_s", "decode tokens/second (window)")
+        self._mc_requests = reg.counter("serve_requests_total", "requests by outcome")
+        self._mc_iterations = reg.counter("serve_iterations_total", "engine loop iterations")
+        self._mh_ttft = reg.histogram("serve_ttft_ms", "time to first token (ms)",
+                                      buckets=LATENCY_MS_BUCKETS)
+        self._mh_ttft_component = reg.histogram(
+            "serve_ttft_component_ms", "per-request latency by component (ms)",
+            buckets=LATENCY_MS_BUCKETS)
+        self._mg_blocks_used = reg.gauge("serve_kv_blocks_used",
+                                         "paged KV blocks currently mapped")
+        self._mg_blocks_free = reg.gauge("serve_kv_blocks_free", "paged KV blocks free")
+        self._mg_free_watermark = reg.gauge(
+            "serve_kv_free_block_watermark", "minimum free blocks over the publish window")
+        self._mg_fragmentation = reg.gauge(
+            "serve_kv_fragmentation", "fraction of mapped KV positions holding no live token")
+        self._mc_spec = reg.counter(
+            "serve_spec_tokens_total",
+            "speculative draft tokens by outcome (proposed/accepted)")
+        self._mg_spec_rate = reg.gauge(
+            "serve_spec_acceptance_rate",
+            "accepted/proposed draft tokens over the publish window")
+        self._mc_prefix_hits = reg.counter(
+            "serve_prefix_cache_hits_total", "admissions that adopted a cached block-chain")
+        self._mc_prefix_misses = reg.counter(
+            "serve_prefix_cache_misses_total", "admissions with no usable cached prefix")
+        self._mc_prefix_evictions = reg.counter(
+            "serve_prefix_cache_evictions_total",
+            "cached KV blocks reclaimed by allocation pressure")
+        self._mg_prefix_hit_rate = reg.gauge(
+            "serve_prefix_cache_hit_rate",
+            "prompt tokens served from cache / prompt tokens offered")
+        self._mc_kv_transfer = reg.counter(
+            "serve_kv_transfer_blocks_total",
+            "KV blocks moved by the prefill->decode handoff, by kind "
+            "(exported/adopted/reused)")
+        self._mc_swaps = reg.counter("serve_weight_swaps_total",
+                                     "weight swaps applied in place")
+        self._mc_kv_fail = reg.counter(
+            "serve_kv_transfer_failures_total",
+            "refused/failed KV transfers by reason (corrupt/mismatch/push/adopt)")
+        self._m_last = dict.fromkeys(
+            ("admitted", "rejected", "evicted", "completed", "preempted",
+             "iterations", "spec_proposed", "spec_accepted", "prefix_hits",
+             "prefix_misses", "prefix_evictions"), 0)
+        self._mg_mesh_devices = reg.gauge(
+            "serve_mesh_devices", "devices in the serving mesh (1 = unsharded)")
+        self._mg_mesh_axis = reg.gauge("serve_mesh_axis_size",
+                                       "serving mesh axis size by name")
+        self._mg_mesh_devices.set(1)
+        self._mg_weight_bytes = reg.gauge("serve_weight_bytes",
+                                          "bytes of resident model weights (as stored)")
+        self._mg_weight_bytes.set(self._weight_bytes, weight_dtype=self.weight_dtype)
 
     # -- lifecycle -------------------------------------------------------------
     def start(self) -> "BatchEngine":
         if self._thread is None:
+            if self.cfg.stats_url:
+                from ..obs.stats_client import StatsClient
+
+                self._stats = StatsClient(self.cfg.stats_url, self.cfg.worker_id).start()
+                self._stats.register({"role": "serve", "num_slots": self.cfg.num_slots,
+                                      "max_len": self.cfg.max_len})
+            if self.cfg.metrics_port and self._metrics_server is None:
+                from ..obs.prometheus import start_metrics_server
+
+                self._metrics_server = start_metrics_server(self.metrics_registry,
+                                                            self.cfg.metrics_port)
             self._stop.clear()
             self._thread = threading.Thread(target=self._loop, daemon=True,
                                             name="batch-engine")
@@ -227,6 +318,12 @@ class BatchEngine:
             self._thread = None
         self.scheduler.drain(self.pool)
         self._drain_tasks()  # stragglers run inline; nobody left to race
+        if self._stats is not None:
+            self._stats.close()
+            self._stats = None
+        if self._metrics_server is not None:
+            self._metrics_server.shutdown()
+            self._metrics_server = None
 
     # -- engine-thread task queue ----------------------------------------------
     def _drain_tasks(self) -> None:
@@ -282,6 +379,8 @@ class BatchEngine:
             self.params = placed
             self.params_version += 1
             self._weight_bytes = nbytes
+            self._mc_swaps.inc()
+            self._mg_weight_bytes.set(nbytes, weight_dtype=self.weight_dtype)
             return self.params_version
 
         return self.call_in_loop(cutover)
@@ -307,6 +406,10 @@ class BatchEngine:
         finally:
             self.call_in_loop(lambda: pool.release_export(export))
         self._kv_transfer["exported"] += payload.num_blocks
+        if payload.num_blocks:
+            self._mc_kv_transfer.inc(payload.num_blocks, kind="exported")
+        if self.tracer.enabled:
+            self.tracer.instant("kv_export", blocks=payload.num_blocks)
         return payload
 
     def adopt_kv(self, payload) -> Dict[str, int]:
@@ -325,6 +428,10 @@ class BatchEngine:
             lambda: pool.adopt_blocks(payload.keys, payload.blocks))
         for kind in ("adopted", "reused"):
             self._kv_transfer[kind] += stats.get(kind, 0)
+            if stats.get(kind):
+                self._mc_kv_transfer.inc(stats[kind], kind=kind)
+        if self.tracer.enabled:
+            self.tracer.instant("kv_adopt", **stats)
         return stats
 
     def quarantine_kv(self, keys, reason: str = "corrupt") -> int:
@@ -340,6 +447,7 @@ class BatchEngine:
     def note_kv_failure(self, reason: str) -> None:
         """Count a KV-transfer failure with nothing local to quarantine."""
         self._kv_failures[reason] = self._kv_failures.get(reason, 0) + 1
+        self._mc_kv_fail.inc(reason=reason)
 
     def warmup(self, prompt_ids: Optional[List[int]] = None) -> None:
         """Run one short request through prefill and decode before traffic
@@ -357,19 +465,21 @@ class BatchEngine:
     def submit(self, prompt: str, max_tokens: int = 64,
                temperature: float = 0.0, seed: int = 0,
                deadline_s: Optional[float] = None,
-               stream: bool = False) -> Request:
+               stream: bool = False, trace_id: Optional[str] = None) -> Request:
         """Tokenize and enqueue; raises QueueFullError (-> 429) past the
         queue bound, ValueError when the request can never fit a row. With
         ``stream=True`` the request carries a ``stream_q`` that the engine
-        puts each emitted token id into, then None at the end."""
+        puts each emitted token id into, then None at the end. ``trace_id``
+        keys this request's spans (one is minted when absent, so every
+        result carries an id)."""
         ids = [self.tokenizer.bos_id] + self.tokenizer.tokenize(prompt)
         return self._submit_ids(ids, max_tokens, temperature, seed, deadline_s,
-                                stream=stream)
+                                stream=stream, trace_id=trace_id)
 
     def _submit_ids(self, ids: List[int], max_tokens: int,
                     temperature: float, seed: int,
                     deadline_s: Optional[float] = None,
-                    stream: bool = False) -> Request:
+                    stream: bool = False, trace_id: Optional[str] = None) -> Request:
         P = len(ids)
         padded = batch_step.round_up(max(P, 1), self.chunk)
         # A verify window writes up to draft_len positions past the last
@@ -387,6 +497,9 @@ class BatchEngine:
                       stop_ids=[self.tokenizer.eos_id])
         if stream:
             req.stream_q = queue.Queue()
+        from ..obs.trace import new_trace_id
+
+        req.trace_id = trace_id or new_trace_id()
         self.scheduler.submit(req)
         self._wake.set()
         return req
@@ -397,10 +510,12 @@ class BatchEngine:
     def generate(self, prompt: str, max_tokens: int = 64,
                  temperature: float = 0.0, seed: int = 0,
                  deadline_s: Optional[float] = None,
-                 timeout: Optional[float] = None) -> dict:
+                 timeout: Optional[float] = None,
+                 trace_id: Optional[str] = None) -> dict:
         """Blocking convenience for the HTTP front end; the wait follows the
         request's own deadline plus a short grace."""
-        req = self.submit(prompt, max_tokens, temperature, seed, deadline_s)
+        req = self.submit(prompt, max_tokens, temperature, seed, deadline_s,
+                          trace_id=trace_id)
         if timeout is None:
             eff = deadline_s if deadline_s is not None \
                 else self.cfg.default_deadline_s
@@ -415,6 +530,9 @@ class BatchEngine:
 
     # -- metrics ---------------------------------------------------------------
     def metrics(self) -> Dict[str, Any]:
+        """The JAX engine's keys (with the last publish's ``tok/s`` and the
+        TTFT histogram's quantiles, sum and count), plus the port's device
+        step counters."""
         pool = self.pool
         snap: Dict[str, Any] = {
             "iterations": self.iterations,
@@ -425,12 +543,14 @@ class BatchEngine:
             **self.scheduler.counters(),
             "kv_backend": pool.kind,
             "kv_quant": bool(pool.quantize),
+            "role": self.cfg.role,
             "params_version": self.params_version,
+            "mesh": "1dev",
             "weight_dtype": self.weight_dtype,
             "weight_bytes": int(self._weight_bytes),
             "kv_transfer_blocks": dict(self._kv_transfer),
             "kv_transfer_failures": dict(self._kv_failures),
-            "tok/s": round(self._tok_s, 2),
+            "tok/s": 0.0,
             "device": str(self.device),
         }
         if pool.kind == "paged":
@@ -456,16 +576,87 @@ class BatchEngine:
         snap["prefix_cache"] = prefix is not None
         if prefix is not None:
             snap.update(prefix.stats())
-        if self._ttft_count:
-            snap["ttft_ms_mean"] = round(self._ttft_ms_sum / self._ttft_count, 3)
+        snap.update(self._metrics)
         return snap
 
-    def _update_rate(self) -> None:
+    def _ttft_quantiles(self) -> Dict[str, float]:
+        """p50/p95/p99 TTFT estimated from the bounded histogram, with its
+        sum and count (a mean needs them)."""
+        from ..obs.metrics import quantile_from_buckets
+
+        snap = self.metrics_registry.snapshot().get("serve_ttft_ms")
+        if not snap or not snap["series"]:
+            return {}
+        s = snap["series"][0]
+        out: Dict[str, float] = {}
+        for key, q in (("ttft_ms_p50", 0.5), ("ttft_ms_p95", 0.95),
+                       ("ttft_ms_p99", 0.99)):
+            v = quantile_from_buckets(s["buckets"], s["count"], q)
+            if v is not None:
+                out[key] = round(v, 1)
+        if out:
+            out["ttft_ms_sum"] = round(float(s["sum"]), 3)
+            out["ttft_ms_count"] = int(s["count"])
+        return out
+
+    def _publish(self) -> None:
+        """Every ``stats_interval_s``: the decode tok/s window, the TTFT
+        quantiles, the registry's gauges and the scheduler's totals as
+        counter increments, and the stats hub."""
         now = time.monotonic()
-        dt = now - self._win_t0
-        if dt >= self.RATE_WINDOW_S:
-            self._tok_s = self._win_tokens / dt
-            self._win_t0, self._win_tokens = now, 0
+        if now - self._last_publish < self.cfg.stats_interval_s:
+            return
+        dt = max(now - self._win_t0, 1e-9)
+        tok_s = self._win_tokens / dt
+        self._win_t0, self._win_tokens = now, 0
+        self._last_publish = now
+        self._metrics = {"tok/s": round(tok_s, 2)}
+        q = self._ttft_quantiles()
+        if q:
+            self._metrics.update(q)
+            self._metrics["ttft_ms"] = q["ttft_ms_p50"]
+        sched = self.scheduler.counters()
+        pool = self.pool
+        self._mg_occupancy.set(pool.num_used)
+        self._mg_queue.set(sched["queue_depth"])
+        self._mg_tok_s.set(tok_s)
+        if pool.kind == "paged":
+            self._mg_blocks_used.set(pool.blocks_in_use)
+            self._mg_blocks_free.set(pool.free_blocks)
+            self._mg_free_watermark.set(pool.read_watermark())
+            self._mg_fragmentation.set(pool.fragmentation())
+        prefix = getattr(pool, "prefix", None)
+        cur = {"admitted": sched["admitted"], "rejected": sched["rejected"],
+               "evicted": sched["evicted"], "completed": sched["completed"],
+               "preempted": sched["preempted"], "iterations": self.iterations,
+               "spec_proposed": self._spec_proposed,
+               "spec_accepted": self._spec_accepted,
+               "prefix_hits": prefix.hits if prefix else 0,
+               "prefix_misses": prefix.misses if prefix else 0,
+               "prefix_evictions": prefix.evictions if prefix else 0}
+        last = self._m_last
+        for k in ("admitted", "rejected", "evicted", "completed", "preempted"):
+            if cur[k] > last[k]:
+                self._mc_requests.inc(cur[k] - last[k], outcome=k)
+        for k, kind in (("spec_proposed", "proposed"), ("spec_accepted", "accepted")):
+            if cur[k] > last[k]:
+                self._mc_spec.inc(cur[k] - last[k], kind=kind)
+        dp = cur["spec_proposed"] - last["spec_proposed"]
+        if dp > 0:
+            self._mg_spec_rate.set((cur["spec_accepted"] - last["spec_accepted"]) / dp)
+        for k, c in (("prefix_hits", self._mc_prefix_hits),
+                     ("prefix_misses", self._mc_prefix_misses),
+                     ("prefix_evictions", self._mc_prefix_evictions)):
+            if cur[k] > last[k]:
+                c.inc(cur[k] - last[k])
+        if prefix is not None:
+            self._mg_prefix_hit_rate.set(prefix.hit_rate())
+        if cur["iterations"] > last["iterations"]:
+            self._mc_iterations.inc(cur["iterations"] - last["iterations"])
+        self._m_last = cur
+        if self._stats is not None:
+            self._stats.log_metrics(self.iterations, dict(
+                self.metrics(), **{"tok/s": round(tok_s, 2)}))
 
     # -- the iteration loop ----------------------------------------------------
     def _loop(self) -> None:
@@ -487,7 +678,19 @@ class BatchEngine:
         self._drain_tasks()  # KV export/adopt and weight cutovers run here
         sched = self.scheduler
         sched.expire(self.pool)
-        sched.admit(self.pool)
+        admitted = sched.admit(self.pool)
+        if admitted and self.tracer.enabled:
+            for r in admitted:
+                # queue_wait closes at slot binding; the KV allocation and
+                # any prefix-cache adoption happened inside admit()
+                self.tracer.complete("queue_wait", r.admitted_at - r.submitted_at,
+                                     trace_id=r.trace_id, end_mono=r.admitted_at,
+                                     req=r.id)
+                self.tracer.instant("kv_alloc", trace_id=r.trace_id, slot=r.slot,
+                                    prompt_tokens=len(r.prompt_ids))
+                if r.cached_tokens:
+                    self.tracer.instant("prefix_adopt", trace_id=r.trace_id,
+                                        cached_tokens=r.cached_tokens)
         busy = False
         pre = sched.prefilling()
         if pre:
@@ -497,7 +700,7 @@ class BatchEngine:
         if dec:
             self._decode(dec)
             busy = True
-        self._update_rate()
+        self._publish()
         return busy
 
     def _to_device(self, a) -> torch.Tensor:
@@ -529,6 +732,8 @@ class BatchEngine:
             self.pool.register_upto(req.slot, req.prefill_source())
 
     def _prefill_chunk(self, req: Request) -> None:
+        tr = self.tracer
+        t0 = time.perf_counter() if tr.enabled else 0.0
         pool, C = self.pool, self.chunk
         source = req.prefill_source()
         P = len(source)
@@ -552,6 +757,10 @@ class BatchEngine:
         req.prefilled = start + n
         pool.lengths[req.slot] = min(start + n, P)
         self._register_prefix(req)
+        if tr.enabled:
+            tr.complete("prefill_chunk", time.perf_counter() - t0,
+                        trace_id=req.trace_id, req=req.id, start=start,
+                        tokens=n, final=final)
         if not final:
             return
         pool.lengths[req.slot] = P
@@ -561,10 +770,36 @@ class BatchEngine:
             req.first_token_at = time.monotonic()
         self._emit(req, tok, lp)
 
+    # Decode spans aggregate this many batched steps per request: one span
+    # per token would swamp the ring at decode rates.
+    DECODE_SPAN_TICKS = 8
+
+    def _open_decode_spans(self, dec: List[Request]) -> None:
+        now = time.perf_counter()
+        for r in dec:
+            if r._decode_t0 is None:
+                r._decode_t0 = now
+
+    def _tick_decode_spans(self, dec: List[Request]) -> None:
+        for r in dec:
+            r._decode_ticks += 1
+            if r._decode_ticks >= self.DECODE_SPAN_TICKS and r.state != DONE:
+                self._flush_decode_span(r)
+
+    def _flush_decode_span(self, req: Request) -> None:
+        if req._decode_t0 is not None and self.tracer.enabled:
+            self.tracer.complete("decode", time.perf_counter() - req._decode_t0,
+                                 trace_id=req.trace_id, req=req.id,
+                                 ticks=req._decode_ticks)
+        req._decode_t0 = None
+        req._decode_ticks = 0
+
     def _decode(self, dec: List[Request]) -> None:
         if self.pool.kind == "paged":
             self._decode_paged(dec)
             return
+        if self.tracer.enabled:
+            self._open_decode_spans(dec)
         pool = self.pool
         B = pool.num_slots
         # Free and prefilling rows ride the step at the reserved junk
@@ -588,6 +823,8 @@ class BatchEngine:
         for r in dec:
             pool.lengths[r.slot] += 1
             self._emit(r, tok[r.slot], lp[r.slot])
+        if self.tracer.enabled:
+            self._tick_decode_spans(dec)
 
     def _grow_or_preempt(self, dec: List[Request], S: int) -> List[Request]:
         """Map the blocks each decoding row's next verify window (``S``
@@ -630,6 +867,8 @@ class BatchEngine:
         dec = self._grow_or_preempt(dec, S)
         if not dec:
             return
+        if self.tracer.enabled:
+            self._open_decode_spans(dec)
         B = pool.num_slots
         # Masked rows (free, or admitted and still prefilling) ride the step
         # as token 0 at position 0 with an all-zero table row, so their
@@ -693,6 +932,8 @@ class BatchEngine:
                 # the next window overwrites the rejected tail.
                 pool.lengths[s] = p0 + len(emitted)
                 self._register_prefix(r)
+        if self.tracer.enabled:
+            self._tick_decode_spans(dec)
 
     def _emit(self, req: Request, tok: int, lp: float) -> None:
         """Account one sampled token (stop tokens are never appended)."""
@@ -704,6 +945,9 @@ class BatchEngine:
         req.last_token = tok
         if req.stream_q is not None:
             req.stream_q.put(tok)
+            if self.tracer.enabled:
+                self.tracer.instant("stream_emit", trace_id=req.trace_id,
+                                    req=req.id, n=len(req.tokens))
         self._win_tokens += 1
         if len(req.tokens) >= req.max_tokens:
             self._finish(req, "length")
@@ -723,9 +967,16 @@ class BatchEngine:
                 comp["prefill_ms"] = (req.first_token_at
                                       - req.admitted_at) * 1e3
                 comp["decode_ms"] = (done - req.first_token_at) * 1e3
+        # the histograms record whether or not tracing is on
         if ttft_ms is not None:
-            self._ttft_ms_sum += ttft_ms
-            self._ttft_count += 1
+            self._mh_ttft.observe(ttft_ms)
+        for k, v in comp.items():
+            self._mh_ttft_component.observe(v, component=k[:-3])
+        if self.tracer.enabled:
+            self._flush_decode_span(req)
+            self.tracer.complete("request", done - req.submitted_at,
+                                 trace_id=req.trace_id, end_mono=done, req=req.id,
+                                 reason=reason, tokens=len(req.tokens))
         req.resolve(result={
             "text": self.tokenizer.detokenize(req.tokens),
             "tokens": len(req.tokens),
@@ -739,6 +990,7 @@ class BatchEngine:
             "prompt_tokens": len(req.prompt_ids),
             "prefix_cached_tokens": req.cached_tokens,
             "stopped_on_token": reason == "stop",
+            "trace_id": req.trace_id,
             **({"ttft_ms": round(ttft_ms, 3)} if ttft_ms is not None else {}),
             **{k: round(v, 3) for k, v in comp.items()},
         })

@@ -78,6 +78,10 @@ class Request:
         self.error: Optional[str] = None
         self.result: Optional[dict] = None
         self.stream_q: Optional[Any] = None  # queue.Queue when streaming (SSE)
+        self.trace_id: Optional[str] = None  # propagated via X-Trace-Id
+        # the open decode span (the engine's tracer aggregates decode ticks)
+        self._decode_t0: Optional[float] = None
+        self._decode_ticks = 0
         self._done = threading.Event()
 
     # -- waiter --------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The single-device trainer, and loading a trained run for serving.
 
     python -m mlx_cuda_distributed_pretraining_tpu_torch.train.trainer \\
-        --config configs/model-config-40m-adamw.yaml [--device cpu]
+        --config configs/model-config-40m-adamw.yaml [--device cpu] \\
+        [--auto-resume [--hang-timeout-s 900]]
 
 :class:`Trainer` follows the JAX trainer on one device: seeded init, the
 data loader (``data.streaming.build_data_manager``: the in-memory JSONL
@@ -48,16 +49,36 @@ the save in hand is written.
 ``model.architecture`` resolves through ``models/registry.py`` as in the
 JAX trainer: an unknown name raises, and ``llama_standard`` /
 ``llama_flash`` force simple / flash attention.
+``model.matmul_precision: int8`` trains: the MoE experts on the
+``gmm_int8`` kernel, attention on int8-gridded q/k/v over the flash
+kernels, both with a straight-through backward.
+
+Telemetry, as in the JAX trainer (none of it changes a number the trainer
+computes): a metrics registry (``obs/metrics.py``) that the checkpoint
+manager and the prefetcher record into too, served as Prometheus text on
+``logging.metrics_port``; ``<run_dir>/events.jsonl`` (``obs/events.py``),
+replayed into the registry before the run and then appended to
+(``run_start``, ``resume``, ``compile``, ``step_window``,
+``checkpoint_save``, ``eval``, ``profiler``, ``profile_report``,
+``trace_capture``, ``run_end``); ``<run_dir>/heartbeat.json`` at the start,
+after every log window, save and validation, which the supervisor's hang
+watchdog reads; the goodput ledger (``obs/flops.py``), whose window
+breakdown rides the log line (``data_wait_s``, ``h2d_wait_s``,
+``dispatch_s``, ``compile_s`` (the run's first step), ``ckpt_save_s``,
+``eval_s``, ``other_s``, ``data_wait_frac``); with ``logging.trace``
+enabled, a span per goodput booking (``obs/trace.py``), written to
+``<run_dir>/trace.json`` at exit; SIGUSR2 records spans and a profile of
+the next ``trace.capture_steps`` steps into ``trace_step<N>.json``;
+``logging.profile_start`` / ``profile_stop`` capture those steps with
+``torch.profiler`` (``obs/profiler.py``) into ``<run_dir>/profile/`` and
+attribute them (``prof_summary.json``, and ``prof_*`` fields in later
+``step_window`` events); ``logging.metrics.stats_url`` publishes each log
+line to a stats hub; TensorBoard and W&B through the logger.
+``--auto-resume`` runs the trainer under ``train/supervisor.py``.
 
 Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
 ``model_parallel`` that needs more than one device (expert, data, tensor,
-sequence and pipeline parallelism). ``model.matmul_precision: int8``
-trains: the MoE experts on the ``gmm_int8`` kernel, attention on int8-gridded
-q/k/v over the flash kernels, both with a straight-through backward. The telemetry
-keys (``logging.metrics_port``, ``tensorboard``, ``wandb``, ``trace``,
-``events``) and the log line's goodput fields (item 9) are read by
-nothing here: they change no number the trainer computes, writes or
-logs, so a run with them set trains as one without.
+sequence and pipeline parallelism).
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
@@ -91,9 +112,18 @@ from ..data.streaming import build_data_manager
 from ..models import llama
 from ..models.llama import LlamaArgs
 from ..models.registry import resolve_architecture
+from ..obs.events import (
+    EventLog,
+    events_path,
+    heartbeat_path,
+    replay_into,
+    write_heartbeat,
+)
+from ..obs.flops import GoodputLedger, model_flops_per_token, peak_flops_per_chip
 from ..obs.flops import mfu as compute_mfu
-from ..obs.flops import model_flops_per_token, peak_flops_per_chip
 from ..obs.logger import Logger
+from ..obs.metrics import MetricsRegistry
+from ..obs.trace import Tracer
 from ..optim.factory import build_optimizer
 from ..optim.schedules import build_schedule, schedule_value
 from ..tokenizer import TokenizerManager
@@ -131,18 +161,20 @@ def load_into(live: Any, loaded: Any) -> Any:
                         live, loaded)
 
 
-def routing_line(window: List[Tuple[torch.Tensor, torch.Tensor]]) -> Dict[str, Any]:
+def routing_line(window: List[Tuple[torch.Tensor, torch.Tensor]]
+                 ) -> Tuple[Dict[str, Any], np.ndarray]:
     """A log window's routing stats from its steps' ``(moe_load [E],
     moe_dropped)``: the normalised balance entropy (1.0 uniform, 0.0 one
     expert takes all), dropped selections, and the busiest expert's share;
-    the JAX trainer's arithmetic. Reads the device once."""
+    the JAX trainer's arithmetic. Also each expert's share, for the
+    registry's gauge. Reads the device once."""
     load = np.asarray(sum(m[0] for m in window).cpu(), np.float64)
     dropped = int(sum(m[1] for m in window))
     frac = load / max(load.sum(), 1.0)
     nz = frac[frac > 0]
     entropy = float(-(nz * np.log(nz)).sum() / math.log(max(len(load), 2)))
     return {"moe_entropy": entropy, "moe_drop": dropped,
-            "moe_load_max": float(frac.max())}
+            "moe_load_max": float(frac.max())}, frac
 
 
 class Trainer:
@@ -157,18 +189,25 @@ class Trainer:
                                "on the CPU")
         refuse_multi_device(cfg.system)
 
-        resume = cfg.resume is not None and bool(cfg.resume.checkpoint)
+        # a step tag, 0 included: a --set override parses "0" as the number,
+        # which JAX's bool() test reads as no resume at all
+        tag = None if cfg.resume is None else cfg.resume.checkpoint
+        resume = tag is not None and tag is not False and str(tag) != ""
         if resume:  # continue in the run's own directory
             self.run_dir = os.path.join(runs_root, cfg.name)
             os.makedirs(os.path.join(self.run_dir, "checkpoints"), exist_ok=True)
         else:
             self.run_dir = CheckpointManager.setup_run_directory(
                 runs_root, cfg.name, cfg.overwrite)
-        self.logger = Logger(self.run_dir, quiet=quiet)
+        self.logger = Logger(self.run_dir, cfg, quiet=quiet)
+        # One registry per Trainer: the checkpoint manager and the
+        # prefetcher record into it, Prometheus and the stats hub read it.
+        self.metrics = MetricsRegistry()
         # Integrity events (quarantine, GC, ledger rebuild) go to log.txt.
         self.checkpoints = CheckpointManager(
             self.run_dir, keep_last=cfg.logging.keep_last,
-            keep_every=cfg.logging.keep_every, notify=self.logger.log)
+            keep_every=cfg.logging.keep_every, notify=self.logger.log,
+            metrics=self.metrics)
         cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
         self.tokenizer = TokenizerManager(cfg.data, run_dir=self.run_dir)
 
@@ -239,8 +278,145 @@ class Trainer:
             cfg.model, self.n_params, cfg.data.max_context_size)
         self.peak_flops = (peak_flops_per_chip(torch.cuda.get_device_name(self.device))
                            if self.device.type == "cuda" else None)
+        self._init_telemetry()
         if resume:
             self._resume()
+
+    def _init_telemetry(self) -> None:
+        """The registry's metrics, the goodput ledger, the span tracer, the
+        profiler, the stats client, ``events.jsonl`` (replayed into the
+        registry first, so its counters survive restarts) and the
+        heartbeat, as the JAX trainer sets them up."""
+        from ..obs.profiler import ProfileCapture
+
+        cfg = self.config
+        self.stats_client = None
+        if cfg.logging.stats_url:
+            from ..obs.stats_client import StatsClient
+
+            self.stats_client = StatsClient(cfg.logging.stats_url,
+                                            worker_id=f"{cfg.name}-p0").start()
+            self.stats_client.register({"devices": 1})
+        self.goodput = GoodputLedger()
+        # Each goodput booking is mirrored by a span of the same duration,
+        # so a window's span sums reconcile with its ledger fields.
+        tcfg = dict(cfg.logging.trace or {})
+        self.tracer = Tracer("trainer-p0", capacity=int(tcfg.get("capacity", 65536)),
+                             sample=float(tcfg.get("sample", 1.0)),
+                             enabled=bool(tcfg.get("enabled", False)))
+        self._trace_capture_steps = int(tcfg.get("capture_steps", 20))
+        self._trace_request = 0  # bumped by SIGUSR2
+        self._trace_until = 0    # the on-demand window's end step (exclusive)
+        self._trace_owns_prof = False
+        self._trace_prev_enabled = self.tracer.enabled
+        self.profiler = ProfileCapture(
+            os.path.join(self.run_dir, "profile"), log=self.logger.log,
+            sync=self._sync, analytic_fn=self._prof_analytic,
+            summary_path=os.path.join(self.run_dir, "prof_summary.json"),
+            report=cfg.logging.profile_report_enabled,
+            top_k=cfg.logging.profile_report_top_k,
+            cuda=self.device.type == "cuda")
+        # the last attribution's fractions, merged into later step_window events
+        self._prof_fields: Dict[str, float] = {}
+        self._compiled = False  # the first step books into compile_s
+        self._metrics_server = None
+        replayed = replay_into(self.metrics, events_path(self.run_dir))
+        if replayed:
+            self.logger.log(f"telemetry: registry rebuilt from {replayed} events "
+                            f"in {events_path(self.run_dir)}")
+        self.events: Optional[EventLog] = EventLog(
+            events_path(self.run_dir), max_bytes=cfg.logging.events_max_bytes)
+        self._hb_path = heartbeat_path(self.run_dir)
+        self._hb_step = self.start_step
+        m = self.metrics
+        self._m_steps = m.counter(
+            "train_steps_total", "optimizer steps completed over the run lifetime")
+        self._m_toks = m.counter("train_tokens_total", "non-pad target tokens trained on")
+        self._m_saves = m.counter("checkpoint_saves_total", "checkpoints written")
+        self._m_evals = m.counter("eval_runs_total", "validation passes")
+        self._m_goodput = m.counter(
+            "goodput_seconds_total", "wall-clock seconds by goodput component")
+        self._g_step = m.gauge("train_step", "current optimizer step")
+        self._g_loss = m.gauge("train_loss", "last logged train loss")
+        self._g_tok_s = m.gauge("train_tok_s", "global tokens/second over the last window")
+        self._g_mfu = m.gauge("train_mfu", "model FLOPs utilization over the last window")
+        self._g_grad_norm = m.gauge(
+            "train_grad_norm", "global gradient norm over the last window")
+        self._m_nonfinite = m.counter(
+            "train_nonfinite_total", "logging windows whose loss came back NaN/Inf")
+        self._g_prof = {
+            "prof_compute_frac": m.gauge(
+                "prof_compute_frac", "step time in compute ops (last attribution)"),
+            "prof_comm_frac": m.gauge(
+                "prof_comm_frac", "step time in EXPOSED collectives (not hidden "
+                "under compute) from the last attribution"),
+            "prof_overlap_frac": m.gauge(
+                "prof_overlap_frac", "fraction of collective time overlapped with "
+                "compute (1.0 = fully hidden) from the last attribution"),
+            "prof_idle_frac": m.gauge(
+                "prof_idle_frac", "step time with no device op running (last "
+                "attribution)"),
+        }
+        if self.moe_stats_experts:
+            self._m_moe_dropped = m.counter(
+                "moe_dropped_tokens_total",
+                "expert selections dropped by capacity limits (0 when dropless)")
+            self._g_moe_load = m.gauge(
+                "moe_expert_load_frac",
+                "per-expert fraction of routed selections over the last window")
+            self._g_moe_entropy = m.gauge(
+                "moe_balance_entropy",
+                "normalized routing entropy over the last window (1.0 = uniform)")
+
+    # -- telemetry helpers -------------------------------------------------------
+    def _book(self, component: str, dur_s: float, **args) -> None:
+        """A goodput booking, mirrored by a span of the same duration when
+        tracing is on (``seconds``: the span's ``dur`` is whole µs)."""
+        self.goodput.add(component, dur_s)
+        if self.tracer.enabled:
+            self.tracer.complete(component[:-2], dur_s, seconds=dur_s, **args)
+
+    def _touch_heartbeat(self, step: Optional[int] = None) -> None:
+        if step is not None:
+            self._hb_step = int(step)
+        try:
+            write_heartbeat(self._hb_path, self._hb_step, process_index=0)
+        except OSError:
+            pass  # the heartbeat is advisory; never kill training over it
+
+    def _prof_analytic(self) -> Dict[str, Any]:
+        """The report's analytic join: the 6N matmul term and the attention
+        residual of the trainer's FLOPs per token."""
+        cfg = self.config
+        matmul = 6.0 * float(self.n_params)
+        return {"tokens_per_step": float(cfg.training.batch_size)
+                * float(cfg.data.max_context_size),
+                "matmul_flops_per_token": matmul,
+                "attn_flops_per_token": max(0.0, float(self.flops_per_token) - matmul)}
+
+    def _apply_profile_report(self, report, step: Optional[int]) -> None:
+        """One attribution to the gauges, the event log and the run log."""
+        if not report:
+            return
+        from ..obs.profile_report import prof_fields
+
+        fields = prof_fields(report)
+        self._prof_fields = fields
+        for name, val in fields.items():
+            self._g_prof[name].set(val)
+        agg = report["aggregate"]
+        self.logger.log(
+            f"graftprof: steps={agg['n_steps']} "
+            f"compute={fields['prof_compute_frac']:.3f} "
+            f"comm_exposed={fields['prof_comm_frac']:.3f} "
+            f"overlap={fields['prof_overlap_frac']:.3f} "
+            f"idle={fields['prof_idle_frac']:.3f} "
+            f"(summary: {self.profiler.summary_path})")
+        if self.events is not None:
+            ev = dict(fields)
+            if step is not None:
+                ev["step"] = int(step)
+            self.events.append("profile_report", **ev)
 
     def _vocab_size(self) -> int:
         """The tokenizer's vocabulary; for ``token_shards`` the shard
@@ -264,7 +440,22 @@ class Trainer:
 
     # -- validation and checkpoints ---------------------------------------------
     def validate(self, cap: int = 50) -> Optional[float]:
-        """Token-weighted validation loss over at most ``cap`` batches."""
+        """Token-weighted validation loss over at most ``cap`` batches. Its
+        wall clock books into goodput as ``eval_s``; a pass that ran counts
+        in the registry and ``events.jsonl``."""
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("eval"):
+            result = self._validate_inner(cap)
+        dt = time.perf_counter() - t0
+        self._book("eval_s", dt)
+        if result is not None:
+            self._m_evals.inc()
+            if self.events is not None:
+                self.events.append("eval", loss=result, seconds=round(dt, 4))
+        self._touch_heartbeat()
+        return result
+
+    def _validate_inner(self, cap: int) -> Optional[float]:
         if not self.data.has_validation_data:
             return None
         total_nll = total_toks = None
@@ -282,7 +473,21 @@ class Trainer:
         """Save the state as ``step`` (a number or "final"); the training
         state carries the data position and the early-stopping state. With
         ``blocking=False`` the disk write runs in the background once the
-        host copies exist."""
+        host copies exist. The save's cost to the loop books into goodput
+        as ``ckpt_save_s`` and lands in ``events.jsonl``; the heartbeat is
+        refreshed after it, so a long save never trips the watchdog."""
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("checkpoint_save"):
+            self._save_checkpoint_inner(step, blocking)
+        dt = time.perf_counter() - t0
+        self._book("ckpt_save_s", dt, step=str(step))
+        self._m_saves.inc()
+        if self.events is not None:
+            self.events.append("checkpoint_save", step=step, seconds=round(dt, 4),
+                               blocking=bool(blocking))
+        self._touch_heartbeat()
+
+    def _save_checkpoint_inner(self, step, blocking: bool) -> None:
         training_state = {"step": int(self.state["step"]),
                           "total_tokens": int(self.total_tokens),
                           **self._data_state(),
@@ -385,6 +590,8 @@ class Trainer:
             self.data.load_state_dict(tstate)
             self.early_stopping.load_state_dict(tstate.get("early_stopping", {}))
         self.logger.log(f"Resumed from checkpoint {tag} at step {self.start_step}")
+        if self.events is not None:
+            self.events.append("resume", tag=str(tag), step=self.start_step)
 
     # -- sample generation -----------------------------------------------------
     def generate_samples(self, step: int, prompts=None, max_new_tokens: int = 48) -> None:
@@ -438,10 +645,20 @@ class Trainer:
     # -- the loop ------------------------------------------------------------
     def train(self) -> Dict[str, Any]:
         cfg = self.config
+        train_t0 = time.perf_counter()
+        # run_start opens a fresh run's stream, before the step-0 eval event
+        if self.events is not None and self.start_step == 0:
+            self.events.append(
+                "run_start", name=cfg.name, total_steps=self.total_steps,
+                n_params=self.n_params, flops_per_token=self.flops_per_token,
+                peak_flops=self.peak_flops, n_chips=1, device=str(self.device))
         self.maybe_run_lr_finder()
         log_int = max(1, cfg.logging.logging_interval)
         ckpt_int = cfg.logging.checkpoint_interval
         val_int = cfg.logging.validation_interval
+        # the torch.profiler window [profile_start, profile_stop)
+        prof_start = int(cfg.logging.profile_start or 0)
+        prof_stop = int(cfg.logging.profile_stop or 0)
 
         def record_validation(step: int, v: Optional[float]) -> None:
             if v is not None:
@@ -455,15 +672,36 @@ class Trainer:
         window_waits = {"data_wait_s": 0.0, "h2d_wait_s": 0.0}
         window_moe: list = []  # (moe_load, moe_dropped) device tensors per step
         last_loss = float("nan")
+        # What was booked before the first window (the step-0 validation,
+        # the LR finder) goes to the run totals, so each window's components
+        # sum to its own wall time.
+        self.goodput.close_window(time.perf_counter() - train_t0)
+        if self.tracer.enabled:
+            self.tracer.instant("goodput_flush", step=self.start_step)
         # The step loop's batches, copied to the device ahead of it
         # (data/device_prefetch.py); _data_state() reads the consumed
         # position through it.
         self.prefetcher = DevicePrefetcher(
             self.data, device=self.device, depth=int(cfg.data.prefetch_depth),
-            start_step=self.start_step, total_steps=self.total_steps)
+            start_step=self.start_step, total_steps=self.total_steps,
+            metrics=self.metrics)
+        # The Prometheus exposition stays up after train() returns (a
+        # daemon thread), so a late scrape sees the final counters.
+        if cfg.logging.metrics_port and self._metrics_server is None:
+            from ..obs.prometheus import start_metrics_server
+
+            port = int(cfg.logging.metrics_port)
+            self._metrics_server = start_metrics_server(self.metrics, port,
+                                                        process_index=0)
+            self.logger.log(
+                f"telemetry: serving Prometheus metrics on :{port}/metrics"
+                if self._metrics_server is not None else
+                f"telemetry: metrics port {port} unavailable; exporter disabled")
+        self._touch_heartbeat(self.start_step)
 
         # SIGTERM / SIGINT set a flag; the loop saves and ends at the next
-        # step boundary. A second signal gets the previous handler.
+        # step boundary. A second signal gets the previous handler. SIGUSR2
+        # asks for an on-demand capture of the next steps.
         self.preempted = False
         prev_handlers: Dict[int, Any] = {}
 
@@ -471,9 +709,13 @@ class Trainer:
             self.preempted = True
             signal.signal(signum, prev_handlers.get(signum, signal.SIG_DFL))
 
+        def on_trace_signal(signum, frame):
+            self._trace_request += 1
+
         try:
-            for sig in (signal.SIGTERM, signal.SIGINT):
-                prev = signal.signal(sig, on_signal)
+            for sig, handler in ((signal.SIGTERM, on_signal), (signal.SIGINT, on_signal),
+                                 (signal.SIGUSR2, on_trace_signal)):
+                prev = signal.signal(sig, handler)
                 prev_handlers[sig] = prev if prev is not None else signal.SIG_DFL
         except ValueError:  # not the main thread: no signal hooks
             prev_handlers = {}
@@ -483,6 +725,16 @@ class Trainer:
         completed = False
         try:
             for step in range(self.start_step + 1, self.total_steps + 1):
+                if prof_stop > prof_start:
+                    if step >= prof_stop and self.profiler.active:
+                        self._apply_profile_report(self.profiler.stop(step), step)
+                        if self.events is not None:
+                            self.events.append("profiler", action="stop", step=step)
+                        self._touch_heartbeat()  # the trace's export is no hang
+                    elif prof_start <= step < prof_stop and not self.profiler.active:
+                        if self.profiler.start(step) and self.events is not None:
+                            self.events.append("profiler", action="start", step=step)
+                self._on_demand_capture(step)
                 try:
                     batch, step_tokens, waits = self.prefetcher.get()
                 except StopIteration:  # a finite stream ran dry
@@ -492,7 +744,26 @@ class Trainer:
                 self.total_tokens += step_tokens
                 for k in window_waits:
                     window_waits[k] += waits[k]
-                self.state, metrics = self.train_step(self.state, batch)
+                self._book("data_wait_s", waits["data_wait_s"], step=step)
+                if self.prefetcher.h2d_blocks_consumer:
+                    self._book("h2d_wait_s", waits["h2d_wait_s"], step=step)
+                t_dispatch = time.perf_counter()
+                if self.profiler.active:  # the report's step marker
+                    with torch.profiler.record_function(f"TrainStep#{step}"):
+                        self.state, metrics = self.train_step(self.state, batch)
+                else:
+                    self.state, metrics = self.train_step(self.state, batch)
+                t_d = time.perf_counter() - t_dispatch
+                if not self._compiled:
+                    # The run's first step carries the one-time costs (kernel
+                    # loads, allocator warm-up), as JAX's first dispatch
+                    # carries its compile.
+                    self._compiled = True
+                    self._book("compile_s", t_d, step=step)
+                    if self.events is not None:
+                        self.events.append("compile", seconds=round(t_d, 4), step=step)
+                else:
+                    self._book("dispatch_s", t_d, step=step)
                 window_steps += 1
                 if "moe_load" in metrics:
                     window_moe.append((metrics["moe_load"], metrics["moe_dropped"]))
@@ -501,22 +772,14 @@ class Trainer:
                     self._sync()
                     last_loss = loss
                     elapsed = max(time.perf_counter() - window_start, 1e-9)
-                    tok_s = window_tokens / elapsed
-                    mfu_val = compute_mfu(tok_s, self.flops_per_token, self.peak_flops, 1)
-                    line = {"loss": loss, "ppl": float(math.exp(min(loss, 30.0))),
-                            "lr": schedule_value(self.schedule, step),
-                            "tok/s": tok_s, "toks": int(window_tokens),
-                            "mfu": mfu_val if mfu_val is not None else "unknown"}
-                    if "grad_norm" in metrics:
-                        line["grad_norm"] = float(metrics["grad_norm"])
-                    if window_moe:
-                        line.update(routing_line(window_moe))
-                        window_moe = []
-                    if int(metrics["nonfinite"]):
-                        self.logger.log(f"WARNING: non-finite loss at step {step}")
-                    self.logger.log_metrics(step, line)
+                    gp = self.goodput.close_window(elapsed)
+                    line, mfu_val = self._log_window(step, metrics, loss, elapsed, gp,
+                                                     window_tokens, window_steps,
+                                                     window_moe)
+                    window_moe = []
+                    # the window's summed waits, whatever the ledger booked
                     self.windows.append({"step": step, "steps": window_steps,
-                                         "seconds": elapsed, **window_waits, **line})
+                                         "seconds": elapsed, **line, **window_waits})
                     window_tokens, window_steps = 0, 0
                     window_waits = dict.fromkeys(window_waits, 0.0)
                     window_start = time.perf_counter()
@@ -544,9 +807,6 @@ class Trainer:
                     break
                 if stop_early:
                     break
-                if window_steps == 0:  # validation and saves stay out of the windows
-                    self._sync()
-                    window_start = time.perf_counter()
             completed = True
         finally:
             # The worker stops first; the consumed position the final
@@ -561,6 +821,14 @@ class Trainer:
                     self.checkpoints.wait()
                 except RuntimeError as e:
                     self.logger.log(str(e))
+            if self.profiler.active:  # the run ended inside a capture window
+                self._apply_profile_report(self.profiler.stop(), int(self.state["step"]))
+            # the spans (a run-long trace, or an on-demand window cut short)
+            if self.tracer.enabled and self.tracer.stats()["recorded"]:
+                try:
+                    self.tracer.export(os.path.join(self.run_dir, "trace.json"))
+                except OSError as e:
+                    self.logger.log(f"trace export failed: {e}")
         self.checkpoints.wait()  # a failed background write raises here
 
         step = int(self.state["step"])
@@ -572,9 +840,103 @@ class Trainer:
         self.save_checkpoint("final")
         if hasattr(self.data, "stop"):
             self.data.stop()  # a streaming loader's producer thread
+        if self.stats_client is not None:
+            self.stats_client.close()
+        if self.events is not None:
+            self.events.append(
+                "run_end", step=step, total_tokens=int(self.total_tokens),
+                final_loss=last_loss, goodput_totals={
+                    k: round(v, 4) for k, v in self.goodput.totals().items()})
+            self.events.close()
+            self.events = None
         self.logger.log("Training complete")
         self.logger.close()
         return {"final_loss": last_loss, "final_val_loss": final_val, "steps": step}
+
+    def _log_window(self, step: int, metrics, loss: float, elapsed: float,
+                    gp: Dict[str, float], window_tokens: int, window_steps: int,
+                    window_moe: list) -> Tuple[Dict[str, Any], Optional[float]]:
+        """A closed window's log line (with its goodput breakdown, summing
+        to ``elapsed``), the registry's counters and gauges, the
+        ``step_window`` event, the stats hub, the tracer's marker and the
+        heartbeat: one place, so they move in lockstep."""
+        tok_s = window_tokens / elapsed
+        mfu_val = compute_mfu(tok_s, self.flops_per_token, self.peak_flops, 1)
+        line = {"loss": loss, "ppl": float(math.exp(min(loss, 30.0))),
+                "lr": schedule_value(self.schedule, step),
+                "tok/s": tok_s, "toks": int(window_tokens),
+                "mfu": mfu_val if mfu_val is not None else "unknown",
+                "data_wait_s": gp["data_wait_s"], "h2d_wait_s": gp["h2d_wait_s"],
+                "dispatch_s": gp["dispatch_s"], "compile_s": gp["compile_s"],
+                "ckpt_save_s": gp["ckpt_save_s"], "eval_s": gp["eval_s"],
+                "other_s": gp["other_s"],
+                "data_wait_frac": min(gp["data_wait_s"] / elapsed, 1.0)}
+        if "grad_norm" in metrics:
+            line["grad_norm"] = float(metrics["grad_norm"])
+            self._g_grad_norm.set(line["grad_norm"])
+        if window_moe:
+            routing, frac = routing_line(window_moe)
+            line.update(routing)
+            self._g_moe_entropy.set(routing["moe_entropy"])
+            self._m_moe_dropped.inc(routing["moe_drop"])
+            for e, f in enumerate(frac):
+                self._g_moe_load.set(float(f), expert=str(e))
+        if int(metrics["nonfinite"]):
+            self.logger.log(f"WARNING: non-finite loss at step {step}")
+            self._m_nonfinite.inc()
+        self.logger.log_metrics(step, line)
+        if self.stats_client is not None:
+            self.stats_client.log_metrics(step, line)
+        self._m_steps.inc(window_steps)
+        self._m_toks.inc(window_tokens)
+        self._g_step.set(step)
+        self._g_loss.set(loss)
+        self._g_tok_s.set(tok_s)
+        if mfu_val is not None:
+            self._g_mfu.set(mfu_val)
+        for comp, secs in gp.items():
+            if secs > 0:
+                self._m_goodput.inc(secs, component=comp)
+        if self.events is not None:
+            ev = dict(step=step, steps=window_steps, toks=int(window_tokens),
+                      loss=round(loss, 6), tok_s=round(tok_s, 2), mfu=mfu_val,
+                      goodput={k: round(v, 6) for k, v in gp.items()})
+            ev.update(self._prof_fields)
+            self.events.append("step_window", **ev)
+        if self.tracer.enabled:
+            self.tracer.instant("step_window", step=step, tok_s=round(tok_s, 2),
+                                mfu=mfu_val if mfu_val is not None else "unknown")
+        self._touch_heartbeat(step)
+        return line, mfu_val
+
+    def _on_demand_capture(self, step: int) -> None:
+        """The SIGUSR2 window: spans (and a profile, when no other capture
+        runs) for the next ``trace.capture_steps`` steps, written to
+        ``trace_step<N>.json`` at its end."""
+        if self._trace_until and step >= self._trace_until:
+            self._trace_until = 0
+            if self._trace_owns_prof and self.profiler.active:
+                report = self.profiler.stop(step)
+                self._trace_owns_prof = False
+                self._apply_profile_report(report, step)
+            out = os.path.join(self.run_dir, f"trace_step{step}.json")
+            self.tracer.export(out)
+            self.tracer.enabled = self._trace_prev_enabled
+            self.logger.log(f"trace capture: spans written to {out}")
+            if self.events is not None:
+                self.events.append("trace_capture", action="stop", step=step, path=out)
+        if self._trace_request and not self._trace_until:
+            self._trace_request = 0
+            self._trace_until = step + max(1, self._trace_capture_steps)
+            self._trace_prev_enabled = self.tracer.enabled
+            self.tracer.enabled = True
+            if not self.profiler.active:
+                # start() never raises; a refused start means spans only
+                self._trace_owns_prof = self.profiler.start(step)
+            self.logger.log(f"trace capture: recording steps [{step}, {self._trace_until})")
+            if self.events is not None:
+                self.events.append("trace_capture", action="start", step=step,
+                                   until=self._trace_until)
 
 
 # -- loading a run ------------------------------------------------------------------
@@ -609,16 +971,10 @@ def load_trained(run_name_or_dir: str, runs_root: str = "runs", device="cuda",
     return params_from_flat(arrays, device), args, tok, cfg
 
 
-def main(argv=None) -> Dict[str, Any]:
-    parser = argparse.ArgumentParser(description="Train with the PyTorch port")
-    parser.add_argument("--config", required=True)
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("--runs-root", default="runs")
-    parser.add_argument("--iters", type=int, default=None)
-    parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                        help="dotted config override, e.g. training.hyperparameters.batch_size=8")
-    args = parser.parse_args(argv)
-    overrides = {}
+def collect_overrides(args) -> Dict[str, Any]:
+    """Dotted-path overrides from parsed CLI args (the supervisor resolves
+    the run name through it too)."""
+    overrides: Dict[str, Any] = {}
     for kv in args.set:
         key, _, value = kv.partition("=")
         try:
@@ -628,8 +984,62 @@ def main(argv=None) -> Dict[str, Any]:
         overrides[key] = value
     if args.iters is not None:
         overrides["training.hyperparameters.iters"] = args.iters
+    if args.batch_size is not None:
+        overrides["training.hyperparameters.batch_size"] = args.batch_size
+    if args.learning_rate is not None:
+        overrides["training.hyperparameters.learning_rate"] = args.learning_rate
+    if args.run_name:
+        overrides["name"] = args.run_name
+    return overrides
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX trainer's CLI flags, with ``--device``."""
+    parser = argparse.ArgumentParser(description="Train with the PyTorch port")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--runs-root", default="runs")
+    parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                        help="dotted config override, e.g. training.hyperparameters.batch_size=8")
+    parser.add_argument("--iters", type=int, default=None)
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--learning-rate", type=float, default=None)
+    parser.add_argument("--run-name", default=None)
+    parser.add_argument("--auto-resume", action="store_true",
+                        help="supervise training in a subprocess; on a crash, a "
+                             "hang or preemption, restart it from the newest "
+                             "VERIFIED checkpoint with exponential backoff")
+    parser.add_argument("--max-crashes", type=int, default=3,
+                        help="give up after this many consecutive crashes "
+                             "without checkpoint progress (with --auto-resume)")
+    parser.add_argument("--backoff-base", type=float, default=2.0,
+                        help="first restart delay in seconds (doubles per "
+                             "no-progress crash; with --auto-resume)")
+    parser.add_argument("--backoff-max", type=float, default=60.0,
+                        help="restart delay ceiling in seconds (with --auto-resume)")
+    parser.add_argument("--hang-timeout-s", type=float, default=None,
+                        help="with --auto-resume: stop and restart the trainer "
+                             "when its heartbeat makes no progress for this many "
+                             "seconds (overrides supervisor.hang_timeout_s; 0 "
+                             "disables)")
+    parser.add_argument("--scope", action="store_true",
+                        help="the graftscope collector sidecar (not ported)")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="processes of a multi-host run (the port runs one)")
+    return parser
+
+
+def main(argv=None) -> Dict[str, Any]:
+    args = build_parser().parse_args(argv)
+    if args.auto_resume:
+        from .supervisor import supervise_from_args
+
+        return supervise_from_args(args)
+    if (args.num_processes or 1) > 1:
+        raise NotImplementedError(
+            "a multi-process run is not ported (ROADMAP queue 1 item 10: multi-GPU)")
     raw = read_config_dict(args.config)
-    trainer = Trainer(Config.from_dict(apply_overrides(raw, overrides)),
+    trainer = Trainer(Config.from_dict(apply_overrides(raw, collect_overrides(args))),
                       runs_root=args.runs_root, device=args.device)
     return trainer.train()
 

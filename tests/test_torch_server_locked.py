@@ -7,9 +7,9 @@ off-TPU backend) with the byte tokenizer. Covered: the default engine is
 ``locked``; the logit-reshaping knobs fall back from the batch engine to
 the locked path; SSE (token events from the batch engine, one final event
 from the locked path); ``/v1/completions`` and ``/v1/models`` in the JAX
-server's shape; the fleet, tracing and metrics endpoints and
-``X-Deadline-Ms`` refused with the ROADMAP item that ports them; the server's entry point in
-a subprocess.
+server's shape; ``/trace`` and ``/metrics`` in the JAX server's shape; the
+fleet endpoints and ``X-Deadline-Ms`` refused with the ROADMAP item that
+ports them; the server's entry point in a subprocess.
 """
 
 import json
@@ -180,7 +180,7 @@ def test_completions_and_models_have_the_jax_servers_keys(np_params):
 @pytest.mark.parametrize("method,path,item", [
     ("POST", "/prefill", 10), ("POST", "/adopt_kv", 10),
     ("POST", "/admin/drain", 10), ("POST", "/admin/swap_weights", 10),
-    ("GET", "/trace", 9), ("GET", "/metrics", 9), ("POST", "/generate?deadline", 10)])
+    ("POST", "/generate?deadline", 10)])
 def test_unported_endpoints_refuse_naming_their_item(np_params, method, path, item):
     with _Served(_service(np_params), tserver) as s:
         headers = None
@@ -240,3 +240,43 @@ def test_server_entry_point_defaults_to_the_locked_engine(tmp_path):
         cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True,
         text=True, timeout=120)
     assert bad.returncode == 2 and "--weight-dtype requires --engine batch" in bad.stderr
+
+
+@pytest.mark.parametrize("path", ["/trace", "/metrics"])
+def test_telemetry_endpoints_answer_as_jax(np_params, path):
+    """``/trace`` and ``/metrics``, refused until ROADMAP queue 1 item 9,
+    answer 200 in the JAX server's shape: on the locked path (no engine)
+    the same bodies; behind the batch engine with its tracer on, the
+    client's ``X-Trace-Id`` keys the request's spans and ``/metrics``
+    carries the JAX keys and the TTFT histogram's sum and count."""
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jsvc = jserver.InferenceService(jparams, jl.LlamaArgs(**FIELDS), JTok(DataConfig()),
+                                    run_name="tiny")
+    with _Served(_service(np_params), tserver) as t, _Served(jsvc, jserver) as j:
+        tcode, tout = _call(t.url, path)
+        jcode, jout = _call(j.url, path)
+    assert tcode == jcode == 200 and tout == jout
+    service = _service(np_params)
+    service.attach_engine(EngineConfig(num_slots=2, max_len=128, prefill_chunk=16,
+                                       trace=True))
+    with _Served(service, tserver) as t:
+        code, out = _call(t.url, "/generate", {"prompt": PROMPT, "max_tokens": 4},
+                          {"X-Trace-Id": "ab" * 16})
+        assert code == 200 and out["trace_id"] == "ab" * 16
+        import time
+
+        for _ in range(100):  # the engine publishes its TTFT every second
+            code, body = _call(t.url, path)
+            if path == "/trace" or "ttft_ms_count" in body:
+                break
+            time.sleep(0.05)
+    assert code == 200
+    if path == "/trace":
+        req = [e for e in body["traceEvents"] if e.get("name") == "request"]
+        assert len(req) == 1 and req[0]["args"]["trace_id"] == "ab" * 16
+    else:
+        jkeys = {"iterations", "batch_occupancy", "num_slots", "kv_backend", "role",
+                 "params_version", "mesh", "weight_dtype", "weight_bytes",
+                 "prefix_cache", "draining"}
+        assert jkeys <= set(body) and body["draining"] is False
+        assert body["ttft_ms_count"] == 1 and body["ttft_ms_sum"] > 0
