@@ -100,6 +100,41 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    second engine (the adopting request's greedy tokens a fresh prefill's,
    its prompt from the cache), a corrupted payload refused and its keys
    quarantined. Prints tok/s of each arm beside the card.
+4d. fleet — the same weights in a disaggregated fleet (``fleet_phase``):
+   one prefill and two decode batch engines (phase 4's settings), each
+   behind the port's server on a thread of this process and registered in
+   a fleet directory with a heartbeat, behind a ``FleetRouter``, a
+   ``FleetController`` (``configs/serve-sample.yaml``'s ``fleet:`` block;
+   no scale-down below two) and a scope ``Collector`` (its ``scope:``
+   block, scraping through the router's call policy, with
+   ``configs/alerts.yaml``'s rules and one the traffic crosses). Ten
+   greedy requests of 32 tokens, one at a time: six of 600-900 bytes take
+   the handoff (two groups of three share a 512-byte prefix, each group
+   routed to its own decode replica) and four under the 64-byte floor
+   prefill on the decode side. Gates: every request's tokens a directly
+   served engine's; 6 handoffs, 6 prefill-only requests, adopted blocks;
+   each push the GKV1 bytes of its full blocks (48 KiB a token of KV plus
+   the framing); each group on one decode replica, its later requests
+   reusing the 16 shared blocks; gmm launches recorded around each
+   replica's part of each request: "f32" only on the prefill replica,
+   "f32_decode" on both decode replicas, every launch a kernel's (3 per
+   layer per engine step) and no call of the plain version. Then:
+   ``/admin/drain`` (503, the router around it, ``/admin/undrain``);
+   ``X-Deadline-Ms: 1`` through the router 504 with no engine step, 60000
+   200; a decode replica's server stopped between four requests (two on
+   it, two replayed on the other; all four the reference tokens), its
+   breaker opened by the refusals, the poller reviving it, the breaker
+   closing on the next probe; ``FleetController.rolling_swap`` to a second
+   seeded checkpoint in the ``runs/`` format under canary traffic (decode
+   replicas first, each promoted, no error), then the fleet's tokens a
+   direct engine's on the new weights; the collector's TSDB holding the
+   router's and all three replicas' series, the extra rule fired and its
+   bundle holding every member's ``/metrics``; ``python -m
+   ...serve.fleet`` over the fleet directory as a process, routing a
+   request, answering ``/metrics`` and exiting 0 on SIGINT. Prints the
+   phase's seconds, TTFT and decode tok/s through the fleet (handoff and
+   local prefill) beside a direct engine's on the same prompts and phase
+   4's, each push's bytes and ms, and the gmm launches by replica.
 5. train   — trains configs/model-config-40m-adamw.yaml at full width
    (hidden 512, 12 layers, S 1024, batch 32, bf16 over fp32 masters, AdamW)
    through ``Trainer(...).train()`` on a seeded synthetic byte corpus: 30
@@ -249,6 +284,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    within 1e-6, whose op table holds the five bf16 kernels at 3x phase
    6's launches per step (so the child ran the Hopper kernels); the spans
    of each window in ``trace.json`` their goodput fields within 1e-6 s.
+   The supervisor runs with ``--scope``: its collector's TSDB (configs/
+   alerts.yaml's rules) must hold the trainer's ``train_step`` series.
    Prints the phase's seconds, each restart's ``lost_s``, and the steady
    step ms and tok/s (windows with no compile, save, eval or profiled step)
    beside phase 6's.
@@ -257,8 +294,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    launches by variant in the 1B run and its launches on each training
    path; the fp32 cases' entries with their launches on the fp32 40m path
    (its own shape's case, "path_fp32") or 0; the serving path's fp32 gmm kernels, "gmm_f32" and
-   "gmm_f32_decode", as entries of their own with their serving launches
-   and every fp32 row; each of the flex slice's (kernel, variant, score
+   "gmm_f32_decode", as entries of their own with their launches in the
+   serving and the fleet phases (and by fleet replica) and every fp32 row; each of the flex slice's (kernel, variant, score
    mod) cases as an entry named ``kernel:variant:mod:case``, with its
    launches on the path that runs it; the locked generation path's four
    gmm cases as entries ``gmm_<variant>:<case>`` with the generate phase's
@@ -2134,6 +2171,616 @@ def quant_serve_phase(torch, gm, fa, card, served):
     return failures, perf
 
 
+# -- phase 4d: the fleet (1 prefill + 2 decode replicas) ------------------------------
+FLEET_TOKENS = 32
+FLEET_AFFINITY_BLOCK = 32  # the router's affinity block (bytes)
+
+
+def fleet_prompts(router):
+    """Two 512-byte prefixes, each routed by the router's ring to its own
+    decode replica (r1, r2); three 600-900-byte prompts on each, four short
+    ones under the 64-byte handoff floor, and four short ones routed to r2
+    (the replica the phase stops)."""
+    base = ("A fleet request with a long shared system prompt: the prefill "
+            "replica writes its KV, pushes the blocks to a decode replica, and "
+            "the decode replica recomputes the last prompt token. ")
+    want = {"r1": None, "r2": None}
+    salt = 0
+    while None in want.values():
+        head = f"[{salt:04d}] "
+        owner = router._ring.lookup(router.routing_key({"prompt": head + base}))
+        if owner in want and want[owner] is None:
+            want[owner] = ((head + base) * 8)[:512]
+        salt += 1
+    long_ = {}
+    for rid, prefix in want.items():
+        long_[rid] = [prefix + f" Question {i} for {rid}: " + ("why does the cache "
+                      "hit? " * (6 + 4 * i))[:150 + 90 * i] for i in range(3)]
+    short = [f"short {i}: grouped GEMMs?" for i in range(4)]
+    death, salt = [], 0
+    while len(death) < 4:
+        p = f"to r2 {salt}: a short one"
+        if router._ring.lookup(router.routing_key({"prompt": p})) == "r2":
+            death.append(p)
+        salt += 1
+    return long_, short, death
+
+
+def swap_prompts(router):
+    """For each decode replica, a 512-byte prefix the ring routes to it, one
+    prompt on it to send while a rolling swap has the decode pool on the
+    new weights and the prefill replica still on the old, and one to send
+    after the rollout."""
+    base = ("A prompt sent in the middle of a rolling weight swap, whose blocks "
+            "must not outlive it in a decode replica's prefix cache. ")
+    out, salt = {}, 0
+    while len(out) < 2:
+        head = f"<{salt:04d}> "
+        owner = router._ring.lookup(router.routing_key({"prompt": head + base}))
+        if owner in ("r1", "r2") and owner not in out:
+            prefix = ((head + base) * 8)[:512]
+            out[owner] = (prefix + " Sent while the swap is half done: which weights?",
+                          prefix + " Sent after the rollout: the new weights, all of them.")
+        salt += 1
+    return [out["r1"][0], out["r2"][0]], [out["r1"][1], out["r2"][1]]
+
+
+class _LaunchWindows:
+    """gmm launches by variant around each replica's part of a request,
+    recorded while the phase sends one request at a time."""
+
+    def __init__(self, gm):
+        self.gm = gm
+        self.on = False
+        self.rows = []  # (replica id, role, what, {variant: launches}, extra)
+
+    def span(self, rid, role, what, fn):
+        before = dict(self.gm.gmm.launches_by_variant)
+        t0 = time.perf_counter()
+        out = fn()
+        if self.on:
+            extra = dict(out or {}, wall_ms=1e3 * (time.perf_counter() - t0))
+            self.rows.append((rid, role, what,
+                              launched_since(before, self.gm.gmm.launches_by_variant), extra))
+        return out
+
+    def by_replica(self):
+        out = {}
+        for rid, _, _, launched, _ in self.rows:
+            d = out.setdefault(rid, {})
+            for k, n in launched.items():
+                d[k] = d.get(k, 0) + n
+        return out
+
+
+def fleet_phase(torch, gm, fa, card, served, path_perf):
+    """moe-8x40m at full width (the serving phase's seeded fp32 weights) in
+    a disaggregated fleet on the card: one prefill and two decode replicas,
+    each a batch engine behind the port's server on a thread of this
+    process, registered in a fleet directory, behind a ``FleetRouter`` with
+    a ``FleetController`` and a scope ``Collector`` (``configs/serve-sample
+    .yaml``'s ``fleet:`` and ``scope:`` blocks). Gates: the greedy tokens of
+    six handoff requests (600-900 bytes; three and three share a 512-byte
+    prefix) and four short ones equal a directly served engine's; six
+    handoffs adopted with the GKV1 bytes of their full blocks; shared
+    prefixes on one decode replica, the later ones reusing its cache; "f32"
+    gmm launches on the prefill replica, "f32_decode" on both decode
+    replicas, no plain gmm call; a rolling swap to a second seeded
+    checkpoint, the tokens after it a direct engine's on the new weights,
+    also for prompts sent while the decode pool had swapped and the
+    prefill replica not (no handoff across the two versions) and for
+    prompts sharing their prefixes after the rollout; drain 503 and the
+    router around it; ``X-Deadline-Ms: 1`` 504 with no engine step; a
+    decode replica's server stopped mid-traffic, its requests replayed on
+    the other with the same tokens, its breaker opened by the router's own
+    poller, the poller reviving it; the collector's TSDB holding every member's
+    series and an alert firing with its bundle; ``python -m ...serve.fleet``
+    routing a request, answering ``/metrics`` and exiting on SIGINT."""
+    import signal
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.checkpoint.manager import (
+        CheckpointManager,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.infer.server import (
+        InferenceService,
+        serve,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import llama
+    from mlx_cuda_distributed_pretraining_tpu_torch.obs.alerts import load_rules
+    from mlx_cuda_distributed_pretraining_tpu_torch.obs.scope import (
+        Collector,
+        ScopeConfig,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.obs.tsdb import parse_series_key
+    from mlx_cuda_distributed_pretraining_tpu_torch.serve import (
+        BatchEngine,
+        EngineConfig,
+        FleetConfig,
+        FleetController,
+        FleetRouter,
+        serve_router,
+    )
+    from mlx_cuda_distributed_pretraining_tpu_torch.serve.fleet import start_heartbeat
+
+    if served is None:
+        return ["fleet: the serving phase failed before its weights were served"], {}
+    failures = []
+    t_phase = time.perf_counter()
+    params, args, tok = served["params"], served["args"], served["tok"]
+    engine_kw = dict(num_slots=8, max_len=1024, block_size=32, prefill_chunk=256,
+                     prefix_cache=True)
+    # a token's KV in the fp32 pool: K and V of every layer's kv heads
+    kv_token_bytes = 2 * args.num_layers * args.num_kv_heads * args.head_dim * 4
+    tmp_obj = tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build"))
+    tmp = tmp_obj.name
+    fleet_dir = os.path.join(tmp, "fleet")
+    sample = os.path.join(REPO, "configs", "serve-sample.yaml")
+    fcfg = FleetConfig.from_yaml(sample)
+    # the phase keeps both decode replicas: no idle scale-down below two
+    fcfg.min_replicas_per_pool = 2
+    plain_calls = {"gmm": 0}
+    real_plain = gm.gmm_plain
+
+    def counted_plain(*a, **k):
+        plain_calls["gmm"] += 1
+        return real_plain(*a, **k)
+
+    gm.gmm_plain = counted_plain
+    windows = _LaunchWindows(gm)
+
+    class Router(FleetRouter):
+        """The fleet's router, recording each replica's gmm launches."""
+
+        def _handoff(self, pre, dec, body, trace_id, deadline=None):
+            return windows.span(pre.id, pre.role, "prefill",
+                                lambda: super(Router, self)._handoff(
+                                    pre, dec, body, trace_id, deadline=deadline))
+
+        def _dispatch_to(self, cands, path, body, trace_id=None, deadline=None):
+            # the replica answers a JSON request once it has generated every
+            # token, so its launches are in before the response opens
+            before = dict(gm.gmm.launches_by_variant)
+            resp, r = super()._dispatch_to(cands, path, body, trace_id, deadline=deadline)
+            if windows.on:
+                windows.rows.append((r.id, r.role, "dispatch",
+                                     launched_since(before, gm.gmm.launches_by_variant),
+                                     None))
+            return resp, r
+
+    replicas, router, rhttpd, ctl, scope, direct = [], None, None, None, None, None
+    perf = {}
+    try:
+        # the direct engine: the reference tokens, served alone as in phase 4
+        direct = BatchEngine(params, args, tok, EngineConfig(**engine_kw)).start()
+        probe = Router(["http://127.0.0.1:1"], ["http://127.0.0.1:2", "http://127.0.0.1:3"])
+        long_, short, death = fleet_prompts(probe)
+        in_window, after_window = swap_prompts(probe)
+        handoff = [long_["r1"][0], long_["r2"][0], long_["r1"][1], long_["r2"][1],
+                   long_["r1"][2], long_["r2"][2]]
+        refs, direct_perf = {}, {"ttft_ms": [], "decode_tok_s": []}
+        for p in handoff + short + death:
+            out = direct.generate(p, max_tokens=FLEET_TOKENS)
+            refs[p] = out["token_ids"]
+            if p in handoff:
+                direct_perf["ttft_ms"].append(out.get("ttft_ms"))
+                if out.get("decode_ms"):
+                    direct_perf["decode_tok_s"].append(
+                        (out["tokens"] - 1) / (out["decode_ms"] / 1e3))
+        direct.stop()
+        direct = None
+        log(f"fleet: {len(refs)} reference generations on a direct engine; handoff "
+            f"prompts {[len(p) for p in handoff]} bytes")
+
+        # the fleet: three replicas on this process's threads
+        for i, role in enumerate(("prefill", "decode", "decode")):
+            svc = InferenceService(params, args, tok, run_name="moe-8x40m-random")
+            svc.attach_engine(EngineConfig(role=role, trace=True,
+                                           worker_id=f"{role}{i}", **engine_kw))
+            httpd = serve(svc, port=0)
+            port = httpd.server_address[1]
+            url = f"http://127.0.0.1:{port}"
+            beat = start_heartbeat(fleet_dir, url, role=role, index=i, interval_s=0.5)
+            replicas.append({"role": role, "svc": svc, "httpd": httpd, "url": url,
+                             "port": port, "beat": beat})
+        router = Router([replicas[0]["url"]], [r["url"] for r in replicas[1:]],
+                        canary_fraction=fcfg.canary_fraction,
+                        handoff_min_prompt_bytes=fcfg.handoff_min_prompt_bytes,
+                        block_size=FLEET_AFFINITY_BLOCK, poll_interval_s=0.5)
+        rhttpd = serve_router(router, port=0)
+        rurl = f"http://127.0.0.1:{rhttpd.server_address[1]}"
+        # the scope: serve-sample.yaml's scope: block over the fleet dir and
+        # the router; configs/alerts.yaml's rules plus one the traffic crosses
+        scfg = ScopeConfig.from_yaml(sample)
+        rules = load_rules(os.path.join(REPO, scfg.alerts_path))
+        rules.append({"name": "fleet-served", "kind": "threshold",
+                      "metric": "completed", "op": "gt", "value": 0, "agg": "max",
+                      "for_s": 0, "actions": ["bundle"]})
+        rules_path = os.path.join(tmp, "fleet_alerts.json")
+        with open(rules_path, "w") as f:
+            json.dump({"alerts": {"rules": rules}}, f)
+        scfg.alerts_path, scfg.fleet_dir = rules_path, fleet_dir
+        scfg.run_dir = os.path.join(tmp, "scope")
+        scfg.tsdb_dir = os.path.join(scfg.run_dir, "scope_tsdb")
+        scfg.targets = [{"name": "router", "role": "router", "url": rurl}]
+        # built as ``serve.fleet --scope`` builds it: with its own call
+        # policy, so the breaker gate below is the router's alone
+        scope = Collector(scfg)
+        swap_window = {"armed": False, "out": {}, "skew": None}
+
+        def on_log(msg):
+            # rolling_swap logs each promotion: after the last decode
+            # replica's the prefill replica still serves the old weights
+            if swap_window["armed"] and msg.startswith("[fleet] r2 promoted"):
+                swap_window["armed"] = False
+                skew0 = router._mc_handoffs.value(outcome="version_skew")
+                for p in in_window:
+                    swap_window["out"][p] = post(rurl, {"prompt": p,
+                                                        "max_tokens": FLEET_TOKENS})
+                swap_window["skew"] = router._mc_handoffs.value(
+                    outcome="version_skew") - skew0
+
+        ctl = FleetController(router, fcfg, fleet_dir=fleet_dir, scope=scope, log=on_log)
+        ctl.start(interval_s=1.0)
+        engines = [r["svc"].engine for r in replicas]
+
+        def steps():
+            return sum(e.prefill_chunks + e.decode_steps for e in engines)
+
+        # -- traffic: one request at a time, each replica's launches recorded
+        gm.reset_launches()
+        steps0 = [(e.prefill_chunks, e.decode_steps) for e in engines]
+        windows.on = True
+        order = [handoff[0], handoff[1], short[0], handoff[2], handoff[3], short[1],
+                 handoff[4], handoff[5], short[2], short[3]]
+        results = {}
+        for p in order:
+            code, out = post(rurl, {"prompt": p, "max_tokens": FLEET_TOKENS})
+            results[p] = (code, out)
+        windows.on = False
+        scope.collect_once()  # every member up: the traffic fires the extra rule
+        fleet_variants = dict(gm.gmm.launches_by_variant)
+        fleet_launches = gm.gmm.launches
+        per = 3 * args.num_layers
+        work = sum((e.prefill_chunks - c) + (e.decode_steps - d)
+                   for e, (c, d) in zip(engines, steps0))
+        for p in order:
+            code, out = results[p]
+            if code != 200:
+                failures.append(f"fleet: HTTP {code} for a {len(p)}-byte prompt: {out}")
+            elif out["token_ids"] != refs[p]:
+                failures.append(f"fleet: a {len(p)}-byte prompt's greedy tokens differ "
+                                f"from the direct engine's")
+        handoffs = [row for row in windows.rows if row[2] == "prefill"]
+        dispatches = [row for row in windows.rows if row[2] == "dispatch"]
+        n_ok = router._mc_handoffs.value(outcome="ok")
+        pre_done = engines[0].metrics()["completed"]
+        adopted = sum(e.metrics()["kv_transfer_blocks"]["adopted"] for e in engines[1:])
+        log(f"fleet: {int(n_ok)} handoffs ok, the prefill replica completed {pre_done} "
+            f"prefill-only requests, the decode replicas adopted {adopted} blocks")
+        if n_ok != 6 or pre_done != 6 or len(handoffs) != 6 or adopted <= 0:
+            failures.append(f"fleet: handoffs {n_ok} (want 6), prefill-only requests "
+                            f"{pre_done} (want 6), adopted blocks {adopted}")
+        pushes = []
+        for (rid, _, _, launched, summ), p in zip(handoffs, [q for q in order if q in handoff]):
+            summ = summ or {}
+            blocks = (len(tok.tokenize(p)) + 1) // 32
+            raw = blocks * 32 * kv_token_bytes
+            got = summ.get("transfer_bytes", 0)
+            pushes.append({"bytes": got, "ms": summ.get("transfer_ms"), "blocks": summ.get("blocks"),
+                           "adopted": summ.get("adopted"), "reused": summ.get("reused")})
+            log(f"fleet: push of {summ.get('blocks')} blocks: {got} bytes of KV in the GKV1 "
+                f"payload, {summ.get('transfer_ms')} ms; adopted {summ.get('adopted')} "
+                f"reused {summ.get('reused')}")
+            if summ.get("blocks") != blocks or got != raw:
+                failures.append(f"fleet: a push carried {summ.get('blocks')} blocks / {got} "
+                                f"bytes of KV, want {blocks} blocks / {raw} bytes")
+        by_prompt = dict(zip([q for q in order], dispatches))
+        for rid in ("r1", "r2"):
+            group = [p for p in handoff if p in long_[rid]]
+            landed = {by_prompt[p][0] for p in group}
+            if landed != {rid}:
+                failures.append(f"fleet: the prompts sharing {rid}'s prefix landed on {landed}")
+        later = [s for s in pushes[2:]]
+        if any((s.get("reused") or 0) < 512 // 32 for s in later):
+            failures.append(f"fleet: the later prompts of a shared prefix did not reuse "
+                            f"its 16 cached blocks on their decode replica: {later}")
+        by_rep = windows.by_replica()
+        log(f"fleet: gmm launches by replica and variant {by_rep}; in all {fleet_variants}; "
+            f"plain gmm calls {plain_calls['gmm']}")
+        if set(by_rep.get("r0", {})) != {"f32"} or not by_rep["r0"]["f32"]:
+            failures.append(f"fleet: the prefill replica's gmm launches {by_rep.get('r0')}")
+        for rid in ("r1", "r2"):
+            if not by_rep.get(rid, {}).get("f32_decode"):
+                failures.append(f"fleet: decode replica {rid} launched no f32_decode gmm: "
+                                f"{by_rep.get(rid)}")
+        if plain_calls["gmm"] or fleet_launches != per * work:
+            failures.append(f"fleet: {plain_calls['gmm']} plain gmm calls; {fleet_launches} "
+                            f"launches against {per} x {work} engine steps")
+        # TTFT through the fleet: a handoff's /prefill leg (the prefill
+        # replica's queue and prefill, the export and the push, as the
+        # router waits for it) plus the decode replica's TTFT (its queue,
+        # the recomputed tail, the first token); a short prompt's is the
+        # decode replica's alone
+        legs = {p: row[4]["wall_ms"] for row, p in
+                zip(handoffs, [q for q in order if q in handoff])}
+        ttft_h = [round(legs[p] + results[p][1]["ttft_ms"], 3) for p in handoff
+                  if results[p][0] == 200]
+        ttft_l = [results[p][1].get("ttft_ms") for p in short if results[p][0] == 200]
+
+        def tok_s(out):
+            return (out["tokens"] - 1) / (out["decode_ms"] / 1e3) if out.get("decode_ms") else None
+
+        perf.update({
+            "ttft_ms_handoff": ttft_h, "ttft_ms_local_prefill": ttft_l,
+            "handoff_leg_ms": [round(legs[p], 3) for p in handoff if p in legs],
+            "decode_replica_ttft_ms_handoff": [results[p][1].get("ttft_ms") for p in handoff
+                                               if results[p][0] == 200],
+            "decode_tok_s_handoff": [tok_s(results[p][1]) for p in handoff
+                                     if results[p][0] == 200],
+            "decode_tok_s_local_prefill": [tok_s(results[p][1]) for p in short
+                                           if results[p][0] == 200],
+            "direct_ttft_ms_same_prompts": direct_perf["ttft_ms"],
+            "direct_decode_tok_s_same_prompts": direct_perf["decode_tok_s"],
+            "phase4_ttft_ms_single": path_perf.get("ttft_ms_single"),
+            "phase4_decode_tok_s_single": path_perf.get("decode_tok_s_single"),
+            "pushes": pushes, "gmm_launches_by_replica": by_rep,
+            "gmm_launches_by_variant": fleet_variants, "plain_gmm_calls": plain_calls["gmm"],
+        })
+
+        # -- drain: 503 from the replica, the router routes around it
+        dec2 = replicas[2]
+        code, _ = post(dec2["url"], {"prompt": "x", "max_tokens": 2}, path="/admin/drain")
+        code_g, _ = post(dec2["url"], {"prompt": death[0], "max_tokens": 2})
+        router.poll_once()
+        ok2 = router.metrics_registry.counter("serve_router_requests_total")
+        before = ok2.value(replica="r2", outcome="ok")
+        code_r, out_r = post(rurl, {"prompt": death[0], "max_tokens": FLEET_TOKENS})
+        around = ok2.value(replica="r2", outcome="ok") == before
+        post(dec2["url"], {}, path="/admin/undrain")
+        router.poll_once()
+        state = router.get_replica("r2").state
+        log(f"fleet: drain {code}, its /generate {code_g}, through the router {code_r} "
+            f"(around it: {around}); undrained: {state}")
+        if code != 200 or code_g != 503 or code_r != 200 or not around \
+                or out_r.get("token_ids") != refs[death[0]] or state != "active":
+            failures.append(f"fleet: drain {code} / {code_g} / router {code_r}, routed "
+                            f"around: {around}, after undrain {state}")
+
+        # -- deadline: 504 before any engine step; a long budget passes
+        s0 = steps()
+        code_d, out_d = post(rurl, {"prompt": short[0], "max_tokens": FLEET_TOKENS},
+                             headers={"X-Deadline-Ms": "1"})
+        s1 = steps()
+        code_ok, out_ok = post(rurl, {"prompt": short[0], "max_tokens": FLEET_TOKENS},
+                               headers={"X-Deadline-Ms": "60000"})
+        log(f"fleet: X-Deadline-Ms 1 -> {code_d} ({s1 - s0} engine steps); 60000 -> {code_ok}")
+        if code_d != 504 or s1 != s0 or code_ok != 200 \
+                or out_ok.get("token_ids") != refs[short[0]]:
+            failures.append(f"fleet: deadline 1 ms gave {code_d} with {s1 - s0} engine steps; "
+                            f"60000 ms gave {code_ok}")
+
+        # -- a decode replica's death in the middle of four requests
+        box = {}
+
+        def send(i):
+            box[i] = post(rurl, {"prompt": death[i], "max_tokens": FLEET_TOKENS})
+
+        # the poller stops for the drill, so the requests after the stop find
+        # r2 refusing (and replay) rather than already marked down
+        router.stop()
+        first = [threading.Thread(target=send, args=(i,)) for i in range(2)]
+        for t in first:
+            t.start()
+        time.sleep(0.3)
+        dec2["httpd"].shutdown()
+        dec2["httpd"].server_close()
+        rest = [threading.Thread(target=send, args=(i,)) for i in range(2, 4)]
+        for t in rest:
+            t.start()
+        for t in first + rest:
+            t.join(timeout=600)
+        same = all(box.get(i, (0,))[0] == 200 and box[i][1]["token_ids"] == refs[death[i]]
+                   for i in range(4))
+        replays = router.metrics_registry.counter("serve_router_requests_total").value(
+            replica="r2", outcome="dead")
+        down = not router.get_replica("r2").up
+        # the router's own poller, as deployed: the refused dispatch and its
+        # refused scrapes of r2 (one each 0.5 s) count against r2's breaker
+        # until it opens; nothing else calls r2
+        router.start()
+        t_dead = time.monotonic()
+        while router.policy.breaker_state(dec2["url"]) != "open" \
+                and time.monotonic() - t_dead < 15.0:
+            time.sleep(0.05)
+        opened = router.policy.breaker_state(dec2["url"]) == "open"
+        open_s = time.monotonic() - t_dead
+        dec2["httpd"] = serve(dec2["svc"], port=dec2["port"])
+        revived = False
+        for _ in range(100):
+            if router.get_replica("r2").up:
+                revived = True
+                break
+            time.sleep(0.1)
+        # the scrape that revives r2 closes its breaker
+        closed = router.policy.breaker_state(dec2["url"]) == "closed"
+        log(f"fleet: decode r2 stopped mid-traffic: 4 requests "
+            f"{[box.get(i, (0,))[0] for i in range(4)]}, same tokens {same}, refused "
+            f"dispatches {replays}, marked down {down}, breaker open {opened} (by the "
+            f"router's poller, {open_s:.2f}s after the drill), revived {revived}, "
+            f"breaker closed again {closed}")
+        if not (same and replays >= 1 and down and opened and revived and closed):
+            failures.append(f"fleet: the death drill: same tokens {same}, replays {replays}, "
+                            f"down {down}, breaker open {opened}, revived {revived}, "
+                            f"closed again {closed}")
+
+        # -- rolling swap to a second seeded checkpoint
+        t_swap = time.perf_counter()
+        new_cpu = llama.init_params(args, torch.Generator().manual_seed(SEED + 1),
+                                    device="cpu")
+        run_dir = os.path.join(tmp, "runs", "moe-8x40m-seed1")
+        CheckpointManager(run_dir).save(1, new_cpu)
+        stop = threading.Event()
+        canary_codes = []
+
+        def canary_traffic(k):
+            i = 0
+            while not stop.is_set():
+                p = f"canary {k}.{i}: " + "a long enough prompt for the handoff " * 3
+                canary_codes.append(post(rurl, {"prompt": p, "max_tokens": 4})[0])
+                i += 1
+
+        traffic = [threading.Thread(target=canary_traffic, args=(k,)) for k in range(3)]
+        for t in traffic:
+            t.start()
+        swap_window["armed"] = True
+        try:
+            swap = ctl.rolling_swap(run_dir=run_dir, canary_requests=2,
+                                    canary_timeout_s=120.0)
+        finally:
+            swap_window["armed"] = False
+            stop.set()
+            for t in traffic:
+                t.join(timeout=120)
+        swap_s = time.perf_counter() - t_swap
+        log(f"fleet: rolling swap in {swap_s:.1f}s: {swap}; canary traffic "
+            f"{len(canary_codes)} requests, codes {sorted(set(canary_codes))}")
+        if swap["failed"] or [s["replica"] for s in swap["swapped"]] != ["r1", "r2", "r0"] \
+                or any(c != 200 for c in canary_codes):
+            failures.append(f"fleet: rolling swap {swap}; canary codes {set(canary_codes)}")
+        direct = BatchEngine(replicas[1]["svc"].engine.params, args, tok,
+                             EngineConfig(**engine_kw)).start()
+        after = [f"after the swap {i}: " + "x" * (20 + 400 * (i % 2)) for i in range(3)]
+        for p in after:
+            want = direct.generate(p, max_tokens=FLEET_TOKENS)["token_ids"]
+            code, out = post(rurl, {"prompt": p, "max_tokens": FLEET_TOKENS})
+            if code != 200 or out["token_ids"] != want:
+                failures.append(f"fleet: after the swap a {len(p)}-byte prompt gave "
+                                f"HTTP {code} and tokens unlike a direct engine's on the "
+                                f"new weights")
+        # the prompts sent while only the decode pool had swapped, and the
+        # ones sharing their prefixes after the rollout: the new weights'
+        # tokens, no handoff across the two versions, the later ones handed
+        # off and hitting the blocks their decode replica computed itself
+        ok0 = router._mc_handoffs.value(outcome="ok")
+        shared, window_lp = [], []
+        for p, q in zip(in_window, after_window):
+            code_w, out_w = swap_window["out"].get(p, (0, {}))
+            code_a, out_a = post(rurl, {"prompt": q, "max_tokens": FLEET_TOKENS})
+            shared.append(int(out_a.get("prefix_cached_tokens") or 0))
+            for what, code, out, prompt in (("during", code_w, out_w, p),
+                                            ("after", code_a, out_a, q)):
+                # the first logprob too: KV of the old weights under the last
+                # prompt token moves it even where the greedy tokens hold
+                want = direct.generate(prompt, max_tokens=FLEET_TOKENS)
+                d_lp = (abs(out["logprobs"][0] - want["logprobs"][0])
+                        if code == 200 and out.get("logprobs") else float("inf"))
+                window_lp.append(d_lp)
+                if code != 200 or out.get("token_ids") != want["token_ids"] or d_lp > 1e-3:
+                    failures.append(f"fleet: a prompt sent {what} the swap's decode-first "
+                                    f"window gave HTTP {code}, tokens unlike a direct "
+                                    f"engine's on the new weights or a first logprob "
+                                    f"{d_lp:.3g} from its")
+        ok_after = router._mc_handoffs.value(outcome="ok") - ok0
+        log(f"fleet: swap window: {len(swap_window['out'])} prompts sent after the "
+            f"decode pool swapped, handoffs skipped for the weights' version "
+            f"{swap_window['skew']}; after the rollout {int(ok_after)} handoffs, cached "
+            f"prefix tokens {shared}; |d first logprob| vs a direct engine "
+            f"{[f'{x:.3g}' for x in window_lp]}")
+        if len(swap_window["out"]) != 2 or (swap_window["skew"] or 0) < 2 \
+                or ok_after != 2 or any(n < 512 - 32 for n in shared):
+            failures.append(f"fleet: swap window: {len(swap_window['out'])} prompts, "
+                            f"{swap_window['skew']} version skips, {ok_after} handoffs "
+                            f"after, cached prefix tokens {shared}")
+        direct.stop()
+        direct = None
+        perf.update(swap_s=swap_s, swap=swap)
+
+        # -- the scope: series from every member; an alert with its bundle
+        scope.collect_once()
+        scope.collect_once()
+        keys = scope.db.keys()
+        instances = {parse_series_key(k)[1].get("instance") for k in keys}
+        want_inst = {"router", "prefill0", "decode1", "decode2"}
+        bdir = os.path.join(scfg.run_dir, "bundles")
+        bundles = sorted(os.listdir(bdir)) if os.path.isdir(bdir) else []
+        held = set()
+        for b in bundles:
+            for name in want_inst:
+                mpath = os.path.join(bdir, b, name, "metrics.txt")
+                if os.path.isfile(mpath) and os.path.getsize(mpath) > 0:
+                    held.add(name)
+        firing = [a["rule"] for a in scope.alerts().get("alerts", [])
+                  if a.get("fire_count")]
+        log(f"fleet: scope TSDB {len(keys)} series from {sorted(i for i in instances if i)}; "
+            f"firing {firing}; bundles {bundles} holding {sorted(held)}")
+        if not want_inst <= instances or "fleet-served" not in firing \
+                or not bundles or held != want_inst:
+            failures.append(f"fleet: scope series from {instances}, firing {firing}, "
+                            f"bundles {bundles} with /metrics of {held}")
+
+        # -- the fleet entry point as a process of its own
+        fport = free_port()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mlx_cuda_distributed_pretraining_tpu_torch.serve.fleet",
+             "--fleet-dir", fleet_dir, "--port", str(fport)],
+            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            furl = f"http://127.0.0.1:{fport}"
+            up = wait_for(lambda: _answers(furl + "/healthz"), 120, "the fleet process", proc)
+            code_f, out_f = post(furl, {"prompt": after[0], "max_tokens": 4})
+            _, prom = get_url(furl + "/metrics?format=prom")
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        out_text = proc.stdout.read()[-2000:]
+        log(f"fleet: serve.fleet process: healthz {up}, a request {code_f}, /metrics "
+            f"{len(prom)} bytes, exit {rc} on SIGINT")
+        if code_f != 200 or b"serve_router_requests_total" not in prom or rc != 0:
+            failures.append(f"fleet: the serve.fleet process: request {code_f}, exit {rc}: "
+                            f"{out_text}")
+    except Exception as e:  # noqa: BLE001 - reported as a failure
+        import traceback
+
+        failures.append(f"fleet: {type(e).__name__}: {e}: {traceback.format_exc()[-1500:]}")
+    finally:
+        gm.gmm_plain = real_plain
+        if ctl is not None:
+            ctl.stop()
+        if rhttpd is not None:
+            rhttpd.shutdown()
+            rhttpd.server_close()
+        if router is not None:
+            router.stop()
+        for r in replicas:
+            r["beat"].set()
+            try:
+                r["httpd"].shutdown()
+                r["httpd"].server_close()
+            except Exception:  # noqa: BLE001 - the stopped one
+                pass
+            r["svc"].close()
+        if direct is not None:
+            direct.stop()
+        tmp_obj.cleanup()
+    perf["seconds"] = time.perf_counter() - t_phase
+    for k, v in perf.items():
+        if k != "swap":
+            log(f"fleet: {k}={v} [{card}]")
+    return failures, perf
+
+
+def _answers(url: str) -> bool:
+    try:
+        return get_url(url, timeout=2.0)[0] == 200
+    except Exception:  # noqa: BLE001 - not up yet
+        return False
+
+
 # -- phase 5: the training path ---------------------------------------------------
 def config_40m(tmp: str, steps: int, warmup: int) -> dict:
     """configs/model-config-40m-adamw.yaml written out as a dict, with the
@@ -2748,6 +3395,8 @@ def telemetry_phase(torch, card, moe_perf, steps: int = 30, warmup: int = 10,
     # land where they are meant to. (The interval changes no loss.)
     cfg["system"]["async_checkpointing"] = False
     cfg["supervisor"] = {"hang_timeout_s": TELEMETRY_HANG_S, "hang_kill_grace_s": 5.0}
+    # the supervisor's --scope collector: a scrape of the child every second
+    cfg["scope"] = {"interval_s": 1.0, "scrape_timeout_s": 2.0}
     cfg_path = os.path.join(tmp, "moe_telemetry.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -2757,7 +3406,8 @@ def telemetry_phase(torch, card, moe_perf, steps: int = 30, warmup: int = 10,
     out_path, err_path = os.path.join(tmp, "sup.out"), os.path.join(tmp, "sup.err")
     cmd = [sys.executable, "-m", "mlx_cuda_distributed_pretraining_tpu_torch.train.trainer",
            "--config", cfg_path, "--runs-root", runs, "--run-name", "moe-telemetry",
-           "--device", device, "--auto-resume", "--backoff-base", "1", "--backoff-max", "2"]
+           "--device", device, "--auto-resume", "--backoff-base", "1", "--backoff-max", "2",
+           "--scope"]
     env = {**os.environ, "PYTHONPATH": REPO}
     with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
         sup = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out_f, stderr=err_f,
@@ -2919,7 +3569,20 @@ def telemetry_phase(torch, card, moe_perf, steps: int = 30, warmup: int = 10,
             + ", ".join(f"{k}={v:.4f}" for k, v in e["goodput"].items() if v))
     secs = sum(sum(e["goodput"].values()) for e in steady)
     nsteps = sum(e["steps"] for e in steady)
+    # the --scope collector's TSDB (configs/alerts.yaml's rules, read
+    # without PyYAML where the host has none) holds the trainer's step
+    from mlx_cuda_distributed_pretraining_tpu_torch.obs.tsdb import TSDB, parse_series_key
+
+    db = TSDB(os.path.join(run_dir, "scope_tsdb"))
+    step_keys = db.select("train_step", {"instance": "trainer0"})
+    scoped = [v for k in step_keys for _, v in db.query("train_step", parse_series_key(k)[1])]
+    log(f"telemetry: the --scope collector kept {len(db.keys())} series; train_step "
+        f"{len(scoped)} samples, last {scoped[-1] if scoped else None}")
+    if not scoped:
+        failures.append(f"telemetry: the --scope collector's TSDB holds no train_step "
+                        f"sample of the trainer ({len(db.keys())} series)")
     perf = {"seconds": phase_s, "restart_lost_s": lost, "faults": faults,
+            "scope_train_step_samples": len(scoped),
             "steady_windows": [e["step"] for e in steady],
             "step_ms": 1e3 * secs / nsteps if nsteps else None,
             "tok_s": sum(e["toks"] for e in steady) / secs if secs else None,
@@ -4205,6 +4868,9 @@ def main() -> int:
     quant_failures, quant_perf = quant_serve_phase(torch, gm, fa, card, served)
     failures += quant_failures
     log(f"quant: the phase took {time.perf_counter() - t0:.1f}s")
+    fleet_failures, fleet_perf = fleet_phase(torch, gm, fa, card, served, perf)
+    failures += fleet_failures
+    log(f"fleet: the phase took {fleet_perf.get('seconds', 0.0):.1f}s")
     del served
     torch.cuda.empty_cache()
     train_failures, train_perf = train_phase(torch, gm, fa, card)
@@ -4256,17 +4922,26 @@ def main() -> int:
     tgmm_entry.update(cases=tgmm_cases, moe_train=moe_perf, telemetry=tele_perf,
                       card=card)
     # The serving path's two fp32 kernels, each at its K 1536 shape (down),
-    # with its launches in the serving run and every fp32 row it served.
+    # with its launches in the serving run and the fleet phase's, and every
+    # fp32 row it served.
     serve_variants = perf.get("gmm_launches_by_variant", {})
+    fleet_variants = fleet_perf.get("gmm_launches_by_variant", {})
     by_case = {c["case"]: c for c in cases if c["dtype"] == "float32"}
     fp32_entries = []
     for kname, variant, row in (("gmm_f32", "f32", "prefill_down"),
                                 ("gmm_f32_decode", "f32_decode", "decode_down")):
         rows = [c for c in by_case.values() if c["variants"] == {variant: 1}]
-        entry = kernel_entry(kname, SOURCE, REPLACES, serve_variants.get(variant, 0),
+        entry = kernel_entry(kname, SOURCE, REPLACES,
+                             serve_variants.get(variant, 0) + fleet_variants.get(variant, 0),
                              by_case[row], max(c["max_abs_err"] for c in rows))
-        entry.update(variant=variant, cases=rows, card=card)
+        entry.update(variant=variant, cases=rows, card=card,
+                     launches_by_path={"serve": serve_variants.get(variant, 0),
+                                       "fleet": fleet_variants.get(variant, 0)},
+                     fleet_launches_by_replica={
+                         rid: d.get(variant, 0) for rid, d in
+                         fleet_perf.get("gmm_launches_by_replica", {}).items()})
         fp32_entries.append(entry)
+    fp32_entries[1]["fleet_path"] = fleet_perf
     # The locked generation path's gmm cases, each with the generate phase's
     # launches at its shape.
     gen_launches = gen_perf.get("gmm_launches_by_case", {})

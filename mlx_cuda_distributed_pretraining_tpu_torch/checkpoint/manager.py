@@ -639,6 +639,18 @@ class CheckpointManager:
                 _atomic_json(os.path.join(self.run_dir, "metadata.json"), ledger)
 
 
+def latest_model_path(run_dir: str) -> Optional[str]:
+    """The newest verified model file under ``run_dir`` (a read-only scan:
+    a trainer on the same run is left alone). A fleet's rolling weight swap
+    resolves a run directory through this, so a torn newest checkpoint
+    costs the swap one interval instead of failing it."""
+    mgr = CheckpointManager(run_dir)
+    step = mgr.latest_complete_step(quarantine=False)
+    if step is None:
+        return None
+    return mgr.paths_for_step(step)[0]
+
+
 def _quantize_flat(arrays: Dict[str, torch.Tensor],
                    weight_dtype: str) -> Dict[str, torch.Tensor]:
     """Quantize a flat checkpoint dict on the host (JAX's

@@ -8,7 +8,8 @@ back out, so a config passes through the port unchanged.
 :meth:`Config.to_yaml` needs no PyYAML: it writes JSON, which is YAML, with
 every float spelled with a dot (``1.0e-05``) because PyYAML's YAML 1.1
 resolver reads ``1e-05`` as a string. :meth:`Config.from_yaml` tries JSON
-first and imports ``yaml`` only for other files.
+first and imports ``yaml`` only for other files (``utils/yaml_lite.py``
+where PyYAML is absent).
 """
 
 from __future__ import annotations
@@ -390,16 +391,21 @@ class Config:
 
 
 def read_config_dict(path: str) -> Dict[str, Any]:
-    """A config file as a dict: JSON when it parses as JSON (no PyYAML
-    needed), else YAML."""
+    """A config file as a dict: JSON when it parses as JSON, else YAML
+    (through PyYAML, or ``utils/yaml_lite.py`` on a host without it)."""
     with open(path, "r") as f:
         text = f.read()
     try:
         return json.loads(text)
     except ValueError:
+        pass
+    try:
         import yaml
+    except ImportError:
+        from .utils.yaml_lite import safe_load
 
-        return yaml.safe_load(text)
+        return safe_load(text)
+    return yaml.safe_load(text)
 
 
 def apply_overrides(config_dict: Dict[str, Any],

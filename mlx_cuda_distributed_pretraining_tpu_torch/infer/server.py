@@ -13,6 +13,13 @@
     GET /metrics           the batch engine's metrics as JSON
     GET /trace             the engine's span ring as a Chrome trace (?clear=1
                            drains it)
+    POST /prefill          fleet handoff: prefill only, then push the KV
+                           chain to the decode replica ``transfer_to`` names
+    POST /adopt_kv         install a pushed GKV1 payload (binary body); an
+                           ``X-Params-Version`` other than this engine's
+                           adopts nothing
+    POST /admin/drain, /admin/undrain   503 to new work while draining
+    POST /admin/swap_weights {"model_path": ...} or {"run_dir": ...}
 
 The weights live on ``--device`` (default ``cuda``). Two engines
 (``--engine``):
@@ -40,9 +47,12 @@ mints an id, and the result carries it. ``--metrics-port`` serves the
 engine's registry as Prometheus text; ``--stats-url`` publishes to a stats
 hub.
 
-Not ported, and answered with 501 naming the ROADMAP queue 1 item: the
-fleet endpoints ``/prefill``, ``/adopt_kv`` and ``/admin/*`` (weight swaps,
-drain) and the ``X-Deadline-Ms`` header (item 10).
+The fleet (``serve/fleet.py``): an ``X-Deadline-Ms`` header (the router's
+remaining budget) tightens the body's ``deadline_s`` and answers 504
+before any engine work once it is spent; ``--role`` names the replica's
+pool, and ``--fleet-dir`` / ``--fleet-index`` register it in the fleet's
+membership directory and keep its heartbeat. A serving mesh of more than
+one device (``--mesh``) is not ported (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import argparse
 import dataclasses
 import json
 import queue as queue_mod
+import struct
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -59,24 +70,9 @@ from typing import Optional
 from ..models import llama
 from ..obs.trace import TRACE_HEADER
 from ..serve import BatchEngine, EngineConfig, QueueFullError
+from ..serve.kv_transfer import PARAMS_VERSION_HEADER
+from ..serve.policy import Deadline
 from .generate import generate_text
-
-# Paths and headers of the JAX server that this server refuses, with the
-# ROADMAP queue 1 item that ports them.
-_UNPORTED_PATHS = {
-    "/prefill": "item 10: the serving plane, disaggregated prefill",
-    "/adopt_kv": "item 10: the serving plane, KV transfer",
-    "/admin": "item 10: the serving plane, drain and weight swaps",
-}
-_DEADLINE_HEADER = "X-Deadline-Ms"
-
-
-def _unported(path: str) -> Optional[str]:
-    for prefix, item in _UNPORTED_PATHS.items():
-        if path == prefix or path.startswith(prefix + "/"):
-            return (f"{path} is not ported to the torch server "
-                    f"(ROADMAP queue 1 {item})")
-    return None
 
 
 class InferenceService:
@@ -98,6 +94,10 @@ class InferenceService:
         self.n_params = llama.num_params(params)
         self.started_at = int(time.time())
         self.engine: Optional[BatchEngine] = None
+        # A draining replica refuses new generation work (503: the router
+        # takes it off the ring) while in-flight requests run to the end:
+        # the graceful half of a scale-down or a weight swap.
+        self.draining = False
 
     def attach_engine(self, cfg: Optional[EngineConfig] = None) -> BatchEngine:
         """Start the batch engine and route compatible requests through it;
@@ -222,7 +222,7 @@ class InferenceService:
 
     def health(self) -> dict:
         d = {
-            "status": "ok",
+            "status": "draining" if self.draining else "ok",
             "run": self.run_name,
             "architecture": "llama",
             "params_m": round(self.n_params / 1e6, 2),
@@ -238,12 +238,140 @@ class InferenceService:
         return d
 
     def metrics(self) -> dict:
-        """GET /metrics: the batch engine's metrics (the JAX server's keys;
-        ``draining`` stays False, since draining is not ported)."""
+        """GET /metrics: the batch engine's metrics (the JAX server's keys)."""
         base = (self.engine.metrics() if self.engine is not None
                 else {"engine": "locked", "role": "any"})
-        base["draining"] = False
+        base["draining"] = self.draining
         return base
+
+    # -- the fleet -------------------------------------------------------------
+    def prefill_handoff(self, body: dict,
+                        trace_id: Optional[str] = None) -> dict:
+        """POST /prefill: run a prefill-only request (the prompt's KV written
+        and published, no token sampled), export its block chain and, when
+        ``transfer_to`` names a decode replica, push it there inside a
+        ``kv_transfer`` span. The router then sends the original request to
+        that replica, whose admission adopts the chain."""
+        if self.engine is None:
+            raise ValueError("/prefill requires --engine batch")
+        prompt = body["prompt"]
+        if isinstance(prompt, list):
+            prompt = prompt[0]
+        if not isinstance(prompt, str):
+            raise ValueError("'prompt' must be a string")
+        dl = body.get("deadline_s")
+        req = self.engine.submit(prompt, max_tokens=1, temperature=0.0,
+                                 seed=int(body.get("seed", 0)),
+                                 deadline_s=float(dl) if dl is not None else None,
+                                 trace_id=trace_id, prefill_only=True)
+        # without a pinned wait, follow the request's own budget: waiting
+        # past the deadline the engine evicts at only holds a thread
+        wait_s = body.get("timeout_s")
+        if wait_s is None:
+            wait_s = float(dl) + 5.0 if dl is not None else 300.0
+        if not req.wait(timeout=float(wait_s)):
+            raise TimeoutError("prefill did not complete in time")
+        if req.error is not None:
+            raise TimeoutError(req.error)
+        payload = self.engine.export_kv(req.prompt_ids, trace_id=trace_id)
+        out = {
+            "prefill": True,
+            "prompt_tokens": len(req.prompt_ids),
+            "blocks": payload.num_blocks,
+            "trace_id": req.trace_id,
+            **{k: req.result[k] for k in ("queue_ms", "prefill_ms")
+               if k in (req.result or {})},
+        }
+        target = body.get("transfer_to")
+        if target and payload.num_blocks:
+            from ..serve.kv_transfer import push_payload
+
+            t0 = time.perf_counter()
+            try:
+                stats = push_payload(target, payload, trace_id=trace_id)
+            except Exception as e:  # noqa: BLE001 - an optimization lost
+                # A failed push is never the client's error: the decode
+                # replica misses its cache and prefills locally.
+                self.engine.note_kv_failure("push")
+                out["transfer_error"] = f"{type(e).__name__}: {e}"
+                return out
+            dur = time.perf_counter() - t0
+            if self.engine.tracer.enabled:
+                # the span that joins the two replicas' trees
+                self.engine.tracer.complete(
+                    "kv_transfer", dur, trace_id=trace_id, target=target,
+                    blocks=payload.num_blocks, bytes=payload.nbytes(), **stats)
+            out.update({"transfer_ms": round(dur * 1e3, 2),
+                        "transfer_bytes": payload.nbytes(), **stats})
+        return out
+
+    def adopt_kv(self, data: bytes, trace_id: Optional[str] = None,
+                 params_version: Optional[int] = None) -> dict:
+        """POST /adopt_kv: install a pushed KV payload into this replica's
+        arena. A payload that fails the integrity gate is refused (400) and
+        the chain keys it claimed are quarantined out of the prefix cache,
+        so no later admission adopts blocks a corrupt sender vouched for.
+        A sender's ``X-Params-Version`` other than this engine's adopts
+        nothing (``BatchEngine.adopt_kv``)."""
+        if self.engine is None:
+            raise ValueError("/adopt_kv requires --engine batch")
+        from ..serve.kv_transfer import KVTransferPayload
+
+        try:
+            payload = KVTransferPayload.from_bytes(data)
+        except ValueError:
+            self._quarantine_claimed_keys(data)
+            raise
+        return self.engine.adopt_kv(payload, trace_id=trace_id,
+                                    params_version=params_version)
+
+    def _quarantine_claimed_keys(self, data: bytes) -> None:
+        """Drop the chain keys a refused payload claimed in its (perhaps
+        damaged) header from the prefix cache; an unreadable header still
+        counts the failure."""
+        keys = []
+        try:
+            (hlen,) = struct.unpack_from("<I", data, 4)
+            header = json.loads(data[8:8 + hlen].decode())
+            keys = [bytes.fromhex(k) for k in header.get("keys", [])]
+        except Exception:  # noqa: BLE001 - the header may be the damage
+            pass
+        if keys:
+            self.engine.quarantine_kv(keys, reason="corrupt")
+        else:
+            self.engine.note_kv_failure("corrupt")
+
+    def swap_weights(self, body: dict) -> dict:
+        """POST /admin/swap_weights: load a checkpoint (``model_path``, or
+        the newest verified step under ``run_dir``) shaped like the serving
+        weights and cut over between engine iterations; in-flight requests
+        finish on the new weights, nothing is evicted or failed."""
+        from ..checkpoint.manager import CheckpointManager, latest_model_path
+
+        model_path = body.get("model_path")
+        if not model_path and body.get("run_dir"):
+            model_path = latest_model_path(body["run_dir"])
+            if model_path is None:
+                raise ValueError(
+                    f"no complete checkpoint under {body['run_dir']!r}")
+        if not model_path:
+            raise ValueError("need 'model_path' or 'run_dir'")
+        like = self.engine.params if self.engine is not None else self.params
+        new = CheckpointManager.load_params(model_path, like=like)
+        version = 0
+        if self.engine is not None:
+            # the engine moves the tree to its device (and its weight dtype)
+            version = self.engine.swap_params(new)
+            new = self.engine.params
+        else:
+            from ..utils.tree import tree_map
+
+            device = self.params["tok_embeddings"]["weight"].device
+            new = tree_map(lambda t: t.to(device), new)
+        with self.lock:  # the locked path reads self.params per request
+            self.params = new
+        return {"swapped": True, "model_path": model_path,
+                "params_version": version}
 
     def trace(self, clear: bool = False) -> dict:
         """GET /trace: the Chrome trace of the engine's span ring."""
@@ -338,6 +466,58 @@ def make_handler(service: InferenceService):
             self.wfile.write(b"data: " + json.dumps(obj).encode() + b"\n\n")
             self.wfile.flush()
 
+        def _body(self) -> bytes:
+            length = int(self.headers.get("Content-Length", "0"))
+            return self.rfile.read(length)
+
+        def _deadline_s(self, local: Optional[float]) -> Optional[float]:
+            """The request's budget in seconds. An upstream
+            ``X-Deadline-Ms`` (the router's remaining budget) is end to end:
+            it replaces, or tightens, the body's ``deadline_s``. A spent
+            budget raises (-> 504) before any engine work."""
+            d = Deadline.from_header(self.headers)
+            if d is None:
+                return local
+            rem = d.remaining_s()
+            if rem <= 0.0:
+                raise TimeoutError("deadline exhausted before admission")
+            return min(local, rem) if local is not None else rem
+
+        def _admin(self, path: str) -> None:
+            if path in ("/admin/drain", "/admin/undrain"):
+                # draining stops admission (503 below: the router takes
+                # this replica off the ring); in-flight work runs on
+                service.draining = path == "/admin/drain"
+                m = service.metrics()
+                self._reply(200, {
+                    "draining": service.draining,
+                    "inflight": int(m.get("batch_occupancy", 0)),
+                    "queue_depth": int(m.get("queue_depth", 0))})
+                return
+            if path != "/admin/swap_weights":
+                self._reply(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                self._reply(200, service.swap_weights(
+                    json.loads(self._body() or b"{}")))
+            except (ValueError, KeyError, TypeError, json.JSONDecodeError) as e:
+                self._reply(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _adopt_kv(self) -> None:
+            # a binary GKV1 body, allowed while draining: adoption only
+            # warms the prefix cache and admits nothing
+            try:
+                version = self.headers.get(PARAMS_VERSION_HEADER)
+                self._reply(200, service.adopt_kv(
+                    self._body(), trace_id=self.headers.get(TRACE_HEADER),
+                    params_version=int(version) if version is not None else None))
+            except (ValueError, KeyError, TypeError) as e:
+                self._reply(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
         def _stream_generate(self, prompt: str, kw: dict) -> None:
             """SSE: token events as the engine emits them, then the result.
             Submission errors (429/400) raise before any header is sent."""
@@ -378,7 +558,6 @@ def make_handler(service: InferenceService):
 
             parts = urllib.parse.urlsplit(self.path)
             path = parts.path.rstrip("/")
-            refused = _unported(path)
             if path in ("", "/healthz"):
                 self._reply(200, service.health())
             elif path == "/metrics":
@@ -394,30 +573,37 @@ def make_handler(service: InferenceService):
                               "created": service.started_at,
                               "owned_by": "local"}],
                 })
-            elif refused:
-                self._reply(501, {"error": refused})
             else:
                 self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):
             path = self.path.rstrip("/")
-            refused = _unported(path)
-            if refused:
-                self._reply(501, {"error": refused})
+            if path.startswith("/admin/"):
+                self._admin(path)
                 return
-            if path not in ("/generate", "/v1/completions"):
+            if path == "/adopt_kv":
+                self._adopt_kv()
+                return
+            if path not in ("/generate", "/v1/completions", "/prefill"):
                 self._reply(404, {"error": f"unknown path {self.path}"})
                 return
-            if self.headers.get(_DEADLINE_HEADER) is not None:
-                self._reply(501, {"error": (
-                    f"the {_DEADLINE_HEADER} header is not ported to the torch "
-                    "server (ROADMAP queue 1 item 10: the serving plane's "
-                    "deadline policy); send deadline_s in the body")})
+            if service.draining:
+                self._reply(503, {"error": "draining: not admitting new requests"})
                 return
             try:
-                length = int(self.headers.get("Content-Length", "0"))
-                req = json.loads(self.rfile.read(length) or b"{}")
+                req = json.loads(self._body() or b"{}")
+                if path == "/prefill":
+                    if not isinstance(req, dict) or "prompt" not in req:
+                        raise ValueError("body must be a JSON object with 'prompt'")
+                    dl = req.get("deadline_s")
+                    eff = self._deadline_s(float(dl) if dl is not None else None)
+                    if eff is not None:
+                        req["deadline_s"] = eff
+                    self._reply(200, service.prefill_handoff(
+                        req, trace_id=self.headers.get(TRACE_HEADER)))
+                    return
                 prompt, kw = _parse(req)
+                kw["deadline_s"] = self._deadline_s(kw["deadline_s"])
                 effective_max = service._clamp(req.get("max_tokens", 64))
                 kw["max_tokens"] = effective_max
                 # a client's (or router's) trace id keys this request's spans
@@ -567,9 +753,26 @@ def main(argv=None) -> int:
     p.add_argument("--metrics-port", type=int, default=0,
                    help="batch engine: serve its registry as Prometheus text on "
                         "this port (0 off)")
+    p.add_argument("--mesh", default=None,
+                   help="batch engine: serving mesh spec, e.g. tp=1,dp=1; a "
+                        "mesh of more than one device is not ported (ROADMAP "
+                        "queue 1 item 10)")
+    p.add_argument("--role", choices=("any", "prefill", "decode"),
+                   default="any",
+                   help="fleet pool this replica serves (published in "
+                        "/metrics; the fleet router routes by it)")
+    p.add_argument("--fleet-dir", default=None,
+                   help="fleet membership directory (serve/fleet.py): "
+                        "register this replica and keep its heartbeat")
+    p.add_argument("--fleet-index", type=int, default=0,
+                   help="membership slot index under --fleet-dir")
     a = p.parse_args(argv)
     if a.weight_dtype != "fp" and a.engine != "batch":
         p.error("--weight-dtype requires --engine batch")
+    if a.mesh and a.engine != "batch":
+        p.error("--mesh requires --engine batch")
+    if a.mesh:
+        EngineConfig(mesh=a.mesh)  # refuses a multi-device mesh before the load
 
     kw = dict(device=a.device, kv_quant=a.kv_quant,
               max_tokens_limit=a.max_tokens_limit, speculative=a.spec,
@@ -588,10 +791,16 @@ def main(argv=None) -> int:
             prefix_min_hit_blocks=a.prefix_min_hit_blocks,
             default_deadline_s=a.deadline_s, trace=a.trace,
             trace_sample=a.trace_sample, stats_url=a.stats_url,
-            metrics_port=a.metrics_port))
+            metrics_port=a.metrics_port, role=a.role, mesh=a.mesh))
     httpd = ThreadingHTTPServer((a.host, a.port), make_handler(service))
+    if a.fleet_dir:
+        from ..serve.fleet import start_heartbeat
+
+        start_heartbeat(a.fleet_dir,
+                        f"http://{a.host}:{httpd.server_address[1]}",
+                        role=a.role, index=a.fleet_index)
     print(f"serving {service.run_name} ({service.n_params / 1e6:.1f}M params, "
-          f"engine={a.engine}, device={a.device}) on "
+          f"engine={a.engine}, role={a.role}, device={a.device}) on "
           f"http://{a.host}:{httpd.server_address[1]}", flush=True)
     try:
         httpd.serve_forever()

@@ -4,8 +4,8 @@ The JAX package's ``obs/stats_server.py``: an asyncio WebSocket hub with a
 client registry, initial-state sync of server info / per-worker stats /
 aggregated stats / history, broadcast on update, a 1000-entry ring history
 and periodic JSON persistence. ``websockets`` is optional and imported only
-by :meth:`StatsServer.serve`. The live dashboard page (``--http-port``) is
-not ported (ROADMAP queue 1 item 9: dashboard).
+by :meth:`StatsServer.serve`. ``--http-port`` also serves the live
+dashboard page (``obs/dashboard.py``).
 
 Protocol (JSON messages):
   worker -> server: {"type": "register", "worker_id", "capabilities"}
@@ -239,20 +239,25 @@ def main(argv=None):
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--persist", default=None, help="JSON persistence path")
     parser.add_argument("--http-port", type=int, default=0,
-                        help="the live dashboard page (not ported)")
+                        help="also serve the live dashboard page on this port")
     parser.add_argument("--worker-ttl", type=float, default=WORKER_TTL_S,
                         help="forget workers silent this many seconds "
                              "(0 disables eviction)")
     a = parser.parse_args(argv)
     server = StatsServer(a.host, a.port, a.persist, worker_ttl_s=a.worker_ttl)
+    httpd = None
     if a.http_port:
-        raise NotImplementedError(
-            "the live dashboard page is not ported "
-            "(ROADMAP queue 1 item 9: dashboard)")
+        from .dashboard import serve_dashboard
+
+        httpd = serve_dashboard(a.host, a.http_port, ws_port=a.port)
+        print(f"dashboard: http://{a.host}:{a.http_port}/ (ws on :{a.port})")
     try:
         asyncio.run(server.serve())
     except KeyboardInterrupt:  # pragma: no cover - interactive
         pass
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
 
 
 if __name__ == "__main__":

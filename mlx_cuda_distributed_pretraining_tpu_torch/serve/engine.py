@@ -31,9 +31,15 @@ served as Prometheus text on ``metrics_port``; the stats hub at
 ``kv_alloc`` / ``prefix_adopt`` / ``stream_emit`` markers), each keyed by
 the request's trace id (the server's ``X-Trace-Id``, or one minted here).
 
-Not ported yet, and refused when a config sets them (``EngineConfig``):
-fleet roles, serving meshes and prefill-only handoff requests (ROADMAP
-queue 1 item 10).
+Disaggregated serving (``serve/fleet.py``): ``role`` names the fleet pool
+the engine serves ("prefill", "decode" or "any"; ``metrics()`` publishes
+it), and ``submit(..., prefill_only=True)`` finishes a request once its
+prompt KV is written and published, without sampling: the decode replica
+that adopts the chain (``adopt_kv``) recomputes the last prompt token
+and samples there.
+
+Not ported yet, and refused when a config sets one: a serving mesh of more
+than one device (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -53,13 +59,6 @@ from .kv_pool import PagedKVPool, SlotKVPool
 from .scheduler import DECODE, DONE, PREFILL, QueueFullError, Request, Scheduler
 
 __all__ = ["BatchEngine", "EngineConfig", "QueueFullError"]
-
-# EngineConfig knobs that ask for something not ported, with their default
-# and the ROADMAP queue 1 item that ports them.
-_UNPORTED = {
-    "role": ("any", "item 10: the serving fleet"),
-}
-
 
 def _parse_mesh(spec) -> Optional[Dict[str, int]]:
     if isinstance(spec, str):
@@ -97,17 +96,10 @@ class EngineConfig:
     stats_interval_s: float = 1.0  # registry mirror / stats publish period
     worker_id: str = "serve-engine"  # tracer service name, fault-point label
     metrics_port: int = 0       # Prometheus exposition (obs/prometheus.py); 0 off
-    # Read so that no knob of the JAX config is dropped silently: set to
-    # anything but the default, these raise (see _UNPORTED).
-    role: str = "any"
+    role: str = "any"           # fleet pool: "prefill" | "decode" | "any"
     mesh: Optional[Dict[str, int]] = None  # only a single-device (all-ones) mesh
 
     def __post_init__(self):
-        for name, (default, item) in _UNPORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"(ROADMAP queue 1 {item})")
         self.mesh = _parse_mesh(self.mesh)
         if self.mesh and any(int(n) != 1 for n in self.mesh.values()):
             raise NotImplementedError(
@@ -359,10 +351,12 @@ class BatchEngine:
     def swap_params(self, new_params) -> int:
         """Swap the serving weights between two iterations: requests that
         straddle the cutover decode their remaining tokens on the new
-        weights; nothing is evicted. A quantized engine quantizes an fp tree
-        into its own dtype first, so the resident weights never change
-        dtype. Moves the tree to the engine's device on the calling thread.
-        Returns the new ``params_version``."""
+        weights; nothing is evicted. The prefix cache is emptied at the
+        cutover (JAX's keeps its blocks: a later request sharing a cached
+        prefix then decodes on KV of the old weights). A quantized engine
+        quantizes an fp tree into its own dtype first, so the resident
+        weights never change dtype. Moves the tree to the engine's device
+        on the calling thread. Returns the new ``params_version``."""
         from ..models.quantize import (quantize_weights, weight_dtype_of,
                                        weight_plane_bytes)
         from ..utils.tree import tree_map
@@ -378,6 +372,8 @@ class BatchEngine:
         def cutover():
             self.params = placed
             self.params_version += 1
+            if self.pool.kind == "paged":
+                self.pool.unpublish_all()
             self._weight_bytes = nbytes
             self._mc_swaps.inc()
             self._mg_weight_bytes.set(nbytes, weight_dtype=self.weight_dtype)
@@ -392,30 +388,40 @@ class BatchEngine:
                              "prefix_cache=True")
         return pool
 
-    def export_kv(self, token_ids: List[int]):
+    def export_kv(self, token_ids: List[int], trace_id: Optional[str] = None):
         """The cached KV chain covering ``token_ids`` as a
         ``kv_transfer.KVTransferPayload``: pinned on the engine thread, read
         on this one, released on the engine thread."""
         from .kv_transfer import build_payload
 
         pool = self._paged_with_prefix("export")
-        export = self.call_in_loop(lambda: pool.export_blocks(token_ids))
+        # the version is read with the pin, on the engine thread: a cutover
+        # unpublishes every key, so what is published is the current weights'
+        export, version = self.call_in_loop(
+            lambda: (pool.export_blocks(token_ids), self.params_version))
         try:
             payload = build_payload(export, token_ids, pool.block_size,
-                                    pool.quantize)
+                                    pool.quantize, params_version=version)
         finally:
             self.call_in_loop(lambda: pool.release_export(export))
         self._kv_transfer["exported"] += payload.num_blocks
         if payload.num_blocks:
             self._mc_kv_transfer.inc(payload.num_blocks, kind="exported")
         if self.tracer.enabled:
-            self.tracer.instant("kv_export", blocks=payload.num_blocks)
+            self.tracer.instant("kv_export", trace_id=trace_id,
+                                blocks=payload.num_blocks, bytes=payload.nbytes())
         return payload
 
-    def adopt_kv(self, payload) -> Dict[str, int]:
+    def adopt_kv(self, payload, trace_id: Optional[str] = None,
+                 params_version: Optional[int] = None) -> Dict[str, int]:
         """Install a transferred payload into this engine's arena: the block
         size, the quantization and the chain keys are checked before any
-        byte lands. Returns the pool's adopt stats."""
+        byte lands. KV that the sender computed on another ``params_version``
+        than this engine serves (a rolling swap half done) is not adopted:
+        every block counts as skipped, the failure as ``version_skew``, and
+        the request prefills here. The version is compared on the engine
+        thread, so no cutover falls between the check and the install.
+        Returns the pool's adopt stats."""
         pool = self._paged_with_prefix("adopt")
         if payload.block_size != pool.block_size:
             raise ValueError(f"payload block_size {payload.block_size} != "
@@ -424,14 +430,22 @@ class BatchEngine:
             raise ValueError("payload/pool KV quantization mismatch "
                              f"({payload.quantized} vs {pool.quantize})")
         payload.verify_keys()
-        stats = self.call_in_loop(
-            lambda: pool.adopt_blocks(payload.keys, payload.blocks))
+
+        def install():
+            if params_version is not None and params_version != self.params_version:
+                return None
+            return pool.adopt_blocks(payload.keys, payload.blocks)
+
+        stats = self.call_in_loop(install)
+        if stats is None:
+            self.note_kv_failure("version_skew")
+            stats = {"adopted": 0, "reused": 0, "skipped": payload.num_blocks}
         for kind in ("adopted", "reused"):
             self._kv_transfer[kind] += stats.get(kind, 0)
             if stats.get(kind):
                 self._mc_kv_transfer.inc(stats[kind], kind=kind)
         if self.tracer.enabled:
-            self.tracer.instant("kv_adopt", **stats)
+            self.tracer.instant("kv_adopt", trace_id=trace_id, **stats)
         return stats
 
     def quarantine_kv(self, keys, reason: str = "corrupt") -> int:
@@ -465,21 +479,26 @@ class BatchEngine:
     def submit(self, prompt: str, max_tokens: int = 64,
                temperature: float = 0.0, seed: int = 0,
                deadline_s: Optional[float] = None,
-               stream: bool = False, trace_id: Optional[str] = None) -> Request:
+               stream: bool = False, trace_id: Optional[str] = None,
+               prefill_only: bool = False) -> Request:
         """Tokenize and enqueue; raises QueueFullError (-> 429) past the
         queue bound, ValueError when the request can never fit a row. With
         ``stream=True`` the request carries a ``stream_q`` that the engine
         puts each emitted token id into, then None at the end. ``trace_id``
         keys this request's spans (one is minted when absent, so every
-        result carries an id)."""
+        result carries an id). ``prefill_only=True`` (the disaggregated
+        handoff) finishes the request once its prompt KV is written and
+        published: no token is sampled."""
         ids = [self.tokenizer.bos_id] + self.tokenizer.tokenize(prompt)
         return self._submit_ids(ids, max_tokens, temperature, seed, deadline_s,
-                                stream=stream, trace_id=trace_id)
+                                stream=stream, trace_id=trace_id,
+                                prefill_only=prefill_only)
 
     def _submit_ids(self, ids: List[int], max_tokens: int,
                     temperature: float, seed: int,
                     deadline_s: Optional[float] = None,
-                    stream: bool = False, trace_id: Optional[str] = None) -> Request:
+                    stream: bool = False, trace_id: Optional[str] = None,
+                    prefill_only: bool = False) -> Request:
         P = len(ids)
         padded = batch_step.round_up(max(P, 1), self.chunk)
         # A verify window writes up to draft_len positions past the last
@@ -494,7 +513,8 @@ class BatchEngine:
         req = Request(ids, max_tokens, temperature=temperature, seed=seed,
                       deadline_s=(deadline_s if deadline_s is not None
                                   else self.cfg.default_deadline_s),
-                      stop_ids=[self.tokenizer.eos_id])
+                      stop_ids=[self.tokenizer.eos_id],
+                      prefill_only=prefill_only)
         if stream:
             req.stream_q = queue.Queue()
         from ..obs.trace import new_trace_id
@@ -764,6 +784,14 @@ class BatchEngine:
         if not final:
             return
         pool.lengths[req.slot] = P
+        if req.prefill_only:
+            # The handoff's job was the prompt KV, written and published
+            # block by block above; the adopting decode replica recomputes
+            # the last prompt token's logits and samples there.
+            if req.first_token_at is None:
+                req.first_token_at = time.monotonic()
+            self._finish(req, "prefill")
+            return
         tok, lp = batch_step.sample_token(last_logits, req.temperature,
                                           self._generator(req))
         if req.first_token_at is None:  # kept across preemption re-prefill

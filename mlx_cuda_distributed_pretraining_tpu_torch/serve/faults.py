@@ -4,10 +4,10 @@
 The serving-side mirror of ``checkpoint/faults.py``: named fault points
 armed by tests instead of monkeypatched internals. HTTP calls funnel
 through one choke point, :func:`urlopen` below, so a single armed rule can
-refuse, slow, or tear any hop (the router and the fleet that use it are
-ROADMAP queue 1 item 10); engine-side points (weight swap, arena pressure)
-and the KV payload's corruption hook their own call sites through
-:func:`take`.
+refuse, slow, or tear any hop (router dispatch and scrapes, the fleet's
+handoff and admin calls, KV pushes, the scope collector's scrapes);
+engine-side points (weight swap, arena pressure) and the KV payload's
+corruption hook their own call sites through :func:`take`.
 
 Points::
 
@@ -174,7 +174,8 @@ def active(point: str, **kwargs):
 def take(point: str, label: str = "") -> Optional[Rule]:
     """The hook call sites use: returns the fired rule (first match
     wins) or None. Firing bumps the per-point count that the engine's
-    ``metrics()`` reports as ``faults_injected``."""
+    ``metrics()`` reports as ``faults_injected`` and a bound call policy
+    publishes as ``serve_faults_injected_total{point}``."""
     with _lock:
         if not _rules:  # production fast path: one lock op, no scan
             return None

@@ -528,6 +528,18 @@ class PagedKVPool:
             dropped += 1
         return dropped
 
+    def unpublish_all(self) -> int:
+        """Unpublish every cached chain key, and stop the live rows from
+        publishing more of theirs: after a weight swap, KV computed with the
+        old weights must not seed a request on the new ones. Returns the
+        keys dropped. Engine thread only."""
+        if self.prefix is None:
+            return 0
+        for seq in range(self.num_slots):
+            if seq not in self._free_rows:
+                self._registered[seq] = self.max_blocks
+        return self.quarantine(list(self.prefix._by_key))
+
     def _write_blocks(self, block_ids: Sequence[int], blocks_data) -> None:
         """Scatter transferred bytes into the arena: one indexed copy per
         layer tensor."""

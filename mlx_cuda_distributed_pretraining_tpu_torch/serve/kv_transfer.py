@@ -18,8 +18,13 @@ exactly). Block bytes follow in chain order, per block per layer per
 sorted tensor name, C-contiguous raw buffers. The receiver recomputes the
 chain keys from ``token_ids`` and refuses a payload whose keys disagree.
 
-Pushing a payload over HTTP (``push_payload``) belongs to the serving
-plane (ROADMAP queue 1 item 10); arena bookkeeping is
+``push_payload`` POSTs a payload to a decode replica's ``/adopt_kv``
+through the serving plane's call policy (``serve/policy.py``), with the
+``kv_transfer.corrupt`` and ``kv_transfer.drop`` fault points
+(``serve/faults.py``). A payload exported by a port engine knows the
+``params_version`` of the weights that computed it; the push sends it as
+``X-Params-Version`` (outside the GKV1 bytes, which JAX fixes), and a
+receiver on other weights adopts nothing. Arena bookkeeping is
 ``kv_pool.PagedKVPool.export_blocks`` / ``adopt_blocks``, and the engine
 thread's part ``BatchEngine.export_kv`` / ``adopt_kv``.
 """
@@ -29,16 +34,22 @@ from __future__ import annotations
 import json
 import struct
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..obs.trace import TRACE_HEADER
+from . import faults
+from .policy import CallPolicy, Deadline
 from .prefix_cache import chain_keys
 
-__all__ = ["KVTransferPayload", "build_payload"]
+__all__ = ["KVTransferPayload", "build_payload", "push_payload"]
 
 MAGIC = b"GKV1"
+# the sender's weights version, beside the payload (JAX sends no such header,
+# and a receiver without one adopts as JAX's does)
+PARAMS_VERSION_HEADER = "X-Params-Version"
 
 
 @dataclass
@@ -52,6 +63,8 @@ class KVTransferPayload:
     # blocks[i][layer] = {tensor name: ndarray[block_size, Hkv, Dh or 1]}
     blocks: List[List[Dict[str, np.ndarray]]] = field(repr=False,
                                                       default_factory=list)
+    # the exporting engine's params_version; not part of the GKV1 bytes
+    params_version: Optional[int] = field(default=None, compare=False)
 
     @property
     def num_blocks(self) -> int:
@@ -130,7 +143,8 @@ class KVTransferPayload:
 
 
 def build_payload(export, token_ids: Sequence[int], block_size: int,
-                  quantized: bool) -> KVTransferPayload:
+                  quantized: bool,
+                  params_version: Optional[int] = None) -> KVTransferPayload:
     """Materialize a ``kv_pool.KVExport`` as a wire payload: one gather and
     one copy to the host per layer tensor. The export's blocks are pinned
     and full, so no step writes them while this reads."""
@@ -146,7 +160,7 @@ def build_payload(export, token_ids: Sequence[int], block_size: int,
     return KVTransferPayload(
         token_ids=[int(t) for t in token_ids[:covered]],
         block_size=block_size, quantized=quantized,
-        keys=list(export.keys), blocks=blocks)
+        keys=list(export.keys), blocks=blocks, params_version=params_version)
 
 
 def _corrupt(data: bytes) -> bytes:
@@ -162,3 +176,41 @@ def _corrupt(data: bytes) -> bytes:
     j = i + len(marker)
     flipped = b"1" if data[j:j + 1] == b"0" else b"0"
     return data[:j] + flipped + data[j + 1:]
+
+
+# Pushes made outside a service (tests, tools) share this policy; a serving
+# process passes its own, so a replica's breaker and budget are the same
+# for its pushes as for its other outbound calls.
+_default_policy = CallPolicy()
+
+
+def push_payload(url: str, payload: KVTransferPayload,
+                 timeout: float = 30.0,
+                 trace_id: Optional[str] = None,
+                 deadline: Optional[Deadline] = None,
+                 policy: Optional[CallPolicy] = None) -> Dict[str, int]:
+    """POST a payload to a decode replica's ``/adopt_kv``; returns its
+    adopt stats (``{"adopted": n, "reused": n, "skipped": n}``).
+
+    The socket timeout is clamped to the request's remaining deadline, and
+    a connection-level failure gets at most one budgeted replay: the
+    receiver dedups by chain key, so a replay is safe, and on a final
+    failure the caller falls back to local prefill."""
+    data = payload.to_bytes()
+    if faults.take("kv_transfer.corrupt", url) is not None:
+        data = _corrupt(data)
+    if faults.take("kv_transfer.drop", url) is not None:
+        # lost in flight but reported sent: the decode side misses its
+        # cache and prefills locally, so the tokens are the same
+        return {"adopted": 0, "reused": 0, "skipped": 0}
+    headers = {"Content-Type": "application/octet-stream"}
+    if trace_id:
+        headers[TRACE_HEADER] = trace_id
+    if payload.params_version is not None:
+        headers[PARAMS_VERSION_HEADER] = str(payload.params_version)
+    pol = policy if policy is not None else _default_policy
+    body = pol.call(url.rstrip("/") + "/adopt_kv", data=data,
+                    headers=headers, timeout=timeout, deadline=deadline,
+                    method="POST", max_attempts=2,
+                    backoff_key=trace_id or url)
+    return json.loads(body.decode())

@@ -40,10 +40,9 @@ class QueueFullError(Exception):
     """Admission queue at max depth — the HTTP layer returns 429."""
 
 
-class AdmissionRefusedError(TimeoutError):
-    """Admission control: the deadline cannot be met at the current queue
-    depth, so the request is refused before costing anything. A
-    TimeoutError, so every deadline -> 504 mapping covers it."""
+# AdmissionRefusedError (policy.py) subclasses TimeoutError, so every
+# deadline -> 504 mapping covers an admission refusal.
+from .policy import AdmissionRefusedError  # noqa: E402  (exception only)
 
 
 class Request:
@@ -54,13 +53,17 @@ class Request:
     def __init__(self, prompt_ids: List[int], max_tokens: int,
                  temperature: float = 0.0, seed: int = 0,
                  deadline_s: Optional[float] = None,
-                 stop_ids: Optional[List[int]] = None):
+                 stop_ids: Optional[List[int]] = None,
+                 prefill_only: bool = False):
         self.id = next(Request._ids)
         self.prompt_ids = list(prompt_ids)
         self.max_tokens = int(max_tokens)
         self.temperature = float(temperature)
         self.seed = int(seed)
         self.stop_ids = set(stop_ids or ())
+        # Disaggregated handoff: finish once the prompt KV is written and
+        # published, without sampling (the decode replica samples).
+        self.prefill_only = bool(prefill_only)
         self.submitted_at = time.monotonic()
         self.deadline = (self.submitted_at + deadline_s
                          if deadline_s else None)

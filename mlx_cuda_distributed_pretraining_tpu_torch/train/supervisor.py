@@ -33,9 +33,16 @@ progress (``lost_s``, booked into the goodput ledger as
 ``restart_lost_s`` on replay). A hang counts as a crash even when the
 SIGTERM lets the child exit 0.
 
+Scope sidecar (``--scope``): a collector (``obs/scope.py``) beside the
+supervisor scrapes the child's ``logging.metrics_port``, keeps the samples
+in ``<run_dir>/scope_tsdb/`` and evaluates the alert rules (``--alerts-config``,
+else the config's ``scope.alerts_path``, else ``configs/alerts.yaml`` when
+present), writing its evidence into the run dir. It starts at the child's
+first heartbeat, after the trainer has set up (on a fresh launch, wiped)
+the run dir.
+
 Not ported: several processes (``process_count > 1``: the multi-host
-generations, ROADMAP queue 1 item 10) and the ``--scope`` collector
-sidecar (item 9: scope).
+generations, ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -319,10 +326,6 @@ def supervise_from_args(args) -> Dict[str, Any]:
     from ..config import apply_overrides, read_config_dict
     from .trainer import collect_overrides
 
-    if getattr(args, "scope", False):
-        raise NotImplementedError(
-            "the --scope collector sidecar is not ported (ROADMAP queue 1 item 9: "
-            "tsdb, alerts, scope, monitor, dashboard)")
     merged = apply_overrides(read_config_dict(args.config), collect_overrides(args))
     run_dir = os.path.join(args.runs_root, merged["name"])
     # the config's watchdog knobs; the CLI flag wins when given
@@ -336,11 +339,101 @@ def supervise_from_args(args) -> Dict[str, Any]:
         backoff_max=args.backoff_max, hang_timeout_s=hang_timeout,
         hang_kill_grace_s=float(sup_cfg.get("hang_kill_grace_s") or 20.0),
         process_count=int(getattr(args, "num_processes", None) or 1))
-    rc = sup.run()
+    scope = _start_scope_sidecar(args, merged, run_dir)
+    try:
+        rc = sup.run()
+    finally:
+        if scope is not None:
+            scope.stop()
     sup.log(f"supervisor: done: exit code {rc}, restarts {sup.restarts}, "
             f"hangs {sup.hangs}")
     return {"supervised": True, "exit_code": rc, "restarts": sup.restarts,
             "hangs": sup.hangs, "run_dir": run_dir}
+
+
+class _ScopeSidecar:
+    """The ``--scope`` collector, started once the child trainer has set up
+    its run directory, i.e. at the first heartbeat written after the
+    supervisor started. The collector keeps its TSDB and its events in the
+    run directory, and a fresh launch's overwrite deletes that directory:
+    a collector started before it (as JAX's sidecar is) loses every later
+    sample and event."""
+
+    def __init__(self, make_collector: Callable[[], Any], run_dir: str,
+                 poll_s: float = 0.2):
+        self._make = make_collector
+        self._hb = heartbeat_path(run_dir)
+        self._since = time.time()
+        self._poll_s = poll_s
+        self._stop = threading.Event()
+        self.collector = None
+        self._thread = threading.Thread(target=self._wait_and_start, daemon=True,
+                                        name="scope-sidecar")
+        self._thread.start()
+
+    def _wait_and_start(self) -> None:
+        while not self._stop.wait(self._poll_s):
+            try:
+                fresh = os.path.getmtime(self._hb) >= self._since - 1.0
+            except OSError:
+                fresh = False
+            if fresh:
+                try:
+                    self.collector = self._make()
+                    self.collector.start()
+                except Exception as e:  # noqa: BLE001 - never blocks training
+                    print("scope: sidecar disabled (%s: %s)" % (type(e).__name__, e))
+                return
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        if self.collector is not None:
+            self.collector.stop()
+
+
+def _start_scope_sidecar(args, merged: Dict[str, Any], run_dir: str):
+    """The ``--scope`` collector beside the supervisor, scraping the child
+    trainer's metrics port. Best effort, as in JAX: a broken alerts config
+    or no metrics port logs and returns None; observability never stops a
+    training launch."""
+    if not getattr(args, "scope", False):
+        return None
+    try:
+        from ..obs.alerts import load_rules
+        from ..obs.scope import Collector, ScopeConfig
+
+        scope_cfg = merged.get("scope") or {}
+        port = int(((merged.get("logging") or {}).get("metrics_port")) or 0)
+        if not port:
+            print("scope: logging.metrics_port is 0 — no trainer surface "
+                  "to scrape; sidecar disabled")
+            return None
+        n_proc = int(getattr(args, "num_processes", None) or 1)
+        targets = [{"name": "trainer%d" % i,
+                    "url": "http://127.0.0.1:%d" % (port + i),
+                    "role": "trainer"} for i in range(n_proc)]
+        alerts_path = getattr(args, "alerts_config", None) \
+            or scope_cfg.get("alerts_path")
+        if alerts_path is None and os.path.isfile(
+                os.path.join("configs", "alerts.yaml")):
+            alerts_path = os.path.join("configs", "alerts.yaml")
+        if alerts_path:
+            load_rules(alerts_path)  # a broken rules file refuses now, not later
+        cfg = ScopeConfig(
+            interval_s=float(scope_cfg.get("interval_s", 5.0)),
+            targets=targets,
+            run_dir=run_dir,
+            alerts_path=alerts_path,
+            port=scope_cfg.get("port"),
+            scrape_timeout_s=float(scope_cfg.get("scrape_timeout_s", 2.0)))
+        sidecar = _ScopeSidecar(lambda: Collector(cfg, log=print), run_dir)
+        print("scope: collector starts with the trainer (%d target(s), rules "
+              "from %s)" % (len(targets), alerts_path or "<none>"))
+        return sidecar
+    except Exception as e:  # noqa: BLE001 - the sidecar never blocks training
+        print("scope: sidecar disabled (%s: %s)" % (type(e).__name__, e))
+        return None
 
 
 def main(argv=None) -> Dict[str, Any]:

@@ -1023,7 +1023,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "seconds (overrides supervisor.hang_timeout_s; 0 "
                              "disables)")
     parser.add_argument("--scope", action="store_true",
-                        help="the graftscope collector sidecar (not ported)")
+                        help="with --auto-resume: start a scope collector "
+                             "sidecar scraping the trainer's metrics port "
+                             "(requires logging.metrics_port)")
+    parser.add_argument("--alerts-config", default=None,
+                        help="alerts.yaml for the --scope sidecar (default: "
+                             "configs/alerts.yaml when present)")
     parser.add_argument("--num-processes", type=int, default=None,
                         help="processes of a multi-host run (the port runs one)")
     return parser

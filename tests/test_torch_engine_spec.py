@@ -260,17 +260,27 @@ def test_engine_config_from_yaml_reads_serve_sample():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("role", "decode", "item 10"),
     ("mesh", {"tp": 2}, "item 10"), ("mesh", "tp=2,dp=1", "item 10")])
 def test_engine_config_refuses_what_is_not_ported(tmp_path, knob, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        EngineConfig(**{knob: value})
     path = tmp_path / "serve.json"
     section = {"trace": {"enabled": value}} if knob == "trace" else {knob: value}
     path.write_text(json.dumps({"serve": section}))
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
+        EngineConfig(**{knob: value})
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
         EngineConfig.from_yaml(str(path))
     assert EngineConfig(mesh="tp=1,dp=1").mesh == {"tp": 1, "dp": 1}
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_engine_config_role_builds_and_the_engine_publishes_it(tmp_path, role):
+    path = tmp_path / "serve.json"
+    path.write_text(json.dumps({"serve": {"role": role}}))
+    assert EngineConfig(role=role).role == role
+    assert EngineConfig.from_yaml(str(path)).role == role
+    eng = _engine(role=role)
+    assert eng.metrics()["role"] == role
+    eng.stop()
 
 
 def _free_port() -> int:

@@ -15,8 +15,9 @@ compared exactly; KV values across the packages to fp32 tolerance (1e-5),
 int8 values within one grid step (a value at a rounding boundary may land
 on either side of it).
 
-JAX-only tests with no counterpart: the HTTP push (``push_payload``), the
-fleet's prefill/decode handoff and the router (ROADMAP queue 1 item 10).
+The HTTP push (``push_payload``), the fleet's prefill/decode handoff and
+the router are held against JAX in ``tests/test_torch_router.py``,
+``test_torch_fleet.py`` and ``test_torch_server_locked.py``.
 """
 
 import jax

@@ -8,8 +8,10 @@ off-TPU backend) with the byte tokenizer. Covered: the default engine is
 the locked path; SSE (token events from the batch engine, one final event
 from the locked path); ``/v1/completions`` and ``/v1/models`` in the JAX
 server's shape; ``/trace`` and ``/metrics`` in the JAX server's shape; the
-fleet endpoints and ``X-Deadline-Ms`` refused with the ROADMAP item that
-ports them; the server's entry point in a subprocess.
+fleet endpoints (``/prefill``, ``/adopt_kv``, ``/admin/*``) and
+``X-Deadline-Ms`` beside the JAX server's, a multi-device ``--mesh`` still
+refused (ROADMAP queue 1 item 10); the server's entry point in a
+subprocess.
 """
 
 import json
@@ -177,18 +179,142 @@ def test_completions_and_models_have_the_jax_servers_keys(np_params):
         assert _call(t.url, "/generate", {"prompt": ["a", "b"]})[0] == 400
 
 
-@pytest.mark.parametrize("method,path,item", [
-    ("POST", "/prefill", 10), ("POST", "/adopt_kv", 10),
-    ("POST", "/admin/drain", 10), ("POST", "/admin/swap_weights", 10),
-    ("POST", "/generate?deadline", 10)])
-def test_unported_endpoints_refuse_naming_their_item(np_params, method, path, item):
-    with _Served(_service(np_params), tserver) as s:
-        headers = None
-        if path.endswith("?deadline"):
-            path, headers = "/generate", {"X-Deadline-Ms": "500"}
-        code, out = _call(s.url, path, {"prompt": "x"} if method == "POST" else None,
-                          headers)
-        assert code == 501 and f"ROADMAP queue 1 item {item}:" in out["error"]
+@pytest.fixture(scope="module")
+def fleet_servers(np_params):
+    """The port's and the JAX package's servers, each over a batch engine
+    (paged pool, prefix cache, 16-token blocks) on the same weights."""
+    cfg = dict(num_slots=2, max_len=128, prefill_chunk=32, block_size=16)
+    tsvc = _service(np_params)
+    tsvc.attach_engine(EngineConfig(**cfg))
+    jsvc = jserver.InferenceService(jax.tree_util.tree_map(jnp.asarray, np_params),
+                                    jl.LlamaArgs(**FIELDS), JTok(DataConfig()),
+                                    run_name="tiny")
+    from mlx_cuda_distributed_pretraining_tpu.serve import EngineConfig as JConfig
+
+    jsvc.attach_engine(JConfig(**cfg))
+    with _Served(tsvc, tserver) as t, _Served(jsvc, jserver) as j:
+        yield t, j
+
+
+def _raw(url, path, data, headers=None):
+    req = urllib.request.Request(url + path, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+LONG = PROMPT + ", then it jumps over the lazy dog twice"  # 3 blocks and a tail
+
+
+@pytest.mark.parametrize("endpoint", ["prefill", "adopt_kv", "drain", "swap_weights",
+                                      "deadline"])
+def test_fleet_endpoints_answer_as_jax(fleet_servers, np_params, tmp_path, endpoint):
+    """The fleet endpoints, refused until ROADMAP queue 1 item 10's serving
+    plane was ported, answer as the JAX server's: the same status codes and
+    keys, KV pushed across the two packages, the same texts after."""
+    t, j = fleet_servers
+    both = {"torch": t, "jax": j}
+    if endpoint == "prefill":
+        # each prefills and pushes its chain to the OTHER package's server
+        out = {k: _call(s.url, "/prefill", {"prompt": LONG,
+                                             "transfer_to": both[o].url})
+               for k, s, o in (("torch", t, "jax"), ("jax", j, "torch"))}
+        assert out["torch"][0] == out["jax"][0] == 200
+        tb, jb = out["torch"][1], out["jax"][1]
+        assert set(tb) == set(jb)
+        for key in ("prefill", "prompt_tokens", "blocks", "transfer_bytes", "skipped"):
+            assert tb[key] == jb[key], key
+        # the JAX server adopts the port's chain; the port's already holds
+        # the same blocks from its own prefill, so it reuses JAX's
+        assert tb["blocks"] == 3 and (tb["adopted"], tb["reused"]) == (3, 0)
+        assert (jb["adopted"], jb["reused"]) == (0, 3)
+        gen = {k: _call(s.url, "/generate", {"prompt": LONG, "max_tokens": 6})[1]
+               for k, s in both.items()}
+        assert gen["torch"]["text"] == gen["jax"]["text"]
+        assert gen["torch"]["prefix_cached_tokens"] == gen["jax"]["prefix_cached_tokens"] == 48
+        assert _call(t.url, "/prefill", {"no": "prompt"})[0] == \
+            _call(j.url, "/prefill", {"no": "prompt"})[0] == 400
+    elif endpoint == "adopt_kv":
+        from mlx_cuda_distributed_pretraining_tpu_torch.serve.kv_transfer import _corrupt
+
+        prompt = "adopt me: " + LONG
+        req = t.service.engine.submit(prompt, max_tokens=1, prefill_only=True)
+        assert req.wait(120) and req.result["finish_reason"] == "prefill"
+        data = t.service.engine.export_kv(req.prompt_ids).to_bytes()
+        hdr = {"Content-Type": "application/octet-stream"}
+        # the port's own server holds the chain already; the JAX one adopts it
+        out = {k: _raw(s.url, "/adopt_kv", data, hdr) for k, s in both.items()}
+        assert out["torch"] == (200, {"adopted": 0, "reused": 4, "skipped": 0})
+        assert out["jax"] == (200, {"adopted": 4, "reused": 0, "skipped": 0})
+        again = {k: _raw(s.url, "/adopt_kv", data, hdr) for k, s in both.items()}
+        assert again["torch"] == again["jax"] == out["torch"]
+        bad = {k: _raw(s.url, "/adopt_kv", _corrupt(data), hdr) for k, s in both.items()}
+        assert bad["torch"][0] == bad["jax"][0] == 400
+        junk = {k: _raw(s.url, "/adopt_kv", b"nonsense", hdr)[0] for k, s in both.items()}
+        assert junk["torch"] == junk["jax"] == 400
+    elif endpoint == "drain":
+        body = {"prompt": PROMPT, "max_tokens": 4}
+        for path, code in (("/admin/drain", 200), ("/generate", 503),
+                           ("/prefill", 503), ("/healthz", 200), ("/admin/undrain", 200),
+                           ("/generate", 200), ("/admin/nope", 404)):
+            got = {k: (_call(s.url, path) if path == "/healthz" else
+                       _call(s.url, path, body if "admin" not in path else {}))
+                   for k, s in both.items()}
+            assert got["torch"][0] == got["jax"][0] == code, path
+            if path.startswith("/admin/") and code == 200:
+                assert got["torch"][1] == got["jax"][1]
+            if path == "/healthz":
+                assert got["torch"][1]["status"] == got["jax"][1]["status"] == "draining"
+            if path == "/generate" and code == 200:
+                assert got["torch"][1]["text"] == got["jax"][1]["text"]
+        assert t.service.metrics()["draining"] is False
+    elif endpoint == "swap_weights":
+        from mlx_cuda_distributed_pretraining_tpu_torch.checkpoint.manager import (
+            CheckpointManager,
+        )
+
+        run_dir = str(tmp_path / "run")
+        CheckpointManager(run_dir).save(7, params_from_jax(np_params, "cpu"))
+        out = {k: _call(s.url, "/admin/swap_weights", {"run_dir": run_dir})
+               for k, s in both.items()}
+        assert out["torch"][0] == out["jax"][0] == 200
+        assert out["torch"][1] == out["jax"][1]
+        assert out["torch"][1]["model_path"].endswith("step_7_model.safetensors")
+        gen = {k: _call(s.url, "/generate", {"prompt": PROMPT, "max_tokens": 6})[1]["text"]
+               for k, s in both.items()}
+        assert gen["torch"] == gen["jax"]
+        for body in ({}, {"run_dir": str(tmp_path / "empty")}):
+            codes = {k: _call(s.url, "/admin/swap_weights", body)[0] for k, s in both.items()}
+            assert codes["torch"] == codes["jax"] == 400
+    else:
+        body = {"prompt": PROMPT, "max_tokens": 4}
+        steps0 = t.service.engine.prefill_chunks + t.service.engine.decode_steps
+        for header, code in (("0", 504), ("-5", 504), ("60000", 200), ("abc", 200)):
+            got = {k: _call(s.url, "/generate", body, {"X-Deadline-Ms": header})
+                   for k, s in both.items()}
+            assert got["torch"][0] == got["jax"][0] == code, header
+            if code == 200:
+                assert got["torch"][1]["text"] == got["jax"][1]["text"]
+            else:
+                assert got["torch"][1] == got["jax"][1]
+                # answered before any engine work
+                assert t.service.engine.prefill_chunks + \
+                    t.service.engine.decode_steps == steps0
+            pre = {k: _call(s.url, "/prefill", body, {"X-Deadline-Ms": header})[0]
+                   for k, s in both.items()}
+            assert pre["torch"] == pre["jax"]
+
+
+@pytest.mark.parametrize("spec", ["tp=2", "dp=2,tp=1"])
+def test_a_multi_device_serving_mesh_still_refuses_naming_item_10(spec):
+    """``--mesh`` is ROADMAP queue 1 item 10 (multi-GPU): refused before any
+    weight loads; a one-device mesh serves."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        tserver.main(["--config", os.path.join(REPO, "configs", "model-config-sample.yaml"),
+                      "--engine", "batch", "--device", "cpu", "--mesh", spec])
+    assert EngineConfig(mesh="tp=1,dp=1").mesh == {"tp": 1, "dp": 1}
 
 
 def test_speculative_and_kv_quant_services(np_params):

@@ -222,8 +222,11 @@ def test_what_is_not_ported_raises_naming_its_item(tmp_path):
         supervise_from_args,
     )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        supervise_from_args(_builder_args(cfg, tmp_path, "r", "--auto-resume", "--scope"))
+    # --scope is ported (tests/test_torch_scope.py runs the sidecar); a
+    # supervisor over several processes still refuses, with --scope too
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        supervise_from_args(_builder_args(cfg, tmp_path, "r", "--auto-resume", "--scope",
+                                          "--num-processes", "2"))
 
 
 def test_watchdog_last_progress_floors_stale_heartbeat(tmp_path):
