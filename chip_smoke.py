@@ -192,14 +192,15 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    one fp32 ``torch.mm`` per expert (TF32 off) and ``torch._grouped_mm``
    in fp32 where this torch takes it.
 7. 1b      — trains configs/model-config-1b-singlechip.yaml at full width
-   (hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, S 2048,
-   batch 8, bf16 over fp32 masters, flash attention, remat "full" on the
-   first 8 layers (the default ratio 0.5), scan_layers, Adafactor, async
+   (hidden 2048, intermediate 5632, 8 of its 16 layers (the whole smoke's
+   time limit), 16 heads of 128, S 2048, batch 8, bf16 over fp32 masters, flash attention,
+   remat "full" on the first half of the layers (the default ratio 0.5),
+   scan_layers, Adafactor, async
    checkpoints) from a JSON config. Cut: 16 steps (of 20,000), warmup 2 (of
    2,000), a log line every step, a checkpoint every 8 steps. At step 1 the
    fused CE (2048-row chunks) is held against the plain CE: loss 1e-5 and
    gradient norm 1e-4 relative. Run A trains 16 steps through
-   ``Trainer.train()`` (launch counts: 24 flash forwards a step, 16 of each
+   ``Trainer.train()`` (launch counts: 12 flash forwards a step, 8 of each
    backward kernel, all wgmma; every checkpoint verifies); a 2-step side
    run with remat "none" gives the peak memory remat saves. Run B is the
    trainer CLI in a subprocess, sent SIGTERM once its log shows step 4: it
@@ -209,6 +210,29 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    at every step within 1e-5 relative (whether bitwise is printed). The
    final checkpoint is served. Prints step ms, tok/s, MFU (the recompute
    not counted) and both peak memories beside the card.
+7b. fsdp   — configs/model-config-1b-fsdp.yaml at full width (the 1B widths,
+   8 of its 16 layers, batch 32, remat "save_attn" on the first half of the
+   layers, AdamW, ZeRO-1,
+   overlap_gather, ``mesh: {fsdp: -1}``) through ``parallel.launch`` with
+   one NCCL rank (``fsdp: -1`` resolves to 1; ``fsdp_1b_phase``). Cut: 20
+   steps (of 20,000), warmup 2 (of 2,000), a log line every step, a
+   checkpoint every 10 steps, no metrics port. The one-device reference is
+   the same config's trainer with no mesh, its step 1 in the smoke's
+   process. Run A trains 20 steps with a profiler window over step 3; run B
+   resumes it from step 10 (strict: the step must verify). It runs first,
+   right after the build, while this process holds almost none of the
+   card. Gates: A's step-1 loss and gradient norm within 1e-5 relative
+   of the one-device step (whether bitwise is printed); B's losses A's
+   within 1e-5; the loss falls below 0.9 x step 1's; the profile's op
+   table holds the three bf16 flash kernels at the one-device step's count
+   (every layer's forward, the remat'd ones again, every layer's dQ and
+   dK/dV) and the trace no plain attention (einsum/bmm/sdpa) op; every
+   flash launch of run A (its ``run_end`` event) on wgmma; the rank's
+   sidecar ``step_10_data_p0.json`` in the chief's manifest. Then two
+   ranks on the one card: NCCL refuses them, gloo forms the group; step 1
+   of the {fsdp: 2} step (``scripts/profile_torch_train.py --steps 0``, 2
+   layers) on two gloo ranks must give one NCCL rank's within 1e-5. Prints
+   step ms, tok/s, MFU and peak memory beside the card.
 8. flex    — this slice's paths. (a) configs/model-config-100m-muon.yaml at
    full width (hidden 768, 12 layers, 12 heads of 64, S 1024, batch 32,
    bf16 over fp32 masters, flash attention, Muon with Nesterov, 5 NS steps,
@@ -239,7 +263,7 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    ``score_mod``, compiled beside the build in phase 2, its compile time
    printed on a line of its own).
 9. stream  — trains configs/model-config-80m-fineweb.yaml at full width
-   (hidden 1024, intermediate 2816, 12 layers, 16 query heads over 8 KV
+   (hidden 1024, intermediate 2816, 6 of its 12 layers, 16 query heads over 8 KV
    heads of 64, S 2048, batch 32, bf16 over fp32 masters, flash
    attention, Muon with adamw_lr_ratio 0.02) on seeded synthetic text in
    four local JSONL shards and one WebDataset tar shard, read through
@@ -268,7 +292,7 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    planted fault.
 9b. telemetry — moe-8x40m as phase 6 (its config, seed and corpus, written
    as JSON; checkpoints every 10 steps, blocking; spans, events, a metrics
-   port and a ``torch.profiler`` window over steps 12-14 on; the
+   port and a ``torch.profiler`` window over steps 16-19 on; the
    supervisor's hang timeout 30 s) trained 30 steps through the trainer CLI
    with ``--auto-resume``, so the port's supervisor runs it in a child
    process. Once step 10's manifest lands the child is SIGKILLed; once step
@@ -3314,7 +3338,9 @@ PROFILED_KERNELS = {"flash_fwd": "flash_fwd_bf16_wgmma_kernel",
                     "flash_bwd_dq": "flash_bwd_dq_bf16_wgmma_kernel",
                     "flash_bwd_dkv": "flash_bwd_dkv_bf16_wgmma_kernel",
                     "gmm": "gmm_bf16_wgmma_kernel", "tgmm": "tgmm_bf16_wgmma_kernel"}
-TELEMETRY_PROFILE = (12, 15)  # the torch.profiler window: steps 12-14
+# the torch.profiler window: steps 16-19, well past the SIGKILL at step 10's
+# manifest (at 12-14 a host slow to send it let the first child profile too)
+TELEMETRY_PROFILE = (16, 20)
 TELEMETRY_HANG_S = 30.0
 
 
@@ -3367,7 +3393,7 @@ def telemetry_phase(torch, card, moe_perf, steps: int = 30, warmup: int = 10,
     """moe-8x40m as phase 6 (its config, seed and corpus, written as JSON),
     trained through the port's trainer CLI with ``--auto-resume``: the
     supervisor runs it in a child process. Spans, events, a metrics port
-    and a profile window (steps 12-14) are on; checkpoints every 10 steps.
+    and a profile window (steps 16-19) are on; checkpoints every 10 steps.
     The child is SIGKILLed once step 10's manifest lands, and SIGSTOPped
     (a hang: only the watchdog's SIGKILL ends it) once step 20's does."""
     import signal
@@ -3701,13 +3727,15 @@ def int8_train_phase(torch, gm, fa, kernel_check, card, moe_perf, steps: int = 1
 
 # -- phase 7: the 1B single-chip trainer, preempted and resumed -------------------
 STEPS_1B = 16
+DEPTH_1B = 8  # of the config's 16: the whole smoke's time limit
 
 
 def config_1b(tmp: str, steps: int = STEPS_1B) -> dict:
     """configs/model-config-1b-singlechip.yaml written out as a dict, with
     the smoke's cuts: ``iters`` 16 (of 20,000), ``warmup_steps`` 2 (of
     2,000: the same tenth), a log line every step (of 20), a checkpoint
-    every 8 steps (of 1,000), and the corpus paths. Every width and switch
+    every 8 steps (of 1,000), 8 of its 16 layers (the whole smoke's time
+    limit), and the corpus paths. Every width and switch
     is the config's: flash attention, remat "full", scan_layers, Adafactor,
     async checkpoints; validation (every 500) runs once, at the end."""
     return {
@@ -3720,7 +3748,7 @@ def config_1b(tmp: str, steps: int = STEPS_1B) -> dict:
                      "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
         "model": {"architecture": "llama",
                   "dimensions": {"hidden_size": 2048, "intermediate_size": 5632,
-                                 "num_layers": 16},
+                                 "num_layers": DEPTH_1B},
                   "attention": {"num_heads": 16, "num_kv_heads": 16, "head_dim": 128,
                                 "max_position_embeddings": 2048,
                                 "attention_type": "flash"},
@@ -3965,6 +3993,375 @@ def train_1b_phase(torch, gm, fa, card):
     for k in ("step_ms", "tok_s", "mfu_vs_989tflops", "peak_mem_gb_remat_full",
               "peak_mem_gb_remat_none"):
         log(f"1b: {k}={perf[k]} [{card}]")
+    return failures, perf
+
+
+# -- phase 7b: 1b-fsdp through the launcher, one NCCL rank --------------------------
+STEPS_FSDP, CKPT_FSDP = 20, 10
+BATCH_FSDP = 32
+DEPTH_FSDP = 8  # of the config's 16: the whole smoke's time limit
+PROFILE_FSDP = (3, 4)  # the torch.profiler window of run A: step 3
+TWO_RANK_LAYERS = 2    # the depth of the two-ranks-on-one-card run
+
+
+def config_1b_fsdp(tmp: str, steps: int = STEPS_FSDP, batch: int = BATCH_FSDP) -> dict:
+    """configs/model-config-1b-fsdp.yaml written out as a dict, with the
+    smoke's cuts: ``iters`` 20 (of 20,000), ``warmup_steps`` 2 (of 2,000),
+    a log line every step (of 10) with the gradient norm, a checkpoint every
+    10 steps (of 1,000), no metrics port (9100), no validation split (its
+    every-500 never comes), 8 of its 16 layers (the whole smoke's time
+    limit: at 16 the step peaked at 78.06 GB and the phase took 316 s on
+    an H100 80GB HBM3 at 700 W), a torch.profiler window over step 3 whose op table keeps every
+    kernel, and the corpus path. Every width and switch is the config's:
+    batch 32, flash attention,
+    remat "save_attn" (over ``system.remat``) on the first half of the
+    layers, AdamW (0.9/0.95, weight decay 0.1, clip 1.0, lr 3e-4),
+    ZeRO-1, ``overlap_gather``, ``scan_layers`` and ``mesh: {fsdp: -1}``."""
+    return {
+        "name": "Llama-1B-fsdp", "overwrite": True,
+        "data": {"input_file": os.path.join(tmp, "train.jsonl"),
+                 "tokenizer_path": "tokenizer",
+                 "preprocessing": {"max_context_size": 2048, "chunk_overlap": 128},
+                 "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                     "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": 2048, "intermediate_size": 5632,
+                                 "num_layers": DEPTH_FSDP},
+                  "attention": {"num_heads": 16, "num_kv_heads": 16, "head_dim": 128,
+                                "max_position_embeddings": 2048,
+                                "use_flash_attention": True},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000, "traditional": False, "scaling": None},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True},
+                  "remat_policy": "save_attn"},
+        "training": {"hyperparameters": {"batch_size": batch, "learning_rate": 3.0e-4,
+                                         "weight_decay": 0.1, "gradient_clip": 1.0,
+                                         "iters": steps},
+                     "scheduler": {"type": "cosine_with_warmup", "min_lr_ratio": 0.1,
+                                   "warmup_steps": 2},
+                     "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
+        "logging": {"steps": {"logging_interval": 1, "checkpoint_interval": CKPT_FSDP,
+                              "validation_interval": 500},
+                    "log_gradient_norm": True,
+                    "profile_start": PROFILE_FSDP[0], "profile_stop": PROFILE_FSDP[1],
+                    "profile_report": {"top_k": 1000}},
+        "system": {"seed": 42, "mixed_precision": True, "precision": "bfloat16",
+                   "gradient_checkpointing": True, "remat": "dots",
+                   "zero_optimization_level": 1, "mesh": {"fsdp": -1},
+                   "scan_layers": True, "overlap_gather": True},
+    }
+
+
+def read_events(run_dir: str) -> list:
+    path = os.path.join(run_dir, "events.jsonl")
+    if not os.path.isfile(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def child_run(cmd: list, out_path: str, timeout: float) -> int:
+    """A child process of the smoke, its output into ``out_path``; killed at
+    ``timeout`` (124). The children allocate with expandable segments: the
+    1b-fsdp step peaks within 2 GB of the card's 80."""
+    env = dict(os.environ, PYTHONPATH=REPO, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return 124
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def launch_cmd(n: int, *args) -> list:
+    """``parallel.launch`` starting ``n`` ranks on this machine."""
+    return [sys.executable, "-m", "mlx_cuda_distributed_pretraining_tpu_torch.parallel.launch",
+            "--nproc-per-node", str(n), *args]
+
+
+def tail_of(path: str, n: int = 3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def two_ranks_on_one_card(tmp: str, card: str, device: str = "cuda") -> dict:
+    """Two ranks on the one card: NCCL refuses two ranks on one device
+    ("Duplicate GPU detected"); gloo forms the group and carries every
+    collective of the path on CUDA tensors through the host. So step 1 of
+    the {fsdp: 2} train step (``scripts/profile_torch_train.py --steps 0``
+    at 1b-fsdp's widths, 2 layers, the same seeded weights and global
+    batch) runs through the launcher with both ranks on ``cuda:0`` on gloo,
+    held against the same script's step 1 on one rank (in this process)."""
+    import gc
+    import importlib.util
+
+    args = ["--config", "1b-fsdp", "--layers", str(TWO_RANK_LAYERS), "--steps", "0"]
+    out = {}
+    path = os.path.join(tmp, "one_rank.json")
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_train", os.path.join(REPO, "scripts", "profile_torch_train.py"))
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    rc = prof.main(args + ["--out", path])
+    gc.collect()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    row = {"rc": rc, "seconds": time.perf_counter() - t0}
+    if rc == 0 and os.path.isfile(path):
+        with open(path) as f:
+            row.update(first_step=json.load(f).get("first_step"))
+    out["one_rank"] = row
+    path = os.path.join(tmp, "two_ranks_gloo.json")
+    t0 = time.perf_counter()
+    rc = child_run(launch_cmd(2, "--device", device, "--backend", "gloo", "--timeout-s", "240",
+                              "--script", os.path.join(REPO, "scripts", "profile_torch_train.py"),
+                              "--", *args, "--out", path),
+                   os.path.join(tmp, "two_ranks_gloo.out"), timeout=300)
+    row = {"rc": rc, "seconds": time.perf_counter() - t0}
+    if rc == 0 and os.path.isfile(path):
+        with open(path) as f:
+            got = json.load(f)
+        row.update(first_step=got.get("first_step"), mesh=got.get("mesh"),
+                   ranks=got.get("ranks"))
+    else:
+        tail = tail_of(os.path.join(tmp, "two_ranks_gloo.out"), 6000)
+        row["error"] = next((ln.strip()[:300] for ln in tail.splitlines()
+                             if "Error" in ln), tail[-300:])
+    out["two_ranks_gloo"] = row
+    ref = (out["one_rank"].get("first_step") or {}).get("loss")
+    got = (row.get("first_step") or {}).get("loss")
+    if ref is not None and got is not None:
+        row["loss_rel"] = abs(got - ref) / abs(ref)
+    for label, r in out.items():
+        log(f"fsdp: {label}: {r} [{card}]")
+    return out
+
+
+def fsdp_1b_phase(torch, gm, fa, card, device: str = "cuda"):
+    """1b-fsdp at full width through ``parallel.launch``, one NCCL rank
+    (``fsdp: -1`` resolves to 1). The one-device reference: the same
+    config's trainer with no mesh, its step 1 in this process. Run A: 20
+    steps with a checkpoint at step 10 and a profiler window over step 3.
+    Run B: resumes A from step 10 to 20. Gates: A's step 1 (loss and gradient
+    norm) within 1e-5 relative of the one-device step; B's losses A's
+    within 1e-5; the loss falls; the profile holds the three bf16 flash
+    kernels at the one-device step's count for every layer and no plain
+    attention op; A's flash launches all on the wgmma kernels; the rank's
+    sidecar and the chief's manifest at step 10. Then two ranks on the one
+    card (:func:`two_ranks_on_one_card`): a backend that forms the group
+    must give one rank's step-1 loss within 1e-5. ``device="cpu"`` (with a
+    small ``config_1b_fsdp``) rehearses it on the CPU, where only the kernel
+    gates fail."""
+    import gc
+    import shutil
+    import tempfile
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    failures, perf = [], {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    if device == "cuda":  # the children need the card's memory: this runs first
+        torch.cuda.empty_cache()
+        log(f"fsdp: this process holds {torch.cuda.memory_reserved() / 1e9:.3f} GB of "
+            f"the card")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        write_corpus(tmp, train_bytes=600_000, val_bytes=70_000)
+        cfg = config_1b_fsdp(tmp)
+        layers = cfg["model"]["dimensions"]["num_layers"]
+
+        # the one-device path: the same config's trainer with no mesh, its
+        # step 1 in this process (which holds almost none of the card yet)
+        single = dict(cfg, name="single",
+                      system={k: v for k, v in cfg["system"].items() if k != "mesh"},
+                      logging=dict(cfg["logging"], profile_start=0, profile_stop=0))
+        t0 = time.perf_counter()
+        t = Trainer(Config.from_dict(single), runs_root=os.path.join(tmp, "runs_single"),
+                    quiet=True, device=device)
+        if t.mesh is not None:
+            failures.append(f"fsdp: the one-device trainer built a mesh {t.mesh}")
+        reset_launches(gm, fa)
+        t.state, m = t.train_step(t.state, t._device_batch(t.data.generate_batch(0)))
+        single_step = {"loss": round(float(m["loss"]), 6), "grad_norm": float(m["grad_norm"])}
+        per_step = {k: v for k, v in read_launches(gm, fa).items() if k in FLASH_KERNELS}
+        t.events.close()
+        t.logger.close()
+        t.state = None
+        del t, m
+        gc.collect()  # the trainer's callbacks hold it in reference cycles
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_reserved() / 1e9
+            log(f"fsdp: after it this process holds {held:.3f} GB of the card")
+            # the children's step peaks at 78.1 GB of the card's 85.0
+            if held > 4.0:
+                failures.append(f"fsdp: the one-device step left {held:.3f} GB on the card")
+                return failures, perf
+        shutil.rmtree(os.path.join(tmp, "runs_single"), ignore_errors=True)
+        log(f"fsdp: one-device trainer (no mesh), step 1 in {time.perf_counter() - t0:.1f}s: "
+            f"{single_step}; flash launches a step {per_step}")
+
+        # run A: the launcher, one NCCL rank, 20 steps, a checkpoint at 10
+        runs = os.path.join(tmp, "runs")
+        with open(os.path.join(tmp, "a.json"), "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        rc_a = child_run(launch_cmd(1, "--device", device, "--config",
+                                    os.path.join(tmp, "a.json"), "--runs-root", runs),
+                         os.path.join(tmp, "a.out"), 900)
+        wall_a = time.perf_counter() - t0
+        run_dir = os.path.join(runs, cfg["name"])
+        events = read_events(run_dir)
+        windows = [e for e in events if e.get("type") == "step_window"]
+        losses_a = {e["step"]: e["loss"] for e in windows}
+        norms_a = {e["step"]: e.get("grad_norm") for e in windows}
+        run_end = next((e for e in events if e.get("type") == "run_end"), {})
+        run_start = next((e for e in events if e.get("type") == "run_start"), {})
+        a_out = tail_of(os.path.join(tmp, "a.out"), 10**7)
+        log_a = (open(os.path.join(run_dir, "log.txt")).read()
+                 if os.path.isfile(os.path.join(run_dir, "log.txt")) else "")
+        log(f"fsdp: run A (launcher, 1 rank) exit {rc_a} in {wall_a:.1f}s; losses "
+            f"{[round(losses_a[s], 5) for s in sorted(losses_a)]}; "
+            f"{[ln.split('] ', 1)[-1] for ln in log_a.splitlines() if 'mesh ' in ln][:1]}")
+        if rc_a != 0 or sorted(losses_a) != list(range(1, STEPS_FSDP + 1)) or \
+                not all(math.isfinite(x) for x in losses_a.values()):
+            failures.append(f"fsdp: run A exit {rc_a}, losses {losses_a}: {a_out[-3000:]}")
+            return failures, perf
+        if "mesh {'fsdp': 1} over 1 rank(s)" not in log_a or \
+                "[launch] rank 0/1 backend nccl device cuda" not in a_out:
+            failures.append("fsdp: run A did not train on a one-rank NCCL fsdp mesh")
+
+        # gate: step 1 against the one-device trainer
+        loss_rel = abs(losses_a[1] - single_step["loss"]) / abs(single_step["loss"])
+        norm_rel = abs(norms_a[1] - single_step["grad_norm"]) / single_step["grad_norm"]
+        bitwise = losses_a[1] == single_step["loss"] and norms_a[1] == single_step["grad_norm"]
+        log(f"fsdp: step 1 vs the one-device trainer: loss {losses_a[1]} vs "
+            f"{single_step['loss']} (rel {loss_rel:.3g}), grad_norm {norms_a[1]} vs "
+            f"{single_step['grad_norm']} (rel {norm_rel:.3g}); bitwise {bitwise} (the "
+            f"loss at the events' 6 decimals, the norm in full)")
+        if not (loss_rel <= 1e-5 and norm_rel <= 1e-5):
+            failures.append(f"fsdp: step 1 differs from the one-device trainer: loss rel "
+                            f"{loss_rel}, grad_norm rel {norm_rel}")
+        # gate: the loss falls
+        if not losses_a[STEPS_FSDP] < 0.9 * losses_a[1]:
+            failures.append(f"fsdp: the loss does not fall: {losses_a[1]} -> "
+                            f"{losses_a[STEPS_FSDP]}")
+
+        # gate: the profile window, every layer's attention on the flash kernels
+        prof = {}
+        try:
+            with open(os.path.join(run_dir, "prof_summary.json")) as f:
+                prof = json.load(f)
+        except (OSError, ValueError) as e:
+            failures.append(f"fsdp: no prof_summary.json ({e})")
+        n_prof = PROFILE_FSDP[1] - PROFILE_FSDP[0]
+        ops = {o["op"]: o for o in prof.get("ops", [])}
+        seen = {k: ops.get(PROFILED_KERNELS[k], {}).get("count") for k in FLASH_KERNELS}
+        want = {k: n_prof * v for k, v in per_step.items()}
+        traces = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(run_dir, "profile"))
+                  for f in fs if f.endswith(".trace.json")]
+        plain = {}  # the plain attention's einsums (nothing else on this path runs one)
+        for path in traces:
+            with open(path) as f:
+                text = f.read()
+            for op in ("aten::einsum", "aten::bmm", "aten::_scaled_dot_product"):
+                if f'"{op}' in text:
+                    plain[op] = text.count(f'"{op}')
+        comm = {o["op"]: o["count"] for o in prof.get("ops", [])
+                if "nccl" in o["op"] or o.get("family") == "comm"}
+        log(f"fsdp: profile steps {[st['step'] for st in prof.get('steps', [])]}: flash "
+            f"kernels {seen} vs {n_prof} x the one-device step's {want}; plain attention "
+            f"ops in the trace: {plain or 'none'}; collectives in the table: {comm or 'none'}")
+        if seen != want:
+            failures.append(f"fsdp: profiled flash kernels {seen} != {want}")
+        if plain or not traces:
+            failures.append(f"fsdp: plain attention in the profile {plain} (traces {traces})")
+        launched = run_end.get("kernel_launches") or {}
+        log(f"fsdp: run A's kernel launches (run_end) {launched}; peak device memory "
+            f"{run_end.get('peak_device_mem_gb')} GB")
+        if any(launched.get(f"{k}_by_variant", {}).get("f32", 0) for k in FLASH_KERNELS) or \
+                launched.get("flash_bwd_dq") != per_step["flash_bwd_dq"] * STEPS_FSDP or \
+                launched.get("flash_bwd_dkv") != per_step["flash_bwd_dkv"] * STEPS_FSDP:
+            failures.append(f"fsdp: run A's flash launches {launched}")
+
+        # gate: the rank's sidecar listed in the chief's manifest (run B's
+        # resume verifies the step's sizes and CRCs)
+        ckpt = os.path.join(run_dir, "checkpoints")
+        manifest = {}
+        manifest_path = os.path.join(ckpt, f"step_{CKPT_FSDP}.manifest.json")
+        if os.path.isfile(manifest_path):
+            with open(manifest_path) as f:
+                manifest = json.load(f).get("artifacts", {})
+        sidecar = f"step_{CKPT_FSDP}_data_p0.json"
+        log(f"fsdp: step {CKPT_FSDP}'s manifest lists {sorted(manifest)}")
+        if sidecar not in manifest or not os.path.isfile(os.path.join(ckpt, sidecar)):
+            failures.append(f"fsdp: step {CKPT_FSDP}'s sidecar or manifest: {sorted(manifest)}")
+
+        # run B: resume A from step 10 to 20 through the launcher (no interval
+        # save: its losses are what it is run for)
+        with open(os.path.join(tmp, "b.json"), "w") as f:
+            json.dump(dict(cfg, overwrite=False, resume={"checkpoint": str(CKPT_FSDP),
+                                                         "strict": True},
+                           logging=dict(cfg["logging"], profile_start=0, profile_stop=0,
+                                        steps=dict(cfg["logging"]["steps"],
+                                                   checkpoint_interval=0))), f)
+        t0 = time.perf_counter()
+        rc_b = child_run(launch_cmd(1, "--device", device, "--config",
+                                    os.path.join(tmp, "b.json"), "--runs-root", runs),
+                         os.path.join(tmp, "b.out"), 900)
+        wall_b = time.perf_counter() - t0
+        events_b = read_events(run_dir)[len(events):]
+        losses_b = {e["step"]: e["loss"] for e in events_b if e.get("type") == "step_window"}
+        resumed = next((e for e in events_b if e.get("type") == "resume"), {})
+        rel = {st: abs(x - losses_a[st]) / abs(losses_a[st]) for st, x in losses_b.items()}
+        max_rel = max(rel.values()) if rel else float("nan")
+        resume_bitwise = bool(rel) and all(losses_b[st] == losses_a[st] for st in rel)
+        log(f"fsdp: run B (resumed at {CKPT_FSDP}) exit {rc_b} in {wall_b:.1f}s, steps "
+            f"{sorted(losses_b)}; losses vs run A: max relative difference {max_rel:.3g}, "
+            f"bitwise {resume_bitwise}")
+        if rc_b != 0 or sorted(losses_b) != list(range(CKPT_FSDP + 1, STEPS_FSDP + 1)) \
+                or not max_rel <= 1e-5 or str(resumed.get("tag")) != str(CKPT_FSDP):
+            failures.append(f"fsdp: run B exit {rc_b}, losses {losses_b} vs A {losses_a}: "
+                            f"{tail_of(os.path.join(tmp, 'b.out'), 2000)}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+        # the step's time from run A's windows: past step 1 (the warm-up), out
+        # of the profile window, with no checkpoint save in them
+        steady = [e for e in windows if e["step"] > 1
+                  and not PROFILE_FSDP[0] <= e["step"] < PROFILE_FSDP[1]
+                  and not e.get("goodput", {}).get("ckpt_save_s")]
+        secs = sum(e["toks"] / e["tok_s"] for e in steady)
+        tok_s = sum(e["toks"] for e in steady) / secs
+        flops_per_token = run_start.get("flops_per_token") or float("nan")
+        perf = {"step_ms": 1e3 * secs / sum(e["steps"] for e in steady), "tok_s": tok_s,
+                "mfu_vs_989tflops": tok_s * flops_per_token / PEAK_FLOPS["bfloat16"],
+                "flops_per_token": flops_per_token, "batch": BATCH_FSDP,
+                "peak_mem_gb": run_end.get("peak_device_mem_gb"),
+                "run_a_s": wall_a, "run_b_s": wall_b, "losses": losses_a,
+                "step1": {"launcher": {"loss": losses_a[1], "grad_norm": norms_a[1]},
+                          "one_device": single_step, "loss_rel": loss_rel,
+                          "grad_norm_rel": norm_rel, "bitwise": bitwise},
+                "resume": {"max_rel_loss_diff": max_rel, "bitwise": resume_bitwise},
+                "launches": {k: launched.get(k, 0) for k in FLASH_KERNELS},
+                "profiled_flash_kernels": seen, "flash_launches_a_step": per_step,
+                "n_chips": run_start.get("n_chips")}
+        two = two_ranks_on_one_card(tmp, card, device)
+        perf["two_ranks_one_card"] = two
+        if not two["two_ranks_gloo"].get("loss_rel", 1.0) <= 1e-5:
+            failures.append(f"fsdp: two gloo ranks on one card against one rank: {two}")
+    perf["seconds"] = time.perf_counter() - t_phase
+    for k in ("step_ms", "tok_s", "mfu_vs_989tflops", "peak_mem_gb"):
+        log(f"fsdp: {k}={perf[k]} [{card}]")
+    log(f"fsdp: the phase took {perf['seconds']:.1f}s")
     return failures, perf
 
 
@@ -4369,10 +4766,10 @@ def config_80m_fineweb(shards, steps: int, ckpt: int, prefetch_depth: int = 2,
     (each printed as ``reduced``): the data source (local JSONL and
     WebDataset tar shards through ``data.streaming.shards`` in place of the
     hub's FineWeb-Edu stream; ``data`` replaces the section for the
-    token-shard run), ``iters`` (20000), ``warmup_steps`` (500) and the
-    checkpoint interval (2000); ``data.prefetch_depth`` is the default 2
-    unless a run sets 0. Every width, the batch, Muon and every other key
-    are the config's (``system.device: "tpu"`` left out, as in the other
+    token-shard run), ``iters`` (20000), ``warmup_steps`` (500), the
+    checkpoint interval (2000) and the depth (12 layers -> 6);
+    ``data.prefetch_depth`` is the default 2 unless a run sets 0. Every
+    width, the batch, Muon and every other key are the config's (``system.device: "tpu"`` left out, as in the other
     phases)."""
     return {
         "name": "Llama (80M) FineWeb", "overwrite": True,
@@ -4387,7 +4784,7 @@ def config_80m_fineweb(shards, steps: int, ckpt: int, prefetch_depth: int = 2,
             "prefetch_depth": prefetch_depth},
         "model": {"architecture": "llama",
                   "dimensions": {"hidden_size": 1024, "intermediate_size": 2816,
-                                 "num_layers": 12},
+                                 "num_layers": DEPTH_80M},
                   "attention": {"num_heads": 16, "num_kv_heads": 8, "head_dim": 64,
                                 "max_position_embeddings": 2048,
                                 "use_flash_attention": True},
@@ -4410,6 +4807,7 @@ def config_80m_fineweb(shards, steps: int, ckpt: int, prefetch_depth: int = 2,
     }
 
 
+DEPTH_80M = 6  # of the config's 12: the whole smoke's time limit
 REDUCED_80M = [
     "data.source hf_stream (HuggingFaceFW/fineweb-edu, sample-10BT) -> jsonl over "
     "data.streaming.shards: 4 local JSONL shards and 1 WebDataset tar shard of seeded "
@@ -4420,6 +4818,7 @@ REDUCED_80M = [
     f"training.scheduler.warmup_steps 500 -> {STREAM_WARMUP}",
     f"logging.steps.checkpoint_interval 2000 -> {STREAM_CKPT}",
     "data.prefetch_depth: the default 2 (runs A, B, D), 0 (runs C, E)",
+    f"model.dimensions.num_layers 12 -> {DEPTH_80M}",
 ]
 
 
@@ -4847,6 +5246,8 @@ def main() -> int:
                 log(f"build: {line.strip()}")
                 failures.append(f"build: {line.strip()[:200]}")
 
+    fsdp_failures, fsdp_perf = fsdp_1b_phase(torch, gm, fa, card)
+    failures += fsdp_failures
     cases = kernel_phase(torch, gm, kernel_check)
     gen_cases = generate_kernel_cases(torch, gm, kernel_check)
     train_cases, tgmm_cases = train_kernel_phase(torch, gm, kernel_check)
@@ -4991,10 +5392,11 @@ def main() -> int:
                      tflops=path_case["kernels"][name]["tflops"],
                      launches_by_path={
                          "1b_singlechip": b1_launches.get(name, 0),
+                         "1b_fsdp_launcher": fsdp_perf.get("launches", {}).get(name, 0),
                          "moe_8x40m": moe_launches.get(name, 0),
                          "dense_40m": train_perf.get("launches", {}).get(name, 0)})
     flash_entries[0].update(cases=flash_cases, dense_train=train_perf,
-                            train_1b=b1_perf, card=card)
+                            train_1b=b1_perf, fsdp_1b=fsdp_perf, card=card)
     # The flex slice's (kernel, variant, score mod) cases, each with its
     # launches on the path that runs it (100m-muon: wgmma, no mod; 1m-flex:
     # wgmma, alibi; the 1M optimizer runs: wgmma, no mod; no path runs the

@@ -41,8 +41,12 @@ With a ``metrics`` registry (``obs/metrics.py``) the manager counts its
 write requests by mode, its manifest verifications by outcome and its
 quarantined steps, as the JAX manager does.
 
-Not ported: the mesh loaders ``shard_arrays``, ``load_params_stacked``
-and ``load_opt_state_resharded`` (ROADMAP queue 1 item 10: multi-GPU).
+Under a mesh the files stay the one-device layout (the trainer's chief
+writes the full state, gathered from every rank's blocks), so a step
+written at any world size, or by the JAX package, loads on any mesh: each
+rank reads the full tensors and keeps its blocks (:func:`shard_arrays`).
+JAX's ``load_params_stacked`` has no counterpart: the port never stacks
+its layers.
 """
 
 from __future__ import annotations
@@ -649,6 +653,24 @@ def latest_model_path(run_dir: str) -> Optional[str]:
     if step is None:
         return None
     return mgr.paths_for_step(step)[0]
+
+
+def shard_arrays(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's blocks of a full tensor tree (new tensors), by the spec
+    tree of ``parallel/sharding_rules.py`` (``state_sharding``); other
+    leaves pass through. The loader of a checkpoint onto any mesh."""
+    from ..parallel.collectives import shard_of, spec_axes
+
+    def cut(x, spec):
+        if isinstance(x, torch.Tensor) and not x.is_meta and spec_axes(spec):
+            return shard_of(x, spec, mesh).clone()
+        return x
+
+    if isinstance(tree, dict):
+        return {k: shard_arrays(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [shard_arrays(v, specs[i], mesh) for i, v in enumerate(tree)]
+    return cut(tree, specs)
 
 
 def _quantize_flat(arrays: Dict[str, torch.Tensor],

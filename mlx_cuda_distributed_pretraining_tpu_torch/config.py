@@ -228,9 +228,10 @@ class SystemConfig:
 
     Only the keys the trainer reads are fields. Others (the reference's
     ``device``, ``precision``, ...) stay in ``_extras`` for the round trip:
-    the device is the Trainer's ``device`` argument, not this section. The
-    port trains on one device: the Trainer refuses a ``mesh`` (or legacy
-    ``model_parallel``) that needs more."""
+    the device is the Trainer's ``device`` argument, not this section.
+    ``mesh`` (or the legacy ``model_parallel``) lays out the ranks of the
+    world (``parallel/mesh.py``); the Trainer acts on its dp and fsdp axes
+    and refuses the others."""
 
     seed: int = 42
     mesh: Dict[str, int] = field(default_factory=dict)
@@ -244,6 +245,7 @@ class SystemConfig:
     compute_dtype: Optional[str] = None
     scan_layers: bool = False
     overlap_gather: bool = False
+    zero_optimization_level: int = 0  # 1: optimizer state split over dp too
     async_checkpointing: bool = True  # interval saves write in the background
 
     def __post_init__(self):
@@ -269,7 +271,7 @@ class SupervisorConfig:
     SIGKILLed after ``hang_kill_grace_s``, and restarted from the newest
     verified checkpoint; 0 disables the watchdog. ``barrier_timeout_s``
     bounds the multi-host generation barrier, which the port does not run
-    (ROADMAP queue 1 item 10); it is kept for the round trip."""
+    (ROADMAP queue 1 item 10e); it is kept for the round trip."""
 
     hang_timeout_s: float = 0.0
     hang_kill_grace_s: float = 20.0

@@ -32,8 +32,12 @@ batch and observes its waits (``input_batches_total``,
 ``input_queue_depth``, ``input_data_wait_seconds``, ``input_h2d_seconds``),
 as the JAX prefetcher does.
 
-Not ported: a device mesh (ROADMAP queue 1 item 10) and the group mode of
-``system.steps_per_dispatch``.
+Over a mesh (``mesh=``: one device a rank) the loader already serves this
+rank's rows (``process_index`` / ``process_count``), so each rank copies
+only those to its own device; the state is stamped with the rank and world
+size (the loader's, else the mesh's).
+
+Not ported: the group mode of ``system.steps_per_dispatch``.
 """
 
 from __future__ import annotations
@@ -55,11 +59,8 @@ class DevicePrefetcher:
     def __init__(self, loader: Any, device="cpu", depth: int = 2, start_step: int = 0,
                  total_steps: Optional[int] = None, mesh: Any = None,
                  metrics: Any = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher over a device mesh is not ported "
-                "(ROADMAP queue 1 item 10: multi-GPU)")
         self.loader = loader
+        self.mesh = mesh
         self.device = torch.device(device)
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"DevicePrefetcher runs on cuda or cpu, not {self.device}")
@@ -226,8 +227,10 @@ class DevicePrefetcher:
         else:
             state = self.loader.state_dict()
         if isinstance(state, dict):
+            world = ({"process_count": self.mesh.size, "process_index": self.mesh.rank}
+                     if self.mesh is not None else {})
             for key in ("process_count", "process_index"):
-                stamp = getattr(self.loader, key, None)
+                stamp = getattr(self.loader, key, world.get(key))
                 if stamp is not None:
                     state.setdefault(key, int(stamp))
         return state

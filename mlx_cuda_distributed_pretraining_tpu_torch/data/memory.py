@@ -10,6 +10,11 @@ Batches are numpy arrays; the trainer moves them to the device.
 With the byte tokenizer the rows come from the C++ packer (``native/``),
 which gives the Python tokenize -> chunk -> pack path's rows; where the
 library cannot be built the Python path runs, as in the JAX package.
+
+Over several ranks each keeps the rows ``process_index::process_count`` of
+both splits (truncated to a common multiple, so every rank has as many
+rows), as each JAX host does, and serves ``batch_size`` rows of its own a
+step: the global batch is the ranks' batches in rank order.
 """
 
 from __future__ import annotations
@@ -45,8 +50,11 @@ def load_jsonl_texts(path: str) -> List[str]:
 
 class DataManager:
     def __init__(self, data_config: Any, tokenizer: Any, batch_size: int,
-                 seq_len: Optional[int] = None, seed: int = 42, base_dir: str = "."):
+                 seq_len: Optional[int] = None, seed: int = 42,
+                 process_index: int = 0, process_count: int = 1, base_dir: str = "."):
         self.tokenizer = tokenizer
+        self.process_index = process_index
+        self.process_count = process_count
         self.batch_size = batch_size
         self.seq_len = seq_len or tokenizer.max_context_size
         self.seed = seed
@@ -59,6 +67,13 @@ class DataManager:
         self.val_rows = self._load_split(os.path.join(base_dir, val_file) if val_file else None)
         if len(self.train_rows) == 0:
             raise ValueError("no training data: input_file missing or empty")
+        if process_count > 1:
+            n = (len(self.train_rows) // process_count) * process_count
+            self.train_rows = self.train_rows[process_index:n:process_count]
+            if len(self.val_rows):
+                nv = (len(self.val_rows) // process_count) * process_count
+                self.val_rows = (self.val_rows[process_index:nv:process_count] if nv
+                                 else self.val_rows[:0])
 
     def _load_split(self, path: Optional[str]) -> np.ndarray:
         if not path or not os.path.exists(path):

@@ -942,10 +942,7 @@ def build_data_manager(
             process_index=process_index, process_count=process_count,
             base_dir=base_dir,
         )
-    if process_count > 1:
-        raise NotImplementedError(
-            "the in-memory loader shards rows over hosts in the JAX package "
-            "only (ROADMAP queue 1 item 10: multi-GPU)")
     return DataManager(
-        data_cfg, tokenizer, batch_size, seq_len=seq_len, seed=seed, base_dir=base_dir,
+        data_cfg, tokenizer, batch_size, seq_len=seq_len, seed=seed,
+        process_index=process_index, process_count=process_count, base_dir=base_dir,
     )

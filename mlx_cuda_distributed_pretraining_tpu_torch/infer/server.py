@@ -52,7 +52,7 @@ remaining budget) tightens the body's ``deadline_s`` and answers 504
 before any engine work once it is spent; ``--role`` names the replica's
 pool, and ``--fleet-dir`` / ``--fleet-index`` register it in the fleet's
 membership directory and keep its heartbeat. A serving mesh of more than
-one device (``--mesh``) is not ported (ROADMAP queue 1 item 10).
+one device (``--mesh``) is not ported (ROADMAP queue 1 item 10a).
 """
 
 from __future__ import annotations
@@ -756,7 +756,7 @@ def main(argv=None) -> int:
     p.add_argument("--mesh", default=None,
                    help="batch engine: serving mesh spec, e.g. tp=1,dp=1; a "
                         "mesh of more than one device is not ported (ROADMAP "
-                        "queue 1 item 10)")
+                        "queue 1 item 10a: TP serving)")
     p.add_argument("--role", choices=("any", "prefill", "decode"),
                    default="any",
                    help="fleet pool this replica serves (published in "

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops import fused_ce
+from ..parallel.overlap import active_plan
 from ..utils.tree import flatten_dict
 
 Params = Dict[str, Any]
@@ -499,7 +500,7 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
                                                         args.num_heads, args.soft_cap))
     elif impl == "ring":
         # No sp mesh axis on one device: JAX falls back to the reference
-        # attention under the config's mask (ring over NCCL: item 10).
+        # attention under the config's mask (ring over NCCL: item 10c).
         out = reference_attention(q, k, v, mask_mod=build_mask_mod(args))
     else:
         out = reference_attention(q, k, v, mask_mod=build_mask_mod(args),
@@ -580,26 +581,34 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
     changes no number and no file layout, and eager PyTorch compiles
     nothing, so there is nothing for it to do here.
 
-    ``overlap`` (``system.overlap_gather``) only requests JAX's gathered-
-    weight schedule, which JAX runs only on an ``fsdp`` mesh axis > 1
-    (``parallel/overlap.py::can_overlap``) and otherwise runs this plain
-    loop. The port trains on one device (the trainer refuses a larger mesh:
-    ROADMAP queue 1 item 10), so the plain loop always runs."""
-    del scan_layers, overlap  # the same loop either way (see the docstring)
+    Under an fsdp mesh the train step's plan (``parallel/overlap.py``) is
+    active: ``params["layers"]`` then holds this rank's blocks, and each
+    layer is gathered just before it runs. ``overlap``
+    (``system.overlap_gather``) prefetches layer i+1's gather while layer i
+    computes where JAX's ``can_overlap`` allows it; without the plan (one
+    device, or no fsdp axis > 1) the plain loop runs, as in JAX."""
+    del scan_layers  # the same loop either way (see the docstring)
     wrap = remat_wrap(remat) if cache is None else None
     n_remat = int(round(args.num_layers * remat_ratio)) if wrap is not None else 0
     B, S = tokens.shape
     x = params["tok_embeddings"]["weight"].to(compute_dtype)[tokens.long()]
     positions = torch.arange(S, device=tokens.device) + start_pos
 
-    aux_total = torch.zeros((), device=tokens.device)
-    for i, layer in enumerate(params["layers"]):
-        if i < n_remat:
-            x, aux = wrap(_layer, layer, x, args, positions, compute_dtype, stats)
-        else:
-            x, aux = _layer(layer, x, args, positions, compute_dtype, stats,
-                            None if cache is None else cache[i], attend_len)
-        aux_total = aux_total + aux
+    plan = active_plan() if cache is None else None
+    if plan is not None:
+        x, aux_total = plan.run_layers(
+            params["layers"], x,
+            lambda layer, h: _layer(layer, h, args, positions, compute_dtype, stats),
+            wrap, n_remat, prefetch=overlap and plan.can_overlap(B))
+    else:
+        aux_total = torch.zeros((), device=tokens.device)
+        for i, layer in enumerate(params["layers"]):
+            if i < n_remat:
+                x, aux = wrap(_layer, layer, x, args, positions, compute_dtype, stats)
+            else:
+                x, aux = _layer(layer, x, args, positions, compute_dtype, stats,
+                                None if cache is None else cache[i], attend_len)
+            aux_total = aux_total + aux
     x = rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
     if return_hidden:
         return (x, cache, aux_total) if return_aux else (x, cache)
@@ -638,7 +647,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
     stats = [] if with_moe_stats and args.is_moe else None
     targets = batch["targets"]
     mask = batch["mask"].float()
-    count = mask.sum().clamp_min(1.0)
+    # a mesh train step passes the global batch's count: the ranks' losses
+    # then sum to the global mean
+    count = batch.get("global_count")
+    if count is None:
+        count = mask.sum().clamp_min(1.0)
     B, S = batch["inputs"].shape
     if ce_chunk < 0:
         ce_chunk = fused_ce.auto_chunk(B, S, args.vocab_size)

@@ -24,7 +24,8 @@ The router's load-balancing and z losses come back pre-scaled beside the
 output. Routing stats (``moe_load`` per expert, ``moe_dropped``) go to a list
 the caller passes in, where the JAX package uses a trace-time tap; they stay
 device tensors, so collecting them never waits on the device. The
-expert-parallel (``ep`` mesh) dispatch is not ported.
+expert-parallel (``ep`` mesh) dispatch is not ported (ROADMAP queue 1 item
+10b).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import grouped_matmul as gm
+from ..parallel.collectives import all_reduce_axes
+from ..parallel.context import current_mesh
 
 Params = Dict[str, Any]
 
@@ -95,6 +98,10 @@ def router_z_loss(router_logits: torch.Tensor) -> torch.Tensor:
     """Mean squared logsumexp of the router logits."""
     z = torch.logsumexp(router_logits, dim=-1)
     return (z * z).mean()
+
+
+def _data_ranks(mesh) -> int:
+    return mesh.axis_size("dp") * mesh.axis_size("fsdp")
 
 
 # -- quantized expert banks ------------------------------------------------------
@@ -273,10 +280,24 @@ def moe_block(p: Params, x: torch.Tensor, args,
     aux = torch.zeros((), device=x.device)
     aw = float(args.moe_aux_weight or 0.0)
     zw = float(args.router_z_weight or 0.0)
-    if aw:
-        aux = aux + aw * load_balancing_loss(probs, router_logits.argmax(-1), E)
-    if zw:
-        aux = aux + zw * router_z_loss(router_logits)
+    mesh = current_mesh()
+    if mesh is not None and _data_ranks(mesh) > 1:
+        # A mesh train step: the means are over the GLOBAL batch. f (no
+        # gradient) is summed over the ranks first; the rest is linear in
+        # this rank's rows, so the ranks' aux terms sum to the global one.
+        rows = B * S * _data_ranks(mesh)
+        if aw:
+            f = F.one_hot(router_logits.argmax(-1), E).float().sum(dim=(0, 1))
+            f = all_reduce_axes(f, mesh, ("dp", "fsdp")) / rows
+            aux = aux + aw * (E * (f * probs.sum(dim=(0, 1)) / rows).sum())
+        if zw:
+            z = torch.logsumexp(router_logits, dim=-1)
+            aux = aux + zw * ((z * z).sum() / rows)
+    else:
+        if aw:
+            aux = aux + aw * load_balancing_loss(probs, router_logits.argmax(-1), E)
+        if zw:
+            aux = aux + zw * router_z_loss(router_logits)
 
     if stats is not None:
         ids = gate_idx.reshape(-1)

@@ -22,15 +22,19 @@ from typing import Any, Dict, Optional
 
 
 class Logger:
-    def __init__(self, run_dir: str, config: Optional[Any] = None, quiet: bool = False):
+    def __init__(self, run_dir: str, config: Optional[Any] = None, quiet: bool = False,
+                 write_files: bool = True):
+        """``write_files=False`` (a rank other than the chief) writes no
+        ``log.txt``, TensorBoard or W&B: lines go to the console only,
+        unless ``quiet``."""
         self.run_dir = run_dir
         self.quiet = quiet
         self.log_path = os.path.join(run_dir, "log.txt")
         os.makedirs(run_dir, exist_ok=True)
-        self._file = open(self.log_path, "a", buffering=1)
+        self._file = open(self.log_path, "a", buffering=1) if write_files else None
         self._tb = None
         self._wandb = None
-        log_cfg = getattr(config, "logging", None)
+        log_cfg = getattr(config, "logging", None) if write_files else None
         if log_cfg is not None and getattr(log_cfg, "tensorboard", False):
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -56,12 +60,14 @@ class Logger:
         line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {message}"
         if not self.quiet:
             print(line, file=sys.stderr)
-        self._file.write(line + "\n")
+        if self._file is not None:
+            self._file.write(line + "\n")
 
     def _raw(self, line: str) -> None:
         if not self.quiet:
             print(line)
-        self._file.write(line + "\n")
+        if self._file is not None:
+            self._file.write(line + "\n")
 
     def log_metrics(self, step: int, metrics: Dict[str, Any]) -> None:
         order = ["loss", "ppl", "lr", "grad_norm", "tok/s", "toks"]
@@ -108,4 +114,5 @@ class Logger:
         if self._wandb is not None:
             self._wandb.finish()
             self._wandb = None
-        self._file.close()
+        if self._file is not None:
+            self._file.close()

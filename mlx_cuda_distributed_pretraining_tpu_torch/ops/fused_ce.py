@@ -13,7 +13,7 @@ and each chunk's dX is written once. The same math as the plain path;
 sums run in another order.
 
 ``fused_cross_entropy_sp`` (sequence-sharded, under a mesh) is not ported:
-ROADMAP queue 1 item 10.
+ROADMAP queue 1 item 10c (sequence parallelism).
 """
 
 from __future__ import annotations

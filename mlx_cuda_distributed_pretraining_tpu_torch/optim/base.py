@@ -18,6 +18,7 @@ step runs, which updates parameters and state tensors in place.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -28,10 +29,14 @@ from .schedules import Schedule
 
 class FusedTransform(NamedTuple):
     """``init(params) -> state``; ``fused_apply(grads, state, params) ->
-    (params, state)`` updates params and state in place."""
+    (params, state)`` updates params and state in place. ``elementwise``:
+    each element's update reads only that element of the gradient, the
+    parameter and the state (and the global gradient norm), so a mesh runs
+    it on local shards (``optim/sharded.py``)."""
 
     init: Callable[[Any], Any]
     fused_apply: Callable[[Any, Any, Any], tuple]
+    elementwise: bool = False
 
 
 class Transform(NamedTuple):
@@ -65,9 +70,26 @@ def map_with_path(fn, tree: Any, _path: tuple = ()) -> Any:
     return None if tree is None else fn(_path, tree)
 
 
+# A sharded update's norm (``optim/sharded.py``): the trees it hands the
+# update rule hold local shards, whose norm is a sum over the ranks.
+_NORM_OVERRIDE: list = []
+
+
+@contextlib.contextmanager
+def norm_override(fn: Callable[[Any], torch.Tensor]):
+    """Inside the block :func:`global_norm` is ``fn(tree)``."""
+    _NORM_OVERRIDE.append(fn)
+    try:
+        yield
+    finally:
+        _NORM_OVERRIDE.pop()
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, leaves in the JAX
     pytree order (``None`` leaves are not leaves there)."""
+    if _NORM_OVERRIDE:
+        return _NORM_OVERRIDE[-1](tree)
     total = None
     for _, x in leaves_with_path(tree):
         if x is None:

@@ -23,6 +23,13 @@ from .schedules import Schedule, build_schedule
 from .shampoo import shampoo
 
 
+# Update rules whose every element depends on that element alone (and the
+# global norm of the clip): a mesh runs them on local shards. Muon,
+# Adafactor, Shampoo and hybrid read whole matrices.
+ELEMENTWISE = frozenset(("adamw", "adamw_enhanced", "adam", "sgd", "sgd_enhanced",
+                         "lion", "lion_enhanced"))
+
+
 def _opt(training_cfg: Any, key: str, default=None):
     return (getattr(training_cfg, "optimization", None) or {}).get(key, default)
 
@@ -117,5 +124,6 @@ def build_optimizer(training_cfg: Any, total_steps: int, name: Optional[str] = N
     other chain through ``base.in_place``."""
     name = (name or training_cfg.optimizer_name).lower()
     schedule = schedule or build_schedule(training_cfg, total_steps)
-    return (_fused_adam(training_cfg, name, schedule)
-            or in_place(build_transform(training_cfg, total_steps, name, schedule)))
+    opt = (_fused_adam(training_cfg, name, schedule)
+           or in_place(build_transform(training_cfg, total_steps, name, schedule)))
+    return opt._replace(elementwise=name in ELEMENTWISE)

@@ -86,4 +86,4 @@ def fused_adamw(
         s_adam = dict(s_adam, count=count)
         return params, [s_clip, s_adam, s_wd, {"count": sched_count}]
 
-    return FusedTransform(init, fused_apply)
+    return FusedTransform(init, fused_apply, elementwise=True)

@@ -39,7 +39,7 @@ that adopts the chain (``adopt_kv``) recomputes the last prompt token
 and samples there.
 
 Not ported yet, and refused when a config sets one: a serving mesh of more
-than one device (ROADMAP queue 1 item 10).
+than one device (ROADMAP queue 1 item 10a: TP serving).
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ class EngineConfig:
         if self.mesh and any(int(n) != 1 for n in self.mesh.values()):
             raise NotImplementedError(
                 f"a serving mesh {self.mesh} is not ported (ROADMAP queue 1 "
-                "item 10: multi-GPU); the engine serves on one device")
+                "item 10a: TP serving); the engine serves on one device")
 
     @classmethod
     def from_yaml(cls, path: str) -> "EngineConfig":

@@ -42,7 +42,7 @@ first heartbeat, after the trainer has set up (on a fresh launch, wiped)
 the run dir.
 
 Not ported: several processes (``process_count > 1``: the multi-host
-generations, ROADMAP queue 1 item 10).
+generations, ROADMAP queue 1 item 10e).
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ class Supervisor:
         if int(process_count) > 1:
             raise NotImplementedError(
                 f"a supervisor over {process_count} processes is not ported "
-                "(ROADMAP queue 1 item 10: the multi-host supervisor)")
+                "(ROADMAP queue 1 item 10e: the multi-host supervisor)")
         self.build_cmd = build_cmd
         self.run_dir = run_dir
         self.max_crashes_per_step = int(max_crashes_per_step)

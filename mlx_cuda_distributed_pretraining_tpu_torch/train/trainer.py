@@ -1,10 +1,13 @@
-"""The single-device trainer, and loading a trained run for serving.
+"""The trainer, on one device or over the ranks of a mesh, and loading a
+trained run for serving.
 
     python -m mlx_cuda_distributed_pretraining_tpu_torch.train.trainer \\
         --config configs/model-config-40m-adamw.yaml [--device cpu] \\
         [--auto-resume [--hang-timeout-s 900]]
+    python -m mlx_cuda_distributed_pretraining_tpu_torch.parallel.launch \\
+        --nproc-per-node N --config cfg.yaml [trainer flags]
 
-:class:`Trainer` follows the JAX trainer on one device: seeded init, the
+:class:`Trainer` follows the JAX trainer: seeded init, the
 data loader (``data.streaming.build_data_manager``: the in-memory JSONL
 loader, streaming JSONL / WebDataset tar shards, synthetic documents, the
 HuggingFace hub stream, or pre-tokenized token shards, whose index gives
@@ -38,10 +41,8 @@ newest one that verifies) resumes a run in place, with
 ``resume.reset_optimizer``, ``resume.reset_training_state`` and
 ``resume.strict`` as in JAX. The saved data position is the one the step
 loop consumed (the prefetcher's), in the JAX package's keys, so a
-streaming run resumes exactly in either package (a checkpoint of several
-processes, with per-host data sidecars, raises: ROADMAP queue 1 item 10;
-a streaming loader refuses a position of another world size). SIGTERM or
-SIGINT saves a checkpoint
+streaming run resumes exactly in either package. SIGTERM or SIGINT saves a
+checkpoint
 at the next step boundary, after the writes in flight, and ends the run;
 a checkpoint write that failed raises out of :meth:`Trainer.train` once
 the save in hand is written.
@@ -76,9 +77,23 @@ attribute them (``prof_summary.json``, and ``prof_*`` fields in later
 line to a stats hub; TensorBoard and W&B through the logger.
 ``--auto-resume`` runs the trainer under ``train/supervisor.py``.
 
-Not ported (they raise, naming the ROADMAP item): a ``system.mesh`` or
-``model_parallel`` that needs more than one device (expert, data, tensor,
-sequence and pipeline parallelism).
+The mesh (``parallel/``), as the JAX trainer builds it: ``system.mesh`` over
+the ranks of the ``torch.distributed`` world (``parallel.launch``, one
+device a rank), or with no mesh a pure-dp one over every rank of a
+multi-rank world; one rank and no mesh is the one-device path. dp and fsdp
+train, with ZeRO-1 (``system.zero_optimization_level``) and fsdp's
+per-layer gather (``system.overlap_gather`` prefetches it): each rank holds
+its blocks of the state and serves its own rows (the in-memory loader keeps
+rows ``rank::world``; ``training.batch_size`` is per rank, the global batch
+the ranks' batches in rank order, as with JAX's processes). The chief (rank
+0) writes the run directory's logs, events, config and checkpoints (the
+full state, gathered: the files are the one-device layout, and load on any
+mesh); every rank of a mesh run writes its own data position,
+``step_<N>_data_p<i>.json``, and a resume on another world size remaps the
+positions (``data.streaming.remap_data_states``). The ranks agree on each
+step boundary's stop (a signal, a dry stream) through a gloo group on the
+host. A tp, ep, sp or pp axis above 1 raises, naming its ROADMAP item; so
+does the LR finder over several ranks.
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
@@ -104,6 +119,8 @@ from ..checkpoint.manager import (
     CheckpointIntegrityError,
     CheckpointManager,
     StaleBackgroundWriteError,
+    _atomic_json,
+    shard_arrays,
 )
 from ..checkpoint.safetensors_io import load_safetensors
 from ..config import Config, apply_overrides, read_config_dict
@@ -126,39 +143,87 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer
 from ..optim.factory import build_optimizer
 from ..optim.schedules import build_schedule, schedule_value
+from ..parallel.elastic import process_barrier
+from ..parallel.mesh import (
+    AXIS_ORDER,
+    build_mesh,
+    mesh_axis_sizes,
+    refuse_unported_axes,
+    world_rank,
+    world_size,
+)
 from ..tokenizer import TokenizerManager
 from ..utils.tree import tree_map
 from .early_stopping import EarlyStoppingMonitor
 from .lr_finder import run_lr_finder
-from .train_step import init_train_state, make_eval_step, make_loss_fn, make_train_step
+from .train_step import (
+    gather_state,
+    init_train_state,
+    make_eval_step,
+    make_loss_fn,
+    make_train_step,
+    shard_state,
+)
 
-MESH_AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")  # the JAX package's order
 
-
-def refuse_multi_device(system_cfg) -> None:
-    """Raise unless ``system.mesh`` (or the legacy ``model_parallel``) fits
-    one device: the fixed axes must multiply to 1, so that an axis of -1
-    (``dp: -1``) resolves to 1, as the JAX package's ``mesh_axis_sizes``
-    resolves it on one device."""
+def resolve_mesh(system_cfg, batch_size: int):
+    """The run's mesh, as the JAX trainer builds it: ``system.mesh`` (or the
+    legacy ``model_parallel``) over the ranks of the world; with none, a
+    pure-dp mesh over every rank of a multi-rank world (whose per-rank batch
+    it must divide, as JAX requires of its global batch); None for one rank
+    and no mesh. A tp, ep, sp or pp axis above 1 raises, naming its ROADMAP
+    item."""
     sizes = {k: int(v) for k, v in (system_cfg.mesh or {}).items()}
     if not sizes and system_cfg.model_parallel:
         sizes = {"dp": -1, "tp": max(1, int(system_cfg.model_parallel_size))}
-    unknown = set(sizes) - set(MESH_AXES)
+    unknown = set(sizes) - set(AXIS_ORDER)
     if unknown:
-        raise ValueError(f"unknown mesh axes {sorted(unknown)}; valid: {MESH_AXES}")
-    needed = int(np.prod([v for v in sizes.values() if v > 0]))
-    if needed > 1:
-        raise NotImplementedError(
-            f"system mesh {sizes} needs {needed} devices; the port trains on one "
-            "(ROADMAP queue 1 item 10: multi-GPU)")
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}; valid: {AXIS_ORDER}")
+    refuse_unported_axes(sizes)
+    world = world_size()
+    if not sizes:
+        if world == 1:
+            return None
+        if batch_size % world:
+            raise ValueError(f"training.batch_size {batch_size} does not divide over "
+                             f"{world} ranks for the implicit dp mesh")
+    refuse_unported_axes(mesh_axis_sizes(system_cfg, world))
+    return build_mesh(system_cfg)
+
+
+def kernel_launches() -> Dict[str, Any]:
+    """The hand-written kernels' launch counters of this process (since it
+    started, or the last ``reset_launches``), by kernel and by variant: a
+    run in a process of its own (``parallel.launch``) reports its kernels
+    in its ``run_end`` event."""
+    from ..ops import flash_attention as fa
+    from ..ops import grouped_matmul as gm
+
+    out: Dict[str, Any] = {n: getattr(gm, n).launches for n in ("gmm", "tgmm", "gmm_int8")}
+    for n in fa.FLASH_KERNELS:
+        out[n] = getattr(fa, n).launches
+        out[n + "_by_variant"] = dict(getattr(fa, n).launches_by_variant)
+    return out
+
+
+def _meta_like(tree: Any) -> Any:
+    """Full-shape ``meta`` stand-ins of a tensor tree (other leaves kept)."""
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta")
+                    if isinstance(x, torch.Tensor) else x, tree)
 
 
 def load_into(live: Any, loaded: Any) -> Any:
     """Copy a loaded tree into the live one in place: tensors keep their
-    device, dtype and ``requires_grad``; other leaves are replaced."""
+    device, dtype and ``requires_grad``; other leaves are replaced. A
+    ``meta`` leaf (a key the file lacked, under a mesh's full-shape
+    stand-ins) keeps the live value."""
+    def one(a, b):
+        if isinstance(b, torch.Tensor) and b.is_meta:
+            return a
+        return a.copy_(b) if isinstance(a, torch.Tensor) else b
+
     with torch.no_grad():
-        return tree_map(lambda a, b: a.copy_(b) if isinstance(a, torch.Tensor) else b,
-                        live, loaded)
+        return tree_map(one, live, loaded)
 
 
 def routing_line(window: List[Tuple[torch.Tensor, torch.Tensor]]
@@ -187,19 +252,29 @@ class Trainer:
             raise RuntimeError("Trainer runs on cuda by default and no CUDA "
                                "device is visible; pass device='cpu' to train "
                                "on the CPU")
-        refuse_multi_device(cfg.system)
+        self.mesh = resolve_mesh(cfg.system, cfg.training.batch_size)
+        self.rank, self.world = world_rank(), world_size()
+        self.is_chief = self.rank == 0
+        # the ranks' stop decisions travel on the host (a gloo group), so
+        # agreeing on one costs no device sync
+        self._ctrl_group = None
+        if self.world > 1:
+            import torch.distributed as dist
+
+            self._ctrl_group = dist.new_group(backend="gloo")
 
         # a step tag, 0 included: a --set override parses "0" as the number,
         # which JAX's bool() test reads as no resume at all
         tag = None if cfg.resume is None else cfg.resume.checkpoint
         resume = tag is not None and tag is not False and str(tag) != ""
+        self.run_dir = os.path.join(runs_root, cfg.name)
         if resume:  # continue in the run's own directory
-            self.run_dir = os.path.join(runs_root, cfg.name)
             os.makedirs(os.path.join(self.run_dir, "checkpoints"), exist_ok=True)
-        else:
-            self.run_dir = CheckpointManager.setup_run_directory(
-                runs_root, cfg.name, cfg.overwrite)
-        self.logger = Logger(self.run_dir, cfg, quiet=quiet)
+        elif self.is_chief:  # the chief's setup lands before any rank writes
+            CheckpointManager.setup_run_directory(runs_root, cfg.name, cfg.overwrite)
+        process_barrier("run_dir_setup")
+        self.logger = Logger(self.run_dir, cfg, quiet=quiet or not self.is_chief,
+                             write_files=self.is_chief)
         # One registry per Trainer: the checkpoint manager and the
         # prefetcher record into it, Prometheus and the stats hub read it.
         self.metrics = MetricsRegistry()
@@ -208,8 +283,10 @@ class Trainer:
             self.run_dir, keep_last=cfg.logging.keep_last,
             keep_every=cfg.logging.keep_every, notify=self.logger.log,
             metrics=self.metrics)
-        cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
-        self.tokenizer = TokenizerManager(cfg.data, run_dir=self.run_dir)
+        if self.is_chief:
+            cfg.to_yaml(os.path.join(self.run_dir, "config.yaml"))
+        self.tokenizer = TokenizerManager(cfg.data,
+                                          run_dir=self.run_dir if self.is_chief else None)
 
         # model.architecture as the JAX trainer resolves it: an unknown name
         # raises, llama_standard / llama_flash force the attention
@@ -248,7 +325,8 @@ class Trainer:
 
         self.data = build_data_manager(cfg, self.tokenizer, cfg.training.batch_size,
                                        seq_len=cfg.data.max_context_size,
-                                       seed=cfg.system.seed)
+                                       seed=cfg.system.seed, process_index=self.rank,
+                                       process_count=self.world)
         # the position the step loop consumed, once train() runs
         self.prefetcher: Optional[DevicePrefetcher] = None
         if cfg.training.iters:
@@ -261,12 +339,13 @@ class Trainer:
         self.optimizer = build_optimizer(cfg.training, max(self.total_steps, 1),
                                          schedule=self.schedule)
         self.accum_steps = cfg.training.gradient_accumulation_steps
-        self.train_step = make_train_step(
-            loss_fn, self.optimizer, accum_steps=self.accum_steps,
-            log_grad_norm=cfg.logging.log_gradient_norm,
-            moe_stats_experts=self.moe_stats_experts)
-        self.eval_step = make_eval_step(eval_loss_fn)
-        self.state = init_train_state(params, self.optimizer)
+        self.zero_level = int(cfg.system.zero_optimization_level or 0)
+        # the full shapes, for the mesh's layout and the checkpoint loads
+        self._params_like = _meta_like(params)
+        self.train_step = self._build_train_step()
+        self.eval_step = make_eval_step(eval_loss_fn, mesh=self.mesh,
+                                        params_like=self._params_like)
+        self.state = self._init_state(params)
 
         self.early_stopping = EarlyStoppingMonitor.from_config(cfg.training)
         self.start_step = 0
@@ -278,9 +357,44 @@ class Trainer:
             cfg.model, self.n_params, cfg.data.max_context_size)
         self.peak_flops = (peak_flops_per_chip(torch.cuda.get_device_name(self.device))
                            if self.device.type == "cuda" else None)
+        if self.mesh is not None:
+            self.logger.log(f"mesh {self.mesh.shape} over {self.world} rank(s); "
+                            f"zero_optimization_level {self.zero_level}")
         self._init_telemetry()
         if resume:
             self._resume()
+
+    def _build_train_step(self):
+        return make_train_step(
+            self.loss_fn, self.optimizer, accum_steps=self.accum_steps,
+            log_grad_norm=self.config.logging.log_gradient_norm,
+            moe_stats_experts=self.moe_stats_experts, mesh=self.mesh,
+            zero_level=self.zero_level, params_like=self._params_like)
+
+    def _init_state(self, params):
+        """The train state of full ``params`` (this rank's blocks of it
+        under a mesh)."""
+        state = init_train_state(params, self.optimizer)
+        if self.mesh is None:
+            return state
+        return shard_state(state, self.train_step.shardings, self.mesh)
+
+    def _full_state(self):
+        """The full params and optimizer state (gathered from every rank's
+        blocks under a mesh: a collective all ranks run)."""
+        if self.mesh is None:
+            return self.state
+        return gather_state(self.state, self.train_step.shardings, self.mesh)
+
+    def _agree(self, *flags: bool) -> List[bool]:
+        """Each flag OR-ed over the ranks (the flags themselves on one)."""
+        if self._ctrl_group is None:
+            return [bool(f) for f in flags]
+        import torch.distributed as dist
+
+        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._ctrl_group)
+        return [bool(v) for v in t.tolist()]
 
     def _init_telemetry(self) -> None:
         """The registry's metrics, the goodput ledger, the span tracer, the
@@ -295,13 +409,13 @@ class Trainer:
             from ..obs.stats_client import StatsClient
 
             self.stats_client = StatsClient(cfg.logging.stats_url,
-                                            worker_id=f"{cfg.name}-p0").start()
+                                            worker_id=f"{cfg.name}-p{self.rank}").start()
             self.stats_client.register({"devices": 1})
         self.goodput = GoodputLedger()
         # Each goodput booking is mirrored by a span of the same duration,
         # so a window's span sums reconcile with its ledger fields.
         tcfg = dict(cfg.logging.trace or {})
-        self.tracer = Tracer("trainer-p0", capacity=int(tcfg.get("capacity", 65536)),
+        self.tracer = Tracer(f"trainer-p{self.rank}", capacity=int(tcfg.get("capacity", 65536)),
                              sample=float(tcfg.get("sample", 1.0)),
                              enabled=bool(tcfg.get("enabled", False)))
         self._trace_capture_steps = int(tcfg.get("capture_steps", 20))
@@ -309,10 +423,12 @@ class Trainer:
         self._trace_until = 0    # the on-demand window's end step (exclusive)
         self._trace_owns_prof = False
         self._trace_prev_enabled = self.tracer.enabled
+        # a rank other than the chief profiles into files of its own
+        suffix = "" if self.is_chief else f"_p{self.rank}"
         self.profiler = ProfileCapture(
-            os.path.join(self.run_dir, "profile"), log=self.logger.log,
+            os.path.join(self.run_dir, "profile" + suffix), log=self.logger.log,
             sync=self._sync, analytic_fn=self._prof_analytic,
-            summary_path=os.path.join(self.run_dir, "prof_summary.json"),
+            summary_path=os.path.join(self.run_dir, f"prof_summary{suffix}.json"),
             report=cfg.logging.profile_report_enabled,
             top_k=cfg.logging.profile_report_top_k,
             cuda=self.device.type == "cuda")
@@ -320,13 +436,17 @@ class Trainer:
         self._prof_fields: Dict[str, float] = {}
         self._compiled = False  # the first step books into compile_s
         self._metrics_server = None
-        replayed = replay_into(self.metrics, events_path(self.run_dir))
-        if replayed:
-            self.logger.log(f"telemetry: registry rebuilt from {replayed} events "
-                            f"in {events_path(self.run_dir)}")
-        self.events: Optional[EventLog] = EventLog(
-            events_path(self.run_dir), max_bytes=cfg.logging.events_max_bytes)
-        self._hb_path = heartbeat_path(self.run_dir)
+        # events.jsonl is the chief's (one file a run); every rank beats its
+        # own heartbeat (heartbeat_p<i>.json past rank 0)
+        self.events: Optional[EventLog] = None
+        if self.is_chief:
+            replayed = replay_into(self.metrics, events_path(self.run_dir))
+            if replayed:
+                self.logger.log(f"telemetry: registry rebuilt from {replayed} events "
+                                f"in {events_path(self.run_dir)}")
+            self.events = EventLog(events_path(self.run_dir),
+                                   max_bytes=cfg.logging.events_max_bytes)
+        self._hb_path = heartbeat_path(self.run_dir, self.rank)
         self._hb_step = self.start_step
         m = self.metrics
         self._m_steps = m.counter(
@@ -380,7 +500,7 @@ class Trainer:
         if step is not None:
             self._hb_step = int(step)
         try:
-            write_heartbeat(self._hb_path, self._hb_step, process_index=0)
+            write_heartbeat(self._hb_path, self._hb_step, process_index=self.rank)
         except OSError:
             pass  # the heartbeat is advisory; never kill training over it
 
@@ -488,12 +608,25 @@ class Trainer:
         self._touch_heartbeat()
 
     def _save_checkpoint_inner(self, step, blocking: bool) -> None:
+        # Under a mesh every rank takes part in gathering the full state;
+        # then each rank writes its own data position (a sidecar), and the
+        # chief, once every sidecar is on disk, writes the step (its
+        # manifest lists the sidecars).
+        full = self._full_state()
+        if self.mesh is not None:
+            os.makedirs(self.checkpoints.checkpoint_dir, exist_ok=True)
+            _atomic_json(os.path.join(self.checkpoints.checkpoint_dir,
+                                      f"step_{step}_data_p{self.rank}.json"),
+                         self._data_state())
+            process_barrier(f"checkpoint_{step}_sidecars")
+        if not self.is_chief:
+            return
         training_state = {"step": int(self.state["step"]),
                           "total_tokens": int(self.total_tokens),
                           **self._data_state(),
                           "validation": self.val_history,
                           "early_stopping": self.early_stopping.state_dict()}
-        self.checkpoints.save(step, self.state["params"], self.state["opt_state"],
+        self.checkpoints.save(step, full["params"], full["opt_state"],
                               training_state,
                               metadata_extra={"total_tokens": int(self.total_tokens)},
                               blocking=blocking)
@@ -554,23 +687,71 @@ class Trainer:
         self.checkpoints.quarantine_step(tag, reason)
         return self.checkpoints.latest_complete_step()
 
+    def _resume_data_state(self, tag, tstate: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's data position (the JAX trainer's rules): on the world
+        size that wrote it, its own sidecar (or the chief's training state of
+        a one-rank run); on another, every old rank's position through
+        ``data.streaming.remap_data_states``, so the new world skips and
+        replays no document."""
+        from ..data.streaming import remap_data_states
+
+        pindex, pcount = self.rank, self.world
+        sidecars = self.checkpoints.data_sidecar_states(tag)
+        if sidecars:
+            old_world = len(sidecars)
+            if old_world == pcount and pindex in sidecars:
+                return sidecars[pindex]
+            remapped = remap_data_states([sidecars[i] for i in sorted(sidecars)],
+                                         pindex, pcount)
+            self.logger.log(f"elastic: remapped data position from a {old_world}-host "
+                            f"snapshot to {pcount} host(s); this is process {pindex}")
+            return remapped
+        old_world = int(tstate.get("process_count", 1) or 1)
+        if old_world == pcount:
+            return tstate
+        snap = {k: tstate[k] for k in ("docs_consumed", "buf", "source", "hf")
+                if k in tstate}
+        snap["process_count"] = old_world
+        snap["process_index"] = int(tstate.get("process_index", 0) or 0)
+        remapped = remap_data_states([snap], pindex, pcount)
+        self.logger.log(f"elastic: remapped data position from a {old_world}-host "
+                        f"snapshot to {pcount} host(s); this is process {pindex}")
+        return remapped
+
     def _resume(self) -> None:
         """Load ``resume.checkpoint`` into the live state in place (params,
         optimizer state unless ``reset_optimizer``, and unless
         ``reset_training_state`` the step, token count, validation history,
-        data position and early-stopping state)."""
+        data position and early-stopping state). Under a mesh the chief
+        picks the step (quarantining what fails), every rank reads the full
+        files and keeps its blocks, whatever world size wrote them."""
         rc = self.config.resume
-        tag = self._resolve_resume_tag()
+        tag = self._resolve_resume_tag() if self.is_chief else None
+        if self._ctrl_group is not None:
+            import torch.distributed as dist
+
+            box = [tag]
+            dist.broadcast_object_list(box, src=0, group=self._ctrl_group)
+            tag = box[0]
         if tag is None:
             self.logger.log("WARNING: no resumable checkpoint found; starting from scratch")
             return
         # The resume source survives retention GC for the whole run: until a
         # new checkpoint lands it is the only good state.
         self.checkpoints.protect_steps.add(str(tag))
+        if self.mesh is None:
+            like_p, like_o = self.state["params"], self.state["opt_state"]
+        else:  # full-shape stand-ins; the loaded tensors are cut to this rank's blocks
+            like_p = self._params_like
+            like_o = self.optimizer.init(self._params_like)
         params, opt_state, tstate = self.checkpoints.load(
-            tag, like_params=self.state["params"],
-            like_opt_state=None if rc.reset_optimizer else self.state["opt_state"],
+            tag, like_params=like_p, like_opt_state=None if rc.reset_optimizer else like_o,
             strict=bool(rc.strict))
+        if self.mesh is not None:
+            specs = self.train_step.shardings
+            params = shard_arrays(params, specs["params"], self.mesh)
+            if opt_state is not None:
+                opt_state = shard_arrays(opt_state, specs["opt_state"], self.mesh)
         load_into(self.state["params"], params)
         if opt_state is not None:
             self.state["opt_state"] = load_into(self.state["opt_state"], opt_state)
@@ -583,11 +764,7 @@ class Trainer:
             self.state["step"] = self.start_step
             self.total_tokens = int(tstate.get("total_tokens", 0))
             self.val_history = tstate.get("validation", self.val_history)
-            if self.checkpoints.data_sidecar_states(tag):
-                raise NotImplementedError(
-                    f"checkpoint {tag} holds per-host data positions; reading them "
-                    "is not ported (ROADMAP queue 1 item 10: multi-GPU)")
-            self.data.load_state_dict(tstate)
+            self.data.load_state_dict(self._resume_data_state(tag, tstate))
             self.early_stopping.load_state_dict(tstate.get("early_stopping", {}))
         self.logger.log(f"Resumed from checkpoint {tag} at step {self.start_step}")
         if self.events is not None:
@@ -602,8 +779,11 @@ class Trainer:
 
         prompts = prompts or ["Once upon a time"]
         count = int(self.config.logging.log_samples_count or 1)
+        full = self._full_state()["params"]  # every rank gathers; the chief samples
+        if not self.is_chief:
+            return
         with torch.no_grad():
-            params = tree_map(lambda t: t.detach().float().clone(), self.state["params"])
+            params = tree_map(lambda t: t.detach().float().clone(), full)
         for prompt in prompts[:count]:
             try:
                 text = generate_text(params, self.model_args, self.tokenizer, prompt,
@@ -623,6 +803,10 @@ class Trainer:
         lf = dict(getattr(self.config.training, "_extras", {}).get("lr_finder") or {})
         if not lf.get("enabled") or self.start_step > 0:
             return None
+        if self.world > 1:
+            raise NotImplementedError(
+                "training.lr_finder sweeps on one rank; over several it is not "
+                "ported (ROADMAP queue 1 item 10f)")
         self.logger.log("Running LR finder sweep")
         suggested, _, _ = run_lr_finder(
             self.state["params"], self.loss_fn,
@@ -635,11 +819,8 @@ class Trainer:
         self.schedule = build_schedule(cfg.training, max(self.total_steps, 1))
         self.optimizer = build_optimizer(cfg.training, max(self.total_steps, 1),
                                          schedule=self.schedule)
-        self.train_step = make_train_step(
-            self.loss_fn, self.optimizer, accum_steps=self.accum_steps,
-            log_grad_norm=cfg.logging.log_gradient_norm,
-            moe_stats_experts=self.moe_stats_experts)
-        self.state = init_train_state(self.state["params"], self.optimizer)
+        self.train_step = self._build_train_step()
+        self.state = self._init_state(self._full_state()["params"])
         return suggested
 
     # -- the loop ------------------------------------------------------------
@@ -651,7 +832,7 @@ class Trainer:
             self.events.append(
                 "run_start", name=cfg.name, total_steps=self.total_steps,
                 n_params=self.n_params, flops_per_token=self.flops_per_token,
-                peak_flops=self.peak_flops, n_chips=1, device=str(self.device))
+                peak_flops=self.peak_flops, n_chips=self.world, device=str(self.device))
         self.maybe_run_lr_finder()
         log_int = max(1, cfg.logging.logging_interval)
         ckpt_int = cfg.logging.checkpoint_interval
@@ -684,15 +865,15 @@ class Trainer:
         self.prefetcher = DevicePrefetcher(
             self.data, device=self.device, depth=int(cfg.data.prefetch_depth),
             start_step=self.start_step, total_steps=self.total_steps,
-            metrics=self.metrics)
+            mesh=self.mesh, metrics=self.metrics)
         # The Prometheus exposition stays up after train() returns (a
         # daemon thread), so a late scrape sees the final counters.
         if cfg.logging.metrics_port and self._metrics_server is None:
             from ..obs.prometheus import start_metrics_server
 
-            port = int(cfg.logging.metrics_port)
+            port = int(cfg.logging.metrics_port) + self.rank  # one port a rank
             self._metrics_server = start_metrics_server(self.metrics, port,
-                                                        process_index=0)
+                                                        process_index=self.rank)
             self.logger.log(
                 f"telemetry: serving Prometheus metrics on :{port}/metrics"
                 if self._metrics_server is not None else
@@ -737,9 +918,15 @@ class Trainer:
                 self._on_demand_capture(step)
                 try:
                     batch, step_tokens, waits = self.prefetcher.get()
+                    dry = False
                 except StopIteration:  # a finite stream ran dry
+                    dry = True
+                if self.world > 1:  # one rank's dry stream stops them all
+                    dry = self._agree(dry)[0]
+                if dry:
                     self.logger.log(f"Data stream exhausted before step {step}; stopping")
                     break
+                step_tokens *= self.world  # every rank trains as many rows
                 window_tokens += step_tokens
                 self.total_tokens += step_tokens
                 for k in window_waits:
@@ -795,6 +982,8 @@ class Trainer:
                 saved = bool(ckpt_int and step % ckpt_int == 0)
                 if saved:  # interval saves overlap the disk write with training
                     self.save_checkpoint(step, blocking=not cfg.system.async_checkpointing)
+                if self.world > 1:  # a signal to any rank stops every rank here
+                    self.preempted = self._agree(self.preempted)[0]
                 if self.preempted:
                     self.logger.log(f"Preemption signal received: saving checkpoint at "
                                     f"step {step} and exiting")
@@ -846,7 +1035,10 @@ class Trainer:
             self.events.append(
                 "run_end", step=step, total_tokens=int(self.total_tokens),
                 final_loss=last_loss, goodput_totals={
-                    k: round(v, 4) for k, v in self.goodput.totals().items()})
+                    k: round(v, 4) for k, v in self.goodput.totals().items()},
+                kernel_launches=kernel_launches(),
+                peak_device_mem_gb=(torch.cuda.max_memory_allocated(self.device) / 1e9
+                                    if self.device.type == "cuda" else None))
             self.events.close()
             self.events = None
         self.logger.log("Training complete")
@@ -861,7 +1053,7 @@ class Trainer:
         ``step_window`` event, the stats hub, the tracer's marker and the
         heartbeat: one place, so they move in lockstep."""
         tok_s = window_tokens / elapsed
-        mfu_val = compute_mfu(tok_s, self.flops_per_token, self.peak_flops, 1)
+        mfu_val = compute_mfu(tok_s, self.flops_per_token, self.peak_flops, self.world)
         line = {"loss": loss, "ppl": float(math.exp(min(loss, 30.0))),
                 "lr": schedule_value(self.schedule, step),
                 "tok/s": tok_s, "toks": int(window_tokens),
@@ -901,6 +1093,8 @@ class Trainer:
             ev = dict(step=step, steps=window_steps, toks=int(window_tokens),
                       loss=round(loss, 6), tok_s=round(tok_s, 2), mfu=mfu_val,
                       goodput={k: round(v, 6) for k, v in gp.items()})
+            if "grad_norm" in line:
+                ev["grad_norm"] = line["grad_norm"]
             ev.update(self._prof_fields)
             self.events.append("step_window", **ev)
         if self.tracer.enabled:
@@ -1029,8 +1223,18 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--alerts-config", default=None,
                         help="alerts.yaml for the --scope sidecar (default: "
                              "configs/alerts.yaml when present)")
-    parser.add_argument("--num-processes", type=int, default=None,
-                        help="processes of a multi-host run (the port runs one)")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of rank 0's rendezvous store (or "
+                             "system.distributed.coordinator_address, or "
+                             "torchrun's MASTER_ADDR/MASTER_PORT)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--rendezvous-timeout-s", type=float, default=None,
+                        help="overall rendezvous deadline; retries with backoff "
+                             "inside it (default 120, or config "
+                             "system.distributed.rendezvous_timeout_s)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="default: nccl on cuda, gloo on cpu")
     return parser
 
 
@@ -1040,12 +1244,27 @@ def main(argv=None) -> Dict[str, Any]:
         from .supervisor import supervise_from_args
 
         return supervise_from_args(args)
-    if (args.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "a multi-process run is not ported (ROADMAP queue 1 item 10: multi-GPU)")
     raw = read_config_dict(args.config)
-    trainer = Trainer(Config.from_dict(apply_overrides(raw, collect_overrides(args))),
-                      runs_root=args.runs_root, device=args.device)
+    cfg = Config.from_dict(apply_overrides(raw, collect_overrides(args)))
+    # The rendezvous comes before the Trainer touches a device. An explicit
+    # coordinator that does not answer raises: never N solo runs in one dir.
+    dist_cfg = dict(getattr(cfg.system, "_extras", {}).get("distributed") or {})
+    coordinator = args.coordinator or dist_cfg.get("coordinator_address")
+    num_processes = (args.num_processes if args.num_processes is not None
+                     else dist_cfg.get("num_processes"))
+    if coordinator or os.environ.get("MASTER_ADDR"):
+        from ..parallel.launch import initialize_distributed
+
+        timeout = (args.rendezvous_timeout_s if args.rendezvous_timeout_s is not None
+                   else float(dist_cfg.get("rendezvous_timeout_s") or 120.0))
+        initialize_distributed(coordinator, num_processes, args.process_id,
+                               rendezvous_timeout_s=timeout, backend=args.backend,
+                               device=torch.device(args.device).type)
+    elif (num_processes or 1) > world_size():
+        raise ValueError(f"--num-processes {num_processes} needs a rendezvous: pass "
+                         "--coordinator (or start the ranks with parallel.launch "
+                         "or torchrun)")
+    trainer = Trainer(cfg, runs_root=args.runs_root, device=args.device)
     return trainer.train()
 
 

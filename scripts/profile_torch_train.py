@@ -2,9 +2,11 @@
 """Where a training step's time goes in the torch port, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_train.py
-        [--config 40m-adamw|40m-adamw-fp32|moe-8x40m|moe-8x40m-int8|1b-singlechip|100m-muon|
-                  1m-adamw|1m-flex|80m-fineweb]
+        [--config 40m-adamw|40m-adamw-fp32|moe-8x40m|moe-8x40m-int8|1b-singlechip|1b-fsdp|
+                  100m-muon|1m-adamw|1m-flex|80m-fineweb]
         [--steps 10] [--per-leaf-ns] [--root DIR] [--out profile.json]
+    python -m mlx_cuda_distributed_pretraining_tpu_torch.parallel.launch \\
+        --nproc-per-node 1 --script scripts/profile_torch_train.py -- --config 1b-fsdp
 
 Builds configs/model-config-40m-adamw.yaml (the default),
 configs/model-config-moe-8x40m.yaml, configs/model-config-1b-singlechip.yaml,
@@ -18,7 +20,14 @@ with its router losses, on one GPU, without its expert-parallel mesh
 hidden 2048, intermediate 5632, 16 layers, 16 heads of 128, 2048
 positions, batch 8, flash attention, remat "full" on the first half of the
 layers (the default ``gradient_checkpointing_ratio`` 0.5), Adafactor with
-update clipping 1.0 and gradient clip 1.0. 100m-muon: hidden 768,
+update clipping 1.0 and gradient clip 1.0. 1b-fsdp
+(configs/model-config-1b-fsdp.yaml): the same widths at batch 32, remat
+"save_attn" on the first half of the layers, AdamW (betas 0.9/0.95, weight
+decay 0.1, clip 1.0), ZeRO-1 and ``overlap_gather`` over its ``{fsdp: -1}``
+mesh: started through ``parallel.launch`` (as above) the step is the
+mesh train step over the launcher's ranks, and the profile splits out the
+collectives (NCCL's all-gathers, reduce-scatters and all-reduces); with
+one rank every axis is 1 and nothing is communicated. 100m-muon: hidden 768,
 intermediate 2048, 12 layers, 12 heads of 64, 1024 positions, batch 32,
 flash attention, Muon with Nesterov, 5 Newton-Schulz steps and AdamW at
 0.015 x the LR for the vectors; ``--per-leaf-ns`` orthogonalizes each
@@ -188,7 +197,23 @@ CONFIG_80M_FINEWEB = {
                  "optimization": {"optimizer": "muon", "adamw_lr_ratio": 0.02}},
     "system": {"seed": 42, "mixed_precision": True},
 }
+# configs/model-config-1b-fsdp.yaml, the sections the step reads.
+CONFIG_1B_FSDP = {
+    "name": "1b-fsdp",
+    "data": {"preprocessing": {"max_context_size": 2048}},
+    "model": {**CONFIG_1B["model"], "remat_policy": "save_attn"},
+    "training": {"hyperparameters": {"batch_size": 32, "learning_rate": 3.0e-4,
+                                     "weight_decay": 0.1, "gradient_clip": 1.0,
+                                     "iters": 20000},
+                 "scheduler": {"type": "cosine_with_warmup", "warmup_steps": 2000,
+                               "min_lr_ratio": 0.1},
+                 "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
+    "system": {"seed": 42, "mixed_precision": True, "gradient_checkpointing": True,
+               "remat": "dots", "zero_optimization_level": 1, "mesh": {"fsdp": -1},
+               "scan_layers": True, "overlap_gather": True},
+}
 CONFIGS = {"40m-adamw": CONFIG_40M, "moe-8x40m": CONFIG_MOE, "1b-singlechip": CONFIG_1B,
+           "1b-fsdp": CONFIG_1B_FSDP,
            "moe-8x40m-int8": {**CONFIG_MOE, "name": "moe-8x40m-int8", "model": {
                **CONFIG_MOE["model"], "matmul_precision": "int8"}},
            "40m-adamw-fp32": {**CONFIG_40M, "name": "40m-adamw-fp32",
@@ -203,6 +228,10 @@ def family(name: str) -> str:
     if kernel:
         return kernel.group(0)
     n = name.lower()
+    if "nccl" in n:  # the mesh's collectives, by kind
+        kind = next((k for k in ("AllGather", "ReduceScatter", "AllReduce") if k in name),
+                    "other")
+        return f"collectives: {kind}"
     if "copy" in n and "signed char" in n:  # the int8 path's casts to int8 and weight transposes
         return "int8 casts and copies (quantizers, gmm_int8's transposed weights)"
     if any(k in n for k in ("gemm", "nvjet", "sm90", "cutlass", "xmma")):
@@ -215,7 +244,11 @@ def family(name: str) -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", choices=sorted(CONFIGS), default="40m-adamw")
-    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--steps", type=int, default=10,
+                   help="timed and profiled steps; 0: step 1 alone (its loss and "
+                        "gradient norm, to hold one mesh against another)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut the config's depth to this many layers")
     p.add_argument("--per-leaf-ns", action="store_true",
                    help="Muon: orthogonalize each matrix alone (the JAX order)")
     p.add_argument("--root", default=HERE,
@@ -230,10 +263,15 @@ def main(argv=None) -> int:
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import flash_attention as fa
     from mlx_cuda_distributed_pretraining_tpu_torch.ops import grouped_matmul as gm
     from mlx_cuda_distributed_pretraining_tpu_torch.optim.factory import build_optimizer
+    from mlx_cuda_distributed_pretraining_tpu_torch.optim.sharded import make_sharded_apply
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.mesh import build_mesh, world_size
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.overlap import use_plan
     from mlx_cuda_distributed_pretraining_tpu_torch.train.train_step import (
         init_train_state,
+        local_rows,
         make_loss_fn,
         make_train_step,
+        shard_state,
     )
     from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import (
         leaves_with_path,
@@ -255,7 +293,12 @@ def main(argv=None) -> int:
         batched = muon.orthogonalize
         muon.orthogonalize = lambda tree, steps=5: tree_map(
             lambda m: None if m is None else batched({"m": m}, steps)["m"], tree)
-    cfg = Config.from_dict(CONFIGS[a.config])
+    cfg_dict = CONFIGS[a.config]
+    if a.layers:
+        model = dict(cfg_dict["model"])
+        model["dimensions"] = dict(model["dimensions"], num_layers=a.layers)
+        cfg_dict = dict(cfg_dict, model=model)
+    cfg = Config.from_dict(cfg_dict)
     args = llama.LlamaArgs.from_config(cfg.model, VOCAB)
     params = llama.init_params(args, torch.Generator().manual_seed(42), device="cuda")
     optimizer = build_optimizer(cfg.training, cfg.training.iters)
@@ -263,20 +306,48 @@ def main(argv=None) -> int:
 
     experts = args.num_local_experts if args.is_moe else 0
     seq = cfg.data.max_context_size
-    loss_fn = make_loss_fn(args, dtype, remat=cfg.system.remat,
+    remat = cfg.model.remat_policy or cfg.system.remat or (
+        "full" if cfg.system.gradient_checkpointing else None)
+    loss_fn = make_loss_fn(args, dtype, remat=remat,
                            remat_ratio=cfg.system.gradient_checkpointing_ratio,
                            ce_chunk=cfg.system.fused_ce_chunk,
+                           overlap=bool(cfg.system.overlap_gather),
                            with_moe_stats=bool(experts))
 
-    step_fn = make_train_step(loss_fn, optimizer, moe_stats_experts=experts)
+    # a config with a mesh runs the mesh train step over the launcher's ranks
+    mesh = build_mesh(cfg.system) if cfg.system.mesh else None
+    zero = int(cfg.system.zero_optimization_level or 0)
+    like = tree_map(lambda q: torch.empty(q.shape, device="meta"), params)
+    step_fn = make_train_step(loss_fn, optimizer, moe_stats_experts=experts, mesh=mesh,
+                              zero_level=zero, params_like=like, log_grad_norm=True)
     state = init_train_state(params, optimizer)
+    apply = optimizer.fused_apply
+    if mesh is not None:
+        state = shard_state(state, step_fn.shardings, mesh)
+        apply = make_sharded_apply(optimizer, mesh, step_fn.shardings, like, zero)
+        del params
     g = torch.Generator().manual_seed(0)
     rows = torch.randint(0, 256, (cfg.training.batch_size, seq + 1), generator=g)
     batch = {"inputs": rows[:, :-1].cuda(), "targets": rows[:, 1:].cuda(),
-             "mask": torch.ones(cfg.training.batch_size, seq, device="cuda")}
-    for _ in range(3):  # warm: cuBLAS handles, the kernels' library, plans
-        state, _ = step_fn(state, batch)
+             "mask": torch.ones(rows.shape[0], seq, device="cuda")}
+    if mesh is not None:  # this rank's rows of the global batch
+        batch = {k: v.contiguous() for k, v in local_rows(batch, mesh).items()}
+    first = None
+    for _ in range(3 if a.steps else 1):  # warm: cuBLAS handles, the kernels' library
+        state, metrics = step_fn(state, batch)
+        if first is None:  # step 1 from the seeded weights, for parity across meshes
+            first = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
     torch.cuda.synchronize()
+    if not a.steps:
+        out = {"card": card, "config": a.config, "layers": args.num_layers,
+               "mesh": None if mesh is None else dict(mesh.shape), "ranks": world_size(),
+               "first_step": first}
+        if mesh is None or mesh.rank == 0:
+            print(json.dumps(out))
+            if a.out:
+                with open(a.out, "w") as f:
+                    json.dump(out, f)
+        return 0
 
     t0 = time.perf_counter()
     for _ in range(a.steps):
@@ -284,14 +355,17 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / a.steps
 
-    # The same step cut into phases, each ended by a synchronise.
+    # The same step cut into phases, each ended by a synchronise (one rank:
+    # over several, the gradients' reduction sits between the backward and
+    # the update, and the phases are not split).
     phases = {"forward_and_loss": 0.0, "backward": 0.0, "optimizer": 0.0}
     leaves = [q for _, q in leaves_with_path(state["params"])]
-    for _ in range(a.steps):
+    for _ in range(a.steps if world_size() == 1 else 0):
         for q in leaves:
             q.grad = None
         t = time.perf_counter()
-        loss = loss_fn(state["params"], batch)[0]
+        with use_plan(getattr(step_fn, "plan", None)):
+            loss = loss_fn(state["params"], batch)[0]
         torch.cuda.synchronize()
         phases["forward_and_loss"] += time.perf_counter() - t
         t = time.perf_counter()
@@ -299,7 +373,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         phases["backward"] += time.perf_counter() - t
         t = time.perf_counter()
-        state["params"], state["opt_state"] = optimizer.fused_apply(
+        state["params"], state["opt_state"] = apply(
             tree_map(lambda q: q.grad, state["params"]), state["opt_state"],
             state["params"])
         torch.cuda.synchronize()
@@ -335,14 +409,19 @@ def main(argv=None) -> int:
         "root": os.path.dirname(os.path.dirname(os.path.dirname(llama.__file__))),
         "config": f"{a.config}, B {cfg.training.batch_size}, S {seq}, "
                   f"{'bf16 over fp32' if dtype == torch.bfloat16 else 'fp32'}, "
-                  f"{args.attention_type} attention, remat {cfg.system.remat}, "
+                  f"{args.attention_type} attention, remat {remat}, "
                   f"{cfg.training.optimizer_name}"
                   + (" (NS per leaf)" if a.per_leaf_ns else ""),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "params": llama.num_params(state["params"]),
+        "params": llama.num_params(like),
+        "mesh": None if mesh is None else dict(mesh.shape),
+        "ranks": world_size(),
+        "zero_optimization_level": zero,
         "step_ms": step_ms,
         "tok_s": tokens * 1e3 / step_ms,
-        "phase_ms": {k: v * 1e3 / a.steps for k, v in phases.items()},
+        "phase_ms": ({k: v * 1e3 / a.steps for k, v in phases.items()}
+                     if world_size() == 1 else None),
+        "first_step": first,
         "profiled_step_wall_ms": prof_wall_ms / a.steps,
         "profiled_step_device_ms": device_ms / a.steps,
         "device_idle_share": 1.0 - device_ms / prof_wall_ms,
@@ -364,7 +443,12 @@ def main(argv=None) -> int:
             for n, v in top],
         "last_loss": float(metrics["loss"]),
     }
+    # 6N FLOPs a token (attention's share and the remat recompute left out)
+    out["mfu_6n_vs_989tflops"] = (out["tok_s"] * 6 * out["params"] / 989e12
+                                  if dtype == torch.bfloat16 else None)
     text = json.dumps(out, indent=1)
+    if mesh is not None and mesh.rank != 0:
+        return 0  # the chief reports
     print(text)
     if a.out:
         os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)

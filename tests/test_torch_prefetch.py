@@ -152,8 +152,15 @@ def test_stop_joins_the_worker():
 
 
 def test_a_mesh_and_other_devices_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        DevicePrefetcher(FakeLoader(), mesh=object())
+    # A mesh is accepted now (each rank's loader serves its own rows; the
+    # state carries the rank and world size); other devices still raise.
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.mesh import abstract_mesh
+
+    pf = DevicePrefetcher(FakeLoader(), mesh=abstract_mesh({"dp": 2}, rank=1),
+                          depth=0, total_steps=3)
+    batch, _, _ = pf.get()
+    assert int(batch["inputs"][0, 0]) == 0
+    assert pf.state_dict() == {"val_ptr": 0, "process_count": 2, "process_index": 1}
     with pytest.raises(ValueError, match="cuda or cpu"):
         DevicePrefetcher(FakeLoader(), device="meta")
 

@@ -293,9 +293,16 @@ def _fleet(pkg, np_params):
             httpd = tserver.serve(svc, port=0)
         services.append((svc, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"))
     fleet_mod = jfleet if pkg == "jax" else tfleet
+    # The run drives every scrape itself (poll_once after each request):
+    # the seeded scrape.timeout rule fires by call index, so a background
+    # poll landing inside one package's run (a run slower than the
+    # interval, as under a loaded test suite) would shift the sequence in
+    # that run only. Hence an interval no run reaches, and a scrape
+    # timeout no real scrape on a loaded machine reaches (an injected
+    # timeout raises at once, whatever its value).
     router = fleet_mod.FleetRouter([services[0][2]], [services[1][2]],
-                                   poll_interval_s=30.0, handoff_min_prompt_bytes=32,
-                                   block_size=16)
+                                   poll_interval_s=3600.0, scrape_timeout_s=60.0,
+                                   handoff_min_prompt_bytes=32, block_size=16)
     rhttpd = (jrouter if pkg == "jax" else trouter).serve_router(router, port=0)
     return services, router, rhttpd
 

@@ -522,7 +522,10 @@ def test_streaming_trainer_needs_iters_and_stops_when_the_stream_ends(tmp_path):
 
 def test_a_checkpoint_with_per_host_data_sidecars_is_refused(tmp_path):
     """A run of several processes writes each host's data position beside
-    the checkpoint; reading those across world sizes is not ported."""
+    the checkpoint, and a resume reads them (across world sizes too:
+    tests/test_torch_dist_ckpt.py). Sidecars that claim a world of two
+    around positions taken in a world of one are refused, with the error
+    the JAX trainer raises on the same files."""
     data = trainer_data(tmp_path, "jsonl")
     runs = str(tmp_path / "runs")
     d = trainer_config(data, "sidecars", iters=3, ckpt=3)
@@ -534,5 +537,6 @@ def test_a_checkpoint_with_per_host_data_sidecars_is_refused(tmp_path):
         with open(os.path.join(tr.run_dir, "checkpoints", f"step_3_data_p{index}.json"),
                   "w") as f:
             json.dump(dict(state, process_count=2, process_index=index), f)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        port_trainer(dict(d, overwrite=False, resume={"checkpoint": "3"}), runs)
+    for make in (port_trainer, jax_trainer):
+        with pytest.raises(ValueError, match="disagree with the set size"):
+            make(dict(d, overwrite=False, resume={"checkpoint": "3"}), runs)

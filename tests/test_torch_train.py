@@ -466,8 +466,9 @@ def test_trainer_runs_and_its_run_loads_in_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    # moe-8x40m's expert-parallel mesh needs four devices; the port trains
-    # on one (a mesh that resolves to one device trains: test_torch_moe_train).
+    # moe-8x40m's expert-parallel mesh: ep is ROADMAP queue 1 item 10b (dp
+    # and fsdp meshes train over several ranks: tests/test_torch_dist_train.py;
+    # a mesh that resolves to one device trains: test_torch_moe_train).
     d = _config_dict(tmp_path)
     d["model"]["moe"] = {"num_local_experts": 4, "num_experts_per_tok": 2}
     d["system"]["mesh"] = {"dp": -1, "ep": 4}
@@ -485,8 +486,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
                  quiet=True, device="cpu")
     assert type(tr.data) is TData
     # overlap_gather schedules an fsdp mesh's all-gathers, which JAX runs
-    # only on an fsdp axis > 1: a mesh of more devices is refused above,
-    # and on one device the switch trains the plain layer loop, as in JAX
+    # only on an fsdp axis > 1 (over several ranks:
+    # tests/test_torch_dist_train.py), and on one device the switch trains
+    # the plain layer loop, as in JAX
     # (test_overlap_gather_on_one_device_trains_as_jax; remat, scan_layers
     # and the fused CE, refused here before, train too:
     # tests/test_torch_remat.py)
@@ -495,8 +497,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     tr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r3"),
                  quiet=True, device="cpu")
     assert tr.train()["steps"] == 2
+    # an fsdp axis of 2 on a world of one rank: JAX's mesh_axis_sizes error
     d["system"]["mesh"] = {"fsdp": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r4"),
                 quiet=True, device="cpu")
 
