@@ -63,6 +63,7 @@ import time
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.tree import flatten_dict, tree_map, unflatten_dict
@@ -429,10 +430,16 @@ class CheckpointManager:
 
     @staticmethod
     def load_params(model_path: str, like: Optional[Any] = None,
-                    weight_dtype: str = "fp") -> Any:
+                    weight_dtype: str = "fp", mesh: Optional[Any] = None) -> Any:
         """A model file as nested CPU tensors. With ``like``: shaped and typed
         like it, keys the file lacks keep ``like``'s value, extra keys are
         dropped.
+
+        With a ``mesh`` this is reshard-on-load: the file holds the full
+        arrays (whatever mesh wrote it) and each rank keeps its blocks under
+        ``parallel/sharding_rules.param_pspec`` (``like`` then holds the
+        blocks). A quantized load quantizes only the rank's own slice, on
+        the whole tensor's per-channel scales (:func:`shard_flat`).
 
         ``weight_dtype`` "int8"/"int4" quantizes the linear weights at the
         load (:func:`_quantize_flat`). An fp ``like`` is then quantized too,
@@ -449,14 +456,23 @@ class CheckpointManager:
                 and weight_dtype_of(like) == "fp":
             like = quantize_weights(like, wd)
         arrays, _ = load_safetensors(model_path)
-        if wd != "fp":
+        if mesh is not None:
+            arrays = shard_flat(arrays, mesh, wd)
+        elif wd != "fp":
             arrays = _quantize_flat(arrays, wd)
         if like is None:
             return unflatten_dict(arrays)
         out = {}
         for k, ref in flatten_dict(like).items():
             if k in arrays:
-                out[k] = arrays[k].to(ref.dtype).reshape(ref.shape)
+                v = arrays[k]
+                if mesh is not None and (v.dtype != ref.dtype
+                                         or tuple(v.shape) != tuple(ref.shape)):
+                    raise CheckpointIntegrityError(
+                        f"reshard-on-load: {k} is {v.dtype}{tuple(v.shape)} on disk "
+                        f"but {ref.dtype}{tuple(ref.shape)} in the model; a cast or "
+                        "reshape would re-materialize the full array on one host")
+                out[k] = v.to(ref.dtype).reshape(ref.shape)
             else:
                 out[k] = ref
         return _restructure_like(like, unflatten_dict(out))
@@ -671,6 +687,36 @@ def shard_arrays(tree: Any, specs: Any, mesh) -> Any:
     if isinstance(tree, (list, tuple)):
         return [shard_arrays(v, specs[i], mesh) for i, v in enumerate(tree)]
     return cut(tree, specs)
+
+
+def shard_flat(arrays: Dict[str, torch.Tensor], mesh,
+               weight_dtype: str = "fp") -> Dict[str, torch.Tensor]:
+    """This rank's blocks of a flat ``{dotted.path: full tensor}`` dict by
+    ``param_pspec`` (JAX's ``CheckpointManager.shard_arrays``). Under
+    "int8"/"int4" each quantizable key becomes its quantized keys: the
+    per-channel scales are computed on the whole tensor, and only this
+    rank's slice is quantized."""
+    from ..models.quantize import (channel_scales, check_weight_dtype,
+                                   quantize_slice_np, quantized_key_shapes)
+    from ..parallel.collectives import block_index
+    from ..parallel.sharding_rules import param_pspec
+
+    wd = check_weight_dtype(weight_dtype)
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in arrays.items():
+        qk = quantized_key_shapes(k, tuple(v.shape), wd) if wd != "fp" else None
+        if not qk:
+            idx = block_index(param_pspec(k, tuple(v.shape), mesh), v.shape, mesh)
+            out[k] = v[idx].clone()
+            continue
+        arr = v.float().numpy()
+        scales = channel_scales(arr, 8 if wd == "int8" else 4)
+        for qkey, qshape in qk.items():
+            idx = block_index(param_pspec(qkey, qshape, mesh), qshape, mesh)
+            leaf = (scales[idx] if qkey.endswith(".weight_s")
+                    else quantize_slice_np(arr, scales, idx, wd))
+            out[qkey] = torch.from_numpy(np.ascontiguousarray(leaf))
+    return out
 
 
 def _quantize_flat(arrays: Dict[str, torch.Tensor],

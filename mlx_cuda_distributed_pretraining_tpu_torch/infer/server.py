@@ -51,8 +51,16 @@ The fleet (``serve/fleet.py``): an ``X-Deadline-Ms`` header (the router's
 remaining budget) tightens the body's ``deadline_s`` and answers 504
 before any engine work once it is spent; ``--role`` names the replica's
 pool, and ``--fleet-dir`` / ``--fleet-index`` register it in the fleet's
-membership directory and keep its heartbeat. A serving mesh of more than
-one device (``--mesh``) is not ported (ROADMAP queue 1 item 10a).
+membership directory and keep its heartbeat.
+
+Tensor-parallel serving: ``--engine batch --mesh tp=N`` on the N ranks of
+``parallel.launch --nproc-per-node N --module
+mlx_cuda_distributed_pretraining_tpu_torch.infer.server -- ...``. Every rank
+loads the weights and keeps its blocks; rank 0 binds HTTP and runs the
+engine, the others follow its steps (``BatchEngine.follow``). SIGTERM (the
+launcher forwards it to every rank) stops rank 0's server, whose engine
+then stops the followers, and every rank exits 0. A ``dp`` axis is ROADMAP
+queue 1 item 10a-dp.
 """
 
 from __future__ import annotations
@@ -356,13 +364,18 @@ class InferenceService:
                     f"no complete checkpoint under {body['run_dir']!r}")
         if not model_path:
             raise ValueError("need 'model_path' or 'run_dir'")
-        like = self.engine.params if self.engine is not None else self.params
+        engine = self.engine
+        # under a tp mesh the engine holds this rank's blocks: load the full
+        # tree, shaped like the service's own, and every rank cuts its blocks
+        sharded = engine is not None and engine.mesh is not None
+        like = engine.params if engine is not None and not sharded else self.params
         new = CheckpointManager.load_params(model_path, like=like)
         version = 0
-        if self.engine is not None:
+        if engine is not None:
             # the engine moves the tree to its device (and its weight dtype)
-            version = self.engine.swap_params(new)
-            new = self.engine.params
+            version = engine.swap_params(new)
+        if engine is not None and not sharded:
+            new = engine.params
         else:
             from ..utils.tree import tree_map
 
@@ -754,9 +767,9 @@ def main(argv=None) -> int:
                    help="batch engine: serve its registry as Prometheus text on "
                         "this port (0 off)")
     p.add_argument("--mesh", default=None,
-                   help="batch engine: serving mesh spec, e.g. tp=1,dp=1; a "
-                        "mesh of more than one device is not ported (ROADMAP "
-                        "queue 1 item 10a: TP serving)")
+                   help="batch engine: serving mesh spec, e.g. tp=2, over the "
+                        "ranks of parallel.launch (dp: ROADMAP queue 1 item "
+                        "10a-dp)")
     p.add_argument("--role", choices=("any", "prefill", "decode"),
                    default="any",
                    help="fleet pool this replica serves (published in "
@@ -771,8 +784,11 @@ def main(argv=None) -> int:
         p.error("--weight-dtype requires --engine batch")
     if a.mesh and a.engine != "batch":
         p.error("--mesh requires --engine batch")
-    if a.mesh:
-        EngineConfig(mesh=a.mesh)  # refuses a multi-device mesh before the load
+    if a.mesh:  # refuses a dp axis, or a mesh larger than the world, before the load
+        from ..parallel.mesh import serve_mesh_sizes
+
+        EngineConfig(mesh=a.mesh)
+        serve_mesh_sizes(a.mesh)
 
     kw = dict(device=a.device, kv_quant=a.kv_quant,
               max_tokens_limit=a.max_tokens_limit, speculative=a.spec,
@@ -792,7 +808,20 @@ def main(argv=None) -> int:
             default_deadline_s=a.deadline_s, trace=a.trace,
             trace_sample=a.trace_sample, stats_url=a.stats_url,
             metrics_port=a.metrics_port, role=a.role, mesh=a.mesh))
+    if service.engine is not None and not service.engine.is_leader:
+        import signal
+
+        # the leader's stop ends this rank: the launcher's SIGTERM reaches it too
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        service.engine.follow()  # until the leader's engine stops
+        return 0
     httpd = ThreadingHTTPServer((a.host, a.port), make_handler(service))
+    if service.engine is not None and service.engine.mesh is not None:
+        import signal
+        import threading
+
+        signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+            target=httpd.shutdown, daemon=True).start())
     if a.fleet_dir:
         from ..serve.fleet import start_heartbeat
 

@@ -7,6 +7,17 @@ the same layout: every linear weight is ``[in, out]`` (``y = x @ W``), expert
 banks are ``[E, in, out]``, and ``layers`` is a list. So a checkpoint written
 by either package maps name for name (``layers.3.attention.wq.weight``) with
 no transposes. RMSNorm and RoPE compute in fp32 whatever the input dtype.
+
+Under a mesh with a ``tp`` axis (``parallel/context.py``'s current mesh)
+the blocks take this rank's tp blocks of the weights (the rules of
+``parallel/sharding_rules.py``) and issue the Megatron collectives
+(``parallel/collectives.py`` :class:`Tp`): q/k/v, gate and up are
+column-parallel, wo and w_down row-parallel and summed over tp, the
+embedding and the output projection vocab-parallel. Whether a weight is
+split is read from its shape, so full weights under a tp mesh run the
+one-device path, and the sums over tp are issued in the same order on
+every rank (the recompute of a remat'd layer issues them again, in the
+same order).
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops import fused_ce
+from ..parallel.collectives import tp_of
+from ..parallel.context import current_mesh
 from ..parallel.overlap import active_plan
 from ..utils.tree import flatten_dict
 
@@ -266,6 +279,41 @@ def _linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     return y
 
 
+def _out_dim(p: Params) -> int:
+    """The output width of a linear leaf (fp, int8 or packed int4)."""
+    for name in ("weight", "weight_q", "weight_q4"):
+        if name in p:
+            return p[name].shape[-1]
+    raise KeyError(f"no weight in linear leaf {sorted(p)}")
+
+
+def current_tp():
+    """The tp axis of the current mesh (:class:`parallel.collectives.Tp`),
+    or None."""
+    return tp_of(current_mesh())
+
+
+def _col_linear(x: torch.Tensor, p: Params, tp) -> torch.Tensor:
+    """A column-parallel ``x @ W (+ b)``: W holds this rank's output
+    columns; a replicated bias is cut to them (through ``tp.copy``, so its
+    gradient is the sum of the ranks' blocks)."""
+    bias = p.get("bias")
+    y = _linear(x, {k: v for k, v in p.items() if k != "bias"})
+    if bias is not None:
+        if bias.shape[-1] != y.shape[-1]:
+            lo = tp.coord * y.shape[-1]
+            bias = tp.copy(bias).narrow(-1, lo, y.shape[-1])
+        y = y + bias
+    return y
+
+
+def _row_linear(x: torch.Tensor, p: Params, tp) -> torch.Tensor:
+    """A row-parallel ``x @ W``: this rank's rows of W on its columns of
+    x, summed over tp, then the (replicated) bias once."""
+    y = tp.reduce(_linear(x, {k: v for k, v in p.items() if k != "bias"}))
+    return y + p["bias"] if "bias" in p else y
+
+
 def quantize_params_int8(params: Params) -> Params:
     """Weight-only int8 for inference: per-output-channel symmetric scales
     on every layer linear (wq/wk/wv/wo, the dense MLP and the MoE expert
@@ -312,10 +360,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Canonical SwiGLU: ``down(silu(gate(x)) * up(x))``."""
-    return _linear(F.silu(_linear(x, p["w_gate"])) * _linear(x, p["w_up"]),
-                   p["w_down"])
+def mlp_block(p: Params, x: torch.Tensor, intermediate: Optional[int] = None
+              ) -> torch.Tensor:
+    """Canonical SwiGLU: ``down(silu(gate(x)) * up(x))``. Under tp, with
+    gate/up holding this rank's columns (narrower than ``intermediate``),
+    gate/up are column-parallel and down row-parallel."""
+    tp = current_tp()
+    if tp is None or intermediate is None or _out_dim(p["w_gate"]) == intermediate:
+        return _linear(F.silu(_linear(x, p["w_gate"])) * _linear(x, p["w_up"]),
+                       p["w_down"])
+    xc = tp.copy(x)
+    h = F.silu(_col_linear(xc, p["w_gate"], tp)) * _col_linear(xc, p["w_up"], tp)
+    return _row_linear(h, p["w_down"], tp)
 
 
 def init_paged_cache(args: LlamaArgs, num_blocks: int, block_size: int,
@@ -471,13 +527,98 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
     the reference attention, as in JAX), ``flex`` the flash kernels under
     the config's mask plan and score-mod code (``ops/flex_attention.py``),
     ``simple`` the reference attention with the mask and score mods."""
-    from ..ops.attention import reference_attention
-
     B, S, _ = x.shape
+    tp = current_tp()
+    if tp is not None and tp_split(p, args):
+        q, k, v, pick = tp_qkv(p, x, args, tp)
+        k, v = pick(k, v)
+        out = _attend(q, k, v, args, positions, attn_impl, cache, attend_len)
+        out = checkpoint_name(out.reshape(B, S, -1).to(x.dtype), "attn_out")
+        return _row_linear(out, p["wo"], tp)
     Hq, Hkv, Dh = args.num_heads, args.num_kv_heads, args.head_dim
     q = checkpoint_name(_linear(x, p["wq"]), "qkv").reshape(B, S, Hq, Dh)
     k = checkpoint_name(_linear(x, p["wk"]), "qkv").reshape(B, S, Hkv, Dh)
     v = checkpoint_name(_linear(x, p["wv"]), "qkv").reshape(B, S, Hkv, Dh)
+    out = _attend(q, k, v, args, positions, attn_impl, cache, attend_len)
+    # matmul_precision "bf16" hands back bf16 under fp32 compute: promote as
+    # JAX's bf16 @ fp32 does.
+    out = checkpoint_name(out.reshape(B, S, Hq * Dh).to(x.dtype), "attn_out")
+    return _linear(out, p["wo"])
+
+
+def tp_split(p: Params, args: LlamaArgs) -> bool:
+    """Whether an attention block's q/k/v hold tp blocks of their columns."""
+    return any(_out_dim(p[w]) != h * args.head_dim for w, h in (
+        ("wq", args.num_heads), ("wk", args.num_kv_heads), ("wv", args.num_kv_heads)))
+
+
+def tp_kv_heads(args: LlamaArgs, tp_size: int) -> int:
+    """The K/V heads a tp rank projects and caches: its block where the
+    heads split whole, else all of them (:func:`tp_qkv`)."""
+    whole = (tp_size > 1 and args.num_heads % tp_size == 0
+             and args.num_kv_heads % tp_size == 0)
+    return args.num_kv_heads // tp_size if whole else args.num_kv_heads
+
+
+def tp_qkv(p: Params, x: torch.Tensor, args: LlamaArgs, tp):
+    """``(q, k, v, pick)``: this tp rank's block of query heads (Hq/tp)
+    and its K/V heads (:func:`tp_kv_heads`), from column-parallel
+    projections; ``pick(k, v)``: the K/V heads its queries read.
+
+    Where the K/V heads split whole over tp (Hkv % tp == 0), each rank
+    keeps its block of them, the GQA groups intact. Where they do not
+    (200m's 12/6 heads at tp 4: the rules still split the K/V columns,
+    mid-head), the projection is gathered over tp (``gather_sum``: the
+    backward sums the ranks' gradients) and each rank takes the K/V heads
+    its queries read, as GQA groups when its queries start and end on a
+    group, else one K/V head a query. A K/V projection the rules leave
+    whole (its width does not divide) is computed whole, its weight
+    through ``tp.copy`` (each rank uses part of it). Query heads that do
+    not split over tp are refused: no config has them."""
+    B, S, _ = x.shape
+    Hq, Hkv, Dh = args.num_heads, args.num_kv_heads, args.head_dim
+    G = Hq // Hkv
+    if args.score_mod_type == "alibi":
+        raise NotImplementedError("alibi over tp-split heads: its slopes follow the "
+                                  "global head index; train it without a tp axis")
+    xc = tp.copy(x)
+
+    def project(leaf, heads, gather):
+        if _out_dim(leaf) == heads * Dh:  # left whole by the rules
+            y = _linear(xc, {k: tp.copy(v) if v.is_floating_point() else v
+                             for k, v in leaf.items()})
+        else:
+            y = _col_linear(xc, leaf, tp)
+            if gather:
+                y = tp.gather_sum(y, -1)
+        y = checkpoint_name(y, "qkv")
+        return y.reshape(B, S, -1, Dh)
+
+    if Hq % tp.n or _out_dim(p["wq"]) == Hq * Dh:
+        raise NotImplementedError(f"{Hq} query heads of {Dh} do not split over tp {tp.n}")
+    kv_whole = tp_kv_heads(args, tp.n) != Hkv
+    q = project(p["wq"], Hq, False)
+    k = project(p["wk"], Hkv, not kv_whole)
+    v = project(p["wv"], Hkv, not kv_whole)
+    h0, hl = tp.coord * q.shape[2], q.shape[2]
+
+    def pick(k, v):
+        if kv_whole:
+            return k, v
+        if h0 % G == 0 and hl % G == 0:
+            return k[:, :, h0 // G:(h0 + hl) // G], v[:, :, h0 // G:(h0 + hl) // G]
+        idx = torch.arange(h0, h0 + hl, device=k.device) // G
+        return k.index_select(2, idx), v.index_select(2, idx)
+
+    return q, k, v, pick
+
+
+def _attend(q, k, v, args: LlamaArgs, positions, attn_impl, cache, attend_len):
+    """RoPE on q/k ``[B, S, H, D]``, then the attention of ``attn_impl``
+    (or the config's) -> ``[B, S, Hq, D]``."""
+    from ..ops.attention import reference_attention
+
+    Dh = args.head_dim
     cos, sin = rope_cos_sin(positions, Dh, args.rope_theta,
                             args.rope_scaling_factor)
     q = apply_rope(q, cos, sin, args.rope_traditional)
@@ -505,10 +646,7 @@ def attention_block(p: Params, x: torch.Tensor, args: LlamaArgs,
     else:
         out = reference_attention(q, k, v, mask_mod=build_mask_mod(args),
                                   score_mod=build_score_mod(args))
-    # matmul_precision "bf16" hands back bf16 under fp32 compute: promote as
-    # JAX's bf16 @ fp32 does.
-    out = checkpoint_name(out.reshape(B, S, Hq * Dh).to(x.dtype), "attn_out")
-    return _linear(out, p["wo"])
+    return out
 
 
 def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
@@ -530,7 +668,8 @@ def transformer_block(p: Params, x: torch.Tensor, args: LlamaArgs,
 
         ff, aux = moe_block(p["feed_forward"], normed, args, stats)
     else:
-        ff, aux = mlp_block(p["feed_forward"], normed), torch.zeros((), device=x.device)
+        ff = mlp_block(p["feed_forward"], normed, args.intermediate_size)
+        aux = torch.zeros((), device=x.device)
     return x + ff, aux
 
 
@@ -591,7 +730,7 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
     wrap = remat_wrap(remat) if cache is None else None
     n_remat = int(round(args.num_layers * remat_ratio)) if wrap is not None else 0
     B, S = tokens.shape
-    x = params["tok_embeddings"]["weight"].to(compute_dtype)[tokens.long()]
+    x = embed(params, tokens, args, compute_dtype)
     positions = torch.arange(S, device=tokens.device) + start_pos
 
     plan = active_plan() if cache is None else None
@@ -612,18 +751,51 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
     x = rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
     if return_hidden:
         return (x, cache, aux_total) if return_aux else (x, cache)
-    if args.tie_word_embeddings or "output" not in params:
-        w = params["tok_embeddings"]["weight"].to(compute_dtype).float().t()
-    else:
-        w = params["output"]["weight"].to(compute_dtype).float()
-    logits = x.float() @ w
-    if not args.tie_word_embeddings and "bias" in params.get("output", {}):
-        logits = logits + params["output"]["bias"].float()
-    if args.logit_scale:
-        logits = logits * args.logit_scale
+    logits = project_logits(params, x, args, compute_dtype)
     if return_aux:
         return logits, cache, aux_total
     return logits, cache
+
+
+def embed(params: Params, tokens: torch.Tensor, args: LlamaArgs,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    """Token embeddings ``[B, S, D]`` in ``compute_dtype``; a vocab-parallel
+    lookup where the table holds this tp rank's rows."""
+    w = params["tok_embeddings"]["weight"].to(compute_dtype)
+    if w.shape[0] != args.vocab_size:
+        return current_tp().embed(w, tokens)
+    return w[tokens.long()]
+
+
+def output_projection(params: Params, args: LlamaArgs, compute_dtype: torch.dtype):
+    """``(w [V, D] in compute_dtype, bias [V] or None)`` of the logits: the
+    tied embedding table or the untied output head (under tp, this rank's
+    vocab rows; the bias stays whole)."""
+    if not args.tie_word_embeddings and "output" in params:
+        return (params["output"]["weight"].to(compute_dtype).t(),
+                params["output"].get("bias"))
+    return params["tok_embeddings"]["weight"].to(compute_dtype), None
+
+
+def project_logits(params: Params, x: torch.Tensor, args: LlamaArgs,
+                   compute_dtype: torch.dtype) -> torch.Tensor:
+    """fp32 logits ``[..., V]`` of hidden states ``x``: both operands cast
+    to fp32 (bf16 products are exact there). Under tp each rank projects
+    onto its vocab columns, and the logits are gathered over tp."""
+    w_vd, bias = output_projection(params, args, compute_dtype)
+    tp = current_tp() if w_vd.shape[0] != args.vocab_size else None
+    if tp is not None:  # this rank's vocab columns, then all of them
+        x = tp.copy(x)
+        if bias is not None:
+            bias = tp.copy(bias).narrow(-1, tp.coord * w_vd.shape[0], w_vd.shape[0])
+    logits = x.float() @ w_vd.float().t()
+    if bias is not None:
+        logits = logits + bias.float()
+    if tp is not None:
+        logits = tp.gather(logits, -1)
+    if args.logit_scale:
+        logits = logits * args.logit_scale
+    return logits
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
@@ -659,14 +831,11 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], args: LlamaArgs,
               scan_layers=scan_layers, overlap=overlap, return_aux=True, stats=stats)
     if ce_chunk > 0:
         hidden, _, aux = forward(params, batch["inputs"], args, return_hidden=True, **kw)
-        if not args.tie_word_embeddings and "output" in params:
-            w_vd = params["output"]["weight"].to(compute_dtype).t()
-            bias = params["output"].get("bias")
-        else:
-            w_vd, bias = params["tok_embeddings"]["weight"].to(compute_dtype), None
+        w_vd, bias = output_projection(params, args, compute_dtype)
         nll_sum, z_sum = fused_ce.fused_cross_entropy(
             hidden, w_vd, targets, mask, bias_v=bias, logit_scale=args.logit_scale,
-            chunk=ce_chunk, with_z=True)
+            chunk=ce_chunk, with_z=True,
+            tp=current_tp() if w_vd.shape[0] != args.vocab_size else None)
         loss = nll_sum / count
         if z_loss_weight > 0.0:
             loss = loss + z_loss_weight * z_sum / count

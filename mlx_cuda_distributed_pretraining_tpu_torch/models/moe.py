@@ -23,7 +23,14 @@ GEMM's result (:func:`_expert_bank`). The router stays full precision.
 The router's load-balancing and z losses come back pre-scaled beside the
 output. Routing stats (``moe_load`` per expert, ``moe_dropped``) go to a list
 the caller passes in, where the JAX package uses a trace-time tap; they stay
-device tensors, so collecting them never waits on the device. The
+device tensors, so collecting them never waits on the device.
+
+Under tensor parallelism the experts are split on their intermediate dim
+(gate/up hold this rank's I/tp columns, down its rows): each rank runs the
+grouped SwiGLU on its columns, the gate-weighted combine gives a partial
+sum on ``[T, D]``, and one sum over tp follows it. The router stays
+replicated; its gates enter the combine through ``tp.copy``, so their
+gradient (and the router's) is the same on every tp rank. The
 expert-parallel (``ep`` mesh) dispatch is not ported (ROADMAP queue 1 item
 10b).
 """
@@ -36,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import grouped_matmul as gm
-from ..parallel.collectives import all_reduce_axes
+from ..parallel.collectives import all_reduce_axes, tp_of
 from ..parallel.context import current_mesh
 
 Params = Dict[str, Any]
@@ -262,25 +269,34 @@ def moe_block(p: Params, x: torch.Tensor, args,
     impl = args.moe_impl or "grouped"
     router_logits = (x @ p["router"]["weight"].to(x.dtype)).float()
     probs = torch.softmax(router_logits, dim=-1)  # [B, S, E]
+    mesh = current_mesh()
+    tp = tp_of(mesh)
+    gate = p["experts"]["w_gate"]
+    if tp is not None and next(iter(gate.values())).shape[-1] == args.intermediate_size:
+        tp = None  # whole experts: the one-device path
+    xe = x if tp is None else tp.copy(x)
 
     if impl == "einsum":
-        out, dropped = _einsum_moe(p, x, probs, args)
+        out, dropped = _einsum_moe(p, xe, probs if tp is None else tp.copy(probs), args)
         gate_idx = torch.topk(probs, K, dim=-1)[1]  # stats only
     elif impl == "grouped":
         gate_w, gate_idx = torch.topk(probs, K, dim=-1)
         gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        if tp is not None:
+            gate_w = tp.copy(gate_w)
         out = _grouped_ffn(
-            p["experts"], x.reshape(B * S, D), gate_idx.reshape(B * S, K),
+            p["experts"], xe.reshape(B * S, D), gate_idx.reshape(B * S, K),
             gate_w.reshape(B * S, K), E, gm.pick_block_t(B * S * K, E),
             precision=args.matmul_precision).reshape(B, S, D)
         dropped = None
     else:
         raise ValueError(f"unknown moe impl {impl!r} (grouped|einsum)")
+    if tp is not None:
+        out = tp.reduce(out)
 
     aux = torch.zeros((), device=x.device)
     aw = float(args.moe_aux_weight or 0.0)
     zw = float(args.router_z_weight or 0.0)
-    mesh = current_mesh()
     if mesh is not None and _data_ranks(mesh) > 1:
         # A mesh train step: the means are over the GLOBAL batch. f (no
         # gradient) is summed over the ranks first; the rest is linear in

@@ -90,6 +90,34 @@ def compare(got: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
             "norm_err": norm_err, "ok": ratio <= 1.0 and norm_err <= norm_limit}
 
 
+def no_worse_than_plain(got: torch.Tensor, plain: torch.Tensor,
+                        exact: torch.Tensor) -> Dict[str, float]:
+    """A bf16 kernel's output ``got`` held to ``exact`` (its plain version
+    evaluated in float64), allowed the bf16 plain version's (``plain``)
+    own distance from it plus the bf16 limits of :func:`compare`: per
+    element ``|got - exact| <= |plain - exact| + atol + rtol * |exact|``
+    (``limit_ratio``, at most 1 to pass), and ``||got - exact|| <=
+    ||plain - exact|| + norm * ||exact||``. It arbitrates where
+    :func:`compare` against the bf16 plain version misses: a causal dQ's
+    first rows cancel, and where the bf16 plain version itself sits past
+    the bf16 limit from the exact result, a kernel that rounds at other
+    points can miss the plain version by as much without being further
+    from the result. A planted fault (a live tile left out) stays far past
+    it. ``plain_limit_ratio`` is the plain version's own distance from
+    ``exact`` against the bf16 limit."""
+    atol_rms, rtol, norm_limit = _LIMITS[torch.bfloat16]
+    exact = exact.double()
+    norm = exact.norm().item()
+    limit = max(atol_rms * norm / exact.numel() ** 0.5, 1e-30) + rtol * exact.abs()
+    k_diff = (got.double() - exact).abs()
+    p_diff = (plain.double() - exact).abs()
+    ratio = ((k_diff - p_diff) / limit).max().item()
+    norm_err = (k_diff.norm().item() - p_diff.norm().item()) / max(norm, 1e-30)
+    return {"max_abs_err": k_diff.max().item(), "limit_ratio": ratio,
+            "norm_err": norm_err, "plain_limit_ratio": (p_diff / limit).max().item(),
+            "ok": ratio <= 1.0 and norm_err <= norm_limit}
+
+
 def compare_experts(got: torch.Tensor, ref: torch.Tensor) -> Dict[str, float]:
     """:func:`compare` applied to each expert's block ``[e]`` of a tgmm
     output on its own, and the worst of them (``ok`` only if every expert

@@ -7,6 +7,16 @@ each rank as the ``[:, i*n/4:(i+1)*n/4]`` block, ``i`` its fsdp coordinate
 (JAX's block layout). An axis of size 1 communicates nothing, so on a
 one-rank mesh every function here is the identity and needs no process
 group.
+
+Tensor parallelism (``tp``) is written out Megatron style, as autograd
+functions over the tp group (:class:`Tp`): ``copy`` (identity forward,
+all-reduce backward) before a column-parallel projection, ``reduce``
+(all-reduce forward, identity backward) after a row-parallel one, a
+vocab-parallel embedding lookup, and two all-gathers: ``gather`` for a
+tensor every tp rank then uses alike (the logits; its backward keeps this
+rank's block of the gradient) and ``gather_sum`` for one each rank uses
+its own part of (K/V heads that do not split over tp; its backward sums
+the ranks' gradients and keeps this rank's block).
 """
 
 from __future__ import annotations
@@ -37,6 +47,18 @@ def shard_of(full: torch.Tensor, spec, mesh) -> torch.Tensor:
             size = x.shape[d] // n
             x = x.narrow(d, mesh.coord(a) * size, size)
     return x
+
+
+def block_index(spec, shape, mesh) -> Tuple[slice, ...]:
+    """The slices of a full ``shape`` that make this rank's block
+    (:func:`shard_of`'s, as an index)."""
+    start, size = [0] * len(shape), list(shape)
+    for d, a in spec_axes(spec):
+        n = mesh.axis_size(a)
+        if n > 1:
+            size[d] //= n
+            start[d] += mesh.coord(a) * size[d]
+    return tuple(slice(b, b + n) for b, n in zip(start, size))
 
 
 def reduce_scatter_flat(out: torch.Tensor, inp: torch.Tensor, group) -> None:
@@ -138,3 +160,91 @@ def sharded_sum_squares(leaves: Sequence[Tuple[torch.Tensor, Any]], mesh) -> tor
     if total is None:
         total = torch.zeros((), dtype=torch.float32)
     return all_reduce_axes(total, mesh, mesh.axis_names)
+
+
+# -- tensor parallelism -------------------------------------------------------------
+class Tp:
+    """The tp axis of a mesh: ``n`` ranks, this rank's ``coord``, the
+    process ``group``."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.n = mesh.axis_size("tp")
+        self.coord = mesh.coord("tp")
+        self.group = mesh.group("tp")
+
+    def block(self, full: int) -> Tuple[int, int]:
+        """``(start, size)`` of this rank's block of a dim of ``full``."""
+        size = full // self.n
+        return self.coord * size, size
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyToTp.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceFromTp.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return _GatherTp.apply(x, dim % x.dim(), self, False)
+
+    def gather_sum(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return _GatherTp.apply(x, dim % x.dim(), self, True)
+
+    def embed(self, weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of a vocab-parallel table (this rank's ``[V/n, D]``
+        block): each rank looks up the ids in its block, zeros elsewhere,
+        then the sum over tp."""
+        lo, size = self.block(weight.shape[0] * self.n)
+        local = ids.long() - lo
+        inside = (local >= 0) & (local < size)
+        rows = weight[local.clamp(0, size - 1)] * inside[..., None].to(weight.dtype)
+        return self.reduce(rows)
+
+
+def tp_of(mesh) -> Optional[Tp]:
+    """The mesh's tp axis, or None when it has one rank or less."""
+    if mesh is None or mesh.axis_size("tp") <= 1:
+        return None
+    return Tp(mesh)
+
+
+def _all_reduce_copy(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_copy(grad, ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_copy(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, tp, summed):
+        ctx.dim, ctx.tp, ctx.summed = dim, tp, summed
+        return gather_dim(x, dim, tp.group, tp.n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp, dim = ctx.tp, ctx.dim
+        if ctx.summed:
+            grad = _all_reduce_copy(grad, tp.group)
+        lo, size = tp.block(grad.shape[dim])
+        return grad.narrow(dim, lo, size).contiguous(), None, None, None

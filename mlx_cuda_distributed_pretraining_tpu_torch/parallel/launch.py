@@ -15,7 +15,9 @@ temporary directory: no port to collide with another launch)::
         --nproc-per-node N --config cfg.yaml [--device cpu] [trainer flags]
 
 ``--script file.py -- args`` runs a Python file in each rank instead of the
-trainer. The backend follows the device: NCCL on ``cuda`` (each rank takes
+trainer, ``--module name -- args`` a module (as ``python -m``; the tp
+serving mesh: ``--module mlx_cuda_distributed_pretraining_tpu_torch.infer.server
+-- --engine batch --mesh tp=N ...``). The backend follows the device: NCCL on ``cuda`` (each rank takes
 ``cuda:LOCAL_RANK``), gloo on ``cpu``; ``--backend`` overrides it. A
 failed NCCL rendezvous raises: nothing falls back to another backend or to
 the CPU, and ``cuda`` with no GPU visible is an error.
@@ -148,6 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="with --nproc-per-node: stop the ranks after this long")
     parser.add_argument("--script", default=None,
                         help="run this Python file in each rank instead of the trainer")
+    parser.add_argument("--module", default=None,
+                        help="run this module (as python -m) in each rank instead "
+                             "of the trainer")
     return parser
 
 
@@ -179,9 +184,16 @@ def main(argv=None):
     print(f"[launch] rank {rank}/{world} backend {backend} device {args.device}",
           file=sys.stderr, flush=True)
     try:
-        if args.script:
-            sys.argv = [args.script, *extra]
-            runpy.run_path(args.script, run_name="__main__")
+        if args.script or args.module:
+            sys.argv = [args.script or args.module, *extra]
+            try:
+                if args.script:
+                    runpy.run_path(args.script, run_name="__main__")
+                else:
+                    runpy.run_module(args.module, run_name="__main__", alter_sys=True)
+            except SystemExit as e:  # a module's main() ends in SystemExit
+                if e.code not in (None, 0):
+                    raise
             result = 0
         else:
             if not args.config:

@@ -14,21 +14,24 @@ lays out devices, and each axis gets its process groups from a
 - ``sp``   sequence parallel, ring attention (item 10c);
 - ``tp``   tensor parallel (item 10a).
 
-``-1`` on one axis means "all remaining ranks". The trainer acts on dp and
-fsdp; the other axes are resolved here as JAX resolves them, so a config's
-mesh reads the same in both packages, and the trainer refuses them.
+``-1`` on one axis means "all remaining ranks". The trainer acts on dp,
+fsdp and tp; the other axes are resolved here as JAX resolves them, so a
+config's mesh reads the same in both packages, and the trainer refuses
+them. tp is the innermost axis, so the ranks of one tp group are adjacent,
+as JAX's device order puts them.
 """
 
 from __future__ import annotations
 
 import math
 import warnings
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
-# Axes the serving mesh may use (the JAX package's); the port serves on one
-# device (item 10a: TP serving).
+# Axes the serving mesh may use (the JAX package's); the port serves over tp
+# (its dp axis is ROADMAP queue 1 item 10a-dp).
 SERVE_AXES = ("dp", "tp")
 
 
@@ -133,6 +136,19 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
+def data_coords(mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """``(index, count)`` of this rank's rows among the data axes (dp,
+    fsdp, ep; major first, as ``batch_pspec`` splits the batch): the ranks
+    of one tp group share an index. A rank and the world without a mesh."""
+    if mesh is None:
+        return world_rank(), world_size()
+    index, count = 0, 1
+    for a in ("dp", "fsdp", "ep"):
+        index = index * mesh.axis_size(a) + mesh.coord(a)
+        count *= mesh.axis_size(a)
+    return index, count
+
+
 def abstract_mesh(sizes: Dict[str, int], rank: int = 0) -> Mesh:
     """A mesh of the given axis sizes with no process groups: what the
     sharding rules and the shard arithmetic read (tests, planning)."""
@@ -185,8 +201,20 @@ def parse_mesh_spec(spec: str) -> Dict[str, int]:
 def build_serve_mesh(mesh_sizes: Union[None, str, Dict[str, int]],
                      devices: Optional[Sequence] = None) -> Optional[Mesh]:
     """The serving mesh over ``tp`` x ``dp``: None for an empty or all-ones
-    spec (the one-device engine). A spec of more than one device raises:
-    TP serving is ROADMAP queue 1 item 10a."""
+    spec (the one-device engine). A ``{tp: N}`` mesh spans the N ranks of a
+    launched world (``parallel.launch --nproc-per-node N``, one device a
+    rank); outside one it raises, naming the launcher, as JAX raises when it
+    lacks the devices. A ``dp`` axis above 1 is ROADMAP queue 1 item
+    10a-dp. ``devices`` is accepted for the JAX signature and must be
+    None."""
+    sizes = serve_mesh_sizes(mesh_sizes)
+    return None if sizes is None else build_mesh(SimpleNamespace(mesh=sizes), devices)
+
+
+def serve_mesh_sizes(mesh_sizes: Union[None, str, Dict[str, int]]
+                     ) -> Optional[Dict[str, int]]:
+    """:func:`build_serve_mesh`'s checks and resolved axis sizes, without
+    building process groups (None for the one-device engine)."""
     if isinstance(mesh_sizes, str):
         mesh_sizes = parse_mesh_spec(mesh_sizes)
     sizes = {k: int(v) for k, v in (mesh_sizes or {}).items()}
@@ -198,19 +226,37 @@ def build_serve_mesh(mesh_sizes: Union[None, str, Dict[str, int]],
         )
     if not sizes or all(v == 1 for v in sizes.values()):
         return None
+    if sizes.get("dp", 1) > 1:
+        refuse_serve_dp(sizes)
+    n = world_size()
+    fixed = math.prod(v for v in sizes.values() if v > 0)
+    if fixed > n:
+        raise ValueError(
+            f"serving mesh {sizes} needs {fixed} ranks and this process is a world "
+            f"of {n}: start one rank a device with parallel.launch --nproc-per-node "
+            f"{fixed} (python -m mlx_cuda_distributed_pretraining_tpu_torch.parallel."
+            "launch --module ...infer.server -- --mesh ...)")
+    sizes = mesh_axis_sizes(SimpleNamespace(mesh=sizes), n)
+    if sizes.get("dp", 1) > 1:
+        refuse_serve_dp(sizes)
+    return sizes
+
+
+def refuse_serve_dp(sizes) -> None:
+    """A serving mesh's dp axis above 1: ROADMAP queue 1 item 10a-dp."""
     raise NotImplementedError(
-        f"serving mesh {sizes} spans more than one device; the engine serves on "
-        "one (ROADMAP queue 1 item 10a: TP serving)")
+        f"serving mesh {sizes}: the dp axis is not ported (ROADMAP queue 1 item "
+        "10a-dp: data-parallel serving replicas in one mesh); tp serves")
 
 
 def refuse_unported_axes(sizes: Dict[str, int]) -> None:
     """Raise for an axis the trainer does not act on yet (size > 1),
     naming its ROADMAP item."""
-    items = {"tp": "10a: tensor parallelism", "ep": "10b: expert parallelism",
+    items = {"ep": "10b: expert parallelism",
              "sp": "10c: sequence parallelism and ring attention",
              "pp": "10d: pipeline parallelism"}
     for axis, item in items.items():
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"mesh {sizes}: the {axis!r} axis is not ported "
-                f"(ROADMAP queue 1 item {item}); dp and fsdp train")
+                f"(ROADMAP queue 1 item {item}); dp, fsdp and tp train")

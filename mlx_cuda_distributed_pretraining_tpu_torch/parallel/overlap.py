@@ -17,6 +17,8 @@ computes (the JAX package's ``parallel/overlap.py``).
   consuming stream waits on the side stream and the gathered buffer is
   ``record_stream``'d onto it. Without it each layer's gather runs when
   the layer starts. The numbers are the same either way.
+- **Beside tp.** The gather covers the fsdp dim only: a leaf tp also
+  splits comes back as this rank's tp block, full along fsdp.
 - **Remat.** Layers under a remat policy gather inside their checkpoint,
   so the backward gathers their shards again rather than keeping full
   weights alive, as JAX's checkpoint encloses its gather; they take no
@@ -63,6 +65,17 @@ def layer_gather_dims(layer: Any, mesh, axis: str = "fsdp") -> List[Optional[int
     as the rules are suffix regexes."""
     return [_axis_dim(param_pspec("layers.0." + k, tuple(x.shape), mesh), axis)
             for k, x in _leaves(layer)]
+
+
+def _gathered_like(path: str, x: Any, mesh, axis: str) -> torch.Tensor:
+    """A ``meta`` stand-in of what the gather over ``axis`` yields for the
+    leaf at ``path`` (full shape ``x``): the full leaf, but for the dims
+    another axis (tp) splits, which stay this rank's blocks."""
+    shape = list(x.shape)
+    for d, a in spec_axes(param_pspec(path, tuple(x.shape), mesh)):
+        if a != axis:
+            shape[d] //= mesh.axis_size(a)
+    return torch.empty(shape, dtype=x.dtype, device="meta")
 
 
 def can_overlap(mesh, layers: Sequence[Any], batch: int, axis: str = "fsdp") -> bool:
@@ -219,14 +232,16 @@ class FsdpPlan:
             dims = layer_gather_dims(layer, mesh, axis)
             self.layer_keys.append([k for k, _ in leaves])
             self.layer_dims.append(dims)
-            self.layer_buckets.append(bucket_layout([x for _, x in leaves], dims,
-                                                    self.n, bucket_bytes))
+            self.layer_buckets.append(bucket_layout(
+                [_gathered_like("layers.0." + k, x, mesh, axis) for k, x in leaves], dims,
+                self.n, bucket_bytes))
         top = {k: v for k, v in params_like.items() if k != "layers"}
         self.top_leaves = _leaves(top)
         self.top_dims = [_axis_dim(param_pspec(k, tuple(x.shape), mesh), axis)
                          for k, x in self.top_leaves]
-        self.top_buckets = bucket_layout([x for _, x in self.top_leaves], self.top_dims,
-                                         self.n, bucket_bytes)
+        self.top_buckets = bucket_layout(
+            [_gathered_like(k, x, mesh, axis) for k, x in self.top_leaves], self.top_dims,
+            self.n, bucket_bytes)
         self._stream = None
 
     def can_overlap(self, local_batch: int) -> bool:

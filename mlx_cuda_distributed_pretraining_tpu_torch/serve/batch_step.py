@@ -33,6 +33,14 @@ each step once per shape bucket and donates the cache:
 
 Numerics follow the JAX steps op for op: fp32 serving compute, RMSNorm and
 RoPE in fp32, the same positional validity masks, fp32 logits.
+
+Under a tp serving mesh (the current mesh of ``parallel/context.py``; the
+engine runs every step on every rank) the steps take this rank's blocks of
+the weights and run ``models/llama.py``'s tp blocks: local query heads,
+columns and expert columns, the same sums over tp as training, the K/V of
+this rank's heads written to its arena (all heads where Hkv does not
+split), and the vocab-parallel logits gathered over tp before sampling
+(JAX's "replicate logits" point).
 """
 
 from __future__ import annotations
@@ -68,20 +76,16 @@ def _ffn(p, x: torch.Tensor, args: llama.LlamaArgs) -> torch.Tensor:
         from ..models.moe import moe_block
 
         return moe_block(p["feed_forward"], x, args)[0]  # serving drops aux
-    return llama.mlp_block(p["feed_forward"], x)
+    return llama.mlp_block(p["feed_forward"], x, args.intermediate_size)
+
+
+def _embed(params, tokens: torch.Tensor, args: llama.LlamaArgs) -> torch.Tensor:
+    return llama.embed(params, tokens, args, params["tok_embeddings"]["weight"].dtype)
 
 
 def _project_logits(params, x: torch.Tensor, args: llama.LlamaArgs) -> torch.Tensor:
     """fp32 output projection (tied embeddings or the output head)."""
-    if args.tie_word_embeddings or "output" not in params:
-        logits = x.float() @ params["tok_embeddings"]["weight"].float().T
-    else:
-        logits = x.float() @ params["output"]["weight"].float()
-        if "bias" in params["output"]:
-            logits = logits + params["output"]["bias"].float()
-    if args.logit_scale:
-        logits = logits * args.logit_scale
-    return logits
+    return llama.project_logits(params, x, args, params["tok_embeddings"]["weight"].dtype)
 
 
 def _paged_write(layer_cache: LayerCache, k: torch.Tensor, v: torch.Tensor,
@@ -146,18 +150,28 @@ def _stack(params, cache: List[LayerCache], x: torch.Tensor,
     gives the K/V to attend over under ``mask``."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = args.num_heads, args.num_kv_heads, args.head_dim
+    tp = llama.current_tp()
     for p, layer_cache in zip(params["layers"], cache):
         h = llama.rms_norm(x, p["attention_norm"]["weight"], args.rms_norm_eps)
         pa = p["attention"]
-        q = llama._linear(h, pa["wq"]).reshape(B, S, Hq, Dh)
-        k = llama._linear(h, pa["wk"]).reshape(B, S, Hkv, Dh)
-        v = llama._linear(h, pa["wv"]).reshape(B, S, Hkv, Dh)
+        split = tp is not None and llama.tp_split(pa, args)
+        if split:
+            q, k, v, pick = llama.tp_qkv(pa, h, args, tp)
+        else:
+            q = llama._linear(h, pa["wq"]).reshape(B, S, Hq, Dh)
+            k = llama._linear(h, pa["wk"]).reshape(B, S, Hkv, Dh)
+            v = llama._linear(h, pa["wv"]).reshape(B, S, Hkv, Dh)
         q = _rope_rows(q, positions, args)
         k = _rope_rows(k, positions, args)
         write(layer_cache, k, v)
         ck, cv = read(layer_cache)
-        out = reference_attention(q, ck, cv, explicit_mask=mask)
-        x = x + llama._linear(out.reshape(B, S, Hq * Dh), pa["wo"])
+        if split:
+            ck, cv = pick(ck, cv)
+        out = reference_attention(q, ck, cv, explicit_mask=mask).reshape(B, S, -1)
+        if split:
+            x = x + llama._row_linear(out, pa["wo"], tp)
+        else:
+            x = x + llama._linear(out, pa["wo"])
         x = x + _ffn(p, llama.rms_norm(x, p["ffn_norm"]["weight"],
                                        args.rms_norm_eps), args)
     return llama.rms_norm(x, params["norm"]["weight"], args.rms_norm_eps)
@@ -215,7 +229,7 @@ def decode_step(params, cache: List[LayerCache], tokens: torch.Tensor,
     position, on masked rows). Attends the first ``attend_len`` positions of
     each slot; returns fp32 logits ``[B, V]``."""
     positions = pos[:, None]  # [B, 1]
-    x = params["tok_embeddings"]["weight"][tokens][:, None, :]  # [B, 1, D]
+    x = _embed(params, tokens, args)[:, None, :]  # [B, 1, D]
     k_idx = torch.arange(attend_len, device=x.device)
     mask = k_idx[None, None, :] <= positions[:, :, None]  # [B, 1, L]
     x = _stack(params, cache, x, positions, mask[:, None, None], args,
@@ -233,7 +247,7 @@ def prefill_step(params, cache: List[LayerCache], tokens: torch.Tensor, slot: in
     token) of the final chunk, else None. Pad junk past the prompt is
     overwritten by decode before it is attendable."""
     chunk = tokens.shape[0]
-    x = params["tok_embeddings"]["weight"][tokens][None]  # [1, C, D]
+    x = _embed(params, tokens, args)[None]  # [1, C, D]
     positions = (torch.arange(chunk, device=x.device) + pos)[None]  # [1, C]
     k_idx = torch.arange(attend_len, device=x.device)
     mask = (k_idx[None, :] <= positions[0][:, None]) \
@@ -267,7 +281,7 @@ def paged_decode_step(params, cache: List[LayerCache], tokens: torch.Tensor,
         tokens = tokens[:, None]
     S = tokens.shape[1]
     positions = pos[:, None] + torch.arange(S, device=pos.device)[None, :]  # [B, S]
-    x = params["tok_embeddings"]["weight"][tokens]  # [B, S, D]
+    x = _embed(params, tokens, args)  # [B, S, D]
     k_idx = torch.arange(attend_len, device=x.device)
     mask = k_idx[None, None, :] <= positions[:, :, None]  # [B, S, L]
     x = _layers(params, cache, x, positions, tables, mask[:, None, None],
@@ -288,7 +302,7 @@ def paged_prefill_step(params, cache: List[LayerCache], tokens: torch.Tensor,
     tail blocks, overwritten by decode before it is attendable."""
     _check_attend(attend_len, block_size)
     chunk = tokens.shape[0]
-    x = params["tok_embeddings"]["weight"][tokens][None]  # [1, C, D]
+    x = _embed(params, tokens, args)[None]  # [1, C, D]
     positions = (torch.arange(chunk, device=x.device) + pos)[None]  # [1, C]
     k_idx = torch.arange(attend_len, device=x.device)
     # the same positional validity mask as the single-sequence cached path

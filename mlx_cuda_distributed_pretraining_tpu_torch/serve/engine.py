@@ -38,8 +38,18 @@ prompt KV is written and published, without sampling: the decode replica
 that adopts the chain (``adopt_kv``) recomputes the last prompt token
 and samples there.
 
-Not ported yet, and refused when a config sets one: a serving mesh of more
-than one device (ROADMAP queue 1 item 10a: TP serving).
+Tensor-parallel serving (``mesh: {tp: N}``, one rank a device under
+``parallel.launch``): every rank builds the engine with the full weights and
+keeps its tp blocks (``_place_params``: the training rules) and its heads'
+arena. Rank 0, the leader, runs the loop: the scheduler, the pool's
+bookkeeping and sampling. Each device step it runs, it first broadcasts
+as a small plan over a gloo group (the kind, tokens, positions, tables,
+slots, drafts); the other ranks run :meth:`BatchEngine.follow`, which
+executes each plan on their own shards, so every rank issues the model's
+sums over tp in the same order. KV export gathers the ranks' heads to the
+leader and adoption writes each rank's slice, so a tp engine's GKV1 bytes
+are a one-device engine's for the same KV; a weight swap hands every rank
+the full tree to cut. A ``dp`` axis is ROADMAP queue 1 item 10a-dp.
 """
 
 from __future__ import annotations
@@ -54,8 +64,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.context import use_mesh
 from . import batch_step, faults
-from .kv_pool import PagedKVPool, SlotKVPool
+from .kv_pool import KVExport, PagedKVPool, SlotKVPool
 from .scheduler import DECODE, DONE, PREFILL, QueueFullError, Request, Scheduler
 
 __all__ = ["BatchEngine", "EngineConfig", "QueueFullError"]
@@ -97,14 +108,14 @@ class EngineConfig:
     worker_id: str = "serve-engine"  # tracer service name, fault-point label
     metrics_port: int = 0       # Prometheus exposition (obs/prometheus.py); 0 off
     role: str = "any"           # fleet pool: "prefill" | "decode" | "any"
-    mesh: Optional[Dict[str, int]] = None  # only a single-device (all-ones) mesh
+    mesh: Optional[Dict[str, int]] = None  # {tp: N} under parallel.launch
 
     def __post_init__(self):
+        from ..parallel.mesh import refuse_serve_dp
+
         self.mesh = _parse_mesh(self.mesh)
-        if self.mesh and any(int(n) != 1 for n in self.mesh.values()):
-            raise NotImplementedError(
-                f"a serving mesh {self.mesh} is not ported (ROADMAP queue 1 "
-                "item 10a: TP serving); the engine serves on one device")
+        if self.mesh and int(self.mesh.get("dp", 1)) not in (1, -1):
+            refuse_serve_dp(self.mesh)
 
     @classmethod
     def from_yaml(cls, path: str) -> "EngineConfig":
@@ -143,13 +154,21 @@ class BatchEngine:
 
     def __init__(self, params, args, tokenizer,
                  cfg: Optional[EngineConfig] = None):
+        """``params``: the full weights; under a tp mesh every rank passes
+        them and keeps its blocks (:meth:`_place_params`)."""
         from ..models.quantize import (check_weight_dtype, quantize_weights,
                                        weight_dtype_of, weight_plane_bytes)
+
+        from ..parallel.collectives import tp_of
+        from ..parallel.mesh import build_serve_mesh
 
         self.args = args
         self.tokenizer = tokenizer
         self.cfg = cfg = cfg or EngineConfig()
         self.device = params["tok_embeddings"]["weight"].device
+        self.mesh = build_serve_mesh(cfg.mesh)
+        self.tp = tp_of(self.mesh)
+        self.is_leader = self.mesh is None or self.mesh.rank == 0
         if cfg.max_len > args.max_position_embeddings:
             raise ValueError(
                 f"max_len {cfg.max_len} exceeds the model's "
@@ -163,22 +182,41 @@ class BatchEngine:
             wd = have
         elif wd != "fp":
             params = quantize_weights(params, wd)
+        # the plan channel: a gloo group over the mesh (its ranks are the world)
+        self._plan_group = None
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            params = self._place_params(params, self.mesh)
+            self._plan_group = dist.new_group(backend="gloo")
         self.params = params
         self.weight_dtype = wd
         self._weight_bytes = weight_plane_bytes(params)
         dtype = params["tok_embeddings"]["weight"].dtype
+        # this rank's arena heads: its tp block where the K/V heads split
+        kv_heads, head_block = args.num_kv_heads, None
+        if self.tp is not None:
+            from ..models.llama import tp_kv_heads
+
+            kv_heads = tp_kv_heads(args, self.tp.n)
+            if kv_heads != args.num_kv_heads:
+                head_block = (self.tp.coord * kv_heads, args.num_kv_heads)
+        pool_args = dataclasses.replace(args, num_kv_heads=kv_heads)
         if cfg.kv_backend == "paged":
             self.pool = PagedKVPool(
-                args, cfg.num_slots, cfg.max_len, block_size=cfg.block_size,
+                pool_args, cfg.num_slots, cfg.max_len, block_size=cfg.block_size,
                 num_blocks=cfg.num_blocks, device=self.device, dtype=dtype,
                 quantize=cfg.kv_quant, prefix_cache=cfg.prefix_cache,
-                min_hit_blocks=cfg.prefix_min_hit_blocks)
+                min_hit_blocks=cfg.prefix_min_hit_blocks, head_block=head_block)
+            if self._plan_group is not None and self.is_leader:
+                self.pool.on_write = lambda ids, data: self._send(
+                    "write_blocks", block_ids=ids, data=data)
         elif cfg.kv_backend == "slotted":
             if cfg.spec_draft_len:
                 raise ValueError(
                     "spec_draft_len requires kv_backend='paged' (in-batch "
                     "speculation commits through block tables)")
-            self.pool = SlotKVPool(args, cfg.num_slots, cfg.max_len,
+            self.pool = SlotKVPool(pool_args, cfg.num_slots, cfg.max_len,
                                    device=self.device, dtype=dtype,
                                    quantize=cfg.kv_quant)
         else:
@@ -213,6 +251,7 @@ class BatchEngine:
         self._metrics: Dict[str, Any] = {}
         self._stats = None
         self._metrics_server = None
+        self._stopped = False
         self._init_telemetry()
 
     def _init_telemetry(self) -> None:
@@ -277,14 +316,18 @@ class BatchEngine:
             "serve_mesh_devices", "devices in the serving mesh (1 = unsharded)")
         self._mg_mesh_axis = reg.gauge("serve_mesh_axis_size",
                                        "serving mesh axis size by name")
-        self._mg_mesh_devices.set(1)
+        self._mg_mesh_devices.set(self.mesh.size if self.mesh is not None else 1)
+        for ax, n in (self.mesh.shape.items() if self.mesh is not None else ()):
+            self._mg_mesh_axis.set(n, axis=ax)
         self._mg_weight_bytes = reg.gauge("serve_weight_bytes",
                                           "bytes of resident model weights (as stored)")
         self._mg_weight_bytes.set(self._weight_bytes, weight_dtype=self.weight_dtype)
 
     # -- lifecycle -------------------------------------------------------------
     def start(self) -> "BatchEngine":
-        if self._thread is None:
+        """Start the loop thread (the leader's; another rank of a tp mesh
+        runs :meth:`follow` instead)."""
+        if self._thread is None and self.is_leader:
             if self.cfg.stats_url:
                 from ..obs.stats_client import StatsClient
 
@@ -310,6 +353,9 @@ class BatchEngine:
             self._thread = None
         self.scheduler.drain(self.pool)
         self._drain_tasks()  # stragglers run inline; nobody left to race
+        if self._plan_group is not None and self.is_leader and not self._stopped:
+            self._stopped = True
+            self._send("stop")
         if self._stats is not None:
             self._stats.close()
             self._stats = None
@@ -356,20 +402,21 @@ class BatchEngine:
         prefix then decodes on KV of the old weights). A quantized engine
         quantizes an fp tree into its own dtype first, so the resident
         weights never change dtype. Moves the tree to the engine's device
-        on the calling thread. Returns the new ``params_version``."""
-        from ..models.quantize import (quantize_weights, weight_dtype_of,
-                                       weight_plane_bytes)
+        on the calling thread. Under a tp mesh ``new_params`` is the full
+        tree: the leader sends it to every rank, and each keeps its blocks.
+        Returns the new ``params_version``."""
+        from ..models.quantize import weight_plane_bytes
         from ..utils.tree import tree_map
 
         if faults.take("engine.swap_fail", self.cfg.worker_id) is not None:
             # before any cutover: a failed swap leaves the weights untouched
             raise RuntimeError("injected swap failure")
-        placed = tree_map(lambda t: t.to(self.device), new_params)
-        if self.weight_dtype != "fp" and weight_dtype_of(placed) == "fp":
-            placed = quantize_weights(placed, self.weight_dtype)
+        placed = self._resident(new_params)
         nbytes = weight_plane_bytes(placed)
 
         def cutover():
+            if self._plan_group is not None:  # every rank cuts its own blocks
+                self._send("swap", params=tree_map(lambda t: t.cpu(), new_params))
             self.params = placed
             self.params_version += 1
             if self.pool.kind == "paged":
@@ -400,7 +447,13 @@ class BatchEngine:
         export, version = self.call_in_loop(
             lambda: (pool.export_blocks(token_ids), self.params_version))
         try:
-            payload = build_payload(export, token_ids, pool.block_size,
+            view = export
+            if self._plan_group is not None and export.blocks:
+                # every rank's heads of the pinned blocks, on the engine thread
+                view = self.call_in_loop(lambda: self._run("read_blocks",
+                                                           block_ids=export.blocks))
+                view.keys = export.keys
+            payload = build_payload(view, token_ids, pool.block_size,
                                     pool.quantize, params_version=version)
         finally:
             self.call_in_loop(lambda: pool.release_export(export))
@@ -565,7 +618,8 @@ class BatchEngine:
             "kv_quant": bool(pool.quantize),
             "role": self.cfg.role,
             "params_version": self.params_version,
-            "mesh": "1dev",
+            "mesh": (",".join(f"{a}={n}" for a, n in self.mesh.shape.items())
+                     if self.mesh is not None else "1dev"),
             "weight_dtype": self.weight_dtype,
             "weight_bytes": int(self._weight_bytes),
             "kv_transfer_blocks": dict(self._kv_transfer),
@@ -723,6 +777,94 @@ class BatchEngine:
         self._publish()
         return busy
 
+    # -- device steps: every rank of a tp mesh runs each ------------------------
+    @staticmethod
+    def _place_params(params, mesh):
+        """This rank's blocks of full ``params`` under the training rules
+        (``parallel/sharding_rules.py``: Megatron column/row splits, the
+        vocab-parallel tables, the experts' intermediate dim); a quantized
+        tree's leaves are cut as quantized, scales whole-tensor."""
+        from ..checkpoint.manager import shard_arrays
+        from ..parallel.sharding_rules import tree_pspecs
+
+        return shard_arrays(params, tree_pspecs(params, mesh), mesh)
+
+    def _send(self, kind: str, **kw) -> None:
+        """The leader's plan of one step, to every other rank of the mesh."""
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([(kind, kw)], src=0, group=self._plan_group)
+
+    def _run(self, kind: str, **kw):
+        """Run step ``kind`` here (on the leader, after sending its plan)."""
+        if self._plan_group is not None:
+            self._send(kind, **kw)
+        with use_mesh(self.mesh):
+            return getattr(self, "_step_" + kind)(**kw)
+
+    def follow(self) -> None:
+        """A follower rank of a tp mesh: run the leader's steps on this
+        rank's shards until it stops."""
+        import torch.distributed as dist
+
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self._plan_group)
+            kind, kw = box[0]
+            if kind == "stop":
+                return
+            with use_mesh(self.mesh):
+                getattr(self, "_step_" + kind)(**kw)
+
+    def _step_prefill(self, toks, slot, table, start, last, attend, final):
+        pool = self.pool
+        if pool.kind == "paged":
+            return batch_step.paged_prefill_step(
+                self.params, pool.cache, self._to_device(toks), self._to_device(table),
+                start, last, self.args, attend, pool.block_size, with_logits=final)
+        return batch_step.prefill_step(
+            self.params, pool.cache, self._to_device(toks), slot, start, last,
+            self.args, attend, with_logits=final)
+
+    def _step_decode(self, tokens, pos, bucket):
+        return batch_step.decode_step(self.params, self.pool.cache,
+                                      self._to_device(tokens), self._to_device(pos),
+                                      self.args, bucket)
+
+    def _step_paged_decode(self, tokens, pos, tables, bucket):
+        return batch_step.paged_decode_step(
+            self.params, self.pool.cache, self._to_device(tokens), self._to_device(pos),
+            self._to_device(tables), self.args, bucket, self.pool.block_size)
+
+    def _step_write_blocks(self, block_ids, data):
+        self.pool._write_blocks(block_ids, data)
+
+    def _step_read_blocks(self, block_ids) -> KVExport:
+        """The arena's blocks ``block_ids`` with every rank's heads (a view
+        export over fresh tensors, blocks numbered in order)."""
+        from ..parallel.collectives import gather_dim
+
+        idx = torch.tensor(block_ids, dtype=torch.long, device=self.device)
+        cache = [{name: (gather_dim(t[idx], 2, self.tp.group, self.tp.n)
+                         if t.shape[2] != self.pool.full_heads else t[idx])
+                  for name, t in layer.items()} for layer in self.pool.cache]
+        return KVExport(keys=[], blocks=list(range(len(block_ids))), cache=cache)
+
+    def _step_swap(self, params):
+        self.params = self._resident(params)
+
+    def _resident(self, params):
+        """A full tree as this engine keeps it: on its device, in its weight
+        dtype (an fp tree quantized into it), cut to this rank's blocks under
+        a mesh."""
+        from ..models.quantize import quantize_weights, weight_dtype_of
+        from ..utils.tree import tree_map
+
+        placed = tree_map(lambda t: t.to(self.device), params)
+        if self.weight_dtype != "fp" and weight_dtype_of(placed) == "fp":
+            placed = quantize_weights(placed, self.weight_dtype)
+        return placed if self.mesh is None else self._place_params(placed, self.mesh)
+
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)
 
@@ -762,17 +904,10 @@ class BatchEngine:
         final = start + n >= P
         toks = np.zeros(C, np.int64)
         toks[:n] = source[start:start + n]
-        if pool.kind == "paged":
-            last_logits = batch_step.paged_prefill_step(
-                self.params, pool.cache, self._to_device(toks),
-                self._to_device(pool.tables[req.slot]), start, max(n - 1, 0),
-                self.args, self._attend(start + C), pool.block_size,
-                with_logits=final)
-        else:
-            last_logits = batch_step.prefill_step(
-                self.params, pool.cache, self._to_device(toks), req.slot, start,
-                max(n - 1, 0), self.args, self._attend(start + C),
-                with_logits=final)
+        last_logits = self._run(
+            "prefill", toks=toks, slot=req.slot,
+            table=pool.tables[req.slot].copy() if pool.kind == "paged" else None,
+            start=start, last=max(n - 1, 0), attend=self._attend(start + C), final=final)
         self.prefill_chunks += 1
         req.prefilled = start + n
         pool.lengths[req.slot] = min(start + n, P)
@@ -843,9 +978,7 @@ class BatchEngine:
             gens[r.slot] = self._generator(r)
         bucket = batch_step.attend_bucket(
             int(max(pos[r.slot] for r in dec)) + 1, pool.max_len)
-        logits = batch_step.decode_step(self.params, pool.cache,
-                                        self._to_device(tokens), self._to_device(pos),
-                                        self.args, bucket)
+        logits = self._run("decode", tokens=tokens, pos=pos, bucket=bucket)
         self.decode_steps += 1
         tok, lp = batch_step.sample_rows(logits, temps, gens)
         for r in dec:
@@ -920,9 +1053,8 @@ class BatchEngine:
             gens[r.slot] = self._generator(r)
         bucket = self._attend(int(max(pos[r.slot] for r in dec)) + S)
         tok_dev = self._to_device(tokens)
-        logits = batch_step.paged_decode_step(
-            self.params, pool.cache, tok_dev, self._to_device(pos),
-            self._to_device(tables), self.args, bucket, pool.block_size)
+        logits = self._run("paged_decode", tokens=tokens, pos=pos, tables=tables,
+                           bucket=bucket)
         self.decode_steps += 1
         preds, lp_preds, sampled = batch_step.verify_rows(
             logits, tok_dev, temps, gens, [r.slot for r in dec])

@@ -11,6 +11,17 @@ state owned by the engine thread; other threads reach them through
 
 Freeing never zeroes data: chunked prefill overwrites from position 0 and
 the validity mask (k_idx <= row position) makes stale entries unattendable.
+
+Under a tp serving mesh every rank holds a pool (the engine passes args
+whose ``num_kv_heads`` is the rank's: its Hkv/tp heads where they split,
+all of them otherwise, as JAX's ``kv_cache_pspec`` places the arena; the
+int8 quartet splits the same way). The leader's pool alone keeps the
+lengths, block tables, refcounts and prefix cache; the physical block ids
+are the same on every rank. ``head_block`` = ``(first head, full head
+count)`` says which heads this arena holds: a transferred block carries
+all heads, is checked against the full layout, and this rank writes its
+slice (``on_write`` lets the leader's engine hand the same write to the
+other ranks).
 """
 
 from __future__ import annotations
@@ -153,7 +164,8 @@ class PagedKVPool:
     def __init__(self, args: llama.LlamaArgs, num_seqs: int, max_len: int,
                  block_size: int = 32, num_blocks: int = 0, device="cuda",
                  dtype=torch.float32, quantize: bool = False,
-                 prefix_cache: bool = False, min_hit_blocks: int = 1):
+                 prefix_cache: bool = False, min_hit_blocks: int = 1,
+                 head_block: Optional[tuple] = None):
         if num_seqs < 1:
             raise ValueError(f"num_seqs must be >= 1, got {num_seqs}")
         if max_len < 2:
@@ -175,6 +187,8 @@ class PagedKVPool:
             num_blocks = num_seqs * self.max_blocks
         self.num_blocks = num_blocks
         self.quantize = quantize
+        self.head_lo, self.full_heads = head_block or (0, args.num_kv_heads)
+        self.on_write = None  # the leader's hook: the other ranks' writes
         # +1: physical block 0 is the reserved junk block. The serving steps
         # write this arena in place.
         self.cache = llama.init_paged_cache(args, num_blocks + 1, block_size,
@@ -461,7 +475,8 @@ class PagedKVPool:
         if len(keys) != len(blocks_data):
             raise ValueError(f"{len(keys)} keys but {len(blocks_data)} "
                              "block payloads")
-        layout = [{name: (tuple(t.shape[1:]), _np_dtype(t.dtype))
+        layout = [{name: ((t.shape[1], self.full_heads) + tuple(t.shape[3:]),
+                          _np_dtype(t.dtype))
                    for name, t in layer.items()} for layer in self.cache]
         for i, data in enumerate(blocks_data):
             if len(data) != len(layout):
@@ -541,13 +556,16 @@ class PagedKVPool:
         return self.quarantine(list(self.prefix._by_key))
 
     def _write_blocks(self, block_ids: Sequence[int], blocks_data) -> None:
-        """Scatter transferred bytes into the arena: one indexed copy per
-        layer tensor."""
+        """Scatter transferred bytes (all heads) into the arena: one indexed
+        copy per layer tensor of this arena's heads."""
+        if self.on_write is not None:
+            self.on_write(list(block_ids), blocks_data)
         idx = torch.tensor(list(block_ids), dtype=torch.long)
         for li, layer in enumerate(self.cache):
             for name, t in layer.items():
                 stack = torch.from_numpy(np.stack([np.asarray(d[li][name])
                                                    for d in blocks_data]))
+                stack = stack[:, :, self.head_lo:self.head_lo + t.shape[2]]
                 t[idx.to(t.device)] = stack.to(t.device)
 
 

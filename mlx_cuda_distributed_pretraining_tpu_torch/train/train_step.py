@@ -23,6 +23,14 @@ axes its parameter is not split over, and the update runs on the blocks
 (``optim/sharded.py``). The loss, token count, routing stats and
 ``grad_norm`` (a sum of the blocks' squares over the ranks) are global, so
 ``nonfinite`` is the same on every rank.
+
+A ``tp`` axis splits the weights as the rules say and the model issues its
+own sums over tp (``models/llama.py``); the batch is split over the data
+axes only, so the ranks of one tp group run the same rows and compute the
+same loss. A gradient then needs no sum over tp: a split leaf's is its
+block's, and a tp-replicated leaf's (the norms, the router) comes out the
+same on every tp rank, because every path into it from a split
+computation passes a ``copy`` whose backward sums over tp.
 """
 
 from __future__ import annotations
@@ -153,7 +161,7 @@ def make_eval_step(loss_fn: Callable, mesh: Any = None,
     def mesh_eval_step(params, batch):
         count = batch["mask"].float().sum()
         all_reduce_axes(count, mesh, data_axes)
-        with use_plan(plan):
+        with use_plan(plan), use_mesh(mesh):
             view = plan.gather_top(params) if plan is not None else params
             loss, toks = loss_fn(view, dict(batch, global_count=count.clamp_min(1.0)))
         out = torch.stack([loss.float(), toks.float()])
@@ -165,6 +173,7 @@ def make_eval_step(loss_fn: Callable, mesh: Any = None,
 
 # -- the mesh path -----------------------------------------------------------------
 DATA_AXES = ("dp", "fsdp")  # the batch axes the trainer acts on, major first
+# (tp is not one: the ranks of a tp group share their rows)
 
 
 def _fsdp_plan(mesh, params_like):

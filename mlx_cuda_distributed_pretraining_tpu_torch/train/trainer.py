@@ -92,8 +92,12 @@ mesh); every rank of a mesh run writes its own data position,
 ``step_<N>_data_p<i>.json``, and a resume on another world size remaps the
 positions (``data.streaming.remap_data_states``). The ranks agree on each
 step boundary's stop (a signal, a dry stream) through a gloo group on the
-host. A tp, ep, sp or pp axis above 1 raises, naming its ROADMAP item; so
-does the LR finder over several ranks.
+host. tp trains too (``models/llama.py``'s Megatron collectives): the ranks
+of one tp group read the same rows (the loader's position is the rank's
+among the data axes, ``parallel.mesh.data_coords``) and one of them writes
+the group's sidecar, ``step_<N>_data_p<data index>.json``. An ep, sp or pp
+axis above 1 raises, naming its ROADMAP item; so does the LR finder over
+several ranks.
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
@@ -147,6 +151,7 @@ from ..parallel.elastic import process_barrier
 from ..parallel.mesh import (
     AXIS_ORDER,
     build_mesh,
+    data_coords,
     mesh_axis_sizes,
     refuse_unported_axes,
     world_rank,
@@ -171,7 +176,7 @@ def resolve_mesh(system_cfg, batch_size: int):
     legacy ``model_parallel``) over the ranks of the world; with none, a
     pure-dp mesh over every rank of a multi-rank world (whose per-rank batch
     it must divide, as JAX requires of its global batch); None for one rank
-    and no mesh. A tp, ep, sp or pp axis above 1 raises, naming its ROADMAP
+    and no mesh. An ep, sp or pp axis above 1 raises, naming its ROADMAP
     item."""
     sizes = {k: int(v) for k, v in (system_cfg.mesh or {}).items()}
     if not sizes and system_cfg.model_parallel:
@@ -181,6 +186,11 @@ def resolve_mesh(system_cfg, batch_size: int):
         raise ValueError(f"unknown mesh axes {sorted(unknown)}; valid: {AXIS_ORDER}")
     refuse_unported_axes(sizes)
     world = world_size()
+    fixed = math.prod(v for v in sizes.values() if v > 0)
+    if fixed > world:
+        raise ValueError(f"mesh {sizes} needs {fixed} devices, have {world} (a rank a "
+                         f"device): start the ranks with parallel.launch --nproc-per-node "
+                         f"{fixed}")
     if not sizes:
         if world == 1:
             return None
@@ -255,6 +265,9 @@ class Trainer:
         self.mesh = resolve_mesh(cfg.system, cfg.training.batch_size)
         self.rank, self.world = world_rank(), world_size()
         self.is_chief = self.rank == 0
+        # the loader's position among the data ranks (a tp group shares one)
+        self.data_index, self.data_count = data_coords(self.mesh)
+        self.data_writer = self.mesh is None or self.mesh.coord("tp") == 0
         # the ranks' stop decisions travel on the host (a gloo group), so
         # agreeing on one costs no device sync
         self._ctrl_group = None
@@ -325,8 +338,9 @@ class Trainer:
 
         self.data = build_data_manager(cfg, self.tokenizer, cfg.training.batch_size,
                                        seq_len=cfg.data.max_context_size,
-                                       seed=cfg.system.seed, process_index=self.rank,
-                                       process_count=self.world)
+                                       seed=cfg.system.seed,
+                                       process_index=self.data_index,
+                                       process_count=self.data_count)
         # the position the step loop consumed, once train() runs
         self.prefetcher: Optional[DevicePrefetcher] = None
         if cfg.training.iters:
@@ -614,10 +628,11 @@ class Trainer:
         # manifest lists the sidecars).
         full = self._full_state()
         if self.mesh is not None:
-            os.makedirs(self.checkpoints.checkpoint_dir, exist_ok=True)
-            _atomic_json(os.path.join(self.checkpoints.checkpoint_dir,
-                                      f"step_{step}_data_p{self.rank}.json"),
-                         self._data_state())
+            if self.data_writer:  # one sidecar a data rank
+                os.makedirs(self.checkpoints.checkpoint_dir, exist_ok=True)
+                _atomic_json(os.path.join(self.checkpoints.checkpoint_dir,
+                                          f"step_{step}_data_p{self.data_index}.json"),
+                             self._data_state())
             process_barrier(f"checkpoint_{step}_sidecars")
         if not self.is_chief:
             return
@@ -695,7 +710,7 @@ class Trainer:
         replays no document."""
         from ..data.streaming import remap_data_states
 
-        pindex, pcount = self.rank, self.world
+        pindex, pcount = self.data_index, self.data_count
         sidecars = self.checkpoints.data_sidecar_states(tag)
         if sidecars:
             old_world = len(sidecars)
@@ -926,7 +941,7 @@ class Trainer:
                 if dry:
                     self.logger.log(f"Data stream exhausted before step {step}; stopping")
                     break
-                step_tokens *= self.world  # every rank trains as many rows
+                step_tokens *= self.data_count  # every data rank trains as many rows
                 window_tokens += step_tokens
                 self.total_tokens += step_tokens
                 for k in window_waits:
@@ -1031,14 +1046,25 @@ class Trainer:
             self.data.stop()  # a streaming loader's producer thread
         if self.stats_client is not None:
             self.stats_client.close()
+        mine = {"kernel_launches": kernel_launches(),
+                "peak_device_mem_gb": (torch.cuda.max_memory_allocated(self.device) / 1e9
+                                       if self.device.type == "cuda" else None),
+                # this rank's query heads (its tp block of them)
+                "attention_heads": (self.state["params"]["layers"][0]["attention"]["wq"]
+                                    ["weight"].shape[-1] // self.model_args.head_dim
+                                    if self.state["params"]["layers"] else None)}
+        by_rank = None
+        if self._ctrl_group is not None:  # every rank's, in the chief's run_end
+            import torch.distributed as dist
+
+            by_rank = [None] * self.world
+            dist.all_gather_object(by_rank, mine, group=self._ctrl_group)
         if self.events is not None:
             self.events.append(
                 "run_end", step=step, total_tokens=int(self.total_tokens),
                 final_loss=last_loss, goodput_totals={
                     k: round(v, 4) for k, v in self.goodput.totals().items()},
-                kernel_launches=kernel_launches(),
-                peak_device_mem_gb=(torch.cuda.max_memory_allocated(self.device) / 1e9
-                                    if self.device.type == "cuda" else None))
+                ranks=by_rank, **mine)
             self.events.close()
             self.events = None
         self.logger.log("Training complete")

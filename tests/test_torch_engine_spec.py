@@ -262,13 +262,22 @@ def test_engine_config_from_yaml_reads_serve_sample():
 @pytest.mark.parametrize("knob,value,item", [
     ("mesh", {"tp": 2}, "item 10"), ("mesh", "tp=2,dp=1", "item 10")])
 def test_engine_config_refuses_what_is_not_ported(tmp_path, knob, value, item):
+    """A tp mesh is ported (item 10a): the config takes it, and an engine
+    outside a launched world of enough ranks names the launcher; a dp axis
+    still refuses, naming 10a-dp."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.mesh import build_serve_mesh
+
     path = tmp_path / "serve.json"
     section = {"trace": {"enabled": value}} if knob == "trace" else {knob: value}
     path.write_text(json.dumps({"serve": section}))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        EngineConfig(**{knob: value})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        EngineConfig.from_yaml(str(path))
+    want = {"tp": 2, "dp": 1} if isinstance(value, str) else value
+    assert EngineConfig(**{knob: value}).mesh == want
+    cfg = EngineConfig.from_yaml(str(path))
+    assert cfg.mesh == want
+    with pytest.raises(ValueError, match="parallel.launch --nproc-per-node 2"):
+        build_serve_mesh(cfg.mesh)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}a-dp"):
+        EngineConfig(**{knob: dict(want, dp=2)})
     assert EngineConfig(mesh="tp=1,dp=1").mesh == {"tp": 1, "dp": 1}
 
 

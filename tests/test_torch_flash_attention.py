@@ -185,6 +185,31 @@ def test_kernel_check_passes_bf16_rounding_and_rejects_a_skipped_tile():
     assert not fault["ok"] and fault["limit_ratio"] > 10, fault
 
 
+def test_no_worse_than_plain_holds_a_kernel_to_float64_beside_the_plain_version():
+    # kernel_check.no_worse_than_plain arbitrates a bf16 miss: a dQ that
+    # rounds at other points than the bf16 plain version (here: computed in
+    # fp32, rounded once) is within the bf16 limit of the plain version's
+    # distance from the float64 evaluation and passes; the planted fault
+    # (the last 64 rows' dQ zeroed) is far past it and fails.
+    rng = np.random.default_rng(1)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 4, 256, 32))
+                                    .astype(np.float32)).bfloat16() for _ in range(4))
+    kw = dict(mask_type="causal", scale=32 ** -0.5)
+    o, lse = tf.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    plain = tf.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    exact = tf.flash_bwd_dq_plain(q.double(), k.double(), v.double(), do.double(),
+                                  lse.double(), delta.double(), **kw)
+    f32 = tf.flash_bwd_dq_plain(q.float(), k.float(), v.float(), do.float(), lse,
+                                delta, **kw).bfloat16()
+    good = kernel_check.no_worse_than_plain(f32, plain, exact)
+    assert good["ok"] and good["limit_ratio"] <= 1.0, good
+    bad = plain.clone()
+    bad[:, :, -64:] = 0
+    fault = kernel_check.no_worse_than_plain(bad, plain, exact)
+    assert not fault["ok"] and fault["limit_ratio"] > 10, fault
+
+
 def test_planted_fault_drops_one_tile_and_restores_the_plan():
     plan = tf._plan("causal", 0, 0, 1024, 64, torch.device("cpu"))
     with kernel_check.planted_fault():

@@ -100,7 +100,7 @@ def test_mesh_spec_parsing_and_serve_mesh_equal_jax():
     assert tmesh.build_serve_mesh(None) is None and tmesh.build_serve_mesh("tp=1,dp=1") is None
     with pytest.raises(ValueError, match="trainer-only"):
         tmesh.build_serve_mesh({"fsdp": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10a"):
+    with pytest.raises(ValueError, match="parallel.launch"):  # a world of one rank
         tmesh.build_serve_mesh("tp=2")
 
 
@@ -321,10 +321,17 @@ def test_a_coordinator_that_never_answers_raises_within_its_deadline():
 @pytest.mark.parametrize("axis,item", [("tp", "10a"), ("ep", "10b"), ("sp", "10c"),
                                        ("pp", "10d")])
 def test_unported_axes_are_refused_naming_their_item(tmp_path, axis, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        resolve_mesh(SimpleNamespace(mesh={"dp": -1, axis: 2}, model_parallel=False), 8)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
+    cfg = SimpleNamespace(mesh={"dp": -1, axis: 2}, model_parallel=False)
+    if axis == "tp":  # ported (item 10a): one rank lacks the mesh's ranks
+        with pytest.raises(ValueError, match="needs 2 devices, have 1.*parallel.launch "
+                                             "--nproc-per-node 2"):
+            resolve_mesh(cfg, 8)
         tmesh.refuse_unported_axes({axis: 4})
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
+            resolve_mesh(cfg, 8)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
+            tmesh.refuse_unported_axes({axis: 4})
     tmesh.refuse_unported_axes({"dp": 4, "fsdp": 2, axis: 1})  # size 1 is no axis
     # one rank, no mesh: the one-device path
     assert resolve_mesh(SimpleNamespace(mesh={}, model_parallel=False), 8) is None

@@ -355,7 +355,9 @@ def test_moe_trainer_runs_and_its_run_loads_in_jax(tmp_path, impl):
 
 def test_moe_trainer_refuses_int8_grouped_gemms(tmp_path):
     # int8 grouped GEMMs are ported (tests/test_torch_int8_train.py trains
-    # them): the trainer builds; model parallelism still refuses
+    # them): the trainer builds; model parallelism (a tp axis, ROADMAP item
+    # 10a: tests/test_torch_tp_train.py) needs its ranks, and one rank
+    # names the launcher
     d = _moe_config(tmp_path)
     d["model"]["matmul_precision"] = "int8"
     tr = Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r"), quiet=True,
@@ -363,6 +365,6 @@ def test_moe_trainer_refuses_int8_grouped_gemms(tmp_path):
     assert tr.model_args.matmul_precision == "int8"
     d["system"]["model_parallel"] = True
     d["system"]["model_parallel_size"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1.*parallel.launch"):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r"), quiet=True,
                 device="cpu")

@@ -309,9 +309,14 @@ def test_fleet_endpoints_answer_as_jax(fleet_servers, np_params, tmp_path, endpo
 
 @pytest.mark.parametrize("spec", ["tp=2", "dp=2,tp=1"])
 def test_a_multi_device_serving_mesh_still_refuses_naming_item_10(spec):
-    """``--mesh`` is ROADMAP queue 1 item 10 (multi-GPU): refused before any
-    weight loads; a one-device mesh serves."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    """``--mesh`` is refused before any weight loads where it cannot serve:
+    a tp mesh outside a launched world of enough ranks names the launcher
+    (item 10a is ported: ``tests/test_torch_tp_serve.py`` serves it under
+    ``parallel.launch``), a dp axis names ROADMAP queue 1 item 10a-dp; a
+    one-device mesh serves."""
+    err, match = ((ValueError, "parallel.launch") if spec == "tp=2"
+                  else (NotImplementedError, "ROADMAP queue 1 item 10a-dp"))
+    with pytest.raises(err, match=match):
         tserver.main(["--config", os.path.join(REPO, "configs", "model-config-sample.yaml"),
                       "--engine", "batch", "--device", "cpu", "--mesh", spec])
     assert EngineConfig(mesh="tp=1,dp=1").mesh == {"tp": 1, "dp": 1}

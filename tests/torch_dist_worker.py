@@ -19,12 +19,24 @@ Tasks:
 - ``moe``: the MoE model of ``spec.json``'s ``moe`` (router losses, routing
   stats) 3 steps from ``moe_init.npz`` at each of its meshes.
 
+- ``tp``: every case of ``spec.json``'s ``tp`` (a model of ``tp_models``,
+  a mesh with a tp axis, ZeRO level, CE chunk, z-loss, remat, training),
+  5 steps from ``tp_<model>.npz``.
+- ``tpckpt``: {tp: 4} ZeRO-1 on ``tp_ckpt_model``: steps 1-3, a save,
+  steps 4-5; and steps 4-5 from the JAX package's step-3 files in
+  ``tp_ckpt_jax/``.
+- ``tpresume``: steps 4-5 from the port's tp step-3 files on
+  ``spec.json``'s ``tp_resume_mesh`` (``{}`` on one rank).
+- ``tpgrad``: one backward on {tp: 4} (and {dp: 2, tp: 2}); every rank's
+  gradient of each tp-replicated leaf, gathered to rank 0.
+
 TASK may name several, comma-separated, run in order in one world.
 """
 
 import json
 import os
 import sys
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -134,9 +146,9 @@ def save_checkpoint(ckpt_dir, step_no, state, step, mesh):
         mgr.save(step_no, full["params"], full["opt_state"], {"step": step_no})
 
 
-def load_checkpoint(ckpt_dir, step_no, state, step, mesh, opt):
+def load_checkpoint(ckpt_dir, step_no, state, step, mesh, opt, init="init.npz"):
     like_p = tree_map(lambda p: torch.empty(p.shape, device="meta"),
-                      params_from_flat(load_flat("init.npz"), "cpu"))
+                      params_from_flat(load_flat(init), "cpu"))
     params, opt_state, _ = CheckpointManager(ckpt_dir).load(
         step_no, like_params=like_p, like_opt_state=opt.init(like_p), strict=True)
     from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import load_into
@@ -166,8 +178,89 @@ def moe_task():
              loads=np.array(loads), **{"p." + k: v for k, v in flat_numpy(full["params"]).items()})
 
 
+def tp_loss(model, case):
+    margs = tl.LlamaArgs(**SPEC["tp_models"][model])
+    return margs, ts.make_loss_fn(margs, torch.float32, ce_chunk=case.get("ce", 0),
+                                  z_loss_weight=case.get("z", 0.0), remat=case.get("remat"),
+                                  with_moe_stats=margs.is_moe)
+
+
+def tp_step(case, model):
+    margs, loss = tp_loss(model, case)
+    init = f"tp_{model}.npz"
+    mesh, opt, step = step_fn(case["mesh"], case["zero"], False, init, loss,
+                              margs.num_local_experts, case.get("training"))
+    return mesh, opt, step, init
+
+
+def tp_ckpt_task():
+    case = SPEC["tp_ckpt"]
+    mesh, opt, step, init = tp_step(case, case["model"])
+    state, first = run_steps(mesh, step, fresh_state(mesh, opt, step, init), range(3))
+    save_checkpoint(os.path.join(OUT, "tp_ckpt_port"), 3, state, step, mesh)
+    state, rest = run_steps(mesh, step, state, range(3, 5))
+    write_result("tp_ckpt_uninterrupted.npz", state, step, mesh, first + rest)
+    ready = os.path.join(OUT, "tp_ckpt_jax", ".ready")  # the test writes JAX's files
+    deadline = time.monotonic() + 300
+    while not os.path.exists(ready) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    state = load_checkpoint(os.path.join(OUT, "tp_ckpt_jax"), 3,
+                            fresh_state(mesh, opt, step, init), step, mesh, opt, init)
+    state, rest = run_steps(mesh, step, state, range(3, 5))
+    write_result("tp_from_jax.npz", state, step, mesh, rest)
+
+
+def tp_resume_task():
+    case = dict(SPEC["tp_ckpt"], mesh=SPEC["tp_resume_mesh"], zero=1)
+    mesh, opt, step, init = tp_step(case, case["model"])
+    state = load_checkpoint(os.path.join(OUT, "tp_ckpt_port"), 3,
+                            fresh_state(mesh, opt, step, init), step, mesh, opt, init)
+    state, rest = run_steps(mesh, step, state, range(3, 5))
+    name = "_".join(f"{k}{v}" for k, v in SPEC["tp_resume_mesh"].items()) or "one"
+    write_result(f"tp_resume_{name}.npz", state, step, mesh, rest)
+
+
+def tp_grad_task():
+    """The gradients of the tp-replicated leaves (norms, router) on every
+    rank after one backward, for each model and mesh of ``tp_grad``."""
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.collectives import spec_axes
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.context import use_mesh
+    from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import leaves_with_path
+
+    for case in SPEC["tp_grad"]:
+        mesh, opt, step, init = tp_step(dict(case, zero=0), case["model"])
+        state = fresh_state(mesh, opt, step, init)
+        b = {k: v.contiguous() for k, v in ts.local_rows(batches()[0], mesh).items()}
+        count = b["mask"].sum().clamp_min(1.0) * mesh.size  # any common count
+        _, loss = tp_loss(case["model"], case)
+        with use_mesh(mesh):
+            l, _ = loss(state["params"], dict(b, global_count=count))
+            l.backward()
+        specs = dict(zip([k for k, _ in leaves_with_path(state["params"])],
+                         [s for _, s in ts.spec_items(step.shardings["params"])]))
+        out = {}
+        for k, p in leaves_with_path(state["params"]):
+            if spec_axes(specs[k]):
+                continue
+            got = [torch.empty_like(p.grad) for _ in range(mesh.size)]
+            dist.all_gather(got, p.grad.contiguous())
+            out[".".join(k)] = torch.stack(got).numpy()
+        save(f"tp_grad_{case['name']}.npz", **out)
+
+
 for TASK in TASKS:
-    if TASK == "moe":
+    if TASK == "tp":
+        for case in SPEC["tp"]:
+            mesh, opt, step, init = tp_step(case, case["model"])
+            state, metrics = run_steps(mesh, step, fresh_state(mesh, opt, step, init), range(5))
+            write_result(f"tp_{case['name']}.npz", state, step, mesh, metrics)
+    elif TASK == "tpckpt":
+        tp_ckpt_task()
+    elif TASK == "tpresume":
+        tp_resume_task()
+    elif TASK == "tpgrad":
+        tp_grad_task()
+    elif TASK == "moe":
         moe_task()
     elif TASK == "train":
         for case in SPEC["train"]:
