@@ -241,8 +241,8 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    (every layer's forward, the remat'd ones again, every layer's dQ and
    dK/dV) and the trace no plain attention (einsum/bmm/sdpa) op; every
    flash launch of run A (its ``run_end`` event) on wgmma; the rank's
-   sidecar ``step_10_data_p0.json`` in the chief's manifest. Then two
-   ranks on the one card: NCCL refuses them, gloo forms the group; step 1
+   sidecar ``step_10_data_p0.json`` in the chief's manifest. Beside run B,
+   two ranks on the one card: NCCL refuses them, gloo forms the group; step 1
    of the {fsdp: 2} step (``scripts/profile_torch_train.py --steps 0``, 2
    layers) on two gloo ranks must give one NCCL rank's within 1e-5. Prints
    step ms, tok/s, MFU and peak memory beside the card.
@@ -261,6 +261,34 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    resumed at step 8 on the 4 ranks, gives A's losses within 1e-5. Prints
    step ms, tok/s and each rank's peak memory beside the card (gloo through
    the host sets the pace).
+7d. ep     — configs/model-config-moe-1b.yaml at full width (hidden 2048,
+   intermediate 5632, 16 heads of 128, S 2048, 8 experts top-2, AdamW,
+   ZeRO-1, remat "dots") on its own mesh ``{ep: 8, fsdp: -1}`` over 8 gloo
+   ranks on the one card (``ep_phase(..., EP8)``; fsdp resolves to 1),
+   right after 7c and beside 6c (each phase in a thread of its own: their
+   ranks are processes of their own and the card holds both, so their
+   step times are taken side by side). Cut: 2 of 16 layers, batch 8 of 32 (1 row a rank), 3
+   steps (warmup 2), each cut printed. The reference: the same cut on one
+   rank with no mesh in this process, on the ranks' global batches. Gates:
+   step 1's loss and gradient norm within 2e-3 / 2e-2 relative (bitwise
+   printed; steps 2-3 printed beside the reference's); every rank holds 1
+   expert a layer and launched every gmm and tgmm on wgmma at the receive
+   buffer's 32,896 rows; no drop. Prints step ms, tok/s, each rank's peak
+   memory and the all_to_all bytes a step beside the one rank's step.
+6c. ep     — configs/model-config-moe-8x40m.yaml on its own mesh ``{dp: -1,
+   ep: 4}`` over 4 gloo ranks (``ep_phase(..., EP4)``; dp resolves to 1),
+   beside 7d, at full width (hidden 512, intermediate 1536, 8 experts top-2,
+   S 1024, bf16 over fp32 masters, AdamW, remat "dots", ZeRO-1). Cut: 4 of
+   12 layers, batch 8 of 32 (2 rows a rank), 12 steps (warmup 2), a
+   checkpoint at 6. Gates as 7d's at 2 experts and 16,640 rows, and the
+   loss below 0.9 x step 1's; run B, resumed at 6, gives A's losses within
+   1e-5; then arm C at ``ep_capacity_factor`` 1.0 (3 steps) drops selections on
+   every step, its ``moe_dropped_tokens_total`` (``run_end``) is their sum,
+   its losses finite. Phase 3 holds the gmm (gate/up, down, both dX) and
+   tgmm at both phases' per-rank shapes (E/ep groups over the ``ep * cap``
+   buffer, about TK of its rows real; ``ep_kernel_cases``), each timed
+   beside its plain version and ``torch._grouped_mm`` with its bound over
+   the real rows and over the buffer.
 8. flex    — this slice's paths. (a) configs/model-config-100m-muon.yaml at
    full width (hidden 768, 12 layers, 12 heads of 64, S 1024, batch 32,
    bf16 over fp32 masters, flash attention, Muon with Nesterov, 5 NS steps,
@@ -362,15 +390,25 @@ Phases (any failed check exits non-zero and prints no result on stdout):
    H 16) with phase 7b's, whose planted fault must also fail the float64
    arbiter that decides a miss there; the fp32 gmm at moe-8x40m's tp=2 widths, ``gmm_<variant>:tp2_*``,
    with rank 0's launches at that shape in phase 4e and rank 1's beside
-   them), the card line, and as the last line
+   them; the gmm and tgmm at phases 7d's and 6c's per-rank shapes,
+   ``gmm_wgmma:ep8_*`` / ``ep4_*`` and ``tgmm_wgmma:ep8_*`` / ``ep4_*``,
+   with rank 0's launches at that shape in run A (every rank's beside them;
+   a gmm shape serves one product's forward and the other's dX) and the
+   bounds over the real rows and over the buffer), the card line, and as
+   the last line
    ``{"ok": true, "device": {...}}``. fp32 operation bounds are reckoned at
    495 / 3 TFLOP/s (3xTF32), the card's fastest fp32-accurate rate.
 
 Every path runs with all launch counts set to 0 just before it and read
-just after. fp32 matmuls run in full fp32: TF32 is switched off for matmuls
+just after. Every process the smoke starts carries its run id in the
+environment (``CHIP_SMOKE_RUN_ID``); the launchers run in process groups of
+their own, killed whole when they end, and on the way out the smoke kills
+whatever still carries the id (Inductor's compile workers, a rank whose
+launcher died), names it on stderr, and waits until it is gone. fp32 matmuls run in full fp32: TF32 is switched off for matmuls
 and cuDNN. Imports nothing of JAX.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -407,8 +445,12 @@ FLASH_REPLACES = {
 FLASH_KERNELS = tuple(FLASH_REPLACES)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the smoke started."""
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -417,6 +459,67 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+RUN_ID_VAR = "CHIP_SMOKE_RUN_ID"
+
+
+def own_processes(run_id: str) -> list:
+    """``(pid, command line)`` of every other live process whose environment
+    carries this run's id: whatever the smoke started, at any depth, also
+    one whose parent died first."""
+    mark = f"{RUN_ID_VAR}={run_id}".encode()
+    found = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as f:
+                if mark not in f.read().split(b"\0"):
+                    continue  # a zombie's environment reads empty
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        found.append((int(name), cmd))
+    return found
+
+
+def stop_leftovers(run_id: str, timeout: float = 30.0) -> list:
+    """Kill every process that :func:`own_processes` finds, reap this
+    process's own children, and wait (at most ``timeout`` seconds) until
+    none is left. Returns what was found at the start."""
+    import signal
+
+    left = own_processes(run_id)
+    deadline = time.monotonic() + timeout
+    while True:
+        alive = own_processes(run_id)
+        for pid, _ in alive:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        try:
+            while os.waitpid(-1, os.WNOHANG)[0]:
+                pass
+        except ChildProcessError:
+            pass
+        if not alive or time.monotonic() > deadline:
+            return left
+        time.sleep(0.1)
+
+
+def kill_group(proc) -> None:
+    """Kill ``proc`` and everything in its process group (started with
+    ``start_new_session=True``: a launcher and its ranks), then reap it."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except OSError:  # the group is empty
+        pass
+    proc.wait()
 
 
 def reset_launches(gm, fa) -> None:
@@ -683,7 +786,7 @@ def fmt_earlier(row) -> str:
 
 
 def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans,
-                   fault=False):
+                   fault=False, block_t=TRAIN_BLOCK_T):
     """One bf16 gmm product of the training path: the forward ``x [rows, K]
     @ w[e] [K, N]``, or with ``w_trans`` the backward's dX ``dy [rows, K] @
     w[e]^T`` with w stored ``[E, N, K]`` (the forward's weights, read in
@@ -701,9 +804,9 @@ def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans,
     w_kn = w.transpose(1, 2) if w_trans else w
     gs = sizes.to("cuda")
     before = dict(gm.gmm.launches_by_variant)
-    out = gm._gmm_forward(x, w, gs, TRAIN_BLOCK_T, w_trans)
+    out = gm._gmm_forward(x, w, gs, block_t, w_trans)
     ran = launched_since(before, gm.gmm.launches_by_variant)
-    ref = gm.gmm_plain(x, w_kn, gs, TRAIN_BLOCK_T)
+    ref = gm.gmm_plain(x, w_kn, gs, block_t)
     torch.cuda.synchronize()
     check = kernel_check.compare(out, ref)
     ok = check["ok"] and not out[live:].any().item()
@@ -711,13 +814,13 @@ def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans,
         ok = False
         log(f"gmm {name}: ran {ran}, not the wgmma kernel")
     vs_wmma = against_earlier(
-        torch, out, earlier_gmm(torch, gm, x, w, gs, TRAIN_BLOCK_T, w_trans))
+        torch, out, earlier_gmm(torch, gm, x, w, gs, block_t, w_trans))
     log(f"gmm {name}: wgmma vs WMMA output {vs_wmma}")
     del out
     bad = None
     if fault:
         bad = kernel_check.compare(
-            kernel_check.gmm_skipping_a_tile(x, w, gs, TRAIN_BLOCK_T, w_trans), ref)
+            kernel_check.gmm_skipping_a_tile(x, w, gs, block_t, w_trans), ref)
         log(f"gmm {name} planted fault (last live row tile skipped): "
             f"limit_ratio={bad['limit_ratio']:.3g} norm={bad['norm_err']:.3g} "
             f"rejected={not bad['ok']}")
@@ -732,13 +835,13 @@ def train_gmm_case(torch, gm, kernel_check, name, K, N, sizes, rows, w_trans,
             torch, lambda: grouped_mm(x, w_kn, offs=offs))
     used = int((sizes > 0).sum())
     row = gemm_row(
-        torch, lambda: gm._gmm_forward(x, w, gs, TRAIN_BLOCK_T, w_trans),
-        lambda: gm.gmm_plain(x, w_kn, gs, TRAIN_BLOCK_T), library,
+        torch, lambda: gm._gmm_forward(x, w, gs, block_t, w_trans),
+        lambda: gm.gmm_plain(x, w_kn, gs, block_t), library,
         (live * K + used * K * N + rows * N) * 2 + 4 * E, 2.0 * live * K * N,
         "bfloat16",
-        earlier=lambda: earlier_gmm(torch, gm, x, w, gs, TRAIN_BLOCK_T, w_trans))
+        earlier=lambda: earlier_gmm(torch, gm, x, w, gs, block_t, w_trans))
     case = {"case": name, "dtype": "bfloat16", "shape": [rows, K, N, E],
-            "block_t": TRAIN_BLOCK_T, "w_trans": w_trans, "variants": ran,
+            "block_t": block_t, "w_trans": w_trans, "variants": ran,
             "vs_wmma": vs_wmma, "max_abs_err": check["max_abs_err"], "check": check,
             "planted_fault": bad, "ok": bool(ok),
             "library": "torch._grouped_mm" if library else note, **row}
@@ -2979,7 +3082,7 @@ def tp_serve_phase(torch, gm, fa, card, served, device: str = "cuda",
         t0 = time.perf_counter()
         with open(out_path, "w") as out:
             proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
-                                    stderr=subprocess.STDOUT)
+                                    stderr=subprocess.STDOUT, start_new_session=True)
         try:
             for i, (name, _, _) in enumerate(TP_SERVE_ARMS):
                 url = None
@@ -3008,9 +3111,7 @@ def tp_serve_phase(torch, gm, fa, card, served, device: str = "cuda",
         except subprocess.TimeoutExpired:
             rc = 124
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            kill_group(proc)
         wall = time.perf_counter() - t0
         records = {}
         for i, (name, _, _) in enumerate(TP_SERVE_ARMS):
@@ -3468,8 +3569,8 @@ def config_moe(tmp: str, steps: int, warmup: int) -> dict:
     """configs/model-config-moe-8x40m.yaml written out as a dict, with the
     smoke's cuts: ``iters``, ``warmup_steps``, the log, validation and
     checkpoint intervals, and the corpus paths. ``system.mesh`` ({dp: -1,
-    ep: 4}: expert parallelism over four devices) is dropped, since the
-    port trains on one GPU and refuses a mesh that needs more; so is
+    ep: 4}: expert parallelism over four ranks, phase 6c) is dropped: this
+    phase trains in the smoke's process on one device; so is
     ``system.device``. Every width is the config's."""
     cfg = config_40m(tmp, steps, warmup)
     cfg["name"] = "Llama-MoE (8x40M)"
@@ -4343,20 +4444,20 @@ def read_events(run_dir: str) -> list:
 
 
 def child_run(cmd: list, out_path: str, timeout: float) -> int:
-    """A child process of the smoke, its output into ``out_path``; killed at
-    ``timeout`` (124). The children allocate with expandable segments: the
+    """A child process of the smoke in a process group of its own, its output
+    into ``out_path``; the group is killed when it ends or at ``timeout``
+    (124). The children allocate with expandable segments: the
     1b-fsdp step peaks within 2 GB of the card's 80."""
     env = dict(os.environ, PYTHONPATH=REPO, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     with open(out_path, "w") as out:
-        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
         try:
             return proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             return 124
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            kill_group(proc)  # a launcher's ranks too, should it have died first
 
 
 def profiled_flash(label: str, run_dir: str, window, per_step: dict):
@@ -4606,10 +4707,16 @@ def fsdp_1b_phase(torch, gm, fa, card, device: str = "cuda"):
                            logging=dict(cfg["logging"], profile_start=0, profile_stop=0,
                                         steps=dict(cfg["logging"]["steps"],
                                                    checkpoint_interval=0))), f)
+        # the two ranks on the card run beside run B: neither times what the
+        # other reads, and the card holds both
         t0 = time.perf_counter()
-        rc_b = child_run(launch_cmd(1, "--device", device, "--config",
-                                    os.path.join(tmp, "b.json"), "--runs-root", runs),
-                         os.path.join(tmp, "b.out"), 900)
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            b_job = pool.submit(child_run, launch_cmd(1, "--device", device, "--config",
+                                                      os.path.join(tmp, "b.json"),
+                                                      "--runs-root", runs),
+                                os.path.join(tmp, "b.out"), 900)
+            two = two_ranks_on_one_card(tmp, card, device)
+            rc_b = b_job.result()
         wall_b = time.perf_counter() - t0
         events_b = read_events(run_dir)[len(events):]
         losses_b = {e["step"]: e["loss"] for e in events_b if e.get("type") == "step_window"}
@@ -4617,7 +4724,8 @@ def fsdp_1b_phase(torch, gm, fa, card, device: str = "cuda"):
         rel = {st: abs(x - losses_a[st]) / abs(losses_a[st]) for st, x in losses_b.items()}
         max_rel = max(rel.values()) if rel else float("nan")
         resume_bitwise = bool(rel) and all(losses_b[st] == losses_a[st] for st in rel)
-        log(f"fsdp: run B (resumed at {CKPT_FSDP}) exit {rc_b} in {wall_b:.1f}s, steps "
+        log(f"fsdp: run B (resumed at {CKPT_FSDP}, beside the two ranks) exit {rc_b} in "
+            f"{wall_b:.1f}s, steps "
             f"{sorted(losses_b)}; losses vs run A: max relative difference {max_rel:.3g}, "
             f"bitwise {resume_bitwise}")
         if rc_b != 0 or sorted(losses_b) != list(range(CKPT_FSDP + 1, STEPS_FSDP + 1)) \
@@ -4646,7 +4754,6 @@ def fsdp_1b_phase(torch, gm, fa, card, device: str = "cuda"):
                 "launches": {k: launched.get(k, 0) for k in FLASH_KERNELS},
                 "profiled_flash_kernels": seen, "flash_launches_a_step": per_step,
                 "n_chips": run_start.get("n_chips")}
-        two = two_ranks_on_one_card(tmp, card, device)
         perf["two_ranks_one_card"] = two
         if not two["two_ranks_gloo"].get("loss_rel", 1.0) <= 1e-5:
             failures.append(f"fsdp: two gloo ranks on one card against one rank: {two}")
@@ -4886,6 +4993,461 @@ def tp_1b_phase(torch, gm, fa, card, device: str = "cuda"):
             f"every sum over tp, so gloo sets this pace, not the card [{card}]")
     log(f"tp: the phase took {perf['seconds']:.1f}s")
     return failures, perf
+
+
+# -- phases 6c and 7d: expert parallelism over gloo ranks on the one card ---------
+# 6c: moe-8x40m on {dp: -1, ep: 4}; 7d: moe-1b on {ep: 8, fsdp: -1}. NCCL
+# refuses two ranks on one device, so the ranks are gloo ranks on cuda:0 and
+# every all_to_all crosses the host.
+EP4 = dict(label="ep4", ranks=4, layers=4, rows=2, steps=12, ckpt=6, arm_steps=3,
+           ref_steps=4, loss_falls=True, D=512, I=1536, E=8)
+EP8 = dict(label="ep8", ranks=8, layers=2, rows=1, steps=3, ckpt=None, arm_steps=0,
+           ref_steps=3, loss_falls=False, D=2048, I=5632, E=8)
+
+
+def ep_geometry(gm, spec, seq: int, k: int = 2) -> dict:
+    """A rank's dispatch geometry at a phase's cut: its selections TK (rows
+    x S x top-k), the send slots ``cap`` (TK at factor 0), the receive
+    buffer ``ep * cap``, the gmm tile and the gmm's row count ``T_buf``."""
+    ep, e_loc = spec["ranks"], spec["E"] // spec["ranks"]
+    tk = spec["rows"] * seq * k
+    rows = ep * tk
+    bt = gm.pick_block_t(rows, e_loc)
+    return {"tk": tk, "recv_rows": rows, "e_loc": e_loc, "block_t": bt,
+            "t_buf": gm.round_up(rows + e_loc * (bt - 1), bt)}
+
+
+def ep_bounds(K, N, live, rows, used, tgmm=False, es=2) -> dict:
+    """The bound over the real rows and over the whole receive buffer (the
+    gmm reads and writes every buffer row: its tail tiles write zeros)."""
+    ops = 2.0 * live * K * N / PEAK_FLOPS["bfloat16"] * 1e3
+    if tgmm:
+        real, buf = (live * (K + N) + used * K * N) * es, (rows * (K + N) + used * K * N) * es
+    else:
+        real = (live * K + used * K * N + live * N) * es
+        buf = (rows * K + used * K * N + rows * N) * es
+    return {"bound_real_ms": max(real / HBM_BYTES_S * 1e3, ops),
+            "bound_buffer_ms": max(buf / HBM_BYTES_S * 1e3, ops)}
+
+
+def ep_kernel_cases(torch, gm, kernel_check) -> dict:
+    """The gmm (gate/up, down, both dX) and tgmm cases at each ep phase's
+    per-rank shape: E/ep groups over the ``ep * cap``-row receive buffer,
+    of which about TK rows are real (a uniform routing draw)."""
+    rng = torch.Generator().manual_seed(SEED + 7)
+    out = {}
+    for spec, seq in ((EP4, 1024), (EP8, 2048)):
+        g = ep_geometry(gm, spec, seq)
+        D, I, bt, rows = spec["D"], spec["I"], g["block_t"], g["t_buf"]
+        sizes, _ = routed_sizes(torch, rng, g["tk"], g["e_loc"], bt)
+        p = spec["label"]
+        gmm = [train_gmm_case(torch, gm, kernel_check, f"{p}_gate_up", D, I, sizes, rows,
+                              False, fault=True, block_t=bt),
+               train_gmm_case(torch, gm, kernel_check, f"{p}_down", I, D, sizes, rows, False,
+                              block_t=bt),
+               train_gmm_case(torch, gm, kernel_check, f"{p}_dx_gate_up", I, D, sizes, rows,
+                              True, block_t=bt),
+               train_gmm_case(torch, gm, kernel_check, f"{p}_dx_down", D, I, sizes, rows, True,
+                              block_t=bt)]
+        tgmm = [tgmm_case(torch, gm, kernel_check, f"{p}_gate_up", "bfloat16", D, I, sizes,
+                          rows, bt, "wgmma", fault=True),
+                tgmm_case(torch, gm, kernel_check, f"{p}_down", "bfloat16", I, D, sizes, rows,
+                          bt, "wgmma")]
+        live, used = int(sizes.sum()), int((sizes > 0).sum())
+        for c in gmm + tgmm:
+            K, N = c["shape"][1], c["shape"][2]
+            c.update(ep_bounds(K, N, live, rows, used, tgmm=c in tgmm), geometry=g)
+            log(f"{p}: {c['case']} ({'tgmm' if c in tgmm else 'gmm'}) {c['ms']:.4f} ms; bound "
+                f"over the {live} real rows {c['bound_real_ms']:.4f} ms, over the buffer's "
+                f"{rows} rows {c['bound_buffer_ms']:.4f} ms")
+        out[p] = {"gmm": gmm, "tgmm": tgmm, "geometry": g}
+    return out
+
+
+def config_moe_ep4(tmp: str) -> dict:
+    """configs/model-config-moe-8x40m.yaml on its own mesh, ``{dp: -1, ep:
+    4}``, with the smoke's cuts: 4 of its 12 layers, 2 rows a rank (a global
+    batch of 8 of 32), 12 steps (of 10,000), warmup 2 (of 500), a log line a
+    step with the gradient norm, a checkpoint at step 6, no validation
+    split. Every width and switch is the config's: hidden 512, intermediate
+    1536, 8 heads of 64, S 1024, 8 experts top-2, ``ep_capacity_factor`` 0,
+    bf16 over fp32 masters, AdamW, remat "dots", ZeRO-1."""
+    cfg = config_moe(tmp, EP4["steps"], 2)
+    cfg["name"] = "Llama-MoE-8x40M-ep4"
+    cfg["data"].pop("validation_file")
+    cfg["model"]["dimensions"]["num_layers"] = EP4["layers"]
+    cfg["model"]["moe"]["ep_capacity_factor"] = 0.0
+    cfg["training"]["hyperparameters"]["batch_size"] = EP4["rows"]
+    cfg["logging"]["steps"] = {"logging_interval": 1, "checkpoint_interval": EP4["ckpt"],
+                               "validation_interval": 0}
+    cfg["logging"]["log_gradient_norm"] = True
+    cfg["system"].update(gradient_checkpointing=True, remat="dots", zero_optimization_level=1,
+                         mesh={"dp": -1, "ep": EP4["ranks"]})
+    return cfg
+
+
+def config_moe_1b(tmp: str) -> dict:
+    """configs/model-config-moe-1b.yaml written out as a dict on its own
+    mesh, ``{ep: 8, fsdp: -1}``, with the smoke's cuts: 2 of its 16 layers,
+    1 row a rank (a global batch of 8 of 32), 3 steps (of 20,000), warmup 2
+    (of 2,000), a log line a step with the gradient norm, no periodic
+    checkpoint and no validation split. Every width and switch is the
+    config's: hidden 2048, intermediate 5632, 16 heads of 128, S 2048, tied
+    embeddings, 8 experts top-2, ``ep_capacity_factor`` 0, flash attention,
+    bf16, AdamW (0.9/0.95, weight decay 0.1, clip 1.0, lr 3e-4), remat
+    "dots", ZeRO-1."""
+    return {
+        "name": "Llama-MoE-1B-ep8", "overwrite": True,
+        "data": {"input_file": os.path.join(tmp, "train.jsonl"),
+                 "tokenizer_path": "tokenizer",
+                 "preprocessing": {"max_context_size": 2048, "chunk_overlap": 128},
+                 "tokenizer": {"normal_vocab_size": 256, "special_tokens": {
+                     "pad": "<pad>", "bos": "<bos>", "eos": "<eos>"}}},
+        "model": {"architecture": "llama",
+                  "dimensions": {"hidden_size": EP8["D"], "intermediate_size": EP8["I"],
+                                 "num_layers": EP8["layers"]},
+                  "attention": {"num_heads": 16, "num_kv_heads": 16, "head_dim": 128,
+                                "max_position_embeddings": 2048,
+                                "use_flash_attention": True},
+                  "normalization": {"rms_norm_eps": 1.0e-5},
+                  "rope": {"theta": 10000, "traditional": False, "scaling": None},
+                  "misc": {"attention_bias": False, "mlp_bias": False,
+                           "tie_word_embeddings": True},
+                  "moe": {"num_local_experts": EP8["E"], "num_experts_per_tok": 2,
+                          "impl": "grouped", "capacity_factor": 1.25,
+                          "aux_loss_weight": 0.01, "router_z_weight": 0.001,
+                          "group_size": 256, "ep_capacity_factor": 0.0}},
+        "training": {"hyperparameters": {"batch_size": EP8["rows"], "learning_rate": 3.0e-4,
+                                         "weight_decay": 0.1, "gradient_clip": 1.0,
+                                         "iters": EP8["steps"]},
+                     "scheduler": {"type": "cosine_with_warmup", "min_lr_ratio": 0.1,
+                                   "warmup_steps": 2},
+                     "optimization": {"optimizer": "adamw", "betas": [0.9, 0.95]}},
+        "logging": {"steps": {"logging_interval": 1, "checkpoint_interval": 0,
+                              "validation_interval": 0},
+                    "log_gradient_norm": True},
+        "system": {"seed": 42, "mixed_precision": True, "precision": "bfloat16",
+                   "gradient_checkpointing": True, "remat": "dots",
+                   "zero_optimization_level": 1,
+                   "mesh": {"ep": EP8["ranks"], "fsdp": -1}},
+    }
+
+
+def ep_reference(torch, gm, fa, cfg: dict, spec: dict, tmp: str, device: str) -> dict:
+    """The same cut config on one rank with no mesh, in this process, for
+    its first ``ref_steps`` steps, each on the global batch the ranks read
+    at that step (each rank's loader at (index i, count ep), their rows in
+    rank order): the losses and gradient norms, and the median of steps
+    2 on in ms, beside the ranks'."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.config import Config
+    from mlx_cuda_distributed_pretraining_tpu_torch.data.streaming import build_data_manager
+    from mlx_cuda_distributed_pretraining_tpu_torch.train.trainer import Trainer
+
+    ranks = spec["ranks"]
+    single = json.loads(json.dumps(cfg))
+    single["name"] = "single"
+    single["system"].pop("mesh")
+    single["training"]["hyperparameters"]["batch_size"] = spec["rows"] * ranks
+    t = Trainer(Config.from_dict(single), runs_root=os.path.join(tmp, "runs_single"),
+                quiet=True, device=device)
+    ccfg = Config.from_dict(cfg)
+    loaders = [build_data_manager(ccfg, t.tokenizer, spec["rows"],
+                                  seq_len=ccfg.data.max_context_size, seed=ccfg.system.seed,
+                                  process_index=i, process_count=ranks) for i in range(ranks)]
+    losses, norms, times, tokens = [], [], [], 0.0
+    for step in range(spec["ref_steps"]):
+        parts = [d.generate_batch(step) for d in loaders]
+        batch = t._device_batch({k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.state, m = t.train_step(t.state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if step:
+            times.append(time.perf_counter() - t0)
+            tokens = float(batch["mask"].sum())
+    out = {"loss": losses[0], "grad_norm": norms[0], "losses": losses, "grad_norms": norms,
+           "step_ms": 1e3 * sorted(times)[len(times) // 2]}
+    out["tok_s"] = tokens / (out["step_ms"] / 1e3)
+    t.events.close()
+    t.logger.close()
+    t.state = None
+    del t, m, batch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "runs_single"), ignore_errors=True)
+    return out
+
+
+def logged_drops(run_dir: str) -> dict:
+    """``{step: moe_drop}`` of the chief's log lines."""
+    out = {}
+    path = os.path.join(run_dir, "log.txt")
+    lines = open(path).read().splitlines() if os.path.isfile(path) else []
+    for line in lines:
+        if "Step " in line and "moe_drop=" in line and ": loss=" in line:
+            step = int(line.split("Step ", 1)[1].split(":", 1)[0])
+            out[step] = int(line.split("moe_drop=", 1)[1].split()[0])
+    return out
+
+
+def ep_rank_rows(run_end: dict) -> list:
+    rows = []
+    for r, rec in enumerate(run_end.get("ranks") or []):
+        kl = (rec or {}).get("kernel_launches") or {}
+        rows.append({"rank": r, "experts": rec.get("experts"),
+                     "peak_mem_gb": rec.get("peak_device_mem_gb"),
+                     "gmm": kl.get("gmm", 0), "tgmm": kl.get("tgmm", 0),
+                     "gmm_by_variant": kl.get("gmm_by_variant") or {},
+                     "tgmm_by_variant": kl.get("tgmm_by_variant") or {},
+                     "gmm_by_shape": kl.get("gmm_by_shape") or {},
+                     "tgmm_by_shape": kl.get("tgmm_by_shape") or {},
+                     "exchanges": rec.get("exchanges") or {}})
+    return rows
+
+
+def ep_launch(tmp: str, cfg: dict, spec: dict, tag: str, device: str, timeout: float):
+    """One run of the trainer through ``parallel.launch`` on the phase's gloo
+    ranks: ``(rc, wall s, events, output tail)``."""
+    path = os.path.join(tmp, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    rc = child_run(launch_cmd(spec["ranks"], "--device", device, "--backend", "gloo",
+                              "--timeout-s", str(int(timeout) - 30), "--config", path,
+                              "--runs-root", os.path.join(tmp, "runs")),
+                   os.path.join(tmp, f"{tag}.out"), timeout)
+    wall = time.perf_counter() - t0
+    events = read_events(os.path.join(tmp, "runs", cfg["name"]))
+    return rc, wall, events, tail_of(os.path.join(tmp, f"{tag}.out"), 10**7)
+
+
+def ep_phase(torch, gm, fa, card, spec: dict, device: str = "cuda"):
+    """A config with an ep axis at full width on its own mesh over gloo ranks
+    on the one card through ``parallel.launch`` (6c: moe-8x40m, 7d:
+    moe-1b). Run A trains ``steps`` steps (6c: a checkpoint at 6, which run
+    B resumes strictly; then arm C at ``ep_capacity_factor`` 1.0 for 3
+    steps). Gates: A's step 1 within the bf16 kernel-vs-plain limits of the
+    same cut on one rank without a mesh (loss 2e-3, gradient norm 2e-2
+    relative: the dispatch sums in another order; bitwise printed); 6c's
+    last loss below 0.9 x step 1's; every rank holds E/ep experts and ran
+    every gmm and tgmm on ``wgmma`` at the receive buffer's rows; no drop
+    at factor 0; B's losses A's within 1e-5; C drops on every step, its
+    ``moe_dropped_tokens_total`` is the sum, its losses finite. Prints the
+    step ms and tok/s beside one rank's, each rank's peak memory and the
+    exchanges' bytes a step. ``device="cpu"`` with small configs rehearses
+    it on the CPU, where only the kernel gates fail."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from mlx_cuda_distributed_pretraining_tpu_torch.models.moe import ep_capacity
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.mesh import mesh_axis_sizes
+
+    label, ranks, steps = spec["label"], spec["ranks"], spec["steps"]
+    failures, perf = [], {}
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        write_corpus(tmp, train_bytes=300_000, val_bytes=70_000)
+        cfg = spec["config"](tmp)
+        seq = cfg["data"]["preprocessing"]["max_context_size"]
+        geo = ep_geometry(gm, spec, seq)
+        log(f"{label}: reduced: layers {spec['layers']} of the config's, batch "
+            f"{spec['rows'] * ranks} of 32 ({spec['rows']} rows a rank), {steps} steps, "
+            f"warmup 2; widths, mesh {cfg['system']['mesh']} and switches the config's; "
+            f"a rank's receive buffer {geo}")
+        t0 = time.perf_counter()
+        ref = ep_reference(torch, gm, fa, cfg, spec, tmp, device)
+        log(f"{label}: one rank (no mesh), the ranks' global batches, in "
+            f"{time.perf_counter() - t0:.1f}s: {ref} [{card}]")
+
+        timeout = 400
+        rc, wall_a, events, out_a = ep_launch(tmp, cfg, spec, "a", device, timeout)
+        windows = [e for e in events if e.get("type") == "step_window"]
+        losses = {e["step"]: e["loss"] for e in windows}
+        norms = {e["step"]: e.get("grad_norm") for e in windows}
+        run_dir = os.path.join(tmp, "runs", cfg["name"])
+        drops = logged_drops(run_dir)
+        run_end = next((e for e in events if e.get("type") == "run_end"), {})
+        log(f"{label}: run A ({ranks} gloo ranks on one card) exit {rc} in {wall_a:.1f}s; "
+            f"losses {[round(losses[k], 5) for k in sorted(losses)]}; drops "
+            f"{[drops[k] for k in sorted(drops)]}")
+        if rc != 0 or sorted(losses) != list(range(1, steps + 1)) or \
+                not all(math.isfinite(x) for x in losses.values()):
+            failures.append(f"{label}: run A exit {rc}, losses {losses}: {out_a[-3000:]}")
+            return failures, perf
+        want_mesh = mesh_axis_sizes(SimpleNamespace(mesh=cfg["system"]["mesh"]), ranks)
+        if f"[launch] rank 0/{ranks} backend gloo device {device}" not in out_a or \
+                f"mesh {want_mesh} over {ranks} rank(s)" not in \
+                open(os.path.join(run_dir, "log.txt")).read():
+            failures.append(f"{label}: run A did not train on the {want_mesh} gloo mesh")
+
+        loss_rel = abs(losses[1] - ref["loss"]) / abs(ref["loss"])
+        norm_rel = abs(norms[1] - ref["grad_norm"]) / ref["grad_norm"]
+        bitwise = losses[1] == round(ref["loss"], 6) and norms[1] == ref["grad_norm"]
+        log(f"{label}: step 1 vs one rank: loss {losses[1]} vs {ref['loss']} (rel "
+            f"{loss_rel:.3g}), grad_norm {norms[1]} vs {ref['grad_norm']} (rel "
+            f"{norm_rel:.3g}); bitwise {bitwise} (the loss at the events' 6 decimals)")
+        if not (loss_rel <= 2e-3 and norm_rel <= 2e-2):
+            failures.append(f"{label}: step 1 differs from one rank: loss rel {loss_rel}, "
+                            f"grad_norm rel {norm_rel}")
+        later = {k: abs(losses[k] - ref["losses"][k - 1]) / abs(ref["losses"][k - 1])
+                 for k in range(2, len(ref["losses"]) + 1)}
+        log(f"{label}: steps 2-{len(ref['losses'])}: losses {[losses[k] for k in later]} vs "
+            f"one rank's {ref['losses'][1:]} (relative {later}; not gated: bf16 sums in "
+            f"another order compound over the updates)")
+        if spec["loss_falls"] and not losses[steps] < 0.9 * losses[1]:
+            failures.append(f"{label}: the loss does not fall: {losses[1]} -> {losses[steps]}")
+        if sorted(drops) != list(range(1, steps + 1)) or any(d != 0 for d in drops.values()):
+            failures.append(f"{label}: drops at ep_capacity_factor 0: {drops}")
+
+        rank_rows = ep_rank_rows(run_end)
+        for row in rank_rows:
+            log(f"{label}: rank {row['rank']}: {row['experts']} experts a layer, gmm "
+                f"{row['gmm_by_variant']} at {row['gmm_by_shape']}, tgmm "
+                f"{row['tgmm_by_variant']} at {row['tgmm_by_shape']}, exchanges "
+                f"{row['exchanges']}, peak memory {row['peak_mem_gb']} GB [{card}]")
+        bad = [row["rank"] for row in rank_rows
+               if row["experts"] != geo["e_loc"] or row["gmm"] <= 0 or row["tgmm"] <= 0
+               or {k for k, n in row["gmm_by_variant"].items() if n} != {"wgmma"}
+               or {k for k, n in row["tgmm_by_variant"].items() if n} != {"wgmma"}
+               or row["gmm_by_variant"].get("wgmma") != row["gmm"]
+               or row["tgmm_by_variant"].get("wgmma") != row["tgmm"]
+               or any(int(k.split(":")[1]) != geo["t_buf"]
+                      for k in list(row["gmm_by_shape"]) + list(row["tgmm_by_shape"]))]
+        if len(rank_rows) != ranks or bad:
+            failures.append(f"{label}: ranks {bad} of {len(rank_rows)}: gmm/tgmm not all "
+                            f"wgmma at {geo['e_loc']} experts and {geo['t_buf']} rows: "
+                            f"{rank_rows}")
+
+        steady = [e for e in windows if e["step"] > 1
+                  and not e.get("goodput", {}).get("ckpt_save_s")]
+        secs = sum(e["toks"] / e["tok_s"] for e in steady)
+        n_steps = sum(e["steps"] for e in steady)
+        ex = rank_rows[0]["exchanges"] if rank_rows else {}
+        perf = {"step_ms": 1e3 * secs / max(n_steps, 1),
+                "tok_s": sum(e["toks"] for e in steady) / secs if secs else None,
+                "one_rank": ref, "run_a_s": wall_a, "layers": spec["layers"],
+                "rows_a_rank": spec["rows"], "ranks": rank_rows, "geometry": geo,
+                "losses": losses, "drops": drops,
+                "exchange_bytes_a_step": ex.get("bytes", 0) / steps,
+                "exchanges_a_step": ex.get("calls", 0) / steps,
+                "later_steps_loss_rel": later,
+                "step1": {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                          "bitwise": bitwise, "one_rank": {k: ref[k] for k in
+                                                           ("loss", "grad_norm")},
+                          label: {"loss": losses[1], "grad_norm": norms[1]}}}
+        log(f"{label}: step {perf['step_ms']:.2f} ms, {perf['tok_s']} tok/s on {ranks} gloo "
+            f"ranks; one rank without a mesh {ref['step_ms']:.2f} ms, {ref['tok_s']:.1f} "
+            f"tok/s; exchanges a step a rank {perf['exchanges_a_step']:.1f}, "
+            f"{perf['exchange_bytes_a_step'] / 2**20:.1f} MiB sent (each rank as much) "
+            f"[{card}]")
+
+        # run B (resume A at the checkpoint), then arm C (capacity factor
+        # 1.0): one after the other, since 7d's ranks share the card
+        later_runs = {}
+        if spec["ckpt"]:
+            later_runs["b"] = dict(cfg, overwrite=False,
+                                   resume={"checkpoint": str(spec["ckpt"]), "strict": True},
+                                   logging=dict(cfg["logging"],
+                                                steps=dict(cfg["logging"]["steps"],
+                                                           checkpoint_interval=0)))
+        if spec["arm_steps"]:
+            c = json.loads(json.dumps(cfg))
+            c["name"] = cfg["name"] + "-capacity"
+            c["model"]["moe"]["ep_capacity_factor"] = 1.0
+            c["training"]["hyperparameters"]["iters"] = spec["arm_steps"]
+            c["logging"]["steps"]["checkpoint_interval"] = 0
+            later_runs["c"] = c
+        done = {tag: ep_launch(tmp, run, spec, tag, device, timeout)
+                for tag, run in later_runs.items()}
+
+        if "b" in done:
+            rc_b, wall_b, ev_b, out_b = done["b"]
+            ev_b = ev_b[len(events):]
+            losses_b = {e["step"]: e["loss"] for e in ev_b if e.get("type") == "step_window"}
+            rel = {k: abs(x - losses[k]) / abs(losses[k]) for k, x in losses_b.items()}
+            max_rel = max(rel.values()) if rel else float("nan")
+            resume_bitwise = bool(rel) and all(losses_b[k] == losses[k] for k in rel)
+            log(f"{label}: run B (resumed at {spec['ckpt']}) exit {rc_b} in {wall_b:.1f}s, "
+                f"steps {sorted(losses_b)}; losses vs A: max relative difference "
+                f"{max_rel:.3g}, bitwise {resume_bitwise}")
+            if rc_b != 0 or sorted(losses_b) != list(range(spec["ckpt"] + 1, steps + 1)) \
+                    or not max_rel <= 1e-5:
+                failures.append(f"{label}: run B exit {rc_b}, losses {losses_b} vs A "
+                                f"{losses}: {out_b[-2000:]}")
+            perf["resume"] = {"max_rel_loss_diff": max_rel, "bitwise": resume_bitwise,
+                              "run_b_s": wall_b}
+
+        if "c" in done:
+            rc_c, wall_c, ev_c, out_c = done["c"]
+            win_c = [e for e in ev_c if e.get("type") == "step_window"]
+            drops_c = logged_drops(os.path.join(tmp, "runs", c["name"]))
+            end_c = next((e for e in ev_c if e.get("type") == "run_end"), {})
+            total = end_c.get("moe_dropped_tokens_total")
+            cap = ep_capacity(geo["tk"], ranks, 1.0)
+            log(f"{label}: arm C (ep_capacity_factor 1.0: {cap} send slots a destination "
+                f"for {geo['tk']} selections) exit {rc_c} in {wall_c:.1f}s; losses "
+                f"{[e['loss'] for e in win_c]}; drops a step {drops_c}; "
+                f"moe_dropped_tokens_total {total}")
+            if rc_c != 0 or len(win_c) != spec["arm_steps"] or \
+                    not all(math.isfinite(e["loss"]) for e in win_c) or \
+                    sorted(drops_c) != list(range(1, spec["arm_steps"] + 1)) or \
+                    not all(d > 0 for d in drops_c.values()) or \
+                    total != sum(drops_c.values()):
+                failures.append(f"{label}: arm C exit {rc_c}, drops {drops_c}, counter "
+                                f"{total}: {out_c[-2000:]}")
+            perf["capacity_arm"] = {"drops": drops_c, "moe_dropped_tokens_total": total,
+                                    "losses": [e["loss"] for e in win_c], "run_c_s": wall_c}
+    perf["seconds"] = time.perf_counter() - t_phase
+    log(f"{label}: the phase took {perf['seconds']:.1f}s")
+    return failures, perf
+
+
+def ep_entries(ep_cases: dict, ep_perf: dict, card: str) -> list:
+    """The kernels line's entries of phases 6c and 7d: the gmm and tgmm at
+    each phase's per-rank shape, with rank 0's launches at that shape in
+    the phase's run A and every rank's beside them. A gmm shape serves a
+    forward and the other product's dX (gate/up's [D -> I] is down's dX
+    shape), so each gmm entry counts both and holds both cases."""
+    out = []
+    for label, group in ep_cases.items():
+        run = ep_perf.get(label) or {}
+        ranks = run.get("ranks") or []
+        bt, t_buf = group["geometry"]["block_t"], group["geometry"]["t_buf"]
+        for kernel, cases in (("gmm", group["gmm"]), ("tgmm", group["tgmm"])):
+            for c in cases:
+                if "_dx_" in c["case"]:
+                    continue
+                K, N = c["shape"][1], c["shape"][2]
+                key = f"wgmma:{t_buf}:{K}:{N}:{bt}"
+                by_rank = [r.get(f"{kernel}_by_shape", {}).get(key, 0) for r in ranks]
+                both = [c] + [d for d in cases if "_dx_" in d["case"]
+                              and (d["shape"][1], d["shape"][2]) == (K, N)]
+                entry = kernel_entry(f"{kernel}_wgmma:{c['case']}", SOURCE,
+                                     REPLACES if kernel == "gmm" else TGMM_REPLACES,
+                                     by_rank[0] if by_rank else 0, c,
+                                     max(d["max_abs_err"] for d in both))
+                entry.update(variant="wgmma", shape=c["shape"], block_t=bt,
+                             launches_by_rank=by_rank, cases=both,
+                             bound_real_ms=c["bound_real_ms"],
+                             bound_buffer_ms=c["bound_buffer_ms"],
+                             geometry=group["geometry"], library=c["library"],
+                             path=f"{label}_{len(ranks)}_gloo_ranks", card=card)
+                out.append(entry)
+        if out:
+            out[-1][f"{label}_phase"] = run
+    return out
+
+
+EP4["config"], EP8["config"] = config_moe_ep4, config_moe_1b
 
 
 # -- phase 8: 100m-muon, the flex path, the other optimizers and the LR finder ----
@@ -5722,6 +6284,7 @@ def kernel_entry(name, source, replaces, launches, row, max_abs_err):
 
 
 def main() -> int:
+    os.environ[RUN_ID_VAR] = f"{os.getpid()}-{time.time_ns()}"
     # torch.compile's caches (the flex_attention yardstick) stay in the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, os.path.join(REPO, "build", "compile_cache", sub))
@@ -5774,14 +6337,28 @@ def main() -> int:
     tp_failures, tp_perf = tp_1b_phase(torch, gm, fa, card)
     failures += tp_failures
     torch.cuda.empty_cache()
+    # 7d and 6c side by side: their ranks are processes of their own (each
+    # phase's gates read its own ranks' counts; the card holds both), and
+    # neither in-process reference reads the launch counters
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        ep_jobs = {spec["label"]: pool.submit(ep_phase, torch, gm, fa, card, spec)
+                   for spec in (EP8, EP4)}
+        ep_perf = {}
+        for label, job in ep_jobs.items():
+            ep_failures, ep_perf[label] = job.result()
+            failures += ep_failures
+    torch.cuda.empty_cache()
     cases = kernel_phase(torch, gm, kernel_check)
     gen_cases = generate_kernel_cases(torch, gm, kernel_check)
     train_cases, tgmm_cases = train_kernel_phase(torch, gm, kernel_check)
     int8_cases = int8_kernel_phase(torch, gm, kernel_check, train_cases)
+    ep_cases = ep_kernel_cases(torch, gm, kernel_check)
     failures += [f"{k} {c['case']} {c['dtype']}: kernel disagrees with plain "
                  f"(max_abs_err {c['max_abs_err']})"
                  for k, group in (("gmm", cases + gen_cases + train_cases),
-                                  ("tgmm", tgmm_cases), ("gmm_int8", int8_cases))
+                                  ("tgmm", tgmm_cases), ("gmm_int8", int8_cases),
+                                  *(("gmm", v["gmm"]) for v in ep_cases.values()),
+                                  *(("tgmm", v["tgmm"]) for v in ep_cases.values()))
                  for c in group if not c["ok"]]
     flash_cases = flash_kernel_phase(torch, gm, fa)
     failures += [f"flash {c['case']} {c['dtype']}: kernels disagree with plain "
@@ -6036,7 +6613,8 @@ def main() -> int:
         fp32_entries.append(entry)
     fp32_entries[-1].update(tp_serve=tps_perf)
     report = json.dumps({"kernels": [gmm_entry, tgmm_entry, tgmm_f32_entry, int8_entry]
-                                    + fp32_entries + flash_entries})
+                                    + fp32_entries + flash_entries
+                                    + ep_entries(ep_cases, ep_perf, card)})
     if failures:  # no result on stdout; the measurements go to stderr
         print(report, file=sys.stderr)
         for f in failures:
@@ -6050,5 +6628,25 @@ def main() -> int:
     return 0
 
 
+def shut_down() -> None:
+    """Stop Inductor's compile workers (the soft_cap yardstick's) and any
+    process of this run still alive, and name the latter on stderr."""
+    async_compile = sys.modules.get("torch._inductor.async_compile")
+    if async_compile is not None:  # at most 20 s: the sweep below kills what is left
+        done = threading.Thread(target=async_compile.shutdown_compile_workers, daemon=True)
+        done.start()
+        done.join(timeout=20)
+    for pid, cmd in stop_leftovers(os.environ[RUN_ID_VAR]):
+        print(f"shutdown: killed process {pid} left running: {cmd[:300]}", file=sys.stderr)
+    left = own_processes(os.environ[RUN_ID_VAR])
+    if left:
+        print(f"shutdown: still alive: {left}", file=sys.stderr)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if RUN_ID_VAR in os.environ:
+            shut_down()
+    sys.exit(code)

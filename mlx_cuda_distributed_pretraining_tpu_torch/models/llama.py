@@ -128,7 +128,7 @@ class LlamaArgs:
     router_z_weight: float = 0.0
     moe_group_size: int = 256  # einsum impl only
     moe_impl: str = "grouped"  # grouped | einsum
-    moe_ep_capacity_factor: float = 0.0  # ep meshes (not ported)
+    moe_ep_capacity_factor: float = 0.0  # ep meshes: send slots (0 = dropless)
     matmul_precision: Optional[str] = None  # None/fp32 | bf16 | int8
 
     @property
@@ -760,11 +760,16 @@ def forward(params: Params, tokens: torch.Tensor, args: LlamaArgs,
 def embed(params: Params, tokens: torch.Tensor, args: LlamaArgs,
           compute_dtype: torch.dtype) -> torch.Tensor:
     """Token embeddings ``[B, S, D]`` in ``compute_dtype``; a vocab-parallel
-    lookup where the table holds this tp rank's rows."""
-    w = params["tok_embeddings"]["weight"].to(compute_dtype)
+    lookup where the table holds this tp rank's rows. The rows are taken
+    from the table in its own dtype and then cast (the values JAX's cast
+    table gives), so the backward sums the gradients of a token's rows in
+    the table's dtype: summed in bf16, a frequent token's thousands of rows
+    lost a fifth of the table's gradient norm (moe-1b, 16,384 tokens of a
+    259-token vocabulary)."""
+    w = params["tok_embeddings"]["weight"]
     if w.shape[0] != args.vocab_size:
-        return current_tp().embed(w, tokens)
-    return w[tokens.long()]
+        return current_tp().embed(w, tokens, compute_dtype)
+    return w[tokens.long()].to(compute_dtype)
 
 
 def output_projection(params: Params, args: LlamaArgs, compute_dtype: torch.dtype):

@@ -30,9 +30,17 @@ Under tensor parallelism the experts are split on their intermediate dim
 grouped SwiGLU on its columns, the gate-weighted combine gives a partial
 sum on ``[T, D]``, and one sum over tp follows it. The router stays
 replicated; its gates enter the combine through ``tp.copy``, so their
-gradient (and the router's) is the same on every tp rank. The
-expert-parallel (``ep`` mesh) dispatch is not ported (ROADMAP queue 1 item
-10b).
+gradient (and the router's) is the same on every tp rank.
+
+Under a mesh that names ``ep`` (more than one rank, E divisible by ep) the
+grouped impl takes the expert-parallel sorted dispatch, as the JAX
+package's ``moe_block`` does under its current mesh
+(:func:`_grouped_moe_ep`): each rank routes its rows, sends them to the
+ranks that hold their experts through one ``all_to_all`` over the ep group,
+runs the grouped SwiGLU over its E/ep experts and sends the rows back
+through a second. ``moe_ep_capacity_factor > 0`` caps the send slots and
+counts the selections past them as dropped. On a mesh that names no
+``ep`` the local path runs (JAX fails there: ``unbound axis name: ep``).
 """
 
 from __future__ import annotations
@@ -43,8 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import grouped_matmul as gm
-from ..parallel.collectives import all_reduce_axes, tp_of
+from ..parallel.collectives import Tp, all_reduce_axes, all_to_all, tp_of
 from ..parallel.context import current_mesh
+from ..parallel.mesh import DATA_AXES
 
 Params = Dict[str, Any]
 
@@ -108,7 +117,10 @@ def router_z_loss(router_logits: torch.Tensor) -> torch.Tensor:
 
 
 def _data_ranks(mesh) -> int:
-    return mesh.axis_size("dp") * mesh.axis_size("fsdp")
+    n = 1
+    for a in DATA_AXES:
+        n *= mesh.axis_size(a)
+    return n
 
 
 # -- quantized expert banks ------------------------------------------------------
@@ -127,6 +139,19 @@ def _expert_bank(experts: Params, name: str, dtype: torch.dtype):
     if "weight_q" in leaf:
         return leaf["weight_q"].to(dtype), leaf["weight_s"]
     return leaf["weight"], None
+
+
+def _maybe_dequant_experts(p: Params, dtype: torch.dtype) -> Params:
+    """``p`` with fp expert banks in ``dtype``: the expert-parallel dispatch
+    ships whole fp banks (JAX's ``_maybe_dequant_experts``), where the
+    local path scales each matmul's result instead."""
+    experts = p["experts"]
+    if not any("weight_q" in leaf or "weight_q4" in leaf for leaf in experts.values()):
+        return p
+    from .quantize import dequantize_leaf
+
+    return {**p, "experts": {name: {"weight": dequantize_leaf(leaf, dtype)}
+                             for name, leaf in experts.items()}}
 
 
 # -- einsum (GShard/Switch) implementation ---------------------------------------
@@ -253,6 +278,146 @@ def _grouped_ffn(experts: Params, x_flat: torch.Tensor, gate_idx: torch.Tensor,
     return out
 
 
+# -- expert parallelism -----------------------------------------------------------
+def _usable_ep_mesh(num_experts: int):
+    """The current mesh when the expert-parallel dispatch applies, else None
+    (the local path): JAX's ``_usable_ep_mesh`` over a mesh of more than one
+    rank whose ``ep`` divides E, that also names ``ep`` (JAX takes the
+    dispatch on a mesh without it and fails on the unbound axis; the port
+    keeps the local path there). JAX also returns None inside another
+    shard_map (a pipeline stage's body); the port has no such body."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1 or "ep" not in mesh.axis_names:
+        return None
+    if num_experts % mesh.axis_size("ep"):
+        return None
+    return mesh
+
+
+def ep_capacity(tk: int, ep: int, factor: float) -> int:
+    """Send slots per (source, destination) pair of the ep exchange for
+    ``tk`` local selections: all of them at ``factor <= 0`` (dropless),
+    else ``factor * tk / ep`` rounded, within ``[1, tk]``."""
+    return tk if factor <= 0 else max(1, min(tk, int(factor * tk / ep + 0.5)))
+
+
+def _local_bank(w: torch.Tensor, num_experts: int, mesh) -> torch.Tensor:
+    """This rank's ``[E/ep, ...]`` block of an expert bank: the bank itself
+    when the train step already split it over ep, else its slice."""
+    ep = mesh.axis_size("ep")
+    if ep > 1 and w.shape[0] == num_experts:
+        e_loc = num_experts // ep
+        return w.narrow(0, mesh.coord("ep") * e_loc, e_loc)
+    return w
+
+
+def _whole_banks(p: Params, num_experts: int, mesh) -> Params:
+    """``p`` with every ep-split expert leaf gathered whole over ep (the
+    einsum impl, which JAX runs under GSPMD on the whole banks); the
+    backward sums the ranks' gradients and keeps this rank's block."""
+    ep = Tp(mesh, "ep")
+    return {**p, "experts": {
+        name: {k: (ep.gather_sum(v, 0) if v.shape[0] * ep.n == num_experts else v)
+               for k, v in leaf.items()}
+        for name, leaf in p["experts"].items()}}
+
+
+def _grouped_moe_ep(p: Params, x: torch.Tensor, gate_idx: torch.Tensor,
+                    gate_w: torch.Tensor, args, mesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel sorted dispatch (JAX's ``_grouped_moe_ep``, its
+    shard_map body on this rank) -> ``(out [b, S, D], dropped)``, ``x``
+    this rank's rows and ``dropped`` the selections past capacity summed
+    over every mesh axis (no gradient).
+
+    Selections are stably sorted by the rank that holds their expert
+    (``id // (E/ep)``), token-major within each, and the first ``cap`` of
+    each go into that rank's ``cap`` send slots; one ``all_to_all`` over
+    the ep group delivers them with their local expert ids (empty slots
+    carry the sentinel id ``E/ep``, which sorts past every real group).
+    The receiver runs the grouped SwiGLU over its ``ep * cap`` rows in
+    ``block_t``-aligned groups (``gm.pick_block_t(ep * cap, E/ep)``) and a
+    second ``all_to_all`` returns the rows; the gate weighting and the
+    combine's scatter-add stay on the source rank, so the gradients run
+    back through the same two exchanges."""
+    tp = tp_of(mesh)
+    if tp is not None:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: expert parallelism with tp > 1 is not ported "
+            "(ROADMAP queue 1 item 10b-tp); train ep without tp")
+    b_l, S, D = x.shape
+    E, K = args.num_local_experts, args.num_experts_per_tok
+    ep = mesh.axis_size("ep")
+    e_loc = E // ep
+    T_l = b_l * S
+    TK = T_l * K
+    cap = ep_capacity(TK, ep, float(args.moe_ep_capacity_factor or 0.0))
+    block_t = gm.pick_block_t(ep * cap, e_loc)
+    dev = x.device
+    p = _maybe_dequant_experts(p, x.dtype)
+    wg, wu, wd = (_local_bank(p["experts"][n]["weight"], E, mesh)
+                  for n in ("w_gate", "w_up", "w_down"))
+
+    xf = x.reshape(T_l, D)
+    ids = gate_idx.reshape(TK)
+    gwf = gate_w.reshape(TK)
+    tok = torch.arange(TK, device=dev) // K
+    dest_shard = ids // e_loc
+    local_eid = ids % e_loc
+
+    # send slots: a stable sort by destination rank (token-major within each)
+    order = torch.argsort(dest_shard, stable=True)
+    ds_s = dest_shard[order]
+    cnt = torch.zeros(ep, dtype=ids.dtype, device=dev).index_add_(
+        0, dest_shard, torch.ones_like(dest_shard))
+    start = torch.cumsum(cnt, 0) - cnt
+    rank = torch.arange(TK, device=dev) - start[ds_s]
+    keep = rank < cap
+    slot = ds_s * cap + rank
+    R = ep * cap
+    slot_put = torch.where(keep, slot, torch.full_like(slot, R))  # row R: dropped
+    send_x = xf.new_zeros((R + 1, D))
+    send_x[slot_put] = xf[tok[order]]
+    send_id = torch.full((R + 1,), e_loc, dtype=ids.dtype, device=dev)
+    send_id[slot_put] = local_eid[order]
+
+    rx = all_to_all(send_x[:R], mesh, "ep")
+    rid = all_to_all(send_id[:R], mesh, "ep")
+
+    # the local grouped FFN over the E/ep resident experts
+    counts = torch.zeros(e_loc + 1, dtype=rid.dtype, device=dev).index_add_(
+        0, rid, torch.ones_like(rid))[:e_loc]  # the sentinels fall off
+    padded = (counts + block_t - 1) // block_t * block_t
+    p_off = torch.cat([padded.new_zeros(1), torch.cumsum(padded, 0)])
+    raw_off = torch.cumsum(counts, 0) - counts
+    order2 = torch.argsort(rid, stable=True)
+    rid_s = rid[order2]
+    real2 = rid_s < e_loc
+    rid_c = rid_s.clamp_max(e_loc - 1)
+    rank2 = torch.arange(R, device=dev) - raw_off[rid_c]
+    T_buf = gm.round_up(R + e_loc * (block_t - 1), block_t)
+    dest2 = torch.where(real2, p_off[rid_c] + rank2, torch.full_like(rank2, T_buf))
+    x_buf = rx.new_zeros((T_buf + 1, D))
+    x_buf[dest2] = rx[order2]
+    x_buf = x_buf[:T_buf]
+
+    gs = padded.to(torch.int32)
+    prec = args.matmul_precision
+    h = F.silu(gm.gmm(x_buf, wg, gs, block_t, prec)) * gm.gmm(x_buf, wu, gs, block_t, prec)
+    y_buf = gm.gmm(h, wd, gs, block_t, prec)
+
+    y_sorted = y_buf[dest2.clamp_max(T_buf - 1)] * real2[:, None].to(y_buf.dtype)
+    y_recv = y_sorted.new_zeros((R, D)).index_copy(0, order2, y_sorted)
+    y_back = all_to_all(y_recv, mesh, "ep")
+
+    y_sel = y_back[slot.clamp_max(R - 1)] * keep[:, None].to(y_back.dtype)
+    out = x.new_zeros((T_l, D))
+    out.index_add_(0, tok[order], (y_sel * gwf[order][:, None].to(y_sel.dtype)).to(out.dtype))
+    # JAX's psum over every mesh axis
+    dropped = all_reduce_axes((TK - keep.sum()).float().detach(), mesh, mesh.axis_names)
+    return out.reshape(b_l, S, D), dropped
+
+
 # -- block entry point -----------------------------------------------------------
 def moe_block(p: Params, x: torch.Tensor, args,
               stats: Optional[list] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -263,7 +428,9 @@ def moe_block(p: Params, x: torch.Tensor, args,
     pre-scaled, ``moe_aux_weight * load_balance + router_z_weight *
     z_loss``; it depends on the router only, so both impls give the same.
     When ``stats`` is a list, this layer's ``{"moe_load" [E],
-    "moe_dropped"}`` (fp32, no gradient) is appended to it."""
+    "moe_dropped"}`` (fp32, no gradient) is appended to it: the load counts
+    this rank's rows (the train step sums it over the data axes), the drops
+    are the global count under a mesh, as in JAX."""
     B, S, D = x.shape
     E, K = args.num_local_experts, args.num_experts_per_tok
     impl = args.moe_impl or "grouped"
@@ -277,18 +444,26 @@ def moe_block(p: Params, x: torch.Tensor, args,
     xe = x if tp is None else tp.copy(x)
 
     if impl == "einsum":
+        if mesh is not None and mesh.axis_size("ep") > 1:
+            p = _whole_banks(p, E, mesh)
         out, dropped = _einsum_moe(p, xe, probs if tp is None else tp.copy(probs), args)
         gate_idx = torch.topk(probs, K, dim=-1)[1]  # stats only
+        if mesh is not None and _data_ranks(mesh) > 1:
+            dropped = all_reduce_axes(dropped.float(), mesh, DATA_AXES)  # global rows
     elif impl == "grouped":
         gate_w, gate_idx = torch.topk(probs, K, dim=-1)
         gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
-        if tp is not None:
-            gate_w = tp.copy(gate_w)
-        out = _grouped_ffn(
-            p["experts"], xe.reshape(B * S, D), gate_idx.reshape(B * S, K),
-            gate_w.reshape(B * S, K), E, gm.pick_block_t(B * S * K, E),
-            precision=args.matmul_precision).reshape(B, S, D)
-        dropped = None
+        ep_mesh = _usable_ep_mesh(E)
+        if ep_mesh is not None:
+            out, dropped = _grouped_moe_ep(p, x, gate_idx, gate_w, args, ep_mesh)
+        else:
+            if tp is not None:
+                gate_w = tp.copy(gate_w)
+            out = _grouped_ffn(
+                p["experts"], xe.reshape(B * S, D), gate_idx.reshape(B * S, K),
+                gate_w.reshape(B * S, K), E, gm.pick_block_t(B * S * K, E),
+                precision=args.matmul_precision).reshape(B, S, D)
+            dropped = None
     else:
         raise ValueError(f"unknown moe impl {impl!r} (grouped|einsum)")
     if tp is not None:
@@ -304,7 +479,7 @@ def moe_block(p: Params, x: torch.Tensor, args,
         rows = B * S * _data_ranks(mesh)
         if aw:
             f = F.one_hot(router_logits.argmax(-1), E).float().sum(dim=(0, 1))
-            f = all_reduce_axes(f, mesh, ("dp", "fsdp")) / rows
+            f = all_reduce_axes(f, mesh, DATA_AXES) / rows
             aux = aux + aw * (E * (f * probs.sum(dim=(0, 1)) / rows).sum())
         if zw:
             z = torch.logsumexp(router_logits, dim=-1)

@@ -24,7 +24,8 @@ of ``x_tile^T @ dy_tile``. Two versions of each function:
   one, fp32 "f32" (3xTF32 on the tensor cores) or, at block_t 8,
   "f32_decode" (a weight stream)), and ``gmm.launches_by_variant`` /
   ``tgmm.launches_by_variant`` count the launches of each
-  (``gmm.launches_by_shape`` by ``(variant, T, K, N, block_t)``);
+  (``gmm.launches_by_shape`` and ``tgmm.launches_by_shape`` by ``(variant,
+  T, K, N, block_t)``);
 - :func:`gmm_plain`, the JAX package's "blocked" formulation in plain
   PyTorch (one weight gather per row tile and one batched matmul, fp32
   accumulation), and :func:`tgmm_plain`, the Pallas kernel's rounding points
@@ -373,8 +374,9 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
     ``x_tile^T @ dy_tile`` with :func:`tgmm_plain`'s rounding points.
 
     CPU tensors run :func:`tgmm_plain`; CUDA tensors launch the
-    :func:`tgmm_variant` kernel on the current stream (``tgmm.launches``
-    and ``tgmm.launches_by_variant`` count the launches)."""
+    :func:`tgmm_variant` kernel on the current stream (``tgmm.launches``,
+    ``tgmm.launches_by_variant`` and ``tgmm.launches_by_shape`` count the
+    launches)."""
     if x.device.type == "cpu":
         return tgmm_plain(x, dy, group_sizes, num_experts, block_t)
     _check(x, dy, group_sizes, block_t, name="tgmm")
@@ -393,6 +395,8 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
         raise RuntimeError(f"tgmm kernel ({kind}) launch failed with CUDA error {err}")
     tgmm.launches += 1
     tgmm.launches_by_variant[kind] += 1
+    shape = (kind, T, K, N, block_t)
+    tgmm.launches_by_shape[shape] = tgmm.launches_by_shape.get(shape, 0) + 1
     return dw
 
 
@@ -621,6 +625,7 @@ def reset_launches() -> None:
     gmm.launches_by_variant = dict.fromkeys(GMM_VARIANTS, 0)
     gmm.launches_by_shape = {}
     tgmm.launches_by_variant = dict.fromkeys(TGMM_VARIANTS, 0)
+    tgmm.launches_by_shape = {}
     gmm_int8.launches_by_variant = dict.fromkeys(GMM_INT8_VARIANTS, 0)
 
 

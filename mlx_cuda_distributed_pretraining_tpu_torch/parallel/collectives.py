@@ -17,6 +17,10 @@ tensor every tp rank then uses alike (the logits; its backward keeps this
 rank's block of the gradient) and ``gather_sum`` for one each rank uses
 its own part of (K/V heads that do not split over tp; its backward sums
 the ranks' gradients and keeps this rank's block).
+
+Expert parallelism (``ep``) exchanges rows with :func:`all_to_all`: an
+equal-split exchange over one axis's group whose backward is the same
+exchange of the gradients.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .mesh import Mesh
 
 
 def spec_axes(spec) -> Tuple[Tuple[int, str], ...]:
@@ -90,6 +96,31 @@ def gather_full(local: torch.Tensor, spec, mesh) -> torch.Tensor:
         if n > 1:
             x = gather_dim(x, d, mesh.group(a), n)
     return x
+
+
+def gather_to_chief(local: torch.Tensor, spec, mesh) -> Optional[torch.Tensor]:
+    """The full tensor on rank 0 from every rank's block, None on the other
+    ranks (a collective all ranks run): one gather over the world, each
+    block placed at its rank's coordinates. A leaf the spec splits over no
+    axis is whole on rank 0 already. On gloo a CUDA block travels through a
+    host buffer."""
+    split = [(d, a) for d, a in spec_axes(spec) if mesh.axis_size(a) > 1]
+    if not split:
+        return local if mesh.rank == 0 else None
+    src = local.contiguous()
+    if src.is_cuda and dist.get_backend() == "gloo":
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(mesh.size)] if mesh.rank == 0 else None
+    dist.gather(src, parts, dst=0)
+    if parts is None:
+        return None
+    shape = list(local.shape)
+    for d, a in split:
+        shape[d] *= mesh.axis_size(a)
+    full = src.new_empty(shape)
+    for r, part in enumerate(parts):
+        full[block_index(spec, shape, Mesh(mesh.shape, rank=r))] = part
+    return full.to(local.device)
 
 
 def world_group(mesh, axes: Sequence[str]):
@@ -164,14 +195,14 @@ def sharded_sum_squares(leaves: Sequence[Tuple[torch.Tensor, Any]], mesh) -> tor
 
 # -- tensor parallelism -------------------------------------------------------------
 class Tp:
-    """The tp axis of a mesh: ``n`` ranks, this rank's ``coord``, the
-    process ``group``."""
+    """The tp axis of a mesh (or another ``axis``): ``n`` ranks, this rank's
+    ``coord``, the process ``group``."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, axis: str = "tp"):
         self.mesh = mesh
-        self.n = mesh.axis_size("tp")
-        self.coord = mesh.coord("tp")
-        self.group = mesh.group("tp")
+        self.n = mesh.axis_size(axis)
+        self.coord = mesh.coord(axis)
+        self.group = mesh.group(axis)
 
     def block(self, full: int) -> Tuple[int, int]:
         """``(start, size)`` of this rank's block of a dim of ``full``."""
@@ -190,15 +221,16 @@ class Tp:
     def gather_sum(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         return _GatherTp.apply(x, dim % x.dim(), self, True)
 
-    def embed(self, weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    def embed(self, weight: torch.Tensor, ids: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Rows ``ids`` of a vocab-parallel table (this rank's ``[V/n, D]``
-        block): each rank looks up the ids in its block, zeros elsewhere,
-        then the sum over tp."""
+        block), cast to ``dtype`` after the lookup: each rank looks up the
+        ids in its block, zeros elsewhere, then the sum over tp."""
         lo, size = self.block(weight.shape[0] * self.n)
         local = ids.long() - lo
         inside = (local >= 0) & (local < size)
-        rows = weight[local.clamp(0, size - 1)] * inside[..., None].to(weight.dtype)
-        return self.reduce(rows)
+        rows = weight[local.clamp(0, size - 1)].to(dtype or weight.dtype)
+        return self.reduce(rows * inside[..., None].to(rows.dtype))
 
 
 def tp_of(mesh) -> Optional[Tp]:
@@ -248,3 +280,48 @@ class _GatherTp(torch.autograd.Function):
             grad = _all_reduce_copy(grad, tp.group)
         lo, size = tp.block(grad.shape[dim])
         return grad.narrow(dim, lo, size).contiguous(), None, None, None
+
+
+# -- expert parallelism -------------------------------------------------------------
+# This process's all_to_all exchanges: calls, and bytes it sent (its own
+# block included), forward and backward.
+EXCHANGES = {"calls": 0, "bytes": 0}
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` with equal splits of dim 0: block i of this
+    rank's ``x`` goes to rank i of ``group``, and block i of the result
+    came from rank i. The bytes travel as ``uint8`` (any dtype, gloo's
+    included). A CUDA tensor on a gloo group is staged through host
+    buffers here (gloo runs its collectives on the host), so the exchange
+    never turns into a gather of every rank's rows."""
+    x = x.contiguous()
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
+    src = x.cpu() if staged else x
+    raw = src.view(torch.uint8).reshape(src.shape[0], -1)
+    out = torch.empty_like(raw)
+    dist.all_to_all_single(out, raw, group=group)
+    EXCHANGES["calls"] += 1
+    EXCHANGES["bytes"] += raw.numel()
+    return out.view(src.dtype).reshape(src.shape).to(x.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The equal-split exchange of ``x``'s dim 0 over the ranks of one mesh
+    axis (JAX's ``all_to_all(x, axis, 0, 0, tiled=True)``), differentiable:
+    its backward sends each gradient block back to the rank it came from.
+    The identity on an axis of one rank."""
+    if mesh is None or mesh.axis_size(axis) <= 1:
+        return x
+    return _AllToAll.apply(x, mesh.group(axis))

@@ -15,7 +15,7 @@ lays out devices, and each axis gets its process groups from a
 - ``tp``   tensor parallel (item 10a).
 
 ``-1`` on one axis means "all remaining ranks". The trainer acts on dp,
-fsdp and tp; the other axes are resolved here as JAX resolves them, so a
+fsdp, ep and tp; sp and pp are resolved here as JAX resolves them, so a
 config's mesh reads the same in both packages, and the trainer refuses
 them. tp is the innermost axis, so the ranks of one tp group are adjacent,
 as JAX's device order puts them.
@@ -29,6 +29,10 @@ from types import SimpleNamespace
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 AXIS_ORDER = ("pp", "dp", "fsdp", "ep", "sp", "tp")
+
+# The batch axes, major first, as ``batch_pspec`` names them: the batch is
+# split over these (tp's ranks share their rows).
+DATA_AXES = ("dp", "fsdp", "ep")
 
 # Axes the serving mesh may use (the JAX package's); the port serves over tp
 # (its dp axis is ROADMAP queue 1 item 10a-dp).
@@ -143,7 +147,7 @@ def data_coords(mesh: Optional[Mesh]) -> Tuple[int, int]:
     if mesh is None:
         return world_rank(), world_size()
     index, count = 0, 1
-    for a in ("dp", "fsdp", "ep"):
+    for a in DATA_AXES:
         index = index * mesh.axis_size(a) + mesh.coord(a)
         count *= mesh.axis_size(a)
     return index, count
@@ -250,13 +254,16 @@ def refuse_serve_dp(sizes) -> None:
 
 
 def refuse_unported_axes(sizes: Dict[str, int]) -> None:
-    """Raise for an axis the trainer does not act on yet (size > 1),
-    naming its ROADMAP item."""
-    items = {"ep": "10b: expert parallelism",
-             "sp": "10c: sequence parallelism and ring attention",
+    """Raise for an axis the trainer does not act on yet (size > 1), and for
+    ep beside tp, naming the ROADMAP item."""
+    items = {"sp": "10c: sequence parallelism and ring attention",
              "pp": "10d: pipeline parallelism"}
     for axis, item in items.items():
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"mesh {sizes}: the {axis!r} axis is not ported "
-                f"(ROADMAP queue 1 item {item}); dp, fsdp and tp train")
+                f"(ROADMAP queue 1 item {item}); dp, fsdp, ep and tp train")
+    if sizes.get("ep", 1) > 1 and sizes.get("tp", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {sizes}: expert parallelism with tp > 1 is not ported (ROADMAP "
+            "queue 1 item 10b-tp); train ep without tp, or tp without ep")

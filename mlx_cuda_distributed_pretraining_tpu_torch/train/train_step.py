@@ -10,7 +10,7 @@ gradients into ``.grad`` and are scaled by ``1/A`` before the update, as
 the JAX scan does; the metrics carry a ``nonfinite`` flag. Metric values
 stay device tensors, so the loop does not wait on the device until it logs.
 
-Under a mesh (``make_train_step(..., mesh=)``, dp and fsdp axes) each rank
+Under a mesh (``make_train_step(..., mesh=)``, dp, fsdp and ep axes) each rank
 holds its blocks of the state (:func:`shard_state`) and runs its rows of
 the global batch, split as ``batch_pspec`` splits them (with accumulation,
 each micro-batch's rows). The loss is JAX's global token-weighted mean:
@@ -31,6 +31,12 @@ same loss. A gradient then needs no sum over tp: a split leaf's is its
 block's, and a tp-replicated leaf's (the norms, the router) comes out the
 same on every tp rank, because every path into it from a split
 computation passes a ``copy`` whose backward sums over tp.
+
+An ``ep`` axis is a data axis (``parallel.mesh.DATA_AXES``) that also
+splits the expert banks: the MoE layers exchange rows with the ranks that
+hold their experts (``models/moe.py`` ``_grouped_moe_ep``), so a bank's
+gradient holds every ep rank's rows and is summed over the other data
+axes only.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ from ..optim.base import FusedTransform, global_norm
 from ..optim.sharded import _map_state, make_sharded_apply
 from ..parallel.context import use_mesh
 from ..parallel.collectives import (all_reduce_axes, all_reduce_bucketed, gather_full,
-                                    shard_of, sharded_sum_squares, spec_axes)
-from ..parallel.mesh import refuse_unported_axes
+                                    gather_to_chief, shard_of, sharded_sum_squares,
+                                    spec_axes)
+from ..parallel.mesh import DATA_AXES, refuse_unported_axes
 from ..parallel.overlap import FsdpPlan, use_plan
 from ..parallel.sharding_rules import batch_pspec, spec_items, state_sharding
 from ..utils.tree import leaves_with_path, tree_map
@@ -172,8 +179,6 @@ def make_eval_step(loss_fn: Callable, mesh: Any = None,
 
 
 # -- the mesh path -----------------------------------------------------------------
-DATA_AXES = ("dp", "fsdp")  # the batch axes the trainer acts on, major first
-# (tp is not one: the ranks of a tp group share their rows)
 
 
 def _fsdp_plan(mesh, params_like):
@@ -202,13 +207,18 @@ def shard_state(state: TrainState, shardings: Dict[str, Any], mesh) -> TrainStat
     return {"params": params, "opt_state": opt_state, "step": state["step"]}
 
 
-def gather_state(state: TrainState, shardings: Dict[str, Any], mesh) -> TrainState:
-    """The full train state from every rank's blocks (a collective)."""
+def gather_state(state: TrainState, shardings: Dict[str, Any], mesh,
+                 chief_only: bool = False) -> TrainState:
+    """The full train state from every rank's blocks (a collective), on
+    every rank; with ``chief_only`` on rank 0 alone (the other ranks'
+    leaves are None): what a checkpoint save needs, without every rank
+    receiving and holding the whole state."""
+    def full(x, s):
+        return (gather_to_chief if chief_only else gather_full)(x.detach(), s, mesh)
+
     with torch.no_grad():
-        params = tree_map(lambda p, s: gather_full(p.detach(), s, mesh),
-                          state["params"], shardings["params"])
-        opt_state = _map_state(lambda x, s: gather_full(x, s, mesh), state["opt_state"],
-                               shardings["opt_state"])
+        params = tree_map(full, state["params"], shardings["params"])
+        opt_state = _map_state(full, state["opt_state"], shardings["opt_state"])
     return {"params": params, "opt_state": opt_state, "step": state["step"]}
 
 
@@ -244,7 +254,9 @@ def _mesh_train_step(loss_fn, optimizer, accum_steps, log_grad_norm,
     plan = _fsdp_plan(mesh, params_like)
     apply = make_sharded_apply(optimizer, mesh, shardings, params_like, zero_level)
     pspecs = [s for _, s in spec_items(shardings["params"])]
-    # each gradient is summed over the data axes its parameter is not split on
+    # each gradient is summed over the data axes its parameter is not split
+    # on: an ep-split expert bank's leaves out ep (the exchange's backward
+    # brought every ep rank's rows into it), every other leaf keeps it
     reduce_axes = [tuple(a for a in DATA_AXES if a not in {ax for _, ax in spec_axes(s)})
                    for s in pspecs]
 
@@ -284,9 +296,8 @@ def _mesh_train_step(loss_fn, optimizer, accum_steps, log_grad_norm,
                                .to(counts.device)])
             all_reduce_axes(out, mesh, DATA_AXES)
             loss, toks = out[0], out[1]
-            if stats is not None:
-                for k in stats:
-                    all_reduce_axes(stats[k], mesh, DATA_AXES)
+            if stats is not None:  # the layers' drop counts are global already
+                all_reduce_axes(stats["moe_load"], mesh, DATA_AXES)
         grads = tree_map(lambda p: p.grad, params)
         metrics = {"loss": loss, "toks": toks,
                    "nonfinite": (~torch.isfinite(loss)).to(torch.int32)}

@@ -95,9 +95,11 @@ step boundary's stop (a signal, a dry stream) through a gloo group on the
 host. tp trains too (``models/llama.py``'s Megatron collectives): the ranks
 of one tp group read the same rows (the loader's position is the rank's
 among the data axes, ``parallel.mesh.data_coords``) and one of them writes
-the group's sidecar, ``step_<N>_data_p<data index>.json``. An ep, sp or pp
-axis above 1 raises, naming its ROADMAP item; so does the LR finder over
-several ranks.
+the group's sidecar, ``step_<N>_data_p<data index>.json``. ep trains too
+(``models/moe.py``'s expert-parallel dispatch): it is a data axis whose
+ranks also split the expert banks. An sp or pp axis above 1 raises, naming
+its ROADMAP item; so do ep beside tp and the LR finder over several
+ranks.
 
 A run directory (written by either trainer) holds ``config.yaml``, the
 tokenizer under ``tokenizer/`` and ``checkpoints/step_<tag>_model.safetensors``
@@ -147,6 +149,7 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer
 from ..optim.factory import build_optimizer
 from ..optim.schedules import build_schedule, schedule_value
+from ..parallel.collectives import EXCHANGES
 from ..parallel.elastic import process_barrier
 from ..parallel.mesh import (
     AXIS_ORDER,
@@ -176,8 +179,8 @@ def resolve_mesh(system_cfg, batch_size: int):
     legacy ``model_parallel``) over the ranks of the world; with none, a
     pure-dp mesh over every rank of a multi-rank world (whose per-rank batch
     it must divide, as JAX requires of its global batch); None for one rank
-    and no mesh. An ep, sp or pp axis above 1 raises, naming its ROADMAP
-    item."""
+    and no mesh. An sp or pp axis above 1 raises, naming its ROADMAP item,
+    and so does ep beside tp."""
     sizes = {k: int(v) for k, v in (system_cfg.mesh or {}).items()}
     if not sizes and system_cfg.model_parallel:
         sizes = {"dp": -1, "tp": max(1, int(system_cfg.model_parallel_size))}
@@ -210,6 +213,12 @@ def kernel_launches() -> Dict[str, Any]:
     from ..ops import grouped_matmul as gm
 
     out: Dict[str, Any] = {n: getattr(gm, n).launches for n in ("gmm", "tgmm", "gmm_int8")}
+    for n in ("gmm", "tgmm"):
+        fn = getattr(gm, n)
+        out[n + "_by_variant"] = dict(fn.launches_by_variant)
+        # "variant:T:K:N:block_t" (JSON keys)
+        out[n + "_by_shape"] = {":".join(map(str, k)): v
+                                for k, v in fn.launches_by_shape.items()}
     for n in fa.FLASH_KERNELS:
         out[n] = getattr(fa, n).launches
         out[n + "_by_variant"] = dict(getattr(fa, n).launches_by_variant)
@@ -395,10 +404,12 @@ class Trainer:
 
     def _full_state(self):
         """The full params and optimizer state (gathered from every rank's
-        blocks under a mesh: a collective all ranks run)."""
+        blocks under a mesh: a collective all ranks run), on the chief; the
+        other ranks' leaves are None."""
         if self.mesh is None:
             return self.state
-        return gather_state(self.state, self.train_step.shardings, self.mesh)
+        return gather_state(self.state, self.train_step.shardings, self.mesh,
+                            chief_only=True)
 
     def _agree(self, *flags: bool) -> List[bool]:
         """Each flag OR-ed over the ranks (the flags themselves on one)."""
@@ -1052,7 +1063,14 @@ class Trainer:
                 # this rank's query heads (its tp block of them)
                 "attention_heads": (self.state["params"]["layers"][0]["attention"]["wq"]
                                     ["weight"].shape[-1] // self.model_args.head_dim
-                                    if self.state["params"]["layers"] else None)}
+                                    if self.state["params"]["layers"] else None),
+                # the ep exchanges (parallel/collectives.py), bytes sent
+                "exchanges": dict(EXCHANGES),
+                # this rank's experts a layer (its ep block of them)
+                "experts": (self.state["params"]["layers"][0]["feed_forward"]["experts"]
+                            ["w_gate"]["weight"].shape[0]
+                            if self.model_args.is_moe and self.state["params"]["layers"]
+                            else None)}
         by_rank = None
         if self._ctrl_group is not None:  # every rank's, in the chief's run_end
             import torch.distributed as dist
@@ -1060,6 +1078,8 @@ class Trainer:
             by_rank = [None] * self.world
             dist.all_gather_object(by_rank, mine, group=self._ctrl_group)
         if self.events is not None:
+            if self.moe_stats_experts:  # the run's global drops, as the registry counts them
+                mine["moe_dropped_tokens_total"] = self._m_moe_dropped.value()
             self.events.append(
                 "run_end", step=step, total_tokens=int(self.total_tokens),
                 final_loss=last_loss, goodput_totals={

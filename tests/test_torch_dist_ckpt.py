@@ -40,6 +40,7 @@ from test_torch_dist_train import (
     jax_step,
     launch,
     launch_worker,
+    shared_once,
     wait_ok,
     write_inputs,
 )
@@ -109,7 +110,10 @@ def _sidecar_config(out):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("dist_ckpt"))
+    return shared_once(tmp_path_factory, "dist_ckpt", _runs)
+
+
+def _runs(out):
     write_inputs(out, {"trainers": _cross_mesh_runs(out)})
     sc = _sidecar_config(out)
     with open(os.path.join(out, "sc.json"), "w") as f:

@@ -30,13 +30,16 @@ devices. Weights are JAX's, inputs numpy from a seed.
   in-memory loader at ``(index i, count 2)``, their batches in process
   order, through JAX's train step on a 2-device mesh.
 
-One launch a world serves every case of the module (a module fixture); the
-launches run while the JAX side computes.
+One launch a world serves every case of the module, once a session
+(``shared_once``: the xdist workers that run the module's tests read one
+result); the launches run while the JAX side computes.
 """
 
+import fcntl
 import functools
 import json
 import os
+import pickle
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -218,10 +221,37 @@ def assert_leaves_close(jtree, got, prefix, tol=1e-5):
                                    atol=tol * max(float(np.abs(j).max()), 1e-30), err_msg=k)
 
 
+def shared_once(tmp_path_factory, name, compute):
+    """``compute(out_dir)`` once for the whole test session: every xdist
+    worker that runs a test of the module takes the same lock in the
+    session's shared temp root, the first computes (its ranks and JAX's
+    steps) and pickles the result, the others read it."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    out = root / name
+    out.mkdir(exist_ok=True)
+    with open(out / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        done = out / "result.pkl"
+        if done.exists():
+            return pickle.loads(done.read_bytes())
+        result = compute(str(out))
+        done.write_bytes(pickle.dumps(result))
+        return result
+
+
+def numpy_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
 # -- the module's launches --------------------------------------------------------------
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("dist_train"))
+    return shared_once(tmp_path_factory, "dist_train", _runs)
+
+
+def _runs(out):
     opt_cases = []
     for label, (mesh, zero) in OPT_MESHES.items():
         for name, case in {**{n: CASES[c] for n, c in OPT_NAMES.items()},
@@ -245,9 +275,11 @@ def runs(tmp_path_factory):
     procs = {"train": launch_worker(4, "train", out), "opt": launch_worker(2, "opt,moe", out),
              "e2e": launch(2, ["--config", e2e["cfg"], "--runs-root", e2e["runs"]],
                            os.path.join(out, "e2e.log"))}
-    ref = {"train": {c["name"]: jax_run(c["mesh"], c["zero"], accum=c.get("accum", 1))
+    ref = {"train": {c["name"]: numpy_tree(jax_run(c["mesh"], c["zero"],
+                                                   accum=c.get("accum", 1)))
                      for c in TRAIN_CASES if not c["overlap"]},
-           "moe": {c["name"]: jax_moe_run(c["mesh"], c["zero"]) for c in MOE_CASES},
+           "moe": {c["name"]: numpy_tree(jax_moe_run(c["mesh"], c["zero"]))
+                   for c in MOE_CASES},
            "e2e": e2e_jax(e2e["dict"])}
     for name, proc in procs.items():
         wait_ok(proc, os.path.join(out, {"train": "train_4.log", "opt": "opt,moe_2.log",

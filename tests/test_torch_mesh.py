@@ -322,11 +322,14 @@ def test_a_coordinator_that_never_answers_raises_within_its_deadline():
                                        ("pp", "10d")])
 def test_unported_axes_are_refused_naming_their_item(tmp_path, axis, item):
     cfg = SimpleNamespace(mesh={"dp": -1, axis: 2}, model_parallel=False)
-    if axis == "tp":  # ported (item 10a): one rank lacks the mesh's ranks
+    if axis in ("tp", "ep"):  # ported (items 10a, 10b): one rank lacks the mesh's ranks
         with pytest.raises(ValueError, match="needs 2 devices, have 1.*parallel.launch "
                                              "--nproc-per-node 2"):
             resolve_mesh(cfg, 8)
         tmesh.refuse_unported_axes({axis: 4})
+        # ep beside tp is not (item 10b-tp)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10b-tp"):
+            tmesh.refuse_unported_axes({"ep": 2, "tp": 2})
     else:
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
             resolve_mesh(cfg, 8)

@@ -68,7 +68,7 @@ from mlx_cuda_distributed_pretraining_tpu_torch.tokenizer import TokenizerManage
 from mlx_cuda_distributed_pretraining_tpu_torch.utils.tree import flatten_dict
 from test_torch_dist_train import REPO, launch, wait_ok
 from test_torch_serve import MAX_TOKENS, PROMPTS, _random_params, _schedule
-from test_torch_tp_train import shared_once
+from test_torch_dist_train import shared_once
 
 WORKER = os.path.join(REPO, "tests", "torch_tp_serve_worker.py")
 BASE = dict(vocab_size=260, hidden_size=32, intermediate_size=64, num_layers=2,

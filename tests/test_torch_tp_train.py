@@ -17,7 +17,9 @@ from a seed, tokens under a vocabulary of 256 so the tables split over tp.
   cases, where JAX against itself on one device breaks the same limit:
   ``tests/tp_adamw_drift.py``). 5 steps: losses and
   ``grad_norm`` within 1e-5 relative, every param and optimizer leaf
-  within 1e-5 of its largest entry.
+  within 1e-5 of its largest entry; one of those three cases also runs
+  AdamW, at a leaf limit of 1e-4 (``ADAMW_LEAF_TOL``: in float64 both
+  packages agree to within 0.00245x of 1e-5).
 - A {tp: 4} ZeRO-1 checkpoint at step 3 resumes at one rank and at
   {fsdp: 2, tp: 2}, and JAX's step-3 files resume on {tp: 4}: steps 4-5
   against the uninterrupted run and JAX's.
@@ -28,10 +30,8 @@ from a seed, tokens under a vocabulary of 256 so the tables split over tp.
   the JAX trainer's at 2 processes.
 """
 
-import fcntl
 import json
 import os
-import pickle
 
 import jax
 import numpy as np
@@ -53,6 +53,8 @@ from test_torch_dist_train import (
     jax_params,
     launch,
     launch_worker,
+    numpy_tree,
+    shared_once,
     wait_ok,
     write_inputs,
 )
@@ -89,7 +91,18 @@ CASES = [
     dict(name="tp4_moe", mesh=TP4, zero=0, model="moe", ce=0, training=MOE_TRAINING),
     dict(name="fsdp2tp2_z1_moe", mesh=FSDP2TP2, zero=1, model="moe", ce=0,
          training=MOE_TRAINING),
+    # AdamW over a data axis x ZeRO-1 x tp, at ADAMW_LEAF_TOL
+    dict(name="dp2tp2_z1_dense_fused_z_dots_adamw", mesh=DP2TP2, zero=1, model="dense",
+         ce=16, z=Z, remat="dots"),
 ]
+# The leaf limit of AdamW cases: in fp32 the worst element of this mesh's
+# case lands at 6.51x 1e-5 of its leaf's largest entry (JAX on one device
+# against JAX on the mesh: 4.58x at the same element); with both packages in
+# float64 the port stays within 0.00245x of 1e-5 on every case
+# (tests/tp_adamw_drift.py --float64): the excess is fp32 rounding of
+# reordered sums that Adam's normalization magnifies where the second
+# moment is small, so 1e-4 of the largest entry holds the fp32 run.
+ADAMW_LEAF_TOL = 1e-4
 CKPT = dict(mesh=TP4, zero=1, model="gqa", ce=16, z=Z)
 GRAD_CASES = [dict(name="tp4_moe", mesh=TP4, model="moe"),
               dict(name="dp2tp2_gqa", mesh=DP2TP2, model="gqa", ce=16, z=Z, remat="dots")]
@@ -137,10 +150,6 @@ def jax_run(case, steps=range(5), state=None, save_at=None):
     return state, np.array(metrics)
 
 
-def numpy_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
 def e2e_tp(out):
     """The launcher's trainer at {dp: -1, tp: 2} on 4 ranks (2 data ranks)."""
     e2e = e2e_setup(out)
@@ -150,26 +159,6 @@ def e2e_tp(out):
     with open(e2e["cfg"], "w") as f:
         json.dump(cfg, f)
     return e2e
-
-
-def shared_once(tmp_path_factory, name, compute):
-    """``compute(out_dir)`` once for the whole test session: every xdist
-    worker that runs a test of the module takes the same lock in the
-    session's shared temp root, the first computes (its ranks and JAX's
-    steps) and pickles the result, the others read it."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent
-    out = root / name
-    out.mkdir(exist_ok=True)
-    with open(out / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        done = out / "result.pkl"
-        if done.exists():
-            return pickle.loads(done.read_bytes())
-        result = compute(str(out))
-        done.write_bytes(pickle.dumps(result))
-        return result
 
 
 @pytest.fixture(scope="module")
@@ -207,21 +196,22 @@ def _runs(out):
     return out, ref, e2e
 
 
-def _check(got, jstate, jmetrics, opt=True):
+def _check(got, jstate, jmetrics, opt=True, tol=1e-5):
     tm = got["metrics"]
     np.testing.assert_allclose(tm[:, 0], jmetrics[:, 0], rtol=1e-5)  # loss
     np.testing.assert_allclose(tm[:, 1], jmetrics[:, 1], rtol=1e-5)  # grad_norm
     np.testing.assert_array_equal(tm[:, 2], jmetrics[:, 2])  # global real tokens
-    assert_leaves_close(jstate["params"], got, "p.")
+    assert_leaves_close(jstate["params"], got, "p.", tol)
     if opt:
-        assert_leaves_close(jstate["opt_state"], got, "o.")
+        assert_leaves_close(jstate["opt_state"], got, "o.", tol)
 
 
 @pytest.mark.parametrize("case", [c["name"] for c in CASES])
 def test_tp_train_step_matches_jax_on_four_ranks(runs, case):
     out, ref, _ = runs
     jstate, jmetrics = ref["train"][case]
-    _check(np.load(os.path.join(out, f"tp_{case}.npz")), jstate, jmetrics)
+    _check(np.load(os.path.join(out, f"tp_{case}.npz")), jstate, jmetrics,
+           tol=ADAMW_LEAF_TOL if case.endswith("adamw") else 1e-5)
 
 
 @pytest.mark.parametrize("where", ["uninterrupted", "resume_one", "resume_fsdp2_tp2",

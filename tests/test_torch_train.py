@@ -466,13 +466,14 @@ def test_trainer_runs_and_its_run_loads_in_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    # moe-8x40m's expert-parallel mesh: ep is ROADMAP queue 1 item 10b (dp
-    # and fsdp meshes train over several ranks: tests/test_torch_dist_train.py;
-    # a mesh that resolves to one device trains: test_torch_moe_train).
+    # expert parallelism beside tp is ROADMAP queue 1 item 10b-tp (dp, fsdp
+    # and ep meshes train over several ranks: tests/test_torch_dist_train.py,
+    # test_torch_ep_train.py; a mesh that resolves to one device trains:
+    # test_torch_moe_train).
     d = _config_dict(tmp_path)
     d["model"]["moe"] = {"num_local_experts": 4, "num_experts_per_tok": 2}
-    d["system"]["mesh"] = {"dp": -1, "ep": 4}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+    d["system"]["mesh"] = {"dp": -1, "ep": 2, "tp": 2}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10b-tp"):
         Trainer(TConfig.from_dict(d), runs_root=str(tmp_path / "r1"),
                 quiet=True, device="cpu")
     # (every optimizer of the JAX factory trains now:
@@ -668,3 +669,24 @@ def test_architecture_sets_attention_as_the_jax_trainer(tmp_path, arch, flash):
     forced = {"llama_standard": "simple", "llama_flash": "flash"}.get(arch.lower())
     assert ttr.model_args.attention_type == (forced or ("flash" if flash else "simple"))
     assert ttr.arch.name == jtr.arch.name
+
+
+def test_bf16_embedding_gradient_sums_a_tokens_rows_in_fp32():
+    # Under bf16 compute the gradients of a frequent token's rows are summed
+    # into the fp32 table: summed in bf16 (the cast table's own gradient),
+    # 4,096 rows of one token lost ~7% of the table's gradient here, and a
+    # fifth of its norm at moe-1b's step 1 on the card.
+    g = torch.Generator().manual_seed(0)
+    V, D = 16, 64
+    w = (torch.randn(V, D, generator=g) * 0.02).requires_grad_(True)
+    tokens = torch.zeros(1, 4096, dtype=torch.long)
+    tokens[0, ::7] = torch.randint(1, V, (len(range(0, 4096, 7)),), generator=g)
+    dy = torch.randn(1, 4096, D, generator=g).to(torch.bfloat16)
+    x = tl.embed({"tok_embeddings": {"weight": w}}, tokens,
+                 tl.LlamaArgs(vocab_size=V, hidden_size=D), torch.bfloat16)
+    assert x.dtype == torch.bfloat16
+    assert torch.equal(x, w.detach().to(torch.bfloat16)[tokens])  # JAX's values
+    x.backward(dy)
+    want = torch.zeros(V, D, dtype=torch.float64).index_add_(0, tokens[0], dy[0].double())
+    err = (w.grad.double() - want).norm() / want.norm()
+    assert err < 1e-6, err

@@ -30,6 +30,18 @@ Tasks:
 - ``tpgrad``: one backward on {tp: 4} (and {dp: 2, tp: 2}); every rank's
   gradient of each tp-replicated leaf, gathered to rank 0.
 
+- ``ep``: every case of ``spec.json``'s ``ep`` (a model of ``ep_models``,
+  a mesh with an ep axis, ZeRO level, remat, ``moe_ep_capacity_factor``,
+  ``matmul_precision``, the MoE impl, training), 5 steps from
+  ``ep_<model>.npz``, with each step's routing stats.
+- ``epfwd``: the MoE block of ``ep_fwd``'s cases forward under the mesh on
+  ``ep_fwd_x.npz``'s rows (fp or quantized expert banks), every rank's
+  output gathered to rank 0 with the drop count and the aux loss (summed
+  over the ranks).
+- ``epckpt`` / ``epresume``: as ``tpckpt`` / ``tpresume`` for
+  ``spec.json``'s ``ep_ckpt`` (files in ``ep_ckpt_port/``, JAX's in
+  ``ep_ckpt_jax/``) and ``ep_resume_mesh``.
+
 TASK may name several, comma-separated, run in order in one world.
 """
 
@@ -62,6 +74,20 @@ TASKS, OUT = sys.argv[1].split(","), sys.argv[2]
 SPEC = json.load(open(os.path.join(OUT, "spec.json")))
 RANK = dist.get_rank() if dist.is_initialized() else 0
 torch.manual_seed(0)
+
+
+def float64_everywhere():
+    """``spec.json``'s ``float64`` (``tests/tp_adamw_drift.py --float64``):
+    the port's fp32 pins name float64 in this process (``torch.float32``
+    rebound, ``Tensor.float`` made ``double``), so its weights, inputs,
+    compute and optimizer state are all float64."""
+    torch.set_default_dtype(torch.float64)
+    torch.float32 = torch.float64
+    torch.Tensor.float = torch.Tensor.double
+
+
+if SPEC.get("float64"):
+    float64_everywhere()
 
 
 def mesh_of(sizes):
@@ -248,6 +274,89 @@ def tp_grad_task():
         save(f"tp_grad_{case['name']}.npz", **out)
 
 
+def ep_case_args(case):
+    return tl.LlamaArgs(**dict(SPEC["ep_models"][case["model"]],
+                               moe_ep_capacity_factor=case.get("factor", 0.0),
+                               matmul_precision=case.get("precision"),
+                               moe_impl=case.get("impl", "grouped")))
+
+
+def ep_step(case):
+    margs = ep_case_args(case)
+    loss = ts.make_loss_fn(margs, torch.float32, ce_chunk=0, remat=case.get("remat"),
+                           with_moe_stats=True)
+    init = f"ep_{case['model']}.npz"
+    mesh, opt, step = step_fn(case["mesh"], case["zero"], False, init, loss,
+                              margs.num_local_experts, case.get("training"))
+    return mesh, opt, step, init
+
+
+def run_ep_steps(mesh, step, state, steps):
+    out, routing = [], []
+    for b in [batches()[i] for i in steps]:
+        local = {k: v.contiguous() for k, v in ts.local_rows(b, mesh).items()}
+        state, m = step(state, local)
+        out.append((float(m["loss"]), float(m["grad_norm"]), float(m["toks"])))
+        routing.append((float(m["moe_dropped"]), *m["moe_load"].tolist()))
+    return state, out, routing
+
+
+def ep_write(name, state, step, mesh, metrics, routing):
+    full = ts.gather_state(state, step.shardings, mesh)
+    save(name, metrics=np.array(metrics, np.float64), routing=np.array(routing, np.float64),
+         **{"p." + k: v for k, v in flat_numpy(full["params"]).items()},
+         **{"o." + k: v for k, v in flat_numpy(full["opt_state"]).items()})
+
+
+def ep_fwd_task():
+    from mlx_cuda_distributed_pretraining_tpu_torch.models import moe as tmoe
+    from mlx_cuda_distributed_pretraining_tpu_torch.parallel.context import use_mesh
+
+    x_all = load_flat("ep_fwd_x.npz")["x"]
+    for case in SPEC["ep_fwd"]:
+        mesh = mesh_of(case["mesh"])
+        margs = ep_case_args(case)
+        flat = {k[len("ff."):]: v for k, v in load_flat(case["params"]).items()}
+        p = params_from_flat(flat, "cpu")
+        x = ts.local_rows({"x": x_all}, mesh)["x"].contiguous()
+        stats = []
+        with use_mesh(mesh), torch.no_grad():
+            out, aux = tmoe.moe_block(p, x, margs, stats)
+        got = [torch.empty_like(out) for _ in range(mesh.size)]
+        dist.all_gather(got, out.contiguous())
+        aux = aux.detach().clone()
+        dist.all_reduce(aux)  # each rank's share of the global mean
+        save(f"ep_fwd_{case['name']}.npz", out=torch.cat(got).numpy(),
+             dropped=float(stats[0]["moe_dropped"]), aux=float(aux))
+
+
+def ep_ckpt_task():
+    case = SPEC["ep_ckpt"]
+    mesh, opt, step, init = ep_step(case)
+    state, first, r1 = run_ep_steps(mesh, step, fresh_state(mesh, opt, step, init), range(3))
+    save_checkpoint(os.path.join(OUT, "ep_ckpt_port"), 3, state, step, mesh)
+    state, rest, r2 = run_ep_steps(mesh, step, state, range(3, 5))
+    ep_write("ep_ckpt_uninterrupted.npz", state, step, mesh, first + rest, r1 + r2)
+    ready = os.path.join(OUT, "ep_ckpt_jax", ".ready")  # the test writes JAX's files
+    deadline = time.monotonic() + 300
+    while not os.path.exists(ready) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    state = load_checkpoint(os.path.join(OUT, "ep_ckpt_jax"), 3,
+                            fresh_state(mesh, opt, step, init), step, mesh, opt, init)
+    state, rest, r2 = run_ep_steps(mesh, step, state, range(3, 5))
+    ep_write("ep_from_jax.npz", state, step, mesh, rest, r2)
+
+
+def ep_resume_task():
+    case = dict(SPEC["ep_ckpt"], mesh=SPEC["ep_resume_mesh"])
+    mesh, opt, step, init = ep_step(case)
+    state = load_checkpoint(os.path.join(OUT, "ep_ckpt_port"), 3,
+                            fresh_state(mesh, opt, step, init), step, mesh, opt, init)
+    state, rest, r2 = run_ep_steps(mesh, step, state, range(3, 5))
+    name = "_".join(f"{k}{v}" for k, v in SPEC["ep_resume_mesh"].items()) or "one"
+    ep_write(f"ep_resume_{name}.npz", state, step, mesh, rest, r2)
+
+
 for TASK in TASKS:
     if TASK == "tp":
         for case in SPEC["tp"]:
@@ -260,6 +369,19 @@ for TASK in TASKS:
         tp_resume_task()
     elif TASK == "tpgrad":
         tp_grad_task()
+    elif TASK == "ep":
+        for case in SPEC["ep"]:
+            mesh, opt, step, init = ep_step(case)
+            state, metrics, routing = run_ep_steps(mesh, step,
+                                                   fresh_state(mesh, opt, step, init),
+                                                   range(case.get("steps", 5)))
+            ep_write(f"ep_{case['name']}.npz", state, step, mesh, metrics, routing)
+    elif TASK == "epfwd":
+        ep_fwd_task()
+    elif TASK == "epckpt":
+        ep_ckpt_task()
+    elif TASK == "epresume":
+        ep_resume_task()
     elif TASK == "moe":
         moe_task()
     elif TASK == "train":

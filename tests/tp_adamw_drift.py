@@ -12,7 +12,18 @@ misses most, each one's worst element against the tests' limit (1e-5 of
 the JAX leaf's largest entry) beside JAX's one-device run's, and the
 second moment (``nu``) at the port's worst elements.
 
-    env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/tp_adamw_drift.py OUT_DIR
+    env PYTHONPATH=. JAX_PLATFORMS=cpu python tests/tp_adamw_drift.py OUT_DIR [--float64]
+
+``--float64`` runs all three in float64: the weights, the inputs and the
+optimizer state, with ``jax_enable_x64`` in this process only and the
+port's ranks told so through ``spec.json`` (``tests/torch_dist_worker.py``
+``float64_everywhere``). Both packages pin fp32 at the same places (RMSNorm,
+RoPE, the logits, the router, AdamW's moments and update: port
+``models/llama.py:258``, ``:346``, ``:791``, ``models/moe.py:270``,
+``optim/fused.py:41``, ``:70``, ``:83``; JAX's ``astype(jnp.float32)`` at
+the same sites); in this mode those pins name float64 in both processes
+(``jnp.float32`` and ``torch.float32`` rebound, ``Tensor.float`` made
+``double``), so no step of either side rounds to fp32.
 """
 
 import os
@@ -21,6 +32,14 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import conftest  # noqa: E402,F401  (8 virtual CPU devices, before JAX starts)
 import numpy as np  # noqa: E402
+
+FLOAT64 = "--float64" in sys.argv
+if FLOAT64:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_enable_x64", True)
+    jnp.float32 = jnp.float64  # the JAX package's fp32 pins, float64 here
 import test_torch_tp_train as T  # noqa: E402
 from test_torch_dist_train import launch_worker, wait_ok, write_inputs  # noqa: E402
 
@@ -36,20 +55,28 @@ CASES = [  # the three cases of the test under AdamW, and tp4 (AdamW there too)
 ]
 
 
+DTYPE = np.float64 if FLOAT64 else np.float32
+if FLOAT64:
+    _jax_params, _batches = T.jax_params, T.batches
+    T.jax_params = lambda *a: __import__("jax").tree_util.tree_map(
+        lambda x: np.asarray(x, np.float64), _jax_params(*a))
+    T.batches = lambda *a: [dict(b, mask=b["mask"].astype(np.float64)) for b in _batches(*a)]
+
+
 def ratios(ref, other, tol=1e-5):
     """{leaf: |other - ref| / (tol x max|ref|)} over ref's float leaves."""
     out = {}
     for k, j in ref.items():
         if isinstance(j, np.ndarray) and j.dtype.kind == "f":
-            j = j.astype(np.float32)
-            out[k] = np.abs(np.asarray(other[k], np.float32) - j) / (
+            j = j.astype(DTYPE)
+            out[k] = np.abs(np.asarray(other[k], DTYPE) - j) / (
                 tol * max(float(np.abs(j).max()), 1e-30))
     return out
 
 
 def main(out):
     os.makedirs(out, exist_ok=True)
-    write_inputs(out, {"tp_models": T.MODELS, "tp": CASES})
+    write_inputs(out, {"tp_models": T.MODELS, "tp": CASES, "float64": FLOAT64})
     np.savez(os.path.join(out, "batches.npz"),
              **{f"{k}_{i}": v for i, b in enumerate(T.batches()) for k, v in b.items()})
     for name, model in T.MODELS.items():
@@ -60,7 +87,7 @@ def main(out):
         j1, jm1 = T.jax_run(dict(c, mesh={"dp": 1}, zero=0))
         js, j1 = T.numpy_tree(js), T.numpy_tree(j1)
         got = np.load(os.path.join(out, f"tp_{c['name']}.npz"))
-        print(f"== {c['name']} (AdamW)")
+        print(f"== {c['name']} (AdamW, {'float64' if FLOAT64 else 'fp32'})")
         for i, what in ((0, "loss"), (1, "grad_norm")):
             print(f"  {what}: port {np.abs(got['metrics'][:, i] / jm[:, i] - 1).max():.3g}, "
                   f"JAX one device {np.abs(jm1[:, i] / jm[:, i] - 1).max():.3g} (relative)")
@@ -83,4 +110,4 @@ def main(out):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main([a for a in sys.argv[1:] if not a.startswith("--")][0])
